@@ -1,0 +1,678 @@
+"""Static-shape padded hierarchy artifacts, and their move to a device.
+
+Counterpart of `bsms_gnn_tpu/graph/hierarchy.py`, cut to the unbucketed
+windowed build the serving path runs: `build_hierarchy` → `pad_levels` →
+`_pad_level` / `_pad_trans_layout`, with the per-chunk source windows
+(`_window_vote`, `_window_tables`), the compact residual tables
+(`_compact_resid`) and the component-major fiber (`_fiber_t`). The arrays
+equal the JAX package's array for array; the ELL tables, the mini residual
+sub-layouts, the size buckets and the npz cache are not built here.
+
+Padding convention: nodes pad to N_pad (always > N); pad edge slots connect
+pad node N_pad-1 to itself and carry weight 0, so garbage never reaches a
+real node. Every 128-node receiver block's edge segment pads to a multiple
+of `edge_block` slots, at least one chunk per block.
+
+`to_device` turns a built hierarchy into the same dataclasses holding
+tensors, plus the per-block chunk and visit ranges the CUDA kernels walk.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bsms_gnn_tpu_torch.device import resolve_device
+from bsms_gnn_tpu_torch.graph.bistride import (
+    BistrideLevels,
+    build_bistride_levels,
+    smoothed_positions,
+    transition_edge_weights,
+)
+from bsms_gnn_tpu_torch.graph.csr import CsrGraph
+
+EDGE_BLOCK = 128
+NODE_BLOCK = 128
+# Transitions whose input and output pads are at most this wide (and that
+# are not windowed) also carry a dense [N_out, N_in] operator matrix.
+DENSE_TRANS_MAX = 2048
+
+
+def _pad_to(n: int, multiple: int, minimum: int = 0) -> int:
+    n = max(n, minimum)
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclass
+class CompactResid:
+    """Dense (per-real-edge) residual tables: the out-of-window edges,
+    receiver-sorted and padded only to the next 128 rows. The aggregate runs
+    one VISIT per (128-row input block × output node-block) incidence."""
+
+    senders: np.ndarray  # [Rp] int32 absolute (pad → n_pad-1)
+    receivers: np.ndarray  # [Rp] int32 absolute, non-decreasing (pad → n_pad-1)
+    ew: np.ndarray  # [Rp] f64 (pad 0)
+    ew_rev: np.ndarray  # [Rp] f64 twin's weight (levels; == ew for TransOps)
+    fiber: np.ndarray  # [Rp, pd1] f64 (zeros when no positions)
+    twin: np.ndarray  # [Rp] int32 compact row of the reverse edge (or identity)
+    visit_block: np.ndarray  # [V] int32 output node-block (non-decreasing)
+    visit_cblk: np.ndarray  # [V] int32 input 128-row block of compact rows
+    visit_recv: np.ndarray  # [ceil(V/8)*8, 128] int32 LOCAL recv row (-1 = masked)
+    n_real: int = 0
+    n_pad_nodes: int = 0
+    symmetric: bool = True
+    # Set by to_device: [n_pad_nodes/128 + 1] int32, visits of block b are
+    # visit_ptr[b] .. visit_ptr[b+1].
+    visit_ptr: Optional[torch.Tensor] = None
+
+    @property
+    def n_rows(self) -> int:
+        return self.senders.shape[-1]
+
+
+@dataclass
+class LevelGraph:
+    """One level's padded static graph. All index arrays are int32.
+    Real edges are grouped by their receiver's 128-node block (sender-sorted
+    within a block on windowed layouts), each block segment padded to a
+    multiple of `edge_block` slots; real slots are flagged by edge_mask."""
+
+    senders: np.ndarray  # [E_pad]
+    receivers: np.ndarray  # [E_pad]
+    recv_indptr: np.ndarray  # [N_pad+1] layout offset of each node's edges
+    deg: np.ndarray  # [N_pad] f32 out-degree over real edges (>= 1)
+    node_mask: np.ndarray  # [N_pad, 1] f32, 1.0 for real nodes
+    edge_mask: np.ndarray  # [E_pad] f32, 1.0 for real edge slots
+    reverse_perm: np.ndarray  # [E_pad] int32 slot of each edge's reverse
+    ew: np.ndarray  # [E_pad] f64 transition-conv weights (pad 0)
+    fiber: np.ndarray  # [E_pad, pos_dim+1] f64 static [Δpos, ‖Δpos‖]
+    n_nodes: int
+    n_edges: int
+    edge_block: int = EDGE_BLOCK
+    ew_rev: Optional[np.ndarray] = None  # [E_pad] f64
+    # Windowed tables: send_win is each slot's sender relative to its
+    # chunk's source window (sentinel `window` = out of window, or pad);
+    # win_base maps each chunk to its window's half-window block index
+    # (window = rows [b·W/2, b·W/2 + W)).
+    send_win: Optional[np.ndarray] = None  # [E_pad] int32
+    win_base: Optional[np.ndarray] = None  # [E_pad // edge_block] int32
+    cresid: Optional[CompactResid] = None
+    window: int = 0
+    skip_empty: bool = False
+    # Component-major static fiber [8, E_pad] f32: rows [0, pd1) = fiber
+    # components, row pd1 = constant 1.0 carrying the first bias, rest 0.
+    fiber_t: Optional[np.ndarray] = None
+    # Set by to_device: [n_pad/128 + 1] int32, chunks of output block b are
+    # chunk_ptr[b] .. chunk_ptr[b+1]; chunk_block [num_chunks] int32 is the
+    # output block of each chunk.
+    chunk_ptr: Optional[torch.Tensor] = None
+    chunk_block: Optional[torch.Tensor] = None
+
+    @property
+    def n_pad_nodes(self) -> int:
+        return self.deg.shape[-1]
+
+    @property
+    def n_pad_edges(self) -> int:
+        return self.senders.shape[-1]
+
+
+@dataclass
+class TransOp:
+    """Rectangular weighted-aggregation operator: one fused level
+    transition, `out = M @ x` with M_down[k, i] = Σ_{e=(i → kept_k)} ew_e
+    and M_up = M_downᵀ. The layout mirrors LevelGraph's receiver-sorted
+    block-aligned scheme over the OUTPUT space; windowed tables index the
+    INPUT space."""
+
+    senders: np.ndarray  # [E_pad] INPUT-space rows
+    receivers: np.ndarray  # [E_pad] OUTPUT-space rows (block-sorted)
+    recv_indptr: np.ndarray  # [N_out_pad + 1]
+    ew: np.ndarray  # [E_pad] f64 operator coefficients (0 on pad slots)
+    n_in_pad: int
+    edge_block: int = EDGE_BLOCK
+    send_win: Optional[np.ndarray] = None  # [E_pad] rel. window idx
+    win_base: Optional[np.ndarray] = None  # [E_pad // edge_block] int32
+    # Out-of-window entries (receivers in OUTPUT space, senders in INPUT
+    # space, symmetric=False).
+    cresid: Optional[CompactResid] = None
+    window: int = 0
+    skip_empty: bool = False
+    # Dense [N_out_pad, N_in_pad] f32 form, built for small unwindowed ops.
+    dense: Optional[np.ndarray] = None
+    chunk_ptr: Optional[torch.Tensor] = None  # set by to_device
+    chunk_block: Optional[torch.Tensor] = None  # set by to_device
+
+    @property
+    def n_pad_nodes(self) -> int:  # OUTPUT rows
+        return self.recv_indptr.shape[-1] - 1
+
+    @property
+    def n_pad_edges(self) -> int:
+        return self.senders.shape[-1]
+
+
+@dataclass
+class Transition:
+    """Fused conv→pool (`down_op`) and unpool→conv (`up_op`) operators
+    between level l (parent) and level l+1 (child)."""
+
+    down_op: TransOp
+    up_op: TransOp
+
+
+@dataclass
+class Hierarchy:
+    levels: Tuple[LevelGraph, ...]
+    transitions: Tuple[Transition, ...]
+
+    @property
+    def depth(self) -> int:
+        return len(self.transitions)
+
+
+def _compact_resid(
+    s: np.ndarray, r: np.ndarray, ew: np.ndarray, ew_rev: np.ndarray,
+    n_pad: int, lvl_pos: Optional[np.ndarray], symmetric: bool,
+    n_in_pad: Optional[int] = None,
+) -> CompactResid:
+    """Build CompactResid from raw (unsorted) residual edges. `n_in_pad`
+    (rectangular operators) sets the sender pad row; receivers live in the
+    `n_pad` output space."""
+    s = np.asarray(s, np.int64)
+    r = np.asarray(r, np.int64)
+    order = np.lexsort((s, r))
+    s, r = s[order], r[order]
+    ew = np.asarray(ew, np.float64)[order]
+    ew_rev = np.asarray(ew_rev, np.float64)[order]
+    n = s.shape[0]
+    rp = max(-(-n // 128) * 128, 128)
+
+    senders = np.full(rp, (n_in_pad or n_pad) - 1, np.int32)
+    receivers = np.full(rp, n_pad - 1, np.int32)
+    senders[:n] = s
+    receivers[:n] = r
+    ew_p = np.zeros(rp, np.float64)
+    ew_p[:n] = ew
+    ewr_p = np.zeros(rp, np.float64)
+    ewr_p[:n] = ew_rev
+
+    pd1 = 1 if lvl_pos is None else lvl_pos.shape[1] + 1
+    fiber = np.zeros((rp, pd1), np.float64)
+    if lvl_pos is not None and n:
+        p = np.asarray(lvl_pos, np.float64)
+        d = p[s] - p[r]
+        fiber[:n] = np.concatenate(
+            [d, np.linalg.norm(d, axis=-1, keepdims=True)], axis=-1
+        )
+
+    twin = np.arange(rp, dtype=np.int32)
+    if symmetric and n:
+        key = s * n_pad + r
+        key_rev = r * n_pad + s
+        ko = np.argsort(key)
+        pos = np.searchsorted(key[ko], key_rev)
+        if not np.array_equal(key[ko][pos], key_rev):
+            raise ValueError("residual edge set is not symmetric")
+        twin[:n] = ko[pos].astype(np.int32)
+
+    # Visits: one per (compact 128-row block, output node-block) incidence.
+    vb, vc, vr = [], [], []
+    rblk = np.where(np.arange(rp) < n, receivers // NODE_BLOCK, -1)
+    for cb in range(rp // 128):
+        seg = rblk[cb * 128:(cb + 1) * 128]
+        for ob in np.unique(seg[seg >= 0]):
+            vb.append(ob)
+            vc.append(cb)
+            loc = np.where(seg == ob,
+                           receivers[cb * 128:(cb + 1) * 128]
+                           - ob * NODE_BLOCK, -1)
+            vr.append(loc.astype(np.int32))
+    if not vb:  # empty residual: one no-op visit keeps the kernel valid
+        vb, vc, vr = [0], [0], [np.full(128, -1, np.int32)]
+    v = len(vb)
+    v8 = -(-v // 8) * 8
+    visit_recv = np.full((v8, 128), -1, np.int32)
+    visit_recv[:v] = np.stack(vr)
+    return CompactResid(
+        senders=senders,
+        receivers=receivers,
+        ew=ew_p,
+        ew_rev=ewr_p,
+        fiber=fiber,
+        twin=twin,
+        visit_block=np.asarray(vb, np.int32),
+        visit_cblk=np.asarray(vc, np.int32),
+        visit_recv=visit_recv,
+        n_real=int(n),
+        n_pad_nodes=int(n_pad),
+        symmetric=bool(symmetric),
+    )
+
+
+def _block_slots(r_sorted: np.ndarray, n_pad: int, edge_block: int,
+                 min_chunks: bool):
+    """Block-aligned slotting shared by levels and operators: per 128-node
+    receiver block, its edges then pad slots up to a multiple of
+    `edge_block` (at least one chunk per block when `min_chunks`). Returns
+    (slots of the sorted edges, E_pad, recv_indptr int32)."""
+    recv_counts = np.bincount(r_sorted, minlength=n_pad)
+    block_counts = recv_counts.reshape(-1, NODE_BLOCK).sum(axis=1)
+    min_per_block = np.maximum(block_counts, 1) if min_chunks else block_counts
+    seg_lens = -(-min_per_block // edge_block) * edge_block
+    e_pad = int(seg_lens.sum())
+
+    block_starts = np.zeros(len(seg_lens) + 1, np.int64)
+    np.cumsum(seg_lens, out=block_starts[1:])
+    blk_of_edge = r_sorted // NODE_BLOCK
+    cum_before = np.zeros(len(seg_lens) + 1, np.int64)
+    np.cumsum(block_counts, out=cum_before[1:])
+    slots = block_starts[blk_of_edge] + (
+        np.arange(len(r_sorted)) - cum_before[blk_of_edge]
+    )
+
+    within = recv_counts.reshape(-1, NODE_BLOCK)
+    within_cum = np.cumsum(within, axis=1) - within
+    recv_indptr = np.zeros(n_pad + 1, np.int64)
+    recv_indptr[:n_pad] = (block_starts[:-1, None] + within_cum).reshape(-1)
+    recv_indptr[n_pad] = e_pad
+    return slots, e_pad, recv_indptr.astype(np.int32)
+
+
+def _pad_level(
+    g: CsrGraph, n_pad: int, ec: np.ndarray,
+    lvl_pos: Optional[np.ndarray] = None, edge_block: int = EDGE_BLOCK,
+    window: int = 0,
+) -> LevelGraph:
+    n, e = g.num_nodes, g.flat_edges.shape[1]
+    if n_pad <= n or n_pad % NODE_BLOCK:
+        raise ValueError(f"n_pad {n_pad} must exceed {n} and be "
+                         f"{NODE_BLOCK}-aligned")
+    if window and (window % 2 or window < NODE_BLOCK
+                   or n_pad % (window // 2)):
+        raise ValueError(f"window {window} does not fit n_pad {n_pad}")
+
+    # Windowed layouts sort each receiver block's edges by SENDER, so that
+    # chunks cluster in sender space and per-chunk windows cover them.
+    if window:
+        order = np.lexsort(
+            (g.flat_edges[1], g.flat_edges[0], g.flat_edges[1] // NODE_BLOCK)
+        )
+    else:
+        order = np.lexsort((g.flat_edges[0], g.flat_edges[1]))
+    r_sorted = g.flat_edges[1][order]
+    s_sorted = g.flat_edges[0][order]
+    ec_sorted = np.asarray(ec, np.float64)[order]
+    fib_sorted = None
+    if lvl_pos is not None:
+        p = np.asarray(lvl_pos, np.float64)
+        d = p[s_sorted] - p[r_sorted]
+        fib_sorted = np.concatenate(
+            [d, np.linalg.norm(d, axis=-1, keepdims=True)], axis=-1
+        )
+
+    slots, e_pad, recv_indptr = _block_slots(r_sorted, n_pad, edge_block,
+                                             min_chunks=True)
+    senders = np.full(e_pad, n_pad - 1, dtype=np.int32)
+    receivers = np.full(e_pad, n_pad - 1, dtype=np.int32)
+    edge_mask = np.zeros(e_pad, np.float32)
+    senders[slots] = s_sorted
+    receivers[slots] = r_sorted
+    edge_mask[slots] = 1.0
+
+    # Reverse-edge permutation: match (s, r) with (r, s) among real slots.
+    key_fwd = s_sorted.astype(np.int64) * n_pad + r_sorted
+    key_rev = r_sorted.astype(np.int64) * n_pad + s_sorted
+    key_order = np.argsort(key_fwd)
+    pos_of_rev = np.searchsorted(key_fwd[key_order], key_rev)
+    if not np.array_equal(key_fwd[key_order][pos_of_rev], key_rev):
+        raise ValueError("level edge set is not symmetric")
+    rev_idx = key_order[pos_of_rev]
+    reverse_perm = np.arange(e_pad, dtype=np.int32)
+    reverse_perm[slots] = slots[rev_idx].astype(np.int32)
+
+    deg = np.zeros(n_pad, dtype=np.float32)
+    deg[:n] = g.degrees().astype(np.float32)
+    deg = np.maximum(deg, 1.0)
+    node_mask = np.zeros((n_pad, 1), dtype=np.float32)
+    node_mask[:n] = 1.0
+
+    ew = np.zeros(e_pad, np.float64)
+    ew[slots] = ec_sorted
+    pd1 = 1 if lvl_pos is None else lvl_pos.shape[1] + 1
+    fiber = np.zeros((e_pad, pd1), np.float64)
+    if fib_sorted is not None:
+        fiber[slots] = fib_sorted
+
+    send_win = win_base = cresid = None
+    if window:
+        # Tiny levels: a window wider than the node set shrinks to it.
+        window = min(window, n_pad)
+        send_win, win_base, cresid = _window_tables(
+            senders, receivers, edge_mask, reverse_perm, ew, n_pad, window,
+            edge_block, lvl_pos,
+        )
+    return LevelGraph(
+        senders=senders,
+        receivers=receivers,
+        recv_indptr=recv_indptr,
+        deg=deg,
+        node_mask=node_mask,
+        edge_mask=edge_mask,
+        reverse_perm=reverse_perm,
+        ew=ew,
+        fiber=fiber,
+        n_nodes=n,
+        n_edges=e,
+        edge_block=edge_block,
+        ew_rev=ew[reverse_perm],
+        send_win=send_win,
+        win_base=win_base,
+        cresid=cresid,
+        window=window,
+        skip_empty=False,
+        fiber_t=_fiber_t(fiber),
+    )
+
+
+def _pad_trans_layout(
+    s: np.ndarray, r: np.ndarray, w: np.ndarray,
+    n_in_pad: int, n_out_pad: int, edge_block: int, window: int = 0,
+) -> TransOp:
+    """Block-aligned receiver-sorted layout for a rectangular operator:
+    outputs r (in [0, n_out_pad)), inputs s (in [0, n_in_pad)), weights w.
+    `window` > 0 builds the input-space windowed-selection tables (sender-
+    sorted chunks, per-chunk window vote, compact residual for uncovered
+    entries; no symmetrization: rectangular operators have no twins)."""
+    if window:
+        window = min(window, n_in_pad)
+        order = np.lexsort((r, s, r // NODE_BLOCK))
+    else:
+        order = np.lexsort((s, r))
+    s_sorted = s[order].astype(np.int64)
+    r_sorted = r[order].astype(np.int64)
+    w_sorted = np.asarray(w, np.float64)[order]
+
+    slots, e_pad, recv_indptr = _block_slots(r_sorted, n_out_pad, edge_block,
+                                             min_chunks=True)
+    senders = np.full(e_pad, n_in_pad - 1, dtype=np.int32)
+    receivers = np.full(e_pad, n_out_pad - 1, dtype=np.int32)
+    edge_mask = np.zeros(e_pad, np.float32)
+    ew = np.zeros(e_pad, np.float64)
+    senders[slots] = s_sorted
+    receivers[slots] = r_sorted
+    edge_mask[slots] = 1.0
+    ew[slots] = w_sorted
+
+    send_win = win_base = cresid = None
+    if window:
+        # Identity reverse_perm disables the symmetrization step.
+        base, covered = _window_vote(
+            senders, edge_mask, np.arange(e_pad, dtype=np.int32),
+            n_in_pad, window, edge_block,
+        )
+        wh = window // 2
+        lo = np.repeat(base, edge_block) * wh
+        send_win = np.where(covered, senders - lo, window).astype(np.int32)
+        win_base = base.astype(np.int32)
+        uncov = (edge_mask > 0) & ~covered
+        if uncov.any():
+            cresid = _compact_resid(
+                senders[uncov].astype(np.int64),
+                receivers[uncov].astype(np.int64),
+                ew[uncov], ew[uncov], n_out_pad, None, symmetric=False,
+                n_in_pad=n_in_pad,
+            )
+
+    dense = None
+    if (window == 0
+            and n_in_pad <= DENSE_TRANS_MAX and n_out_pad <= DENSE_TRANS_MAX):
+        dense = np.zeros((n_out_pad, n_in_pad), np.float32)
+        np.add.at(dense, (r_sorted, s_sorted), w_sorted.astype(np.float32))
+
+    return TransOp(
+        senders=senders,
+        receivers=receivers,
+        recv_indptr=recv_indptr,
+        ew=ew,
+        n_in_pad=n_in_pad,
+        edge_block=edge_block,
+        send_win=send_win,
+        win_base=win_base,
+        cresid=cresid,
+        window=window,
+        skip_empty=False,
+        dense=dense,
+    )
+
+
+def _build_trans_ops(
+    flat_edges: np.ndarray, ec: np.ndarray, kept: np.ndarray,
+    parent_pad: int, child_pad: int, edge_block: int, window: int = 0,
+) -> Tuple[TransOp, TransOp]:
+    """Fused transition operators from level-l raw edges + offline weights
+    + the kept-node ids. Only edges whose receiver is kept contribute."""
+    snd = flat_edges[0].astype(np.int64)
+    rcv = flat_edges[1].astype(np.int64)
+    local_of = np.full(parent_pad, -1, np.int64)
+    local_of[kept.astype(np.int64)] = np.arange(len(kept))
+    sel = local_of[rcv] >= 0
+    s_par = snd[sel]  # parent-space inputs (down) / outputs (up)
+    r_chd = local_of[rcv[sel]]  # child-space outputs (down) / inputs (up)
+    w = np.asarray(ec, np.float64)[sel]
+    down = _pad_trans_layout(s_par, r_chd, w, parent_pad, child_pad,
+                             edge_block, window=window)
+    up = _pad_trans_layout(r_chd, s_par, w, child_pad, parent_pad,
+                           edge_block, window=window)
+    return down, up
+
+
+def _fiber_t(fiber: np.ndarray) -> np.ndarray:
+    """[8, E_pad] f32 component-major fiber with a constant-1 row at index
+    pd1 (carries the edge MLP's first bias through the same dot)."""
+    e_pad, pd1 = fiber.shape
+    if pd1 >= 8:
+        raise ValueError(f"fiber width {pd1} does not fit the 8-row stream")
+    out = np.zeros((8, e_pad), np.float32)
+    out[:pd1] = fiber.T.astype(np.float32)
+    out[pd1] = 1.0
+    return out
+
+
+def _window_vote(
+    senders: np.ndarray,
+    edge_mask: np.ndarray,
+    reverse_perm: np.ndarray,
+    n_pad: int,
+    window: int,
+    edge_block: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-chunk window vote: each `edge_block`-slot chunk picks the W-row
+    source window (base aligned to W/2) covering the most of its real
+    senders, ties to the lowest base. Returns (base [num_chunks], covered
+    [E_pad]) with coverage symmetrized (an edge counts as covered only if
+    its reverse twin is too, so the residual edge set stays symmetric)."""
+    wh = window // 2
+    e_pad = len(senders)
+    num_chunks = e_pad // edge_block
+    max_base = n_pad // wh - 2
+    real = edge_mask > 0
+    s64 = senders.astype(np.int64)
+
+    chunk_of = np.repeat(np.arange(num_chunks, dtype=np.int64), edge_block)
+    gr = s64 // wh
+    cand = np.concatenate([gr - 1, gr])
+    cchunk = np.concatenate([chunk_of, chunk_of])
+    keep = np.concatenate([real, real]) & (cand >= 0) & (cand <= max_base)
+    stride = max_base + 1
+    total_keys = num_chunks * stride
+    if total_keys <= 200_000_000:
+        # Dense histogram + row argmax (first maximum = lowest candidate).
+        hist = np.bincount(cchunk[keep] * stride + cand[keep],
+                           minlength=total_keys).reshape(num_chunks, stride)
+        base = np.argmax(hist, axis=1).astype(np.int64)
+    else:
+        keys, cnts = np.unique(cchunk[keep] * stride + cand[keep],
+                               return_counts=True)
+        base = np.zeros(num_chunks, np.int64)
+        if keys.size:
+            kchunk = keys // stride
+            new_run = np.r_[True, kchunk[1:] != kchunk[:-1]]
+            run_id = np.cumsum(new_run) - 1
+            run_starts = np.flatnonzero(new_run)
+            run_max = np.maximum.reduceat(cnts, run_starts)
+            at_max = np.flatnonzero(cnts == run_max[run_id])
+            runs_at = run_id[at_max]
+            first = at_max[np.r_[True, runs_at[1:] != runs_at[:-1]]]
+            base[kchunk[run_starts]] = keys[first] % stride
+
+    lo = np.repeat(base, edge_block) * wh
+    covered = real & (s64 >= lo) & (s64 < lo + window)
+    covered &= covered[reverse_perm]
+    return base, covered
+
+
+def _window_tables(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_mask: np.ndarray,
+    reverse_perm: np.ndarray,
+    ew: np.ndarray,
+    n_pad: int,
+    window: int,
+    edge_block: int,
+    lvl_pos: Optional[np.ndarray],
+):
+    """Per-chunk aligned source windows for the windowed kernels, plus the
+    compact residual tables for the edges left outside (symmetrized)."""
+    base, covered = _window_vote(
+        senders, edge_mask, reverse_perm, n_pad, window, edge_block
+    )
+    wh = window // 2
+    s64 = senders.astype(np.int64)
+    lo = np.repeat(base, edge_block) * wh
+    real = edge_mask > 0
+
+    send_win = np.where(covered, s64 - lo, window).astype(np.int32)
+    win_base = base.astype(np.int32)
+
+    cresid = None
+    m = real & ~covered
+    if m.any():
+        cresid = _compact_resid(
+            s64[m], receivers.astype(np.int64)[m], ew[m],
+            ew[reverse_perm][m], n_pad, lvl_pos, symmetric=True,
+        )
+    return send_win, win_base, cresid
+
+
+def build_hierarchy(
+    flat_edges: np.ndarray,
+    num_layers: int,
+    num_nodes: int,
+    pos: np.ndarray,
+    pad_multiple: int = 128,
+    edge_block: int = EDGE_BLOCK,
+    window: "int | List[int]" = 0,
+) -> Hierarchy:
+    """Build bi-stride levels and pad them to static shapes. `window` > 0
+    builds the windowed tables (best with a Morton-ordered mesh,
+    graph/order.py); a per-level list sets each level's window."""
+    levels = build_bistride_levels(flat_edges, num_layers, num_nodes, pos)
+    return pad_levels(levels, pad_multiple, pos=pos, edge_block=edge_block,
+                      window=window)
+
+
+def pad_levels(
+    levels: BistrideLevels,
+    pad_multiple: int = 128,
+    pos: Optional[np.ndarray] = None,
+    edge_block: int = EDGE_BLOCK,
+    window: "int | List[int]" = 0,
+) -> Hierarchy:
+    graphs, ids = levels.graphs, levels.ids
+    windows = (
+        list(window)
+        if isinstance(window, (list, tuple))
+        else [window] * len(graphs)
+    )
+    if len(windows) != len(graphs):
+        raise ValueError(f"per-level window list has {len(windows)} entries "
+                         f"for {len(graphs)} levels")
+    lvl_pos = None if pos is None else smoothed_positions(levels, pos)
+    node_multiple = _pad_to(pad_multiple, NODE_BLOCK)
+    if any(windows):
+        node_multiple = _pad_to(node_multiple, max(windows) // 2)
+    n_pads = [_pad_to(g.num_nodes + 1, node_multiple) for g in graphs]
+    ecs = transition_edge_weights(levels)
+
+    def build_level(l, g):
+        return _pad_level(
+            g, n_pads[l], ecs[l], None if lvl_pos is None else lvl_pos[l],
+            edge_block=edge_block, window=windows[l],
+        )
+
+    def build_transition(l, kept):
+        down_op, up_op = _build_trans_ops(
+            graphs[l].flat_edges, ecs[l], kept, n_pads[l], n_pads[l + 1],
+            edge_block, window=windows[l],
+        )
+        return Transition(down_op=down_op, up_op=up_op)
+
+    # Levels build independently, and the hot numpy kernels (lexsort,
+    # bincount, unique) release the GIL.
+    workers = min(len(graphs), os.cpu_count() or 1)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        lvl_graphs = tuple(ex.map(lambda lg: build_level(*lg),
+                                  enumerate(graphs)))
+        transitions = tuple(ex.map(lambda lk: build_transition(*lk),
+                                   enumerate(ids)))
+    return Hierarchy(levels=lvl_graphs, transitions=transitions)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """f64 arrays become f32 (the JAX package's device arrays are f32 with
+    x64 off; ops cast to the compute dtype at use); ints keep int32."""
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _to_device(obj, device):
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, np.ndarray):
+            changes[f.name] = _tensor(v, device)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _to_device(v, device)
+        elif isinstance(v, tuple):
+            changes[f.name] = tuple(_to_device(x, device) for x in v)
+    out = dataclasses.replace(obj, **changes)
+    if isinstance(obj, (LevelGraph, TransOp)):
+        starts = np.asarray(obj.recv_indptr)[::NODE_BLOCK]
+        ptr = (starts // obj.edge_block).astype(np.int32)
+        out.chunk_ptr = _tensor(ptr, device)
+        out.chunk_block = _tensor(
+            np.repeat(np.arange(len(ptr) - 1, dtype=np.int32), np.diff(ptr)),
+            device)
+    if isinstance(obj, CompactResid):
+        ptr = np.searchsorted(np.asarray(obj.visit_block),
+                              np.arange(obj.n_pad_nodes // NODE_BLOCK + 1))
+        out.visit_ptr = _tensor(ptr.astype(np.int32), device)
+    return out
+
+
+def to_device(h: Hierarchy, device=None) -> Hierarchy:
+    """The same hierarchy with every array a tensor on `device`, plus the
+    chunk → output block map (`chunk_block`), the per-block chunk ranges
+    (`chunk_ptr`) and visit ranges (`visit_ptr`) the kernels walk. Each
+    output block's edge segment starts on a chunk boundary by construction,
+    so its chunks are one contiguous range."""
+    return _to_device(h, resolve_device(device))

@@ -1,0 +1,78 @@
+"""BSMS next-step simulator: encode → BSGMP process → decode, delta target
+(counterpart of `bsms_gnn_tpu/models/simulator.py::simulator_forward`).
+
+Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type];
+the latent input strips mesh_pos and keeps node_type. normalize → encode
+MLP → BSGMP → decode MLP → denormalize the delta → zero masked nodes →
+prediction = state + delta. Serving only: the forward runs without
+autograd (the backward kernels come with training).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from bsms_gnn_tpu_torch.config import ModelConfig
+from bsms_gnn_tpu_torch.device import resolve_device
+from bsms_gnn_tpu_torch.models.normalizer import (
+    denormalize,
+    init_normalizer,
+    normalize,
+)
+from bsms_gnn_tpu_torch.ops.bsgmp import BSGMP
+from bsms_gnn_tpu_torch.ops.dense import MLP, mlp_apply
+
+
+def split_node_input(node_in, pos_dim: int):
+    """[..., C+pos_dim+1] → (latent_input [..., C+1], pos [..., pos_dim],
+    node_type [..., 1])."""
+    fields = node_in[..., : -1 - pos_dim]
+    pos = node_in[..., -(1 + pos_dim):-1]
+    node_type = node_in[..., -1:]
+    return torch.cat([fields, node_type], dim=-1), pos, node_type
+
+
+class Simulator(nn.Module):
+    """Parameters are drawn from `generator` on the CPU (so a seed gives
+    the same weights on every device), then moved to `device` (None: the
+    CUDA card). The normalizer states `norm_in` / `norm_out` are plain
+    attributes; `convert.normalizer_from_numpy` or
+    `normalizer_accumulate` fill them."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        c, hl = cfg.latent_dim, cfg.hidden_layer
+        self.encode = MLP(cfg.out_dim + 1, c, c, hl, True, generator)
+        self.process = BSGMP(cfg.unet_depth, c, hl, cfg.pos_dim, generator)
+        self.decode = MLP(c, c, cfg.out_dim, hl, False, generator)
+        self.to(device)
+        self.norm_in = init_normalizer(cfg.out_dim + 1, device=device)
+        self.norm_out = init_normalizer(cfg.out_dim, device=device)
+
+    @torch.no_grad()
+    def forward(self, hierarchy, node_in, node_mask, compute_dtype=None,
+                tap=None):
+        """Next-step prediction [N_pad, C]. node_in: [N_pad, C+pos_dim+1];
+        node_mask: [N_pad, 1] (1 = loss-valid node). `hierarchy` is on the
+        model's device (`graph.hierarchy.to_device`)."""
+        cfg = self.cfg
+        latent_input, _, _ = split_node_input(node_in, cfg.pos_dim)
+        io_cd = compute_dtype
+        if cfg.io_dtype:
+            io_cd = None if cfg.io_dtype == "float32" else getattr(
+                torch, cfg.io_dtype)
+        x = mlp_apply(self.encode, normalize(self.norm_in, latent_input),
+                      io_cd)
+        x = self.process(hierarchy, x, compute_dtype, tap)
+        if io_cd is None and x.dtype != torch.float32:
+            x = x.float()
+        norm_pred_delta = mlp_apply(self.decode, x, io_cd)
+        pred_delta = denormalize(self.norm_out, norm_pred_delta) * node_mask
+        c = pred_delta.shape[-1]
+        return latent_input[..., :c] + pred_delta

@@ -1,0 +1,135 @@
+"""The port's graph modules against the JAX package's, array for array:
+mesh edges, Morton order, the synthetic airfoil mesh, and the padded
+windowed hierarchy (every level, its compact residual and fiber stream,
+every transition operator and its compact residual), plus the device
+tables `to_device` derives."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import make_grid_mesh
+
+from bsms_gnn_tpu.data.synthetic import make_graded_airfoil_mesh as jax_airfoil
+from bsms_gnn_tpu.graph.hierarchy import build_hierarchy as jax_build
+from bsms_gnn_tpu.graph.mesh import to_flat_edge as jax_flat_edge
+from bsms_gnn_tpu.graph.order import reorder_mesh as jax_reorder
+from bsms_gnn_tpu.ops.pallas.fused_gmp import _chunk_tables
+from bsms_gnn_tpu_torch.data.synthetic import make_graded_airfoil_mesh
+from bsms_gnn_tpu_torch.graph.hierarchy import (
+    CompactResid,
+    build_hierarchy,
+    to_device,
+)
+from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+
+DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr")
+
+
+def assert_same(jax_obj, port_obj, path):
+    """Every field of the port's dataclass equals the JAX object's field of
+    the same name: integers exactly, floats within 1e-12."""
+    for f in dataclasses.fields(port_obj):
+        if f.name in DEVICE_TABLES:
+            continue
+        want, got = getattr(jax_obj, f.name), getattr(port_obj, f.name)
+        where = f"{path}.{f.name}"
+        if dataclasses.is_dataclass(got):
+            assert want is not None, where
+            assert_same(want, got, where)
+        elif isinstance(got, np.ndarray):
+            want = np.asarray(want)
+            assert (want.shape, want.dtype) == (got.shape, got.dtype), where
+            if got.dtype.kind == "f":
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-12,
+                                           err_msg=where)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=where)
+        else:
+            assert got == want, where
+
+
+def scrambled_grid():
+    pos, cells = make_grid_mesh(24, 24)
+    perm = np.random.default_rng(0).permutation(len(pos))
+    inv = np.empty(len(pos), np.int64)
+    inv[perm] = np.arange(len(pos))
+    return pos[perm], inv[cells]
+
+
+def morton_airfoil():
+    pos, cells, _ = make_graded_airfoil_mesh(700, np.random.default_rng(1))
+    pos, cells, _, _ = reorder_mesh(pos, cells)
+    return pos.astype(np.float64), cells
+
+
+CASES = {
+    "grid_w128_eb512_d3": (scrambled_grid, 3, dict(edge_block=512, window=128)),
+    "airfoil_w256_eb512_d2": (morton_airfoil, 2,
+                              dict(edge_block=512, window=256)),
+    "grid_unwindowed_d3": (scrambled_grid, 3, dict()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_hierarchy_matches_jax_array_for_array(case):
+    make, depth, kw = CASES[case]
+    pos, cells = make()
+    hj = jax_build(jax_flat_edge(cells, "tri"), depth, len(pos), pos, **kw)
+    ht = build_hierarchy(to_flat_edge(cells, "tri"), depth, len(pos), pos,
+                         **kw)
+    assert len(ht.levels) == len(hj.levels) == depth + 1
+    assert ht.depth == hj.depth == depth
+    for l, (a, b) in enumerate(zip(hj.levels, ht.levels)):
+        assert_same(a, b, f"level{l}")
+        assert b.fiber_t is not None
+    for l, (a, b) in enumerate(zip(hj.transitions, ht.transitions)):
+        assert_same(a.down_op, b.down_op, f"trans{l}.down")
+        assert_same(a.up_op, b.up_op, f"trans{l}.up")
+    if kw.get("window"):
+        assert any(g.cresid is not None for g in ht.levels)
+        assert any(t.down_op.cresid is not None for t in ht.transitions)
+
+
+def test_mesh_order_and_airfoil_match_jax():
+    rng_j, rng_t = np.random.default_rng(5), np.random.default_rng(5)
+    for a, b in zip(jax_airfoil(900, rng_j), make_graded_airfoil_mesh(900, rng_t)):
+        np.testing.assert_array_equal(a, b)
+    pos, cells, nt = make_graded_airfoil_mesh(900, np.random.default_rng(5))
+    for a, b in zip(jax_reorder(pos, cells, (nt,)), reorder_mesh(pos, cells, (nt,))):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(jax_flat_edge(cells, "tri"),
+                                  to_flat_edge(cells, "tri"))
+
+
+def test_device_tables_follow_the_layout():
+    pos, cells = scrambled_grid()
+    kw = dict(edge_block=512, window=128)
+    hj = jax_build(jax_flat_edge(cells, "tri"), 3, len(pos), pos, **kw)
+    hd = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 3, len(pos),
+                                   pos, **kw), "cpu")
+    ops = [(a, b) for ta, tb in zip(hj.transitions, hd.transitions)
+           for a, b in ((ta.down_op, tb.down_op), (ta.up_op, tb.up_op))]
+    for jl, tl in list(zip(hj.levels, hd.levels)) + ops:
+        assert tl.send_win.dtype == torch.int32
+        assert tl.ew.dtype == torch.float32  # f64 arrays land as f32
+        chunk_block, _, _ = _chunk_tables(jl)
+        np.testing.assert_array_equal(tl.chunk_block.numpy(),
+                                      np.asarray(chunk_block))
+        ptr = tl.chunk_ptr.numpy()
+        assert ptr[0] == 0 and ptr[-1] == tl.n_pad_edges // tl.edge_block
+        np.testing.assert_array_equal(
+            np.repeat(np.arange(len(ptr) - 1), np.diff(ptr)),
+            tl.chunk_block.numpy())
+        cr = tl.cresid
+        if cr is not None:
+            assert isinstance(cr, CompactResid)
+            vp, vb = cr.visit_ptr.numpy(), cr.visit_block.numpy()
+            for b in range(len(vp) - 1):
+                assert (vb[vp[b]:vp[b + 1]] == b).all()
+            assert vp[-1] == len(vb)
