@@ -138,5 +138,28 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+_stacks: Dict[tuple, tuple] = {}
+_STACKS_MAX = 256
+
+
+def stacked(tensors) -> torch.Tensor:
+    """torch.stack(tensors) in f32, contiguous, made once and reused while
+    the same tensors keep their storage and their values (version counters
+    unchanged): the kernels take each MLP's tail weights as one buffer, and
+    restacking them on every call costs a copy launch per call. The entry
+    holds the tensors, so their ids stay theirs while it lives."""
+    tensors = tuple(tensors)
+    key = tuple(id(t) for t in tensors)
+    state = tuple((t.data_ptr(), t._version) for t in tensors)
+    hit = _stacks.get(key)
+    if hit is not None and hit[1] == state:
+        return hit[2]
+    out = torch.stack([t.detach().float() for t in tensors]).contiguous()
+    if len(_stacks) >= _STACKS_MAX:
+        _stacks.clear()
+    _stacks[key] = (tensors, state, out)
+    return out
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int

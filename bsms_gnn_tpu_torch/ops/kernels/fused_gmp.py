@@ -138,8 +138,7 @@ def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
                   level.win_base, level.receivers, level.chunk_block,
                   level.chunk_ptr)
     lib = build.library("fused_gmp", {f: _SIG for f in _FN.values()})
-    w_stack = torch.stack([w.float() for w in weights]).contiguous()
-    b_stack = torch.stack([b.float() for b in biases]).contiguous()
+    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.float().contiguous()
     n_chunks = level.n_pad_edges // level.edge_block

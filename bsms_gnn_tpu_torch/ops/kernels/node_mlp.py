@@ -81,8 +81,7 @@ def fused_node_phase(x, aggr, mlp, compute_dtype=None):
     lib = build.library("node_mlp", {f: _SIG for f in _FN.values()})
     ws, bs = list(mlp.weights), list(mlp.biases)
     w0, b0 = ws[0].float().contiguous(), bs[0].float().contiguous()
-    w_stack = torch.stack([w.float() for w in ws[1:]]).contiguous()
-    b_stack = torch.stack([b.float() for b in bs[1:]]).contiguous()
+    w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
     x, aggr = x.contiguous(), aggr.contiguous()
     bf16 = compute_dtype == torch.bfloat16
     out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)

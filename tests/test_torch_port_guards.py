@@ -25,6 +25,7 @@ from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.models.normalizer import init_normalizer
 from bsms_gnn_tpu_torch.models.simulator import Simulator
 from bsms_gnn_tpu_torch.ops.kernels import (
+    build,
     compact_resid,
     fused_gmp,
     node_mlp,
@@ -162,6 +163,20 @@ def test_unsupported_layouts_raise(hier):
                                         torch.zeros(n, 128))
     with pytest.raises(NotImplementedError, match="no backward"):
         gmp(hd.levels[0], torch.zeros(n, 128))
+
+
+def test_stacked_weights_are_reused_until_they_change():
+    g = torch.Generator().manual_seed(0)
+    ws = [torch.nn.Parameter(torch.randn(4, 4, generator=g)) for _ in range(3)]
+    first = build.stacked(ws)
+    assert build.stacked(ws) is first
+    torch.testing.assert_close(first, torch.stack(ws).detach(), rtol=0, atol=0)
+    with torch.no_grad():
+        ws[1].add_(1.0)
+    again = build.stacked(ws)
+    assert again is not first
+    torch.testing.assert_close(again, torch.stack(ws).detach(), rtol=0, atol=0)
+    assert build.stacked(ws[:2]) is not again
 
 
 @pytest.mark.parametrize("alone", [False, True])
