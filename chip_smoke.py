@@ -375,10 +375,10 @@ def event_ms(fn, reps=20, warmup=3):
 
 
 def kernel_device_ms(fn, kernel_names, reps=20):
-    """Device ms per call of the CUDA kernels one call of `fn` launches,
-    each matched by a name in `kernel_names`, from a torch.profiler trace
-    of `reps` calls: {name: ms}, or None when the trace shows no device
-    time or another launch count."""
+    """Device ms per call of the CUDA kernels one call of `fn` launches
+    once each, each matched by a name in `kernel_names`, from a
+    torch.profiler trace of `reps` calls: {name: ms per launch}, or None
+    when the trace shows no device time for one of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -395,9 +395,11 @@ def kernel_device_ms(fn, kernel_names, reps=20):
                 total[name] += (getattr(evt, "device_time_total", None)
                                 or getattr(evt, "cuda_time_total", 0.0))
                 count[name] += evt.count
-    if any(count[k] != reps or not total[k] for k in kernel_names):
+    if any(not count[k] or not total[k] for k in kernel_names):
         return None
-    return {k: total[k] / reps / 1e3 for k in kernel_names}
+    if any(count[k] != reps for k in kernel_names):
+        print(f"  note: the trace holds {count} launches of {reps} calls")
+    return {k: total[k] / count[k] / 1e3 for k in kernel_names}
 
 
 def _device_ms(evt):
