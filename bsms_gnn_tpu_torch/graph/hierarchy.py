@@ -113,6 +113,13 @@ class LevelGraph:
     # output block of each chunk.
     chunk_ptr: Optional[torch.Tensor] = None
     chunk_block: Optional[torch.Tensor] = None
+    # Set by to_device on windowed levels, for the sender-window sum: the
+    # (chunk, half) pairs whose window half covers W/2-row block k are
+    # send_items[send_ptr[k] .. send_ptr[k+1]], each 2·chunk + half, the
+    # chunks with win_base == k (half 0) then win_base == k − 1 (half 1),
+    # each group in chunk order.
+    send_ptr: Optional[torch.Tensor] = None
+    send_items: Optional[torch.Tensor] = None
 
     @property
     def n_pad_nodes(self) -> int:
@@ -644,6 +651,20 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def send_window_tables(win_base: np.ndarray, n_blocks: int):
+    """(send_ptr [n_blocks + 1], send_items) of `LevelGraph`: chunk c's
+    window covers W/2-row blocks win_base[c] (half 0) and win_base[c] + 1
+    (half 1)."""
+    chunks = np.arange(len(win_base))
+    block = np.concatenate([win_base, win_base + 1]).astype(np.int64)
+    item = np.concatenate([2 * chunks, 2 * chunks + 1])
+    keep = block < n_blocks
+    block, item = block[keep], item[keep]
+    order = np.lexsort((item % 2 * len(win_base) + item // 2, block))
+    ptr = np.searchsorted(block[order], np.arange(n_blocks + 1))
+    return ptr.astype(np.int32), item[order].astype(np.int32)
+
+
 def _to_device(obj, device):
     changes = {}
     for f in dataclasses.fields(obj):
@@ -662,6 +683,11 @@ def _to_device(obj, device):
         out.chunk_block = _tensor(
             np.repeat(np.arange(len(ptr) - 1, dtype=np.int32), np.diff(ptr)),
             device)
+    if isinstance(obj, LevelGraph) and obj.window > 0:
+        ptr, items = send_window_tables(np.asarray(obj.win_base),
+                                        obj.n_pad_nodes // (obj.window // 2))
+        out.send_ptr, out.send_items = _tensor(ptr, device), _tensor(items,
+                                                                      device)
     if isinstance(obj, CompactResid):
         ptr = np.searchsorted(np.asarray(obj.visit_block),
                               np.arange(obj.n_pad_nodes // NODE_BLOCK + 1))

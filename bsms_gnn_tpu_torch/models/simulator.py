@@ -4,8 +4,10 @@
 Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type];
 the latent input strips mesh_pos and keeps node_type. normalize → encode
 MLP → BSGMP → decode MLP → denormalize the delta → zero masked nodes →
-prediction = state + delta. Serving only: the forward runs without
-autograd (the backward kernels come with training).
+prediction = state + delta. The forward is differentiable (every kernel
+is an autograd Function with a backward kernel); serving calls it under
+`torch.no_grad()` (`training/rollout.py`). `simulator_warmup` accumulates
+the normalizer statistics the trainer's warmup gate collects.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from bsms_gnn_tpu_torch.models.normalizer import (
     denormalize,
     init_normalizer,
     normalize,
+    normalizer_accumulate,
 )
 from bsms_gnn_tpu_torch.ops.bsgmp import BSGMP
 from bsms_gnn_tpu_torch.ops.dense import MLP, mlp_apply
@@ -55,7 +58,6 @@ class Simulator(nn.Module):
         self.norm_in = init_normalizer(cfg.out_dim + 1, device=device)
         self.norm_out = init_normalizer(cfg.out_dim, device=device)
 
-    @torch.no_grad()
     def forward(self, hierarchy, node_in, node_mask, compute_dtype=None,
                 tap=None):
         """Next-step prediction [N_pad, C]. node_in: [N_pad, C+pos_dim+1];
@@ -76,3 +78,14 @@ class Simulator(nn.Module):
         pred_delta = denormalize(self.norm_out, norm_pred_delta) * node_mask
         c = pred_delta.shape[-1]
         return latent_input[..., :c] + pred_delta
+
+
+@torch.no_grad()
+def simulator_warmup(sim: Simulator, node_in, node_tar, node_mask=None):
+    """Accumulate the normalizer statistics of one batch into
+    `sim.norm_in` / `sim.norm_out` (the reference's `_warmup`). Rows with
+    mask 0 stay out of the statistics (pass None to count every row)."""
+    latent_input, _, _ = split_node_input(node_in, sim.cfg.pos_dim)
+    delta = node_tar - latent_input[..., :node_tar.shape[-1]]
+    sim.norm_in = normalizer_accumulate(sim.norm_in, latent_input, node_mask)
+    sim.norm_out = normalizer_accumulate(sim.norm_out, delta, node_mask)

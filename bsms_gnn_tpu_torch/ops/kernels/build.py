@@ -22,7 +22,8 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
-SOURCES = ("windowed", "compact_resid", "node_mlp", "fused_gmp")
+SOURCES = ("windowed", "compact_resid", "node_mlp", "fused_gmp",
+           "fused_gmp_bwd", "node_mlp_bwd", "windowed_send")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,14 +126,6 @@ def require(what: str, device, *tables) -> None:
                              f"on {device}, got {t.dtype} on {t.device}")
 
 
-def forward_only(what: str, *tensors) -> None:
-    """The kernels have no backward yet (serving only): refuse to run where
-    autograd would record the call, on every device alike."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: no backward kernel yet; call under torch.no_grad()")
-
-
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -142,19 +135,23 @@ _stacks: Dict[tuple, tuple] = {}
 _STACKS_MAX = 256
 
 
-def stacked(tensors) -> torch.Tensor:
-    """torch.stack(tensors) in f32, contiguous, made once and reused while
-    the same tensors keep their storage and their values (version counters
-    unchanged): the kernels take each MLP's tail weights as one buffer, and
-    restacking them on every call costs a copy launch per call. The entry
-    holds the tensors, so their ids stay theirs while it lives."""
+def stacked(tensors, transpose: bool = False) -> torch.Tensor:
+    """torch.stack(tensors) in f32, contiguous (with each matrix transposed
+    when `transpose`), made once and reused while the same tensors keep
+    their storage and their values (version counters unchanged): the
+    kernels take each MLP's tail weights as one buffer, and restacking them
+    on every call costs a copy launch per call. The entry holds the
+    tensors, so their ids stay theirs while it lives. Detached: gradients
+    reach the weights through the kernels' autograd Functions, never
+    through the stack."""
     tensors = tuple(tensors)
-    key = tuple(id(t) for t in tensors)
+    key = (transpose,) + tuple(id(t) for t in tensors)
     state = tuple((t.data_ptr(), t._version) for t in tensors)
     hit = _stacks.get(key)
     if hit is not None and hit[1] == state:
         return hit[2]
-    out = torch.stack([t.detach().float() for t in tensors]).contiguous()
+    out = torch.stack([t.detach().float() for t in tensors])
+    out = (out.transpose(-2, -1) if transpose else out).contiguous()
     if len(_stacks) >= _STACKS_MAX:
         _stacks.clear()
     _stacks[key] = (tensors, state, out)

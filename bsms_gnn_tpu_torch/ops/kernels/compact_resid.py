@@ -7,13 +7,26 @@ the receiver sums of the compact residual rows onto an accumulator,
     acc[vb·128 + rl] += vals[cb·128 + j]   for every visit (vb, cb) and
                                             row j with rl = visit_recv[v, j] ≥ 0
 
-Output node blocks that no visit touches keep `acc`. The port has no
-autograd yet (serving only), so one wrapper serves both JAX entry points.
+Output node blocks that no visit touches keep `acc`. As in the JAX
+package, `compact_accum_raw` has no autograd (the transitions pair their
+own adjoints) and `compact_accum` is differentiable: d_vals = g[receivers],
+d_acc = g (`compact_resid.py:148-170`).
 
 In place: the port adds onto `acc` and returns it. Every caller passes an
 accumulator it no longer needs otherwise (the aggregate from
 `fused_gmp.py`, the operator output from `windowed.py`), as the TPU kernel
-aliased its accumulator onto its output.
+aliased its accumulator onto its output. Under autograd `compact_accum`
+marks `acc` dirty (`ctx.mark_dirty`), so the accumulator's history runs
+through the accumulate's backward; nothing saves the accumulator before
+the update for its own backward.
+
+`compact_gather` is x[senders] or x[receivers] with the TPU's scatter-free
+backward (`compact_resid.py:173-208`): for `'recv'` the cotangent rows
+accumulate onto zeros through kernel 2; for `'send'` they first take
+`ct[twin]` (the residual edge set of a level is symmetric, so sender sums
+are receiver sums of the twin rows). So the gather's backward launches
+kernel 2, as on the TPU, not the `index_add_` scatter that autograd of
+`index_select` would run.
 
 CUDA design (`csrc/compact_resid.cu`): one thread block per 128-row output
 block loads the block's accumulator rows into shared memory, walks the
@@ -40,13 +53,6 @@ _FN = {torch.float32: "compact_accum_f32",
        torch.bfloat16: "compact_accum_bf16"}
 
 
-def compact_gather(cr, x, by: str):
-    """x[cr.senders] (`by='send'`) or x[cr.receivers] (`'recv'`): a plain
-    index_select, as on the TPU (the JAX gather only adds a custom VJP)."""
-    idx = {"send": cr.senders, "recv": cr.receivers}[by]
-    return x.index_select(-2, idx)
-
-
 def _check(cr, vals, acc):
     if vals.dim() != 2 or acc.dim() != 2:
         raise NotImplementedError("batch axis")
@@ -67,12 +73,11 @@ def compact_accum_plain(cr, vals, acc):
     return acc.index_add_(0, cr.receivers[:n].long(), vals[:n].float())
 
 
-def compact_accum(cr, vals, acc):
+def compact_accum_raw(cr, vals, acc):
     """acc (f32 [n_pad, 128], updated in place and returned) plus the
-    receiver sums of vals [R_pad, 128]. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    receiver sums of vals [R_pad, 128], no autograd. CPU tensors take the
+    plain version; CUDA tensors launch kernel 2."""
     _check(cr, vals, acc)
-    build.forward_only("compact_accum", vals, acc)
     if vals.device.type == "cpu":
         return compact_accum_plain(cr, vals, acc)
     if vals.device.type != "cuda":
@@ -89,8 +94,56 @@ def compact_accum(cr, vals, acc):
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "compact_accum")
-    compact_accum.launches += 1
+    compact_accum_raw.launches += 1
     return acc
 
 
-compact_accum.launches = 0
+compact_accum_raw.launches = 0
+
+
+class _Accum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cr, vals, acc):
+        ctx.cr, ctx.vals_dtype = cr, vals.dtype
+        ctx.mark_dirty(acc)
+        return compact_accum_raw(cr, vals, acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_vals = g.index_select(0, ctx.cr.receivers).to(ctx.vals_dtype)
+        return None, d_vals, g
+
+
+def compact_accum(cr, vals, acc):
+    """`compact_accum_raw`, differentiable in vals and acc."""
+    _check(cr, vals, acc)
+    return _Accum.apply(cr, vals, acc)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cr, by, x):
+        ctx.cr, ctx.by, ctx.dtype = cr, by, x.dtype
+        return x.index_select(0, cr.senders if by == "send" else cr.receivers)
+
+    @staticmethod
+    def backward(ctx, ct):
+        cr = ctx.cr
+        v = ct if ctx.by == "recv" else ct.index_select(0, cr.twin)
+        zeros = torch.zeros(cr.n_pad_nodes, ct.shape[-1], dtype=torch.float32,
+                            device=ct.device)
+        return None, None, compact_accum_raw(cr, v, zeros).to(ctx.dtype)
+
+
+def compact_gather(cr, x, by: str):
+    """x[cr.senders] (`by='send'`) or x[cr.receivers] (`'recv'`) → [R_pad,
+    C], with the scatter-free backward above. `'send'` needs a symmetric
+    compact residual (a level's, not a transition's)."""
+    if by not in ("send", "recv"):
+        raise ValueError(f"by={by!r}")
+    if by == "send" and not cr.symmetric:
+        raise ValueError("the sender gather's backward needs a symmetric "
+                         "compact residual")
+    if x.dim() != 2:
+        raise NotImplementedError("batch axis")
+    return _Gather.apply(cr, by, x)

@@ -9,6 +9,7 @@
 // to part[chunk]. block_sum_kernel then adds the parts of each output block
 // in chunk order.
 #include "block_sum.cuh"
+#include "edge_tile.cuh"
 
 using namespace bsms;
 
@@ -49,36 +50,13 @@ fused_edge_phase_win_kernel(const float* __restrict__ fiber_t,
   for (int i = tid; i < 8 * C; i += THREADS)
     wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
 
-  const int c = tid & (C - 1);  // column of the gather and scatter steps
+  const int c = tid & (C - 1);  // column of the scatter step
   const int half = tid >> 7;    // which half of the rows this thread takes
+  const EdgeSlots slots{s_row, s_recv, s_loc, fib};
   for (int t0 = ch * edge_block; t0 < (ch + 1) * edge_block; t0 += TILE) {
-    __syncthreads();  // previous tile's scatter is done with the tile
-    if (tid < TILE) {
-      const int e = t0 + tid;
-      const int sw = send_win[e], r = receivers[e];
-      const int loc = r - row0;
-      const bool in_win = sw < window;
-      s_row[tid] = in_win ? base + sw : -1;
-      s_recv[tid] = r;
-      s_loc[tid] = (in_win && loc >= 0 && loc < BN) ? loc : -1;
-    }
-    for (int i = tid; i < 8 * TILE; i += THREADS) {
-      const float f = fiber_t[(size_t)(i / TILE) * e_pad + t0 + i % TILE];
-      fib[i] = BF16 ? round_bf16(f) : f;
-    }
-    __syncthreads();
-    // pre = fiber·wf8 + xwi[send] + xj[recv], then relu (the first layer's
-    // activation); rounded in BF16 mode as the next dot operand.
-    for (int r = half; r < TILE; r += 2) {
-      float f = 0.f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) f = fmaf(fib[k * TILE + r], wf[k * C + c], f);
-      const int row = s_row[r];
-      const float sel = row >= 0 ? to_f(xwi[(size_t)row * C + c]) : 0.f;
-      const float zj = to_f(xj[(size_t)s_recv[r] * C + c]);
-      const float pre = fmaxf((f + sel) + zj, 0.f);
-      tile[r * C + c] = BF16 ? round_bf16(pre) : pre;
-    }
+    // Starts with a barrier: the previous tile's scatter is done.
+    edge_tile_pre<T, BF16>(t0, base, row0, e_pad, window, fiber_t, xwi, xj,
+                           send_win, receivers, wf, slots, tile);
     tile_mlp_tail<BF16>(tile, W, B, n_layers, wslab);
     for (int r = 0; r < TILE; ++r) {
       const int loc = s_loc[r];

@@ -1,0 +1,191 @@
+// Kernel 5: the backward of the windowed fused GMP edge phase (see
+// ../fused_gmp.py), with the forward recomputed in the kernel.
+//
+// For the aggregate's cotangent g, each in-window slot e gets the edge
+// cotangent g[recv_e] (zero on masked slots), runs the LayerNorm backward
+// and the tail layers in reverse, and yields
+//   dpre[e]  the cotangent of its first-layer pre-activation,
+//   dxj[n]   = Σ_{e: recv(e)=n} dpre[e],
+//   dwf8     = fiber_t · dpre,  dW[l], db[l]  the tail's weight gradients.
+//
+// One block per edge chunk walks it in 64-slot tiles, keeping every tail
+// layer's input, the running cotangent and the chunk's 128-row dxj block in
+// shared memory. dxj takes kernel 4's scheme (a part per chunk, summed over
+// chunk_ptr by block_sum_kernel). dW, db and dwf8: each chunk adds its tiles
+// into its own partial in device memory, in tile order, and
+// grad_sum_kernel adds the partials in chunk order (no atomics).
+#include "backward.cuh"
+#include "block_sum.cuh"
+#include "edge_tile.cuh"
+
+using namespace bsms;
+
+namespace {
+
+constexpr int MAX_LAYERS = 3;
+
+size_t smem_bytes(int n_layers) {
+  return sizeof(float) * (BN * C + (size_t)(n_layers + 1) * TILE * C + KS * C +
+                          8 * C + 8 * TILE + TILE) +
+         sizeof(int) * 3 * TILE;
+}
+
+template <typename T, bool BF16>
+__global__ void __launch_bounds__(THREADS)
+fused_edge_phase_win_bwd_kernel(
+    const float* __restrict__ fiber_t, const T* __restrict__ xwi,
+    const T* __restrict__ xj, const float* __restrict__ wf8,
+    const float* __restrict__ W, const float* __restrict__ B,
+    const float* __restrict__ WT, const float* __restrict__ g, int n_layers,
+    const int* __restrict__ send_win, const int* __restrict__ win_base,
+    const int* __restrict__ receivers, const int* __restrict__ chunk_block,
+    int e_pad, int edge_block, int window, float* __restrict__ part,
+    float* __restrict__ gpart, T* __restrict__ dpre) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);  // [BN][C] dxj block
+  float* hs = acc + BN * C;         // [n_layers][TILE][C] tail layer inputs
+  float* d = hs + (size_t)n_layers * TILE * C;  // [TILE][C] LN out, cotangent
+  float* wslab = d + TILE * C;                  // [KS][C] staged weights
+  float* wf = wslab + KS * C;                   // [8][C] fiber weights
+  float* fib = wf + 8 * C;                      // [8][TILE] fiber stream
+  float* inv = fib + 8 * TILE;                  // [TILE] LN 1/std
+  int* s_row = reinterpret_cast<int*>(inv + TILE);
+  int* s_recv = s_row + TILE;
+  int* s_loc = s_recv + TILE;
+
+  const int tid = threadIdx.x, ch = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int base = win_base[ch] * (window / 2);
+  const int row0 = chunk_block[ch] * BN;
+  const size_t wsize = (size_t)n_layers * C * C;
+  float* gp = gpart + (size_t)ch * (wsize + (size_t)n_layers * C + 8 * C);
+  float* gp_b = gp + wsize;                 // db [n_layers][C]
+  float* gp_f = gp_b + (size_t)n_layers * C;  // dwf8 [8][C]
+  for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
+  for (int i = tid; i < 8 * C; i += THREADS)
+    wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
+
+  const int c = tid & (C - 1);
+  const int half = tid >> 7;
+  const EdgeSlots slots{s_row, s_recv, s_loc, fib};
+  for (int t0 = ch * edge_block; t0 < (ch + 1) * edge_block; t0 += TILE) {
+    const bool add = t0 != ch * edge_block;  // the chunk's first tile stores
+    // Recompute: relu(pre) into hs[0], the tail keeping each layer's input,
+    // the LayerNorm output into d.
+    edge_tile_pre<T, BF16>(t0, base, row0, e_pad, window, fiber_t, xwi, xj,
+                           send_win, receivers, wf, slots, hs);
+    tile_mlp_tail_save<BF16>(hs, d, inv, W, B, n_layers, wslab);
+
+    // Edge cotangent g[recv] (rounded to bf16 by the TPU kernel's one-hot
+    // dot in BF16 mode; zero on masked slots), then the LN backward.
+    for (int r = warp; r < TILE; r += THREADS / 32) {
+      float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s_loc[r] >= 0) {
+        gv = reinterpret_cast<const float4*>(g + (size_t)s_recv[r] * C)[lane];
+        if (BF16) {
+          gv.x = round_bf16(gv.x); gv.y = round_bf16(gv.y);
+          gv.z = round_bf16(gv.z); gv.w = round_bf16(gv.w);
+        }
+      }
+      float4* dp = reinterpret_cast<float4*>(d + r * C) + lane;
+      *dp = ln_bwd(gv, *dp, inv[r]);
+    }
+
+    // Tail layers in reverse: db from the unrounded cotangent, dW and the
+    // next cotangent from the rounded one, masked by the layer's input.
+    for (int l = n_layers - 1; l >= 0; --l) {
+      const float* h = hs + (size_t)l * TILE * C;
+      __syncthreads();
+      if (tid < C) {
+        const float s = tile_colsum(d);
+        gp_b[l * C + tid] = add ? gp_b[l * C + tid] + s : s;
+      }
+      if (BF16) tile_round_bf16(d);
+      __syncthreads();
+      float dw[8][8] = {};
+      tile_gemm_tn(dw, h, d);
+      store_tn(dw, gp + (size_t)l * C * C, add);
+      float dh[8][4] = {};
+      tile_gemm<BF16>(dh, d, WT + (size_t)l * C * C, wslab);
+      tile_store_masked(dh, h, d);
+    }
+    // d is now dpre: stored (bf16 in BF16 mode, which is also the operand
+    // of the dxj and dwf8 sums), then fiber_t·dpre and the dxj block.
+    if (BF16) tile_round_bf16(d);
+    else __syncthreads();
+    for (int i = tid; i < TILE * C; i += THREADS)
+      store(&dpre[(size_t)t0 * C + i], d[i]);
+    {
+      const int k = tid >> 5, j0 = lane * 4;
+      float s[4] = {};
+      for (int r = 0; r < TILE; ++r) {
+        const float f = fib[k * TILE + r];
+        const float4 v = *reinterpret_cast<const float4*>(d + r * C + j0);
+        s[0] = fmaf(f, v.x, s[0]); s[1] = fmaf(f, v.y, s[1]);
+        s[2] = fmaf(f, v.z, s[2]); s[3] = fmaf(f, v.w, s[3]);
+      }
+      float4* p = reinterpret_cast<float4*>(gp_f + k * C + j0);
+      float4 o = add ? *p : make_float4(0.f, 0.f, 0.f, 0.f);
+      *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
+    }
+    for (int r = 0; r < TILE; ++r) {
+      const int loc = s_loc[r];
+      if (loc >= 0 && (loc >> 6) == half) acc[loc * C + c] += d[r * C + c];
+    }
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(part + (size_t)ch * BN * C);
+  for (int i = tid; i < BN * C / 4; i += THREADS) dst[i] = smem4[i];
+}
+
+template <typename T, bool BF16>
+int launch(const void* fiber_t, const void* xwi, const void* xj,
+           const void* wf8, const void* W, const void* B, const void* WT,
+           const void* g, const void* send_win, const void* win_base,
+           const void* receivers, const void* chunk_block, int n_layers,
+           int n_chunks, int n_blocks, int e_pad, int edge_block, int window,
+           const void* chunk_ptr, void* part, void* gpart, void* dpre,
+           void* dxj, void* grads, void* stream) {
+  if (edge_block % TILE || n_layers < 1 || n_layers > MAX_LAYERS)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_edge_phase_win_bwd_kernel<T, BF16>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(MAX_LAYERS));
+  if (attr != cudaSuccess) return (int)attr;
+  cudaStream_t s = (cudaStream_t)stream;
+  kernel<<<n_chunks, THREADS, smem_bytes(n_layers), s>>>(
+      (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
+      (const float*)W, (const float*)B, (const float*)WT, (const float*)g,
+      n_layers, (const int*)send_win, (const int*)win_base,
+      (const int*)receivers, (const int*)chunk_block, e_pad, edge_block,
+      window, (float*)part, (float*)gpart, (T*)dpre);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_block_sum((const float*)part, (const int*)chunk_ptr,
+                         (float*)dxj, n_blocks, s);
+  if (err != cudaSuccess) return (int)err;
+  const int size = n_layers * C * C + n_layers * C + 8 * C;
+  return (int)launch_grad_sum((const float*)gpart, n_chunks, size,
+                              (float*)grads, s);
+}
+
+}  // namespace
+
+#define FUSED_EDGE_PHASE_WIN_BWD(NAME, T, BF16)                               \
+  extern "C" int NAME(                                                        \
+      const void* fiber_t, const void* xwi, const void* xj, const void* wf8,  \
+      const void* W, const void* B, const void* WT, const void* g,            \
+      const void* send_win, const void* win_base, const void* receivers,      \
+      const void* chunk_block, int n_layers, int n_chunks, int n_blocks,      \
+      int e_pad, int edge_block, int window, const void* chunk_ptr,           \
+      void* part, void* gpart, void* dpre, void* dxj, void* grads,            \
+      void* stream) {                                                         \
+    return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, WT, g, send_win,      \
+                           win_base, receivers, chunk_block, n_layers,        \
+                           n_chunks, n_blocks, e_pad, edge_block, window,     \
+                           chunk_ptr, part, gpart, dpre, dxj, grads, stream); \
+  }
+
+FUSED_EDGE_PHASE_WIN_BWD(fused_edge_phase_win_bwd_f32, float, false)
+FUSED_EDGE_PHASE_WIN_BWD(fused_edge_phase_win_bwd_bf16, __nv_bfloat16, true)

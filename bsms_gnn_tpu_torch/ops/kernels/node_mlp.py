@@ -19,6 +19,23 @@ GEMM is the one `fused_gmp.py` describes (f32 FMA on CUDA cores, no TF32).
 bf16 mode rounds every dot operand to bf16 (x, aggr, the hidden
 activations, the weights) and accumulates in f32; LN and the residual add
 run in f32 and the sum is stored in bf16.
+
+Kernel 6 replaces the TPU kernel's backward (`_get_bwd` →
+`_make_bwd_kernel`): given the output's cotangent g [n_pad, C] f32 it
+recomputes each row tile's forward and returns dx (in x's dtype; it
+includes the residual's g), daggr (f32), dWa, dWb [C, C], db0 [C] and the
+tail's dW [L, C, C], db [L, C]. CUDA design (`csrc/node_mlp_bwd.cu`): one
+thread block per 64-row tile, every activation in shared memory as in
+kernel 3. The TPU sums the weight gradients in scratch across its
+sequential grid; here each tile writes its own partial and a second pass
+sums the partials in tile order (deterministic, no atomics). bf16 mode
+rounds every dot operand as the forward does, and in the backward the
+running cotangent and dpre too; g itself enters the LayerNorm backward in
+f32, as on the TPU. What bounds it: operations, about three times kernel
+3's.
+
+`fused_node_phase` is the differentiable entry: an autograd Function whose
+forward launches kernel 3 and whose backward launches kernel 6.
 """
 
 from __future__ import annotations
@@ -26,13 +43,24 @@ from __future__ import annotations
 import torch
 
 from bsms_gnn_tpu_torch.ops.kernels import build
-from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import BN, dot, mlp_tail_plain
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
+    BN,
+    MAX_BWD_LAYERS,
+    dot,
+    mlp_tail_bwd,
+    mlp_tail_fwd_save,
+    mlp_tail_plain,
+)
 
 _SIG = [build.P] * 7 + [build.I] * 2 + [build.P]
 # (x dtype, bf16 compute) → C entry.
 _FN = {(torch.float32, False): "fused_node_phase_f32",
        (torch.bfloat16, True): "fused_node_phase_bf16",
        (torch.float32, True): "fused_node_phase_f32_bf16"}
+_BWD_SIG = [build.P] * 10 + [build.I] * 2 + [build.P] * 4
+_BWD_FN = {(torch.float32, False): "fused_node_phase_bwd_f32",
+           (torch.bfloat16, True): "fused_node_phase_bwd_bf16",
+           (torch.float32, True): "fused_node_phase_bwd_f32_bf16"}
 ROWS = 64
 
 
@@ -56,31 +84,39 @@ def _check(x, aggr, mlp, compute_dtype):
             f"x dtype {x.dtype} with compute dtype {compute_dtype}")
 
 
-def fused_node_phase_plain(x, aggr, mlp, compute_dtype=None):
-    """The same function in plain PyTorch."""
-    bf16 = compute_dtype == torch.bfloat16
+def _node_pre(x, aggr, mlp, bf16):
     c = x.shape[-1]
     w0 = mlp.weights[0].float()
-    x32 = x.float()
-    pre = dot(x32, w0[:c], bf16) + dot(aggr, w0[c:], bf16) + mlp.biases[0]
-    e = mlp_tail_plain(pre, [w.float() for w in list(mlp.weights)[1:]],
-                       [b.float() for b in list(mlp.biases)[1:]], bf16)
+    x32, a32 = x.float(), aggr.float()
+    pre = dot(x32, w0[:c], bf16) + dot(a32, w0[c:], bf16) + mlp.biases[0]
+    return pre, x32, a32, w0[:c], w0[c:]
+
+
+def _tail(mlp):
+    return ([w.float() for w in list(mlp.weights)[1:]],
+            [b.float() for b in list(mlp.biases)[1:]])
+
+
+def fused_node_phase_plain(x, aggr, mlp, compute_dtype=None):
+    """Kernel 3's function in plain PyTorch."""
+    bf16 = compute_dtype == torch.bfloat16
+    pre, x32, _, _, _ = _node_pre(x, aggr, mlp, bf16)
+    e = mlp_tail_plain(pre, *_tail(mlp), bf16)
     return (e + x32).to(torch.bfloat16 if bf16 else x.dtype)
 
 
-def fused_node_phase(x, aggr, mlp, compute_dtype=None):
-    """LN(MLP_node([x, aggr])) + x. `mlp` is the GMP's node MLP (weights
-    stored [in, out]). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
+    """LN(MLP_node([x, aggr])) + x, no autograd. `mlp` is the GMP's node
+    MLP (weights stored [in, out]). CPU tensors take the plain version;
+    CUDA tensors launch kernel 3."""
     _check(x, aggr, mlp, compute_dtype)
-    build.forward_only("fused_node_phase", x, aggr, *mlp.parameters())
     if x.device.type == "cpu":
         return fused_node_phase_plain(x, aggr, mlp, compute_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     lib = build.library("node_mlp", {f: _SIG for f in _FN.values()})
     ws, bs = list(mlp.weights), list(mlp.biases)
-    w0, b0 = ws[0].float().contiguous(), bs[0].float().contiguous()
+    w0, b0 = ws[0].detach().float().contiguous(), bs[0].detach().float().contiguous()
     w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
     x, aggr = x.contiguous(), aggr.contiguous()
     bf16 = compute_dtype == torch.bfloat16
@@ -92,8 +128,106 @@ def fused_node_phase(x, aggr, mlp, compute_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_node_phase")
-    fused_node_phase.launches += 1
+    fused_node_phase_fwd.launches += 1
     return out
 
 
-fused_node_phase.launches = 0
+fused_node_phase_fwd.launches = 0
+
+
+def fused_node_phase_bwd_plain(x, aggr, mlp, g, compute_dtype=None):
+    """Kernel 6's function in plain PyTorch."""
+    fused_node_phase_bwd_plain.calls += 1
+    bf16 = compute_dtype == torch.bfloat16
+    pre, x32, a32, wa, wb = _node_pre(x, aggr, mlp, bf16)
+    ws, bs = _tail(mlp)
+    normed, inv, hs = mlp_tail_fwd_save(pre, ws, bs, bf16)
+    g = g.float()
+    dpre, dw, db = mlp_tail_bwd(pre, hs, normed, inv, g, ws, bf16)
+    dx = (dot(dpre, wa.t(), bf16) + g).to(x.dtype)
+    daggr = dot(dpre, wb.t(), bf16).to(aggr.dtype)
+    return (dx, daggr, dot(x32.t(), dpre, bf16), dot(a32.t(), dpre, bf16),
+            dpre.sum(0), dw, db)
+
+
+fused_node_phase_bwd_plain.calls = 0
+
+
+def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
+    """(dx in x's dtype, daggr f32, dWa, dWb [128, 128], db0 [128], dW [L,
+    128, 128], db [L, 128]) for the output's cotangent g, no autograd. CPU
+    tensors take the plain version; CUDA tensors launch kernel 6."""
+    _check(x, aggr, mlp, compute_dtype)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return fused_node_phase_bwd_plain(x, aggr, mlp, g, compute_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    n_layers = len(mlp.weights) - 1
+    if n_layers > MAX_BWD_LAYERS:
+        raise NotImplementedError(
+            f"{n_layers} tail layers (kernel 6 takes {MAX_BWD_LAYERS})")
+    lib = build.library("node_mlp_bwd", {f: _BWD_SIG for f in _BWD_FN.values()})
+    ws, bs = list(mlp.weights), list(mlp.biases)
+    c, dev = x.shape[-1], x.device
+    w0 = ws[0].detach().float()
+    wab_t = torch.stack([w0[:c].t(), w0[c:].t()]).contiguous()
+    w0, b0 = w0.contiguous(), bs[0].detach().float().contiguous()
+    w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
+    wt_stack = build.stacked(ws[1:], transpose=True)
+    x, aggr = x.contiguous(), aggr.contiguous()
+    g = g.detach().float().contiguous()
+    bf16 = compute_dtype == torch.bfloat16
+    n_tiles = x.shape[0] // ROWS
+    grad_size = (2 + n_layers) * c * c + (1 + n_layers) * c
+    gpart = torch.empty(n_tiles, grad_size, dtype=torch.float32, device=dev)
+    grads = torch.empty(grad_size, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    daggr = torch.empty_like(aggr)
+    err = getattr(lib, _BWD_FN[(x.dtype, bf16)])(
+        x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w_stack.data_ptr(), b_stack.data_ptr(), wab_t.data_ptr(),
+        wt_stack.data_ptr(), g.data_ptr(), gpart.data_ptr(), n_layers,
+        n_tiles, dx.data_ptr(), daggr.data_ptr(), grads.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(err, "fused_node_phase_bwd")
+    fused_node_phase_bwd.launches += 1
+    dwa, dwb, dw, db0, db = grads.split(
+        [c * c, c * c, n_layers * c * c, c, n_layers * c])
+    return (dx, daggr, dwa.view(c, c), dwb.view(c, c), db0,
+            dw.view(n_layers, c, c), db.view(n_layers, c))
+
+
+fused_node_phase_bwd.launches = 0
+
+
+class _NodePhase(torch.autograd.Function):
+    """Kernel 3 forward, kernel 6 backward; a gradient for x, aggr and
+    every weight and bias of the node MLP."""
+
+    @staticmethod
+    def forward(ctx, mlp, compute_dtype, x, aggr, *params):
+        ctx.mlp, ctx.compute_dtype = mlp, compute_dtype
+        ctx.save_for_backward(x, aggr, *params)
+        return fused_node_phase_fwd(x, aggr, mlp, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, aggr, *params = ctx.saved_tensors
+        dx, daggr, dwa, dwb, db0, dw, db = fused_node_phase_bwd(
+            x, aggr, ctx.mlp, g, ctx.compute_dtype)
+        grads = ([torch.cat([dwa, dwb])] + list(dw.unbind(0))
+                 + [db0] + list(db.unbind(0)))
+        return (None, None, dx, daggr,
+                *(d.to(p.dtype) for d, p in zip(grads, params)))
+
+
+def fused_node_phase(x, aggr, mlp, compute_dtype=None):
+    """LN(MLP_node([x, aggr])) + x, differentiable in x, aggr and the node
+    MLP's weights and biases. Output in bf16 in bf16 compute, else in x's
+    dtype."""
+    _check(x, aggr, mlp, compute_dtype)
+    return _NodePhase.apply(mlp, compute_dtype, x, aggr, *mlp.weights,
+                            *mlp.biases)

@@ -27,6 +27,30 @@ MB, so the per-launch latency dominates.
 bf16 mode follows the TPU kernel, which rounds the ew-weighted one-hot to
 bf16 before the f32-accumulated scatter dot: the weight is rounded to bf16
 and the product with the bf16 row is exact in f32.
+
+Kernel 7: the transposed windowed sum of a level (the sender side of the
+fused edge phase's backward). Replaces `bsms_gnn_tpu/ops/pallas/
+windowed.py::windowed_send_sum_raw` (`_get_send_call` →
+`_make_send_kernel`):
+
+    out[n] = Σ_{in-window e: send(e)=n} vals[e]
+
+with the sender row `win_base[chunk]·W/2 + send_win[e]`. Its output is
+indexed by sender windows, not by receiver blocks, and chunks are not
+sorted by window. CUDA design (`csrc/windowed_send.cu`), kernel 1's
+scheme turned around: one thread block per edge chunk adds each in-window
+slot's row into a shared-memory copy of the chunk's W-row window, one
+thread per (column, row parity), in slot order, and writes it to a part
+per chunk; a second pass gives each W/2-row output block the matching
+halves of the parts of the chunks whose window covers it, from host-built
+tables (`send_ptr`, `send_items`, see `graph/hierarchy.py`): low halves
+then high halves, each in chunk order. Deterministic, no atomics, and a
+block no chunk covers comes out zero. Sentinel slots (`send_win == W`)
+add nothing. What bounds it on the card: bytes (each in-window slot's row
+read once, the output written once) and latency; the sum rounds nothing
+(bf16 rows add exactly into f32). A first design, one thread block per
+output block walking its chunks, ran the deep levels' many chunks per
+block in series (PERF.md).
 """
 
 from __future__ import annotations
@@ -39,6 +63,9 @@ BN = 128
 _SIG = [build.P] * 7 + [build.I] * 4 + [build.P] * 3
 _FN = {torch.float32: "windowed_rect_conv_f32",
        torch.bfloat16: "windowed_rect_conv_bf16"}
+_SEND_SIG = [build.P] * 4 + [build.I] * 4 + [build.P] * 3
+_SEND_FN = {torch.float32: "windowed_send_sum_f32",
+            torch.bfloat16: "windowed_send_sum_bf16"}
 
 
 def _check(op, x):
@@ -73,7 +100,6 @@ def windowed_rect_conv(op, x):
     windowed TransOp applied to x [n_in_pad, 128]. CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
     _check(op, x)
-    build.forward_only("windowed_rect_conv", x)
     if x.device.type == "cpu":
         return windowed_rect_conv_plain(op, x)
     if x.device.type != "cuda":
@@ -99,3 +125,65 @@ def windowed_rect_conv(op, x):
 
 
 windowed_rect_conv.launches = 0
+
+
+def _check_send(level, vals):
+    if level.window <= 0:
+        raise NotImplementedError("windowed send sum needs a windowed level")
+    if vals.dim() != 2:
+        raise NotImplementedError("batch axis")
+    if vals.shape != (level.n_pad_edges, BN):
+        raise ValueError(f"vals {tuple(vals.shape)} != "
+                         f"({level.n_pad_edges}, {BN})")
+    if vals.dtype not in _SEND_FN:
+        raise ValueError(f"vals dtype {vals.dtype}")
+
+
+def windowed_send_sum_plain(level, vals):
+    """The same function in plain PyTorch: index_add_ of the in-window
+    slots' rows at their sender rows."""
+    windowed_send_sum_plain.calls += 1
+    w = level.window
+    sw = level.send_win.long()
+    covered = sw < w
+    base = level.win_base.long().repeat_interleave(level.edge_block)
+    rows = (base * (w // 2) + sw)[covered]
+    out = torch.zeros(level.n_pad_nodes, vals.shape[-1], dtype=torch.float32,
+                      device=vals.device)
+    return out.index_add_(0, rows, vals[covered].float())
+
+
+windowed_send_sum_plain.calls = 0
+
+
+def windowed_send_sum(level, vals):
+    """f32 [n_pad, 128] sender sums of the in-window slots' rows of vals
+    [E_pad, 128]. CPU tensors take the plain version; CUDA tensors launch
+    kernel 7."""
+    _check_send(level, vals)
+    if vals.device.type == "cpu":
+        return windowed_send_sum_plain(level, vals)
+    if vals.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {vals.device}")
+    build.require("windowed_send_sum", vals.device, level.send_win,
+                  level.send_ptr, level.send_items)
+    lib = build.library("windowed_send",
+                        {f: _SEND_SIG for f in _SEND_FN.values()})
+    vals = vals.contiguous()
+    n_chunks = level.n_pad_edges // level.edge_block
+    f32 = dict(dtype=torch.float32, device=vals.device)
+    part = torch.empty(n_chunks, level.window, BN, **f32)
+    out = torch.empty(level.n_pad_nodes, BN, **f32)
+    err = getattr(lib, _SEND_FN[vals.dtype])(
+        vals.data_ptr(), level.send_win.data_ptr(), level.send_ptr.data_ptr(),
+        level.send_items.data_ptr(), n_chunks,
+        level.n_pad_nodes // (level.window // 2), level.edge_block,
+        level.window, part.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream,
+    )
+    build.check(err, "windowed_send_sum")
+    windowed_send_sum.launches += 1
+    return out
+
+
+windowed_send_sum.launches = 0

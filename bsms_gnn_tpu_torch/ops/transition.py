@@ -1,13 +1,20 @@
 """Fused level transitions (counterpart of `bsms_gnn_tpu/ops/transition.py`):
 one precomputed operator application per direction, `down(x) = M x` and
-`up(x) = Mᵀ x`. Windowed operators run the windowed conv kernel and add
-their compact residual; small unwindowed operators carry a dense matrix.
+`up(x) = Mᵀ x`, each the other's adjoint. Windowed operators run the
+windowed conv kernel and add their compact residual; small unwindowed
+operators carry a dense matrix.
+
+The backward of `trans_down` applies the transition's `up_op` to the
+cotangent and the backward of `trans_up` its `down_op`, through the same
+kernels (1 and 2) as the forward: no scatter anywhere, as on the TPU.
 """
 
 from __future__ import annotations
 
+import torch
+
 from bsms_gnn_tpu_torch.graph.hierarchy import Transition, TransOp
-from bsms_gnn_tpu_torch.ops.kernels.compact_resid import compact_accum
+from bsms_gnn_tpu_torch.ops.kernels.compact_resid import compact_accum_raw
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_rect_conv
 
 
@@ -28,15 +35,29 @@ def _apply(op: TransOp, x):
     cr = op.cresid
     if cr is not None:
         msg = x.index_select(0, cr.senders) * cr.ew.to(x.dtype)[:, None]
-        out = compact_accum(cr, msg, out)
+        out = compact_accum_raw(cr, msg, out)
     return out.to(x.dtype)
+
+
+class _Pair(torch.autograd.Function):
+    """Forward applies `op`; backward applies its adjoint `adj` to the
+    cotangent, cast to the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, op, adj, x):
+        ctx.adj, ctx.dtype = adj, x.dtype
+        return _apply(op, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _apply(ctx.adj, g).to(ctx.dtype)
 
 
 def trans_down(t: Transition, x):
     """Fused conv→pool: [N_parent_pad, C] → [M_child_pad, C]."""
-    return _apply(t.down_op, x)
+    return _Pair.apply(t.down_op, t.up_op, x)
 
 
 def trans_up(t: Transition, x):
     """Fused unpool→reverse-conv: child → parent space."""
-    return _apply(t.up_op, x)
+    return _Pair.apply(t.up_op, t.down_op, x)

@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card.
+"""Drive the PyTorch port's serving path and train step on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero without the result line):
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, TF32 off, and the four CUDA kernels built from `csrc/`;
+   versions, TF32 off, and the seven CUDA kernels built from `csrc/`;
 2. the 5,233-node graded airfoil (Morton-ordered, depth 7, edge_block 512,
    window 256) built and moved to the card, its per-level layout printed;
-3. each kernel against its plain PyTorch version on the card at the
+3. each forward kernel against its plain PyTorch version on the card at the
    main path's shapes (level 0, T0 down / up), f32 and bf16;
-4. the slice: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
+4. serving: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
    filled from seeded frames) forward through the kernels against the same
    forward through the plain versions, f32 and bf16; the kernel launch
    counts of one forward; a finite 20-step `rollout_trajectory`;
-5. times with CUDA events: ms per forward and per rollout step, and each
-   kernel's time beside its plain version, one PyTorch library call where
-   one computes the same function, and the card's bound for the work.
+5. serving times with CUDA events: ms per forward and per rollout step, and
+   each forward kernel's time beside its plain version, one PyTorch library
+   call where one computes the same function, and the card's bound;
+6. each backward kernel against its plain version on the card at level 0,
+   f32 and bf16, every output judged on its own, with a bf16 control;
+7. the train step: loss and every parameter's gradient through the kernels
+   against the same step through the plain versions, f32 and bf16; the
+   kernel launch counts of one step; a short `Trainer` run (a two-step
+   normalizer-warmup gate, then updates) with finite losses that moves
+   every parameter;
+8. train-step times: ms per step (median of repeats, CUDA events), device
+   busy time, idle share and kernel count of one profiled step, peak
+   memory, and each backward kernel's time beside its plain version, its
+   library call and its bound.
 
-Prints one `{"kernels": [...]}` line, then as its last line
+Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
+as its last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Exits non-zero where `torch.cuda.is_available()` is false.
 """
@@ -26,6 +38,7 @@ Exits non-zero where `torch.cuda.is_available()` is false.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -70,6 +83,87 @@ TOL = {
 FORWARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 EXPECTED_LAUNCHES = {"fused_edge_phase_win": 15, "fused_node_phase": 15,
                      "windowed_rect_conv": 14, "compact_accum": 16}
+# Launches of one train step (forward and backward) of the 5k model: the
+# forward's, plus kernel 1 in the 14 transitions' adjoints, kernel 2 in the
+# 16 compact gathers' backwards and the 8 residual operators' adjoints, and
+# kernels 5, 6 and 7 once in each of the 15 GMPs' backwards.
+EXPECTED_TRAIN_LAUNCHES = {
+    "fused_edge_phase_win": 15, "fused_node_phase": 15,
+    "fused_edge_phase_win_bwd": 15, "fused_node_phase_bwd": 15,
+    "windowed_rect_conv": 28, "compact_accum": 40, "windowed_send_sum": 15}
+BWD_OUTPUTS = {
+    "fused_edge_phase_win_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
+    "fused_node_phase_bwd": ("dx", "daggr", "dWa", "dWb", "db0", "dW", "db"),
+    "windowed_send_sum": ("out",),
+}
+# Backward kernel vs plain on the card, every output judged on its own, as
+# fractions of the RMS of the plain output: (largest error, RMS error).
+# f32: both sides compute in true f32 and sum in other orders. bf16: both
+# sides round the same operands; an f32 sum in another order flips a rare
+# bf16 rounding (2^-8 relative of one element), and a flip that lands on a
+# ReLU input near zero (many more in bf16, whose hidden activations are
+# rounded) switches that unit off in one row, which moves the row's
+# cotangent by a share of its scale and the weight gradients by a share of
+# one row in ~5k. The node phase sees more of these than the edge phase
+# (its cotangent is not rounded at the top, so the chain carries more of
+# each flip). Each limit sits at least 3x above the error measured on an
+# H100 (PERF.md); in bf16 a control that skips the rounding (the f32 kernel
+# on the upcast inputs) must miss the limit in every output of kernels 5
+# and 6. Kernel 7 rounds nothing in bf16 (bf16 rows add exactly in f32).
+BWD_TOL = {
+    ("fused_edge_phase_win_bwd", torch.float32): (2e-5, 2e-6),
+    ("fused_node_phase_bwd", torch.float32): (2e-5, 2e-6),
+    ("windowed_send_sum", torch.float32): (2e-5, 2e-6),
+    ("fused_edge_phase_win_bwd", torch.bfloat16): (1e-1, 5e-4),
+    ("fused_node_phase_bwd", torch.bfloat16): (1.0, 7e-3),
+    ("windowed_send_sum", torch.bfloat16): (2e-5, 1e-6),
+}
+BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd")
+# The train step through the kernels against the plain path: the loss
+# (relative), and each parameter's gradient as (largest error, RMS error)
+# relative to its RMS. f32: sums in other orders through 15 GMPs'
+# backwards (the plain path's `index_add_` sums with atomics, in another
+# order each run), and a ReLU input within rounding of zero can flip one
+# slot's path: on an H100 the largest error read 3.5e-3 and 6.2e-3, the
+# worst RMS error 8.3e-5 and 2.0e-4 in two runs of the same code. bf16: rounding
+# flips spread through the whole step, so the gradients differ by a few
+# percent in RMS (median 3.8e-2, worst 8.1e-2, one element 2.2x its
+# tensor's RMS), about as far as the f32 and bf16 plain paths differ: this
+# catches gross faults only (an unrelated gradient is off by ~1.4 in RMS);
+# the per-kernel checks and their controls hold the rounding.
+TRAIN_TOL = {torch.float32: (1e-5, 5e-2, 1e-3),
+             torch.bfloat16: (1e-4, 10.0, 0.3)}
+TRAIN_GATE, TRAIN_UPDATES = 2, 4
+_CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
+_PALLAS = "bsms_gnn_tpu/ops/pallas/"
+# name → (source, the TPU kernel it replaces, the CUDA kernels one call
+# launches). Kernels 1, 4, 5 and 7 add the pass that sums each output
+# block's chunk parts (the work the TPU kernel did in its revisited block);
+# kernels 5 and 6 the pass that sums the weight-gradient partials.
+KERNEL_META = {
+    "fused_edge_phase_win": (
+        _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
+        ("fused_edge_phase_win_kernel", "block_sum_kernel")),
+    "fused_node_phase": (
+        _CSRC + "node_mlp.cu", _PALLAS + "node_mlp.py:107",
+        ("fused_node_phase_kernel",)),
+    "windowed_rect_conv": (
+        _CSRC + "windowed.cu", _PALLAS + "windowed.py:111",
+        ("windowed_rect_conv_kernel", "block_sum_kernel")),
+    "compact_accum": (
+        _CSRC + "compact_resid.cu", _PALLAS + "compact_resid.py:73",
+        ("compact_accum_kernel",)),
+    "fused_edge_phase_win_bwd": (
+        _CSRC + "fused_gmp_bwd.cu", _PALLAS + "fused_gmp.py:607",
+        ("fused_edge_phase_win_bwd_kernel", "block_sum_kernel",
+         "grad_sum_kernel")),
+    "fused_node_phase_bwd": (
+        _CSRC + "node_mlp_bwd.cu", _PALLAS + "node_mlp.py:125",
+        ("fused_node_phase_bwd_kernel", "grad_sum_kernel")),
+    "windowed_send_sum": (
+        _CSRC + "windowed_send.cu", _PALLAS + "windowed.py:205",
+        ("windowed_send_part_kernel", "windowed_send_sum_kernel")),
+}
 
 
 class SmokeFailure(Exception):
@@ -81,7 +175,10 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_modules():
+    """name → (the wrapper that counts its kernel's launches, the plain
+    version), the four forward kernels then the three backward kernels."""
     from bsms_gnn_tpu_torch.ops.kernels import (
         compact_resid,
         fused_gmp,
@@ -89,14 +186,20 @@ def kernel_modules():
         windowed,
     )
     return {
-        "fused_edge_phase_win": (fused_gmp.fused_edge_phase_win,
+        "fused_edge_phase_win": (fused_gmp.fused_edge_phase_win_fwd,
                                  fused_gmp.fused_edge_phase_win_plain),
-        "fused_node_phase": (node_mlp.fused_node_phase,
+        "fused_node_phase": (node_mlp.fused_node_phase_fwd,
                              node_mlp.fused_node_phase_plain),
         "windowed_rect_conv": (windowed.windowed_rect_conv,
                                windowed.windowed_rect_conv_plain),
-        "compact_accum": (compact_resid.compact_accum,
+        "compact_accum": (compact_resid.compact_accum_raw,
                           compact_resid.compact_accum_plain),
+        "fused_edge_phase_win_bwd": (fused_gmp.fused_edge_phase_win_bwd,
+                                     fused_gmp.fused_edge_phase_win_bwd_plain),
+        "fused_node_phase_bwd": (node_mlp.fused_node_phase_bwd,
+                                 node_mlp.fused_node_phase_bwd_plain),
+        "windowed_send_sum": (windowed.windowed_send_sum,
+                              windowed.windowed_send_sum_plain),
     }
 
 
@@ -105,30 +208,40 @@ def reset_counts():
         fn.launches = 0
 
 
-def read_counts():
-    return {k: fn.launches for k, (fn, _) in kernel_modules().items()}
+def read_counts(names=EXPECTED_LAUNCHES):
+    return {k: kernel_modules()[k][0].launches for k in names}
 
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the model's kernel calls to the plain versions on the same
-    device, for the full-forward comparison (the package itself takes the
-    plain versions only for CPU tensors)."""
-    from bsms_gnn_tpu_torch.ops import message, transition
+    """Route the model's kernel calls, forward and backward, to the plain
+    versions on the same device, for the whole-model comparisons (the
+    package itself takes the plain versions only for CPU tensors)."""
+    from bsms_gnn_tpu_torch.ops import transition
+    from bsms_gnn_tpu_torch.ops.kernels import (
+        compact_resid,
+        fused_gmp,
+        node_mlp,
+    )
 
     mods = kernel_modules()
-    targets = [(message, "fused_edge_phase_win"),
-               (message, "fused_node_phase"), (message, "compact_accum"),
-               (transition, "windowed_rect_conv"),
-               (transition, "compact_accum")]
-    saved = [(m, n, getattr(m, n)) for m, n in targets]
+    targets = [(fused_gmp, "fused_edge_phase_win_fwd", "fused_edge_phase_win"),
+               (fused_gmp, "fused_edge_phase_win_bwd",
+                "fused_edge_phase_win_bwd"),
+               (fused_gmp, "windowed_send_sum", "windowed_send_sum"),
+               (node_mlp, "fused_node_phase_fwd", "fused_node_phase"),
+               (node_mlp, "fused_node_phase_bwd", "fused_node_phase_bwd"),
+               (compact_resid, "compact_accum_raw", "compact_accum"),
+               (transition, "compact_accum_raw", "compact_accum"),
+               (transition, "windowed_rect_conv", "windowed_rect_conv")]
+    saved = [(m, attr, getattr(m, attr)) for m, attr, _ in targets]
     try:
-        for m, n in targets:
-            setattr(m, n, mods[n][1])
+        for m, attr, name in targets:
+            setattr(m, attr, mods[name][1])
         yield
     finally:
-        for m, n, f in saved:
-            setattr(m, n, f)
+        for m, attr, f in saved:
+            setattr(m, attr, f)
 
 
 def build_case(device):
@@ -407,31 +520,6 @@ def _device_ms(evt):
             or getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
 
 
-def profile_forward(sim, hd, node_in, mask, cd):
-    """One forward under torch.profiler: wall ms (host clock, ends in a
-    synchronize), device-busy ms (sum of the CUDA kernels' times; one
-    stream, so they do not overlap), kernel launches, and the kernels that
-    took the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sim(hd, node_in, mask, cd)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim(hd, node_in, mask, cd)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_ms(e) > 0]
-    busy = sum(_device_ms(e) for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=_device_ms, reverse=True)[:8]
-    return wall, busy, launches, [(e.key[:60], e.count, _device_ms(e))
-                                  for e in top]
-
-
 def work(name, args, dtype):
     """(bytes, operations) the function needs on these inputs: each input
     read once, each output written once; operations of the entries this
@@ -457,7 +545,7 @@ def work(name, args, dtype):
         e = op.n_pad_edges
         ops = 2 * c * live
         by = x.shape[0] * c * elt + 4 * e * 4 + op.n_pad_nodes * c * 4
-    else:
+    elif name == "compact_accum":
         # The real rows' values and receivers in, and the accumulator rows
         # they reach read and written back: the rest of acc is untouched.
         cr, vals, _ = args
@@ -465,6 +553,35 @@ def work(name, args, dtype):
         reached = len(torch.unique(cr.receivers[:n]))
         ops = n * c
         by = n * c * elt + n * 4 + 2 * reached * c * 4
+    elif name == "fused_edge_phase_win_bwd":
+        # The in-window slots' forward again (as kernel 4 counts it), then
+        # the LN backward, dW and the next cotangent per tail layer, dwf8
+        # and the dxj add. In: xwi, xj, the fiber stream, send_win,
+        # receivers and win_base, g, the weights; out: dpre, dxj and the
+        # weight gradients.
+        lvl, _, _, _, weights, _, _ = args
+        live = int((lvl.send_win < lvl.window).sum().item())
+        e, n, layers = lvl.n_pad_edges, lvl.n_pad_nodes, len(weights)
+        ops = live * (2 * 2 * 8 * c + 6 * layers * c * c + 21 * c)
+        grads = (layers * (c * c + c) + 8 * c) * 4
+        by = (2 * n * c * elt + 8 * e * 4 + 3 * e * 4 + n * c * 4 + grads
+              + e * c * elt + n * c * 4 + grads)
+    elif name == "fused_node_phase_bwd":
+        # Every row's forward again (as kernel 3 counts it), the LN
+        # backward, dW and the next cotangent per tail layer, then dx,
+        # daggr, dWa, dWb and db0. In: x, aggr, g, the weights; out: dx,
+        # daggr and the weight gradients.
+        x, _, mlp, _, _ = args
+        n, layers = x.shape[0], len(mlp.weights) - 1
+        ops = n * (3 * 2 * 2 * c * c + 6 * layers * c * c + 25 * c)
+        grads = (2 * c * c + layers * c * c + (layers + 1) * c) * 4
+        by = n * c * elt + 2 * n * c * 4 + grads + n * c * elt + n * c * 4 + grads
+    else:
+        # The in-window slots' rows in, send_win in, the output written.
+        lvl, vals = args
+        live = int((lvl.send_win < lvl.window).sum().item())
+        ops = live * c
+        by = live * c * elt + lvl.n_pad_edges * 4 + lvl.n_pad_nodes * c * 4
     return by, ops
 
 
@@ -488,10 +605,18 @@ def library_call(name, args):
         v = vals[:cr.n_real].float()
         a = acc.clone()
         return lambda: a.index_add_(0, idx, v)
+    if name == "windowed_send_sum":
+        lvl, vals = args
+        live = lvl.send_win < lvl.window
+        base = lvl.win_base.long().repeat_interleave(lvl.edge_block)
+        idx = (base * (lvl.window // 2) + lvl.send_win.long())[live]
+        v = vals[live].float()
+        a = torch.zeros(lvl.n_pad_nodes, vals.shape[-1], device=vals.device)
+        return lambda: a.index_add_(0, idx, v)
     return None
 
 
-def measure(case, counts, errs):
+def measure(case):
     sim, hd, node_in, mask = (case[k] for k in ("sim", "hd", "node_in",
                                                  "mask"))
     from bsms_gnn_tpu_torch.training.rollout import rollout_trajectory
@@ -512,12 +637,8 @@ def measure(case, counts, errs):
               f"plain versions")
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
-        wall, busy, launches, top = profile_forward(sim, hd, node_in, mask, cd)
-        print(f"profile forward {str(dtype)[6:]}: wall {wall:.3f} ms (host "
-              f"clock, under the profiler), device busy {busy:.3f} ms, idle "
-              f"share {1 - busy / wall:.3f}, {launches} CUDA kernels")
-        for key, count, ms in top:
-            print(f"  {ms:9.4f} ms  {count:4d}x  {key}")
+        print_profile(f"forward {str(dtype)[6:]}",
+                      *profile_call(lambda: sim(hd, node_in, mask, cd)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rollout_trajectory(sim, hd, node_in, mask, ROLLOUT_STEPS)
@@ -526,78 +647,313 @@ def measure(case, counts, errs):
     print(f"rollout f32: {step:.4f} ms per step (host clock over "
           f"{ROLLOUT_STEPS} steps)")
 
-    # The CUDA kernels each wrapper launches: kernels 1 and 4 are two
-    # launches, the chunk pass and the pass that sums each output block's
-    # chunk parts (the work the TPU kernel did in its revisited block).
-    names = {"fused_edge_phase_win": ("fused_edge_phase_win_kernel",
-                                      "block_sum_kernel"),
-             "fused_node_phase": ("fused_node_phase_kernel",),
-             "windowed_rect_conv": ("windowed_rect_conv_kernel",
-                                    "block_sum_kernel"),
-             "compact_accum": ("compact_accum_kernel",)}
-    meta = {
-        "fused_edge_phase_win": (
-            "bsms_gnn_tpu_torch/ops/kernels/csrc/fused_gmp.cu",
-            "bsms_gnn_tpu/ops/pallas/fused_gmp.py:568"),
-        "fused_node_phase": (
-            "bsms_gnn_tpu_torch/ops/kernels/csrc/node_mlp.cu",
-            "bsms_gnn_tpu/ops/pallas/node_mlp.py:107"),
-        "windowed_rect_conv": (
-            "bsms_gnn_tpu_torch/ops/kernels/csrc/windowed.cu",
-            "bsms_gnn_tpu/ops/pallas/windowed.py:111"),
-        "compact_accum": (
-            "bsms_gnn_tpu_torch/ops/kernels/csrc/compact_resid.cu",
-            "bsms_gnn_tpu/ops/pallas/compact_resid.py:73"),
-    }
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        device = node_in.device
-        for name, shapes in kernel_inputs(case, dtype, device).items():
-            fn, plain = kernel_modules()[name]
-            where, args = shapes[0]
-            parts = kernel_device_ms(lambda: fn(*args), names[name])
-            ms = None if parts is None else sum(parts.values())
-            ev = event_ms(lambda: fn(*args), reps=50)
-            pms = event_ms(lambda: plain(*args), reps=20)
-            lib = library_call(name, args) if dtype == torch.float32 else None
-            lms = event_ms(lib, reps=50) if lib is not None else None
-            by, ops = work(name, args, dtype)
-            bound_b, bound_o = by / PEAK_BYTES_S * 1e3, ops / PEAK_FLOPS_S[dtype] * 1e3
-            print(f"time {name:22s} {where:8s} {str(dtype)[6:]:9s} "
-                  f"kernel {ms if ms is not None else float('nan'):.5f} ms "
-                  f"(profiler) {ev:.5f} ms (events, with the wrapper)  "
-                  f"plain {pms:.5f} ms  library "
-                  f"{'null' if lms is None else f'{lms:.5f} ms'}  bound "
-                  f"{max(bound_b, bound_o):.5f} ms by "
-                  f"{'bytes' if bound_b >= bound_o else 'operations'} "
-                  f"({by} B, {ops} op)")
-            if parts is not None and len(parts) > 1:
-                print("  kernel time by launch: " + ", ".join(
-                    f"{k} {v:.5f} ms" for k, v in parts.items()))
-            rows[(name, dtype)] = dict(
-                ms=ms if ms is not None else ev, plain_ms=pms,
-                bound_ms=max(bound_b, bound_o),
-                bound_by="bytes" if bound_b >= bound_o else "operations",
+        for name, shapes in kernel_inputs(case, dtype, node_in.device).items():
+            rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
+    return rows, {"forward_ms_f32": t[torch.float32],
+                  "forward_ms_bf16": t[torch.bfloat16],
+                  "rollout_step_ms_f32": step}
+
+
+def time_kernel(name, where, args, dtype):
+    """One kernel at the main path's shapes: its device time (the sum of
+    the CUDA kernels one call launches, from the profiler), its time with
+    the wrapper (CUDA events), the plain version's, the library call's
+    (f32 only) and the card's bound for the work."""
+    fn, plain = kernel_modules()[name]
+    parts = kernel_device_ms(lambda: fn(*args), KERNEL_META[name][2])
+    ms = None if parts is None else sum(parts.values())
+    ev = event_ms(lambda: fn(*args), reps=50)
+    pms = event_ms(lambda: plain(*args), reps=20)
+    lib = library_call(name, args) if dtype == torch.float32 else None
+    lms = event_ms(lib, reps=50) if lib is not None else None
+    by, ops = work(name, args, dtype)
+    bound_b = by / PEAK_BYTES_S * 1e3
+    bound_o = ops / PEAK_FLOPS_S[dtype] * 1e3
+    by_what = "bytes" if bound_b >= bound_o else "operations"
+    print(f"time {name:24s} {where:8s} {str(dtype)[6:]:9s} "
+          f"kernel {ms if ms is not None else float('nan'):.5f} ms "
+          f"(profiler) {ev:.5f} ms (events, with the wrapper)  "
+          f"plain {pms:.5f} ms  library "
+          f"{'null' if lms is None else f'{lms:.5f} ms'}  bound "
+          f"{max(bound_b, bound_o):.5f} ms by {by_what} ({by} B, {ops} op)")
+    if parts is not None and len(parts) > 1:
+        print("  kernel time by launch: " + ", ".join(
+            f"{k} {v:.5f} ms" for k, v in parts.items()))
+    return dict(ms=ms if ms is not None else ev, plain_ms=pms,
+                bound_ms=max(bound_b, bound_o), bound_by=by_what,
                 library_ms=lms, event_ms=ev)
-    kernels = []
-    for name in EXPECTED_LAUNCHES:
-        r32, r16 = rows[(name, torch.float32)], rows[(name, torch.bfloat16)]
-        src, replaces = meta[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
-            "max_abs_err": errs[(name, torch.float32)],
-            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
-            "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
-            "library_ms": r32["library_ms"],
-            "bf16": {"max_abs_err": errs[(name, torch.bfloat16)],
-                     "ms": r16["ms"], "plain_ms": r16["plain_ms"],
-                     "bound_ms": r16["bound_ms"],
-                     "bound_by": r16["bound_by"]},
-        })
-    return kernels, {"forward_ms_f32": t[torch.float32],
-                     "forward_ms_bf16": t[torch.bfloat16],
-                     "rollout_step_ms_f32": step}
+
+
+def bwd_kernel_inputs(case, dtype, device):
+    """Each backward kernel's arguments at level 0 of the main path, from
+    a seed: the forward kernels' inputs plus the output's cotangent."""
+    hd, sim = case["hd"], case["sim"]
+    g = torch.Generator(device="cpu").manual_seed(8)
+
+    def rand(*shape, dt=torch.float32, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(dt).to(device)
+
+    lvl = hd.levels[0]
+    gmp = sim.process.down_gmps[0]
+    c, n0, e0 = 128, lvl.n_pad_nodes, lvl.n_pad_edges
+    w1 = gmp.mlp_edge.weights[0]
+    wf8 = torch.cat([w1[:3], gmp.mlp_edge.biases[0][None],
+                     w1.new_zeros(4, c)])
+    mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
+    cd = dtype if dtype == torch.bfloat16 else None
+    return {
+        "fused_edge_phase_win_bwd": [
+            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
+                         wf8, *mlp_e, rand(n0, c)))],
+        "fused_node_phase_bwd": [
+            ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
+                         gmp.mlp_node, rand(n0, c), cd)),
+            *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
+                          rand(n0, c), cd))] if cd is not None else [])],
+        "windowed_send_sum": [("level 0", (lvl, rand(e0, c, dt=dtype)))],
+    }
+
+
+def check_bwd_kernels(case, device):
+    """Every backward kernel against its plain version on the same inputs,
+    each output on its own, and in bf16 a control (the f32 kernel on the
+    upcast inputs) that must miss the tolerance in every output. Returns {(name, dtype): largest max_abs_err over the outputs}
+    at the first shape listed."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
+            fn, plain = kernel_modules()[name]
+            for where, args in shapes:
+                got, want = fn(*args), plain(*args)
+                if name == "windowed_send_sum":
+                    got, want = (got,), (want,)
+                ctrl = None
+                if name in BWD_CONTROLS and dtype == torch.bfloat16:
+                    up = [a.float() if isinstance(a, torch.Tensor)
+                          and a.dtype == torch.bfloat16 else a for a in args]
+                    if name == "fused_node_phase_bwd":
+                        up[4] = None
+                    ctrl = fn(*up)
+                worst = 0.0
+                for i, out in enumerate(BWD_OUTPUTS[name]):
+                    tol_max, tol_rms = BWD_TOL[(name, dtype)]
+                    err, err_rms, rms = compare(got[i], want[i])
+                    rows = int(((got[i].float() - want[i].float()).abs()
+                                .amax(-1) > 1e-2 * rms).sum())
+                    ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
+                          and bool(torch.isfinite(got[i]).all())
+                          and got[i].dtype == want[i].dtype)
+                    line = (f"kernel {name:24s} {where:8s} {out:5s} "
+                            f"{str(dtype)[6:]:9s} max_abs_err {err:.3e} "
+                            f"({err / rms:.2e} of rms {rms:.3e}, tol "
+                            f"{tol_max:.0e})  rms_err {err_rms / rms:.2e} "
+                            f"(tol {tol_rms:.0e}), {rows} rows off by more "
+                            f"than 1e-2 of rms  {'ok' if ok else 'FAIL'}")
+                    if ctrl is not None:
+                        c_err, c_rms, _ = compare(ctrl[i], want[i])
+                        missed = (c_err > tol_max * rms
+                                  or c_rms > tol_rms * rms)
+                        line += (f"; control max {c_err / rms:.2e}, rms "
+                                 f"{c_rms / rms:.2e}: "
+                                 f"{'misses, ok' if missed else 'PASSES'}")
+                        require(missed, f"{name} {where} {out}: the bf16 "
+                                        f"tolerance does not tell an "
+                                        f"unrounded kernel apart")
+                    print(line)
+                    require(ok, f"{name} {where} {out} {dtype} disagrees "
+                                f"with plain")
+                    worst = max(worst, err)
+                errs.setdefault((name, dtype), worst)
+    return errs
+
+
+def train_target(case):
+    """A seeded next-step target near the input fields; masked nodes keep
+    theirs."""
+    node_in, mask = case["node_in"], case["mask"]
+    g = torch.Generator(device="cpu").manual_seed(11)
+    step = 0.1 * torch.randn(node_in.shape[0], 3, generator=g)
+    return node_in[:, :3] + step.to(node_in.device) * mask
+
+
+def step_grads(sim, hd, node_in, tar, mask, cd):
+    """The loss and every parameter's gradient of one train step."""
+    from bsms_gnn_tpu_torch.training.trainer import masked_rmse
+
+    sim.zero_grad(set_to_none=True)
+    loss = masked_rmse(sim(hd, node_in, mask, cd), tar, mask)
+    loss.backward()
+    grads = {k: p.grad.detach().clone() for k, p in sim.named_parameters()}
+    sim.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def make_trainer(case, device, cd):
+    """A `Trainer` of the 5k model with a two-step warmup gate and a
+    learning rate that is not 0 from its second update on."""
+    from bsms_gnn_tpu_torch.config import Config, ModelConfig, OptConfig
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    cfg = Config(model=ModelConfig(latent_dim=128, hidden_layer=3,
+                                   unet_depth=DEPTH,
+                                   accumulation_steps=TRAIN_GATE))
+    opt = OptConfig(peak_lr=1e-4, warmup_steps=2, decay_steps=1000)
+    return Trainer(cfg, opt, generator=torch.Generator().manual_seed(1),
+                   device=device, compute_dtype=cd)
+
+
+def check_train(case, device):
+    """The train step through the kernels against the same step through
+    the plain versions; the launch counts of one step; a short `Trainer`
+    run. Returns the f32 step's launch counts."""
+    sim, hd, node_in, mask = (case[k] for k in ("sim", "hd", "node_in",
+                                                 "mask"))
+    tar = case["target"]
+    counts, plain_grads = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        reset_counts()
+        loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
+        counts[dtype] = read_counts(EXPECTED_TRAIN_LAUNCHES)
+        with plain_path():
+            loss_p, grads_p = step_grads(sim, hd, node_in, tar, mask, cd)
+        plain_grads[dtype] = grads_p
+        tol_loss, tol_max, tol_rms = TRAIN_TOL[dtype]
+        rel = []
+        zero = []
+        for k, want in grads_p.items():
+            err, err_rms, rms = compare(grads[k], want)
+            require(bool(torch.isfinite(grads[k]).all()),
+                    f"{k}: gradient not finite")
+            if rms == 0:  # the bottom level (1 node) has no edge
+                require(err == 0, f"{k}: nonzero gradient, plain has none")
+                zero.append(k)
+                continue
+            rel.append((err / rms, err_rms / rms, k))
+        worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
+        loss_err = abs(loss - loss_p) / abs(loss_p)
+        ok = (loss_err <= tol_loss and worst_max[0] <= tol_max
+              and worst_rms[1] <= tol_rms)
+        print(f"train step {str(dtype)[6:]:9s} loss {loss:.6e} (plain "
+              f"{loss_p:.6e}, rel err {loss_err:.2e}, tol {tol_loss:.0e}); "
+              f"{len(rel)} gradients, worst max err {worst_max[0]:.2e} of rms "
+              f"({worst_max[2]}, tol {tol_max:.0e}), worst rms err "
+              f"{worst_rms[1]:.2e} of rms ({worst_rms[2]}, tol "
+              f"{tol_rms:.0e}), median rms err "
+              f"{float(np.median([r[1] for r in rel])):.2e}; {len(zero)} "
+              f"exactly zero on both paths  {'ok' if ok else 'FAIL'}")
+        print(f"launches in one {str(dtype)[6:]} train step: {counts[dtype]}")
+        require(ok, f"{dtype} train step disagrees with the plain path")
+        if device.type == "cuda":
+            require(counts[dtype] == EXPECTED_TRAIN_LAUNCHES,
+                    f"train launch counts {counts[dtype]} != "
+                    f"{EXPECTED_TRAIN_LAUNCHES}")
+
+    f32_vs_bf16 = [compare(plain_grads[torch.bfloat16][k], g)
+                   for k, g in plain_grads[torch.float32].items()]
+    print(f"  the f32 against the bf16 plain step: median rms err "
+          f"{float(np.median([e[1] / e[2] for e in f32_vs_bf16 if e[2]])):.2e}"
+          f" of rms")
+
+    tr = make_trainer(case, device, None)
+    before = [p.detach().clone() for p in tr.sim.parameters()]
+    losses = [float(tr.iter(hd, node_in, tar, mask))
+              for _ in range(TRAIN_GATE + TRAIN_UPDATES)]
+    rates = [tr.schedule(k) for k in range(TRAIN_UPDATES)]
+    # Every parameter with a gradient moves; the rest (the bottom GMP's edge
+    # MLP, whose level has no edge) move only by weight decay.
+    stuck = [k for (k, p), b in zip(tr.sim.named_parameters(), before)
+             if not bool((p.detach() != b).any()) and bool(p.grad.any())]
+    accs = float(tr.sim.norm_in.num_accumulations)
+    print(f"trainer f32: {TRAIN_GATE} gate steps then {TRAIN_UPDATES} "
+          f"updates at rates {rates}: losses {losses}; normalizer "
+          f"accumulations {accs:g}; parameters with a gradient that did not "
+          f"move: {stuck}")
+    require(all(np.isfinite(losses)), "trainer loss not finite")
+    require(accs == TRAIN_GATE, "the warmup gate did not fill the normalizer")
+    require(tr.updates == TRAIN_UPDATES and not stuck,
+            "the updates did not move every parameter with a gradient")
+    return counts[torch.float32]
+
+
+def profile_call(fn):
+    """One call of `fn` under torch.profiler: wall ms (host clock, ends in
+    a synchronize), device-busy ms (sum of the CUDA kernels' times; one
+    stream, so they do not overlap), kernel launches, and the kernels that
+    took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_ms(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(_device_ms(e) for e in kernels)
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=_device_ms, reverse=True)[:8]
+    return wall, busy, launches, [(e.key[:60], e.count, _device_ms(e))
+                                  for e in top]
+
+
+def print_profile(what, wall, busy, launches, top):
+    print(f"profile {what}: wall {wall:.3f} ms (host clock, under the "
+          f"profiler), device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {launches} CUDA kernels")
+    for key, count, ms in top:
+        print(f"  {ms:9.4f} ms  {count:4d}x  {key}")
+
+
+def measure_train(case, device):
+    """Train-step times, profile and peak memory, f32 and bf16; then each
+    backward kernel's time."""
+    hd, node_in, mask, tar = (case[k] for k in ("hd", "node_in", "mask",
+                                                 "target"))
+    e2e = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        name = str(dtype)[6:]
+        tr = make_trainer(case, device, cd)
+
+        def step():
+            tr.iter(hd, node_in, tar, mask)
+
+        for _ in range(TRAIN_GATE + 1):
+            step()
+        runs = [event_ms(step, reps=5, warmup=1) for _ in range(5)]
+        ms = e2e[f"train_step_ms_{'f32' if cd is None else 'bf16'}"] = float(
+            np.median(runs))
+        with plain_path():
+            pms = event_ms(step, reps=5, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"train step {name}: {ms:.4f} ms through the kernels (median "
+              f"of {[round(r, 4) for r in runs]}, each the mean of 5 steps by "
+              f"CUDA events), {pms:.4f} ms through the plain versions; peak "
+              f"memory of a step {peak:.1f} MiB")
+        prof = profile_call(step)
+        print_profile(f"train step {name}", *prof)
+        print(f"  idle share against the timed step: {1 - prof[1] / ms:.3f} "
+              f"(1 - device busy / ms per step)")
+        key = "f32" if cd is None else "bf16"
+        e2e[f"train_step_peak_mib_{key}"] = peak
+        e2e[f"train_step_busy_ms_{key}"] = prof[1]
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
+            rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
+    return rows, e2e
 
 
 def card_line() -> str:
@@ -632,15 +988,39 @@ def main() -> int:
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        with torch.no_grad():  # serving: the kernels have no backward yet
+        with torch.no_grad():  # serving, then the backward kernels alone
             case = build_case(device)
             describe(case)
             errs = check_kernels(case, device)
-            counts = check_slice(case, device)
-            kernels, e2e = measure(case, counts, errs)
+            serve_counts = check_slice(case, device)
+            rows, e2e = measure(case)
+            errs.update(check_bwd_kernels(case, device))
+        case["target"] = train_target(case)
+        train_counts = check_train(case, device)
+        train_rows, train_e2e = measure_train(case, device)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    rows.update(train_rows)
+    e2e.update(train_e2e)
+    kernels = []
+    for name, (src, replaces, _) in KERNEL_META.items():
+        r32, r16 = rows[(name, torch.float32)], rows[(name, torch.bfloat16)]
+        entry = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_counts[name],
+            "max_abs_err": errs[(name, torch.float32)],
+            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+            "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
+            "library_ms": r32["library_ms"],
+            "bf16": {"max_abs_err": errs[(name, torch.bfloat16)],
+                     "ms": r16["ms"], "plain_ms": r16["plain_ms"],
+                     "bound_ms": r16["bound_ms"],
+                     "bound_by": r16["bound_by"]},
+        }
+        if name in serve_counts:
+            entry["launches_forward"] = serve_counts[name]
+        kernels.append(entry)
     print(json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -1,8 +1,9 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
 package; its entry points default to the CUDA card and raise without one;
 a kernel wrapper given CPU tensors runs its plain version and counts no
-launch; layouts the slice does not support raise NotImplementedError; and
-chip_smoke.py fails without a card or without the package beside it."""
+launch, forward and backward; layouts the slice does not support raise
+NotImplementedError; and chip_smoke.py fails without a card or without the
+package beside it."""
 
 import ast
 import os
@@ -18,7 +19,7 @@ import torch
 
 from test_torch_port_hierarchy import scrambled_grid
 
-from bsms_gnn_tpu_torch.config import ModelConfig
+from bsms_gnn_tpu_torch.config import Config, ModelConfig, OptConfig
 from bsms_gnn_tpu_torch.convert import normalizer_from_numpy
 from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
 from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
@@ -32,6 +33,7 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     windowed,
 )
 from bsms_gnn_tpu_torch.ops.message import GMP
+from bsms_gnn_tpu_torch.training.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "bsms_gnn_tpu_torch"
@@ -87,7 +89,7 @@ def _no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["to_device", "Simulator", "init_normalizer",
-                                   "normalizer_from_numpy"])
+                                   "normalizer_from_numpy", "Trainer"])
 def test_default_device_is_cuda_and_raises_without_it(hier, entry):
     _no_cuda()
     calls = {
@@ -98,19 +100,30 @@ def test_default_device_is_cuda_and_raises_without_it(hier, entry):
             acc_weight=0.0, num_accumulations=0.0, e_x=np.zeros(3),
             e_x2=np.zeros(3), max_accumulations=5e5, unit=1e6,
             std_epsilon=1e-8)),
+        "Trainer": lambda: Trainer(Config(model=ModelConfig(unet_depth=2)),
+                                   OptConfig()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
 
+KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
+           windowed.windowed_rect_conv, compact_resid.compact_accum_raw,
+           fused_gmp.fused_edge_phase_win_bwd, node_mlp.fused_node_phase_bwd,
+           windowed.windowed_send_sum)
+PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
+                   node_mlp.fused_node_phase_bwd_plain,
+                   windowed.windowed_send_sum_plain)
+
+
 @pytest.fixture
 def counters():
-    fns = (fused_gmp.fused_edge_phase_win, node_mlp.fused_node_phase,
-           windowed.windowed_rect_conv, compact_resid.compact_accum)
-    for f in fns:
+    for f in KERNELS:
         f.launches = 0
-    yield fns
-    for f in fns:
+    for f in PLAIN_BACKWARDS:
+        f.calls = 0
+    yield KERNELS
+    for f in KERNELS:
         f.launches = 0
 
 
@@ -141,7 +154,24 @@ def test_cpu_tensors_take_the_plain_versions(hier, counters):
         sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
     for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert [f.launches for f in counters] == [0, 0, 0, 0]
+    assert [f.launches for f in counters] == [0] * len(KERNELS)
+
+
+def test_cpu_backward_takes_the_plain_versions(hier, counters):
+    """Under autograd on the CPU, one GMP's backward runs the plain
+    versions of kernels 5, 6 and 7 once each and launches no kernel; every
+    parameter gets a finite gradient."""
+    hd = to_device(hier, "cpu")
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
+    n = hd.levels[0].n_pad_nodes
+    x = torch.randn(n, 128, generator=torch.Generator().manual_seed(1),
+                    requires_grad=True)
+    gmp(hd.levels[0], x).square().sum().backward()
+    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1]
+    assert [f.launches for f in counters] == [0] * len(KERNELS)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for name, p in gmp.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
 def test_unsupported_layouts_raise(hier):
@@ -161,8 +191,6 @@ def test_unsupported_layouts_raise(hier):
         with pytest.raises(NotImplementedError, match="windowed"):
             windowed.windowed_rect_conv(h_flat.transitions[0].down_op,
                                         torch.zeros(n, 128))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        gmp(hd.levels[0], torch.zeros(n, 128))
 
 
 def test_stacked_weights_are_reused_until_they_change():

@@ -26,7 +26,8 @@ from bsms_gnn_tpu_torch.graph.hierarchy import (
 from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.graph.order import reorder_mesh
 
-DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr")
+DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr", "send_ptr",
+                 "send_items")
 
 
 def assert_same(jax_obj, port_obj, path):

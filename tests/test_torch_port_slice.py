@@ -92,7 +92,8 @@ def test_forward_f32_matches_jax_with_taps(case):
         lambda ni, m: simulator_forward(state.params, state.norm_in,
                                         state.norm_out, hj, ni, m, jcfg)
     )(jnp.asarray(node_in), jnp.asarray(mask)))
-    got = sim(ht, torch.from_numpy(node_in), torch.from_numpy(mask))
+    with torch.no_grad():
+        got = sim(ht, torch.from_numpy(node_in), torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
 
     # Per-level GMP outputs from the same encoded input.
@@ -130,8 +131,9 @@ def test_forward_bf16_matches_jax(case, io_dtype):
     cfg = sim.cfg
     sim.cfg = dataclasses.replace(cfg, io_dtype=io_dtype)
     try:
-        got = sim(ht, torch.from_numpy(node_in), torch.from_numpy(mask),
-                  torch.bfloat16).numpy()
+        with torch.no_grad():
+            got = sim(ht, torch.from_numpy(node_in), torch.from_numpy(mask),
+                      torch.bfloat16).numpy()
     finally:
         sim.cfg = cfg
     assert got.dtype == want.dtype == np.float32
