@@ -1,12 +1,17 @@
 """Configuration (counterpart of `bsms_gnn_tpu/config.py`, the dataclasses
-only, with the airfoil defaults of `bsms_gnn_tpu/configs/`; no YAML
-loading yet). The port runs the JAX package's `aggregation=fused` method on
-windowed layouts only, so `ModelConfig` has no `aggregation` field.
-`DatasetConfig` keeps only the fields the trainer reads (the noise)."""
+only, with the airfoil defaults of `bsms_gnn_tpu/configs/` and the
+inflating-font presets as `inflating_font_config`; no YAML loading yet).
+
+`ModelConfig.aggregation` picks one of the JAX package's two production
+methods: `"fused"` (windowed layouts, the fused edge-phase kernels) or
+`"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
+fused aggregation + node-phase kernel). The parity-oracle methods `"ell"`
+and `"segment"` are not ported. `DatasetConfig` keeps only the fields the
+trainer reads (the noise)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List
 
 
@@ -20,6 +25,12 @@ class ModelConfig:
     # Normalizer warmup steps (NOT gradient accumulation): the first
     # `accumulation_steps` train steps only accumulate normalizer statistics.
     accumulation_steps: int = 300
+    # World-space edge features (Δworld, ‖Δworld‖ beside Δmesh): the first
+    # `world_dim` output channels are world positions (0 = pos_dim).
+    world_edges: bool = False
+    world_dim: int = 0
+    # "fused" or "pallas" (see the module docstring).
+    aggregation: str = "fused"
     # Encode/decode MLP dtype: "" = the compute dtype; "float32" pins the
     # normalized I/O boundary to full precision while the processor runs in
     # the compute dtype.
@@ -57,3 +68,18 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     datasets: DatasetConfig = field(default_factory=DatasetConfig)
     base_seed: int = 42
+
+
+def inflating_font_config(**model_overrides) -> Config:
+    """The inflating elastic surface: `configs/model/inflating_font.yaml`
+    and `configs/datasets/inflating_font.yaml` of the JAX package (a closed
+    3-D surface whose world positions are the output fields, world-space
+    edges), on the `pallas` method, which is the one the port runs with
+    world edges. `model_overrides` replace ModelConfig fields (bench.py's
+    surface point sets unet_depth=7)."""
+    model = ModelConfig(latent_dim=128, hidden_layer=3, unet_depth=4,
+                        out_dim=3, pos_dim=3, accumulation_steps=300,
+                        world_edges=True, aggregation="pallas")
+    return Config(model=replace(model, **model_overrides),
+                  datasets=DatasetConfig(noise_level=[0.003] * 3,
+                                         noise_gamma=1.0))

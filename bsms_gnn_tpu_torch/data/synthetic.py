@@ -1,15 +1,17 @@
-"""Synthetic airfoil-like mesh (counterpart of
-`bsms_gnn_tpu/data/synthetic.py::make_graded_airfoil_mesh`), so the port
-builds the benchmark mesh without the dataset readers."""
+"""Synthetic meshes (counterparts of `bsms_gnn_tpu/data/synthetic.py`'s
+`make_graded_airfoil_mesh`, `make_sphere_mesh` and
+`generate_inflating_trajectory`), so the port builds the benchmark meshes
+without the dataset readers."""
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.spatial import Delaunay
+from scipy.spatial import ConvexHull, Delaunay
 
 # Node-type codes of the MeshGraphNets datasets.
 NT_NORMAL = 0
 NT_AIRFOIL = 2
+NT_HANDLE = 3
 NT_INFLOW = 4
 
 
@@ -49,3 +51,50 @@ def make_graded_airfoil_mesh(n_nodes: int, rng: np.random.Generator):
     rad = np.linalg.norm(pos, axis=-1)
     node_type[rad > 0.98 * rad.max()] = NT_INFLOW  # far-field boundary
     return pos.astype(np.float32), cells, node_type
+
+
+def make_sphere_mesh(n_nodes: int, rng: np.random.Generator):
+    """Closed triangulated surface in 3D (inflating-font-style cases):
+    Fibonacci-sphere points + convex hull. Returns (pos [N,3], cells [M,3],
+    node_type [N,1] with the bottom cap as handles)."""
+    n = max(n_nodes, 32)
+    i = np.arange(n, dtype=np.float64)
+    golden = (1 + 5**0.5) / 2
+    z = 1 - 2 * (i + 0.5) / n
+    r = np.sqrt(np.maximum(1 - z**2, 0.0))
+    theta = 2 * np.pi * i / golden
+    pos = np.stack([r * np.cos(theta), r * np.sin(theta), z], axis=-1)
+    pos += rng.normal(0, 1e-3, pos.shape)  # break hull degeneracies
+    pos /= np.linalg.norm(pos, axis=-1, keepdims=True)
+    hull = ConvexHull(pos)
+    cells = hull.simplices.astype(np.int64)
+    node_type = np.full((n, 1), NT_NORMAL, np.int32)
+    node_type[pos[:, 2] < np.quantile(pos[:, 2], 0.05)] = NT_HANDLE
+    return pos.astype(np.float32), cells, node_type
+
+
+def generate_inflating_trajectory(n_nodes: int, n_frames: int,
+                                  rng: np.random.Generator):
+    """world_pos dynamics: the surface inflates radially with a smooth
+    angular bulge; handle nodes stay at rest (Dirichlet). Returns a dict of
+    per-frame arrays: mesh_pos [T, N, 3], node_type [T, N, 1], cells [T, M,
+    3], world_pos [T, N, 3]."""
+    pos, cells, node_type = make_sphere_mesh(n_nodes, rng)
+    n = pos.shape[0]
+    phase = float(rng.uniform(0, 2 * np.pi))
+    handles = (node_type[:, 0] == NT_HANDLE)
+    world = np.zeros((n_frames, n, 3), np.float32)
+    for ti in range(n_frames):
+        inflate = 1.0 + 0.25 * (1 - np.cos(0.35 * ti + 0.0)) / 2
+        bulge = 1.0 + 0.08 * np.sin(3 * np.arctan2(pos[:, 1], pos[:, 0]) + phase) \
+            * np.sin(0.35 * ti)
+        scale = inflate * bulge  # [N]
+        w = pos * scale[:, None]
+        w[handles] = pos[handles]
+        world[ti] = w
+    return {
+        "mesh_pos": np.broadcast_to(pos, (n_frames, n, 3)).copy(),
+        "node_type": np.broadcast_to(node_type, (n_frames, n, 1)).copy(),
+        "cells": np.broadcast_to(cells, (n_frames,) + cells.shape).copy(),
+        "world_pos": world,
+    }

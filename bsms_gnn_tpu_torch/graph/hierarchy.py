@@ -14,7 +14,8 @@ real node. Every 128-node receiver block's edge segment pads to a multiple
 of `edge_block` slots, at least one chunk per block.
 
 `to_device` turns a built hierarchy into the same dataclasses holding
-tensors, plus the per-block chunk and visit ranges the CUDA kernels walk.
+tensors, plus the per-block chunk and visit ranges and the per-row slot
+lists the CUDA kernels walk.
 """
 
 from __future__ import annotations
@@ -120,6 +121,12 @@ class LevelGraph:
     # each group in chunk order.
     send_ptr: Optional[torch.Tensor] = None
     send_items: Optional[torch.Tensor] = None
+    # Set by to_device, for the segment sums (`row_tables`): row r sums the
+    # slots row_slots[row_ptr[r] .. row_ptr[r+1]] (receiver form) or, for
+    # the sender form, the slots row_send[...] of their reverse edges.
+    row_ptr: Optional[torch.Tensor] = None
+    row_slots: Optional[torch.Tensor] = None
+    row_send: Optional[torch.Tensor] = None
 
     @property
     def n_pad_nodes(self) -> int:
@@ -155,6 +162,8 @@ class TransOp:
     dense: Optional[np.ndarray] = None
     chunk_ptr: Optional[torch.Tensor] = None  # set by to_device
     chunk_block: Optional[torch.Tensor] = None  # set by to_device
+    row_ptr: Optional[torch.Tensor] = None  # set by to_device
+    row_slots: Optional[torch.Tensor] = None  # set by to_device
 
     @property
     def n_pad_nodes(self) -> int:  # OUTPUT rows
@@ -665,6 +674,26 @@ def send_window_tables(win_base: np.ndarray, n_blocks: int):
     return ptr.astype(np.int32), item[order].astype(np.int32)
 
 
+def row_tables(receivers: np.ndarray, chunk_ptr: np.ndarray,
+               edge_block: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(row_ptr [n_pad + 1], row_slots) of a block-aligned layout: row r
+    owns exactly the slots the TPU segment-sum kernel's one-hot assigns to
+    it, the slots of the chunks of r's 128-row block whose receiver is r,
+    in slot order. A pad slot carries receiver n_pad − 1, so it is dropped
+    in every block but the last, where it lands on row n_pad − 1 as on the
+    TPU (`segment_sum.py:23-25`). `recv_indptr` alone would give the last
+    row of each block its block's pad slots."""
+    n_blocks = len(chunk_ptr) - 1
+    slot_block = np.repeat(
+        np.repeat(np.arange(n_blocks, dtype=np.int64), np.diff(chunk_ptr)),
+        edge_block)
+    recv = np.asarray(receivers, np.int64)
+    keep = np.flatnonzero(recv // NODE_BLOCK == slot_block)
+    slots = keep[np.argsort(recv[keep], kind="stable")]
+    ptr = np.searchsorted(recv[slots], np.arange(n_blocks * NODE_BLOCK + 1))
+    return ptr.astype(np.int32), slots.astype(np.int32)
+
+
 def _to_device(obj, device):
     changes = {}
     for f in dataclasses.fields(obj):
@@ -683,6 +712,12 @@ def _to_device(obj, device):
         out.chunk_block = _tensor(
             np.repeat(np.arange(len(ptr) - 1, dtype=np.int32), np.diff(ptr)),
             device)
+        row_ptr, row_slots = row_tables(obj.receivers, ptr, obj.edge_block)
+        out.row_ptr = _tensor(row_ptr, device)
+        out.row_slots = _tensor(row_slots, device)
+        if isinstance(obj, LevelGraph):
+            out.row_send = _tensor(
+                np.asarray(obj.reverse_perm)[row_slots], device)
     if isinstance(obj, LevelGraph) and obj.window > 0:
         ptr, items = send_window_tables(np.asarray(obj.win_base),
                                         obj.n_pad_nodes // (obj.window // 2))
@@ -698,7 +733,8 @@ def _to_device(obj, device):
 def to_device(h: Hierarchy, device=None) -> Hierarchy:
     """The same hierarchy with every array a tensor on `device`, plus the
     chunk → output block map (`chunk_block`), the per-block chunk ranges
-    (`chunk_ptr`) and visit ranges (`visit_ptr`) the kernels walk. Each
+    (`chunk_ptr`), visit ranges (`visit_ptr`) and per-row slot lists
+    (`row_ptr`, `row_slots`, `row_send`) the kernels walk. Each
     output block's edge segment starts on a chunk boundary by construction,
     so its chunks are one contiguous range."""
     return _to_device(h, resolve_device(device))

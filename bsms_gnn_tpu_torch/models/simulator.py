@@ -4,7 +4,10 @@
 Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type];
 the latent input strips mesh_pos and keeps node_type. normalize → encode
 MLP → BSGMP → decode MLP → denormalize the delta → zero masked nodes →
-prediction = state + delta. The forward is differentiable (every kernel
+prediction = state + delta. With `world_edges` the first `world_dim`
+output fields are world positions, and they enter the processor as its
+dynamic stream (every GMP's edge MLP then reads [Δworld, ‖Δworld‖] beside
+the static mesh fiber). The forward is differentiable (every kernel
 is an autograd Function with a backward kernel); serving calls it under
 `torch.no_grad()` (`training/rollout.py`). `simulator_warmup` accumulates
 the normalizer statistics the trainer's warmup gate collects.
@@ -38,6 +41,11 @@ def split_node_input(node_in, pos_dim: int):
     return torch.cat([fields, node_type], dim=-1), pos, node_type
 
 
+def world_dim(cfg: ModelConfig) -> int:
+    """Width of the world-position stream (0 in the config: pos_dim)."""
+    return cfg.world_dim or cfg.pos_dim
+
+
 class Simulator(nn.Module):
     """Parameters are drawn from `generator` on the CPU (so a seed gives
     the same weights on every device), then moved to `device` (None: the
@@ -51,8 +59,17 @@ class Simulator(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         c, hl = cfg.latent_dim, cfg.hidden_layer
+        fiber_dims = None
+        if cfg.world_edges:
+            if cfg.out_dim < world_dim(cfg):
+                raise ValueError(
+                    "world_edges requires the first world_dim output "
+                    f"channels to be world_pos (out_dim={cfg.out_dim} < "
+                    f"world_dim={world_dim(cfg)})")
+            fiber_dims = (world_dim(cfg), cfg.pos_dim)
         self.encode = MLP(cfg.out_dim + 1, c, c, hl, True, generator)
-        self.process = BSGMP(cfg.unet_depth, c, hl, cfg.pos_dim, generator)
+        self.process = BSGMP(cfg.unet_depth, c, hl, cfg.pos_dim, generator,
+                             fiber_dims)
         self.decode = MLP(c, c, cfg.out_dim, hl, False, generator)
         self.to(device)
         self.norm_in = init_normalizer(cfg.out_dim + 1, device=device)
@@ -71,7 +88,9 @@ class Simulator(nn.Module):
                 torch, cfg.io_dtype)
         x = mlp_apply(self.encode, normalize(self.norm_in, latent_input),
                       io_cd)
-        x = self.process(hierarchy, x, compute_dtype, tap)
+        dyn = node_in[..., :world_dim(cfg)] if cfg.world_edges else None
+        x = self.process(hierarchy, x, compute_dtype, tap, dyn,
+                         cfg.aggregation)
         if io_cd is None and x.dtype != torch.float32:
             x = x.float()
         norm_pred_delta = mlp_apply(self.decode, x, io_cd)

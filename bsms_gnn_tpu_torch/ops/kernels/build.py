@@ -23,7 +23,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "build")
 SOURCES = ("windowed", "compact_resid", "node_mlp", "fused_gmp",
-           "fused_gmp_bwd", "node_mlp_bwd", "windowed_send")
+           "fused_gmp_bwd", "node_mlp_bwd", "windowed_send", "segment_sum",
+           "agg_node")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -69,8 +69,12 @@ def _check(cr, vals, acc):
 def compact_accum_plain(cr, vals, acc):
     """The same function in plain PyTorch: index_add_ of the real rows,
     in place on acc."""
+    compact_accum_plain.calls += 1
     n = cr.n_real
     return acc.index_add_(0, cr.receivers[:n].long(), vals[:n].float())
+
+
+compact_accum_plain.calls = 0
 
 
 def compact_accum_raw(cr, vals, acc):

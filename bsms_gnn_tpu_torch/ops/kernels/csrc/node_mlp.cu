@@ -2,15 +2,15 @@
 //
 //   out = LN(tail(relu(x·Wa + aggr·Wb + b0))) + x
 //
-// One block per 64-row tile; x, the aggregate and every activation stay in
-// shared memory through the whole phase.
-#include "common.cuh"
+// One block per 64-row tile (`node_phase.cuh`); the aggregate rows are
+// read from device memory.
+#include "node_phase.cuh"
 
 using namespace bsms;
 
 namespace {
 
-constexpr size_t SMEM_BYTES = sizeof(float) * (2 * TILE * C + KS * C);
+constexpr size_t SMEM_BYTES = node_phase_smem<8>();
 
 // TX: x's type; TO: the output's (bf16 in BF16 mode, else TX).
 template <typename TX, typename TO, bool BF16>
@@ -20,29 +20,15 @@ fused_node_phase_kernel(const TX* __restrict__ x, const float* __restrict__ aggr
                         const float* __restrict__ W, const float* __restrict__ B,
                         int n_layers, TO* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [TILE][C] x (f32)
-  float* tile = xs + TILE * C;  // [TILE][C] dot operands, then activations
-  float* wslab = tile + TILE * C;               // [KS][C] staged weights
-
-  const int tid = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * TILE;
-  for (int i = tid; i < TILE * C; i += THREADS) {
-    xs[i] = to_f(x[row0 * C + i]);
-    if (BF16) tile[i] = round_bf16(xs[i]);  // x as a dot operand
-  }
-  // pre = x·Wa + aggr·Wb + b0 (one f32 accumulator over both halves); the
-  // residual below adds the unrounded x.
-  float acc[8][4] = {};
-  tile_gemm<BF16>(acc, BF16 ? tile : xs, W0, wslab);
-  for (int i = tid; i < TILE * C; i += THREADS) {
-    const float a = aggr[row0 * C + i];
-    tile[i] = BF16 ? round_bf16(a) : a;
-  }
-  tile_gemm<BF16>(acc, tile, W0 + C * C, wslab);
-  tile_store(acc, b0, tile, true, BF16);
-  tile_mlp_tail<BF16>(tile, W, B, n_layers, wslab);
-  for (int i = tid; i < TILE * C; i += THREADS)
-    store(&out[row0 * C + i], tile[i] + xs[i]);
+  auto fill_aggr = [&](float* tile) {
+    for (int i = threadIdx.x; i < TILE * C; i += THREADS) {
+      const float a = aggr[row0 * C + i];
+      tile[i] = BF16 ? round_bf16(a) : a;
+    }
+  };
+  node_phase_tile<TX, TO, BF16, 8>(x, fill_aggr, W0, b0, W, B, n_layers, out,
+                                   row0, reinterpret_cast<float*>(smem4));
 }
 
 template <typename TX, typename TO, bool BF16>

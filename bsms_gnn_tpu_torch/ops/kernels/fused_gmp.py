@@ -172,6 +172,7 @@ def _edge_pre(level, xwi, xj, wf8, bf16):
 def fused_edge_phase_win_plain(level, xwi, xj, wf8, weights, biases):
     """Kernel 4's function in plain PyTorch (index_select / matmul /
     index_add_)."""
+    fused_edge_phase_win_plain.calls += 1
     bf16 = xwi.dtype == torch.bfloat16
     pre, covered, recv = _edge_pre(level, xwi, xj, wf8, bf16)
     e = mlp_tail_plain(pre, [x.float() for x in weights],
@@ -182,6 +183,9 @@ def fused_edge_phase_win_plain(level, xwi, xj, wf8, weights, biases):
     out = torch.zeros(level.n_pad_nodes, xwi.shape[-1], dtype=torch.float32,
                       device=xwi.device)
     return out.index_add_(0, recv, e)
+
+
+fused_edge_phase_win_plain.calls = 0
 
 
 def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):

@@ -65,12 +65,14 @@ ROWS = 64
 
 
 def _check(x, aggr, mlp, compute_dtype):
+    """Raise on what the kernels do not take (aggr None: x and mlp only)."""
     if x.dim() != 2:
         raise NotImplementedError("batch axis")
     n_pad, c = x.shape
     if c != BN:
         raise NotImplementedError(f"latent width {c} (only 128)")
-    if aggr.shape != x.shape or aggr.dtype != torch.float32:
+    if aggr is not None and (aggr.shape != x.shape
+                             or aggr.dtype != torch.float32):
         raise ValueError(f"aggr must be f32 {tuple(x.shape)}")
     if n_pad % ROWS:
         raise ValueError(f"rows {n_pad} not a multiple of {ROWS}")
@@ -99,10 +101,14 @@ def _tail(mlp):
 
 def fused_node_phase_plain(x, aggr, mlp, compute_dtype=None):
     """Kernel 3's function in plain PyTorch."""
+    fused_node_phase_plain.calls += 1
     bf16 = compute_dtype == torch.bfloat16
     pre, x32, _, _, _ = _node_pre(x, aggr, mlp, bf16)
     e = mlp_tail_plain(pre, *_tail(mlp), bf16)
     return (e + x32).to(torch.bfloat16 if bf16 else x.dtype)
+
+
+fused_node_phase_plain.calls = 0
 
 
 def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):

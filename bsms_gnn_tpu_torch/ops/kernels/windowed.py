@@ -81,6 +81,7 @@ def _check(op, x):
 
 def windowed_rect_conv_plain(op, x):
     """The same function in plain PyTorch (index_select / index_add_)."""
+    windowed_rect_conv_plain.calls += 1
     w = op.window
     sw = op.send_win.long()
     covered = sw < w
@@ -93,6 +94,9 @@ def windowed_rect_conv_plain(op, x):
     out = torch.zeros(op.n_pad_nodes, x.shape[-1], dtype=torch.float32,
                       device=x.device)
     return out.index_add_(0, op.receivers.long(), msg)
+
+
+windowed_rect_conv_plain.calls = 0
 
 
 def windowed_rect_conv(op, x):

@@ -2,11 +2,12 @@
 one precomputed operator application per direction, `down(x) = M x` and
 `up(x) = Mᵀ x`, each the other's adjoint. Windowed operators run the
 windowed conv kernel and add their compact residual; small unwindowed
-operators carry a dense matrix.
+operators carry a dense matrix; the other unwindowed operators gather
+and scale their input rows and sum them at the receivers with kernel 8.
 
 The backward of `trans_down` applies the transition's `up_op` to the
 cotangent and the backward of `trans_up` its `down_op`, through the same
-kernels (1 and 2) as the forward: no scatter anywhere, as on the TPU.
+kernels (1 and 2, or 8) as the forward: no scatter anywhere, as on the TPU.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from bsms_gnn_tpu_torch.graph.hierarchy import Transition, TransOp
 from bsms_gnn_tpu_torch.ops.kernels.compact_resid import compact_accum_raw
+from bsms_gnn_tpu_torch.ops.kernels.segment_sum import segment_sum_raw
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_rect_conv
 
 
@@ -30,7 +32,8 @@ def _apply(op: TransOp, x):
     if op.dense is not None:
         return dense_apply(op.dense, x)
     if op.window <= 0:
-        raise NotImplementedError("unwindowed transition without a dense form")
+        msg = x.index_select(0, op.senders) * op.ew.to(x.dtype)[:, None]
+        return segment_sum_raw(op, msg).to(x.dtype)
     out = windowed_rect_conv(op, x)
     cr = op.cresid
     if cr is not None:

@@ -5,11 +5,12 @@
 
 Phases (any failure exits non-zero without the result line):
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, TF32 off, and the seven CUDA kernels built from `csrc/`;
+   versions, TF32 off, and the nine CUDA kernels built from `csrc/`;
 2. the 5,233-node graded airfoil (Morton-ordered, depth 7, edge_block 512,
-   window 256) built and moved to the card, its per-level layout printed;
-3. each forward kernel against its plain PyTorch version on the card at the
-   main path's shapes (level 0, T0 down / up), f32 and bf16;
+   window 256, the `fused` method) built and moved to the card, its
+   per-level layout printed;
+3. each forward kernel of that path against its plain PyTorch version on
+   the card at the path's shapes (level 0, T0 down / up), f32 and bf16;
 4. serving: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
    filled from seeded frames) forward through the kernels against the same
    forward through the plain versions, f32 and bf16; the kernel launch
@@ -27,7 +28,15 @@ Phases (any failure exits non-zero without the result line):
 8. train-step times: ms per step (median of repeats, CUDA events), device
    busy time, idle share and kernel count of one profiled step, peak
    memory, and each backward kernel's time beside its plain version, its
-   library call and its bound.
+   library call and its bound;
+9. the 16,000-node inflating surface of bench.py (a closed sphere mesh,
+   depth 7, the default unwindowed hierarchy, the `pallas` method, world
+   edges, the inflating-font model at latent 128, hidden 3): kernels 8 and
+   10 against their plain versions (f32, bf16, with a bf16 control for
+   kernel 10), then phases 4, 5, 7 and 8 on it (its path has no backward
+   kernel of its own to time; kernel 10 is timed at every level with
+   64- and 16-row tiles instead), the `Trainer` run on a frame pair of
+   `generate_inflating_trajectory`.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -48,6 +57,7 @@ import numpy as np
 import torch
 
 N_NODES, DEPTH, EDGE_BLOCK, WINDOW = 5233, 7, 512, 256
+SURFACE_NODES, SURFACE_DEPTH = 16000, 7
 ROLLOUT_STEPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -73,6 +83,16 @@ TOL = {
     ("fused_node_phase", torch.bfloat16): (5e-2, 5e-4),
     ("windowed_rect_conv", torch.bfloat16): (2e-5, 1e-6),
     ("compact_accum", torch.bfloat16): (2e-5, 1e-6),
+    # Kernel 8 sums rows in slot order, the plain version with atomics in
+    # another: f32 sums in another order, of ~100 rows at the pad row
+    # n_pad - 1 (bf16 rows add exactly in f32). Kernel 10 rounds as kernel
+    # 3 does; its largest bf16 error is one bf16 step of an output between
+    # 4 and 8 (2^-5, 2.2e-2 of the RMS), and its control misses by the RMS
+    # error.
+    ("segment_sum", torch.float32): (2e-5, 1e-6),
+    ("segment_sum", torch.bfloat16): (2e-5, 1e-6),
+    ("fused_aggregate_node_phase", torch.float32): (2e-5, 1e-6),
+    ("fused_aggregate_node_phase", torch.bfloat16): (7e-2, 5e-4),
 }
 # The whole forward, relative to the predicted delta's scale: in f32 the
 # prediction (state + delta, |state| up to ~5) itself rounds at ~5e-7. In
@@ -91,6 +111,27 @@ EXPECTED_TRAIN_LAUNCHES = {
     "fused_edge_phase_win": 15, "fused_node_phase": 15,
     "fused_edge_phase_win_bwd": 15, "fused_node_phase_bwd": 15,
     "windowed_rect_conv": 28, "compact_accum": 40, "windowed_send_sum": 15}
+# The 16k surface on the pallas method, per forward: kernel 10 in each of
+# the 15 GMPs; kernel 8 in the sparse transitions T0-T2, each way (T3-T6
+# are dense matrices); the 3-wide world positions ride T0-T2 down through
+# kernel 8's plain version (`narrow_calls`), not a launch. No windowed
+# kernel runs.
+EXPECTED_SURFACE_LAUNCHES = {
+    "fused_aggregate_node_phase": 15, "segment_sum": 6,
+    "fused_node_phase": 0, "fused_edge_phase_win": 0,
+    "windowed_rect_conv": 0, "compact_accum": 0}
+EXPECTED_SURFACE_NARROW = 3
+# Per train step: the forward's; then in each of the 15 GMPs' backwards
+# kernel 8 three times (the aggregate again in kernel 10's backward, the
+# sender gather's and the receiver gather's backwards) and kernel 6 once
+# (in kernel 10's backward); and kernel 8 in the adjoints of the 6 sparse
+# transition applications: 6 + 15 * 3 + 6 = 57. The world positions carry
+# no gradient.
+EXPECTED_SURFACE_TRAIN_LAUNCHES = {
+    "fused_aggregate_node_phase": 15, "segment_sum": 57,
+    "fused_node_phase_bwd": 15, "fused_node_phase": 0,
+    "fused_edge_phase_win": 0, "fused_edge_phase_win_bwd": 0,
+    "windowed_rect_conv": 0, "compact_accum": 0, "windowed_send_sum": 0}
 BWD_OUTPUTS = {
     "fused_edge_phase_win_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
     "fused_node_phase_bwd": ("dx", "daggr", "dWa", "dWb", "db0", "dW", "db"),
@@ -163,6 +204,12 @@ KERNEL_META = {
     "windowed_send_sum": (
         _CSRC + "windowed_send.cu", _PALLAS + "windowed.py:205",
         ("windowed_send_part_kernel", "windowed_send_sum_kernel")),
+    "segment_sum": (
+        _CSRC + "segment_sum.cu", _PALLAS + "segment_sum.py:84",
+        ("segment_sum_kernel",)),
+    "fused_aggregate_node_phase": (
+        _CSRC + "agg_node.cu", _PALLAS + "agg_node.py:74",
+        ("fused_aggregate_node_phase_kernel",)),
 }
 
 
@@ -178,11 +225,14 @@ def require(ok: bool, what: str) -> None:
 @functools.lru_cache(maxsize=None)
 def kernel_modules():
     """name → (the wrapper that counts its kernel's launches, the plain
-    version), the four forward kernels then the three backward kernels."""
+    version): the four forward kernels and the three backward kernels of
+    the fused path, then the two of the pallas path."""
     from bsms_gnn_tpu_torch.ops.kernels import (
+        agg_node,
         compact_resid,
         fused_gmp,
         node_mlp,
+        segment_sum,
         windowed,
     )
     return {
@@ -200,15 +250,26 @@ def kernel_modules():
                                  node_mlp.fused_node_phase_bwd_plain),
         "windowed_send_sum": (windowed.windowed_send_sum,
                               windowed.windowed_send_sum_plain),
+        "segment_sum": (segment_sum.segment_sum_raw,
+                        segment_sum.segment_sum_plain),
+        "fused_aggregate_node_phase": (
+            agg_node.fused_aggregate_node_phase_fwd,
+            agg_node.fused_aggregate_node_phase_plain),
     }
 
 
 def reset_counts():
     for fn, _ in kernel_modules().values():
         fn.launches = 0
+    kernel_modules()["segment_sum"][0].narrow_calls = 0
 
 
-def read_counts(names=EXPECTED_LAUNCHES):
+def narrow_calls():
+    """Kernel 8's calls that took its plain version for a narrow width."""
+    return kernel_modules()["segment_sum"][0].narrow_calls
+
+
+def read_counts(names):
     return {k: kernel_modules()[k][0].launches for k in names}
 
 
@@ -217,15 +278,22 @@ def plain_path():
     """Route the model's kernel calls, forward and backward, to the plain
     versions on the same device, for the whole-model comparisons (the
     package itself takes the plain versions only for CPU tensors)."""
-    from bsms_gnn_tpu_torch.ops import transition
+    from bsms_gnn_tpu_torch.ops import scatter, transition
     from bsms_gnn_tpu_torch.ops.kernels import (
+        agg_node,
         compact_resid,
         fused_gmp,
         node_mlp,
     )
 
     mods = kernel_modules()
-    targets = [(fused_gmp, "fused_edge_phase_win_fwd", "fused_edge_phase_win"),
+    targets = [(agg_node, "fused_aggregate_node_phase_fwd",
+                "fused_aggregate_node_phase"),
+               (agg_node, "segment_sum_raw", "segment_sum"),
+               (agg_node, "fused_node_phase_bwd", "fused_node_phase_bwd"),
+               (scatter, "segment_sum_raw", "segment_sum"),
+               (transition, "segment_sum_raw", "segment_sum"),
+               (fused_gmp, "fused_edge_phase_win_fwd", "fused_edge_phase_win"),
                (fused_gmp, "fused_edge_phase_win_bwd",
                 "fused_edge_phase_win_bwd"),
                (fused_gmp, "windowed_send_sum", "windowed_send_sum"),
@@ -244,6 +312,23 @@ def plain_path():
             setattr(m, attr, f)
 
 
+def fill_normalizers(sim, node_in, mask, rng):
+    """Normalizer statistics from a few seeded synthetic frames around the
+    input, so std is not the 1e-8 floor."""
+    from bsms_gnn_tpu_torch.models.normalizer import normalizer_accumulate
+    from bsms_gnn_tpu_torch.models.simulator import split_node_input
+
+    out_dim = sim.cfg.out_dim
+    latent, _, _ = split_node_input(node_in, sim.cfg.pos_dim)
+    for _ in range(4):
+        noise = torch.from_numpy(
+            rng.normal(0.0, 0.3, (node_in.shape[0], out_dim)).astype(np.float32)
+        ).to(node_in.device)
+        frame = latent + torch.cat([noise, torch.zeros_like(mask)], dim=-1)
+        sim.norm_in = normalizer_accumulate(sim.norm_in, frame, mask)
+        sim.norm_out = normalizer_accumulate(sim.norm_out, 0.1 * noise, mask)
+
+
 def build_case(device):
     """The bench configuration: mesh, hierarchy on `device`, model with
     seeded weights and filled normalizers, one input frame and mask."""
@@ -252,8 +337,7 @@ def build_case(device):
     from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
     from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
     from bsms_gnn_tpu_torch.graph.order import reorder_mesh
-    from bsms_gnn_tpu_torch.models.normalizer import normalizer_accumulate
-    from bsms_gnn_tpu_torch.models.simulator import Simulator, split_node_input
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
 
     rng = np.random.default_rng(0)
     pos, cells, node_type = make_graded_airfoil_mesh(N_NODES, rng)
@@ -276,46 +360,106 @@ def build_case(device):
     mask[:n, 0] = node_type[:, 0] == 0
     node_in = torch.from_numpy(node_in).to(device)
     mask = torch.from_numpy(mask).to(device)
-    # Normalizer statistics from a few seeded synthetic frames around the
-    # input, so std is not the 1e-8 floor.
-    latent, _, _ = split_node_input(node_in, cfg.pos_dim)
-    for _ in range(4):
-        noise = torch.from_numpy(
-            rng.normal(0.0, 0.3, (n_pad, cfg.out_dim)).astype(np.float32)
-        ).to(device)
-        frame = latent + torch.cat([noise, torch.zeros_like(mask)], dim=-1)
-        sim.norm_in = normalizer_accumulate(sim.norm_in, frame, mask)
-        sim.norm_out = normalizer_accumulate(sim.norm_out, 0.1 * noise, mask)
-    return dict(h=h, hd=hd, cfg=cfg, sim=sim, node_in=node_in, mask=mask,
-                n=n, build_s=build_s)
+    fill_normalizers(sim, node_in, mask, rng)
+    return dict(label="airfoil 5k", h=h, hd=hd, cfg=cfg, sim=sim,
+                node_in=node_in, mask=mask, n=n, build_s=build_s,
+                expected=EXPECTED_LAUNCHES,
+                expected_train=EXPECTED_TRAIN_LAUNCHES, narrow=0)
+
+
+def build_surface_case(device):
+    """bench.py's second point, `_build("surface", 16000, 7)`, from the
+    port's own copies: `make_sphere_mesh(16000, default_rng(0))`, the
+    default unwindowed hierarchy of depth 7, the inflating-font model on
+    the pallas method; world positions 1.05 · the mesh positions, the mask
+    the normal nodes. Weights from `torch.Generator().manual_seed(0)`. The
+    train frames are frames 0 and 1 of `generate_inflating_trajectory` on
+    the same mesh."""
+    from bsms_gnn_tpu_torch.config import inflating_font_config
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        NT_NORMAL,
+        generate_inflating_trajectory,
+        make_sphere_mesh,
+    )
+    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    rng = np.random.default_rng(0)
+    pos, cells, node_type = make_sphere_mesh(SURFACE_NODES, rng)
+    edges = to_flat_edge(cells, "tri")
+    t0 = time.perf_counter()
+    h = build_hierarchy(edges, SURFACE_DEPTH, pos.shape[0],
+                        pos.astype(np.float64))
+    build_s = time.perf_counter() - t0
+    hd = to_device(h, device)
+
+    cfg = inflating_font_config(unet_depth=SURFACE_DEPTH).model
+    sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
+    n, n_pad = pos.shape[0], h.levels[0].n_pad_nodes
+
+    def frame(world):
+        node_in = np.zeros((n_pad, 7), np.float32)
+        node_in[:n, :3] = world
+        node_in[:n, 3:6] = pos
+        node_in[:n, 6] = node_type[:, 0]
+        return torch.from_numpy(node_in).to(device)
+
+    mask = np.zeros((n_pad, 1), np.float32)
+    mask[:n, 0] = node_type[:, 0] == NT_NORMAL
+    mask = torch.from_numpy(mask).to(device)
+    node_in = frame(1.05 * pos)
+    fill_normalizers(sim, node_in, mask, rng)
+
+    traj = generate_inflating_trajectory(SURFACE_NODES, 2,
+                                         np.random.default_rng(0))
+    require(np.array_equal(traj["mesh_pos"][0], pos),
+            "the trajectory's mesh is not the case's")
+    target = torch.zeros(n_pad, 3, device=device)
+    target[:n] = torch.from_numpy(traj["world_pos"][1]).to(device)
+    return dict(label="surface 16k", h=h, hd=hd, cfg=cfg, sim=sim,
+                node_in=node_in, mask=mask, n=n, build_s=build_s,
+                expected=EXPECTED_SURFACE_LAUNCHES,
+                expected_train=EXPECTED_SURFACE_TRAIN_LAUNCHES,
+                narrow=EXPECTED_SURFACE_NARROW,
+                train_frames=(frame(traj["world_pos"][0]), target))
 
 
 def describe(case):
     h = case["h"]
-    print(f"mesh: {case['n']} nodes, hierarchy built in "
+    print(f"[{case['label']}] mesh: {case['n']} nodes, hierarchy built in "
           f"{case['build_s']:.2f} s (host)")
-    print("level  n_nodes  n_pad  E_pad  window  cresid_rows")
+    print("level  n_nodes  n_pad  E_pad  window  cresid_rows  "
+          "slots/128-row block")
     for l, g in enumerate(h.levels):
         cr = "-" if g.cresid is None else g.cresid.n_real
         print(f"{l:5d} {g.n_nodes:8d} {g.n_pad_nodes:6d} {g.n_pad_edges:6d} "
-              f"{g.window:7d}  {cr}")
-    print("trans  down_E_pad  down_cresid  up_E_pad  up_cresid")
+              f"{g.window:7d}  {str(cr):>11}  "
+              f"{g.n_pad_edges / (g.n_pad_nodes // 128):.0f}")
+    print("trans  down_E_pad  down_cresid  up_E_pad  up_cresid  dense")
     for l, t in enumerate(h.transitions):
         print(f"{l:5d} {t.down_op.n_pad_edges:11d} "
               f"{str(t.down_op.cresid is not None):>12} "
-              f"{t.up_op.n_pad_edges:9d} {str(t.up_op.cresid is not None):>10}")
+              f"{t.up_op.n_pad_edges:9d} {str(t.up_op.cresid is not None):>10}"
+              f"  {t.down_op.dense is not None}")
     depth = h.depth
     gmps = 2 * depth + 1
-    cr_gmp = sum(2 * (g.cresid is not None) for g in h.levels[:depth])
-    cr_gmp += h.levels[depth].cresid is not None
-    cr_ops = sum((t.down_op.cresid is not None) + (t.up_op.cresid is not None)
-                 for t in h.transitions)
-    expect = {"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
-              "windowed_rect_conv": 2 * depth,
-              "compact_accum": cr_gmp + cr_ops}
+    if case["cfg"].aggregation == "pallas":
+        sparse = sum(t.down_op.dense is None for t in h.transitions)
+        expect = dict.fromkeys(case["expected"], 0)
+        expect.update({"fused_aggregate_node_phase": gmps,
+                       "segment_sum": 2 * sparse})
+    else:
+        cr_gmp = sum(2 * (g.cresid is not None) for g in h.levels[:depth])
+        cr_gmp += h.levels[depth].cresid is not None
+        cr_ops = sum((t.down_op.cresid is not None)
+                     + (t.up_op.cresid is not None) for t in h.transitions)
+        expect = {"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
+                  "windowed_rect_conv": 2 * depth,
+                  "compact_accum": cr_gmp + cr_ops}
     print(f"launches per forward from the layout: {expect}")
-    require(expect == EXPECTED_LAUNCHES,
-            f"layout gives {expect}, expected {EXPECTED_LAUNCHES}")
+    require(expect == case["expected"],
+            f"layout gives {expect}, expected {case['expected']}")
 
 
 def compare(got, want):
@@ -327,7 +471,7 @@ def compare(got, want):
 
 
 def kernel_inputs(case, dtype, device):
-    """Each kernel's arguments at the main path's shapes, from a seed."""
+    """Each kernel's arguments at the case's path's shapes, from a seed."""
     hd, sim = case["hd"], case["sim"]
     g = torch.Generator(device="cpu").manual_seed(7)
 
@@ -337,11 +481,36 @@ def kernel_inputs(case, dtype, device):
     lvl, t0 = hd.levels[0], hd.transitions[0]
     gmp = sim.process.down_gmps[0]
     c, n0 = 128, lvl.n_pad_nodes
+    cd = dtype if dtype == torch.bfloat16 else None
+    if case["cfg"].aggregation == "pallas":
+        # Kernel 8 at level 0 (kernel 10's backward, the gathers'
+        # backwards) in both forms and at T0 down (the forward); kernel 10
+        # at level 0 (64-row tiles) and level 6 (16-row tiles).
+        l6, g6 = hd.levels[6], sim.process.down_gmps[6]
+        e0 = lvl.n_pad_edges
+
+        def agg(level, mlp, x_dt):
+            return (level, rand(level.n_pad_edges, c, dt=dtype),
+                    rand(level.n_pad_nodes, c, dt=x_dt), mlp, cd)
+
+        return {
+            "segment_sum": [
+                ("level 0", (lvl, rand(e0, c, dt=dtype))),
+                ("level 0 send", (lvl, rand(e0, c, dt=dtype), True)),
+                ("T0 down", (t0.down_op,
+                             rand(t0.down_op.n_pad_edges, c, dt=dtype)))],
+            "fused_aggregate_node_phase": [
+                ("level 0", agg(lvl, gmp.mlp_node, dtype)),
+                ("level 6", agg(l6, g6.mlp_node, dtype)),
+                # bf16 compute on f32 x: the level-0 GMP under
+                # io_dtype=float32
+                *([("f32 x", agg(lvl, gmp.mlp_node, torch.float32))]
+                  if cd is not None else [])],
+        }
     w1 = gmp.mlp_edge.weights[0]
     wf8 = torch.cat([w1[:3], gmp.mlp_edge.biases[0][None],
                      w1.new_zeros(4, c)])
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
-    cd = dtype if dtype == torch.bfloat16 else None
     return {
         "fused_edge_phase_win": [
             ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
@@ -369,14 +538,14 @@ def control_args(name, args):
     rounding: the same values upcast to f32, f32 compute. Its output must
     miss the bf16 tolerance against the bf16 plain version, which shows
     the tolerance would catch a kernel that rounded nowhere. None for the
-    compact accumulate, whose bf16 mode rounds nothing (bf16 values add
-    exactly into the f32 accumulator)."""
-    if name == "compact_accum":
+    compact accumulate and the segment sum, whose bf16 modes round nothing
+    (bf16 values add exactly into f32 sums)."""
+    if name in ("compact_accum", "segment_sum"):
         return None
     up = [a.float() if isinstance(a, torch.Tensor)
           and a.dtype == torch.bfloat16 else a for a in args]
-    if name == "fused_node_phase":
-        up[3] = None
+    if name in ("fused_node_phase", "fused_aggregate_node_phase"):
+        up[-1] = None
     return tuple(up)
 
 
@@ -401,7 +570,7 @@ def check_kernels(case, device):
                 err, err_rms, rms = compare(got, want)
                 ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
                       and bool(torch.isfinite(got).all()))
-                print(f"kernel {name:22s} {where:8s} {str(dtype)[6:]:9s} "
+                print(f"kernel {name:26s} {where:12s} {str(dtype)[6:]:9s} "
                       f"max_abs_err {err:.3e} ({err / rms:.2e} of rms "
                       f"{rms:.3e}, tol {tol_max:.0e})  rms_err "
                       f"{err_rms / rms:.2e} of rms (tol {tol_rms:.0e})  "
@@ -429,26 +598,31 @@ def check_slice(case, device):
 
     sim, hd, node_in, mask = (case[k] for k in ("sim", "hd", "node_in",
                                                  "mask"))
+    expected, label = case["expected"], case["label"]
     counts, outs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         reset_counts()
         got = outs[dtype] = sim(hd, node_in, mask, cd)
-        counts[dtype] = read_counts()
+        counts[dtype] = read_counts(expected)
+        narrow = narrow_calls()
         with plain_path():
             want = sim(hd, node_in, mask, cd)
         delta = (want - node_in[:, :3]).abs().max().item()
         err = (got - want).abs().max().item()
         tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
         ok = err <= tol and bool(torch.isfinite(got).all())
-        print(f"forward {str(dtype)[6:]:9s} shape {tuple(got.shape)} "
-              f"max_abs_err vs plain {err:.3e} (delta scale {delta:.3e}, "
-              f"tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
-        print(f"launches in one {str(dtype)[6:]} forward: {counts[dtype]}")
-        require(ok, f"{dtype} forward disagrees with the plain path")
+        print(f"[{label}] forward {str(dtype)[6:]:9s} shape "
+              f"{tuple(got.shape)} max_abs_err vs plain {err:.3e} (delta "
+              f"scale {delta:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+        print(f"[{label}] launches in one {str(dtype)[6:]} forward: "
+              f"{counts[dtype]}; kernel 8's narrow calls (plain version) "
+              f"{narrow}")
+        require(ok, f"{label} {dtype} forward disagrees with the plain path")
         if device.type == "cuda":
-            require(counts[dtype] == EXPECTED_LAUNCHES,
-                    f"launch counts {counts[dtype]} != {EXPECTED_LAUNCHES}")
+            require(counts[dtype] == expected and narrow == case["narrow"],
+                    f"launch counts {counts[dtype]} != {expected} or narrow "
+                    f"calls {narrow} != {case['narrow']}")
     # The f32 forward against the bf16 plain forward, beside the bf16
     # check: how far the bf16 rounding moves the forward (printed only; see
     # FORWARD_TOL).
@@ -460,15 +634,14 @@ def check_slice(case, device):
           f"{(got - want).square().mean().sqrt().item():.3e}")
     reset_counts()
     preds = rollout_trajectory(sim, hd, node_in, mask, ROLLOUT_STEPS)
-    roll = read_counts()
+    roll = read_counts(expected)
     finite = bool(torch.isfinite(preds).all())
-    print(f"rollout {ROLLOUT_STEPS} steps f32: shape {tuple(preds.shape)}, "
-          f"finite {finite}, max |pred| {preds.abs().max().item():.3e}, "
-          f"launches {roll}")
+    print(f"[{label}] rollout {ROLLOUT_STEPS} steps f32: shape "
+          f"{tuple(preds.shape)}, finite {finite}, max |pred| "
+          f"{preds.abs().max().item():.3e}, launches {roll}")
     require(finite, "rollout produced non-finite values")
     if device.type == "cuda":
-        require(roll == {k: v * ROLLOUT_STEPS
-                         for k, v in EXPECTED_LAUNCHES.items()},
+        require(roll == {k: v * ROLLOUT_STEPS for k, v in expected.items()},
                 f"rollout launch counts {roll}")
     return counts[torch.float32]
 
@@ -479,6 +652,24 @@ def event_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps=50):
+    """Device ms per call of `fn`: the calls are queued behind a sleep
+    kernel (~30 ms, far longer than the host takes to issue them), so the
+    card runs them back to back and CUDA events do not count the host's
+    time between short launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -576,6 +767,25 @@ def work(name, args, dtype):
         ops = n * (3 * 2 * 2 * c * c + 6 * layers * c * c + 25 * c)
         grads = (2 * c * c + layers * c * c + (layers + 1) * c) * 4
         by = n * c * elt + 2 * n * c * 4 + grads + n * c * elt + n * c * 4 + grads
+    elif name == "segment_sum":
+        # The slots the row table keeps: their rows and slot indices in,
+        # the row pointers in, the f32 output written; one add per slot
+        # and column.
+        lvl, feat = args[:2]
+        kept, n = lvl.row_slots.numel(), lvl.n_pad_nodes
+        ops = kept * c
+        by = kept * c * elt + 4 * kept + 4 * (n + 1) + n * c * 4
+    elif name == "fused_aggregate_node_phase":
+        # Kernel 8's reads, then kernel 3's function with the aggregate
+        # kept on chip: x and the weights in, the output (in the compute
+        # dtype) written.
+        lvl, feat, x, mlp, _ = args
+        kept, n = lvl.row_slots.numel(), x.shape[0]
+        layers = len(mlp.weights) - 1
+        ops = kept * c + n * (2 * 2 * c * c + 2 * layers * c * c + 12 * c)
+        by = (kept * c * elt + 4 * kept + 4 * (n + 1) + n * c * x.element_size()
+              + n * c * elt
+              + (2 * c * c + layers * c * c + (layers + 1) * c) * 4)
     else:
         # The in-window slots' rows in, send_win in, the output written.
         lvl, vals = args
@@ -605,6 +815,13 @@ def library_call(name, args):
         v = vals[:cr.n_real].float()
         a = acc.clone()
         return lambda: a.index_add_(0, idx, v)
+    if name == "segment_sum":
+        lvl, feat = args[:2]
+        slots = lvl.row_send if args[2:] and args[2] else lvl.row_slots
+        rows = lvl.receivers.index_select(0, lvl.row_slots).long()
+        v = feat.index_select(0, slots).float()
+        a = torch.zeros(lvl.n_pad_nodes, feat.shape[-1], device=feat.device)
+        return lambda: a.index_add_(0, rows, v)
     if name == "windowed_send_sum":
         lvl, vals = args
         live = lvl.send_win < lvl.window
@@ -617,11 +834,16 @@ def library_call(name, args):
 
 
 def measure(case):
+    """Serving times of the case: ms per forward (f32, bf16) through the
+    kernels and through the plain versions, one profiled forward each, ms
+    per rollout step; then each forward kernel of the case's path, timed
+    at its first listed shape (the others printed)."""
     sim, hd, node_in, mask = (case[k] for k in ("sim", "hd", "node_in",
                                                  "mask"))
     from bsms_gnn_tpu_torch.training.rollout import rollout_trajectory
 
-    t = {}
+    label = case["label"]
+    t, busy = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         # The eager forward waits on the host, whose speed varies: five
@@ -631,29 +853,68 @@ def measure(case):
         t[dtype] = float(np.median(runs))
         with plain_path():
             tp = event_ms(lambda: sim(hd, node_in, mask, cd), reps=10)
-        print(f"forward {str(dtype)[6:]}: {t[dtype]:.4f} ms through the "
-              f"kernels (median of {[round(r, 4) for r in runs]}, each the "
-              f"mean of 10 forwards by CUDA events), {tp:.4f} ms through the "
-              f"plain versions")
+        print(f"[{label}] forward {str(dtype)[6:]}: {t[dtype]:.4f} ms through "
+              f"the kernels (median of {[round(r, 4) for r in runs]}, each "
+              f"the mean of 10 forwards by CUDA events), {tp:.4f} ms through "
+              f"the plain versions")
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
-        print_profile(f"forward {str(dtype)[6:]}",
-                      *profile_call(lambda: sim(hd, node_in, mask, cd)))
+        prof = profile_call(lambda: sim(hd, node_in, mask, cd))
+        print_profile(f"[{label}] forward {str(dtype)[6:]}", *prof)
+        busy[dtype] = prof[1]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rollout_trajectory(sim, hd, node_in, mask, ROLLOUT_STEPS)
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS
-    print(f"rollout f32: {step:.4f} ms per step (host clock over "
+    print(f"[{label}] rollout f32: {step:.4f} ms per step (host clock over "
           f"{ROLLOUT_STEPS} steps)")
 
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in kernel_inputs(case, dtype, node_in.device).items():
             rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
+            if case["cfg"].aggregation == "pallas":
+                for where, args in shapes[1:]:
+                    time_kernel(name, where, args, dtype)
+    if case["cfg"].aggregation == "pallas":
+        tile_sweep(case)
     return rows, {"forward_ms_f32": t[torch.float32],
                   "forward_ms_bf16": t[torch.bfloat16],
+                  "forward_busy_ms_f32": busy[torch.float32],
+                  "forward_busy_ms_bf16": busy[torch.bfloat16],
                   "rollout_step_ms_f32": step}
+
+
+def tile_sweep(case):
+    """Kernel 10 (f32) at every level of the case with 64-row and with
+    16-row tiles, beside the tile the wrapper picks (`agg_node.tile_rows`:
+    64 where that gives at least one block per SM): the evidence for the
+    rule. Device ms per launch (`queued_ms`)."""
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+
+    fn = kernel_modules()["fused_aggregate_node_phase"][0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    rule = agg_node.tile_rows
+    print(f"[{case['label']}] kernel 10 f32 by tile height (device ms per "
+          f"launch):")
+    try:
+        for l, lvl in enumerate(case["hd"].levels):
+            mlp = (case["sim"].process.down_gmps[l].mlp_node
+                   if l < case["hd"].depth
+                   else case["sim"].process.bottom_gmp.mlp_node)
+            feat = torch.randn(lvl.n_pad_edges, 128, generator=g).cuda()
+            x = torch.randn(lvl.n_pad_nodes, 128, generator=g).cuda()
+            ms = {}
+            for rows in (64, 16):
+                agg_node.tile_rows = lambda n, dev, rows=rows: rows
+                ms[rows] = queued_ms(lambda: fn(lvl, feat, x, mlp))
+            agg_node.tile_rows = rule
+            print(f"  level {l}: {lvl.n_pad_nodes} rows, 64-row tiles "
+                  f"{ms[64]:.5f}, 16-row tiles {ms[16]:.5f}; the rule picks "
+                  f"{rule(lvl.n_pad_nodes, x.device)}")
+    finally:
+        agg_node.tile_rows = rule
 
 
 def time_kernel(name, where, args, dtype):
@@ -672,7 +933,7 @@ def time_kernel(name, where, args, dtype):
     bound_b = by / PEAK_BYTES_S * 1e3
     bound_o = ops / PEAK_FLOPS_S[dtype] * 1e3
     by_what = "bytes" if bound_b >= bound_o else "operations"
-    print(f"time {name:24s} {where:8s} {str(dtype)[6:]:9s} "
+    print(f"time {name:26s} {where:12s} {str(dtype)[6:]:9s} "
           f"kernel {ms if ms is not None else float('nan'):.5f} ms "
           f"(profiler) {ev:.5f} ms (events, with the wrapper)  "
           f"plain {pms:.5f} ms  library "
@@ -791,14 +1052,24 @@ def step_grads(sim, hd, node_in, tar, mask, cd):
 
 
 def make_trainer(case, device, cd):
-    """A `Trainer` of the 5k model with a two-step warmup gate and a
-    learning rate that is not 0 from its second update on."""
-    from bsms_gnn_tpu_torch.config import Config, ModelConfig, OptConfig
+    """A `Trainer` of the case's model with a two-step warmup gate and a
+    learning rate that is not 0 from its second update on (the surface:
+    the inflating-font noise)."""
+    from bsms_gnn_tpu_torch.config import (
+        Config,
+        ModelConfig,
+        OptConfig,
+        inflating_font_config,
+    )
     from bsms_gnn_tpu_torch.training.trainer import Trainer
 
-    cfg = Config(model=ModelConfig(latent_dim=128, hidden_layer=3,
-                                   unet_depth=DEPTH,
-                                   accumulation_steps=TRAIN_GATE))
+    if case["cfg"].aggregation == "pallas":
+        cfg = inflating_font_config(unet_depth=SURFACE_DEPTH,
+                                    accumulation_steps=TRAIN_GATE)
+    else:
+        cfg = Config(model=ModelConfig(latent_dim=128, hidden_layer=3,
+                                       unet_depth=DEPTH,
+                                       accumulation_steps=TRAIN_GATE))
     opt = OptConfig(peak_lr=1e-4, warmup_steps=2, decay_steps=1000)
     return Trainer(cfg, opt, generator=torch.Generator().manual_seed(1),
                    device=device, compute_dtype=cd)
@@ -808,15 +1079,15 @@ def check_train(case, device):
     """The train step through the kernels against the same step through
     the plain versions; the launch counts of one step; a short `Trainer`
     run. Returns the f32 step's launch counts."""
-    sim, hd, node_in, mask = (case[k] for k in ("sim", "hd", "node_in",
-                                                 "mask"))
-    tar = case["target"]
+    sim, hd, mask = (case[k] for k in ("sim", "hd", "mask"))
+    node_in, tar = case["train"]
+    expected, label = case["expected_train"], case["label"]
     counts, plain_grads = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         reset_counts()
         loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
-        counts[dtype] = read_counts(EXPECTED_TRAIN_LAUNCHES)
+        counts[dtype] = read_counts(expected)
         with plain_path():
             loss_p, grads_p = step_grads(sim, hd, node_in, tar, mask, cd)
         plain_grads[dtype] = grads_p
@@ -836,7 +1107,7 @@ def check_train(case, device):
         loss_err = abs(loss - loss_p) / abs(loss_p)
         ok = (loss_err <= tol_loss and worst_max[0] <= tol_max
               and worst_rms[1] <= tol_rms)
-        print(f"train step {str(dtype)[6:]:9s} loss {loss:.6e} (plain "
+        print(f"[{label}] train step {str(dtype)[6:]:9s} loss {loss:.6e} (plain "
               f"{loss_p:.6e}, rel err {loss_err:.2e}, tol {tol_loss:.0e}); "
               f"{len(rel)} gradients, worst max err {worst_max[0]:.2e} of rms "
               f"({worst_max[2]}, tol {tol_max:.0e}), worst rms err "
@@ -844,12 +1115,13 @@ def check_train(case, device):
               f"{tol_rms:.0e}), median rms err "
               f"{float(np.median([r[1] for r in rel])):.2e}; {len(zero)} "
               f"exactly zero on both paths  {'ok' if ok else 'FAIL'}")
-        print(f"launches in one {str(dtype)[6:]} train step: {counts[dtype]}")
-        require(ok, f"{dtype} train step disagrees with the plain path")
+        print(f"[{label}] launches in one {str(dtype)[6:]} train step: "
+              f"{counts[dtype]}")
+        require(ok, f"{label} {dtype} train step disagrees with the plain "
+                    f"path")
         if device.type == "cuda":
-            require(counts[dtype] == EXPECTED_TRAIN_LAUNCHES,
-                    f"train launch counts {counts[dtype]} != "
-                    f"{EXPECTED_TRAIN_LAUNCHES}")
+            require(counts[dtype] == expected,
+                    f"train launch counts {counts[dtype]} != {expected}")
 
     f32_vs_bf16 = [compare(plain_grads[torch.bfloat16][k], g)
                    for k, g in plain_grads[torch.float32].items()]
@@ -857,6 +1129,8 @@ def check_train(case, device):
           f"{float(np.median([e[1] / e[2] for e in f32_vs_bf16 if e[2]])):.2e}"
           f" of rms")
 
+    if "train_frames" in case:  # the trainer on the trajectory's frames
+        node_in, tar = case["train_frames"]
     tr = make_trainer(case, device, None)
     before = [p.detach().clone() for p in tr.sim.parameters()]
     losses = [float(tr.iter(hd, node_in, tar, mask))
@@ -867,7 +1141,7 @@ def check_train(case, device):
     stuck = [k for (k, p), b in zip(tr.sim.named_parameters(), before)
              if not bool((p.detach() != b).any()) and bool(p.grad.any())]
     accs = float(tr.sim.norm_in.num_accumulations)
-    print(f"trainer f32: {TRAIN_GATE} gate steps then {TRAIN_UPDATES} "
+    print(f"[{label}] trainer f32: {TRAIN_GATE} gate steps then {TRAIN_UPDATES} "
           f"updates at rates {rates}: losses {losses}; normalizer "
           f"accumulations {accs:g}; parameters with a gradient that did not "
           f"move: {stuck}")
@@ -914,9 +1188,9 @@ def print_profile(what, wall, busy, launches, top):
 
 def measure_train(case, device):
     """Train-step times, profile and peak memory, f32 and bf16; then each
-    backward kernel's time."""
-    hd, node_in, mask, tar = (case[k] for k in ("hd", "node_in", "mask",
-                                                 "target"))
+    backward kernel's time (the fused path's: the pallas path adds none)."""
+    hd, mask, label = case["hd"], case["mask"], case["label"]
+    node_in, tar = case["train"]
     e2e = {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
@@ -938,18 +1212,20 @@ def measure_train(case, device):
         step()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
-        print(f"train step {name}: {ms:.4f} ms through the kernels (median "
+        print(f"[{label}] train step {name}: {ms:.4f} ms through the kernels (median "
               f"of {[round(r, 4) for r in runs]}, each the mean of 5 steps by "
               f"CUDA events), {pms:.4f} ms through the plain versions; peak "
               f"memory of a step {peak:.1f} MiB")
         prof = profile_call(step)
-        print_profile(f"train step {name}", *prof)
+        print_profile(f"[{label}] train step {name}", *prof)
         print(f"  idle share against the timed step: {1 - prof[1] / ms:.3f} "
               f"(1 - device busy / ms per step)")
         key = "f32" if cd is None else "bf16"
         e2e[f"train_step_peak_mib_{key}"] = peak
         e2e[f"train_step_busy_ms_{key}"] = prof[1]
     rows = {}
+    if case["cfg"].aggregation == "pallas":
+        return rows, e2e
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
             rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
@@ -973,6 +1249,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable: {e}", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -995,20 +1272,42 @@ def main() -> int:
             serve_counts = check_slice(case, device)
             rows, e2e = measure(case)
             errs.update(check_bwd_kernels(case, device))
-        case["target"] = train_target(case)
+        case["train"] = (case["node_in"], train_target(case))
         train_counts = check_train(case, device)
         train_rows, train_e2e = measure_train(case, device)
+        rows.update(train_rows)
+        e2e.update(train_e2e)
+        print(f"airfoil phases done at {time.perf_counter() - t_start:.1f} s")
+        del case
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            surf = build_surface_case(device)
+            describe(surf)
+            errs.update(check_kernels(surf, device))
+            surf_serve = check_slice(surf, device)
+            surf_rows, surf_e2e = measure(surf)
+        surf["train"] = surf["train_frames"]
+        surf_train = check_train(surf, device)
+        _, surf_train_e2e = measure_train(surf, device)
+        rows.update(surf_rows)
+        surf_e2e.update(surf_train_e2e)
+        e2e.update({f"surface_{k}": v for k, v in surf_e2e.items()})
+        print(f"surface phases done at {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    rows.update(train_rows)
-    e2e.update(train_e2e)
     kernels = []
     for name, (src, replaces, _) in KERNEL_META.items():
         r32, r16 = rows[(name, torch.float32)], rows[(name, torch.bfloat16)]
+        # Launches per train step on the path that runs the kernel (the
+        # airfoil's for kernels 1-7, the surface's for kernels 8 and 10;
+        # kernel 6 runs on both, and the surface's count rides beside).
+        on_airfoil = train_counts.get(name, 0) > 0
         entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_counts[name],
+            "replaces": replaces,
+            "launches": train_counts[name] if on_airfoil else surf_train[name],
             "max_abs_err": errs[(name, torch.float32)],
             "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
@@ -1018,8 +1317,11 @@ def main() -> int:
                      "bound_ms": r16["bound_ms"],
                      "bound_by": r16["bound_by"]},
         }
-        if name in serve_counts:
-            entry["launches_forward"] = serve_counts[name]
+        forward = serve_counts if on_airfoil else surf_serve
+        if name in forward:
+            entry["launches_forward"] = forward[name]
+        if on_airfoil and surf_train.get(name, 0) > 0:
+            entry["launches_surface"] = surf_train[name]
         kernels.append(entry)
     print(json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,9 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
 package; its entry points default to the CUDA card and raise without one;
-a kernel wrapper given CPU tensors runs its plain version and counts no
-launch, forward and backward; layouts the slice does not support raise
-NotImplementedError; and chip_smoke.py fails without a card or without the
-package beside it."""
+a kernel wrapper given CPU tensors runs its plain version once and counts
+no launch, forward and backward, on the fused and the pallas paths;
+layouts and options the port does not support raise NotImplementedError;
+and chip_smoke.py fails without a card or without the package beside it."""
 
 import ast
 import os
@@ -26,10 +26,12 @@ from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.models.normalizer import init_normalizer
 from bsms_gnn_tpu_torch.models.simulator import Simulator
 from bsms_gnn_tpu_torch.ops.kernels import (
+    agg_node,
     build,
     compact_resid,
     fused_gmp,
     node_mlp,
+    segment_sum,
     windowed,
 )
 from bsms_gnn_tpu_torch.ops.message import GMP
@@ -110,50 +112,91 @@ def test_default_device_is_cuda_and_raises_without_it(hier, entry):
 KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
            windowed.windowed_rect_conv, compact_resid.compact_accum_raw,
            fused_gmp.fused_edge_phase_win_bwd, node_mlp.fused_node_phase_bwd,
-           windowed.windowed_send_sum)
+           windowed.windowed_send_sum, segment_sum.segment_sum_raw,
+           agg_node.fused_aggregate_node_phase_fwd)
+PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
+                  node_mlp.fused_node_phase_plain,
+                  windowed.windowed_rect_conv_plain,
+                  compact_resid.compact_accum_plain,
+                  segment_sum.segment_sum_plain,
+                  agg_node.fused_aggregate_node_phase_plain)
 PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
                    node_mlp.fused_node_phase_bwd_plain,
                    windowed.windowed_send_sum_plain)
 
 
+@pytest.fixture(scope="module")
+def flat():
+    """The same grid, unwindowed (the pallas method's layout)."""
+    pos, cells = scrambled_grid()
+    return to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2, len(pos),
+                                     pos), "cpu")
+
+
 @pytest.fixture
 def counters():
-    for f in KERNELS:
-        f.launches = 0
-    for f in PLAIN_BACKWARDS:
-        f.calls = 0
+    def reset():
+        for f in KERNELS:
+            f.launches = 0
+        for f in PLAIN_FORWARDS + PLAIN_BACKWARDS:
+            f.calls = 0
+    reset()
     yield KERNELS
-    for f in KERNELS:
-        f.launches = 0
+    reset()
 
 
-def test_cpu_tensors_take_the_plain_versions(hier, counters):
+def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
+    """Each wrapper, given CPU tensors, calls its plain version once and
+    launches nothing. Its result is held to a direct call of the plain
+    version at 1e-6: both run the same ops, but the CPU BLAS may split a
+    matmul over another number of threads from one call to the next (it
+    does under load), which moves the last bits."""
     hd = to_device(hier, "cpu")
-    sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1),
-                    torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
-    lvl, op = hd.levels[0], hd.transitions[0].down_op
-    n = lvl.n_pad_nodes
+    lvl, op, flvl = hd.levels[0], hd.transitions[0].down_op, flat.levels[0]
+    n, nf = lvl.n_pad_nodes, flvl.n_pad_nodes
     x = torch.randn(n, 128, generator=g)
-    gmp = sim.process.down_gmps[0]
+    xf = torch.randn(nf, 128, generator=g)
+    feat = torch.randn(flvl.n_pad_edges, 128, generator=g)
+    cr = lvl.cresid
+    vals = torch.randn(cr.n_rows, 128, generator=g)
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
     ws, bs = list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:]
     wf8 = torch.randn(8, 128, generator=g)
+    send = dict(send=True)
+    cases = [  # (wrapper, its plain version, a fresh copy of the arguments,
+        #         keyword arguments)
+        (fused_gmp.fused_edge_phase_win, fused_gmp.fused_edge_phase_win_plain,
+         lambda: (lvl, x, x, wf8, ws, bs), {}),
+        (node_mlp.fused_node_phase, node_mlp.fused_node_phase_plain,
+         lambda: (x, x, gmp.mlp_node), {}),
+        (windowed.windowed_rect_conv, windowed.windowed_rect_conv_plain,
+         lambda: (op, x[:op.n_in_pad]), {}),
+        (compact_resid.compact_accum, compact_resid.compact_accum_plain,
+         lambda: (cr, vals, x.clone()), {}),
+        (segment_sum.segment_sum_raw, segment_sum.segment_sum_plain,
+         lambda: (flvl, feat), {}),
+        (segment_sum.segment_sum_raw, segment_sum.segment_sum_plain,
+         lambda: (flvl, feat), send),
+        (agg_node.fused_aggregate_node_phase,
+         agg_node.fused_aggregate_node_phase_plain,
+         lambda: (flvl, feat, xf, gmp.mlp_node), {}),
+    ]
     with torch.no_grad():
-        pairs = [
-            (fused_gmp.fused_edge_phase_win(lvl, x, x, wf8, ws, bs),
-             fused_gmp.fused_edge_phase_win_plain(lvl, x, x, wf8, ws, bs)),
-            (node_mlp.fused_node_phase(x, x, gmp.mlp_node),
-             node_mlp.fused_node_phase_plain(x, x, gmp.mlp_node)),
-            (windowed.windowed_rect_conv(op, x[:op.n_in_pad]),
-             windowed.windowed_rect_conv_plain(op, x[:op.n_in_pad])),
-        ]
-        cr = lvl.cresid
-        vals = torch.randn(cr.n_rows, 128, generator=g)
-        pairs.append((compact_resid.compact_accum(cr, vals, x.clone()),
-                      compact_resid.compact_accum_plain(cr, vals, x.clone())))
+        for wrapper, plain, args, kw in cases:
+            for f in PLAIN_FORWARDS:
+                f.calls = 0
+            got = wrapper(*args(), **kw)
+            assert plain.calls == 1, wrapper
+            torch.testing.assert_close(got, plain(*args(), **kw), rtol=1e-6,
+                                       atol=1e-6)
+        sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1),
+                        torch.Generator().manual_seed(0), device="cpu")
         sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
-    for got, want in pairs:
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
+                          world_edges=True, aggregation="pallas")
+        sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
+        sim(flat, torch.randn(nf, 6, generator=g), torch.ones(nf, 1))
     assert [f.launches for f in counters] == [0] * len(KERNELS)
 
 
@@ -174,6 +217,28 @@ def test_cpu_backward_takes_the_plain_versions(hier, counters):
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
+def test_cpu_backward_of_the_pallas_gmp_takes_the_plain_versions(flat,
+                                                                  counters):
+    """A world-edge GMP on the pallas method, on the CPU: its backward runs
+    kernel 10's (the aggregate again through kernel 8's plain version, then
+    kernel 6's) and the two gathers' (kernel 8's, sender and receiver
+    forms), and launches nothing. The world positions carry no gradient."""
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0), fiber_dims=(3, 2))
+    lvl = flat.levels[0]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(lvl.n_pad_nodes, 128, generator=g, requires_grad=True)
+    pos = torch.randn(lvl.n_pad_nodes, 3, generator=g)
+    out = gmp(lvl, x, pos=pos, method="pallas")
+    segment_sum.segment_sum_plain.calls = 0
+    out.square().sum().backward()
+    assert node_mlp.fused_node_phase_bwd_plain.calls == 1
+    assert segment_sum.segment_sum_plain.calls == 3
+    assert [f.launches for f in counters] == [0] * len(KERNELS)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for name, p in gmp.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
 def test_unsupported_layouts_raise(hier):
     pos, cells = scrambled_grid()
     h_flat = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2,
@@ -184,6 +249,13 @@ def test_unsupported_layouts_raise(hier):
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="unwindowed"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes, 128))
+        world = GMP(128, 1, 2, torch.Generator().manual_seed(0),
+                    fiber_dims=(2, 2))
+        with pytest.raises(NotImplementedError, match="world edges"):
+            world(hd.levels[0], torch.zeros(n, 128), pos=torch.zeros(n, 2))
+        with pytest.raises(NotImplementedError, match="aggregation method"):
+            gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes,
+                                              128), method="ell")
         with pytest.raises(NotImplementedError, match="batch axis"):
             gmp(hd.levels[0], torch.zeros(2, n, 128))
         with pytest.raises(NotImplementedError, match="latent width"):

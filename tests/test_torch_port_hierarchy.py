@@ -1,8 +1,9 @@
 """The port's graph modules against the JAX package's, array for array:
-mesh edges, Morton order, the synthetic airfoil mesh, and the padded
-windowed hierarchy (every level, its compact residual and fiber stream,
-every transition operator and its compact residual), plus the device
-tables `to_device` derives."""
+mesh edges, Morton order, the synthetic airfoil and sphere meshes, and the
+padded hierarchy, windowed and not (every level, its compact residual and
+fiber stream, every transition operator and its compact residual), plus
+the device tables `to_device` derives: the chunk and visit ranges, and the
+per-row slot lists of the segment sums against the TPU kernel's one-hot."""
 
 import dataclasses
 
@@ -13,11 +14,16 @@ import torch
 from conftest import make_grid_mesh
 
 from bsms_gnn_tpu.data.synthetic import make_graded_airfoil_mesh as jax_airfoil
+from bsms_gnn_tpu.data.synthetic import make_sphere_mesh as jax_sphere
 from bsms_gnn_tpu.graph.hierarchy import build_hierarchy as jax_build
 from bsms_gnn_tpu.graph.mesh import to_flat_edge as jax_flat_edge
 from bsms_gnn_tpu.graph.order import reorder_mesh as jax_reorder
 from bsms_gnn_tpu.ops.pallas.fused_gmp import _chunk_tables
-from bsms_gnn_tpu_torch.data.synthetic import make_graded_airfoil_mesh
+from bsms_gnn_tpu_torch.data.synthetic import (
+    generate_inflating_trajectory,
+    make_graded_airfoil_mesh,
+    make_sphere_mesh,
+)
 from bsms_gnn_tpu_torch.graph.hierarchy import (
     CompactResid,
     build_hierarchy,
@@ -27,7 +33,7 @@ from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.graph.order import reorder_mesh
 
 DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr", "send_ptr",
-                 "send_items")
+                 "send_items", "row_ptr", "row_slots", "row_send")
 
 
 def assert_same(jax_obj, port_obj, path):
@@ -67,11 +73,17 @@ def morton_airfoil():
     return pos.astype(np.float64), cells
 
 
+def sphere():
+    pos, cells, _ = make_sphere_mesh(600, np.random.default_rng(0))
+    return pos.astype(np.float64), cells
+
+
 CASES = {
     "grid_w128_eb512_d3": (scrambled_grid, 3, dict(edge_block=512, window=128)),
     "airfoil_w256_eb512_d2": (morton_airfoil, 2,
                               dict(edge_block=512, window=256)),
     "grid_unwindowed_d3": (scrambled_grid, 3, dict()),
+    "sphere_unwindowed_d3": (sphere, 3, dict()),
 }
 
 
@@ -106,6 +118,21 @@ def test_mesh_order_and_airfoil_match_jax():
             np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(jax_flat_edge(cells, "tri"),
                                   to_flat_edge(cells, "tri"))
+    for a, b in zip(jax_sphere(700, np.random.default_rng(6)),
+                    make_sphere_mesh(700, np.random.default_rng(6))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_inflating_trajectory_matches_jax():
+    from bsms_gnn_tpu.data.synthetic import (
+        generate_inflating_trajectory as jax_traj,
+    )
+
+    want = jax_traj(300, 4, np.random.default_rng(2))
+    got = generate_inflating_trajectory(300, 4, np.random.default_rng(2))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_device_tables_follow_the_layout():
@@ -134,3 +161,50 @@ def test_device_tables_follow_the_layout():
             for b in range(len(vp) - 1):
                 assert (vb[vp[b]:vp[b + 1]] == b).all()
             assert vp[-1] == len(vb)
+
+
+def _one_hot_rows(layout):
+    """The JAX kernel's one-hot semantics on `layout`, in numpy: for each
+    slot, the output row its chunk's one-hot adds it to (-1: no row), from
+    the JAX package's own chunk → block table."""
+    chunk_block, _, _ = _chunk_tables(layout)
+    be = layout.edge_block
+    base = np.repeat(np.asarray(chunk_block), be) * 128
+    local = np.asarray(layout.receivers) - base
+    return np.where((local >= 0) & (local < 128), base + local, -1)
+
+
+@pytest.mark.parametrize("case", ["sphere_unwindowed_d3",
+                                  "grid_w128_eb512_d3"])
+def test_row_tables_follow_the_one_hot(case):
+    """row_slots lists, row by row and in slot order, exactly the slots the
+    TPU kernel's one-hot adds to each row, pad slots included: the last
+    block's land on row n_pad − 1, every other block's nowhere. row_send
+    is reverse_perm of row_slots."""
+    make, depth, kw = CASES[case]
+    pos, cells = make()
+    hj = jax_build(jax_flat_edge(cells, "tri"), depth, len(pos), pos, **kw)
+    hd = to_device(build_hierarchy(to_flat_edge(cells, "tri"), depth,
+                                   len(pos), pos, **kw), "cpu")
+    ops = [(a, b) for ta, tb in zip(hj.transitions, hd.transitions)
+           for a, b in ((ta.down_op, tb.down_op), (ta.up_op, tb.up_op))]
+    dropped = 0  # pad slots of blocks other than the last
+    for jl, tl in list(zip(hj.levels, hd.levels)) + ops:
+        row = _one_hot_rows(jl)
+        n_pad = tl.n_pad_nodes
+        ptr, slots = tl.row_ptr.numpy(), tl.row_slots.numpy()
+        assert ptr.dtype == slots.dtype == np.int32
+        assert ptr[0] == 0 and ptr[-1] == len(slots) == (row >= 0).sum()
+        for r in np.unique(np.r_[row[row >= 0], [0, n_pad - 1]]):
+            np.testing.assert_array_equal(slots[ptr[r]:ptr[r + 1]],
+                                          np.flatnonzero(row == r))
+        pad = np.asarray(jl.receivers) == n_pad - 1
+        last_block = np.arange(tl.n_pad_edges) >= np.asarray(
+            jl.recv_indptr)[n_pad - 128]
+        np.testing.assert_array_equal(slots[ptr[n_pad - 1]:],
+                                      np.flatnonzero(pad & last_block))
+        dropped += int((pad & ~last_block).sum())
+        if getattr(tl, "row_send", None) is not None:
+            np.testing.assert_array_equal(
+                tl.row_send.numpy(), np.asarray(jl.reverse_perm)[slots])
+    assert dropped > 0
