@@ -1,13 +1,14 @@
 """Configuration (counterpart of `bsms_gnn_tpu/config.py`, the dataclasses
-only, with the airfoil defaults of `bsms_gnn_tpu/configs/` and the
-inflating-font presets as `inflating_font_config`; no YAML loading yet).
+only, with the airfoil defaults of `bsms_gnn_tpu/configs/`, the
+inflating-font presets as `inflating_font_config` and the flag presets as
+`flag_simple_config`; no YAML loading yet).
 
 `ModelConfig.aggregation` picks one of the JAX package's two production
-methods: `"fused"` (windowed layouts, the fused edge-phase kernels) or
-`"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
-fused aggregation + node-phase kernel). The parity-oracle methods `"ell"`
-and `"segment"` are not ported. `DatasetConfig` keeps only the fields the
-trainer reads (the noise)."""
+methods: `"fused"` (windowed layouts, the fused edge-phase kernels, with
+or without one world-space stream) or `"pallas"` (any layout: gathers, the
+edge MLP as plain matmuls, then the fused aggregation + node-phase
+kernel). The parity-oracle methods `"ell"` and `"segment"` are not ported.
+`DatasetConfig` keeps only the fields the trainer reads (the noise)."""
 
 from __future__ import annotations
 
@@ -83,3 +84,18 @@ def inflating_font_config(**model_overrides) -> Config:
     return Config(model=replace(model, **model_overrides),
                   datasets=DatasetConfig(noise_level=[0.003] * 3,
                                          noise_gamma=1.0))
+
+
+def flag_simple_config(**model_overrides) -> Config:
+    """The cloth flag: `configs/model/flag_simple.yaml` and
+    `configs/datasets/flag_simple.yaml` of the JAX package (a 2-D mesh
+    moving in 3-D world space, world positions as the output fields,
+    world-space edges), on the `fused` method, the JAX package's recipe for
+    world edges on a windowed, Morton-ordered layout. `model_overrides`
+    replace ModelConfig fields."""
+    model = ModelConfig(latent_dim=128, hidden_layer=3, unet_depth=5,
+                        out_dim=3, pos_dim=2, accumulation_steps=300,
+                        world_edges=True, world_dim=3, aggregation="fused")
+    return Config(model=replace(model, **model_overrides),
+                  datasets=DatasetConfig(noise_level=[0.003] * 3,
+                                         noise_gamma=0.1))

@@ -1,5 +1,5 @@
 """Synthetic meshes (counterparts of `bsms_gnn_tpu/data/synthetic.py`'s
-`make_graded_airfoil_mesh`, `make_sphere_mesh` and
+`make_graded_airfoil_mesh`, `make_grid_strip_mesh`, `make_sphere_mesh` and
 `generate_inflating_trajectory`), so the port builds the benchmark meshes
 without the dataset readers."""
 
@@ -13,6 +13,8 @@ NT_NORMAL = 0
 NT_AIRFOIL = 2
 NT_HANDLE = 3
 NT_INFLOW = 4
+NT_OUTFLOW = 5
+NT_WALL = 6
 
 
 def make_graded_airfoil_mesh(n_nodes: int, rng: np.random.Generator):
@@ -50,6 +52,44 @@ def make_graded_airfoil_mesh(n_nodes: int, rng: np.random.Generator):
     node_type[:n_body] = NT_AIRFOIL
     rad = np.linalg.norm(pos, axis=-1)
     node_type[rad > 0.98 * rad.max()] = NT_INFLOW  # far-field boundary
+    return pos.astype(np.float32), cells, node_type
+
+
+def make_grid_strip_mesh(n_nodes: int, ny: int = 8):
+    """Regular triangulated strip of ~n_nodes (nx = n_nodes // ny columns,
+    jittered interior positions): (pos [N,2], cells [M,3], node_type [N,1]).
+    Bi-stride selection stays clean on it to depth 7 and more (alternating
+    columns, bounded degree). The left column is inflow, the right outflow,
+    the rest of the rim wall."""
+    nx = max(n_nodes // ny, 4)
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    pos = np.stack([xs.ravel(), ys.ravel()], axis=-1).astype(np.float64)
+    # Jitter interior nodes so edge fibers are non-degenerate.
+    rng = np.random.default_rng(12345)
+    interior = (
+        (pos[:, 0] > 0) & (pos[:, 0] < nx - 1)
+        & (pos[:, 1] > 0) & (pos[:, 1] < ny - 1)
+    )
+    pos[interior] += rng.uniform(-0.25, 0.25, size=(int(interior.sum()), 2))
+    pos = pos / ny  # unit-height strip, aspect nx/ny
+    cells = []
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            a = i * ny + j
+            b = (i + 1) * ny + j
+            c = (i + 1) * ny + j + 1
+            d = i * ny + j + 1
+            cells.append([a, b, c])
+            cells.append([a, c, d])
+    cells = np.asarray(cells, dtype=np.int64)
+    node_type = np.full((pos.shape[0], 1), NT_NORMAL, np.int32)
+    x = pos[:, 0] * ny
+    node_type[np.isclose(x, 0.0)] = NT_INFLOW
+    node_type[np.isclose(x, nx - 1)] = NT_OUTFLOW
+    y = pos[:, 1] * ny
+    wall = (np.isclose(y, 0.0) | np.isclose(y, ny - 1)) & ~np.isclose(
+        x, 0.0) & ~np.isclose(x, nx - 1)
+    node_type[wall] = NT_WALL
     return pos.astype(np.float32), cells, node_type
 
 

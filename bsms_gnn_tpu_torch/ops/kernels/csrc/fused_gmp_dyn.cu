@@ -1,0 +1,81 @@
+// Kernel 13: the windowed fused GMP edge phase with a dynamic world-space
+// fiber (see ../fused_gmp_dyn.py).
+//
+//   out[n] = Σ_{in-window e: recv(e)=n} LN(tail(relu(
+//              fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e]
+//              + Δ_e·wf_dyn + ‖Δ_e‖·wf_nrm)))
+//   Δ_e = world[send_e] − world[recv_e]
+//
+// Kernel 4's chunk walk (edge_phase.cuh) with the dynamic fiber: each tile
+// computes its slots' Δ and ‖Δ‖ from the [n_pad, wd] positions, then
+// block_sum_kernel over the parts. Its own kernel name, so the profiler and
+// the launch counters tell it apart from kernel 4.
+#include "block_sum.cuh"
+#include "edge_phase.cuh"
+
+using namespace bsms;
+
+namespace {
+
+constexpr size_t SMEM_BYTES = edge_fwd_smem_bytes<true>();
+
+template <typename T, bool BF16>
+__global__ void __launch_bounds__(THREADS)
+fused_edge_phase_win_dyn_kernel(
+    const float* __restrict__ fiber_t, const T* __restrict__ xwi,
+    const T* __restrict__ xj, const T* __restrict__ pos,
+    const float* __restrict__ wf8, const float* __restrict__ wfd,
+    const float* __restrict__ wfn, int wd, const float* __restrict__ W,
+    const float* __restrict__ B, int n_layers,
+    const int* __restrict__ send_win, const int* __restrict__ win_base,
+    const int* __restrict__ receivers, const int* __restrict__ chunk_block,
+    int e_pad, int edge_block, int window, float* __restrict__ part) {
+  edge_phase_fwd_chunk<T, BF16, true>(
+      fiber_t, xwi, xj, pos, wf8, wfd, wfn, wd, W, B, n_layers, send_win,
+      win_base, receivers, chunk_block, e_pad, edge_block, window, part);
+}
+
+template <typename T, bool BF16>
+int launch(const void* fiber_t, const void* xwi, const void* xj,
+           const void* pos, const void* wf8, const void* wfd, const void* wfn,
+           const void* W, const void* B, const void* send_win,
+           const void* win_base, const void* receivers,
+           const void* chunk_block, const void* chunk_ptr, int n_layers,
+           int wd, int n_chunks, int n_blocks, int e_pad, int edge_block,
+           int window, void* part, void* out, void* stream) {
+  if (edge_block % TILE || wd < 1 || wd > MAX_WD)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_edge_phase_win_dyn_kernel<T, BF16>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  kernel<<<n_chunks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const T*)pos,
+      (const float*)wf8, (const float*)wfd, (const float*)wfn, wd,
+      (const float*)W, (const float*)B, n_layers, (const int*)send_win,
+      (const int*)win_base, (const int*)receivers, (const int*)chunk_block,
+      e_pad, edge_block, window, (float*)part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_block_sum((const float*)part, (const int*)chunk_ptr,
+                               (float*)out, n_blocks, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+#define FUSED_EDGE_PHASE_WIN_DYN(NAME, T, BF16)                               \
+  extern "C" int NAME(                                                        \
+      const void* fiber_t, const void* xwi, const void* xj, const void* pos,  \
+      const void* wf8, const void* wfd, const void* wfn, const void* W,       \
+      const void* B, const void* send_win, const void* win_base,              \
+      const void* receivers, const void* chunk_block, const void* chunk_ptr,  \
+      int n_layers, int wd, int n_chunks, int n_blocks, int e_pad,            \
+      int edge_block, int window, void* part, void* out, void* stream) {      \
+    return launch<T, BF16>(fiber_t, xwi, xj, pos, wf8, wfd, wfn, W, B,        \
+                           send_win, win_base, receivers, chunk_block,        \
+                           chunk_ptr, n_layers, wd, n_chunks, n_blocks,       \
+                           e_pad, edge_block, window, part, out, stream);     \
+  }
+
+FUSED_EDGE_PHASE_WIN_DYN(fused_edge_phase_win_dyn_f32, float, false)
+FUSED_EDGE_PHASE_WIN_DYN(fused_edge_phase_win_dyn_bf16, __nv_bfloat16, true)

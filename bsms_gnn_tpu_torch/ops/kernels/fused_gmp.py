@@ -11,7 +11,9 @@ with the sender row `win_base[chunk]·W/2 + send_win[e]`, read only when
 still run the edge MLP but are masked from the scatter; the caller adds the
 compact residual (`compact_resid.py`).
 
-CUDA design (`csrc/fused_gmp.cu`): one thread block per edge chunk walks
+CUDA design (`csrc/fused_gmp.cu` over the chunk walk of
+`csrc/edge_phase.cuh`, which kernel 13 shares): one thread block per edge
+chunk walks
 the chunk in 64-edge tiles. Per tile it loads the selected sender rows and
 receiver rows directly (no one-hot selection), runs the tail MLP and
 LayerNorm in shared memory, and adds each edge into a shared-memory copy
@@ -41,7 +43,9 @@ recomputes each chunk's forward (remat in the kernel) and returns
     dwf8 [8, C]      fiber_tᵀ-weighted sums of dpre
     dW [L, C, C], db [L, C]   the tail layers' weight and bias gradients
 
-CUDA design (`csrc/fused_gmp_bwd.cu`): one thread block per chunk, 64-slot
+CUDA design (`csrc/fused_gmp_bwd.cu` over the chunk walk of
+`csrc/edge_phase_bwd.cuh`, which kernel 13 shares): one thread block per
+chunk, 64-slot
 tiles as in kernel 4, keeping each layer's input, the LayerNorm output and
 the running cotangent in shared memory; dxj takes kernel 4's per-chunk part
 and chunk-ordered block sum. The TPU carries dW, db and dwf8 in scratch
@@ -154,14 +158,20 @@ def _check(level, xwi, xj, wf8, weights, biases):
         raise ValueError("tail weights and biases differ in count")
 
 
-def _edge_pre(level, xwi, xj, wf8, bf16):
-    """Each slot's first-layer pre-activation fiber·wf8 + xwi[send] +
-    xj[recv] (f32), the in-window mask and the receivers."""
+def sender_rows(level):
+    """Each slot's sender row `win_base[chunk]·W/2 + send_win` (0 where the
+    slot is out of window) and the in-window mask."""
     w = level.window
     sw = level.send_win.long()
     covered = sw < w
     base = level.win_base.long().repeat_interleave(level.edge_block)
-    rows = torch.where(covered, base * (w // 2) + sw, 0)
+    return torch.where(covered, base * (w // 2) + sw, 0), covered
+
+
+def _edge_pre(level, xwi, xj, wf8, bf16):
+    """Each slot's first-layer pre-activation fiber·wf8 + xwi[send] +
+    xj[recv] (f32), the in-window mask and the receivers."""
+    rows, covered = sender_rows(level)
     sel = torch.where(covered[:, None], xwi.float().index_select(0, rows), 0.0)
     recv = level.receivers.long()
     zj = xj.float().index_select(0, recv)

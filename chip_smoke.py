@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero without the result line):
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, TF32 off, and the nine CUDA kernels built from `csrc/`;
+   versions, TF32 off, and the eleven CUDA kernels built from `csrc/`;
 2. the 5,233-node graded airfoil (Morton-ordered, depth 7, edge_block 512,
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
@@ -36,7 +36,14 @@ Phases (any failure exits non-zero without the result line):
    kernel 10), then phases 4, 5, 7 and 8 on it (its path has no backward
    kernel of its own to time; kernel 10 is timed at every level with
    64- and 16-row tiles instead), the `Trainer` run on a frame pair of
-   `generate_inflating_trajectory`.
+   `generate_inflating_trajectory`;
+10. the flag (flag_simple at full width and depth: a Morton-ordered
+   1,568-node cloth strip, depth 5, edge_block 512, window 256, the `fused`
+   method with world edges, latent 128, hidden 3): kernel 13 (forward and
+   backward) and the other kernels of its path against their plain versions
+   at its shapes (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on
+   it (kernel 13 and its backward timed), the `Trainer` run (noise γ 0.1)
+   on the contact recipe's frame pair.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -58,6 +65,7 @@ import torch
 
 N_NODES, DEPTH, EDGE_BLOCK, WINDOW = 5233, 7, 512, 256
 SURFACE_NODES, SURFACE_DEPTH = 16000, 7
+FLAG_NODES, FLAG_NY, FLAG_DEPTH = 1579, 32, 5
 ROLLOUT_STEPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -93,6 +101,10 @@ TOL = {
     ("segment_sum", torch.bfloat16): (2e-5, 1e-6),
     ("fused_aggregate_node_phase", torch.float32): (2e-5, 1e-6),
     ("fused_aggregate_node_phase", torch.bfloat16): (7e-2, 5e-4),
+    # Kernel 13 rounds as kernel 4 does, plus the bf16 Δ operand of the
+    # wf_dyn dot.
+    ("fused_edge_phase_win_dyn", torch.float32): (2e-5, 1e-6),
+    ("fused_edge_phase_win_dyn", torch.bfloat16): (5e-3, 2e-5),
 }
 # The whole forward, relative to the predicted delta's scale: in f32 the
 # prediction (state + delta, |state| up to ~5) itself rounds at ~5e-7. In
@@ -132,8 +144,33 @@ EXPECTED_SURFACE_TRAIN_LAUNCHES = {
     "fused_node_phase_bwd": 15, "fused_node_phase": 0,
     "fused_edge_phase_win": 0, "fused_edge_phase_win_bwd": 0,
     "windowed_rect_conv": 0, "compact_accum": 0, "windowed_send_sum": 0}
+# The flag on the fused method with world edges, per forward: kernel 13 (not
+# kernel 4) and kernel 3 in each of the 11 GMPs; kernel 1 in the 10
+# transitions of h; kernel 2 in the 6 GMPs of levels 0-2 (compact residual
+# rows) and the 5 residual operators (T0, T1 both ways, T2 down); the 3-wide
+# world positions ride T0-T4 down by the narrow plain route
+# (`transition.narrow_apply`), not a launch.
+EXPECTED_FLAG_LAUNCHES = {
+    "fused_edge_phase_win_dyn": 11, "fused_edge_phase_win": 0,
+    "fused_node_phase": 11, "windowed_rect_conv": 10, "compact_accum": 11,
+    "segment_sum": 0, "fused_aggregate_node_phase": 0}
+EXPECTED_FLAG_NARROW = (0, 5)
+# Per train step: the forward's; kernel 13's backward, kernel 7 (on dpre)
+# and kernel 6 once in each of the 11 GMPs' backwards; kernel 1 in the 10
+# transitions' adjoints; kernel 2 in the 12 compact gathers' backwards (the
+# sender and receiver rows of the 6 GMPs with residual rows; the positions'
+# gathers carry no gradient) and the 5 residual operators' adjoints: 11 +
+# 12 + 5 = 28. No kernel 5, 8 or 10.
+EXPECTED_FLAG_TRAIN_LAUNCHES = {
+    "fused_edge_phase_win_dyn": 11, "fused_edge_phase_win_dyn_bwd": 11,
+    "fused_node_phase": 11, "fused_node_phase_bwd": 11,
+    "windowed_rect_conv": 20, "compact_accum": 28, "windowed_send_sum": 11,
+    "fused_edge_phase_win": 0, "fused_edge_phase_win_bwd": 0,
+    "segment_sum": 0, "fused_aggregate_node_phase": 0}
 BWD_OUTPUTS = {
     "fused_edge_phase_win_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
+    "fused_edge_phase_win_dyn_bwd": ("dpre", "dxj", "dwf8", "dwf_dyn",
+                                     "dwf_nrm", "dW", "db"),
     "fused_node_phase_bwd": ("dx", "daggr", "dWa", "dWb", "db0", "dW", "db"),
     "windowed_send_sum": ("out",),
 }
@@ -158,8 +195,12 @@ BWD_TOL = {
     ("fused_edge_phase_win_bwd", torch.bfloat16): (1e-1, 5e-4),
     ("fused_node_phase_bwd", torch.bfloat16): (1.0, 7e-3),
     ("windowed_send_sum", torch.bfloat16): (2e-5, 1e-6),
+    # Kernel 13's backward: kernel 5's limits.
+    ("fused_edge_phase_win_dyn_bwd", torch.float32): (2e-5, 2e-6),
+    ("fused_edge_phase_win_dyn_bwd", torch.bfloat16): (1e-1, 5e-4),
 }
-BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd")
+BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
+                "fused_edge_phase_win_dyn_bwd")
 # The train step through the kernels against the plain path: the loss
 # (relative), and each parameter's gradient as (largest error, RMS error)
 # relative to its RMS. f32: sums in other orders through 15 GMPs'
@@ -210,6 +251,13 @@ KERNEL_META = {
     "fused_aggregate_node_phase": (
         _CSRC + "agg_node.cu", _PALLAS + "agg_node.py:74",
         ("fused_aggregate_node_phase_kernel",)),
+    "fused_edge_phase_win_dyn": (
+        _CSRC + "fused_gmp_dyn.cu", _PALLAS + "fused_gmp.py:664",
+        ("fused_edge_phase_win_dyn_kernel", "block_sum_kernel")),
+    "fused_edge_phase_win_dyn_bwd": (
+        _CSRC + "fused_gmp_dyn_bwd.cu", _PALLAS + "fused_gmp.py:706",
+        ("fused_edge_phase_win_dyn_bwd_kernel", "block_sum_kernel",
+         "grad_sum_kernel")),
 }
 
 
@@ -226,11 +274,13 @@ def require(ok: bool, what: str) -> None:
 def kernel_modules():
     """name → (the wrapper that counts its kernel's launches, the plain
     version): the four forward kernels and the three backward kernels of
-    the fused path, then the two of the pallas path."""
+    the fused path, then the two of the pallas path, then kernel 13's
+    forward and backward (world edges on the fused path)."""
     from bsms_gnn_tpu_torch.ops.kernels import (
         agg_node,
         compact_resid,
         fused_gmp,
+        fused_gmp_dyn,
         node_mlp,
         segment_sum,
         windowed,
@@ -255,18 +305,32 @@ def kernel_modules():
         "fused_aggregate_node_phase": (
             agg_node.fused_aggregate_node_phase_fwd,
             agg_node.fused_aggregate_node_phase_plain),
+        "fused_edge_phase_win_dyn": (
+            fused_gmp_dyn.fused_edge_phase_win_dyn_fwd,
+            fused_gmp_dyn.fused_edge_phase_win_dyn_plain),
+        "fused_edge_phase_win_dyn_bwd": (
+            fused_gmp_dyn.fused_edge_phase_win_dyn_bwd,
+            fused_gmp_dyn.fused_edge_phase_win_dyn_bwd_plain),
     }
 
 
 def reset_counts():
+    from bsms_gnn_tpu_torch.ops import transition
+
     for fn, _ in kernel_modules().values():
         fn.launches = 0
     kernel_modules()["segment_sum"][0].narrow_calls = 0
+    transition.narrow_apply.calls = 0
 
 
 def narrow_calls():
-    """Kernel 8's calls that took its plain version for a narrow width."""
-    return kernel_modules()["segment_sum"][0].narrow_calls
+    """The plain calls for narrow widths, counted apart from launches:
+    (kernel 8's on unwindowed operators, the windowed operators'
+    `narrow_apply`)."""
+    from bsms_gnn_tpu_torch.ops import transition
+
+    return (kernel_modules()["segment_sum"][0].narrow_calls,
+            transition.narrow_apply.calls)
 
 
 def read_counts(names):
@@ -283,6 +347,7 @@ def plain_path():
         agg_node,
         compact_resid,
         fused_gmp,
+        fused_gmp_dyn,
         node_mlp,
     )
 
@@ -297,6 +362,11 @@ def plain_path():
                (fused_gmp, "fused_edge_phase_win_bwd",
                 "fused_edge_phase_win_bwd"),
                (fused_gmp, "windowed_send_sum", "windowed_send_sum"),
+               (fused_gmp_dyn, "fused_edge_phase_win_dyn_fwd",
+                "fused_edge_phase_win_dyn"),
+               (fused_gmp_dyn, "fused_edge_phase_win_dyn_bwd",
+                "fused_edge_phase_win_dyn_bwd"),
+               (fused_gmp_dyn, "windowed_send_sum", "windowed_send_sum"),
                (node_mlp, "fused_node_phase_fwd", "fused_node_phase"),
                (node_mlp, "fused_node_phase_bwd", "fused_node_phase_bwd"),
                (compact_resid, "compact_accum_raw", "compact_accum"),
@@ -364,7 +434,7 @@ def build_case(device):
     return dict(label="airfoil 5k", h=h, hd=hd, cfg=cfg, sim=sim,
                 node_in=node_in, mask=mask, n=n, build_s=build_s,
                 expected=EXPECTED_LAUNCHES,
-                expected_train=EXPECTED_TRAIN_LAUNCHES, narrow=0)
+                expected_train=EXPECTED_TRAIN_LAUNCHES, narrow=(0, 0))
 
 
 def build_surface_case(device):
@@ -421,27 +491,87 @@ def build_surface_case(device):
                 node_in=node_in, mask=mask, n=n, build_s=build_s,
                 expected=EXPECTED_SURFACE_LAUNCHES,
                 expected_train=EXPECTED_SURFACE_TRAIN_LAUNCHES,
-                narrow=EXPECTED_SURFACE_NARROW,
+                narrow=(EXPECTED_SURFACE_NARROW, 0),
                 train_frames=(frame(traj["world_pos"][0]), target))
+
+
+def build_flag_case(device):
+    """flag_simple at full width and depth, from the port's own copies: the
+    cloth strip `make_grid_strip_mesh(1579, ny=32)` (1,568 nodes, the size
+    of MeshGraphNets' FlagSimple meshes), Morton-reordered, the windowed
+    hierarchy (depth 5, edge_block 512, window 256), `flag_simple_config()`
+    (the fused method, world edges). The contact recipe gives the frames:
+    world x, y = the mesh position, z = 0.05·N(0, 1) from a seed; the
+    target adds 0.1·sin(x) to z. The mask is the normal nodes; weights from
+    `torch.Generator().manual_seed(0)`."""
+    from bsms_gnn_tpu_torch.config import flag_simple_config
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        NT_NORMAL,
+        make_grid_strip_mesh,
+    )
+    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    rng = np.random.default_rng(0)
+    pos, cells, node_type = make_grid_strip_mesh(FLAG_NODES, ny=FLAG_NY)
+    pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
+    edges = to_flat_edge(cells, "tri")
+    t0 = time.perf_counter()
+    h = build_hierarchy(edges, FLAG_DEPTH, pos.shape[0],
+                        pos.astype(np.float64), edge_block=EDGE_BLOCK,
+                        window=WINDOW)
+    build_s = time.perf_counter() - t0
+    hd = to_device(h, device)
+
+    cfg = flag_simple_config().model
+    sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
+    n, n_pad = pos.shape[0], h.levels[0].n_pad_nodes
+    world = np.zeros((n_pad, 3), np.float32)
+    world[:n, :2] = pos
+    world[:n, 2] = 0.05 * rng.standard_normal(n)
+    target = world.copy()
+    target[:n, 2] += 0.1 * np.sin(pos[:, 0])
+    node_in = np.zeros((n_pad, 6), np.float32)
+    node_in[:, :3] = world
+    node_in[:n, 3:5] = pos
+    node_in[:n, 5] = node_type[:, 0]
+    node_in = torch.from_numpy(node_in).to(device)
+    mask = np.zeros((n_pad, 1), np.float32)
+    mask[:n, 0] = node_type[:, 0] == NT_NORMAL
+    mask = torch.from_numpy(mask).to(device)
+    fill_normalizers(sim, node_in, mask, rng)
+    return dict(label="flag 1.6k", h=h, hd=hd, cfg=cfg, sim=sim,
+                node_in=node_in, mask=mask, n=n, build_s=build_s,
+                expected=EXPECTED_FLAG_LAUNCHES,
+                expected_train=EXPECTED_FLAG_TRAIN_LAUNCHES,
+                narrow=EXPECTED_FLAG_NARROW,
+                train_frames=(node_in, torch.from_numpy(target).to(device)),
+                timed=("fused_edge_phase_win_dyn",
+                       "fused_edge_phase_win_dyn_bwd"))
 
 
 def describe(case):
     h = case["h"]
     print(f"[{case['label']}] mesh: {case['n']} nodes, hierarchy built in "
           f"{case['build_s']:.2f} s (host)")
-    print("level  n_nodes  n_pad  E_pad  window  cresid_rows  "
+    print("level  n_nodes  n_pad  E_pad      E  window  cresid_rows  "
           "slots/128-row block")
     for l, g in enumerate(h.levels):
         cr = "-" if g.cresid is None else g.cresid.n_real
         print(f"{l:5d} {g.n_nodes:8d} {g.n_pad_nodes:6d} {g.n_pad_edges:6d} "
-              f"{g.window:7d}  {str(cr):>11}  "
+              f"{g.n_edges:6d} {g.window:7d}  {str(cr):>11}  "
               f"{g.n_pad_edges / (g.n_pad_nodes // 128):.0f}")
-    print("trans  down_E_pad  down_cresid  up_E_pad  up_cresid  dense")
+    print("trans  down_E_pad  down_cresid  up_E_pad  up_cresid  dense  window")
+
+    def rows(op):
+        return "-" if op.cresid is None else str(op.cresid.n_real)
+
     for l, t in enumerate(h.transitions):
-        print(f"{l:5d} {t.down_op.n_pad_edges:11d} "
-              f"{str(t.down_op.cresid is not None):>12} "
-              f"{t.up_op.n_pad_edges:9d} {str(t.up_op.cresid is not None):>10}"
-              f"  {t.down_op.dense is not None}")
+        print(f"{l:5d} {t.down_op.n_pad_edges:11d} {rows(t.down_op):>12} "
+              f"{t.up_op.n_pad_edges:9d} {rows(t.up_op):>10}"
+              f"  {str(t.down_op.dense is not None):>5}  {t.down_op.window}")
     depth = h.depth
     gmps = 2 * depth + 1
     if case["cfg"].aggregation == "pallas":
@@ -454,9 +584,12 @@ def describe(case):
         cr_gmp += h.levels[depth].cresid is not None
         cr_ops = sum((t.down_op.cresid is not None)
                      + (t.up_op.cresid is not None) for t in h.transitions)
-        expect = {"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
-                  "windowed_rect_conv": 2 * depth,
-                  "compact_accum": cr_gmp + cr_ops}
+        edge = ("fused_edge_phase_win_dyn" if case["cfg"].world_edges
+                else "fused_edge_phase_win")
+        expect = dict.fromkeys(case["expected"], 0)
+        expect.update({edge: gmps, "fused_node_phase": gmps,
+                       "windowed_rect_conv": 2 * depth,
+                       "compact_accum": cr_gmp + cr_ops})
     print(f"launches per forward from the layout: {expect}")
     require(expect == case["expected"],
             f"layout gives {expect}, expected {case['expected']}")
@@ -507,14 +640,19 @@ def kernel_inputs(case, dtype, device):
                 *([("f32 x", agg(lvl, gmp.mlp_node, torch.float32))]
                   if cd is not None else [])],
         }
-    w1 = gmp.mlp_edge.weights[0]
-    wf8 = torch.cat([w1[:3], gmp.mlp_edge.biases[0][None],
-                     w1.new_zeros(4, c)])
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
-    return {
-        "fused_edge_phase_win": [
+    if case["cfg"].world_edges:
+        # Kernel 13 at level 0 on the case's own world positions.
+        edge = {"fused_edge_phase_win_dyn": [
             ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         wf8, *mlp_e))],
+                         case["node_in"][:, :3].to(dtype),
+                         *first_layer(gmp), *mlp_e))]}
+    else:
+        edge = {"fused_edge_phase_win": [
+            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
+                         first_layer(gmp)[0], *mlp_e))]}
+    return {
+        **edge,
         "fused_node_phase": [
             ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
                          gmp.mlp_node, cd)),
@@ -531,6 +669,18 @@ def kernel_inputs(case, dtype, device):
                          rand(t0.down_op.cresid.n_rows, c, dt=dtype),
                          rand(t0.down_op.cresid.n_pad_nodes, c)))],
     }
+
+
+def first_layer(gmp):
+    """The fused kernels' first-layer operands from a GMP's edge MLP: wf8
+    (the static fiber rows, then the bias); with world edges also wf_dyn
+    and wf_nrm (rows [Δworld, ‖Δworld‖, static, x_i, x_j])."""
+    w1, b1 = gmp.mlp_edge.weights[0], gmp.mlp_edge.biases[0]
+    wd = sum(gmp.dyn_dims)
+    wd1 = wd + 1 if wd else 0
+    sta = w1[wd1:wd1 + 3]
+    wf8 = torch.cat([sta, b1[None], w1.new_zeros(4, w1.shape[1])])
+    return (wf8, w1[:wd], w1[wd]) if wd else (wf8,)
 
 
 def control_args(name, args):
@@ -616,8 +766,8 @@ def check_slice(case, device):
               f"{tuple(got.shape)} max_abs_err vs plain {err:.3e} (delta "
               f"scale {delta:.3e}, tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
         print(f"[{label}] launches in one {str(dtype)[6:]} forward: "
-              f"{counts[dtype]}; kernel 8's narrow calls (plain version) "
-              f"{narrow}")
+              f"{counts[dtype]}; narrow plain calls (kernel 8's, windowed "
+              f"transitions') {narrow}")
         require(ok, f"{label} {dtype} forward disagrees with the plain path")
         if device.type == "cuda":
             require(counts[dtype] == expected and narrow == case["narrow"],
@@ -717,13 +867,20 @@ def work(name, args, dtype):
     run's layout holds."""
     elt = 2 if dtype == torch.bfloat16 else 4
     c = 128
-    if name == "fused_edge_phase_win":
-        lvl, _, _, _, weights, _ = args
+    if name in ("fused_edge_phase_win", "fused_edge_phase_win_dyn"):
+        lvl, weights = args[0], args[-2]
         live = int((lvl.send_win < lvl.window).sum().item())
         e, n = lvl.n_pad_edges, lvl.n_pad_nodes
         ops = live * (2 * 8 * c + 2 * len(weights) * c * c + 10 * c)
         by = (2 * n * c * elt + 8 * e * 4 + 3 * e * 4 + n * c * 4
               + len(weights) * (c * c + c) * 4 + 8 * c * 4)
+        if name == "fused_edge_phase_win_dyn":
+            # Kernel 13 adds the world term per in-window slot (Δ, its
+            # norm, the wf_dyn dot and the wf_nrm product) and reads the
+            # positions and the two weight blocks once.
+            wd = args[3].shape[-1]
+            ops += live * 2 * (wd + 1) * c
+            by += n * wd * elt + (wd + 1) * c * 4
     elif name == "fused_node_phase":
         x, _, mlp, _ = args
         n, layers = x.shape[0], len(mlp.weights) - 1
@@ -744,19 +901,26 @@ def work(name, args, dtype):
         reached = len(torch.unique(cr.receivers[:n]))
         ops = n * c
         by = n * c * elt + n * 4 + 2 * reached * c * 4
-    elif name == "fused_edge_phase_win_bwd":
+    elif name in ("fused_edge_phase_win_bwd", "fused_edge_phase_win_dyn_bwd"):
         # The in-window slots' forward again (as kernel 4 counts it), then
         # the LN backward, dW and the next cotangent per tail layer, dwf8
         # and the dxj add. In: xwi, xj, the fiber stream, send_win,
         # receivers and win_base, g, the weights; out: dpre, dxj and the
         # weight gradients.
-        lvl, _, _, _, weights, _, _ = args
+        lvl, weights = args[0], args[-3]
         live = int((lvl.send_win < lvl.window).sum().item())
         e, n, layers = lvl.n_pad_edges, lvl.n_pad_nodes, len(weights)
         ops = live * (2 * 2 * 8 * c + 6 * layers * c * c + 21 * c)
         grads = (layers * (c * c + c) + 8 * c) * 4
         by = (2 * n * c * elt + 8 * e * 4 + 3 * e * 4 + n * c * 4 + grads
               + e * c * elt + n * c * 4 + grads)
+        if name == "fused_edge_phase_win_dyn_bwd":
+            # The world term of the recompute (as kernel 13 counts it),
+            # then dwf_dyn and dwf_nrm; the positions read, the two weight
+            # blocks read and their gradients written.
+            wd = args[3].shape[-1]
+            ops += live * (2 * (wd + 1) * c + 2 * (wd + 1) * c)
+            by += n * wd * elt + 2 * (wd + 1) * c * 4
     elif name == "fused_node_phase_bwd":
         # Every row's forward again (as kernel 3 counts it), the LN
         # backward, dW and the next cotangent per tail layer, then dx,
@@ -871,8 +1035,11 @@ def measure(case):
           f"{ROLLOUT_STEPS} steps)")
 
     rows = {}
+    timed = case.get("timed")
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in kernel_inputs(case, dtype, node_in.device).items():
+            if timed is not None and name not in timed:
+                continue
             rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
             if case["cfg"].aggregation == "pallas":
                 for where, args in shapes[1:]:
@@ -959,15 +1126,19 @@ def bwd_kernel_inputs(case, dtype, device):
     lvl = hd.levels[0]
     gmp = sim.process.down_gmps[0]
     c, n0, e0 = 128, lvl.n_pad_nodes, lvl.n_pad_edges
-    w1 = gmp.mlp_edge.weights[0]
-    wf8 = torch.cat([w1[:3], gmp.mlp_edge.biases[0][None],
-                     w1.new_zeros(4, c)])
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     cd = dtype if dtype == torch.bfloat16 else None
-    return {
-        "fused_edge_phase_win_bwd": [
+    if case["cfg"].world_edges:
+        edge = {"fused_edge_phase_win_dyn_bwd": [
             ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         wf8, *mlp_e, rand(n0, c)))],
+                         case["node_in"][:, :3].to(dtype), *first_layer(gmp),
+                         *mlp_e, rand(n0, c)))]}
+    else:
+        edge = {"fused_edge_phase_win_bwd": [
+            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
+                         first_layer(gmp)[0], *mlp_e, rand(n0, c)))]}
+    return {
+        **edge,
         "fused_node_phase_bwd": [
             ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
                          gmp.mlp_node, rand(n0, c), cd)),
@@ -1059,6 +1230,7 @@ def make_trainer(case, device, cd):
         Config,
         ModelConfig,
         OptConfig,
+        flag_simple_config,
         inflating_font_config,
     )
     from bsms_gnn_tpu_torch.training.trainer import Trainer
@@ -1066,6 +1238,8 @@ def make_trainer(case, device, cd):
     if case["cfg"].aggregation == "pallas":
         cfg = inflating_font_config(unet_depth=SURFACE_DEPTH,
                                     accumulation_steps=TRAIN_GATE)
+    elif case["cfg"].world_edges:
+        cfg = flag_simple_config(accumulation_steps=TRAIN_GATE)
     else:
         cfg = Config(model=ModelConfig(latent_dim=128, hidden_layer=3,
                                        unet_depth=DEPTH,
@@ -1226,9 +1400,11 @@ def measure_train(case, device):
     rows = {}
     if case["cfg"].aggregation == "pallas":
         return rows, e2e
+    timed = case.get("timed")
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
-            rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
+            if timed is None or name in timed:
+                rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
     return rows, e2e
 
 
@@ -1238,6 +1414,31 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def run_case(build, device):
+    """Every phase of one case: its kernels against their plain versions,
+    serving (forward, launch counts, rollout, times), the backward kernels
+    of a fused case against theirs, the train step, the `Trainer` run and
+    the train-step times. Returns (kernel errors, kernel time rows, forward
+    launch counts, train-step launch counts, end-to-end times)."""
+    with torch.no_grad():  # serving, then the backward kernels alone
+        case = build(device)
+        describe(case)
+        errs = check_kernels(case, device)
+        serve = check_slice(case, device)
+        rows, e2e = measure(case)
+        if case["cfg"].aggregation != "pallas":
+            errs.update(check_bwd_kernels(case, device))
+    case["train"] = case.get("train_frames") or (case["node_in"],
+                                                  train_target(case))
+    train = check_train(case, device)
+    train_rows, train_e2e = measure_train(case, device)
+    rows.update(train_rows)
+    e2e.update(train_e2e)
+    del case
+    torch.cuda.empty_cache()
+    return errs, rows, serve, train, e2e
 
 
 def main() -> int:
@@ -1253,6 +1454,11 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # (path, its case, the prefix of its end-to-end keys)
+    paths = (("airfoil", build_case, ""),
+             ("surface", build_surface_case, "surface_"),
+             ("flag", build_flag_case, "flag_"))
+    errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1265,63 +1471,44 @@ def main() -> int:
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-        with torch.no_grad():  # serving, then the backward kernels alone
-            case = build_case(device)
-            describe(case)
-            errs = check_kernels(case, device)
-            serve_counts = check_slice(case, device)
-            rows, e2e = measure(case)
-            errs.update(check_bwd_kernels(case, device))
-        case["train"] = (case["node_in"], train_target(case))
-        train_counts = check_train(case, device)
-        train_rows, train_e2e = measure_train(case, device)
-        rows.update(train_rows)
-        e2e.update(train_e2e)
-        print(f"airfoil phases done at {time.perf_counter() - t_start:.1f} s")
-        del case
-        torch.cuda.empty_cache()
-
-        with torch.no_grad():
-            surf = build_surface_case(device)
-            describe(surf)
-            errs.update(check_kernels(surf, device))
-            surf_serve = check_slice(surf, device)
-            surf_rows, surf_e2e = measure(surf)
-        surf["train"] = surf["train_frames"]
-        surf_train = check_train(surf, device)
-        _, surf_train_e2e = measure_train(surf, device)
-        rows.update(surf_rows)
-        surf_e2e.update(surf_train_e2e)
-        e2e.update({f"surface_{k}": v for k, v in surf_e2e.items()})
-        print(f"surface phases done at {time.perf_counter() - t_start:.1f} s")
+        for phase, build_fn, prefix in paths:
+            e, r, serve[phase], train[phase], t = run_case(build_fn, device)
+            # A kernel's numbers come from the first path that runs it.
+            for k, v in e.items():
+                errs.setdefault(k, v)
+            for k, v in r.items():
+                rows.setdefault(k, v)
+            e2e.update({prefix + k: v for k, v in t.items()})
+            print(f"{phase} phases done at "
+                  f"{time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (src, replaces, _) in KERNEL_META.items():
         r32, r16 = rows[(name, torch.float32)], rows[(name, torch.bfloat16)]
-        # Launches per train step on the path that runs the kernel (the
-        # airfoil's for kernels 1-7, the surface's for kernels 8 and 10;
-        # kernel 6 runs on both, and the surface's count rides beside).
-        on_airfoil = train_counts.get(name, 0) > 0
+        # Launches per train step (per forward beside) on the first path
+        # that runs the kernel; the counts of later paths that run it too
+        # ride beside.
+        runs = [p for p, _, _ in paths if train[p].get(name, 0) > 0]
         entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": train_counts[name] if on_airfoil else surf_train[name],
+            "launches": train[runs[0]][name],
             "max_abs_err": errs[(name, torch.float32)],
             "ms": r32["ms"], "plain_ms": r32["plain_ms"],
             "bound_ms": r32["bound_ms"], "bound_by": r32["bound_by"],
             "library_ms": r32["library_ms"],
+            "path": runs[0],
             "bf16": {"max_abs_err": errs[(name, torch.bfloat16)],
                      "ms": r16["ms"], "plain_ms": r16["plain_ms"],
                      "bound_ms": r16["bound_ms"],
                      "bound_by": r16["bound_by"]},
         }
-        forward = serve_counts if on_airfoil else surf_serve
-        if name in forward:
-            entry["launches_forward"] = forward[name]
-        if on_airfoil and surf_train.get(name, 0) > 0:
-            entry["launches_surface"] = surf_train[name]
+        if name in serve[runs[0]]:
+            entry["launches_forward"] = serve[runs[0]][name]
+        for p in runs[1:]:
+            entry[f"launches_{p}"] = train[p][name]
         kernels.append(entry)
     print(json.dumps(e2e))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
 package; its entry points default to the CUDA card and raise without one;
 a kernel wrapper given CPU tensors runs its plain version once and counts
-no launch, forward and backward, on the fused and the pallas paths;
+no launch, forward and backward, on the fused path (with and without world
+edges) and the pallas path;
 layouts and options the port does not support raise NotImplementedError;
 and chip_smoke.py fails without a card or without the package beside it."""
 
@@ -30,6 +31,7 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     build,
     compact_resid,
     fused_gmp,
+    fused_gmp_dyn,
     node_mlp,
     segment_sum,
     windowed,
@@ -113,16 +115,20 @@ KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
            windowed.windowed_rect_conv, compact_resid.compact_accum_raw,
            fused_gmp.fused_edge_phase_win_bwd, node_mlp.fused_node_phase_bwd,
            windowed.windowed_send_sum, segment_sum.segment_sum_raw,
-           agg_node.fused_aggregate_node_phase_fwd)
+           agg_node.fused_aggregate_node_phase_fwd,
+           fused_gmp_dyn.fused_edge_phase_win_dyn_fwd,
+           fused_gmp_dyn.fused_edge_phase_win_dyn_bwd)
 PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   node_mlp.fused_node_phase_plain,
                   windowed.windowed_rect_conv_plain,
                   compact_resid.compact_accum_plain,
                   segment_sum.segment_sum_plain,
-                  agg_node.fused_aggregate_node_phase_plain)
+                  agg_node.fused_aggregate_node_phase_plain,
+                  fused_gmp_dyn.fused_edge_phase_win_dyn_plain)
 PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
                    node_mlp.fused_node_phase_bwd_plain,
-                   windowed.windowed_send_sum_plain)
+                   windowed.windowed_send_sum_plain,
+                   fused_gmp_dyn.fused_edge_phase_win_dyn_bwd_plain)
 
 
 @pytest.fixture(scope="module")
@@ -163,6 +169,8 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
     gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
     ws, bs = list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:]
     wf8 = torch.randn(8, 128, generator=g)
+    pos = torch.randn(n, 3, generator=g)
+    wfd, wfn = torch.randn(3, 128, generator=g), torch.randn(128, generator=g)
     send = dict(send=True)
     cases = [  # (wrapper, its plain version, a fresh copy of the arguments,
         #         keyword arguments)
@@ -181,6 +189,9 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
         (agg_node.fused_aggregate_node_phase,
          agg_node.fused_aggregate_node_phase_plain,
          lambda: (flvl, feat, xf, gmp.mlp_node), {}),
+        (fused_gmp_dyn.fused_edge_phase_win_dyn,
+         fused_gmp_dyn.fused_edge_phase_win_dyn_plain,
+         lambda: (lvl, x, x, pos, wf8, wfd, wfn, ws, bs), {}),
     ]
     with torch.no_grad():
         for wrapper, plain, args, kw in cases:
@@ -197,6 +208,10 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
                           world_edges=True, aggregation="pallas")
         sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
         sim(flat, torch.randn(nf, 6, generator=g), torch.ones(nf, 1))
+        cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
+                          world_edges=True, world_dim=3, aggregation="fused")
+        sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
+        sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
     assert [f.launches for f in counters] == [0] * len(KERNELS)
 
 
@@ -210,9 +225,32 @@ def test_cpu_backward_takes_the_plain_versions(hier, counters):
     x = torch.randn(n, 128, generator=torch.Generator().manual_seed(1),
                     requires_grad=True)
     gmp(hd.levels[0], x).square().sum().backward()
-    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1]
+    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1, 0]
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
+    for name, p in gmp.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_cpu_backward_of_the_world_edge_fused_gmp_takes_the_plain_versions(
+        hier, counters):
+    """A world-edge GMP on the fused method, on the CPU: its forward runs
+    kernel 13's plain version once, its backward kernel 13's backward, 7's
+    and 6's plain versions once each (and kernel 5's not at all), and
+    nothing launches. The world positions carry no gradient."""
+    hd = to_device(hier, "cpu")
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0), fiber_dims=(3, 2))
+    lvl = hd.levels[0]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(lvl.n_pad_nodes, 128, generator=g, requires_grad=True)
+    pos = torch.randn(lvl.n_pad_nodes, 3, generator=g, requires_grad=True)
+    out = gmp(lvl, x, pos=pos, method="fused")
+    assert fused_gmp_dyn.fused_edge_phase_win_dyn_plain.calls == 1
+    out.square().sum().backward()
+    assert [f.calls for f in PLAIN_BACKWARDS] == [0, 1, 1, 1]
+    assert [f.launches for f in counters] == [0] * len(KERNELS)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert pos.grad is None
     for name, p in gmp.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
@@ -250,9 +288,16 @@ def test_unsupported_layouts_raise(hier):
         with pytest.raises(NotImplementedError, match="unwindowed"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes, 128))
         world = GMP(128, 1, 2, torch.Generator().manual_seed(0),
-                    fiber_dims=(2, 2))
-        with pytest.raises(NotImplementedError, match="world edges"):
-            world(hd.levels[0], torch.zeros(n, 128), pos=torch.zeros(n, 2))
+                    fiber_dims=(3, 2))
+        nf = h_flat.levels[0].n_pad_nodes
+        with pytest.raises(NotImplementedError, match="unwindowed.*kernel 11"):
+            world(h_flat.levels[0], torch.zeros(nf, 128),
+                  pos=torch.zeros(nf, 3))
+        two = GMP(128, 1, 2, torch.Generator().manual_seed(0),
+                  fiber_dims=(3, 2, 2))
+        with pytest.raises(NotImplementedError,
+                           match="more than one world-space stream"):
+            two(hd.levels[0], torch.zeros(n, 128), pos=torch.zeros(n, 5))
         with pytest.raises(NotImplementedError, match="aggregation method"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes,
                                               128), method="ell")

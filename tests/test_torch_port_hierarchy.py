@@ -22,6 +22,7 @@ from bsms_gnn_tpu.ops.pallas.fused_gmp import _chunk_tables
 from bsms_gnn_tpu_torch.data.synthetic import (
     generate_inflating_trajectory,
     make_graded_airfoil_mesh,
+    make_grid_strip_mesh,
     make_sphere_mesh,
 )
 from bsms_gnn_tpu_torch.graph.hierarchy import (
@@ -73,6 +74,14 @@ def morton_airfoil():
     return pos.astype(np.float64), cells
 
 
+def morton_strip():
+    """The flag case's cloth strip: 1,568 nodes of a 2-D mesh,
+    Morton-ordered."""
+    pos, cells, _ = make_grid_strip_mesh(1579, ny=32)
+    pos, cells, _, _ = reorder_mesh(pos, cells)
+    return pos.astype(np.float64), cells
+
+
 def sphere():
     pos, cells, _ = make_sphere_mesh(600, np.random.default_rng(0))
     return pos.astype(np.float64), cells
@@ -83,6 +92,8 @@ CASES = {
     "airfoil_w256_eb512_d2": (morton_airfoil, 2,
                               dict(edge_block=512, window=256)),
     "grid_unwindowed_d3": (scrambled_grid, 3, dict()),
+    "strip_morton_w256_eb512_d5": (morton_strip, 5,
+                                   dict(edge_block=512, window=256)),
     "sphere_unwindowed_d3": (sphere, 3, dict()),
 }
 
@@ -105,6 +116,18 @@ def test_hierarchy_matches_jax_array_for_array(case):
     if kw.get("window"):
         assert any(g.cresid is not None for g in ht.levels)
         assert any(t.down_op.cresid is not None for t in ht.transitions)
+    if pos.shape[1] == 2:  # the static fiber [Δpos 2, ‖Δpos‖], bias row 3
+        for b in ht.levels:
+            assert b.fiber.shape[1] == 3
+            np.testing.assert_array_equal(b.fiber_t[3], 1.0)
+            np.testing.assert_array_equal(b.fiber_t[4:], 0.0)
+
+
+def test_strip_mesh_matches_jax():
+    from bsms_gnn_tpu.data.synthetic import make_grid_strip_mesh as jax_strip
+
+    for a, b in zip(jax_strip(1579, ny=32), make_grid_strip_mesh(1579, ny=32)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_mesh_order_and_airfoil_match_jax():
