@@ -4,10 +4,11 @@ inflating-font presets as `inflating_font_config` and the flag presets as
 `flag_simple_config`; no YAML loading yet).
 
 `ModelConfig.aggregation` picks one of the JAX package's two production
-methods: `"fused"` (windowed layouts, the fused edge-phase kernels, with
-or without one world-space stream) or `"pallas"` (any layout: gathers, the
-edge MLP as plain matmuls, then the fused aggregation + node-phase
-kernel). The parity-oracle methods `"ell"` and `"segment"` are not ported.
+methods: `"fused"` (the fused edge-phase kernels: the windowed ones on
+windowed layouts with at most one world-space stream, the streamed-input
+ones on unwindowed layouts and for other world-space streams) or
+`"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
+fused aggregation + node-phase kernel). The parity-oracle methods `"ell"` and `"segment"` are not ported.
 `DatasetConfig` keeps only the fields the trainer reads (the noise)."""
 
 from __future__ import annotations

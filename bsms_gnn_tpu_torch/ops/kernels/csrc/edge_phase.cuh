@@ -1,9 +1,13 @@
-// The forward chunk walk of kernels 4 and 13 (see ../fused_gmp.py and
-// ../fused_gmp_dyn.py): one block per edge chunk walks the chunk in 64-slot
-// tiles and adds each tile into a shared-memory copy of the chunk's 128-row
-// output block, one thread per (column, half-block), in slot order; the
-// block is written to part[chunk]. block_sum_kernel then adds the parts of
-// each output block in chunk order. DYN adds kernel 13's world-space fiber.
+// The forward chunk walk of kernels 4, 11, 12 and 13 (see ../fused_gmp.py,
+// ../fused_gmp_stream.py and ../fused_gmp_dyn.py): one block per edge chunk
+// walks the chunk in 64-slot tiles and adds each tile into a shared-memory
+// copy of the chunk's 128-row output block, one thread per (column,
+// half-block), in slot order; the block is written to part[chunk].
+// block_sum_kernel then adds the parts of each output block in chunk order.
+// The front F picks the first layer: kWin (kernel 4), kDyn (kernel 13: plus
+// the world-space fiber) or kStream (kernels 11 and 12: `xwi` is then the
+// streamed [E_pad][C] rows, pre or zi, and `xj` the receiver rows or null;
+// the window tables, the fiber stream and its weights are unused).
 #pragma once
 
 #include "edge_tile.cuh"
@@ -18,7 +22,7 @@ constexpr size_t edge_fwd_smem_bytes() {
          sizeof(int) * 3 * TILE;
 }
 
-template <typename T, bool BF16, bool DYN>
+template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_phase_fwd_chunk(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const T* __restrict__ pos,
@@ -28,6 +32,8 @@ __device__ __forceinline__ void edge_phase_fwd_chunk(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part) {
+  constexpr bool DYN = F == Front::kDyn;
+  constexpr bool STREAM = F == Front::kStream;
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);  // [BN][C] output block
   float* tile = acc + BN * C;                     // [TILE][C] edge rows
@@ -43,10 +49,11 @@ __device__ __forceinline__ void edge_phase_fwd_chunk(
   int* s_loc = s_recv + TILE;  // local output row, -1 = masked from scatter
 
   const int tid = threadIdx.x, ch = blockIdx.x;
-  const int base = win_base[ch] * (window / 2);
+  const int base = STREAM ? 0 : win_base[ch] * (window / 2);
   const int row0 = chunk_block[ch] * BN;
   for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
-  load_first_layer<BF16, DYN>(wf8, wfd_g, wfn_g, wd, wf, wfd, wfn);
+  if constexpr (!STREAM)
+    load_first_layer<BF16, DYN>(wf8, wfd_g, wfn_g, wd, wf, wfd, wfn);
 
   const int c = tid & (C - 1);  // column of the scatter step
   const int half = tid >> 7;    // which half of the rows this thread takes
@@ -54,8 +61,12 @@ __device__ __forceinline__ void edge_phase_fwd_chunk(
   const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
   for (int t0 = ch * edge_block; t0 < (ch + 1) * edge_block; t0 += TILE) {
     // Starts with a barrier: the previous tile's scatter is done.
-    edge_tile_pre<T, BF16, DYN>(t0, base, row0, e_pad, window, fiber_t, xwi,
-                                xj, send_win, receivers, wf, slots, tile, dyn);
+    if constexpr (STREAM)
+      stream_tile_pre<T, BF16>(t0, row0, xwi, xj, receivers, slots, tile);
+    else
+      edge_tile_pre<T, BF16, DYN>(t0, base, row0, e_pad, window, fiber_t,
+                                  xwi, xj, send_win, receivers, wf, slots,
+                                  tile, dyn);
     tile_mlp_tail<BF16>(tile, W, B, n_layers, wslab);
     for (int r = 0; r < TILE; ++r) {
       const int loc = s_loc[r];

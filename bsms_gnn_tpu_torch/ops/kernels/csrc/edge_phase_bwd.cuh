@@ -1,13 +1,17 @@
-// The backward chunk walk of kernels 5 and 13 (see ../fused_gmp.py and
-// ../fused_gmp_dyn.py), with the forward recomputed in the kernel.
+// The backward chunk walk of kernels 5, 11, 12 and 13 (see ../fused_gmp.py,
+// ../fused_gmp_stream.py and ../fused_gmp_dyn.py), with the forward
+// recomputed in the kernel. The front F is the forward walk's
+// (edge_phase.cuh).
 //
-// For the aggregate's cotangent g, each in-window slot e gets the edge
+// For the aggregate's cotangent g, each unmasked slot e gets the edge
 // cotangent g[recv_e] (zero on masked slots), runs the LayerNorm backward
 // and the tail layers in reverse, and yields
 //   dpre[e]  the cotangent of its first-layer pre-activation,
-//   dxj[n]   = Σ_{e: recv(e)=n} dpre[e],
-//   dwf8     = fiber_t · dpre,  dW[l], db[l]  the tail's weight gradients,
-// and with DYN (kernel 13)
+//   dxj[n]   = Σ_{e: recv(e)=n} dpre[e] (skipped when `part` is null:
+//            kernel 11 has no receiver rows),
+//   dwf8     = fiber_t · dpre (not with kStream),  dW[l], db[l]  the tail's
+//            weight gradients,
+// and with kDyn (kernel 13)
 //   dwf_dyn  = Δᵀ · dpre (bf16 operands in BF16 mode),
 //   dwf_nrm  = Σ_e ‖Δ_e‖ · dpre[e] (f32, dpre before its bf16 rounding).
 //
@@ -17,7 +21,8 @@
 // chunk_ptr by block_sum_kernel). The weight gradients: each chunk adds its
 // tiles into its own partial in device memory, in tile order, and
 // grad_sum_kernel adds the partials in chunk order (no atomics). A chunk's
-// partial is [dW | db | dwf8 | dwf_dyn | dwf_nrm] (the last two with DYN).
+// partial is [dW | db | dwf8 | dwf_dyn | dwf_nrm] (dwf8 not with kStream,
+// the last two with kDyn).
 #pragma once
 
 #include "backward.cuh"
@@ -37,11 +42,14 @@ size_t edge_bwd_smem_bytes(int n_layers) {
 }
 
 // Floats of one chunk's weight-gradient partial.
+template <Front F>
 __host__ __device__ inline int edge_grad_size(int n_layers, int wd) {
-  return n_layers * C * C + n_layers * C + 8 * C + (wd > 0 ? wd * C + C : 0);
+  return n_layers * C * C + n_layers * C +
+         (F == Front::kStream ? 0 : 8 * C) +
+         (F == Front::kDyn ? wd * C + C : 0);
 }
 
-template <typename T, bool BF16, bool DYN>
+template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_phase_bwd_chunk(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const T* __restrict__ pos,
@@ -53,6 +61,8 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part,
     float* __restrict__ gpart, T* __restrict__ dpre) {
+  constexpr bool DYN = F == Front::kDyn;
+  constexpr bool STREAM = F == Front::kStream;
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);  // [BN][C] dxj block
   float* hs = acc + BN * C;         // [n_layers][TILE][C] tail layer inputs
@@ -71,16 +81,19 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
 
   const int tid = threadIdx.x, ch = blockIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int base = win_base[ch] * (window / 2);
+  const int base = STREAM ? 0 : win_base[ch] * (window / 2);
   const int row0 = chunk_block[ch] * BN;
   const size_t wsize = (size_t)n_layers * C * C;
-  float* gp = gpart + (size_t)ch * edge_grad_size(n_layers, DYN ? wd : 0);
+  const bool with_dxj = part != nullptr;
+  float* gp = gpart + (size_t)ch * edge_grad_size<F>(n_layers, wd);
   float* gp_b = gp + wsize;                   // db [n_layers][C]
   float* gp_f = gp_b + (size_t)n_layers * C;  // dwf8 [8][C]
   float* gp_d = gp_f + 8 * C;                 // DYN: dwf_dyn [wd][C]
   float* gp_n = gp_d + (DYN ? wd * C : 0);    // DYN: dwf_nrm [C]
-  for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
-  load_first_layer<BF16, DYN>(wf8, wfd_g, wfn_g, wd, wf, wfd, wfn);
+  if (with_dxj)
+    for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
+  if constexpr (!STREAM)
+    load_first_layer<BF16, DYN>(wf8, wfd_g, wfn_g, wd, wf, wfd, wfn);
 
   const int c = tid & (C - 1);
   const int half = tid >> 7;
@@ -90,8 +103,12 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     const bool add = t0 != ch * edge_block;  // the chunk's first tile stores
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's input,
     // the LayerNorm output into d.
-    edge_tile_pre<T, BF16, DYN>(t0, base, row0, e_pad, window, fiber_t, xwi,
-                                xj, send_win, receivers, wf, slots, hs, dyn);
+    if constexpr (STREAM)
+      stream_tile_pre<T, BF16>(t0, row0, xwi, xj, receivers, slots, hs);
+    else
+      edge_tile_pre<T, BF16, DYN>(t0, base, row0, e_pad, window, fiber_t,
+                                  xwi, xj, send_win, receivers, wf, slots, hs,
+                                  dyn);
     tile_mlp_tail_save<BF16>(hs, d, inv, W, B, n_layers, wslab);
 
     // Edge cotangent g[recv] (rounded to bf16 by the TPU kernel's one-hot
@@ -143,7 +160,7 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     else __syncthreads();
     for (int i = tid; i < TILE * C; i += THREADS)
       store(&dpre[(size_t)t0 * C + i], d[i]);
-    const int n_rows = DYN ? 8 + wd : 8;
+    const int n_rows = STREAM ? 0 : DYN ? 8 + wd : 8;
     for (int k = warp; k < n_rows; k += THREADS / 32) {
       const int j0 = lane * 4;
       const float* fk = k < 8 ? fib + k * TILE : delta + (k - 8) * TILE;
@@ -159,11 +176,12 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
       float4 o = add ? *p : make_float4(0.f, 0.f, 0.f, 0.f);
       *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
     }
-    for (int r = 0; r < TILE; ++r) {
+    for (int r = 0; with_dxj && r < TILE; ++r) {
       const int loc = s_loc[r];
       if (loc >= 0 && (loc >> 6) == half) acc[loc * C + c] += d[r * C + c];
     }
   }
+  if (!with_dxj) return;
   __syncthreads();
   float4* dst = reinterpret_cast<float4*>(part + (size_t)ch * BN * C);
   for (int i = tid; i < BN * C / 4; i += THREADS) dst[i] = smem4[i];

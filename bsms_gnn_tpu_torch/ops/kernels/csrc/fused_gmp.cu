@@ -28,7 +28,7 @@ fused_edge_phase_win_kernel(const float* __restrict__ fiber_t,
                             const int* __restrict__ chunk_block, int e_pad,
                             int edge_block, int window,
                             float* __restrict__ part) {
-  edge_phase_fwd_chunk<T, BF16, false>(
+  edge_phase_fwd_chunk<T, BF16, Front::kWin>(
       fiber_t, xwi, xj, nullptr, wf8, nullptr, nullptr, 0, W, B, n_layers,
       send_win, win_base, receivers, chunk_block, e_pad, edge_block, window,
       part);

@@ -21,7 +21,7 @@ fused_edge_phase_win_bwd_kernel(
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part,
     float* __restrict__ gpart, T* __restrict__ dpre) {
-  edge_phase_bwd_chunk<T, BF16, false>(
+  edge_phase_bwd_chunk<T, BF16, Front::kWin>(
       fiber_t, xwi, xj, nullptr, wf8, nullptr, nullptr, 0, W, B, WT, g,
       n_layers, send_win, win_base, receivers, chunk_block, e_pad,
       edge_block, window, part, gpart, dpre);
@@ -55,7 +55,8 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
                          (float*)dxj, n_blocks, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, n_chunks,
-                              edge_grad_size(n_layers, 0), (float*)grads, s);
+                              edge_grad_size<Front::kWin>(n_layers, 0),
+                              (float*)grads, s);
 }
 
 }  // namespace

@@ -30,7 +30,7 @@ fused_edge_phase_win_dyn_kernel(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part) {
-  edge_phase_fwd_chunk<T, BF16, true>(
+  edge_phase_fwd_chunk<T, BF16, Front::kDyn>(
       fiber_t, xwi, xj, pos, wf8, wfd, wfn, wd, W, B, n_layers, send_win,
       win_base, receivers, chunk_block, e_pad, edge_block, window, part);
 }

@@ -27,7 +27,7 @@ fused_edge_phase_win_dyn_bwd_kernel(
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part,
     float* __restrict__ gpart, T* __restrict__ dpre) {
-  edge_phase_bwd_chunk<T, BF16, true>(
+  edge_phase_bwd_chunk<T, BF16, Front::kDyn>(
       fiber_t, xwi, xj, pos, wf8, wfd, wfn, wd, W, B, WT, g, n_layers,
       send_win, win_base, receivers, chunk_block, e_pad, edge_block, window,
       part, gpart, dpre);
@@ -64,7 +64,8 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
                          (float*)dxj, n_blocks, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, n_chunks,
-                              edge_grad_size(n_layers, wd), (float*)grads, s);
+                              edge_grad_size<Front::kDyn>(n_layers, wd),
+                              (float*)grads, s);
 }
 
 }  // namespace

@@ -12,9 +12,8 @@ still run the edge MLP but are masked from the scatter; the caller adds the
 compact residual (`compact_resid.py`).
 
 CUDA design (`csrc/fused_gmp.cu` over the chunk walk of
-`csrc/edge_phase.cuh`, which kernel 13 shares): one thread block per edge
-chunk walks
-the chunk in 64-edge tiles. Per tile it loads the selected sender rows and
+`csrc/edge_phase.cuh`, which kernels 11, 12 and 13 share): one thread block
+per edge chunk walks the chunk in 64-edge tiles. Per tile it loads the selected sender rows and
 receiver rows directly (no one-hot selection), runs the tail MLP and
 LayerNorm in shared memory, and adds each edge into a shared-memory copy
 of the chunk's 128-row output block, which it writes to a per-chunk part;
@@ -44,8 +43,8 @@ recomputes each chunk's forward (remat in the kernel) and returns
     dW [L, C, C], db [L, C]   the tail layers' weight and bias gradients
 
 CUDA design (`csrc/fused_gmp_bwd.cu` over the chunk walk of
-`csrc/edge_phase_bwd.cuh`, which kernel 13 shares): one thread block per
-chunk, 64-slot
+`csrc/edge_phase_bwd.cuh`, which kernels 11, 12 and 13 share): one thread
+block per chunk, 64-slot
 tiles as in kernel 4, keeping each layer's input, the LayerNorm output and
 the running cotangent in shared memory; dxj takes kernel 4's per-chunk part
 and chunk-ordered block sum. The TPU carries dW, db and dwf8 in scratch

@@ -1,6 +1,7 @@
-"""The GMP block (counterpart of `bsms_gnn_tpu/ops/message.py::gmp_apply`,
-its windowed `fused` branches, v3 and v4, with `_cresid_edge_phase` and
-`_node_phase`, and its generic `pallas` path).
+"""The GMP block (counterpart of `bsms_gnn_tpu/ops/message.py::gmp_apply`:
+its `fused` branches, v3 and v4 on windowed levels, v2 and v1 elsewhere,
+with `_cresid_edge_phase` and `_node_phase`, and its generic `pallas`
+path).
 
 Edge feature [fibers, x_i, x_j] → edge MLP → sum to receiver → node
 MLP([x, aggr]) + residual, with both first layers split by input block
@@ -10,19 +11,30 @@ precomputed on the level, preceded, with world edges, by the dynamic
 world-space fiber [Δworld, ‖Δworld‖] from the world positions.
 
 Two methods, as in the JAX package:
-- `"fused"` (windowed levels): the static fiber term and the first bias
-  ride the kernel's [8, E] fiber stream (wf8) and in-window edges run the
-  fused edge kernel: kernel 4 without world edges, kernel 13 with one
-  world-space stream (Δworld and ‖Δworld‖ computed in the kernel from the
-  detached positions). Out-of-window edges run the edge MLP on the compact
-  residual rows and accumulate onto the aggregate (kernel 2), and the node
-  phase is one kernel (kernel 3). Unwindowed levels (kernels 11 and 12),
-  more than one world-space stream or one wider than the latent (kernel
-  11) raise.
+- `"fused"`, routed as `gmp_apply` routes it; the node phase is one kernel
+  (kernel 3) on every route.
+  - Windowed level, no world stream (v3) or one world-space stream no
+    wider than the latent (v4): the static fiber term and the first bias
+    ride the kernel's [8, E] fiber stream (wf8) and in-window edges run the
+    fused edge kernel, kernel 4 or kernel 13 (Δworld and ‖Δworld‖ computed
+    in the kernel from the detached positions). Out-of-window edges run the
+    edge MLP on the compact residual rows and accumulate onto the aggregate
+    (kernel 2).
+  - Unwindowed level, no world stream (v2): zi = the sender gather of x@W_i
+    plus the fiber term and the first bias, then kernel 12, which gathers
+    x@W_j by receiver itself.
+  - Any other level with world streams (an unwindowed level, two or more
+    streams, or one wider than the latent; v1): the pre-activation as the
+    `pallas` method builds it, then kernel 11.
 - `"pallas"` (any block-aligned level): the gathers (backward: kernel 8),
   the fiber and the edge MLP as plain matmuls, as the JAX package leaves
   them to XLA, then the aggregation and node phase in one kernel (kernel
   10).
+
+The gathers are `ops/scatter.py`'s, whose backwards sum by kernel 8. JAX's
+`fused` method gathers through `_gather_edges` instead, whose backward is
+an ELL sum (`scatter.py:66-81`); the two compute the same function on
+every row that carries gradient, so the port builds no ELL tables.
 """
 
 from __future__ import annotations
@@ -41,6 +53,10 @@ from bsms_gnn_tpu_torch.ops.kernels.compact_resid import (
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import fused_edge_phase_win
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_dyn import (
     fused_edge_phase_win_dyn,
+)
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_stream import (
+    fused_edge_mlp_aggregate,
+    fused_edge_phase,
 )
 from bsms_gnn_tpu_torch.ops.kernels.node_mlp import fused_node_phase
 from bsms_gnn_tpu_torch.ops.scatter import gather_recv, gather_send
@@ -82,29 +98,44 @@ class GMP(nn.Module):
                              f"{sum(self.dyn_dims)}")
         if method == "pallas":
             return self._pallas(level, x, pos, compute_dtype)
-        if level.window <= 0:
-            raise NotImplementedError(
-                "GMP on an unwindowed level on the fused method (kernel "
-                f"{11 if self.dyn_dims else 12})")
-        return self._fused(level, x, pos, compute_dtype)
+        dyn = self.dyn_dims
+        if level.window > 0 and (not dyn or (len(dyn) == 1
+                                             and dyn[0] <= x.shape[-1])):
+            return self._windowed(level, x, pos, compute_dtype)
+        if not dyn:
+            return self._streamed(level, x, compute_dtype)
+        # v1 (`message.py:391-430`): the generic pre-activation, kernel 11.
+        aggr = fused_edge_mlp_aggregate(
+            level, self._edge_pre(level, x, pos, compute_dtype), *self._tail())
+        return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
-    def _fused(self, level, x, pos, compute_dtype):
+    def _tail(self):
+        """The edge MLP's layers after the first: (weights, biases), as
+        lists (a ParameterList slice would build a module)."""
+        return (list(self.mlp_edge.weights)[1:],
+                list(self.mlp_edge.biases)[1:])
+
+    def _streamed(self, level, x, compute_dtype):
+        """`gmp_apply`'s v2 (`message.py:303-315`): zi = x@W_i gathered by
+        sender + fiber·W_f + b0, then kernel 12."""
+        c = x.shape[-1]
+        sfw = level.fiber.shape[-1]
+        w1 = self.mlp_edge.weights[0]
+        wf, wi, wj = w1[:sfw], w1[sfw:sfw + c], w1[sfw + c:]
+        xj = dense(x, wj, 0.0, compute_dtype)
+        zi = gather_send(level, dense(x, wi, 0.0, compute_dtype)) + dense(
+            level.fiber.to(x.dtype), wf, self.mlp_edge.biases[0],
+            compute_dtype)
+        aggr = fused_edge_phase(level, zi, xj, *self._tail())
+        return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
+
+    def _windowed(self, level, x, pos, compute_dtype):
         """`gmp_apply`'s windowed branches: v3 (`message.py:251-315`) and,
         with one world-space stream of width wd, v4 (`message.py:317-389`),
         whose first edge layer's rows are [Δworld (wd), ‖Δworld‖, static
         (sfw), x_i (C), x_j (C)]."""
         c = x.shape[-1]
-        wd = 0
-        if self.dyn_dims:
-            if len(self.dyn_dims) != 1:
-                raise NotImplementedError(
-                    "more than one world-space stream on the fused method "
-                    "(kernel 11)")
-            wd = self.dyn_dims[0]
-            if wd > c:
-                raise NotImplementedError(
-                    f"a world-space stream of width {wd} > the latent width "
-                    f"{c} on the fused method (kernel 11)")
+        wd = self.dyn_dims[0] if self.dyn_dims else 0
         sfw = level.fiber.shape[-1]
         pd1 = sfw + (wd + 1 if wd else 0)
         w1 = self.mlp_edge.weights[0]
@@ -116,9 +147,7 @@ class GMP(nn.Module):
         # wf8 rows [0, sfw) = static fiber rows, row sfw = first bias (the
         # fiber stream's constant-1 row), the rest zero.
         wf8 = torch.cat([wf_sta, b1[None], wf.new_zeros(7 - sfw, c)])
-        # list(...)[1:], not a ParameterList slice (which builds a module).
-        tail = (list(self.mlp_edge.weights)[1:],
-                list(self.mlp_edge.biases)[1:])
+        tail = self._tail()
         wpos = wf_dyn = None
         if wd:
             # The positions carry no gradient (JAX's stop_gradient).
@@ -133,7 +162,17 @@ class GMP(nn.Module):
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
     def _pallas(self, level, x, pos, compute_dtype):
-        """`gmp_apply`'s generic path (`message.py:391-448`)."""
+        """`gmp_apply`'s generic path (`message.py:391-448`) on the pallas
+        method: the edge MLP's tail as plain matmuls, then kernel 10."""
+        pre = self._edge_pre(level, x, pos, compute_dtype)
+        edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
+        return fused_aggregate_node_phase(level, edge, x, self.mlp_node,
+                                          compute_dtype)
+
+    def _edge_pre(self, level, x, pos, compute_dtype):
+        """The generic path's first-layer pre-activation (`message.py:
+        391-419`): fiber·W_f + b0 + x_i·W_i + x_j·W_j per slot, the fiber
+        the world-space streams' [Δworld, ‖Δworld‖] then the static one."""
         c = x.shape[-1]
         sfw = level.fiber.shape[-1]
         pd1 = sfw + sum(d + 1 for d in self.dyn_dims)
@@ -155,10 +194,8 @@ class GMP(nn.Module):
                               dim=-1)
         else:
             fiber = static
-        pre = dense(fiber, wf, self.mlp_edge.biases[0], compute_dtype) + z_i + z_j
-        edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
-        return fused_aggregate_node_phase(level, edge, x, self.mlp_node,
-                                          compute_dtype)
+        return (dense(fiber, wf, self.mlp_edge.biases[0], compute_dtype)
+                + z_i + z_j)
 
 
 def _cresid_edge_phase(cr, gmp: GMP, xwi, xj, wf_sta, aggr, compute_dtype,

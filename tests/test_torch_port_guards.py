@@ -1,9 +1,10 @@
 """Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
 package; its entry points default to the CUDA card and raise without one;
 a kernel wrapper given CPU tensors runs its plain version once and counts
-no launch, forward and backward, on the fused path (with and without world
-edges) and the pallas path;
-layouts and options the port does not support raise NotImplementedError;
+no launch, forward and backward, on the fused path (windowed and
+unwindowed, with and without world edges) and the pallas path, and given
+tensors on another device raises; layouts and options the port does not
+support raise NotImplementedError;
 and chip_smoke.py fails without a card or without the package beside it."""
 
 import ast
@@ -32,6 +33,7 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     compact_resid,
     fused_gmp,
     fused_gmp_dyn,
+    fused_gmp_stream,
     node_mlp,
     segment_sum,
     windowed,
@@ -117,18 +119,26 @@ KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
            windowed.windowed_send_sum, segment_sum.segment_sum_raw,
            agg_node.fused_aggregate_node_phase_fwd,
            fused_gmp_dyn.fused_edge_phase_win_dyn_fwd,
-           fused_gmp_dyn.fused_edge_phase_win_dyn_bwd)
+           fused_gmp_dyn.fused_edge_phase_win_dyn_bwd,
+           fused_gmp_stream.fused_edge_phase_fwd,
+           fused_gmp_stream.fused_edge_phase_bwd,
+           fused_gmp_stream.fused_edge_mlp_aggregate_fwd,
+           fused_gmp_stream.fused_edge_mlp_aggregate_bwd)
 PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   node_mlp.fused_node_phase_plain,
                   windowed.windowed_rect_conv_plain,
                   compact_resid.compact_accum_plain,
                   segment_sum.segment_sum_plain,
                   agg_node.fused_aggregate_node_phase_plain,
-                  fused_gmp_dyn.fused_edge_phase_win_dyn_plain)
+                  fused_gmp_dyn.fused_edge_phase_win_dyn_plain,
+                  fused_gmp_stream.fused_edge_phase_plain,
+                  fused_gmp_stream.fused_edge_mlp_aggregate_plain)
 PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
                    node_mlp.fused_node_phase_bwd_plain,
                    windowed.windowed_send_sum_plain,
-                   fused_gmp_dyn.fused_edge_phase_win_dyn_bwd_plain)
+                   fused_gmp_dyn.fused_edge_phase_win_dyn_bwd_plain,
+                   fused_gmp_stream.fused_edge_phase_bwd_plain,
+                   fused_gmp_stream.fused_edge_mlp_aggregate_bwd_plain)
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +174,7 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
     x = torch.randn(n, 128, generator=g)
     xf = torch.randn(nf, 128, generator=g)
     feat = torch.randn(flvl.n_pad_edges, 128, generator=g)
+    ef = torch.randn(flvl.n_pad_edges, 128, generator=g)
     cr = lvl.cresid
     vals = torch.randn(cr.n_rows, 128, generator=g)
     gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
@@ -192,6 +203,12 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
         (fused_gmp_dyn.fused_edge_phase_win_dyn,
          fused_gmp_dyn.fused_edge_phase_win_dyn_plain,
          lambda: (lvl, x, x, pos, wf8, wfd, wfn, ws, bs), {}),
+        (fused_gmp_stream.fused_edge_phase,
+         fused_gmp_stream.fused_edge_phase_plain,
+         lambda: (flvl, ef, xf, ws, bs), {}),
+        (fused_gmp_stream.fused_edge_mlp_aggregate,
+         fused_gmp_stream.fused_edge_mlp_aggregate_plain,
+         lambda: (flvl, ef, ws, bs), {}),
     ]
     with torch.no_grad():
         for wrapper, plain, args, kw in cases:
@@ -212,6 +229,14 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
                           world_edges=True, world_dim=3, aggregation="fused")
         sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
         sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
+        # The fused method on the unwindowed hierarchy: kernel 12's route,
+        # then with world edges kernel 11's.
+        for world in (False, True):
+            cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
+                              world_edges=world, world_dim=3 if world else 0)
+            sim = Simulator(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+            sim(flat, torch.randn(nf, 6, generator=g), torch.ones(nf, 1))
     assert [f.launches for f in counters] == [0] * len(KERNELS)
 
 
@@ -225,7 +250,7 @@ def test_cpu_backward_takes_the_plain_versions(hier, counters):
     x = torch.randn(n, 128, generator=torch.Generator().manual_seed(1),
                     requires_grad=True)
     gmp(hd.levels[0], x).square().sum().backward()
-    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1, 0]
+    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1, 0, 0, 0]
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
     for name, p in gmp.named_parameters():
@@ -247,7 +272,7 @@ def test_cpu_backward_of_the_world_edge_fused_gmp_takes_the_plain_versions(
     out = gmp(lvl, x, pos=pos, method="fused")
     assert fused_gmp_dyn.fused_edge_phase_win_dyn_plain.calls == 1
     out.square().sum().backward()
-    assert [f.calls for f in PLAIN_BACKWARDS] == [0, 1, 1, 1]
+    assert [f.calls for f in PLAIN_BACKWARDS] == [0, 1, 1, 1, 0, 0]
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert pos.grad is None
@@ -277,6 +302,56 @@ def test_cpu_backward_of_the_pallas_gmp_takes_the_plain_versions(flat,
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
+@pytest.mark.parametrize("world", [False, True])
+def test_cpu_backward_of_the_unwindowed_fused_gmp_takes_the_plain_versions(
+        flat, counters, world):
+    """A GMP on the fused method on an unwindowed level, on the CPU: its
+    forward runs kernel 12's plain version once (kernel 11's with world
+    edges), its backward that kernel's backward's and kernel 6's once each,
+    and kernel 8's for the gathers' backwards (the sender gather; with world
+    edges the receiver gather too), and nothing launches."""
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0),
+              fiber_dims=(3, 2) if world else None)
+    lvl = flat.levels[0]
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(lvl.n_pad_nodes, 128, generator=g, requires_grad=True)
+    pos = torch.randn(lvl.n_pad_nodes, 3, generator=g) if world else None
+    out = gmp(lvl, x, pos=pos, method="fused")
+    fwd = (fused_gmp_stream.fused_edge_mlp_aggregate_plain if world
+           else fused_gmp_stream.fused_edge_phase_plain)
+    assert fwd.calls == 1
+    segment_sum.segment_sum_plain.calls = 0
+    out.square().sum().backward()
+    assert [f.calls for f in PLAIN_BACKWARDS] == (
+        [0, 1, 0, 0, 0, 1] if world else [0, 1, 0, 0, 1, 0])
+    assert segment_sum.segment_sum_plain.calls == (2 if world else 1)
+    assert [f.launches for f in counters] == [0] * len(KERNELS)
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for name, p in gmp.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+@pytest.mark.parametrize("name", ["fused_edge_phase_fwd",
+                                  "fused_edge_phase_bwd",
+                                  "fused_edge_mlp_aggregate_fwd",
+                                  "fused_edge_mlp_aggregate_bwd"])
+def test_stream_kernel_wrappers_raise_on_another_device(flat, name):
+    """Kernels 11 and 12's wrappers take the plain version on the CPU,
+    launch on CUDA and raise on any other device (here `meta`)."""
+    lvl = flat.levels[0]
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
+    ws, bs = list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:]
+    meta = dict(device="meta")
+    rows = [torch.empty(lvl.n_pad_edges, 128, **meta)]
+    if name.startswith("fused_edge_phase"):
+        rows.append(torch.empty(lvl.n_pad_nodes, 128, **meta))
+    extra = ([torch.empty(lvl.n_pad_nodes, 128, **meta)]
+             if name.endswith("bwd") else [])
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="no kernel for device meta"):
+        getattr(fused_gmp_stream, name)(lvl, *rows, ws, bs, *extra)
+
+
 def test_unsupported_layouts_raise(hier):
     pos, cells = scrambled_grid()
     h_flat = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2,
@@ -285,19 +360,6 @@ def test_unsupported_layouts_raise(hier):
     gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0))
     n = hd.levels[0].n_pad_nodes
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="unwindowed"):
-            gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes, 128))
-        world = GMP(128, 1, 2, torch.Generator().manual_seed(0),
-                    fiber_dims=(3, 2))
-        nf = h_flat.levels[0].n_pad_nodes
-        with pytest.raises(NotImplementedError, match="unwindowed.*kernel 11"):
-            world(h_flat.levels[0], torch.zeros(nf, 128),
-                  pos=torch.zeros(nf, 3))
-        two = GMP(128, 1, 2, torch.Generator().manual_seed(0),
-                  fiber_dims=(3, 2, 2))
-        with pytest.raises(NotImplementedError,
-                           match="more than one world-space stream"):
-            two(hd.levels[0], torch.zeros(n, 128), pos=torch.zeros(n, 5))
         with pytest.raises(NotImplementedError, match="aggregation method"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes,
                                               128), method="ell")
