@@ -4,8 +4,10 @@ Serving and training run here: `graph.hierarchy.build_hierarchy` and
 `to_device`, `models.simulator.Simulator`,
 `training.rollout.rollout_trajectory` and `training.trainer.Trainer`, on
 the `fused` method (windowed and unwindowed hierarchies, with or without
-world-space edges) and the `pallas` method (block-aligned hierarchies,
-world-space edges included), through fifteen hand-written CUDA kernels
+world-space edges, and the bucketed hierarchies of variable-mesh datasets
+with `graph.buckets.plan_buckets`) and the `pallas` method (block-aligned
+hierarchies, world-space edges included), through seventeen hand-written
+CUDA kernels
 (`ops/kernels/`). Entry points default to the CUDA card and
 raise where there is none; pass `device="cpu"` for the plain PyTorch
 versions. The package imports nothing of JAX or of `bsms_gnn_tpu`.

@@ -1,7 +1,8 @@
 """Configuration (counterpart of `bsms_gnn_tpu/config.py`, the dataclasses
 only, with the airfoil defaults of `bsms_gnn_tpu/configs/`, the
-inflating-font presets as `inflating_font_config` and the flag presets as
-`flag_simple_config`; no YAML loading yet).
+inflating-font presets as `inflating_font_config`, the flag presets as
+`flag_simple_config` and the cylinder-flow presets as
+`cylinder_flow_config`; no YAML loading yet).
 
 `ModelConfig.aggregation` picks one of the JAX package's two production
 methods: `"fused"` (the fused edge-phase kernels: the windowed ones on
@@ -9,7 +10,8 @@ windowed layouts with at most one world-space stream, the streamed-input
 ones on unwindowed layouts and for other world-space streams) or
 `"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
 fused aggregation + node-phase kernel). The parity-oracle methods `"ell"` and `"segment"` are not ported.
-`DatasetConfig` keeps only the fields the trainer reads (the noise)."""
+`DatasetConfig` keeps the fields the trainer reads (the noise) and those
+that shape a variable-mesh dataset's hierarchies (`graph/buckets.py`)."""
 
 from __future__ import annotations
 
@@ -48,6 +50,18 @@ class DatasetConfig:
     noise_level: List[float] = field(
         default_factory=lambda: [10.0, 10.0, 0.01])
     noise_gamma: float = 1.0
+    # False: every trajectory has its own mesh (variable-mesh datasets),
+    # padded to its size group's buckets.
+    consist_mesh: bool = True
+    # Node pads round up to this multiple (and to 128, and to window / 2).
+    pad_multiple: int = 128
+    # Edge slots per chunk of the block-aligned layouts.
+    edge_block: int = 128
+    # Variable-mesh datasets: the number of size groups, by level-0 nodes.
+    size_buckets: int = 1
+    # Source-window rows of the windowed layouts (Morton-ordered meshes);
+    # 0 = unwindowed.
+    window: int = 0
 
 
 @dataclass
@@ -76,9 +90,10 @@ def inflating_font_config(**model_overrides) -> Config:
     """The inflating elastic surface: `configs/model/inflating_font.yaml`
     and `configs/datasets/inflating_font.yaml` of the JAX package (a closed
     3-D surface whose world positions are the output fields, world-space
-    edges), on the `pallas` method, which is the one the port runs with
-    world edges. `model_overrides` replace ModelConfig fields (bench.py's
-    surface point sets unet_depth=7)."""
+    edges), on the `pallas` method, bench.py's method for it (the `fused`
+    method runs world edges too: `aggregation="fused"`). `model_overrides`
+    replace ModelConfig fields (bench.py's surface point sets
+    unet_depth=7)."""
     model = ModelConfig(latent_dim=128, hidden_layer=3, unet_depth=4,
                         out_dim=3, pos_dim=3, accumulation_steps=300,
                         world_edges=True, aggregation="pallas")
@@ -100,3 +115,16 @@ def flag_simple_config(**model_overrides) -> Config:
     return Config(model=replace(model, **model_overrides),
                   datasets=DatasetConfig(noise_level=[0.003] * 3,
                                          noise_gamma=0.1))
+
+
+def cylinder_flow_config(**model_overrides) -> Config:
+    """Flow past a cylinder: `configs/model/cylinder_flow.yaml` and
+    `configs/datasets/cylinder_flow.yaml` of the JAX package (velocity as
+    the output fields, 2-D meshes, one mesh per trajectory), on the `fused`
+    method. `model_overrides` replace ModelConfig fields."""
+    model = ModelConfig(latent_dim=128, hidden_layer=3, unet_depth=5,
+                        out_dim=2, pos_dim=2, accumulation_steps=300,
+                        aggregation="fused")
+    return Config(model=replace(model, **model_overrides),
+                  datasets=DatasetConfig(noise_level=[0.02, 0.02],
+                                         noise_gamma=1.0, consist_mesh=False))

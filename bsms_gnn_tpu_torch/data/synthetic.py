@@ -1,7 +1,9 @@
 """Synthetic meshes (counterparts of `bsms_gnn_tpu/data/synthetic.py`'s
-`make_graded_airfoil_mesh`, `make_grid_strip_mesh`, `make_sphere_mesh` and
-`generate_inflating_trajectory`), so the port builds the benchmark meshes
-without the dataset readers."""
+`make_delaunay_mesh`, `make_graded_airfoil_mesh`, `make_grid_strip_mesh`,
+`make_sphere_mesh`, `generate_trajectory` (velocity only, on a given mesh,
+without its HDF5 writer) and `generate_inflating_trajectory`), so the port
+builds the benchmark meshes without the dataset readers; and the node-type
+codes and the cylinder-flow loss mask of `bsms_gnn_tpu/data/datasets.py`."""
 
 from __future__ import annotations
 
@@ -15,6 +17,72 @@ NT_HANDLE = 3
 NT_INFLOW = 4
 NT_OUTFLOW = 5
 NT_WALL = 6
+
+
+def cylinder_mask(node_type: np.ndarray) -> np.ndarray:
+    """cylinder_flow's loss mask: valid ⇔ type ∈ {0 interior, 5 outflow}
+    (f32, the shape of `node_type`)."""
+    node_type = np.asarray(node_type)
+    return ((node_type == NT_NORMAL) | (node_type == NT_OUTFLOW)).astype(
+        np.float32)
+
+
+def make_delaunay_mesh(n_nodes: int, rng: np.random.Generator):
+    """Irregular triangulated mesh on the unit square: a boundary ring
+    and uniform interior points, Delaunay-triangulated. Returns (pos [N,2],
+    cells [M,3], node_type [N,1]): left edge inflow, right edge outflow,
+    top and bottom wall."""
+    n_side = max(4, int(np.sqrt(n_nodes) // 4))
+    t = np.linspace(0, 1, n_side, endpoint=False)
+    boundary = np.concatenate([
+        np.stack([t, np.zeros_like(t)], -1),
+        np.stack([np.ones_like(t), t], -1),
+        np.stack([1 - t, np.ones_like(t)], -1),
+        np.stack([np.zeros_like(t), 1 - t], -1),
+    ])
+    n_interior = max(n_nodes - boundary.shape[0], 8)
+    interior = rng.uniform(0.02, 0.98, size=(n_interior, 2))
+    pos = np.concatenate([boundary, interior])
+    cells = Delaunay(pos).simplices.astype(np.int64)
+
+    node_type = np.full((pos.shape[0], 1), NT_NORMAL, np.int32)
+    nb = boundary.shape[0]
+    node_type[:nb][np.isclose(pos[:nb, 0], 0.0)] = NT_INFLOW
+    node_type[:nb][np.isclose(pos[:nb, 0], 1.0)] = NT_OUTFLOW
+    on_wall = np.isclose(pos[:nb, 1], 0.0) | np.isclose(pos[:nb, 1], 1.0)
+    node_type[:nb][on_wall & ~np.isclose(pos[:nb, 0], 0.0)
+                   & ~np.isclose(pos[:nb, 0], 1.0)] = NT_WALL
+    return pos.astype(np.float32), cells, node_type
+
+
+def _analytic_velocity(pos: np.ndarray, t: float, phase: float):
+    """The traveling vortex's velocity (vx, vy) at time t."""
+    x, y = pos[:, 0], pos[:, 1]
+    vx = np.sin(2 * np.pi * (x - 0.3 * t) + phase) * np.cos(2 * np.pi * y)
+    vy = -np.cos(2 * np.pi * (x - 0.3 * t) + phase) * np.sin(2 * np.pi * y)
+    return vx.astype(np.float32), vy.astype(np.float32)
+
+
+def generate_trajectory(mesh: tuple, n_frames: int,
+                        rng: np.random.Generator):
+    """One trajectory of the analytic flow on `mesh` = (pos, cells,
+    node_type), the fields per frame in the converted-dataset schema:
+    mesh_pos [T, N, 2], node_type [T, N, 1], cells [T, M, 3], velocity
+    [T, N, 2]. The velocity equals `bsms_gnn_tpu/data/synthetic.py::
+    generate_trajectory(n, n_frames, rng, False, mesh)`'s."""
+    pos, cells, node_type = mesh
+    n = pos.shape[0]
+    phase = float(rng.uniform(0, 2 * np.pi))
+    vel = np.zeros((n_frames, n, 2), np.float32)
+    for ti in range(n_frames):
+        vel[ti, :, 0], vel[ti, :, 1] = _analytic_velocity(pos, ti * 0.05,
+                                                          phase)
+    return {
+        "mesh_pos": np.broadcast_to(pos, (n_frames, n, 2)).copy(),
+        "node_type": np.broadcast_to(node_type, (n_frames, n, 1)).copy(),
+        "cells": np.broadcast_to(cells, (n_frames,) + cells.shape).copy(),
+        "velocity": vel,
+    }
 
 
 def make_graded_airfoil_mesh(n_nodes: int, rng: np.random.Generator):

@@ -1,17 +1,26 @@
 """Static-shape padded hierarchy artifacts, and their move to a device.
 
-Counterpart of `bsms_gnn_tpu/graph/hierarchy.py`, cut to the unbucketed
-windowed build the serving path runs: `build_hierarchy` → `pad_levels` →
-`_pad_level` / `_pad_trans_layout`, with the per-chunk source windows
-(`_window_vote`, `_window_tables`), the compact residual tables
-(`_compact_resid`) and the component-major fiber (`_fiber_t`). The arrays
-equal the JAX package's array for array; the ELL tables, the mini residual
-sub-layouts, the size buckets and the npz cache are not built here.
+Counterpart of `bsms_gnn_tpu/graph/hierarchy.py`: `build_hierarchy` →
+`pad_levels` → `_pad_level` / `_pad_trans_layout`, with the per-chunk
+source windows (`_window_vote`, `_window_tables`), the compact residual
+tables (`_compact_resid`) or, on bucketed builds, the mini residual
+sub-layouts (`LevelGraph.resid`) of the out-of-window edges, the
+component-major fiber (`_fiber_t`), the pool / unpool maps, and the
+bucketed build of variable-mesh datasets (`node_buckets`, `edge_buckets`,
+`resid_buckets`: every mesh of a size group pads to the group's shapes;
+such builds carry no compact residual and no fused transition operator,
+as in the JAX package). The arrays equal the JAX package's array for
+array; the ELL tables, the dense transition matrices of bucketed builds,
+the mini residual sub-layouts of unbucketed builds (the model reads their
+compact tables) and the npz cache are not built here.
 
 Padding convention: nodes pad to N_pad (always > N); pad edge slots connect
 pad node N_pad-1 to itself and carry weight 0, so garbage never reaches a
 real node. Every 128-node receiver block's edge segment pads to a multiple
-of `edge_block` slots, at least one chunk per block.
+of `edge_block` slots, at least one chunk per block, except on skip-empty
+layouts (the residual sub-levels), where a block with no edge gets no
+slot. An edge bucket larger than the layout appends chunks of pad slots,
+which belong to the last block.
 
 `to_device` turns a built hierarchy into the same dataclasses holding
 tensors, plus the per-block chunk and visit ranges and the per-row slot
@@ -103,6 +112,10 @@ class LevelGraph:
     # (window = rows [b·W/2, b·W/2 + W)).
     send_win: Optional[np.ndarray] = None  # [E_pad] int32
     win_base: Optional[np.ndarray] = None  # [E_pad // edge_block] int32
+    # The out-of-window edges (symmetrized): as compact tables on unbucketed
+    # builds, as a skip-empty mini level over the same padded node space
+    # (edge_block ≤ 128) on bucketed ones.
+    resid: Optional["LevelGraph"] = None
     cresid: Optional[CompactResid] = None
     window: int = 0
     skip_empty: bool = False
@@ -176,11 +189,14 @@ class TransOp:
 
 @dataclass
 class Transition:
-    """Fused conv→pool (`down_op`) and unpool→conv (`up_op`) operators
-    between level l (parent) and level l+1 (child)."""
+    """Pool / unpool maps between level l (parent) and level l+1 (child),
+    and the fused conv→pool (`down_op`) and unpool→conv (`up_op`)
+    operators, which bucketed builds do not have."""
 
-    down_op: TransOp
-    up_op: TransOp
+    pool_ids: np.ndarray  # [M_pad] parent rows (pad → the parent pad node)
+    unpool_inv: np.ndarray  # [N_pad_parent] child row, or M_pad (zero slot)
+    down_op: Optional[TransOp] = None
+    up_op: Optional[TransOp] = None
 
 
 @dataclass
@@ -301,11 +317,28 @@ def _block_slots(r_sorted: np.ndarray, n_pad: int, edge_block: int,
     return slots, e_pad, recv_indptr.astype(np.int32)
 
 
+def layout_edge_count(edge_counts_per_node: np.ndarray, n_pad: int,
+                      edge_block: int = EDGE_BLOCK) -> int:
+    """Slots of the block-aligned layout for these per-node real edge
+    counts: per 128-node block, ceil(max(count, 1) / edge_block) chunks."""
+    counts = np.zeros(n_pad, np.int64)
+    counts[:len(edge_counts_per_node)] = edge_counts_per_node
+    seg = np.maximum(counts.reshape(-1, NODE_BLOCK).sum(axis=1), 1)
+    return int((-(-seg // edge_block) * edge_block).sum())
+
+
 def _pad_level(
     g: CsrGraph, n_pad: int, ec: np.ndarray,
     lvl_pos: Optional[np.ndarray] = None, edge_block: int = EDGE_BLOCK,
-    window: int = 0,
+    window: int = 0, e_pad_min: int = 0, min_chunks: bool = True,
+    resid_e_pad_min: int = 0, force_resid: bool = False,
+    compact: bool = True,
 ) -> LevelGraph:
+    """One level's layout. `e_pad_min` (an edge bucket) appends pad chunks
+    to the last block; `min_chunks=False` builds a skip-empty layout.
+    Windowed levels also get the compact residual tables (`compact`) or
+    else the residual sub-level, padded to `resid_e_pad_min` slots, built
+    even with no out-of-window edge when `force_resid`."""
     n, e = g.num_nodes, g.flat_edges.shape[1]
     if n_pad <= n or n_pad % NODE_BLOCK:
         raise ValueError(f"n_pad {n_pad} must exceed {n} and be "
@@ -334,7 +367,9 @@ def _pad_level(
         )
 
     slots, e_pad, recv_indptr = _block_slots(r_sorted, n_pad, edge_block,
-                                             min_chunks=True)
+                                             min_chunks)
+    e_pad = max(e_pad, _pad_to(e_pad_min, edge_block))
+    recv_indptr[n_pad] = e_pad
     senders = np.full(e_pad, n_pad - 1, dtype=np.int32)
     receivers = np.full(e_pad, n_pad - 1, dtype=np.int32)
     edge_mask = np.zeros(e_pad, np.float32)
@@ -366,13 +401,13 @@ def _pad_level(
     if fib_sorted is not None:
         fiber[slots] = fib_sorted
 
-    send_win = win_base = cresid = None
+    send_win = win_base = resid = cresid = None
     if window:
         # Tiny levels: a window wider than the node set shrinks to it.
         window = min(window, n_pad)
-        send_win, win_base, cresid = _window_tables(
+        send_win, win_base, resid, cresid = _window_tables(
             senders, receivers, edge_mask, reverse_perm, ew, n_pad, window,
-            edge_block, lvl_pos,
+            edge_block, n, lvl_pos, resid_e_pad_min, force_resid, compact,
         )
     return LevelGraph(
         senders=senders,
@@ -390,9 +425,10 @@ def _pad_level(
         ew_rev=ew[reverse_perm],
         send_win=send_win,
         win_base=win_base,
+        resid=resid,
         cresid=cresid,
         window=window,
-        skip_empty=False,
+        skip_empty=not min_chunks,
         fiber_t=_fiber_t(fiber),
     )
 
@@ -563,10 +599,18 @@ def _window_tables(
     n_pad: int,
     window: int,
     edge_block: int,
+    n: int,
     lvl_pos: Optional[np.ndarray],
+    resid_e_pad_min: int = 0,
+    force_resid: bool = False,
+    compact: bool = True,
 ):
     """Per-chunk aligned source windows for the windowed kernels, plus the
-    compact residual tables for the edges left outside (symmetrized)."""
+    edges left outside (symmetrized) as compact residual tables (with
+    `compact`) or else as a skip-empty mini level (`resid`), the one the
+    model reads. `force_resid` builds the mini level even when every edge
+    is covered (a bucketed group whose bucket has a residual at this
+    level)."""
     base, covered = _window_vote(
         senders, edge_mask, reverse_perm, n_pad, window, edge_block
     )
@@ -578,14 +622,21 @@ def _window_tables(
     send_win = np.where(covered, s64 - lo, window).astype(np.int32)
     win_base = base.astype(np.int32)
 
-    cresid = None
+    resid = cresid = None
     m = real & ~covered
-    if m.any():
+    r64 = receivers.astype(np.int64)
+    if compact and m.any():
         cresid = _compact_resid(
-            s64[m], receivers.astype(np.int64)[m], ew[m],
-            ew[reverse_perm][m], n_pad, lvl_pos, symmetric=True,
+            s64[m], r64[m], ew[m], ew[reverse_perm][m], n_pad, lvl_pos,
+            symmetric=True,
         )
-    return send_win, win_base, cresid
+    elif not compact and (m.any() or force_resid):
+        resid = _pad_level(
+            CsrGraph(np.stack([s64[m], r64[m]]), n), n_pad, ew[m], lvl_pos,
+            edge_block=min(edge_block, EDGE_BLOCK), e_pad_min=resid_e_pad_min,
+            min_chunks=False,
+        )
+    return send_win, win_base, resid, cresid
 
 
 def build_hierarchy(
@@ -596,13 +647,18 @@ def build_hierarchy(
     pad_multiple: int = 128,
     edge_block: int = EDGE_BLOCK,
     window: "int | List[int]" = 0,
+    node_buckets: Optional[List[int]] = None,
+    edge_buckets: Optional[List[int]] = None,
+    resid_buckets: Optional[List[Tuple[int, int]]] = None,
 ) -> Hierarchy:
     """Build bi-stride levels and pad them to static shapes. `window` > 0
     builds the windowed tables (best with a Morton-ordered mesh,
-    graph/order.py); a per-level list sets each level's window."""
+    graph/order.py); a per-level list sets each level's window. The
+    buckets are `pad_levels`'."""
     levels = build_bistride_levels(flat_edges, num_layers, num_nodes, pos)
     return pad_levels(levels, pad_multiple, pos=pos, edge_block=edge_block,
-                      window=window)
+                      window=window, node_buckets=node_buckets,
+                      edge_buckets=edge_buckets, resid_buckets=resid_buckets)
 
 
 def pad_levels(
@@ -611,7 +667,17 @@ def pad_levels(
     pos: Optional[np.ndarray] = None,
     edge_block: int = EDGE_BLOCK,
     window: "int | List[int]" = 0,
+    node_buckets: Optional[List[int]] = None,
+    edge_buckets: Optional[List[int]] = None,
+    resid_buckets: Optional[List[Tuple[int, int]]] = None,
 ) -> Hierarchy:
+    """`node_buckets` / `edge_buckets` pin each level's N_pad / E_pad, and
+    `resid_buckets` each windowed level's residual sub-layout as (E_pad,
+    ELL width), (0, 0) meaning none (`graph/buckets.py` plans them; the
+    port builds no ELL table, so the width goes unread). A bucketed build
+    carries no compact residual and no fused transition operator: the
+    model then takes the explicit conv + pool transitions and the
+    residual sub-levels."""
     graphs, ids = levels.graphs, levels.ids
     windows = (
         list(window)
@@ -625,21 +691,45 @@ def pad_levels(
     node_multiple = _pad_to(pad_multiple, NODE_BLOCK)
     if any(windows):
         node_multiple = _pad_to(node_multiple, max(windows) // 2)
-    n_pads = [_pad_to(g.num_nodes + 1, node_multiple) for g in graphs]
+    if node_buckets is None:
+        n_pads = [_pad_to(g.num_nodes + 1, node_multiple) for g in graphs]
+    else:
+        n_pads = list(node_buckets)
+        for l, (g, n_pad) in enumerate(zip(graphs, n_pads)):
+            if (n_pad <= g.num_nodes or n_pad % NODE_BLOCK or (
+                    windows[l] and n_pad % (min(windows[l], n_pad) // 2))):
+                raise ValueError(f"node bucket {n_pad} does not fit level "
+                                 f"{l} ({g.num_nodes} nodes, window "
+                                 f"{windows[l]})")
+    e_pads = [0] * len(graphs) if edge_buckets is None else list(edge_buckets)
+    resids = ([(0, 0)] * len(graphs) if resid_buckets is None
+              else list(resid_buckets))
+    bucketed = node_buckets is not None or resid_buckets is not None
     ecs = transition_edge_weights(levels)
 
     def build_level(l, g):
         return _pad_level(
             g, n_pads[l], ecs[l], None if lvl_pos is None else lvl_pos[l],
-            edge_block=edge_block, window=windows[l],
+            edge_block=edge_block, window=windows[l], e_pad_min=e_pads[l],
+            resid_e_pad_min=resids[l][0], force_resid=resids[l][0] > 0,
+            compact=not bucketed,
         )
 
     def build_transition(l, kept):
-        down_op, up_op = _build_trans_ops(
-            graphs[l].flat_edges, ecs[l], kept, n_pads[l], n_pads[l + 1],
-            edge_block, window=windows[l],
-        )
-        return Transition(down_op=down_op, up_op=up_op)
+        parent_pad, child_pad = n_pads[l], n_pads[l + 1]
+        m = len(kept)
+        pool_ids = np.full(child_pad, parent_pad - 1, np.int32)
+        pool_ids[:m] = kept
+        unpool_inv = np.full(parent_pad, child_pad, np.int32)
+        unpool_inv[kept] = np.arange(m, dtype=np.int32)
+        down_op = up_op = None
+        if node_buckets is None and edge_buckets is None:
+            down_op, up_op = _build_trans_ops(
+                graphs[l].flat_edges, ecs[l], kept, parent_pad, child_pad,
+                edge_block, window=windows[l],
+            )
+        return Transition(pool_ids=pool_ids, unpool_inv=unpool_inv,
+                          down_op=down_op, up_op=up_op)
 
     # Levels build independently, and the hot numpy kernels (lexsort,
     # bincount, unique) release the GIL.
@@ -649,6 +739,19 @@ def pad_levels(
                                   enumerate(graphs)))
         transitions = tuple(ex.map(lambda lk: build_transition(*lk),
                                    enumerate(ids)))
+    # Every mesh of a group lands on the group's exact shapes.
+    for l, g in enumerate(lvl_graphs):
+        if edge_buckets is not None and g.n_pad_edges != _pad_to(
+                e_pads[l], edge_block):
+            raise ValueError(f"level {l}: layout {g.n_pad_edges} exceeds "
+                             f"edge bucket {e_pads[l]}")
+        if resid_buckets is None:
+            continue
+        want = _pad_to(resids[l][0], min(edge_block, EDGE_BLOCK))
+        got = 0 if g.resid is None else g.resid.n_pad_edges
+        if got != want:
+            raise ValueError(f"level {l}: residual layout {got} != bucket "
+                             f"{resids[l][0]}")
     return Hierarchy(levels=lvl_graphs, transitions=transitions)
 
 

@@ -1,8 +1,12 @@
 """BSGMP: the bi-stride graph U-Net processor (counterpart of
-`bsms_gnn_tpu/ops/bsgmp.py`, fused-transition branch).
+`bsms_gnn_tpu/ops/bsgmp.py`, single-card branches).
 
-Down pass per level: GMP, then the fused conv→pool transition. Bottom GMP.
-Up pass: fused unpool→reverse-conv, GMP, then the U-Net skip add. Mesh
+Down pass per level: GMP, then the conv→pool transition. Bottom GMP. Up
+pass: unpool→reverse-conv, GMP, then the U-Net skip add. A transition is
+the fused operator pair where the hierarchy has one, and otherwise (the
+bucketed hierarchies of variable-mesh datasets) the explicit conv with the
+level's own weights (`message.edge_conv_down` / `edge_conv_up`) and the
+pool / unpool gathers (`ops/pool.py`). Mesh
 positions never appear online: the static per-level edge fibers and
 transition weights are precomputed on the hierarchy. With world edges the
 world positions are the one dynamic stream: they ride each down
@@ -17,15 +21,17 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from bsms_gnn_tpu_torch.ops.message import GMP
+from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down, edge_conv_up
+from bsms_gnn_tpu_torch.ops.pool import pool_nodes, unpool_nodes
 from bsms_gnn_tpu_torch.ops.transition import trans_down, trans_up
 
 
 def use_fused_trans(trans, level, method: str) -> bool:
     """`bsgmp.py::_use_fused_trans`: the fused transition operators apply
     on the pallas and fused methods, to unwindowed levels and to windowed
-    levels whose operators are windowed. The explicit conv+pool path the
-    JAX package keeps for the other cases is not ported."""
+    levels whose operators are windowed. The other transitions (bucketed
+    hierarchies, which have no operator) take the explicit conv + pool
+    path."""
     op = getattr(trans, "down_op", None)
     if method not in ("pallas", "fused") or op is None:
         return False
@@ -65,13 +71,18 @@ class BSGMP(nn.Module):
                 tap(f"down{i}", h)
             down_outs.append(h)
             down_ps.append(dyn)
-            if not use_fused_trans(trans, level, method):
-                raise NotImplementedError(
-                    "explicit conv + pool transitions (the ell / segment "
-                    "methods, windowed levels with unwindowed operators)")
-            h = trans_down(trans, h)
-            if dyn is not None:
-                dyn = trans_down(trans, dyn)
+            if use_fused_trans(trans, level, method):
+                h = trans_down(trans, h)
+                if dyn is not None:
+                    dyn = trans_down(trans, dyn)
+            else:
+                if dyn is not None:
+                    # JAX sends the narrow world stream through its ELL
+                    # path (`message.py:720-721`), which is not ported.
+                    raise NotImplementedError(
+                        "world-edge streams through the explicit conv + pool "
+                        "transitions (ROADMAP Queue 1, items 3 and 5)")
+                h = pool_nodes(trans, edge_conv_down(level, h))
 
         h = self.bottom_gmp(hierarchy.levels[depth], h, compute_dtype, dyn,
                             method)
@@ -80,9 +91,12 @@ class BSGMP(nn.Module):
 
         for i in range(depth):
             d = depth - i - 1
-            h = trans_up(hierarchy.transitions[d], h)
-            h = self.up_gmps[i](hierarchy.levels[d], h, compute_dtype,
-                                down_ps[d], method)
+            level, trans = hierarchy.levels[d], hierarchy.transitions[d]
+            if use_fused_trans(trans, level, method):
+                h = trans_up(trans, h)
+            else:
+                h = edge_conv_up(level, unpool_nodes(trans, h))
+            h = self.up_gmps[i](level, h, compute_dtype, down_ps[d], method)
             if tap is not None:
                 tap(f"up{i}", h)
             h = h + down_outs[d]

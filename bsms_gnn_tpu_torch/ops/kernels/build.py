@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_DIR, "build")
 SOURCES = ("windowed", "compact_resid", "node_mlp", "fused_gmp",
            "fused_gmp_bwd", "node_mlp_bwd", "windowed_send", "segment_sum",
            "agg_node", "fused_gmp_dyn", "fused_gmp_dyn_bwd", "fused_gmp_stream",
-           "fused_gmp_stream_bwd")
+           "fused_gmp_stream_bwd", "segment_sum_accum")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

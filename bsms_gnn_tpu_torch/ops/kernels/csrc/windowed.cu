@@ -1,5 +1,8 @@
-// Kernel 1: the windowed rectangular operator application (see
-// ../windowed.py).
+// Kernel 1: the windowed conv, in its rect form (a windowed TransOp's
+// application, x in the operator's input space) and its level form (a
+// level's own edges, x in the level's node space, ew the level's `ew` or
+// `ew_rev`); see ../windowed.py. Both forms are one function, behind one
+// entry point per dtype:
 //
 //   out[k] = Σ_{in-window e: recv(e)=k} ew_e · x[win_base[chunk]·W/2 + send_win[e]]
 //
@@ -24,12 +27,12 @@ constexpr size_t smem_bytes(int edge_block) {
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(THREADS)
-windowed_rect_conv_kernel(const T* __restrict__ x, const float* __restrict__ ew,
-                          const int* __restrict__ send_win,
-                          const int* __restrict__ win_base,
-                          const int* __restrict__ receivers,
-                          const int* __restrict__ chunk_block, int edge_block,
-                          int window, float* __restrict__ part) {
+windowed_conv_kernel(const T* __restrict__ x, const float* __restrict__ ew,
+                     const int* __restrict__ send_win,
+                     const int* __restrict__ win_base,
+                     const int* __restrict__ receivers,
+                     const int* __restrict__ chunk_block, int edge_block,
+                     int window, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
   float* acc0 = reinterpret_cast<float*>(smem4);  // [BN][C], first half
   float* acc1 = acc0 + BN * C;                     // [BN][C], second half
@@ -88,7 +91,7 @@ int launch(const void* x, const void* ew, const void* send_win,
            void* stream) {
   if (edge_block % (2 * UNROLL) || edge_block > MAX_EDGE_BLOCK)
     return (int)cudaErrorInvalidValue;
-  auto kernel = windowed_rect_conv_kernel<T, BF16>;
+  auto kernel = windowed_conv_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes(MAX_EDGE_BLOCK));
@@ -105,7 +108,7 @@ int launch(const void* x, const void* ew, const void* send_win,
 
 }  // namespace
 
-#define WINDOWED_RECT_CONV(NAME, T, BF16)                                     \
+#define WINDOWED_CONV(NAME, T, BF16)                                          \
   extern "C" int NAME(const void* x, const void* ew, const void* send_win,   \
                       const void* win_base, const void* receivers,           \
                       const void* chunk_block, const void* chunk_ptr,        \
@@ -116,5 +119,5 @@ int launch(const void* x, const void* ew, const void* send_win,
                            part, out, stream);                               \
   }
 
-WINDOWED_RECT_CONV(windowed_rect_conv_f32, float, false)
-WINDOWED_RECT_CONV(windowed_rect_conv_bf16, __nv_bfloat16, true)
+WINDOWED_CONV(windowed_conv_f32, float, false)
+WINDOWED_CONV(windowed_conv_bf16, __nv_bfloat16, true)

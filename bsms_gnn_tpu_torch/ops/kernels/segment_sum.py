@@ -29,6 +29,9 @@ Widths that are not a multiple of 128 take the plain version on purpose,
 as JAX's `_supported` (`segment_sum.py:118-131`) sends them to XLA: the
 3-wide world-position stream of the world-edge models. Those calls count
 in `segment_sum_raw.narrow_calls`, apart from the kernel's launches.
+Skip-empty layouts (the residual sub-levels) are refused, as `_supported`
+refuses them: a block that owns no chunk would get no row. Their sums go
+through kernel 9 (`segment_sum_accum.py`).
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ def _slots(level, send: bool):
 
 
 def _check(level, feat, send: bool):
+    if level.skip_empty:
+        raise ValueError("kernel 8 refuses a skip-empty layout (blocks "
+                         "without a chunk): sum it with kernel 9, "
+                         "segment_sum_accum")
     if feat.dim() != 2:
         raise NotImplementedError("batch axis")
     if feat.shape[0] != level.n_pad_edges:

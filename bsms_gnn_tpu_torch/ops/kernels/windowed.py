@@ -28,6 +28,21 @@ bf16 mode follows the TPU kernel, which rounds the ew-weighted one-hot to
 bf16 before the f32-accumulated scatter dot: the weight is rounded to bf16
 and the product with the bf16 row is exact in f32.
 
+Kernel 1's level form: the same kernel over a level's own edges (the
+explicit conv of bucketed hierarchies, which carry no TransOp). Replaces
+`bsms_gnn_tpu/ops/pallas/windowed.py::windowed_conv_raw` (the same
+`_get_call`):
+
+    out[n] = Σ_{in-window e: recv(e)=n} ew_e · x[win_base[chunk]·W/2 + send_win[e]]
+
+x and out live in the level's node space ([n_pad, C]); ew is the level's
+`ew` (the down conv) or `ew_rev` (the up conv, `message.py:612-619`).
+Out-of-window edges ride the level's residual sub-level (the caller adds
+them, `ops/message.py`). The same kernel and entry point as the rect
+form, so the same bound and bf16 rounding; its wrapper keeps its own
+checks and launch count. An edge bucket's tail chunks (pad slots only,
+owned by the last block) carry the sentinel and add nothing.
+
 Kernel 7: the transposed windowed sum of a level (the sender side of the
 fused edge phase's backward). Replaces `bsms_gnn_tpu/ops/pallas/
 windowed.py::windowed_send_sum_raw` (`_get_send_call` →
@@ -61,39 +76,75 @@ from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
 _SIG = [build.P] * 7 + [build.I] * 4 + [build.P] * 3
-_FN = {torch.float32: "windowed_rect_conv_f32",
-       torch.bfloat16: "windowed_rect_conv_bf16"}
+_FN = {torch.float32: "windowed_conv_f32",
+       torch.bfloat16: "windowed_conv_bf16"}
 _SEND_SIG = [build.P] * 4 + [build.I] * 4 + [build.P] * 3
 _SEND_FN = {torch.float32: "windowed_send_sum_f32",
             torch.bfloat16: "windowed_send_sum_bf16"}
 
 
-def _check(op, x):
-    if op.window <= 0:
-        raise NotImplementedError("windowed conv needs a windowed operator")
+def _check(t, x, n_rows, ew):
+    """`t` is a windowed TransOp (rect form, x in its input space) or a
+    windowed level (level form, x in its node space)."""
+    if t.window <= 0:
+        raise NotImplementedError("windowed conv needs a windowed operator "
+                                  "or level")
     if x.dim() != 2:
         raise NotImplementedError("batch axis")
-    if x.shape != (op.n_in_pad, BN):
-        raise ValueError(f"x {tuple(x.shape)} != ({op.n_in_pad}, {BN})")
+    if x.shape != (n_rows, BN):
+        raise ValueError(f"x {tuple(x.shape)} != ({n_rows}, {BN})")
     if x.dtype not in _FN:
         raise ValueError(f"x dtype {x.dtype}")
+    if ew.shape != (t.n_pad_edges,):
+        raise ValueError(f"ew {tuple(ew.shape)} != ({t.n_pad_edges},)")
 
 
-def windowed_rect_conv_plain(op, x):
-    """The same function in plain PyTorch (index_select / index_add_)."""
-    windowed_rect_conv_plain.calls += 1
-    w = op.window
-    sw = op.send_win.long()
+def _plain(t, x, ew):
+    """Either form in plain PyTorch (index_select / index_add_): in bf16
+    the weights round to bf16, as in the kernel."""
+    w = t.window
+    sw = t.send_win.long()
     covered = sw < w
-    base = op.win_base.long().repeat_interleave(op.edge_block)
+    base = t.win_base.long().repeat_interleave(t.edge_block)
     rows = torch.where(covered, base * (w // 2) + sw, 0)
-    ew = op.ew.float()
+    ew = ew.float()
     if x.dtype == torch.bfloat16:
         ew = ew.to(torch.bfloat16).float()
     msg = x.float().index_select(0, rows) * torch.where(covered, ew, 0.0)[:, None]
-    out = torch.zeros(op.n_pad_nodes, x.shape[-1], dtype=torch.float32,
+    out = torch.zeros(t.n_pad_nodes, x.shape[-1], dtype=torch.float32,
                       device=x.device)
-    return out.index_add_(0, op.receivers.long(), msg)
+    return out.index_add_(0, t.receivers.long(), msg)
+
+
+def _launch(what, t, x, ew):
+    """One launch of the kernel (and its block sum) over `t`'s chunks:
+    f32 [t.n_pad_nodes, 128]."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    build.require(what, x.device, t.send_win, t.win_base, t.receivers,
+                  t.chunk_block, t.chunk_ptr)
+    if ew.dtype != torch.float32 or not ew.is_contiguous():
+        raise ValueError(f"{what}: ew must be contiguous f32")
+    lib = build.library("windowed", {f: _SIG for f in _FN.values()})
+    x = x.contiguous()
+    n_chunks = t.n_pad_edges // t.edge_block
+    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32, device=x.device)
+    out = torch.empty(t.n_pad_nodes, BN, dtype=torch.float32, device=x.device)
+    err = getattr(lib, _FN[x.dtype])(
+        x.data_ptr(), ew.data_ptr(), t.send_win.data_ptr(),
+        t.win_base.data_ptr(), t.receivers.data_ptr(),
+        t.chunk_block.data_ptr(), t.chunk_ptr.data_ptr(), n_chunks,
+        t.n_pad_nodes // BN, t.edge_block, t.window, part.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(err, what)
+    return out
+
+
+def windowed_rect_conv_plain(op, x):
+    """The rect form in plain PyTorch."""
+    windowed_rect_conv_plain.calls += 1
+    return _plain(op, x, op.ew)
 
 
 windowed_rect_conv_plain.calls = 0
@@ -103,32 +154,40 @@ def windowed_rect_conv(op, x):
     """Out-space f32 [n_pad_nodes, 128] of the in-window entries of a
     windowed TransOp applied to x [n_in_pad, 128]. CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
-    _check(op, x)
+    _check(op, x, op.n_in_pad, op.ew)
     if x.device.type == "cpu":
         return windowed_rect_conv_plain(op, x)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
-    build.require("windowed_rect_conv", x.device, op.send_win, op.win_base,
-                  op.receivers, op.chunk_block, op.chunk_ptr)
-    lib = build.library("windowed", {f: _SIG for f in _FN.values()})
-    x = x.contiguous()
-    n_chunks = op.n_pad_edges // op.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32, device=x.device)
-    out = torch.empty(op.n_pad_nodes, BN, dtype=torch.float32,
-                      device=x.device)
-    err = getattr(lib, _FN[x.dtype])(
-        x.data_ptr(), op.ew.data_ptr(), op.send_win.data_ptr(),
-        op.win_base.data_ptr(), op.receivers.data_ptr(),
-        op.chunk_block.data_ptr(), op.chunk_ptr.data_ptr(), n_chunks,
-        op.n_pad_nodes // BN, op.edge_block, op.window, part.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(err, "windowed_rect_conv")
+    out = _launch("windowed_rect_conv", op, x, op.ew)
     windowed_rect_conv.launches += 1
     return out
 
 
 windowed_rect_conv.launches = 0
+
+
+def windowed_conv_plain(level, x, ew):
+    """Kernel 1's level form in plain PyTorch."""
+    windowed_conv_plain.calls += 1
+    return _plain(level, x, ew)
+
+
+windowed_conv_plain.calls = 0
+
+
+def windowed_conv(level, x, ew):
+    """f32 [n_pad, 128] in-window receiver sums of ew · x[sender] over a
+    windowed level's own edges, x [n_pad, 128] f32 or bf16, ew [E_pad]
+    (`level.ew` or `level.ew_rev`). CPU tensors take the plain version;
+    CUDA tensors launch kernel 1's level form."""
+    _check(level, x, level.n_pad_nodes, ew)
+    if x.device.type == "cpu":
+        return windowed_conv_plain(level, x, ew)
+    out = _launch("windowed_conv", level, x, ew)
+    windowed_conv.launches += 1
+    return out
+
+
+windowed_conv.launches = 0
 
 
 def _check_send(level, vals):

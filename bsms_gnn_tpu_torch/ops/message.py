@@ -19,7 +19,9 @@ Two methods, as in the JAX package:
     fused edge kernel, kernel 4 or kernel 13 (Δworld and ‖Δworld‖ computed
     in the kernel from the detached positions). Out-of-window edges run the
     edge MLP on the compact residual rows and accumulate onto the aggregate
-    (kernel 2).
+    (kernel 2); on bucketed hierarchies, which carry no compact tables, v3
+    runs them on the residual sub-level instead: its gathers, the edge MLP,
+    then kernel 9 onto the aggregate.
   - Unwindowed level, no world stream (v2): zi = the sender gather of x@W_i
     plus the fiber term and the first bias, then kernel 12, which gathers
     x@W_j by receiver itself.
@@ -35,6 +37,12 @@ The gathers are `ops/scatter.py`'s, whose backwards sum by kernel 8. JAX's
 `fused` method gathers through `_gather_edges` instead, whose backward is
 an ELL sum (`scatter.py:66-81`); the two compute the same function on
 every row that carries gradient, so the port builds no ELL tables.
+
+`edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
+level's own weights (`message.py:603-692`), each the other's adjoint.
+Windowed levels run kernel 1's level form, then the residual sub-level's
+messages accumulate through kernel 9; unwindowed levels gather and scale
+the rows and sum them with kernel 8.
 """
 
 from __future__ import annotations
@@ -59,6 +67,12 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_stream import (
     fused_edge_phase,
 )
 from bsms_gnn_tpu_torch.ops.kernels.node_mlp import fused_node_phase
+from bsms_gnn_tpu_torch.ops.kernels.segment_sum import segment_sum_raw
+from bsms_gnn_tpu_torch.ops.kernels.segment_sum_accum import (
+    segment_sum_accum,
+    segment_sum_accum_raw,
+)
+from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_conv
 from bsms_gnn_tpu_torch.ops.scatter import gather_recv, gather_send
 
 METHODS = ("fused", "pallas")
@@ -159,6 +173,13 @@ class GMP(nn.Module):
         if level.cresid is not None:
             aggr = _cresid_edge_phase(level.cresid, self, xwi, xj, wf_sta,
                                       aggr, compute_dtype, wpos, wf_dyn)
+        elif level.resid is not None:
+            if wd:
+                raise NotImplementedError(
+                    "world edges on a residual sub-level (v4's mini-layout "
+                    "branch, `message.py:358-387`): ROADMAP Queue 1, item 5")
+            aggr = _resid_edge_phase(level.resid, self, xwi, xj, wf_sta, aggr,
+                                     compute_dtype, x.dtype)
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
     def _pallas(self, level, x, pos, compute_dtype):
@@ -220,3 +241,75 @@ def _cresid_edge_phase(cr, gmp: GMP, xwi, xj, wf_sta, aggr, compute_dtype,
         pre_r = pre_r + dense(fib_dyn, wf_dyn, 0.0, compute_dtype)
     e_r = mlp_apply_tail(gmp.mlp_edge, pre_r, compute_dtype)
     return compact_accum(cr, e_r, aggr)
+
+
+def _resid_edge_phase(r, gmp: GMP, xwi, xj, wf, aggr, compute_dtype, dtype):
+    """v3's residual edge phase on the mini layout (`message.py:283-302`),
+    where the level has no compact tables (bucketed builds): the gathers
+    over the residual sub-level's slots (their backwards run kernel 9: the
+    layout is skip-empty), the fiber term in the GMP input's `dtype`, the
+    edge MLP, then kernel 9 accumulates onto `aggr`."""
+    pre_r = (gather_send(r, xwi) + gather_recv(r, xj)
+             + dense(r.fiber.to(dtype), wf, gmp.mlp_edge.biases[0],
+                     compute_dtype))
+    e_r = mlp_apply_tail(gmp.mlp_edge, pre_r, compute_dtype)
+    return segment_sum_accum(r, e_r, aggr)
+
+
+def _gathered_conv(level, x, ew):
+    """`message.py::_gathered_conv`: the sender rows scaled by the
+    slot-aligned weights, summed at the receivers (kernel 8)."""
+    msg = x.index_select(0, level.senders) * ew.to(x.dtype)[:, None]
+    return segment_sum_raw(level, msg).to(x.dtype)
+
+
+def _level_conv(level, x, up: bool):
+    """`_lvl_down_raw` / `_lvl_up_raw` (`message.py:556-619`): the receiver
+    sums of ew · x[sender] with the level's `ew` (down) or `ew_rev` (up, the
+    sender sums through the reverse edges). A windowed level runs kernel
+    1's level form over its in-window slots, then its residual sub-level's
+    messages (`r.ew` / `r.ew_rev`) accumulate through kernel 9."""
+    if x.dim() != 2:
+        raise NotImplementedError("batch axis")
+    if x.shape[-1] % 128:
+        # JAX takes narrow rows through its ELL path (`message.py:720-740`).
+        raise NotImplementedError(
+            f"the explicit conv on {x.shape[-1]}-wide rows (the ELL path): "
+            f"ROADMAP Queue 1, item 3")
+    ew = level.ew_rev if up else level.ew
+    if level.window <= 0:
+        return _gathered_conv(level, x, ew)
+    out = windowed_conv(level, x, ew)
+    r = level.resid
+    if r is not None:
+        ew_r = (r.ew_rev if up else r.ew).to(x.dtype)
+        msg = x.index_select(0, r.senders) * ew_r[:, None]
+        out = segment_sum_accum_raw(r, msg, out)
+    return out.to(x.dtype)
+
+
+class _LevelConv(torch.autograd.Function):
+    """The down / up conv pair (`_make_lvl_conv_pair`, `message.py:
+    662-692`): each direction's backward is the other direction on the
+    cotangent. The weights are graph constants and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, level, up, x):
+        ctx.level, ctx.up, ctx.dtype = level, up, x.dtype
+        return _level_conv(level, x, up)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _level_conv(ctx.level, g, not ctx.up).to(ctx.dtype)
+
+
+def edge_conv_down(level, x):
+    """The aggregating conv with the level's own weights: Σ_{e: recv(e)=n}
+    ew_e · x[send_e], [N_pad, C] → [N_pad, C] in x's dtype."""
+    return _LevelConv.apply(level, False, x)
+
+
+def edge_conv_up(level, x):
+    """The returning conv (the reference's aggragating=False): Σ_{e:
+    send(e)=n} ew_e · x[recv_e]."""
+    return _LevelConv.apply(level, True, x)

@@ -5,8 +5,10 @@
 The gathers are row selections whose backward sums the edge cotangents
 back onto the nodes through kernel 8 (`kernels/segment_sum.py`): the
 sender form for `gather_send`, the receiver form for `gather_recv`, as
-`_gather_with_pallas_bwd` (`scatter.py:121-175`) does on the TPU. Autograd
-of `index_select` would run an `index_add_` scatter instead.
+`_gather_with_pallas_bwd` (`scatter.py:121-175`) does on the TPU. On a
+skip-empty layout (a residual sub-level) the sums run through kernel 9
+onto zeros instead (`scatter.py:149-171`), since kernel 8 refuses such
+layouts. Autograd of `index_select` would run an `index_add_` scatter.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import torch
 from bsms_gnn_tpu_torch.ops.kernels.segment_sum import (
     segment_sum,
     segment_sum_raw,
+)
+from bsms_gnn_tpu_torch.ops.kernels.segment_sum_accum import (
+    segment_sum_accum_raw,
+    segment_sum_accum_send_raw,
 )
 
 
@@ -27,7 +33,15 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        out = segment_sum_raw(ctx.level, ct, send=ctx.send)
+        lvl = ctx.level
+        if lvl.skip_empty:
+            zeros = ct.new_zeros(lvl.n_pad_nodes, ct.shape[-1],
+                                 dtype=torch.float32)
+            accum = (segment_sum_accum_send_raw if ctx.send
+                     else segment_sum_accum_raw)
+            out = accum(lvl, ct, zeros)
+        else:
+            out = segment_sum_raw(lvl, ct, send=ctx.send)
         return None, None, out.to(ctx.dtype)
 
 
@@ -37,14 +51,15 @@ def _check(x):
 
 
 def gather_send(level, x):
-    """x_i = x[senders] → [E_pad, C]; backward: the sender sums (kernel 8)."""
+    """x_i = x[senders] → [E_pad, C]; backward: the sender sums (kernel 8,
+    or kernel 9 on a skip-empty layout)."""
     _check(x)
     return _Gather.apply(level, True, x)
 
 
 def gather_recv(level, x):
     """x_j = x[receivers] → [E_pad, C]; backward: the receiver sums (kernel
-    8)."""
+    8, or kernel 9 on a skip-empty layout)."""
     _check(x)
     return _Gather.apply(level, False, x)
 

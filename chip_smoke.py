@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero without the result line):
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, TF32 off, and the fifteen CUDA kernels built from `csrc/`;
+   versions, TF32 off, and the seventeen CUDA kernels built from `csrc/`;
 2. the 5,233-node graded airfoil (Morton-ordered, depth 7, edge_block 512,
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
@@ -52,7 +52,16 @@ Phases (any failure exits non-zero without the result line):
 12. the 16k surface of phase 9 on the `fused` method (method_sweep.py's
    fused-v2 row with world edges): kernel 11 (forward and backward) against
    its plain version, then phases 4, 5, 7 and 8 on it (kernel 11 and its
-   backward timed) and the `Trainer` run on the trajectory's frames.
+   backward timed) and the `Trainer` run on the trajectory's frames;
+13. cylinder_flow at full width and depth on variable meshes: three
+   Morton-ordered Delaunay meshes (1,600, 1,885 and 2,000 nodes), one size
+   group (window 256, edge_block 512), each padded to the group's buckets,
+   so the hierarchies have no TransOp and no compact residual; the 1,885-
+   node mesh served: kernel 1's level form (the explicit conv, down and
+   up) and kernel 9 (both forms, on the residual sub-levels and on a
+   forced empty one) against their plain versions, then phases 4, 5, 7 and
+   8 on it (both kernels timed), the `Trainer` run stepping across the
+   three meshes on frames of the analytic flow.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -75,6 +84,8 @@ import torch
 N_NODES, DEPTH, EDGE_BLOCK, WINDOW = 5233, 7, 512, 256
 SURFACE_NODES, SURFACE_DEPTH = 16000, 7
 FLAG_NODES, FLAG_NY, FLAG_DEPTH = 1579, 32, 5
+# (nodes, seed) of the cylinder path's meshes; the second is served.
+CYLINDER_MESHES, CYLINDER_DEPTH = ((1600, 1), (1885, 0), (2000, 2)), 5
 ROLLOUT_STEPS = 20
 # Published H100 SXM peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BYTES_S = 3.35e12
@@ -127,6 +138,17 @@ TOL = {
     ("fused_edge_phase", torch.bfloat16): (2e-2, 2e-5),
     ("fused_edge_mlp_aggregate", torch.float32): (2e-4, 1e-6),
     ("fused_edge_mlp_aggregate", torch.bfloat16): (2e-2, 2e-5),
+    # Kernel 1's level form: the rect form's function and limits.
+    ("windowed_conv", torch.float32): (2e-5, 1e-6),
+    ("windowed_conv", torch.bfloat16): (2e-5, 1e-6),
+    # Kernel 9 sums in slot order onto acc, the plain version with atomics:
+    # row n_pad - 1 sums every pad slot of the last block, the residual
+    # layout's tail chunks included (hundreds of rows), where f32 sum order
+    # shows, as for kernels 11 and 12; bf16 rows add exactly in f32. Its
+    # control keeps acc in bf16 (a kernel that accumulated in the feature
+    # dtype).
+    ("segment_sum_accum", torch.float32): (2e-4, 1e-6),
+    ("segment_sum_accum", torch.bfloat16): (2e-4, 1e-6),
 }
 # The whole forward, relative to the predicted delta's scale: in f32 the
 # prediction (state + delta, |state| up to ~5) itself rounds at ~5e-7. In
@@ -227,6 +249,25 @@ EXPECTED_SURFACE_FUSED_TRAIN_LAUNCHES = {
     "fused_aggregate_node_phase": 0, "fused_edge_phase_win": 0,
     "fused_edge_phase_win_bwd": 0, "windowed_rect_conv": 0,
     "compact_accum": 0, "windowed_send_sum": 0}
+# cylinder_flow on bucketed windowed hierarchies (depth 5, levels 0-2 with a
+# residual sub-level, none from level 3 on), per forward: kernels 4 and 3
+# in each of the 11 GMPs; kernel 1's level form in the 10 explicit convs
+# (5 down, 5 up); kernel 9 four times per level with a residual: the down
+# and up GMPs' residual edge phases and the down and up convs' residual
+# messages. No TransOp, so no rect form; no compact residual, so no
+# kernel 2. Per train step: the forward's; kernels 5, 6 and 7 once in each
+# GMP's backward; kernel 1 in the 10 convs' adjoints; kernel 9 in the 6
+# adjoint convs of levels 0-2 and in the backwards of the two residual
+# gathers of each of their 6 GMPs: 12 + 6 + 12 = 30.
+EXPECTED_CYLINDER_LAUNCHES = {
+    "fused_edge_phase_win": 11, "fused_node_phase": 11, "windowed_conv": 10,
+    "segment_sum_accum": 12, "windowed_rect_conv": 0, "compact_accum": 0,
+    "segment_sum": 0}
+EXPECTED_CYLINDER_TRAIN_LAUNCHES = {
+    "fused_edge_phase_win": 11, "fused_edge_phase_win_bwd": 11,
+    "fused_node_phase": 11, "fused_node_phase_bwd": 11,
+    "windowed_send_sum": 11, "windowed_conv": 20, "segment_sum_accum": 30,
+    "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
 BWD_OUTPUTS = {
     "fused_edge_phase_win_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
     "fused_edge_phase_win_dyn_bwd": ("dpre", "dxj", "dwf8", "dwf_dyn",
@@ -283,6 +324,11 @@ BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
 # catches gross faults only (an unrelated gradient is off by ~1.4 in RMS);
 # the per-kernel checks and their controls hold the rounding. Each step
 # also runs the plain path twice and prints how far it differs from itself.
+# The cylinder's f32 step (train_spread.py, 24 runs of the plain path on an
+# H100) lands in one of four states (the likely cause, a ReLU input within
+# rounding of zero, in PERF.md): the kernels read 4.2e-7 to 9.1e-4 RMS and
+# at most 2.2e-2 from them, while kernel 9's sender form swapped for its
+# receiver form reads 2.3e-2 RMS and 0.26 at most.
 TRAIN_TOL = {torch.float32: (1e-5, 5e-2, 1e-3),
              torch.bfloat16: (1e-4, 10.0, 0.3)}
 # The unreordered 5k airfoil's f32 step (airfoil_plain) is ill-conditioned
@@ -310,7 +356,7 @@ KERNEL_META = {
         ("fused_node_phase_kernel",)),
     "windowed_rect_conv": (
         _CSRC + "windowed.cu", _PALLAS + "windowed.py:111",
-        ("windowed_rect_conv_kernel", "block_sum_kernel")),
+        ("windowed_conv_kernel", "block_sum_kernel")),
     "compact_accum": (
         _CSRC + "compact_resid.cu", _PALLAS + "compact_resid.py:73",
         ("compact_accum_kernel",)),
@@ -350,6 +396,13 @@ KERNEL_META = {
     "fused_edge_mlp_aggregate_bwd": (
         _CSRC + "fused_gmp_stream_bwd.cu", _PALLAS + "fused_gmp.py:260",
         ("fused_edge_mlp_aggregate_bwd_kernel", "grad_sum_kernel")),
+    # Kernel 1's level form (`windowed_conv_raw`, the same `_get_call`).
+    "windowed_conv": (
+        _CSRC + "windowed.cu", _PALLAS + "windowed.py:328",
+        ("windowed_conv_kernel", "block_sum_kernel")),
+    "segment_sum_accum": (
+        _CSRC + "segment_sum_accum.cu", _PALLAS + "segment_sum.py:176",
+        ("segment_sum_accum_kernel",)),
 }
 
 
@@ -368,7 +421,8 @@ def kernel_modules():
     version): the four forward kernels and the three backward kernels of
     the fused path, then the two of the pallas path, then kernel 13's
     forward and backward (world edges on the fused path), then kernels 12
-    and 11, forward and backward (the fused path on unwindowed levels)."""
+    and 11, forward and backward (the fused path on unwindowed levels),
+    then kernel 1's level form and kernel 9 (bucketed hierarchies)."""
     from bsms_gnn_tpu_torch.ops.kernels import (
         agg_node,
         compact_resid,
@@ -377,6 +431,7 @@ def kernel_modules():
         fused_gmp_stream,
         node_mlp,
         segment_sum,
+        segment_sum_accum,
         windowed,
     )
     return {
@@ -415,6 +470,9 @@ def kernel_modules():
         "fused_edge_mlp_aggregate_bwd": (
             fused_gmp_stream.fused_edge_mlp_aggregate_bwd,
             fused_gmp_stream.fused_edge_mlp_aggregate_bwd_plain),
+        "windowed_conv": (windowed.windowed_conv, windowed.windowed_conv_plain),
+        "segment_sum_accum": (segment_sum_accum.segment_sum_accum_raw,
+                              segment_sum_accum.segment_sum_accum_plain),
     }
 
 
@@ -446,7 +504,7 @@ def plain_path():
     """Route the model's kernel calls, forward and backward, to the plain
     versions on the same device, for the whole-model comparisons (the
     package itself takes the plain versions only for CPU tensors)."""
-    from bsms_gnn_tpu_torch.ops import scatter, transition
+    from bsms_gnn_tpu_torch.ops import message, scatter, transition
     from bsms_gnn_tpu_torch.ops.kernels import (
         agg_node,
         compact_resid,
@@ -454,6 +512,7 @@ def plain_path():
         fused_gmp_dyn,
         fused_gmp_stream,
         node_mlp,
+        segment_sum_accum,
     )
 
     mods = kernel_modules()
@@ -483,7 +542,13 @@ def plain_path():
                (node_mlp, "fused_node_phase_bwd", "fused_node_phase_bwd"),
                (compact_resid, "compact_accum_raw", "compact_accum"),
                (transition, "compact_accum_raw", "compact_accum"),
-               (transition, "windowed_rect_conv", "windowed_rect_conv")]
+               (transition, "windowed_rect_conv", "windowed_rect_conv"),
+               (message, "windowed_conv", "windowed_conv"),
+               (message, "segment_sum_raw", "segment_sum"),
+               (message, "segment_sum_accum_raw", "segment_sum_accum"),
+               (scatter, "segment_sum_accum_raw", "segment_sum_accum"),
+               (segment_sum_accum, "segment_sum_accum_raw",
+                "segment_sum_accum")]
     saved = [(m, attr, getattr(m, attr)) for m, attr, _ in targets]
     try:
         for m, attr, name in targets:
@@ -694,17 +759,130 @@ def build_flag_case(device):
                        "fused_edge_phase_win_dyn_bwd"))
 
 
+def build_cylinder_case(device):
+    """cylinder_flow on variable meshes, from the port's own copies: three
+    meshes `make_delaunay_mesh(n, default_rng(s))` (CYLINDER_MESHES; about
+    cylinder_flow's 1,885 nodes), Morton-reordered, planned into one size
+    group (window 256, edge_block 512, pad_multiple 128) and each padded
+    to the group's buckets; `cylinder_flow_config()` (latent 128, hidden 3,
+    depth 5, out 2, the fused method). Each mesh's frames are frames 0 and
+    1 of `generate_trajectory` on it (the analytic flow, seeded); the mask
+    is the cylinder mask. The second mesh is served; the `Trainer` steps
+    cycle over all three. Weights from `torch.Generator().manual_seed(0)`."""
+    from bsms_gnn_tpu_torch.config import DatasetConfig, cylinder_flow_config
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        cylinder_mask,
+        generate_trajectory,
+        make_delaunay_mesh,
+    )
+    from bsms_gnn_tpu_torch.graph.bistride import build_bistride_levels
+    from bsms_gnn_tpu_torch.graph.buckets import plan_buckets
+    from bsms_gnn_tpu_torch.graph.hierarchy import pad_levels, to_device
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    data = DatasetConfig(consist_mesh=False, pad_multiple=128,
+                         edge_block=EDGE_BLOCK, size_buckets=1, window=WINDOW)
+    t0 = time.perf_counter()
+    meshes, levels = [], []
+    for n, seed in CYLINDER_MESHES:
+        pos, cells, node_type = make_delaunay_mesh(
+            n, np.random.default_rng(seed))
+        pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
+        meshes.append((pos, cells, node_type))
+        levels.append(build_bistride_levels(
+            to_flat_edge(cells, "tri"), CYLINDER_DEPTH, len(pos),
+            pos.astype(np.float64)))
+    plan = plan_buckets(levels, data)
+    hs = [pad_levels(lv, data.pad_multiple, pos=m[0].astype(np.float64),
+                     edge_block=data.edge_block, window=data.window,
+                     **plan.for_mesh(i))
+          for i, (lv, m) in enumerate(zip(levels, meshes))]
+    build_s = time.perf_counter() - t0
+    print(f"[cylinder] bucket plan: {plan.groups}")
+
+    cfg = cylinder_flow_config().model
+    sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
+    frames = []
+    for i, ((pos, cells, node_type), h) in enumerate(zip(meshes, hs)):
+        fields = generate_trajectory((pos, cells, node_type), 2,
+                                     np.random.default_rng(i))
+        n, n_pad = len(pos), h.levels[0].n_pad_nodes
+        node_in = np.zeros((n_pad, 5), np.float32)
+        node_in[:n, :2] = fields["velocity"][0]
+        node_in[:n, 2:4] = pos
+        node_in[:n, 4] = node_type[:, 0]
+        target = np.zeros((n_pad, 2), np.float32)
+        target[:n] = fields["velocity"][1]
+        mask = np.zeros((n_pad, 1), np.float32)
+        mask[:n] = cylinder_mask(node_type)
+        hd = to_device(h, device)
+        mask = torch.from_numpy(mask).to(device) * hd.levels[0].node_mask
+        frames.append((hd, torch.from_numpy(node_in).to(device),
+                       torch.from_numpy(target).to(device), mask))
+    hd, node_in, target, mask = frames[1]
+    fill_normalizers(sim, node_in, mask, np.random.default_rng(0))
+    return dict(label="cylinder 1.9k", h=hs[1], hd=hd, cfg=cfg, sim=sim,
+                config=cylinder_flow_config, node_in=node_in, mask=mask,
+                n=len(meshes[1][0]), build_s=build_s,
+                expected=EXPECTED_CYLINDER_LAUNCHES,
+                expected_train=EXPECTED_CYLINDER_TRAIN_LAUNCHES,
+                narrow=(0, 0), train_frames=(node_in, target),
+                trainer_frames=frames, forced_empty=forced_empty_resid(
+                    levels[1], meshes[1][0], plan, data, device),
+                timed=("windowed_conv", "segment_sum_accum"))
+
+
+def forced_empty_resid(levels, pos, plan, data, device):
+    """The served mesh padded as a group whose bucket gives level 3 a
+    residual though the mesh has none there (`force_resid`): level 3's
+    all-pad residual sub-level (one 128-slot chunk, owned by the last
+    block), on `device`."""
+    from bsms_gnn_tpu_torch.graph.hierarchy import pad_levels, to_device
+
+    kw = plan.for_mesh(1)
+    if kw["resid_buckets"][3] != (0, 0):
+        raise SmokeFailure("level 3 of the group already has a residual")
+    kw["resid_buckets"] = list(kw["resid_buckets"])
+    kw["resid_buckets"][3] = (128, 1)
+    h = pad_levels(levels, data.pad_multiple, pos=pos.astype(np.float64),
+                   edge_block=data.edge_block, window=data.window, **kw)
+    r = h.levels[3].resid
+    require(r is not None and r.n_edges == 0 and r.n_pad_edges == 128,
+            "the forced residual is not an empty 128-slot layout")
+    return to_device(h, device).levels[3].resid
+
+
 def describe(case):
     h = case["h"]
     print(f"[{case['label']}] mesh: {case['n']} nodes, hierarchy built in "
           f"{case['build_s']:.2f} s (host)")
     print("level  n_nodes  n_pad  E_pad      E  window  cresid_rows  "
-          "slots/128-row block")
+          "slots/128-row block  resid E / E_pad")
     for l, g in enumerate(h.levels):
         cr = "-" if g.cresid is None else g.cresid.n_real
+        r = "-" if g.resid is None else (f"{g.resid.n_edges} / "
+                                         f"{g.resid.n_pad_edges}")
         print(f"{l:5d} {g.n_nodes:8d} {g.n_pad_nodes:6d} {g.n_pad_edges:6d} "
               f"{g.n_edges:6d} {g.window:7d}  {str(cr):>11}  "
-              f"{g.n_pad_edges / (g.n_pad_nodes // 128):.0f}")
+              f"{g.n_pad_edges / (g.n_pad_nodes // 128):19.0f}  {r}")
+    depth = h.depth
+    gmps = 2 * depth + 1
+    expect = dict.fromkeys(case["expected"], 0)
+    if h.transitions[0].down_op is None:
+        # Bucketed: the explicit conv (kernel 1's level form) both ways at
+        # every transition, kernel 9 in both GMPs and both convs of each
+        # level with a residual sub-level (the bottom level: its GMP).
+        resid = [g.resid is not None for g in h.levels]
+        expect.update({"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
+                       "windowed_conv": 2 * depth,
+                       "segment_sum_accum": 4 * sum(resid[:depth])
+                       + resid[depth]})
+        print(f"launches per forward from the layout: {expect}")
+        require(expect == case["expected"],
+                f"layout gives {expect}, expected {case['expected']}")
+        return
     print("trans  down_E_pad  down_cresid  up_E_pad  up_cresid  dense  window")
 
     def rows(op):
@@ -714,10 +892,7 @@ def describe(case):
         print(f"{l:5d} {t.down_op.n_pad_edges:11d} {rows(t.down_op):>12} "
               f"{t.up_op.n_pad_edges:9d} {rows(t.up_op):>10}"
               f"  {str(t.down_op.dense is not None):>5}  {t.down_op.window}")
-    depth = h.depth
-    gmps = 2 * depth + 1
     sparse = sum(t.down_op.dense is None for t in h.transitions)
-    expect = dict.fromkeys(case["expected"], 0)
     if case["cfg"].aggregation == "pallas":
         expect.update({"fused_aggregate_node_phase": gmps,
                        "segment_sum": 2 * sparse})
@@ -822,14 +997,34 @@ def kernel_inputs(case, dtype, device):
         edge = {"fused_edge_phase_win": [
             ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
                          first_layer(gmp)[0], *mlp_e))]}
+    node = {"fused_node_phase": [
+        ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
+                     gmp.mlp_node, cd)),
+        # bf16 compute on f32 x: the level-0 GMP under io_dtype=float32
+        *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
+                      cd))] if cd is not None else [])]}
+    if t0.down_op is None:
+        # Bucketed: kernel 1's level form at level 0 (down: ew, up: ew_rev)
+        # and at level 4 (window 128); kernel 9 on level 0's residual
+        # sub-level in both forms, and on the forced empty one.
+        l4, r, fe = hd.levels[4], lvl.resid, case["forced_empty"]
+        return {
+            **edge, **node,
+            "windowed_conv": [
+                ("level 0 down", (lvl, rand(n0, c, dt=dtype), lvl.ew)),
+                ("level 0 up", (lvl, rand(n0, c, dt=dtype), lvl.ew_rev)),
+                ("level 4 down", (l4, rand(l4.n_pad_nodes, c, dt=dtype),
+                                  l4.ew))],
+            "segment_sum_accum": [
+                ("level 0", (r, rand(r.n_pad_edges, c, dt=dtype),
+                             rand(n0, c))),
+                ("level 0 send", (r, rand(r.n_pad_edges, c, dt=dtype),
+                                  rand(n0, c), True)),
+                ("forced empty", (fe, rand(fe.n_pad_edges, c, dt=dtype),
+                                  rand(fe.n_pad_nodes, c)))],
+        }
     return {
-        **edge,
-        "fused_node_phase": [
-            ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
-                         gmp.mlp_node, cd)),
-            # bf16 compute on f32 x: the level-0 GMP under io_dtype=float32
-            *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
-                          cd))] if cd is not None else [])],
+        **edge, **node,
         "windowed_rect_conv": [
             ("T0 down", (t0.down_op, rand(t0.down_op.n_in_pad, c, dt=dtype))),
             ("T0 up", (t0.up_op, rand(t0.up_op.n_in_pad, c, dt=dtype)))],
@@ -860,9 +1055,14 @@ def control_args(name, args):
     miss the bf16 tolerance against the bf16 plain version, which shows
     the tolerance would catch a kernel that rounded nowhere. None for the
     compact accumulate and the segment sum, whose bf16 modes round nothing
-    (bf16 values add exactly into f32 sums)."""
+    (bf16 values add exactly into f32 sums). Kernel 9 rounds nothing
+    either: its control is a kernel that held the accumulator in bf16
+    (acc rounded to bf16 first), which must miss."""
     if name in ("compact_accum", "segment_sum"):
         return None
+    if name == "segment_sum_accum":
+        level, feat, acc, *send = args
+        return (level, feat, acc.to(torch.bfloat16).float(), *send)
     up = [a.float() if isinstance(a, torch.Tensor)
           and a.dtype == torch.bfloat16 else a for a in args]
     if name in ("fused_node_phase", "fused_aggregate_node_phase"):
@@ -930,7 +1130,7 @@ def check_slice(case, device):
         narrow = narrow_calls()
         with plain_path():
             want = sim(hd, node_in, mask, cd)
-        delta = (want - node_in[:, :3]).abs().max().item()
+        delta = (want - node_in[:, :want.shape[-1]]).abs().max().item()
         err = (got - want).abs().max().item()
         tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
         ok = err <= tol and bool(torch.isfinite(got).all())
@@ -1087,8 +1287,10 @@ def work(name, args, dtype):
         ops = n * (2 * 2 * c * c + 2 * layers * c * c + 12 * c)
         by = (n * c * elt + n * c * 4 + n * c * elt
               + (2 * c * c + layers * c * c + (layers + 1) * c) * 4)
-    elif name == "windowed_rect_conv":
-        op, x = args
+    elif name in ("windowed_rect_conv", "windowed_conv"):
+        # x in; ew, send_win, receivers and the chunk tables per slot; the
+        # f32 output written; a multiply-add per in-window slot and column.
+        op, x = args[:2]
         live = int((op.send_win < op.window).sum().item())
         e = op.n_pad_edges
         ops = 2 * c * live
@@ -1131,14 +1333,16 @@ def work(name, args, dtype):
         ops = n * (3 * 2 * 2 * c * c + 6 * layers * c * c + 25 * c)
         grads = (2 * c * c + layers * c * c + (layers + 1) * c) * 4
         by = n * c * elt + 2 * n * c * 4 + grads + n * c * elt + n * c * 4 + grads
-    elif name == "segment_sum":
+    elif name in ("segment_sum", "segment_sum_accum"):
         # The slots the row table keeps: their rows and slot indices in,
-        # the row pointers in, the f32 output written; one add per slot
-        # and column.
+        # the row pointers in, the f32 output written (kernel 9: acc read
+        # too); one add per slot and column.
         lvl, feat = args[:2]
         kept, n = lvl.row_slots.numel(), lvl.n_pad_nodes
         ops = kept * c
         by = kept * c * elt + 4 * kept + 4 * (n + 1) + n * c * 4
+        if name == "segment_sum_accum":
+            by += n * c * 4
     elif name == "fused_aggregate_node_phase":
         # Kernel 8's reads, then kernel 3's function with the aggregate
         # kept on chip: x and the weights in, the output (in the compute
@@ -1161,15 +1365,16 @@ def work(name, args, dtype):
 
 def library_call(name, args):
     """One PyTorch call computing the same function, or None."""
-    if name == "windowed_rect_conv":
-        op, x = args
+    if name in ("windowed_rect_conv", "windowed_conv"):
+        op, x = args[:2]
+        ew = op.ew if name == "windowed_rect_conv" else args[2]
         live = op.send_win < op.window
         base = op.win_base.long().repeat_interleave(op.edge_block)
         cols = (base * (op.window // 2) + op.send_win.long())[live]
         rows = op.receivers.long()[live]
-        vals = op.ew.float()[live]
+        vals = ew.float()[live]
         m = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
-                                    (op.n_pad_nodes, op.n_in_pad))
+                                    (op.n_pad_nodes, x.shape[0]))
         m = m.coalesce().to_sparse_csr()
         xf = x.float()
         return lambda: torch.sparse.mm(m, xf)
@@ -1186,6 +1391,12 @@ def library_call(name, args):
         v = feat.index_select(0, slots).float()
         a = torch.zeros(lvl.n_pad_nodes, feat.shape[-1], device=feat.device)
         return lambda: a.index_add_(0, rows, v)
+    if name == "segment_sum_accum":
+        lvl, feat, acc = args[:3]
+        slots = lvl.row_send if args[3:] and args[3] else lvl.row_slots
+        rows = lvl.receivers.index_select(0, lvl.row_slots).long()
+        v = feat.index_select(0, slots).float()
+        return lambda: acc.float().index_add(0, rows, v)
     if name == "windowed_send_sum":
         lvl, vals = args
         live = lvl.send_win < lvl.window
@@ -1231,8 +1442,10 @@ def measure(case):
     rollout_trajectory(sim, hd, node_in, mask, ROLLOUT_STEPS)
     torch.cuda.synchronize()
     step = (time.perf_counter() - t0) * 1e3 / ROLLOUT_STEPS
+    roll = profile_call(lambda: rollout_trajectory(sim, hd, node_in, mask, 2))
     print(f"[{label}] rollout f32: {step:.4f} ms per step (host clock over "
-          f"{ROLLOUT_STEPS} steps)")
+          f"{ROLLOUT_STEPS} steps); device busy {roll[1] / 2:.4f} ms per step "
+          f"(profile of a 2-step rollout), idle share {1 - roll[1] / 2 / step:.3f}")
 
     rows = {}
     timed = case.get("timed")
@@ -1250,7 +1463,8 @@ def measure(case):
                   "forward_ms_bf16": t[torch.bfloat16],
                   "forward_busy_ms_f32": busy[torch.float32],
                   "forward_busy_ms_bf16": busy[torch.bfloat16],
-                  "rollout_step_ms_f32": step}
+                  "rollout_step_ms_f32": step,
+                  "rollout_step_busy_ms_f32": roll[1] / 2}
 
 
 def tile_sweep(case):
@@ -1417,9 +1631,10 @@ def train_target(case):
     """A seeded next-step target near the input fields; masked nodes keep
     theirs."""
     node_in, mask = case["node_in"], case["mask"]
+    c = case["cfg"].out_dim
     g = torch.Generator(device="cpu").manual_seed(11)
-    step = 0.1 * torch.randn(node_in.shape[0], 3, generator=g)
-    return node_in[:, :3] + step.to(node_in.device) * mask
+    step = 0.1 * torch.randn(node_in.shape[0], c, generator=g)
+    return node_in[:, :c] + step.to(node_in.device) * mask
 
 
 def step_grads(sim, hd, node_in, tar, mask, cd):
@@ -1519,10 +1734,13 @@ def check_train(case, device):
 
     if "train_frames" in case:  # the trainer on the trajectory's frames
         node_in, tar = case["train_frames"]
+    # (hierarchy, input, target, mask) of each step, in turn: the case's
+    # frame, or each mesh's (variable meshes).
+    steps = case.get("trainer_frames") or [(hd, node_in, tar, mask)]
     tr = make_trainer(case, device, None)
     before = [p.detach().clone() for p in tr.sim.parameters()]
-    losses = [float(tr.iter(hd, node_in, tar, mask))
-              for _ in range(TRAIN_GATE + TRAIN_UPDATES)]
+    losses = [float(tr.iter(*steps[i % len(steps)]))
+              for i in range(TRAIN_GATE + TRAIN_UPDATES)]
     rates = [tr.schedule(k) for k in range(TRAIN_UPDATES)]
     # Every parameter with a gradient moves; the rest (the bottom GMP's edge
     # MLP, whose level has no edge) move only by weight decay.
@@ -1530,7 +1748,8 @@ def check_train(case, device):
              if not bool((p.detach() != b).any()) and bool(p.grad.any())]
     accs = float(tr.sim.norm_in.num_accumulations)
     print(f"[{label}] trainer f32: {TRAIN_GATE} gate steps then {TRAIN_UPDATES} "
-          f"updates at rates {rates}: losses {losses}; normalizer "
+          f"updates at rates {rates}, cycling over {len(steps)} "
+          f"hierarchies: losses {losses}; normalizer "
           f"accumulations {accs:g}; parameters with a gradient that did not "
           f"move: {stuck}")
     require(all(np.isfinite(losses)), "trainer loss not finite")
@@ -1676,7 +1895,8 @@ def main() -> int:
               "airfoil_plain_"),
              ("surface_fused",
               functools.partial(build_surface_case, aggregation="fused"),
-              "surface_fused_"))
+              "surface_fused_"),
+             ("cylinder", build_cylinder_case, "cylinder_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -1705,6 +1925,10 @@ def main() -> int:
         # launches per train step (per forward beside), its errors and
         # times; the counts of later paths that run it too ride beside.
         runs = [p for p, _, _ in paths if train[p].get(name, 0) > 0]
+        if not runs:
+            print(f"chip_smoke FAILED: no path launched {name}",
+                  file=sys.stderr)
+            return 1
         err, row = errs[runs[0]], rows[runs[0]]
         r32, r16 = row[(name, torch.float32)], row[(name, torch.bfloat16)]
         entry = {

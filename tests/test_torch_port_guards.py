@@ -4,8 +4,11 @@ a kernel wrapper given CPU tensors runs its plain version once and counts
 no launch, forward and backward, on the fused path (windowed and
 unwindowed, with and without world edges) and the pallas path, and given
 tensors on another device raises; layouts and options the port does not
-support raise NotImplementedError;
-and chip_smoke.py fails without a card or without the package beside it."""
+support raise NotImplementedError (world-edge streams on the explicit
+transitions of bucketed hierarchies and on a residual sub-level among
+them); kernel 8 refuses a skip-empty layout; and chip_smoke.py fails
+without a card or without the package beside it, train_spread.py without
+a card."""
 
 import ast
 import os
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_buckets import WINDOW, group
 from test_torch_port_hierarchy import scrambled_grid
 
 from bsms_gnn_tpu_torch.config import Config, ModelConfig, OptConfig
@@ -36,9 +40,10 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     fused_gmp_stream,
     node_mlp,
     segment_sum,
+    segment_sum_accum,
     windowed,
 )
-from bsms_gnn_tpu_torch.ops.message import GMP
+from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down
 from bsms_gnn_tpu_torch.training.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -47,7 +52,8 @@ FORBIDDEN = re.compile(r"^(jax|flax)(\.|$)|^bsms_gnn_tpu(?!_torch)")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "train_spread.py"]
 
 
 def _imported_modules(path):
@@ -68,7 +74,7 @@ def test_source_imports_no_jax(path):
 def test_import_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "import bsms_gnn_tpu_torch as p, chip_smoke\n"
+        "import bsms_gnn_tpu_torch as p, chip_smoke, train_spread\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "print(' '.join(sorted(sys.modules)))\n"
@@ -123,7 +129,8 @@ KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
            fused_gmp_stream.fused_edge_phase_fwd,
            fused_gmp_stream.fused_edge_phase_bwd,
            fused_gmp_stream.fused_edge_mlp_aggregate_fwd,
-           fused_gmp_stream.fused_edge_mlp_aggregate_bwd)
+           fused_gmp_stream.fused_edge_mlp_aggregate_bwd,
+           windowed.windowed_conv, segment_sum_accum.segment_sum_accum_raw)
 PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   node_mlp.fused_node_phase_plain,
                   windowed.windowed_rect_conv_plain,
@@ -132,7 +139,9 @@ PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   agg_node.fused_aggregate_node_phase_plain,
                   fused_gmp_dyn.fused_edge_phase_win_dyn_plain,
                   fused_gmp_stream.fused_edge_phase_plain,
-                  fused_gmp_stream.fused_edge_mlp_aggregate_plain)
+                  fused_gmp_stream.fused_edge_mlp_aggregate_plain,
+                  windowed.windowed_conv_plain,
+                  segment_sum_accum.segment_sum_accum_plain)
 PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
                    node_mlp.fused_node_phase_bwd_plain,
                    windowed.windowed_send_sum_plain,
@@ -149,6 +158,13 @@ def flat():
                                      pos), "cpu")
 
 
+@pytest.fixture(scope="module")
+def bucketed():
+    """The variable-mesh group's 450-node mesh, bucketed and windowed
+    (residual sub-level at level 0, no TransOp), on the CPU."""
+    return to_device(group(WINDOW)[2][0][1], "cpu")
+
+
 @pytest.fixture
 def counters():
     def reset():
@@ -161,7 +177,7 @@ def counters():
     reset()
 
 
-def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
+def test_cpu_tensors_take_the_plain_versions(hier, flat, bucketed, counters):
     """Each wrapper, given CPU tensors, calls its plain version once and
     launches nothing. Its result is held to a direct call of the plain
     version at 1e-6: both run the same ops, but the CPU BLAS may split a
@@ -183,6 +199,9 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
     pos = torch.randn(n, 3, generator=g)
     wfd, wfn = torch.randn(3, 128, generator=g), torch.randn(128, generator=g)
     send = dict(send=True)
+    blvl = bucketed.levels[0]
+    xb = torch.randn(blvl.n_pad_nodes, 128, generator=g)
+    rfeat = torch.randn(blvl.resid.n_pad_edges, 128, generator=g)
     cases = [  # (wrapper, its plain version, a fresh copy of the arguments,
         #         keyword arguments)
         (fused_gmp.fused_edge_phase_win, fused_gmp.fused_edge_phase_win_plain,
@@ -209,6 +228,14 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
         (fused_gmp_stream.fused_edge_mlp_aggregate,
          fused_gmp_stream.fused_edge_mlp_aggregate_plain,
          lambda: (flvl, ef, ws, bs), {}),
+        (windowed.windowed_conv, windowed.windowed_conv_plain,
+         lambda: (blvl, xb, blvl.ew_rev), {}),
+        (segment_sum_accum.segment_sum_accum_raw,
+         segment_sum_accum.segment_sum_accum_plain,
+         lambda: (blvl.resid, rfeat, xb), {}),
+        (segment_sum_accum.segment_sum_accum_raw,
+         segment_sum_accum.segment_sum_accum_plain,
+         lambda: (blvl.resid, rfeat, xb), send),
     ]
     with torch.no_grad():
         for wrapper, plain, args, kw in cases:
@@ -237,6 +264,12 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, counters):
             sim = Simulator(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
             sim(flat, torch.randn(nf, 6, generator=g), torch.ones(nf, 1))
+        # The explicit transitions and the residual sub-level of a bucketed
+        # hierarchy: kernel 1's level form and kernel 9's routes.
+        sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1, out_dim=2),
+                        torch.Generator().manual_seed(0), device="cpu")
+        nb = blvl.n_pad_nodes
+        sim(bucketed, torch.randn(nb, 5, generator=g), torch.ones(nb, 1))
     assert [f.launches for f in counters] == [0] * len(KERNELS)
 
 
@@ -352,6 +385,61 @@ def test_stream_kernel_wrappers_raise_on_another_device(flat, name):
         getattr(fused_gmp_stream, name)(lvl, *rows, ws, bs, *extra)
 
 
+def test_kernel8_refuses_a_skip_empty_layout(bucketed):
+    """Kernel 8 leaves a block that owns no chunk without rows: JAX's
+    `_supported` refuses skip-empty layouts, and so does the port, on the
+    CPU as on the card; kernel 9 sums them."""
+    r = bucketed.levels[0].resid
+    assert r.skip_empty
+    feat = torch.randn(r.n_pad_edges, 128)
+    for send in (False, True):
+        with pytest.raises(ValueError, match="skip-empty"):
+            segment_sum.segment_sum_raw(r, feat, send=send)
+    with pytest.raises(ValueError, match="skip-empty"):
+        segment_sum.segment_sum(r, feat)
+    zeros = torch.zeros(r.n_pad_nodes, 128)
+    assert segment_sum_accum.segment_sum_accum_raw(r, feat, zeros).shape == (
+        r.n_pad_nodes, 128)
+
+
+def test_world_edges_on_bucketed_hierarchies_raise(bucketed):
+    """World-edge streams on a bucketed hierarchy: the explicit conv + pool
+    transitions raise (JAX takes the narrow stream through its ELL path),
+    and so does v4's residual sub-level branch (a windowed level with a
+    residual sub-level and no compact tables)."""
+    lvl = bucketed.levels[0]
+    assert lvl.resid is not None and lvl.cresid is None
+    n = lvl.n_pad_nodes
+    cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
+                      world_edges=True, world_dim=3, aggregation="fused")
+    sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0), fiber_dims=(3, 2))
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="explicit conv"):
+            sim.process(bucketed, torch.zeros(n, 128), pos=torch.zeros(n, 3),
+                        method="pallas")
+        with pytest.raises(NotImplementedError, match="residual sub-level"):
+            gmp(lvl, torch.zeros(n, 128), pos=torch.zeros(n, 3),
+                method="fused")
+        with pytest.raises(NotImplementedError, match="ELL"):
+            edge_conv_down(lvl, torch.zeros(n, 3))
+
+
+@pytest.mark.parametrize("name", ["windowed_conv", "segment_sum_accum_raw"])
+def test_new_kernel_wrappers_raise_on_another_device(bucketed, name):
+    """Kernel 1's level form and kernel 9 take the plain version on the
+    CPU, launch on CUDA and raise on any other device (here `meta`)."""
+    lvl = bucketed.levels[0]
+    meta = dict(device="meta")
+    x = torch.empty(lvl.n_pad_nodes, 128, **meta)
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        if name == "windowed_conv":
+            windowed.windowed_conv(lvl, x, lvl.ew)
+        else:
+            segment_sum_accum.segment_sum_accum_raw(
+                lvl.resid, torch.empty(lvl.resid.n_pad_edges, 128, **meta), x)
+
+
 def test_unsupported_layouts_raise(hier):
     pos, cells = scrambled_grid()
     h_flat = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2,
@@ -399,3 +487,13 @@ def test_chip_smoke_fails_without_card_or_package(tmp_path, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_train_spread_fails_without_card():
+    _no_cuda()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(REPO / "train_spread.py")],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

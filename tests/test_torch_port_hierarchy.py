@@ -37,11 +37,12 @@ DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr", "send_ptr",
                  "send_items", "row_ptr", "row_slots", "row_send")
 
 
-def assert_same(jax_obj, port_obj, path):
-    """Every field of the port's dataclass equals the JAX object's field of
-    the same name: integers exactly, floats within 1e-12."""
+def assert_same(jax_obj, port_obj, path, skip=()):
+    """Every field of the port's dataclass but those in `skip` equals the
+    JAX object's field of the same name: integers exactly, floats within
+    1e-12."""
     for f in dataclasses.fields(port_obj):
-        if f.name in DEVICE_TABLES:
+        if f.name in DEVICE_TABLES or f.name in skip:
             continue
         want, got = getattr(jax_obj, f.name), getattr(port_obj, f.name)
         where = f"{path}.{f.name}"
@@ -108,7 +109,11 @@ def test_hierarchy_matches_jax_array_for_array(case):
     assert len(ht.levels) == len(hj.levels) == depth + 1
     assert ht.depth == hj.depth == depth
     for l, (a, b) in enumerate(zip(hj.levels, ht.levels)):
-        assert_same(a, b, f"level{l}")
+        # An unbucketed build keeps its out-of-window edges as compact
+        # tables only: the model never reads the mini residual sub-level
+        # JAX builds beside them.
+        assert_same(a, b, f"level{l}", skip=("resid",))
+        assert b.resid is None
         assert b.fiber_t is not None
     for l, (a, b) in enumerate(zip(hj.transitions, ht.transitions)):
         assert_same(a.down_op, b.down_op, f"trans{l}.down")
