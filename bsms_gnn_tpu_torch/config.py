@@ -9,14 +9,34 @@ methods: `"fused"` (the fused edge-phase kernels: the windowed ones on
 windowed layouts with at most one world-space stream, the streamed-input
 ones on unwindowed layouts and for other world-space streams) or
 `"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
-fused aggregation + node-phase kernel). The parity-oracle methods `"ell"` and `"segment"` are not ported.
+fused aggregation + node-phase kernel). `"fusedK"` (2 ≤ K ≤ 8) is
+`"fused"` with K chunks per step on the densest windowed levels (the
+K-way interleaved kernel 14, `ops/kernels/fused_gmp_k.py`); `"fused1"` is
+`"fused"`. The parity-oracle methods `"ell"` and `"segment"` are not
+ported.
 `DatasetConfig` keeps the fields the trainer reads (the noise) and those
 that shape a variable-mesh dataset's hierarchies (`graph/buckets.py`)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import List
+from typing import List, Tuple
+
+# The widest chunk interleave `"fusedK"` takes.
+MAX_INTERLEAVE = 8
+
+
+def split_interleave(method: str) -> Tuple[str, int]:
+    """(base method, K) of an aggregation method: `"fusedK"` → ("fused",
+    K), every other method → (method, 1). K must lie in [1, 8] (JAX's
+    `_split_interleave` takes any K); another digit suffix raises."""
+    if method.startswith("fused") and method[5:].isdigit():
+        k = int(method[5:])
+        if not 1 <= k <= MAX_INTERLEAVE:
+            raise ValueError(f"aggregation {method!r}: K must lie in "
+                             f"[1, {MAX_INTERLEAVE}]")
+        return "fused", k
+    return method, 1
 
 
 @dataclass
@@ -33,7 +53,7 @@ class ModelConfig:
     # `world_dim` output channels are world positions (0 = pos_dim).
     world_edges: bool = False
     world_dim: int = 0
-    # "fused" or "pallas" (see the module docstring).
+    # "fused", "fusedK" or "pallas" (see the module docstring).
     aggregation: str = "fused"
     # Encode/decode MLP dtype: "" = the compute dtype; "float32" pins the
     # normalized I/O boundary to full precision while the processor runs in
@@ -41,6 +61,9 @@ class ModelConfig:
     io_dtype: str = ""
     # Checkpoint each GMP block. Not ported: the trainer raises on True.
     remat: bool = False
+
+    def __post_init__(self):
+        split_interleave(self.aggregation)
 
 
 @dataclass

@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from bsms_gnn_tpu_torch.config import split_interleave
 from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down, edge_conv_up
 from bsms_gnn_tpu_torch.ops.pool import pool_nodes, unpool_nodes
 from bsms_gnn_tpu_torch.ops.transition import trans_down, trans_up
@@ -31,8 +32,12 @@ def use_fused_trans(trans, level, method: str) -> bool:
     on the pallas and fused methods, to unwindowed levels and to windowed
     levels whose operators are windowed. The other transitions (bucketed
     hierarchies, which have no operator) take the explicit conv + pool
-    path."""
+    path. `"fusedK"` is `"fused"` here: JAX tests the unstripped method
+    (`bsgmp.py:71`), so its `"fusedK"` takes the explicit conv + pool on
+    every hierarchy, a departure the port does not copy (the same function
+    either way, as conv then pool is the operator)."""
     op = getattr(trans, "down_op", None)
+    method, _ = split_interleave(method)
     if method not in ("pallas", "fused") or op is None:
         return False
     return level.window == 0 or op.window > 0

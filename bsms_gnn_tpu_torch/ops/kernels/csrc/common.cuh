@@ -114,13 +114,13 @@ __device__ __forceinline__ void tile_store(const float (&acc)[R][4],
 }
 
 // Non-affine LayerNorm of every row of a ROWS×C shared-memory tile, in
-// place: mean, then the mean of squared deviations, then (x − mean) ·
-// 1/sqrt(var + eps) — 1.0f / sqrtf (both IEEE-rounded without fast math)
-// rather than rsqrtf, as the TPU kernels do.
-template <int ROWS = TILE>
+// place, by a block of NT threads: mean, then the mean of squared
+// deviations, then (x − mean) · 1/sqrt(var + eps) — 1.0f / sqrtf (both
+// IEEE-rounded without fast math) rather than rsqrtf, as the TPU kernels do.
+template <int ROWS = TILE, int NT = THREADS>
 __device__ __forceinline__ void tile_layer_norm(float* t) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
+  for (int r = warp; r < ROWS; r += NT / 32) {
     float4 v = reinterpret_cast<float4*>(t + r * C)[lane];
     const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
     v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;

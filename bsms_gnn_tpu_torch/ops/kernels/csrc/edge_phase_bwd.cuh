@@ -17,7 +17,9 @@
 //
 // One block per edge chunk walks it in 64-slot tiles, keeping every tail
 // layer's input, the running cotangent and the chunk's 128-row dxj block in
-// shared memory. dxj takes kernel 4's scheme (a part per chunk, summed over
+// shared memory (kernel 14's backward names its block's chunk, `chunk`, and
+// keeps the dxj block in shared memory, `store_part` false, for its cluster
+// to sum). dxj takes kernel 4's scheme (a part per chunk, summed over
 // chunk_ptr by block_sum_kernel). The weight gradients: each chunk adds its
 // tiles into its own partial in device memory, in tile order, and
 // grad_sum_kernel adds the partials in chunk order (no atomics). A chunk's
@@ -60,7 +62,8 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int edge_block, int window, float* __restrict__ part,
-    float* __restrict__ gpart, T* __restrict__ dpre) {
+    float* __restrict__ gpart, T* __restrict__ dpre, int chunk = -1,
+    bool store_part = true) {
   constexpr bool DYN = F == Front::kDyn;
   constexpr bool STREAM = F == Front::kStream;
   extern __shared__ float4 smem4[];
@@ -79,7 +82,7 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
   int* s_recv = s_row + TILE;
   int* s_loc = s_recv + TILE;
 
-  const int tid = threadIdx.x, ch = blockIdx.x;
+  const int tid = threadIdx.x, ch = chunk < 0 ? blockIdx.x : chunk;
   const int lane = tid & 31, warp = tid >> 5;
   const int base = STREAM ? 0 : win_base[ch] * (window / 2);
   const int row0 = chunk_block[ch] * BN;
@@ -183,6 +186,7 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
   }
   if (!with_dxj) return;
   __syncthreads();
+  if (!store_part) return;
   float4* dst = reinterpret_cast<float4*>(part + (size_t)ch * BN * C);
   for (int i = tid; i < BN * C / 4; i += THREADS) dst[i] = smem4[i];
 }

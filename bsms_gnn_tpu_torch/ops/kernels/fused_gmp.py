@@ -182,6 +182,14 @@ def fused_edge_phase_win_plain(level, xwi, xj, wf8, weights, biases):
     """Kernel 4's function in plain PyTorch (index_select / matmul /
     index_add_)."""
     fused_edge_phase_win_plain.calls += 1
+    return win_fwd_plain(level, xwi, xj, wf8, weights, biases)
+
+
+fused_edge_phase_win_plain.calls = 0
+
+
+def win_fwd_plain(level, xwi, xj, wf8, weights, biases):
+    """The windowed edge phase's forward (kernels 4 and 14), uncounted."""
     bf16 = xwi.dtype == torch.bfloat16
     pre, covered, recv = _edge_pre(level, xwi, xj, wf8, bf16)
     e = mlp_tail_plain(pre, [x.float() for x in weights],
@@ -192,9 +200,6 @@ def fused_edge_phase_win_plain(level, xwi, xj, wf8, weights, biases):
     out = torch.zeros(level.n_pad_nodes, xwi.shape[-1], dtype=torch.float32,
                       device=xwi.device)
     return out.index_add_(0, recv, e)
-
-
-fused_edge_phase_win_plain.calls = 0
 
 
 def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
@@ -239,6 +244,14 @@ fused_edge_phase_win_fwd.launches = 0
 def fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
     """Kernel 5's function in plain PyTorch."""
     fused_edge_phase_win_bwd_plain.calls += 1
+    return win_bwd_plain(level, xwi, xj, wf8, weights, biases, g)
+
+
+fused_edge_phase_win_bwd_plain.calls = 0
+
+
+def win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
+    """The windowed edge phase's backward (kernels 5 and 14), uncounted."""
     bf16 = xwi.dtype == torch.bfloat16
     pre, covered, recv = _edge_pre(level, xwi, xj, wf8, bf16)
     ws, bs = [w.float() for w in weights], [b.float() for b in biases]
@@ -252,9 +265,6 @@ def fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
                       device=xwi.device).index_add_(0, recv, dpre_op)
     dwf8 = dot(level.fiber_t, dpre, bf16)
     return dpre.to(xwi.dtype), dxj, dwf8, dw, db
-
-
-fused_edge_phase_win_bwd_plain.calls = 0
 
 
 def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
@@ -313,29 +323,37 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
 fused_edge_phase_win_bwd.launches = 0
 
 
-class _EdgePhase(torch.autograd.Function):
-    """Kernel 4 forward; kernel 5, then kernel 7 on dpre for xwi's
-    cotangent, backward. Returns a gradient for every weight and bias."""
+class EdgePhase(torch.autograd.Function):
+    """The windowed edge phase: `kernels` = (forward, backward), each
+    called as forward(level, xwi, xj, wf8, weights, biases) and
+    backward(..., g); kernel 7 on dpre then gives xwi's cotangent. Returns
+    a gradient for every weight and bias."""
 
     @staticmethod
-    def forward(ctx, level, n_layers, xwi, xj, wf8, *params):
+    def forward(ctx, level, kernels, n_layers, xwi, xj, wf8, *params):
         weights, biases = params[:n_layers], params[n_layers:]
-        ctx.level, ctx.n_layers = level, n_layers
+        ctx.level, ctx.kernels, ctx.n_layers = level, kernels, n_layers
         ctx.save_for_backward(xwi, xj, wf8, *params)
-        return fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases)
+        return kernels[0](level, xwi, xj, wf8, weights, biases)
 
     @staticmethod
     def backward(ctx, g):
         xwi, xj, wf8, *params = ctx.saved_tensors
         n = ctx.n_layers
         weights, biases = params[:n], params[n:]
-        dpre, dxj, dwf8, dw, db = fused_edge_phase_win_bwd(
+        dpre, dxj, dwf8, dw, db = ctx.kernels[1](
             ctx.level, xwi, xj, wf8, weights, biases, g)
         dxwi = windowed_send_sum(ctx.level, dpre)
-        return (None, None, dxwi.to(xwi.dtype), dxj.to(xj.dtype),
+        return (None, None, None, dxwi.to(xwi.dtype), dxj.to(xj.dtype),
                 dwf8.to(wf8.dtype),
                 *(d.to(w.dtype) for d, w in zip(dw.unbind(0), weights)),
                 *(d.to(b.dtype) for d, b in zip(db.unbind(0), biases)))
+
+
+# Kernels 4 and 5, looked up at each call (so that a caller may swap in
+# the plain versions).
+_V3 = (lambda *a: fused_edge_phase_win_fwd(*a),
+       lambda *a: fused_edge_phase_win_bwd(*a))
 
 
 def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
@@ -344,5 +362,5 @@ def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
     static-fiber rows of the first edge layer, row pd1 its bias;
     `weights`/`biases` are the tail layers ([C, C] stored [in, out])."""
     _check(level, xwi, xj, wf8, weights, biases)
-    return _EdgePhase.apply(level, len(weights), xwi, xj, wf8, *weights,
-                            *biases)
+    return EdgePhase.apply(level, _V3, len(weights), xwi, xj, wf8, *weights,
+                           *biases)

@@ -12,7 +12,12 @@ world-space fiber [Δworld, ‖Δworld‖] from the world positions.
 
 Two methods, as in the JAX package:
 - `"fused"`, routed as `gmp_apply` routes it; the node phase is one kernel
-  (kernel 3) on every route.
+  (kernel 3) on every route. `"fusedK"` (2 ≤ K ≤ 8) is `"fused"` with
+  K chunks per step on the windowed levels without world streams: kernel
+  14 on a level of at least 6 chunks per 128-node block, kernel 4 on the
+  others, v2 (kernel 12) on a skip-empty one that passes the gate
+  (`fused_gmp_k.fused_edge_phase_win_k`, JAX's `fused_edge_phase_win_k`).
+  World-edge GMPs ignore K, as in JAX.
   - Windowed level, no world stream (v3) or one world-space stream no
     wider than the latent (v4): the static fiber term and the first bias
     ride the kernel's [8, E] fiber stream (wf8) and in-window edges run the
@@ -52,6 +57,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from bsms_gnn_tpu_torch.config import split_interleave
 from bsms_gnn_tpu_torch.ops.dense import MLP, dense, mlp_apply_tail
 from bsms_gnn_tpu_torch.ops.kernels.agg_node import fused_aggregate_node_phase
 from bsms_gnn_tpu_torch.ops.kernels.compact_resid import (
@@ -62,6 +68,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import fused_edge_phase_win
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_dyn import (
     fused_edge_phase_win_dyn,
 )
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_k import fused_edge_phase_win_k
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_stream import (
     fused_edge_mlp_aggregate,
     fused_edge_phase,
@@ -104,6 +111,7 @@ class GMP(nn.Module):
                 method: str = "fused"):
         """One GMP step. x: [N_pad, C]; pos: [N_pad, Σ dyn_dims] world
         positions when the GMP has world edges."""
+        method, k = split_interleave(method)
         if method not in METHODS:
             raise NotImplementedError(f"aggregation method {method!r}")
         if self.dyn_dims and (pos is None
@@ -115,7 +123,7 @@ class GMP(nn.Module):
         dyn = self.dyn_dims
         if level.window > 0 and (not dyn or (len(dyn) == 1
                                              and dyn[0] <= x.shape[-1])):
-            return self._windowed(level, x, pos, compute_dtype)
+            return self._windowed(level, x, pos, compute_dtype, k)
         if not dyn:
             return self._streamed(level, x, compute_dtype)
         # v1 (`message.py:391-430`): the generic pre-activation, kernel 11.
@@ -129,25 +137,29 @@ class GMP(nn.Module):
         return (list(self.mlp_edge.weights)[1:],
                 list(self.mlp_edge.biases)[1:])
 
-    def _streamed(self, level, x, compute_dtype):
-        """`gmp_apply`'s v2 (`message.py:303-315`): zi = x@W_i gathered by
-        sender + fiber·W_f + b0, then kernel 12."""
+    def _streamed(self, level, x, compute_dtype, xwi=None, xj=None):
+        """`gmp_apply`'s v2 (`message.py:303-315`): zi = xwi = x@W_i
+        gathered by sender + fiber·W_f + b0, then kernel 12 (xwi and xj =
+        x@W_j as the windowed branch computed them, if it did)."""
         c = x.shape[-1]
         sfw = level.fiber.shape[-1]
         w1 = self.mlp_edge.weights[0]
         wf, wi, wj = w1[:sfw], w1[sfw:sfw + c], w1[sfw + c:]
-        xj = dense(x, wj, 0.0, compute_dtype)
-        zi = gather_send(level, dense(x, wi, 0.0, compute_dtype)) + dense(
+        if xj is None:
+            xj = dense(x, wj, 0.0, compute_dtype)
+            xwi = dense(x, wi, 0.0, compute_dtype)
+        zi = gather_send(level, xwi) + dense(
             level.fiber.to(x.dtype), wf, self.mlp_edge.biases[0],
             compute_dtype)
         aggr = fused_edge_phase(level, zi, xj, *self._tail())
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
-    def _windowed(self, level, x, pos, compute_dtype):
-        """`gmp_apply`'s windowed branches: v3 (`message.py:251-315`) and,
-        with one world-space stream of width wd, v4 (`message.py:317-389`),
-        whose first edge layer's rows are [Δworld (wd), ‖Δworld‖, static
-        (sfw), x_i (C), x_j (C)]."""
+    def _windowed(self, level, x, pos, compute_dtype, k=1):
+        """`gmp_apply`'s windowed branches: v3 (`message.py:251-315`), with
+        K > 1 v5 or v3 (kernel 14 or 4) by the density gate and v2 on a
+        skip-empty gated level, and, with one world-space stream of width
+        wd, v4 (`message.py:317-389`), whose first edge layer's rows are
+        [Δworld (wd), ‖Δworld‖, static (sfw), x_i (C), x_j (C)]."""
         c = x.shape[-1]
         wd = self.dyn_dims[0] if self.dyn_dims else 0
         sfw = level.fiber.shape[-1]
@@ -168,6 +180,10 @@ class GMP(nn.Module):
             wpos, wf_dyn = pos.detach().to(xwi.dtype), wf[:wd + 1]
             aggr = fused_edge_phase_win_dyn(level, xwi, xj, wpos, wf8,
                                             wf[:wd], wf[wd], *tail)
+        elif k > 1:
+            aggr = fused_edge_phase_win_k(level, xwi, xj, wf8, *tail, k)
+            if aggr is None:
+                return self._streamed(level, x, compute_dtype, xwi, xj)
         else:
             aggr = fused_edge_phase_win(level, xwi, xj, wf8, *tail)
         if level.cresid is not None:

@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero without the result line):
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, TF32 off, and the seventeen CUDA kernels built from `csrc/`;
+   versions, TF32 off, and the twenty CUDA kernels built from `csrc/`;
 2. the 5,233-node graded airfoil (Morton-ordered, depth 7, edge_block 512,
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
@@ -61,7 +61,18 @@ Phases (any failure exits non-zero without the result line):
    up) and kernel 9 (both forms, on the residual sub-levels and on a
    forced empty one) against their plain versions, then phases 4, 5, 7 and
    8 on it (both kernels timed), the `Trainer` run stepping across the
-   three meshes on frames of the analytic flow.
+   three meshes on frames of the analytic flow;
+14. the 5k airfoil of phase 2 on `aggregation="fused4"` (the K-way
+   interleaved method): kernel 14 (forward and backward) and kernels 4
+   and 5 at level 3, the densest levels' first, against their plain
+   versions (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it
+   (kernel 14 timed beside kernels 4 and 5 at level 3); its forward and
+   train step also against the `fused` airfoil's with the same weights;
+15. the v6 prototype's benchmark (`benchmarks/v6_prototype.py`): level 0
+   of a Morton-ordered `make_delaunay_mesh` of V6_NODES nodes (window 512,
+   edge_block 512), its sub-window tables and their coverage, kernel 15
+   against its plain version (f32, bf16, bf16 control), one counted launch,
+   and its time beside kernel 1's level form on the same level and weights.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -87,6 +98,8 @@ FLAG_NODES, FLAG_NY, FLAG_DEPTH = 1579, 32, 5
 # (nodes, seed) of the cylinder path's meshes; the second is served.
 CYLINDER_MESHES, CYLINDER_DEPTH = ((1600, 1), (1885, 0), (2000, 2)), 5
 ROLLOUT_STEPS = 20
+# The v6 benchmark's mesh (the prototype's 1M-node level 0) and layout.
+V6_NODES, V6_WINDOW = 1_000_000, 512
 # Published H100 SXM peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -149,6 +162,12 @@ TOL = {
     # dtype).
     ("segment_sum_accum", torch.float32): (2e-4, 1e-6),
     ("segment_sum_accum", torch.bfloat16): (2e-4, 1e-6),
+    # Kernel 14: kernel 4's function, so kernel 4's limits. Kernel 15: kernel
+    # 1's scheme (products of bf16 values, exact in f32), so kernel 1's.
+    ("fused_edge_phase_win_k", torch.float32): (2e-5, 1e-6),
+    ("fused_edge_phase_win_k", torch.bfloat16): (5e-3, 2e-5),
+    ("subwin_conv", torch.float32): (2e-5, 1e-6),
+    ("subwin_conv", torch.bfloat16): (2e-5, 1e-6),
 }
 # The whole forward, relative to the predicted delta's scale: in f32 the
 # prediction (state + delta, |state| up to ~5) itself rounds at ~5e-7. In
@@ -268,6 +287,21 @@ EXPECTED_CYLINDER_TRAIN_LAUNCHES = {
     "fused_node_phase": 11, "fused_node_phase_bwd": 11,
     "windowed_send_sum": 11, "windowed_conv": 20, "segment_sum_accum": 30,
     "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
+# The 5k airfoil on "fused4", per forward: levels 3, 4 and 5 hold 6.8, 10.0
+# and 12.0 edge chunks per 128-node block, at least the gate's 6, so kernel
+# 14 runs in their 6 GMPs (down and up) and kernel 4 in the other 9;
+# otherwise the airfoil's counts (the same TransOps and compact residuals).
+# Per train step: the forward's; kernel 14's backward in those 6 GMPs'
+# backwards and kernel 5 in the other 9; kernels 6 and 7 in all 15; kernels
+# 1 and 2 as the airfoil's.
+EXPECTED_FUSED4_LAUNCHES = {
+    "fused_edge_phase_win_k": 6, "fused_edge_phase_win": 9,
+    "fused_node_phase": 15, "windowed_rect_conv": 14, "compact_accum": 16}
+EXPECTED_FUSED4_TRAIN_LAUNCHES = {
+    "fused_edge_phase_win_k": 6, "fused_edge_phase_win_k_bwd": 6,
+    "fused_edge_phase_win": 9, "fused_edge_phase_win_bwd": 9,
+    "fused_node_phase": 15, "fused_node_phase_bwd": 15,
+    "windowed_rect_conv": 28, "compact_accum": 40, "windowed_send_sum": 15}
 BWD_OUTPUTS = {
     "fused_edge_phase_win_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
     "fused_edge_phase_win_dyn_bwd": ("dpre", "dxj", "dwf8", "dwf_dyn",
@@ -276,6 +310,7 @@ BWD_OUTPUTS = {
     "windowed_send_sum": ("out",),
     "fused_edge_phase_bwd": ("dzi", "dxj", "dW", "db"),
     "fused_edge_mlp_aggregate_bwd": ("dpre", "dW", "db"),
+    "fused_edge_phase_win_k_bwd": ("dpre", "dxj", "dwf8", "dW", "db"),
 }
 # Backward kernel vs plain on the card, every output judged on its own, as
 # fractions of the RMS of the plain output: (largest error, RMS error).
@@ -307,10 +342,13 @@ BWD_TOL = {
     ("fused_edge_phase_bwd", torch.bfloat16): (1e-1, 5e-4),
     ("fused_edge_mlp_aggregate_bwd", torch.float32): (2e-4, 2e-6),
     ("fused_edge_mlp_aggregate_bwd", torch.bfloat16): (1e-1, 5e-4),
+    # Kernel 14's backward: kernel 5's function and limits.
+    ("fused_edge_phase_win_k_bwd", torch.float32): (2e-5, 2e-6),
+    ("fused_edge_phase_win_k_bwd", torch.bfloat16): (1e-1, 5e-4),
 }
 BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
                 "fused_edge_phase_win_dyn_bwd", "fused_edge_phase_bwd",
-                "fused_edge_mlp_aggregate_bwd")
+                "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_k_bwd")
 # The train step through the kernels against the plain path: the loss
 # (relative), and each parameter's gradient as (largest error, RMS error)
 # relative to its RMS. f32: sums in other orders through 15 GMPs'
@@ -403,6 +441,16 @@ KERNEL_META = {
     "segment_sum_accum": (
         _CSRC + "segment_sum_accum.cu", _PALLAS + "segment_sum.py:176",
         ("segment_sum_accum_kernel",)),
+    "fused_edge_phase_win_k": (
+        _CSRC + "fused_gmp_k.cu", _PALLAS + "fused_gmp.py:1369",
+        ("fused_edge_phase_win_k_kernel", "block_sum_kernel")),
+    "fused_edge_phase_win_k_bwd": (
+        _CSRC + "fused_gmp_k_bwd.cu", _PALLAS + "fused_gmp.py:1639",
+        ("fused_edge_phase_win_k_bwd_kernel", "block_sum_kernel",
+         "group_grad_sum_kernel")),
+    "subwin_conv": (
+        _CSRC + "subwin_conv.cu", "benchmarks/v6_prototype.py:150",
+        ("subwin_conv_kernel", "block_sum_kernel")),
 }
 
 
@@ -422,16 +470,20 @@ def kernel_modules():
     the fused path, then the two of the pallas path, then kernel 13's
     forward and backward (world edges on the fused path), then kernels 12
     and 11, forward and backward (the fused path on unwindowed levels),
-    then kernel 1's level form and kernel 9 (bucketed hierarchies)."""
+    then kernel 1's level form and kernel 9 (bucketed hierarchies), then
+    kernel 14, forward and backward (`"fused4"`), and kernel 15 (the v6
+    benchmark)."""
     from bsms_gnn_tpu_torch.ops.kernels import (
         agg_node,
         compact_resid,
         fused_gmp,
         fused_gmp_dyn,
+        fused_gmp_k,
         fused_gmp_stream,
         node_mlp,
         segment_sum,
         segment_sum_accum,
+        subwin_conv,
         windowed,
     )
     return {
@@ -473,6 +525,12 @@ def kernel_modules():
         "windowed_conv": (windowed.windowed_conv, windowed.windowed_conv_plain),
         "segment_sum_accum": (segment_sum_accum.segment_sum_accum_raw,
                               segment_sum_accum.segment_sum_accum_plain),
+        "fused_edge_phase_win_k": (fused_gmp_k.fused_edge_phase_win_k_fwd,
+                                   fused_gmp_k.fused_edge_phase_win_k_plain),
+        "fused_edge_phase_win_k_bwd": (
+            fused_gmp_k.fused_edge_phase_win_k_bwd,
+            fused_gmp_k.fused_edge_phase_win_k_bwd_plain),
+        "subwin_conv": (subwin_conv.subwin_conv, subwin_conv.subwin_conv_plain),
     }
 
 
@@ -510,6 +568,7 @@ def plain_path():
         compact_resid,
         fused_gmp,
         fused_gmp_dyn,
+        fused_gmp_k,
         fused_gmp_stream,
         node_mlp,
         segment_sum_accum,
@@ -526,6 +585,10 @@ def plain_path():
                (fused_gmp, "fused_edge_phase_win_bwd",
                 "fused_edge_phase_win_bwd"),
                (fused_gmp, "windowed_send_sum", "windowed_send_sum"),
+               (fused_gmp_k, "fused_edge_phase_win_k_fwd",
+                "fused_edge_phase_win_k"),
+               (fused_gmp_k, "fused_edge_phase_win_k_bwd",
+                "fused_edge_phase_win_k_bwd"),
                (fused_gmp_dyn, "fused_edge_phase_win_dyn_fwd",
                 "fused_edge_phase_win_dyn"),
                (fused_gmp_dyn, "fused_edge_phase_win_dyn_bwd",
@@ -576,12 +639,16 @@ def fill_normalizers(sim, node_in, mask, rng):
         sim.norm_out = normalizer_accumulate(sim.norm_out, 0.1 * noise, mask)
 
 
-def build_case(device, plain=False):
+def build_case(device, plain=False, aggregation="fused"):
     """The bench configuration: mesh, hierarchy on `device`, model with
     seeded weights and filled normalizers, one input frame and mask. With
     `plain`, method_sweep.py's fused-v2 airfoil instead: the mesh as built
     (not reordered) and the default unwindowed hierarchy (edge_block 128),
-    so the fused method runs kernel 12."""
+    so the fused method runs kernel 12. `aggregation="fused4"`: the same
+    windowed case on the K-way interleaved method (kernel 14), with a twin
+    model on `fused` that holds the same weights and normalizers."""
+    from dataclasses import replace
+
     from bsms_gnn_tpu_torch.config import Config, ModelConfig
     from bsms_gnn_tpu_torch.data.synthetic import make_graded_airfoil_mesh
     from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
@@ -604,7 +671,8 @@ def build_case(device, plain=False):
 
     def config(**kw):
         return Config(model=ModelConfig(latent_dim=128, hidden_layer=3,
-                                        unet_depth=DEPTH, **kw))
+                                        unet_depth=DEPTH,
+                                        aggregation=aggregation, **kw))
 
     cfg = config().model
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
@@ -625,6 +693,15 @@ def build_case(device, plain=False):
                     expected_train=EXPECTED_PLAIN_TRAIN_LAUNCHES,
                     narrow=(0, 0), train_tol=PLAIN_TRAIN_TOL,
                     timed=("fused_edge_phase", "fused_edge_phase_bwd"))
+    if aggregation == "fused4":
+        twin = Simulator(replace(cfg, aggregation="fused"), device=device)
+        twin.load_state_dict(sim.state_dict())
+        twin.norm_in, twin.norm_out = sim.norm_in, sim.norm_out
+        return dict(label="airfoil 5k fused4", h=h, hd=hd, cfg=cfg, sim=sim,
+                    config=config, node_in=node_in, mask=mask, n=n,
+                    build_s=build_s, expected=EXPECTED_FUSED4_LAUNCHES,
+                    expected_train=EXPECTED_FUSED4_TRAIN_LAUNCHES,
+                    narrow=(0, 0), twin=twin)
     return dict(label="airfoil 5k", h=h, hd=hd, cfg=cfg, sim=sim,
                 config=config, node_in=node_in, mask=mask, n=n,
                 build_s=build_s, expected=EXPECTED_LAUNCHES,
@@ -911,9 +988,34 @@ def describe(case):
         expect.update({edge: gmps, "fused_node_phase": gmps,
                        "windowed_rect_conv": 2 * depth,
                        "compact_accum": cr_gmp + cr_ops})
+        if interleave(case) > 1:
+            # The density gate: kernel 14 on the levels that pass it (both
+            # GMPs of a level above the bottom), kernel 4 on the rest.
+            gated = gated_levels(case)
+            k14 = sum(2 - (l == depth) for l in gated)
+            print(f"levels that pass the density gate: {gated} (chunks per "
+                  f"128-node block: " + ", ".join(
+                      f"{g.n_pad_edges // g.edge_block / (g.n_pad_nodes // 128):.1f}"
+                      for g in h.levels) + ")")
+            expect.update({"fused_edge_phase_win_k": k14,
+                           "fused_edge_phase_win": gmps - k14})
     print(f"launches per forward from the layout: {expect}")
     require(expect == case["expected"],
             f"layout gives {expect}, expected {case['expected']}")
+
+
+def interleave(case):
+    """The case's K (1 unless the method is "fusedK")."""
+    from bsms_gnn_tpu_torch.config import split_interleave
+
+    return split_interleave(case["cfg"].aggregation)[1]
+
+
+def gated_levels(case):
+    """The levels on which a "fusedK" GMP runs kernel 14."""
+    from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_k import passes_gate
+
+    return [l for l, g in enumerate(case["h"].levels) if passes_gate(g)]
 
 
 def unwindowed(case):
@@ -973,6 +1075,12 @@ def kernel_inputs(case, dtype, device):
                 *([("f32 x", agg(lvl, gmp.mlp_node, torch.float32))]
                   if cd is not None else [])],
         }
+    if interleave(case) > 1:
+        # Kernel 14 and, beside it, kernel 4 at the first level that
+        # passes the density gate.
+        where, args = gated_edge_args(case, rand, dtype)
+        return {"fused_edge_phase_win_k": [(where, (*args, interleave(case)))],
+                "fused_edge_phase_win": [(where, args)]}
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     e0 = lvl.n_pad_edges
     if unwindowed(case):
@@ -1037,6 +1145,18 @@ def kernel_inputs(case, dtype, device):
     }
 
 
+def gated_edge_args(case, rand, dtype):
+    """(where, kernel 4's arguments) at the first level on which a "fusedK"
+    GMP runs kernel 14, with that level's down GMP's weights."""
+    l = gated_levels(case)[0]
+    lvl, gmp = case["hd"].levels[l], case["sim"].process.down_gmps[l]
+    n = lvl.n_pad_nodes
+    return f"level {l}", (lvl, rand(n, 128, dt=dtype), rand(n, 128, dt=dtype),
+                          first_layer(gmp)[0],
+                          list(gmp.mlp_edge.weights)[1:],
+                          list(gmp.mlp_edge.biases)[1:])
+
+
 def first_layer(gmp):
     """The fused kernels' first-layer operands from a GMP's edge MLP: wf8
     (the static fiber rows, then the bias); with world edges also wf_dyn
@@ -1084,33 +1204,39 @@ def check_kernels(case, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in kernel_inputs(case, dtype, device).items():
-            fn, plain = kernel_modules()[name]
-            tol_max, tol_rms = TOL[(name, dtype)]
             for where, args in shapes:
-                got, want = run(name, fn, args), run(name, plain, args)
-                err, err_rms, rms = compare(got, want)
-                ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
-                      and bool(torch.isfinite(got).all()))
-                print(f"kernel {name:26s} {where:12s} {str(dtype)[6:]:9s} "
-                      f"max_abs_err {err:.3e} ({err / rms:.2e} of rms "
-                      f"{rms:.3e}, tol {tol_max:.0e}, row "
-                      f"{worst_row(got, want)})  rms_err "
-                      f"{err_rms / rms:.2e} of rms (tol {tol_rms:.0e})  "
-                      f"{'ok' if ok else 'FAIL'}")
-                require(ok, f"{name} {where} {dtype} disagrees with plain")
+                err = check_kernel(name, where, args, dtype)
                 errs.setdefault((name, dtype), err)
-                ctrl = (control_args(name, args)
-                        if dtype == torch.bfloat16 else None)
-                if ctrl is None:
-                    continue
-                c_err, c_rms, _ = compare(run(name, fn, ctrl), want)
-                missed = c_err > tol_max * rms or c_rms > tol_rms * rms
-                print(f"  control (f32 kernel, no bf16 rounding): max "
-                      f"{c_err / rms:.2e}, rms {c_rms / rms:.2e} of rms: "
-                      f"{'misses the tolerance, ok' if missed else 'PASSES'}")
-                require(missed, f"{name} {where}: the bf16 tolerance does "
-                                f"not tell an unrounded kernel apart")
     return errs
+
+
+def check_kernel(name, where, args, dtype):
+    """One kernel against its plain version on `args`, and in bf16 its
+    control, which must miss the tolerance. Returns the max_abs_err."""
+    fn, plain = kernel_modules()[name]
+    tol_max, tol_rms = TOL[(name, dtype)]
+    got, want = run(name, fn, args), run(name, plain, args)
+    err, err_rms, rms = compare(got, want)
+    ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
+          and bool(torch.isfinite(got).all()))
+    print(f"kernel {name:26s} {where:12s} {str(dtype)[6:]:9s} "
+          f"max_abs_err {err:.3e} ({err / rms:.2e} of rms "
+          f"{rms:.3e}, tol {tol_max:.0e}, row "
+          f"{worst_row(got, want)})  rms_err "
+          f"{err_rms / rms:.2e} of rms (tol {tol_rms:.0e})  "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{name} {where} {dtype} disagrees with plain")
+    ctrl = control_args(name, args) if dtype == torch.bfloat16 else None
+    if ctrl is None:
+        return err
+    c_err, c_rms, _ = compare(run(name, fn, ctrl), want)
+    missed = c_err > tol_max * rms or c_rms > tol_rms * rms
+    print(f"  control (f32 kernel, no bf16 rounding): max "
+          f"{c_err / rms:.2e}, rms {c_rms / rms:.2e} of rms: "
+          f"{'misses the tolerance, ok' if missed else 'PASSES'}")
+    require(missed, f"{name} {where}: the bf16 tolerance does "
+                    f"not tell an unrounded kernel apart")
+    return err
 
 
 def check_slice(case, device):
@@ -1241,6 +1367,20 @@ def work(name, args, dtype):
 
     elt = 2 if dtype == torch.bfloat16 else 4
     c = 128
+    if name in ("fused_edge_phase_win_k", "fused_edge_phase_win_k_bwd"):
+        # Kernel 14 does kernel 4's (5's) work; its last argument is K.
+        name = {"fused_edge_phase_win_k": "fused_edge_phase_win",
+                "fused_edge_phase_win_k_bwd": "fused_edge_phase_win_bwd"}[name]
+        args = args[:-1]
+    if name == "subwin_conv":
+        # x in; ew, send_sub and receivers per slot and the sub-chunk
+        # tables in; the f32 output written; a multiply-add per covered
+        # slot and column.
+        lvl, x, ew, sub_base, send_sub = args
+        live = int((send_sub < 256).sum().item())
+        e = lvl.n_pad_edges
+        return (x.shape[0] * c * elt + 3 * e * 4 + sub_base.numel() * 4
+                + lvl.n_pad_nodes * c * 4), 2 * c * live
     if name in ("fused_edge_phase_win", "fused_edge_phase_win_dyn"):
         lvl, weights = args[0], args[-2]
         live = int((lvl.send_win < lvl.window).sum().item())
@@ -1375,6 +1515,16 @@ def library_call(name, args):
         vals = ew.float()[live]
         m = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
                                     (op.n_pad_nodes, x.shape[0]))
+        m = m.coalesce().to_sparse_csr()
+        xf = x.float()
+        return lambda: torch.sparse.mm(m, xf)
+    if name == "subwin_conv":
+        from bsms_gnn_tpu_torch.ops.kernels.subwin_conv import covered_rows
+
+        lvl, x, ew = args[:3]
+        rows, cols, keep = covered_rows(lvl, *args[3:])
+        m = torch.sparse_coo_tensor(torch.stack([rows, cols]), ew.float()[keep],
+                                    (lvl.n_pad_nodes, x.shape[0]))
         m = m.coalesce().to_sparse_csr()
         xf = x.float()
         return lambda: torch.sparse.mm(m, xf)
@@ -1542,6 +1692,14 @@ def bwd_kernel_inputs(case, dtype, device):
     c, n0, e0 = 128, lvl.n_pad_nodes, lvl.n_pad_edges
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     cd = dtype if dtype == torch.bfloat16 else None
+    if interleave(case) > 1:
+        # Kernel 14's backward and, beside it, kernel 5 at the first level
+        # that passes the density gate.
+        where, args = gated_edge_args(case, rand, dtype)
+        g_out = rand(args[0].n_pad_nodes, c)
+        return {"fused_edge_phase_win_k_bwd": [
+                    (where, (*args, g_out, interleave(case)))],
+                "fused_edge_phase_win_bwd": [(where, (*args, g_out))]}
     if unwindowed(case):
         if case["cfg"].world_edges:
             return {"fused_edge_mlp_aggregate_bwd": [
@@ -1759,6 +1917,115 @@ def check_train(case, device):
     return counts[torch.float32]
 
 
+def check_twin(case):
+    """A "fusedK" case's forward (f32, bf16) and f32 train step against
+    its `fused` twin's, which holds the same weights and normalizers: the
+    two methods compute one function (FORWARD_TOL, TRAIN_TOL)."""
+    sim, twin, hd, mask = (case[k] for k in ("sim", "twin", "hd", "mask"))
+    node_in, label = case["node_in"], case["label"]
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        with torch.no_grad():
+            got, want = sim(hd, node_in, mask, cd), twin(hd, node_in, mask, cd)
+        delta = (want - node_in[:, :want.shape[-1]]).abs().max().item()
+        err = (got - want).abs().max().item()
+        tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+        print(f"[{label}] forward {str(dtype)[6:]:9s} against the fused "
+              f"twin: max_abs_err {err:.3e} (delta scale {delta:.3e}, tol "
+              f"{tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        require(err <= tol, f"{label} {dtype} forward disagrees with the "
+                            f"fused method")
+    train_in, tar = case["train"]
+    loss, grads = step_grads(sim, hd, train_in, tar, mask, None)
+    loss_t, grads_t = step_grads(twin, hd, train_in, tar, mask, None)
+    tol_loss, tol_max, tol_rms = TRAIN_TOL[torch.float32]
+    rel, zero = grad_errors(grads, grads_t)
+    worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
+    loss_err = abs(loss - loss_t) / abs(loss_t)
+    ok = (loss_err <= tol_loss and worst_max[0] <= tol_max
+          and worst_rms[1] <= tol_rms)
+    print(f"[{label}] train step float32 against the fused twin: loss rel "
+          f"err {loss_err:.2e}; worst max err {worst_max[0]:.2e} of rms "
+          f"({worst_max[2]}), worst rms err {worst_rms[1]:.2e} of rms "
+          f"({worst_rms[2]}); {len(zero)} exactly zero on both  "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{label} f32 train step disagrees with the fused method")
+
+
+def v6_bench(device):
+    """The v6 prototype's benchmark (`benchmarks/v6_prototype.py:main`):
+    level 0 of a Morton-ordered `make_delaunay_mesh(V6_NODES)` (window
+    512, edge_block 512), built alone (no coarser level); its sub-window
+    tables and their coverage; kernel 15 against its plain version (f32,
+    bf16 and the bf16 control) and timed beside kernel 1's level form on
+    the same level and weights; one launch of kernel 15 counted. Returns
+    ({(name, dtype): max_abs_err}, {(name, dtype): time row}, launches,
+    end-to-end figures)."""
+    from bsms_gnn_tpu_torch.data.synthetic import make_delaunay_mesh
+    from bsms_gnn_tpu_torch.graph.bistride import build_bistride_levels
+    from bsms_gnn_tpu_torch.graph.hierarchy import pad_levels, to_device
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.ops.kernels.subwin_conv import build_sub_tables
+
+    t0 = time.perf_counter()
+    pos, cells, _ = make_delaunay_mesh(V6_NODES, np.random.default_rng(0))
+    pos, cells, _, _ = reorder_mesh(pos, cells)
+    pos = pos.astype(np.float64)
+    levels = build_bistride_levels(to_flat_edge(cells, "tri"), 0, len(pos),
+                                   pos)
+    h = pad_levels(levels, 128, pos=pos, edge_block=EDGE_BLOCK,
+                   window=V6_WINDOW)
+    build_s = time.perf_counter() - t0
+    lvl = h.levels[0]
+    t0 = time.perf_counter()
+    sub_base, send_sub, covered = build_sub_tables(lvl)
+    tables_s = time.perf_counter() - t0
+    real = np.asarray(lvl.edge_mask) > 0
+    in_win = real & (np.asarray(lvl.send_win) < lvl.window)
+    coverage = float(covered.sum() / in_win.sum())
+    print(f"[v6] level 0 of a {len(pos)}-node Delaunay mesh (Morton order, "
+          f"window {lvl.window}, edge_block {lvl.edge_block}): N_pad "
+          f"{lvl.n_pad_nodes}, E_pad {lvl.n_pad_edges}, E {lvl.n_edges}; "
+          f"built in {build_s:.2f} s, sub-window tables in {tables_s:.2f} s "
+          f"(host)")
+    print(f"[v6] covered: v6 {100 * coverage:.1f}% of the in-window set "
+          f"({100 * covered.sum() / real.sum():.1f}% of real edges); the "
+          f"window covers {100 * in_win.sum() / real.sum():.1f}% of real "
+          f"edges")
+    hd = to_device(h, device)
+    lv = hd.levels[0]
+    sb = torch.from_numpy(sub_base).to(device)
+    ss = torch.from_numpy(send_sub).to(device)
+    g = torch.Generator().manual_seed(5)
+    ew = torch.randn(lv.n_pad_edges, generator=g).to(device)
+    errs, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(lv.n_pad_nodes, 128, generator=g).to(dtype).to(device)
+        args = (lv, x, ew, sb, ss)
+        errs[("subwin_conv", dtype)] = check_kernel("subwin_conv", "level 0",
+                                                    args, dtype)
+        rows[("subwin_conv", dtype)] = time_kernel("subwin_conv", "level 0",
+                                                   args, dtype)
+        conv = time_kernel("windowed_conv", "level 0", (lv, x, ew), dtype)
+        print(f"[v6] {str(dtype)[6:]}: kernel 15 (sub-window) "
+              f"{rows[('subwin_conv', dtype)]['ms']:.5f} ms, kernel 1's level "
+              f"form (window {lv.window}) {conv['ms']:.5f} ms: "
+              f"{conv['ms'] / rows[('subwin_conv', dtype)]['ms']:.2f}x")
+        if dtype == torch.float32:
+            conv_ms = conv["ms"]
+    fn = kernel_modules()["subwin_conv"][0]
+    fn.launches = 0
+    fn(lv, x, ew, sb, ss)
+    launches = fn.launches
+    print(f"[v6] launches of kernel 15 in the phase's run: {launches}")
+    require(launches == 1, "kernel 15 did not launch once")
+    e2e = {"v6_coverage": coverage, "v6_build_s": build_s,
+           "v6_subwin_ms_f32": rows[("subwin_conv", torch.float32)]["ms"],
+           "v6_windowed_conv_ms_f32": conv_ms}
+    return errs, rows, launches, e2e
+
+
 def profile_call(fn):
     """One call of `fn` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device-busy ms (sum of the CUDA kernels' times; one
@@ -1866,6 +2133,8 @@ def run_case(build, device):
     case["train"] = case.get("train_frames") or (case["node_in"],
                                                   train_target(case))
     train = check_train(case, device)
+    if "twin" in case:
+        check_twin(case)
     train_rows, train_e2e = measure_train(case, device)
     rows.update(train_rows)
     e2e.update(train_e2e)
@@ -1896,7 +2165,10 @@ def main() -> int:
              ("surface_fused",
               functools.partial(build_surface_case, aggregation="fused"),
               "surface_fused_"),
-             ("cylinder", build_cylinder_case, "cylinder_"))
+             ("cylinder", build_cylinder_case, "cylinder_"),
+             ("airfoil_fused4",
+              functools.partial(build_case, aggregation="fused4"),
+              "airfoil_fused4_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -1916,15 +2188,22 @@ def main() -> int:
             e2e.update({prefix + k: v for k, v in t.items()})
             print(f"{phase} phases done at "
                   f"{time.perf_counter() - t_start:.1f} s")
+        with torch.no_grad():
+            v6_errs, v6_rows, v6_launches, v6_e2e = v6_bench(device)
+        e2e.update(v6_e2e)
+        print(f"v6 phase done at {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    # Kernel 15 runs on no model path: its numbers are the v6 phase's.
+    errs["v6_bench"], rows["v6_bench"] = v6_errs, v6_rows
+    train["v6_bench"] = serve["v6_bench"] = {"subwin_conv": v6_launches}
     kernels = []
     for name, (src, replaces, _) in KERNEL_META.items():
         # A kernel's numbers come from the first path that launches it:
         # launches per train step (per forward beside), its errors and
         # times; the counts of later paths that run it too ride beside.
-        runs = [p for p, _, _ in paths if train[p].get(name, 0) > 0]
+        runs = [p for p in train if train[p].get(name, 0) > 0]
         if not runs:
             print(f"chip_smoke FAILED: no path launched {name}",
                   file=sys.stderr)

@@ -2,8 +2,8 @@
 package; its entry points default to the CUDA card and raise without one;
 a kernel wrapper given CPU tensors runs its plain version once and counts
 no launch, forward and backward, on the fused path (windowed and
-unwindowed, with and without world edges) and the pallas path, and given
-tensors on another device raises; layouts and options the port does not
+unwindowed, with and without world edges, and `"fused4"`), the pallas
+path and the sub-window conv, and given tensors on another device raises; layouts and options the port does not
 support raise NotImplementedError (world-edge streams on the explicit
 transitions of bucketed hierarchies and on a residual sub-level among
 them); kernel 8 refuses a skip-empty layout; and chip_smoke.py fails
@@ -11,6 +11,7 @@ without a card or without the package beside it, train_spread.py without
 a card."""
 
 import ast
+import functools
 import os
 import pathlib
 import re
@@ -37,10 +38,12 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     compact_resid,
     fused_gmp,
     fused_gmp_dyn,
+    fused_gmp_k,
     fused_gmp_stream,
     node_mlp,
     segment_sum,
     segment_sum_accum,
+    subwin_conv,
     windowed,
 )
 from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down
@@ -130,7 +133,9 @@ KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
            fused_gmp_stream.fused_edge_phase_bwd,
            fused_gmp_stream.fused_edge_mlp_aggregate_fwd,
            fused_gmp_stream.fused_edge_mlp_aggregate_bwd,
-           windowed.windowed_conv, segment_sum_accum.segment_sum_accum_raw)
+           windowed.windowed_conv, segment_sum_accum.segment_sum_accum_raw,
+           fused_gmp_k.fused_edge_phase_win_k_fwd,
+           fused_gmp_k.fused_edge_phase_win_k_bwd, subwin_conv.subwin_conv)
 PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   node_mlp.fused_node_phase_plain,
                   windowed.windowed_rect_conv_plain,
@@ -141,13 +146,16 @@ PLAIN_FORWARDS = (fused_gmp.fused_edge_phase_win_plain,
                   fused_gmp_stream.fused_edge_phase_plain,
                   fused_gmp_stream.fused_edge_mlp_aggregate_plain,
                   windowed.windowed_conv_plain,
-                  segment_sum_accum.segment_sum_accum_plain)
+                  segment_sum_accum.segment_sum_accum_plain,
+                  fused_gmp_k.fused_edge_phase_win_k_plain,
+                  subwin_conv.subwin_conv_plain)
 PLAIN_BACKWARDS = (fused_gmp.fused_edge_phase_win_bwd_plain,
                    node_mlp.fused_node_phase_bwd_plain,
                    windowed.windowed_send_sum_plain,
                    fused_gmp_dyn.fused_edge_phase_win_dyn_bwd_plain,
                    fused_gmp_stream.fused_edge_phase_bwd_plain,
-                   fused_gmp_stream.fused_edge_mlp_aggregate_bwd_plain)
+                   fused_gmp_stream.fused_edge_mlp_aggregate_bwd_plain,
+                   fused_gmp_k.fused_edge_phase_win_k_bwd_plain)
 
 
 @pytest.fixture(scope="module")
@@ -202,6 +210,9 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, bucketed, counters):
     blvl = bucketed.levels[0]
     xb = torch.randn(blvl.n_pad_nodes, 128, generator=g)
     rfeat = torch.randn(blvl.resid.n_pad_edges, 128, generator=g)
+    sub_base, send_sub, _ = (torch.from_numpy(a) for a in
+                             subwin_conv.build_sub_tables(lvl))
+    ew = torch.randn(lvl.n_pad_edges, generator=g)
     cases = [  # (wrapper, its plain version, a fresh copy of the arguments,
         #         keyword arguments)
         (fused_gmp.fused_edge_phase_win, fused_gmp.fused_edge_phase_win_plain,
@@ -236,6 +247,12 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, bucketed, counters):
         (segment_sum_accum.segment_sum_accum_raw,
          segment_sum_accum.segment_sum_accum_plain,
          lambda: (blvl.resid, rfeat, xb), send),
+        (functools.partial(fused_gmp_k.fused_edge_phase_win_k,
+                           min_density=0),
+         fused_gmp_k.fused_edge_phase_win_k_plain,
+         lambda: (lvl, x, x, wf8, ws, bs, 4), {}),
+        (subwin_conv.subwin_conv, subwin_conv.subwin_conv_plain,
+         lambda: (lvl, x, ew, sub_base, send_sub), {}),
     ]
     with torch.no_grad():
         for wrapper, plain, args, kw in cases:
@@ -245,9 +262,11 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, bucketed, counters):
             assert plain.calls == 1, wrapper
             torch.testing.assert_close(got, plain(*args(), **kw), rtol=1e-6,
                                        atol=1e-6)
-        sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1),
-                        torch.Generator().manual_seed(0), device="cpu")
-        sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
+        for method in ("fused", "fused4"):
+            sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1,
+                                        aggregation=method),
+                            torch.Generator().manual_seed(0), device="cpu")
+            sim(hd, torch.randn(n, 6, generator=g), torch.ones(n, 1))
         cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
                           world_edges=True, aggregation="pallas")
         sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -283,7 +302,7 @@ def test_cpu_backward_takes_the_plain_versions(hier, counters):
     x = torch.randn(n, 128, generator=torch.Generator().manual_seed(1),
                     requires_grad=True)
     gmp(hd.levels[0], x).square().sum().backward()
-    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1, 0, 0, 0]
+    assert [f.calls for f in PLAIN_BACKWARDS] == [1, 1, 1, 0, 0, 0, 0]
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
     for name, p in gmp.named_parameters():
@@ -305,7 +324,7 @@ def test_cpu_backward_of_the_world_edge_fused_gmp_takes_the_plain_versions(
     out = gmp(lvl, x, pos=pos, method="fused")
     assert fused_gmp_dyn.fused_edge_phase_win_dyn_plain.calls == 1
     out.square().sum().backward()
-    assert [f.calls for f in PLAIN_BACKWARDS] == [0, 1, 1, 1, 0, 0]
+    assert [f.calls for f in PLAIN_BACKWARDS] == [0, 1, 1, 1, 0, 0, 0]
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert pos.grad is None
@@ -356,7 +375,7 @@ def test_cpu_backward_of_the_unwindowed_fused_gmp_takes_the_plain_versions(
     segment_sum.segment_sum_plain.calls = 0
     out.square().sum().backward()
     assert [f.calls for f in PLAIN_BACKWARDS] == (
-        [0, 1, 0, 0, 0, 1] if world else [0, 1, 0, 0, 1, 0])
+        [0, 1, 0, 0, 0, 1, 0] if world else [0, 1, 0, 0, 1, 0, 0])
     assert segment_sum.segment_sum_plain.calls == (2 if world else 1)
     assert [f.launches for f in counters] == [0] * len(KERNELS)
     assert x.grad is not None and torch.isfinite(x.grad).all()
