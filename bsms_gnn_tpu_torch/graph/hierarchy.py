@@ -52,6 +52,10 @@ NODE_BLOCK = 128
 # Transitions whose input and output pads are at most this wide (and that
 # are not windowed) also carry a dense [N_out, N_in] operator matrix.
 DENSE_TRANS_MAX = 2048
+# The row-ordered gather of kernels 1 and 15 (`csrc/window_gather.cuh`): a
+# row of more than GATHER_PIECE live slots (`long_rows`) is cut into pieces
+# of that many over a thread block of its own.
+GATHER_PIECE = 32
 
 
 def _pad_to(n: int, multiple: int, minimum: int = 0) -> int:
@@ -140,6 +144,13 @@ class LevelGraph:
     row_ptr: Optional[torch.Tensor] = None
     row_slots: Optional[torch.Tensor] = None
     row_send: Optional[torch.Tensor] = None
+    # Set by to_device on windowed levels, for kernel 1's level form: the
+    # live (in-window) slots of row r are win_row_slots[win_row_ptr[r] ..
+    # win_row_ptr[r+1]], in slot order; win_long the rows split into
+    # pieces (`long_rows`).
+    win_row_ptr: Optional[torch.Tensor] = None
+    win_row_slots: Optional[torch.Tensor] = None
+    win_long: Optional[torch.Tensor] = None
 
     @property
     def n_pad_nodes(self) -> int:
@@ -177,6 +188,10 @@ class TransOp:
     chunk_block: Optional[torch.Tensor] = None  # set by to_device
     row_ptr: Optional[torch.Tensor] = None  # set by to_device
     row_slots: Optional[torch.Tensor] = None  # set by to_device
+    # Set by to_device on windowed ops, for kernel 1 (as on LevelGraph).
+    win_row_ptr: Optional[torch.Tensor] = None
+    win_row_slots: Optional[torch.Tensor] = None
+    win_long: Optional[torch.Tensor] = None
 
     @property
     def n_pad_nodes(self) -> int:  # OUTPUT rows
@@ -777,6 +792,14 @@ def send_window_tables(win_base: np.ndarray, n_blocks: int):
     return ptr.astype(np.int32), item[order].astype(np.int32)
 
 
+def block_chunk_ptr(recv_indptr: np.ndarray, edge_block: int) -> np.ndarray:
+    """[n_pad/128 + 1] int32: the chunks of output block b are
+    chunk_ptr[b] .. chunk_ptr[b+1] (each block's edge segment starts on a
+    chunk boundary)."""
+    starts = np.asarray(recv_indptr)[::NODE_BLOCK]
+    return (starts // edge_block).astype(np.int32)
+
+
 def row_tables(receivers: np.ndarray, chunk_ptr: np.ndarray,
                edge_block: int) -> Tuple[np.ndarray, np.ndarray]:
     """(row_ptr [n_pad + 1], row_slots) of a block-aligned layout: row r
@@ -797,6 +820,24 @@ def row_tables(receivers: np.ndarray, chunk_ptr: np.ndarray,
     return ptr.astype(np.int32), slots.astype(np.int32)
 
 
+def live_row_tables(row_ptr: np.ndarray, row_slots: np.ndarray,
+                    live: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(ptr, slots) of `row_tables`' lists with only the slots where
+    `live` [E_pad] holds, in the same row and slot order: the lists the
+    gather of kernels 1 (live: `send_win < window`) and 15 (covered)
+    walks, with no sentinel or pad slot."""
+    keep = np.asarray(live, bool)[row_slots]
+    ptr = np.concatenate([[0], np.cumsum(keep)])[row_ptr]
+    return ptr.astype(np.int32), row_slots[keep].astype(np.int32)
+
+
+def long_rows(row_ptr: np.ndarray, piece: int = GATHER_PIECE) -> np.ndarray:
+    """int32, in row order: the rows of more than `piece` listed slots,
+    which the gather of kernels 1 and 15 cuts into pieces of `piece` slots
+    over a thread block of their own."""
+    return np.flatnonzero(np.diff(row_ptr) > piece).astype(np.int32)
+
+
 def _to_device(obj, device):
     changes = {}
     for f in dataclasses.fields(obj):
@@ -809,8 +850,7 @@ def _to_device(obj, device):
             changes[f.name] = tuple(_to_device(x, device) for x in v)
     out = dataclasses.replace(obj, **changes)
     if isinstance(obj, (LevelGraph, TransOp)):
-        starts = np.asarray(obj.recv_indptr)[::NODE_BLOCK]
-        ptr = (starts // obj.edge_block).astype(np.int32)
+        ptr = block_chunk_ptr(obj.recv_indptr, obj.edge_block)
         out.chunk_ptr = _tensor(ptr, device)
         out.chunk_block = _tensor(
             np.repeat(np.arange(len(ptr) - 1, dtype=np.int32), np.diff(ptr)),
@@ -821,6 +861,12 @@ def _to_device(obj, device):
         if isinstance(obj, LevelGraph):
             out.row_send = _tensor(
                 np.asarray(obj.reverse_perm)[row_slots], device)
+        if obj.window > 0:
+            win_ptr, win_slots = live_row_tables(
+                row_ptr, row_slots, np.asarray(obj.send_win) < obj.window)
+            out.win_row_ptr = _tensor(win_ptr, device)
+            out.win_row_slots = _tensor(win_slots, device)
+            out.win_long = _tensor(long_rows(win_ptr), device)
     if isinstance(obj, LevelGraph) and obj.window > 0:
         ptr, items = send_window_tables(np.asarray(obj.win_base),
                                         obj.n_pad_nodes // (obj.window // 2))
@@ -837,7 +883,8 @@ def to_device(h: Hierarchy, device=None) -> Hierarchy:
     """The same hierarchy with every array a tensor on `device`, plus the
     chunk → output block map (`chunk_block`), the per-block chunk ranges
     (`chunk_ptr`), visit ranges (`visit_ptr`) and per-row slot lists
-    (`row_ptr`, `row_slots`, `row_send`) the kernels walk. Each
-    output block's edge segment starts on a chunk boundary by construction,
-    so its chunks are one contiguous range."""
+    (`row_ptr`, `row_slots`, `row_send`; on windowed layouts also the
+    live ones, `win_row_ptr`, `win_row_slots`, `win_long`) the kernels
+    walk. Each output block's edge segment starts on a chunk boundary by
+    construction, so its chunks are one contiguous range."""
     return _to_device(h, resolve_device(device))

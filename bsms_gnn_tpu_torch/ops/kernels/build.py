@@ -124,6 +124,9 @@ def require(what: str, device, *tables) -> None:
     """Raise unless every layout table is a contiguous int32 tensor on
     `device` (the kernels index them as int32)."""
     for t in tables:
+        if t is None:
+            raise ValueError(f"{what}: a layout table is missing (the "
+                             f"layout did not pass through to_device)")
         if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
             raise ValueError(f"{what}: layout tables must be contiguous int32 "
                              f"on {device}, got {t.dtype} on {t.device}")

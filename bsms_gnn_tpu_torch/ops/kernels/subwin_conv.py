@@ -16,13 +16,18 @@ with j = send_sub[e] // 128; send_sub[e] = 256 marks a slot outside both
 blocks (not covered), which adds nothing. The share of the in-window real
 edges that it covers is the prototype's `covered` figure.
 
-CUDA design (`csrc/subwin_conv.cu`): kernel 1's, with this row: one thread
-block per edge chunk, each half of its threads adding ew·x[row] for half
-of the chunk's slots into its own shared-memory copy of the chunk's
-128-row output block (one thread per column, slot order, the row loads of
-eight slots issued before their adds), a part per chunk, then the
-chunk-ordered block sum. What bounds it on the card: bytes (one row read
-per covered slot, the output written once) and latency.
+CUDA design (`csrc/subwin_conv.cu` on `csrc/window_gather.cuh`): kernel
+1's row-ordered gather (`windowed.py`) over this function's slots, listed
+per output row in slot order by `sub_row_tables`, with the sub-window row
+resolved in the kernel from `sub_base` and `send_sub`: a warp per 4 rows,
+16-byte row loads (8 in bf16), the sum in registers in list order and one
+write per row; rows of more than 32 slots spread over a block's warps in
+a fixed order. One launch, no scratch, no atomics. What bounds it on the
+card: bytes (one row read per covered slot, the output written once).
+The first design was kernel 1's first one, 4.4x behind
+`torch.sparse.mm` on the 1M-node level for the same four reasons: one
+134 KB block per SM, a serial shared-memory add per slot, a 64 KB part
+per chunk summed by a second kernel, a walk over every slot.
 
 bf16 mode follows the TPU kernel, which rounds the ew-weighted one-hot to
 bf16 before its f32-accumulated dot: the weight is rounded to bf16 and its
@@ -34,13 +39,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import (
+    GATHER_PIECE,
+    block_chunk_ptr,
+    live_row_tables,
+    long_rows,
+    row_tables,
+)
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import round_bf16
 
 BN = 128
 SUB = 128  # slots of a sub-chunk and rows of a sender block
 K = 2  # sender blocks of a sub-chunk
-_SIG = [build.P] * 7 + [build.I] * 3 + [build.P] * 3
+_SIG = [build.P] * 7 + [build.I] * 3 + [build.P] * 2
 _FN = {torch.float32: "subwin_conv_f32", torch.bfloat16: "subwin_conv_bf16"}
 
 
@@ -84,6 +96,20 @@ def build_sub_tables(level):
             send_sub < K * SUB)
 
 
+def sub_row_tables(level, send_sub):
+    """The kernel's row lists on a host level (numpy arrays or CPU
+    tensors) and `build_sub_tables`' send_sub: (row_ptr [n_pad + 1],
+    row_slots, long) int32, the covered slots whose receiver lies in their
+    chunk's block, per receiver row in slot order, and the rows split into
+    pieces (`graph/hierarchy.py::long_rows`)."""
+    ptr = block_chunk_ptr(np.asarray(level.recv_indptr), level.edge_block)
+    row_ptr, row_slots = row_tables(np.asarray(level.receivers), ptr,
+                                    level.edge_block)
+    row_ptr, row_slots = live_row_tables(row_ptr, row_slots,
+                                         np.asarray(send_sub) < K * SUB)
+    return row_ptr, row_slots, long_rows(row_ptr)
+
+
 def _check(level, x, ew, sub_base, send_sub):
     if level.window <= 0 or level.edge_block % SUB:
         raise NotImplementedError("the sub-window conv needs a windowed "
@@ -114,8 +140,9 @@ def covered_rows(level, sub_base, send_sub):
     return recv[keep], rows[keep], keep
 
 
-def subwin_conv_plain(level, x, ew, sub_base, send_sub):
-    """Kernel 15's function in plain PyTorch (index_select / index_add_)."""
+def subwin_conv_plain(level, x, ew, sub_base, send_sub, row_lists=None):
+    """Kernel 15's function in plain PyTorch (index_select / index_add_);
+    it needs no row lists (`row_lists`, the kernel's)."""
     subwin_conv_plain.calls += 1
     recv, rows, keep = covered_rows(level, sub_base, send_sub)
     w = ew.float()[keep]
@@ -130,31 +157,35 @@ def subwin_conv_plain(level, x, ew, sub_base, send_sub):
 subwin_conv_plain.calls = 0
 
 
-def subwin_conv(level, x, ew, sub_base, send_sub):
+def subwin_conv(level, x, ew, sub_base, send_sub, row_lists=None):
     """out [n_pad, 128] f32 of the covered slots (see the module
-    docstring); `sub_base` and `send_sub` from `build_sub_tables`, as
-    int32 tensors on x's device. CPU tensors take the plain version; CUDA
-    tensors launch kernel 15."""
+    docstring); `sub_base` and `send_sub` from `build_sub_tables`,
+    `row_lists` from `sub_row_tables`, as int32 tensors on x's device. CPU
+    tensors take the plain version; CUDA tensors launch kernel 15, which
+    needs `row_lists`."""
     _check(level, x, ew, sub_base, send_sub)
     if x.device.type == "cpu":
         return subwin_conv_plain(level, x, ew, sub_base, send_sub)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    build.require("subwin_conv", x.device, sub_base, send_sub,
-                  level.receivers, level.chunk_block, level.chunk_ptr)
+    if row_lists is None:
+        raise ValueError("subwin_conv: the kernel needs the row lists of "
+                         "sub_row_tables")
+    row_ptr, row_slots, long = row_lists
+    if row_ptr.shape != (level.n_pad_nodes + 1,):
+        raise ValueError(f"row_ptr {tuple(row_ptr.shape)} != "
+                         f"({level.n_pad_nodes + 1},)")
+    build.require("subwin_conv", x.device, sub_base, send_sub, row_ptr,
+                  row_slots, long)
     lib = build.library("subwin_conv", {f: _SIG for f in _FN.values()})
     x = x.contiguous()
     ew = ew.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32,
-                       device=x.device)
     out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
                       device=x.device)
     err = getattr(lib, _FN[x.dtype])(
         x.data_ptr(), ew.data_ptr(), sub_base.data_ptr(),
-        send_sub.data_ptr(), level.receivers.data_ptr(),
-        level.chunk_block.data_ptr(), level.chunk_ptr.data_ptr(), n_chunks,
-        level.n_pad_nodes // BN, level.edge_block, part.data_ptr(),
+        send_sub.data_ptr(), row_ptr.data_ptr(), row_slots.data_ptr(),
+        long.data_ptr(), level.n_pad_nodes, long.numel(), GATHER_PIECE,
         out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "subwin_conv")

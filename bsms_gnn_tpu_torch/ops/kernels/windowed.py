@@ -10,19 +10,29 @@ x lives in the operator's INPUT space ([n_in_pad, C]), out in its OUTPUT
 space ([n_pad_nodes, C], f32). Sentinel slots (`send_win == W`) contribute
 nothing; the caller adds the compact residual (`compact_resid.py`).
 
-CUDA design (`csrc/windowed.cu`): one thread block per edge chunk; each
-half of its threads takes half of the chunk's slots, loads the selected
-rows directly (no one-hot selection; the loads of eight slots are issued
-before their adds) and adds them, scaled by their weights, into its own
-shared-memory copy of the chunk's 128-row output block, one thread per
-column, in slot order. The two copies are summed into a per-chunk part,
-and a second kernel adds the parts of each output block in chunk order
-(deterministic, no atomics; a block with no chunk comes out zero), so the
-deep transitions, whose few output blocks hold many chunks, still spread
-over many SMs. What bounds it on the card: bytes and latency. Each slot
-reads one 512-byte row (256 in bf16) and does 256 FLOP, far under the
-card's operations-per-byte line; at the 5k mesh each launch moves a few
-MB, so the per-launch latency dominates.
+CUDA design (`csrc/windowed.cu` on `csrc/window_gather.cuh`): a gather
+in output-row order. `to_device` lists each output row's live slots (in
+window, receiver inside its chunk's block: the slots the TPU kernel's
+one-hot counts) in slot order (`win_row_ptr`, `win_row_slots`). A warp
+owns 4 consecutive rows and walks their lists as one range: its lanes
+resolve 32 slots' rows (`win_base`, `send_win`) and weights at once, then
+each lane loads 16 bytes of every listed row (8 in bf16), 4 rows (8 in
+bf16) in flight, and sums in registers in list order; each row is written
+once, zero where it has no slot. A row of more than 32 live slots (the
+coarse levels' and transitions', `win_long`) gets a block of its own, its
+32-slot pieces spread over the block's 8 warps and summed in a fixed
+order. One launch, no scratch, no atomics. What bounds it on the card:
+bytes (one 512-byte row, 256 in bf16, read per live slot for 256 FLOP;
+the output written once); at the 5k mesh a launch moves a few MB, so its
+latency dominates.
+
+Why the first design lost, 4.5x behind `torch.sparse.mm` on a
+1M-node level: one thread block per edge chunk kept two 64 KB
+shared-memory copies of the chunk's output block (one block per SM, too
+few row loads in flight); each slot was a serial shared-memory
+read-modify-write with 4-byte loads, on scattered rows since a chunk is
+sorted by sender; every chunk wrote a 64 KB part that a second kernel read
+back (1 GB each way there); and sentinel slots were walked too.
 
 bf16 mode follows the TPU kernel, which rounds the ew-weighted one-hot to
 bf16 before the f32-accumulated scatter dot: the weight is rounded to bf16
@@ -41,7 +51,7 @@ Out-of-window edges ride the level's residual sub-level (the caller adds
 them, `ops/message.py`). The same kernel and entry point as the rect
 form, so the same bound and bf16 rounding; its wrapper keeps its own
 checks and launch count. An edge bucket's tail chunks (pad slots only,
-owned by the last block) carry the sentinel and add nothing.
+owned by the last block) carry the sentinel, so no row lists them.
 
 Kernel 7: the transposed windowed sum of a level (the sender side of the
 fused edge phase's backward). Replaces `bsms_gnn_tpu/ops/pallas/
@@ -52,8 +62,8 @@ windowed.py::windowed_send_sum_raw` (`_get_send_call` →
 
 with the sender row `win_base[chunk]·W/2 + send_win[e]`. Its output is
 indexed by sender windows, not by receiver blocks, and chunks are not
-sorted by window. CUDA design (`csrc/windowed_send.cu`), kernel 1's
-scheme turned around: one thread block per edge chunk adds each in-window
+sorted by window. CUDA design (`csrc/windowed_send.cu`), a scheme of its
+own: one thread block per edge chunk adds each in-window
 slot's row into a shared-memory copy of the chunk's W-row window, one
 thread per (column, row parity), in slot order, and writes it to a part
 per chunk; a second pass gives each W/2-row output block the matching
@@ -72,10 +82,11 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
-_SIG = [build.P] * 7 + [build.I] * 4 + [build.P] * 3
+_SIG = [build.P] * 7 + [build.I] * 5 + [build.P] * 2
 _FN = {torch.float32: "windowed_conv_f32",
        torch.bfloat16: "windowed_conv_bf16"}
 _SEND_SIG = [build.P] * 4 + [build.I] * 4 + [build.P] * 3
@@ -117,25 +128,24 @@ def _plain(t, x, ew):
 
 
 def _launch(what, t, x, ew):
-    """One launch of the kernel (and its block sum) over `t`'s chunks:
-    f32 [t.n_pad_nodes, 128]."""
+    """One launch of the kernel over `t`'s live-slot rows: f32
+    [t.n_pad_nodes, 128]."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    build.require(what, x.device, t.send_win, t.win_base, t.receivers,
-                  t.chunk_block, t.chunk_ptr)
+    build.require(what, x.device, t.send_win, t.win_base, t.win_row_ptr,
+                  t.win_row_slots, t.win_long)
     if ew.dtype != torch.float32 or not ew.is_contiguous():
         raise ValueError(f"{what}: ew must be contiguous f32")
     lib = build.library("windowed", {f: _SIG for f in _FN.values()})
     x = x.contiguous()
-    n_chunks = t.n_pad_edges // t.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32, device=x.device)
     out = torch.empty(t.n_pad_nodes, BN, dtype=torch.float32, device=x.device)
     err = getattr(lib, _FN[x.dtype])(
         x.data_ptr(), ew.data_ptr(), t.send_win.data_ptr(),
-        t.win_base.data_ptr(), t.receivers.data_ptr(),
-        t.chunk_block.data_ptr(), t.chunk_ptr.data_ptr(), n_chunks,
-        t.n_pad_nodes // BN, t.edge_block, t.window, part.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        t.win_base.data_ptr(), t.win_row_ptr.data_ptr(),
+        t.win_row_slots.data_ptr(), t.win_long.data_ptr(), t.n_pad_nodes,
+        t.win_long.numel(), t.edge_block, t.window, GATHER_PIECE,
+        out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, what)
     return out

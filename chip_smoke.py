@@ -70,9 +70,11 @@ Phases (any failure exits non-zero without the result line):
    train step also against the `fused` airfoil's with the same weights;
 15. the v6 prototype's benchmark (`benchmarks/v6_prototype.py`): level 0
    of a Morton-ordered `make_delaunay_mesh` of V6_NODES nodes (window 512,
-   edge_block 512), its sub-window tables and their coverage, kernel 15
-   against its plain version (f32, bf16, bf16 control), one counted launch,
-   and its time beside kernel 1's level form on the same level and weights.
+   edge_block 512), its sub-window tables and their coverage, kernel 15 and
+   kernel 1's level form, on the same level and weights, each against its
+   plain version (f32, bf16, bf16 control) and timed beside its plain
+   version, `torch.sparse.mm` and its bound; one counted launch of kernel
+   15.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -382,9 +384,10 @@ TRAIN_GATE, TRAIN_UPDATES = 2, 4
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). Kernels 1, 4, 5 and 7 add the pass that sums each output
+# launches). Kernels 4, 5, 7 and 11-14 add the pass that sums each output
 # block's chunk parts (the work the TPU kernel did in its revisited block);
-# kernels 5 and 6 the pass that sums the weight-gradient partials.
+# kernels 5 and 6 the pass that sums the weight-gradient partials. Kernels
+# 1 and 15 are one launch each (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -394,7 +397,7 @@ KERNEL_META = {
         ("fused_node_phase_kernel",)),
     "windowed_rect_conv": (
         _CSRC + "windowed.cu", _PALLAS + "windowed.py:111",
-        ("windowed_conv_kernel", "block_sum_kernel")),
+        ("windowed_gather_kernel",)),
     "compact_accum": (
         _CSRC + "compact_resid.cu", _PALLAS + "compact_resid.py:73",
         ("compact_accum_kernel",)),
@@ -437,7 +440,7 @@ KERNEL_META = {
     # Kernel 1's level form (`windowed_conv_raw`, the same `_get_call`).
     "windowed_conv": (
         _CSRC + "windowed.cu", _PALLAS + "windowed.py:328",
-        ("windowed_conv_kernel", "block_sum_kernel")),
+        ("windowed_gather_kernel",)),
     "segment_sum_accum": (
         _CSRC + "segment_sum_accum.cu", _PALLAS + "segment_sum.py:176",
         ("segment_sum_accum_kernel",)),
@@ -450,7 +453,7 @@ KERNEL_META = {
          "group_grad_sum_kernel")),
     "subwin_conv": (
         _CSRC + "subwin_conv.cu", "benchmarks/v6_prototype.py:150",
-        ("subwin_conv_kernel", "block_sum_kernel")),
+        ("subwin_gather_kernel",)),
 }
 
 
@@ -944,6 +947,14 @@ def describe(case):
         print(f"{l:5d} {g.n_nodes:8d} {g.n_pad_nodes:6d} {g.n_pad_edges:6d} "
               f"{g.n_edges:6d} {g.window:7d}  {str(cr):>11}  "
               f"{g.n_pad_edges / (g.n_pad_nodes // 128):19.0f}  {r}")
+    hd = case["hd"]
+    ops = [(f"T{l} {w}", getattr(t, f"{w}_op")) for l, t in
+           enumerate(hd.transitions) for w in ("down", "up")]
+    gathers = [(f"L{l}", g) for l, g in enumerate(hd.levels)] + ops
+    lines = [f"{k} {row_list_summary(t.win_row_ptr)}" for k, t in gathers
+             if t is not None and t.win_row_ptr is not None]
+    if lines:
+        print("kernel 1's live slots per row: " + "; ".join(lines))
     depth = h.depth
     gmps = 2 * depth + 1
     expect = dict.fromkeys(case["expected"], 0)
@@ -1376,7 +1387,7 @@ def work(name, args, dtype):
         # x in; ew, send_sub and receivers per slot and the sub-chunk
         # tables in; the f32 output written; a multiply-add per covered
         # slot and column.
-        lvl, x, ew, sub_base, send_sub = args
+        lvl, x, ew, sub_base, send_sub = args[:5]
         live = int((send_sub < 256).sum().item())
         e = lvl.n_pad_edges
         return (x.shape[0] * c * elt + 3 * e * 4 + sub_base.numel() * 4
@@ -1522,7 +1533,7 @@ def library_call(name, args):
         from bsms_gnn_tpu_torch.ops.kernels.subwin_conv import covered_rows
 
         lvl, x, ew = args[:3]
-        rows, cols, keep = covered_rows(lvl, *args[3:])
+        rows, cols, keep = covered_rows(lvl, *args[3:5])
         m = torch.sparse_coo_tensor(torch.stack([rows, cols]), ew.float()[keep],
                                     (lvl.n_pad_nodes, x.shape[0]))
         m = m.coalesce().to_sparse_csr()
@@ -1956,9 +1967,9 @@ def v6_bench(device):
     """The v6 prototype's benchmark (`benchmarks/v6_prototype.py:main`):
     level 0 of a Morton-ordered `make_delaunay_mesh(V6_NODES)` (window
     512, edge_block 512), built alone (no coarser level); its sub-window
-    tables and their coverage; kernel 15 against its plain version (f32,
-    bf16 and the bf16 control) and timed beside kernel 1's level form on
-    the same level and weights; one launch of kernel 15 counted. Returns
+    tables and their coverage; kernel 15 and kernel 1's level form on the
+    same level and weights, each against its plain version (f32, bf16 and
+    the bf16 control) and timed; one launch of kernel 15 counted. Returns
     ({(name, dtype): max_abs_err}, {(name, dtype): time row}, launches,
     end-to-end figures)."""
     from bsms_gnn_tpu_torch.data.synthetic import make_delaunay_mesh
@@ -1966,7 +1977,10 @@ def v6_bench(device):
     from bsms_gnn_tpu_torch.graph.hierarchy import pad_levels, to_device
     from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
     from bsms_gnn_tpu_torch.graph.order import reorder_mesh
-    from bsms_gnn_tpu_torch.ops.kernels.subwin_conv import build_sub_tables
+    from bsms_gnn_tpu_torch.ops.kernels.subwin_conv import (
+        build_sub_tables,
+        sub_row_tables,
+    )
 
     t0 = time.perf_counter()
     pos, cells, _ = make_delaunay_mesh(V6_NODES, np.random.default_rng(0))
@@ -1980,6 +1994,7 @@ def v6_bench(device):
     lvl = h.levels[0]
     t0 = time.perf_counter()
     sub_base, send_sub, covered = build_sub_tables(lvl)
+    sub_rows = sub_row_tables(lvl, send_sub)
     tables_s = time.perf_counter() - t0
     real = np.asarray(lvl.edge_mask) > 0
     in_win = real & (np.asarray(lvl.send_win) < lvl.window)
@@ -1987,43 +2002,61 @@ def v6_bench(device):
     print(f"[v6] level 0 of a {len(pos)}-node Delaunay mesh (Morton order, "
           f"window {lvl.window}, edge_block {lvl.edge_block}): N_pad "
           f"{lvl.n_pad_nodes}, E_pad {lvl.n_pad_edges}, E {lvl.n_edges}; "
-          f"built in {build_s:.2f} s, sub-window tables in {tables_s:.2f} s "
-          f"(host)")
+          f"built in {build_s:.2f} s, sub-window tables and row lists in "
+          f"{tables_s:.2f} s (host)")
     print(f"[v6] covered: v6 {100 * coverage:.1f}% of the in-window set "
           f"({100 * covered.sum() / real.sum():.1f}% of real edges); the "
           f"window covers {100 * in_win.sum() / real.sum():.1f}% of real "
           f"edges")
+    t0 = time.perf_counter()
     hd = to_device(h, device)
     lv = hd.levels[0]
+    print(f"[v6] to_device {time.perf_counter() - t0:.2f} s (host); live "
+          f"slots per row: kernel 1 {row_list_summary(lv.win_row_ptr)}, "
+          f"kernel 15 {row_list_summary(sub_rows[0])}")
     sb = torch.from_numpy(sub_base).to(device)
     ss = torch.from_numpy(send_sub).to(device)
+    rows15 = tuple(torch.from_numpy(a).to(device) for a in sub_rows)
     g = torch.Generator().manual_seed(5)
     ew = torch.randn(lv.n_pad_edges, generator=g).to(device)
     errs, rows = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(lv.n_pad_nodes, 128, generator=g).to(dtype).to(device)
-        args = (lv, x, ew, sb, ss)
-        errs[("subwin_conv", dtype)] = check_kernel("subwin_conv", "level 0",
-                                                    args, dtype)
-        rows[("subwin_conv", dtype)] = time_kernel("subwin_conv", "level 0",
-                                                   args, dtype)
-        conv = time_kernel("windowed_conv", "level 0", (lv, x, ew), dtype)
+        for name, args in (("subwin_conv", (lv, x, ew, sb, ss, rows15)),
+                           ("windowed_conv", (lv, x, ew))):
+            errs[(name, dtype)] = check_kernel(name, "v6 level 0", args,
+                                               dtype)
+            rows[(name, dtype)] = time_kernel(name, "v6 level 0", args,
+                                              dtype)
+        k15, k1 = rows[("subwin_conv", dtype)], rows[("windowed_conv", dtype)]
         print(f"[v6] {str(dtype)[6:]}: kernel 15 (sub-window) "
-              f"{rows[('subwin_conv', dtype)]['ms']:.5f} ms, kernel 1's level "
-              f"form (window {lv.window}) {conv['ms']:.5f} ms: "
-              f"{conv['ms'] / rows[('subwin_conv', dtype)]['ms']:.2f}x")
-        if dtype == torch.float32:
-            conv_ms = conv["ms"]
+              f"{k15['ms']:.5f} ms, kernel 1's level form (window "
+              f"{lv.window}) {k1['ms']:.5f} ms: {k1['ms'] / k15['ms']:.2f}x")
     fn = kernel_modules()["subwin_conv"][0]
     fn.launches = 0
-    fn(lv, x, ew, sb, ss)
+    fn(lv, x, ew, sb, ss, rows15)
     launches = fn.launches
     print(f"[v6] launches of kernel 15 in the phase's run: {launches}")
     require(launches == 1, "kernel 15 did not launch once")
-    e2e = {"v6_coverage": coverage, "v6_build_s": build_s,
-           "v6_subwin_ms_f32": rows[("subwin_conv", torch.float32)]["ms"],
-           "v6_windowed_conv_ms_f32": conv_ms}
+    f32 = torch.float32
+    e2e = {"v6_coverage": coverage, "v6_build_s": build_s}
+    for name, key in (("subwin_conv", "subwin"),
+                      ("windowed_conv", "windowed_conv")):
+        r = rows[(name, f32)]
+        e2e.update({f"v6_{key}_ms_f32": r["ms"],
+                    f"v6_{key}_ms_bf16": rows[(name, torch.bfloat16)]["ms"],
+                    f"v6_{key}_plain_ms_f32": r["plain_ms"],
+                    f"v6_{key}_bound_ms_f32": r["bound_ms"],
+                    f"v6_{key}_library_ms_f32": r["library_ms"]})
     return errs, rows, launches, e2e
+
+
+def row_list_summary(row_ptr):
+    """'max M, R rows over 32': the longest row list of a gather layout
+    and how many rows split into pieces."""
+    n = torch.diff(row_ptr.cpu().long()) if isinstance(
+        row_ptr, torch.Tensor) else np.diff(row_ptr)
+    return f"max {int(n.max())}, {int((n > 32).sum())} rows over 32"
 
 
 def profile_call(fn):

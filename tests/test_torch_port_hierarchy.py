@@ -34,7 +34,8 @@ from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.graph.order import reorder_mesh
 
 DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr", "send_ptr",
-                 "send_items", "row_ptr", "row_slots", "row_send")
+                 "send_items", "row_ptr", "row_slots", "row_send",
+                 "win_row_ptr", "win_row_slots", "win_long")
 
 
 def assert_same(jax_obj, port_obj, path, skip=()):
