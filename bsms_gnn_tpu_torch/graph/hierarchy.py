@@ -23,8 +23,8 @@ slot. An edge bucket larger than the layout appends chunks of pad slots,
 which belong to the last block.
 
 `to_device` turns a built hierarchy into the same dataclasses holding
-tensors, plus the per-block chunk and visit ranges and the per-row slot
-lists the CUDA kernels walk.
+tensors, plus the per-block chunk ranges and the per-row slot lists the
+CUDA kernels walk.
 """
 
 from __future__ import annotations
@@ -52,9 +52,9 @@ NODE_BLOCK = 128
 # Transitions whose input and output pads are at most this wide (and that
 # are not windowed) also carry a dense [N_out, N_in] operator matrix.
 DENSE_TRANS_MAX = 2048
-# The row-ordered gather of kernels 1 and 15 (`csrc/window_gather.cuh`): a
-# row of more than GATHER_PIECE live slots (`long_rows`) is cut into pieces
-# of that many over a thread block of its own.
+# The row-ordered gather of kernels 1, 2, 7 and 15 (`csrc/row_gather.cuh`):
+# a row of more than GATHER_PIECE listed slots (`long_rows`) is cut into
+# pieces of that many over a thread block of its own.
 GATHER_PIECE = 32
 
 
@@ -81,9 +81,13 @@ class CompactResid:
     n_real: int = 0
     n_pad_nodes: int = 0
     symmetric: bool = True
-    # Set by to_device: [n_pad_nodes/128 + 1] int32, visits of block b are
-    # visit_ptr[b] .. visit_ptr[b+1].
-    visit_ptr: Optional[torch.Tensor] = None
+    # Set by to_device, for kernel 2's gather (`compact_row_tables`): the
+    # distinct receivers of the real rows, ascending, cr_rows [U]; receiver
+    # cr_rows[k] sums compact rows cr_row_ptr[k] .. cr_row_ptr[k+1]; cr_long
+    # the receivers split into pieces (`long_rows`).
+    cr_rows: Optional[torch.Tensor] = None
+    cr_row_ptr: Optional[torch.Tensor] = None
+    cr_long: Optional[torch.Tensor] = None
 
     @property
     def n_rows(self) -> int:
@@ -131,13 +135,13 @@ class LevelGraph:
     # output block of each chunk.
     chunk_ptr: Optional[torch.Tensor] = None
     chunk_block: Optional[torch.Tensor] = None
-    # Set by to_device on windowed levels, for the sender-window sum: the
-    # (chunk, half) pairs whose window half covers W/2-row block k are
-    # send_items[send_ptr[k] .. send_ptr[k+1]], each 2·chunk + half, the
-    # chunks with win_base == k (half 0) then win_base == k − 1 (half 1),
-    # each group in chunk order.
-    send_ptr: Optional[torch.Tensor] = None
-    send_items: Optional[torch.Tensor] = None
+    # Set by to_device on windowed levels, for kernel 7's gather (the
+    # sender-window sum, `send_row_tables`): the in-window slots of sender
+    # row n are send_row_slots[send_row_ptr[n] .. send_row_ptr[n+1]], in slot
+    # order; send_long the rows split into pieces (`long_rows`).
+    send_row_ptr: Optional[torch.Tensor] = None
+    send_row_slots: Optional[torch.Tensor] = None
+    send_long: Optional[torch.Tensor] = None
     # Set by to_device, for the segment sums (`row_tables`): row r sums the
     # slots row_slots[row_ptr[r] .. row_ptr[r+1]] (receiver form) or, for
     # the sender form, the slots row_send[...] of their reverse edges.
@@ -778,20 +782,6 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def send_window_tables(win_base: np.ndarray, n_blocks: int):
-    """(send_ptr [n_blocks + 1], send_items) of `LevelGraph`: chunk c's
-    window covers W/2-row blocks win_base[c] (half 0) and win_base[c] + 1
-    (half 1)."""
-    chunks = np.arange(len(win_base))
-    block = np.concatenate([win_base, win_base + 1]).astype(np.int64)
-    item = np.concatenate([2 * chunks, 2 * chunks + 1])
-    keep = block < n_blocks
-    block, item = block[keep], item[keep]
-    order = np.lexsort((item % 2 * len(win_base) + item // 2, block))
-    ptr = np.searchsorted(block[order], np.arange(n_blocks + 1))
-    return ptr.astype(np.int32), item[order].astype(np.int32)
-
-
 def block_chunk_ptr(recv_indptr: np.ndarray, edge_block: int) -> np.ndarray:
     """[n_pad/128 + 1] int32: the chunks of output block b are
     chunk_ptr[b] .. chunk_ptr[b+1] (each block's edge segment starts on a
@@ -831,10 +821,46 @@ def live_row_tables(row_ptr: np.ndarray, row_slots: np.ndarray,
     return ptr.astype(np.int32), row_slots[keep].astype(np.int32)
 
 
+def send_row_tables(send_win: np.ndarray, win_base: np.ndarray,
+                    edge_block: int, window: int,
+                    n_pad: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(ptr [n_pad + 1], slots) of kernel 7's gather on a windowed level:
+    every slot with send_win < window, grouped by its sender row
+    win_base[e // edge_block]·window/2 + send_win[e], in slot order within
+    a row. The receiver plays no part (the TPU kernel's one-hot tests
+    send_win alone), so a pad slot with an in-window send_win is listed as
+    the TPU kernel counts it; these are not kernel 1's lists."""
+    sw = np.asarray(send_win, np.int64)
+    live = np.flatnonzero(sw < window)
+    base = np.repeat(np.asarray(win_base, np.int64), edge_block)
+    rows = base[live] * (window // 2) + sw[live]
+    if len(rows) and rows.max() >= n_pad:
+        raise ValueError(f"a sender row {rows.max()} lies past the level's "
+                         f"{n_pad} rows")
+    order = np.argsort(rows, kind="stable")
+    ptr = np.searchsorted(rows[order], np.arange(n_pad + 1))
+    return ptr.astype(np.int32), live[order].astype(np.int32)
+
+
+def compact_row_tables(receivers: np.ndarray,
+                       n_real: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(rows [U], ptr [U + 1]) of kernel 2's gather: the distinct receivers
+    of the first n_real compact rows, ascending, and their contiguous
+    ranges of compact rows (the rows are sorted by receiver). The pad rows
+    (n_real ..) carry receiver n_pad − 1 but add nothing, as the TPU
+    kernel masks them, so no list holds them."""
+    r = np.asarray(receivers[:n_real], np.int64)
+    if np.any(np.diff(r) < 0):
+        raise ValueError("compact rows are not sorted by receiver")
+    rows, first = np.unique(r, return_index=True)
+    ptr = np.append(first, n_real)
+    return rows.astype(np.int32), ptr.astype(np.int32)
+
+
 def long_rows(row_ptr: np.ndarray, piece: int = GATHER_PIECE) -> np.ndarray:
     """int32, in row order: the rows of more than `piece` listed slots,
-    which the gather of kernels 1 and 15 cuts into pieces of `piece` slots
-    over a thread block of their own."""
+    which the gather of kernels 1, 2, 7 and 15 cuts into pieces of `piece`
+    slots over a thread block of their own."""
     return np.flatnonzero(np.diff(row_ptr) > piece).astype(np.int32)
 
 
@@ -868,23 +894,28 @@ def _to_device(obj, device):
             out.win_row_slots = _tensor(win_slots, device)
             out.win_long = _tensor(long_rows(win_ptr), device)
     if isinstance(obj, LevelGraph) and obj.window > 0:
-        ptr, items = send_window_tables(np.asarray(obj.win_base),
-                                        obj.n_pad_nodes // (obj.window // 2))
-        out.send_ptr, out.send_items = _tensor(ptr, device), _tensor(items,
-                                                                      device)
+        ptr, slots = send_row_tables(obj.send_win, obj.win_base,
+                                     obj.edge_block, obj.window,
+                                     obj.n_pad_nodes)
+        out.send_row_ptr = _tensor(ptr, device)
+        out.send_row_slots = _tensor(slots, device)
+        out.send_long = _tensor(long_rows(ptr), device)
     if isinstance(obj, CompactResid):
-        ptr = np.searchsorted(np.asarray(obj.visit_block),
-                              np.arange(obj.n_pad_nodes // NODE_BLOCK + 1))
-        out.visit_ptr = _tensor(ptr.astype(np.int32), device)
+        rows, ptr = compact_row_tables(obj.receivers, obj.n_real)
+        out.cr_rows = _tensor(rows, device)
+        out.cr_row_ptr = _tensor(ptr, device)
+        out.cr_long = _tensor(long_rows(ptr), device)
     return out
 
 
 def to_device(h: Hierarchy, device=None) -> Hierarchy:
     """The same hierarchy with every array a tensor on `device`, plus the
     chunk → output block map (`chunk_block`), the per-block chunk ranges
-    (`chunk_ptr`), visit ranges (`visit_ptr`) and per-row slot lists
-    (`row_ptr`, `row_slots`, `row_send`; on windowed layouts also the
-    live ones, `win_row_ptr`, `win_row_slots`, `win_long`) the kernels
-    walk. Each output block's edge segment starts on a chunk boundary by
-    construction, so its chunks are one contiguous range."""
+    (`chunk_ptr`) and per-row slot lists (`row_ptr`, `row_slots`,
+    `row_send`; on windowed layouts also the live ones, `win_row_ptr`,
+    `win_row_slots`, `win_long`, and on windowed levels the sender rows',
+    `send_row_ptr`, `send_row_slots`, `send_long`) the kernels walk, and
+    each compact residual's receiver ranges (`cr_rows`, `cr_row_ptr`,
+    `cr_long`). Each output block's edge segment starts on a chunk
+    boundary by construction, so its chunks are one contiguous range."""
     return _to_device(h, resolve_device(device))

@@ -28,15 +28,26 @@ are receiver sums of the twin rows). So the gather's backward launches
 kernel 2, as on the TPU, not the `index_add_` scatter that autograd of
 `index_select` would run.
 
-CUDA design (`csrc/compact_resid.cu`): one thread block per 128-row output
-block loads the block's accumulator rows into shared memory, walks the
-block's visits (visits are sorted by output block, so they are one
-contiguous range, `visit_ptr`) staging each visit's 128 value rows in
-shared memory, and adds them one thread per output column and half-block
-in row order (deterministic, no atomics); blocks without a visit return at
-once. What bounds it on the card: bytes and latency (one read of each
-value row and of each visited accumulator block, one write back); at the
-5k mesh a launch moves well under a MB, so launch latency dominates.
+CUDA design (`csrc/compact_resid.cu` on `csrc/row_gather.cuh`): kernel
+1's gather over the distinct receivers of the real compact rows
+(`cr_rows`, ascending) and their ranges of compact rows (`cr_row_ptr`: the
+rows are sorted by receiver, `graph/hierarchy.py::compact_row_tables`).
+A warp owns 4 consecutive receivers; each lane loads 16 bytes (8 in bf16)
+of every row of their ranges, the value row of a position being the
+compact row itself (no slot table, no weight), sums in registers in row
+order and adds the sum onto the receiver's accumulator row, whose value
+it loaded beside its first rows. A receiver of more than 32 rows
+(`cr_long`) gets a block of its own. The pad rows (`n_real` ..) are listed
+nowhere, and accumulator rows no real row reaches are neither read nor
+written. One launch, no atomics. What bounds it on the card: bytes (each
+real value row read once, each reached accumulator row read and written
+once); at the 5k mesh a launch moves about a MB, so its latency
+dominates.
+
+Why not a shared-memory copy of each visited 128-row block of `acc`: every
+such block then moves whole (5.4 MB where 0.9 MB is needed at the 5k
+airfoil's level 0), added to by serial read-modify-writes, and it ran 2.4x
+slower than `index_add_` there.
 
 bf16 vals are summed into the f32 accumulator exactly as read.
 """
@@ -45,10 +56,11 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
-_SIG = [build.P] * 5 + [build.I] + [build.P]
+_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
 _FN = {torch.float32: "compact_accum_f32",
        torch.bfloat16: "compact_accum_bf16"}
 
@@ -86,15 +98,16 @@ def compact_accum_raw(cr, vals, acc):
         return compact_accum_plain(cr, vals, acc)
     if vals.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {vals.device}")
-    build.require("compact_accum", vals.device, cr.visit_cblk,
-                  cr.visit_recv, cr.visit_ptr)
+    build.require("compact_accum", vals.device, cr.cr_rows, cr.cr_row_ptr,
+                  cr.cr_long)
     if acc.device != vals.device:
         raise ValueError("acc and vals on different devices")
     lib = build.library("compact_resid", {f: _SIG for f in _FN.values()})
     vals = vals.contiguous()
     err = getattr(lib, _FN[vals.dtype])(
-        vals.data_ptr(), cr.visit_cblk.data_ptr(), cr.visit_recv.data_ptr(),
-        cr.visit_ptr.data_ptr(), acc.data_ptr(), cr.n_pad_nodes // BN,
+        vals.data_ptr(), cr.cr_rows.data_ptr(), cr.cr_row_ptr.data_ptr(),
+        cr.cr_long.data_ptr(), cr.cr_rows.numel(), cr.cr_long.numel(),
+        GATHER_PIECE, acc.data_ptr(),
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "compact_accum")

@@ -1,90 +1,70 @@
-// Kernel 2: the compact residual accumulate (see ../compact_resid.py).
+// Kernel 2: the compact residual accumulate (see ../compact_resid.py),
+// replacing the TPU kernel `bsms_gnn_tpu/ops/pallas/compact_resid.py::
+// compact_accum` (`_get_call`):
 //
-//   acc[vb·128 + rl] += vals[cb·128 + j]  for each visit v = (vb, cb) and
-//                                         row j with rl = visit_recv[v][j] ≥ 0
+//   acc[rows[k]] += Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} vals[i]
 //
-// In place on acc. One block per 128-row output block: it loads its rows
-// of acc, walks its visits [visit_ptr[b], visit_ptr[b+1]) staging each
-// visit's value rows in shared memory, adds them one thread per (column,
-// half-block) in row order, and writes the rows back. Blocks without a
-// visit return at once and keep acc.
-#include "common.cuh"
+// in place on acc, over the distinct receivers rows[k] of the real compact
+// rows (`cr_rows`, ascending) and their ranges of compact rows
+// (`cr_row_ptr`: the rows are sorted by receiver, so each receiver's are
+// contiguous). Pad rows are listed nowhere and add nothing, and accumulator
+// rows that no real row reaches are neither read nor written.
+//
+// What bounds it: bytes (each real value row read once, each reached
+// accumulator row read and written once); at the 5k mesh a launch moves
+// about a MB, so there the latency of its chain of dependent loads is its
+// time.
+//
+// Design: the row-ordered gather of row_gather.cuh over those ranges, with
+// the value row of position i the compact row i itself (no slot table, no
+// weight), adding each list's sum onto its accumulator row; a receiver of
+// more than 32 compact rows (`cr_long`) gets a block of its own. A warp's
+// chain is row_ptr and rows → vals and acc → acc. One launch, no atomics.
+//
+// Why not a shared-memory copy of each visited 128-row block of acc, as the
+// TPU kernel keeps its output block: every block a visit reached then moves
+// whole (5.4 MB where 0.9 MB is needed at the 5k airfoil's level 0), added
+// to by serial read-modify-writes, and it ran 2.4x slower than `index_add_`
+// there.
+#include "row_gather.cuh"
 
 using namespace bsms;
 
 namespace {
 
-constexpr int VROWS = 128;  // compact rows per visit
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (BN * C + TILE * C) + sizeof(int) * VROWS;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-compact_accum_kernel(const T* __restrict__ vals,
-                     const int* __restrict__ visit_cblk,
-                     const int* __restrict__ visit_recv,
-                     const int* __restrict__ visit_ptr,
-                     float* __restrict__ acc_g) {
-  const int blk = blockIdx.x;
-  const int v0 = visit_ptr[blk], v1 = visit_ptr[blk + 1];
-  if (v0 == v1) return;
-
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);  // [BN][C] accumulator rows
-  float* tile = acc + BN * C;                     // [TILE][C] value rows
-  int* s_loc = reinterpret_cast<int*>(tile + TILE * C);  // [VROWS]
-
-  const int tid = threadIdx.x;
-  float4* blk_rows = reinterpret_cast<float4*>(acc_g + (size_t)blk * BN * C);
-  for (int i = tid; i < BN * C / 4; i += THREADS) smem4[i] = blk_rows[i];
-
-  const int c = tid & (C - 1);
-  const int half = tid >> 7;
-  for (int v = v0; v < v1; ++v) {
-    const size_t row0 = (size_t)visit_cblk[v] * VROWS;
-    __syncthreads();  // previous visit is done with s_loc and the tile
-    if (tid < VROWS) s_loc[tid] = visit_recv[(size_t)v * VROWS + tid];
-    for (int j0 = 0; j0 < VROWS; j0 += TILE) {
-      if (j0) __syncthreads();  // previous half's scatter is done
-      for (int i = tid; i < TILE * C; i += THREADS)
-        tile[i] = to_f(vals[(row0 + j0) * C + i]);
-      __syncthreads();
-      for (int j = 0; j < TILE; ++j) {
-        const int loc = s_loc[j0 + j];
-        if (loc >= 0 && (loc >> 6) == half) acc[loc * C + c] += tile[j * C + c];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < BN * C / 4; i += THREADS) blk_rows[i] = smem4[i];
+template <typename T, bool BF16>
+__global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
+compact_gather_kernel(const T* __restrict__ vals,
+                      const int* __restrict__ rows,
+                      const int* __restrict__ row_ptr,
+                      const int* __restrict__ long_rows, int n_rows,
+                      int piece, float* __restrict__ acc) {
+  gather_rows<BF16>(vals, RangeRows{}, AddToRows{rows}, row_ptr, long_rows,
+                    n_rows, piece, acc);
 }
 
-template <typename T>
-int launch(const void* vals, const void* visit_cblk, const void* visit_recv,
-           const void* visit_ptr, void* acc, int n_blocks, void* stream) {
-  auto kernel = compact_accum_kernel<T>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  kernel<<<n_blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const T*)vals, (const int*)visit_cblk, (const int*)visit_recv,
-      (const int*)visit_ptr, (float*)acc);
+template <typename T, bool BF16>
+int launch(const void* vals, const void* rows, const void* row_ptr,
+           const void* long_rows, int n_rows, int n_long, int piece,
+           void* acc, void* stream) {
+  if (n_rows < 1 || n_long < 0 || piece < 1) return (int)cudaErrorInvalidValue;
+  compact_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+      (const T*)vals, (const int*)rows, (const int*)row_ptr,
+      (const int*)long_rows, n_rows, piece, (float*)acc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int compact_accum_f32(const void* vals, const void* visit_cblk,
-                                 const void* visit_recv, const void* visit_ptr,
-                                 void* acc, int n_blocks, void* stream) {
-  return launch<float>(vals, visit_cblk, visit_recv, visit_ptr, acc, n_blocks,
-                       stream);
-}
+#define COMPACT_ACCUM(NAME, T, BF16)                                          \
+  extern "C" int NAME(const void* vals, const void* rows,                    \
+                      const void* row_ptr, const void* long_rows,            \
+                      int n_rows, int n_long, int piece, void* acc,          \
+                      void* stream) {                                        \
+    return launch<T, BF16>(vals, rows, row_ptr, long_rows, n_rows, n_long,   \
+                           piece, acc, stream);                              \
+  }
 
-extern "C" int compact_accum_bf16(const void* vals, const void* visit_cblk,
-                                  const void* visit_recv,
-                                  const void* visit_ptr, void* acc,
-                                  int n_blocks, void* stream) {
-  return launch<__nv_bfloat16>(vals, visit_cblk, visit_recv, visit_ptr, acc,
-                               n_blocks, stream);
-}
+COMPACT_ACCUM(compact_accum_f32, float, false)
+COMPACT_ACCUM(compact_accum_bf16, __nv_bfloat16, true)

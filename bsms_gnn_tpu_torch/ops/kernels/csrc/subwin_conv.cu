@@ -9,13 +9,13 @@
 // and the output written once.
 //
 // Design: kernel 1's (windowed.cu), the row-ordered gather of
-// window_gather.cuh over the covered slots whose receiver lies in their
+// row_gather.cuh over the covered slots whose receiver lies in their
 // chunk's block, listed per row in slot order (`sub_row_tables`), with this
 // row resolved here from sub_base and send_sub. One launch, no scratch. The
 // first design was kernel 1's first one, with its four costs: one
 // 134 KB block per SM, a serial shared-memory add per slot, a 64 KB part
 // per chunk summed by a second kernel, and a walk over every slot.
-#include "window_gather.cuh"
+#include "row_gather.cuh"
 
 using namespace bsms;
 
@@ -42,8 +42,8 @@ subwin_gather_kernel(const T* __restrict__ x, const float* __restrict__ ew,
                      const int* __restrict__ row_slots,
                      const int* __restrict__ long_rows, int n_rows,
                      int piece, float* __restrict__ out) {
-  gather_rows<BF16>(x, ew, row_ptr, row_slots, long_rows, n_rows, piece,
-                    row_of, out);
+  gather_rows<BF16>(x, WeightedSlots<SubRow>{row_slots, ew, row_of},
+                    StoreRows{}, row_ptr, long_rows, n_rows, piece, out);
 }
 
 template <typename T, bool BF16>

@@ -11,7 +11,7 @@
 // bf16) for 256 FLOP, and at the 5k mesh a launch moves a few MB, so there
 // the latency of one launch is its time.
 //
-// Design: the row-ordered gather of window_gather.cuh over the layout's
+// Design: the row-ordered gather of row_gather.cuh over the layout's
 // live-slot lists (`win_row_ptr`, `win_row_slots`: the slots with send_win
 // < W whose receiver lies in their chunk's block, in slot order) and its
 // rows of more than 32 of them (`win_long`). Each slot's row is resolved
@@ -26,7 +26,7 @@
 // memory with 4-byte loads; each chunk wrote a 64 KB part that a second
 // kernel read back (1 GB each way on a 1M-node level), and sentinel slots
 // were walked too. It was 4.5x slower than `torch.sparse.mm` there.
-#include "window_gather.cuh"
+#include "row_gather.cuh"
 
 using namespace bsms;
 
@@ -49,8 +49,8 @@ windowed_gather_kernel(const T* __restrict__ x, const float* __restrict__ ew,
                        const int* __restrict__ row_slots,
                        const int* __restrict__ long_rows, int n_rows,
                        int piece, float* __restrict__ out) {
-  gather_rows<BF16>(x, ew, row_ptr, row_slots, long_rows, n_rows, piece,
-                    row_of, out);
+  gather_rows<BF16>(x, WeightedSlots<WindowRow>{row_slots, ew, row_of},
+                    StoreRows{}, row_ptr, long_rows, n_rows, piece, out);
 }
 
 template <typename T, bool BF16>

@@ -16,7 +16,7 @@ with j = send_sub[e] // 128; send_sub[e] = 256 marks a slot outside both
 blocks (not covered), which adds nothing. The share of the in-window real
 edges that it covers is the prototype's `covered` figure.
 
-CUDA design (`csrc/subwin_conv.cu` on `csrc/window_gather.cuh`): kernel
+CUDA design (`csrc/subwin_conv.cu` on `csrc/row_gather.cuh`): kernel
 1's row-ordered gather (`windowed.py`) over this function's slots, listed
 per output row in slot order by `sub_row_tables`, with the sub-window row
 resolved in the kernel from `sub_base` and `send_sub`: a warp per 4 rows,

@@ -10,7 +10,7 @@ x lives in the operator's INPUT space ([n_in_pad, C]), out in its OUTPUT
 space ([n_pad_nodes, C], f32). Sentinel slots (`send_win == W`) contribute
 nothing; the caller adds the compact residual (`compact_resid.py`).
 
-CUDA design (`csrc/windowed.cu` on `csrc/window_gather.cuh`): a gather
+CUDA design (`csrc/windowed.cu` on `csrc/row_gather.cuh`): a gather
 in output-row order. `to_device` lists each output row's live slots (in
 window, receiver inside its chunk's block: the slots the TPU kernel's
 one-hot counts) in slot order (`win_row_ptr`, `win_row_slots`). A warp
@@ -62,20 +62,24 @@ windowed.py::windowed_send_sum_raw` (`_get_send_call` →
 
 with the sender row `win_base[chunk]·W/2 + send_win[e]`. Its output is
 indexed by sender windows, not by receiver blocks, and chunks are not
-sorted by window. CUDA design (`csrc/windowed_send.cu`), a scheme of its
-own: one thread block per edge chunk adds each in-window
-slot's row into a shared-memory copy of the chunk's W-row window, one
-thread per (column, row parity), in slot order, and writes it to a part
-per chunk; a second pass gives each W/2-row output block the matching
-halves of the parts of the chunks whose window covers it, from host-built
-tables (`send_ptr`, `send_items`, see `graph/hierarchy.py`): low halves
-then high halves, each in chunk order. Deterministic, no atomics, and a
-block no chunk covers comes out zero. Sentinel slots (`send_win == W`)
-add nothing. What bounds it on the card: bytes (each in-window slot's row
-read once, the output written once) and latency; the sum rounds nothing
-(bf16 rows add exactly into f32). A first design, one thread block per
-output block walking its chunks, ran the deep levels' many chunks per
-block in series (PERF.md).
+sorted by window. CUDA design (`csrc/windowed_send.cu` on
+`csrc/row_gather.cuh`): kernel 1's gather in sender-row order. `to_device`
+lists each sender row's in-window slots in slot order (`send_row_ptr`,
+`send_row_slots`, `graph/hierarchy.py::send_row_tables`): every slot with
+`send_win < W`, whatever its receiver, as the TPU kernel's one-hot tests
+`send_win` alone (so not kernel 1's lists). A warp owns 4 consecutive
+sender rows; the value row of a slot is the slot itself, so its chain is
+row_ptr → slots → vals, with no weight; a row with no slot comes out zero,
+and a row of more than 32 slots (the coarse levels', `send_long`) gets a
+block of its own. One launch, no scratch, no atomics. What bounds it on
+the card: bytes (each in-window slot's row read once, the output written
+once); at the 5k mesh a launch moves a few MB, so its latency dominates.
+The sum rounds nothing (bf16 rows add exactly into f32).
+
+Why not a shared-memory copy of each chunk's window, summed per block by a
+second kernel: one block per SM, a serial read-modify-write per slot and
+10.5 MB of parts each way ran 1.8x slower than `index_add_` at the 5k
+airfoil's level 0.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ BN = 128
 _SIG = [build.P] * 7 + [build.I] * 5 + [build.P] * 2
 _FN = {torch.float32: "windowed_conv_f32",
        torch.bfloat16: "windowed_conv_bf16"}
-_SEND_SIG = [build.P] * 4 + [build.I] * 4 + [build.P] * 3
+_SEND_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
 _SEND_FN = {torch.float32: "windowed_send_sum_f32",
             torch.bfloat16: "windowed_send_sum_bf16"}
 
@@ -238,21 +242,18 @@ def windowed_send_sum(level, vals):
         return windowed_send_sum_plain(level, vals)
     if vals.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {vals.device}")
-    build.require("windowed_send_sum", vals.device, level.send_win,
-                  level.send_ptr, level.send_items)
+    build.require("windowed_send_sum", vals.device, level.send_row_ptr,
+                  level.send_row_slots, level.send_long)
     lib = build.library("windowed_send",
                         {f: _SEND_SIG for f in _SEND_FN.values()})
     vals = vals.contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
-    f32 = dict(dtype=torch.float32, device=vals.device)
-    part = torch.empty(n_chunks, level.window, BN, **f32)
-    out = torch.empty(level.n_pad_nodes, BN, **f32)
+    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
+                      device=vals.device)
     err = getattr(lib, _SEND_FN[vals.dtype])(
-        vals.data_ptr(), level.send_win.data_ptr(), level.send_ptr.data_ptr(),
-        level.send_items.data_ptr(), n_chunks,
-        level.n_pad_nodes // (level.window // 2), level.edge_block,
-        level.window, part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(vals.device).cuda_stream,
+        vals.data_ptr(), level.send_row_ptr.data_ptr(),
+        level.send_row_slots.data_ptr(), level.send_long.data_ptr(),
+        level.n_pad_nodes, level.send_long.numel(), GATHER_PIECE,
+        out.data_ptr(), torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "windowed_send_sum")
     windowed_send_sum.launches += 1

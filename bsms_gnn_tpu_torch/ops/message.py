@@ -18,11 +18,12 @@ Two methods, as in the JAX package:
   others, v2 (kernel 12) on a skip-empty one that passes the gate
   (`fused_gmp_k.fused_edge_phase_win_k`, JAX's `fused_edge_phase_win_k`).
   World-edge GMPs ignore K, as in JAX.
-  - Windowed level, no world stream (v3) or one world-space stream no
-    wider than the latent (v4): the static fiber term and the first bias
-    ride the kernel's [8, E] fiber stream (wf8) and in-window edges run the
-    fused edge kernel, kernel 4 or kernel 13 (Δworld and ‖Δworld‖ computed
-    in the kernel from the detached positions). Out-of-window edges run the
+  - Windowed level, no world stream (v3) or one world-space stream of
+    width at most 4 (v4; kernel 13's `MAX_WD`): the static fiber term and
+    the first bias ride the kernel's [8, E] fiber stream (wf8) and
+    in-window edges run the fused edge kernel, kernel 4 or kernel 13
+    (Δworld and ‖Δworld‖ computed in the kernel from the detached
+    positions). Out-of-window edges run the
     edge MLP on the compact residual rows and accumulate onto the aggregate
     (kernel 2); on bucketed hierarchies, which carry no compact tables, v3
     runs them on the residual sub-level instead: its gathers, the edge MLP,
@@ -31,8 +32,12 @@ Two methods, as in the JAX package:
     plus the fiber term and the first bias, then kernel 12, which gathers
     x@W_j by receiver itself.
   - Any other level with world streams (an unwindowed level, two or more
-    streams, or one wider than the latent; v1): the pre-activation as the
-    `pallas` method builds it, then kernel 11.
+    streams, or one wider than 4; v1): the pre-activation as the `pallas`
+    method builds it, then kernel 11. JAX's v4 takes one stream up to the
+    latent width (`message.py:317-322`); v1 computes the same function on
+    the real rows, over every edge of the level (row n_pad − 1 sums the
+    pad slots' messages, which v4 masks), so a windowed stream of 4 < wd
+    ≤ C runs v1 here, on every device.
 - `"pallas"` (any block-aligned level): the gathers (backward: kernel 8),
   the fiber and the edge MLP as plain matmuls, as the JAX package leaves
   them to XLA, then the aggregation and node phase in one kernel (kernel
@@ -66,6 +71,7 @@ from bsms_gnn_tpu_torch.ops.kernels.compact_resid import (
 )
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import fused_edge_phase_win
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_dyn import (
+    MAX_WD,
     fused_edge_phase_win_dyn,
 )
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_k import fused_edge_phase_win_k
@@ -122,7 +128,7 @@ class GMP(nn.Module):
             return self._pallas(level, x, pos, compute_dtype)
         dyn = self.dyn_dims
         if level.window > 0 and (not dyn or (len(dyn) == 1
-                                             and dyn[0] <= x.shape[-1])):
+                                             and dyn[0] <= MAX_WD)):
             return self._windowed(level, x, pos, compute_dtype, k)
         if not dyn:
             return self._streamed(level, x, compute_dtype)

@@ -10,7 +10,9 @@ Phases (any failure exits non-zero without the result line):
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
 3. each forward kernel of that path against its plain PyTorch version on
-   the card at the path's shapes (level 0, T0 down / up), f32 and bf16;
+   the card at the path's shapes (level 0, T0 down / up; kernel 2 also on
+   a residual with a receiver of more than 32 rows, level 0's plus a star
+   of edges), f32 and bf16;
 4. serving: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
    filled from seeded frames) forward through the kernels against the same
    forward through the plain versions, f32 and bf16; the kernel launch
@@ -18,8 +20,10 @@ Phases (any failure exits non-zero without the result line):
 5. serving times with CUDA events: ms per forward and per rollout step, and
    each forward kernel's time beside its plain version, one PyTorch library
    call where one computes the same function, and the card's bound;
-6. each backward kernel against its plain version on the card at level 0,
-   f32 and bf16, every output judged on its own, with a bf16 control;
+6. each backward kernel against its plain version on the card at level 0
+   (kernel 7 also at the level with the longest sender lists, the
+   airfoil's level 5), f32 and bf16, every output judged on its own, with
+   a bf16 control;
 7. the train step: loss and every parameter's gradient through the kernels
    against the same step through the plain versions, f32 and bf16; the
    kernel launch counts of one step; a short `Trainer` run (a two-step
@@ -44,7 +48,9 @@ Phases (any failure exits non-zero without the result line):
    at its shapes (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on
    it (kernel 13 and its backward timed), the `Trainer` run (noise γ 0.1)
    on the contact recipe's frame pair; kernel 11 (forward and backward) at
-   its level 0 too (edge_block 512), against its plain version;
+   its level 0 too (edge_block 512), against its plain version, and a GMP
+   with a 6-wide world stream there (wider than kernel 13 takes: kernel 11's
+   route), forward and backward against the plain route;
 11. the 5k airfoil on the `fused` method of method_sweep.py's fused-v2 row
    (not reordered, the default unwindowed hierarchy, edge_block 128):
    kernel 12 (forward and backward) against its plain version, then phases
@@ -381,13 +387,33 @@ TRAIN_TOL = {torch.float32: (1e-5, 5e-2, 1e-3),
 PLAIN_TRAIN_TOL = {torch.float32: (1e-5, 0.35, 1e-2),
                    torch.bfloat16: TRAIN_TOL[torch.bfloat16]}
 TRAIN_GATE, TRAIN_UPDATES = 2, 4
+# Kernel 2's input with a long list: level 0's residual plus a star of this
+# many edges onto one receiver (`star_resid`), whose list of about 50 rows
+# then takes the gather's long path in two pieces. Its f32 sum, in another
+# order than `index_add_`'s atomics, differs most: with 100 edges it read
+# 8.2e-6 of the RMS on an H100, too close to TOL's 2e-5; about half as many
+# rows keep it near a third of it.
+STAR_EDGES = 40
+# A world stream wider than kernel 13 takes (`fused_gmp_dyn.MAX_WD`, 4): the
+# fused method routes such a GMP to v1 (kernel 11) on a windowed level.
+WIDE_WD = 6
+# That GMP against its plain route, as fractions of the RMS of the plain
+# output or gradient: (largest error, RMS error). The output as kernel 11's
+# (its row n_pad - 1 sums the last block's pad slots, in another order in
+# the plain version); each gradient as the f32 train step's (TRAIN_TOL: a
+# ReLU input within rounding of zero can flip one slot's unit).
+WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
+# The kernels whose every listed shape is timed, not only the first (the
+# pallas path times all of its own): the row-ordered gathers of kernels 2
+# and 7, whose long lists only their later shapes reach.
+EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum")
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). Kernels 4, 5, 7 and 11-14 add the pass that sums each output
+# launches). Kernels 4, 5 and 11-14 add the pass that sums each output
 # block's chunk parts (the work the TPU kernel did in its revisited block);
 # kernels 5 and 6 the pass that sums the weight-gradient partials. Kernels
-# 1 and 15 are one launch each (the row-ordered gather).
+# 1, 2, 7 and 15 are one launch each (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -400,7 +426,7 @@ KERNEL_META = {
         ("windowed_gather_kernel",)),
     "compact_accum": (
         _CSRC + "compact_resid.cu", _PALLAS + "compact_resid.py:73",
-        ("compact_accum_kernel",)),
+        ("compact_gather_kernel",)),
     "fused_edge_phase_win_bwd": (
         _CSRC + "fused_gmp_bwd.cu", _PALLAS + "fused_gmp.py:607",
         ("fused_edge_phase_win_bwd_kernel", "block_sum_kernel",
@@ -410,7 +436,7 @@ KERNEL_META = {
         ("fused_node_phase_bwd_kernel", "grad_sum_kernel")),
     "windowed_send_sum": (
         _CSRC + "windowed_send.cu", _PALLAS + "windowed.py:205",
-        ("windowed_send_part_kernel", "windowed_send_sum_kernel")),
+        ("send_gather_kernel",)),
     "segment_sum": (
         _CSRC + "segment_sum.cu", _PALLAS + "segment_sum.py:84",
         ("segment_sum_kernel",)),
@@ -955,6 +981,15 @@ def describe(case):
              if t is not None and t.win_row_ptr is not None]
     if lines:
         print("kernel 1's live slots per row: " + "; ".join(lines))
+    lines = [f"{k} {row_list_summary(t.send_row_ptr)}" for k, t in gathers
+             if getattr(t, "send_row_ptr", None) is not None]
+    if lines:
+        print("kernel 7's slots per sender row: " + "; ".join(lines))
+    lines = [f"{k} {t.cresid.n_real} rows on {t.cresid.cr_rows.numel()} "
+             f"receivers, {row_list_summary(t.cresid.cr_row_ptr)}"
+             for k, t in gathers if t is not None and t.cresid is not None]
+    if lines:
+        print("kernel 2's compact rows per receiver: " + "; ".join(lines))
     depth = h.depth
     gmps = 2 * depth + 1
     expect = dict.fromkeys(case["expected"], 0)
@@ -1033,6 +1068,12 @@ def unwindowed(case):
     """Whether a fused case runs on an unwindowed hierarchy (kernels 11 and
     12)."""
     return all(g.window == 0 for g in case["h"].levels)
+
+
+def port_kernels(counts):
+    """The CUDA kernels that the wrappers' launches `counts` ran: each
+    launch times the kernels one call of its wrapper runs."""
+    return sum(n * len(KERNEL_META[k][2]) for k, n in counts.items())
 
 
 def compare(got, want):
@@ -1142,6 +1183,7 @@ def kernel_inputs(case, dtype, device):
                 ("forced empty", (fe, rand(fe.n_pad_edges, c, dt=dtype),
                                   rand(fe.n_pad_nodes, c)))],
         }
+    star = star_resid(case, device)
     return {
         **edge, **node,
         "windowed_rect_conv": [
@@ -1152,8 +1194,32 @@ def kernel_inputs(case, dtype, device):
                          rand(n0, c))),
             ("T0 down", (t0.down_op.cresid,
                          rand(t0.down_op.cresid.n_rows, c, dt=dtype),
-                         rand(t0.down_op.cresid.n_pad_nodes, c)))],
+                         rand(t0.down_op.cresid.n_pad_nodes, c))),
+            ("star", (star, rand(star.n_rows, c, dt=dtype), rand(n0, c)))],
     }
+
+
+def star_resid(case, device):
+    """Kernel 2's input with a long list: a compact residual built by the
+    port's `_compact_resid` from level 0's residual edges plus STAR_EDGES
+    edges onto the receiver that already has the most rows, from distinct
+    real senders (no residual of the main paths has a receiver of more
+    than 32 rows), on `device`; made once per case."""
+    from bsms_gnn_tpu_torch.graph.hierarchy import _compact_resid, _to_device
+
+    if "star" not in case:
+        lvl = case["h"].levels[0]
+        cr, n = lvl.cresid, lvl.cresid.n_real
+        s = cr.senders[:n].astype(np.int64)
+        r = cr.receivers[:n].astype(np.int64)
+        hub = int(np.bincount(r).argmax())
+        star = np.setdiff1d(np.arange(0, lvl.n_nodes, 7), [hub])[:STAR_EDGES]
+        s = np.concatenate([s, star])
+        r = np.concatenate([r, np.full(len(star), hub)])
+        ew = np.ones(len(s))
+        case["star"] = _to_device(_compact_resid(
+            s, r, ew, ew, lvl.n_pad_nodes, None, symmetric=False), device)
+    return case["star"]
 
 
 def gated_edge_args(case, rand, dtype):
@@ -1615,7 +1681,8 @@ def measure(case):
             if timed is not None and name not in timed:
                 continue
             rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
-            if case["cfg"].aggregation == "pallas":
+            if (case["cfg"].aggregation == "pallas"
+                    or name in EVERY_SHAPE_TIMED):
                 for where, args in shapes[1:]:
                     time_kernel(name, where, args, dtype)
     if case["cfg"].aggregation == "pallas":
@@ -1731,15 +1798,27 @@ def bwd_kernel_inputs(case, dtype, device):
         edge = {"fused_edge_phase_win_bwd": [
             ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
                          first_layer(gmp)[0], *mlp_e, rand(n0, c)))]}
-    return {
-        **edge,
-        "fused_node_phase_bwd": [
-            ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
+    node = [("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
                          gmp.mlp_node, rand(n0, c), cd)),
             *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
-                          rand(n0, c), cd))] if cd is not None else [])],
-        "windowed_send_sum": [("level 0", (lvl, rand(e0, c, dt=dtype)))],
-    }
+                          rand(n0, c), cd))] if cd is not None else [])]
+    # Kernel 7 at level 0 and at the level of the longest sender lists.
+    send = [("level 0", (lvl, rand(e0, c, dt=dtype)))]
+    deep = longest_send_level(hd)
+    if deep:
+        d = hd.levels[deep]
+        send.append((f"level {deep}", (d, rand(d.n_pad_edges, c, dt=dtype))))
+    return {**edge, "fused_node_phase_bwd": node, "windowed_send_sum": send}
+
+
+def longest_send_level(hd):
+    """The windowed level with the longest of kernel 7's sender lists: its
+    rows of more than 32 slots take the gather's long path."""
+    def longest(l):
+        return int(torch.diff(hd.levels[l].send_row_ptr).max())
+
+    return max((l for l, g in enumerate(hd.levels) if g.window > 0),
+               key=longest)
 
 
 def check_bwd_kernels(case, device):
@@ -1794,6 +1873,65 @@ def check_bwd_kernels(case, device):
                     worst = max(worst, err)
                 errs.setdefault((name, dtype), worst)
     return errs
+
+
+def check_wide_stream(case):
+    """A GMP with a WIDE_WD-wide world stream (fiber_dims (WIDE_WD,
+    pos_dim), the case's latent and hidden widths, seeded weights) on the
+    case's windowed level 0: wider than kernel 13 takes, so the fused
+    method routes it to v1. Forward and backward through the kernels
+    against the plain route (output, x gradient, every parameter
+    gradient, WIDE_TOL); kernel 11 must run forward and backward once and
+    kernel 13 not at all."""
+    from bsms_gnn_tpu_torch.ops.message import GMP
+
+    lvl, cfg, label = case["hd"].levels[0], case["cfg"], case["label"]
+    device = lvl.send_win.device
+    gmp = GMP(cfg.latent_dim, cfg.hidden_layer, cfg.pos_dim,
+              torch.Generator().manual_seed(3),
+              fiber_dims=(WIDE_WD, cfg.pos_dim)).to(device)
+    g = torch.Generator().manual_seed(12)
+    n, m = lvl.n_pad_nodes, lvl.n_nodes
+    x0 = torch.randn(n, cfg.latent_dim, generator=g).to(device)
+    pos = torch.zeros(n, WIDE_WD)
+    pos[:m] = torch.randn(m, WIDE_WD, generator=g)
+    pos = pos.to(device)
+    cot = torch.randn(n, cfg.latent_dim, generator=g).to(device)
+
+    def run():
+        gmp.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        out = gmp(lvl, x, None, pos, "fused")
+        (out * cot).sum().backward()
+        return out.detach(), {"x": x.grad, **{
+            k: p.grad for k, p in gmp.named_parameters()}}
+
+    names = ("fused_edge_mlp_aggregate", "fused_edge_mlp_aggregate_bwd",
+             "fused_edge_phase_win_dyn", "fused_edge_phase_win_dyn_bwd")
+    reset_counts()
+    got, grads = run()
+    counts = read_counts(names)
+    with plain_path():
+        want, grads_p = run()
+    err, err_rms, rms = compare(got, want)
+    tol_max, tol_rms = WIDE_TOL["output"]
+    ok = err <= tol_max * rms and err_rms <= tol_rms * rms
+    rel, _ = grad_errors(grads, grads_p)
+    worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
+    g_max, g_rms = WIDE_TOL["grad"]
+    ok_g = worst_max[0] <= g_max and worst_rms[1] <= g_rms
+    print(f"[{label}] GMP with a {WIDE_WD}-wide world stream at level 0: "
+          f"output max_abs_err {err / rms:.2e} of rms (tol {tol_max:.0e}), "
+          f"rms_err {err_rms / rms:.2e} (tol {tol_rms:.0e}); {len(rel)} "
+          f"gradients, worst max err {worst_max[0]:.2e} of rms "
+          f"({worst_max[2]}, tol {g_max:.0e}), worst rms err "
+          f"{worst_rms[1]:.2e} ({worst_rms[2]}, tol {g_rms:.0e}); launches "
+          f"{counts}  {'ok' if ok and ok_g else 'FAIL'}")
+    require(ok and ok_g, f"{label}: the wide-stream GMP disagrees with the "
+                         f"plain route")
+    if device.type == "cuda":
+        require(counts == dict(zip(names, (1, 1, 0, 0))),
+                f"{label}: the wide-stream GMP did not run kernel 11 alone")
 
 
 def train_target(case):
@@ -1888,7 +2026,9 @@ def check_train(case, device):
               f"{float(np.median([r[1] for r in self_rel])):.2e}  "
               f"{'ok' if ok else 'FAIL'}")
         print(f"[{label}] launches in one {str(dtype)[6:]} train step: "
-              f"{counts[dtype]}")
+              f"{counts[dtype]}; CUDA kernels of the port: "
+              f"{port_kernels(counts[dtype])} (each launch times the CUDA "
+              f"kernels one call runs, KERNEL_META)")
         require(ok, f"{label} {dtype} train step disagrees with the plain "
                     f"path")
         if device.type == "cuda":
@@ -2138,6 +2278,9 @@ def measure_train(case, device):
         for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
             if timed is None or name in timed:
                 rows[(name, dtype)] = time_kernel(name, *shapes[0], dtype)
+                if name in EVERY_SHAPE_TIMED:
+                    for where, args in shapes[1:]:
+                        time_kernel(name, where, args, dtype)
     return rows, e2e
 
 
@@ -2163,6 +2306,8 @@ def run_case(build, device):
         rows, e2e = measure(case)
         if case["cfg"].aggregation != "pallas":
             errs.update(check_bwd_kernels(case, device))
+    if case["cfg"].world_edges and not unwindowed(case):
+        check_wide_stream(case)
     case["train"] = case.get("train_frames") or (case["node_in"],
                                                   train_target(case))
     train = check_train(case, device)

@@ -2,7 +2,8 @@
 edges on the windowed `fused` method (flag_simple's recipe). Kernel 13's
 plain forward (f32, bf16) and backward (f32) against the JAX v4 kernel
 (`fused_edge_phase_win_dyn`, interpret mode), the world-edge GMP (output
-and every gradient), the 3-wide world stream through windowed transitions,
+and every gradient; and with a 6-wide stream, which the port routes to
+v1, against JAX's v4), the 3-wide world stream through windowed transitions,
 the simulator forward in f32 (with taps) and bf16, rollout, every f32
 gradient against `jax.value_and_grad`, and `Trainer` against the JAX
 `Trainer` with flag_simple's noise (σ 0.003, γ 0.1).
@@ -61,7 +62,7 @@ from bsms_gnn_tpu.models.normalizer import normalize as jax_normalize
 from bsms_gnn_tpu.models.simulator import simulator_forward, split_node_input
 from bsms_gnn_tpu.ops.bsgmp import bsgmp_apply
 from bsms_gnn_tpu.ops.dense import mlp_apply
-from bsms_gnn_tpu.ops.message import gmp_apply
+from bsms_gnn_tpu.ops.message import gmp_apply, init_gmp
 from bsms_gnn_tpu.ops.pallas.fused_gmp import (
     fused_edge_phase_win_dyn as jax_edge_dyn,
 )
@@ -80,12 +81,18 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_dyn import (
     fused_edge_phase_win_dyn_bwd_plain,
     fused_edge_phase_win_dyn_plain,
 )
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp_stream import (
+    fused_edge_mlp_aggregate_bwd_plain,
+    fused_edge_mlp_aggregate_plain,
+)
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum_plain
+from bsms_gnn_tpu_torch.ops.message import GMP
 from bsms_gnn_tpu_torch.ops.transition import trans_down
 from bsms_gnn_tpu_torch.training.rollout import rollout_trajectory
 from bsms_gnn_tpu_torch.training.trainer import Trainer, masked_rmse
 
 N_NODES, NY, DEPTH, HIDDEN, C, WD = 520, 13, 2, 1, 128, 3
+WIDE_WD = 6  # a world stream wider than kernel 13 takes (MAX_WD = 4)
 LAYOUT = dict(edge_block=512, window=256)
 SUM_TOL = 1e-5
 KERNEL_TOL = {"f32": 1e-4, "bf16": 2e-2}
@@ -314,6 +321,60 @@ def test_world_edge_gmp_bf16_matches_jax(case, gmp_case):
                  "fused")
     assert str(want.dtype) == str(got.dtype).removeprefix("torch.")
     assert_close(got, want, KERNEL_TOL["bf16"], "bf16")
+
+
+def test_wide_world_stream_gmp_matches_jax_v4(case):
+    """A GMP with a 6-wide world stream (fiber_dims (6, 2)) on the windowed
+    level 0: JAX's `gmp_apply` runs its v4 there (wd <= C), the port v1
+    (kernel 11's plain version, over every edge of the level) since kernel
+    13 takes wd <= 4. Output, x gradient and every parameter gradient
+    against jax.grad, f32, at F32_TOL; kernel 13 does not run. The two
+    routes differ on the pad rows: v1 sums every pad slot of the last
+    block into row n_pad - 1 (3.3 there, at a scale of 6.4), where v4
+    masks them. No real row reads a pad row, and the model gives pad rows
+    no cotangent (its loss is masked), so the output is compared on the
+    real rows and the cotangent is zero on the pad rows. The seeds leave
+    every ReLU input of the real edges and nodes at least 3e-6 from zero
+    (by the port's plain route), so no unit sits within f32 rounding of
+    its kink, where the two sum orders could flip it (ROADMAP Queue 3)."""
+    hj, lt = case["hj"], case["ht"].levels[0]
+    pj = init_gmp(jax.random.PRNGKey(8), C, HIDDEN, 2, (WIDE_WD, 2))
+    gt = GMP(C, HIDDEN, 2, fiber_dims=(WIDE_WD, 2))
+    gt.load_state_dict(params_from_numpy(jax_to_nested(pj)))
+    rng = np.random.default_rng(35)
+    n = lt.n_pad_nodes
+    x = rng.standard_normal((n, C)).astype(np.float32)
+    cot = np.zeros((n, C), np.float32)
+    cot[:lt.n_nodes] = rng.standard_normal((lt.n_nodes, C))
+    wpos = np.zeros((n, WIDE_WD), np.float32)
+    wpos[:lt.n_nodes] = rng.standard_normal((lt.n_nodes, WIDE_WD))
+
+    def out(xx, p):
+        return gmp_apply(p, hj.levels[0], xx, jnp.asarray(wpos), "fused",
+                         None, (WIDE_WD,))
+
+    y = out(jnp.asarray(x), pj)
+    gx, gp = jax.grad(lambda xx, p: jnp.vdot(out(xx, p), jnp.asarray(cot)),
+                      argnums=(0, 1))(jnp.asarray(x), pj)
+    gp = jax_to_nested(gp)
+    for f in (fused_edge_mlp_aggregate_plain,
+              fused_edge_mlp_aggregate_bwd_plain,
+              fused_edge_phase_win_dyn_plain):
+        f.calls = 0
+    xt = leaf(x, "f32")
+    got = gt(lt, xt, None, torch.tensor(wpos), "fused")
+    assert_close(got[:lt.n_nodes], y[:lt.n_nodes], F32_TOL, "output")
+    (got * torch.tensor(cot)).sum().backward()
+    assert fused_edge_mlp_aggregate_plain.calls == 1
+    assert fused_edge_mlp_aggregate_bwd_plain.calls == 1
+    assert fused_edge_phase_win_dyn_plain.calls == 0
+    assert_close(xt.grad, gx, F32_TOL, "dx")
+    for mlp in ("mlp_edge", "mlp_node"):
+        mod = getattr(gt, mlp)
+        for kind in ("weights", "biases"):
+            for i, w in enumerate(gp[mlp][kind]):
+                assert_close(getattr(mod, kind)[i].grad, w, F32_TOL,
+                             f"{mlp}.{kind}.{i}")
 
 
 @pytest.mark.parametrize("t", [0, 1])

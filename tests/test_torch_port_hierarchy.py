@@ -2,8 +2,9 @@
 mesh edges, Morton order, the synthetic airfoil and sphere meshes, and the
 padded hierarchy, windowed and not (every level, its compact residual and
 fiber stream, every transition operator and its compact residual), plus
-the device tables `to_device` derives: the chunk and visit ranges, and the
-per-row slot lists of the segment sums against the TPU kernel's one-hot."""
+the device tables `to_device` derives: the chunk ranges, the compact
+residuals' receiver ranges, and the per-row slot lists of the segment sums
+against the TPU kernel's one-hot."""
 
 import dataclasses
 
@@ -33,9 +34,10 @@ from bsms_gnn_tpu_torch.graph.hierarchy import (
 from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.graph.order import reorder_mesh
 
-DEVICE_TABLES = ("chunk_ptr", "chunk_block", "visit_ptr", "send_ptr",
-                 "send_items", "row_ptr", "row_slots", "row_send",
-                 "win_row_ptr", "win_row_slots", "win_long")
+DEVICE_TABLES = ("chunk_ptr", "chunk_block", "cr_rows", "cr_row_ptr",
+                 "cr_long", "send_row_ptr", "send_row_slots", "send_long",
+                 "row_ptr", "row_slots", "row_send", "win_row_ptr",
+                 "win_row_slots", "win_long")
 
 
 def assert_same(jax_obj, port_obj, path, skip=()):
@@ -185,11 +187,17 @@ def test_device_tables_follow_the_layout():
             tl.chunk_block.numpy())
         cr = tl.cresid
         if cr is not None:
+            # Receiver cr_rows[k] owns compact rows cr_row_ptr[k] ..
+            # cr_row_ptr[k+1]: the real rows with that receiver in JAX's
+            # layout, each once; no pad row.
             assert isinstance(cr, CompactResid)
-            vp, vb = cr.visit_ptr.numpy(), cr.visit_block.numpy()
-            for b in range(len(vp) - 1):
-                assert (vb[vp[b]:vp[b + 1]] == b).all()
-            assert vp[-1] == len(vb)
+            jr = np.asarray(jl.cresid.receivers)[:cr.n_real]
+            rows, ptr = cr.cr_rows.numpy(), cr.cr_row_ptr.numpy()
+            np.testing.assert_array_equal(rows, np.unique(jr))
+            assert ptr[0] == 0 and ptr[-1] == cr.n_real
+            for k, r in enumerate(rows):
+                np.testing.assert_array_equal(
+                    np.arange(ptr[k], ptr[k + 1]), np.flatnonzero(jr == r))
 
 
 def _one_hot_rows(layout):

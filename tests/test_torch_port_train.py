@@ -195,34 +195,33 @@ def test_windowed_send_sum(case, dt, lvl):
 
 @pytest.mark.parametrize("lvl", [0, 1, 2])
 def test_send_window_tables_walk_gives_the_send_sum(case, lvl):
-    """Kernel 7's two passes on the card, emulated in numpy from the
-    level's `send_ptr` / `send_items` tables: each chunk adds its in-window
-    slots into a W-row part, then every W/2-row block adds the matching
-    halves of its covering chunks' parts, low halves then high halves, in
-    chunk order. It equals the plain version, and every chunk half that
-    holds an in-window slot is listed."""
-    level = case["ht"].levels[lvl]
+    """Kernel 7's gather on the card, emulated in numpy from the level's
+    `send_row_ptr` / `send_row_slots` tables alone: sender row n adds the
+    rows of its listed slots in list order. Every slot with send_win < W
+    is listed exactly once, at its sender row, in slot order within the
+    row, and the walk equals the plain version and JAX's
+    windowed_send_sum_raw."""
+    hj, level = case["hj"], case["ht"].levels[lvl]
     w, eb = level.window, level.edge_block
-    wh = w // 2
     sw = level.send_win.numpy()
+    ptr, slots = level.send_row_ptr.numpy(), level.send_row_slots.numpy()
+    live = np.flatnonzero(sw < w)
+    np.testing.assert_array_equal(np.sort(slots), live)
+    sender = (np.repeat(level.win_base.numpy(), eb) * (w // 2) + sw)
     vals = np.random.default_rng(14).standard_normal(
         (level.n_pad_edges, C)).astype(np.float32)
-    n_chunks = level.n_pad_edges // eb
-    part = np.zeros((n_chunks, w, C), np.float32)
-    for e in np.flatnonzero(sw < w):
-        part[e // eb, sw[e]] += vals[e]
-    ptr, items = level.send_ptr.numpy(), level.send_items.numpy()
     out = np.zeros((level.n_pad_nodes, C), np.float32)
-    for k in range(len(ptr) - 1):
-        halves = [items[i] % 2 for i in range(ptr[k], ptr[k + 1])]
-        assert halves == sorted(halves)
-        for item in items[ptr[k]:ptr[k + 1]]:
-            ch, half = divmod(int(item), 2)
-            out[k * wh:(k + 1) * wh] += part[ch, half * wh:(half + 1) * wh]
-    live = {(e // eb, int(sw[e]) // wh) for e in np.flatnonzero(sw < w)}
-    assert live <= {divmod(int(i), 2) for i in items}
+    for n in range(level.n_pad_nodes):
+        mine = slots[ptr[n]:ptr[n + 1]]
+        assert (sender[mine] == n).all() and (np.diff(mine) > 0).all()
+        for e in mine:
+            out[n] += vals[e]
     want = windowed_send_sum_plain(level, torch.tensor(vals)).numpy()
     np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(
+        out, np.asarray(windowed_send_sum_raw(hj.levels[lvl],
+                                              jnp.asarray(vals))),
+        rtol=1e-6, atol=1e-5)
 
 
 # -- (b) the transitions' adjoints ---------------------------------------------

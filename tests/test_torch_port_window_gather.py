@@ -1,5 +1,5 @@
 """The host tables of kernels 1 and 15's row-ordered gather
-(`csrc/window_gather.cuh`) on the CPU: the live-slot row lists
+(`csrc/row_gather.cuh`) on the CPU: the live-slot row lists
 (`win_row_ptr` / `win_row_slots` of every windowed level and TransOp,
 `subwin_conv.sub_row_tables` for kernel 15), the rows split into pieces
 (`win_long`, `graph/hierarchy.py::long_rows`), and a sum driven by those
@@ -46,7 +46,7 @@ from bsms_gnn_tpu_torch.ops.kernels import windowed
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import round_bf16
 
 C, TOL = 128, 1e-6
-WARPS = 8  # warps of a thread block of the gather (`window_gather.cuh`)
+WARPS = 8  # warps of a thread block of the gather (`row_gather.cuh`)
 DELAUNAY_NODES, DELAUNAY_WINDOW = 4000, 512
 
 
@@ -180,6 +180,15 @@ def test_long_rows_split_into_ordered_pieces(name):
     else:
         tl = layouts()[name][1]
         ptr, long = tl.win_row_ptr.numpy(), tl.win_long.numpy()
+    check_pieces(ptr, long)
+    if name in ("airfoil L3", "airfoil L4", "airfoil T3 down"):
+        assert len(long) > 0
+
+
+def check_pieces(ptr, long):
+    """`long` lists, in row order, exactly the rows of more than 32 listed
+    slots; the pieces of every row cover its list once, in order, each at
+    most 32 slots, spread over the block's 8 warps in turn."""
     length = np.diff(ptr)
     assert long.dtype == np.int32
     np.testing.assert_array_equal(long, np.flatnonzero(length > 32))
@@ -194,8 +203,6 @@ def test_long_rows_split_into_ordered_pieces(name):
         assert mine[-1][2] == ptr[r + 1]
         assert all(b - a <= GATHER_PIECE for _, a, b in mine)
         assert [w for w, _, _ in mine] == [q % WARPS for q in range(len(mine))]
-    if name in ("airfoil L3", "airfoil L4", "airfoil T3 down"):
-        assert len(long) > 0
 
 
 def table_sum(ptr, slots, long, input_row, x, ew):
