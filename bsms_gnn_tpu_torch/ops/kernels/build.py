@@ -141,9 +141,12 @@ _stacks: Dict[tuple, tuple] = {}
 _STACKS_MAX = 256
 
 
-def stacked(tensors, transpose: bool = False) -> torch.Tensor:
+def stacked(tensors, transpose: bool = False,
+            to_bf16: bool = False) -> torch.Tensor:
     """torch.stack(tensors) in f32, contiguous (with each matrix transposed
-    when `transpose`), made once and reused while the same tensors keep
+    when `transpose`, each value rounded to bf16 and kept in f32 when
+    `to_bf16`: the operands a bf16-mode kernel would round at staging),
+    made once and reused while the same tensors keep
     their storage and their values (version counters unchanged): the
     kernels take each MLP's tail weights as one buffer, and restacking them
     on every call costs a copy launch per call. The entry holds the
@@ -151,13 +154,15 @@ def stacked(tensors, transpose: bool = False) -> torch.Tensor:
     reach the weights through the kernels' autograd Functions, never
     through the stack."""
     tensors = tuple(tensors)
-    key = (transpose,) + tuple(id(t) for t in tensors)
+    key = (transpose, to_bf16) + tuple(id(t) for t in tensors)
     state = tuple((t.data_ptr(), t._version) for t in tensors)
     hit = _stacks.get(key)
     if hit is not None and hit[1] == state:
         return hit[2]
     out = torch.stack([t.detach().float() for t in tensors])
     out = (out.transpose(-2, -1) if transpose else out).contiguous()
+    if to_bf16:
+        out = out.to(torch.bfloat16).float()
     if len(_stacks) >= _STACKS_MAX:
         _stacks.clear()
     _stacks[key] = (tensors, state, out)

@@ -1,14 +1,14 @@
-// The backward chunk walk of kernels 5, 11, 12 and 13 (see ../fused_gmp.py,
-// ../fused_gmp_stream.py and ../fused_gmp_dyn.py), with the forward
-// recomputed in the kernel. The front F is the forward walk's
-// (edge_phase.cuh).
+// The backward chunk walk of kernels 12, 13 and 14 (see
+// ../fused_gmp_stream.py, ../fused_gmp_dyn.py and ../fused_gmp_k.py), with
+// the forward recomputed in the kernel. The front F is the forward walk's
+// (edge_phase.cuh). Kernels 5 and 11's backward run the persistent tile
+// walk of edge_bwd_tiles.cuh instead.
 //
 // For the aggregate's cotangent g, each unmasked slot e gets the edge
 // cotangent g[recv_e] (zero on masked slots), runs the LayerNorm backward
 // and the tail layers in reverse, and yields
 //   dpre[e]  the cotangent of its first-layer pre-activation,
-//   dxj[n]   = Σ_{e: recv(e)=n} dpre[e] (skipped when `part` is null:
-//            kernel 11 has no receiver rows),
+//   dxj[n]   = Σ_{e: recv(e)=n} dpre[e],
 //   dwf8     = fiber_t · dpre (not with kStream),  dW[l], db[l]  the tail's
 //            weight gradients,
 // and with kDyn (kernel 13)
@@ -87,14 +87,12 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
   const int base = STREAM ? 0 : win_base[ch] * (window / 2);
   const int row0 = chunk_block[ch] * BN;
   const size_t wsize = (size_t)n_layers * C * C;
-  const bool with_dxj = part != nullptr;
   float* gp = gpart + (size_t)ch * edge_grad_size<F>(n_layers, wd);
   float* gp_b = gp + wsize;                   // db [n_layers][C]
   float* gp_f = gp_b + (size_t)n_layers * C;  // dwf8 [8][C]
   float* gp_d = gp_f + 8 * C;                 // DYN: dwf_dyn [wd][C]
   float* gp_n = gp_d + (DYN ? wd * C : 0);    // DYN: dwf_nrm [C]
-  if (with_dxj)
-    for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
+  for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
   if constexpr (!STREAM)
     load_first_layer<BF16, DYN>(wf8, wfd_g, wfn_g, wd, wf, wfd, wfn);
 
@@ -179,12 +177,11 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
       float4 o = add ? *p : make_float4(0.f, 0.f, 0.f, 0.f);
       *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
     }
-    for (int r = 0; with_dxj && r < TILE; ++r) {
+    for (int r = 0; r < TILE; ++r) {
       const int loc = s_loc[r];
       if (loc >= 0 && (loc >> 6) == half) acc[loc * C + c] += d[r * C + c];
     }
   }
-  if (!with_dxj) return;
   __syncthreads();
   if (!store_part) return;
   float4* dst = reinterpret_cast<float4*>(part + (size_t)ch * BN * C);

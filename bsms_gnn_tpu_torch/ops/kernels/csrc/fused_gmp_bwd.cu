@@ -1,17 +1,21 @@
 // Kernel 5: the backward of the windowed fused GMP edge phase (see
-// ../fused_gmp.py), with the forward recomputed in the kernel: the chunk
-// walk of edge_phase_bwd.cuh without the dynamic fiber, then
-// block_sum_kernel over the dxj parts and grad_sum_kernel over the
-// weight-gradient partials (dW, db, dwf8).
-#include "block_sum.cuh"
-#include "edge_phase_bwd.cuh"
+// ../fused_gmp.py), with the forward recomputed in the kernel: the
+// persistent tile walk of edge_bwd_tiles.cuh with the windowed front (dpre,
+// the weight-gradient partials of its G blocks), then recv_gather_kernel,
+// the row-ordered gather of row_gather.cuh that sums dxj from dpre over the
+// receiver lists (`win_row_ptr`, `win_row_slots`, `win_long`: the slots
+// with an in-window sender whose receiver lies in their chunk's block, the
+// slots the walk gives a cotangent), and grad_sum_kernel over the
+// partials (dW, db, dwf8) in block order.
+#include "edge_bwd_tiles.cuh"
+#include "row_gather.cuh"
 
 using namespace bsms;
 
 namespace {
 
 template <typename T, bool BF16>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(tiles::NT, tiles::MIN_BLOCKS)
 fused_edge_phase_win_bwd_kernel(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const float* __restrict__ wf8,
@@ -19,61 +23,90 @@ fused_edge_phase_win_bwd_kernel(
     const float* __restrict__ WT, const float* __restrict__ g, int n_layers,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int e_pad, int edge_block, int window, float* __restrict__ part,
+    int n_tiles, int e_pad, int edge_block, int window,
     float* __restrict__ gpart, T* __restrict__ dpre) {
-  edge_phase_bwd_chunk<T, BF16, Front::kWin>(
-      fiber_t, xwi, xj, nullptr, wf8, nullptr, nullptr, 0, W, B, WT, g,
-      n_layers, send_win, win_base, receivers, chunk_block, e_pad,
-      edge_block, window, part, gpart, dpre);
+  tiles::edge_bwd_tiles<T, BF16, Front::kWin>(
+      fiber_t, xwi, xj, wf8, W, B, WT, g, n_layers, send_win, win_base,
+      receivers, chunk_block, n_tiles, e_pad, edge_block, window, gpart,
+      dpre);
+}
+
+// dxj[n] = Σ dpre[e] over receiver row n's listed slots, in list order (a
+// bf16 dpre widens exactly to f32); a row with no slot comes out zero.
+template <typename T, bool BF16>
+__global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
+recv_gather_kernel(const T* __restrict__ dpre,
+                   const int* __restrict__ row_ptr,
+                   const int* __restrict__ row_slots,
+                   const int* __restrict__ long_rows, int n_rows, int piece,
+                   float* __restrict__ dxj) {
+  gather_rows<BF16>(dpre, ListedSlots{row_slots}, StoreRows{}, row_ptr,
+                    long_rows, n_rows, piece, dxj);
+}
+
+template <typename T, bool BF16>
+int blocks_per_sm(int n_layers, int* out) {
+  return (int)tiles::walk_blocks_per_sm(
+      fused_edge_phase_win_bwd_kernel<T, BF16>, n_layers, true, out);
 }
 
 template <typename T, bool BF16>
 int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* wf8, const void* W, const void* B, const void* WT,
            const void* g, const void* send_win, const void* win_base,
-           const void* receivers, const void* chunk_block, int n_layers,
-           int n_chunks, int n_blocks, int e_pad, int edge_block, int window,
-           const void* chunk_ptr, void* part, void* gpart, void* dpre,
-           void* dxj, void* grads, void* stream) {
-  if (edge_block % TILE || n_layers < 1 || n_layers > MAX_BWD_LAYERS)
+           const void* receivers, const void* chunk_block,
+           const void* row_ptr, const void* row_slots, const void* long_rows,
+           int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
+           int window, int n_rows, int n_long, int piece, void* gpart,
+           void* dpre, void* dxj, void* grads, void* stream) {
+  if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
+      n_layers < 1 || n_layers > tiles::MAX_LAYERS || grid < 1 ||
+      grid > n_tiles || n_rows < 1 || n_long < 0 || piece < 1)
     return (int)cudaErrorInvalidValue;
   auto kernel = fused_edge_phase_win_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)edge_bwd_smem_bytes<false>(MAX_BWD_LAYERS));
+      (int)tiles::smem_bytes(tiles::MAX_LAYERS, true));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<n_chunks, THREADS, edge_bwd_smem_bytes<false>(n_layers), s>>>(
+  kernel<<<grid, tiles::NT, tiles::smem_bytes(n_layers, true), s>>>(
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, (const float*)WT, (const float*)g,
       n_layers, (const int*)send_win, (const int*)win_base,
-      (const int*)receivers, (const int*)chunk_block, e_pad, edge_block,
-      window, (float*)part, (float*)gpart, (T*)dpre);
+      (const int*)receivers, (const int*)chunk_block, n_tiles, e_pad,
+      edge_block, window, (float*)gpart, (T*)dpre);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = launch_block_sum((const float*)part, (const int*)chunk_ptr,
-                         (float*)dxj, n_blocks, s);
+  recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
+                                s>>>(
+      (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
+      (const int*)long_rows, n_rows, piece, (float*)dxj);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_grad_sum((const float*)gpart, n_chunks,
-                              edge_grad_size<Front::kWin>(n_layers, 0),
+  return (int)launch_grad_sum((const float*)gpart, grid,
+                              tiles::grad_size(n_layers, true),
                               (float*)grads, s);
 }
 
 }  // namespace
 
 #define FUSED_EDGE_PHASE_WIN_BWD(NAME, T, BF16)                               \
+  extern "C" int NAME##_blocks_per_sm(int n_layers, int* out) {              \
+    return blocks_per_sm<T, BF16>(n_layers, out);                             \
+  }                                                                           \
   extern "C" int NAME(                                                        \
       const void* fiber_t, const void* xwi, const void* xj, const void* wf8,  \
       const void* W, const void* B, const void* WT, const void* g,            \
       const void* send_win, const void* win_base, const void* receivers,      \
-      const void* chunk_block, int n_layers, int n_chunks, int n_blocks,      \
-      int e_pad, int edge_block, int window, const void* chunk_ptr,           \
-      void* part, void* gpart, void* dpre, void* dxj, void* grads,            \
-      void* stream) {                                                         \
+      const void* chunk_block, const void* row_ptr, const void* row_slots,    \
+      const void* long_rows, int n_layers, int grid, int n_tiles, int e_pad,  \
+      int edge_block, int window, int n_rows, int n_long, int piece,          \
+      void* gpart, void* dpre, void* dxj, void* grads, void* stream) {        \
     return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, WT, g, send_win,      \
-                           win_base, receivers, chunk_block, n_layers,        \
-                           n_chunks, n_blocks, e_pad, edge_block, window,     \
-                           chunk_ptr, part, gpart, dpre, dxj, grads, stream); \
+                           win_base, receivers, chunk_block, row_ptr,         \
+                           row_slots, long_rows, n_layers, grid, n_tiles,     \
+                           e_pad, edge_block, window, n_rows, n_long, piece,  \
+                           gpart, dpre, dxj, grads, stream);                  \
   }
 
 FUSED_EDGE_PHASE_WIN_BWD(fused_edge_phase_win_bwd_f32, float, false)

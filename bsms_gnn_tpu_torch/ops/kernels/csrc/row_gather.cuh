@@ -1,5 +1,6 @@
 // The row-ordered gather of kernels 1 (windowed.cu), 2 (compact_resid.cu),
-// 7 (windowed_send.cu) and 15 (subwin_conv.cu):
+// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of kernel 5's dxj
+// (fused_gmp_bwd.cu: kernel 7's front over kernel 1's receiver lists):
 //
 //   out[dst(k)] (= or +=) Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} w(e_i) · x[row(e_i)]
 //
@@ -8,7 +9,7 @@
 // time:
 // - the source (`Src`): e_i (`slots[i]`, or i itself where each list is a
 //   range of x's rows: kernel 2), the value row row(e) (the entry point's
-//   resolver from its layout tables, or e itself: kernels 2 and 7) and,
+//   resolver from its layout tables, or e itself: kernels 2, 5 and 7) and,
 //   when WEIGHTED (kernels 1 and 15), w(e) = ew[e], rounded to bf16 in
 //   BF16 mode (the product with a bf16 row is then exact in f32). An
 //   unweighted source adds the row as it is (bf16 widens to f32 exactly);
@@ -93,7 +94,8 @@ struct WeightedSlots {
   __device__ __forceinline__ int row(int e) const { return row_of(e); }
   __device__ __forceinline__ float weight(int e) const { return __ldg(ew + e); }
 };
-// Slots listed in `slots`, each adding its own row of x (kernel 7).
+// Slots listed in `slots`, each adding its own row of x (kernel 7, and
+// kernel 5's dxj over the receiver lists).
 struct ListedSlots {
   static constexpr bool WEIGHTED = false;
   const int* slots;
@@ -107,7 +109,8 @@ struct RangeRows {
   __device__ __forceinline__ int row(int e) const { return e; }
 };
 
-// Destinations. List k's sum stored into row k (kernels 1, 7, 15).
+// Destinations. List k's sum stored into row k (kernels 1, 5's dxj, 7,
+// 15).
 struct StoreRows {
   static constexpr bool ADD = false;
 };

@@ -42,17 +42,32 @@ recomputes each chunk's forward (remat in the kernel) and returns
     dwf8 [8, C]      fiber_tᵀ-weighted sums of dpre
     dW [L, C, C], db [L, C]   the tail layers' weight and bias gradients
 
-CUDA design (`csrc/fused_gmp_bwd.cu` over the chunk walk of
-`csrc/edge_phase_bwd.cuh`, which kernels 11, 12 and 13 share): one thread
-block per chunk, 64-slot
-tiles as in kernel 4, keeping each layer's input, the LayerNorm output and
-the running cotangent in shared memory; dxj takes kernel 4's per-chunk part
-and chunk-ordered block sum. The TPU carries dW, db and dwf8 in scratch
-across its sequential grid; on the card blocks run in no order, so each
-chunk writes its own partial and a second pass sums the partials in chunk
-order: every gradient is the same from run to run, with no atomics. What
-bounds it: operations, about three times kernel 4's (the recompute, the
-cotangent GEMMs and the weight-gradient GEMMs).
+CUDA design (`csrc/fused_gmp_bwd.cu` over the tile walk of
+`csrc/edge_bwd_tiles.cuh`, which kernel 11's backward shares). What bounds
+it: operations, about three times kernel 4's (the recompute, the cotangent
+GEMMs and the weight-gradient GEMMs), in true f32 on the CUDA cores. A
+persistent grid of G blocks (the SM count times the blocks per SM the
+kernel reaches, `walk_fill`, at most the level's tiles) walks the level's
+64-slot tiles, block b the contiguous range `tile_ranges(T, G)[b] ..
+[b + 1]` in order, so a level of few chunks still fills the card (the
+5k airfoil's levels hold 82 down to one 512-slot chunk). Each
+tile finds its chunk's block and window from its first slot; a tile with
+no live slot (an in-window sender whose receiver lies in the chunk's
+block) writes zero dpre rows and skips the walk. A live tile keeps each
+layer's input, the LayerNorm output and the running cotangent in shared
+memory, the tail weights' 64-row slabs double-buffered by cp.async (the
+next GEMM's first slab loading during the current one's last). The TPU
+carries dW, db and dwf8 in scratch across its sequential grid; here each
+block adds its tiles into its own partial and `grad_sum_kernel` (kernel
+6's, 12's and 13's too) sums the G partials in block order: every gradient
+is the same from run to run, with no atomics, and the partials (G × 201
+KB) stay in L2. dxj is not summed in the walk: a launch between the two,
+the row-ordered gather of `csrc/row_gather.cuh`
+(`recv_gather_kernel`), sums dpre over each receiver row's live slots
+(`win_row_ptr`, `win_row_slots`, `win_long`, kernel 1's lists), which are
+exactly the slots the walk gives a cotangent. In bf16 mode the wrapper
+passes the tail weights already rounded to bf16 (`build.stacked(...,
+to_bf16=True)`), so the slab copies round nothing.
 
 bf16 mode (xwi, xj in bf16) follows the TPU kernels: every dot's operands
 are rounded to bf16 (fiber_t, wf8, the hidden activations, the weights,
@@ -68,10 +83,13 @@ side, as `fused_gmp.py:942-967` does.
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import functools
+from typing import Dict, Sequence, Tuple
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum
 
@@ -82,9 +100,15 @@ MAX_BWD_LAYERS = 3
 _SIG = [build.P] * 11 + [build.I] * 6 + [build.P] * 3
 _FN = {torch.float32: "fused_edge_phase_win_f32",
        torch.bfloat16: "fused_edge_phase_win_bf16"}
-_BWD_SIG = [build.P] * 12 + [build.I] * 6 + [build.P] * 7
 _BWD_FN = {torch.float32: "fused_edge_phase_win_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_bwd_bf16"}
+_BWD_SIGS = {**{f: [build.P] * 15 + [build.I] * 9 + [build.P] * 5
+                for f in _BWD_FN.values()},
+             **{f + "_blocks_per_sm": [build.I, build.P]
+                for f in _BWD_FN.values()}}
+# Slots per tile of the tile walk (`csrc/edge_bwd_tiles.cuh`'s TR, held to
+# this value by a static_assert there).
+TILE_ROWS = 64
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -241,6 +265,48 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
 fused_edge_phase_win_fwd.launches = 0
 
 
+@functools.lru_cache(maxsize=4096)
+def tile_ranges(n_tiles: int, grid: int) -> Tuple[int, ...]:
+    """The bounds of the tile walk's ranges (`csrc/edge_bwd_tiles.cuh`):
+    G = min(grid, n_tiles) blocks (at least one), block b walking tiles
+    bounds[b] .. bounds[b + 1] = ⌊b·T/G⌋ .. ⌊(b+1)·T/G⌋, as the kernel
+    computes them. The wrapper's grid is len(bounds) − 1."""
+    g = max(1, min(grid, n_tiles))
+    return tuple(b * n_tiles // g for b in range(g + 1))
+
+
+_walks: Dict[tuple, int] = {}
+
+
+def walk_fill(lib, fn: str, n_layers: int, device) -> int:
+    """The blocks that fill the card (blocks per SM × SMs) with the tile
+    walk of `fn` in `lib` at n_layers tail layers, asked of the card once
+    per device. Depends only on the card and the kernel."""
+    key = (fn, n_layers, device)
+    hit = _walks.get(key)
+    if hit is None:
+        per_sm = ctypes.c_int()
+        with torch.cuda.device(device):
+            build.check(getattr(lib, fn + "_blocks_per_sm")(
+                n_layers, ctypes.addressof(per_sm)), fn)
+        if per_sm.value < 1:
+            raise RuntimeError(f"{fn}: the tile walk fits no block on an SM")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        hit = _walks[key] = per_sm.value * sms
+    return hit
+
+
+def walk_grid(lib, fn: str, n_layers: int, level) -> Tuple[int, int]:
+    """(tiles, blocks) of one launch of the tile walk over `level`."""
+    fill = walk_fill(lib, fn, n_layers, level.receivers.device)
+    if level.edge_block % TILE_ROWS:
+        raise NotImplementedError(
+            f"edge_block {level.edge_block} is not a multiple of the walk's "
+            f"{TILE_ROWS}-slot tiles")
+    n_tiles = level.n_pad_edges // TILE_ROWS
+    return n_tiles, len(tile_ranges(n_tiles, fill)) - 1
+
+
 def fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
     """Kernel 5's function in plain PyTorch."""
     fused_edge_phase_win_bwd_plain.calls += 1
@@ -285,32 +351,35 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
             f"{len(weights)} tail layers (kernel 5 takes {MAX_BWD_LAYERS})")
     build.require("fused_edge_phase_win_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
-    lib = build.library("fused_gmp_bwd", {f: _BWD_SIG for f in _BWD_FN.values()})
+                  level.win_row_ptr, level.win_row_slots, level.win_long)
+    lib = build.library("fused_gmp_bwd", _BWD_SIGS)
+    fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
-    wt_stack = build.stacked(weights, transpose=True)
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    bf16 = xwi.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
     g = g.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
     grad_size = n_layers * BN * BN + n_layers * BN + 8 * BN
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(n_chunks, BN, BN, **f32)
-    gpart = torch.empty(n_chunks, grad_size, **f32)
+    gpart = torch.empty(grid, grad_size, **f32)
     dpre = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
     dxj = torch.empty(level.n_pad_nodes, BN, **f32)
     grads = torch.empty(grad_size, **f32)
-    err = getattr(lib, _BWD_FN[xwi.dtype])(
+    err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
         wt_stack.data_ptr(), g.data_ptr(), level.send_win.data_ptr(),
         level.win_base.data_ptr(), level.receivers.data_ptr(),
-        level.chunk_block.data_ptr(), n_layers, n_chunks,
-        level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-        level.window, level.chunk_ptr.data_ptr(), part.data_ptr(),
-        gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(),
-        grads.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        level.chunk_block.data_ptr(), level.win_row_ptr.data_ptr(),
+        level.win_row_slots.data_ptr(), level.win_long.data_ptr(), n_layers,
+        grid, n_tiles, level.n_pad_edges, level.edge_block, level.window,
+        level.n_pad_nodes, level.win_long.numel(), GATHER_PIECE,
+        gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win_bwd")
     fused_edge_phase_win_bwd.launches += 1

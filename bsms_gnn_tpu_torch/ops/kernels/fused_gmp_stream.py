@@ -29,17 +29,21 @@ nothing to dW, db or dxj. The plain versions apply the same mask:
 `index_add_` over all slots would disagree at row n_pad − 1.
 
 CUDA design (`csrc/fused_gmp_stream.cu`, `csrc/fused_gmp_stream_bwd.cu`):
-the chunk walks of kernels 4 and 5 (`csrc/edge_phase.cuh`,
+the chunk walks of kernel 4 and kernel 12's backward (`csrc/edge_phase.cuh`,
 `csrc/edge_phase_bwd.cuh`) with a streamed front (`stream_tile_pre` in
 `csrc/edge_tile.cuh`): per 64-slot tile the threads read each slot's
 receiver, mark it in block or not, and load its row of zi (plus xj's row of
 its receiver) or pre straight into the tile; then the tail MLP and the
 LayerNorm in shared memory and the add into the chunk's 128-row output
 block, written to a per-chunk part that block_sum_kernel adds in chunk
-order. The backward recomputes the forward per tile, writes dzi / dpre,
-keeps kernel 5's per-chunk part for dxj (kernel 12 only) and its per-chunk
-weight-gradient partials summed in chunk order by grad_sum_kernel: no
-atomics, the same result from run to run. The chunk is the level's
+order. Kernel 12's backward recomputes the forward per tile in the same
+chunk walk, writes dzi, keeps a per-chunk part for dxj and per-chunk
+weight-gradient partials summed in chunk order by grad_sum_kernel. Kernel
+11's backward runs kernel 5's persistent tile walk (`csrc/edge_bwd_tiles.
+cuh`, see `fused_gmp.py`) with the streamed front and no dxj: G blocks over
+the level's tiles, a tile with no slot in its chunk's block skipped (zero
+dpre rows), one weight-gradient partial per block summed in block order:
+no atomics, the same result from run to run. The chunk is the level's
 edge_block: 128 slots on unwindowed levels, 512 where kernel 11 runs on a
 windowed level. What bounds it on the card: operations, L·2·128·128 FLOP
 per slot in the tail on the CUDA cores (about three times that in the
@@ -68,6 +72,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     mlp_tail_fwd_save,
     mlp_tail_plain,
     round_bf16,
+    walk_grid,
 )
 
 _LIB = "fused_gmp_stream"
@@ -87,7 +92,9 @@ _SIGS = {
               for f in _AGG_FN.values()}},
     _BWD_LIB: {**{f: [build.P] * 9 + [build.I] * 5 + [build.P] * 6
                   for f in _BWD_FN.values()},
-               **{f: [build.P] * 7 + [build.I] * 4 + [build.P] * 4
+               **{f: [build.P] * 7 + [build.I] * 5 + [build.P] * 4
+                  for f in _AGG_BWD_FN.values()},
+               **{f + "_blocks_per_sm": [build.I, build.P]
                   for f in _AGG_BWD_FN.values()}},
 }
 
@@ -188,15 +195,19 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     build.require(what, src.device, level.receivers, level.chunk_block,
                   level.chunk_ptr)
     lib = build.library(_BWD_LIB, _SIGS[_BWD_LIB])
+    fn = fn_table[src.dtype]
     dev, n_layers = src.device, len(weights)
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
-    wt_stack = build.stacked(weights, transpose=True)
+    # Kernel 12's chunk walk stages the weights as they are; kernel 11's
+    # tile walk takes them already rounded in bf16 mode.
+    pre_round = xj is None and src.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=pre_round)
+    wt_stack = build.stacked(weights, transpose=True, to_bf16=pre_round)
+    b_stack = build.stacked(biases)
     src = src.contiguous()
     g = g.detach().float().contiguous()
     n_chunks = level.n_pad_edges // level.edge_block
     sizes = [n_layers * BN * BN, n_layers * BN]
     f32 = dict(dtype=torch.float32, device=dev)
-    gpart = torch.empty(n_chunks, sum(sizes), **f32)
     dsrc = torch.empty(level.n_pad_edges, BN, dtype=src.dtype, device=dev)
     grads = torch.empty(sum(sizes), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -206,17 +217,20 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     dxj = None
     if xj is not None:
         xj = xj.contiguous()
+        gpart = torch.empty(n_chunks, sum(sizes), **f32)
         part = torch.empty(n_chunks, BN, BN, **f32)
         dxj = torch.empty(level.n_pad_nodes, BN, **f32)
-        err = getattr(lib, fn_table[src.dtype])(
+        err = getattr(lib, fn)(
             src.data_ptr(), xj.data_ptr(), *common,
             level.chunk_ptr.data_ptr(), n_layers, n_chunks,
             level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
             part.data_ptr(), gpart.data_ptr(), dsrc.data_ptr(),
             dxj.data_ptr(), grads.data_ptr(), stream)
     else:
-        err = getattr(lib, fn_table[src.dtype])(
-            src.data_ptr(), *common, n_layers, n_chunks,
+        n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+        gpart = torch.empty(grid, sum(sizes), **f32)
+        err = getattr(lib, fn)(
+            src.data_ptr(), *common, n_layers, grid, n_tiles,
             level.n_pad_edges, level.edge_block, gpart.data_ptr(),
             dsrc.data_ptr(), grads.data_ptr(), stream)
     build.check(err, what)

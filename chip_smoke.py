@@ -406,7 +406,18 @@ WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
 # The kernels whose every listed shape is timed, not only the first (the
 # pallas path times all of its own): the row-ordered gathers of kernels 2
 # and 7, whose long lists only their later shapes reach.
-EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum")
+EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
+                     "fused_edge_phase_win_bwd", "fused_edge_mlp_aggregate_bwd")
+# The backward kernels on the tile walk (`csrc/edge_bwd_tiles.cuh`): two
+# calls on the same inputs must agree bit for bit (the walk's grid and its
+# order of sums depend only on the card and the layout), and their later
+# shapes are levels of fewer live tiles: kernel 5 at every level of the
+# airfoil below 0 (6 holds 2 live slots, 7 none), kernel 11's backward at
+# the surface's level 7. The bf16 controls run at every shape, and are
+# skipped only for an output that the plain version leaves all zero.
+TILE_WALKS = ("fused_edge_phase_win_bwd", "fused_edge_mlp_aggregate_bwd")
+WALK_LEVELS = {"fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
+               "fused_edge_mlp_aggregate_bwd": (7,)}
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
@@ -429,7 +440,7 @@ KERNEL_META = {
         ("compact_gather_kernel",)),
     "fused_edge_phase_win_bwd": (
         _CSRC + "fused_gmp_bwd.cu", _PALLAS + "fused_gmp.py:607",
-        ("fused_edge_phase_win_bwd_kernel", "block_sum_kernel",
+        ("fused_edge_phase_win_bwd_kernel", "recv_gather_kernel",
          "grad_sum_kernel")),
     "fused_node_phase_bwd": (
         _CSRC + "node_mlp_bwd.cu", _PALLAS + "node_mlp.py:125",
@@ -1762,14 +1773,28 @@ def bwd_kernel_inputs(case, dtype, device):
     hd, sim = case["hd"], case["sim"]
     g = torch.Generator(device="cpu").manual_seed(8)
 
-    def rand(*shape, dt=torch.float32, s=1.0):
-        return (s * torch.randn(*shape, generator=g)).to(dt).to(device)
+    def rand(*shape, dt=torch.float32, s=1.0, gen=g):
+        return (s * torch.randn(*shape, generator=gen)).to(dt).to(device)
+
+    def walk_shapes(name, args):
+        """A tile walk's shapes: level 0 drawn from g, each later level of
+        WALK_LEVELS[name] from a generator of its own (seed 100 + level),
+        so that adding a level moves no other kernel's inputs."""
+        return [(f"level {l}", args(l, d, functools.partial(
+                    rand, gen=g if l == 0 else
+                    torch.Generator(device="cpu").manual_seed(100 + l))))
+                for l, d in walk_levels(hd, name)]
 
     lvl = hd.levels[0]
     gmp = sim.process.down_gmps[0]
     c, n0, e0 = 128, lvl.n_pad_nodes, lvl.n_pad_edges
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     cd = dtype if dtype == torch.bfloat16 else None
+
+    def tail(l):
+        m = level_gmp(sim, hd, l).mlp_edge
+        return list(m.weights)[1:], list(m.biases)[1:]
+
     if interleave(case) > 1:
         # Kernel 14's backward and, beside it, kernel 5 at the first level
         # that passes the density gate.
@@ -1780,9 +1805,10 @@ def bwd_kernel_inputs(case, dtype, device):
                 "fused_edge_phase_win_bwd": [(where, (*args, g_out))]}
     if unwindowed(case):
         if case["cfg"].world_edges:
-            return {"fused_edge_mlp_aggregate_bwd": [
-                ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e,
-                             rand(n0, c)))]}
+            return {"fused_edge_mlp_aggregate_bwd": walk_shapes(
+                "fused_edge_mlp_aggregate_bwd", lambda l, d, r: (
+                    d, r(d.n_pad_edges, c, dt=dtype), *tail(l),
+                    r(d.n_pad_nodes, c)))}
         return {"fused_edge_phase_bwd": [
             ("level 0", (lvl, rand(e0, c, dt=dtype), rand(n0, c, dt=dtype),
                          *mlp_e, rand(n0, c)))]}
@@ -1795,9 +1821,11 @@ def bwd_kernel_inputs(case, dtype, device):
                 ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e,
                              rand(n0, c)))]}
     else:
-        edge = {"fused_edge_phase_win_bwd": [
-            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         first_layer(gmp)[0], *mlp_e, rand(n0, c)))]}
+        edge = {"fused_edge_phase_win_bwd": walk_shapes(
+            "fused_edge_phase_win_bwd", lambda l, d, r: (
+                d, r(d.n_pad_nodes, c, dt=dtype), r(d.n_pad_nodes, c, dt=dtype),
+                first_layer(level_gmp(sim, hd, l))[0], *tail(l),
+                r(d.n_pad_nodes, c)))}
     node = [("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
                          gmp.mlp_node, rand(n0, c), cd)),
             *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
@@ -1809,6 +1837,58 @@ def bwd_kernel_inputs(case, dtype, device):
         d = hd.levels[deep]
         send.append((f"level {deep}", (d, rand(d.n_pad_edges, c, dt=dtype))))
     return {**edge, "fused_node_phase_bwd": node, "windowed_send_sum": send}
+
+
+def level_gmp(sim, hd, l):
+    """The GMP that runs on level l going down (the bottom one at the last
+    level)."""
+    return (sim.process.down_gmps[l] if l < hd.depth
+            else sim.process.bottom_gmp)
+
+
+def walk_levels(hd, name):
+    """(level index, level) of a tile-walk kernel's shapes: level 0, then
+    those of WALK_LEVELS[name] that the hierarchy has (the cylinder, at
+    depth 5, stops at level 5)."""
+    return [(l, hd.levels[l]) for l in (0, *WALK_LEVELS[name])
+            if l < len(hd.levels)]
+
+
+def walk_line(name, where, dtype, args):
+    """The tile walk's launch shape for one call of kernel 5 or 11's
+    backward: its tiles, the rows of a tile, the blocks per SM the kernel
+    reaches and the grid."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp
+
+    fn = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    keys = [k for k in fused_gmp._walks if k[0] == fn]
+    require(bool(keys), f"{name}: no tile walk shape was read")
+    fill, rows = fused_gmp._walks[keys[0]], fused_gmp.TILE_ROWS
+    tiles = args[0].n_pad_edges // rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"walk {name} {where} {str(dtype)[6:]}: {tiles} tiles of {rows} "
+            f"rows, {fill // sms} blocks per SM reached, grid "
+            f"{len(fused_gmp.tile_ranges(tiles, fill)) - 1}")
+
+
+def frac(a, b):
+    """a / b, where an all-zero reference (b = 0) allows no error."""
+    return a / b if b else (0.0 if a == 0 else float("inf"))
+
+
+def filled_compare(got, want, sparse):
+    """(largest error, RMS error, RMS of want, whether got is exactly zero
+    on every row that want leaves zero, whether want fills any row). Where
+    `sparse`, the errors and the RMS are taken over the rows that want
+    fills and the other rows are checked; elsewhere over every row."""
+    filled = (want.reshape(want.shape[0], -1) != 0).any(-1)
+    live = bool(filled.any())
+    if not sparse:
+        return (*compare(got, want), True, live)
+    if not live:
+        return 0.0, 0.0, 0.0, bool((got == 0).all()), False
+    return (*compare(got[filled], want[filled]),
+            bool((got[~filled] == 0).all()), True)
 
 
 def longest_send_level(hd):
@@ -1824,8 +1904,9 @@ def longest_send_level(hd):
 def check_bwd_kernels(case, device):
     """Every backward kernel against its plain version on the same inputs,
     each output on its own, and in bf16 a control (the f32 kernel on the
-    upcast inputs) that must miss the tolerance in every output. Returns {(name, dtype): largest max_abs_err over the outputs}
-    at the first shape listed."""
+    upcast inputs) that must miss the tolerance in every output the plain
+    version does not leave all zero. Returns {(name, dtype): largest
+    max_abs_err over the outputs} at the first shape listed."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
@@ -1834,6 +1915,13 @@ def check_bwd_kernels(case, device):
                 got, want = fn(*args), plain(*args)
                 if name == "windowed_send_sum":
                     got, want = (got,), (want,)
+                if name in TILE_WALKS:
+                    again = fn(*args)
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    print(walk_line(name, where, dtype, args) + "; two calls "
+                          + ("bit-identical" if same else "DIFFER"))
+                    require(same, f"{name} {where} {dtype}: two calls on the "
+                                  f"same inputs differ")
                 ctrl = None
                 if name in BWD_CONTROLS and dtype == torch.bfloat16:
                     up = [a.float() if isinstance(a, torch.Tensor)
@@ -1842,32 +1930,46 @@ def check_bwd_kernels(case, device):
                         up[4] = None
                     ctrl = fn(*up)
                 worst = 0.0
+                # A tile walk's later shapes are levels of few or no live
+                # slots, where most rows of dpre and dxj are zero by
+                # construction: the measures there are taken over the rows
+                # the plain output fills, and every other row must be
+                # exactly zero (over all rows the RMS would shrink by
+                # sqrt(rows / filled), 16x for dpre at airfoil level 6).
+                sparse = name in TILE_WALKS and where != shapes[0][0]
                 for i, out in enumerate(BWD_OUTPUTS[name]):
                     tol_max, tol_rms = BWD_TOL[(name, dtype)]
-                    err, err_rms, rms = compare(got[i], want[i])
+                    err, err_rms, rms, zero_ok, live = filled_compare(
+                        got[i], want[i], sparse)
                     rows = int(((got[i].float() - want[i].float()).abs()
                                 .amax(-1) > 1e-2 * rms).sum())
                     ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
+                          and zero_ok
                           and bool(torch.isfinite(got[i]).all())
                           and got[i].dtype == want[i].dtype)
                     line = (f"kernel {name:24s} {where:8s} {out:5s} "
                             f"{str(dtype)[6:]:9s} max_abs_err {err:.3e} "
-                            f"({err / rms:.2e} of rms {rms:.3e}, tol "
+                            f"({frac(err, rms):.2e} of rms {rms:.3e}"
+                            f"{' over the filled rows' if sparse else ''}, tol "
                             f"{tol_max:.0e}, row {worst_row(got[i], want[i])})"
-                            f"  rms_err {err_rms / rms:.2e} "
+                            f"  rms_err {frac(err_rms, rms):.2e} "
                             f"(tol {tol_rms:.0e}), {rows} rows off by more "
                             f"than 1e-2 of rms  {'ok' if ok else 'FAIL'}")
-                    if ctrl is not None:
-                        c_err, c_rms, _ = compare(ctrl[i], want[i])
+                    if ctrl is not None and not live:
+                        line += "; no control: the plain output is all zero"
+                    elif ctrl is not None:
+                        c_err, c_rms, _, c_zero, _ = filled_compare(
+                            ctrl[i], want[i], sparse)
                         missed = (c_err > tol_max * rms
-                                  or c_rms > tol_rms * rms)
-                        line += (f"; control max {c_err / rms:.2e}, rms "
-                                 f"{c_rms / rms:.2e}: "
+                                  or c_rms > tol_rms * rms or not c_zero)
+                        line += (f"; control max {frac(c_err, rms):.2e}, rms "
+                                 f"{frac(c_rms, rms):.2e}: "
                                  f"{'misses, ok' if missed else 'PASSES'}")
+                    print(line)
+                    if ctrl is not None and live:
                         require(missed, f"{name} {where} {out}: the bf16 "
                                         f"tolerance does not tell an "
                                         f"unrounded kernel apart")
-                    print(line)
                     require(ok, f"{name} {where} {out} {dtype} disagrees "
                                 f"with plain")
                     worst = max(worst, err)
