@@ -1,7 +1,9 @@
-// Shared device code of the backward kernels 5 and 6: the MLP tail's
-// forward that keeps what its backward needs, the LayerNorm backward, the
-// transposed tile product behind every weight gradient, and the second pass
-// that sums the per-block weight-gradient partials in a fixed order.
+// Shared device code of the backward kernels: the LayerNorm backward and
+// the second pass that sums the per-block weight-gradient partials in a
+// fixed order (kernels 5, 6 and 11-13's backwards), and, for the backward
+// chunk walk of kernels 12-14 (edge_phase_bwd.cuh), the MLP tail's forward
+// that keeps what its backward needs and the transposed tile product
+// behind its weight gradients.
 //
 // The TPU kernels carry their weight gradients in scratch across a
 // sequential grid. Here blocks run in no order, so each block writes its

@@ -251,6 +251,98 @@ __device__ __forceinline__ void round_tile(float* t) {
   __syncthreads();
 }
 
+// Fills the slot tables of the TR slots from t0 (in chunk ch) and, with
+// kWin, the tile's fiber stream (rounded in BF16 mode); returns whether any
+// slot is live (kWin: an in-window sender and a receiver in the chunk's
+// block; kStream: the receiver alone), the same in every thread. Starts with
+// a block barrier (the previous tile is done with the tables) and ends with
+// one.
+template <bool BF16, Front F>
+__device__ __forceinline__ bool tile_slots(
+    int t0, int ch, const float* __restrict__ fiber_t,
+    const int* __restrict__ send_win, const int* __restrict__ win_base,
+    const int* __restrict__ receivers, const int* __restrict__ chunk_block,
+    int e_pad, int window, int* s_row, int* s_recv, int* s_loc, float* fib) {
+  constexpr bool WIN = F == Front::kWin;
+  const int tid = threadIdx.x;
+  const int row0 = chunk_block[ch] * BN;
+  __syncthreads();
+  bool live = false;
+  if (tid < TR) {
+    const int e = t0 + tid, r = receivers[e], loc = r - row0;
+    bool keep = loc >= 0 && loc < BN;
+    if constexpr (WIN) {
+      const int sw = send_win[e];
+      const bool in_win = sw < window;
+      s_row[tid] = in_win ? win_base[ch] * (window / 2) + sw : -1;
+      keep = keep && in_win;
+    }
+    s_recv[tid] = r;
+    s_loc[tid] = keep ? loc : -1;
+    live = keep;
+  }
+  if constexpr (WIN)
+    for (int i = tid; i < 8 * TR; i += NT) {
+      const float f = fiber_t[(size_t)(i / TR) * e_pad + t0 + i % TR];
+      fib[i] = BF16 ? round_bf16(f) : f;
+    }
+  return __syncthreads_or(live);
+}
+
+// relu(pre) of the tile's rows into `h` (rounded in BF16 mode, as the next
+// dot operand). kWin: pre = fiber·wf8 + xwi[send] + xj[recv], with `wf` the
+// [8][C] fiber weights and `fib` the tile's fiber stream in shared memory;
+// kStream: pre = src[t0 + r]. A warp owns rows warp + j·NW, each lane 4
+// columns; each group of HB rows' loads is issued before their arithmetic.
+template <typename T, bool BF16, Front F>
+__device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
+                                           const T* __restrict__ xj,
+                                           const float* wf, const float* fib,
+                                           const int* s_row, const int* s_recv,
+                                           float* h) {
+  constexpr bool WIN = F == Front::kWin;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c4 = 4 * lane;
+  for (int j0 = 0; j0 < RW; j0 += HB) {
+    float4 a[HB], z[HB];
+#pragma unroll
+    for (int j = 0; j < HB; ++j) {
+      const int r = warp + (j0 + j) * NW;
+      if constexpr (WIN) {
+        const int row = s_row[r];
+        a[j] = row >= 0 ? load4(src + (size_t)row * C + c4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        z[j] = load4(xj + (size_t)s_recv[r] * C + c4);
+      } else {
+        a[j] = load4(src + (size_t)(t0 + r) * C + c4);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < HB; ++j) {
+      const int r = warp + (j0 + j) * NW;
+      float v[4] = {a[j].x, a[j].y, a[j].z, a[j].w};
+      if constexpr (WIN) {
+        const float zz[4] = {z[j].x, z[j].y, z[j].z, z[j].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float f = 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            f = fmaf(fib[k * TR + r], wf[k * C + c4 + q], f);
+          v[q] = (f + v[q]) + zz[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = fmaxf(v[q], 0.f);
+        if (BF16) v[q] = round_bf16(v[q]);
+      }
+      *reinterpret_cast<float4*>(h + r * C + c4) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
 // The walk. kWin: xwi, xj, fiber_t, wf8, send_win and win_base as kernel
 // 4's; kStream (kernel 11): src = the streamed pre-activation, xj null. W
 // and WT are the tail's stacks (bf16 values in BF16 mode), gpart G
@@ -292,77 +384,17 @@ __device__ __forceinline__ void edge_bwd_tiles(
 
   for (int t = t_begin; t < t_end; ++t) {
     const int t0 = t * TR, ch = t0 / edge_block;
-    const int row0 = chunk_block[ch] * BN;
-    // The slots' tables; the previous tile is done with them.
-    __syncthreads();
-    bool live = false;
-    if (tid < TR) {
-      const int e = t0 + tid, r = receivers[e], loc = r - row0;
-      bool keep = loc >= 0 && loc < BN;
-      if constexpr (WIN) {
-        const int sw = send_win[e];
-        const bool in_win = sw < window;
-        s_row[tid] = in_win ? win_base[ch] * (window / 2) + sw : -1;
-        keep = keep && in_win;
-      }
-      s_recv[tid] = r;
-      s_loc[tid] = keep ? loc : -1;
-      live = keep;
-    }
-    if constexpr (WIN)
-      for (int i = tid; i < 8 * TR; i += NT) {
-        const float f = fiber_t[(size_t)(i / TR) * e_pad + t0 + i % TR];
-        fib[i] = BF16 ? round_bf16(f) : f;
-      }
-    if (!__syncthreads_or(live)) {
+    if (!tile_slots<BF16, F>(t0, ch, fiber_t, send_win, win_base, receivers,
+                             chunk_block, e_pad, window, s_row, s_recv, s_loc,
+                             fib)) {
       // A dead tile: every slot's cotangent is zero.
       for (int i = tid; i < TR * C; i += NT) store(&dpre[(size_t)t0 * C + i], 0.f);
       continue;
     }
 
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's
-    // input, the LayerNorm output into d. A warp owns rows warp + j·NW,
-    // each lane 4 columns; each group of HB rows' loads is issued before
-    // their arithmetic.
-    const int c4 = 4 * lane;
-    for (int j0 = 0; j0 < RW; j0 += HB) {
-      float4 a[HB], z[HB];
-#pragma unroll
-      for (int j = 0; j < HB; ++j) {
-        const int r = warp + (j0 + j) * NW;
-        if constexpr (WIN) {
-          const int row = s_row[r];
-          a[j] = row >= 0 ? load4(src + (size_t)row * C + c4)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-          z[j] = load4(xj + (size_t)s_recv[r] * C + c4);
-        } else {
-          a[j] = load4(src + (size_t)(t0 + r) * C + c4);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < HB; ++j) {
-        const int r = warp + (j0 + j) * NW;
-        float v[4] = {a[j].x, a[j].y, a[j].z, a[j].w};
-        if constexpr (WIN) {
-          const float zz[4] = {z[j].x, z[j].y, z[j].z, z[j].w};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float f = 0.f;
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-              f = fmaf(fib[k * TR + r], wf[k * C + c4 + q], f);
-            v[q] = (f + v[q]) + zz[q];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          v[q] = fmaxf(v[q], 0.f);
-          if (BF16) v[q] = round_bf16(v[q]);
-        }
-        *reinterpret_cast<float4*>(hs + r * C + c4) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
+    // input, the LayerNorm output into d.
+    tile_front<T, BF16, F>(t0, src, xj, wf, fib, s_row, s_recv, hs);
     for (int l = 0; l < n_layers; ++l) {
       float acc[RW][4] = {};
       const float* in = hs + (size_t)l * TR * C;

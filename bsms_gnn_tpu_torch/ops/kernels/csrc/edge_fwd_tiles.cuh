@@ -1,0 +1,138 @@
+// The forward edge walk of kernel 4 (fused_gmp.cu), replacing the TPU
+// kernel `bsms_gnn_tpu/ops/pallas/fused_gmp.py:568` (`_get_fwd3`). Per
+// live slot e (an in-window sender whose receiver lies in its chunk's
+// 128-row block) it computes the message
+//   msg[e] = LN(tail(relu(fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e])))
+// with kernel 4's rounding points (rounded to bf16 in BF16 mode, where the
+// TPU kernel rounds it before its f32 sum) and stores it; the aggregate is
+// summed from msg by the receiver gather of row_gather.cuh
+// (`recv_gather_kernel` over `win_row_*`, which list exactly these slots).
+//
+// What bounds it: operations, in true f32 on the CUDA cores (no TF32): per
+// live slot about 2·L·128² FLOP of products, against a few hundred bytes.
+//
+// What the design does about it, with the grid plan of the backward walk
+// (edge_bwd_tiles.cuh), whose helpers it shares:
+// - A persistent grid over the level's T = E_pad / TR tiles, not chunks: G
+//   blocks (SMs × the blocks per SM the kernel reaches, at most T), block b
+//   walking the tile range [⌊b·T/G⌋, ⌊(b+1)·T/G⌋) in order; each tile finds
+//   its chunk, output block and window from its first slot. The airfoil's
+//   levels hold 82 down to one 512-slot chunk: a block per chunk left every
+//   level on fewer SMs than the card has for a whole 8-tile walk.
+// - A dead tile (no live slot) skips the front and the GEMMs and writes
+//   nothing: no msg row of it is listed.
+// - The tail runs in place in one TR×C tile (each warp reads and writes
+//   only its own rows), the weights' KS-row slabs double-buffered with
+//   cp.async, each GEMM's last slab issuing the next GEMM's first (after
+//   the last layer: layer 0's, for the next live tile). In BF16 mode W
+//   comes already rounded to bf16 (stored as f32), so the copy rounds
+//   nothing.
+// - No shared-memory output block, no per-chunk part and no chunk sum: the
+//   messages' sum is the gather's, in list order, with no atomics, so two
+//   calls agree bit for bit.
+// - One TR×C tile and two slabs take about 103 KB of shared memory, so two
+//   blocks fit on an SM: one block's loads of the front overlap the other's
+//   products.
+#pragma once
+
+#include "edge_bwd_tiles.cuh"
+
+namespace bsms {
+namespace tiles {
+
+constexpr int FWD_MIN_BLOCKS = 2;
+
+// Shared memory of the forward walk: the tile, two weight slabs, the fiber
+// weights and stream, then the three int tables of the tile's slots.
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * ((size_t)TR * C + 2 * KS * C + 8 * C + 8 * TR) +
+         sizeof(int) * 3 * TR;
+}
+
+// Stores 4 columns of a message row (bf16 in BF16 mode: the LN output
+// rounded to nearest even, as the TPU kernel rounds it).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The walk: xwi, xj, fiber_t, wf8, send_win, win_base as kernel 4's; W the
+// tail's stack (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in
+// the activations' type, written on live slots only.
+template <typename T, bool BF16>
+__device__ __forceinline__ void edge_fwd_tiles(
+    const float* __restrict__ fiber_t, const T* __restrict__ xwi,
+    const T* __restrict__ xj, const float* __restrict__ wf8,
+    const float* __restrict__ W, const float* __restrict__ B, int n_layers,
+    const int* __restrict__ send_win, const int* __restrict__ win_base,
+    const int* __restrict__ receivers, const int* __restrict__ chunk_block,
+    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg) {
+  extern __shared__ float4 smem4[];
+  float* h = reinterpret_cast<float*>(smem4);  // [TR][C] the tile's rows
+  float* wslab = h + TR * C;                    // [2][KS][C] weight slabs
+  float* wf = wslab + 2 * KS * C;               // [8][C] fiber weights
+  float* fib = wf + 8 * C;                      // [8][TR] fiber stream
+  int* s_row = reinterpret_cast<int*>(fib + 8 * TR);
+  int* s_recv = s_row + TR;
+  int* s_loc = s_recv + TR;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x, b = blockIdx.x;
+  const int t_begin = (int)((long long)b * n_tiles / G);
+  const int t_end = (int)((long long)(b + 1) * n_tiles / G);
+  for (int i = tid; i < 8 * C; i += NT) wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
+  copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int t0 = t * TR, ch = t0 / edge_block;
+    if (!tile_slots<BF16, Front::kWin>(t0, ch, fiber_t, send_win, win_base,
+                                       receivers, chunk_block, e_pad, window,
+                                       s_row, s_recv, s_loc, fib))
+      continue;  // a dead tile: no message of it is listed
+    tile_front<T, BF16, Front::kWin>(t0, xwi, xj, wf, fib, s_row, s_recv, h);
+    for (int l = 0; l < n_layers; ++l) {
+      float acc[RW][4] = {};
+      gemm_rows(acc, h, W + (size_t)l * C * C,
+                W + (l + 1 < n_layers ? (size_t)(l + 1) * C * C : 0), wslab);
+      const bool last = l == n_layers - 1;
+      store_rows(acc, B + l * C, h, !last, BF16 && !last);
+    }
+    // The LayerNorm of each of the warp's own rows (gemm_rows' layout, so
+    // no barrier), then each live slot's message row.
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = RW * warp + i;
+      float4 v = reinterpret_cast<const float4*>(h + r * C)[lane];
+      const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
+      v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
+      const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
+      const float iv = 1.0f / sqrtf(var + LN_EPS);
+      v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
+      if (s_loc[r] >= 0) store4(msg + (size_t)(t0 + r) * C + 4 * lane, v);
+    }
+  }
+  cp_async_wait_all();  // the next tile's first slab, never used
+}
+
+// Blocks of one SM the forward walk reaches for `kernel` (the launch
+// bounds, registers and shared memory decide), after raising its
+// shared-memory limit.
+template <typename K>
+cudaError_t fwd_blocks_per_sm(K kernel, int* out) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwd_smem_bytes());
+  if (attr != cudaSuccess) return attr;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, NT,
+                                                       fwd_smem_bytes());
+}
+
+}  // namespace tiles
+}  // namespace bsms

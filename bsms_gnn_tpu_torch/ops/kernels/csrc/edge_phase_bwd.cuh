@@ -19,8 +19,8 @@
 // layer's input, the running cotangent and the chunk's 128-row dxj block in
 // shared memory (kernel 14's backward names its block's chunk, `chunk`, and
 // keeps the dxj block in shared memory, `store_part` false, for its cluster
-// to sum). dxj takes kernel 4's scheme (a part per chunk, summed over
-// chunk_ptr by block_sum_kernel). The weight gradients: each chunk adds its
+// to sum). dxj takes the forward chunk walk's scheme (edge_phase.cuh: a
+// part per chunk, summed over chunk_ptr by block_sum_kernel). The weight gradients: each chunk adds its
 // tiles into its own partial in device memory, in tile order, and
 // grad_sum_kernel adds the partials in chunk order (no atomics). A chunk's
 // partial is [dW | db | dwf8 | dwf_dyn | dwf_nrm] (dwf8 not with kStream,

@@ -31,19 +31,6 @@ fused_edge_phase_win_bwd_kernel(
       dpre);
 }
 
-// dxj[n] = Σ dpre[e] over receiver row n's listed slots, in list order (a
-// bf16 dpre widens exactly to f32); a row with no slot comes out zero.
-template <typename T, bool BF16>
-__global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
-recv_gather_kernel(const T* __restrict__ dpre,
-                   const int* __restrict__ row_ptr,
-                   const int* __restrict__ row_slots,
-                   const int* __restrict__ long_rows, int n_rows, int piece,
-                   float* __restrict__ dxj) {
-  gather_rows<BF16>(dpre, ListedSlots{row_slots}, StoreRows{}, row_ptr,
-                    long_rows, n_rows, piece, dxj);
-}
-
 template <typename T, bool BF16>
 int blocks_per_sm(int n_layers, int* out) {
   return (int)tiles::walk_blocks_per_sm(

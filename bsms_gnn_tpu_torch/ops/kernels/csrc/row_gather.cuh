@@ -1,6 +1,7 @@
 // The row-ordered gather of kernels 1 (windowed.cu), 2 (compact_resid.cu),
-// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of kernel 5's dxj
-// (fused_gmp_bwd.cu: kernel 7's front over kernel 1's receiver lists):
+// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of kernel 4's aggregate
+// and kernel 5's dxj (fused_gmp.cu, fused_gmp_bwd.cu: kernel 7's front over
+// kernel 1's receiver lists):
 //
 //   out[dst(k)] (= or +=) Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} w(e_i) · x[row(e_i)]
 //
@@ -9,15 +10,15 @@
 // time:
 // - the source (`Src`): e_i (`slots[i]`, or i itself where each list is a
 //   range of x's rows: kernel 2), the value row row(e) (the entry point's
-//   resolver from its layout tables, or e itself: kernels 2, 5 and 7) and,
-//   when WEIGHTED (kernels 1 and 15), w(e) = ew[e], rounded to bf16 in
-//   BF16 mode (the product with a bf16 row is then exact in f32). An
+//   resolver from its layout tables, or e itself: kernels 2, 4, 5 and 7)
+//   and, when WEIGHTED (kernels 1 and 15), w(e) = ew[e], rounded to bf16
+//   in BF16 mode (the product with a bf16 row is then exact in f32). An
 //   unweighted source adds the row as it is (bf16 widens to f32 exactly);
 // - the destination (`Dst`): the output row dst(k) (k itself, or rows[k]:
 //   kernel 2) and how a sum is written: stored, a list with no position
-//   giving a zero row (kernels 1, 7, 15), or added onto the row's value,
-//   read once and written once (kernel 2); rows no list names are not
-//   touched.
+//   giving a zero row (kernels 1, 4, 5, 7, 15), or added onto the row's
+//   value, read once and written once (kernel 2); rows no list names are
+//   not touched.
 // The sum is in f32.
 //
 // Blocks of GATHER_WARPS warps. The first ceil(n_rows / (GATHER_WARPS ·
@@ -95,7 +96,7 @@ struct WeightedSlots {
   __device__ __forceinline__ float weight(int e) const { return __ldg(ew + e); }
 };
 // Slots listed in `slots`, each adding its own row of x (kernel 7, and
-// kernel 5's dxj over the receiver lists).
+// kernels 4 and 5 over the receiver lists).
 struct ListedSlots {
   static constexpr bool WEIGHTED = false;
   const int* slots;
@@ -109,7 +110,7 @@ struct RangeRows {
   __device__ __forceinline__ int row(int e) const { return e; }
 };
 
-// Destinations. List k's sum stored into row k (kernels 1, 5's dxj, 7,
+// Destinations. List k's sum stored into row k (kernels 1, 4, 5's dxj, 7,
 // 15).
 struct StoreRows {
   static constexpr bool ADD = false;
@@ -274,6 +275,22 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
     if constexpr (Dst::ADD) add4(s, dst[(size_t)o * (C / 4) + lane]);
     dst[(size_t)o * (C / 4) + lane] = s;
   }
+}
+
+// The receiver gather of kernel 4's aggregate (fused_gmp.cu) and kernel
+// 5's dxj (fused_gmp_bwd.cu): out[n] = Σ rows[e] over receiver row n's
+// listed slots (`win_row_ptr`, `win_row_slots`, `win_long`), in list
+// order (a bf16 row widens exactly to f32); a row with no slot comes out
+// zero.
+template <typename T, bool BF16>
+__global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
+recv_gather_kernel(const T* __restrict__ rows,
+                   const int* __restrict__ row_ptr,
+                   const int* __restrict__ row_slots,
+                   const int* __restrict__ long_rows, int n_rows, int piece,
+                   float* __restrict__ out) {
+  gather_rows<BF16>(rows, ListedSlots{row_slots}, StoreRows{}, row_ptr,
+                    long_rows, n_rows, piece, out);
 }
 
 // Blocks of a gather launch over n_rows lists, n_long of them long.

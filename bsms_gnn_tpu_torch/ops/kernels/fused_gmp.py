@@ -11,25 +11,30 @@ with the sender row `win_base[chunk]·W/2 + send_win[e]`, read only when
 still run the edge MLP but are masked from the scatter; the caller adds the
 compact residual (`compact_resid.py`).
 
-CUDA design (`csrc/fused_gmp.cu` over the chunk walk of
-`csrc/edge_phase.cuh`, which kernels 11, 12 and 13 share): one thread block
-per edge chunk walks the chunk in 64-edge tiles. Per tile it loads the selected sender rows and
-receiver rows directly (no one-hot selection), runs the tail MLP and
-LayerNorm in shared memory, and adds each edge into a shared-memory copy
-of the chunk's 128-row output block, which it writes to a per-chunk part;
-each column is owned by one thread and edges are added in slot order. A
-second kernel adds the parts of each output block in chunk order (the
-layout is receiver-block-sorted, so a block's chunks are one contiguous
-range, `chunk_ptr`): the sum is deterministic, needs no atomics, and a
-block with no chunk comes out zero. One block per output block would leave
-the deep levels, whose few output blocks hold many chunks each (level 5 of
-the 5k mesh: 24 chunks in 2 blocks), running on a handful of SMs.
-What bounds it on the card: operations. Each slot costs
-L·2·128·128 FLOP in the tail (≈ 4.1 GFLOP at the 5k mesh's level 0),
-against a few MB of traffic; in f32 that runs on the CUDA cores (FMA, no
-TF32). The tile GEMM stages 32-row slabs of each weight in shared memory
-and gives every thread an 8×4 register tile. Level 0 of the 5k mesh has
-82 chunks for 132 SMs. `wgmma` tiles for the GEMMs are later work.
+CUDA design (`csrc/fused_gmp.cu` over the forward tile walk of
+`csrc/edge_fwd_tiles.cuh`). What bounds it on the card: operations. Each
+live slot costs L·2·128·128 FLOP in the tail (≈ 4.1 GFLOP at the 5k
+mesh's level 0), against a few MB of traffic; in f32 that runs on the CUDA
+cores (FMA, no TF32). The walk has the backward walk's grid plan (kernel 5
+below): G blocks (SMs × the blocks per SM the kernel reaches, `walk_fill`,
+at most the level's tiles) walk the level's 64-slot tiles, block b the
+range `tile_ranges(T, G)[b] .. [b + 1]` in order, so a level of few chunks
+(the 5k airfoil's levels hold 82 down to one 512-slot chunk) still fills
+the card. A tile with no live slot (an in-window sender whose receiver
+lies in the chunk's 128-row block) skips the front and the GEMMs and
+writes nothing. A live tile loads its selected sender and receiver rows
+directly (no one-hot selection), runs the tail MLP in place with the
+weights' 64-row slabs double-buffered by cp.async, then the LayerNorm,
+and stores each live slot's message row into `msg [E_pad, 128]` (in
+xwi's dtype: the LN output, rounded to bf16 in bf16 mode where the TPU
+kernel rounds it before its f32 sum). A second launch, the row-ordered
+gather of `csrc/row_gather.cuh` (`recv_gather_kernel`, kernel 5's dxj
+gather), sums each receiver row's messages over `win_row_ptr`,
+`win_row_slots`, `win_long`, which list exactly the live slots, in list
+order: no shared-memory output block, no per-chunk part, no chunk sum, no
+atomics; two calls agree bit for bit, and a row with no slot comes out
+zero. `msg` is transient: 21.5 MB in f32 at the 5k airfoil's level 0
+(10.7 in bf16). `wgmma` tiles for the GEMMs are later work.
 
 Kernel 5 replaces the TPU kernel's backward (`_get_bwd3` →
 `_make_bwd3_kernel`): given the aggregate's cotangent g [n_pad, C] f32 it
@@ -97,9 +102,11 @@ BN = 128
 LN_EPS = 1e-5
 # Kernel 5 keeps one activation tile per tail layer in shared memory.
 MAX_BWD_LAYERS = 3
-_SIG = [build.P] * 11 + [build.I] * 6 + [build.P] * 3
 _FN = {torch.float32: "fused_edge_phase_win_f32",
        torch.bfloat16: "fused_edge_phase_win_bf16"}
+_SIGS = {**{f: [build.P] * 13 + [build.I] * 9 + [build.P] * 3
+            for f in _FN.values()},
+         **{f + "_blocks_per_sm": [build.I, build.P] for f in _FN.values()}}
 _BWD_FN = {torch.float32: "fused_edge_phase_win_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_bwd_bf16"}
 _BWD_SIGS = {**{f: [build.P] * 15 + [build.I] * 9 + [build.P] * 5
@@ -237,25 +244,27 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
         raise RuntimeError(f"no kernel for device {xwi.device}")
     build.require("fused_edge_phase_win", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
-    lib = build.library("fused_gmp", {f: _SIG for f in _FN.values()})
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
+                  level.win_row_ptr, level.win_row_slots, level.win_long)
+    lib = build.library("fused_gmp", _SIGS)
+    fn, dev = _FN[xwi.dtype], xwi.device
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    bf16 = xwi.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32,
-                       device=xwi.device)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=xwi.device)
-    err = getattr(lib, _FN[xwi.dtype])(
+    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
+    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
         level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
-        level.chunk_ptr.data_ptr(), len(weights), n_chunks,
-        level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-        level.window, part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(xwi.device).cuda_stream,
+        level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
+        level.win_long.data_ptr(), len(weights), grid, n_tiles,
+        level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
+        level.win_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win")
     fused_edge_phase_win_fwd.launches += 1

@@ -24,15 +24,26 @@ Kernel 6 replaces the TPU kernel's backward (`_get_bwd` →
 `_make_bwd_kernel`): given the output's cotangent g [n_pad, C] f32 it
 recomputes each row tile's forward and returns dx (in x's dtype; it
 includes the residual's g), daggr (f32), dWa, dWb [C, C], db0 [C] and the
-tail's dW [L, C, C], db [L, C]. CUDA design (`csrc/node_mlp_bwd.cu`): one
-thread block per 64-row tile, every activation in shared memory as in
-kernel 3. The TPU sums the weight gradients in scratch across its
-sequential grid; here each tile writes its own partial and a second pass
-sums the partials in tile order (deterministic, no atomics). bf16 mode
-rounds every dot operand as the forward does, and in the backward the
-running cotangent and dpre too; g itself enters the LayerNorm backward in
-f32, as on the TPU. What bounds it: operations, about three times kernel
-3's.
+tail's dW [L, C, C], db [L, C]. What bounds it: operations, about three
+times kernel 3's (fifteen 64×128×128 products per 64-row tile at L = 3).
+CUDA design (`csrc/node_mlp_bwd.cu`): a thread-block cluster of CLUSTER
+CTAs per 64-row tile, CTA q computing the output columns [32q, 32q + 32)
+of every product from the full input tile, which the cluster's CTAs
+assemble from each other's column slices through distributed shared
+memory after each layer; the LayerNorm and its backward run whole in
+every CTA. So each tile's serial chain of products is CLUSTER times
+shorter and a level of n tiles runs CLUSTER·n CTAs: the 5k airfoil's
+levels hold 82 tiles down to one, and one block per tile left every level
+on fewer SMs than the card has. Each weight gradient splits by its rows
+(dW[l] = h_lᵀ·d: CTA q needs only its own columns of h_l), so the CTAs of
+a tile write disjoint parts of the tile's one partial, each element summed
+over the tile's rows in row order, and `grad_sum_kernel` adds the partials
+in tile order: deterministic, no atomics, the same arithmetic as one
+block per tile. bf16 mode rounds
+every dot operand as the forward does (the weights once per call, on the
+host: `build.stacked(..., to_bf16=True)`), and in the backward the running
+cotangent and dpre too; g itself enters the LayerNorm backward in f32, as
+on the TPU.
 
 `fused_node_phase` is the differentiable entry: an autograd Function whose
 forward launches kernel 3 and whose backward launches kernel 6.
@@ -62,6 +73,9 @@ _BWD_FN = {(torch.float32, False): "fused_node_phase_bwd_f32",
            (torch.bfloat16, True): "fused_node_phase_bwd_bf16",
            (torch.float32, True): "fused_node_phase_bwd_f32_bf16"}
 ROWS = 64
+# CTAs of kernel 6's cluster per ROWS-row tile (`csrc/node_mlp_bwd.cu`'s
+# CL), each owning BN / CLUSTER output columns of every product.
+CLUSTER = 4
 
 
 def _check(x, aggr, mlp, compute_dtype):
@@ -177,14 +191,15 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     lib = build.library("node_mlp_bwd", {f: _BWD_SIG for f in _BWD_FN.values()})
     ws, bs = list(mlp.weights), list(mlp.biases)
     c, dev = x.shape[-1], x.device
-    w0 = ws[0].detach().float()
-    wab_t = torch.stack([w0[:c].t(), w0[c:].t()]).contiguous()
-    w0, b0 = w0.contiguous(), bs[0].detach().float().contiguous()
-    w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
-    wt_stack = build.stacked(ws[1:], transpose=True)
+    bf16 = compute_dtype == torch.bfloat16
+    w0 = build.stacked(ws[:1], to_bf16=bf16)
+    w0_t = build.stacked(ws[:1], transpose=True, to_bf16=bf16)
+    b0 = bs[0].detach().float().contiguous()
+    w_stack = build.stacked(ws[1:], to_bf16=bf16)
+    wt_stack = build.stacked(ws[1:], transpose=True, to_bf16=bf16)
+    b_stack = build.stacked(bs[1:])
     x, aggr = x.contiguous(), aggr.contiguous()
     g = g.detach().float().contiguous()
-    bf16 = compute_dtype == torch.bfloat16
     n_tiles = x.shape[0] // ROWS
     grad_size = (2 + n_layers) * c * c + (1 + n_layers) * c
     gpart = torch.empty(n_tiles, grad_size, dtype=torch.float32, device=dev)
@@ -193,7 +208,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     daggr = torch.empty_like(aggr)
     err = getattr(lib, _BWD_FN[(x.dtype, bf16)])(
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-        w_stack.data_ptr(), b_stack.data_ptr(), wab_t.data_ptr(),
+        w_stack.data_ptr(), b_stack.data_ptr(), w0_t.data_ptr(),
         wt_stack.data_ptr(), g.data_ptr(), gpart.data_ptr(), n_layers,
         n_tiles, dx.data_ptr(), daggr.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,

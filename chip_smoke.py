@@ -10,9 +10,11 @@ Phases (any failure exits non-zero without the result line):
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
 3. each forward kernel of that path against its plain PyTorch version on
-   the card at the path's shapes (level 0, T0 down / up; kernel 2 also on
-   a residual with a receiver of more than 32 rows, level 0's plus a star
-   of edges), f32 and bf16;
+   the card at the path's shapes (level 0, T0 down / up; kernel 4 at every
+   level, twice for bit-identical outputs; kernel 2 also on a residual
+   with a receiver of more than 32 rows, level 0's plus a star of edges),
+   f32 and bf16; a miss of kernel 4's, 5's or 6's check prints the
+   smallest |ReLU input| feeding the rows that miss;
 4. serving: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
    filled from seeded frames) forward through the kernels against the same
    forward through the plain versions, f32 and bf16; the kernel launch
@@ -21,7 +23,8 @@ Phases (any failure exits non-zero without the result line):
    each forward kernel's time beside its plain version, one PyTorch library
    call where one computes the same function, and the card's bound;
 6. each backward kernel against its plain version on the card at level 0
-   (kernel 7 also at the level with the longest sender lists, the
+   (kernels 5 and 6 at every level, twice for bit-identical outputs;
+   kernel 7 also at the level with the longest sender lists, the
    airfoil's level 5), f32 and bf16, every output judged on its own, with
    a bf16 control;
 7. the train step: loss and every parameter's gradient through the kernels
@@ -31,8 +34,8 @@ Phases (any failure exits non-zero without the result line):
    every parameter;
 8. train-step times: ms per step (median of repeats, CUDA events), device
    busy time, idle share and kernel count of one profiled step, peak
-   memory, and each backward kernel's time beside its plain version, its
-   library call and its bound;
+   memory (and above what the step starts with), and each backward
+   kernel's time beside its plain version, its library call and its bound;
 9. the 16,000-node inflating surface of bench.py (a closed sphere mesh,
    depth 7, the default unwindowed hierarchy, the `pallas` method, world
    edges, the inflating-font model at latent 128, hidden 3): kernels 8 and
@@ -405,30 +408,55 @@ WIDE_WD = 6
 WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
 # The kernels whose every listed shape is timed, not only the first (the
 # pallas path times all of its own): the row-ordered gathers of kernels 2
-# and 7, whose long lists only their later shapes reach.
+# and 7, whose long lists only their later shapes reach, and the kernels
+# that walk a level's tiles or fill the card at every level, whose later
+# shapes are the levels of fewer tiles.
 EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
-                     "fused_edge_phase_win_bwd", "fused_edge_mlp_aggregate_bwd")
-# The backward kernels on the tile walk (`csrc/edge_bwd_tiles.cuh`): two
-# calls on the same inputs must agree bit for bit (the walk's grid and its
-# order of sums depend only on the card and the layout), and their later
-# shapes are levels of fewer live tiles: kernel 5 at every level of the
-# airfoil below 0 (6 holds 2 live slots, 7 none), kernel 11's backward at
-# the surface's level 7. The bf16 controls run at every shape, and are
-# skipped only for an output that the plain version leaves all zero.
-TILE_WALKS = ("fused_edge_phase_win_bwd", "fused_edge_mlp_aggregate_bwd")
-WALK_LEVELS = {"fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
-               "fused_edge_mlp_aggregate_bwd": (7,)}
+                     "fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                     "fused_edge_mlp_aggregate_bwd", "fused_node_phase_bwd")
+# The kernels on a tile walk (`csrc/edge_fwd_tiles.cuh`,
+# `csrc/edge_bwd_tiles.cuh`): two calls on the same inputs must agree bit
+# for bit (the walk's grid and its order of sums depend only on the card
+# and the layout), and their later shapes are levels of fewer live tiles:
+# kernels 4 and 5 at every level of the airfoil below 0 (6 holds 2 live
+# slots, 7 none), kernel 11's backward at the surface's level 7. The bf16
+# controls run at every shape, and are skipped only for an output that the
+# plain version leaves all zero. Kernel 6 (`csrc/node_mlp_bwd.cu`, a
+# cluster of CTAs per 64-row tile) is checked the same way at every level,
+# every row of its outputs filled.
+TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
+              "fused_edge_mlp_aggregate_bwd")
+WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
+               "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
+               "fused_edge_mlp_aggregate_bwd": (7,),
+               "fused_node_phase_bwd": (1, 2, 3, 4, 5, 6, 7)}
+# The seed of the generator that draws level l's inputs of each kernel
+# checked at every level (WALK_SEED[name] + l), apart from the generator of
+# level 0, so that adding a level moves no other kernel's inputs.
+WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
+             "fused_edge_mlp_aggregate_bwd": 100, "fused_node_phase_bwd": 300}
+# The kernels whose card check, on a miss, prints the smallest |ReLU
+# input| over the rows that miss (`relu_margin`): a draw can put a ReLU
+# input within rounding of zero, where the kernel and the plain version,
+# summing in other orders, take the ReLU on different sides.
+RELU_DIAGNOSED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                  "fused_node_phase_bwd")
+# The rows of each backward output that `relu_margin` maps to the input
+# rows feeding them (an output not named: every input row).
+ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
+            "dxj": "receivers"}
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). Kernels 4, 5 and 11-14 add the pass that sums each output
-# block's chunk parts (the work the TPU kernel did in its revisited block);
-# kernels 5 and 6 the pass that sums the weight-gradient partials. Kernels
-# 1, 2, 7 and 15 are one launch each (the row-ordered gather).
+# launches). Kernels 11-14 add the pass that sums each output block's chunk
+# parts (the work the TPU kernel did in its revisited block); kernels 4 and
+# 5 the receiver gather (the aggregate, dxj); kernels 5, 6 and 11-13's
+# backwards the pass that sums the weight-gradient partials. Kernels 1, 2,
+# 7 and 15 are one launch each (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
-        ("fused_edge_phase_win_kernel", "block_sum_kernel")),
+        ("fused_edge_phase_win_kernel", "recv_gather_kernel")),
     "fused_node_phase": (
         _CSRC + "node_mlp.cu", _PALLAS + "node_mlp.py:107",
         ("fused_node_phase_kernel",)),
@@ -1106,8 +1134,8 @@ def kernel_inputs(case, dtype, device):
     hd, sim = case["hd"], case["sim"]
     g = torch.Generator(device="cpu").manual_seed(7)
 
-    def rand(*shape, dt=torch.float32, s=1.0):
-        return (s * torch.randn(*shape, generator=g)).to(dt).to(device)
+    def rand(*shape, dt=torch.float32, s=1.0, gen=g):
+        return (s * torch.randn(*shape, generator=gen)).to(dt).to(device)
 
     lvl, t0 = hd.levels[0], hd.transitions[0]
     gmp = sim.process.down_gmps[0]
@@ -1165,9 +1193,13 @@ def kernel_inputs(case, dtype, device):
             "fused_edge_mlp_aggregate": [
                 ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e))]}
     else:
-        edge = {"fused_edge_phase_win": [
-            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         first_layer(gmp)[0], *mlp_e))]}
+        # Kernel 4 at every level (level 0's draw first, from g).
+        edge = {"fused_edge_phase_win": level_shapes(
+            hd, "fused_edge_phase_win", rand, g, lambda l, d, r: (
+                d, r(d.n_pad_nodes, c, dt=dtype),
+                r(d.n_pad_nodes, c, dt=dtype),
+                first_layer(level_gmp(sim, hd, l))[0],
+                *level_tail(sim, hd, l)))}
     node = {"fused_node_phase": [
         ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
                      gmp.mlp_node, cd)),
@@ -1293,38 +1325,116 @@ def check_kernels(case, device):
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in kernel_inputs(case, dtype, device).items():
             for where, args in shapes:
-                err = check_kernel(name, where, args, dtype)
+                sparse = name in TILE_WALKS and where != shapes[0][0]
+                err = check_kernel(name, where, args, dtype, sparse)
                 errs.setdefault((name, dtype), err)
     return errs
 
 
-def check_kernel(name, where, args, dtype):
+def check_kernel(name, where, args, dtype, sparse=False):
     """One kernel against its plain version on `args`, and in bf16 its
-    control, which must miss the tolerance. Returns the max_abs_err."""
+    control, which must miss the tolerance. A tile walk runs twice and
+    must agree with itself bit for bit; where `sparse` (its later levels)
+    the measures are taken over the rows the plain output fills, every
+    other row exactly zero (`filled_compare`). Returns the max_abs_err."""
     fn, plain = kernel_modules()[name]
     tol_max, tol_rms = TOL[(name, dtype)]
     got, want = run(name, fn, args), run(name, plain, args)
-    err, err_rms, rms = compare(got, want)
-    ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
+    if name in TILE_WALKS:
+        same = torch.equal(got, run(name, fn, args))
+        print(walk_line(name, where, dtype, args) + "; two calls "
+              + ("bit-identical" if same else "DIFFER"))
+        require(same, f"{name} {where} {dtype}: two calls on the same "
+                      f"inputs differ")
+    err, err_rms, rms, zero_ok, live = filled_compare(got, want, sparse)
+    ok = (err <= tol_max * rms and err_rms <= tol_rms * rms and zero_ok
           and bool(torch.isfinite(got).all()))
     print(f"kernel {name:26s} {where:12s} {str(dtype)[6:]:9s} "
-          f"max_abs_err {err:.3e} ({err / rms:.2e} of rms "
-          f"{rms:.3e}, tol {tol_max:.0e}, row "
-          f"{worst_row(got, want)})  rms_err "
-          f"{err_rms / rms:.2e} of rms (tol {tol_rms:.0e})  "
+          f"max_abs_err {err:.3e} ({frac(err, rms):.2e} of rms "
+          f"{rms:.3e}{' over the filled rows' if sparse else ''}, tol "
+          f"{tol_max:.0e}, row {worst_row(got, want)})  rms_err "
+          f"{frac(err_rms, rms):.2e} of rms (tol {tol_rms:.0e})  "
           f"{'ok' if ok else 'FAIL'}")
+    if not ok and name in RELU_DIAGNOSED:
+        print(relu_margin(name, args, got, want, tol_max * rms))
     require(ok, f"{name} {where} {dtype} disagrees with plain")
     ctrl = control_args(name, args) if dtype == torch.bfloat16 else None
     if ctrl is None:
         return err
-    c_err, c_rms, _ = compare(run(name, fn, ctrl), want)
-    missed = c_err > tol_max * rms or c_rms > tol_rms * rms
+    if not live:
+        print("  no control: the plain output is all zero")
+        return err
+    c_err, c_rms, _, c_zero, _ = filled_compare(run(name, fn, ctrl), want,
+                                                sparse)
+    missed = c_err > tol_max * rms or c_rms > tol_rms * rms or not c_zero
     print(f"  control (f32 kernel, no bf16 rounding): max "
-          f"{c_err / rms:.2e}, rms {c_rms / rms:.2e} of rms: "
+          f"{frac(c_err, rms):.2e}, rms {frac(c_rms, rms):.2e} of rms: "
           f"{'misses the tolerance, ok' if missed else 'PASSES'}")
     require(missed, f"{name} {where}: the bf16 tolerance does "
                     f"not tell an unrounded kernel apart")
     return err
+
+
+def relu_inputs(name, args):
+    """(every ReLU input of the function on `args` in the plain version's
+    arithmetic, f32 [rows, C] per layer; the input rows that count; each
+    input row's receiver or None): kernels 4 and 5, per slot (the first
+    layer's pre-activation, then each hidden tail layer's; the in-window
+    slots count); kernel 6, per node row."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
+    from bsms_gnn_tpu_torch.ops.kernels import node_mlp
+
+    if name == "fused_node_phase_bwd":
+        x, aggr, mlp, _, cd = args
+        bf16 = cd == torch.bfloat16
+        pre = node_mlp._node_pre(x, aggr, mlp, bf16)[0]
+        ws, bs = node_mlp._tail(mlp)
+        counted, recv = torch.ones(pre.shape[0], dtype=torch.bool,
+                                   device=pre.device), None
+    else:
+        level, xwi, xj, wf8, ws, bs = args[:6]
+        bf16 = xwi.dtype == torch.bfloat16
+        pre, counted, recv = fg._edge_pre(level, xwi, xj, wf8, bf16)
+        ws, bs = [w.float() for w in ws], [b.float() for b in bs]
+    ins, h = [pre], torch.relu(pre)
+    for w, b in zip(ws[:-1], bs[:-1]):
+        z = fg.dot(h, w, bf16) + b
+        ins.append(z)
+        h = torch.relu(z)
+    return ins, counted, recv
+
+
+def relu_margin(name, args, got, want, limit, rows_are="receivers"):
+    """A line naming the smallest |ReLU input| over the input rows that feed
+    the output rows that miss (an error above `limit`; failing that, the
+    rows off by more than a hundredth of it), and where it lies: a draw
+    that puts a ReLU input within rounding of zero can flip that unit
+    between the kernel and the plain version, whose sums run in other
+    orders. `rows_are`: "inputs" (dpre per slot, kernel 6's dx and daggr
+    per node), "receivers" (kernel 4's aggregate, kernel 5's dxj) or
+    "all" (a weight gradient: every input row)."""
+    diff = (got.float() - want.float()).abs()
+    by_row = diff.reshape(diff.shape[0], -1).amax(-1)
+    bad = by_row > limit
+    if not bool(bad.any()):
+        bad = by_row > limit / 100
+    ins, rows, recv = relu_inputs(name, args)
+    if rows_are == "inputs":
+        rows = rows & bad
+    elif rows_are == "receivers" and recv is not None:
+        rows = rows & bad[recv]
+    best = (float("inf"), -1, -1)
+    idx = rows.nonzero()[:, 0]
+    for l, z in enumerate(ins):
+        if len(idx):
+            m = z[idx].abs()
+            i = int(m.argmin())
+            if float(m.reshape(-1)[i]) < best[0]:
+                best = (float(m.reshape(-1)[i]), int(idx[i // z.shape[1]]), l)
+    return (f"  ReLU check: {int(bad.sum())} output rows miss; the smallest "
+            f"|ReLU input| over the {len(idx)} input rows that feed them is "
+            f"{best[0]:.3e} (input row {best[1]}, layer {best[2]}; 0: the "
+            f"first layer's pre-activation)")
 
 
 def check_slice(case, device):
@@ -1670,11 +1780,21 @@ def measure(case):
               f"the kernels (median of {[round(r, 4) for r in runs]}, each "
               f"the mean of 10 forwards by CUDA events), {tp:.4f} ms through "
               f"the plain versions")
+    peak = {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         prof = profile_call(lambda: sim(hd, node_in, mask, cd))
         print_profile(f"[{label}] forward {str(dtype)[6:]}", *prof)
         busy[dtype] = prof[1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**20
+        sim(hd, node_in, mask, cd)
+        torch.cuda.synchronize()
+        peak[dtype] = torch.cuda.max_memory_allocated() / 2**20 - held
+        print(f"[{label}] forward {str(dtype)[6:]}: peak memory "
+              f"{peak[dtype]:.1f} MiB above the {held:.1f} held before it "
+              f"({held_line()})")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rollout_trajectory(sim, hd, node_in, mask, ROLLOUT_STEPS)
@@ -1702,6 +1822,8 @@ def measure(case):
                   "forward_ms_bf16": t[torch.bfloat16],
                   "forward_busy_ms_f32": busy[torch.float32],
                   "forward_busy_ms_bf16": busy[torch.bfloat16],
+                  "forward_peak_above_mib_f32": peak[torch.float32],
+                  "forward_peak_above_mib_bf16": peak[torch.bfloat16],
                   "rollout_step_ms_f32": step,
                   "rollout_step_busy_ms_f32": roll[1] / 2}
 
@@ -1777,13 +1899,7 @@ def bwd_kernel_inputs(case, dtype, device):
         return (s * torch.randn(*shape, generator=gen)).to(dt).to(device)
 
     def walk_shapes(name, args):
-        """A tile walk's shapes: level 0 drawn from g, each later level of
-        WALK_LEVELS[name] from a generator of its own (seed 100 + level),
-        so that adding a level moves no other kernel's inputs."""
-        return [(f"level {l}", args(l, d, functools.partial(
-                    rand, gen=g if l == 0 else
-                    torch.Generator(device="cpu").manual_seed(100 + l))))
-                for l, d in walk_levels(hd, name)]
+        return level_shapes(hd, name, rand, g, args)
 
     lvl = hd.levels[0]
     gmp = sim.process.down_gmps[0]
@@ -1792,8 +1908,7 @@ def bwd_kernel_inputs(case, dtype, device):
     cd = dtype if dtype == torch.bfloat16 else None
 
     def tail(l):
-        m = level_gmp(sim, hd, l).mlp_edge
-        return list(m.weights)[1:], list(m.biases)[1:]
+        return level_tail(sim, hd, l)
 
     if interleave(case) > 1:
         # Kernel 14's backward and, beside it, kernel 5 at the first level
@@ -1826,10 +1941,11 @@ def bwd_kernel_inputs(case, dtype, device):
                 d, r(d.n_pad_nodes, c, dt=dtype), r(d.n_pad_nodes, c, dt=dtype),
                 first_layer(level_gmp(sim, hd, l))[0], *tail(l),
                 r(d.n_pad_nodes, c)))}
-    node = [("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
-                         gmp.mlp_node, rand(n0, c), cd)),
-            *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
-                          rand(n0, c), cd))] if cd is not None else [])]
+    node = walk_shapes("fused_node_phase_bwd", lambda l, d, r: (
+        r(d.n_pad_nodes, c, dt=dtype), r(d.n_pad_nodes, c, s=3.0),
+        level_gmp(sim, hd, l).mlp_node, r(d.n_pad_nodes, c), cd))
+    node[1:1] = ([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
+                             rand(n0, c), cd))] if cd is not None else [])
     # Kernel 7 at level 0 and at the level of the longest sender lists.
     send = [("level 0", (lvl, rand(e0, c, dt=dtype)))]
     deep = longest_send_level(hd)
@@ -1844,6 +1960,23 @@ def level_gmp(sim, hd, l):
     level)."""
     return (sim.process.down_gmps[l] if l < hd.depth
             else sim.process.bottom_gmp)
+
+
+def level_tail(sim, hd, l):
+    """(weights, biases) of the tail of level l's edge MLP."""
+    m = level_gmp(sim, hd, l).mlp_edge
+    return list(m.weights)[1:], list(m.biases)[1:]
+
+
+def level_shapes(hd, name, rand, g, args):
+    """(where, arguments) of a kernel checked at every level: level 0 drawn
+    from g, each later level of WALK_LEVELS[name] from a generator of its
+    own (seed WALK_SEED[name] + level), so that adding a level moves no
+    other kernel's inputs. args(l, level, rand) makes the arguments."""
+    return [(f"level {l}", args(l, d, functools.partial(
+                rand, gen=g if l == 0 else torch.Generator(
+                    device="cpu").manual_seed(WALK_SEED[name] + l))))
+            for l, d in walk_levels(hd, name)]
 
 
 def walk_levels(hd, name):
@@ -1869,6 +2002,22 @@ def walk_line(name, where, dtype, args):
     return (f"walk {name} {where} {str(dtype)[6:]}: {tiles} tiles of {rows} "
             f"rows, {fill // sms} blocks per SM reached, grid "
             f"{len(fused_gmp.tile_ranges(tiles, fill)) - 1}")
+
+
+def node_walk_line(where, dtype, args):
+    """Kernel 6's launch shape for one call: its tiles, the CTAs of a
+    tile's cluster, the grid, and the SMs it can fill against the one
+    block per tile it replaces."""
+    from bsms_gnn_tpu_torch.ops.kernels import node_mlp
+
+    tiles = args[0].shape[0] // node_mlp.ROWS
+    ctas = tiles * node_mlp.CLUSTER
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"walk fused_node_phase_bwd {where} {str(dtype)[6:]}: {tiles} "
+            f"tiles of {node_mlp.ROWS} rows, clusters of "
+            f"{node_mlp.CLUSTER} CTAs, grid {ctas} CTAs; SMs it can fill "
+            f"{min(ctas, sms)} of {sms} (one block per tile: "
+            f"{min(tiles, sms)})")
 
 
 def frac(a, b):
@@ -1915,10 +2064,13 @@ def check_bwd_kernels(case, device):
                 got, want = fn(*args), plain(*args)
                 if name == "windowed_send_sum":
                     got, want = (got,), (want,)
-                if name in TILE_WALKS:
+                if name in TILE_WALKS or name == "fused_node_phase_bwd":
                     again = fn(*args)
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
-                    print(walk_line(name, where, dtype, args) + "; two calls "
+                    line = (walk_line(name, where, dtype, args)
+                            if name in TILE_WALKS
+                            else node_walk_line(where, dtype, args))
+                    print(line + "; two calls "
                           + ("bit-identical" if same else "DIFFER"))
                     require(same, f"{name} {where} {dtype}: two calls on the "
                                   f"same inputs differ")
@@ -1966,6 +2118,10 @@ def check_bwd_kernels(case, device):
                                  f"{frac(c_rms, rms):.2e}: "
                                  f"{'misses, ok' if missed else 'PASSES'}")
                     print(line)
+                    if not ok and name in RELU_DIAGNOSED:
+                        print(relu_margin(name, args, got[i], want[i],
+                                          tol_max * rms, ROW_KIND.get(
+                                              out, "all")))
                     if ctrl is not None and live:
                         require(missed, f"{name} {where} {out}: the bf16 "
                                         f"tolerance does not tell an "
@@ -2358,19 +2514,22 @@ def measure_train(case, device):
             pms = event_ms(step, reps=5, warmup=1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**20
         step()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
         print(f"[{label}] train step {name}: {ms:.4f} ms through the kernels (median "
               f"of {[round(r, 4) for r in runs]}, each the mean of 5 steps by "
               f"CUDA events), {pms:.4f} ms through the plain versions; peak "
-              f"memory of a step {peak:.1f} MiB")
+              f"memory of a step {peak:.1f} MiB, {peak - held:.1f} above the "
+              f"{held:.1f} held before it ({held_line()})")
         prof = profile_call(step)
         print_profile(f"[{label}] train step {name}", *prof)
         print(f"  idle share against the timed step: {1 - prof[1] / ms:.3f} "
               f"(1 - device busy / ms per step)")
         key = "f32" if cd is None else "bf16"
         e2e[f"train_step_peak_mib_{key}"] = peak
+        e2e[f"train_step_peak_above_mib_{key}"] = peak - held
         e2e[f"train_step_busy_ms_{key}"] = prof[1]
     rows = {}
     if case["cfg"].aggregation == "pallas":
@@ -2384,6 +2543,16 @@ def measure_train(case, device):
                     for where, args in shapes[1:]:
                         time_kernel(name, where, args, dtype)
     return rows, e2e
+
+
+def held_line() -> str:
+    """What the kernels' weight-stack cache (`build.stacked`) holds on the
+    card: it outlives the phase that filled it, so a later peak counts it."""
+    from bsms_gnn_tpu_torch.ops.kernels import build
+
+    outs = [v[2] for v in build._stacks.values() if v[2].is_cuda]
+    mib = sum(t.numel() * t.element_size() for t in outs) / 2**20
+    return f"the weight-stack cache {len(outs)} entries, {mib:.1f} MiB"
 
 
 def card_line() -> str:
