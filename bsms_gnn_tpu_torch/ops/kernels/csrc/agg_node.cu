@@ -4,8 +4,8 @@
 //
 // One block per row tile of 8·R rows: the tile's aggregate is summed into
 // shared memory, one warp per row in slot order (`row_sum.cuh`, as kernel
-// 8 sums it), and the node phase of kernel 3 (`node_phase.cuh`) runs on it
-// in place; the aggregate never reaches device memory. R = 8 (64-row
+// 8 sums it), and the one-block node phase of `node_phase.cuh` (kernel 3's
+// function and order of sums) runs on it in place; the aggregate never reaches device memory. R = 8 (64-row
 // tiles) where that gives the card at least one block per SM, else R = 2
 // (16-row tiles) so that the deep levels, few rows with ~100 slots each,
 // spread their sums over four times as many SMs.

@@ -1,16 +1,22 @@
-// The backward edge walk of kernels 5 (fused_gmp_bwd.cu) and 11's backward
-// (fused_gmp_stream_bwd.cu), replacing the TPU kernels
-// `bsms_gnn_tpu/ops/pallas/fused_gmp.py:607` (`_get_bwd3`, front kWin) and
-// `:260` (`_get_bwd`, front kStream with no dxj). Per slot e it computes
-// what edge_phase_bwd.cuh's chunk walk computes, with the same rounding
-// points: the forward recomputed, the LayerNorm backward of the edge
-// cotangent g[recv_e] (zero where the slot is masked), the tail layers in
-// reverse, and
+// The backward edge walk of kernels 5 (fused_gmp_bwd.cu), 13's backward
+// (fused_gmp_dyn_bwd.cu) and 11's backward (fused_gmp_stream_bwd.cu),
+// replacing the TPU kernels `bsms_gnn_tpu/ops/pallas/fused_gmp.py:607`
+// (`_get_bwd3`, front kWin), `:706` (`_get_bwd4`, front kDyn: kWin plus the
+// world-space terms) and `:260` (`_get_bwd`, front kStream with no dxj).
+// Per slot e it computes, with the TPU kernels' rounding points: the
+// forward recomputed, the LayerNorm backward of the edge cotangent
+// g[recv_e] (zero where the slot is masked), the tail layers in reverse,
+// and
 //   dpre[e]        the first-layer pre-activation's cotangent (stored),
 //   dW[l], db[l]   the tail's weight gradients,
-//   dwf8           = fiber_t · dpre (kWin only).
-// kWin's dxj is not summed here: the caller gathers it from dpre over the
-// receiver lists (row_gather.cuh), so no shared dxj block is kept.
+//   dwf8           = fiber_t · dpre (kWin, kDyn),
+//   dwf_dyn        = Δᵀ · dpre (kDyn; bf16 operands in BF16 mode),
+//   dwf_nrm        = Σ_e ‖Δ_e‖ · dpre[e] (kDyn; f32, dpre before its bf16
+//                    rounding),
+// with Δ_e = pos[send_e] − pos[recv_e] taken in f32 from the positions as
+// stored, as edge_tile.cuh's chunk front takes it. The positions get no
+// cotangent. dxj is not summed here: the caller gathers it from dpre over
+// the receiver lists (row_gather.cuh), so no shared dxj block is kept.
 //
 // What bounds it: operations, in true f32 on the CUDA cores (no TF32): per
 // live slot about 6·L·128² FLOP of products, against a few hundred bytes.
@@ -25,12 +31,13 @@
 // - A dead tile (no slot with s_loc >= 0) writes zero dpre rows and skips
 //   the recompute and the GEMMs; a block that meets no live tile writes a
 //   zero partial. dpre stays exactly zero on every masked slot.
-// - One weight-gradient partial per block ([dW | db | dwf8] for kWin,
-//   [dW | db] for kStream), read and written only by that block across its
-//   tiles (the old values load before each product, hidden behind it),
-//   then summed over the G blocks in block order by grad_sum_kernel
-//   (backward.cuh): G × 201 KB that stay in L2, no atomics, the same
-//   result from run to run (G depends only on the card and the kernel).
+// - One weight-gradient partial per block ([dW | db | dwf8] for kWin, the
+//   same plus [dwf_dyn | dwf_nrm] for kDyn, [dW | db] for kStream), read
+//   and written only by that block across its tiles (the old values load
+//   before each product, hidden behind it), then summed over the G blocks
+//   in block order by grad_sum_kernel (backward.cuh): G × ~200 KB that
+//   stay in L2, no atomics, the same result from run to run (G depends
+//   only on the card and the kernel).
 // - The tail weights' 64-row slabs are double-buffered with cp.async: the
 //   next slab loads while the current one is used, one barrier per slab,
 //   and each GEMM's last slab step issues the next GEMM's first slab. In
@@ -70,16 +77,22 @@ static_assert(NT % C == 0 && TR % NW == 0 && RW >= 1 && TR <= NT &&
 static_assert(TR == 64, "the wrappers size the tiles by fused_gmp.TILE_ROWS");
 
 // Shared memory of the walk at n_layers tail layers (floats, then the
-// three int tables of the tile's slots).
-inline size_t smem_bytes(int n_layers, bool win) {
+// three int tables of the tile's slots): kDyn adds wf_dyn, wf_nrm and the
+// tile's Δ and ‖Δ‖ (3.75 KB).
+inline size_t smem_bytes(int n_layers, Front f) {
   return sizeof(float) * ((size_t)(n_layers + 1) * TR * C + 2 * KS * C +
-                          (win ? 8 * C + 8 * TR : 0)) +
+                          (f != Front::kStream ? 8 * C + 8 * TR : 0) +
+                          (f == Front::kDyn
+                               ? MAX_WD * C + C + MAX_WD * TR + TR : 0)) +
          sizeof(int) * 3 * TR;
 }
 
-// Floats of one block's weight-gradient partial.
-__host__ __device__ inline int grad_size(int n_layers, bool win) {
-  return n_layers * C * C + n_layers * C + (win ? 8 * C : 0);
+// Floats of one block's weight-gradient partial (wd: kDyn's world-stream
+// width).
+__host__ __device__ inline int grad_size(int n_layers, Front f, int wd = 0) {
+  return n_layers * C * C + n_layers * C +
+         (f != Front::kStream ? 8 * C : 0) +
+         (f == Front::kDyn ? wd * C + C : 0);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -252,18 +265,22 @@ __device__ __forceinline__ void round_tile(float* t) {
 }
 
 // Fills the slot tables of the TR slots from t0 (in chunk ch) and, with
-// kWin, the tile's fiber stream (rounded in BF16 mode); returns whether any
-// slot is live (kWin: an in-window sender and a receiver in the chunk's
-// block; kStream: the receiver alone), the same in every thread. Starts with
-// a block barrier (the previous tile is done with the tables) and ends with
-// one.
-template <bool BF16, Front F>
+// kWin and kDyn, the tile's fiber stream (rounded in BF16 mode); with kDyn
+// also dyn.delta [MAX_WD][TR] (Δ, rounded in BF16 mode as the dot operand;
+// zero sender position for an out-of-window slot) and dyn.nrm [TR] (‖Δ‖ in
+// f32 from the unrounded Δ), as edge_tile_pre fills them. Returns whether
+// any slot is live (kWin, kDyn: an in-window sender and a receiver in the
+// chunk's block; kStream: the receiver alone), the same in every thread.
+// Starts with a block barrier (the previous tile is done with the tables)
+// and ends with one.
+template <bool BF16, Front F, typename T = float>
 __device__ __forceinline__ bool tile_slots(
     int t0, int ch, const float* __restrict__ fiber_t,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int e_pad, int window, int* s_row, int* s_recv, int* s_loc, float* fib) {
-  constexpr bool WIN = F == Front::kWin;
+    int e_pad, int window, int* s_row, int* s_recv, int* s_loc, float* fib,
+    const DynFiber<T>& dyn = {}) {
+  constexpr bool WIN = F != Front::kStream;
   const int tid = threadIdx.x;
   const int row0 = chunk_block[ch] * BN;
   __syncthreads();
@@ -274,8 +291,20 @@ __device__ __forceinline__ bool tile_slots(
     if constexpr (WIN) {
       const int sw = send_win[e];
       const bool in_win = sw < window;
-      s_row[tid] = in_win ? win_base[ch] * (window / 2) + sw : -1;
+      const int row = win_base[ch] * (window / 2) + sw;
+      s_row[tid] = in_win ? row : -1;
       keep = keep && in_win;
+      if constexpr (F == Front::kDyn) {
+        float d2 = 0.f;
+        for (int k = 0; k < dyn.wd; ++k) {
+          const float ps =
+              in_win ? to_f(dyn.pos[(size_t)row * dyn.wd + k]) : 0.f;
+          const float dv = ps - to_f(dyn.pos[(size_t)r * dyn.wd + k]);
+          d2 = fmaf(dv, dv, d2);
+          dyn.delta[k * TR + tid] = BF16 ? round_bf16(dv) : dv;
+        }
+        dyn.nrm[tid] = sqrtf(d2);
+      }
     }
     s_recv[tid] = r;
     s_loc[tid] = keep ? loc : -1;
@@ -292,15 +321,18 @@ __device__ __forceinline__ bool tile_slots(
 // relu(pre) of the tile's rows into `h` (rounded in BF16 mode, as the next
 // dot operand). kWin: pre = fiber·wf8 + xwi[send] + xj[recv], with `wf` the
 // [8][C] fiber weights and `fib` the tile's fiber stream in shared memory;
-// kStream: pre = src[t0 + r]. A warp owns rows warp + j·NW, each lane 4
-// columns; each group of HB rows' loads is issued before their arithmetic.
+// kDyn: that plus Δ·wf_dyn + ‖Δ‖·wf_nrm from `dyn` (tile_slots' Δ and ‖Δ‖,
+// the weights in shared memory), summed as edge_tile_pre sums it; kStream:
+// pre = src[t0 + r]. A warp owns rows warp + j·NW, each lane 4 columns;
+// each group of HB rows' loads is issued before their arithmetic.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
                                            const T* __restrict__ xj,
                                            const float* wf, const float* fib,
                                            const int* s_row, const int* s_recv,
-                                           float* h) {
-  constexpr bool WIN = F == Front::kWin;
+                                           float* h,
+                                           const DynFiber<T>& dyn = {}) {
+  constexpr bool WIN = F != Front::kStream;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c4 = 4 * lane;
   for (int j0 = 0; j0 < RW; j0 += HB) {
@@ -330,6 +362,12 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
           for (int k = 0; k < 8; ++k)
             f = fmaf(fib[k * TR + r], wf[k * C + c4 + q], f);
           v[q] = (f + v[q]) + zz[q];
+          if constexpr (F == Front::kDyn) {
+            float fd = 0.f;
+            for (int k = 0; k < dyn.wd; ++k)
+              fd = fmaf(dyn.delta[k * TR + r], dyn.wfd[k * C + c4 + q], fd);
+            v[q] = (v[q] + fd) + dyn.nrm[r] * dyn.wfn[c4 + q];
+          }
         }
       }
 #pragma unroll
@@ -344,9 +382,10 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 }
 
 // The walk. kWin: xwi, xj, fiber_t, wf8, send_win and win_base as kernel
-// 4's; kStream (kernel 11): src = the streamed pre-activation, xj null. W
-// and WT are the tail's stacks (bf16 values in BF16 mode), gpart G
-// partials of grad_size floats.
+// 4's; kDyn (kernel 13): those plus the positions pos [n_pad][wd] (xwi's
+// type), wf_dyn [wd][C] and wf_nrm [C]; kStream (kernel 11): src = the
+// streamed pre-activation, xj null. W and WT are the tail's stacks (bf16
+// values in BF16 mode), gpart G partials of grad_size floats.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ src,
@@ -356,16 +395,23 @@ __device__ __forceinline__ void edge_bwd_tiles(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int n_tiles, int e_pad, int edge_block, int window,
-    float* __restrict__ gpart, T* __restrict__ dpre) {
-  static_assert(F != Front::kDyn, "the tile walk takes kWin and kStream");
-  constexpr bool WIN = F == Front::kWin;
+    float* __restrict__ gpart, T* __restrict__ dpre,
+    const T* __restrict__ pos = nullptr,
+    const float* __restrict__ wfd_g = nullptr,
+    const float* __restrict__ wfn_g = nullptr, int wd = 0) {
+  constexpr bool WIN = F != Front::kStream;
+  constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);  // [n_layers][TR][C]
   float* d = hs + (size_t)n_layers * TR * C;     // [TR][C] LN out, cotangent
   float* wslab = d + TR * C;                     // [2][KS][C] weight slabs
   float* wf = wslab + 2 * KS * C;                // WIN: [8][C] fiber weights
   float* fib = wf + (WIN ? 8 * C : 0);           // WIN: [8][TR] fiber stream
-  int* s_row = reinterpret_cast<int*>(fib + (WIN ? 8 * TR : 0));
+  float* wfd = fib + (WIN ? 8 * TR : 0);         // DYN: [MAX_WD][C] wf_dyn
+  float* wfn = wfd + (DYN ? MAX_WD * C : 0);     // DYN: [C] wf_nrm
+  float* delta = wfn + (DYN ? C : 0);            // DYN: [MAX_WD][TR] Δ
+  float* nrm = delta + (DYN ? MAX_WD * TR : 0);  // DYN: [TR] ‖Δ‖
+  int* s_row = reinterpret_cast<int*>(nrm + (DYN ? TR : 0));
   int* s_recv = s_row + TR;
   int* s_loc = s_recv + TR;
 
@@ -373,20 +419,28 @@ __device__ __forceinline__ void edge_bwd_tiles(
   const int G = gridDim.x, b = blockIdx.x;
   const int t_begin = (int)((long long)b * n_tiles / G);
   const int t_end = (int)((long long)(b + 1) * n_tiles / G);
-  const int gsize = grad_size(n_layers, WIN);
+  const int gsize = grad_size(n_layers, F, wd);
   float* gp = gpart + (size_t)b * gsize;         // dW [n_layers][C][C]
   float* gp_b = gp + (size_t)n_layers * C * C;   // db [n_layers][C]
   float* gp_f = gp_b + (size_t)n_layers * C;     // WIN: dwf8 [8][C]
+  float* gp_d = gp_f + 8 * C;                    // DYN: dwf_dyn [wd][C]
+  float* gp_n = gp_d + (size_t)wd * C;           // DYN: dwf_nrm [C]
   if constexpr (WIN)  // the fiber weights, rounded in BF16 mode
     for (int i = tid; i < 8 * C; i += NT) wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
+  if constexpr (DYN) {  // wf_dyn rounded in BF16 mode, wf_nrm in f32
+    for (int i = tid; i < wd * C; i += NT)
+      wfd[i] = BF16 ? round_bf16(wfd_g[i]) : wfd_g[i];
+    for (int i = tid; i < C; i += NT) wfn[i] = wfn_g[i];
+  }
+  const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
   bool first = true;  // no live tile yet: the next one stores its partial
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   for (int t = t_begin; t < t_end; ++t) {
     const int t0 = t * TR, ch = t0 / edge_block;
-    if (!tile_slots<BF16, F>(t0, ch, fiber_t, send_win, win_base, receivers,
-                             chunk_block, e_pad, window, s_row, s_recv, s_loc,
-                             fib)) {
+    if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
+                                receivers, chunk_block, e_pad, window, s_row,
+                                s_recv, s_loc, fib, dyn)) {
       // A dead tile: every slot's cotangent is zero.
       for (int i = tid; i < TR * C; i += NT) store(&dpre[(size_t)t0 * C + i], 0.f);
       continue;
@@ -394,7 +448,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
 
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's
     // input, the LayerNorm output into d.
-    tile_front<T, BF16, F>(t0, src, xj, wf, fib, s_row, s_recv, hs);
+    tile_front<T, BF16, F>(t0, src, xj, wf, fib, s_row, s_recv, hs, dyn);
     for (int l = 0; l < n_layers; ++l) {
       float acc[RW][4] = {};
       const float* in = hs + (size_t)l * TR * C;
@@ -456,15 +510,25 @@ __device__ __forceinline__ void edge_bwd_tiles(
                 l > 0 ? WT + (size_t)(l - 1) * C * C : W, wslab);
       store_rows_masked(dh, h, d);
     }
+    if constexpr (DYN) {
+      // dwf_nrm from dpre before any rounding (the TPU kernel's f32 sum).
+      __syncthreads();
+      if (tid < C) {
+        float s = 0.f;
+        for (int r = 0; r < TR; ++r) s = fmaf(nrm[r], d[r * C + tid], s);
+        gp_n[tid] = first ? s : gp_n[tid] + s;
+      }
+    }
     // d is now dpre: stored (bf16 in BF16 mode, which is also the operand
-    // of the dwf8 sums), then dwf8 = the fiber stream's rows times dpre.
+    // of the dwf8 and dwf_dyn sums), then dwf8 = the fiber stream's rows
+    // times dpre and, with kDyn, dwf_dyn = Δ's rows times dpre.
     if (BF16) round_tile(d);
     else __syncthreads();
     for (int i = tid; i < TR * C; i += NT) store(&dpre[(size_t)t0 * C + i], d[i]);
     if constexpr (WIN)
-      for (int k = warp; k < 8; k += NW) {
+      for (int k = warp; k < (DYN ? 8 + wd : 8); k += NW) {
         const int j0 = lane * 4;
-        const float* fk = fib + k * TR;
+        const float* fk = k < 8 ? fib + k * TR : delta + (k - 8) * TR;
         float s[4] = {};
         for (int r = 0; r < TR; ++r) {
           const float f = fk[r];
@@ -472,7 +536,8 @@ __device__ __forceinline__ void edge_bwd_tiles(
           s[0] = fmaf(f, v.x, s[0]); s[1] = fmaf(f, v.y, s[1]);
           s[2] = fmaf(f, v.z, s[2]); s[3] = fmaf(f, v.w, s[3]);
         }
-        float4* p = reinterpret_cast<float4*>(gp_f + k * C + j0);
+        float4* p = reinterpret_cast<float4*>(
+            (k < 8 ? gp_f + k * C : gp_d + (k - 8) * C) + j0);
         const float4 o = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
         *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
       }
@@ -487,13 +552,13 @@ __device__ __forceinline__ void edge_bwd_tiles(
 // bounds, registers and shared memory decide), after raising its
 // shared-memory limit to the most any layer count needs.
 template <typename K>
-cudaError_t walk_blocks_per_sm(K kernel, int n_layers, bool win, int* out) {
+cudaError_t walk_blocks_per_sm(K kernel, int n_layers, Front f, int* out) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(MAX_LAYERS, win));
+      (int)smem_bytes(MAX_LAYERS, f));
   if (attr != cudaSuccess) return attr;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kernel, NT, smem_bytes(n_layers, win));
+      out, kernel, NT, smem_bytes(n_layers, f));
 }
 
 }  // namespace tiles

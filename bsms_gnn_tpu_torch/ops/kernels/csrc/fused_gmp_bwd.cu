@@ -34,7 +34,7 @@ fused_edge_phase_win_bwd_kernel(
 template <typename T, bool BF16>
 int blocks_per_sm(int n_layers, int* out) {
   return (int)tiles::walk_blocks_per_sm(
-      fused_edge_phase_win_bwd_kernel<T, BF16>, n_layers, true, out);
+      fused_edge_phase_win_bwd_kernel<T, BF16>, n_layers, Front::kWin, out);
 }
 
 template <typename T, bool BF16>
@@ -53,10 +53,11 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   auto kernel = fused_edge_phase_win_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles::smem_bytes(tiles::MAX_LAYERS, true));
+      (int)tiles::smem_bytes(tiles::MAX_LAYERS, Front::kWin));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, tiles::NT, tiles::smem_bytes(n_layers, true), s>>>(
+  const size_t smem = tiles::smem_bytes(n_layers, Front::kWin);
+  kernel<<<grid, tiles::NT, smem, s>>>(
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, (const float*)WT, (const float*)g,
       n_layers, (const int*)send_win, (const int*)win_base,
@@ -71,7 +72,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
-                              tiles::grad_size(n_layers, true),
+                              tiles::grad_size(n_layers, Front::kWin),
                               (float*)grads, s);
 }
 

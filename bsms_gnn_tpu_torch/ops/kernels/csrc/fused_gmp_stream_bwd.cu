@@ -25,9 +25,8 @@ fused_edge_phase_bwd_kernel(
     int e_pad, int edge_block, float* __restrict__ part,
     float* __restrict__ gpart, T* __restrict__ dzi) {
   edge_phase_bwd_chunk<T, BF16, Front::kStream>(
-      nullptr, zi, xj, nullptr, nullptr, nullptr, nullptr, 0, W, B, WT, g,
-      n_layers, nullptr, nullptr, receivers, chunk_block, e_pad, edge_block,
-      0, part, gpart, dzi);
+      nullptr, zi, xj, nullptr, W, B, WT, g, n_layers, nullptr, nullptr,
+      receivers, chunk_block, e_pad, edge_block, 0, part, gpart, dzi);
 }
 
 template <typename T, bool BF16>
@@ -59,10 +58,10 @@ int launch_v2(const void* zi, const void* xj, const void* W, const void* B,
   auto kernel = fused_edge_phase_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)edge_bwd_smem_bytes<false>(MAX_BWD_LAYERS));
+      (int)edge_bwd_smem_bytes(MAX_BWD_LAYERS));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<n_chunks, THREADS, edge_bwd_smem_bytes<false>(n_layers), s>>>(
+  kernel<<<n_chunks, THREADS, edge_bwd_smem_bytes(n_layers), s>>>(
       (const T*)zi, (const T*)xj, (const float*)W, (const float*)B,
       (const float*)WT, (const float*)g, n_layers, (const int*)receivers,
       (const int*)chunk_block, e_pad, edge_block, (float*)part,
@@ -73,14 +72,15 @@ int launch_v2(const void* zi, const void* xj, const void* W, const void* B,
                          (float*)dxj, n_blocks, s);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, n_chunks,
-                              edge_grad_size<Front::kStream>(n_layers, 0),
+                              edge_grad_size<Front::kStream>(n_layers),
                               (float*)grads, s);
 }
 
 template <typename T, bool BF16>
 int blocks_per_sm_v1(int n_layers, int* out) {
   return (int)tiles::walk_blocks_per_sm(
-      fused_edge_mlp_aggregate_bwd_kernel<T, BF16>, n_layers, false, out);
+      fused_edge_mlp_aggregate_bwd_kernel<T, BF16>, n_layers, Front::kStream,
+      out);
 }
 
 // Kernel 11's backward: the tile walk over `grid` blocks, the partials' sum.
@@ -96,10 +96,11 @@ int launch_v1(const void* pre, const void* W, const void* B, const void* WT,
   auto kernel = fused_edge_mlp_aggregate_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles::smem_bytes(tiles::MAX_LAYERS, false));
+      (int)tiles::smem_bytes(tiles::MAX_LAYERS, Front::kStream));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, tiles::NT, tiles::smem_bytes(n_layers, false), s>>>(
+  const size_t smem = tiles::smem_bytes(n_layers, Front::kStream);
+  kernel<<<grid, tiles::NT, smem, s>>>(
       (const T*)pre, (const float*)W, (const float*)B, (const float*)WT,
       (const float*)g, n_layers, (const int*)receivers,
       (const int*)chunk_block, n_tiles, e_pad, edge_block, (float*)gpart,
@@ -107,7 +108,7 @@ int launch_v1(const void* pre, const void* W, const void* B, const void* WT,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
-                              tiles::grad_size(n_layers, false),
+                              tiles::grad_size(n_layers, Front::kStream),
                               (float*)grads, s);
 }
 

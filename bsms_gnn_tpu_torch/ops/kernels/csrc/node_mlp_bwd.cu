@@ -49,24 +49,18 @@
 // - Shared memory: A (33 KB), the tail inputs' slices (8 KB each), two
 //   exchange slices and two weight slices, about 105 KB at L = 3, so two
 //   CTAs fit on an SM.
-#include <cooperative_groups.h>
-
+// The cluster's constants, weight copy, exchange and tile load are
+// node_cluster.cuh's, which kernel 3 shares.
 #include "backward.cuh"
-#include "row_sum.cuh"  // load4
+#include "node_cluster.cuh"
 
 using namespace bsms;
-namespace cg = cooperative_groups;
+using namespace bsms::node_cluster;
 
 namespace {
 
-constexpr int CL = 4;             // CTAs per tile (node_mlp.CLUSTER)
-constexpr int SW = C / CL;        // output columns per CTA
-constexpr int AS = C + 4;         // padded row stride of the full tile
-constexpr int NT = THREADS;       // threads per CTA
 constexpr int MIN_BLOCKS = 2;
 constexpr int MAX_LAYERS = 3;
-static_assert(TILE == 64 && SW == 32 && NT == 256,
-              "the row products give each thread 2 rows by 4 columns");
 
 // Slices of the tail inputs kept: the L inputs, and at least two (x's and
 // aggr's slices at the end).
@@ -82,12 +76,6 @@ __host__ __device__ constexpr size_t smem_floats(int n_layers) {
 }
 
 size_t smem_bytes(int n_layers) { return sizeof(float) * smem_floats(n_layers); }
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
 
 // The weight slice of product i in its fixed order (0, 1: W0's x and aggr
 // halves; 2 .. L+1: W[0 .. L-1]; L+2 .. 2L+1: WT[L-1 .. 0]; 2L+2, 2L+3:
@@ -115,13 +103,8 @@ struct Weights {
 __device__ __forceinline__ void copy_slice(const Weights& w, int i, int q,
                                            float* wbuf) {
   int ld;
-  const float* src = w.src(i, ld) + q * SW;
-  float* dst = wbuf + (i & 1) * C * SW;
-  for (int j = threadIdx.x; j < C * SW / 4; j += NT) {
-    const int k = j / (SW / 4), c4 = 4 * (j % (SW / 4));
-    cp_async16(dst + k * SW + c4, src + (size_t)k * ld + c4);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  const float* src = w.src(i, ld);
+  copy_cols(src, ld, C, q, wbuf + (i & 1) * C * SW);
 }
 
 // acc[i][j] += Σ_k A[(2·rg + i)·AS + k] · Wslice[k][4·cg + j] over k < C, in
@@ -135,7 +118,7 @@ __device__ __forceinline__ void row_product(float (&acc)[2][4], const float* A,
                                             int n_products, int q,
                                             float* wbuf) {
   const int rg = threadIdx.x >> 3, cg4 = 4 * (threadIdx.x & 7);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
   if (i + 1 < n_products) copy_slice(w, i + 1, q, wbuf);
   const float* ws = wbuf + (i & 1) * C * SW;
@@ -194,71 +177,6 @@ __device__ __forceinline__ void store_slice_masked(const float (&acc)[2][4],
     *reinterpret_cast<float4*>(out + o) = make_float4(
         m.x > 0.f ? acc[r][0] : 0.f, m.y > 0.f ? acc[r][1] : 0.f,
         m.z > 0.f ? acc[r][2] : 0.f, m.w > 0.f ? acc[r][3] : 0.f);
-  }
-}
-
-// The cluster barrier in two halves: arrive once this CTA's slice is
-// written (release: its writes become visible to the peers), wait before
-// reading the peers' (acquire). Work between the two overlaps the barrier.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// A[r][p·SW + c] = slice(p)[r][c] for every CTA p of the cluster, the own
-// slice included, after the cluster barrier's wait (so every CTA's slice
-// is visible). The caller arrived after writing its slice and, since, has
-// finished every read of A in all its threads (a block barrier, or the
-// cluster barrier itself); it orders these writes before the next reads
-// of A with a block barrier. Each thread's loads of the CL slices go out
-// together, before its stores.
-__device__ __forceinline__ void exchange_wait(cg::cluster_group& cluster,
-                                              float* slice, float* A) {
-  constexpr int PER = TILE * SW / 4 / NT;  // float4s of a slice per thread
-  cluster_wait();
-  float4 v[CL][PER];
-#pragma unroll
-  for (int p = 0; p < CL; ++p) {
-    const float4* src =
-        reinterpret_cast<const float4*>(cluster.map_shared_rank(slice, p));
-#pragma unroll
-    for (int k = 0; k < PER; ++k) v[p][k] = src[threadIdx.x + k * NT];
-  }
-#pragma unroll
-  for (int p = 0; p < CL; ++p)
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int j = threadIdx.x + k * NT;
-      const int r = j / (SW / 4), c4 = 4 * (j % (SW / 4));
-      *reinterpret_cast<float4*>(A + r * AS + p * SW + c4) = v[p][k];
-    }
-}
-
-// The whole exchange, with nothing between arrive and wait.
-__device__ __forceinline__ void exchange(cg::cluster_group& cluster,
-                                         float* slice, float* A) {
-  cluster_arrive();
-  exchange_wait(cluster, slice, A);
-}
-
-// A TILE×C tile of a row-major [n, C] array into A, rounded to bf16 in BF16
-// mode (as a dot operand); each thread's loads go out together.
-template <typename T, bool BF16>
-__device__ __forceinline__ void load_full(const T* __restrict__ src, float* A) {
-  constexpr int PER = TILE * C / 4 / NT;
-  float4 v[PER];
-#pragma unroll
-  for (int k = 0; k < PER; ++k) v[k] = load4(src + 4 * (threadIdx.x + k * NT));
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = 4 * (threadIdx.x + k * NT);
-    if (BF16) {
-      v[k].x = round_bf16(v[k].x); v[k].y = round_bf16(v[k].y);
-      v[k].z = round_bf16(v[k].z); v[k].w = round_bf16(v[k].w);
-    }
-    *reinterpret_cast<float4*>(A + (i / C) * AS + i % C) = v[k];
   }
 }
 

@@ -1,10 +1,12 @@
-// The GMP node phase on one row tile, shared by kernel 3 (node_mlp.cu),
-// which reads the aggregate, and kernel 10 (agg_node.cu), which sums it:
+// The GMP node phase on one row tile, one block per tile, for kernel 10
+// (agg_node.cu), which sums the aggregate into the tile first:
 //
 //   out = LN(tail(relu(x·Wa + aggr·Wb + b0))) + x
 //
 // x, the aggregate and every activation stay in shared memory through the
-// whole phase.
+// whole phase. Kernel 3 (node_mlp.cu), which reads the aggregate, computes
+// the same function in the same order on a cluster of CTAs per tile
+// (node_cluster.cuh).
 #pragma once
 
 #include "common.cuh"

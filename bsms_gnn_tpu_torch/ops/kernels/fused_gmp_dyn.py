@@ -22,18 +22,31 @@ receiver tables (a lane-alignment device) and keeps wf_dyn as a [C, C]
 block. Here the positions are their own [n_pad, wd] tensor and wf_dyn stays
 [wd, C].
 
-CUDA design (`csrc/fused_gmp_dyn.cu`, `csrc/fused_gmp_dyn_bwd.cu`): kernels
-4 and 5's chunk walks (`csrc/edge_phase.cuh`, `csrc/edge_phase_bwd.cuh`,
-shared through templates, with their own entry points and CUDA kernel
-names). Per 64-slot tile, the threads that fill the slot tables also read
-the wd position components of both ends and keep Δ (wd rows) and ‖Δ‖ in
-shared memory (1 KB a tile); wf_dyn and wf_nrm join wf8 in shared memory.
-The backward adds Δᵀ·dpre to the fiber-weighted sums that give dwf8 and
-Σ ‖Δ‖·dpre to each chunk's weight-gradient partial, which grad_sum_kernel
-adds in chunk order as before. Kernel 5's 220 KB of shared memory grows by
-3.8 KB to 224 KB (of 227 KB), with the 64-slot tile kept. What bounds it on
-the card: operations, as kernel 4 (and kernel 5 for the backward), plus
-2·(wd+1)·C per slot; the positions add a few bytes per slot.
+CUDA design. The forward (`csrc/fused_gmp_dyn.cu`) is the chunk walk of
+`csrc/edge_phase.cuh` with the kDyn front: one block per 512-slot chunk,
+its dxj parts summed by `block_sum_kernel`. Per 64-slot tile, the threads
+that fill the slot tables also read the wd position components of both
+ends and keep Δ (wd rows) and ‖Δ‖ in shared memory (1 KB a tile); wf_dyn
+and wf_nrm join wf8 in shared memory. The backward
+(`csrc/fused_gmp_dyn_bwd.cu`) is kernel 5's persistent tile walk
+(`csrc/edge_bwd_tiles.cuh`) with the same kDyn front: G blocks (SMs × the
+blocks per SM the kernel reaches, `fused_gmp.walk_fill`, at most the
+level's tiles) walk the level's 64-slot tiles, block b the range
+`tile_ranges(T, G)[b] .. [b + 1]`, so a level of few chunks (the flag's
+hold 25 down to one) still spreads over the card. A tile with no live slot
+writes zero dpre rows and skips the walk. Each block adds Δᵀ·dpre and
+Σ ‖Δ‖·dpre, beside the fiber-weighted sums that give dwf8, to its own
+weight-gradient partial [dW | db | dwf8 | dwf_dyn | dwf_nrm], and
+`grad_sum_kernel` adds the G partials in block order (no atomics); dxj is
+the row-ordered gather (`recv_gather_kernel`) of dpre over the receiver
+lists `win_row_*`, which hold exactly the slots the walk gives a
+cotangent, as kernel 5's. One block per SM: 207,360 bytes of shared
+memory at three tail layers (kernel 5's 203,520 plus 3,840 for Δ, ‖Δ‖,
+wf_dyn and wf_nrm; `csrc/edge_bwd_tiles.cuh`'s `smem_bytes`), and in bf16
+mode the tail weights come already rounded (`build.stacked(...,
+to_bf16=True)`). What bounds it on the card: operations, as kernel 4
+(and kernel 5 for the backward), plus 2·(wd+1)·C per slot; the positions
+add a few bytes per slot.
 
 bf16 mode follows the TPU kernel: the positions are bf16 (the caller casts
 them to the activations' dtype), Δ is taken in f32 from those values and
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
@@ -64,6 +78,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     mlp_tail_plain,
     round_bf16,
     sender_rows,
+    walk_grid,
 )
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum
 
@@ -72,9 +87,12 @@ MAX_WD = 4
 _SIG = [build.P] * 14 + [build.I] * 7 + [build.P] * 3
 _FN = {torch.float32: "fused_edge_phase_win_dyn_f32",
        torch.bfloat16: "fused_edge_phase_win_dyn_bf16"}
-_BWD_SIG = [build.P] * 16 + [build.I] * 7 + [build.P] * 6
 _BWD_FN = {torch.float32: "fused_edge_phase_win_dyn_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_dyn_bwd_bf16"}
+_BWD_SIGS = {**{f: [build.P] * 18 + [build.I] * 10 + [build.P] * 5
+                for f in _BWD_FN.values()},
+             **{f + "_blocks_per_sm": [build.I, build.P]
+                for f in _BWD_FN.values()}}
 
 
 def _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases):
@@ -216,33 +234,35 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     wd = _kernel_wd(wfd)
     build.require("fused_edge_phase_win_dyn_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
-    lib = build.library("fused_gmp_dyn_bwd",
-                        {f: _BWD_SIG for f in _BWD_FN.values()})
+                  level.win_row_ptr, level.win_row_slots, level.win_long)
+    lib = build.library("fused_gmp_dyn_bwd", _BWD_SIGS)
+    fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
-    wt_stack = build.stacked(weights, transpose=True)
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    bf16 = xwi.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     xwi, xj, pos = xwi.contiguous(), xj.contiguous(), pos.contiguous()
     wf8, wfd, wfn = (t.detach().float().contiguous() for t in (wf8, wfd, wfn))
     g = g.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
     sizes = [n_layers * BN * BN, n_layers * BN, 8 * BN, wd * BN, BN]
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(n_chunks, BN, BN, **f32)
-    gpart = torch.empty(n_chunks, sum(sizes), **f32)
+    gpart = torch.empty(grid, sum(sizes), **f32)
     dpre = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
     dxj = torch.empty(level.n_pad_nodes, BN, **f32)
     grads = torch.empty(sum(sizes), **f32)
-    err = getattr(lib, _BWD_FN[xwi.dtype])(
+    err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         pos.data_ptr(), wf8.data_ptr(), wfd.data_ptr(), wfn.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), wt_stack.data_ptr(),
         g.data_ptr(), level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
-        level.chunk_ptr.data_ptr(), n_layers, wd, n_chunks,
-        level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-        level.window, part.data_ptr(), gpart.data_ptr(), dpre.data_ptr(),
-        dxj.data_ptr(), grads.data_ptr(),
+        level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
+        level.win_long.data_ptr(), n_layers, wd, grid, n_tiles,
+        level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
+        level.win_long.numel(), GATHER_PIECE, gpart.data_ptr(),
+        dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win_dyn_bwd")

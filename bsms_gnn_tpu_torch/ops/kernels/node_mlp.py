@@ -9,16 +9,29 @@ per row, with Wa/Wb the x and aggr halves of the node MLP's [2C, C] first
 layer. Output in bf16 in bf16 mode, else in x's dtype; x may be f32 in
 bf16 mode (the level-0 GMP when the encoder runs in f32).
 
-CUDA design (`csrc/node_mlp.cu`): one thread block per 64-row tile keeps
-x, the aggregate and every hidden activation in shared memory through the
-whole phase; the only device-memory traffic is x and aggr in, out out, and
-the weights (L2-resident). What bounds it on the card: operations,
-(2 + L)·2·128·128 FLOP per row against 768 bytes per row in f32; the tile
-GEMM is the one `fused_gmp.py` describes (f32 FMA on CUDA cores, no TF32).
+CUDA design (`csrc/node_mlp.cu`, on kernel 6's cluster,
+`csrc/node_cluster.cuh`): a thread-block cluster of CLUSTER CTAs per
+ROWS-row tile, CTA q computing the output columns [32q, 32q + 32) of every
+product from the full input tile, which the cluster's CTAs assemble from
+each other's column slices through distributed shared memory after the
+first layer and after each tail layer; the LayerNorm runs whole in every
+CTA and each CTA writes its own columns of LN + x. So each tile's serial
+chain of 2 + L products is CLUSTER times shorter and a level of n tiles
+runs CLUSTER·n CTAs (the 5k airfoil's levels hold 82 tiles down to 2; one
+block per tile left every level on fewer SMs than the card has). Each CTA
+runs 128 threads of 4 rows by 4 output columns, stages a quarter of every
+weight, in 64-row slabs double-buffered with cp.async, and holds 65 KB of
+shared memory, so three fit on an SM (`occupancy`). Every output element is summed over k in the order of the
+one-block kernel this replaces: the same arithmetic, no atomics. The only
+device-memory traffic is x and aggr in (each read by the cluster's four
+CTAs, L2-hot), out out, and the weights (L2-resident). What bounds it on
+the card: operations, (2 + L)·2·128·128 FLOP per row against 768 bytes
+per row in f32 (f32 FMA on the CUDA cores, no TF32).
 
 bf16 mode rounds every dot operand to bf16 (x, aggr, the hidden
-activations, the weights) and accumulates in f32; LN and the residual add
-run in f32 and the sum is stored in bf16.
+activations, the weights: those once per call, on the host,
+`build.stacked(..., to_bf16=True)`) and accumulates in f32; LN and the
+residual add run in f32 and the sum is stored in bf16.
 
 Kernel 6 replaces the TPU kernel's backward (`_get_bwd` →
 `_make_bwd_kernel`): given the output's cotangent g [n_pad, C] f32 it
@@ -26,15 +39,9 @@ recomputes each row tile's forward and returns dx (in x's dtype; it
 includes the residual's g), daggr (f32), dWa, dWb [C, C], db0 [C] and the
 tail's dW [L, C, C], db [L, C]. What bounds it: operations, about three
 times kernel 3's (fifteen 64×128×128 products per 64-row tile at L = 3).
-CUDA design (`csrc/node_mlp_bwd.cu`): a thread-block cluster of CLUSTER
-CTAs per 64-row tile, CTA q computing the output columns [32q, 32q + 32)
-of every product from the full input tile, which the cluster's CTAs
-assemble from each other's column slices through distributed shared
-memory after each layer; the LayerNorm and its backward run whole in
-every CTA. So each tile's serial chain of products is CLUSTER times
-shorter and a level of n tiles runs CLUSTER·n CTAs: the 5k airfoil's
-levels hold 82 tiles down to one, and one block per tile left every level
-on fewer SMs than the card has. Each weight gradient splits by its rows
+CUDA design (`csrc/node_mlp_bwd.cu`): kernel 3's cluster, the layer
+inputs and cotangents exchanged after each layer; the LayerNorm and its
+backward run whole in every CTA. Each weight gradient splits by its rows
 (dW[l] = h_lᵀ·d: CTA q needs only its own columns of h_l), so the CTAs of
 a tile write disjoint parts of the tile's one partial, each element summed
 over the tile's rows in row order, and `grad_sum_kernel` adds the partials
@@ -51,6 +58,8 @@ forward launches kernel 3 and whose backward launches kernel 6.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from bsms_gnn_tpu_torch.ops.kernels import build
@@ -63,18 +72,21 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     mlp_tail_plain,
 )
 
-_SIG = [build.P] * 7 + [build.I] * 2 + [build.P]
 # (x dtype, bf16 compute) → C entry.
 _FN = {(torch.float32, False): "fused_node_phase_f32",
        (torch.bfloat16, True): "fused_node_phase_bf16",
        (torch.float32, True): "fused_node_phase_f32_bf16"}
+_SIGS = {**{f: [build.P] * 7 + [build.I] * 2 + [build.P]
+            for f in _FN.values()},
+         **{f + "_occupancy": [build.P] * 2 for f in _FN.values()}}
 _BWD_SIG = [build.P] * 10 + [build.I] * 2 + [build.P] * 4
 _BWD_FN = {(torch.float32, False): "fused_node_phase_bwd_f32",
            (torch.bfloat16, True): "fused_node_phase_bwd_bf16",
            (torch.float32, True): "fused_node_phase_bwd_f32_bf16"}
+# Rows of a tile (`csrc/node_cluster.cuh`'s TILE) and CTAs of kernels 3's
+# and 6's cluster per tile (its CL), each owning BN / CLUSTER output columns
+# of every product; held to these values by a static_assert there.
 ROWS = 64
-# CTAs of kernel 6's cluster per ROWS-row tile (`csrc/node_mlp_bwd.cu`'s
-# CL), each owning BN / CLUSTER output columns of every product.
 CLUSTER = 4
 
 
@@ -134,12 +146,14 @@ def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
         return fused_node_phase_plain(x, aggr, mlp, compute_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    lib = build.library("node_mlp", {f: _SIG for f in _FN.values()})
+    lib = build.library("node_mlp", _SIGS)
     ws, bs = list(mlp.weights), list(mlp.biases)
-    w0, b0 = ws[0].detach().float().contiguous(), bs[0].detach().float().contiguous()
-    w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
-    x, aggr = x.contiguous(), aggr.contiguous()
     bf16 = compute_dtype == torch.bfloat16
+    w0 = build.stacked(ws[:1], to_bf16=bf16)
+    b0 = bs[0].detach().float().contiguous()
+    w_stack = build.stacked(ws[1:], to_bf16=bf16)
+    b_stack = build.stacked(bs[1:])
+    x, aggr = x.contiguous(), aggr.contiguous()
     out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)
     err = getattr(lib, _FN[(x.dtype, bf16)])(
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
@@ -153,6 +167,18 @@ def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
 
 
 fused_node_phase_fwd.launches = 0
+
+
+def occupancy(x_dtype=torch.float32, compute_dtype=None):
+    """(CTAs per SM, clusters on the card at once) of kernel 3's entry for
+    x_dtype and compute_dtype, as the card's occupancy calculator reports
+    them on the current device."""
+    lib = build.library("node_mlp", _SIGS)
+    fn = _FN[(x_dtype, compute_dtype == torch.bfloat16)] + "_occupancy"
+    per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+    build.check(getattr(lib, fn)(ctypes.addressof(per_sm),
+                                 ctypes.addressof(clusters)), fn)
+    return per_sm.value, clusters.value
 
 
 def fused_node_phase_bwd_plain(x, aggr, mlp, g, compute_dtype=None):

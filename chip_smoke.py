@@ -10,11 +10,12 @@ Phases (any failure exits non-zero without the result line):
    window 256, the `fused` method) built and moved to the card, its
    per-level layout printed;
 3. each forward kernel of that path against its plain PyTorch version on
-   the card at the path's shapes (level 0, T0 down / up; kernel 4 at every
-   level, twice for bit-identical outputs; kernel 2 also on a residual
-   with a receiver of more than 32 rows, level 0's plus a star of edges),
-   f32 and bf16; a miss of kernel 4's, 5's or 6's check prints the
-   smallest |ReLU input| feeding the rows that miss;
+   the card at the path's shapes (level 0, T0 down / up; kernels 4 and 3
+   at every level, twice for bit-identical outputs; kernel 2 also on a
+   residual with a receiver of more than 32 rows, level 0's plus a star of
+   edges), f32 and bf16; a miss of kernel 3's, 4's, 5's, 6's or 13's
+   backward's check prints the smallest |ReLU input| feeding the rows that
+   miss;
 4. serving: `Simulator` (latent 128, hidden 3, seeded weights, normalizers
    filled from seeded frames) forward through the kernels against the same
    forward through the plain versions, f32 and bf16; the kernel launch
@@ -47,9 +48,10 @@ Phases (any failure exits non-zero without the result line):
 10. the flag (flag_simple at full width and depth: a Morton-ordered
    1,568-node cloth strip, depth 5, edge_block 512, window 256, the `fused`
    method with world edges, latent 128, hidden 3): kernel 13 (forward and
-   backward) and the other kernels of its path against their plain versions
-   at its shapes (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on
-   it (kernel 13 and its backward timed), the `Trainer` run (noise γ 0.1)
+   backward, the backward at every level, twice for bit-identical outputs)
+   and the other kernels of its path against their plain versions at its
+   shapes (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it
+   (kernel 13 and its backward timed), the `Trainer` run (noise γ 0.1)
    on the contact recipe's frame pair; kernel 11 (forward and backward) at
    its level 0 too (edge_block 512), against its plain version, and a GMP
    with a 6-wide world stream there (wider than kernel 13 takes: kernel 11's
@@ -413,33 +415,41 @@ WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
 # shapes are the levels of fewer tiles.
 EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
                      "fused_edge_phase_win", "fused_edge_phase_win_bwd",
-                     "fused_edge_mlp_aggregate_bwd", "fused_node_phase_bwd")
+                     "fused_edge_mlp_aggregate_bwd", "fused_node_phase",
+                     "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd")
 # The kernels on a tile walk (`csrc/edge_fwd_tiles.cuh`,
 # `csrc/edge_bwd_tiles.cuh`): two calls on the same inputs must agree bit
 # for bit (the walk's grid and its order of sums depend only on the card
 # and the layout), and their later shapes are levels of fewer live tiles:
 # kernels 4 and 5 at every level of the airfoil below 0 (6 holds 2 live
-# slots, 7 none), kernel 11's backward at the surface's level 7. The bf16
-# controls run at every shape, and are skipped only for an output that the
-# plain version leaves all zero. Kernel 6 (`csrc/node_mlp_bwd.cu`, a
-# cluster of CTAs per 64-row tile) is checked the same way at every level,
-# every row of its outputs filled.
+# slots, 7 none), kernel 11's backward at the surface's level 7, kernel
+# 13's backward at every level of the flag below 0. The bf16 controls run
+# at every shape, and are skipped only for an output that the plain version
+# leaves all zero. Kernels 3 and 6 (`csrc/node_mlp.cu`,
+# `csrc/node_mlp_bwd.cu`, a cluster of CTAs per 64-row tile) are checked
+# the same way at every level, every row of their outputs filled
+# (`NODE_CLUSTERS`).
 TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
-              "fused_edge_mlp_aggregate_bwd")
+              "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_dyn_bwd")
+NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_mlp_aggregate_bwd": (7,),
+               "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 4, 5),
+               "fused_node_phase": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase_bwd": (1, 2, 3, 4, 5, 6, 7)}
 # The seed of the generator that draws level l's inputs of each kernel
 # checked at every level (WALK_SEED[name] + l), apart from the generator of
 # level 0, so that adding a level moves no other kernel's inputs.
 WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
-             "fused_edge_mlp_aggregate_bwd": 100, "fused_node_phase_bwd": 300}
+             "fused_edge_mlp_aggregate_bwd": 100, "fused_node_phase_bwd": 300,
+             "fused_edge_phase_win_dyn_bwd": 400, "fused_node_phase": 500}
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
 # summing in other orders, take the ReLU on different sides.
 RELU_DIAGNOSED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                  "fused_edge_phase_win_dyn_bwd", "fused_node_phase",
                   "fused_node_phase_bwd")
 # The rows of each backward output that `relu_margin` maps to the input
 # rows feeding them (an output not named: every input row).
@@ -448,11 +458,12 @@ ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). Kernels 11-14 add the pass that sums each output block's chunk
-# parts (the work the TPU kernel did in its revisited block); kernels 4 and
-# 5 the receiver gather (the aggregate, dxj); kernels 5, 6 and 11-13's
-# backwards the pass that sums the weight-gradient partials. Kernels 1, 2,
-# 7 and 15 are one launch each (the row-ordered gather).
+# launches). Kernels 11-14 but 11's and 13's backwards add the pass that
+# sums each output block's chunk parts (the work the TPU kernel did in its
+# revisited block); kernels 4, 5 and 13's backward the receiver gather (the
+# aggregate, dxj); kernels 5, 6 and 11-13's backwards the pass that sums
+# the weight-gradient partials. Kernels 1, 2, 7 and 15 are one launch each
+# (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -487,7 +498,7 @@ KERNEL_META = {
         ("fused_edge_phase_win_dyn_kernel", "block_sum_kernel")),
     "fused_edge_phase_win_dyn_bwd": (
         _CSRC + "fused_gmp_dyn_bwd.cu", _PALLAS + "fused_gmp.py:706",
-        ("fused_edge_phase_win_dyn_bwd_kernel", "block_sum_kernel",
+        ("fused_edge_phase_win_dyn_bwd_kernel", "recv_gather_kernel",
          "grad_sum_kernel")),
     "fused_edge_phase": (
         _CSRC + "fused_gmp_stream.cu", _PALLAS + "fused_gmp.py:376",
@@ -1200,12 +1211,15 @@ def kernel_inputs(case, dtype, device):
                 r(d.n_pad_nodes, c, dt=dtype),
                 first_layer(level_gmp(sim, hd, l))[0],
                 *level_tail(sim, hd, l)))}
-    node = {"fused_node_phase": [
-        ("level 0", (rand(n0, c, dt=dtype), rand(n0, c, s=3.0),
-                     gmp.mlp_node, cd)),
-        # bf16 compute on f32 x: the level-0 GMP under io_dtype=float32
-        *([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
-                      cd))] if cd is not None else [])]}
+    # Kernel 3 at every level (level 0's draw first, from g), then, in
+    # bf16, bf16 compute on f32 x: the level-0 GMP under io_dtype=float32.
+    node = {"fused_node_phase": level_shapes(
+        hd, "fused_node_phase", rand, g, lambda l, d, r: (
+            r(d.n_pad_nodes, c, dt=dtype), r(d.n_pad_nodes, c, s=3.0),
+            level_gmp(sim, hd, l).mlp_node, cd))}
+    if cd is not None:
+        node["fused_node_phase"].insert(1, ("f32 x", (
+            rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node, cd)))
     if t0.down_op is None:
         # Bucketed: kernel 1's level form at level 0 (down: ew, up: ew_rev)
         # and at level 4 (window 128); kernel 9 on level 0's residual
@@ -1333,17 +1347,19 @@ def check_kernels(case, device):
 
 def check_kernel(name, where, args, dtype, sparse=False):
     """One kernel against its plain version on `args`, and in bf16 its
-    control, which must miss the tolerance. A tile walk runs twice and
-    must agree with itself bit for bit; where `sparse` (its later levels)
-    the measures are taken over the rows the plain output fills, every
-    other row exactly zero (`filled_compare`). Returns the max_abs_err."""
+    control, which must miss the tolerance. A tile walk or a node cluster
+    runs twice and must agree with itself bit for bit; where `sparse` (a
+    walk's later levels) the measures are taken over the rows the plain
+    output fills, every other row exactly zero (`filled_compare`). Returns
+    the max_abs_err."""
     fn, plain = kernel_modules()[name]
     tol_max, tol_rms = TOL[(name, dtype)]
     got, want = run(name, fn, args), run(name, plain, args)
-    if name in TILE_WALKS:
+    if name in TILE_WALKS or name in NODE_CLUSTERS:
         same = torch.equal(got, run(name, fn, args))
-        print(walk_line(name, where, dtype, args) + "; two calls "
-              + ("bit-identical" if same else "DIFFER"))
+        line = (walk_line(name, where, dtype, args) if name in TILE_WALKS
+                else node_walk_line(name, where, dtype, args))
+        print(line + "; two calls " + ("bit-identical" if same else "DIFFER"))
         require(same, f"{name} {where} {dtype}: two calls on the same "
                       f"inputs differ")
     err, err_rms, rms, zero_ok, live = filled_compare(got, want, sparse)
@@ -1356,7 +1372,8 @@ def check_kernel(name, where, args, dtype, sparse=False):
           f"{frac(err_rms, rms):.2e} of rms (tol {tol_rms:.0e})  "
           f"{'ok' if ok else 'FAIL'}")
     if not ok and name in RELU_DIAGNOSED:
-        print(relu_margin(name, args, got, want, tol_max * rms))
+        print(relu_margin(name, args, got, want, tol_max * rms,
+                          "inputs" if name in NODE_CLUSTERS else "receivers"))
     require(ok, f"{name} {where} {dtype} disagrees with plain")
     ctrl = control_args(name, args) if dtype == torch.bfloat16 else None
     if ctrl is None:
@@ -1378,19 +1395,26 @@ def check_kernel(name, where, args, dtype, sparse=False):
 def relu_inputs(name, args):
     """(every ReLU input of the function on `args` in the plain version's
     arithmetic, f32 [rows, C] per layer; the input rows that count; each
-    input row's receiver or None): kernels 4 and 5, per slot (the first
-    layer's pre-activation, then each hidden tail layer's; the in-window
-    slots count); kernel 6, per node row."""
+    input row's receiver or None): kernels 4, 5 and 13's backward, per slot
+    (the first layer's pre-activation, then each hidden tail layer's; the
+    in-window slots count); kernels 3 and 6, per node row."""
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_dyn as fgd
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
 
-    if name == "fused_node_phase_bwd":
-        x, aggr, mlp, _, cd = args
+    if name in NODE_CLUSTERS:
+        x, aggr, mlp, cd = args[:3] + args[-1:]
         bf16 = cd == torch.bfloat16
         pre = node_mlp._node_pre(x, aggr, mlp, bf16)[0]
         ws, bs = node_mlp._tail(mlp)
         counted, recv = torch.ones(pre.shape[0], dtype=torch.bool,
                                    device=pre.device), None
+    elif name == "fused_edge_phase_win_dyn_bwd":
+        level, xwi, xj, pos, wf8, wfd, wfn, ws, bs = args[:9]
+        bf16 = xwi.dtype == torch.bfloat16
+        pre, counted, recv, _, _ = fgd._edge_pre_dyn(level, xwi, xj, pos, wf8,
+                                                     wfd, wfn, bf16)
+        ws, bs = [w.float() for w in ws], [b.float() for b in bs]
     else:
         level, xwi, xj, wf8, ws, bs = args[:6]
         bf16 = xwi.dtype == torch.bfloat16
@@ -1410,9 +1434,10 @@ def relu_margin(name, args, got, want, limit, rows_are="receivers"):
     rows off by more than a hundredth of it), and where it lies: a draw
     that puts a ReLU input within rounding of zero can flip that unit
     between the kernel and the plain version, whose sums run in other
-    orders. `rows_are`: "inputs" (dpre per slot, kernel 6's dx and daggr
-    per node), "receivers" (kernel 4's aggregate, kernel 5's dxj) or
-    "all" (a weight gradient: every input row)."""
+    orders. `rows_are`: "inputs" (dpre per slot, kernel 3's output and
+    kernel 6's dx and daggr per node), "receivers" (kernel 4's aggregate,
+    kernels 5's and 13's dxj) or "all" (a weight gradient: every input
+    row)."""
     diff = (got.float() - want.float()).abs()
     by_row = diff.reshape(diff.shape[0], -1).amax(-1)
     bad = by_row > limit
@@ -1928,10 +1953,17 @@ def bwd_kernel_inputs(case, dtype, device):
             ("level 0", (lvl, rand(e0, c, dt=dtype), rand(n0, c, dt=dtype),
                          *mlp_e, rand(n0, c)))]}
     if case["cfg"].world_edges:
-        edge = {"fused_edge_phase_win_dyn_bwd": [
-            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         case["node_in"][:, :3].to(dtype), *first_layer(gmp),
-                         *mlp_e, rand(n0, c)))],
+        # Kernel 13's backward at every level: level 0 on the case's own
+        # world positions, the later levels on unit-normal ones.
+        def dyn_args(l, d, r):
+            n = d.n_pad_nodes
+            pos = (case["node_in"][:, :3].to(dtype) if l == 0
+                   else r(n, 3, dt=dtype))
+            return (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
+                    *first_layer(level_gmp(sim, hd, l)), *tail(l), r(n, c))
+
+        edge = {"fused_edge_phase_win_dyn_bwd": walk_shapes(
+            "fused_edge_phase_win_dyn_bwd", dyn_args),
             "fused_edge_mlp_aggregate_bwd": [
                 ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e,
                              rand(n0, c)))]}
@@ -1988,9 +2020,9 @@ def walk_levels(hd, name):
 
 
 def walk_line(name, where, dtype, args):
-    """The tile walk's launch shape for one call of kernel 5 or 11's
-    backward: its tiles, the rows of a tile, the blocks per SM the kernel
-    reaches and the grid."""
+    """The tile walk's launch shape for one call of kernel 4, 5, 11's
+    backward or 13's backward: its tiles, the rows of a tile, the blocks
+    per SM the kernel reaches and the grid."""
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp
 
     fn = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
@@ -2004,20 +2036,26 @@ def walk_line(name, where, dtype, args):
             f"{len(fused_gmp.tile_ranges(tiles, fill)) - 1}")
 
 
-def node_walk_line(where, dtype, args):
-    """Kernel 6's launch shape for one call: its tiles, the CTAs of a
-    tile's cluster, the grid, and the SMs it can fill against the one
-    block per tile it replaces."""
+def node_walk_line(name, where, dtype, args):
+    """Kernel 3's or 6's launch shape for one call: its tiles, the CTAs of
+    a tile's cluster, the grid, and the SMs it can fill against the one
+    block per tile it replaces; for kernel 3 also the CTAs per SM and the
+    clusters the card holds at once (`node_mlp.occupancy`)."""
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
 
-    tiles = args[0].shape[0] // node_mlp.ROWS
+    x, cd = args[0], args[-1]
+    tiles = x.shape[0] // node_mlp.ROWS
     ctas = tiles * node_mlp.CLUSTER
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return (f"walk fused_node_phase_bwd {where} {str(dtype)[6:]}: {tiles} "
-            f"tiles of {node_mlp.ROWS} rows, clusters of "
-            f"{node_mlp.CLUSTER} CTAs, grid {ctas} CTAs; SMs it can fill "
-            f"{min(ctas, sms)} of {sms} (one block per tile: "
-            f"{min(tiles, sms)})")
+    line = (f"walk {name} {where} {str(dtype)[6:]}: {tiles} tiles of "
+            f"{node_mlp.ROWS} rows, clusters of {node_mlp.CLUSTER} CTAs, grid "
+            f"{ctas} CTAs; SMs it can fill {min(ctas, sms)} of {sms} (one "
+            f"block per tile: {min(tiles, sms)})")
+    if name == "fused_node_phase":
+        per_sm, clusters = node_mlp.occupancy(x.dtype, cd)
+        line += (f"; {per_sm} CTAs per SM, {clusters} clusters at once "
+                 f"({'one wave' if tiles <= clusters else 'more than one wave'})")
+    return line
 
 
 def frac(a, b):
@@ -2064,12 +2102,12 @@ def check_bwd_kernels(case, device):
                 got, want = fn(*args), plain(*args)
                 if name == "windowed_send_sum":
                     got, want = (got,), (want,)
-                if name in TILE_WALKS or name == "fused_node_phase_bwd":
+                if name in TILE_WALKS or name in NODE_CLUSTERS:
                     again = fn(*args)
                     same = all(torch.equal(a, b) for a, b in zip(got, again))
                     line = (walk_line(name, where, dtype, args)
                             if name in TILE_WALKS
-                            else node_walk_line(where, dtype, args))
+                            else node_walk_line(name, where, dtype, args))
                     print(line + "; two calls "
                           + ("bit-identical" if same else "DIFFER"))
                     require(same, f"{name} {where} {dtype}: two calls on the "

@@ -1,18 +1,24 @@
-"""Kernels 4 (the windowed edge phase), 6 (the node phase's backward) and
-5 (the edge phase's backward, beside them as a control) at every level of
-the 5k airfoil, chip_smoke.py's main path, in f32 and bf16: the device ms
-of one call (the profiler's, summed over the CUDA kernels the call
-launches, so that two designs compare whatever they launch), and the
-sum over the 15 launches of one train step (twice at each level above the
-bottom, down and up; once at the bottom). The inputs are chip_smoke.py's
-(`kernel_inputs`, `bwd_kernel_inputs`): the same seeds give the same values
-under any commit. Also the peak device memory of one airfoil train step
-(chip_smoke.py's `Trainer`, after its warmup gate) above what the step
-starts with, in a process that has run nothing else on the card; and, as
-controls whose code the redesign of kernels 4 and 6 leaves alone, the
-chunk-walk forwards at level 0 of their own paths: kernel 12 (the
-unwindowed airfoil), 11 (the surface on the fused method) and 13 (the
-flag).
+"""Per-level device times of the port's kernels on the paths that run them,
+in f32 and bf16: kernels 3 (the node phase) and 13's backward (the world-
+edge phase's backward), and beside them, as controls, kernels 6, 5 and 4
+at every level of the 5k airfoil (chip_smoke.py's main path), and at the
+level of their own paths' first shapes kernel 10 (the 16k surface, pallas),
+12's backward (the unwindowed airfoil) and 14's backward (the airfoil on
+"fused4"). Kernel 3 runs at every airfoil level, kernel 13's backward at
+every level of the flag.
+
+Each figure is the device ms of one call (the profiler's, summed over the
+CUDA kernels the call launches, so that two designs compare whatever they
+launch), beside the card's bound for the call's work (chip_smoke.py's
+`work` and peaks); a kernel timed at every level also gets the sum over
+the launches of one train step (twice at each level above the bottom,
+down and up; once at the bottom: 15 on the airfoil, 11 on the flag). The
+inputs are
+chip_smoke.py's (`kernel_inputs`, `bwd_kernel_inputs`): the same seeds give
+the same values under any commit. Also the peak device memory of one
+airfoil and one flag train step (chip_smoke.py's `Trainer`, after its
+warmup gate) above what the step starts with; the airfoil's is read first
+in the process, the flag's after the airfoil's case is freed.
 
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
@@ -34,9 +40,20 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {"kernel 4": ("fused_edge_phase_win", False),
-           "kernel 6": ("fused_node_phase_bwd", True),
-           "kernel 5": ("fused_edge_phase_win_bwd", True)}
+# label → (path, kernel, whether chip_smoke's backward inputs, every level)
+KERNELS = {
+    "kernel 3": ("airfoil", "fused_node_phase", False, True),
+    "kernel 6": ("airfoil", "fused_node_phase_bwd", True, True),
+    "kernel 5": ("airfoil", "fused_edge_phase_win_bwd", True, True),
+    "kernel 4": ("airfoil", "fused_edge_phase_win", False, True),
+    "kernel 13 bwd": ("flag", "fused_edge_phase_win_dyn_bwd", True, True),
+    "kernel 10": ("surface", "fused_aggregate_node_phase", False, False),
+    "kernel 12 bwd": ("airfoil_plain", "fused_edge_phase_bwd", True, False),
+    "kernel 14 bwd": ("airfoil_fused4", "fused_edge_phase_win_k_bwd", True,
+                      False),
+}
+# Paths whose train step's peak memory is read.
+PEAK_PATHS = ("airfoil", "flag")
 
 
 def device_ms(fn, reps=20, tries=3):
@@ -78,6 +95,47 @@ def step_peak_mib(cs, case, device, cd):
     return (torch.cuda.max_memory_allocated() - held) / 2**20
 
 
+def bound_ms(cs, name, args, dtype):
+    """The card's least time for the call's work, as chip_smoke.py
+    computes it: max(bytes / peak rate, operations / peak rate)."""
+    by, ops = cs.work(name, args, dtype)
+    return max(by / cs.PEAK_BYTES_S, ops / cs.PEAK_FLOPS_S[dtype]) * 1e3
+
+
+def time_kernel(cs, case, device, label, name, bwd, every):
+    """{dtype: {"levels": [ms, ...], "bounds": [ms, ...], "step_ms": ms}}
+    for a kernel timed at every level, else {dtype: ms} at its first
+    shape; printed as it goes."""
+    fn = cs.kernel_modules()[name][0]
+    depth = case["hd"].depth
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = (cs.bwd_kernel_inputs if bwd else cs.kernel_inputs)(
+            case, dtype, device)[name]
+        key = str(dtype)[6:]
+        if not every:
+            where, args = shapes[0]
+            ms = out[key] = device_ms(lambda: fn(*args))
+            print(f"{label} ({name}) {key}: {where} {ms:.5f} ms")
+            continue
+        per, bound = {}, {}
+        for where, args in shapes:
+            if where.startswith("level "):
+                l = int(where.split()[1])
+                per[l] = device_ms(lambda: fn(*args))
+                bound[l] = bound_ms(cs, name, args, dtype)
+        step = sum(ms * (2 if l < depth else 1) for l, ms in per.items())
+        launches = sum(2 if l < depth else 1 for l in per)
+        out[key] = {"levels": [per[l] for l in sorted(per)],
+                    "bounds": [bound[l] for l in sorted(per)],
+                    "step_ms": step}
+        print(f"{label} ({name}) {key}: " + ", ".join(
+            f"L{l} {per[l]:.5f}" for l in sorted(per))
+            + f" ms; the {launches} launches of a step {step:.4f} ms; "
+            "bounds " + ", ".join(f"{bound[l]:.5f}" for l in sorted(per)))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -97,54 +155,28 @@ def main() -> int:
     device = torch.device("cuda")
     print(f"card: {cs.card_line()}")
     print(f"port: {os.path.dirname(bsms_gnn_tpu_torch.__file__)}")
-    case = cs.build_case(device)
-    out = {"step_peak_above_mib": {
-        str(dt)[6:]: step_peak_mib(cs, case, device,
-                                   None if dt == torch.float32 else dt)
-        for dt in (torch.float32, torch.bfloat16)}}
-    print("airfoil train step, peak MiB above what it starts with: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in
-                      out["step_peak_above_mib"].items()))
-    with torch.no_grad():
-        depth = case["hd"].depth
-        for label, (name, bwd) in KERNELS.items():
-            fn = cs.kernel_modules()[name][0]
-            for dtype in (torch.float32, torch.bfloat16):
-                inputs = (cs.bwd_kernel_inputs if bwd else cs.kernel_inputs)(
-                    case, dtype, device)[name]
-                per = {}
-                for where, args in inputs:
-                    if not where.startswith("level "):
-                        continue
-                    l = int(where.split()[1])
-                    per[l] = device_ms(lambda: fn(*args))
-                step = sum(ms * (2 if l < depth else 1)
-                           for l, ms in per.items())
-                key = str(dtype)[6:]
-                out.setdefault(label, {})[key] = {
-                    "levels": [per[l] for l in sorted(per)],
-                    "step_ms": step}
-                print(f"{label} ({name}) {key}: " + ", ".join(
-                    f"L{l} {per[l]:.5f}" for l in sorted(per))
-                    + f" ms; the 15 launches of a step {step:.4f} ms")
-    controls = (("kernel 12", functools.partial(cs.build_case, plain=True),
-                 "fused_edge_phase"),
-                ("kernel 11", functools.partial(cs.build_surface_case,
-                                                aggregation="fused"),
-                 "fused_edge_mlp_aggregate"),
-                ("kernel 13", cs.build_flag_case, "fused_edge_phase_win_dyn"))
-    with torch.no_grad():
-        for label, build, name in controls:
-            case = build(device)
-            fn = cs.kernel_modules()[name][0]
-            for dtype in (torch.float32, torch.bfloat16):
-                args = cs.kernel_inputs(case, dtype, device)[name][0][1]
-                key = str(dtype)[6:]
-                ms = out.setdefault(label, {})[key] = device_ms(
-                    lambda: fn(*args))
-                print(f"{label} ({name}) {key}: L0 {ms:.5f} ms")
-            del case
-            torch.cuda.empty_cache()
+    builds = {"airfoil": cs.build_case, "flag": cs.build_flag_case,
+              "surface": cs.build_surface_case,
+              "airfoil_plain": functools.partial(cs.build_case, plain=True),
+              "airfoil_fused4": functools.partial(cs.build_case,
+                                                  aggregation="fused4")}
+    out = {"step_peak_above_mib": {}}
+    for path, build in builds.items():
+        case = build(device)
+        if path in PEAK_PATHS:
+            peak = out["step_peak_above_mib"][path] = {
+                str(dt)[6:]: step_peak_mib(
+                    cs, case, device, None if dt == torch.float32 else dt)
+                for dt in (torch.float32, torch.bfloat16)}
+            print(f"{path} train step, peak MiB above what it starts with: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in peak.items()))
+        with torch.no_grad():
+            for label, (p, name, bwd, every) in KERNELS.items():
+                if p == path:
+                    out[label] = time_kernel(cs, case, device, label, name,
+                                             bwd, every)
+        del case
+        torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": cs.card_line(), **out}))
     return 0
 
