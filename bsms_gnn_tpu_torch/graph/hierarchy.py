@@ -148,6 +148,9 @@ class LevelGraph:
     row_ptr: Optional[torch.Tensor] = None
     row_slots: Optional[torch.Tensor] = None
     row_send: Optional[torch.Tensor] = None
+    # ... and the rows of more than GATHER_PIECE slots (`long_rows`), for
+    # the receiver gather of kernel 12's dxj.
+    row_long: Optional[torch.Tensor] = None
     # Set by to_device on windowed levels, for kernel 1's level form: the
     # live (in-window) slots of row r are win_row_slots[win_row_ptr[r] ..
     # win_row_ptr[r+1]], in slot order; win_long the rows split into
@@ -192,6 +195,7 @@ class TransOp:
     chunk_block: Optional[torch.Tensor] = None  # set by to_device
     row_ptr: Optional[torch.Tensor] = None  # set by to_device
     row_slots: Optional[torch.Tensor] = None  # set by to_device
+    row_long: Optional[torch.Tensor] = None  # set by to_device
     # Set by to_device on windowed ops, for kernel 1 (as on LevelGraph).
     win_row_ptr: Optional[torch.Tensor] = None
     win_row_slots: Optional[torch.Tensor] = None
@@ -884,6 +888,7 @@ def _to_device(obj, device):
         row_ptr, row_slots = row_tables(obj.receivers, ptr, obj.edge_block)
         out.row_ptr = _tensor(row_ptr, device)
         out.row_slots = _tensor(row_slots, device)
+        out.row_long = _tensor(long_rows(row_ptr), device)
         if isinstance(obj, LevelGraph):
             out.row_send = _tensor(
                 np.asarray(obj.reverse_perm)[row_slots], device)
@@ -912,7 +917,7 @@ def to_device(h: Hierarchy, device=None) -> Hierarchy:
     """The same hierarchy with every array a tensor on `device`, plus the
     chunk → output block map (`chunk_block`), the per-block chunk ranges
     (`chunk_ptr`) and per-row slot lists (`row_ptr`, `row_slots`,
-    `row_send`; on windowed layouts also the live ones, `win_row_ptr`,
+    `row_send`, `row_long`; on windowed layouts also the live ones, `win_row_ptr`,
     `win_row_slots`, `win_long`, and on windowed levels the sender rows',
     `send_row_ptr`, `send_row_slots`, `send_long`) the kernels walk, and
     each compact residual's receiver ranges (`cr_rows`, `cr_row_ptr`,

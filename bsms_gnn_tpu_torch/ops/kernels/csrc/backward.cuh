@@ -1,7 +1,7 @@
 // Shared device code of the backward kernels: the LayerNorm backward and
 // the second pass that sums the per-block weight-gradient partials in a
 // fixed order (kernels 5, 6 and 11-13's backwards), and, for the backward
-// chunk walk of kernels 12-14 (edge_phase_bwd.cuh), the MLP tail's forward
+// chunk walk of kernel 14 (edge_phase_bwd.cuh), the MLP tail's forward
 // that keeps what its backward needs and the transposed tile product
 // behind its weight gradients.
 //

@@ -1,6 +1,8 @@
-// The second pass of kernels 1, 4 and 14: each edge chunk's block (kernel
-// 14: each group of chunks) wrote its share of one 128-row output block to
-// part[chunk]; this adds the shares of every output block in chunk order.
+// The second pass of the chunk walks (the forwards of kernels 11, 12 and 13,
+// the backward of kernel 14): each edge chunk's block (kernel 14's
+// backward: each group of chunks) wrote its share of one 128-row output
+// block to part[chunk]; this adds the shares of every output block in chunk
+// order.
 #pragma once
 
 #include "common.cuh"

@@ -1,8 +1,11 @@
 // The backward edge walk of kernels 5 (fused_gmp_bwd.cu), 13's backward
-// (fused_gmp_dyn_bwd.cu) and 11's backward (fused_gmp_stream_bwd.cu),
-// replacing the TPU kernels `bsms_gnn_tpu/ops/pallas/fused_gmp.py:607`
-// (`_get_bwd3`, front kWin), `:706` (`_get_bwd4`, front kDyn: kWin plus the
-// world-space terms) and `:260` (`_get_bwd`, front kStream with no dxj).
+// (fused_gmp_dyn_bwd.cu) and 11's and 12's backwards
+// (fused_gmp_stream_bwd.cu), replacing the TPU kernels
+// `bsms_gnn_tpu/ops/pallas/fused_gmp.py:607` (`_get_bwd3`, front kWin),
+// `:706` (`_get_bwd4`, front kDyn: kWin plus the world-space terms), `:260`
+// (`_get_bwd`, front kStream, the streamed pre-activation) and `:407`
+// (`_get_bwd2`, front kStream with the receiver row xj[recv_e] added on the
+// slots whose receiver lies in their chunk's block).
 // Per slot e it computes, with the TPU kernels' rounding points: the
 // forward recomputed, the LayerNorm backward of the edge cotangent
 // g[recv_e] (zero where the slot is masked), the tail layers in reverse,
@@ -268,8 +271,10 @@ __device__ __forceinline__ void round_tile(float* t) {
 // kWin and kDyn, the tile's fiber stream (rounded in BF16 mode); with kDyn
 // also dyn.delta [MAX_WD][TR] (Δ, rounded in BF16 mode as the dot operand;
 // zero sender position for an out-of-window slot) and dyn.nrm [TR] (‖Δ‖ in
-// f32 from the unrounded Δ), as edge_tile_pre fills them. Returns whether
-// any slot is live (kWin, kDyn: an in-window sender and a receiver in the
+// f32 from the unrounded Δ), as edge_tile_pre fills them; kStream sets
+// s_row to the receiver row where it lies in the chunk's block and -1
+// elsewhere (the rows kernel 12's front reads from xj). Returns whether any
+// slot is live (kWin, kDyn: an in-window sender and a receiver in the
 // chunk's block; kStream: the receiver alone), the same in every thread.
 // Starts with a block barrier (the previous tile is done with the tables)
 // and ends with one.
@@ -305,6 +310,8 @@ __device__ __forceinline__ bool tile_slots(
         }
         dyn.nrm[tid] = sqrtf(d2);
       }
+    } else {
+      s_row[tid] = keep ? r : -1;
     }
     s_recv[tid] = r;
     s_loc[tid] = keep ? loc : -1;
@@ -323,8 +330,10 @@ __device__ __forceinline__ bool tile_slots(
 // [8][C] fiber weights and `fib` the tile's fiber stream in shared memory;
 // kDyn: that plus Δ·wf_dyn + ‖Δ‖·wf_nrm from `dyn` (tile_slots' Δ and ‖Δ‖,
 // the weights in shared memory), summed as edge_tile_pre sums it; kStream:
-// pre = src[t0 + r]. A warp owns rows warp + j·NW, each lane 4 columns;
-// each group of HB rows' loads is issued before their arithmetic.
+// pre = src[t0 + r], plus xj[s_row[r]] where xj is given (kernel 12) and
+// the slot's receiver lies in its chunk's block (stream_tile_pre's sum). A
+// warp owns rows warp + j·NW, each lane 4 columns; each group of HB rows'
+// loads is issued before their arithmetic.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
                                            const T* __restrict__ xj,
@@ -347,6 +356,9 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
         z[j] = load4(xj + (size_t)s_recv[r] * C + c4);
       } else {
         a[j] = load4(src + (size_t)(t0 + r) * C + c4);
+        z[j] = xj != nullptr && s_row[r] >= 0
+                   ? load4(xj + (size_t)s_row[r] * C + c4)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
 #pragma unroll
@@ -369,6 +381,8 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
             v[q] = (v[q] + fd) + dyn.nrm[r] * dyn.wfn[c4 + q];
           }
         }
+      } else if (xj != nullptr) {
+        v[0] += z[j].x; v[1] += z[j].y; v[2] += z[j].z; v[3] += z[j].w;
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -383,8 +397,9 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 
 // The walk. kWin: xwi, xj, fiber_t, wf8, send_win and win_base as kernel
 // 4's; kDyn (kernel 13): those plus the positions pos [n_pad][wd] (xwi's
-// type), wf_dyn [wd][C] and wf_nrm [C]; kStream (kernel 11): src = the
-// streamed pre-activation, xj null. W and WT are the tail's stacks (bf16
+// type), wf_dyn [wd][C] and wf_nrm [C]; kStream: src = the streamed
+// pre-activation (kernel 11, xj null) or its sender half zi (kernel 12,
+// with the receiver transform xj). W and WT are the tail's stacks (bf16
 // values in BF16 mode), gpart G partials of grad_size floats.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(

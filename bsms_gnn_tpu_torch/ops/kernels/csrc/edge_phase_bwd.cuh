@@ -1,26 +1,23 @@
-// The backward chunk walk of kernels 12 and 14 (see ../fused_gmp_stream.py
-// and ../fused_gmp_k.py), with the forward recomputed in the kernel. The
-// front F is the forward walk's (edge_phase.cuh): kStream (kernel 12) or
-// kWin (kernel 14). Kernels 5, 13 and 11's backwards run the persistent
-// tile walk of edge_bwd_tiles.cuh instead.
+// The backward chunk walk of kernel 14 (see ../fused_gmp_k.py), with the
+// forward recomputed in the kernel and the windowed front of the chunk
+// walks (edge_tile.cuh's edge_tile_pre). Kernels 5, 11, 12 and 13's
+// backwards run the persistent tile walk of edge_bwd_tiles.cuh instead.
 //
 // For the aggregate's cotangent g, each unmasked slot e gets the edge
 // cotangent g[recv_e] (zero on masked slots), runs the LayerNorm backward
 // and the tail layers in reverse, and yields
 //   dpre[e]  the cotangent of its first-layer pre-activation,
 //   dxj[n]   = Σ_{e: recv(e)=n} dpre[e],
-//   dwf8     = fiber_t · dpre (not with kStream),  dW[l], db[l]  the tail's
-//            weight gradients.
+//   dwf8     = fiber_t · dpre,  dW[l], db[l]  the tail's weight gradients.
 //
 // One block per edge chunk walks it in 64-slot tiles, keeping every tail
 // layer's input, the running cotangent and the chunk's 128-row dxj block in
-// shared memory (kernel 14's backward names its block's chunk, `chunk`, and
-// keeps the dxj block in shared memory, `store_part` false, for its cluster
-// to sum). dxj takes the forward chunk walk's scheme (edge_phase.cuh: a
-// part per chunk, summed over chunk_ptr by block_sum_kernel). The weight gradients: each chunk adds its
-// tiles into its own partial in device memory, in tile order, and
-// grad_sum_kernel adds the partials in chunk order (no atomics). A chunk's
-// partial is [dW | db | dwf8] (dwf8 not with kStream).
+// shared memory (each block of kernel 14's cluster names its chunk,
+// `chunk`, and leaves the dxj block in shared memory for the cluster to
+// sum). The weight gradients: each chunk adds its
+// tiles into its own partial in device memory, in tile order, and the
+// partials are summed in chunk order (no atomics). A chunk's partial is
+// [dW | db | dwf8].
 #pragma once
 
 #include "backward.cuh"
@@ -38,13 +35,11 @@ inline size_t edge_bwd_smem_bytes(int n_layers) {
 }
 
 // Floats of one chunk's weight-gradient partial.
-template <Front F>
 __host__ __device__ inline int edge_grad_size(int n_layers) {
-  static_assert(F != Front::kDyn, "kernel 13's backward runs the tile walk");
-  return n_layers * C * C + n_layers * C + (F == Front::kStream ? 0 : 8 * C);
+  return n_layers * C * C + n_layers * C + 8 * C;
 }
 
-template <typename T, bool BF16, Front F>
+template <typename T, bool BF16>
 __device__ __forceinline__ void edge_phase_bwd_chunk(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const float* __restrict__ wf8,
@@ -52,11 +47,8 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     const float* __restrict__ WT, const float* __restrict__ g, int n_layers,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int e_pad, int edge_block, int window, float* __restrict__ part,
-    float* __restrict__ gpart, T* __restrict__ dpre, int chunk = -1,
-    bool store_part = true) {
-  static_assert(F != Front::kDyn, "kernel 13's backward runs the tile walk");
-  constexpr bool STREAM = F == Front::kStream;
+    int e_pad, int edge_block, int window, float* __restrict__ gpart,
+    T* __restrict__ dpre, int chunk) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);  // [BN][C] dxj block
   float* hs = acc + BN * C;         // [n_layers][TILE][C] tail layer inputs
@@ -69,18 +61,17 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
   int* s_recv = s_row + TILE;
   int* s_loc = s_recv + TILE;
 
-  const int tid = threadIdx.x, ch = chunk < 0 ? blockIdx.x : chunk;
+  const int tid = threadIdx.x, ch = chunk;
   const int lane = tid & 31, warp = tid >> 5;
-  const int base = STREAM ? 0 : win_base[ch] * (window / 2);
+  const int base = win_base[ch] * (window / 2);
   const int row0 = chunk_block[ch] * BN;
   const size_t wsize = (size_t)n_layers * C * C;
-  float* gp = gpart + (size_t)ch * edge_grad_size<F>(n_layers);
+  float* gp = gpart + (size_t)ch * edge_grad_size(n_layers);
   float* gp_b = gp + wsize;                   // db [n_layers][C]
   float* gp_f = gp_b + (size_t)n_layers * C;  // dwf8 [8][C]
   for (int i = tid; i < BN * C; i += THREADS) acc[i] = 0.f;
-  if constexpr (!STREAM)
-    load_first_layer<BF16, false>(wf8, nullptr, nullptr, 0, wf, nullptr,
-                                  nullptr);
+  load_first_layer<BF16, false>(wf8, nullptr, nullptr, 0, wf, nullptr,
+                                nullptr);
 
   const int c = tid & (C - 1);
   const int half = tid >> 7;
@@ -89,11 +80,8 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     const bool add = t0 != ch * edge_block;  // the chunk's first tile stores
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's input,
     // the LayerNorm output into d.
-    if constexpr (STREAM)
-      stream_tile_pre<T, BF16>(t0, row0, xwi, xj, receivers, slots, hs);
-    else
-      edge_tile_pre<T, BF16>(t0, base, row0, e_pad, window, fiber_t, xwi, xj,
-                             send_win, receivers, wf, slots, hs);
+    edge_tile_pre<T, BF16>(t0, base, row0, e_pad, window, fiber_t, xwi, xj,
+                           send_win, receivers, wf, slots, hs);
     tile_mlp_tail_save<BF16>(hs, d, inv, W, B, n_layers, wslab);
 
     // Edge cotangent g[recv] (rounded to bf16 by the TPU kernel's one-hot
@@ -136,8 +124,7 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     else __syncthreads();
     for (int i = tid; i < TILE * C; i += THREADS)
       store(&dpre[(size_t)t0 * C + i], d[i]);
-    const int n_rows = STREAM ? 0 : 8;
-    for (int k = warp; k < n_rows; k += THREADS / 32) {
+    for (int k = warp; k < 8; k += THREADS / 32) {
       const int j0 = lane * 4;
       const float* fk = fib + k * TILE;
       float s[4] = {};
@@ -157,9 +144,6 @@ __device__ __forceinline__ void edge_phase_bwd_chunk(
     }
   }
   __syncthreads();
-  if (!store_part) return;
-  float4* dst = reinterpret_cast<float4*>(part + (size_t)ch * BN * C);
-  for (int i = tid; i < BN * C / 4; i += THREADS) dst[i] = smem4[i];
 }
 
 }  // namespace bsms

@@ -42,10 +42,10 @@ fused_edge_phase_win_k_bwd_kernel(
   if ((ch0 - chunk_ptr[blk]) % S) return;
   const int n = min(S, chunk_ptr[blk + 1] - ch0);
   if (rank < n)
-    edge_phase_bwd_chunk<T, BF16, Front::kWin>(
+    edge_phase_bwd_chunk<T, BF16>(
         fiber_t, xwi, xj, wf8, W, B, WT, g, n_layers, send_win, win_base,
-        receivers, chunk_block, e_pad, edge_block, window, part, gpart, dpre,
-        ch0 + rank, false);
+        receivers, chunk_block, e_pad, edge_block, window, gpart, dpre,
+        ch0 + rank);
   __threadfence();
   cluster.sync();
 
@@ -61,7 +61,7 @@ fused_edge_phase_win_k_bwd_kernel(
   }
   // In place: each float4 of the group's partial is read and written by
   // one thread.
-  const int size4 = edge_grad_size<Front::kWin>(n_layers) / 4;
+  const int size4 = edge_grad_size(n_layers) / 4;
   float4* gp = reinterpret_cast<float4*>(gpart);
   for (int i = rank * size4 / S + tid; i < (rank + 1) * size4 / S;
        i += THREADS) {
@@ -143,7 +143,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   err = launch_block_sum((const float*)part, (const int*)chunk_ptr,
                          (float*)dxj, n_blocks, s, stack);
   if (err != cudaSuccess) return (int)err;
-  const int size4 = edge_grad_size<Front::kWin>(n_layers) / 4;
+  const int size4 = edge_grad_size(n_layers) / 4;
   group_grad_sum_kernel<<<(size4 + THREADS - 1) / THREADS, THREADS, 0, s>>>(
       (const float*)gpart, (const int*)chunk_ptr, n_blocks, stack, size4,
       (float*)grads);

@@ -16,38 +16,36 @@ that Mosaic can interleave K dot chains), each stream accumulates its own
 output, and the K outputs are summed under visited-block masks. K changes
 only the order of the sums.
 
-CUDA design (`csrc/fused_gmp_k.cu`; the backward `csrc/fused_gmp_k_bwd.cu`
-over kernel 5's chunk walk, `csrc/edge_phase_bwd.cuh`). The card needs no
-interleaved streams (its warps interleave) and no masked combine (the
-chunk-ordered block sum already adds each output block's shares, in a
-fixed order). What carries over is "K chunks per step": a group of up to
-S = min(K, 4) consecutive chunks of one output block is one unit of work.
-- Forward: one block of 512 threads per group. Step j stacks tile j (64
-  slots) of each chunk of the group into one [S·64, 128] tile and runs the
-  tail MLP and the LayerNorm on it, 4·S rows per warp, so that each weight
-  slab staged in shared memory serves S tiles; the rows are added, in
-  stacked order, into the group's 128-row output block in shared memory
-  (one thread per column and quarter of the rows), the group's part. At
-  S = 4 the block holds 223 KB of shared memory (the output block 64 KB,
-  the stacked tile 128 KB) of the 227 KB a block may have: K = 4 is the
-  widest stack, and K > 4 runs as K = 4 (the same function).
-- Backward: kernel 5 keeps every tail layer's input, the LayerNorm output
-  and the cotangent of one 64-slot tile (128 KB at 3 tail layers) beside
-  the dxj block (64 KB), so a block has no room for a second tile. The
-  group is a thread block cluster of S blocks instead, one per chunk, each
-  walking its chunk as kernel 5 does; then, through distributed shared
-  memory, each block of the cluster sums its share of the group's dxj
-  blocks and weight-gradient partials, in chunk order, into one part and
-  one partial per group, so the final sum of the partials reads S times
-  fewer.
-- The block (cluster) of a chunk that does not start a group returns at
-  once; the block sum (stride S) and the partials' sum read only the
+CUDA design. The card needs no interleaved streams (its warps interleave)
+and no masked combine: every sum runs in an order fixed by the layout.
+- Forward (`csrc/fused_gmp_k.cu`): kernel 4's forward tile walk
+  (`csrc/edge_fwd_tiles.cuh`, see `fused_gmp.py`) under kernel 14's own
+  name: a persistent grid of G blocks (`walk_grid`, two per SM) over the
+  level's 64-slot tiles, dead tiles skipped, each live slot's message
+  stored into a transient `msg [E_pad, 128]`, then the receiver gather
+  (`recv_gather_kernel` over `win_row_*`, which list exactly those slots)
+  sums the aggregate in list order. No shared-memory output block, no
+  per-group part, no block sum, and nothing of K: a step that stacked
+  `stack_width(K)` tiles on 512 threads, so that each staged weight slab
+  served them all, read slower on an H100 at the 5k airfoil's gated levels
+  (one block per SM; PERF.md).
+- Backward (`csrc/fused_gmp_k_bwd.cu` over the chunk walk of
+  `csrc/edge_phase_bwd.cuh`): kernel 5 keeps every tail layer's input, the
+  LayerNorm output and the cotangent of one 64-slot tile (128 KB at 3 tail
+  layers) beside the dxj block (64 KB), so a block has no room for a second
+  tile. A group of up to S = min(K, 4) consecutive chunks of one output
+  block is a thread block cluster of S blocks, one per chunk, each walking
+  its chunk as kernel 5's first design did; then, through distributed
+  shared memory, each block of the cluster sums its share of the group's
+  dxj blocks and weight-gradient partials, in chunk order, into one part
+  and one partial per group, so the final sum of the partials reads S
+  times fewer. The cluster of a chunk that does not start a group returns
+  at once; the block sum (stride S) and the partials' sum read only the
   groups' first chunks, in chunk order. Deterministic, no atomics.
 What bounds it on the card: operations, as kernels 4 and 5. The gated
-levels hold far fewer chunks than the card has SMs (the 5k airfoil's
-levels 3–5: 34, 30 and 24 chunks for 132 SMs), so the forward's S chunks
-in one block trade SMs for weight-slab reuse and warps per SM; on the H100
-that trade loses (PERF.md).
+levels hold few chunks (the 5k airfoil's levels 3–5: 34, 30 and 24 chunks
+of 512 slots for 132 SMs), so a block per group of chunks left most SMs
+idle; the tile walk spreads their 272, 240 and 192 tiles over every SM.
 
 `fused_edge_phase_win_k` follows JAX's entry (`fused_gmp.py:1429-1460`)
 gate by gate: K ≤ 1, or fewer than `min_density` chunks per 128-node
@@ -63,6 +61,7 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
@@ -70,6 +69,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     EdgePhase,
     _check,
     fused_edge_phase_win,
+    walk_grid,
     win_bwd_plain,
     win_fwd_plain,
 )
@@ -77,11 +77,13 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
 # JAX's gate: v5 only where a level has at least this many edge chunks per
 # 128-node output block (`fused_edge_phase_win_k`'s `min_density`).
 MIN_DENSITY = 6
-# The widest stack of chunk tiles one block takes (its shared memory).
+# The widest group of chunks one cluster of the backward takes.
 MAX_STACK = 4
-_SIG = [build.P] * 11 + [build.I] * 7 + [build.P] * 3
 _FN = {torch.float32: "fused_edge_phase_win_k_f32",
        torch.bfloat16: "fused_edge_phase_win_k_bf16"}
+_SIGS = {**{f: [build.P] * 13 + [build.I] * 9 + [build.P] * 3
+            for f in _FN.values()},
+         **{f + "_blocks_per_sm": [build.I, build.P] for f in _FN.values()}}
 _BWD_SIG = [build.P] * 13 + [build.I] * 7 + [build.P] * 6
 _BWD_FN = {torch.float32: "fused_edge_phase_win_k_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_k_bwd_bf16"}
@@ -95,7 +97,8 @@ def passes_gate(level, min_density: int = MIN_DENSITY) -> bool:
 
 
 def stack_width(k: int) -> int:
-    """The chunks one block of kernel 14 takes for the method's K."""
+    """The chunks one cluster of kernel 14's backward takes for the
+    method's K."""
     if k < 2:
         raise ValueError(f"kernel 14 takes K >= 2, not {k}")
     return min(k, MAX_STACK)
@@ -111,41 +114,39 @@ def fused_edge_phase_win_k_plain(level, xwi, xj, wf8, weights, biases, k):
 fused_edge_phase_win_k_plain.calls = 0
 
 
-def _level_tables(what, level, device):
-    build.require(what, device, level.send_win, level.win_base,
-                  level.receivers, level.chunk_block, level.chunk_ptr)
-
-
 def fused_edge_phase_win_k_fwd(level, xwi, xj, wf8, weights, biases, k):
     """aggr [n_pad, 128] f32 of the in-window edges, no autograd. CPU
     tensors take the plain version; CUDA tensors launch kernel 14."""
     _check(level, xwi, xj, wf8, weights, biases)
-    stack = stack_width(k)
+    stack_width(k)  # raises for K < 2
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_k_plain(level, xwi, xj, wf8, weights,
                                             biases, k)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    _level_tables("fused_edge_phase_win_k", level, xwi.device)
-    lib = build.library("fused_gmp_k", {f: _SIG for f in _FN.values()})
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
+    build.require("fused_edge_phase_win_k", xwi.device, level.send_win,
+                  level.win_base, level.receivers, level.chunk_block,
+                  level.win_row_ptr, level.win_row_slots, level.win_long)
+    lib = build.library("fused_gmp_k", _SIGS)
+    fn, dev = _FN[xwi.dtype], xwi.device
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    bf16 = xwi.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
-    # One part per group, at its first chunk's index; the rest unwritten.
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32,
-                       device=xwi.device)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=xwi.device)
-    err = getattr(lib, _FN[xwi.dtype])(
+    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
+    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
         level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
-        level.chunk_ptr.data_ptr(), len(weights), n_chunks,
-        level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-        level.window, stack, part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(xwi.device).cuda_stream,
+        level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
+        level.win_long.data_ptr(), len(weights), grid, n_tiles,
+        level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
+        level.win_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win_k")
     fused_edge_phase_win_k_fwd.launches += 1
@@ -183,7 +184,9 @@ def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
         raise NotImplementedError(
             f"{len(weights)} tail layers (kernel 14's backward takes "
             f"{MAX_BWD_LAYERS})")
-    _level_tables("fused_edge_phase_win_k_bwd", level, xwi.device)
+    build.require("fused_edge_phase_win_k_bwd", xwi.device, level.send_win,
+                  level.win_base, level.receivers, level.chunk_block,
+                  level.chunk_ptr)
     lib = build.library("fused_gmp_k_bwd",
                         {f: _BWD_SIG for f in _BWD_FN.values()})
     dev, n_layers = xwi.device, len(weights)

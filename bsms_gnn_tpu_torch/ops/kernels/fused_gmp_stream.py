@@ -28,26 +28,30 @@ n_pad − 1, outside the block) add nothing, take no receiver row (kernel
 nothing to dW, db or dxj. The plain versions apply the same mask:
 `index_add_` over all slots would disagree at row n_pad − 1.
 
-CUDA design (`csrc/fused_gmp_stream.cu`, `csrc/fused_gmp_stream_bwd.cu`):
-the chunk walks of kernel 4 and kernel 12's backward (`csrc/edge_phase.cuh`,
-`csrc/edge_phase_bwd.cuh`) with a streamed front (`stream_tile_pre` in
+CUDA design (`csrc/fused_gmp_stream.cu`, `csrc/fused_gmp_stream_bwd.cu`).
+The forwards run kernel 4's first design, the chunk walk of
+`csrc/edge_phase.cuh`, with a streamed front (`stream_tile_pre` in
 `csrc/edge_tile.cuh`): per 64-slot tile the threads read each slot's
 receiver, mark it in block or not, and load its row of zi (plus xj's row of
 its receiver) or pre straight into the tile; then the tail MLP and the
 LayerNorm in shared memory and the add into the chunk's 128-row output
 block, written to a per-chunk part that block_sum_kernel adds in chunk
-order. Kernel 12's backward recomputes the forward per tile in the same
-chunk walk, writes dzi, keeps a per-chunk part for dxj and per-chunk
-weight-gradient partials summed in chunk order by grad_sum_kernel. Kernel
-11's backward runs kernel 5's persistent tile walk (`csrc/edge_bwd_tiles.
-cuh`, see `fused_gmp.py`) with the streamed front and no dxj: G blocks over
-the level's tiles, a tile with no slot in its chunk's block skipped (zero
-dpre rows), one weight-gradient partial per block summed in block order:
-no atomics, the same result from run to run. The chunk is the level's
-edge_block: 128 slots on unwindowed levels, 512 where kernel 11 runs on a
-windowed level. What bounds it on the card: operations, L·2·128·128 FLOP
-per slot in the tail on the CUDA cores (about three times that in the
-backward), against a few hundred bytes per slot of traffic.
+order. The backwards run kernel 5's persistent tile walk
+(`csrc/edge_bwd_tiles.cuh`, see `fused_gmp.py`) with the streamed front
+(kernel 12's adds the receiver row xj of each slot in its chunk's block):
+G blocks over the level's 64-slot tiles, a tile with no slot in its
+chunk's block skipped (zero dzi / dpre rows), one weight-gradient partial
+per block summed in block order by grad_sum_kernel. Kernel 12's dxj is the
+row-ordered gather of `csrc/row_gather.cuh` (`recv_gather_kernel`, kernel
+5's) over dzi and the level's receiver lists (`row_ptr`, `row_slots`,
+`row_long`), which hold exactly the slots with a receiver in their chunk's
+block, in slot order, the last block's pad slots on row n_pad − 1: no dxj
+block, no per-chunk part and no chunk sum. No atomics anywhere: the same
+result from run to run. The chunk is the level's edge_block: 128 slots on
+unwindowed levels, 512 where kernel 11 runs on a windowed level. What
+bounds it on the card: operations, L·2·128·128 FLOP per slot in the tail on
+the CUDA cores (about three times that in the backward), against a few
+hundred bytes per slot of traffic.
 
 bf16 mode (zi, xj or pre in bf16) follows the TPU kernels: every dot's
 operands are rounded to bf16 (the hidden activations, the weights, and in
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
@@ -90,12 +95,12 @@ _SIGS = {
               for f in _FN.values()},
            **{f: [build.P] * 6 + [build.I] * 5 + [build.P] * 3
               for f in _AGG_FN.values()}},
-    _BWD_LIB: {**{f: [build.P] * 9 + [build.I] * 5 + [build.P] * 6
+    _BWD_LIB: {**{f: [build.P] * 11 + [build.I] * 8 + [build.P] * 5
                   for f in _BWD_FN.values()},
                **{f: [build.P] * 7 + [build.I] * 5 + [build.P] * 4
                   for f in _AGG_BWD_FN.values()},
                **{f + "_blocks_per_sm": [build.I, build.P]
-                  for f in _AGG_BWD_FN.values()}},
+                  for f in (*_BWD_FN.values(), *_AGG_BWD_FN.values())}},
 }
 
 
@@ -193,22 +198,23 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
         raise NotImplementedError(f"{len(weights)} tail layers (the backward "
                                   f"kernels take {MAX_BWD_LAYERS})")
     build.require(what, src.device, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
+                  *(() if xj is None else (level.row_ptr, level.row_slots,
+                                           level.row_long)))
     lib = build.library(_BWD_LIB, _SIGS[_BWD_LIB])
     fn = fn_table[src.dtype]
     dev, n_layers = src.device, len(weights)
-    # Kernel 12's chunk walk stages the weights as they are; kernel 11's
-    # tile walk takes them already rounded in bf16 mode.
-    pre_round = xj is None and src.dtype == torch.bfloat16
-    w_stack = build.stacked(weights, to_bf16=pre_round)
-    wt_stack = build.stacked(weights, transpose=True, to_bf16=pre_round)
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    # The tile walk takes the weights already rounded in bf16 mode.
+    bf16 = src.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
     b_stack = build.stacked(biases)
     src = src.contiguous()
     g = g.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
     sizes = [n_layers * BN * BN, n_layers * BN]
     f32 = dict(dtype=torch.float32, device=dev)
     dsrc = torch.empty(level.n_pad_edges, BN, dtype=src.dtype, device=dev)
+    gpart = torch.empty(grid, sum(sizes), **f32)
     grads = torch.empty(sum(sizes), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     common = (w_stack.data_ptr(), b_stack.data_ptr(), wt_stack.data_ptr(),
@@ -217,18 +223,15 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     dxj = None
     if xj is not None:
         xj = xj.contiguous()
-        gpart = torch.empty(n_chunks, sum(sizes), **f32)
-        part = torch.empty(n_chunks, BN, BN, **f32)
         dxj = torch.empty(level.n_pad_nodes, BN, **f32)
         err = getattr(lib, fn)(
-            src.data_ptr(), xj.data_ptr(), *common,
-            level.chunk_ptr.data_ptr(), n_layers, n_chunks,
-            level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-            part.data_ptr(), gpart.data_ptr(), dsrc.data_ptr(),
-            dxj.data_ptr(), grads.data_ptr(), stream)
+            src.data_ptr(), xj.data_ptr(), *common, level.row_ptr.data_ptr(),
+            level.row_slots.data_ptr(), level.row_long.data_ptr(), n_layers,
+            grid, n_tiles, level.n_pad_edges, level.edge_block,
+            level.n_pad_nodes, level.row_long.numel(), GATHER_PIECE,
+            gpart.data_ptr(), dsrc.data_ptr(), dxj.data_ptr(),
+            grads.data_ptr(), stream)
     else:
-        n_tiles, grid = walk_grid(lib, fn, n_layers, level)
-        gpart = torch.empty(grid, sum(sizes), **f32)
         err = getattr(lib, fn)(
             src.data_ptr(), *common, n_layers, grid, n_tiles,
             level.n_pad_edges, level.edge_block, gpart.data_ptr(),

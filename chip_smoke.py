@@ -34,9 +34,11 @@ Phases (any failure exits non-zero without the result line):
    normalizer-warmup gate, then updates) with finite losses that moves
    every parameter;
 8. train-step times: ms per step (median of repeats, CUDA events), device
-   busy time, idle share and kernel count of one profiled step, peak
-   memory (and above what the step starts with), and each backward
-   kernel's time beside its plain version, its library call and its bound;
+   busy time, idle share and kernel count of one profiled step (whose
+   `block_sum_kernel` launches may be no more than the chunk walks of its
+   wrappers account for), peak memory (and above what the step starts
+   with), and each backward kernel's time beside its plain version, its
+   library call and its bound;
 9. the 16,000-node inflating surface of bench.py (a closed sphere mesh,
    depth 7, the default unwindowed hierarchy, the `pallas` method, world
    edges, the inflating-font model at latent 128, hidden 3): kernels 8 and
@@ -58,8 +60,10 @@ Phases (any failure exits non-zero without the result line):
    route), forward and backward against the plain route;
 11. the 5k airfoil on the `fused` method of method_sweep.py's fused-v2 row
    (not reordered, the default unwindowed hierarchy, edge_block 128):
-   kernel 12 (forward and backward) against its plain version, then phases
-   4, 5, 7 and 8 on it (kernel 12 and its backward timed);
+   kernel 12 (forward at level 0; backward at every level, twice for
+   bit-identical outputs) against its plain version, then phases 4, 5, 7
+   and 8 on it (kernel 12 and its backward timed, the backward at every
+   level);
 12. the 16k surface of phase 9 on the `fused` method (method_sweep.py's
    fused-v2 row with world edges): kernel 11 (forward and backward) against
    its plain version, then phases 4, 5, 7 and 8 on it (kernel 11 and its
@@ -74,11 +78,13 @@ Phases (any failure exits non-zero without the result line):
    8 on it (both kernels timed), the `Trainer` run stepping across the
    three meshes on frames of the analytic flow;
 14. the 5k airfoil of phase 2 on `aggregation="fused4"` (the K-way
-   interleaved method): kernel 14 (forward and backward) and kernels 4
-   and 5 at level 3, the densest levels' first, against their plain
-   versions (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it
-   (kernel 14 timed beside kernels 4 and 5 at level 3); its forward and
-   train step also against the `fused` airfoil's with the same weights;
+   interleaved method): kernel 14's forward at every level that passes
+   the density gate (3, 4 and 5, twice for bit-identical outputs), its
+   backward and kernels 4 and 5 at level 3, against their plain versions
+   (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it (kernel 14
+   timed beside kernels 4 and 5 at level 3, its forward at every gated
+   level); its forward and train step also against the `fused` airfoil's
+   with the same weights;
 15. the v6 prototype's benchmark (`benchmarks/v6_prototype.py`): level 0
    of a Morton-ordered `make_delaunay_mesh` of V6_NODES nodes (window 512,
    edge_block 512), its sub-window tables and their coverage, kernel 15 and
@@ -416,26 +422,31 @@ WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
 EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
                      "fused_edge_phase_win", "fused_edge_phase_win_bwd",
                      "fused_edge_mlp_aggregate_bwd", "fused_node_phase",
-                     "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd")
+                     "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd",
+                     "fused_edge_phase_bwd", "fused_edge_phase_win_k")
 # The kernels on a tile walk (`csrc/edge_fwd_tiles.cuh`,
 # `csrc/edge_bwd_tiles.cuh`): two calls on the same inputs must agree bit
 # for bit (the walk's grid and its order of sums depend only on the card
 # and the layout), and their later shapes are levels of fewer live tiles:
 # kernels 4 and 5 at every level of the airfoil below 0 (6 holds 2 live
 # slots, 7 none), kernel 11's backward at the surface's level 7, kernel
-# 13's backward at every level of the flag below 0. The bf16 controls run
-# at every shape, and are skipped only for an output that the plain version
-# leaves all zero. Kernels 3 and 6 (`csrc/node_mlp.cu`,
+# 13's backward at every level of the flag below 0, kernel 12's backward at
+# every level of the unwindowed airfoil below 0, kernel 14's forward at the
+# `fused4` airfoil's gated levels after its first (4 and 5). The bf16
+# controls run at every shape, and are skipped only for an output that the
+# plain version leaves all zero. Kernels 3 and 6 (`csrc/node_mlp.cu`,
 # `csrc/node_mlp_bwd.cu`, a cluster of CTAs per 64-row tile) are checked
 # the same way at every level, every row of their outputs filled
 # (`NODE_CLUSTERS`).
 TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
-              "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_dyn_bwd")
+              "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_dyn_bwd",
+              "fused_edge_phase_bwd", "fused_edge_phase_win_k")
 NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_mlp_aggregate_bwd": (7,),
                "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 4, 5),
+               "fused_edge_phase_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase_bwd": (1, 2, 3, 4, 5, 6, 7)}
 # The seed of the generator that draws level l's inputs of each kernel
@@ -443,7 +454,8 @@ WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
 # level 0, so that adding a level moves no other kernel's inputs.
 WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_mlp_aggregate_bwd": 100, "fused_node_phase_bwd": 300,
-             "fused_edge_phase_win_dyn_bwd": 400, "fused_node_phase": 500}
+             "fused_edge_phase_win_dyn_bwd": 400, "fused_node_phase": 500,
+             "fused_edge_phase_bwd": 600, "fused_edge_phase_win_k": 700}
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -458,12 +470,13 @@ ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). Kernels 11-14 but 11's and 13's backwards add the pass that
-# sums each output block's chunk parts (the work the TPU kernel did in its
-# revisited block); kernels 4, 5 and 13's backward the receiver gather (the
-# aggregate, dxj); kernels 5, 6 and 11-13's backwards the pass that sums
-# the weight-gradient partials. Kernels 1, 2, 7 and 15 are one launch each
-# (the row-ordered gather).
+# launches). The chunk walks (the forwards of kernels 11, 12 and 13, the
+# backward of kernel 14) add the pass that sums each output block's chunk
+# parts (the work the TPU kernel did in its revisited block); kernels 4, 5,
+# 14 and 12's and 13's backwards the receiver gather (the aggregate, dxj);
+# kernels 5, 6 and 11-13's backwards the pass that sums the weight-gradient
+# partials. Kernels 1, 2, 7 and 15 are one launch each (the row-ordered
+# gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -505,7 +518,7 @@ KERNEL_META = {
         ("fused_edge_phase_kernel", "block_sum_kernel")),
     "fused_edge_phase_bwd": (
         _CSRC + "fused_gmp_stream_bwd.cu", _PALLAS + "fused_gmp.py:407",
-        ("fused_edge_phase_bwd_kernel", "block_sum_kernel",
+        ("fused_edge_phase_bwd_kernel", "recv_gather_kernel",
          "grad_sum_kernel")),
     "fused_edge_mlp_aggregate": (
         _CSRC + "fused_gmp_stream.cu", _PALLAS + "fused_gmp.py:230",
@@ -522,7 +535,7 @@ KERNEL_META = {
         ("segment_sum_accum_kernel",)),
     "fused_edge_phase_win_k": (
         _CSRC + "fused_gmp_k.cu", _PALLAS + "fused_gmp.py:1369",
-        ("fused_edge_phase_win_k_kernel", "block_sum_kernel")),
+        ("fused_edge_phase_win_k_kernel", "recv_gather_kernel")),
     "fused_edge_phase_win_k_bwd": (
         _CSRC + "fused_gmp_k_bwd.cu", _PALLAS + "fused_gmp.py:1639",
         ("fused_edge_phase_win_k_bwd_kernel", "block_sum_kernel",
@@ -1178,10 +1191,17 @@ def kernel_inputs(case, dtype, device):
                   if cd is not None else [])],
         }
     if interleave(case) > 1:
-        # Kernel 14 and, beside it, kernel 4 at the first level that
-        # passes the density gate.
+        # Kernel 14 at every level that passes the density gate (the first
+        # drawn from g, each later one from a generator of its own) and,
+        # beside it, kernel 4 at the first.
+        k = interleave(case)
         where, args = gated_edge_args(case, rand, dtype)
-        return {"fused_edge_phase_win_k": [(where, (*args, interleave(case)))],
+        later = [gated_edge_args(case, functools.partial(
+            rand, gen=torch.Generator(device="cpu").manual_seed(
+                WALK_SEED["fused_edge_phase_win_k"] + l)), dtype, l)
+            for l in gated_levels(case)[1:]]
+        return {"fused_edge_phase_win_k": [
+                    (w, (*a, k)) for w, a in [(where, args), *later]],
                 "fused_edge_phase_win": [(where, args)]}
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     e0 = lvl.n_pad_edges
@@ -1279,10 +1299,11 @@ def star_resid(case, device):
     return case["star"]
 
 
-def gated_edge_args(case, rand, dtype):
-    """(where, kernel 4's arguments) at the first level on which a "fusedK"
-    GMP runs kernel 14, with that level's down GMP's weights."""
-    l = gated_levels(case)[0]
+def gated_edge_args(case, rand, dtype, l=None):
+    """(where, kernel 4's arguments) at level l (by default the first on
+    which a "fusedK" GMP runs kernel 14), with that level's down GMP's
+    weights."""
+    l = gated_levels(case)[0] if l is None else l
     lvl, gmp = case["hd"].levels[l], case["sim"].process.down_gmps[l]
     n = lvl.n_pad_nodes
     return f"level {l}", (lvl, rand(n, 128, dt=dtype), rand(n, 128, dt=dtype),
@@ -1949,9 +1970,13 @@ def bwd_kernel_inputs(case, dtype, device):
                 "fused_edge_mlp_aggregate_bwd", lambda l, d, r: (
                     d, r(d.n_pad_edges, c, dt=dtype), *tail(l),
                     r(d.n_pad_nodes, c)))}
-        return {"fused_edge_phase_bwd": [
-            ("level 0", (lvl, rand(e0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         *mlp_e, rand(n0, c)))]}
+        # Kernel 12's backward at every level (level 0's draw first, from
+        # g).
+        return {"fused_edge_phase_bwd": walk_shapes(
+            "fused_edge_phase_bwd", lambda l, d, r: (
+                d, r(d.n_pad_edges, c, dt=dtype),
+                r(d.n_pad_nodes, c, dt=dtype), *tail(l),
+                r(d.n_pad_nodes, c)))}
     if case["cfg"].world_edges:
         # Kernel 13's backward at every level: level 0 on the case's own
         # world positions, the later levels on unit-normal ones.
@@ -2498,8 +2523,8 @@ def row_list_summary(row_ptr):
 def profile_call(fn):
     """One call of `fn` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device-busy ms (sum of the CUDA kernels' times; one
-    stream, so they do not overlap), kernel launches, and the kernels that
-    took the most device time."""
+    stream, so they do not overlap), kernel launches, the kernels that took
+    the most device time, and the launches of each CUDA kernel by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2518,10 +2543,11 @@ def profile_call(fn):
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_ms, reverse=True)[:8]
     return wall, busy, launches, [(e.key[:60], e.count, _device_ms(e))
-                                  for e in top]
+                                  for e in top], [(e.key, e.count)
+                                                  for e in kernels]
 
 
-def print_profile(what, wall, busy, launches, top):
+def print_profile(what, wall, busy, launches, top, _by_name=None):
     print(f"profile {what}: wall {wall:.3f} ms (host clock, under the "
           f"profiler), device busy {busy:.3f} ms, idle share "
           f"{1 - busy / wall:.3f}, {launches} CUDA kernels")
@@ -2563,6 +2589,7 @@ def measure_train(case, device):
               f"{held:.1f} held before it ({held_line()})")
         prof = profile_call(step)
         print_profile(f"[{label}] train step {name}", *prof)
+        check_block_sums(case, prof[4])
         print(f"  idle share against the timed step: {1 - prof[1] / ms:.3f} "
               f"(1 - device busy / ms per step)")
         key = "f32" if cd is None else "bf16"
@@ -2581,6 +2608,22 @@ def measure_train(case, device):
                     for where, args in shapes[1:]:
                         time_kernel(name, where, args, dtype)
     return rows, e2e
+
+
+def check_block_sums(case, by_name):
+    """The `block_sum_kernel` launches of one profiled train step are no
+    more than the wrappers that still sum chunk parts account for
+    (KERNEL_META, at the step's expected launch counts): a kernel whose
+    design has no chunk parts (kernels 14's forward and 12's backward since
+    their tile walks) runs none. The profiler may drop a launch, never add
+    one."""
+    got = sum(n for key, n in by_name if "block_sum_kernel" in key)
+    want = sum(n for name, n in case["expected_train"].items()
+               if "block_sum_kernel" in KERNEL_META[name][2])
+    print(f"  block_sum_kernel launches in the step: {got} (the chunk walks "
+          f"of its wrappers account for {want})")
+    require(got <= want, f"{case['label']}: {got} block sums in a train "
+                         f"step, more than the {want} of the chunk walks")
 
 
 def held_line() -> str:

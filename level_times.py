@@ -1,24 +1,24 @@
 """Per-level device times of the port's kernels on the paths that run them,
-in f32 and bf16: kernels 3 (the node phase) and 13's backward (the world-
-edge phase's backward), and beside them, as controls, kernels 6, 5 and 4
-at every level of the 5k airfoil (chip_smoke.py's main path), and at the
-level of their own paths' first shapes kernel 10 (the 16k surface, pallas),
-12's backward (the unwindowed airfoil) and 14's backward (the airfoil on
-"fused4"). Kernel 3 runs at every airfoil level, kernel 13's backward at
-every level of the flag.
+in f32 and bf16: kernels 14's forward (the `fused4` airfoil's gated levels)
+and 12's backward (every level of the unwindowed airfoil), and beside them,
+as controls, kernels 3, 6, 5 and 4 at every level of the 5k airfoil
+(chip_smoke.py's main path), 13's backward at every level of the flag, and
+at the level of their own paths' first shapes kernel 10 (the 16k surface,
+pallas), 11's backward (the flag's level 0, edge_block 512) and 14's
+backward (the airfoil on "fused4").
 
 Each figure is the device ms of one call (the profiler's, summed over the
 CUDA kernels the call launches, so that two designs compare whatever they
 launch), beside the card's bound for the call's work (chip_smoke.py's
-`work` and peaks); a kernel timed at every level also gets the sum over
-the launches of one train step (twice at each level above the bottom,
-down and up; once at the bottom: 15 on the airfoil, 11 on the flag). The
-inputs are
-chip_smoke.py's (`kernel_inputs`, `bwd_kernel_inputs`): the same seeds give
-the same values under any commit. Also the peak device memory of one
-airfoil and one flag train step (chip_smoke.py's `Trainer`, after its
-warmup gate) above what the step starts with; the airfoil's is read first
-in the process, the flag's after the airfoil's case is freed.
+`work` and peaks); a kernel timed at every level it runs at also gets the
+sum over the launches of one train step (twice at each level above the
+bottom, down and up; once at the bottom: 15 on the airfoil, 11 on the
+flag, 6 for kernel 14 at levels 3-5). The inputs are chip_smoke.py's
+(`kernel_inputs`, `bwd_kernel_inputs`): the same seeds give the same
+values under any commit. Also the peak device memory of one train step of
+the airfoil, the flag, the unwindowed airfoil and the `fused4` airfoil
+(chip_smoke.py's `Trainer`, after its warmup gate) above what the step
+starts with, each read after the previous path's case is freed.
 
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
@@ -42,18 +42,20 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 # label → (path, kernel, whether chip_smoke's backward inputs, every level)
 KERNELS = {
+    "kernel 14": ("airfoil_fused4", "fused_edge_phase_win_k", False, True),
+    "kernel 12 bwd": ("airfoil_plain", "fused_edge_phase_bwd", True, True),
     "kernel 3": ("airfoil", "fused_node_phase", False, True),
     "kernel 6": ("airfoil", "fused_node_phase_bwd", True, True),
     "kernel 5": ("airfoil", "fused_edge_phase_win_bwd", True, True),
     "kernel 4": ("airfoil", "fused_edge_phase_win", False, True),
     "kernel 13 bwd": ("flag", "fused_edge_phase_win_dyn_bwd", True, True),
     "kernel 10": ("surface", "fused_aggregate_node_phase", False, False),
-    "kernel 12 bwd": ("airfoil_plain", "fused_edge_phase_bwd", True, False),
+    "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
     "kernel 14 bwd": ("airfoil_fused4", "fused_edge_phase_win_k_bwd", True,
                       False),
 }
 # Paths whose train step's peak memory is read.
-PEAK_PATHS = ("airfoil", "flag")
+PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4")
 
 
 def device_ms(fn, reps=20, tries=3):
@@ -103,9 +105,9 @@ def bound_ms(cs, name, args, dtype):
 
 
 def time_kernel(cs, case, device, label, name, bwd, every):
-    """{dtype: {"levels": [ms, ...], "bounds": [ms, ...], "step_ms": ms}}
-    for a kernel timed at every level, else {dtype: ms} at its first
-    shape; printed as it goes."""
+    """{dtype: {"levels": {level: ms}, "bounds": {level: ms}, "step_ms":
+    ms}} for a kernel timed at every level it runs at, else {dtype: ms} at
+    its first shape; printed as it goes."""
     fn = cs.kernel_modules()[name][0]
     depth = case["hd"].depth
     out = {}
@@ -126,8 +128,8 @@ def time_kernel(cs, case, device, label, name, bwd, every):
                 bound[l] = bound_ms(cs, name, args, dtype)
         step = sum(ms * (2 if l < depth else 1) for l, ms in per.items())
         launches = sum(2 if l < depth else 1 for l in per)
-        out[key] = {"levels": [per[l] for l in sorted(per)],
-                    "bounds": [bound[l] for l in sorted(per)],
+        out[key] = {"levels": {l: per[l] for l in sorted(per)},
+                    "bounds": {l: bound[l] for l in sorted(per)},
                     "step_ms": step}
         print(f"{label} ({name}) {key}: " + ", ".join(
             f"L{l} {per[l]:.5f}" for l in sorted(per))

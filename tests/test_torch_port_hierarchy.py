@@ -36,8 +36,8 @@ from bsms_gnn_tpu_torch.graph.order import reorder_mesh
 
 DEVICE_TABLES = ("chunk_ptr", "chunk_block", "cr_rows", "cr_row_ptr",
                  "cr_long", "send_row_ptr", "send_row_slots", "send_long",
-                 "row_ptr", "row_slots", "row_send", "win_row_ptr",
-                 "win_row_slots", "win_long")
+                 "row_ptr", "row_slots", "row_send", "row_long",
+                 "win_row_ptr", "win_row_slots", "win_long")
 
 
 def assert_same(jax_obj, port_obj, path, skip=()):
