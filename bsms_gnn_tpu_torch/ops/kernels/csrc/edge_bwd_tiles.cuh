@@ -17,8 +17,8 @@
 //   dwf_nrm        = Σ_e ‖Δ_e‖ · dpre[e] (kDyn; f32, dpre before its bf16
 //                    rounding),
 // with Δ_e = pos[send_e] − pos[recv_e] taken in f32 from the positions as
-// stored, as edge_tile.cuh's chunk front takes it. The positions get no
-// cotangent. dxj is not summed here: the caller gathers it from dpre over
+// stored, as kernel 13's forward takes it (edge_fwd_tiles.cuh, the same
+// front). The positions get no cotangent. dxj is not summed here: the caller gathers it from dpre over
 // the receiver lists (row_gather.cuh), so no shared dxj block is kept.
 //
 // What bounds it: operations, in true f32 on the CUDA cores (no TF32): per
@@ -271,7 +271,7 @@ __device__ __forceinline__ void round_tile(float* t) {
 // kWin and kDyn, the tile's fiber stream (rounded in BF16 mode); with kDyn
 // also dyn.delta [MAX_WD][TR] (Δ, rounded in BF16 mode as the dot operand;
 // zero sender position for an out-of-window slot) and dyn.nrm [TR] (‖Δ‖ in
-// f32 from the unrounded Δ), as edge_tile_pre fills them; kStream sets
+// f32 from the unrounded Δ); kStream sets
 // s_row to the receiver row where it lies in the chunk's block and -1
 // elsewhere (the rows kernel 12's front reads from xj). Returns whether any
 // slot is live (kWin, kDyn: an in-window sender and a receiver in the
@@ -329,7 +329,7 @@ __device__ __forceinline__ bool tile_slots(
 // dot operand). kWin: pre = fiber·wf8 + xwi[send] + xj[recv], with `wf` the
 // [8][C] fiber weights and `fib` the tile's fiber stream in shared memory;
 // kDyn: that plus Δ·wf_dyn + ‖Δ‖·wf_nrm from `dyn` (tile_slots' Δ and ‖Δ‖,
-// the weights in shared memory), summed as edge_tile_pre sums it; kStream:
+// the weights in shared memory), added after the kWin sum; kStream:
 // pre = src[t0 + r], plus xj[s_row[r]] where xj is given (kernel 12) and
 // the slot's receiver lies in its chunk's block (stream_tile_pre's sum). A
 // warp owns rows warp + j·NW, each lane 4 columns; each group of HB rows'

@@ -1,10 +1,15 @@
-// The forward edge walk of kernel 4 (fused_gmp.cu), replacing the TPU
-// kernel `bsms_gnn_tpu/ops/pallas/fused_gmp.py:568` (`_get_fwd3`). Per
-// live slot e (an in-window sender whose receiver lies in its chunk's
-// 128-row block) it computes the message
-//   msg[e] = LN(tail(relu(fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e])))
-// with kernel 4's rounding points (rounded to bf16 in BF16 mode, where the
-// TPU kernel rounds it before its f32 sum) and stores it; the aggregate is
+// The forward edge walk of kernels 4 (fused_gmp.cu), 13 (fused_gmp_dyn.cu)
+// and 14 (fused_gmp_k.cu), replacing the TPU kernels
+// `bsms_gnn_tpu/ops/pallas/fused_gmp.py:568` (`_get_fwd3`, front kWin),
+// `:664` (`_get_fwd4`, front kDyn: kWin plus the world-space terms) and
+// `:1369` (`_get_fwd5`, front kWin). Per live slot e (an in-window sender
+// whose receiver lies in its chunk's 128-row block) it computes the message
+//   msg[e] = LN(tail(relu(fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e]
+//                         [+ Δ_e·wf_dyn + ‖Δ_e‖·wf_nrm with kDyn])))
+// with Δ_e = pos[send_e] − pos[recv_e] in f32 from the positions as stored,
+// and kernel 4's rounding points (rounded to bf16 in BF16 mode, where the
+// TPU kernel rounds it before its f32 sum; with kDyn Δ and wf_dyn rounded
+// as dot operands, ‖Δ‖·wf_nrm in f32), and stores it; the aggregate is
 // summed from msg by the receiver gather of row_gather.cuh
 // (`recv_gather_kernel` over `win_row_*`, which list exactly these slots).
 //
@@ -17,8 +22,9 @@
 //   blocks (SMs × the blocks per SM the kernel reaches, at most T), block b
 //   walking the tile range [⌊b·T/G⌋, ⌊(b+1)·T/G⌋) in order; each tile finds
 //   its chunk, output block and window from its first slot. The airfoil's
-//   levels hold 82 down to one 512-slot chunk: a block per chunk left every
-//   level on fewer SMs than the card has for a whole 8-tile walk.
+//   levels hold 82 down to one 512-slot chunk, the flag's 25 down to one:
+//   a block per chunk left every level on fewer SMs than the card has for
+//   a whole 8-tile walk.
 // - A dead tile (no live slot) skips the front and the GEMMs and writes
 //   nothing: no msg row of it is listed.
 // - The tail runs in place in one TR×C tile (each warp reads and writes
@@ -30,9 +36,9 @@
 // - No shared-memory output block, no per-chunk part and no chunk sum: the
 //   messages' sum is the gather's, in list order, with no atomics, so two
 //   calls agree bit for bit.
-// - One TR×C tile and two slabs take about 103 KB of shared memory, so two
-//   blocks fit on an SM: one block's loads of the front overlap the other's
-//   products.
+// - One TR×C tile and two slabs take about 103 KB of shared memory (kDyn
+//   3.75 KB more: wf_dyn, wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit
+//   on an SM: one block's loads of the front overlap the other's products.
 #pragma once
 
 #include "edge_bwd_tiles.cuh"
@@ -43,9 +49,12 @@ namespace tiles {
 constexpr int FWD_MIN_BLOCKS = 2;
 
 // Shared memory of the forward walk: the tile, two weight slabs, the fiber
-// weights and stream, then the three int tables of the tile's slots.
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * ((size_t)TR * C + 2 * KS * C + 8 * C + 8 * TR) +
+// weights and stream, with kDyn wf_dyn, wf_nrm and the tile's Δ and ‖Δ‖,
+// then the three int tables of the tile's slots.
+constexpr size_t fwd_smem_bytes(Front f) {
+  return sizeof(float) * ((size_t)TR * C + 2 * KS * C + 8 * C + 8 * TR +
+                          (f == Front::kDyn
+                               ? MAX_WD * C + C + MAX_WD * TR + TR : 0)) +
          sizeof(int) * 3 * TR;
 }
 
@@ -63,23 +72,34 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// The walk: xwi, xj, fiber_t, wf8, send_win, win_base as kernel 4's; W the
-// tail's stack (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in
-// the activations' type, written on live slots only.
-template <typename T, bool BF16>
+// The walk. kWin: xwi, xj, fiber_t, wf8, send_win, win_base as kernel 4's;
+// kDyn (kernel 13): those plus the positions pos [n_pad][wd] (xwi's type),
+// wf_dyn [wd][C] and wf_nrm [C]. W the tail's stack (bf16 values in BF16
+// mode), B its biases; msg [E_pad][C] in the activations' type, written on
+// live slots only.
+template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const float* __restrict__ wf8,
     const float* __restrict__ W, const float* __restrict__ B, int n_layers,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg) {
+    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg,
+    const T* __restrict__ pos = nullptr,
+    const float* __restrict__ wfd_g = nullptr,
+    const float* __restrict__ wfn_g = nullptr, int wd = 0) {
+  static_assert(F != Front::kStream, "the forward walk is windowed");
+  constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);  // [TR][C] the tile's rows
   float* wslab = h + TR * C;                    // [2][KS][C] weight slabs
   float* wf = wslab + 2 * KS * C;               // [8][C] fiber weights
   float* fib = wf + 8 * C;                      // [8][TR] fiber stream
-  int* s_row = reinterpret_cast<int*>(fib + 8 * TR);
+  float* wfd = fib + 8 * TR;                    // DYN: [MAX_WD][C] wf_dyn
+  float* wfn = wfd + (DYN ? MAX_WD * C : 0);    // DYN: [C] wf_nrm
+  float* delta = wfn + (DYN ? C : 0);           // DYN: [MAX_WD][TR] Δ
+  float* nrm = delta + (DYN ? MAX_WD * TR : 0);  // DYN: [TR] ‖Δ‖
+  int* s_row = reinterpret_cast<int*>(nrm + (DYN ? TR : 0));
   int* s_recv = s_row + TR;
   int* s_loc = s_recv + TR;
 
@@ -88,15 +108,21 @@ __device__ __forceinline__ void edge_fwd_tiles(
   const int t_begin = (int)((long long)b * n_tiles / G);
   const int t_end = (int)((long long)(b + 1) * n_tiles / G);
   for (int i = tid; i < 8 * C; i += NT) wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
+  if constexpr (DYN) {  // wf_dyn rounded in BF16 mode, wf_nrm in f32
+    for (int i = tid; i < wd * C; i += NT)
+      wfd[i] = BF16 ? round_bf16(wfd_g[i]) : wfd_g[i];
+    for (int i = tid; i < C; i += NT) wfn[i] = wfn_g[i];
+  }
+  const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   for (int t = t_begin; t < t_end; ++t) {
     const int t0 = t * TR, ch = t0 / edge_block;
-    if (!tile_slots<BF16, Front::kWin>(t0, ch, fiber_t, send_win, win_base,
-                                       receivers, chunk_block, e_pad, window,
-                                       s_row, s_recv, s_loc, fib))
+    if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
+                                receivers, chunk_block, e_pad, window, s_row,
+                                s_recv, s_loc, fib, dyn))
       continue;  // a dead tile: no message of it is listed
-    tile_front<T, BF16, Front::kWin>(t0, xwi, xj, wf, fib, s_row, s_recv, h);
+    tile_front<T, BF16, F>(t0, xwi, xj, wf, fib, s_row, s_recv, h, dyn);
     for (int l = 0; l < n_layers; ++l) {
       float acc[RW][4] = {};
       gemm_rows(acc, h, W + (size_t)l * C * C,
@@ -121,17 +147,17 @@ __device__ __forceinline__ void edge_fwd_tiles(
   cp_async_wait_all();  // the next tile's first slab, never used
 }
 
-// Blocks of one SM the forward walk reaches for `kernel` (the launch
-// bounds, registers and shared memory decide), after raising its
+// Blocks of one SM the forward walk with front f reaches for `kernel` (the
+// launch bounds, registers and shared memory decide), after raising its
 // shared-memory limit.
 template <typename K>
-cudaError_t fwd_blocks_per_sm(K kernel, int* out) {
+cudaError_t fwd_blocks_per_sm(K kernel, Front f, int* out) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)fwd_smem_bytes());
+      (int)fwd_smem_bytes(f));
   if (attr != cudaSuccess) return attr;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, NT,
-                                                       fwd_smem_bytes());
+                                                       fwd_smem_bytes(f));
 }
 
 }  // namespace tiles

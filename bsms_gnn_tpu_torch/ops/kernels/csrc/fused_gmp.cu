@@ -23,15 +23,15 @@ fused_edge_phase_win_kernel(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg) {
-  tiles::edge_fwd_tiles<T, BF16>(fiber_t, xwi, xj, wf8, W, B, n_layers,
-                                 send_win, win_base, receivers, chunk_block,
-                                 n_tiles, e_pad, edge_block, window, msg);
+  tiles::edge_fwd_tiles<T, BF16, Front::kWin>(
+      fiber_t, xwi, xj, wf8, W, B, n_layers, send_win, win_base, receivers,
+      chunk_block, n_tiles, e_pad, edge_block, window, msg);
 }
 
 template <typename T, bool BF16>
 int blocks_per_sm(int* out) {
   return (int)tiles::fwd_blocks_per_sm(fused_edge_phase_win_kernel<T, BF16>,
-                                       out);
+                                       Front::kWin, out);
 }
 
 template <typename T, bool BF16>
@@ -50,10 +50,11 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   auto kernel = fused_edge_phase_win_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles::fwd_smem_bytes());
+      (int)tiles::fwd_smem_bytes(Front::kWin));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, tiles::NT, tiles::fwd_smem_bytes(), s>>>(
+  const size_t smem = tiles::fwd_smem_bytes(Front::kWin);
+  kernel<<<grid, tiles::NT, smem, s>>>(
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, n_layers, (const int*)send_win,
       (const int*)win_base, (const int*)receivers, (const int*)chunk_block,

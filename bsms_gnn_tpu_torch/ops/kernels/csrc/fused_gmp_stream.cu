@@ -15,7 +15,7 @@ using namespace bsms;
 
 namespace {
 
-constexpr size_t SMEM_BYTES = edge_fwd_smem_bytes<false>();
+constexpr size_t SMEM_BYTES = edge_fwd_smem_bytes();
 
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(THREADS)
@@ -23,11 +23,10 @@ fused_edge_phase_kernel(const T* __restrict__ zi, const T* __restrict__ xj,
                         const float* __restrict__ W,
                         const float* __restrict__ B, int n_layers,
                         const int* __restrict__ receivers,
-                        const int* __restrict__ chunk_block, int e_pad,
-                        int edge_block, float* __restrict__ part) {
-  edge_phase_fwd_chunk<T, BF16, Front::kStream>(
-      nullptr, zi, xj, nullptr, nullptr, nullptr, nullptr, 0, W, B, n_layers,
-      nullptr, nullptr, receivers, chunk_block, e_pad, edge_block, 0, part);
+                        const int* __restrict__ chunk_block, int edge_block,
+                        float* __restrict__ part) {
+  edge_phase_fwd_chunk<T, BF16>(zi, xj, W, B, n_layers, receivers,
+                                chunk_block, edge_block, part);
 }
 
 // xj is always null here: the signature is kernel 12's, so that one launcher
@@ -40,12 +39,9 @@ fused_edge_mlp_aggregate_kernel(const T* __restrict__ pre,
                                 const float* __restrict__ B, int n_layers,
                                 const int* __restrict__ receivers,
                                 const int* __restrict__ chunk_block,
-                                int e_pad, int edge_block,
-                                float* __restrict__ part) {
-  edge_phase_fwd_chunk<T, BF16, Front::kStream>(
-      nullptr, pre, nullptr, nullptr, nullptr, nullptr, nullptr, 0, W, B,
-      n_layers, nullptr, nullptr, receivers, chunk_block, e_pad, edge_block,
-      0, part);
+                                int edge_block, float* __restrict__ part) {
+  edge_phase_fwd_chunk<T, BF16>(pre, nullptr, W, B, n_layers, receivers,
+                                chunk_block, edge_block, part);
 }
 
 // V2: kernel 12 (src = zi, with xj), else kernel 11 (src = pre, xj null).
@@ -54,7 +50,8 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
            const void* receivers, const void* chunk_block,
            const void* chunk_ptr, int n_layers, int n_chunks, int n_blocks,
            int e_pad, int edge_block, void* part, void* out, void* stream) {
-  if (edge_block % TILE || (xj != nullptr) != V2)
+  if (edge_block % TILE || e_pad != n_chunks * edge_block ||
+      (xj != nullptr) != V2)
     return (int)cudaErrorInvalidValue;
   auto kernel = V2 ? fused_edge_phase_kernel<T, BF16>
                    : fused_edge_mlp_aggregate_kernel<T, BF16>;
@@ -63,7 +60,7 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
   if (attr != cudaSuccess) return (int)attr;
   kernel<<<n_chunks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const T*)src, (const T*)xj, (const float*)W, (const float*)B, n_layers,
-      (const int*)receivers, (const int*)chunk_block, e_pad, edge_block,
+      (const int*)receivers, (const int*)chunk_block, edge_block,
       (float*)part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -12,7 +12,8 @@ still run the edge MLP but are masked from the scatter; the caller adds the
 compact residual (`compact_resid.py`).
 
 CUDA design (`csrc/fused_gmp.cu` over the forward tile walk of
-`csrc/edge_fwd_tiles.cuh`). What bounds it on the card: operations. Each
+`csrc/edge_fwd_tiles.cuh`, which kernels 13 and 14 share). What bounds it
+on the card: operations. Each
 live slot costs L·2·128·128 FLOP in the tail (≈ 4.1 GFLOP at the 5k
 mesh's level 0), against a few MB of traffic; in f32 that runs on the CUDA
 cores (FMA, no TF32). The walk has the backward walk's grid plan (kernel 5
@@ -48,9 +49,10 @@ recomputes each chunk's forward (remat in the kernel) and returns
     dW [L, C, C], db [L, C]   the tail layers' weight and bias gradients
 
 CUDA design (`csrc/fused_gmp_bwd.cu` over the tile walk of
-`csrc/edge_bwd_tiles.cuh`, which kernel 11's backward shares). What bounds
-it: operations, about three times kernel 4's (the recompute, the cotangent
-GEMMs and the weight-gradient GEMMs), in true f32 on the CUDA cores. A
+`csrc/edge_bwd_tiles.cuh`, which the backwards of kernels 11-14 share).
+What bounds it: operations, about three times kernel 4's (the recompute,
+the cotangent GEMMs and the weight-gradient GEMMs), in true f32 on the
+CUDA cores. A
 persistent grid of G blocks (the SM count times the blocks per SM the
 kernel reaches, `walk_fill`, at most the level's tiles) walks the level's
 64-slot tiles, block b the contiguous range `tile_ranges(T, G)[b] ..
@@ -63,11 +65,11 @@ layer's input, the LayerNorm output and the running cotangent in shared
 memory, the tail weights' 64-row slabs double-buffered by cp.async (the
 next GEMM's first slab loading during the current one's last). The TPU
 carries dW, db and dwf8 in scratch across its sequential grid; here each
-block adds its tiles into its own partial and `grad_sum_kernel` (kernel
-6's, 12's and 13's too) sums the G partials in block order: every gradient
-is the same from run to run, with no atomics, and the partials (G × 201
-KB) stay in L2. dxj is not summed in the walk: a launch between the two,
-the row-ordered gather of `csrc/row_gather.cuh`
+block adds its tiles into its own partial and `grad_sum_kernel` (also
+kernel 6's and 11-14's backwards') sums the G partials in block order:
+every gradient is the same from run to run, with no atomics, and the
+partials (G × 201 KB) stay in L2. dxj is not summed in the walk: a launch
+between the two, the row-ordered gather of `csrc/row_gather.cuh`
 (`recv_gather_kernel`), sums dpre over each receiver row's live slots
 (`win_row_ptr`, `win_row_slots`, `win_long`, kernel 1's lists), which are
 exactly the slots the walk gives a cotangent. In bf16 mode the wrapper
@@ -104,15 +106,8 @@ LN_EPS = 1e-5
 MAX_BWD_LAYERS = 3
 _FN = {torch.float32: "fused_edge_phase_win_f32",
        torch.bfloat16: "fused_edge_phase_win_bf16"}
-_SIGS = {**{f: [build.P] * 13 + [build.I] * 9 + [build.P] * 3
-            for f in _FN.values()},
-         **{f + "_blocks_per_sm": [build.I, build.P] for f in _FN.values()}}
 _BWD_FN = {torch.float32: "fused_edge_phase_win_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_bwd_bf16"}
-_BWD_SIGS = {**{f: [build.P] * 15 + [build.I] * 9 + [build.P] * 5
-                for f in _BWD_FN.values()},
-             **{f + "_blocks_per_sm": [build.I, build.P]
-                for f in _BWD_FN.values()}}
 # Slots per tile of the tile walk (`csrc/edge_bwd_tiles.cuh`'s TR, held to
 # this value by a static_assert there).
 TILE_ROWS = 64
@@ -242,11 +237,33 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
                                           biases)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    build.require("fused_edge_phase_win", xwi.device, level.send_win,
-                  level.win_base, level.receivers, level.chunk_block,
-                  level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp", _SIGS)
-    fn, dev = _FN[xwi.dtype], xwi.device
+    out = win_fwd_launch("fused_edge_phase_win", "fused_gmp", _FN, level,
+                         xwi, xj, wf8, weights, biases)
+    fused_edge_phase_win_fwd.launches += 1
+    return out
+
+
+def walk_sigs(fns: Dict[torch.dtype, str], n_in: int, n_int: int,
+              n_out: int) -> Dict[str, list]:
+    """The C signatures of a tile walk's library: each function of `fns`
+    takes n_in pointers, n_int ints and n_out pointers (the stream last);
+    its `_blocks_per_sm` (n_layers, int*)."""
+    return {**{f: [build.P] * n_in + [build.I] * n_int + [build.P] * n_out
+               for f in fns.values()},
+            **{f + "_blocks_per_sm": [build.I, build.P]
+               for f in fns.values()}}
+
+
+def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
+                   biases):
+    """aggr [n_pad, 128] f32 by the windowed forward tile walk of
+    `csrc/<lib_name>.cu` (kernel 4's, or kernel 14's under its own names;
+    `fns`: dtype → C function) on CUDA tensors."""
+    build.require(what, xwi.device, level.send_win, level.win_base,
+                  level.receivers, level.chunk_block, level.win_row_ptr,
+                  level.win_row_slots, level.win_long)
+    lib = build.library(lib_name, walk_sigs(fns, 13, 9, 3))
+    fn, dev = fns[xwi.dtype], xwi.device
     n_tiles, grid = walk_grid(lib, fn, len(weights), level)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
@@ -266,8 +283,7 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
         level.win_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(err, "fused_edge_phase_win")
-    fused_edge_phase_win_fwd.launches += 1
+    build.check(err, what)
     return out
 
 
@@ -358,11 +374,22 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
     if len(weights) > MAX_BWD_LAYERS:
         raise NotImplementedError(
             f"{len(weights)} tail layers (kernel 5 takes {MAX_BWD_LAYERS})")
-    build.require("fused_edge_phase_win_bwd", xwi.device, level.send_win,
-                  level.win_base, level.receivers, level.chunk_block,
-                  level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_bwd", _BWD_SIGS)
-    fn = _BWD_FN[xwi.dtype]
+    out = win_bwd_launch("fused_edge_phase_win_bwd", "fused_gmp_bwd",
+                         _BWD_FN, level, xwi, xj, wf8, weights, biases, g)
+    fused_edge_phase_win_bwd.launches += 1
+    return out
+
+
+def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
+                   biases, g):
+    """(dpre, dxj, dwf8, dW, db) by the windowed backward tile walk of
+    `csrc/<lib_name>.cu` (kernel 5's, or kernel 14's under its own names;
+    `fns`: dtype → C function) on CUDA tensors."""
+    build.require(what, xwi.device, level.send_win, level.win_base,
+                  level.receivers, level.chunk_block, level.win_row_ptr,
+                  level.win_row_slots, level.win_long)
+    lib = build.library(lib_name, walk_sigs(fns, 15, 9, 5))
+    fn = fns[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
     n_tiles, grid = walk_grid(lib, fn, n_layers, level)
     bf16 = xwi.dtype == torch.bfloat16
@@ -390,8 +417,7 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
         gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(err, "fused_edge_phase_win_bwd")
-    fused_edge_phase_win_bwd.launches += 1
+    build.check(err, what)
     dw, rest = grads.split([n_layers * BN * BN, grad_size - n_layers * BN * BN])
     db, dwf8 = rest.split([n_layers * BN, 8 * BN])
     return (dpre, dxj, dwf8.view(8, BN), dw.view(n_layers, BN, BN),

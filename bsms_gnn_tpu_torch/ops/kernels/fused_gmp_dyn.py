@@ -22,31 +22,35 @@ receiver tables (a lane-alignment device) and keeps wf_dyn as a [C, C]
 block. Here the positions are their own [n_pad, wd] tensor and wf_dyn stays
 [wd, C].
 
-CUDA design. The forward (`csrc/fused_gmp_dyn.cu`) is the chunk walk of
-`csrc/edge_phase.cuh` with the kDyn front: one block per 512-slot chunk,
-its dxj parts summed by `block_sum_kernel`. Per 64-slot tile, the threads
-that fill the slot tables also read the wd position components of both
-ends and keep Δ (wd rows) and ‖Δ‖ in shared memory (1 KB a tile); wf_dyn
-and wf_nrm join wf8 in shared memory. The backward
-(`csrc/fused_gmp_dyn_bwd.cu`) is kernel 5's persistent tile walk
-(`csrc/edge_bwd_tiles.cuh`) with the same kDyn front: G blocks (SMs × the
-blocks per SM the kernel reaches, `fused_gmp.walk_fill`, at most the
-level's tiles) walk the level's 64-slot tiles, block b the range
-`tile_ranges(T, G)[b] .. [b + 1]`, so a level of few chunks (the flag's
-hold 25 down to one) still spreads over the card. A tile with no live slot
-writes zero dpre rows and skips the walk. Each block adds Δᵀ·dpre and
-Σ ‖Δ‖·dpre, beside the fiber-weighted sums that give dwf8, to its own
-weight-gradient partial [dW | db | dwf8 | dwf_dyn | dwf_nrm], and
-`grad_sum_kernel` adds the G partials in block order (no atomics); dxj is
-the row-ordered gather (`recv_gather_kernel`) of dpre over the receiver
-lists `win_row_*`, which hold exactly the slots the walk gives a
-cotangent, as kernel 5's. One block per SM: 207,360 bytes of shared
-memory at three tail layers (kernel 5's 203,520 plus 3,840 for Δ, ‖Δ‖,
-wf_dyn and wf_nrm; `csrc/edge_bwd_tiles.cuh`'s `smem_bytes`), and in bf16
-mode the tail weights come already rounded (`build.stacked(...,
-to_bf16=True)`). What bounds it on the card: operations, as kernel 4
-(and kernel 5 for the backward), plus 2·(wd+1)·C per slot; the positions
-add a few bytes per slot.
+CUDA design. Both directions run the tile walks of kernels 4 and 5 with the
+kDyn front, under kernel 13's own names: G blocks (SMs × the blocks per SM
+the kernel reaches, `fused_gmp.walk_fill`, at most the level's tiles) walk
+the level's 64-slot tiles, block b the range `tile_ranges(T, G)[b] ..
+[b + 1]`, so a level of few chunks (the flag's hold 25 down to one 512-slot
+chunk, 200 down to 8 tiles) still spreads over the card. Per tile, the
+threads that fill the slot tables also read the wd position components of
+both ends and keep Δ (wd rows) and ‖Δ‖ in shared memory (1 KB a tile);
+wf_dyn and wf_nrm join wf8 in shared memory once per block.
+- Forward (`csrc/fused_gmp_dyn.cu` over `csrc/edge_fwd_tiles.cuh`, two
+  blocks per SM at about 107 KB of shared memory each): dead tiles
+  skipped, each live slot's message stored into a transient `msg [E_pad,
+  128]` in the activations' dtype, then `recv_gather_kernel` sums the
+  aggregate over the receiver lists `win_row_*` in list order: no
+  shared-memory output block, no per-chunk part, no block sum.
+- Backward (`csrc/fused_gmp_dyn_bwd.cu` over `csrc/edge_bwd_tiles.cuh`,
+  one block per SM: 207,360 bytes of shared memory at three tail layers,
+  kernel 5's 203,520 plus 3,840 for Δ, ‖Δ‖, wf_dyn and wf_nrm): a tile
+  with no live slot writes zero dpre rows and skips the walk. Each block
+  adds Δᵀ·dpre and Σ ‖Δ‖·dpre, beside the fiber-weighted sums that give
+  dwf8, to its own weight-gradient partial [dW | db | dwf8 | dwf_dyn |
+  dwf_nrm], and `grad_sum_kernel` adds the G partials in block order (no
+  atomics); dxj is the row-ordered gather (`recv_gather_kernel`) of dpre
+  over the same receiver lists, which hold exactly the slots the walk
+  gives a cotangent.
+In bf16 mode the tail weights come already rounded (`build.stacked(...,
+to_bf16=True)`). What bounds it on the card: operations, as kernel 4 (and
+kernel 5 for the backward), plus 2·(wd+1)·C per slot; the positions add a
+few bytes per slot.
 
 bf16 mode follows the TPU kernel: the positions are bf16 (the caller casts
 them to the activations' dtype), Δ is taken in f32 from those values and
@@ -79,20 +83,16 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     round_bf16,
     sender_rows,
     walk_grid,
+    walk_sigs,
 )
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum
 
 # Widest world-position stream the CUDA kernels take (`csrc/edge_tile.cuh`).
 MAX_WD = 4
-_SIG = [build.P] * 14 + [build.I] * 7 + [build.P] * 3
 _FN = {torch.float32: "fused_edge_phase_win_dyn_f32",
        torch.bfloat16: "fused_edge_phase_win_dyn_bf16"}
 _BWD_FN = {torch.float32: "fused_edge_phase_win_dyn_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_dyn_bwd_bf16"}
-_BWD_SIGS = {**{f: [build.P] * 18 + [build.I] * 10 + [build.P] * 5
-                for f in _BWD_FN.values()},
-             **{f + "_blocks_per_sm": [build.I, build.P]
-                for f in _BWD_FN.values()}}
 
 
 def _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases):
@@ -161,25 +161,28 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
     wd = _kernel_wd(wfd)
     build.require("fused_edge_phase_win_dyn", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
-    lib = build.library("fused_gmp_dyn", {f: _SIG for f in _FN.values()})
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
+                  level.win_row_ptr, level.win_row_slots, level.win_long)
+    lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 10, 3))
+    fn, dev = _FN[xwi.dtype], xwi.device
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    bf16 = xwi.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     xwi, xj, pos = xwi.contiguous(), xj.contiguous(), pos.contiguous()
     wf8, wfd, wfn = (t.detach().float().contiguous() for t in (wf8, wfd, wfn))
-    n_chunks = level.n_pad_edges // level.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32,
-                       device=xwi.device)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=xwi.device)
-    err = getattr(lib, _FN[xwi.dtype])(
+    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
+    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         pos.data_ptr(), wf8.data_ptr(), wfd.data_ptr(), wfn.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), level.send_win.data_ptr(),
         level.win_base.data_ptr(), level.receivers.data_ptr(),
-        level.chunk_block.data_ptr(), level.chunk_ptr.data_ptr(),
-        len(weights), wd, n_chunks, level.n_pad_nodes // BN,
-        level.n_pad_edges, level.edge_block, level.window, part.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(xwi.device).cuda_stream,
+        level.chunk_block.data_ptr(), level.win_row_ptr.data_ptr(),
+        level.win_row_slots.data_ptr(), level.win_long.data_ptr(),
+        len(weights), wd, grid, n_tiles, level.n_pad_edges, level.edge_block,
+        level.window, level.n_pad_nodes, level.win_long.numel(),
+        GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win_dyn")
     fused_edge_phase_win_dyn_fwd.launches += 1
@@ -235,7 +238,7 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     build.require("fused_edge_phase_win_dyn_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
                   level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_dyn_bwd", _BWD_SIGS)
+    lib = build.library("fused_gmp_dyn_bwd", walk_sigs(_BWD_FN, 18, 10, 5))
     fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
     n_tiles, grid = walk_grid(lib, fn, n_layers, level)

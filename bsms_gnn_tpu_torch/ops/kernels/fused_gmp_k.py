@@ -17,35 +17,33 @@ output, and the K outputs are summed under visited-block masks. K changes
 only the order of the sums.
 
 CUDA design. The card needs no interleaved streams (its warps interleave)
-and no masked combine: every sum runs in an order fixed by the layout.
-- Forward (`csrc/fused_gmp_k.cu`): kernel 4's forward tile walk
-  (`csrc/edge_fwd_tiles.cuh`, see `fused_gmp.py`) under kernel 14's own
-  name: a persistent grid of G blocks (`walk_grid`, two per SM) over the
-  level's 64-slot tiles, dead tiles skipped, each live slot's message
-  stored into a transient `msg [E_pad, 128]`, then the receiver gather
+and no masked combine: every sum runs in an order fixed by the layout, and
+K orders nothing. Both directions run kernel 4's and kernel 5's tile walks
+under kernel 14's own names (so the profiler tells them apart): a
+persistent grid of G blocks (`walk_grid`: the SMs times the blocks per SM
+the kernel reaches, at most the level's tiles) over the level's 64-slot
+tiles, block b the range `tile_ranges(T, G)[b] .. [b + 1]` in order, so
+the gated levels' few chunks (the 5k airfoil's levels 3–5: 34, 30 and 24
+chunks of 512 slots, 272, 240 and 192 tiles, for 132 SMs) spread over
+every SM.
+- Forward (`csrc/fused_gmp_k.cu` over `csrc/edge_fwd_tiles.cuh`, two
+  blocks per SM): dead tiles skipped, each live slot's message stored into
+  a transient `msg [E_pad, 128]`, then the receiver gather
   (`recv_gather_kernel` over `win_row_*`, which list exactly those slots)
-  sums the aggregate in list order. No shared-memory output block, no
-  per-group part, no block sum, and nothing of K: a step that stacked
-  `stack_width(K)` tiles on 512 threads, so that each staged weight slab
-  served them all, read slower on an H100 at the 5k airfoil's gated levels
-  (one block per SM; PERF.md).
-- Backward (`csrc/fused_gmp_k_bwd.cu` over the chunk walk of
-  `csrc/edge_phase_bwd.cuh`): kernel 5 keeps every tail layer's input, the
-  LayerNorm output and the cotangent of one 64-slot tile (128 KB at 3 tail
-  layers) beside the dxj block (64 KB), so a block has no room for a second
-  tile. A group of up to S = min(K, 4) consecutive chunks of one output
-  block is a thread block cluster of S blocks, one per chunk, each walking
-  its chunk as kernel 5's first design did; then, through distributed
-  shared memory, each block of the cluster sums its share of the group's
-  dxj blocks and weight-gradient partials, in chunk order, into one part
-  and one partial per group, so the final sum of the partials reads S
-  times fewer. The cluster of a chunk that does not start a group returns
-  at once; the block sum (stride S) and the partials' sum read only the
-  groups' first chunks, in chunk order. Deterministic, no atomics.
-What bounds it on the card: operations, as kernels 4 and 5. The gated
-levels hold few chunks (the 5k airfoil's levels 3–5: 34, 30 and 24 chunks
-of 512 slots for 132 SMs), so a block per group of chunks left most SMs
-idle; the tile walk spreads their 272, 240 and 192 tiles over every SM.
+  sums the aggregate in list order. A step that stacked K tiles on 512
+  threads, so that each staged weight slab served them all, read slower
+  on an H100 at the 5k airfoil's gated levels (one block per SM;
+  PERF.md).
+- Backward (`csrc/fused_gmp_k_bwd.cu` over `csrc/edge_bwd_tiles.cuh`, one
+  block per SM): a tile with no live slot writes zero dpre rows; a live
+  tile recomputes the forward and runs the LayerNorm backward and the tail
+  in reverse, and each block adds its tiles into its own weight-gradient
+  partial [dW | db | dwf8] (`gpart [G, grad_size]`, freed after the call);
+  then `recv_gather_kernel` sums dxj from dpre over the same receiver
+  lists and `grad_sum_kernel` sums the G partials in block order. In bf16
+  mode the tail stacks W and Wᵀ come already rounded
+  (`build.stacked(..., to_bf16=True)`). Deterministic, no atomics.
+What bounds it on the card: operations, as kernels 4 and 5.
 
 `fused_edge_phase_win_k` follows JAX's entry (`fused_gmp.py:1429-1460`)
 gate by gate: K ≤ 1, or fewer than `min_density` chunks per 128-node
@@ -61,30 +59,23 @@ from __future__ import annotations
 
 import torch
 
-from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
-from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
     MAX_BWD_LAYERS,
     EdgePhase,
     _check,
     fused_edge_phase_win,
-    walk_grid,
+    win_bwd_launch,
     win_bwd_plain,
+    win_fwd_launch,
     win_fwd_plain,
 )
 
 # JAX's gate: v5 only where a level has at least this many edge chunks per
 # 128-node output block (`fused_edge_phase_win_k`'s `min_density`).
 MIN_DENSITY = 6
-# The widest group of chunks one cluster of the backward takes.
-MAX_STACK = 4
 _FN = {torch.float32: "fused_edge_phase_win_k_f32",
        torch.bfloat16: "fused_edge_phase_win_k_bf16"}
-_SIGS = {**{f: [build.P] * 13 + [build.I] * 9 + [build.P] * 3
-            for f in _FN.values()},
-         **{f + "_blocks_per_sm": [build.I, build.P] for f in _FN.values()}}
-_BWD_SIG = [build.P] * 13 + [build.I] * 7 + [build.P] * 6
 _BWD_FN = {torch.float32: "fused_edge_phase_win_k_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_k_bwd_bf16"}
 
@@ -96,12 +87,9 @@ def passes_gate(level, min_density: int = MIN_DENSITY) -> bool:
             >= min_density * (level.n_pad_nodes // BN))
 
 
-def stack_width(k: int) -> int:
-    """The chunks one cluster of kernel 14's backward takes for the
-    method's K."""
+def _check_k(k: int) -> None:
     if k < 2:
         raise ValueError(f"kernel 14 takes K >= 2, not {k}")
-    return min(k, MAX_STACK)
 
 
 def fused_edge_phase_win_k_plain(level, xwi, xj, wf8, weights, biases, k):
@@ -118,37 +106,14 @@ def fused_edge_phase_win_k_fwd(level, xwi, xj, wf8, weights, biases, k):
     """aggr [n_pad, 128] f32 of the in-window edges, no autograd. CPU
     tensors take the plain version; CUDA tensors launch kernel 14."""
     _check(level, xwi, xj, wf8, weights, biases)
-    stack_width(k)  # raises for K < 2
+    _check_k(k)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_k_plain(level, xwi, xj, wf8, weights,
                                             biases, k)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    build.require("fused_edge_phase_win_k", xwi.device, level.send_win,
-                  level.win_base, level.receivers, level.chunk_block,
-                  level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_k", _SIGS)
-    fn, dev = _FN[xwi.dtype], xwi.device
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
-    bf16 = xwi.dtype == torch.bfloat16
-    w_stack = build.stacked(weights, to_bf16=bf16)
-    b_stack = build.stacked(biases)
-    xwi, xj = xwi.contiguous(), xj.contiguous()
-    wf8 = wf8.detach().float().contiguous()
-    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
-    err = getattr(lib, fn)(
-        level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
-        wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
-        level.send_win.data_ptr(), level.win_base.data_ptr(),
-        level.receivers.data_ptr(), level.chunk_block.data_ptr(),
-        level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
-        level.win_long.data_ptr(), len(weights), grid, n_tiles,
-        level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
-        level.win_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(err, "fused_edge_phase_win_k")
+    out = win_fwd_launch("fused_edge_phase_win_k", "fused_gmp_k", _FN, level,
+                         xwi, xj, wf8, weights, biases)
     fused_edge_phase_win_k_fwd.launches += 1
     return out
 
@@ -172,7 +137,7 @@ def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
     no autograd. CPU tensors take the plain version; CUDA tensors launch
     kernel 14's backward."""
     _check(level, xwi, xj, wf8, weights, biases)
-    stack = stack_width(k)
+    _check_k(k)
     if g.shape != (level.n_pad_nodes, BN):
         raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
     if xwi.device.type == "cpu":
@@ -184,44 +149,10 @@ def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
         raise NotImplementedError(
             f"{len(weights)} tail layers (kernel 14's backward takes "
             f"{MAX_BWD_LAYERS})")
-    build.require("fused_edge_phase_win_k_bwd", xwi.device, level.send_win,
-                  level.win_base, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
-    lib = build.library("fused_gmp_k_bwd",
-                        {f: _BWD_SIG for f in _BWD_FN.values()})
-    dev, n_layers = xwi.device, len(weights)
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
-    wt_stack = build.stacked(weights, transpose=True)
-    xwi, xj = xwi.contiguous(), xj.contiguous()
-    wf8 = wf8.detach().float().contiguous()
-    g = g.detach().float().contiguous()
-    n_chunks = level.n_pad_edges // level.edge_block
-    grad_size = n_layers * BN * BN + n_layers * BN + 8 * BN
-    f32 = dict(dtype=torch.float32, device=dev)
-    # One dxj part per group, at its first chunk's index; a partial per
-    # chunk, summed into its group's first.
-    part = torch.empty(n_chunks, BN, BN, **f32)
-    gpart = torch.empty(n_chunks, grad_size, **f32)
-    dpre = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    dxj = torch.empty(level.n_pad_nodes, BN, **f32)
-    grads = torch.empty(grad_size, **f32)
-    err = getattr(lib, _BWD_FN[xwi.dtype])(
-        level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
-        wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
-        wt_stack.data_ptr(), g.data_ptr(), level.send_win.data_ptr(),
-        level.win_base.data_ptr(), level.receivers.data_ptr(),
-        level.chunk_block.data_ptr(), level.chunk_ptr.data_ptr(), n_layers,
-        n_chunks, level.n_pad_nodes // BN, level.n_pad_edges,
-        level.edge_block, level.window, stack, part.data_ptr(),
-        gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(err, "fused_edge_phase_win_k_bwd")
+    out = win_bwd_launch("fused_edge_phase_win_k_bwd", "fused_gmp_k_bwd",
+                         _BWD_FN, level, xwi, xj, wf8, weights, biases, g)
     fused_edge_phase_win_k_bwd.launches += 1
-    dw, rest = grads.split([n_layers * BN * BN, grad_size - n_layers * BN * BN])
-    db, dwf8 = rest.split([n_layers * BN, 8 * BN])
-    return (dpre, dxj, dwf8.view(8, BN), dw.view(n_layers, BN, BN),
-            db.view(n_layers, BN))
+    return out
 
 
 fused_edge_phase_win_k_bwd.launches = 0

@@ -29,11 +29,13 @@ nothing to dW, db or dxj. The plain versions apply the same mask:
 `index_add_` over all slots would disagree at row n_pad − 1.
 
 CUDA design (`csrc/fused_gmp_stream.cu`, `csrc/fused_gmp_stream_bwd.cu`).
-The forwards run kernel 4's first design, the chunk walk of
-`csrc/edge_phase.cuh`, with a streamed front (`stream_tile_pre` in
+The forwards run a chunk walk, `csrc/edge_phase.cuh` (one block per
+512-slot chunk, the chunk's 128-row output block in shared memory; the
+windowed kernels 4, 13 and 14 run the tile walk of
+`csrc/edge_fwd_tiles.cuh`), with a streamed front (`stream_tile_pre` in
 `csrc/edge_tile.cuh`): per 64-slot tile the threads read each slot's
-receiver, mark it in block or not, and load its row of zi (plus xj's row of
-its receiver) or pre straight into the tile; then the tail MLP and the
+receiver, mark it in block or not, and load its row of zi (plus xj's row
+of its receiver) or pre straight into the tile; then the tail MLP and the
 LayerNorm in shared memory and the add into the chunk's 128-row output
 block, written to a per-chunk part that block_sum_kernel adds in chunk
 order. The backwards run kernel 5's persistent tile walk

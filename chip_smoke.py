@@ -50,10 +50,10 @@ Phases (any failure exits non-zero without the result line):
 10. the flag (flag_simple at full width and depth: a Morton-ordered
    1,568-node cloth strip, depth 5, edge_block 512, window 256, the `fused`
    method with world edges, latent 128, hidden 3): kernel 13 (forward and
-   backward, the backward at every level, twice for bit-identical outputs)
-   and the other kernels of its path against their plain versions at its
-   shapes (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it
-   (kernel 13 and its backward timed), the `Trainer` run (noise γ 0.1)
+   backward, each at every level, twice for bit-identical outputs) and the
+   other kernels of its path against their plain versions at its shapes
+   (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it (kernel 13
+   and its backward timed at every level), the `Trainer` run (noise γ 0.1)
    on the contact recipe's frame pair; kernel 11 (forward and backward) at
    its level 0 too (edge_block 512), against its plain version, and a GMP
    with a 6-wide world stream there (wider than kernel 13 takes: kernel 11's
@@ -78,13 +78,13 @@ Phases (any failure exits non-zero without the result line):
    8 on it (both kernels timed), the `Trainer` run stepping across the
    three meshes on frames of the analytic flow;
 14. the 5k airfoil of phase 2 on `aggregation="fused4"` (the K-way
-   interleaved method): kernel 14's forward at every level that passes
-   the density gate (3, 4 and 5, twice for bit-identical outputs), its
-   backward and kernels 4 and 5 at level 3, against their plain versions
+   interleaved method): kernel 14, forward and backward, at every level
+   that passes the density gate (3, 4 and 5, twice for bit-identical
+   outputs) and kernels 4 and 5 at level 3, against their plain versions
    (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it (kernel 14
-   timed beside kernels 4 and 5 at level 3, its forward at every gated
-   level); its forward and train step also against the `fused` airfoil's
-   with the same weights;
+   timed at every gated level, beside kernels 4 and 5 at level 3); its
+   forward and train step also against the `fused` airfoil's with the same
+   weights;
 15. the v6 prototype's benchmark (`benchmarks/v6_prototype.py`): level 0
    of a Morton-ordered `make_delaunay_mesh` of V6_NODES nodes (window 512,
    edge_block 512), its sub-window tables and their coverage, kernel 15 and
@@ -423,16 +423,18 @@ EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
                      "fused_edge_phase_win", "fused_edge_phase_win_bwd",
                      "fused_edge_mlp_aggregate_bwd", "fused_node_phase",
                      "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd",
-                     "fused_edge_phase_bwd", "fused_edge_phase_win_k")
+                     "fused_edge_phase_bwd", "fused_edge_phase_win_k",
+                     "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd")
 # The kernels on a tile walk (`csrc/edge_fwd_tiles.cuh`,
 # `csrc/edge_bwd_tiles.cuh`): two calls on the same inputs must agree bit
 # for bit (the walk's grid and its order of sums depend only on the card
 # and the layout), and their later shapes are levels of fewer live tiles:
 # kernels 4 and 5 at every level of the airfoil below 0 (6 holds 2 live
 # slots, 7 none), kernel 11's backward at the surface's level 7, kernel
-# 13's backward at every level of the flag below 0, kernel 12's backward at
-# every level of the unwindowed airfoil below 0, kernel 14's forward at the
-# `fused4` airfoil's gated levels after its first (4 and 5). The bf16
+# 13 (forward and backward) at every level of the flag below 0, kernel 12's
+# backward at every level of the unwindowed airfoil below 0, kernel 14
+# (forward and backward) at the `fused4` airfoil's gated levels after its
+# first (4 and 5). The bf16
 # controls run at every shape, and are skipped only for an output that the
 # plain version leaves all zero. Kernels 3 and 6 (`csrc/node_mlp.cu`,
 # `csrc/node_mlp_bwd.cu`, a cluster of CTAs per 64-row tile) are checked
@@ -440,11 +442,13 @@ EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
 # (`NODE_CLUSTERS`).
 TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
               "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_dyn_bwd",
-              "fused_edge_phase_bwd", "fused_edge_phase_win_k")
+              "fused_edge_phase_bwd", "fused_edge_phase_win_k",
+              "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd")
 NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_mlp_aggregate_bwd": (7,),
+               "fused_edge_phase_win_dyn": (1, 2, 3, 4, 5),
                "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 4, 5),
                "fused_edge_phase_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase": (1, 2, 3, 4, 5, 6, 7),
@@ -455,7 +459,9 @@ WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
 WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_mlp_aggregate_bwd": 100, "fused_node_phase_bwd": 300,
              "fused_edge_phase_win_dyn_bwd": 400, "fused_node_phase": 500,
-             "fused_edge_phase_bwd": 600, "fused_edge_phase_win_k": 700}
+             "fused_edge_phase_bwd": 600, "fused_edge_phase_win_k": 700,
+             "fused_edge_phase_win_dyn": 800,
+             "fused_edge_phase_win_k_bwd": 900}
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -470,13 +476,13 @@ ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). The chunk walks (the forwards of kernels 11, 12 and 13, the
-# backward of kernel 14) add the pass that sums each output block's chunk
-# parts (the work the TPU kernel did in its revisited block); kernels 4, 5,
-# 14 and 12's and 13's backwards the receiver gather (the aggregate, dxj);
-# kernels 5, 6 and 11-13's backwards the pass that sums the weight-gradient
-# partials. Kernels 1, 2, 7 and 15 are one launch each (the row-ordered
-# gather).
+# launches). The chunk walks (the forwards of kernels 11 and 12) add the
+# pass that sums each output block's chunk parts (the work the TPU kernel
+# did in its revisited block); the tile walks (kernels 4, 5, 13 and 14,
+# 12's and 13's and 14's backwards) the receiver gather (the aggregate,
+# dxj); kernels 5, 6 and 11-14's backwards the pass that sums the
+# weight-gradient partials. Kernels 1, 2, 7 and 15 are one launch each
+# (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -508,7 +514,7 @@ KERNEL_META = {
         ("fused_aggregate_node_phase_kernel",)),
     "fused_edge_phase_win_dyn": (
         _CSRC + "fused_gmp_dyn.cu", _PALLAS + "fused_gmp.py:664",
-        ("fused_edge_phase_win_dyn_kernel", "block_sum_kernel")),
+        ("fused_edge_phase_win_dyn_kernel", "recv_gather_kernel")),
     "fused_edge_phase_win_dyn_bwd": (
         _CSRC + "fused_gmp_dyn_bwd.cu", _PALLAS + "fused_gmp.py:706",
         ("fused_edge_phase_win_dyn_bwd_kernel", "recv_gather_kernel",
@@ -538,8 +544,8 @@ KERNEL_META = {
         ("fused_edge_phase_win_k_kernel", "recv_gather_kernel")),
     "fused_edge_phase_win_k_bwd": (
         _CSRC + "fused_gmp_k_bwd.cu", _PALLAS + "fused_gmp.py:1639",
-        ("fused_edge_phase_win_k_bwd_kernel", "block_sum_kernel",
-         "group_grad_sum_kernel")),
+        ("fused_edge_phase_win_k_bwd_kernel", "recv_gather_kernel",
+         "grad_sum_kernel")),
     "subwin_conv": (
         _CSRC + "subwin_conv.cu", "benchmarks/v6_prototype.py:150",
         ("subwin_gather_kernel",)),
@@ -1214,13 +1220,20 @@ def kernel_inputs(case, dtype, device):
             ("level 0", (lvl, rand(e0, c, dt=dtype), rand(n0, c, dt=dtype),
                          *mlp_e))]}
     if case["cfg"].world_edges:
-        # Kernel 13 at level 0 on the case's own world positions; kernel 11
-        # there too, on a windowed level (edge_block 512), which no model
-        # path reaches.
-        edge = {"fused_edge_phase_win_dyn": [
-            ("level 0", (lvl, rand(n0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         case["node_in"][:, :3].to(dtype),
-                         *first_layer(gmp), *mlp_e))],
+        # Kernel 13 at every level (level 0's draw first, from g): level 0
+        # on the case's own world positions, the later levels on
+        # unit-normal ones; kernel 11 at level 0 too, on a windowed level
+        # (edge_block 512), which no model path reaches.
+        def dyn_args(l, d, r):
+            n = d.n_pad_nodes
+            pos = (case["node_in"][:, :3].to(dtype) if l == 0
+                   else r(n, 3, dt=dtype))
+            return (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
+                    *first_layer(level_gmp(sim, hd, l)),
+                    *level_tail(sim, hd, l))
+
+        edge = {"fused_edge_phase_win_dyn": level_shapes(
+            hd, "fused_edge_phase_win_dyn", rand, g, dyn_args),
             "fused_edge_mlp_aggregate": [
                 ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e))]}
     else:
@@ -1957,13 +1970,21 @@ def bwd_kernel_inputs(case, dtype, device):
         return level_tail(sim, hd, l)
 
     if interleave(case) > 1:
-        # Kernel 14's backward and, beside it, kernel 5 at the first level
-        # that passes the density gate.
-        where, args = gated_edge_args(case, rand, dtype)
-        g_out = rand(args[0].n_pad_nodes, c)
+        # Kernel 14's backward at every level that passes the density gate
+        # (the first drawn from g, each later one from a generator of its
+        # own) and, beside it, kernel 5 at the first.
+        def gated(rnd, l=None):
+            where, args = gated_edge_args(case, rnd, dtype, l)
+            return where, (*args, rnd(args[0].n_pad_nodes, c))
+
+        first = gated(rand)
+        later = [gated(functools.partial(
+            rand, gen=torch.Generator(device="cpu").manual_seed(
+                WALK_SEED["fused_edge_phase_win_k_bwd"] + l)), l)
+            for l in gated_levels(case)[1:]]
         return {"fused_edge_phase_win_k_bwd": [
-                    (where, (*args, g_out, interleave(case)))],
-                "fused_edge_phase_win_bwd": [(where, (*args, g_out))]}
+                    (w, (*a, interleave(case))) for w, a in [first, *later]],
+                "fused_edge_phase_win_bwd": [first]}
     if unwindowed(case):
         if case["cfg"].world_edges:
             return {"fused_edge_mlp_aggregate_bwd": walk_shapes(
@@ -2045,9 +2066,9 @@ def walk_levels(hd, name):
 
 
 def walk_line(name, where, dtype, args):
-    """The tile walk's launch shape for one call of kernel 4, 5, 11's
-    backward or 13's backward: its tiles, the rows of a tile, the blocks
-    per SM the kernel reaches and the grid."""
+    """The tile walk's launch shape for one call of a kernel on a tile walk
+    (TILE_WALKS): its tiles, the rows of a tile, the blocks per SM the
+    kernel reaches and the grid."""
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp
 
     fn = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
@@ -2614,9 +2635,10 @@ def check_block_sums(case, by_name):
     """The `block_sum_kernel` launches of one profiled train step are no
     more than the wrappers that still sum chunk parts account for
     (KERNEL_META, at the step's expected launch counts): a kernel whose
-    design has no chunk parts (kernels 14's forward and 12's backward since
-    their tile walks) runs none. The profiler may drop a launch, never add
-    one."""
+    design has no chunk parts (every kernel on a tile walk: 13's forward
+    and 14's backward too) runs none, so the flag's and the `fused4`
+    airfoil's steps run none at all. The profiler may drop a launch, never
+    add one."""
     got = sum(n for key, n in by_name if "block_sum_kernel" in key)
     want = sum(n for name, n in case["expected_train"].items()
                if "block_sum_kernel" in KERNEL_META[name][2])

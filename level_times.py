@@ -1,11 +1,12 @@
 """Per-level device times of the port's kernels on the paths that run them,
-in f32 and bf16: kernels 14's forward (the `fused4` airfoil's gated levels)
-and 12's backward (every level of the unwindowed airfoil), and beside them,
-as controls, kernels 3, 6, 5 and 4 at every level of the 5k airfoil
-(chip_smoke.py's main path), 13's backward at every level of the flag, and
-at the level of their own paths' first shapes kernel 10 (the 16k surface,
-pallas), 11's backward (the flag's level 0, edge_block 512) and 14's
-backward (the airfoil on "fused4").
+in f32 and bf16: kernels 14's backward (the `fused4` airfoil's gated
+levels) and 13's forward (every level of the flag), and beside them, as
+controls, 14's forward at the same gated levels, kernels 3, 6, 5 and 4 at
+every level of the 5k airfoil (chip_smoke.py's main path), 13's backward
+at every level of the flag, 12's backward at every level of the
+unwindowed airfoil, and at the level of their own paths' first shapes
+kernel 10 (the 16k surface, pallas) and 11's backward (the flag's level 0,
+edge_block 512).
 
 Each figure is the device ms of one call (the profiler's, summed over the
 CUDA kernels the call launches, so that two designs compare whatever they
@@ -42,6 +43,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 # label → (path, kernel, whether chip_smoke's backward inputs, every level)
 KERNELS = {
+    "kernel 14 bwd": ("airfoil_fused4", "fused_edge_phase_win_k_bwd", True,
+                      True),
+    "kernel 13": ("flag", "fused_edge_phase_win_dyn", False, True),
     "kernel 14": ("airfoil_fused4", "fused_edge_phase_win_k", False, True),
     "kernel 12 bwd": ("airfoil_plain", "fused_edge_phase_bwd", True, True),
     "kernel 3": ("airfoil", "fused_node_phase", False, True),
@@ -51,8 +55,6 @@ KERNELS = {
     "kernel 13 bwd": ("flag", "fused_edge_phase_win_dyn_bwd", True, True),
     "kernel 10": ("surface", "fused_aggregate_node_phase", False, False),
     "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
-    "kernel 14 bwd": ("airfoil_fused4", "fused_edge_phase_win_k_bwd", True,
-                      False),
 }
 # Paths whose train step's peak memory is read.
 PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4")
