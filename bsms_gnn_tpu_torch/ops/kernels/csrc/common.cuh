@@ -1,7 +1,7 @@
 // Shared device code of the port's kernels: the row-tile GEMM (64 rows by
 // default, 8·R rows in general), the non-affine LayerNorm and the MLP tail
-// that kernel 10 and the forward chunk walk of kernels 11 and 12 run in
-// shared memory. Widths are fixed at the latent width C = 128.
+// that kernel 10 (node_phase.cuh) runs in shared memory. Widths are fixed at
+// the latent width C = 128.
 //
 // Precision: f32 mode is true f32 (FMA on the CUDA cores, no TF32). BF16
 // mode rounds every dot operand to bf16 (round to nearest even) and

@@ -331,9 +331,9 @@ __device__ __forceinline__ bool tile_slots(
 // kDyn: that plus Δ·wf_dyn + ‖Δ‖·wf_nrm from `dyn` (tile_slots' Δ and ‖Δ‖,
 // the weights in shared memory), added after the kWin sum; kStream:
 // pre = src[t0 + r], plus xj[s_row[r]] where xj is given (kernel 12) and
-// the slot's receiver lies in its chunk's block (stream_tile_pre's sum). A
-// warp owns rows warp + j·NW, each lane 4 columns; each group of HB rows'
-// loads is issued before their arithmetic.
+// the slot's receiver lies in its chunk's block. A warp owns rows warp +
+// j·NW, each lane 4 columns; each group of HB rows' loads is issued before
+// their arithmetic.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
                                            const T* __restrict__ xj,

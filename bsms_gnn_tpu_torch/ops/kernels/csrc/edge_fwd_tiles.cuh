@@ -1,17 +1,23 @@
-// The forward edge walk of kernels 4 (fused_gmp.cu), 13 (fused_gmp_dyn.cu)
-// and 14 (fused_gmp_k.cu), replacing the TPU kernels
-// `bsms_gnn_tpu/ops/pallas/fused_gmp.py:568` (`_get_fwd3`, front kWin),
-// `:664` (`_get_fwd4`, front kDyn: kWin plus the world-space terms) and
-// `:1369` (`_get_fwd5`, front kWin). Per live slot e (an in-window sender
-// whose receiver lies in its chunk's 128-row block) it computes the message
-//   msg[e] = LN(tail(relu(fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e]
-//                         [+ Δ_e·wf_dyn + ‖Δ_e‖·wf_nrm with kDyn])))
-// with Δ_e = pos[send_e] − pos[recv_e] in f32 from the positions as stored,
+// The forward edge walk of kernels 4 (fused_gmp.cu), 11 and 12
+// (fused_gmp_stream.cu), 13 (fused_gmp_dyn.cu) and 14 (fused_gmp_k.cu),
+// replacing the TPU kernels `bsms_gnn_tpu/ops/pallas/fused_gmp.py:568`
+// (`_get_fwd3`, front kWin), `:230` (`_get_fwd`, front kStream: the
+// streamed pre-activation), `:376` (`_get_fwd2`, front kStream with the
+// receiver row xj[recv_e] added), `:664` (`_get_fwd4`, front kDyn: kWin
+// plus the world-space terms) and `:1369` (`_get_fwd5`, front kWin). Per
+// live slot e it computes the message msg[e] = LN(tail(relu(pre_e))) with
+//   kWin:    pre_e = fiber_t[:, e]ᵀ·wf8 + xwi[send_e] + xj[recv_e]
+//   kDyn:    that + Δ_e·wf_dyn + ‖Δ_e‖·wf_nrm, Δ_e = pos[send_e] − pos[recv_e]
+//            in f32 from the positions as stored
+//   kStream: pre_e = src[e] (+ xj[recv_e] for kernel 12)
 // and kernel 4's rounding points (rounded to bf16 in BF16 mode, where the
 // TPU kernel rounds it before its f32 sum; with kDyn Δ and wf_dyn rounded
-// as dot operands, ‖Δ‖·wf_nrm in f32), and stores it; the aggregate is
-// summed from msg by the receiver gather of row_gather.cuh
-// (`recv_gather_kernel` over `win_row_*`, which list exactly these slots).
+// as dot operands, ‖Δ‖·wf_nrm in f32), and stores it. A slot is live where
+// its receiver lies in its chunk's 128-row block (and, windowed, its sender
+// in the window): the slots the TPU kernels' one-hot counts, the last
+// block's pad slots on row n_pad − 1 included. The aggregate is summed from
+// msg by the receiver gather of row_gather.cuh (`recv_gather_kernel` over
+// `win_row_*`, or `row_*` for kStream, which list exactly these slots).
 //
 // What bounds it: operations, in true f32 on the CUDA cores (no TF32): per
 // live slot about 2·L·128² FLOP of products, against a few hundred bytes.
@@ -19,12 +25,14 @@
 // What the design does about it, with the grid plan of the backward walk
 // (edge_bwd_tiles.cuh), whose helpers it shares:
 // - A persistent grid over the level's T = E_pad / TR tiles, not chunks: G
-//   blocks (SMs × the blocks per SM the kernel reaches, at most T), block b
-//   walking the tile range [⌊b·T/G⌋, ⌊(b+1)·T/G⌋) in order; each tile finds
-//   its chunk, output block and window from its first slot. The airfoil's
-//   levels hold 82 down to one 512-slot chunk, the flag's 25 down to one:
-//   a block per chunk left every level on fewer SMs than the card has for
-//   a whole 8-tile walk.
+//   blocks (SMs × the blocks per SM the kernel reaches, at most T); each
+//   tile finds its chunk, output block and window from its first slot.
+//   Block b walks tiles b, b + G, b + 2G, ...: the card places block b on
+//   SM b mod SMs, so the blocks of one SM hold ⌊T/SMs⌋ or ⌈T/SMs⌉ tiles
+//   together, where tile ranges [⌊b·T/G⌋, ⌊(b+1)·T/G⌋) can give an SM one
+//   more (272 tiles on 264 blocks, kernels 4's and 14's level 3: 4 tiles
+//   on four SMs, 3 a stride). A message does not depend on the block that
+//   computes it.
 // - A dead tile (no live slot) skips the front and the GEMMs and writes
 //   nothing: no msg row of it is listed.
 // - The tail runs in place in one TR×C tile (each warp reads and writes
@@ -33,12 +41,17 @@
 //   the last layer: layer 0's, for the next live tile). In BF16 mode W
 //   comes already rounded to bf16 (stored as f32), so the copy rounds
 //   nothing.
+// - Each output's k-sum is one fmaf chain in k order from zero (the walks'
+//   `gemm_rows`: 256 threads, 8 rows × 4 columns a thread, 64-row slabs),
+//   the bias added after, so a message row is the same bits whatever the
+//   tile shape.
 // - No shared-memory output block, no per-chunk part and no chunk sum: the
 //   messages' sum is the gather's, in list order, with no atomics, so two
 //   calls agree bit for bit.
-// - One TR×C tile and two slabs take about 103 KB of shared memory (kDyn
-//   3.75 KB more: wf_dyn, wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit
-//   on an SM: one block's loads of the front overlap the other's products.
+// - One TR×C tile and two slabs take about 97 KB of shared memory (kWin 6
+//   KB more: the fiber weights and stream; kDyn 3.75 KB more again: wf_dyn,
+//   wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit on an SM: one block's
+//   loads of the front overlap the other's products.
 #pragma once
 
 #include "edge_bwd_tiles.cuh"
@@ -48,11 +61,12 @@ namespace tiles {
 
 constexpr int FWD_MIN_BLOCKS = 2;
 
-// Shared memory of the forward walk: the tile, two weight slabs, the fiber
-// weights and stream, with kDyn wf_dyn, wf_nrm and the tile's Δ and ‖Δ‖,
-// then the three int tables of the tile's slots.
+// Shared memory of the forward walk: the tile, two weight slabs, with kWin
+// and kDyn the fiber weights and stream, with kDyn also wf_dyn, wf_nrm and
+// the tile's Δ and ‖Δ‖, then the three int tables of the tile's slots.
 constexpr size_t fwd_smem_bytes(Front f) {
-  return sizeof(float) * ((size_t)TR * C + 2 * KS * C + 8 * C + 8 * TR +
+  return sizeof(float) * ((size_t)TR * C + 2 * KS * C +
+                          (f != Front::kStream ? 8 * C + 8 * TR : 0) +
                           (f == Front::kDyn
                                ? MAX_WD * C + C + MAX_WD * TR + TR : 0)) +
          sizeof(int) * 3 * TR;
@@ -74,9 +88,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 
 // The walk. kWin: xwi, xj, fiber_t, wf8, send_win, win_base as kernel 4's;
 // kDyn (kernel 13): those plus the positions pos [n_pad][wd] (xwi's type),
-// wf_dyn [wd][C] and wf_nrm [C]. W the tail's stack (bf16 values in BF16
-// mode), B its biases; msg [E_pad][C] in the activations' type, written on
-// live slots only.
+// wf_dyn [wd][C] and wf_nrm [C]; kStream (kernels 11 and 12): xwi the
+// streamed rows src [E_pad][C] (pre, or zi with the receiver transform xj;
+// xj null for kernel 11), no fiber, window or positions. W the tail's stack
+// (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in the
+// activations' type, written on live slots only.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
@@ -88,14 +104,14 @@ __device__ __forceinline__ void edge_fwd_tiles(
     const T* __restrict__ pos = nullptr,
     const float* __restrict__ wfd_g = nullptr,
     const float* __restrict__ wfn_g = nullptr, int wd = 0) {
-  static_assert(F != Front::kStream, "the forward walk is windowed");
+  constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);  // [TR][C] the tile's rows
   float* wslab = h + TR * C;                    // [2][KS][C] weight slabs
-  float* wf = wslab + 2 * KS * C;               // [8][C] fiber weights
-  float* fib = wf + 8 * C;                      // [8][TR] fiber stream
-  float* wfd = fib + 8 * TR;                    // DYN: [MAX_WD][C] wf_dyn
+  float* wf = wslab + 2 * KS * C;               // WIN: [8][C] fiber weights
+  float* fib = wf + (WIN ? 8 * C : 0);          // WIN: [8][TR] fiber stream
+  float* wfd = fib + (WIN ? 8 * TR : 0);        // DYN: [MAX_WD][C] wf_dyn
   float* wfn = wfd + (DYN ? MAX_WD * C : 0);    // DYN: [C] wf_nrm
   float* delta = wfn + (DYN ? C : 0);           // DYN: [MAX_WD][TR] Δ
   float* nrm = delta + (DYN ? MAX_WD * TR : 0);  // DYN: [TR] ‖Δ‖
@@ -105,9 +121,8 @@ __device__ __forceinline__ void edge_fwd_tiles(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, b = blockIdx.x;
-  const int t_begin = (int)((long long)b * n_tiles / G);
-  const int t_end = (int)((long long)(b + 1) * n_tiles / G);
-  for (int i = tid; i < 8 * C; i += NT) wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
+  if constexpr (WIN)  // the fiber weights, rounded in BF16 mode
+    for (int i = tid; i < 8 * C; i += NT) wf[i] = BF16 ? round_bf16(wf8[i]) : wf8[i];
   if constexpr (DYN) {  // wf_dyn rounded in BF16 mode, wf_nrm in f32
     for (int i = tid; i < wd * C; i += NT)
       wfd[i] = BF16 ? round_bf16(wfd_g[i]) : wfd_g[i];
@@ -116,7 +131,7 @@ __device__ __forceinline__ void edge_fwd_tiles(
   const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
-  for (int t = t_begin; t < t_end; ++t) {
+  for (int t = b; t < n_tiles; t += G) {  // see the header
     const int t0 = t * TR, ch = t0 / edge_block;
     if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
                                 receivers, chunk_block, e_pad, window, s_row,

@@ -1,7 +1,7 @@
 // The row-ordered gather of kernels 1 (windowed.cu), 2 (compact_resid.cu),
-// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of kernel 4's aggregate
-// and kernel 5's dxj (fused_gmp.cu, fused_gmp_bwd.cu: kernel 7's front over
-// kernel 1's receiver lists):
+// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of the edge tile walks'
+// aggregates and dxj (kernels 4, 5 and 11-14 and their backwards: kernel
+// 7's front over the receiver lists):
 //
 //   out[dst(k)] (= or +=) Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} w(e_i) · x[row(e_i)]
 //

@@ -19,9 +19,9 @@ mesh's level 0), against a few MB of traffic; in f32 that runs on the CUDA
 cores (FMA, no TF32). The walk has the backward walk's grid plan (kernel 5
 below): G blocks (SMs × the blocks per SM the kernel reaches, `walk_fill`,
 at most the level's tiles) walk the level's 64-slot tiles, block b the
-range `tile_ranges(T, G)[b] .. [b + 1]` in order, so a level of few chunks
-(the 5k airfoil's levels hold 82 down to one 512-slot chunk) still fills
-the card. A tile with no live slot (an in-window sender whose receiver
+tiles b, b + G, b + 2G, ... (an SM's blocks then hold ⌊T/SMs⌋ or ⌈T/SMs⌉
+tiles), so a level of few chunks (the 5k airfoil's levels hold 82 down to
+one 512-slot chunk) still fills the card. A tile with no live slot (an in-window sender whose receiver
 lies in the chunk's 128-row block) skips the front and the GEMMs and
 writes nothing. A live tile loads its selected sender and receiver rows
 directly (no one-hot selection), runs the tail MLP in place with the

@@ -25,9 +25,10 @@ block. Here the positions are their own [n_pad, wd] tensor and wf_dyn stays
 CUDA design. Both directions run the tile walks of kernels 4 and 5 with the
 kDyn front, under kernel 13's own names: G blocks (SMs × the blocks per SM
 the kernel reaches, `fused_gmp.walk_fill`, at most the level's tiles) walk
-the level's 64-slot tiles, block b the range `tile_ranges(T, G)[b] ..
-[b + 1]`, so a level of few chunks (the flag's hold 25 down to one 512-slot
-chunk, 200 down to 8 tiles) still spreads over the card. Per tile, the
+the level's 64-slot tiles (block b the tiles b, b + G, ... forward, the
+range `tile_ranges(T, G)[b] .. [b + 1]` backward), so a level of few
+chunks (the flag's hold 25 down to one 512-slot chunk, 200 down to 8
+tiles) still spreads over the card. Per tile, the
 threads that fill the slot tables also read the wd position components of
 both ends and keep Δ (wd rows) and ‖Δ‖ in shared memory (1 KB a tile);
 wf_dyn and wf_nrm join wf8 in shared memory once per block.

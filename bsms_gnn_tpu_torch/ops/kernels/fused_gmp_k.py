@@ -22,10 +22,10 @@ K orders nothing. Both directions run kernel 4's and kernel 5's tile walks
 under kernel 14's own names (so the profiler tells them apart): a
 persistent grid of G blocks (`walk_grid`: the SMs times the blocks per SM
 the kernel reaches, at most the level's tiles) over the level's 64-slot
-tiles, block b the range `tile_ranges(T, G)[b] .. [b + 1]` in order, so
-the gated levels' few chunks (the 5k airfoil's levels 3–5: 34, 30 and 24
-chunks of 512 slots, 272, 240 and 192 tiles, for 132 SMs) spread over
-every SM.
+tiles (block b the tiles b, b + G, ... forward, the range
+`tile_ranges(T, G)[b] .. [b + 1]` backward), so the gated levels' few
+chunks (the 5k airfoil's levels 3–5: 34, 30 and 24 chunks of 512 slots,
+272, 240 and 192 tiles, for 132 SMs) spread over every SM.
 - Forward (`csrc/fused_gmp_k.cu` over `csrc/edge_fwd_tiles.cuh`, two
   blocks per SM): dead tiles skipped, each live slot's message stored into
   a transient `msg [E_pad, 128]`, then the receiver gather

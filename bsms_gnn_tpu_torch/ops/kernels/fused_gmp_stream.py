@@ -29,31 +29,27 @@ nothing to dW, db or dxj. The plain versions apply the same mask:
 `index_add_` over all slots would disagree at row n_pad − 1.
 
 CUDA design (`csrc/fused_gmp_stream.cu`, `csrc/fused_gmp_stream_bwd.cu`).
-The forwards run a chunk walk, `csrc/edge_phase.cuh` (one block per
-512-slot chunk, the chunk's 128-row output block in shared memory; the
-windowed kernels 4, 13 and 14 run the tile walk of
-`csrc/edge_fwd_tiles.cuh`), with a streamed front (`stream_tile_pre` in
-`csrc/edge_tile.cuh`): per 64-slot tile the threads read each slot's
-receiver, mark it in block or not, and load its row of zi (plus xj's row
-of its receiver) or pre straight into the tile; then the tail MLP and the
-LayerNorm in shared memory and the add into the chunk's 128-row output
-block, written to a per-chunk part that block_sum_kernel adds in chunk
-order. The backwards run kernel 5's persistent tile walk
-(`csrc/edge_bwd_tiles.cuh`, see `fused_gmp.py`) with the streamed front
-(kernel 12's adds the receiver row xj of each slot in its chunk's block):
-G blocks over the level's 64-slot tiles, a tile with no slot in its
-chunk's block skipped (zero dzi / dpre rows), one weight-gradient partial
-per block summed in block order by grad_sum_kernel. Kernel 12's dxj is the
-row-ordered gather of `csrc/row_gather.cuh` (`recv_gather_kernel`, kernel
-5's) over dzi and the level's receiver lists (`row_ptr`, `row_slots`,
+Both directions run the persistent tile walks of kernels 4 and 5 with the
+streamed front (kernel 12's adds the receiver row xj of each slot in its
+chunk's block): G blocks (`walk_grid`: the SMs times the blocks per SM the
+kernel reaches, at most the level's tiles) over the level's 64-slot tiles,
+a tile with no slot in its chunk's block skipped. The forwards
+(`csrc/edge_fwd_tiles.cuh`) store each live slot's message (the LN output,
+bf16-rounded in bf16 mode) into a transient `msg [E_pad, 128]`, two
+blocks of 256 threads per SM, the tail on the walks' `gemm_rows`; the
+backwards (`csrc/edge_bwd_tiles.cuh`) write zero dzi / dpre rows on dead
+tiles and one weight-gradient partial per block, summed in block order by
+grad_sum_kernel. The forwards' aggregate and kernel 12's dxj are the
+row-ordered gather of `csrc/row_gather.cuh` (`recv_gather_kernel`) over
+msg or dzi and the level's receiver lists (`row_ptr`, `row_slots`,
 `row_long`), which hold exactly the slots with a receiver in their chunk's
-block, in slot order, the last block's pad slots on row n_pad − 1: no dxj
-block, no per-chunk part and no chunk sum. No atomics anywhere: the same
-result from run to run. The chunk is the level's edge_block: 128 slots on
-unwindowed levels, 512 where kernel 11 runs on a windowed level. What
-bounds it on the card: operations, L·2·128·128 FLOP per slot in the tail on
-the CUDA cores (about three times that in the backward), against a few
-hundred bytes per slot of traffic.
+block, in slot order, the last block's pad slots on row n_pad − 1: no
+output block, no per-chunk part and no chunk sum. No atomics anywhere: the
+same result from run to run. The chunk is the level's edge_block: 128
+slots on unwindowed levels, 512 where kernel 11 runs on a windowed level.
+What bounds it on the card: operations, L·2·128·128 FLOP per slot in the
+tail on the CUDA cores (about three times that in the backward), against
+a few hundred bytes per slot of traffic.
 
 bf16 mode (zi, xj or pre in bf16) follows the TPU kernels: every dot's
 operands are rounded to bf16 (the hidden activations, the weights, and in
@@ -80,6 +76,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     mlp_tail_plain,
     round_bf16,
     walk_grid,
+    walk_sigs,
 )
 
 _LIB = "fused_gmp_stream"
@@ -93,10 +90,7 @@ _BWD_FN = {torch.float32: "fused_edge_phase_bwd_f32",
 _AGG_BWD_FN = {torch.float32: "fused_edge_mlp_aggregate_bwd_f32",
                torch.bfloat16: "fused_edge_mlp_aggregate_bwd_bf16"}
 _SIGS = {
-    _LIB: {**{f: [build.P] * 7 + [build.I] * 5 + [build.P] * 3
-              for f in _FN.values()},
-           **{f: [build.P] * 6 + [build.I] * 5 + [build.P] * 3
-              for f in _AGG_FN.values()}},
+    _LIB: {**walk_sigs(_FN, 9, 8, 3), **walk_sigs(_AGG_FN, 8, 8, 3)},
     _BWD_LIB: {**{f: [build.P] * 11 + [build.I] * 8 + [build.P] * 5
                   for f in _BWD_FN.values()},
                **{f: [build.P] * 7 + [build.I] * 5 + [build.P] * 4
@@ -173,21 +167,27 @@ def _backward_plain(level, src, xj, weights, biases, g):
 
 
 def _launch_fwd(fn_table, level, src, xj, weights, biases, what):
+    """aggr [n_pad, 128] f32 by the forward tile walk with the streamed
+    front, then the receiver gather over `row_*`, on CUDA tensors."""
     build.require(what, src.device, level.receivers, level.chunk_block,
-                  level.chunk_ptr)
+                  level.row_ptr, level.row_slots, level.row_long)
     lib = build.library(_LIB, _SIGS[_LIB])
-    w_stack, b_stack = build.stacked(weights), build.stacked(biases)
-    dev = src.device
-    n_chunks = level.n_pad_edges // level.edge_block
-    part = torch.empty(n_chunks, BN, BN, dtype=torch.float32, device=dev)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    fn, dev = fn_table[src.dtype], src.device
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    # The tile walk takes the weights already rounded in bf16 mode.
+    bf16 = src.dtype == torch.bfloat16
+    w_stack = build.stacked(weights, to_bf16=bf16)
+    b_stack = build.stacked(biases)
     rows = [src.contiguous()] + ([] if xj is None else [xj.contiguous()])
-    err = getattr(lib, fn_table[src.dtype])(
+    msg = torch.empty(level.n_pad_edges, BN, dtype=src.dtype, device=dev)
+    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    err = getattr(lib, fn)(
         *(t.data_ptr() for t in rows), w_stack.data_ptr(), b_stack.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
-        level.chunk_ptr.data_ptr(), len(weights), n_chunks,
-        level.n_pad_nodes // BN, level.n_pad_edges, level.edge_block,
-        part.data_ptr(), out.data_ptr(),
+        level.row_ptr.data_ptr(), level.row_slots.data_ptr(),
+        level.row_long.data_ptr(), len(weights), grid, n_tiles,
+        level.n_pad_edges, level.edge_block, level.n_pad_nodes,
+        level.row_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, what)

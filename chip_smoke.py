@@ -34,11 +34,10 @@ Phases (any failure exits non-zero without the result line):
    normalizer-warmup gate, then updates) with finite losses that moves
    every parameter;
 8. train-step times: ms per step (median of repeats, CUDA events), device
-   busy time, idle share and kernel count of one profiled step (whose
-   `block_sum_kernel` launches may be no more than the chunk walks of its
-   wrappers account for), peak memory (and above what the step starts
-   with), and each backward kernel's time beside its plain version, its
-   library call and its bound;
+   busy time, idle share and kernel count of one profiled step (which
+   must launch no `block_sum_kernel`), peak memory (and above what the
+   step starts with), and each backward kernel's time beside its plain
+   version, its library call and its bound;
 9. the 16,000-node inflating surface of bench.py (a closed sphere mesh,
    depth 7, the default unwindowed hierarchy, the `pallas` method, world
    edges, the inflating-font model at latent 128, hidden 3): kernels 8 and
@@ -55,19 +54,21 @@ Phases (any failure exits non-zero without the result line):
    (f32, bf16, bf16 controls), then phases 4, 5, 7 and 8 on it (kernel 13
    and its backward timed at every level), the `Trainer` run (noise γ 0.1)
    on the contact recipe's frame pair; kernel 11 (forward and backward) at
-   its level 0 too (edge_block 512), against its plain version, and a GMP
-   with a 6-wide world stream there (wider than kernel 13 takes: kernel 11's
-   route), forward and backward against the plain route;
+   its level 0 too (edge_block 512), against its plain version (the
+   forward twice for bit-identical outputs), and a GMP with a 6-wide world
+   stream there (wider than kernel 13 takes: kernel 11's route), forward
+   and backward against the plain route;
 11. the 5k airfoil on the `fused` method of method_sweep.py's fused-v2 row
    (not reordered, the default unwindowed hierarchy, edge_block 128):
-   kernel 12 (forward at level 0; backward at every level, twice for
+   kernel 12 (forward and backward, each at every level, twice for
    bit-identical outputs) against its plain version, then phases 4, 5, 7
-   and 8 on it (kernel 12 and its backward timed, the backward at every
-   level);
+   and 8 on it (kernel 12 and its backward timed at every level);
 12. the 16k surface of phase 9 on the `fused` method (method_sweep.py's
-   fused-v2 row with world edges): kernel 11 (forward and backward) against
-   its plain version, then phases 4, 5, 7 and 8 on it (kernel 11 and its
-   backward timed) and the `Trainer` run on the trajectory's frames;
+   fused-v2 row with world edges): kernel 11 (forward at every level,
+   backward at levels 0 and 7, twice for bit-identical outputs) against its
+   plain version, then phases 4, 5, 7 and 8 on it (kernel 11 timed at every
+   level, its backward at both) and the `Trainer` run on the trajectory's
+   frames;
 13. cylinder_flow at full width and depth on variable meshes: three
    Morton-ordered Delaunay meshes (1,600, 1,885 and 2,000 nodes), one size
    group (window 256, edge_block 512), each padded to the group's buckets,
@@ -424,17 +425,19 @@ EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
                      "fused_edge_mlp_aggregate_bwd", "fused_node_phase",
                      "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd",
                      "fused_edge_phase_bwd", "fused_edge_phase_win_k",
-                     "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd")
+                     "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd",
+                     "fused_edge_phase", "fused_edge_mlp_aggregate")
 # The kernels on a tile walk (`csrc/edge_fwd_tiles.cuh`,
 # `csrc/edge_bwd_tiles.cuh`): two calls on the same inputs must agree bit
 # for bit (the walk's grid and its order of sums depend only on the card
 # and the layout), and their later shapes are levels of fewer live tiles:
 # kernels 4 and 5 at every level of the airfoil below 0 (6 holds 2 live
-# slots, 7 none), kernel 11's backward at the surface's level 7, kernel
-# 13 (forward and backward) at every level of the flag below 0, kernel 12's
-# backward at every level of the unwindowed airfoil below 0, kernel 14
-# (forward and backward) at the `fused4` airfoil's gated levels after its
-# first (4 and 5). The bf16
+# slots, 7 none), kernel 11 at every level of the fused surface below 0
+# (its backward at level 7), kernel 13 (forward and backward) at every
+# level of the flag below 0, kernel 12 (forward and backward) at every
+# level of the unwindowed airfoil below 0, kernel 14 (forward and
+# backward) at the `fused4` airfoil's gated levels after its first (4 and
+# 5). The bf16
 # controls run at every shape, and are skipped only for an output that the
 # plain version leaves all zero. Kernels 3 and 6 (`csrc/node_mlp.cu`,
 # `csrc/node_mlp_bwd.cu`, a cluster of CTAs per 64-row tile) are checked
@@ -443,7 +446,8 @@ EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
 TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
               "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_dyn_bwd",
               "fused_edge_phase_bwd", "fused_edge_phase_win_k",
-              "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd")
+              "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd",
+              "fused_edge_phase", "fused_edge_mlp_aggregate")
 NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
@@ -451,6 +455,8 @@ WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_dyn": (1, 2, 3, 4, 5),
                "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 4, 5),
                "fused_edge_phase_bwd": (1, 2, 3, 4, 5, 6, 7),
+               "fused_edge_phase": (1, 2, 3, 4, 5, 6, 7),
+               "fused_edge_mlp_aggregate": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase": (1, 2, 3, 4, 5, 6, 7),
                "fused_node_phase_bwd": (1, 2, 3, 4, 5, 6, 7)}
 # The seed of the generator that draws level l's inputs of each kernel
@@ -461,7 +467,8 @@ WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_phase_win_dyn_bwd": 400, "fused_node_phase": 500,
              "fused_edge_phase_bwd": 600, "fused_edge_phase_win_k": 700,
              "fused_edge_phase_win_dyn": 800,
-             "fused_edge_phase_win_k_bwd": 900}
+             "fused_edge_phase_win_k_bwd": 900, "fused_edge_phase": 1000,
+             "fused_edge_mlp_aggregate": 1100}
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -476,13 +483,10 @@ ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
 _CSRC = "bsms_gnn_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "bsms_gnn_tpu/ops/pallas/"
 # name → (source, the TPU kernel it replaces, the CUDA kernels one call
-# launches). The chunk walks (the forwards of kernels 11 and 12) add the
-# pass that sums each output block's chunk parts (the work the TPU kernel
-# did in its revisited block); the tile walks (kernels 4, 5, 13 and 14,
-# 12's and 13's and 14's backwards) the receiver gather (the aggregate,
-# dxj); kernels 5, 6 and 11-14's backwards the pass that sums the
-# weight-gradient partials. Kernels 1, 2, 7 and 15 are one launch each
-# (the row-ordered gather).
+# launches). The tile walks (kernels 4, 5 and 11-14, 12's, 13's and 14's
+# backwards) add the receiver gather (the aggregate, dxj); kernels 5, 6 and
+# 11-14's backwards the pass that sums the weight-gradient partials.
+# Kernels 1, 2, 7 and 15 are one launch each (the row-ordered gather).
 KERNEL_META = {
     "fused_edge_phase_win": (
         _CSRC + "fused_gmp.cu", _PALLAS + "fused_gmp.py:568",
@@ -521,14 +525,14 @@ KERNEL_META = {
          "grad_sum_kernel")),
     "fused_edge_phase": (
         _CSRC + "fused_gmp_stream.cu", _PALLAS + "fused_gmp.py:376",
-        ("fused_edge_phase_kernel", "block_sum_kernel")),
+        ("fused_edge_phase_kernel", "recv_gather_kernel")),
     "fused_edge_phase_bwd": (
         _CSRC + "fused_gmp_stream_bwd.cu", _PALLAS + "fused_gmp.py:407",
         ("fused_edge_phase_bwd_kernel", "recv_gather_kernel",
          "grad_sum_kernel")),
     "fused_edge_mlp_aggregate": (
         _CSRC + "fused_gmp_stream.cu", _PALLAS + "fused_gmp.py:230",
-        ("fused_edge_mlp_aggregate_kernel", "block_sum_kernel")),
+        ("fused_edge_mlp_aggregate_kernel", "recv_gather_kernel")),
     "fused_edge_mlp_aggregate_bwd": (
         _CSRC + "fused_gmp_stream_bwd.cu", _PALLAS + "fused_gmp.py:260",
         ("fused_edge_mlp_aggregate_bwd_kernel", "grad_sum_kernel")),
@@ -1212,13 +1216,17 @@ def kernel_inputs(case, dtype, device):
     mlp_e = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
     e0 = lvl.n_pad_edges
     if unwindowed(case):
-        # Kernel 11 (world edges) or 12 at level 0.
+        # Kernel 11 (world edges) or 12 at every level (level 0's draw
+        # first, from g).
         if case["cfg"].world_edges:
-            return {"fused_edge_mlp_aggregate": [
-                ("level 0", (lvl, rand(e0, c, dt=dtype), *mlp_e))]}
-        return {"fused_edge_phase": [
-            ("level 0", (lvl, rand(e0, c, dt=dtype), rand(n0, c, dt=dtype),
-                         *mlp_e))]}
+            return {"fused_edge_mlp_aggregate": level_shapes(
+                hd, "fused_edge_mlp_aggregate", rand, g, lambda l, d, r: (
+                    d, r(d.n_pad_edges, c, dt=dtype),
+                    *level_tail(sim, hd, l)))}
+        return {"fused_edge_phase": level_shapes(
+            hd, "fused_edge_phase", rand, g, lambda l, d, r: (
+                d, r(d.n_pad_edges, c, dt=dtype),
+                r(d.n_pad_nodes, c, dt=dtype), *level_tail(sim, hd, l)))}
     if case["cfg"].world_edges:
         # Kernel 13 at every level (level 0's draw first, from g): level 0
         # on the case's own world positions, the later levels on
@@ -2545,7 +2553,8 @@ def profile_call(fn):
     """One call of `fn` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device-busy ms (sum of the CUDA kernels' times; one
     stream, so they do not overlap), kernel launches, the kernels that took
-    the most device time, and the launches of each CUDA kernel by name."""
+    the most device time, and each CUDA kernel's launches and device ms by
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2564,7 +2573,8 @@ def profile_call(fn):
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_ms, reverse=True)[:8]
     return wall, busy, launches, [(e.key[:60], e.count, _device_ms(e))
-                                  for e in top], [(e.key, e.count)
+                                  for e in top], [(e.key, e.count,
+                                                   _device_ms(e))
                                                   for e in kernels]
 
 
@@ -2610,6 +2620,7 @@ def measure_train(case, device):
               f"{held:.1f} held before it ({held_line()})")
         prof = profile_call(step)
         print_profile(f"[{label}] train step {name}", *prof)
+        print_port_kernels(prof[4])
         check_block_sums(case, prof[4])
         print(f"  idle share against the timed step: {1 - prof[1] / ms:.3f} "
               f"(1 - device busy / ms per step)")
@@ -2631,21 +2642,25 @@ def measure_train(case, device):
     return rows, e2e
 
 
+def print_port_kernels(by_name):
+    """The step's launches and device ms of each CUDA kernel the port's
+    wrappers launch (KERNEL_META), by name: the step sums a ranking of the
+    kernels reads."""
+    names = sorted({k for _, _, ks in KERNEL_META.values() for k in ks})
+    found = [(n, sum(c for key, c, _ in by_name if n in key),
+              sum(ms for key, _, ms in by_name if n in key)) for n in names]
+    print("  port kernels in the step (launches, device ms): " + ", ".join(
+        f"{n} {c} {ms:.4f}" for n, c, ms in found if c))
+
+
 def check_block_sums(case, by_name):
-    """The `block_sum_kernel` launches of one profiled train step are no
-    more than the wrappers that still sum chunk parts account for
-    (KERNEL_META, at the step's expected launch counts): a kernel whose
-    design has no chunk parts (every kernel on a tile walk: 13's forward
-    and 14's backward too) runs none, so the flag's and the `fused4`
-    airfoil's steps run none at all. The profiler may drop a launch, never
-    add one."""
-    got = sum(n for key, n in by_name if "block_sum_kernel" in key)
-    want = sum(n for name, n in case["expected_train"].items()
-               if "block_sum_kernel" in KERNEL_META[name][2])
-    print(f"  block_sum_kernel launches in the step: {got} (the chunk walks "
-          f"of its wrappers account for {want})")
-    require(got <= want, f"{case['label']}: {got} block sums in a train "
-                         f"step, more than the {want} of the chunk walks")
+    """No profiled train step launches a `block_sum_kernel`: every kernel
+    runs on a tile walk or a gather, and none sums chunk parts (the chunk
+    walks of kernels 11's and 12's forwards, the last that did, are gone).
+    The profiler may drop a launch, never add one."""
+    got = sum(n for key, n, _ in by_name if "block_sum_kernel" in key)
+    print(f"  block_sum_kernel launches in the step: {got} (none expected)")
+    require(got == 0, f"{case['label']}: {got} block sums in a train step")
 
 
 def held_line() -> str:

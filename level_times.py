@@ -1,12 +1,14 @@
 """Per-level device times of the port's kernels on the paths that run them,
-in f32 and bf16: kernels 14's backward (the `fused4` airfoil's gated
-levels) and 13's forward (every level of the flag), and beside them, as
-controls, 14's forward at the same gated levels, kernels 3, 6, 5 and 4 at
-every level of the 5k airfoil (chip_smoke.py's main path), 13's backward
-at every level of the flag, 12's backward at every level of the
-unwindowed airfoil, and at the level of their own paths' first shapes
-kernel 10 (the 16k surface, pallas) and 11's backward (the flag's level 0,
-edge_block 512).
+in f32 and bf16: kernels 11's forward (every level of the 16k surface on
+the fused method) and 12's forward (every level of the unwindowed 5k
+airfoil), and beside them, as controls, kernels 14 (forward and backward)
+at the `fused4` airfoil's gated levels, 13 (forward and backward) at
+every level of the flag, 12's backward at every level of the unwindowed
+airfoil, kernels 3, 6, 5 and 4 at every level of the 5k airfoil
+(chip_smoke.py's main path), and at the level of their own paths' first
+shapes kernel 10 (the 16k surface, pallas) and 11's backward (the flag's
+level 0, edge_block 512). A kernel on a tile walk also prints the blocks
+per SM it reaches.
 
 Each figure is the device ms of one call (the profiler's, summed over the
 CUDA kernels the call launches, so that two designs compare whatever they
@@ -16,10 +18,12 @@ sum over the launches of one train step (twice at each level above the
 bottom, down and up; once at the bottom: 15 on the airfoil, 11 on the
 flag, 6 for kernel 14 at levels 3-5). The inputs are chip_smoke.py's
 (`kernel_inputs`, `bwd_kernel_inputs`): the same seeds give the same
-values under any commit. Also the peak device memory of one train step of
-the airfoil, the flag, the unwindowed airfoil and the `fused4` airfoil
-(chip_smoke.py's `Trainer`, after its warmup gate) above what the step
-starts with, each read after the previous path's case is freed.
+values under any commit. A profile that dropped launches (it holds fewer
+than the repeats times one call's) is taken again. Also the peak device
+memory of one train step of the airfoil, the flag, the unwindowed
+airfoil, the `fused4` airfoil and the fused surface (chip_smoke.py's
+`Trainer`, after its warmup gate) above what the step starts with, each
+read after the previous path's case is freed.
 
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
@@ -43,6 +47,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 # label → (path, kernel, whether chip_smoke's backward inputs, every level)
 KERNELS = {
+    "kernel 11": ("surface_fused", "fused_edge_mlp_aggregate", False, True),
+    "kernel 12": ("airfoil_plain", "fused_edge_phase", False, True),
     "kernel 14 bwd": ("airfoil_fused4", "fused_edge_phase_win_k_bwd", True,
                       True),
     "kernel 13": ("flag", "fused_edge_phase_win_dyn", False, True),
@@ -57,31 +63,42 @@ KERNELS = {
     "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
 }
 # Paths whose train step's peak memory is read.
-PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4")
+PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4",
+              "surface_fused")
 
 
-def device_ms(fn, reps=20, tries=3):
+def device_ms(fn, reps=20, tries=5):
     """Device ms per call of `fn`: the CUDA kernels' time in a profile of
-    `reps` calls, after one call outside it. A profile that shows no device
-    time (the profiler now and then drops a window's kernels) is taken
-    again, up to `tries` times."""
+    `reps` calls, after one call outside it and one profiled call that
+    counts the call's launches.
+    The profiler now and then drops kernels from a window, which reads
+    low: a profile whose launch count is not `reps` times the call's is
+    taken again (the call's count with it), up to `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
+    def run(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = sum((getattr(e, "self_device_time_total", None)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        return (sum(e.count for e in kernels),
+                sum((getattr(e, "self_device_time_total", None)
                      or getattr(e, "self_cuda_time_total", 0.0))
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
+                    for e in kernels))
+
+    fn()
+    torch.cuda.synchronize()  # the inputs' kernels, outside every profile
+    for _ in range(tries):
+        per_call, _ = run(1)
+        launches, total = run(reps)
+        if per_call > 0 and launches == reps * per_call:
             return total / reps / 1e3
-    raise RuntimeError("the profiler showed no device time")
+        print(f"  (a profile of {reps} calls held {launches} launches, not "
+              f"{reps} x {per_call}: taken again)")
+    raise RuntimeError("no profile held every launch of its calls")
 
 
 def step_peak_mib(cs, case, device, cd):
@@ -106,10 +123,21 @@ def bound_ms(cs, name, args, dtype):
     return max(by / cs.PEAK_BYTES_S, ops / cs.PEAK_FLOPS_S[dtype]) * 1e3
 
 
+def blocks_per_sm(name, dtype):
+    """The blocks per SM the tile walk of `name` reached in this process
+    (`fused_gmp.walk_fill`'s cache), or None for a kernel on no walk."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp
+
+    fn = f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    fills = [v for k, v in fused_gmp._walks.items() if k[0] == fn]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return fills[0] // sms if fills else None
+
+
 def time_kernel(cs, case, device, label, name, bwd, every):
     """{dtype: {"levels": {level: ms}, "bounds": {level: ms}, "step_ms":
-    ms}} for a kernel timed at every level it runs at, else {dtype: ms} at
-    its first shape; printed as it goes."""
+    ms, "blocks_per_sm": n}} for a kernel timed at every level it runs at,
+    else {dtype: ms} at its first shape; printed as it goes."""
     fn = cs.kernel_modules()[name][0]
     depth = case["hd"].depth
     out = {}
@@ -130,13 +158,15 @@ def time_kernel(cs, case, device, label, name, bwd, every):
                 bound[l] = bound_ms(cs, name, args, dtype)
         step = sum(ms * (2 if l < depth else 1) for l, ms in per.items())
         launches = sum(2 if l < depth else 1 for l in per)
+        per_sm = blocks_per_sm(name, dtype)
         out[key] = {"levels": {l: per[l] for l in sorted(per)},
                     "bounds": {l: bound[l] for l in sorted(per)},
-                    "step_ms": step}
+                    "step_ms": step, "blocks_per_sm": per_sm}
         print(f"{label} ({name}) {key}: " + ", ".join(
             f"L{l} {per[l]:.5f}" for l in sorted(per))
             + f" ms; the {launches} launches of a step {step:.4f} ms; "
-            "bounds " + ", ".join(f"{bound[l]:.5f}" for l in sorted(per)))
+            "bounds " + ", ".join(f"{bound[l]:.5f}" for l in sorted(per))
+            + ("" if per_sm is None else f"; {per_sm} blocks per SM"))
     return out
 
 
@@ -163,7 +193,9 @@ def main() -> int:
               "surface": cs.build_surface_case,
               "airfoil_plain": functools.partial(cs.build_case, plain=True),
               "airfoil_fused4": functools.partial(cs.build_case,
-                                                  aggregation="fused4")}
+                                                  aggregation="fused4"),
+              "surface_fused": functools.partial(cs.build_surface_case,
+                                                 aggregation="fused")}
     out = {"step_peak_above_mib": {}}
     for path, build in builds.items():
         case = build(device)

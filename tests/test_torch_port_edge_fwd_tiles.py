@@ -16,10 +16,11 @@ the plain version and the JAX package.
   walk leaves `msg`), then the list-order gather, against JAX's
   `fused_edge_phase_win` (interpret mode) at `F32_TOL` and in bf16 at the
   port's kernel bound (`MLP_TOL`), and against the plain version.
-- (e) The walk's tile ranges cover every tile once at the grids of the
-  card (132 or 264 blocks) and the tile counts of the 5k airfoil's levels,
-  and every listed slot lies in a live tile, so skipping dead tiles loses
-  no message.
+- (e) The walk's order (block b of G takes tiles b, b + G, b + 2G, ...,
+  `walked_tiles`) covers every tile once at the grids of the card (132 or
+  264 blocks) and the tile counts of the 5k airfoil's levels, and every
+  listed slot lies in a live tile, so skipping dead tiles loses no
+  message.
 
 Layouts: the depth-4 Morton airfoil of `test_torch_port_window_gather.py`
 (window 256, edge_block 512: the `fused` and `fused4` paths' layout) and
@@ -172,17 +173,23 @@ def test_walk_order_matches_jax_and_plain(name, dt):
 # -- (e) ---------------------------------------------------------------------
 
 
+def walked_tiles(live_tiles, n_tiles, grid):
+    """The tiles the forward walk computes, in the order of its blocks and
+    steps: block b of G = min(grid, T) blocks (as `walk_grid` sizes the
+    grid) takes the live ones of tiles b, b + G, b + 2G, ..."""
+    g = len(tile_ranges(n_tiles, grid)) - 1
+    return [t for b in range(g) for t in range(b, n_tiles, g)
+            if live_tiles[t]]
+
+
 @pytest.mark.parametrize("n_tiles", AIRFOIL_TILES)
 @pytest.mark.parametrize("grid", [132, 264, "T"])
 def test_forward_tile_ranges_cover_every_tile_once(n_tiles, grid):
     g = n_tiles if grid == "T" else grid
-    bounds = tile_ranges(n_tiles, g)
-    seen = np.zeros(n_tiles, int)
-    for b in range(len(bounds) - 1):
-        assert bounds[b] <= bounds[b + 1]
-        seen[bounds[b]:bounds[b + 1]] += 1
+    seen = np.bincount(walked_tiles([True] * n_tiles, n_tiles, g),
+                       minlength=n_tiles)
     assert (seen == 1).all()
-    assert len(bounds) - 1 == min(g, n_tiles)
+    assert len(tile_ranges(n_tiles, g)) - 1 == min(g, n_tiles)
 
 
 @pytest.mark.parametrize("name", LAYOUTS)
