@@ -9,21 +9,50 @@ in one launch: the receiver sum of the edge rows (kernel 8's function)
 feeds the node phase (kernel 3's function) without the aggregate reaching
 device memory. Output in bf16 in bf16 compute, else in x's dtype.
 
-CUDA design (`csrc/agg_node.cu`): one thread block per row tile sums its
-rows' slot lists into shared memory, one warp per row in slot order as
-kernel 8 does, then runs kernel 3's device code (`csrc/node_phase.cuh`) on
-the tile in place. The TPU kernel's sequential grid over edge chunks, with
-the node phase on each 128-row block's last chunk, is not carried over:
-the node phase is row-local, so the tile is whatever suits the card. 64-row
-tiles (kernel 3's) where the level has at least one per SM; 16-row tiles
-below that, so that the deep levels, where ~10k slots fall on each
-128-row block, spread their sums over more SMs. What bounds it on the card:
-operations at the wide levels ((2 + L)·2·128·128 FLOP per row on the CUDA
-cores), the slot reads at the deep ones.
+CUDA design (`csrc/agg_node.cu`): each tile sums its rows' aggregate on
+chip, a warp one row at a time, in kernel 8's order (`segment_sum.py`): a
+list of up to GATHER_PIECE = 32 slots in list order, a longer one in
+pieces of 32 gathered into eight shares (share v: pieces v, v + 8, ...,
+each from zero, in turn) added in share order. The order comes from the
+tables alone: the aggregate equals kernel 8's bit for bit, and the output
+equals kernel 3 on kernel 8's aggregate (`chip_smoke.py` holds both at
+every level of the 16k surface, in f32, bf16 and bf16 on f32 x). The node
+phase then runs on one of two designs with kernel 3's arithmetic (one
+FMA chain per output over k in order), `tile_design` picking per level:
+- the one-block tile (`csrc/node_phase.cuh`): a block of 256 threads per
+  64- or 16-row tile, the aggregate summed into shared memory, the whole
+  phase in the block;
+- kernel 3's thread-block cluster (`csrc/node_cluster_fwd.cuh`, the same
+  device code) on 16-row tiles: CLUSTER CTAs per tile, CTA q summing rows
+  [4q, 4q + 4) (a row a warp), owning the output columns [32q, 32q + 32)
+  of every product and staging only those columns of each weight; each
+  CTA runs the x·Wa half of the first product while its peers finish
+  their sums, then copies the four quarters of the aggregate through
+  distributed shared memory into its input tile.
+The cluster was meant to take every level. On an H100 80GB HBM3 (700 W,
+`level_times.py`, f32) it lost the wide levels, where the one-block tile
+does more work per SM once its tiles fill the card: the 16k surface's
+level 0 read 0.105 ms on 64-row blocks against 0.266 on the cluster's
+4,032 CTAs (0.167 on 64-row cluster tiles, a variant measured and
+dropped). It won the deep levels,
+few rows with long lists, where a block per tile leaves most SMs idle and
+a warp walks its rows' lists alone: levels 4-7 read 0.030, 0.027, 0.026,
+0.020 ms against 0.039, 0.048, 0.060, 0.035 on 16-row blocks. Its time
+grew with its CTAs per SM (level 3, four an SM: 0.048 against 0.037 on
+16-row blocks). So the cluster takes a level where its 16-row tiles give
+at most two CTAs per SM; the one-block tile the others, on 64 rows where
+those tiles cover at least three quarters of the SMs (level 1, 126 tiles:
+0.075 against 0.081 on 16 rows; level 2, 64 tiles: 0.068 against 0.048),
+else on 16. The TPU kernel's sequential grid over edge chunks, with the
+node phase on each 128-row block's last chunk, is not carried over: the
+node phase is row-local, so the tile is whatever suits the card. What
+bounds it on the card: operations at the wide levels ((2 + L)·2·128·128
+FLOP per row on the CUDA cores), the slot reads at the deep ones.
 
 bf16 compute rounds where the TPU rounds: the bf16 edge rows sum in f32 as
 read, and every dot operand (x, the aggregate, the hidden activations, the
-weights) is rounded to bf16, as kernel 3 does.
+weights, those once per call on the host) is rounded to bf16, as kernel 3
+does.
 
 The backward (`agg_node.py:207-222`) launches no kernel of its own: it sums
 the aggregate again with kernel 8 (remat, as on the TPU), runs kernel 6
@@ -35,8 +64,10 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.node_mlp import (
+    CLUSTER,
     _check as _check_node,
     fused_node_phase_bwd,
     fused_node_phase_plain,
@@ -46,7 +77,9 @@ from bsms_gnn_tpu_torch.ops.kernels.segment_sum import (
     segment_sum_raw,
 )
 
-_SIG = [build.P] * 9 + [build.I] * 3 + [build.P]
+_SIG = [build.P] * 3 + [build.I] + [build.P] * 6 + [build.I] * 3 + [build.P]
+# The kernel's tiles, by name: the C entries' `tile` and the tile's rows.
+TILES = {"block 64": (0, 64), "block 16": (1, 16), "cluster 16": (2, 16)}
 # (x dtype, bf16 compute) → (C entry, the edge rows' dtype).
 _FN = {(torch.float32, False): ("fused_aggregate_node_phase_f32", torch.float32),
        (torch.bfloat16, True): ("fused_aggregate_node_phase_bf16",
@@ -66,10 +99,14 @@ def _check(level, feat, x, mlp, compute_dtype):
     _check_node(x, None, mlp, compute_dtype)
 
 
-def tile_rows(n_rows: int, device) -> int:
-    """64-row tiles where they give at least one block per SM, else 16."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 64 if n_rows // 64 >= sms else 16
+def tile_design(n_rows: int, sms: int) -> str:
+    """The tile (a key of TILES) of a level of n_rows rows on a card of
+    `sms` SMs: the cluster where its 16-row tiles give at most two CTAs per
+    SM; else the one-block tile, 64 rows where those tiles cover at least
+    three quarters of the SMs, else 16 (see the module note)."""
+    if n_rows // 16 * CLUSTER <= 2 * sms:
+        return "cluster 16"
+    return "block 64" if 4 * (n_rows // 64) >= 3 * sms else "block 16"
 
 
 def fused_aggregate_node_phase_plain(level, feat, x, mlp, compute_dtype=None):
@@ -102,16 +139,20 @@ def fused_aggregate_node_phase_fwd(level, feat, x, mlp, compute_dtype=None):
                   level.row_slots)
     lib = build.library("agg_node", {f: _SIG for f, _ in _FN.values()})
     ws, bs = list(mlp.weights), list(mlp.biases)
-    w0, b0 = ws[0].detach().float().contiguous(), bs[0].detach().float().contiguous()
-    w_stack, b_stack = build.stacked(ws[1:]), build.stacked(bs[1:])
+    w0 = build.stacked(ws[:1], to_bf16=bf16)
+    b0 = bs[0].detach().float().contiguous()
+    w_stack = build.stacked(ws[1:], to_bf16=bf16)
+    b_stack = build.stacked(bs[1:])
     feat, x = feat.contiguous(), x.contiguous()
     out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)
     n = x.shape[0]
     err = getattr(lib, fn)(
         feat.data_ptr(), level.row_ptr.data_ptr(), level.row_slots.data_ptr(),
-        x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w_stack.data_ptr(),
-        b_stack.data_ptr(), out.data_ptr(), len(ws) - 1, n,
-        tile_rows(n, x.device), torch.cuda.current_stream(x.device).cuda_stream,
+        GATHER_PIECE, x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(), len(ws) - 1,
+        n, TILES[tile_design(n, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)][0],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_aggregate_node_phase")
     fused_aggregate_node_phase_fwd.launches += 1

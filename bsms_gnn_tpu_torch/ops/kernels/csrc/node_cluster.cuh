@@ -1,16 +1,17 @@
-// The thread-block cluster of the node phase's kernels 3 (node_mlp.cu) and
-// 6 (node_mlp_bwd.cu): CL CTAs per 64-row tile, CTA q owning the SW = C /
-// CL output columns [q·SW, (q+1)·SW) of every row product, each computed
-// from the full 64×128 input tile A in its shared memory. After a layer,
-// each CTA writes its output columns into a TILE×SW slice of its own shared
-// memory, and after a cluster barrier every CTA copies the CL slices
-// through distributed shared memory into its A: the next layer's full
-// input.
+// The thread-block cluster of the node phase's kernels 3 (node_mlp.cu), 6
+// (node_mlp_bwd.cu) and 10 (agg_node.cu, its deep levels): CL CTAs per
+// 64-row tile (kernel 10: 16 rows), CTA q owning the SW = C / CL output
+// columns [q·SW, (q+1)·SW) of every row product, each computed from the
+// full tile A (×128) in its shared memory. After a layer, each CTA writes
+// its output columns into a rows×SW slice of its own shared memory, and
+// after a cluster barrier every CTA copies the CL slices through
+// distributed shared memory into its A: the next layer's full input.
 //
 // A's rows are padded to AS floats, so that the rows a warp reads at once
 // fall on distinct banks. Each kernel lays its row products out over its
-// own threads (kernel 6: NT threads of 2 rows by 4 columns; kernel 3: NT / 2
-// threads of 4 by 4), so the copies below take the CTA's thread count NTH.
+// own threads (kernel 6: NT threads of 2 rows by 4 columns; kernels 3 and
+// 10: NT / 2 threads of RT rows by 4, `node_cluster_fwd.cuh`), so the
+// copies below take the CTA's thread count NTH (and the tile's rows).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -73,11 +74,15 @@ __device__ __forceinline__ void cluster_wait() {
 // finished every read of A in all its threads (a block barrier, or the
 // cluster barrier itself); it orders these writes before the next reads
 // of A with a block barrier. Each thread's loads of the CL slices go out
-// together, before its stores. NTH: the CTA's threads.
-template <int NTH = NT>
+// together, before its stores. NTH: the CTA's threads; ROWS: the tile's.
+// BY_ROWS: each CTA's slice holds rows [p·ROWS/CL, (p+1)·ROWS/CL) of all C
+// columns instead (A[p·ROWS/CL + r][c] = slice(p)[r][c]; the same floats).
+template <int NTH = NT, int ROWS = TILE, bool BY_ROWS = false>
 __device__ __forceinline__ void exchange_wait(cg::cluster_group& cluster,
                                               float* slice, float* A) {
-  constexpr int PER = TILE * SW / 4 / NTH;  // float4s of a slice per thread
+  constexpr int PER = ROWS * SW / 4 / NTH;  // float4s of a slice per thread
+  static_assert(PER * 4 * NTH == ROWS * SW, "slice shape");
+  constexpr int W4 = (BY_ROWS ? C : SW) / 4;  // float4s of a slice's row
   cluster_wait();
   float4 v[CL][PER];
 #pragma unroll
@@ -92,25 +97,27 @@ __device__ __forceinline__ void exchange_wait(cg::cluster_group& cluster,
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
       const int j = threadIdx.x + k * NTH;
-      const int r = j / (SW / 4), c4 = 4 * (j % (SW / 4));
-      *reinterpret_cast<float4*>(A + r * AS + p * SW + c4) = v[p][k];
+      const int r = j / W4, c4 = 4 * (j % W4);
+      float* dst = BY_ROWS ? A + (p * (ROWS / CL) + r) * AS + c4
+                           : A + r * AS + p * SW + c4;
+      *reinterpret_cast<float4*>(dst) = v[p][k];
     }
 }
 
 // The whole exchange, with nothing between arrive and wait.
-template <int NTH = NT>
+template <int NTH = NT, int ROWS = TILE>
 __device__ __forceinline__ void exchange(cg::cluster_group& cluster,
                                          float* slice, float* A) {
   cluster_arrive();
-  exchange_wait<NTH>(cluster, slice, A);
+  exchange_wait<NTH, ROWS>(cluster, slice, A);
 }
 
-// A TILE×C tile of a row-major [n, C] array into A, rounded to bf16 in BF16
+// A ROWS×C tile of a row-major [n, C] array into A, rounded to bf16 in BF16
 // mode (as a dot operand), by the CTA's NTH threads; each thread's loads go
 // out together.
-template <typename T, bool BF16, int NTH = NT>
+template <typename T, bool BF16, int NTH = NT, int ROWS = TILE>
 __device__ __forceinline__ void load_full(const T* __restrict__ src, float* A) {
-  constexpr int PER = TILE * C / 4 / NTH;
+  constexpr int PER = ROWS * C / 4 / NTH;
   float4 v[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) v[k] = load4(src + 4 * (threadIdx.x + k * NTH));

@@ -1,12 +1,13 @@
-// The GMP node phase on one row tile, one block per tile, for kernel 10
-// (agg_node.cu), which sums the aggregate into the tile first:
+// The GMP node phase on one row tile, one block per tile, for kernel 10's
+// wide levels (agg_node.cu), which sums the aggregate into the tile first:
 //
 //   out = LN(tail(relu(x·Wa + aggr·Wb + b0))) + x
 //
 // x, the aggregate and every activation stay in shared memory through the
-// whole phase. Kernel 3 (node_mlp.cu), which reads the aggregate, computes
-// the same function in the same order on a cluster of CTAs per tile
-// (node_cluster.cuh).
+// whole phase. Kernel 3 (node_mlp.cu) and kernel 10's deep levels compute
+// the same function with the same arithmetic (one FMA chain per output
+// over k in order, the same LayerNorm) on a cluster of CTAs per tile
+// (node_cluster_fwd.cuh).
 #pragma once
 
 #include "common.cuh"

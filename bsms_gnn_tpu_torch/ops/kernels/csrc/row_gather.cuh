@@ -1,7 +1,7 @@
 // The row-ordered gather of kernels 1 (windowed.cu), 2 (compact_resid.cu),
-// 7 (windowed_send.cu) and 15 (subwin_conv.cu), and of the edge tile walks'
-// aggregates and dxj (kernels 4, 5 and 11-14 and their backwards: kernel
-// 7's front over the receiver lists):
+// 7 (windowed_send.cu), 8 (segment_sum.cu) and 15 (subwin_conv.cu), and of
+// the edge tile walks' aggregates and dxj (kernels 4, 5 and 11-14 and their
+// backwards: kernel 7's front over the receiver lists):
 //
 //   out[dst(k)] (= or +=) Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} w(e_i) · x[row(e_i)]
 //

@@ -3,53 +3,48 @@
 //   out[r] = Σ_{i ∈ [row_ptr[r], row_ptr[r+1])} feat[idx[i]]      (f32)
 //
 // idx is the layout's `row_slots` (receiver sums) or `row_send` (sender
-// sums through the reverse edges). One warp per output row, eight rows per
-// block; each lane sums four columns of every 128-column group in list
-// order (`row_sum.cuh`). A row with no slot comes out zero.
-#include "row_sum.cuh"
+// sums through the reverse edges: the same lists, so the same row_ptr and
+// the same long rows). One launch of the row-ordered gather
+// (`row_gather.cuh`): a warp walks four short lists as one range, each
+// list of more than `piece` slots gets a block of its own, in pieces over
+// its warps. A row with no slot comes out zero.
+#include "row_gather.cuh"
 
 using namespace bsms;
 
 namespace {
 
-constexpr int ROWS_PER_BLOCK = THREADS / 32;
-
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 segment_sum_kernel(const T* __restrict__ feat, const int* __restrict__ row_ptr,
-                   const int* __restrict__ idx, int n_rows, int c,
+                   const int* __restrict__ idx,
+                   const int* __restrict__ long_rows, int n_rows, int piece,
                    float* __restrict__ out) {
-  const int row = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const int i0 = row_ptr[row], i1 = row_ptr[row + 1];
-  for (int col = 4 * lane; col < c; col += 128) {
-    const float4 s = row_sum(feat, idx, i0, i1, c, col);
-    *reinterpret_cast<float4*>(out + (size_t)row * c + col) = s;
-  }
+  gather_rows<false>(feat, ListedSlots{idx}, StoreRows{}, row_ptr, long_rows,
+                     n_rows, piece, out);
 }
 
 template <typename T>
-int launch(const void* feat, const void* row_ptr, const void* idx, int n_rows,
-           int c, void* out, void* stream) {
-  if (c % 128) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  segment_sum_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)feat, (const int*)row_ptr, (const int*)idx, n_rows, c,
-      (float*)out);
+int launch(const void* feat, const void* row_ptr, const void* idx,
+           const void* long_rows, int n_rows, int n_long, int piece, void* out,
+           void* stream) {
+  if (n_rows < 1 || piece < 1) return (int)cudaErrorInvalidValue;
+  segment_sum_kernel<T><<<gather_blocks(n_rows, n_long), THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const T*)feat, (const int*)row_ptr, (const int*)idx,
+      (const int*)long_rows, n_rows, piece, (float*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int segment_sum_f32(const void* feat, const void* row_ptr,
-                               const void* idx, int n_rows, int c, void* out,
-                               void* stream) {
-  return launch<float>(feat, row_ptr, idx, n_rows, c, out, stream);
-}
+#define SEGMENT_SUM(NAME, T)                                                 \
+  extern "C" int NAME(const void* feat, const void* row_ptr, const void* idx, \
+                      const void* long_rows, int n_rows, int n_long,         \
+                      int piece, void* out, void* stream) {                  \
+    return launch<T>(feat, row_ptr, idx, long_rows, n_rows, n_long, piece,   \
+                     out, stream);                                           \
+  }
 
-extern "C" int segment_sum_bf16(const void* feat, const void* row_ptr,
-                                const void* idx, int n_rows, int c, void* out,
-                                void* stream) {
-  return launch<__nv_bfloat16>(feat, row_ptr, idx, n_rows, c, out, stream);
-}
+SEGMENT_SUM(segment_sum_f32, float)
+SEGMENT_SUM(segment_sum_bf16, __nv_bfloat16)

@@ -10,7 +10,9 @@ layer. Output in bf16 in bf16 mode, else in x's dtype; x may be f32 in
 bf16 mode (the level-0 GMP when the encoder runs in f32).
 
 CUDA design (`csrc/node_mlp.cu`, on kernel 6's cluster,
-`csrc/node_cluster.cuh`): a thread-block cluster of CLUSTER CTAs per
+`csrc/node_cluster.cuh`; its device code, `csrc/node_cluster_fwd.cuh`, is
+shared with kernel 10's deep levels, `agg_node.py`, which feed it an
+aggregate summed on chip): a thread-block cluster of CLUSTER CTAs per
 ROWS-row tile, CTA q computing the output columns [32q, 32q + 32) of every
 product from the full input tile, which the cluster's CTAs assemble from
 each other's column slices through distributed shared memory after the

@@ -16,19 +16,34 @@ each row, the reverse edges of its receiver slots (the TPU kernel run on
 `feat[reverse_perm]`; level edge sets are symmetric).
 
 CUDA design (`csrc/segment_sum.cu`): the one-hot MXU product becomes direct
-row reads. One warp per output row reads the row's slot list (`row_ptr`,
-`row_slots`, or `row_send` for the sender form) and adds the listed rows in
-list order in f32, eight rows in flight; no atomics, so the result repeats
-from run to run. The TPU's sequential grid over chunks, revisiting a
-128-row output block, is not carried over: rows are independent, and the
-deep levels, a few blocks with ~10k slots each, spread over one warp per
-row. What bounds it on the card: bytes (each slot's row read once, the
-output written once; C adds per slot).
+row reads over the layout's slot lists (`row_ptr` with `row_slots`, or
+`row_send` for the sender form: the same lists of the reverse edges, so
+the same lengths and the same long rows, `row_long`), in one launch of the
+row-ordered gather (`csrc/row_gather.cuh`), in f32 with no atomics, so the
+result repeats from run to run. A warp walks four consecutive short lists
+as one range, its lanes resolving 32 positions at once; a list of more
+than GATHER_PIECE = 32 slots gets a block of its own. The order of the
+sums: a list of up to 32 slots in list order; a longer one in pieces of
+32, warp w of the block summing pieces w, w + 8, ... (each from zero, in
+list order, and added in turn), and the warps' sums added in warp order.
+Kernel 10 (`agg_node.py`) sums its aggregate on chip in this order, so its
+backward, which sums the aggregate again with this kernel, sees the
+forward's. The TPU's sequential grid over chunks, revisiting a 128-row
+output block, is not carried over: rows are independent. What bounds it
+on the card: bytes (each slot's row read once, the output written once;
+C adds per slot). The walk costs where lists are long but few warps run:
+on the 16k surface's levels 3-4 (2,048 and 1,024 rows of 26 and 44 slots
+on average) a warp walks four lists of ~26 slots one after the other,
+and a block of 8 warps sums a list of ~44 on two of them, so those levels
+read slower than one warp per row walking its list alone
+(`level_times.py`, PERF.md §6).
 
 Widths that are not a multiple of 128 take the plain version on purpose,
 as JAX's `_supported` (`segment_sum.py:118-131`) sends them to XLA: the
 3-wide world-position stream of the world-edge models. Those calls count
-in `segment_sum_raw.narrow_calls`, apart from the kernel's launches.
+in `segment_sum_raw.narrow_calls`, apart from the kernel's launches. The
+kernel takes rows of 128 (the latent width of every path); other
+multiples of 128 raise.
 Skip-empty layouts (the residual sub-levels) are refused, as `_supported`
 refuses them: a block that owns no chunk would get no row. Their sums go
 through kernel 9 (`segment_sum_accum.py`).
@@ -38,9 +53,10 @@ from __future__ import annotations
 
 import torch
 
+from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
-_SIG = [build.P] * 3 + [build.I] * 2 + [build.P] * 2
+_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
 _FN = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
 
 
@@ -91,17 +107,21 @@ def segment_sum_raw(level, feat, send: bool = False):
     if c % 128:
         segment_sum_raw.narrow_calls += 1
         return segment_sum_plain(level, feat, send)
+    if c != 128:
+        raise NotImplementedError(f"kernel 8 takes rows of 128, not {c}")
     if feat.dtype not in _FN:
         raise ValueError(f"feat dtype {feat.dtype}")
     slots = _slots(level, send)
-    build.require("segment_sum", feat.device, level.row_ptr, slots)
+    build.require("segment_sum", feat.device, level.row_ptr, slots,
+                  level.row_long)
     lib = build.library("segment_sum", {f: _SIG for f in _FN.values()})
     feat = feat.contiguous()
     out = torch.empty(level.n_pad_nodes, c, dtype=torch.float32,
                       device=feat.device)
     err = getattr(lib, _FN[feat.dtype])(
         feat.data_ptr(), level.row_ptr.data_ptr(), slots.data_ptr(),
-        level.n_pad_nodes, c, out.data_ptr(),
+        level.row_long.data_ptr(), level.n_pad_nodes, level.row_long.numel(),
+        GATHER_PIECE, out.data_ptr(),
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     build.check(err, "segment_sum")

@@ -40,11 +40,14 @@ Phases (any failure exits non-zero without the result line):
    version, its library call and its bound;
 9. the 16,000-node inflating surface of bench.py (a closed sphere mesh,
    depth 7, the default unwindowed hierarchy, the `pallas` method, world
-   edges, the inflating-font model at latent 128, hidden 3): kernels 8 and
-   10 against their plain versions (f32, bf16, with a bf16 control for
-   kernel 10), then phases 4, 5, 7 and 8 on it (its path has no backward
-   kernel of its own to time; kernel 10 is timed at every level with
-   64- and 16-row tiles instead), the `Trainer` run on a frame pair of
+   edges, the inflating-font model at latent 128, hidden 3): kernels 8
+   (both forms at every level, and on T0-T2's operators) and 10 (at every
+   level) against their plain versions, twice for bit-identical outputs
+   (f32, bf16, with a bf16 control for kernel 10), and kernel 10 against
+   kernel 3 on kernel 8's aggregate, bit for bit, at every level in f32,
+   bf16 and bf16 on f32 x; then phases 4, 5, 7 and 8 on it (its path has
+   no backward kernel of its own to time; kernels 8 and 10 are timed at
+   every shape instead), the `Trainer` run on a frame pair of
    `generate_inflating_trajectory`;
 10. the flag (flag_simple at full width and depth: a Morton-ordered
    1,568-node cloth strip, depth 5, edge_block 512, window 256, the `fused`
@@ -144,12 +147,13 @@ TOL = {
     ("fused_node_phase", torch.bfloat16): (5e-2, 5e-4),
     ("windowed_rect_conv", torch.bfloat16): (2e-5, 1e-6),
     ("compact_accum", torch.bfloat16): (2e-5, 1e-6),
-    # Kernel 8 sums rows in slot order, the plain version with atomics in
-    # another: f32 sums in another order, of ~100 rows at the pad row
-    # n_pad - 1 (bf16 rows add exactly in f32). Kernel 10 rounds as kernel
-    # 3 does; its largest bf16 error is one bf16 step of an output between
-    # 4 and 8 (2^-5, 2.2e-2 of the RMS), and its control misses by the RMS
-    # error.
+    # Kernel 8 sums rows in the row gather's order (a list of more than 32
+    # rows in pieces), the plain version with atomics in another: f32 sums
+    # in another order, of up to ~180 rows (the pad row n_pad - 1, the deep
+    # levels' rows; bf16 rows add exactly in f32). Kernel 10 rounds as
+    # kernel 3 does; its largest bf16 error is one bf16 step of an output
+    # between 4 and 8 (2^-5, 2.2e-2 of the RMS), and its control misses by
+    # the RMS error.
     ("segment_sum", torch.float32): (2e-5, 1e-6),
     ("segment_sum", torch.bfloat16): (2e-5, 1e-6),
     ("fused_aggregate_node_phase", torch.float32): (2e-5, 1e-6),
@@ -449,6 +453,12 @@ TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
               "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd",
               "fused_edge_phase", "fused_edge_mlp_aggregate")
 NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
+# Kernels 8 and 10 sum in the row-ordered gather's order
+# (`csrc/row_gather.cuh`), fixed by the layout's tables: checked twice for
+# bit-identical outputs at every level of the pallas surface (and kernel 8
+# on T0-T2's operators), kernel 10 also against kernel 3 on kernel 8's
+# aggregate (`check_agg_identity`).
+ROW_ORDERED = ("segment_sum", "fused_aggregate_node_phase")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_mlp_aggregate_bwd": (7,),
@@ -468,7 +478,8 @@ WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_phase_bwd": 600, "fused_edge_phase_win_k": 700,
              "fused_edge_phase_win_dyn": 800,
              "fused_edge_phase_win_k_bwd": 900, "fused_edge_phase": 1000,
-             "fused_edge_mlp_aggregate": 1100}
+             "fused_edge_mlp_aggregate": 1100, "segment_sum": 1200,
+             "fused_aggregate_node_phase": 1300}
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -513,9 +524,11 @@ KERNEL_META = {
     "segment_sum": (
         _CSRC + "segment_sum.cu", _PALLAS + "segment_sum.py:84",
         ("segment_sum_kernel",)),
+    # Kernel 10 launches one of its two designs' kernels
+    # (`fused_aggregate_node_phase_block_kernel` or `_cluster_kernel`).
     "fused_aggregate_node_phase": (
         _CSRC + "agg_node.cu", _PALLAS + "agg_node.py:74",
-        ("fused_aggregate_node_phase_kernel",)),
+        ("fused_aggregate_node_phase_",)),
     "fused_edge_phase_win_dyn": (
         _CSRC + "fused_gmp_dyn.cu", _PALLAS + "fused_gmp.py:664",
         ("fused_edge_phase_win_dyn_kernel", "recv_gather_kernel")),
@@ -1177,29 +1190,41 @@ def kernel_inputs(case, dtype, device):
     cd = dtype if dtype == torch.bfloat16 else None
     if case["cfg"].aggregation == "pallas":
         # Kernel 8 at level 0 (kernel 10's backward, the gathers'
-        # backwards) in both forms and at T0 down (the forward); kernel 10
-        # at level 0 (64-row tiles) and level 6 (16-row tiles).
-        l6, g6 = hd.levels[6], sim.process.down_gmps[6]
+        # backwards) in both forms and at T0 down (the forward), drawn from
+        # g; then at every other level in both forms and on T0-T2's other
+        # operators, each from a generator of its own. Kernel 10 at every
+        # level (level 0 from g) and, in bf16, on f32 x at level 0 (bf16
+        # compute on f32 x: the level-0 GMP under io_dtype=float32).
         e0 = lvl.n_pad_edges
 
-        def agg(level, mlp, x_dt):
-            return (level, rand(level.n_pad_edges, c, dt=dtype),
-                    rand(level.n_pad_nodes, c, dt=x_dt), mlp, cd)
+        def own(name, i):
+            return functools.partial(rand, gen=torch.Generator(
+                device="cpu").manual_seed(WALK_SEED[name] + i))
 
-        return {
-            "segment_sum": [
-                ("level 0", (lvl, rand(e0, c, dt=dtype))),
+        def agg(level, mlp, x_dt, r=rand):
+            return (level, r(level.n_pad_edges, c, dt=dtype),
+                    r(level.n_pad_nodes, c, dt=x_dt), mlp, cd)
+
+        sums = [("level 0", (lvl, rand(e0, c, dt=dtype))),
                 ("level 0 send", (lvl, rand(e0, c, dt=dtype), True)),
                 ("T0 down", (t0.down_op,
-                             rand(t0.down_op.n_pad_edges, c, dt=dtype)))],
-            "fused_aggregate_node_phase": [
-                ("level 0", agg(lvl, gmp.mlp_node, dtype)),
-                ("level 6", agg(l6, g6.mlp_node, dtype)),
-                # bf16 compute on f32 x: the level-0 GMP under
-                # io_dtype=float32
-                *([("f32 x", agg(lvl, gmp.mlp_node, torch.float32))]
-                  if cd is not None else [])],
-        }
+                             rand(t0.down_op.n_pad_edges, c, dt=dtype)))]
+        for l, d in enumerate(hd.levels[1:], 1):
+            r = own("segment_sum", l)
+            sums += [(f"level {l}", (d, r(d.n_pad_edges, c, dt=dtype))),
+                     (f"level {l} send",
+                      (d, r(d.n_pad_edges, c, dt=dtype), True))]
+        for i, (where, op) in enumerate(sparse_ops(hd)):
+            if where != "T0 down":
+                sums.append((where, (op, own("segment_sum", 20 + i)(
+                    op.n_pad_edges, c, dt=dtype))))
+        aggs = [("level 0", agg(lvl, gmp.mlp_node, dtype))]
+        if cd is not None:
+            aggs.append(("f32 x", agg(lvl, gmp.mlp_node, torch.float32)))
+        aggs += [(f"level {l}", agg(d, level_gmp(sim, hd, l).mlp_node, dtype,
+                                    own("fused_aggregate_node_phase", l)))
+                 for l, d in enumerate(hd.levels[1:], 1)]
+        return {"segment_sum": sums, "fused_aggregate_node_phase": aggs}
     if interleave(case) > 1:
         # Kernel 14 at every level that passes the density gate (the first
         # drawn from g, each later one from a generator of its own) and,
@@ -1387,6 +1412,41 @@ def check_kernels(case, device):
     return errs
 
 
+def check_agg_identity(case):
+    """Kernel 10 against kernel 3 on kernel 8's aggregate, at every level
+    of the pallas surface, in f32, in bf16 and in bf16 compute on f32 x:
+    bit for bit, on the tile `agg_node.tile_design` picks at each level.
+    Both sum the aggregate in the row-ordered gather's order, both round it
+    to bf16 where bf16 compute takes it as a dot operand, and both of
+    kernel 10's node phases (the one-block tile, kernel 3's cluster) do
+    kernel 3's arithmetic (one FMA chain per output over k in order, the
+    same LayerNorm), so any difference is a fault. None of these launches
+    is counted on the main path."""
+    fns = kernel_modules()
+    agg, node, seg = (fns[k][0] for k in ("fused_aggregate_node_phase",
+                                          "fused_node_phase", "segment_sum"))
+    hd, sim = case["hd"], case["sim"]
+    bf = torch.bfloat16
+    modes = (("f32", torch.float32, torch.float32, None),
+             ("bf16", bf, bf, bf), ("bf16 on f32 x", torch.float32, bf, bf))
+    for l, lvl in enumerate(hd.levels):
+        g = torch.Generator(device="cpu").manual_seed(1400 + l)
+        feat = torch.randn(lvl.n_pad_edges, 128, generator=g)
+        x = torch.randn(lvl.n_pad_nodes, 128, generator=g)
+        mlp = level_gmp(sim, hd, l).mlp_node
+        same = []
+        for mode, x_dt, f_dt, cd in modes:
+            f, xx = feat.to(f_dt).cuda(), x.to(x_dt).cuda()
+            got = agg(lvl, f, xx, mlp, cd)
+            want = node(xx, seg(lvl, f), mlp, cd)
+            same.append(torch.equal(got, want))
+            require(same[-1], f"kernel 10 at level {l} ({mode}) differs from "
+                              f"kernel 3 on kernel 8's aggregate")
+        print(f"[{case['label']}] kernel 10 = kernel 3 on kernel 8's "
+              f"aggregate at level {l}, bit for bit in "
+              + ", ".join(m for (m, *_), ok in zip(modes, same) if ok))
+
+
 def check_kernel(name, where, args, dtype, sparse=False):
     """One kernel against its plain version on `args`, and in bf16 its
     control, which must miss the tolerance. A tile walk or a node cluster
@@ -1397,10 +1457,12 @@ def check_kernel(name, where, args, dtype, sparse=False):
     fn, plain = kernel_modules()[name]
     tol_max, tol_rms = TOL[(name, dtype)]
     got, want = run(name, fn, args), run(name, plain, args)
-    if name in TILE_WALKS or name in NODE_CLUSTERS:
+    if name in TILE_WALKS or name in NODE_CLUSTERS or name in ROW_ORDERED:
         same = torch.equal(got, run(name, fn, args))
         line = (walk_line(name, where, dtype, args) if name in TILE_WALKS
-                else node_walk_line(name, where, dtype, args))
+                else node_walk_line(name, where, dtype, args)
+                if name in NODE_CLUSTERS
+                else row_walk_line(name, where, dtype, args))
         print(line + "; two calls " + ("bit-identical" if same else "DIFFER"))
         require(same, f"{name} {where} {dtype}: two calls on the same "
                       f"inputs differ")
@@ -1565,24 +1627,6 @@ def event_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def queued_ms(fn, reps=50):
-    """Device ms per call of `fn`: the calls are queued behind a sleep
-    kernel (~30 ms, far longer than the host takes to issue them), so the
-    card runs them back to back and CUDA events do not count the host's
-    time between short launches."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -1883,8 +1927,6 @@ def measure(case):
                     or name in EVERY_SHAPE_TIMED):
                 for where, args in shapes[1:]:
                     time_kernel(name, where, args, dtype)
-    if case["cfg"].aggregation == "pallas":
-        tile_sweep(case)
     return rows, {"forward_ms_f32": t[torch.float32],
                   "forward_ms_bf16": t[torch.bfloat16],
                   "forward_busy_ms_f32": busy[torch.float32],
@@ -1893,37 +1935,6 @@ def measure(case):
                   "forward_peak_above_mib_bf16": peak[torch.bfloat16],
                   "rollout_step_ms_f32": step,
                   "rollout_step_busy_ms_f32": roll[1] / 2}
-
-
-def tile_sweep(case):
-    """Kernel 10 (f32) at every level of the case with 64-row and with
-    16-row tiles, beside the tile the wrapper picks (`agg_node.tile_rows`:
-    64 where that gives at least one block per SM): the evidence for the
-    rule. Device ms per launch (`queued_ms`)."""
-    from bsms_gnn_tpu_torch.ops.kernels import agg_node
-
-    fn = kernel_modules()["fused_aggregate_node_phase"][0]
-    g = torch.Generator(device="cpu").manual_seed(9)
-    rule = agg_node.tile_rows
-    print(f"[{case['label']}] kernel 10 f32 by tile height (device ms per "
-          f"launch):")
-    try:
-        for l, lvl in enumerate(case["hd"].levels):
-            mlp = (case["sim"].process.down_gmps[l].mlp_node
-                   if l < case["hd"].depth
-                   else case["sim"].process.bottom_gmp.mlp_node)
-            feat = torch.randn(lvl.n_pad_edges, 128, generator=g).cuda()
-            x = torch.randn(lvl.n_pad_nodes, 128, generator=g).cuda()
-            ms = {}
-            for rows in (64, 16):
-                agg_node.tile_rows = lambda n, dev, rows=rows: rows
-                ms[rows] = queued_ms(lambda: fn(lvl, feat, x, mlp))
-            agg_node.tile_rows = rule
-            print(f"  level {l}: {lvl.n_pad_nodes} rows, 64-row tiles "
-                  f"{ms[64]:.5f}, 16-row tiles {ms[16]:.5f}; the rule picks "
-                  f"{rule(lvl.n_pad_nodes, x.device)}")
-    finally:
-        agg_node.tile_rows = rule
 
 
 def time_kernel(name, where, args, dtype):
@@ -2054,6 +2065,14 @@ def level_tail(sim, hd, l):
     return list(m.weights)[1:], list(m.biases)[1:]
 
 
+def sparse_ops(hd):
+    """(name, operator) of the transitions' operators that run kernel 8
+    (unwindowed, no dense form), T0 down first."""
+    return [(f"T{l} {w}", op) for l, t in enumerate(hd.transitions)
+            for w, op in (("down", t.down_op), ("up", t.up_op))
+            if op is not None and op.window <= 0 and op.dense is None]
+
+
 def level_shapes(hd, name, rand, g, args):
     """(where, arguments) of a kernel checked at every level: level 0 drawn
     from g, each later level of WALK_LEVELS[name] from a generator of its
@@ -2110,6 +2129,28 @@ def node_walk_line(name, where, dtype, args):
         line += (f"; {per_sm} CTAs per SM, {clusters} clusters at once "
                  f"({'one wave' if tiles <= clusters else 'more than one wave'})")
     return line
+
+
+def row_walk_line(name, where, dtype, args):
+    """Kernel 8's or 10's launch shape for one call: kernel 8's lists (the
+    longest, the rows cut into pieces) and grid; kernel 10's tile
+    (`agg_node.tile_design`) and grid."""
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+
+    lvl = args[0]
+    line = (f"walk {name} {where} {str(dtype)[6:]}: lists "
+            f"{row_list_summary(lvl.row_ptr)}")
+    if name == "segment_sum":
+        n, n_long = lvl.n_pad_nodes, lvl.row_long.numel()
+        return line + f", grid {-(-n // 32) + n_long} blocks of 8 warps"
+    n = args[2].shape[0]
+    tile = agg_node.tile_design(n, torch.cuda.get_device_properties(
+        args[2].device).multi_processor_count)
+    rows = agg_node.TILES[tile][1]
+    grid = (f"{n // rows * agg_node.CLUSTER} CTAs in clusters of "
+            f"{agg_node.CLUSTER}" if tile.startswith("cluster")
+            else f"{n // rows} blocks")
+    return line + f"; {tile}: {n // rows} tiles of {rows} rows, grid {grid}"
 
 
 def frac(a, b):
@@ -2549,26 +2590,46 @@ def row_list_summary(row_ptr):
     return f"max {int(n.max())}, {int((n > 32).sum())} rows over 32"
 
 
-def profile_call(fn):
+def profile_call(fn, tries=5):
     """One call of `fn` under torch.profiler: wall ms (host clock, ends in
     a synchronize), device-busy ms (sum of the CUDA kernels' times; one
     stream, so they do not overlap), kernel launches, the kernels that took
     the most device time, and each CUDA kernel's launches and device ms by
-    name."""
+    name. The profiler now and then drops kernels from a trace, which reads
+    low: a trace that holds fewer of the port's CUDA kernels than the call's
+    wrapper launches ran (`port_kernels`) is taken again, up to `tries`
+    times, as level_times.py does; the fullest trace is kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = {k for _, _, ks in KERNEL_META.values() for k in ks}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_ms(e) > 0
-               and not getattr(e, "is_user_annotation", False)]
+    best = None
+    for _ in range(tries):
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        want = port_kernels(read_counts(KERNEL_META))
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _device_ms(e) > 0
+                   and not getattr(e, "is_user_annotation", False)]
+        got = sum(e.count for e in kernels
+                  if any(n in e.key for n in names))
+        if best is None or got > best[0]:
+            best = got, wall, kernels
+        if got >= want:
+            break
+        print(f"  (a profile held {got} of the port's CUDA kernels, not the "
+              f"{want} its launches ran: taken again)")
+    else:
+        print(f"  note: no profile of {tries} held all {want} port kernels; "
+              f"the fullest held {best[0]}")
+    _, wall, kernels = best
     busy = sum(_device_ms(e) for e in kernels)
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_ms, reverse=True)[:8]
@@ -2691,6 +2752,8 @@ def run_case(build, device):
         case = build(device)
         describe(case)
         errs = check_kernels(case, device)
+        if case["cfg"].aggregation == "pallas":
+            check_agg_identity(case)
         serve = check_slice(case, device)
         rows, e2e = measure(case)
         if case["cfg"].aggregation != "pallas":

@@ -1,14 +1,15 @@
 """Per-level device times of the port's kernels on the paths that run them,
-in f32 and bf16: kernels 11's forward (every level of the 16k surface on
-the fused method) and 12's forward (every level of the unwindowed 5k
-airfoil), and beside them, as controls, kernels 14 (forward and backward)
-at the `fused4` airfoil's gated levels, 13 (forward and backward) at
-every level of the flag, 12's backward at every level of the unwindowed
-airfoil, kernels 3, 6, 5 and 4 at every level of the 5k airfoil
-(chip_smoke.py's main path), and at the level of their own paths' first
-shapes kernel 10 (the 16k surface, pallas) and 11's backward (the flag's
-level 0, edge_block 512). A kernel on a tile walk also prints the blocks
-per SM it reaches.
+in f32 and bf16: kernels 10 (every level of the 16k surface, pallas; and
+on each of its tiles, for a port that has them) and 8 (the same
+surface: every level in both forms and T0-T2's operators), and beside
+them, as controls, kernels 11's forward (every level of the 16k surface
+on the fused method), 12's forward (every level of the unwindowed 5k
+airfoil), 14 (forward and backward) at the `fused4` airfoil's gated
+levels, 13 (forward and backward) at every level of the flag, 12's
+backward at every level of the unwindowed airfoil, kernels 3, 6, 5 and 4
+at every level of the 5k airfoil (chip_smoke.py's main path), and 11's
+backward at its first shape (the flag's level 0, edge_block 512). A
+kernel on a tile walk also prints the blocks per SM it reaches.
 
 Each figure is the device ms of one call (the profiler's, summed over the
 CUDA kernels the call launches, so that two designs compare whatever they
@@ -21,9 +22,9 @@ flag, 6 for kernel 14 at levels 3-5). The inputs are chip_smoke.py's
 values under any commit. A profile that dropped launches (it holds fewer
 than the repeats times one call's) is taken again. Also the peak device
 memory of one train step of the airfoil, the flag, the unwindowed
-airfoil, the `fused4` airfoil and the fused surface (chip_smoke.py's
-`Trainer`, after its warmup gate) above what the step starts with, each
-read after the previous path's case is freed.
+airfoil, the `fused4` airfoil, the pallas surface and the fused surface
+(chip_smoke.py's `Trainer`, after its warmup gate) above what the step
+starts with, each read after the previous path's case is freed.
 
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
@@ -59,12 +60,12 @@ KERNELS = {
     "kernel 5": ("airfoil", "fused_edge_phase_win_bwd", True, True),
     "kernel 4": ("airfoil", "fused_edge_phase_win", False, True),
     "kernel 13 bwd": ("flag", "fused_edge_phase_win_dyn_bwd", True, True),
-    "kernel 10": ("surface", "fused_aggregate_node_phase", False, False),
+    "kernel 10": ("surface", "fused_aggregate_node_phase", False, True),
     "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
 }
 # Paths whose train step's peak memory is read.
 PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4",
-              "surface_fused")
+              "surface", "surface_fused")
 
 
 def device_ms(fn, reps=20, tries=5):
@@ -170,6 +171,76 @@ def time_kernel(cs, case, device, label, name, bwd, every):
     return out
 
 
+def time_segment_sum(cs, case, device):
+    """Kernel 8 on the pallas surface: {dtype: {"shapes": {where: ms},
+    "bounds": {where: ms}, "step_ms": ms}} at every level in both forms and
+    on T0-T2's operators (chip_smoke's shapes). A train step launches it
+    three times in each GMP's backward (twice the receiver form, once the
+    sender form: 2 GMPs a level above the bottom, 1 at the bottom) and
+    twice on each operator (its transition's forward and the other
+    direction's adjoint): 57 launches."""
+    fn = cs.kernel_modules()["segment_sum"][0]
+    depth = case["hd"].depth
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = cs.kernel_inputs(case, dtype, device)["segment_sum"]
+        key = str(dtype)[6:]
+        per = {w: device_ms(lambda: fn(*a)) for w, a in shapes}
+        bound = {w: bound_ms(cs, "segment_sum", a, dtype) for w, a in shapes}
+        launches = {}
+        for w in per:
+            if w.startswith("level "):
+                l = int(w.split()[1])
+                launches[w] = (2 if l < depth else 1) * (
+                    1 if w.endswith("send") else 2)
+            else:
+                launches[w] = 2
+        step = sum(per[w] * n for w, n in launches.items())
+        step_bound = sum(bound[w] * n for w, n in launches.items())
+        out[key] = {"shapes": per, "bounds": bound, "step_ms": step,
+                    "step_bound_ms": step_bound}
+        print(f"kernel 8 (segment_sum) {key}: " + ", ".join(
+            f"{w} {per[w]:.5f} (bound {bound[w]:.5f})" for w in per)
+            + f" ms; the {sum(launches.values())} launches of a step "
+            f"{step:.4f} ms against {step_bound:.4f} ms of bound")
+    return out
+
+
+def sweep_tiles(cs, case, device):
+    """Kernel 10 at every level of the pallas surface on each of its tiles
+    ({dtype: {level: {tile: ms}}}), beside the wrapper's pick; None where
+    the port timed has no such tiles (its kernel 10 has one design)."""
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+
+    if not hasattr(agg_node, "TILES"):
+        return None
+    fn = cs.kernel_modules()["fused_aggregate_node_phase"][0]
+    rule = agg_node.tile_design
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            shapes = cs.kernel_inputs(case, dtype, device)[
+                "fused_aggregate_node_phase"]
+            key = str(dtype)[6:]
+            out[key] = {}
+            for where, args in shapes:
+                if not where.startswith("level "):
+                    continue
+                ms = {}
+                for tile in agg_node.TILES:
+                    agg_node.tile_design = lambda n, s, tile=tile: tile
+                    ms[tile] = device_ms(lambda: fn(*args))
+                agg_node.tile_design = rule
+                out[key][where] = ms
+                print(f"kernel 10 {key} {where} by tile: " + ", ".join(
+                    f"{t} {v:.5f}" for t, v in ms.items())
+                    + f" ms; the rule picks {rule(args[2].shape[0], sms)}")
+    finally:
+        agg_node.tile_design = rule
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -211,6 +282,9 @@ def main() -> int:
                 if p == path:
                     out[label] = time_kernel(cs, case, device, label, name,
                                              bwd, every)
+            if path == "surface":
+                out["kernel 8"] = time_segment_sum(cs, case, device)
+                out["kernel 10 tiles"] = sweep_tiles(cs, case, device)
         del case
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": cs.card_line(), **out}))
