@@ -1,7 +1,8 @@
 // The row-ordered gather of kernels 1 (windowed.cu), 2 (compact_resid.cu),
-// 7 (windowed_send.cu), 8 (segment_sum.cu) and 15 (subwin_conv.cu), and of
-// the edge tile walks' aggregates and dxj (kernels 4, 5 and 11-14 and their
-// backwards: kernel 7's front over the receiver lists):
+// 7 (windowed_send.cu), 8 (segment_sum.cu), 9 (segment_sum_accum.cu) and 15
+// (subwin_conv.cu), and of the edge tile walks' aggregates and dxj
+// (kernels 4, 5 and 11-14 and their backwards: kernel 7's front over the
+// receiver lists):
 //
 //   out[dst(k)] (= or +=) Σ_{i ∈ [row_ptr[k], row_ptr[k+1])} w(e_i) · x[row(e_i)]
 //
@@ -16,19 +17,21 @@
 //   unweighted source adds the row as it is (bf16 widens to f32 exactly);
 // - the destination (`Dst`): the output row dst(k) (k itself, or rows[k]:
 //   kernel 2) and how a sum is written: stored, a list with no position
-//   giving a zero row (kernels 1, 4, 5, 7, 15), or added onto the row's
-//   value, read once and written once (kernel 2); rows no list names are
-//   not touched.
+//   giving a zero row (kernels 1, 4, 5, 7, 8, 9's store form, 15), added
+//   onto the row's value, read once and written once (kernel 2), or added
+//   onto the same row of another array, which is read once and left as it
+//   is (kernel 9); rows no list names are not touched.
 // The sum is in f32.
 //
 // Blocks of GATHER_WARPS warps. The first ceil(n_rows / (GATHER_WARPS ·
-// WARP_ROWS)) blocks give each warp WARP_ROWS consecutive lists: the warp
-// walks their concatenation (one contiguous range of positions), 32
-// positions at a time, and writes each row when its list ends. A list of
-// more than `piece` positions (P = 32 from the host) is left out of that
-// walk and gets a block of its own, one of the blocks after those, in the
-// order of `long_rows` (hierarchy.py::long_rows): it is cut into pieces of
-// P positions, warp w sums pieces w, w + GATHER_WARPS, ... in that order,
+// ROWS)) blocks give each warp ROWS consecutive lists (WARP_ROWS = 4; 1 for
+// kernel 9, whose lists hold a few slots each): the warp walks their
+// concatenation (one contiguous range of positions), 32 positions at a
+// time, and writes each row when its list ends. A list of more than
+// `piece` positions (P = 32 from the host) is left out of that walk and
+// gets a block of its own, one of the blocks after those, in the order of
+// `long_rows` (hierarchy.py::long_rows): it is cut into pieces of P
+// positions, warp w sums pieces w, w + GATHER_WARPS, ... in that order,
 // each piece from zero, and warp 0 adds the warps' sums in warp order
 // through 4 KB of shared memory. Every addition's order is fixed by the
 // tables alone, so the result does not depend on scheduling; no atomics.
@@ -37,7 +40,7 @@
 // once (one position per lane), then every lane loads 4 columns of each
 // listed row (16 bytes in f32, 8 in bf16), the rows of 4 (f32) or 8 (bf16)
 // positions in flight before their adds, and sums in registers in list
-// order. A warp of WARP_ROWS short lists pays the chain of dependent loads
+// order. A warp of ROWS short lists pays the chain of dependent loads
 // (row_ptr → slots → the resolver's tables → x) once for all of them; an
 // adding destination loads its rows' values beside the walk's first loads.
 #pragma once
@@ -120,6 +123,20 @@ struct AddToRows {
   static constexpr bool ADD = true;
   const int* rows;
   __device__ __forceinline__ int row(int k) const { return __ldg(rows + k); }
+  // Where the row's value is read: the output itself.
+  __device__ __forceinline__ const float4* base(const float4* out) const {
+    return out;
+  }
+};
+// List k's sum added onto row k of acc, written to row k of the output
+// (kernel 9: acc stays as it is).
+struct AddOnto {
+  static constexpr bool ADD = true;
+  const float* acc;
+  __device__ __forceinline__ int row(int k) const { return k; }
+  __device__ __forceinline__ const float4* base(const float4*) const {
+    return reinterpret_cast<const float4*>(acc);
+  }
 };
 
 // One warp's walk over `n_total` positions: slot_at(i, pos, k) sets the
@@ -184,9 +201,10 @@ __device__ __forceinline__ void gather_walk(const T* __restrict__ x,
   }
 }
 
-// The body of a gather kernel (see the note above) over n_rows lists: out
-// is f32 with rows of C.
-template <bool BF16, typename T, typename Src, typename Dst>
+// The body of a gather kernel (see the note above) over n_rows lists, ROWS
+// short lists a warp: out is f32 with rows of C.
+template <bool BF16, int ROWS = WARP_ROWS, typename T, typename Src,
+          typename Dst>
 __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
                                             const Src& src, const Dst& dst_of,
                                             const int* __restrict__ row_ptr,
@@ -195,21 +213,21 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
                                             float* __restrict__ out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float4* dst = reinterpret_cast<float4*>(out);
-  const int n_short = (n_rows + GATHER_WARPS * WARP_ROWS - 1) /
-                      (GATHER_WARPS * WARP_ROWS);
+  const int n_short = (n_rows + GATHER_WARPS * ROWS - 1) /
+                      (GATHER_WARPS * ROWS);
   if ((int)blockIdx.x < n_short) {
-    // WARP_ROWS lists; the long ones are left to their own blocks.
-    const int r0 = (blockIdx.x * GATHER_WARPS + warp) * WARP_ROWS;
+    // ROWS lists; the long ones are left to their own blocks.
+    const int r0 = (blockIdx.x * GATHER_WARPS + warp) * ROWS;
     if (r0 >= n_rows) return;
-    const int p = __ldg(row_ptr + min(r0 + min(lane, WARP_ROWS), n_rows));
+    const int p = __ldg(row_ptr + min(r0 + min(lane, ROWS), n_rows));
     int o = 0;  // an adding destination's row of list r0 + lane
     if constexpr (Dst::ADD)
-      o = dst_of.row(min(r0 + min(lane, WARP_ROWS - 1), n_rows - 1));
-    int first[WARP_ROWS], at[WARP_ROWS + 1];  // list offset, walk offset
+      o = dst_of.row(min(r0 + min(lane, ROWS - 1), n_rows - 1));
+    int first[ROWS], at[ROWS + 1];  // list offset, walk offset
     unsigned short_rows = 0;
     at[0] = 0;
 #pragma unroll
-    for (int k = 0; k < WARP_ROWS; ++k) {
+    for (int k = 0; k < ROWS; ++k) {
       first[k] = __shfl_sync(FULL_MASK, p, k);
       const int len = __shfl_sync(FULL_MASK, p, k + 1) - first[k];
       const bool keep = r0 + k < n_rows && len <= piece;
@@ -217,21 +235,22 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
       at[k + 1] = at[k] + (keep ? len : 0);
     }
     // An adding destination's rows and their values, loaded before the walk.
-    int orow[WARP_ROWS];
-    float4 base[WARP_ROWS];
+    int orow[ROWS];
+    float4 base[ROWS];
     if constexpr (Dst::ADD) {
+      const float4* from = dst_of.base(dst);
 #pragma unroll
-      for (int k = 0; k < WARP_ROWS; ++k) {
+      for (int k = 0; k < ROWS; ++k) {
         orow[k] = __shfl_sync(FULL_MASK, o, k);
         if (short_rows >> k & 1u)
-          base[k] = dst[(size_t)orow[k] * (C / 4) + lane];
+          base[k] = from[(size_t)orow[k] * (C / 4) + lane];
       }
     }
     const auto slot_at = [&](int i, int& pos, int& k) {
       k = 0;
       pos = first[0] + i;
 #pragma unroll
-      for (int kk = 1; kk < WARP_ROWS; ++kk)
+      for (int kk = 1; kk < ROWS; ++kk)
         if (i >= at[kk]) {
           k = kk;
           pos = first[kk] + i - at[kk];
@@ -241,7 +260,7 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
       if (!(short_rows >> k & 1u)) return;
       if constexpr (Dst::ADD) {
 #pragma unroll
-        for (int kk = 0; kk < WARP_ROWS; ++kk)
+        for (int kk = 0; kk < ROWS; ++kk)
           if (kk == k) {
             add4(s, base[kk]);
             dst[(size_t)orow[kk] * (C / 4) + lane] = s;
@@ -250,7 +269,7 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
         dst[(size_t)(r0 + k) * (C / 4) + lane] = s;
       }
     };
-    gather_walk<BF16>(x, src, at[WARP_ROWS], WARP_ROWS, slot_at, flush, lane);
+    gather_walk<BF16>(x, src, at[ROWS], ROWS, slot_at, flush, lane);
     return;
   }
   // One long list, in pieces of `piece` positions over the block's warps.
@@ -272,7 +291,8 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
   __syncthreads();
   if (warp == 0) {
     for (int w = 1; w < GATHER_WARPS; ++w) add4(s, part[w][lane]);
-    if constexpr (Dst::ADD) add4(s, dst[(size_t)o * (C / 4) + lane]);
+    if constexpr (Dst::ADD)
+      add4(s, dst_of.base(dst)[(size_t)o * (C / 4) + lane]);
     dst[(size_t)o * (C / 4) + lane] = s;
   }
 }
@@ -293,10 +313,10 @@ recv_gather_kernel(const T* __restrict__ rows,
                     long_rows, n_rows, piece, out);
 }
 
-// Blocks of a gather launch over n_rows lists, n_long of them long.
-inline int gather_blocks(int n_rows, int n_long) {
-  return (n_rows + GATHER_WARPS * WARP_ROWS - 1) / (GATHER_WARPS * WARP_ROWS) +
-         n_long;
+// Blocks of a gather launch over n_rows lists, n_long of them long, `rows`
+// short lists a warp.
+inline int gather_blocks(int n_rows, int n_long, int rows = WARP_ROWS) {
+  return (n_rows + GATHER_WARPS * rows - 1) / (GATHER_WARPS * rows) + n_long;
 }
 
 }  // namespace bsms

@@ -1,9 +1,9 @@
-// The per-row slot sum of kernels 9 (segment_sum_accum.cu) and 10
-// (agg_node.cu, a short list or one piece of a long one): one warp sums
-// one output row's listed feature rows, each lane four neighbouring
-// columns, in list order and in f32 (no atomics: a result repeats from run
-// to run, and equals a sequential f32 sum in slot order). Also the lane
-// loads (`load4`) and adds (`add4`) of the other kernels.
+// The per-row slot sum of kernel 10 (agg_node.cu, a short list or one
+// piece of a long one): one warp sums one output row's listed feature rows,
+// each lane four neighbouring columns, in list order and in f32 (no
+// atomics: a result repeats from run to run, and equals a sequential f32
+// sum in slot order). Also the lane loads (`load4`) and adds (`add4`) of
+// the other kernels.
 #pragma once
 
 #include "common.cuh"

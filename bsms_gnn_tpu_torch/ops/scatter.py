@@ -6,9 +6,10 @@ The gathers are row selections whose backward sums the edge cotangents
 back onto the nodes through kernel 8 (`kernels/segment_sum.py`): the
 sender form for `gather_send`, the receiver form for `gather_recv`, as
 `_gather_with_pallas_bwd` (`scatter.py:121-175`) does on the TPU. On a
-skip-empty layout (a residual sub-level) the sums run through kernel 9
-onto zeros instead (`scatter.py:149-171`), since kernel 8 refuses such
-layouts. Autograd of `index_select` would run an `index_add_` scatter.
+skip-empty layout (a residual sub-level) the sums run through kernel 9's
+store form instead, since kernel 8 refuses such layouts: the function of
+JAX's kernel 9 onto zeros (`scatter.py:149-171`), with no zero fill.
+Autograd of `index_select` would run an `index_add_` scatter.
 """
 
 from __future__ import annotations
@@ -35,11 +36,9 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, ct):
         lvl = ctx.level
         if lvl.skip_empty:
-            zeros = ct.new_zeros(lvl.n_pad_nodes, ct.shape[-1],
-                                 dtype=torch.float32)
             accum = (segment_sum_accum_send_raw if ctx.send
                      else segment_sum_accum_raw)
-            out = accum(lvl, ct, zeros)
+            out = accum(lvl, ct, None)
         else:
             out = segment_sum_raw(lvl, ct, send=ctx.send)
         return None, None, out.to(ctx.dtype)

@@ -77,10 +77,12 @@ Phases (any failure exits non-zero without the result line):
    group (window 256, edge_block 512), each padded to the group's buckets,
    so the hierarchies have no TransOp and no compact residual; the 1,885-
    node mesh served: kernel 1's level form (the explicit conv, down and
-   up) and kernel 9 (both forms, on the residual sub-levels and on a
-   forced empty one) against their plain versions, then phases 4, 5, 7 and
-   8 on it (both kernels timed), the `Trainer` run stepping across the
-   three meshes on frames of the analytic flow;
+   up) and kernel 9 (both forms, on acc and in the store form, at every
+   residual sub-level and on a forced empty one, twice for bit-identical
+   outputs, the store form bit for bit the call on zeros) against their
+   plain versions, then phases 4, 5, 7 and 8 on it (both kernels timed,
+   kernel 9 at every shape), the `Trainer` run stepping across the three
+   meshes on frames of the analytic flow;
 14. the 5k airfoil of phase 2 on `aggregation="fused4"` (the K-way
    interleaved method): kernel 14, forward and backward, at every level
    that passes the density gate (3, 4 and 5, twice for bit-identical
@@ -178,12 +180,12 @@ TOL = {
     # Kernel 1's level form: the rect form's function and limits.
     ("windowed_conv", torch.float32): (2e-5, 1e-6),
     ("windowed_conv", torch.bfloat16): (2e-5, 1e-6),
-    # Kernel 9 sums in slot order onto acc, the plain version with atomics:
-    # row n_pad - 1 sums every pad slot of the last block, the residual
-    # layout's tail chunks included (hundreds of rows), where f32 sum order
-    # shows, as for kernels 11 and 12; bf16 rows add exactly in f32. Its
-    # control keeps acc in bf16 (a kernel that accumulated in the feature
-    # dtype).
+    # Kernel 9 sums in the row gather's order, then adds acc, the plain
+    # version onto acc with atomics: row n_pad - 1 sums every pad slot of
+    # the last block, the residual layout's tail chunks included (hundreds
+    # of rows), where f32 sum order shows, as for kernels 11 and 12; bf16
+    # rows add exactly in f32. Its control keeps acc in bf16 (a kernel that
+    # accumulated in the feature dtype).
     ("segment_sum_accum", torch.float32): (2e-4, 1e-6),
     ("segment_sum_accum", torch.bfloat16): (2e-4, 1e-6),
     # Kernel 14: kernel 4's function, so kernel 4's limits. Kernel 15: kernel
@@ -420,12 +422,13 @@ WIDE_WD = 6
 # ReLU input within rounding of zero can flip one slot's unit).
 WIDE_TOL = {"output": (2e-4, 2e-6), "grad": (5e-2, 1e-3)}
 # The kernels whose every listed shape is timed, not only the first (the
-# pallas path times all of its own): the row-ordered gathers of kernels 2
-# and 7, whose long lists only their later shapes reach, and the kernels
-# that walk a level's tiles or fill the card at every level, whose later
-# shapes are the levels of fewer tiles.
+# pallas path times all of its own): the row-ordered gathers of kernels 2,
+# 7 and 9, whose long lists or forms only their later shapes reach, and the
+# kernels that walk a level's tiles or fill the card at every level, whose
+# later shapes are the levels of fewer tiles.
 EVERY_SHAPE_TIMED = ("compact_accum", "windowed_send_sum",
-                     "fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                     "segment_sum_accum", "fused_edge_phase_win",
+                     "fused_edge_phase_win_bwd",
                      "fused_edge_mlp_aggregate_bwd", "fused_node_phase",
                      "fused_node_phase_bwd", "fused_edge_phase_win_dyn_bwd",
                      "fused_edge_phase_bwd", "fused_edge_phase_win_k",
@@ -453,12 +456,15 @@ TILE_WALKS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
               "fused_edge_phase_win_dyn", "fused_edge_phase_win_k_bwd",
               "fused_edge_phase", "fused_edge_mlp_aggregate")
 NODE_CLUSTERS = ("fused_node_phase", "fused_node_phase_bwd")
-# Kernels 8 and 10 sum in the row-ordered gather's order
+# Kernels 8, 9 and 10 sum in the row-ordered gather's order
 # (`csrc/row_gather.cuh`), fixed by the layout's tables: checked twice for
 # bit-identical outputs at every level of the pallas surface (and kernel 8
 # on T0-T2's operators), kernel 10 also against kernel 3 on kernel 8's
-# aggregate (`check_agg_identity`).
-ROW_ORDERED = ("segment_sum", "fused_aggregate_node_phase")
+# aggregate (`check_agg_identity`); kernel 9 at every residual sub-level of
+# the cylinder and on the forced empty one, its store form also bit for bit
+# against the call on zeros.
+ROW_ORDERED = ("segment_sum", "fused_aggregate_node_phase",
+               "segment_sum_accum")
 WALK_LEVELS = {"fused_edge_phase_win": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_phase_win_bwd": (1, 2, 3, 4, 5, 6, 7),
                "fused_edge_mlp_aggregate_bwd": (7,),
@@ -480,6 +486,9 @@ WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_phase_win_k_bwd": 900, "fused_edge_phase": 1000,
              "fused_edge_mlp_aggregate": 1100, "segment_sum": 1200,
              "fused_aggregate_node_phase": 1300}
+# The seed of the generator that draws kernel 9's inputs at residual
+# sub-level l > 0 (ACCUM_SEED + l).
+ACCUM_SEED = 1500
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -1084,6 +1093,11 @@ def describe(case):
         # every transition, kernel 9 in both GMPs and both convs of each
         # level with a residual sub-level (the bottom level: its GMP).
         resid = [g.resid is not None for g in h.levels]
+        fe = case["forced_empty"]
+        print("kernel 9's lists per residual sub-level: " + "; ".join(
+            f"L{l} {row_list_summary(g.resid.row_ptr)}"
+            for l, g in enumerate(hd.levels) if g.resid is not None)
+            + f"; forced empty {row_list_summary(fe.row_ptr)}")
         expect.update({"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
                        "windowed_conv": 2 * depth,
                        "segment_sum_accum": 4 * sum(resid[:depth])
@@ -1289,8 +1303,29 @@ def kernel_inputs(case, dtype, device):
     if t0.down_op is None:
         # Bucketed: kernel 1's level form at level 0 (down: ew, up: ew_rev)
         # and at level 4 (window 128); kernel 9 on level 0's residual
-        # sub-level in both forms, and on the forced empty one.
+        # sub-level in both forms and on the forced empty one (drawn from
+        # g), then in the store form (no acc) there and in both forms, on
+        # acc and in the store form, at every later residual sub-level
+        # (each from a generator of its own).
         l4, r, fe = hd.levels[4], lvl.resid, case["forced_empty"]
+        accum = [
+            ("level 0", (r, rand(r.n_pad_edges, c, dt=dtype), rand(n0, c))),
+            ("level 0 send", (r, rand(r.n_pad_edges, c, dt=dtype),
+                              rand(n0, c), True)),
+            ("forced empty", (fe, rand(fe.n_pad_edges, c, dt=dtype),
+                              rand(fe.n_pad_nodes, c)))]
+        accum += [(f"{w} store", (a[0], a[1], None, *a[3:]))
+                  for w, a in accum]
+        for l, d in enumerate(hd.levels):
+            if l == 0 or d.resid is None:
+                continue
+            rl = functools.partial(rand, gen=torch.Generator(
+                device="cpu").manual_seed(ACCUM_SEED + l))
+            for send in ((), (True,)):
+                w = f"level {l}{' send' if send else ''}"
+                feat = rl(d.resid.n_pad_edges, c, dt=dtype)
+                accum += [(w, (d.resid, feat, rl(d.n_pad_nodes, c), *send)),
+                          (f"{w} store", (d.resid, feat, None, *send))]
         return {
             **edge, **node,
             "windowed_conv": [
@@ -1298,13 +1333,7 @@ def kernel_inputs(case, dtype, device):
                 ("level 0 up", (lvl, rand(n0, c, dt=dtype), lvl.ew_rev)),
                 ("level 4 down", (l4, rand(l4.n_pad_nodes, c, dt=dtype),
                                   l4.ew))],
-            "segment_sum_accum": [
-                ("level 0", (r, rand(r.n_pad_edges, c, dt=dtype),
-                             rand(n0, c))),
-                ("level 0 send", (r, rand(r.n_pad_edges, c, dt=dtype),
-                                  rand(n0, c), True)),
-                ("forced empty", (fe, rand(fe.n_pad_edges, c, dt=dtype),
-                                  rand(fe.n_pad_nodes, c)))],
+            "segment_sum_accum": accum,
         }
     star = star_resid(case, device)
     return {
@@ -1378,11 +1407,14 @@ def control_args(name, args):
     compact accumulate and the segment sum, whose bf16 modes round nothing
     (bf16 values add exactly into f32 sums). Kernel 9 rounds nothing
     either: its control is a kernel that held the accumulator in bf16
-    (acc rounded to bf16 first), which must miss."""
+    (acc rounded to bf16 first), which must miss; its store form, with no
+    acc, has none."""
     if name in ("compact_accum", "segment_sum"):
         return None
     if name == "segment_sum_accum":
         level, feat, acc, *send = args
+        if acc is None:
+            return None
         return (level, feat, acc.to(torch.bfloat16).float(), *send)
     up = [a.float() if isinstance(a, torch.Tensor)
           and a.dtype == torch.bfloat16 else a for a in args]
@@ -1466,6 +1498,8 @@ def check_kernel(name, where, args, dtype, sparse=False):
         print(line + "; two calls " + ("bit-identical" if same else "DIFFER"))
         require(same, f"{name} {where} {dtype}: two calls on the same "
                       f"inputs differ")
+    if name == "segment_sum_accum" and args[2] is None:
+        check_store_form(where, dtype, args, got)
     err, err_rms, rms, zero_ok, live = filled_compare(got, want, sparse)
     ok = (err <= tol_max * rms and err_rms <= tol_rms * rms and zero_ok
           and bool(torch.isfinite(got).all()))
@@ -1494,6 +1528,21 @@ def check_kernel(name, where, args, dtype, sparse=False):
     require(missed, f"{name} {where}: the bf16 tolerance does "
                     f"not tell an unrounded kernel apart")
     return err
+
+
+def check_store_form(where, dtype, args, got):
+    """Kernel 9's store form (`got`, no acc) bit for bit against the call
+    on zeros: the gather's sum from +0 plus +0 is the sum itself, and such
+    a sum is never -0, so the two share every bit."""
+    fn = kernel_modules()["segment_sum_accum"][0]
+    level, feat, _, *send = args
+    zeros = fn(level, feat, torch.zeros_like(got), *send)
+    same = torch.equal(got.view(torch.int32), zeros.view(torch.int32))
+    print(f"  store form {where} {str(dtype)[6:]}: "
+          + ("bit for bit the call on zeros" if same
+             else "DIFFERS from the call on zeros"))
+    require(same, f"segment_sum_accum {where} {dtype}: the store form "
+                  f"differs from the call on zeros")
 
 
 def relu_inputs(name, args):
@@ -1784,13 +1833,13 @@ def work(name, args, dtype):
         by = n * c * elt + 2 * n * c * 4 + grads + n * c * elt + n * c * 4 + grads
     elif name in ("segment_sum", "segment_sum_accum"):
         # The slots the row table keeps: their rows and slot indices in,
-        # the row pointers in, the f32 output written (kernel 9: acc read
-        # too); one add per slot and column.
+        # the row pointers in, the f32 output written (kernel 9 on acc: acc
+        # read too; its store form reads none); one add per slot and column.
         lvl, feat = args[:2]
         kept, n = lvl.row_slots.numel(), lvl.n_pad_nodes
         ops = kept * c
         by = kept * c * elt + 4 * kept + 4 * (n + 1) + n * c * 4
-        if name == "segment_sum_accum":
+        if name == "segment_sum_accum" and args[2] is not None:
             by += n * c * 4
     elif name == "fused_aggregate_node_phase":
         # Kernel 8's reads, then kernel 3's function with the aggregate
@@ -1855,6 +1904,9 @@ def library_call(name, args):
         slots = lvl.row_send if args[3:] and args[3] else lvl.row_slots
         rows = lvl.receivers.index_select(0, lvl.row_slots).long()
         v = feat.index_select(0, slots).float()
+        if acc is None:  # the store form: onto zeros
+            acc = torch.zeros(lvl.n_pad_nodes, feat.shape[-1],
+                              device=feat.device)
         return lambda: acc.float().index_add(0, rows, v)
     if name == "windowed_send_sum":
         lvl, vals = args
@@ -2132,15 +2184,15 @@ def node_walk_line(name, where, dtype, args):
 
 
 def row_walk_line(name, where, dtype, args):
-    """Kernel 8's or 10's launch shape for one call: kernel 8's lists (the
-    longest, the rows cut into pieces) and grid; kernel 10's tile
-    (`agg_node.tile_design`) and grid."""
+    """Kernel 8's, 9's or 10's launch shape for one call: kernel 8's and
+    9's lists (the longest, the rows cut into pieces) and grid; kernel 10's
+    tile (`agg_node.tile_design`) and grid."""
     from bsms_gnn_tpu_torch.ops.kernels import agg_node
 
     lvl = args[0]
     line = (f"walk {name} {where} {str(dtype)[6:]}: lists "
             f"{row_list_summary(lvl.row_ptr)}")
-    if name == "segment_sum":
+    if name in ("segment_sum", "segment_sum_accum"):
         n, n_long = lvl.n_pad_nodes, lvl.row_long.numel()
         return line + f", grid {-(-n // 32) + n_long} blocks of 8 warps"
     n = args[2].shape[0]

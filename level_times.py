@@ -1,15 +1,20 @@
 """Per-level device times of the port's kernels on the paths that run them,
-in f32 and bf16: kernels 10 (every level of the 16k surface, pallas; and
-on each of its tiles, for a port that has them) and 8 (the same
-surface: every level in both forms and T0-T2's operators), and beside
-them, as controls, kernels 11's forward (every level of the 16k surface
-on the fused method), 12's forward (every level of the unwindowed 5k
-airfoil), 14 (forward and backward) at the `fused4` airfoil's gated
-levels, 13 (forward and backward) at every level of the flag, 12's
-backward at every level of the unwindowed airfoil, kernels 3, 6, 5 and 4
-at every level of the 5k airfoil (chip_smoke.py's main path), and 11's
-backward at its first shape (the flag's level 0, edge_block 512). A
-kernel on a tile walk also prints the blocks per SM it reaches.
+in f32 and bf16: kernel 9 (every residual sub-level of the cylinder in
+both forms, on acc and in the store form, and on the forced empty one),
+kernels 10 (every level of the 16k surface, pallas; and on each of its
+tiles, for a port that has them) and 8 (the same surface: every level in
+both forms and T0-T2's operators), and beside them, as controls, kernel
+1's level form (the cylinder's shapes), kernels 2 and 7 (the 5k
+airfoil's), kernels 11's forward (every level of the 16k surface on the
+fused method), 12's forward (every level of the unwindowed 5k airfoil),
+14 (forward and backward) at the `fused4` airfoil's gated levels, 13
+(forward and backward) at every level of the flag, 12's backward at every
+level of the unwindowed airfoil, kernels 3, 6, 5 and 4 at every level of
+the 5k airfoil (chip_smoke.py's main path), and 11's backward at its
+first shape (the flag's level 0, edge_block 512). Kernels 1, 2, 7, 8 and
+9 are timed beside their library call (`index_add_`, `torch.sparse.mm`;
+CUDA events). A kernel on a tile walk also prints the blocks per SM it
+reaches.
 
 Each figure is the device ms of one call (the profiler's, summed over the
 CUDA kernels the call launches, so that two designs compare whatever they
@@ -22,12 +27,13 @@ flag, 6 for kernel 14 at levels 3-5). The inputs are chip_smoke.py's
 values under any commit. A profile that dropped launches (it holds fewer
 than the repeats times one call's) is taken again. Also the peak device
 memory of one train step of the airfoil, the flag, the unwindowed
-airfoil, the `fused4` airfoil, the pallas surface and the fused surface
-(chip_smoke.py's `Trainer`, after its warmup gate) above what the step
-starts with, each read after the previous path's case is freed.
+airfoil, the `fused4` airfoil, the pallas surface, the fused surface and
+the cylinder (chip_smoke.py's `Trainer`, after its warmup gate) above what
+the step starts with, each read after the previous path's case is freed.
 
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
+    python3 level_times.py --paths cylinder,airfoil   # only these paths
 
 To compare two commits on one card, unpack one (`git archive`) into a
 git-ignored directory and time both in one call on the card: parent,
@@ -63,9 +69,42 @@ KERNELS = {
     "kernel 10": ("surface", "fused_aggregate_node_phase", False, True),
     "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
 }
+def segment_sum_step(where, depth):
+    """Kernel 8's launches at a surface shape in one train step: three in
+    each GMP's backward (twice the receiver form, once the sender form;
+    two GMPs a level above the bottom, one at the bottom), two on each
+    operator (its transition's forward and the other direction's
+    adjoint): 57 in all."""
+    if not where.startswith("level "):
+        return 2
+    return (2 if int(where.split()[1]) < depth else 1) * (
+        1 if where.endswith("send") else 2)
+
+
+def accum_step(where, depth):
+    """Kernel 9's launches at a cylinder shape in one train step, at each
+    residual sub-level (levels 0-2): the receiver form on acc in the down
+    and up GMPs' residual edge phases, the down and up convs and their two
+    adjoints (6); the store form in the backwards of the GMPs' residual
+    gathers, by receivers and by senders (2 each): 30 in all. None on the
+    forced empty layout, nor the sender form on acc."""
+    form = " ".join(where.split()[2:]) if where.startswith("level ") else None
+    return {"": 6, "store": 2, "send store": 2}.get(form, 0)
+
+
+# label → (path, kernel, whether chip_smoke's backward inputs, its
+# launches in a train step by shape or None): kernels timed at every shape
+# chip_smoke.py lists for them, beside their bound and their library call.
+SHAPES = {
+    "kernel 9": ("cylinder", "segment_sum_accum", False, accum_step),
+    "kernel 8": ("surface", "segment_sum", False, segment_sum_step),
+    "kernel 1 level form": ("cylinder", "windowed_conv", False, None),
+    "kernel 2": ("airfoil", "compact_accum", False, None),
+    "kernel 7": ("airfoil", "windowed_send_sum", True, None),
+}
 # Paths whose train step's peak memory is read.
 PEAK_PATHS = ("airfoil", "flag", "airfoil_plain", "airfoil_fused4",
-              "surface", "surface_fused")
+              "surface", "surface_fused", "cylinder")
 
 
 def device_ms(fn, reps=20, tries=5):
@@ -106,7 +145,8 @@ def step_peak_mib(cs, case, device, cd):
     """MiB that one train step allocates at its peak above what it starts
     with, after the warmup gate and two updates."""
     tr = cs.make_trainer(case, device, cd)
-    node_in, tar = case["node_in"], cs.train_target(case)
+    node_in, tar = case.get("train_frames") or (case["node_in"],
+                                                cs.train_target(case))
     for _ in range(cs.TRAIN_GATE + 2):
         tr.iter(case["hd"], node_in, tar, case["mask"])
     torch.cuda.synchronize()
@@ -171,38 +211,53 @@ def time_kernel(cs, case, device, label, name, bwd, every):
     return out
 
 
-def time_segment_sum(cs, case, device):
-    """Kernel 8 on the pallas surface: {dtype: {"shapes": {where: ms},
-    "bounds": {where: ms}, "step_ms": ms}} at every level in both forms and
-    on T0-T2's operators (chip_smoke's shapes). A train step launches it
-    three times in each GMP's backward (twice the receiver form, once the
-    sender form: 2 GMPs a level above the bottom, 1 at the bottom) and
-    twice on each operator (its transition's forward and the other
-    direction's adjoint): 57 launches."""
-    fn = cs.kernel_modules()["segment_sum"][0]
-    depth = case["hd"].depth
+def store_call(fn, args):
+    """A call of kernel 9's store form (no acc) on `args`; on a port without
+    that form (its wrapper reads acc's shape) the skip-empty gathers'
+    backward as it ran there: a zero fill and the call on it."""
+    level, feat, _, *send = args
+    try:
+        fn(level, feat, None, *send)
+    except AttributeError:
+        n, c = level.n_pad_nodes, feat.shape[-1]
+        return lambda: fn(level, feat, torch.zeros(n, c, device=feat.device),
+                          *send)
+    return lambda: fn(level, feat, None, *send)
+
+
+def time_shapes(cs, case, device, label, name, bwd, step_launches):
+    """{dtype: {"shapes": {where: ms}, "bounds": {where: ms}, "library":
+    {where: ms}}} at every shape chip_smoke.py lists for the kernel (the
+    library call's time by CUDA events, None where there is none); with
+    `step_launches` also {"step_ms", "step_bound_ms"}: the sums over one
+    train step's launches."""
+    fn = cs.kernel_modules()[name][0]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
-        shapes = cs.kernel_inputs(case, dtype, device)["segment_sum"]
+        shapes = (cs.bwd_kernel_inputs if bwd else cs.kernel_inputs)(
+            case, dtype, device)[name]
         key = str(dtype)[6:]
-        per = {w: device_ms(lambda: fn(*a)) for w, a in shapes}
-        bound = {w: bound_ms(cs, "segment_sum", a, dtype) for w, a in shapes}
-        launches = {}
-        for w in per:
-            if w.startswith("level "):
-                l = int(w.split()[1])
-                launches[w] = (2 if l < depth else 1) * (
-                    1 if w.endswith("send") else 2)
-            else:
-                launches[w] = 2
-        step = sum(per[w] * n for w, n in launches.items())
-        step_bound = sum(bound[w] * n for w, n in launches.items())
-        out[key] = {"shapes": per, "bounds": bound, "step_ms": step,
-                    "step_bound_ms": step_bound}
-        print(f"kernel 8 (segment_sum) {key}: " + ", ".join(
-            f"{w} {per[w]:.5f} (bound {bound[w]:.5f})" for w in per)
-            + f" ms; the {sum(launches.values())} launches of a step "
-            f"{step:.4f} ms against {step_bound:.4f} ms of bound")
+        per, bound, lib = {}, {}, {}
+        for where, args in shapes:
+            call = (store_call(fn, args) if where.endswith("store")
+                    else functools.partial(fn, *args))
+            per[where] = device_ms(call)
+            bound[where] = bound_ms(cs, name, args, dtype)
+            lc = cs.library_call(name, args)
+            lib[where] = None if lc is None else cs.event_ms(lc, reps=50)
+        out[key] = {"shapes": per, "bounds": bound, "library": lib}
+        line = f"{label} ({name}) {key}: " + ", ".join(
+            f"{w} {per[w]:.5f} (bound {bound[w]:.5f}"
+            + ("" if lib[w] is None else f", library {lib[w]:.5f}") + ")"
+            for w in per) + " ms"
+        if step_launches is not None:
+            n = {w: step_launches(w, case["hd"].depth) for w in per}
+            step = out[key]["step_ms"] = sum(per[w] * k for w, k in n.items())
+            sb = out[key]["step_bound_ms"] = sum(bound[w] * k
+                                                 for w, k in n.items())
+            line += (f"; the {sum(n.values())} launches of a step {step:.4f} "
+                     f"ms against {sb:.4f} ms of bound")
+        print(line)
     return out
 
 
@@ -245,7 +300,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose bsms_gnn_tpu_torch is timed")
-    root = os.path.abspath(ap.parse_args().root)
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated paths to time (default: all)")
+    opts = ap.parse_args()
+    root = os.path.abspath(opts.root)
     if not torch.cuda.is_available():
         print("level_times: no CUDA device", file=sys.stderr)
         return 1
@@ -266,7 +324,14 @@ def main() -> int:
               "airfoil_fused4": functools.partial(cs.build_case,
                                                   aggregation="fused4"),
               "surface_fused": functools.partial(cs.build_surface_case,
-                                                 aggregation="fused")}
+                                                 aggregation="fused"),
+              "cylinder": cs.build_cylinder_case}
+    if opts.paths:
+        keep = opts.paths.split(",")
+        unknown = set(keep) - set(builds)
+        if unknown:
+            ap.error(f"unknown paths {sorted(unknown)}")
+        builds = {p: b for p, b in builds.items() if p in keep}
     out = {"step_peak_above_mib": {}}
     for path, build in builds.items():
         case = build(device)
@@ -282,8 +347,11 @@ def main() -> int:
                 if p == path:
                     out[label] = time_kernel(cs, case, device, label, name,
                                              bwd, every)
+            for label, (p, name, bwd, step) in SHAPES.items():
+                if p == path:
+                    out[label] = time_shapes(cs, case, device, label, name,
+                                             bwd, step)
             if path == "surface":
-                out["kernel 8"] = time_segment_sum(cs, case, device)
                 out["kernel 10 tiles"] = sweep_tiles(cs, case, device)
         del case
         torch.cuda.empty_cache()
