@@ -1,7 +1,10 @@
 """BSMS next-step simulator: encode → BSGMP process → decode, delta target
 (counterpart of `bsms_gnn_tpu/models/simulator.py::simulator_forward`).
 
-Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type];
+Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type],
+or a batch [B, N_pad, ...] of frames over one shared hierarchy (the
+consistent-mesh batch of JAX's `simulator_forward`, on the routes that take
+it: `ops/message.py`);
 the latent input strips mesh_pos and keeps node_type. normalize → encode
 MLP → BSGMP → decode MLP → denormalize the delta → zero masked nodes →
 prediction = state + delta. With `world_edges` the first `world_dim`
@@ -77,9 +80,10 @@ class Simulator(nn.Module):
 
     def forward(self, hierarchy, node_in, node_mask, compute_dtype=None,
                 tap=None):
-        """Next-step prediction [N_pad, C]. node_in: [N_pad, C+pos_dim+1];
-        node_mask: [N_pad, 1] (1 = loss-valid node). `hierarchy` is on the
-        model's device (`graph.hierarchy.to_device`)."""
+        """Next-step prediction [..., N_pad, C]. node_in: [..., N_pad,
+        C+pos_dim+1] (a batch [B, N_pad, ...] over the one hierarchy, or
+        one frame); node_mask: [..., N_pad, 1] (1 = loss-valid node).
+        `hierarchy` is on the model's device (`graph.hierarchy.to_device`)."""
         cfg = self.cfg
         latent_input, _, _ = split_node_input(node_in, cfg.pos_dim)
         io_cd = compute_dtype

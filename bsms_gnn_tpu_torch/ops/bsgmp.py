@@ -11,7 +11,9 @@ positions never appear online: the static per-level edge fibers and
 transition weights are precomputed on the hierarchy. With world edges the
 world positions are the one dynamic stream: they ride each down
 transition beside h, and each up GMP reads the positions its level had on
-the way down.
+the way down. A batch over one hierarchy (h [B, N_pad0, C]) runs every
+step on the leading dims, where the routes take it (`ops/message.py`,
+`ops/transition.py`); the explicit conv + pool path takes B = 1.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ class BSGMP(nn.Module):
 
     def forward(self, hierarchy, h, compute_dtype=None, tap=None, pos=None,
                 method: str = "fused"):
-        """h: [N_pad0, C]; pos: [N_pad0, world_dim] world positions when
+        """h: [N_pad0, C] or [B, N_pad0, C]; pos: [N_pad0, world_dim]
+        world positions when
         the GMPs have world edges (else ignored). `tap(name, value)`, if
         given, observes each GMP output ("down{i}" / "bottom" / "up{i}",
         before pool / skip add)."""

@@ -8,7 +8,8 @@ weight and bias) from an explicit `torch.Generator`.
 `compute_dtype` follows the JAX rule: with bfloat16, operands are rounded
 to bf16, products accumulate in f32, the bias is added in f32 and the
 output is stored in bf16. With None, real f32 (the card runs with TF32
-off; `chip_smoke.py` sets and states it).
+off; `chip_smoke.py` sets and states it). Inputs are [..., rows, in]: any
+leading dims (a batch) ride the matmuls.
 """
 
 from __future__ import annotations

@@ -132,6 +132,23 @@ def require(what: str, device, *tables) -> None:
                              f"on {device}, got {t.dtype} on {t.device}")
 
 
+# The most samples one launch takes (the gathers' grid y extent,
+# `csrc/row_gather.cuh`'s MAX_BATCH).
+MAX_BATCH = 65535
+
+
+def check_batch(x, batched: bool) -> None:
+    """x is [rows, C], or [B, rows, C] (1 <= B <= MAX_BATCH) where the
+    function takes the batch axis (a shared mesh's); anything else
+    raises."""
+    if x.dim() == 2:
+        return
+    if not batched or x.dim() != 3:
+        raise NotImplementedError("batch axis")
+    if not 1 <= x.shape[0] <= MAX_BATCH:
+        raise ValueError(f"batch {x.shape[0]} outside [1, {MAX_BATCH}]")
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

@@ -50,6 +50,11 @@ airfoil's level 0), added to by serial read-modify-writes, and it ran 2.4x
 slower than `index_add_` there.
 
 bf16 vals are summed into the f32 accumulator exactly as read.
+
+The batch axis (a shared mesh): vals [B, R_pad, 128] onto acc [B, n_pad,
+128] is one launch whose grid's y index is the sample, each sample added
+over the same ranges in the same order as a call on it alone; the
+gathers take dim -2.
 """
 
 from __future__ import annotations
@@ -60,18 +65,21 @@ from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
-_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
+_SIG = [build.P] * 4 + [build.I] * 6 + [build.P] * 2
 _FN = {torch.float32: "compact_accum_f32",
        torch.bfloat16: "compact_accum_bf16"}
 
 
 def _check(cr, vals, acc):
-    if vals.dim() != 2 or acc.dim() != 2:
-        raise NotImplementedError("batch axis")
-    if vals.shape != (cr.n_rows, BN):
-        raise ValueError(f"vals {tuple(vals.shape)} != ({cr.n_rows}, {BN})")
-    if acc.shape != (cr.n_pad_nodes, BN) or acc.dtype != torch.float32:
-        raise ValueError(f"acc must be f32 ({cr.n_pad_nodes}, {BN})")
+    build.check_batch(vals, True)
+    build.check_batch(acc, True)
+    lead = vals.shape[:-2]
+    if vals.shape[-2:] != (cr.n_rows, BN):
+        raise ValueError(f"vals {tuple(vals.shape)} != (..., {cr.n_rows}, "
+                         f"{BN})")
+    if (acc.shape != (*lead, cr.n_pad_nodes, BN)
+            or acc.dtype != torch.float32):
+        raise ValueError(f"acc must be f32 {(*lead, cr.n_pad_nodes, BN)}")
     if not acc.is_contiguous():
         raise ValueError("acc is updated in place and must be contiguous")
     if vals.dtype not in _FN:
@@ -79,20 +87,22 @@ def _check(cr, vals, acc):
 
 
 def compact_accum_plain(cr, vals, acc):
-    """The same function in plain PyTorch: index_add_ of the real rows,
-    in place on acc."""
+    """The same function in plain PyTorch, on any leading dims: index_add_
+    of the real rows, in place on acc."""
     compact_accum_plain.calls += 1
     n = cr.n_real
-    return acc.index_add_(0, cr.receivers[:n].long(), vals[:n].float())
+    return acc.index_add_(-2, cr.receivers[:n].long(),
+                          vals[..., :n, :].float())
 
 
 compact_accum_plain.calls = 0
 
 
 def compact_accum_raw(cr, vals, acc):
-    """acc (f32 [n_pad, 128], updated in place and returned) plus the
-    receiver sums of vals [R_pad, 128], no autograd. CPU tensors take the
-    plain version; CUDA tensors launch kernel 2."""
+    """acc (f32 [..., n_pad, 128], updated in place and returned) plus the
+    receiver sums of vals [..., R_pad, 128] (a batch [B, ...] in one
+    launch), no autograd. CPU tensors take the plain version; CUDA tensors
+    launch kernel 2."""
     _check(cr, vals, acc)
     if vals.device.type == "cpu":
         return compact_accum_plain(cr, vals, acc)
@@ -107,7 +117,8 @@ def compact_accum_raw(cr, vals, acc):
     err = getattr(lib, _FN[vals.dtype])(
         vals.data_ptr(), cr.cr_rows.data_ptr(), cr.cr_row_ptr.data_ptr(),
         cr.cr_long.data_ptr(), cr.cr_rows.numel(), cr.cr_long.numel(),
-        GATHER_PIECE, acc.data_ptr(),
+        GATHER_PIECE, vals.shape[0] if vals.dim() == 3 else 1, cr.n_rows,
+        cr.n_pad_nodes, acc.data_ptr(),
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "compact_accum")
@@ -127,7 +138,7 @@ class _Accum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        d_vals = g.index_select(0, ctx.cr.receivers).to(ctx.vals_dtype)
+        d_vals = g.index_select(-2, ctx.cr.receivers).to(ctx.vals_dtype)
         return None, d_vals, g
 
 
@@ -141,26 +152,27 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, cr, by, x):
         ctx.cr, ctx.by, ctx.dtype = cr, by, x.dtype
-        return x.index_select(0, cr.senders if by == "send" else cr.receivers)
+        return x.index_select(-2, cr.senders if by == "send"
+                              else cr.receivers)
 
     @staticmethod
     def backward(ctx, ct):
         cr = ctx.cr
-        v = ct if ctx.by == "recv" else ct.index_select(0, cr.twin)
-        zeros = torch.zeros(cr.n_pad_nodes, ct.shape[-1], dtype=torch.float32,
-                            device=ct.device)
+        v = ct if ctx.by == "recv" else ct.index_select(-2, cr.twin)
+        zeros = torch.zeros(*ct.shape[:-2], cr.n_pad_nodes, ct.shape[-1],
+                            dtype=torch.float32, device=ct.device)
         return None, None, compact_accum_raw(cr, v, zeros).to(ctx.dtype)
 
 
 def compact_gather(cr, x, by: str):
-    """x[cr.senders] (`by='send'`) or x[cr.receivers] (`'recv'`) → [R_pad,
-    C], with the scatter-free backward above. `'send'` needs a symmetric
+    """x[..., cr.senders, :] (`by='send'`) or x[..., cr.receivers, :]
+    (`'recv'`) → [..., R_pad, C] (x [N_pad, C] or a batch [B, N_pad, C]),
+    with the scatter-free backward above. `'send'` needs a symmetric
     compact residual (a level's, not a transition's)."""
     if by not in ("send", "recv"):
         raise ValueError(f"by={by!r}")
     if by == "send" and not cr.symmetric:
         raise ValueError("the sender gather's backward needs a symmetric "
                          "compact residual")
-    if x.dim() != 2:
-        raise NotImplementedError("batch axis")
+    build.check_batch(x, True)
     return _Gather.apply(cr, by, x)

@@ -12,6 +12,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
 namespace bsms {
 
 constexpr int C = 128;        // latent width (lanes of every row)

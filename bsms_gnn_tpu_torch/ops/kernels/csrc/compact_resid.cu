@@ -20,6 +20,8 @@
 // weight), adding each list's sum onto its accumulator row; a receiver of
 // more than 32 compact rows (`cr_long`) gets a block of its own. A warp's
 // chain is row_ptr and rows → vals and acc → acc. One launch, no atomics.
+// A batch over the one residual (vals [B, R_pad, C], acc [B, n_pad, C]) is
+// the grid's y extent, each sample added as a call on it alone.
 //
 // Why not a shared-memory copy of each visited 128-row block of acc, as the
 // TPU kernel keeps its output block: every block a visit reached then moves
@@ -38,20 +40,26 @@ compact_gather_kernel(const T* __restrict__ vals,
                       const int* __restrict__ rows,
                       const int* __restrict__ row_ptr,
                       const int* __restrict__ long_rows, int n_rows,
-                      int piece, float* __restrict__ acc) {
+                      int piece, float* __restrict__ acc, size_t vals_stride,
+                      size_t acc_stride) {
   gather_rows<BF16>(vals, RangeRows{}, AddToRows{rows}, row_ptr, long_rows,
-                    n_rows, piece, acc);
+                    n_rows, piece, acc, vals_stride, acc_stride);
 }
 
+// vals [n_batch][vals_rows][C], acc [n_batch][acc_rows][C].
 template <typename T, bool BF16>
 int launch(const void* vals, const void* rows, const void* row_ptr,
            const void* long_rows, int n_rows, int n_long, int piece,
-           void* acc, void* stream) {
-  if (n_rows < 1 || n_long < 0 || piece < 1) return (int)cudaErrorInvalidValue;
-  compact_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                   (cudaStream_t)stream>>>(
+           int n_batch, int vals_rows, int acc_rows, void* acc,
+           void* stream) {
+  if (n_rows < 1 || n_long < 0 || piece < 1 || n_batch < 1 ||
+      n_batch > MAX_BATCH || vals_rows < 1 || acc_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  compact_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                   THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)vals, (const int*)rows, (const int*)row_ptr,
-      (const int*)long_rows, n_rows, piece, (float*)acc);
+      (const int*)long_rows, n_rows, piece, (float*)acc,
+      (size_t)vals_rows * C, (size_t)acc_rows * C);
   return (int)cudaGetLastError();
 }
 
@@ -60,10 +68,12 @@ int launch(const void* vals, const void* rows, const void* row_ptr,
 #define COMPACT_ACCUM(NAME, T, BF16)                                          \
   extern "C" int NAME(const void* vals, const void* rows,                    \
                       const void* row_ptr, const void* long_rows,            \
-                      int n_rows, int n_long, int piece, void* acc,          \
+                      int n_rows, int n_long, int piece, int n_batch,        \
+                      int vals_rows, int acc_rows, void* acc,                \
                       void* stream) {                                        \
     return launch<T, BF16>(vals, rows, row_ptr, long_rows, n_rows, n_long,   \
-                           piece, acc, stream);                              \
+                           piece, n_batch, vals_rows, acc_rows, acc,         \
+                           stream);                                          \
   }
 
 COMPACT_ACCUM(compact_accum_f32, float, false)

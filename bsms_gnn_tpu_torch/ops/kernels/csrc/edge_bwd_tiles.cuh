@@ -41,6 +41,12 @@
 //   in block order by grad_sum_kernel (backward.cuh): G × ~200 KB that
 //   stay in L2, no atomics, the same result from run to run (G depends
 //   only on the card and the kernel).
+// - A batch of B samples over the one level (kernel 5: xwi, xj, g
+//   [B][n_pad][C], dpre [B][E_pad][C]) walks B·T tiles, tile t being tile
+//   t mod T of sample ⌊t / T⌋, in the same ranges [⌊b·BT/G⌋,
+//   ⌊(b+1)·BT/G⌋): still G partials, each block summing every sample's
+//   tiles of its range into its own, and a sample's dpre the bits of a call
+//   on that sample alone. The other fronts' entries pass B = 1.
 // - The tail weights' 64-row slabs are double-buffered with cp.async: the
 //   next slab loads while the current one is used, one barrier per slab,
 //   and each GEMM's last slab step issues the next GEMM's first slab. In
@@ -400,7 +406,9 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 // type), wf_dyn [wd][C] and wf_nrm [C]; kStream: src = the streamed
 // pre-activation (kernel 11, xj null) or its sender half zi (kernel 12,
 // with the receiver transform xj). W and WT are the tail's stacks (bf16
-// values in BF16 mode), gpart G partials of grad_size floats.
+// values in BF16 mode), gpart G partials of grad_size floats. With n_batch
+// samples (kWin), sample s's xwi, xj and g start s·x_stride elements in,
+// its dpre s·e_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ src,
@@ -413,7 +421,8 @@ __device__ __forceinline__ void edge_bwd_tiles(
     float* __restrict__ gpart, T* __restrict__ dpre,
     const T* __restrict__ pos = nullptr,
     const float* __restrict__ wfd_g = nullptr,
-    const float* __restrict__ wfn_g = nullptr, int wd = 0) {
+    const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
+    size_t x_stride = 0, size_t e_stride = 0) {
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
@@ -432,8 +441,9 @@ __device__ __forceinline__ void edge_bwd_tiles(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = gridDim.x, b = blockIdx.x;
-  const int t_begin = (int)((long long)b * n_tiles / G);
-  const int t_end = (int)((long long)(b + 1) * n_tiles / G);
+  const int total = n_tiles * n_batch;
+  const int t_begin = (int)((long long)b * total / G);
+  const int t_end = (int)((long long)(b + 1) * total / G);
   const int gsize = grad_size(n_layers, F, wd);
   float* gp = gpart + (size_t)b * gsize;         // dW [n_layers][C][C]
   float* gp_b = gp + (size_t)n_layers * C * C;   // db [n_layers][C]
@@ -452,18 +462,23 @@ __device__ __forceinline__ void edge_bwd_tiles(
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int t0 = t * TR, ch = t0 / edge_block;
+    const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
+    const int ch = t0 / edge_block;
+    T* dpre_s = dpre + smp * e_stride;
     if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
                                 receivers, chunk_block, e_pad, window, s_row,
                                 s_recv, s_loc, fib, dyn)) {
       // A dead tile: every slot's cotangent is zero.
-      for (int i = tid; i < TR * C; i += NT) store(&dpre[(size_t)t0 * C + i], 0.f);
+      for (int i = tid; i < TR * C; i += NT) store(&dpre_s[(size_t)t0 * C + i], 0.f);
       continue;
     }
+    const float* g_s = g + smp * x_stride;
 
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's
     // input, the LayerNorm output into d.
-    tile_front<T, BF16, F>(t0, src, xj, wf, fib, s_row, s_recv, hs, dyn);
+    tile_front<T, BF16, F>(t0, src + smp * x_stride,
+                           xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
+                           s_row, s_recv, hs, dyn);
     for (int l = 0; l < n_layers; ++l) {
       float acc[RW][4] = {};
       const float* in = hs + (size_t)l * TR * C;
@@ -487,7 +502,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
         const int r = warp + (j0 + j) * NW;
         gv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (s_loc[r] >= 0)
-          gv[j] = reinterpret_cast<const float4*>(g + (size_t)s_recv[r] * C)[lane];
+          gv[j] = reinterpret_cast<const float4*>(g_s + (size_t)s_recv[r] * C)[lane];
       }
 #pragma unroll
       for (int j = 0; j < HB; ++j) {
@@ -539,7 +554,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
     // times dpre and, with kDyn, dwf_dyn = Δ's rows times dpre.
     if (BF16) round_tile(d);
     else __syncthreads();
-    for (int i = tid; i < TR * C; i += NT) store(&dpre[(size_t)t0 * C + i], d[i]);
+    for (int i = tid; i < TR * C; i += NT) store(&dpre_s[(size_t)t0 * C + i], d[i]);
     if constexpr (WIN)
       for (int k = warp; k < (DYN ? 8 + wd : 8); k += NW) {
         const int j0 = lane * 4;

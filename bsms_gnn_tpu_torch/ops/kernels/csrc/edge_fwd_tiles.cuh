@@ -48,6 +48,12 @@
 // - No shared-memory output block, no per-chunk part and no chunk sum: the
 //   messages' sum is the gather's, in list order, with no atomics, so two
 //   calls agree bit for bit.
+// - A batch of B samples over the one level (the batch axis of a shared
+//   mesh: xwi, xj [B][n_pad][C], msg [B][E_pad][C]) walks B·T tiles in the
+//   same stride order, tile t being tile t mod T of sample ⌊t / T⌋: the
+//   grid stays the card's fill, and a sample's messages are the bits of a
+//   call on that sample alone. Kernel 4 takes it; the other fronts' entries
+//   pass B = 1.
 // - One TR×C tile and two slabs take about 97 KB of shared memory (kWin 6
 //   KB more: the fiber weights and stream; kDyn 3.75 KB more again: wf_dyn,
 //   wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit on an SM: one block's
@@ -92,7 +98,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // streamed rows src [E_pad][C] (pre, or zi with the receiver transform xj;
 // xj null for kernel 11), no fiber, window or positions. W the tail's stack
 // (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in the
-// activations' type, written on live slots only.
+// activations' type, written on live slots only. With n_batch samples
+// (kWin), sample s's xwi and xj start s·x_stride elements in, its msg
+// s·e_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
@@ -103,7 +111,8 @@ __device__ __forceinline__ void edge_fwd_tiles(
     int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg,
     const T* __restrict__ pos = nullptr,
     const float* __restrict__ wfd_g = nullptr,
-    const float* __restrict__ wfn_g = nullptr, int wd = 0) {
+    const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
+    size_t x_stride = 0, size_t e_stride = 0) {
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
@@ -131,13 +140,18 @@ __device__ __forceinline__ void edge_fwd_tiles(
   const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
-  for (int t = b; t < n_tiles; t += G) {  // see the header
-    const int t0 = t * TR, ch = t0 / edge_block;
+  const int total = n_tiles * n_batch;
+  for (int t = b; t < total; t += G) {  // see the header
+    const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
+    const int ch = t0 / edge_block;
     if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
                                 receivers, chunk_block, e_pad, window, s_row,
                                 s_recv, s_loc, fib, dyn))
       continue;  // a dead tile: no message of it is listed
-    tile_front<T, BF16, F>(t0, xwi, xj, wf, fib, s_row, s_recv, h, dyn);
+    tile_front<T, BF16, F>(t0, xwi + smp * x_stride,
+                           xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
+                           s_row, s_recv, h, dyn);
+    T* msg_s = msg + smp * e_stride;
     for (int l = 0; l < n_layers; ++l) {
       float acc[RW][4] = {};
       gemm_rows(acc, h, W + (size_t)l * C * C,
@@ -156,7 +170,7 @@ __device__ __forceinline__ void edge_fwd_tiles(
       const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
       const float iv = 1.0f / sqrtf(var + LN_EPS);
       v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
-      if (s_loc[r] >= 0) store4(msg + (size_t)(t0 + r) * C + 4 * lane, v);
+      if (s_loc[r] >= 0) store4(msg_s + (size_t)(t0 + r) * C + 4 * lane, v);
     }
   }
   cp_async_wait_all();  // the next tile's first slab, never used

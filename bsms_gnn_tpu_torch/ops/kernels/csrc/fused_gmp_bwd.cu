@@ -6,7 +6,10 @@
 // receiver lists (`win_row_ptr`, `win_row_slots`, `win_long`: the slots
 // with an in-window sender whose receiver lies in their chunk's block, the
 // slots the walk gives a cotangent), and grad_sum_kernel over the
-// partials (dW, db, dwf8) in block order.
+// partials (dW, db, dwf8) in block order. A batch over the one level
+// (xwi, xj, g [B][n_pad][C]; dpre [B][E_pad][C], dxj [B][n_pad][C]) is
+// one launch of each: the walk over B·T tiles, the gather with the batch
+// as its grid's y extent.
 #include "edge_bwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -24,11 +27,12 @@ fused_edge_phase_win_bwd_kernel(
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int n_tiles, int e_pad, int edge_block, int window,
-    float* __restrict__ gpart, T* __restrict__ dpre) {
+    float* __restrict__ gpart, T* __restrict__ dpre, int n_batch,
+    size_t x_stride, size_t e_stride) {
   tiles::edge_bwd_tiles<T, BF16, Front::kWin>(
       fiber_t, xwi, xj, wf8, W, B, WT, g, n_layers, send_win, win_base,
       receivers, chunk_block, n_tiles, e_pad, edge_block, window, gpart,
-      dpre);
+      dpre, nullptr, nullptr, nullptr, 0, n_batch, x_stride, e_stride);
 }
 
 template <typename T, bool BF16>
@@ -44,12 +48,15 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* receivers, const void* chunk_block,
            const void* row_ptr, const void* row_slots, const void* long_rows,
            int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
-           int window, int n_rows, int n_long, int piece, void* gpart,
-           void* dpre, void* dxj, void* grads, void* stream) {
+           int window, int n_rows, int n_long, int piece, int n_batch,
+           void* gpart, void* dpre, void* dxj, void* grads, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
-      n_layers < 1 || n_layers > tiles::MAX_LAYERS || grid < 1 ||
-      grid > n_tiles || n_rows < 1 || n_long < 0 || piece < 1)
+      n_layers < 1 || n_layers > tiles::MAX_LAYERS || n_batch < 1 ||
+      n_batch > MAX_BATCH || (long long)n_tiles * n_batch > INT_MAX ||
+      grid < 1 || grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 ||
+      piece < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C;
   auto kernel = fused_edge_phase_win_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -62,13 +69,14 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       (const float*)W, (const float*)B, (const float*)WT, (const float*)g,
       n_layers, (const int*)send_win, (const int*)win_base,
       (const int*)receivers, (const int*)chunk_block, n_tiles, e_pad,
-      edge_block, window, (float*)gpart, (T*)dpre);
+      edge_block, window, (float*)gpart, (T*)dpre, n_batch, x_stride,
+      e_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                s>>>(
+  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                THREADS, 0, s>>>(
       (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)dxj);
+      (const int*)long_rows, n_rows, piece, (float*)dxj, e_stride, x_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
@@ -89,12 +97,13 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       const void* chunk_block, const void* row_ptr, const void* row_slots,    \
       const void* long_rows, int n_layers, int grid, int n_tiles, int e_pad,  \
       int edge_block, int window, int n_rows, int n_long, int piece,          \
-      void* gpart, void* dpre, void* dxj, void* grads, void* stream) {        \
+      int n_batch, void* gpart, void* dpre, void* dxj, void* grads,           \
+      void* stream) {                                                         \
     return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, WT, g, send_win,      \
                            win_base, receivers, chunk_block, row_ptr,         \
                            row_slots, long_rows, n_layers, grid, n_tiles,     \
                            e_pad, edge_block, window, n_rows, n_long, piece,  \
-                           gpart, dpre, dxj, grads, stream);                  \
+                           n_batch, gpart, dpre, dxj, grads, stream);         \
   }
 
 FUSED_EDGE_PHASE_WIN_BWD(fused_edge_phase_win_bwd_f32, float, false)

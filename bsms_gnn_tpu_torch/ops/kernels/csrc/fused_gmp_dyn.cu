@@ -77,7 +77,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
                                 s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out);
+      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
   return (int)cudaGetLastError();
 }
 

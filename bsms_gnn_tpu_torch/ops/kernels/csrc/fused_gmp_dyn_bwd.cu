@@ -75,7 +75,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
                                 s>>>(
       (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)dxj);
+      (const int*)long_rows, n_rows, piece, (float*)dxj, 0, 0);  // B = 1
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,

@@ -49,11 +49,11 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* chunk_block, const void* row_ptr,
            const void* row_slots, const void* long_rows, int n_layers,
            int grid, int n_tiles, int e_pad, int edge_block, int window,
-           int n_rows, int n_long, int piece, void* msg, void* out,
-           void* stream) {
+           int n_rows, int n_long, int piece, int n_batch, void* msg,
+           void* out, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
       n_layers < 1 || grid < 1 || grid > n_tiles || n_rows < 1 ||
-      n_long < 0 || piece < 1)
+      n_long < 0 || piece < 1 || n_batch != 1)  // one sample only
     return (int)cudaErrorInvalidValue;
   auto kernel = fused_edge_phase_win_k_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -72,7 +72,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
                                 s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out);
+      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
   return (int)cudaGetLastError();
 }
 
@@ -90,13 +90,13 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
                       const void* row_ptr, const void* row_slots,            \
                       const void* long_rows, int n_layers, int grid,         \
                       int n_tiles, int e_pad, int edge_block, int window,    \
-                      int n_rows, int n_long, int piece, void* msg,          \
-                      void* out, void* stream) {                             \
+                      int n_rows, int n_long, int piece, int n_batch,        \
+                      void* msg, void* out, void* stream) {                  \
     return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, send_win, win_base,  \
                            receivers, chunk_block, row_ptr, row_slots,       \
                            long_rows, n_layers, grid, n_tiles, e_pad,        \
-                           edge_block, window, n_rows, n_long, piece, msg,   \
-                           out, stream);                                     \
+                           edge_block, window, n_rows, n_long, piece,        \
+                           n_batch, msg, out, stream);                       \
   }
 
 FUSED_EDGE_PHASE_WIN_K(fused_edge_phase_win_k_f32, float, false)

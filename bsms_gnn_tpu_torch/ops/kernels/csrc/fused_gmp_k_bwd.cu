@@ -47,11 +47,12 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* receivers, const void* chunk_block,
            const void* row_ptr, const void* row_slots, const void* long_rows,
            int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
-           int window, int n_rows, int n_long, int piece, void* gpart,
-           void* dpre, void* dxj, void* grads, void* stream) {
+           int window, int n_rows, int n_long, int piece, int n_batch,
+           void* gpart, void* dpre, void* dxj, void* grads, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
       n_layers < 1 || n_layers > tiles::MAX_LAYERS || grid < 1 ||
-      grid > n_tiles || n_rows < 1 || n_long < 0 || piece < 1)
+      grid > n_tiles || n_rows < 1 || n_long < 0 || piece < 1 ||
+      n_batch != 1)  // one sample only
     return (int)cudaErrorInvalidValue;
   auto kernel = fused_edge_phase_win_k_bwd_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -71,7 +72,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
                                 s>>>(
       (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)dxj);
+      (const int*)long_rows, n_rows, piece, (float*)dxj, 0, 0);  // B = 1
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
@@ -92,12 +93,13 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       const void* chunk_block, const void* row_ptr, const void* row_slots,    \
       const void* long_rows, int n_layers, int grid, int n_tiles, int e_pad,  \
       int edge_block, int window, int n_rows, int n_long, int piece,          \
-      void* gpart, void* dpre, void* dxj, void* grads, void* stream) {        \
+      int n_batch, void* gpart, void* dpre, void* dxj, void* grads,           \
+      void* stream) {                                                         \
     return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, WT, g, send_win,      \
                            win_base, receivers, chunk_block, row_ptr,         \
                            row_slots, long_rows, n_layers, grid, n_tiles,     \
                            e_pad, edge_block, window, n_rows, n_long, piece,  \
-                           gpart, dpre, dxj, grads, stream);                  \
+                           n_batch, gpart, dpre, dxj, grads, stream);         \
   }
 
 FUSED_EDGE_PHASE_WIN_K_BWD(fused_edge_phase_win_k_bwd_f32, float, false)

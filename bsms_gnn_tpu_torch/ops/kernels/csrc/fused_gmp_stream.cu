@@ -92,7 +92,7 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
   recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
                                 s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out);
+      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
   return (int)cudaGetLastError();
 }
 

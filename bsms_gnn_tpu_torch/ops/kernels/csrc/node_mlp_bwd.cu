@@ -43,9 +43,17 @@
 //   cotangent A: it writes rows [q·SW, (q+1)·SW) of each dW (and its SW
 //   columns of each db) into the tile's partial, each element summed over
 //   the tile's rows in row order. The CL CTAs' disjoint parts make one
-//   partial per tile, as before, and grad_sum_kernel adds the partials in
-//   tile order: no atomics, the same result from run to run, and the same
-//   arithmetic as the one-block-per-tile kernel this replaces.
+//   partial per cluster, and grad_sum_kernel adds the partials in cluster
+//   order: no atomics, the same result from run to run.
+// - The partials are capped (the batch axis folds B samples into B·T
+//   tiles: at B = 48 the 5k airfoil's level 0 holds 3,936 tiles, whose one
+//   330 KB partial each would make 1.3 GB): P = min(T, P_max) clusters
+//   (P_max from the host, `node_mlp.p_max`: whole waves of the clusters
+//   the card holds at once, at least every B = 1 level's tiles), cluster
+//   p walking the tiles [⌊p·T/P⌋, ⌊(p+1)·T/P⌋) in order, the first stored
+//   into its partial, each later one added onto it. Where T ≤ P_max each
+//   cluster holds one tile, which is the arithmetic of the
+//   one-block-per-tile kernel this replaces.
 // - Shared memory: A (33 KB), the tail inputs' slices (8 KB each), two
 //   exchange slices and two weight slices, about 105 KB at L = 3, so two
 //   CTAs fit on an SM.
@@ -191,14 +199,21 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ src, int q,
   }
 }
 
-// dst[(q·SW + i)·C + j] = Σ_r h[r·SW + i] · A[r·AS + j] over the TILE rows in
-// row order: rows [q·SW, (q+1)·SW) of the [C, C] product hᵀ·A, h the CTA's
-// TILE×SW slice, A the full tile. Thread t takes rows 8·(t / 64) .. +7 and
-// columns 2·(t % 64), +1: a warp's h reads are one broadcast, its A reads
-// 256 contiguous bytes.
+// dst[(q·SW + i)·C + j] (+)= Σ_r h[r·SW + i] · A[r·AS + j] over the TILE rows
+// in row order: rows [q·SW, (q+1)·SW) of the [C, C] product hᵀ·A, h the
+// CTA's TILE×SW slice, A the full tile; stored, or with `add` added onto
+// dst (loaded before the product, so that their latency hides behind it).
+// Thread t takes rows 8·(t / 64) .. +7 and columns 2·(t % 64), +1: a warp's
+// h reads are one broadcast, its A reads 256 contiguous bytes.
 __device__ __forceinline__ void weight_grad(const float* h, const float* A,
-                                            int q, float* dst) {
+                                            int q, float* dst, bool add) {
   const int i0 = 8 * (threadIdx.x >> 6), j0 = 2 * (threadIdx.x & 63);
+  float2 old[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    old[i] = add ? *reinterpret_cast<const float2*>(
+                       dst + (size_t)(q * SW + i0 + i) * C + j0)
+                 : make_float2(0.f, 0.f);
   float acc[8][2] = {};
 #pragma unroll 4
   for (int r = 0; r < TILE; ++r) {
@@ -215,16 +230,18 @@ __device__ __forceinline__ void weight_grad(const float* h, const float* A,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     *reinterpret_cast<float2*>(dst + (size_t)(q * SW + i0 + i) * C + j0) =
-        make_float2(acc[i][0], acc[i][1]);
+        add ? make_float2(old[i].x + acc[i][0], old[i].y + acc[i][1])
+            : make_float2(acc[i][0], acc[i][1]);
 }
 
-// out[q·SW + c] = Σ_r A[r·AS + q·SW + c] over the TILE rows in row order,
+// out[q·SW + c] (+)= Σ_r A[r·AS + q·SW + c] over the TILE rows in row order,
 // by the first SW threads.
-__device__ __forceinline__ void col_sums(const float* A, int q, float* out) {
+__device__ __forceinline__ void col_sums(const float* A, int q, float* out,
+                                         bool add) {
   if (threadIdx.x < SW) {
     float s = 0.f;
     for (int r = 0; r < TILE; ++r) s += A[r * AS + q * SW + threadIdx.x];
-    out[q * SW + threadIdx.x] = s;
+    out[q * SW + threadIdx.x] = add ? out[q * SW + threadIdx.x] + s : s;
   }
 }
 
@@ -250,7 +267,8 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
                             const float* __restrict__ W0T,
                             const float* __restrict__ WT,
                             const float* __restrict__ g, int n_layers,
-                            TX* __restrict__ dx, float* __restrict__ daggr,
+                            int n_tiles, TX* __restrict__ dx,
+                            float* __restrict__ daggr,
                             float* __restrict__ gpart) {
   extern __shared__ float4 smem4[];
   float* A = reinterpret_cast<float*>(smem4);  // [TILE][AS] full tile
@@ -261,130 +279,158 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x / CL;
-  const size_t row0 = (size_t)tile * TILE;
+  const int part = blockIdx.x / CL, n_parts = gridDim.x / CL;
   const size_t cc = (size_t)C * C;
   // Partial layout: dWa, dWb, dW[n_layers], db0, db[n_layers].
-  float* gp = gpart + tile * ((2 + n_layers) * cc + (1 + n_layers) * C);
+  float* gp = gpart + part * ((2 + n_layers) * cc + (1 + n_layers) * C);
   float* gp_b0 = gp + (2 + n_layers) * cc;
-  const TX* xt = x + row0 * C;
-  const float* at = aggr + row0 * C;
   const Weights w{W0, W, WT, W0T, n_layers};
   const int n_products = 4 + 2 * n_layers;
-  int prod = 0;
-  copy_slice(w, 0, q, wbuf);
+  const int t_begin = (int)((long long)part * n_tiles / n_parts);
+  const int t_end = (int)((long long)(part + 1) * n_tiles / n_parts);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const bool add = tile > t_begin;  // the first tile stores the partial
+    const size_t row0 = (size_t)tile * TILE;
+    const TX* xt = x + row0 * C;
+    const float* at = aggr + row0 * C;
+    int prod = 0;
+    copy_slice(w, 0, q, wbuf);
 
-  // Recompute as kernel 3 does: relu(x·Wa + aggr·Wb + b0), one accumulator
-  // over both halves; this CTA's columns into hq[0], then the full h_0.
-  {
-    float acc[2][4] = {};
-    load_full<TX, BF16>(xt, A);
-    row_product(acc, A, w, prod++, n_products, q, wbuf);
+    // Recompute as kernel 3 does: relu(x·Wa + aggr·Wb + b0), one accumulator
+    // over both halves; this CTA's columns into hq[0], then the full h_0.
+    {
+      float acc[2][4] = {};
+      load_full<TX, BF16>(xt, A);
+      row_product(acc, A, w, prod++, n_products, q, wbuf);
+      __syncthreads();
+      load_full<float, BF16>(at, A);
+      row_product(acc, A, w, prod++, n_products, q, wbuf);
+      store_slice(acc, b0, q, hq, true, BF16);
+    }
+    exchange(cluster, hq, A);
+    // The tail: each layer's input slice kept; the last layer's output
+    // (unrounded) through E[0].
+    for (int l = 0; l < n_layers; ++l) {
+      float acc[2][4] = {};
+      row_product(acc, A, w, prod++, n_products, q, wbuf);
+      const bool last = l == n_layers - 1;
+      float* out = last ? E : hq + (size_t)(l + 1) * TILE * SW;
+      store_slice(acc, B + l * C, q, out, !last, BF16 && !last);
+      exchange(cluster, out, A);
+    }
+    int eb = 1;  // the exchange slice the next cotangent takes
     __syncthreads();
-    load_full<float, BF16>(at, A);
-    row_product(acc, A, w, prod++, n_products, q, wbuf);
-    store_slice(acc, b0, q, hq, true, BF16);
-  }
-  exchange(cluster, hq, A);
-  // The tail: each layer's input slice kept; the last layer's output
-  // (unrounded) through E[0].
-  for (int l = 0; l < n_layers; ++l) {
-    float acc[2][4] = {};
-    row_product(acc, A, w, prod++, n_products, q, wbuf);
-    const bool last = l == n_layers - 1;
-    float* out = last ? E : hq + (size_t)(l + 1) * TILE * SW;
-    store_slice(acc, B + l * C, q, out, !last, BF16 && !last);
-    exchange(cluster, out, A);
-  }
-  int eb = 1;  // the exchange slice the next cotangent takes
-  __syncthreads();
 
-  // The LayerNorm of each row, then its backward for g (f32, as on the
-  // TPU), in place in A: warp w takes rows w, w + 8, ..., its g rows
-  // loaded first.
-  constexpr int RPW = TILE / (NT / 32);  // rows per warp
-  float4 gv[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-    gv[i] = reinterpret_cast<const float4*>(
-        g + (row0 + warp + i * (NT / 32)) * C)[lane];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + i * (NT / 32);
-    float4 v = *reinterpret_cast<float4*>(A + r * AS + 4 * lane);
-    const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-    v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-    const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-    const float iv = 1.0f / sqrtf(var + LN_EPS);
-    v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
-    *reinterpret_cast<float4*>(A + r * AS + 4 * lane) = ln_bwd(gv[i], v, iv);
-  }
+    // The LayerNorm of each row, then its backward for g (f32, as on the
+    // TPU), in place in A: warp w takes rows w, w + 8, ..., its g rows
+    // loaded first.
+    constexpr int RPW = TILE / (NT / 32);  // rows per warp
+    float4 gv[RPW];
+  #pragma unroll
+    for (int i = 0; i < RPW; ++i)
+      gv[i] = reinterpret_cast<const float4*>(
+          g + (row0 + warp + i * (NT / 32)) * C)[lane];
+  #pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = warp + i * (NT / 32);
+      float4 v = *reinterpret_cast<float4*>(A + r * AS + 4 * lane);
+      const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
+      v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
+      const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
+      const float iv = 1.0f / sqrtf(var + LN_EPS);
+      v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
+      *reinterpret_cast<float4*>(A + r * AS + 4 * lane) = ln_bwd(gv[i], v, iv);
+    }
 
-  // Tail layers in reverse: db from the unrounded cotangent, dW and the
-  // next cotangent from the rounded one, masked by the layer's input. The
-  // next cotangent's slice goes out first; dW's product then overlaps the
-  // cluster barrier of its exchange.
-  for (int l = n_layers - 1; l >= 0; --l) {
-    const float* h = hq + (size_t)l * TILE * SW;
+    // Tail layers in reverse: db from the unrounded cotangent, dW and the
+    // next cotangent from the rounded one, masked by the layer's input. The
+    // next cotangent's slice goes out first; dW's product then overlaps the
+    // cluster barrier of its exchange.
+    for (int l = n_layers - 1; l >= 0; --l) {
+      const float* h = hq + (size_t)l * TILE * SW;
+      __syncthreads();
+      col_sums(A, q, gp_b0 + C + l * C, add);
+      if (BF16) round_full(A);
+      float dh[2][4] = {};
+      row_product(dh, A, w, prod++, n_products, q, wbuf);
+      float* out = E + eb * TILE * SW;
+      store_slice_masked(dh, h, out);
+      cluster_arrive();
+      weight_grad(h, A, q, gp + (2 + l) * cc, add);
+      __syncthreads();  // every read of A done before the exchange's writes
+      exchange_wait(cluster, out, A);
+      eb ^= 1;
+    }
+
+    // A is dpre: db0 from it unrounded, then the rounded operand of the rest.
     __syncthreads();
-    col_sums(A, q, gp_b0 + C + l * C);
+    col_sums(A, q, gp_b0, add);
     if (BF16) round_full(A);
-    float dh[2][4] = {};
-    row_product(dh, A, w, prod++, n_products, q, wbuf);
-    float* out = E + eb * TILE * SW;
-    store_slice_masked(dh, h, out);
-    cluster_arrive();
-    weight_grad(h, A, q, gp + (2 + l) * cc);
-    __syncthreads();  // every read of A done before the exchange's writes
-    exchange_wait(cluster, out, A);
-    eb ^= 1;
+    const int rg = tid >> 3, cg4 = 4 * (tid & 7);
+    {
+      float acc[2][4] = {};
+      row_product(acc, A, w, prod++, n_products, q, wbuf);
+  #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
+        const float4 gv = *reinterpret_cast<const float4*>(g + o);
+        store(&dx[o], acc[r][0] + gv.x);
+        store(&dx[o + 1], acc[r][1] + gv.y);
+        store(&dx[o + 2], acc[r][2] + gv.z);
+        store(&dx[o + 3], acc[r][3] + gv.w);
+      }
+    }
+    {
+      float acc[2][4] = {};
+      row_product(acc, A, w, prod++, n_products, q, wbuf);
+  #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
+        *reinterpret_cast<float4*>(daggr + o) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    }
+    // dWa and dWb: this CTA's columns of x and of aggr as the left operands,
+    // in the kept slices (free now: no peer reads them any more).
+    load_slice<TX, BF16>(xt, q, hq);
+    load_slice<float, BF16>(at, q, hq + TILE * SW);
+    __syncthreads();
+    weight_grad(hq, A, q, gp, add);
+    weight_grad(hq + TILE * SW, A, q, gp + cc, add);
+    // No CTA leaves, or starts its next tile, while a peer may still read
+    // its shared memory.
+    cluster.sync();
   }
+}
 
-  // A is dpre: db0 from it unrounded, then the rounded operand of the rest.
-  __syncthreads();
-  col_sums(A, q, gp_b0);
-  if (BF16) round_full(A);
-  const int rg = tid >> 3, cg4 = 4 * (tid & 7);
-  {
-    float acc[2][4] = {};
-    row_product(acc, A, w, prod++, n_products, q, wbuf);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
-      const float4 gv = *reinterpret_cast<const float4*>(g + o);
-      store(&dx[o], acc[r][0] + gv.x);
-      store(&dx[o + 1], acc[r][1] + gv.y);
-      store(&dx[o + 2], acc[r][2] + gv.z);
-      store(&dx[o + 3], acc[r][3] + gv.w);
-    }
-  }
-  {
-    float acc[2][4] = {};
-    row_product(acc, A, w, prod++, n_products, q, wbuf);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
-      *reinterpret_cast<float4*>(daggr + o) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    }
-  }
-  // dWa and dWb: this CTA's columns of x and of aggr as the left operands,
-  // in the kept slices (free now: no peer reads them any more).
-  load_slice<TX, BF16>(xt, q, hq);
-  load_slice<float, BF16>(at, q, hq + TILE * SW);
-  __syncthreads();
-  weight_grad(hq, A, q, gp);
-  weight_grad(hq + TILE * SW, A, q, gp + cc);
-  // No CTA leaves while a peer may still read its shared memory.
-  cluster.sync();
+// (CTAs per SM, clusters on the card at once) of the kernel at n_layers,
+// as the card's occupancy calculator reports them: the host sizes the cap
+// on the partials in whole waves of clusters (node_mlp.p_max).
+template <typename TX, bool BF16>
+int occupancy(int n_layers, int* blocks_per_sm, int* clusters) {
+  if (n_layers < 1 || n_layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_node_phase_bwd_kernel<TX, BF16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(MAX_LAYERS));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, NT, smem_bytes(n_layers));
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_bytes(n_layers);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 template <typename TX, bool BF16>
 int launch(const void* x, const void* aggr, const void* W0, const void* b0,
            const void* W, const void* B, const void* W0T, const void* WT,
-           const void* g, void* gpart, int n_layers, int n_tiles, void* dx,
-           void* daggr, void* grads, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || n_tiles < 1)
+           const void* g, void* gpart, int n_layers, int n_tiles, int n_parts,
+           void* dx, void* daggr, void* grads, void* stream) {
+  if (n_layers < 1 || n_layers > MAX_LAYERS || n_tiles < 1 || n_parts < 1 ||
+      n_parts > n_tiles)
     return (int)cudaErrorInvalidValue;
   auto kernel = fused_node_phase_bwd_kernel<TX, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -392,27 +438,33 @@ int launch(const void* x, const void* aggr, const void* W0, const void* b0,
       (int)smem_bytes(MAX_LAYERS));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<n_tiles * CL, NT, smem_bytes(n_layers), s>>>(
+  kernel<<<n_parts * CL, NT, smem_bytes(n_layers), s>>>(
       (const TX*)x, (const float*)aggr, (const float*)W0, (const float*)b0,
       (const float*)W, (const float*)B, (const float*)W0T, (const float*)WT,
-      (const float*)g, n_layers, (TX*)dx, (float*)daggr, (float*)gpart);
+      (const float*)g, n_layers, n_tiles, (TX*)dx, (float*)daggr,
+      (float*)gpart);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int size = (2 + n_layers) * C * C + (1 + n_layers) * C;
-  return (int)launch_grad_sum((const float*)gpart, n_tiles, size,
+  return (int)launch_grad_sum((const float*)gpart, n_parts, size,
                               (float*)grads, s);
 }
 
 }  // namespace
 
 #define FUSED_NODE_PHASE_BWD(NAME, TX, BF16)                                   \
+  extern "C" int NAME##_occupancy(int n_layers, int* blocks_per_sm,           \
+                                  int* clusters) {                            \
+    return occupancy<TX, BF16>(n_layers, blocks_per_sm, clusters);            \
+  }                                                                           \
   extern "C" int NAME(const void* x, const void* aggr, const void* W0,        \
                       const void* b0, const void* W, const void* B,           \
                       const void* W0T, const void* WT, const void* g,         \
-                      void* gpart, int n_layers, int n_tiles, void* dx,       \
-                      void* daggr, void* grads, void* stream) {               \
+                      void* gpart, int n_layers, int n_tiles, int n_parts,    \
+                      void* dx, void* daggr, void* grads, void* stream) {     \
     return launch<TX, BF16>(x, aggr, W0, b0, W, B, W0T, WT, g, gpart,         \
-                            n_layers, n_tiles, dx, daggr, grads, stream);     \
+                            n_layers, n_tiles, n_parts, dx, daggr, grads,     \
+                            stream);                                          \
   }
 
 // f32 compute; bf16 compute on bf16 x; bf16 compute on f32 x (as kernel 3).

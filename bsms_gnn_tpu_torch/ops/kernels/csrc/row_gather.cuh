@@ -23,6 +23,15 @@
 //   is (kernel 9); rows no list names are not touched.
 // The sum is in f32.
 //
+// A batch of samples over one layout (the batch axis of a shared mesh):
+// blockIdx.y is the sample b, and x and the output (with kernel 2's
+// accumulator, which is the output) move by b times their per-sample
+// strides (elements, 64-bit), so the grid's y extent is the batch and the
+// lists, their order and every sum are the same for each sample as in a
+// call on that sample alone. An entry point off the batched path (kernels
+// 8, 9 and 15, whose AddOnto reads acc unmoved) launches gridDim.y = 1
+// with zero strides.
+//
 // Blocks of GATHER_WARPS warps. The first ceil(n_rows / (GATHER_WARPS ·
 // ROWS)) blocks give each warp ROWS consecutive lists (WARP_ROWS = 4; 1 for
 // kernel 9, whose lists hold a few slots each): the warp walks their
@@ -202,7 +211,8 @@ __device__ __forceinline__ void gather_walk(const T* __restrict__ x,
 }
 
 // The body of a gather kernel (see the note above) over n_rows lists, ROWS
-// short lists a warp: out is f32 with rows of C.
+// short lists a warp: out is f32 with rows of C; sample blockIdx.y's x and
+// out start x_stride and out_stride elements after the previous sample's.
 template <bool BF16, int ROWS = WARP_ROWS, typename T, typename Src,
           typename Dst>
 __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
@@ -210,8 +220,12 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
                                             const int* __restrict__ row_ptr,
                                             const int* __restrict__ long_rows,
                                             int n_rows, int piece,
-                                            float* __restrict__ out) {
+                                            float* __restrict__ out,
+                                            size_t x_stride = 0,
+                                            size_t out_stride = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  x += blockIdx.y * x_stride;
+  out += blockIdx.y * out_stride;
   float4* dst = reinterpret_cast<float4*>(out);
   const int n_short = (n_rows + GATHER_WARPS * ROWS - 1) /
                       (GATHER_WARPS * ROWS);
@@ -301,16 +315,19 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
 // 5's dxj (fused_gmp_bwd.cu): out[n] = Σ rows[e] over receiver row n's
 // listed slots (`win_row_ptr`, `win_row_slots`, `win_long`), in list
 // order (a bf16 row widens exactly to f32); a row with no slot comes out
-// zero.
+// zero. Batched (kernels 4 and 5): sample blockIdx.y's rows and out
+// start rows_stride and out_stride elements after the previous sample's
+// (the other tile walks' entries launch one sample with zero strides).
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 recv_gather_kernel(const T* __restrict__ rows,
                    const int* __restrict__ row_ptr,
                    const int* __restrict__ row_slots,
                    const int* __restrict__ long_rows, int n_rows, int piece,
-                   float* __restrict__ out) {
+                   float* __restrict__ out, size_t rows_stride,
+                   size_t out_stride) {
   gather_rows<BF16>(rows, ListedSlots{row_slots}, StoreRows{}, row_ptr,
-                    long_rows, n_rows, piece, out);
+                    long_rows, n_rows, piece, out, rows_stride, out_stride);
 }
 
 // Blocks of a gather launch over n_rows lists, n_long of them long, `rows`
@@ -318,5 +335,15 @@ recv_gather_kernel(const T* __restrict__ rows,
 inline int gather_blocks(int n_rows, int n_long, int rows = WARP_ROWS) {
   return (n_rows + GATHER_WARPS * rows - 1) / (GATHER_WARPS * rows) + n_long;
 }
+
+// The grid of a gather launch over n_batch samples (blockIdx.y the
+// sample).
+inline dim3 gather_grid(int n_rows, int n_long, int n_batch = 1,
+                        int rows = WARP_ROWS) {
+  return dim3(gather_blocks(n_rows, n_long, rows), n_batch);
+}
+
+// The largest batch a gather launch takes (the grid's y extent).
+constexpr int MAX_BATCH = 65535;
 
 }  // namespace bsms

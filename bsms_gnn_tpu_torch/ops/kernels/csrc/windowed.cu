@@ -16,7 +16,9 @@
 // < W whose receiver lies in their chunk's block, in slot order) and its
 // rows of more than 32 of them (`win_long`). Each slot's row is resolved
 // here, from send_win and win_base, as the TPU kernel selects it. One
-// launch, no scratch.
+// launch, no scratch. A batch over the one operator (x [B, n_in, C], out
+// [B, n_rows, C]) is the grid's y extent: each sample's gather runs over
+// the same lists in the same order, as a call on that sample alone.
 //
 // The first design gave each edge chunk a thread block that added
 // ew·x[row] into two shared-memory copies of the chunk's 128-row output
@@ -48,25 +50,30 @@ windowed_gather_kernel(const T* __restrict__ x, const float* __restrict__ ew,
                        WindowRow row_of, const int* __restrict__ row_ptr,
                        const int* __restrict__ row_slots,
                        const int* __restrict__ long_rows, int n_rows,
-                       int piece, float* __restrict__ out) {
+                       int piece, float* __restrict__ out, size_t x_stride,
+                       size_t out_stride) {
   gather_rows<BF16>(x, WeightedSlots<WindowRow>{row_slots, ew, row_of},
-                    StoreRows{}, row_ptr, long_rows, n_rows, piece, out);
+                    StoreRows{}, row_ptr, long_rows, n_rows, piece, out,
+                    x_stride, out_stride);
 }
 
+// x [n_batch][x_rows][C], out [n_batch][n_rows][C].
 template <typename T, bool BF16>
 int launch(const void* x, const void* ew, const void* send_win,
            const void* win_base, const void* row_ptr, const void* row_slots,
            const void* long_rows, int n_rows, int n_long, int edge_block,
-           int window, int piece, void* out, void* stream) {
-  if (n_rows < 1 || n_long < 0 || piece < 1 || edge_block < 1 || window < 2)
+           int window, int piece, int n_batch, int x_rows, void* out,
+           void* stream) {
+  if (n_rows < 1 || n_long < 0 || piece < 1 || edge_block < 1 ||
+      window < 2 || n_batch < 1 || n_batch > MAX_BATCH || x_rows < 1)
     return (int)cudaErrorInvalidValue;
   const WindowRow row_of{(const int*)send_win, (const int*)win_base,
                          edge_block, window / 2};
-  windowed_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS,
-                                    0, (cudaStream_t)stream>>>(
+  windowed_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                    THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)x, (const float*)ew, row_of, (const int*)row_ptr,
       (const int*)row_slots, (const int*)long_rows, n_rows, piece,
-      (float*)out);
+      (float*)out, (size_t)x_rows * C, (size_t)n_rows * C);
   return (int)cudaGetLastError();
 }
 
@@ -77,10 +84,11 @@ int launch(const void* x, const void* ew, const void* send_win,
                       const void* win_base, const void* row_ptr,             \
                       const void* row_slots, const void* long_rows,          \
                       int n_rows, int n_long, int edge_block, int window,    \
-                      int piece, void* out, void* stream) {                  \
+                      int piece, int n_batch, int x_rows, void* out,         \
+                      void* stream) {                                        \
     return launch<T, BF16>(x, ew, send_win, win_base, row_ptr, row_slots,    \
                            long_rows, n_rows, n_long, edge_block, window,    \
-                           piece, out, stream);                              \
+                           piece, n_batch, x_rows, out, stream);             \
   }
 
 WINDOWED_CONV(windowed_conv_f32, float, false)

@@ -17,6 +17,8 @@
 // than 32 of them (`send_long`). The value row of a slot is the slot
 // itself, so a warp's chain is row_ptr → slots → vals; no weight. A sender
 // row with no slot comes out zero. One launch, no scratch, no atomics.
+// A batch over the one level (vals [B, E_pad, C], out [B, n_rows, C]) is the
+// grid's y extent, each sample summed as a call on it alone.
 //
 // Why not a shared-memory copy of each chunk's window, as the TPU kernel
 // keeps its output block: a serial read-modify-write per slot on one block
@@ -34,20 +36,25 @@ send_gather_kernel(const T* __restrict__ vals,
                    const int* __restrict__ row_ptr,
                    const int* __restrict__ row_slots,
                    const int* __restrict__ long_rows, int n_rows, int piece,
-                   float* __restrict__ out) {
+                   float* __restrict__ out, size_t vals_stride,
+                   size_t out_stride) {
   gather_rows<BF16>(vals, ListedSlots{row_slots}, StoreRows{}, row_ptr,
-                    long_rows, n_rows, piece, out);
+                    long_rows, n_rows, piece, out, vals_stride, out_stride);
 }
 
+// vals [n_batch][e_rows][C], out [n_batch][n_rows][C].
 template <typename T, bool BF16>
 int launch(const void* vals, const void* row_ptr, const void* row_slots,
            const void* long_rows, int n_rows, int n_long, int piece,
-           void* out, void* stream) {
-  if (n_rows < 1 || n_long < 0 || piece < 1) return (int)cudaErrorInvalidValue;
-  send_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                (cudaStream_t)stream>>>(
+           int n_batch, int e_rows, void* out, void* stream) {
+  if (n_rows < 1 || n_long < 0 || piece < 1 || n_batch < 1 ||
+      n_batch > MAX_BATCH || e_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  send_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)vals, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out);
+      (const int*)long_rows, n_rows, piece, (float*)out,
+      (size_t)e_rows * C, (size_t)n_rows * C);
   return (int)cudaGetLastError();
 }
 
@@ -56,10 +63,10 @@ int launch(const void* vals, const void* row_ptr, const void* row_slots,
 #define WINDOWED_SEND_SUM(NAME, T, BF16)                                      \
   extern "C" int NAME(const void* vals, const void* row_ptr,                 \
                       const void* row_slots, const void* long_rows,          \
-                      int n_rows, int n_long, int piece, void* out,          \
-                      void* stream) {                                        \
+                      int n_rows, int n_long, int piece, int n_batch,        \
+                      int e_rows, void* out, void* stream) {                 \
     return launch<T, BF16>(vals, row_ptr, row_slots, long_rows, n_rows,      \
-                           n_long, piece, out, stream);                      \
+                           n_long, piece, n_batch, e_rows, out, stream);     \
   }
 
 WINDOWED_SEND_SUM(windowed_send_sum_f32, float, false)

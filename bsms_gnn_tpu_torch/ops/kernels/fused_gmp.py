@@ -82,6 +82,17 @@ and in the backward the edge cotangent g[recv], the running cotangent and
 dpre) and accumulated in f32; the LN output is rounded to bf16 before the
 f32 scatter sum, and dpre is stored in bf16.
 
+The batch axis (a shared mesh: xwi, xj [B, n_pad, 128]): one launch of
+kernel 4 walks the B·T tiles of the batch in the same stride order (tile
+t is tile t mod T of sample ⌊t / T⌋, the grid still the card's fill), with
+`msg [B, E_pad, 128]` (1.0 GB in f32 at B = 48 on the 5k airfoil's level
+0) and one gather whose grid's y index is the sample; one launch of kernel
+5 walks the B·T tiles in its ranges, still G partials (each block sums
+every sample's tiles of its range into its own), dpre [B, E_pad, 128], dxj
+by the batched gather. Every per-row output of sample b is the bits of a
+call on sample b alone; the weight gradients sum over the batch. Kernels
+13 and 14, which share the walks, take B = 1.
+
 `fused_edge_phase_win` is the differentiable entry: an autograd Function
 whose forward launches kernel 4 and whose backward launches kernel 5 and
 then kernel 7 (`windowed.py::windowed_send_sum`) on dpre for the sender
@@ -164,17 +175,18 @@ def mlp_tail_bwd(pre, hs, normed, inv, g, weights, bf16: bool):
     return dh * (pre > 0), torch.stack(dws), torch.stack(dbs)
 
 
-def _check(level, xwi, xj, wf8, weights, biases):
+def _check(level, xwi, xj, wf8, weights, biases, batched=False):
+    """Raise on what the windowed edge kernels do not take; `batched`:
+    the function takes a batch axis (kernels 4 and 5; 13 and 14 do not)."""
     if level.window <= 0:
         raise NotImplementedError("fused edge phase needs a windowed level")
-    if xwi.dim() != 2:
-        raise NotImplementedError("batch axis")
+    build.check_batch(xwi, batched)
     n_pad, c = level.n_pad_nodes, xwi.shape[-1]
     if c != BN:
         raise NotImplementedError(f"latent width {c} (only 128)")
-    if xwi.shape != (n_pad, c) or xj.shape != xwi.shape:
+    if xwi.shape[-2:] != (n_pad, c) or xj.shape != xwi.shape:
         raise ValueError(f"xwi/xj {tuple(xwi.shape)}/{tuple(xj.shape)} "
-                         f"!= ({n_pad}, {c})")
+                         f"!= (..., {n_pad}, {c})")
     if xj.dtype != xwi.dtype or xwi.dtype not in _FN:
         raise ValueError(f"xwi/xj dtypes {xwi.dtype}/{xj.dtype}")
     if wf8.shape != (8, c) or any(w.shape != (c, c) for w in weights):
@@ -195,18 +207,20 @@ def sender_rows(level):
 
 def _edge_pre(level, xwi, xj, wf8, bf16):
     """Each slot's first-layer pre-activation fiber·wf8 + xwi[send] +
-    xj[recv] (f32), the in-window mask and the receivers."""
+    xj[recv] (f32, on xwi's leading dims), the in-window mask and the
+    receivers."""
     rows, covered = sender_rows(level)
-    sel = torch.where(covered[:, None], xwi.float().index_select(0, rows), 0.0)
+    sel = torch.where(covered[:, None], xwi.float().index_select(-2, rows),
+                      0.0)
     recv = level.receivers.long()
-    zj = xj.float().index_select(0, recv)
+    zj = xj.float().index_select(-2, recv)
     fib = dot(level.fiber_t.t(), wf8.float(), bf16)
     return fib + sel + zj, covered, recv
 
 
 def fused_edge_phase_win_plain(level, xwi, xj, wf8, weights, biases):
     """Kernel 4's function in plain PyTorch (index_select / matmul /
-    index_add_)."""
+    index_add_), on any leading dims."""
     fused_edge_phase_win_plain.calls += 1
     return win_fwd_plain(level, xwi, xj, wf8, weights, biases)
 
@@ -223,15 +237,16 @@ def win_fwd_plain(level, xwi, xj, wf8, weights, biases):
     if bf16:
         e = round_bf16(e)
     e = torch.where(covered[:, None], e, 0.0)
-    out = torch.zeros(level.n_pad_nodes, xwi.shape[-1], dtype=torch.float32,
-                      device=xwi.device)
-    return out.index_add_(0, recv, e)
+    out = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, xwi.shape[-1],
+                      dtype=torch.float32, device=xwi.device)
+    return out.index_add_(-2, recv, e)
 
 
 def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
-    """aggr [n_pad, 128] f32 of the in-window edges, no autograd. CPU
-    tensors take the plain version; CUDA tensors launch kernel 4."""
-    _check(level, xwi, xj, wf8, weights, biases)
+    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
+    128] or a batch [B, n_pad, 128], one launch), no autograd. CPU tensors
+    take the plain version; CUDA tensors launch kernel 4."""
+    _check(level, xwi, xj, wf8, weights, biases, batched=True)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_plain(level, xwi, xj, wf8, weights,
                                           biases)
@@ -256,22 +271,27 @@ def walk_sigs(fns: Dict[torch.dtype, str], n_in: int, n_int: int,
 
 def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
                    biases):
-    """aggr [n_pad, 128] f32 by the windowed forward tile walk of
+    """aggr [..., n_pad, 128] f32 by the windowed forward tile walk of
     `csrc/<lib_name>.cu` (kernel 4's, or kernel 14's under its own names;
-    `fns`: dtype → C function) on CUDA tensors."""
+    `fns`: dtype → C function) on CUDA tensors, for the batch xwi's
+    leading dim gives (kernel 14's entries take one sample only)."""
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
-    lib = build.library(lib_name, walk_sigs(fns, 13, 9, 3))
+    lib = build.library(lib_name, walk_sigs(fns, 13, 10, 3))
     fn, dev = fns[xwi.dtype], xwi.device
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
-    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    lead = xwi.shape[:-2]
+    msg = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+                      device=dev)
+    out = torch.empty(*lead, level.n_pad_nodes, BN, dtype=torch.float32,
+                      device=dev)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         wf8.data_ptr(), w_stack.data_ptr(), b_stack.data_ptr(),
@@ -280,7 +300,8 @@ def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
         level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
         level.win_long.data_ptr(), len(weights), grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
-        level.win_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
+        level.win_long.numel(), GATHER_PIECE, n_batch, msg.data_ptr(),
+        out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, what)
@@ -321,19 +342,22 @@ def walk_fill(lib, fn: str, n_layers: int, device) -> int:
     return hit
 
 
-def walk_grid(lib, fn: str, n_layers: int, level) -> Tuple[int, int]:
-    """(tiles, blocks) of one launch of the tile walk over `level`."""
+def walk_grid(lib, fn: str, n_layers: int, level,
+              n_batch: int = 1) -> Tuple[int, int]:
+    """(tiles of one sample, blocks) of one launch of the tile walk over
+    `level` for a batch of n_batch samples (B·T tiles in all)."""
     fill = walk_fill(lib, fn, n_layers, level.receivers.device)
     if level.edge_block % TILE_ROWS:
         raise NotImplementedError(
             f"edge_block {level.edge_block} is not a multiple of the walk's "
             f"{TILE_ROWS}-slot tiles")
     n_tiles = level.n_pad_edges // TILE_ROWS
-    return n_tiles, len(tile_ranges(n_tiles, fill)) - 1
+    return n_tiles, len(tile_ranges(n_tiles * n_batch, fill)) - 1
 
 
 def fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
-    """Kernel 5's function in plain PyTorch."""
+    """Kernel 5's function in plain PyTorch, on any leading dims (the
+    weight gradients summed over them)."""
     fused_edge_phase_win_bwd_plain.calls += 1
     return win_bwd_plain(level, xwi, xj, wf8, weights, biases, g)
 
@@ -347,25 +371,36 @@ def win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
     pre, covered, recv = _edge_pre(level, xwi, xj, wf8, bf16)
     ws, bs = [w.float() for w in weights], [b.float() for b in biases]
     normed, inv, hs = mlp_tail_fwd_save(pre, ws, bs, bf16)
-    ge = torch.where(covered[:, None], g.float().index_select(0, recv), 0.0)
+    ge = torch.where(covered[:, None], g.float().index_select(-2, recv), 0.0)
     if bf16:
         ge = round_bf16(ge)
-    dpre, dw, db = mlp_tail_bwd(pre, hs, normed, inv, ge, ws, bf16)
+    c = xwi.shape[-1]
+
+    def rows(t):  # the leading dims' slots as one row axis
+        return t.reshape(-1, t.shape[-1])
+
+    dpre, dw, db = mlp_tail_bwd(rows(pre), [rows(h) for h in hs],
+                                rows(normed), rows(inv), rows(ge), ws, bf16)
+    dpre = dpre.reshape(pre.shape)
     dpre_op = round_bf16(dpre) if bf16 else dpre
-    dxj = torch.zeros(level.n_pad_nodes, xwi.shape[-1], dtype=torch.float32,
-                      device=xwi.device).index_add_(0, recv, dpre_op)
+    dxj = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, c,
+                      dtype=torch.float32,
+                      device=xwi.device).index_add_(-2, recv, dpre_op)
     dwf8 = dot(level.fiber_t, dpre, bf16)
+    if dwf8.dim() == 3:
+        dwf8 = dwf8.sum(0)
     return dpre.to(xwi.dtype), dxj, dwf8, dw, db
 
 
 def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
-    """(dpre [E_pad, 128] in xwi's dtype, dxj [n_pad, 128] f32, dwf8 [8,
-    128], dW [L, 128, 128], db [L, 128]) for the aggregate's cotangent g,
-    no autograd. CPU tensors take the plain version; CUDA tensors launch
-    kernel 5."""
-    _check(level, xwi, xj, wf8, weights, biases)
-    if g.shape != (level.n_pad_nodes, BN):
-        raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
+    """(dpre [..., E_pad, 128] in xwi's dtype, dxj [..., n_pad, 128] f32,
+    dwf8 [8, 128], dW [L, 128, 128], db [L, 128]) for the aggregate's
+    cotangent g [..., n_pad, 128] (a batch [B, ...] in one launch, the
+    weight gradients summed over it), no autograd. CPU tensors take the
+    plain version; CUDA tensors launch kernel 5."""
+    _check(level, xwi, xj, wf8, weights, biases, batched=True)
+    if g.shape != xwi.shape:
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights,
                                               biases, g)
@@ -384,14 +419,16 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
                    biases, g):
     """(dpre, dxj, dwf8, dW, db) by the windowed backward tile walk of
     `csrc/<lib_name>.cu` (kernel 5's, or kernel 14's under its own names;
-    `fns`: dtype → C function) on CUDA tensors."""
+    `fns`: dtype → C function) on CUDA tensors, for the batch xwi's
+    leading dim gives (kernel 14's entries take one sample only)."""
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
-    lib = build.library(lib_name, walk_sigs(fns, 15, 9, 5))
+    lib = build.library(lib_name, walk_sigs(fns, 15, 10, 5))
     fn = fns[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
@@ -402,8 +439,10 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
     grad_size = n_layers * BN * BN + n_layers * BN + 8 * BN
     f32 = dict(dtype=torch.float32, device=dev)
     gpart = torch.empty(grid, grad_size, **f32)
-    dpre = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    dxj = torch.empty(level.n_pad_nodes, BN, **f32)
+    lead = xwi.shape[:-2]
+    dpre = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+                       device=dev)
+    dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
     grads = torch.empty(grad_size, **f32)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -414,7 +453,8 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
         level.win_row_slots.data_ptr(), level.win_long.data_ptr(), n_layers,
         grid, n_tiles, level.n_pad_edges, level.edge_block, level.window,
         level.n_pad_nodes, level.win_long.numel(), GATHER_PIECE,
-        gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
+        n_batch, gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(),
+        grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, what)
@@ -461,10 +501,11 @@ _V3 = (lambda *a: fused_edge_phase_win_fwd(*a),
 
 
 def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
-    """aggr [n_pad, 128] f32 of the in-window edges, differentiable in xwi,
-    xj, wf8 and every tail weight and bias. `wf8` rows [0, pd1) are the
-    static-fiber rows of the first edge layer, row pd1 its bias;
-    `weights`/`biases` are the tail layers ([C, C] stored [in, out])."""
-    _check(level, xwi, xj, wf8, weights, biases)
+    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
+    128] or a batch [B, n_pad, 128]), differentiable in xwi, xj, wf8 and
+    every tail weight and bias. `wf8` rows [0, pd1) are the static-fiber
+    rows of the first edge layer, row pd1 its bias; `weights`/`biases` are
+    the tail layers ([C, C] stored [in, out])."""
+    _check(level, xwi, xj, wf8, weights, biases, batched=True)
     return EdgePhase.apply(level, _V3, len(weights), xwi, xj, wf8, *weights,
                            *biases)

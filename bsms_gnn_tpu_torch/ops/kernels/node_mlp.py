@@ -54,6 +54,21 @@ host: `build.stacked(..., to_bf16=True)`), and in the backward the running
 cotangent and dpre too; g itself enters the LayerNorm backward in f32, as
 on the TPU.
 
+The batch axis (a shared mesh): the node phase is row-wise, so x, aggr
+[B, n_pad, 128] are one launch over their B·n_pad rows as [B·n_pad, 128]
+(kernels 3 and 6 unchanged per tile). Kernel 6 caps its weight-gradient
+partials: one 330 KB partial per 64-row tile would be 1.3 GB at B = 48 on
+the 5k airfoil's level 0 (3,936 tiles), so P = min(T, P_max) clusters
+each walk a contiguous range of ⌊p·T/P⌋ .. ⌊(p+1)·T/P⌋ tiles in order,
+the first stored into the cluster's partial and each later one added onto
+it, and `grad_sum_kernel` adds the P partials in order. P_max (`p_max`)
+is the fewest whole waves of the clusters the card holds at once that
+hold P_MIN partials: a range of tiles then splits evenly over full waves
+(a last wave of a few clusters walking their whole ranges alone doubled
+the time, PERF.md §6), and every level the port runs at B = 1 (at most
+P_MIN tiles) keeps one tile a partial: the arithmetic and the bits of the
+one-partial-per-tile kernel.
+
 `fused_node_phase` is the differentiable entry: an autograd Function whose
 forward launches kernel 3 and whose backward launches kernel 6.
 """
@@ -81,22 +96,53 @@ _FN = {(torch.float32, False): "fused_node_phase_f32",
 _SIGS = {**{f: [build.P] * 7 + [build.I] * 2 + [build.P]
             for f in _FN.values()},
          **{f + "_occupancy": [build.P] * 2 for f in _FN.values()}}
-_BWD_SIG = [build.P] * 10 + [build.I] * 2 + [build.P] * 4
 _BWD_FN = {(torch.float32, False): "fused_node_phase_bwd_f32",
            (torch.bfloat16, True): "fused_node_phase_bwd_bf16",
            (torch.float32, True): "fused_node_phase_bwd_f32_bf16"}
+_BWD_SIGS = {**{f: [build.P] * 10 + [build.I] * 3 + [build.P] * 4
+                for f in _BWD_FN.values()},
+             **{f + "_occupancy": [build.I, build.P, build.P]
+                for f in _BWD_FN.values()}}
 # Rows of a tile (`csrc/node_cluster.cuh`'s TILE) and CTAs of kernels 3's
 # and 6's cluster per tile (its CL), each owning BN / CLUSTER output columns
 # of every product; held to these values by a static_assert there.
 ROWS = 64
 CLUSTER = 4
+# The fewest partials kernel 6's cap holds: the most 64-row tiles of any
+# level the port runs at B = 1 (the 16k surface's level 0, 16,128 rows).
+P_MIN = 252
+_clusters = {}
+
+
+def bwd_clusters(x_dtype, compute_dtype, n_layers, device) -> int:
+    """The clusters of kernel 6's entry for x_dtype and compute_dtype at
+    n_layers that the card holds at once (its occupancy calculator, asked
+    once per device and entry)."""
+    fn = _BWD_FN[(x_dtype, compute_dtype == torch.bfloat16)] + "_occupancy"
+    key = (fn, n_layers, device)
+    if key not in _clusters:
+        lib = build.library("node_mlp_bwd", _BWD_SIGS)
+        per_sm, clusters = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            build.check(getattr(lib, fn)(n_layers, ctypes.addressof(per_sm),
+                                         ctypes.addressof(clusters)), fn)
+        if clusters.value < 1:
+            raise RuntimeError(f"{fn}: no cluster fits on the card")
+        _clusters[key] = clusters.value
+    return _clusters[key]
+
+
+def p_max(x_dtype, compute_dtype, n_layers, device) -> int:
+    """The cap on kernel 6's partials: the fewest whole waves of the
+    clusters the card holds at once (`bwd_clusters`) that hold P_MIN."""
+    c = bwd_clusters(x_dtype, compute_dtype, n_layers, device)
+    return c * -(-P_MIN // c)
 
 
 def _check(x, aggr, mlp, compute_dtype):
     """Raise on what the kernels do not take (aggr None: x and mlp only)."""
-    if x.dim() != 2:
-        raise NotImplementedError("batch axis")
-    n_pad, c = x.shape
+    build.check_batch(x, True)
+    n_pad, c = x.shape[-2:]
     if c != BN:
         raise NotImplementedError(f"latent width {c} (only 128)")
     if aggr is not None and (aggr.shape != x.shape
@@ -127,13 +173,19 @@ def _tail(mlp):
             [b.float() for b in list(mlp.biases)[1:]])
 
 
+def _rows(t):
+    """A [..., n, C] tensor as [rows, C]: the node phase is row-wise."""
+    return t.reshape(-1, t.shape[-1])
+
+
 def fused_node_phase_plain(x, aggr, mlp, compute_dtype=None):
-    """Kernel 3's function in plain PyTorch."""
+    """Kernel 3's function in plain PyTorch, on any leading dims."""
     fused_node_phase_plain.calls += 1
     bf16 = compute_dtype == torch.bfloat16
-    pre, x32, _, _, _ = _node_pre(x, aggr, mlp, bf16)
+    pre, x32, _, _, _ = _node_pre(_rows(x), _rows(aggr), mlp, bf16)
     e = mlp_tail_plain(pre, *_tail(mlp), bf16)
-    return (e + x32).to(torch.bfloat16 if bf16 else x.dtype)
+    return (e + x32).to(torch.bfloat16 if bf16 else x.dtype).reshape(
+        x.shape)
 
 
 fused_node_phase_plain.calls = 0
@@ -141,8 +193,9 @@ fused_node_phase_plain.calls = 0
 
 def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
     """LN(MLP_node([x, aggr])) + x, no autograd. `mlp` is the GMP's node
-    MLP (weights stored [in, out]). CPU tensors take the plain version;
-    CUDA tensors launch kernel 3."""
+    MLP (weights stored [in, out]); x, aggr [n_pad, 128] or a batch [B,
+    n_pad, 128] (one launch over its rows). CPU tensors take the plain
+    version; CUDA tensors launch kernel 3."""
     _check(x, aggr, mlp, compute_dtype)
     if x.device.type == "cpu":
         return fused_node_phase_plain(x, aggr, mlp, compute_dtype)
@@ -160,7 +213,7 @@ def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
     err = getattr(lib, _FN[(x.dtype, bf16)])(
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
-        len(mlp.weights) - 1, x.shape[0] // ROWS,
+        len(mlp.weights) - 1, x.numel() // (BN * ROWS),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_node_phase")
@@ -184,16 +237,17 @@ def occupancy(x_dtype=torch.float32, compute_dtype=None):
 
 
 def fused_node_phase_bwd_plain(x, aggr, mlp, g, compute_dtype=None):
-    """Kernel 6's function in plain PyTorch."""
+    """Kernel 6's function in plain PyTorch, on any leading dims (the
+    weight gradients summed over every row)."""
     fused_node_phase_bwd_plain.calls += 1
     bf16 = compute_dtype == torch.bfloat16
-    pre, x32, a32, wa, wb = _node_pre(x, aggr, mlp, bf16)
+    pre, x32, a32, wa, wb = _node_pre(_rows(x), _rows(aggr), mlp, bf16)
     ws, bs = _tail(mlp)
     normed, inv, hs = mlp_tail_fwd_save(pre, ws, bs, bf16)
-    g = g.float()
+    g = _rows(g).float()
     dpre, dw, db = mlp_tail_bwd(pre, hs, normed, inv, g, ws, bf16)
-    dx = (dot(dpre, wa.t(), bf16) + g).to(x.dtype)
-    daggr = dot(dpre, wb.t(), bf16).to(aggr.dtype)
+    dx = (dot(dpre, wa.t(), bf16) + g).to(x.dtype).reshape(x.shape)
+    daggr = dot(dpre, wb.t(), bf16).to(aggr.dtype).reshape(aggr.shape)
     return (dx, daggr, dot(x32.t(), dpre, bf16), dot(a32.t(), dpre, bf16),
             dpre.sum(0), dw, db)
 
@@ -203,8 +257,10 @@ fused_node_phase_bwd_plain.calls = 0
 
 def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     """(dx in x's dtype, daggr f32, dWa, dWb [128, 128], db0 [128], dW [L,
-    128, 128], db [L, 128]) for the output's cotangent g, no autograd. CPU
-    tensors take the plain version; CUDA tensors launch kernel 6."""
+    128, 128], db [L, 128]) for the output's cotangent g, no autograd; a
+    batch is one launch over its rows, the weight gradients summed over
+    it. CPU tensors take the plain version; CUDA tensors launch kernel
+    6."""
     _check(x, aggr, mlp, compute_dtype)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(x.shape)}")
@@ -216,7 +272,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     if n_layers > MAX_BWD_LAYERS:
         raise NotImplementedError(
             f"{n_layers} tail layers (kernel 6 takes {MAX_BWD_LAYERS})")
-    lib = build.library("node_mlp_bwd", {f: _BWD_SIG for f in _BWD_FN.values()})
+    lib = build.library("node_mlp_bwd", _BWD_SIGS)
     ws, bs = list(mlp.weights), list(mlp.biases)
     c, dev = x.shape[-1], x.device
     bf16 = compute_dtype == torch.bfloat16
@@ -228,9 +284,10 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     b_stack = build.stacked(bs[1:])
     x, aggr = x.contiguous(), aggr.contiguous()
     g = g.detach().float().contiguous()
-    n_tiles = x.shape[0] // ROWS
+    n_tiles = x.numel() // (c * ROWS)
+    parts = min(n_tiles, p_max(x.dtype, compute_dtype, n_layers, dev))
     grad_size = (2 + n_layers) * c * c + (1 + n_layers) * c
-    gpart = torch.empty(n_tiles, grad_size, dtype=torch.float32, device=dev)
+    gpart = torch.empty(parts, grad_size, dtype=torch.float32, device=dev)
     grads = torch.empty(grad_size, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     daggr = torch.empty_like(aggr)
@@ -238,7 +295,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), w0_t.data_ptr(),
         wt_stack.data_ptr(), g.data_ptr(), gpart.data_ptr(), n_layers,
-        n_tiles, dx.data_ptr(), daggr.data_ptr(), grads.data_ptr(),
+        n_tiles, parts, dx.data_ptr(), daggr.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_node_phase_bwd")

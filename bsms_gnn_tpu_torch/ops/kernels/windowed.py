@@ -26,6 +26,11 @@ bytes (one 512-byte row, 256 in bf16, read per live slot for 256 FLOP;
 the output written once); at the 5k mesh a launch moves a few MB, so its
 latency dominates.
 
+The batch axis (a shared mesh, x [B, n_in_pad, 128] → [B, n_pad_nodes,
+128]): one launch whose grid's y index is the sample, each sample summed
+over the same lists in the same order as a call on it alone (the rect form
+and kernel 7; the level form takes B = 1, as kernel 9 beside it does).
+
 Why the first design lost, 4.5x behind `torch.sparse.mm` on a
 1M-node level: one thread block per edge chunk kept two 64 KB
 shared-memory copies of the chunk's output block (one block per SM, too
@@ -90,24 +95,21 @@ from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
-_SIG = [build.P] * 7 + [build.I] * 5 + [build.P] * 2
+_SIG = [build.P] * 7 + [build.I] * 7 + [build.P] * 2
 _FN = {torch.float32: "windowed_conv_f32",
        torch.bfloat16: "windowed_conv_bf16"}
-_SEND_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
+_SEND_SIG = [build.P] * 4 + [build.I] * 5 + [build.P] * 2
 _SEND_FN = {torch.float32: "windowed_send_sum_f32",
             torch.bfloat16: "windowed_send_sum_bf16"}
-
-
-def _check(t, x, n_rows, ew):
+def _check(t, x, n_rows, ew, batched):
     """`t` is a windowed TransOp (rect form, x in its input space) or a
     windowed level (level form, x in its node space)."""
     if t.window <= 0:
         raise NotImplementedError("windowed conv needs a windowed operator "
                                   "or level")
-    if x.dim() != 2:
-        raise NotImplementedError("batch axis")
-    if x.shape != (n_rows, BN):
-        raise ValueError(f"x {tuple(x.shape)} != ({n_rows}, {BN})")
+    build.check_batch(x, batched)
+    if x.shape[-2:] != (n_rows, BN):
+        raise ValueError(f"x {tuple(x.shape)} != (..., {n_rows}, {BN})")
     if x.dtype not in _FN:
         raise ValueError(f"x dtype {x.dtype}")
     if ew.shape != (t.n_pad_edges,):
@@ -115,8 +117,9 @@ def _check(t, x, n_rows, ew):
 
 
 def _plain(t, x, ew):
-    """Either form in plain PyTorch (index_select / index_add_): in bf16
-    the weights round to bf16, as in the kernel."""
+    """Either form in plain PyTorch (index_select / index_add_ on dim -2,
+    any leading dims): in bf16 the weights round to bf16, as in the
+    kernel."""
     w = t.window
     sw = t.send_win.long()
     covered = sw < w
@@ -125,15 +128,16 @@ def _plain(t, x, ew):
     ew = ew.float()
     if x.dtype == torch.bfloat16:
         ew = ew.to(torch.bfloat16).float()
-    msg = x.float().index_select(0, rows) * torch.where(covered, ew, 0.0)[:, None]
-    out = torch.zeros(t.n_pad_nodes, x.shape[-1], dtype=torch.float32,
-                      device=x.device)
-    return out.index_add_(0, t.receivers.long(), msg)
+    msg = (x.float().index_select(-2, rows)
+           * torch.where(covered, ew, 0.0)[:, None])
+    out = torch.zeros(*x.shape[:-2], t.n_pad_nodes, x.shape[-1],
+                      dtype=torch.float32, device=x.device)
+    return out.index_add_(-2, t.receivers.long(), msg)
 
 
 def _launch(what, t, x, ew):
-    """One launch of the kernel over `t`'s live-slot rows: f32
-    [t.n_pad_nodes, 128]."""
+    """One launch of the kernel over `t`'s live-slot rows, every sample of
+    a batch in it: f32 [..., t.n_pad_nodes, 128]."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     build.require(what, x.device, t.send_win, t.win_base, t.win_row_ptr,
@@ -142,13 +146,15 @@ def _launch(what, t, x, ew):
         raise ValueError(f"{what}: ew must be contiguous f32")
     lib = build.library("windowed", {f: _SIG for f in _FN.values()})
     x = x.contiguous()
-    out = torch.empty(t.n_pad_nodes, BN, dtype=torch.float32, device=x.device)
+    n_batch = x.shape[0] if x.dim() == 3 else 1
+    out = torch.empty(*x.shape[:-2], t.n_pad_nodes, BN, dtype=torch.float32,
+                      device=x.device)
     err = getattr(lib, _FN[x.dtype])(
         x.data_ptr(), ew.data_ptr(), t.send_win.data_ptr(),
         t.win_base.data_ptr(), t.win_row_ptr.data_ptr(),
         t.win_row_slots.data_ptr(), t.win_long.data_ptr(), t.n_pad_nodes,
-        t.win_long.numel(), t.edge_block, t.window, GATHER_PIECE,
-        out.data_ptr(),
+        t.win_long.numel(), t.edge_block, t.window, GATHER_PIECE, n_batch,
+        x.shape[-2], out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, what)
@@ -156,7 +162,7 @@ def _launch(what, t, x, ew):
 
 
 def windowed_rect_conv_plain(op, x):
-    """The rect form in plain PyTorch."""
+    """The rect form in plain PyTorch, on any leading dims."""
     windowed_rect_conv_plain.calls += 1
     return _plain(op, x, op.ew)
 
@@ -165,10 +171,11 @@ windowed_rect_conv_plain.calls = 0
 
 
 def windowed_rect_conv(op, x):
-    """Out-space f32 [n_pad_nodes, 128] of the in-window entries of a
-    windowed TransOp applied to x [n_in_pad, 128]. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    _check(op, x, op.n_in_pad, op.ew)
+    """Out-space f32 [..., n_pad_nodes, 128] of the in-window entries of a
+    windowed TransOp applied to x [n_in_pad, 128] or a batch [B, n_in_pad,
+    128] (one launch). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    _check(op, x, op.n_in_pad, op.ew, batched=True)
     if x.device.type == "cpu":
         return windowed_rect_conv_plain(op, x)
     out = _launch("windowed_rect_conv", op, x, op.ew)
@@ -192,8 +199,9 @@ def windowed_conv(level, x, ew):
     """f32 [n_pad, 128] in-window receiver sums of ew · x[sender] over a
     windowed level's own edges, x [n_pad, 128] f32 or bf16, ew [E_pad]
     (`level.ew` or `level.ew_rev`). CPU tensors take the plain version;
-    CUDA tensors launch kernel 1's level form."""
-    _check(level, x, level.n_pad_nodes, ew)
+    CUDA tensors launch kernel 1's level form. No batch axis (the
+    bucketed hierarchies' path takes B = 1)."""
+    _check(level, x, level.n_pad_nodes, ew, batched=False)
     if x.device.type == "cpu":
         return windowed_conv_plain(level, x, ew)
     out = _launch("windowed_conv", level, x, ew)
@@ -207,36 +215,36 @@ windowed_conv.launches = 0
 def _check_send(level, vals):
     if level.window <= 0:
         raise NotImplementedError("windowed send sum needs a windowed level")
-    if vals.dim() != 2:
-        raise NotImplementedError("batch axis")
-    if vals.shape != (level.n_pad_edges, BN):
+    build.check_batch(vals, True)
+    if vals.shape[-2:] != (level.n_pad_edges, BN):
         raise ValueError(f"vals {tuple(vals.shape)} != "
-                         f"({level.n_pad_edges}, {BN})")
+                         f"(..., {level.n_pad_edges}, {BN})")
     if vals.dtype not in _SEND_FN:
         raise ValueError(f"vals dtype {vals.dtype}")
 
 
 def windowed_send_sum_plain(level, vals):
-    """The same function in plain PyTorch: index_add_ of the in-window
-    slots' rows at their sender rows."""
+    """The same function in plain PyTorch, on any leading dims: index_add_
+    of the in-window slots' rows at their sender rows."""
     windowed_send_sum_plain.calls += 1
     w = level.window
     sw = level.send_win.long()
     covered = sw < w
     base = level.win_base.long().repeat_interleave(level.edge_block)
     rows = (base * (w // 2) + sw)[covered]
-    out = torch.zeros(level.n_pad_nodes, vals.shape[-1], dtype=torch.float32,
-                      device=vals.device)
-    return out.index_add_(0, rows, vals[covered].float())
+    live = covered.nonzero()[:, 0]
+    out = torch.zeros(*vals.shape[:-2], level.n_pad_nodes, vals.shape[-1],
+                      dtype=torch.float32, device=vals.device)
+    return out.index_add_(-2, rows, vals.index_select(-2, live).float())
 
 
 windowed_send_sum_plain.calls = 0
 
 
 def windowed_send_sum(level, vals):
-    """f32 [n_pad, 128] sender sums of the in-window slots' rows of vals
-    [E_pad, 128]. CPU tensors take the plain version; CUDA tensors launch
-    kernel 7."""
+    """f32 [..., n_pad, 128] sender sums of the in-window slots' rows of
+    vals [E_pad, 128] or a batch [B, E_pad, 128] (one launch). CPU tensors
+    take the plain version; CUDA tensors launch kernel 7."""
     _check_send(level, vals)
     if vals.device.type == "cpu":
         return windowed_send_sum_plain(level, vals)
@@ -247,13 +255,15 @@ def windowed_send_sum(level, vals):
     lib = build.library("windowed_send",
                         {f: _SEND_SIG for f in _SEND_FN.values()})
     vals = vals.contiguous()
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=vals.device)
+    n_batch = vals.shape[0] if vals.dim() == 3 else 1
+    out = torch.empty(*vals.shape[:-2], level.n_pad_nodes, BN,
+                      dtype=torch.float32, device=vals.device)
     err = getattr(lib, _SEND_FN[vals.dtype])(
         vals.data_ptr(), level.send_row_ptr.data_ptr(),
         level.send_row_slots.data_ptr(), level.send_long.data_ptr(),
-        level.n_pad_nodes, level.send_long.numel(), GATHER_PIECE,
-        out.data_ptr(), torch.cuda.current_stream(vals.device).cuda_stream,
+        level.n_pad_nodes, level.send_long.numel(), GATHER_PIECE, n_batch,
+        level.n_pad_edges, out.data_ptr(),
+        torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "windowed_send_sum")
     windowed_send_sum.launches += 1

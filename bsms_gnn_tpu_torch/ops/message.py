@@ -48,6 +48,15 @@ The gathers are `ops/scatter.py`'s, whose backwards sum by kernel 8. JAX's
 an ELL sum (`scatter.py:66-81`); the two compute the same function on
 every row that carries gradient, so the port builds no ELL tables.
 
+The batch axis (a shared mesh, x [B, N_pad, C]): the windowed `fused`
+route without world streams (v3: kernels 4, 2, 3 and, backward, 5, 7, 6,
+each batch one launch), its compact residual gathered on dim -2 and its
+static fiber term broadcast over the batch, as JAX's `gmp_apply` runs
+vmapped kernels (`message.py:251-315`). Every other route raises
+NotImplementedError("batch axis") on a batch: world streams (kernels 13,
+11), `"fusedK"` on a gated level (kernel 14), v2 (kernel 12), the residual
+sub-level (kernel 9) and the `pallas` method (kernels 8, 10).
+
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
 level's own weights (`message.py:603-692`), each the other's adjoint.
 Windowed levels run kernel 1's level form, then the residual sub-level's
@@ -115,7 +124,8 @@ class GMP(nn.Module):
 
     def forward(self, level, x, compute_dtype=None, pos=None,
                 method: str = "fused"):
-        """One GMP step. x: [N_pad, C]; pos: [N_pad, Σ dyn_dims] world
+        """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] on the
+        windowed `fused` route (see above); pos: [N_pad, Σ dyn_dims] world
         positions when the GMP has world edges."""
         method, k = split_interleave(method)
         if method not in METHODS:
@@ -244,8 +254,9 @@ class GMP(nn.Module):
 def _cresid_edge_phase(cr, gmp: GMP, xwi, xj, wf_sta, aggr, compute_dtype,
                        wpos=None, wf_dyn=None):
     """Residual edge phase on the compact tables: gathers and the edge MLP
-    over the ~R real out-of-window rows, then the block-visit accumulate
-    onto `aggr` (in place). `wpos` / `wf_dyn` ([wd + 1, C], the Δworld and
+    over the ~R real out-of-window rows (on xwi's leading dims, the fiber
+    term broadcast over them), then the block-visit accumulate onto `aggr`
+    (in place). `wpos` / `wf_dyn` ([wd + 1, C], the Δworld and
     ‖Δworld‖ rows) add the world-space fiber term, computed in the
     activations' dtype as the JAX package computes it."""
     pre_r = (

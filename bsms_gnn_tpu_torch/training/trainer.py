@@ -2,7 +2,7 @@
 normalizer-warmup gate and on-device noise injection (counterpart of
 `bsms_gnn_tpu/training/trainer.py`).
 
-  * masked RMSE loss √(Σ mask·se / Σ mask / C);
+  * masked RMSE loss √(Σ mask·se / Σ mask / C), over the whole batch;
   * the first `accumulation_steps` steps only accumulate normalizer
     statistics (padding excluded, Dirichlet nodes included) and update no
     parameter; their loss is that of the zero prediction;
@@ -16,8 +16,13 @@ normalizer-warmup gate and on-device noise injection (counterpart of
     gradients were clipped as optax clips them: scaled by
     max_norm / norm only when norm ≥ max_norm.
 
+A step takes one frame ([N_pad, ...]) or a batch of frames over one
+shared hierarchy ([B, N_pad, ...]): the noise is drawn in node_tar's shape,
+the warmup gate accumulates every sample's rows, and the loss is taken over
+the batch, as JAX's `Trainer.iter` does.
+
 Not ported (each raises NotImplementedError): `gradient_accumulation_steps
-> 1` (optax.MultiSteps), `remat`, a batch axis.
+> 1` (optax.MultiSteps), `remat`.
 """
 
 from __future__ import annotations
@@ -112,9 +117,8 @@ class Trainer:
         return masked_rmse(pred, node_tar, node_mask)
 
     def iter(self, hierarchy, node_in, node_tar, node_mask, noise=None):
-        """One training iteration; returns the scalar loss (detached)."""
-        if node_in.dim() != 2:
-            raise NotImplementedError("batch axis")
+        """One training iteration on a frame or a batch of frames; returns
+        the scalar loss (detached)."""
         node_in, node_tar = self.inject_noise(node_in, node_tar, node_mask,
                                               noise)
         if self._step < self.cfg.model.accumulation_steps:

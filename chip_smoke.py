@@ -97,7 +97,19 @@ Phases (any failure exits non-zero without the result line):
    kernel 1's level form, on the same level and weights, each against its
    plain version (f32, bf16, bf16 control) and timed beside its plain
    version, `torch.sparse.mm` and its bound; one counted launch of kernel
-   15.
+   15;
+16. the batch axis on the 5k airfoil of phase 2 (airfoil_batch: batches
+   of distinct seeded frames over its one hierarchy): kernels 1-7 at
+   BATCH_CHECK samples at every shape phases 3 and 6 check them at (the
+   batched kernel against its plain version, twice for bit-identical
+   outputs, bf16 controls; sample s of every per-row output bit for bit
+   the call on sample s alone; the weight gradients against the sum of
+   the samples' calls); kernel 6 the same at BATCH_TRAIN samples on level
+   0, more tiles than the cap on its partials, so that its clusters walk
+   ranges of tiles; the forward at BATCH_SERVE and the train step at
+   BATCH_TRAIN against the plain path with the B = 1 launch counts; a
+   `Trainer` run at BATCH_TRAIN; forward and step times at B = 1,
+   BATCH_SERVE and BATCH_TRAIN, busy per sample.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -405,6 +417,23 @@ TRAIN_TOL = {torch.float32: (1e-5, 5e-2, 1e-3),
 PLAIN_TRAIN_TOL = {torch.float32: (1e-5, 0.35, 1e-2),
                    torch.bfloat16: TRAIN_TOL[torch.bfloat16]}
 TRAIN_GATE, TRAIN_UPDATES = 2, 4
+# The batch axis on the airfoil's shared hierarchy (the airfoil_batch
+# path): the kernels checked at BATCH_CHECK samples; serving at
+# BATCH_SERVE (the README's batched-serving row); training at BATCH_TRAIN
+# (`bsms_gnn_tpu/configs/default.yaml`'s `batch`). Every batch is B
+# distinct seeded frames over the one hierarchy.
+BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
+# The arguments of each kernel of the batched path that carry the batch
+# (the rest are the layout, the weights and the compute dtype), and the
+# outputs of its backward that are per row (the others are weight
+# gradients, summed over the batch).
+BATCHED_ARGS = {"windowed_rect_conv": (1,), "compact_accum": (1, 2),
+                "fused_edge_phase_win": (1, 2), "fused_node_phase": (0, 1),
+                "fused_edge_phase_win_bwd": (1, 2, 6),
+                "fused_node_phase_bwd": (0, 1, 3), "windowed_send_sum": (1,)}
+ROW_OUTPUTS = {"fused_edge_phase_win_bwd": ("dpre", "dxj"),
+               "fused_node_phase_bwd": ("dx", "daggr"),
+               "windowed_send_sum": ("out",)}
 # Kernel 2's input with a long list: level 0's residual plus a star of this
 # many edges onto one receiver (`star_resid`), whose list of about 50 rows
 # then takes the gather's long path in two pieces. Its f32 sum, in another
@@ -1861,19 +1890,24 @@ def work(name, args, dtype):
     return by, ops
 
 
+def window_matrix(op, ew, n_in):
+    """Kernel 1's function as a CSR matrix [n_pad_nodes, n_in]: the
+    in-window slots' weights at (receiver, sender row)."""
+    live = op.send_win < op.window
+    base = op.win_base.long().repeat_interleave(op.edge_block)
+    cols = (base * (op.window // 2) + op.send_win.long())[live]
+    rows = op.receivers.long()[live]
+    m = torch.sparse_coo_tensor(torch.stack([rows, cols]), ew.float()[live],
+                                (op.n_pad_nodes, n_in))
+    return m.coalesce().to_sparse_csr()
+
+
 def library_call(name, args):
     """One PyTorch call computing the same function, or None."""
     if name in ("windowed_rect_conv", "windowed_conv"):
         op, x = args[:2]
         ew = op.ew if name == "windowed_rect_conv" else args[2]
-        live = op.send_win < op.window
-        base = op.win_base.long().repeat_interleave(op.edge_block)
-        cols = (base * (op.window // 2) + op.send_win.long())[live]
-        rows = op.receivers.long()[live]
-        vals = ew.float()[live]
-        m = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
-                                    (op.n_pad_nodes, x.shape[0]))
-        m = m.coalesce().to_sparse_csr()
+        m = window_matrix(op, ew, x.shape[0])
         xf = x.float()
         return lambda: torch.sparse.mm(m, xf)
     if name == "subwin_conv":
@@ -2165,21 +2199,29 @@ def node_walk_line(name, where, dtype, args):
     """Kernel 3's or 6's launch shape for one call: its tiles, the CTAs of
     a tile's cluster, the grid, and the SMs it can fill against the one
     block per tile it replaces; for kernel 3 also the CTAs per SM and the
-    clusters the card holds at once (`node_mlp.occupancy`)."""
+    clusters the card holds at once (`node_mlp.occupancy`), for kernel 6
+    its weight-gradient partials, one cluster each (at most
+    `node_mlp.p_max`)."""
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
 
     x, cd = args[0], args[-1]
-    tiles = x.shape[0] // node_mlp.ROWS
-    ctas = tiles * node_mlp.CLUSTER
+    tiles = x.numel() // (x.shape[-1] * node_mlp.ROWS)
+    clusters = tiles
+    if name == "fused_node_phase_bwd":
+        cap = node_mlp.p_max(x.dtype, cd, len(args[2].weights) - 1, x.device)
+        clusters = min(tiles, cap)
+    ctas = clusters * node_mlp.CLUSTER
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     line = (f"walk {name} {where} {str(dtype)[6:]}: {tiles} tiles of "
             f"{node_mlp.ROWS} rows, clusters of {node_mlp.CLUSTER} CTAs, grid "
             f"{ctas} CTAs; SMs it can fill {min(ctas, sms)} of {sms} (one "
             f"block per tile: {min(tiles, sms)})")
     if name == "fused_node_phase":
-        per_sm, clusters = node_mlp.occupancy(x.dtype, cd)
-        line += (f"; {per_sm} CTAs per SM, {clusters} clusters at once "
-                 f"({'one wave' if tiles <= clusters else 'more than one wave'})")
+        per_sm, at_once = node_mlp.occupancy(x.dtype, cd)
+        line += (f"; {per_sm} CTAs per SM, {at_once} clusters at once "
+                 f"({'one wave' if tiles <= at_once else 'more than one wave'})")
+    else:
+        line += f"; {clusters} weight-gradient partials (the cap {cap})"
     return line
 
 
@@ -2776,6 +2818,327 @@ def check_block_sums(case, by_name):
     require(got == 0, f"{case['label']}: {got} block sums in a train step")
 
 
+def batch_args(name, args, n, seed):
+    """A kernel's arguments with a batch of n samples (BATCHED_ARGS):
+    sample 0 the arguments as given, the others drawn from a generator
+    seeded with `seed`, each at its input's RMS and in its dtype. The node
+    phase (kernels 3 and 6, NODE_CLUSTERS) is row-wise: its other samples
+    are sample 0's rows in seeded orders, so every tile holds other rows
+    while no ReLU input lies nearer its kink than sample 0's. Fresh draws
+    put one within f32 rounding of its kink at the airfoil's level 0, where
+    the kernel and the plain version, summing in other orders, take it on
+    different sides (dx 2.0e-2 of its RMS apart, the kernel bit for bit its
+    own call on that sample; PERF.md §6)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = list(args)
+    if name in NODE_CLUSTERS:
+        rows = args[BATCHED_ARGS[name][0]].shape[0]
+        perms = [torch.randperm(rows, generator=g) for _ in range(n - 1)]
+        for i in BATCHED_ARGS[name]:
+            a = args[i]
+            out[i] = torch.stack([a, *(a[p.to(a.device)] for p in perms)])
+        return tuple(out)
+    for i in BATCHED_ARGS[name]:
+        a = args[i]
+        rms = a.float().square().mean().sqrt().item() or 1.0
+        more = [(rms * torch.randn(*a.shape, generator=g)).to(a.dtype)
+                .to(a.device) for _ in range(n - 1)]
+        out[i] = torch.stack([a, *more])
+    return tuple(out)
+
+
+def sample_args(name, bargs, s):
+    """Sample s of a batch's arguments."""
+    return tuple(a[s] if i in BATCHED_ARGS[name] else a
+                 for i, a in enumerate(bargs))
+
+
+def batch_work(name, bargs, dtype):
+    """(bytes, operations) of a batched call: `work` of one sample times
+    the batch."""
+    by, ops = work(name, sample_args(name, bargs, 0), dtype)
+    n = bargs[BATCHED_ARGS[name][0]].shape[0]
+    return by * n, ops * n
+
+
+def batch_library_call(name, bargs):
+    """One PyTorch call computing a batched gather (kernels 1, 2 and 7)
+    on the same inputs, or None: `index_add_` on dim -2 (kernels 2 and 7),
+    `torch.sparse.mm` of the operator on x viewed as [N, B·C] (kernel 1)."""
+    if name == "windowed_rect_conv":
+        op, x = bargs
+        n, rows, c = x.shape
+        m = window_matrix(op, op.ew, rows)
+        xf = x.float().permute(1, 0, 2).reshape(rows, n * c).contiguous()
+        return lambda: torch.sparse.mm(m, xf)
+    if name == "compact_accum":
+        cr, vals, acc = bargs
+        idx = cr.receivers[:cr.n_real].long()
+        v = vals[:, :cr.n_real].float()
+        a = acc.clone()
+        return lambda: a.index_add_(-2, idx, v)
+    if name == "windowed_send_sum":
+        lvl, vals = bargs
+        live = lvl.send_win < lvl.window
+        base = lvl.win_base.long().repeat_interleave(lvl.edge_block)
+        idx = (base * (lvl.window // 2) + lvl.send_win.long())[live]
+        v = vals[:, live].float()
+        a = torch.zeros(vals.shape[0], lvl.n_pad_nodes, vals.shape[-1],
+                        device=vals.device)
+        return lambda: a.index_add_(-2, idx, v)
+    return None
+
+
+def batch_inputs(case, dtype, device):
+    """(name, [(where, arguments)]) of each kernel of the batched path at
+    the airfoil path's shapes (`kernel_inputs`, `bwd_kernel_inputs`): the
+    forward kernels 1-4, then the backward kernels 5-7."""
+    fwd = kernel_inputs(case, dtype, device)
+    bwd = bwd_kernel_inputs(case, dtype, device)
+    return [(k, v) for k, v in (*fwd.items(), *bwd.items())
+            if k in BATCHED_ARGS]
+
+
+def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
+    """One kernel of the batched path on a batch of n samples (sample 0
+    the B = 1 check's inputs): twice for bit-identical outputs;
+    each output against the plain version on the batch (TOL / BWD_TOL, the
+    rows of every sample together), in bf16 with its control, which must
+    miss; every per-row output of sample s bit for bit the call on sample s
+    alone; the weight gradients against the sum of the samples' calls
+    (BWD_TOL). Returns the largest max_abs_err against the plain version."""
+    fn, plain = kernel_modules()[name]
+    bargs = batch_args(name, args, n, seed)
+    bwd = name in BWD_OUTPUTS
+    outs = BWD_OUTPUTS[name] if bwd else ("out",)
+    tol_max, tol_rms = (BWD_TOL if bwd else TOL)[(name, dtype)]
+
+    def call(f, a):
+        r = run(name, f, a)
+        return r if isinstance(r, tuple) else (r,)
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1])
+
+    got, want = call(fn, bargs), call(plain, bargs)
+    same = all(torch.equal(a, b) for a, b in zip(got, call(fn, bargs)))
+    require(same, f"batched {name} {where} {dtype}: two calls differ")
+    ctrl = None
+    if dtype == torch.bfloat16 and (not bwd or name in BWD_CONTROLS):
+        up = list(control_args(name, bargs) or ()) if not bwd else [
+            a.float() if isinstance(a, torch.Tensor)
+            and a.dtype == torch.bfloat16 else a for a in bargs]
+        if bwd and name == "fused_node_phase_bwd":
+            up[4] = None
+        ctrl = call(fn, tuple(up)) if up else None
+    ones = [call(fn, sample_args(name, bargs, s)) for s in range(n)]
+    worst, notes = 0.0, []
+    for i, out in enumerate(outs):
+        err, err_rms, rms, zero_ok, live = filled_compare(
+            rows(got[i]), rows(want[i]), sparse)
+        ok = (err <= tol_max * rms and err_rms <= tol_rms * rms and zero_ok
+              and bool(torch.isfinite(got[i]).all()))
+        worst = max(worst, err)
+        note = (f"{out} vs plain max {frac(err, rms):.2e} rms "
+                f"{frac(err_rms, rms):.2e} of rms")
+        if ctrl is not None and live:
+            c_err, c_rms, _, c_zero, _ = filled_compare(
+                rows(ctrl[i]), rows(want[i]), sparse)
+            missed = (c_err > tol_max * rms or c_rms > tol_rms * rms
+                      or not c_zero)
+            note += f", control {'misses' if missed else 'PASSES'}"
+            require(missed, f"batched {name} {where} {out}: the bf16 "
+                            f"tolerance does not tell an unrounded kernel "
+                            f"apart")
+        if not bwd or out in ROW_OUTPUTS[name]:
+            each = all(torch.equal(got[i][s], ones[s][i])
+                       for s in range(n))
+            note += (", each sample bit for bit its own call" if each
+                     else ", a sample DIFFERS from its own call")
+            ok = ok and each
+        else:
+            s_err, s_rms, s_ref = compare(
+                got[i], sum(o[i] for o in ones))
+            summed = (s_err <= tol_max * s_ref and s_rms <= tol_rms * s_ref)
+            note += (f", vs the sum of the samples' calls max "
+                     f"{frac(s_err, s_ref):.2e} rms {frac(s_rms, s_ref):.2e}")
+            ok = ok and summed
+        notes.append(note + ("" if ok else " FAIL"))
+        if not ok and name in RELU_DIAGNOSED and (
+                not bwd or out in ROW_OUTPUTS[name]):
+            kind = (ROW_KIND.get(out, "all") if bwd else "inputs"
+                    if name in NODE_CLUSTERS else "receivers")
+            for s in range(n):
+                print(f"  sample {s}: " + relu_margin(
+                    name, sample_args(name, bargs, s), got[i][s],
+                    want[i][s], tol_max * rms, kind).strip())
+        require(ok, f"batched {name} {where} {out} {dtype}: {notes[-1]}")
+    print(f"batch B={n} kernel {name} {where} {str(dtype)[6:]}: "
+          f"two calls bit-identical; " + "; ".join(notes))
+    return worst
+
+
+def check_partial_ranges(case, dtype, device):
+    """Kernel 6 on level 0 at BATCH_TRAIN samples (`check_batched`), where
+    its tiles outnumber the cap on its weight-gradient partials, so that
+    each cluster walks a range of tiles, storing the first tile's partial
+    and adding the rest's; the B = BATCH_CHECK checks keep one tile a
+    partial."""
+    from bsms_gnn_tpu_torch.ops.kernels import node_mlp
+
+    name = "fused_node_phase_bwd"
+    args = dict(bwd_kernel_inputs(case, dtype, device)[name])["level 0"]
+    x, cd = args[0], args[-1]
+    tiles = BATCH_TRAIN * x.shape[0] // node_mlp.ROWS
+    cap = node_mlp.p_max(x.dtype, cd, len(args[2].weights) - 1, x.device)
+    require(tiles > cap, f"kernel 6 at B={BATCH_TRAIN}: {tiles} tiles, "
+                         f"within the cap {cap} on its partials")
+    print(node_walk_line(name, f"level 0 B={BATCH_TRAIN}", dtype,
+                         (x.expand(BATCH_TRAIN, -1, -1), *args[1:])))
+    check_batched(name, "level 0", args, dtype, False, 1690, BATCH_TRAIN)
+
+
+def batch_frames(case, n, seed):
+    """n distinct frames over the case's one hierarchy (seeded output
+    fields on the real rows, the case's positions and node types) and
+    targets near them, with the case's mask: ([n, N_pad, ...] input,
+    target, mask)."""
+    node_in, mask = case["node_in"], case["mask"]
+    c = case["cfg"].out_dim
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    real = case["hd"].levels[0].node_mask
+    fields = torch.randn(n, node_in.shape[0], c, generator=g).to(
+        node_in.device) * real
+    frames = node_in.expand(n, -1, -1).clone()
+    frames[..., :c] = fields
+    masks = mask.expand(n, -1, -1).contiguous()
+    step = 0.1 * torch.randn(n, node_in.shape[0], c, generator=g)
+    return frames, frames[..., :c] + step.to(node_in.device) * masks, masks
+
+
+def run_batch_case(device):
+    """The airfoil_batch path: the 5k airfoil's case (`build_case`) with
+    batches of distinct frames over its one hierarchy. Kernels 1-7 at
+    BATCH_CHECK samples at every shape the airfoil path checks them at
+    (`check_batched`), f32 and bf16; serving at BATCH_SERVE (the forward
+    against the plain path, EXPECTED_LAUNCHES); the train step at
+    BATCH_TRAIN (its gradients against the plain path,
+    EXPECTED_TRAIN_LAUNCHES) and a `Trainer` run there; then the times.
+    Returns (kernel errors, {}, forward launch counts, train-step launch
+    counts, end-to-end times) as `run_case` does."""
+    case = build_case(device)
+    case["label"] = "airfoil 5k batch"
+    label, sim, hd = case["label"], case["sim"], case["hd"]
+    errs = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shapes in batch_inputs(case, dtype, device):
+                for k, (where, args) in enumerate(shapes):
+                    sparse = name in TILE_WALKS and k > 0
+                    err = check_batched(name, where, args, dtype, sparse,
+                                        1700 + 50 * k)
+                    errs.setdefault((name, dtype), err)
+            check_partial_ranges(case, dtype, device)
+        node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
+        serve = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cd = dtype if dtype == torch.bfloat16 else None
+            reset_counts()
+            got = sim(hd, node_in, mask, cd)
+            counts = read_counts(EXPECTED_LAUNCHES)
+            with plain_path():
+                want = sim(hd, node_in, mask, cd)
+            delta = (want - node_in[..., :want.shape[-1]]).abs().max().item()
+            err = (got - want).abs().max().item()
+            tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            print(f"[{label}] forward B={BATCH_SERVE} {str(dtype)[6:]:9s} "
+                  f"shape {tuple(got.shape)} max_abs_err vs plain {err:.3e} "
+                  f"(delta scale {delta:.3e}, tol {tol:.3e}); launches "
+                  f"{counts} (B = 1: {EXPECTED_LAUNCHES})  "
+                  f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"{label} B={BATCH_SERVE} {dtype} forward disagrees "
+                        f"with the plain path")
+            if device.type == "cuda":
+                require(counts == EXPECTED_LAUNCHES, f"{label} B="
+                        f"{BATCH_SERVE} forward launch counts {counts}")
+            serve = serve or counts
+    node_in, tar, mask = batch_frames(case, BATCH_TRAIN, 22)
+    # check_train on the batch: the step's gradients against the plain
+    # path (TRAIN_TOL), the launch counts of one step
+    # (EXPECTED_TRAIN_LAUNCHES), and the `Trainer` run (the gate, then
+    # updates that move every parameter).
+    train = check_train(dict(case, train=(node_in, tar), mask=mask), device)
+    del node_in, tar, mask
+    e2e = measure_batch(case, device)
+    del case
+    torch.cuda.empty_cache()
+    return errs, {}, serve, train, e2e
+
+
+def measure_batch(case, device):
+    """Forward wall (median of five repeats of ten, CUDA events) and busy
+    ms at B = 1, BATCH_SERVE and BATCH_TRAIN; the train step at B = 1 and
+    BATCH_TRAIN: wall (median of five repeats of five), busy, idle share,
+    CUDA kernels and own peak MiB; busy ms per sample. f32 and bf16."""
+    sim, hd, label = case["sim"], case["hd"], case["label"]
+    e2e = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        key = str(dtype)[6:].replace("float32", "f32").replace(
+            "bfloat16", "bf16")
+        for n in (1, BATCH_SERVE, BATCH_TRAIN):
+            node_in, _, mask = (batch_frames(case, n, 21) if n > 1 else
+                                (case["node_in"], None, case["mask"]))
+            with torch.no_grad():
+                runs = [event_ms(lambda: sim(hd, node_in, mask, cd), reps=10)
+                        for _ in range(5)]
+                prof = profile_call(lambda: sim(hd, node_in, mask, cd))
+            wall, busy = float(np.median(runs)), prof[1]
+            e2e[f"forward_ms_b{n}_{key}"] = wall
+            e2e[f"forward_busy_ms_b{n}_{key}"] = busy
+            print(f"[{label}] forward B={n} {key}: {wall:.4f} ms (median of "
+                  f"{[round(r, 4) for r in runs]}), busy {busy:.4f} ms "
+                  f"({busy / n:.4f} per sample), idle share "
+                  f"{1 - busy / wall:.3f}, {prof[2]} CUDA kernels")
+        for n in (1, BATCH_TRAIN):
+            if n == 1:
+                node_in, tar, mask = (case["node_in"], train_target(case),
+                                      case["mask"])
+            else:
+                node_in, tar, mask = batch_frames(case, n, 22)
+            tr = make_trainer(case, device, cd)
+
+            def step():
+                tr.iter(hd, node_in, tar, mask)
+
+            for _ in range(TRAIN_GATE + 1):
+                step()
+            runs = [event_ms(step, reps=5, warmup=1) for _ in range(5)]
+            ms = float(np.median(runs))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**20
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**20 - held
+            prof = profile_call(step)
+            print_profile(f"[{label}] train step B={n} {key}", *prof)
+            if n > 1:
+                print_port_kernels(prof[4])
+            print(f"[{label}] train step B={n} {key}: {ms:.4f} ms (median of "
+                  f"{[round(r, 4) for r in runs]}), busy {prof[1]:.4f} ms "
+                  f"({prof[1] / n:.4f} per sample), idle share "
+                  f"{1 - prof[1] / ms:.3f}, {prof[2]} CUDA kernels, own peak "
+                  f"{peak:.1f} MiB")
+            e2e.update({f"train_step_ms_b{n}_{key}": ms,
+                        f"train_step_busy_ms_b{n}_{key}": prof[1],
+                        f"train_step_kernels_b{n}_{key}": prof[2],
+                        f"train_step_peak_above_mib_b{n}_{key}": peak})
+            del tr
+    return e2e
+
+
 def held_line() -> str:
     """What the kernels' weight-stack cache (`build.stacked`) holds on the
     card: it outlives the phase that filled it, so a later peak counts it."""
@@ -2850,7 +3213,8 @@ def main() -> int:
              ("cylinder", build_cylinder_case, "cylinder_"),
              ("airfoil_fused4",
               functools.partial(build_case, aggregation="fused4"),
-              "airfoil_fused4_"))
+              "airfoil_fused4_"),
+             ("airfoil_batch", None, "airfoil_b48_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -2866,7 +3230,8 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
         for phase, build_fn, prefix in paths:
             (errs[phase], rows[phase], serve[phase], train[phase],
-             t) = run_case(build_fn, device)
+             t) = (run_case(build_fn, device) if build_fn is not None
+                   else run_batch_case(device))
             e2e.update({prefix + k: v for k, v in t.items()})
             print(f"{phase} phases done at "
                   f"{time.perf_counter() - t_start:.1f} s")

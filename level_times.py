@@ -34,6 +34,19 @@ the step starts with, each read after the previous path's case is freed.
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
     python3 level_times.py --paths cylinder,airfoil   # only these paths
+    python3 level_times.py --batch 48 --pmax 82,264,w2   # and a batch
+
+With `--batch B` the airfoil path also times kernels 1-7 on a batch of B
+samples over its one hierarchy (chip_smoke.py's `batch_args`: sample 0
+the B = 1 inputs) at every shape chip_smoke.py checks them at, each
+beside the bound of B samples' work (`batch_work`) and, for kernels 1, 2
+and 7, its library call at B (`batch_library_call`); with `--pmax`
+kernel 6 at B again at each of those caps on its weight-gradient
+partials (`node_mlp.p_max` replaced for the sweep) beside the card's
+own.
+The JSON line also holds a digest of each
+timed call's output (`digests`), so that two checkouts' results can be
+compared bit for bit.
 
 To compare two commits on one card, unpack one (`git archive`) into a
 git-ignored directory and time both in one call on the card: parent,
@@ -44,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import importlib.util
 import json
 import os
@@ -141,6 +155,20 @@ def device_ms(fn, reps=20, tries=5):
     raise RuntimeError("no profile held every launch of its calls")
 
 
+DIGESTS = {}
+
+
+def digest(label, dtype, where, out):
+    """Records a short sha256 of a call's output (a tensor or a tuple of
+    them) under DIGESTS[label][dtype][where]."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    DIGESTS.setdefault(label, {}).setdefault(str(dtype)[6:], {})[where] = (
+        h.hexdigest()[:16])
+
+
 def step_peak_mib(cs, case, device, cd):
     """MiB that one train step allocates at its peak above what it starts
     with, after the warmup gate and two updates."""
@@ -188,6 +216,7 @@ def time_kernel(cs, case, device, label, name, bwd, every):
         key = str(dtype)[6:]
         if not every:
             where, args = shapes[0]
+            digest(label, dtype, where, fn(*args))
             ms = out[key] = device_ms(lambda: fn(*args))
             print(f"{label} ({name}) {key}: {where} {ms:.5f} ms")
             continue
@@ -195,6 +224,7 @@ def time_kernel(cs, case, device, label, name, bwd, every):
         for where, args in shapes:
             if where.startswith("level "):
                 l = int(where.split()[1])
+                digest(label, dtype, where, fn(*args))
                 per[l] = device_ms(lambda: fn(*args))
                 bound[l] = bound_ms(cs, name, args, dtype)
         step = sum(ms * (2 if l < depth else 1) for l, ms in per.items())
@@ -241,6 +271,8 @@ def time_shapes(cs, case, device, label, name, bwd, step_launches):
         for where, args in shapes:
             call = (store_call(fn, args) if where.endswith("store")
                     else functools.partial(fn, *args))
+            if name != "compact_accum":  # adds onto its input in place
+                digest(label, dtype, where, call())
             per[where] = device_ms(call)
             bound[where] = bound_ms(cs, name, args, dtype)
             lc = cs.library_call(name, args)
@@ -296,12 +328,140 @@ def sweep_tiles(cs, case, device):
     return out
 
 
+def subwin_digests(case, device):
+    """Kernel 15 on the airfoil's level 0 (its sub-window tables built
+    there, x and ew from a seed), f32 and bf16: digests only (the v6
+    benchmark, chip_smoke.py's, times it)."""
+    from bsms_gnn_tpu_torch.ops.kernels import subwin_conv as sw
+
+    host, lvl = case["h"].levels[0], case["hd"].levels[0]
+    sub_base, send_sub, _ = sw.build_sub_tables(host)
+    rows = tuple(torch.from_numpy(a).to(device)
+                 for a in sw.sub_row_tables(host, send_sub))
+    sb, ss = (torch.from_numpy(a).to(device) for a in (sub_base, send_sub))
+    g = torch.Generator().manual_seed(15)
+    ew = torch.randn(lvl.n_pad_edges, generator=g).to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(lvl.n_pad_nodes, 128, generator=g).to(dtype).to(
+            device)
+        digest("kernel 15", dtype, "airfoil level 0",
+               sw.subwin_conv(lvl, x, ew, sb, ss, rows))
+
+
+def node_bwd_digests(case, device):
+    """Kernel 6 at every level of the case (x, aggr and g from a seed,
+    the level's node MLP), f32 and bf16: digests only. On the 16k surface
+    (kernel 10's backward runs kernel 6) level 0 holds 252 tiles, the
+    most of any level run at B = 1."""
+    from bsms_gnn_tpu_torch.ops.kernels import node_mlp
+
+    sim, hd = case["sim"], case["hd"]
+    for l, lvl in enumerate(hd.levels):
+        gmp = (sim.process.down_gmps[l] if l < hd.depth
+               else sim.process.bottom_gmp)
+        g = torch.Generator().manual_seed(600 + l)
+        x, aggr, cot = (torch.randn(lvl.n_pad_nodes, 128, generator=g)
+                        for _ in range(3))
+        for dtype in (torch.float32, torch.bfloat16):
+            cd = dtype if dtype == torch.bfloat16 else None
+            digest("kernel 6 (node MLP)", dtype, f"level {l}",
+                   node_mlp.fused_node_phase_bwd(
+                       x.to(dtype).to(device), aggr.to(device), gmp.mlp_node,
+                       cot.to(device), cd))
+
+
+def time_batched(cs, case, device, n, pmax=()):
+    """Kernels 1-7 on a batch of n samples at every shape chip_smoke.py
+    checks them at ({label: {dtype: {"shapes": {where: ms}, "bounds":
+    {where: ms}, "library": {where: ms}, "step_ms": ms}}}; "step_ms" sums
+    the launches of one train step for the kernels timed at every level);
+    then kernel 6 at n again at each cap of `pmax` ({cap: {dtype:
+    {where: ms}}} under "kernel 6 pmax", each cap put in place of
+    `node_mlp.p_max` for its reading)."""
+    from bsms_gnn_tpu_torch.ops.kernels import node_mlp
+
+    labels = {"windowed_rect_conv": "kernel 1", "compact_accum": "kernel 2",
+              "fused_node_phase": "kernel 3",
+              "fused_edge_phase_win": "kernel 4",
+              "fused_edge_phase_win_bwd": "kernel 5",
+              "fused_node_phase_bwd": "kernel 6",
+              "windowed_send_sum": "kernel 7"}
+    depth = case["hd"].depth
+    out, sweep = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype)[6:]
+        for name, shapes in cs.batch_inputs(case, dtype, device):
+            fn = cs.kernel_modules()[name][0]
+            label = f"{labels[name]} B={n}"
+            per, bound, lib = {}, {}, {}
+            for k, (where, args) in enumerate(shapes):
+                bargs = cs.batch_args(name, args, n, 1700 + 50 * k)
+                call = functools.partial(fn, *bargs)
+                if name != "compact_accum":  # adds onto acc in place
+                    digest(label, dtype, where, call())
+                per[where] = device_ms(call)
+                by, ops = cs.batch_work(name, bargs, dtype)
+                bound[where] = max(by / cs.PEAK_BYTES_S,
+                                   ops / cs.PEAK_FLOPS_S[dtype]) * 1e3
+                lc = (cs.batch_library_call(name, bargs)
+                      if dtype == torch.float32 else None)
+                lib[where] = None if lc is None else cs.event_ms(lc, reps=20)
+                if name == "fused_node_phase_bwd" and where == "level 0":
+                    kept, tiles = node_mlp.p_max, bargs[0].numel() // (
+                        128 * node_mlp.ROWS)
+                    meta = (bargs[0].dtype, bargs[-1],
+                            len(bargs[2].weights) - 1, device)
+                    cap = node_mlp.p_max(*meta)
+                    waves = node_mlp.bwd_clusters(*meta)
+                    print(f"kernel 6 B={n} {key} {where}: the cap on its "
+                          f"partials {cap} ({min(tiles, cap)} partials of "
+                          f"{tiles} tiles; {waves} clusters at once)")
+                    for cap in pmax:
+                        if isinstance(cap, str):  # "wK": K whole waves
+                            cap = waves * int(cap[1:])
+                        node_mlp.p_max = lambda *_, cap=cap: cap
+                        try:
+                            ms = device_ms(call)
+                        finally:
+                            node_mlp.p_max = kept
+                        sweep.setdefault(cap, {}).setdefault(key, {})[
+                            where] = ms
+                        print(f"kernel 6 B={n} {key} {where} at cap {cap} "
+                              f"({min(tiles, cap)} partials of {tiles} "
+                              f"tiles): {ms:.5f} ms")
+                del bargs, call
+            levels = {w: ms for w, ms in per.items()
+                      if w.startswith("level ")}
+            step = (sum(ms * (2 if int(w.split()[1]) < depth else 1)
+                        for w, ms in levels.items())
+                    if name in ("fused_node_phase", "fused_edge_phase_win",
+                                "fused_edge_phase_win_bwd",
+                                "fused_node_phase_bwd") else None)
+            out.setdefault(label, {})[key] = {
+                "shapes": per, "bounds": bound, "library": lib,
+                "step_ms": step}
+            print(f"{label} ({name}) {key}: " + ", ".join(
+                f"{w} {per[w]:.5f} (bound {bound[w]:.5f}"
+                + ("" if lib[w] is None else f", library {lib[w]:.5f}") + ")"
+                for w in per) + " ms"
+                + ("" if step is None else f"; the {2 * len(levels) - 1} "
+                   f"launches of a step {step:.4f} ms"))
+    if pmax:
+        out["kernel 6 pmax"] = sweep
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose bsms_gnn_tpu_torch is timed")
     ap.add_argument("--paths", default=None,
                     help="comma-separated paths to time (default: all)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="also time kernels 1-7 on the airfoil at this batch")
+    ap.add_argument("--pmax", default="",
+                    help="comma-separated caps on kernel 6's partials to "
+                         "time at the batch (wK: K waves of its clusters)")
     opts = ap.parse_args()
     root = os.path.abspath(opts.root)
     if not torch.cuda.is_available():
@@ -353,9 +513,18 @@ def main() -> int:
                                              bwd, step)
             if path == "surface":
                 out["kernel 10 tiles"] = sweep_tiles(cs, case, device)
+                node_bwd_digests(case, device)
+            if path == "airfoil":
+                subwin_digests(case, device)
+            if path == "airfoil" and opts.batch:
+                out.update(time_batched(
+                    cs, case, device, opts.batch,
+                    [v if v.startswith("w") else int(v)
+                     for v in opts.pmax.split(",") if v]))
         del case
         torch.cuda.empty_cache()
-    print(json.dumps({"root": root, "card": cs.card_line(), **out}))
+    print(json.dumps({"root": root, "card": cs.card_line(), **out,
+                      "digests": DIGESTS}))
     return 0
 
 
