@@ -41,12 +41,13 @@
 //   in block order by grad_sum_kernel (backward.cuh): G × ~200 KB that
 //   stay in L2, no atomics, the same result from run to run (G depends
 //   only on the card and the kernel).
-// - A batch of B samples over the one level (kernel 5: xwi, xj, g
-//   [B][n_pad][C], dpre [B][E_pad][C]) walks B·T tiles, tile t being tile
+// - A batch of B samples over the one level (kernels 5, 13's and 14's
+//   backwards: xwi, xj, g [B][n_pad][C], dpre [B][E_pad][C], kernel 13's
+//   positions [B][n_pad][wd]) walks B·T tiles, tile t being tile
 //   t mod T of sample ⌊t / T⌋, in the same ranges [⌊b·BT/G⌋,
 //   ⌊(b+1)·BT/G⌋): still G partials, each block summing every sample's
 //   tiles of its range into its own, and a sample's dpre the bits of a call
-//   on that sample alone. The other fronts' entries pass B = 1.
+//   on that sample alone. The kStream entries pass B = 1.
 // - The tail weights' 64-row slabs are double-buffered with cp.async: the
 //   next slab loads while the current one is used, one barrier per slab,
 //   and each GEMM's last slab step issues the next GEMM's first slab. In
@@ -407,8 +408,8 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 // pre-activation (kernel 11, xj null) or its sender half zi (kernel 12,
 // with the receiver transform xj). W and WT are the tail's stacks (bf16
 // values in BF16 mode), gpart G partials of grad_size floats. With n_batch
-// samples (kWin), sample s's xwi, xj and g start s·x_stride elements in,
-// its dpre s·e_stride.
+// samples (kWin, kDyn), sample s's xwi, xj and g start s·x_stride elements
+// in, its dpre s·e_stride, its positions (kDyn) s·p_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ src,
@@ -422,7 +423,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
     const T* __restrict__ pos = nullptr,
     const float* __restrict__ wfd_g = nullptr,
     const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
-    size_t x_stride = 0, size_t e_stride = 0) {
+    size_t x_stride = 0, size_t e_stride = 0, size_t p_stride = 0) {
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
@@ -457,7 +458,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
       wfd[i] = BF16 ? round_bf16(wfd_g[i]) : wfd_g[i];
     for (int i = tid; i < C; i += NT) wfn[i] = wfn_g[i];
   }
-  const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
+  const DynFiber<T> dyn_all{pos, wd, wfd, wfn, delta, nrm, p_stride};
   bool first = true;  // no live tile yet: the next one stores its partial
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
@@ -465,6 +466,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
     const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
     const int ch = t0 / edge_block;
     T* dpre_s = dpre + smp * e_stride;
+    const DynFiber<T> dyn = dyn_all.sample(smp);
     if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
                                 receivers, chunk_block, e_pad, window, s_row,
                                 s_recv, s_loc, fib, dyn)) {

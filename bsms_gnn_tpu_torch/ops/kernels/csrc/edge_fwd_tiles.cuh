@@ -52,8 +52,9 @@
 //   mesh: xwi, xj [B][n_pad][C], msg [B][E_pad][C]) walks B·T tiles in the
 //   same stride order, tile t being tile t mod T of sample ⌊t / T⌋: the
 //   grid stays the card's fill, and a sample's messages are the bits of a
-//   call on that sample alone. Kernel 4 takes it; the other fronts' entries
-//   pass B = 1.
+//   call on that sample alone. Kernels 4 and 14 (kWin) and 13 (kDyn, each
+//   sample's positions p_stride elements after the last's) take it; the
+//   kStream entries pass B = 1.
 // - One TR×C tile and two slabs take about 97 KB of shared memory (kWin 6
 //   KB more: the fiber weights and stream; kDyn 3.75 KB more again: wf_dyn,
 //   wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit on an SM: one block's
@@ -99,8 +100,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // xj null for kernel 11), no fiber, window or positions. W the tail's stack
 // (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in the
 // activations' type, written on live slots only. With n_batch samples
-// (kWin), sample s's xwi and xj start s·x_stride elements in, its msg
-// s·e_stride.
+// (kWin, kDyn), sample s's xwi and xj start s·x_stride elements in, its msg
+// s·e_stride, its positions (kDyn) s·p_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
@@ -112,7 +113,7 @@ __device__ __forceinline__ void edge_fwd_tiles(
     const T* __restrict__ pos = nullptr,
     const float* __restrict__ wfd_g = nullptr,
     const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
-    size_t x_stride = 0, size_t e_stride = 0) {
+    size_t x_stride = 0, size_t e_stride = 0, size_t p_stride = 0) {
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
@@ -137,13 +138,14 @@ __device__ __forceinline__ void edge_fwd_tiles(
       wfd[i] = BF16 ? round_bf16(wfd_g[i]) : wfd_g[i];
     for (int i = tid; i < C; i += NT) wfn[i] = wfn_g[i];
   }
-  const DynFiber<T> dyn{pos, wd, wfd, wfn, delta, nrm};
+  const DynFiber<T> dyn_all{pos, wd, wfd, wfn, delta, nrm, p_stride};
   copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   const int total = n_tiles * n_batch;
   for (int t = b; t < total; t += G) {  // see the header
     const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
     const int ch = t0 / edge_block;
+    const DynFiber<T> dyn = dyn_all.sample(smp);
     if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
                                 receivers, chunk_block, e_pad, window, s_row,
                                 s_recv, s_loc, fib, dyn))

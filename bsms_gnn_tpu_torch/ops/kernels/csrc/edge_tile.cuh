@@ -27,6 +27,9 @@ enum class Front { kWin, kDyn, kStream };
 // multiplies it in f32) in shared memory, and the tile's Δ = world[send] −
 // world[recv] [wd][TR] (rounded in BF16 mode, as the dot operand) and
 // ‖Δ‖ [TR] (f32) that the tile walks' `tile_slots` fills in shared memory.
+// A batch over the one level keeps each sample's positions p_stride
+// elements (n_pad·wd) after the last's: `sample(s)` points at sample s's
+// (p_stride 0 at B = 1).
 template <typename T>
 struct DynFiber {
   const T* pos;
@@ -35,6 +38,13 @@ struct DynFiber {
   const float* wfn;
   float* delta;
   float* nrm;
+  size_t p_stride;
+
+  __device__ DynFiber sample(int s) const {
+    DynFiber d = *this;
+    d.pos = pos + s * p_stride;
+    return d;
+  }
 };
 
 }  // namespace bsms

@@ -14,7 +14,10 @@
 // (`win_row_ptr`, `win_row_slots`, `win_long`: exactly the live slots, the
 // ones kernel 13's backward gathers dxj over). No shared-memory output
 // block, no per-chunk part, no block sum. Its own kernel name, so the
-// profiler and the launch counters tell it apart from kernel 4.
+// profiler and the launch counters tell it apart from kernel 4. A batch
+// over the one level (xwi, xj [B][n_pad][C], pos [B][n_pad][wd]; msg
+// [B][E_pad][C], out [B][n_pad][C]) is one launch of each: the walk over
+// B·T tiles, the gather with the batch as its grid's y extent.
 #include "edge_fwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -34,11 +37,12 @@ fused_edge_phase_win_dyn_kernel(
     const float* __restrict__ B, int n_layers,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg) {
+    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg,
+    int n_batch, size_t x_stride, size_t e_stride, size_t p_stride) {
   tiles::edge_fwd_tiles<T, BF16, Front::kDyn>(
       fiber_t, xwi, xj, wf8, W, B, n_layers, send_win, win_base, receivers,
       chunk_block, n_tiles, e_pad, edge_block, window, msg, pos, wfd, wfn,
-      wd);
+      wd, n_batch, x_stride, e_stride, p_stride);
 }
 
 template <typename T, bool BF16>
@@ -55,12 +59,16 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* chunk_block, const void* row_ptr,
            const void* row_slots, const void* long_rows, int n_layers,
            int wd, int grid, int n_tiles, int e_pad, int edge_block,
-           int window, int n_rows, int n_long, int piece, void* msg,
-           void* out, void* stream) {
+           int window, int n_rows, int n_long, int piece, int n_batch,
+           void* msg, void* out, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
-      n_layers < 1 || wd < 1 || wd > MAX_WD || grid < 1 || grid > n_tiles ||
-      n_rows < 1 || n_long < 0 || piece < 1)
+      n_layers < 1 || wd < 1 || wd > MAX_WD || n_batch < 1 ||
+      n_batch > MAX_BATCH || (long long)n_tiles * n_batch > INT_MAX ||
+      grid < 1 || grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 ||
+      piece < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C,
+               p_stride = (size_t)n_rows * wd;
   auto kernel = fused_edge_phase_win_dyn_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
@@ -71,13 +79,14 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       (const float*)wf8, (const float*)wfd, (const float*)wfn, wd,
       (const float*)W, (const float*)B, n_layers, (const int*)send_win,
       (const int*)win_base, (const int*)receivers, (const int*)chunk_block,
-      n_tiles, e_pad, edge_block, window, (T*)msg);
+      n_tiles, e_pad, edge_block, window, (T*)msg, n_batch, x_stride,
+      e_stride, p_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                s>>>(
+  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                THREADS, 0, s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
+      (const int*)long_rows, n_rows, piece, (float*)out, e_stride, x_stride);
   return (int)cudaGetLastError();
 }
 
@@ -95,13 +104,13 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       const void* receivers, const void* chunk_block, const void* row_ptr,    \
       const void* row_slots, const void* long_rows, int n_layers, int wd,     \
       int grid, int n_tiles, int e_pad, int edge_block, int window,           \
-      int n_rows, int n_long, int piece, void* msg, void* out,                \
+      int n_rows, int n_long, int piece, int n_batch, void* msg, void* out,  \
       void* stream) {                                                         \
     return launch<T, BF16>(fiber_t, xwi, xj, pos, wf8, wfd, wfn, W, B,        \
                            send_win, win_base, receivers, chunk_block,        \
                            row_ptr, row_slots, long_rows, n_layers, wd, grid, \
                            n_tiles, e_pad, edge_block, window, n_rows,        \
-                           n_long, piece, msg, out, stream);                  \
+                           n_long, piece, n_batch, msg, out, stream);         \
   }
 
 FUSED_EDGE_PHASE_WIN_DYN(fused_edge_phase_win_dyn_f32, float, false)

@@ -14,7 +14,10 @@
 // step that stacked K tiles on 512 threads (each staged weight slab
 // serving K tiles, one block per SM) read slower than one tile a step at
 // two blocks per SM at the 5k airfoil's gated levels (PERF.md). Its own
-// kernel name, so the profiler tells it apart from kernel 4.
+// kernel name, so the profiler tells it apart from kernel 4. A batch over
+// the one level (xwi, xj [B][n_pad][C]; msg [B][E_pad][C], out
+// [B][n_pad][C]) is one launch of each, as kernel 4's: the walk over B·T
+// tiles, the gather with the batch as its grid's y extent.
 #include "edge_fwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -30,10 +33,12 @@ fused_edge_phase_win_k_kernel(
     const float* __restrict__ W, const float* __restrict__ B, int n_layers,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
-    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg) {
+    int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg,
+    int n_batch, size_t x_stride, size_t e_stride) {
   tiles::edge_fwd_tiles<T, BF16, Front::kWin>(
       fiber_t, xwi, xj, wf8, W, B, n_layers, send_win, win_base, receivers,
-      chunk_block, n_tiles, e_pad, edge_block, window, msg);
+      chunk_block, n_tiles, e_pad, edge_block, window, msg, nullptr, nullptr,
+      nullptr, 0, n_batch, x_stride, e_stride);
 }
 
 template <typename T, bool BF16>
@@ -52,9 +57,11 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            int n_rows, int n_long, int piece, int n_batch, void* msg,
            void* out, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
-      n_layers < 1 || grid < 1 || grid > n_tiles || n_rows < 1 ||
-      n_long < 0 || piece < 1 || n_batch != 1)  // one sample only
+      n_layers < 1 || n_batch < 1 || n_batch > MAX_BATCH ||
+      (long long)n_tiles * n_batch > INT_MAX || grid < 1 ||
+      grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 || piece < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C;
   auto kernel = fused_edge_phase_win_k_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -66,13 +73,14 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, n_layers, (const int*)send_win,
       (const int*)win_base, (const int*)receivers, (const int*)chunk_block,
-      n_tiles, e_pad, edge_block, window, (T*)msg);
+      n_tiles, e_pad, edge_block, window, (T*)msg, n_batch, x_stride,
+      e_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                s>>>(
+  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                THREADS, 0, s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
+      (const int*)long_rows, n_rows, piece, (float*)out, e_stride, x_stride);
   return (int)cudaGetLastError();
 }
 

@@ -91,7 +91,8 @@ t is tile t mod T of sample ⌊t / T⌋, the grid still the card's fill), with
 every sample's tiles of its range into its own), dpre [B, E_pad, 128], dxj
 by the batched gather. Every per-row output of sample b is the bits of a
 call on sample b alone; the weight gradients sum over the batch. Kernels
-13 and 14, which share the walks, take B = 1.
+13 and 14, which share the walks, take the batch the same way; kernels 11
+and 12 take B = 1.
 
 `fused_edge_phase_win` is the differentiable entry: an autograd Function
 whose forward launches kernel 4 and whose backward launches kernel 5 and
@@ -175,12 +176,12 @@ def mlp_tail_bwd(pre, hs, normed, inv, g, weights, bf16: bool):
     return dh * (pre > 0), torch.stack(dws), torch.stack(dbs)
 
 
-def _check(level, xwi, xj, wf8, weights, biases, batched=False):
-    """Raise on what the windowed edge kernels do not take; `batched`:
-    the function takes a batch axis (kernels 4 and 5; 13 and 14 do not)."""
+def _check(level, xwi, xj, wf8, weights, biases):
+    """Raise on what the windowed edge kernels (4, 5, 13 and 14) do not
+    take: each takes one sample [n_pad, 128] or a batch [B, n_pad, 128]."""
     if level.window <= 0:
         raise NotImplementedError("fused edge phase needs a windowed level")
-    build.check_batch(xwi, batched)
+    build.check_batch(xwi, True)
     n_pad, c = level.n_pad_nodes, xwi.shape[-1]
     if c != BN:
         raise NotImplementedError(f"latent width {c} (only 128)")
@@ -246,7 +247,7 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
     """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
     128] or a batch [B, n_pad, 128], one launch), no autograd. CPU tensors
     take the plain version; CUDA tensors launch kernel 4."""
-    _check(level, xwi, xj, wf8, weights, biases, batched=True)
+    _check(level, xwi, xj, wf8, weights, biases)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_plain(level, xwi, xj, wf8, weights,
                                           biases)
@@ -274,7 +275,7 @@ def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
     """aggr [..., n_pad, 128] f32 by the windowed forward tile walk of
     `csrc/<lib_name>.cu` (kernel 4's, or kernel 14's under its own names;
     `fns`: dtype → C function) on CUDA tensors, for the batch xwi's
-    leading dim gives (kernel 14's entries take one sample only)."""
+    leading dim gives."""
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
@@ -365,6 +366,11 @@ def fused_edge_phase_win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
 fused_edge_phase_win_bwd_plain.calls = 0
 
 
+def flat_rows(t: torch.Tensor) -> torch.Tensor:
+    """t's leading dims' rows as one row axis: [..., R, C] → [-1, C]."""
+    return t.reshape(-1, t.shape[-1])
+
+
 def win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
     """The windowed edge phase's backward (kernels 5 and 14), uncounted."""
     bf16 = xwi.dtype == torch.bfloat16
@@ -375,12 +381,9 @@ def win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
     if bf16:
         ge = round_bf16(ge)
     c = xwi.shape[-1]
-
-    def rows(t):  # the leading dims' slots as one row axis
-        return t.reshape(-1, t.shape[-1])
-
-    dpre, dw, db = mlp_tail_bwd(rows(pre), [rows(h) for h in hs],
-                                rows(normed), rows(inv), rows(ge), ws, bf16)
+    dpre, dw, db = mlp_tail_bwd(flat_rows(pre), [flat_rows(h) for h in hs],
+                                flat_rows(normed), flat_rows(inv),
+                                flat_rows(ge), ws, bf16)
     dpre = dpre.reshape(pre.shape)
     dpre_op = round_bf16(dpre) if bf16 else dpre
     dxj = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, c,
@@ -398,7 +401,7 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
     cotangent g [..., n_pad, 128] (a batch [B, ...] in one launch, the
     weight gradients summed over it), no autograd. CPU tensors take the
     plain version; CUDA tensors launch kernel 5."""
-    _check(level, xwi, xj, wf8, weights, biases, batched=True)
+    _check(level, xwi, xj, wf8, weights, biases)
     if g.shape != xwi.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
     if xwi.device.type == "cpu":
@@ -420,7 +423,7 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
     """(dpre, dxj, dwf8, dW, db) by the windowed backward tile walk of
     `csrc/<lib_name>.cu` (kernel 5's, or kernel 14's under its own names;
     `fns`: dtype → C function) on CUDA tensors, for the batch xwi's
-    leading dim gives (kernel 14's entries take one sample only)."""
+    leading dim gives."""
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
@@ -506,6 +509,6 @@ def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
     every tail weight and bias. `wf8` rows [0, pd1) are the static-fiber
     rows of the first edge layer, row pd1 its bias; `weights`/`biases` are
     the tail layers ([C, C] stored [in, out])."""
-    _check(level, xwi, xj, wf8, weights, biases, batched=True)
+    _check(level, xwi, xj, wf8, weights, biases)
     return EdgePhase.apply(level, _V3, len(weights), xwi, xj, wf8, *weights,
                            *biases)

@@ -53,6 +53,14 @@ to_bf16=True)`). What bounds it on the card: operations, as kernel 4 (and
 kernel 5 for the backward), plus 2·(wd+1)·C per slot; the positions add a
 few bytes per slot.
 
+The batch axis (a shared mesh: xwi, xj [B, n_pad, 128], pos [B, n_pad,
+wd]), as kernels 4 and 5 take it: one launch of the forward walks the B·T
+tiles in the same stride order (tile t is tile t mod T of sample ⌊t / T⌋,
+which reads sample ⌊t / T⌋'s positions), one launch of the backward the
+B·T tiles in its G ranges (still G partials, the weight gradients summed
+over the batch), and each gather takes the sample from its grid's y index.
+Every per-row output of sample b is the bits of a call on sample b alone.
+
 bf16 mode follows the TPU kernel: the positions are bf16 (the caller casts
 them to the activations' dtype), Δ is taken in f32 from those values and
 rounded to bf16 as the operand of the wf_dyn dot (wf_dyn rounded too),
@@ -78,6 +86,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     _check,
     _edge_pre,
     dot,
+    flat_rows,
     mlp_tail_bwd,
     mlp_tail_fwd_save,
     mlp_tail_plain,
@@ -102,28 +111,30 @@ def _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases):
     if not 0 < wd <= BN or wfd.shape != (wd, BN) or wfn.shape != (BN,):
         raise ValueError(f"wf_dyn {tuple(wfd.shape)} must be [wd, {BN}] with "
                          f"0 < wd <= {BN}, wf_nrm {tuple(wfn.shape)} [{BN}]")
-    if pos.shape != (level.n_pad_nodes, wd) or pos.dtype != xwi.dtype:
+    want = (*xwi.shape[:-2], level.n_pad_nodes, wd)
+    if pos.shape != want or pos.dtype != xwi.dtype:
         raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype} must be "
-                         f"({level.n_pad_nodes}, {wd}) in {xwi.dtype}")
+                         f"{want} in {xwi.dtype}")
 
 
 def _edge_pre_dyn(level, xwi, xj, pos, wf8, wfd, wfn, bf16):
     """Kernel 4's pre-activation plus Δ·wf_dyn + ‖Δ‖·wf_nrm (f32), the
-    in-window mask, the receivers, Δ (f32, unrounded) and ‖Δ‖."""
+    in-window mask, the receivers, Δ (f32, unrounded) and ‖Δ‖, on xwi's
+    leading dims."""
     pre, covered, recv = _edge_pre(level, xwi, xj, wf8, bf16)
     rows, _ = sender_rows(level)
     p = pos.float()
-    ps = torch.where(covered[:, None], p.index_select(0, rows), 0.0)
-    delta = ps - p.index_select(0, recv)
+    ps = torch.where(covered[:, None], p.index_select(-2, rows), 0.0)
+    delta = ps - p.index_select(-2, recv)
     nrm = delta.square().sum(-1).sqrt()
-    pre = pre + dot(delta, wfd.float(), bf16) + nrm[:, None] * wfn.float()
+    pre = pre + dot(delta, wfd.float(), bf16) + nrm[..., None] * wfn.float()
     return pre, covered, recv, delta, nrm
 
 
 def fused_edge_phase_win_dyn_plain(level, xwi, xj, pos, wf8, wfd, wfn,
                                    weights, biases):
     """Kernel 13's function in plain PyTorch (index_select / matmul /
-    index_add_)."""
+    index_add_), on any leading dims."""
     fused_edge_phase_win_dyn_plain.calls += 1
     bf16 = xwi.dtype == torch.bfloat16
     pre, covered, recv, _, _ = _edge_pre_dyn(level, xwi, xj, pos, wf8, wfd,
@@ -133,9 +144,9 @@ def fused_edge_phase_win_dyn_plain(level, xwi, xj, pos, wf8, wfd, wfn,
     if bf16:
         e = round_bf16(e)
     e = torch.where(covered[:, None], e, 0.0)
-    out = torch.zeros(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=xwi.device)
-    return out.index_add_(0, recv, e)
+    out = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, BN,
+                      dtype=torch.float32, device=xwi.device)
+    return out.index_add_(-2, recv, e)
 
 
 fused_edge_phase_win_dyn_plain.calls = 0
@@ -151,8 +162,10 @@ def _kernel_wd(wfd):
 
 def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
                                  weights, biases):
-    """aggr [n_pad, 128] f32 of the in-window edges, no autograd. CPU
-    tensors take the plain version; CUDA tensors launch kernel 13."""
+    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
+    128] and pos [n_pad, wd], or a batch [B, ...] in one launch), no
+    autograd. CPU tensors take the plain version; CUDA tensors launch
+    kernel 13."""
     _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_dyn_plain(level, xwi, xj, pos, wf8, wfd,
@@ -163,16 +176,20 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
     build.require("fused_edge_phase_win_dyn", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
                   level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 10, 3))
+    lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 11, 3))
     fn, dev = _FN[xwi.dtype], xwi.device
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
     xwi, xj, pos = xwi.contiguous(), xj.contiguous(), pos.contiguous()
     wf8, wfd, wfn = (t.detach().float().contiguous() for t in (wf8, wfd, wfn))
-    msg = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    lead = xwi.shape[:-2]
+    msg = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+                      device=dev)
+    out = torch.empty(*lead, level.n_pad_nodes, BN, dtype=torch.float32,
+                      device=dev)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
         pos.data_ptr(), wf8.data_ptr(), wfd.data_ptr(), wfn.data_ptr(),
@@ -182,7 +199,7 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
         level.win_row_slots.data_ptr(), level.win_long.data_ptr(),
         len(weights), wd, grid, n_tiles, level.n_pad_edges, level.edge_block,
         level.window, level.n_pad_nodes, level.win_long.numel(),
-        GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
+        GATHER_PIECE, n_batch, msg.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "fused_edge_phase_win_dyn")
@@ -195,23 +212,30 @@ fused_edge_phase_win_dyn_fwd.launches = 0
 
 def fused_edge_phase_win_dyn_bwd_plain(level, xwi, xj, pos, wf8, wfd, wfn,
                                        weights, biases, g):
-    """Kernel 13's backward in plain PyTorch."""
+    """Kernel 13's backward in plain PyTorch, on any leading dims (the
+    weight gradients summed over them)."""
     fused_edge_phase_win_dyn_bwd_plain.calls += 1
     bf16 = xwi.dtype == torch.bfloat16
     pre, covered, recv, delta, nrm = _edge_pre_dyn(level, xwi, xj, pos, wf8,
                                                    wfd, wfn, bf16)
     ws, bs = [w.float() for w in weights], [b.float() for b in biases]
     normed, inv, hs = mlp_tail_fwd_save(pre, ws, bs, bf16)
-    ge = torch.where(covered[:, None], g.float().index_select(0, recv), 0.0)
+    ge = torch.where(covered[:, None], g.float().index_select(-2, recv), 0.0)
     if bf16:
         ge = round_bf16(ge)
-    dpre, dw, db = mlp_tail_bwd(pre, hs, normed, inv, ge, ws, bf16)
+    dpre, dw, db = mlp_tail_bwd(flat_rows(pre), [flat_rows(h) for h in hs],
+                                flat_rows(normed), flat_rows(inv),
+                                flat_rows(ge), ws, bf16)
+    dpre = dpre.reshape(pre.shape)
     dpre_op = round_bf16(dpre) if bf16 else dpre
-    dxj = torch.zeros(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=xwi.device).index_add_(0, recv, dpre_op)
+    dxj = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, BN,
+                      dtype=torch.float32,
+                      device=xwi.device).index_add_(-2, recv, dpre_op)
     dwf8 = dot(level.fiber_t, dpre, bf16)
-    dwfd = dot(delta.t(), dpre, bf16)
-    dwfn = (nrm[:, None] * dpre).sum(0)
+    dwfd = dot(delta.transpose(-1, -2), dpre, bf16)
+    dwfn = flat_rows(nrm[..., None] * dpre).sum(0)
+    if dpre.dim() == 3:
+        dwf8, dwfd = dwf8.sum(0), dwfd.sum(0)
     return dpre.to(xwi.dtype), dxj, dwf8, dwfd, dwfn, dw, db
 
 
@@ -220,13 +244,15 @@ fused_edge_phase_win_dyn_bwd_plain.calls = 0
 
 def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                                  biases, g):
-    """(dpre [E_pad, 128] in xwi's dtype, dxj [n_pad, 128] f32, dwf8 [8,
-    128], dwf_dyn [wd, 128], dwf_nrm [128], dW [L, 128, 128], db [L, 128])
-    for the aggregate's cotangent g, no autograd. CPU tensors take the plain
-    version; CUDA tensors launch kernel 13's backward."""
+    """(dpre [..., E_pad, 128] in xwi's dtype, dxj [..., n_pad, 128] f32,
+    dwf8 [8, 128], dwf_dyn [wd, 128], dwf_nrm [128], dW [L, 128, 128], db
+    [L, 128]) for the aggregate's cotangent g [..., n_pad, 128] (a batch
+    [B, ...] in one launch, the weight gradients summed over it), no
+    autograd. CPU tensors take the plain version; CUDA tensors launch
+    kernel 13's backward."""
     _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases)
-    if g.shape != (level.n_pad_nodes, BN):
-        raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
+    if g.shape != xwi.shape:
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_dyn_bwd_plain(level, xwi, xj, pos, wf8,
                                                   wfd, wfn, weights, biases, g)
@@ -239,10 +265,11 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     build.require("fused_edge_phase_win_dyn_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
                   level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_dyn_bwd", walk_sigs(_BWD_FN, 18, 10, 5))
+    lib = build.library("fused_gmp_dyn_bwd", walk_sigs(_BWD_FN, 18, 11, 5))
     fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
@@ -253,8 +280,10 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     sizes = [n_layers * BN * BN, n_layers * BN, 8 * BN, wd * BN, BN]
     f32 = dict(dtype=torch.float32, device=dev)
     gpart = torch.empty(grid, sum(sizes), **f32)
-    dpre = torch.empty(level.n_pad_edges, BN, dtype=xwi.dtype, device=dev)
-    dxj = torch.empty(level.n_pad_nodes, BN, **f32)
+    lead = xwi.shape[:-2]
+    dpre = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+                       device=dev)
+    dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
     grads = torch.empty(sum(sizes), **f32)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -265,7 +294,7 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
         level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
         level.win_long.data_ptr(), n_layers, wd, grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
-        level.win_long.numel(), GATHER_PIECE, gpart.data_ptr(),
+        level.win_long.numel(), GATHER_PIECE, n_batch, gpart.data_ptr(),
         dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -307,9 +336,10 @@ class _DynEdgePhase(torch.autograd.Function):
 
 def fused_edge_phase_win_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                              biases):
-    """aggr [n_pad, 128] f32 of the in-window edges, differentiable in xwi,
-    xj, wf8, wf_dyn, wf_nrm and every tail weight and bias. `pos` [n_pad,
-    wd] are the world positions in xwi's dtype (no gradient reaches them);
+    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
+    128] or a batch [B, n_pad, 128]), differentiable in xwi, xj, wf8,
+    wf_dyn, wf_nrm and every tail weight and bias. `pos` [..., n_pad, wd]
+    are the world positions in xwi's dtype (no gradient reaches them);
     `wf8` rows [0, sfw) are the static-fiber rows of the first edge layer,
     row sfw its bias; `wfd` [wd, C] its Δworld rows and `wfn` [C] its
     ‖Δworld‖ row; `weights`/`biases` are the tail layers."""

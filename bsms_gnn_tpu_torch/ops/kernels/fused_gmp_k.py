@@ -53,6 +53,13 @@ for a shape it refuses, the port raises, as kernel 4's wrapper does.
 
 bf16 mode rounds where kernels 4 and 5 round (`fused_gmp.py`); the plain
 versions are kernel 4's and 5's.
+
+The batch axis (a shared mesh: xwi, xj [B, n_pad, 128]) is kernels 4's and
+5's: one launch of each walk over the B·T tiles (the forward in stride
+order, the backward in its G ranges, still G partials), the gathers taking
+the sample from their grid's y index, every per-row output of sample b the
+bits of a call on sample b alone. The v2 route of a skip-empty gated level
+(kernel 12) keeps B = 1.
 """
 
 from __future__ import annotations
@@ -103,8 +110,9 @@ fused_edge_phase_win_k_plain.calls = 0
 
 
 def fused_edge_phase_win_k_fwd(level, xwi, xj, wf8, weights, biases, k):
-    """aggr [n_pad, 128] f32 of the in-window edges, no autograd. CPU
-    tensors take the plain version; CUDA tensors launch kernel 14."""
+    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
+    128] or a batch [B, n_pad, 128], one launch), no autograd. CPU tensors
+    take the plain version; CUDA tensors launch kernel 14."""
     _check(level, xwi, xj, wf8, weights, biases)
     _check_k(k)
     if xwi.device.type == "cpu":
@@ -132,14 +140,15 @@ fused_edge_phase_win_k_bwd_plain.calls = 0
 
 
 def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
-    """(dpre [E_pad, 128] in xwi's dtype, dxj [n_pad, 128] f32, dwf8 [8,
-    128], dW [L, 128, 128], db [L, 128]) for the aggregate's cotangent g,
-    no autograd. CPU tensors take the plain version; CUDA tensors launch
-    kernel 14's backward."""
+    """(dpre [..., E_pad, 128] in xwi's dtype, dxj [..., n_pad, 128] f32,
+    dwf8 [8, 128], dW [L, 128, 128], db [L, 128]) for the aggregate's
+    cotangent g [..., n_pad, 128] (a batch [B, ...] in one launch, the
+    weight gradients summed over it), no autograd. CPU tensors take the
+    plain version; CUDA tensors launch kernel 14's backward."""
     _check(level, xwi, xj, wf8, weights, biases)
     _check_k(k)
-    if g.shape != (level.n_pad_nodes, BN):
-        raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
+    if g.shape != xwi.shape:
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_k_bwd_plain(level, xwi, xj, wf8, weights,
                                                 biases, g, k)
@@ -160,12 +169,13 @@ fused_edge_phase_win_k_bwd.launches = 0
 
 def fused_edge_phase_win_k(level, xwi, xj, wf8, weights, biases, k,
                            min_density: int = MIN_DENSITY):
-    """`fused_edge_phase_win`'s contract (aggr [n_pad, 128] f32 of the
-    in-window edges, differentiable in xwi, xj, wf8 and every tail weight
-    and bias) on the `"fusedK"` method: kernel 14 forward, its backward and
-    kernel 7 backward on a level with at least `min_density` chunks per
-    128-node output block, kernel 4 (v3) on the others and for K ≤ 1, and
-    None on a skip-empty layout (the caller takes v2)."""
+    """`fused_edge_phase_win`'s contract (aggr [..., n_pad, 128] f32 of
+    the in-window edges, differentiable in xwi, xj, wf8 and every tail
+    weight and bias; xwi, xj [n_pad, 128] or a batch [B, n_pad, 128]) on
+    the `"fusedK"` method: kernel 14 forward, its backward and kernel 7
+    backward on a level with at least `min_density` chunks per 128-node
+    output block, kernel 4 (v3) on the others and for K ≤ 1, and None on a
+    skip-empty layout (the caller takes v2)."""
     if k <= 1 or not passes_gate(level, min_density):
         return fused_edge_phase_win(level, xwi, xj, wf8, weights, biases)
     if level.skip_empty:

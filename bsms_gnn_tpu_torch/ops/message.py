@@ -49,13 +49,16 @@ an ELL sum (`scatter.py:66-81`); the two compute the same function on
 every row that carries gradient, so the port builds no ELL tables.
 
 The batch axis (a shared mesh, x [B, N_pad, C]): the windowed `fused`
-route without world streams (v3: kernels 4, 2, 3 and, backward, 5, 7, 6,
-each batch one launch), its compact residual gathered on dim -2 and its
-static fiber term broadcast over the batch, as JAX's `gmp_apply` runs
-vmapped kernels (`message.py:251-315`). Every other route raises
-NotImplementedError("batch axis") on a batch: world streams (kernels 13,
-11), `"fusedK"` on a gated level (kernel 14), v2 (kernel 12), the residual
-sub-level (kernel 9) and the `pallas` method (kernels 8, 10).
+routes, each batch one launch of each kernel: v3 (kernels 4, 2, 3 and,
+backward, 5, 7, 6), v4 with one world stream (kernel 13 and its backward
+in place of 4 and 5, pos [B, N_pad, wd]) and `"fusedK"` on a gated level
+(kernel 14 and its backward), the compact residual gathered on dim -2
+(with v4 its world term too, from each sample's positions) and the static
+fiber term broadcast over the batch, as JAX's `gmp_apply` runs vmapped
+kernels (`message.py:251-389`, `fused_gmp.py:870-876`, `:1545-1550`).
+Every other route raises NotImplementedError("batch axis") on a batch:
+v1 (kernel 11), v2 (kernel 12, also a skip-empty gated level's), the
+residual sub-level (kernel 9) and the `pallas` method (kernels 8, 10).
 
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
 level's own weights (`message.py:603-692`), each the other's adjoint.
@@ -125,8 +128,8 @@ class GMP(nn.Module):
     def forward(self, level, x, compute_dtype=None, pos=None,
                 method: str = "fused"):
         """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] on the
-        windowed `fused` route (see above); pos: [N_pad, Σ dyn_dims] world
-        positions when the GMP has world edges."""
+        windowed `fused` routes (see above); pos: [..., N_pad, Σ dyn_dims]
+        world positions (x's leading dims) when the GMP has world edges."""
         method, k = split_interleave(method)
         if method not in METHODS:
             raise NotImplementedError(f"aggregation method {method!r}")

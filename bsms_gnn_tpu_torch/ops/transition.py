@@ -21,9 +21,10 @@ routes as the forward: no scatter anywhere on 128-wide rows, as on the TPU.
 
 The batch axis (a shared mesh, x [B, N_in_pad, C]): the dense route on
 the leading dims, the windowed route with kernel 1's and kernel 2's
-batched launches (the compact residual's rows gathered on dim -2). The
-kernel-8 route and `narrow_apply` take B = 1 and raise
-NotImplementedError("batch axis") on a batch.
+batched launches (the compact residual's rows gathered on dim -2), and
+`narrow_apply` on the leading dims (gathered and summed on dim -2, as
+JAX's `_apply` sums on axis -2). The kernel-8 route takes B = 1 and
+raises NotImplementedError("batch axis") on a batch.
 """
 
 from __future__ import annotations
@@ -45,16 +46,17 @@ def dense_apply(d, x):
 
 def narrow_apply(op: TransOp, x):
     """A windowed operator on rows narrower than the kernels take: every
-    slot's scaled input row summed at its receiver (f32), in x's dtype.
-    Pad slots have weight 0."""
+    slot's scaled input row summed at its receiver (f32), in x's dtype,
+    on x's leading dims (one sample [N_in_pad, w] or a batch [B, N_in_pad,
+    w]). Pad slots have weight 0."""
     if x.shape[-1] % BN == 0:
         raise ValueError("128-wide rows take the windowed kernels")
-    check_batch(x, False)
+    check_batch(x, True)
     narrow_apply.calls += 1
-    msg = x.index_select(0, op.senders) * op.ew.to(x.dtype)[:, None]
-    out = torch.zeros(op.n_pad_nodes, x.shape[-1], dtype=torch.float32,
-                      device=x.device)
-    return out.index_add_(0, op.receivers.long(), msg.float()).to(x.dtype)
+    msg = x.index_select(-2, op.senders) * op.ew.to(x.dtype)[:, None]
+    out = torch.zeros(*x.shape[:-2], op.n_pad_nodes, x.shape[-1],
+                      dtype=torch.float32, device=x.device)
+    return out.index_add_(-2, op.receivers.long(), msg.float()).to(x.dtype)
 
 
 narrow_apply.calls = 0

@@ -109,7 +109,17 @@ Phases (any failure exits non-zero without the result line):
    ranges of tiles; the forward at BATCH_SERVE and the train step at
    BATCH_TRAIN against the plain path with the B = 1 launch counts; a
    `Trainer` run at BATCH_TRAIN; forward and step times at B = 1,
-   BATCH_SERVE and BATCH_TRAIN, busy per sample.
+   BATCH_SERVE and BATCH_TRAIN, busy per sample;
+17. the batch axis on the flag of phase 10 (flag_batch: batches of the
+   contact recipe's frames, each from its own seed): kernel 13, forward
+   and backward, at BATCH_CHECK samples at every level phase 10 checks it
+   at, with phase 16's checks (dwf8, dwf_dyn, dwf_nrm, dW and db against
+   the sum of the samples' calls); the forward at BATCH_SERVE with the B =
+   1 launch and narrow-route counts, the train step at BATCH_TRAIN with
+   the B = 1 counts, a `Trainer` run there; phase 16's times;
+18. the batch axis on the `fused4` airfoil of phase 14 (fused4_batch):
+   kernel 14, forward and backward, at BATCH_CHECK samples at levels 3-5,
+   then phase 17's serving, train step, `Trainer` run and times.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -417,11 +427,11 @@ TRAIN_TOL = {torch.float32: (1e-5, 5e-2, 1e-3),
 PLAIN_TRAIN_TOL = {torch.float32: (1e-5, 0.35, 1e-2),
                    torch.bfloat16: TRAIN_TOL[torch.bfloat16]}
 TRAIN_GATE, TRAIN_UPDATES = 2, 4
-# The batch axis on the airfoil's shared hierarchy (the airfoil_batch
-# path): the kernels checked at BATCH_CHECK samples; serving at
-# BATCH_SERVE (the README's batched-serving row); training at BATCH_TRAIN
-# (`bsms_gnn_tpu/configs/default.yaml`'s `batch`). Every batch is B
-# distinct seeded frames over the one hierarchy.
+# The batch axis on a shared hierarchy (the airfoil_batch, flag_batch and
+# fused4_batch paths, BATCH_PATHS): the kernels checked at BATCH_CHECK
+# samples; serving at BATCH_SERVE (the README's batched-serving row);
+# training at BATCH_TRAIN (`bsms_gnn_tpu/configs/default.yaml`'s `batch`).
+# Every batch is B distinct seeded frames over the one hierarchy.
 BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
 # The arguments of each kernel of the batched path that carry the batch
 # (the rest are the layout, the weights and the compute dtype), and the
@@ -430,10 +440,16 @@ BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
 BATCHED_ARGS = {"windowed_rect_conv": (1,), "compact_accum": (1, 2),
                 "fused_edge_phase_win": (1, 2), "fused_node_phase": (0, 1),
                 "fused_edge_phase_win_bwd": (1, 2, 6),
-                "fused_node_phase_bwd": (0, 1, 3), "windowed_send_sum": (1,)}
+                "fused_node_phase_bwd": (0, 1, 3), "windowed_send_sum": (1,),
+                "fused_edge_phase_win_dyn": (1, 2, 3),
+                "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 9),
+                "fused_edge_phase_win_k": (1, 2),
+                "fused_edge_phase_win_k_bwd": (1, 2, 6)}
 ROW_OUTPUTS = {"fused_edge_phase_win_bwd": ("dpre", "dxj"),
                "fused_node_phase_bwd": ("dx", "daggr"),
-               "windowed_send_sum": ("out",)}
+               "windowed_send_sum": ("out",),
+               "fused_edge_phase_win_dyn_bwd": ("dpre", "dxj"),
+               "fused_edge_phase_win_k_bwd": ("dpre", "dxj")}
 # Kernel 2's input with a long list: level 0's residual plus a star of this
 # many edges onto one receiver (`star_resid`), whose list of about 50 rows
 # then takes the gather's long path in two pieces. Its f32 sum, in another
@@ -523,8 +539,9 @@ ACCUM_SEED = 1500
 # input within rounding of zero, where the kernel and the plain version,
 # summing in other orders, take the ReLU on different sides.
 RELU_DIAGNOSED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
-                  "fused_edge_phase_win_dyn_bwd", "fused_node_phase",
-                  "fused_node_phase_bwd")
+                  "fused_edge_phase_win_dyn", "fused_edge_phase_win_dyn_bwd",
+                  "fused_edge_phase_win_k", "fused_edge_phase_win_k_bwd",
+                  "fused_node_phase", "fused_node_phase_bwd")
 # The rows of each backward output that `relu_margin` maps to the input
 # rows feeding them (an output not named: every input row).
 ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
@@ -1577,9 +1594,10 @@ def check_store_form(where, dtype, args, got):
 def relu_inputs(name, args):
     """(every ReLU input of the function on `args` in the plain version's
     arithmetic, f32 [rows, C] per layer; the input rows that count; each
-    input row's receiver or None): kernels 4, 5 and 13's backward, per slot
-    (the first layer's pre-activation, then each hidden tail layer's; the
-    in-window slots count); kernels 3 and 6, per node row."""
+    input row's receiver or None): kernels 4, 5, 13 and 14 (forward and
+    backward), per slot (the first layer's pre-activation, then each hidden
+    tail layer's; the in-window slots count); kernels 3 and 6, per node
+    row."""
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_dyn as fgd
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
@@ -1591,7 +1609,7 @@ def relu_inputs(name, args):
         ws, bs = node_mlp._tail(mlp)
         counted, recv = torch.ones(pre.shape[0], dtype=torch.bool,
                                    device=pre.device), None
-    elif name == "fused_edge_phase_win_dyn_bwd":
+    elif name in ("fused_edge_phase_win_dyn", "fused_edge_phase_win_dyn_bwd"):
         level, xwi, xj, pos, wf8, wfd, wfn, ws, bs = args[:9]
         bf16 = xwi.dtype == torch.bfloat16
         pre, counted, recv, _, _ = fgd._edge_pre_dyn(level, xwi, xj, pos, wf8,
@@ -2889,14 +2907,15 @@ def batch_library_call(name, bargs):
     return None
 
 
-def batch_inputs(case, dtype, device):
+def batch_inputs(case, dtype, device, names=None):
     """(name, [(where, arguments)]) of each kernel of the batched path at
-    the airfoil path's shapes (`kernel_inputs`, `bwd_kernel_inputs`): the
-    forward kernels 1-4, then the backward kernels 5-7."""
+    the case's path's shapes (`kernel_inputs`, `bwd_kernel_inputs`): the
+    forward kernels, then the backward kernels (those of `names` only,
+    where given)."""
     fwd = kernel_inputs(case, dtype, device)
     bwd = bwd_kernel_inputs(case, dtype, device)
     return [(k, v) for k, v in (*fwd.items(), *bwd.items())
-            if k in BATCHED_ARGS]
+            if k in BATCHED_ARGS and (names is None or k in names)]
 
 
 def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
@@ -2999,10 +3018,13 @@ def check_partial_ranges(case, dtype, device):
 
 
 def batch_frames(case, n, seed):
-    """n distinct frames over the case's one hierarchy (seeded output
-    fields on the real rows, the case's positions and node types) and
-    targets near them, with the case's mask: ([n, N_pad, ...] input,
-    target, mask)."""
+    """n distinct frames over the case's one hierarchy and targets near
+    them, with the case's mask: ([n, N_pad, ...] input, target, mask). By
+    default seeded output fields on the real rows (the case's positions
+    and node types), targets a seeded step away; a case may draw its own
+    (`frames`: the flag's contact recipe)."""
+    if "frames" in case:
+        return case["frames"](case, n, seed)
     node_in, mask = case["node_in"], case["mask"]
     c = case["cfg"].out_dim
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -3016,36 +3038,72 @@ def batch_frames(case, n, seed):
     return frames, frames[..., :c] + step.to(node_in.device) * masks, masks
 
 
-def run_batch_case(device):
-    """The airfoil_batch path: the 5k airfoil's case (`build_case`) with
-    batches of distinct frames over its one hierarchy. Kernels 1-7 at
-    BATCH_CHECK samples at every shape the airfoil path checks them at
-    (`check_batched`), f32 and bf16; serving at BATCH_SERVE (the forward
-    against the plain path, EXPECTED_LAUNCHES); the train step at
-    BATCH_TRAIN (its gradients against the plain path,
-    EXPECTED_TRAIN_LAUNCHES) and a `Trainer` run there; then the times.
-    Returns (kernel errors, {}, forward launch counts, train-step launch
-    counts, end-to-end times) as `run_case` does."""
-    case = build_case(device)
-    case["label"] = "airfoil 5k batch"
-    label, sim, hd = case["label"], case["sim"], case["hd"]
+def flag_frames(case, n, seed):
+    """n frames of the contact recipe on the flag's strip: sample s's world
+    x, y the mesh position, z = 0.05·N(0, 1) from a generator seeded with
+    `seed`; its target adds 0.1·sin(x) to z (`build_flag_case`'s frame, in
+    bulk)."""
+    node_in, mask, real = case["node_in"], case["mask"], case["n"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    frames = node_in.expand(n, -1, -1).clone()
+    frames[:, :real, 2] = 0.05 * torch.randn(n, real, generator=g).to(
+        node_in.device)
+    tar = frames[..., :3].clone()
+    tar[:, :real, 2] += 0.1 * torch.sin(node_in[:real, 0])
+    return frames, tar, mask.expand(n, -1, -1).contiguous()
+
+
+# The batched paths: (the function that builds the case, its label, the
+# kernels checked at BATCH_CHECK samples (None: every kernel of
+# BATCHED_ARGS the path runs), the seed of the first shape's other samples
+# (each later shape k adds 50·k)).
+BATCH_PATHS = {
+    "airfoil_batch": (lambda d: build_case(d), "airfoil 5k batch", None,
+                      1700),
+    "flag_batch": (lambda d: dict(build_flag_case(d), frames=flag_frames),
+                   "flag 1.6k batch", ("fused_edge_phase_win_dyn",
+                                       "fused_edge_phase_win_dyn_bwd"), 2400),
+    "fused4_batch": (lambda d: build_case(d, aggregation="fused4"),
+                     "airfoil 5k fused4 batch",
+                     ("fused_edge_phase_win_k", "fused_edge_phase_win_k_bwd"),
+                     2800),
+}
+
+
+def run_batch_case(device, path):
+    """A batched path (BATCH_PATHS): its case with batches of distinct
+    frames over its one hierarchy. Its kernels at BATCH_CHECK samples at
+    every shape its B = 1 path checks them at (`check_batched`), f32 and
+    bf16 (on the airfoil also kernel 6 at BATCH_TRAIN on level 0); serving
+    at BATCH_SERVE (the forward against the plain path, the case's B = 1
+    launch and narrow-route counts); the train step at BATCH_TRAIN (its
+    gradients against the plain path, the case's B = 1 train-step counts)
+    and a `Trainer` run there; then the times. Returns (kernel errors, {},
+    forward launch counts, train-step launch counts, end-to-end times) as
+    `run_case` does."""
+    build, label, names, seed = BATCH_PATHS[path]
+    case = build(device)
+    case["label"] = label
+    sim, hd = case["sim"], case["hd"]
+    expected, narrow = case["expected"], case["narrow"]
     errs = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
-            for name, shapes in batch_inputs(case, dtype, device):
+            for name, shapes in batch_inputs(case, dtype, device, names):
                 for k, (where, args) in enumerate(shapes):
                     sparse = name in TILE_WALKS and k > 0
                     err = check_batched(name, where, args, dtype, sparse,
-                                        1700 + 50 * k)
+                                        seed + 50 * k)
                     errs.setdefault((name, dtype), err)
-            check_partial_ranges(case, dtype, device)
+            if path == "airfoil_batch":
+                check_partial_ranges(case, dtype, device)
         node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
         serve = {}
         for dtype in (torch.float32, torch.bfloat16):
             cd = dtype if dtype == torch.bfloat16 else None
             reset_counts()
             got = sim(hd, node_in, mask, cd)
-            counts = read_counts(EXPECTED_LAUNCHES)
+            counts, narrowed = read_counts(expected), narrow_calls()
             with plain_path():
                 want = sim(hd, node_in, mask, cd)
             delta = (want - node_in[..., :want.shape[-1]]).abs().max().item()
@@ -3055,20 +3113,22 @@ def run_batch_case(device):
             print(f"[{label}] forward B={BATCH_SERVE} {str(dtype)[6:]:9s} "
                   f"shape {tuple(got.shape)} max_abs_err vs plain {err:.3e} "
                   f"(delta scale {delta:.3e}, tol {tol:.3e}); launches "
-                  f"{counts} (B = 1: {EXPECTED_LAUNCHES})  "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"{counts} (B = 1: {expected}); narrow-route calls "
+                  f"{narrowed} (B = 1: {narrow})  {'ok' if ok else 'FAIL'}")
             require(ok, f"{label} B={BATCH_SERVE} {dtype} forward disagrees "
                         f"with the plain path")
             if device.type == "cuda":
-                require(counts == EXPECTED_LAUNCHES, f"{label} B="
-                        f"{BATCH_SERVE} forward launch counts {counts}")
+                require(counts == expected and narrowed == narrow,
+                        f"{label} B={BATCH_SERVE} forward launch counts "
+                        f"{counts}, narrow-route calls {narrowed}")
             serve = serve or counts
     node_in, tar, mask = batch_frames(case, BATCH_TRAIN, 22)
     # check_train on the batch: the step's gradients against the plain
-    # path (TRAIN_TOL), the launch counts of one step
-    # (EXPECTED_TRAIN_LAUNCHES), and the `Trainer` run (the gate, then
+    # path (TRAIN_TOL), the launch counts of one step (the case's
+    # expected_train), and the `Trainer` run on the batch (the gate, then
     # updates that move every parameter).
-    train = check_train(dict(case, train=(node_in, tar), mask=mask), device)
+    train = check_train(dict(case, train=(node_in, tar), mask=mask,
+                             train_frames=(node_in, tar)), device)
     del node_in, tar, mask
     e2e = measure_batch(case, device)
     del case
@@ -3103,8 +3163,9 @@ def measure_batch(case, device):
                   f"{1 - busy / wall:.3f}, {prof[2]} CUDA kernels")
         for n in (1, BATCH_TRAIN):
             if n == 1:
-                node_in, tar, mask = (case["node_in"], train_target(case),
-                                      case["mask"])
+                node_in, tar = case.get("train_frames") or (
+                    case["node_in"], train_target(case))
+                mask = case["mask"]
             else:
                 node_in, tar, mask = batch_frames(case, n, 22)
             tr = make_trainer(case, device, cd)
@@ -3201,7 +3262,8 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # (path, its case, the prefix of its end-to-end keys)
+    # (path, the function that builds its case (None: a batched path of
+    # BATCH_PATHS), the prefix of its end-to-end keys)
     paths = (("airfoil", build_case, ""),
              ("surface", build_surface_case, "surface_"),
              ("flag", build_flag_case, "flag_"),
@@ -3214,7 +3276,9 @@ def main() -> int:
              ("airfoil_fused4",
               functools.partial(build_case, aggregation="fused4"),
               "airfoil_fused4_"),
-             ("airfoil_batch", None, "airfoil_b48_"))
+             ("airfoil_batch", None, "airfoil_b48_"),
+             ("flag_batch", None, "flag_b48_"),
+             ("fused4_batch", None, "airfoil_fused4_b48_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -3231,7 +3295,7 @@ def main() -> int:
         for phase, build_fn, prefix in paths:
             (errs[phase], rows[phase], serve[phase], train[phase],
              t) = (run_case(build_fn, device) if build_fn is not None
-                   else run_batch_case(device))
+                   else run_batch_case(device, phase))
             e2e.update({prefix + k: v for k, v in t.items()})
             print(f"{phase} phases done at "
                   f"{time.perf_counter() - t_start:.1f} s")

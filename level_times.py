@@ -38,9 +38,11 @@ the step starts with, each read after the previous path's case is freed.
 
 With `--batch B` the airfoil path also times kernels 1-7 on a batch of B
 samples over its one hierarchy (chip_smoke.py's `batch_args`: sample 0
-the B = 1 inputs) at every shape chip_smoke.py checks them at, each
-beside the bound of B samples' work (`batch_work`) and, for kernels 1, 2
-and 7, its library call at B (`batch_library_call`); with `--pmax`
+the B = 1 inputs) at every shape chip_smoke.py checks them at, the flag
+path kernel 13 (forward and backward) at level 0 and the `fused4` path
+kernel 14 (forward and backward) at level 3, each beside the bound of B
+samples' work (`batch_work`) and, for kernels 1, 2 and 7, its library
+call at B (`batch_library_call`); with `--pmax`
 kernel 6 at B again at each of those caps on its weight-gradient
 partials (`node_mlp.p_max` replaced for the sweep) beside the card's
 own.
@@ -370,12 +372,22 @@ def node_bwd_digests(case, device):
                        cot.to(device), cd))
 
 
-def time_batched(cs, case, device, n, pmax=()):
-    """Kernels 1-7 on a batch of n samples at every shape chip_smoke.py
-    checks them at ({label: {dtype: {"shapes": {where: ms}, "bounds":
-    {where: ms}, "library": {where: ms}, "step_ms": ms}}}; "step_ms" sums
-    the launches of one train step for the kernels timed at every level);
-    then kernel 6 at n again at each cap of `pmax` ({cap: {dtype:
+# The kernels `--batch` times on a path other than the airfoil's, at the
+# first shape chip_smoke.py checks them at (flag level 0, `fused4` level 3).
+BATCH_FIRST = {"flag": ("fused_edge_phase_win_dyn",
+                        "fused_edge_phase_win_dyn_bwd"),
+               "airfoil_fused4": ("fused_edge_phase_win_k",
+                                  "fused_edge_phase_win_k_bwd")}
+
+
+def time_batched(cs, case, device, n, pmax=(), names=None):
+    """Kernels 1-7 (or those of `names`, at their first shape only) on a
+    batch of n samples at every shape chip_smoke.py checks them at
+    ({label: {dtype: {"shapes": {where: ms}, "bounds": {where: ms},
+    "library": {where: ms}, "plain": {where: ms}, "step_ms": ms}}}; the
+    library call and the plain version by CUDA events, in f32; "step_ms"
+    sums the launches of one train step for the kernels timed at every
+    level); then kernel 6 at n again at each cap of `pmax` ({cap: {dtype:
     {where: ms}}} under "kernel 6 pmax", each cap put in place of
     `node_mlp.p_max` for its reading)."""
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
@@ -385,16 +397,21 @@ def time_batched(cs, case, device, n, pmax=()):
               "fused_edge_phase_win": "kernel 4",
               "fused_edge_phase_win_bwd": "kernel 5",
               "fused_node_phase_bwd": "kernel 6",
-              "windowed_send_sum": "kernel 7"}
+              "windowed_send_sum": "kernel 7",
+              "fused_edge_phase_win_dyn": "kernel 13",
+              "fused_edge_phase_win_dyn_bwd": "kernel 13 bwd",
+              "fused_edge_phase_win_k": "kernel 14",
+              "fused_edge_phase_win_k_bwd": "kernel 14 bwd"}
     depth = case["hd"].depth
     out, sweep = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype)[6:]
-        for name, shapes in cs.batch_inputs(case, dtype, device):
-            fn = cs.kernel_modules()[name][0]
+        for name, shapes in cs.batch_inputs(case, dtype, device, names):
+            fn, plain = cs.kernel_modules()[name]
             label = f"{labels[name]} B={n}"
-            per, bound, lib = {}, {}, {}
-            for k, (where, args) in enumerate(shapes):
+            per, bound, lib, pl = {}, {}, {}, {}
+            for k, (where, args) in enumerate(
+                    shapes if names is None else shapes[:1]):
                 bargs = cs.batch_args(name, args, n, 1700 + 50 * k)
                 call = functools.partial(fn, *bargs)
                 if name != "compact_accum":  # adds onto acc in place
@@ -406,6 +423,9 @@ def time_batched(cs, case, device, n, pmax=()):
                 lc = (cs.batch_library_call(name, bargs)
                       if dtype == torch.float32 else None)
                 lib[where] = None if lc is None else cs.event_ms(lc, reps=20)
+                pl[where] = (cs.event_ms(lambda: cs.run(name, plain, bargs),
+                                         reps=3, warmup=1)
+                             if dtype == torch.float32 else None)
                 if name == "fused_node_phase_bwd" and where == "level 0":
                     kept, tiles = node_mlp.p_max, bargs[0].numel() // (
                         128 * node_mlp.ROWS)
@@ -438,11 +458,12 @@ def time_batched(cs, case, device, n, pmax=()):
                                 "fused_edge_phase_win_bwd",
                                 "fused_node_phase_bwd") else None)
             out.setdefault(label, {})[key] = {
-                "shapes": per, "bounds": bound, "library": lib,
+                "shapes": per, "bounds": bound, "library": lib, "plain": pl,
                 "step_ms": step}
             print(f"{label} ({name}) {key}: " + ", ".join(
                 f"{w} {per[w]:.5f} (bound {bound[w]:.5f}"
-                + ("" if lib[w] is None else f", library {lib[w]:.5f}") + ")"
+                + ("" if lib[w] is None else f", library {lib[w]:.5f}")
+                + ("" if pl[w] is None else f", plain {pl[w]:.5f}") + ")"
                 for w in per) + " ms"
                 + ("" if step is None else f"; the {2 * len(levels) - 1} "
                    f"launches of a step {step:.4f} ms"))
@@ -458,7 +479,8 @@ def main() -> int:
     ap.add_argument("--paths", default=None,
                     help="comma-separated paths to time (default: all)")
     ap.add_argument("--batch", type=int, default=0,
-                    help="also time kernels 1-7 on the airfoil at this batch")
+                    help="also time kernels 1-7 on the airfoil, 13 on the "
+                         "flag and 14 on the fused4 airfoil at this batch")
     ap.add_argument("--pmax", default="",
                     help="comma-separated caps on kernel 6's partials to "
                          "time at the batch (wK: K waves of its clusters)")
@@ -521,6 +543,9 @@ def main() -> int:
                     cs, case, device, opts.batch,
                     [v if v.startswith("w") else int(v)
                      for v in opts.pmax.split(",") if v]))
+            if path in BATCH_FIRST and opts.batch:
+                out.update(time_batched(cs, case, device, opts.batch,
+                                        names=BATCH_FIRST[path]))
         del case
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": cs.card_line(), **out,

@@ -1,9 +1,15 @@
-"""Why `test_torch_port_batch_grads.py` fixes its frames' seed: the port's
-loss gradient at B = 2 against JAX's over a range of frame seeds, and for
-each seed where a gradient misses GRAD_F32_TOL of its RMS, whether a
-nudge of the frames by one f32 step puts the port back on JAX's.
+"""Why `test_torch_port_batch_grads.py` and `test_torch_port_batch_contact.py`
+fix their frames' seeds: the port's loss gradient at B = 2 against JAX's
+over a range of frame seeds, and for each seed where a gradient misses
+GRAD_F32_TOL of its RMS, whether a nudge of the frames by one f32 step
+puts the port back on JAX's.
 
     JAX_PLATFORMS=cpu python tests/frame_seed_sweep.py [FIRST LAST [NUDGES]]
+    JAX_PLATFORMS=cpu python tests/frame_seed_sweep.py contact [FIRST ...]
+
+The first form sweeps the slice case's frames (`test_torch_port_batch_
+grads.py`), the second the flag case's (`test_torch_port_batch_contact.py`:
+the contact recipe's world z drawn from the seed).
 
 The gradients are piecewise smooth: a ReLU input within f32 rounding of
 zero lands on the side its order of sums picks, and the two sides' weight
@@ -25,7 +31,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_port_batch_contact as contact_batch  # noqa: E402
 import test_torch_port_batch_grads as grads_test  # noqa: E402
+import test_torch_port_contact as contact_test  # noqa: E402
 import test_torch_port_slice as slice_test  # noqa: E402
 from test_torch_port_train import GRAD_F32_TOL, jax_param_grads  # noqa: E402
 
@@ -38,12 +46,30 @@ from bsms_gnn_tpu.training.trainer import (  # noqa: E402
 from bsms_gnn_tpu_torch.training.trainer import masked_rmse  # noqa: E402
 
 
-def main(first=0, last=45, nudges=200):
-    case = slice_test.case._get_wrapped_function()()
+def slice_frames(case, seed):
+    grads_test.FRAME_SEED = seed
+    return grads_test.make_frames(case["node_in"], case["mask"],
+                                  case["hj"].levels[0].node_mask[:, 0] > 0)
+
+
+def contact_frames(case, seed):
+    node_in, target = contact_batch.make_frames(
+        case["node_in"], case["target"], case["n"], seed)
+    return node_in, target, np.repeat(case["mask"][None], contact_batch.B,
+                                      axis=0)
+
+
+# case name → (its module-scoped fixture, its frames for a seed)
+CASES = {"slice": (slice_test.case, slice_frames),
+         "contact": (contact_test.case, contact_frames)}
+
+
+def main(name="slice", first=0, last=45, nudges=200):
+    fixture, make_frames = CASES[name]
+    case = fixture._get_wrapped_function()()
     hj, ht, jcfg, state, sim = (case[k] for k in
                                 ("hj", "ht", "jcfg", "state", "sim"))
     jtr = JaxTrainer(JaxConfig(model=jcfg), init_key=jax.random.PRNGKey(0))
-    real = hj.levels[0].node_mask[:, 0] > 0
 
     def loss_fn(params, ni, nt, m):
         pred = simulator_forward_auto(params, state.norm_in, state.norm_out,
@@ -77,8 +103,7 @@ def main(first=0, last=45, nudges=200):
 
     misses = []
     for seed in range(first, last + 1):
-        grads_test.FRAME_SEED = seed
-        frames = grads_test.make_frames(case["node_in"], case["mask"], real)
+        frames = make_frames(case, seed)
         want = {k: v.numpy() for k, v in jax_param_grads(jax_grad(
             state.params, *(jnp.asarray(a) for a in frames))).items()}
         at = worst(want, port_grads(*frames, count=True))
@@ -109,4 +134,6 @@ def main(first=0, last=45, nudges=200):
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:]))
+    args = sys.argv[1:]
+    name = args.pop(0) if args and args[0] in CASES else "slice"
+    main(name, *(int(a) for a in args))

@@ -37,6 +37,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_agg_cluster import gather_order_sum
 from test_torch_port_buckets import WINDOW, forced, group
 from test_torch_port_row_gather import grid_normal

@@ -43,6 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_node_fwd_split import emulate
 from test_torch_port_row_gather import grid_normal
 

@@ -6,20 +6,26 @@ depth 3, window 128, edge_block 512, latent 128, hidden 2), at B = 2
 frames drawn from numpy seeds. JAX's Pallas kernels run in interpret mode,
 vmapped over the batch as the JAX package runs them on a consistent mesh.
 
-- Each batched plain version of kernels 1-7 against JAX's vmapped kernel
-  function on one level, at the tolerances of `test_torch_port_kernels.py`
-  (forward) and `test_torch_port_train.py` (backward).
+- Each batched plain version of kernels 1-7 and 14 (`"fused4"`, K = 2)
+  against JAX's vmapped kernel function on one level, at the tolerances
+  of `test_torch_port_kernels.py` (forward) and `test_torch_port_train.py`
+  (backward).
 - Each batched plain version sample by sample equal, bit for bit, to the
   unbatched plain call on that sample (the per-row outputs); the weight
-  gradients of kernels 5 and 6 against the sum of the unbatched calls'.
+  gradients of kernels 5, 6 and 14 against the sum of the unbatched
+  calls'.
 - Every wrapper off the batched path still raises
-  NotImplementedError("batch axis") on a batch.
+  NotImplementedError("batch axis") on a batch; those that took the batch
+  in later slices (kernels 13 and 14, the narrow transition route) return
+  its shape.
 
 The forward, the loss and the gradients at B = 2 are in
 `test_torch_port_batch_grads.py`, the `Trainer` in
-`test_torch_port_batch_train.py`."""
+`test_torch_port_batch_train.py`; the world-edge path (kernel 13) at B in
+`test_torch_port_batch_contact.py`."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,10 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_slice import case  # noqa: F401 (fixture)
 
 from bsms_gnn_tpu.ops.pallas import compact_resid as jax_cr
 from bsms_gnn_tpu.ops.pallas.fused_gmp import fused_edge_phase_win as jax_edge
+from bsms_gnn_tpu.ops.pallas.fused_gmp import fused_edge_phase_win_k as jax_v5
 from bsms_gnn_tpu.ops.pallas.node_mlp import fused_node_phase as jax_node
 from bsms_gnn_tpu.ops.pallas.windowed import (
     windowed_rect_conv_raw,
@@ -205,15 +214,63 @@ def test_edge_phase_batched_matches_jax(case, dt):
     assert_close(got, windowed_send_sum_raw(hj.levels[0], vj), SELECT_TOL[dt])
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_kernel14_batched_matches_jax_v5(case, dt):
+    """Kernel 14 (`fused_edge_phase_win_k`, K = 2, the density gate off:
+    `min_density=0`) and, through the autograd Function, its backward and
+    kernel 7 at level 0 at B = 2 against JAX's v5 at K = 2, which vmaps
+    itself over a batch (`fused_gmp.py:1545-1550`), and its `jax.vjp`;
+    kernel 14's plain versions run, not kernel 4's."""
+    hj, ht = case["hj"], case["ht"]
+    rng = np.random.default_rng(35)
+    xwi, xj, wf8, mj, ws_t, bs_t = edge_args(case, 0, rng, dt)
+    n = ht.levels[0].n_pad_nodes
+    g = rand(rng, B, n, C)
+
+    def f(a, b, w8, ws, bs):
+        return jax_v5(hj.levels[0], a, b, w8, ws, bs, 2, min_density=0)
+
+    args = (both(xwi, dt)[0], both(xj, dt)[0], jnp.asarray(wf8),
+            tuple(mj.weights[1:]), tuple(mj.biases[1:]))
+    y, vjp = jax.vjp(f, *args)
+    dxwi, dxj, dwf8, dws, dbs = vjp(jnp.asarray(g))
+
+    a = both(xwi, dt)[1].requires_grad_()
+    b = both(xj, dt)[1].requires_grad_()
+    w8 = torch.tensor(wf8).requires_grad_()
+    ws = [w.detach().clone().requires_grad_() for w in ws_t]
+    bs = [x.detach().clone().requires_grad_() for x in bs_t]
+    for fn in (fused_gmp_k.fused_edge_phase_win_k_plain,
+               fused_gmp_k.fused_edge_phase_win_k_bwd_plain,
+               fused_gmp.fused_edge_phase_win_plain):
+        fn.calls = 0
+    out = fused_gmp_k.fused_edge_phase_win_k(ht.levels[0], a, b, w8, ws, bs,
+                                             2, min_density=0)
+    assert out.shape == (B, n, C) and out.dtype == torch.float32
+    assert_close(out, y, MLP_TOL[dt], what="aggr")
+    out.backward(torch.tensor(g))
+    assert fused_gmp_k.fused_edge_phase_win_k_plain.calls == 1
+    assert fused_gmp_k.fused_edge_phase_win_k_bwd_plain.calls == 1
+    assert fused_gmp.fused_edge_phase_win_plain.calls == 0
+    tol = KERNEL_TOL[dt]
+    assert a.grad.dtype == a.dtype and b.grad.dtype == b.dtype
+    assert_close(a.grad, dxwi, tol, 1e-30, "dxwi")
+    assert_close(b.grad, dxj, tol, 1e-30, "dxj")
+    assert_close(w8.grad, dwf8, tol, 1e-30, "dwf8")
+    for i, (w, x) in enumerate(zip(ws, bs)):
+        assert_close(w.grad, dws[i], tol, 1e-30, f"dW{i}")
+        assert_close(x.grad, dbs[i], tol, 1e-30, f"db{i}")
+
+
 # -- (b) each batched plain version, sample by sample ----------------------
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 def test_batched_plain_versions_equal_each_sample(case, dt):
-    """Each batched plain version of kernels 1-7 (and the compact gather),
-    sample b bit for bit the unbatched call on sample b, at levels 0 and 1
-    and T0's operators; kernels 5's and 6's weight gradients against the
-    sum of the unbatched calls'."""
+    """Each batched plain version of kernels 1-7 and 14 (and the compact
+    gather), sample b bit for bit the unbatched call on sample b, at levels
+    0 and 1 and T0's operators; kernels 5's, 6's and 14's weight gradients
+    against the sum of the unbatched calls'."""
     ht, sim = case["ht"], case["sim"]
     torch.set_grad_enabled(False)
     try:
@@ -270,13 +327,19 @@ def _plain_versions_per_sample(case, ht, sim, dt):
         eargs = (level, t(xwi), t(xj), torch.tensor(wf8), ws, bs)
         per_sample(fused_gmp.fused_edge_phase_win_plain, *eargs,
                    batched=(1, 2))
+        per_sample(fused_gmp_k.fused_edge_phase_win_k_plain, *eargs, 2,
+                   batched=(1, 2))
         g = torch.tensor(rand(rng, B, n, C))
-        got, ones = per_sample(fused_gmp.fused_edge_phase_win_bwd_plain,
-                               *eargs, g, batched=(1, 2, 6), out=(0, 1))
-        for i in (2, 3, 4):  # dwf8, dW, db: summed over the batch
-            want = sum(o[i] for o in ones)
-            torch.testing.assert_close(got[i], want, rtol=SUM_TOL,
-                                       atol=SUM_TOL * float(want.abs().max()))
+        for bwd in (fused_gmp.fused_edge_phase_win_bwd_plain,
+                    functools.partial(
+                        fused_gmp_k.fused_edge_phase_win_k_bwd_plain, k=2)):
+            got, ones = per_sample(bwd, *eargs, g, batched=(1, 2, 6),
+                                   out=(0, 1))
+            for i in (2, 3, 4):  # dwf8, dW, db: summed over the batch
+                want = sum(o[i] for o in ones)
+                torch.testing.assert_close(
+                    got[i], want, rtol=SUM_TOL,
+                    atol=SUM_TOL * float(want.abs().max()))
         per_sample(windowed.windowed_send_sum_plain, level,
                    t(rand(rng, B, level.n_pad_edges, C)), batched=(1,))
         x, aggr = t(rand(rng, B, n, C)), torch.tensor(rand(rng, B, n, C, s=3.0))
@@ -296,9 +359,11 @@ def _plain_versions_per_sample(case, ht, sim, dt):
 
 def test_off_path_wrappers_refuse_a_batch(case):
     """Every wrapper off the batched path raises
-    NotImplementedError("batch axis") on a [B, ...] input: kernels 8-15,
-    kernel 1's level form, the narrow transition route, the kernel-8
-    transition route, the pallas gathers and the explicit conv."""
+    NotImplementedError("batch axis") on a [B, ...] input: kernels 8-12
+    and 15, kernel 1's level form, the kernel-8 transition route, the
+    pallas gathers and the explicit conv. Kernels 13 and 14 (the autograd
+    entries and kernel 14's forward) and the narrow transition route take
+    the batch: each returns its [B, ...] shape."""
     ht, sim = case["ht"], case["sim"]
     lvl = ht.levels[0]
     n, e = lvl.n_pad_nodes, lvl.n_pad_edges
@@ -323,19 +388,10 @@ def test_off_path_wrappers_refuse_a_batch(case):
             lvl, feat, ws, bs),
         "kernel 12": lambda: fused_gmp_stream.fused_edge_phase(
             lvl, feat, x, ws, bs),
-        "kernel 13": lambda: fused_gmp_dyn.fused_edge_phase_win_dyn(
-            lvl, x, x, torch.zeros(B, n, 3), wf8, torch.zeros(3, C),
-            torch.zeros(C), ws, bs),
-        "kernel 14": lambda: fused_gmp_k.fused_edge_phase_win_k(
-            lvl, x, x, wf8, ws, bs, 2, min_density=0),
-        "kernel 14 forward": lambda: fused_gmp_k.fused_edge_phase_win_k_fwd(
-            lvl, x, x, wf8, ws, bs, 2),
         "kernel 15": lambda: subwin_conv.subwin_conv(
             lvl, x, torch.zeros(e), None, None),
         "kernel 1 level form": lambda: windowed.windowed_conv(lvl, x, lvl.ew),
         "explicit conv": lambda: message.edge_conv_down(lvl, x),
-        "narrow transition": lambda: transition.narrow_apply(
-            op, torch.zeros(B, op.n_in_pad, 3)),
         "kernel-8 transition": lambda: transition._apply(
             unwindowed, torch.zeros(B, op.n_in_pad, C)),
         "gather_send": lambda: scatter.gather_send(lvl, x),
@@ -344,3 +400,17 @@ def test_off_path_wrappers_refuse_a_batch(case):
     for what, call in calls.items():
         with pytest.raises(NotImplementedError, match="batch axis"):
             call()
+    runs = {
+        "kernel 13": (lambda: fused_gmp_dyn.fused_edge_phase_win_dyn(
+            lvl, x, x, torch.zeros(B, n, 3), wf8, torch.zeros(3, C),
+            torch.zeros(C), ws, bs), (B, n, C)),
+        "kernel 14": (lambda: fused_gmp_k.fused_edge_phase_win_k(
+            lvl, x, x, wf8, ws, bs, 2, min_density=0), (B, n, C)),
+        "kernel 14 forward": (lambda: fused_gmp_k.fused_edge_phase_win_k_fwd(
+            lvl, x, x, wf8, ws, bs, 2), (B, n, C)),
+        "narrow transition": (lambda: transition.narrow_apply(
+            op, torch.zeros(B, op.n_in_pad, 3)), (B, op.n_pad_nodes, 3)),
+    }
+    with torch.no_grad():
+        for what, (call, shape) in runs.items():
+            assert call().shape == shape, what

@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_slice import F32_TOL, case  # noqa: F401 (fixture)
 from test_torch_port_train import GRAD_F32_TOL, jax_param_grads
 

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from conftest import make_grid_mesh
 from test_torch_port_batch_grads import make_frames
 from test_torch_port_slice import DEPTH

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_hierarchy import _one_hot_rows, assert_same
 
 from bsms_gnn_tpu.config import DatasetConfig as JaxDatasetConfig

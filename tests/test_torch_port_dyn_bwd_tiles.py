@@ -50,6 +50,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_edge_bwd_tiles import (
     dead_tiles,
     list_order_gather,

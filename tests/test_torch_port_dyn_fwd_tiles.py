@@ -38,6 +38,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_contact import _jax_dyn
 from test_torch_port_dyn_bwd_tiles import (
     FLAG,
@@ -52,11 +54,10 @@ from test_torch_port_edge_bwd_tiles import (
     list_order_gather,
     win_live,
 )
-from test_torch_port_edge_fwd_tiles import walked_tiles
+from test_torch_port_edge_fwd_tiles import slot_messages, walked_tiles
 
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_dyn as fgd
-from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import round_bf16
 
 C = 128
 TR = fg.TILE_ROWS
@@ -115,13 +116,13 @@ def walk_forward(tl, xwi, xj, pos, wf8, wfd, wfn, ws, bs, bf16):
     pre, _, _, _, _ = fgd._edge_pre_dyn(tl, xwi, xj, pos, wf8, wfd, wfn,
                                         bf16)
     live = win_live(tl)
+    msgs = slot_messages(pre, live, ws, bs, bf16)
     msg = torch.full((tl.n_pad_edges, C), float("nan"))
     for t in walked_tiles((~dead_tiles(live)).tolist(),
                           tl.n_pad_edges // TR, 264):
         rows = torch.arange(t * TR, (t + 1) * TR)
         keep = rows[live[rows]]
-        e = fg.mlp_tail_plain(pre[keep], ws, bs, bf16)
-        msg[keep] = round_bf16(e) if bf16 else e
+        msg[keep] = msgs[keep]
     return list_order_gather(tl, msg)
 
 

@@ -41,6 +41,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_fused_stream import _case as stream_case
 from test_torch_port_fused_stream import _tail
 from test_torch_port_row_gather import grid_normal
@@ -271,17 +273,29 @@ def walk_sum(n_slots, live, grid, tile_term):
     return total
 
 
+def ordered_row_sums(ptr, slots, rows):
+    """out[n] = (((0 + rows[s_0]) + rows[s_1]) + ...) over row n's slots
+    slots[ptr[n]:ptr[n + 1]], in list order, f32. Step j adds every row's
+    j-th slot at once; a row whose list has ended adds a zero row, which
+    leaves its sum's bits as they are (a sum from +0 is never -0)."""
+    ptr = torch.as_tensor(ptr).long()
+    lens = ptr[1:] - ptr[:-1]
+    out = torch.zeros(len(lens), rows.shape[-1])
+    if len(slots) == 0:
+        return out
+    rows = torch.cat([rows.float(), rows.new_zeros(1, rows.shape[-1]).float()])
+    zero = rows.shape[0] - 1
+    for j in range(int(lens.max())):
+        at = (ptr[:-1] + j).clamp(max=len(slots) - 1)
+        out = out + rows[torch.where(j < lens, slots[at], zero)]
+    return out
+
+
 def list_order_gather(level, dpre):
     """dxj[n] = Σ dpre[e] over receiver row n's `win_row_slots`, in list
     order."""
-    ptr, slots = level.win_row_ptr.tolist(), level.win_row_slots.long()
-    out = torch.zeros(level.n_pad_nodes, dpre.shape[-1])
-    for r in range(level.n_pad_nodes):
-        acc = torch.zeros(dpre.shape[-1])
-        for s in slots[ptr[r]:ptr[r + 1]].tolist():
-            acc = acc + dpre[s]
-        out[r] = acc
-    return out
+    return ordered_row_sums(level.win_row_ptr, level.win_row_slots.long(),
+                            dpre)
 
 
 def assert_plain_close(got, want, what):

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_edge_bwd_tiles import dead_tiles, list_order_gather
 from test_torch_port_hierarchy import _one_hot_rows
 from test_torch_port_row_gather import grid_normal
@@ -131,6 +133,17 @@ def inputs(name, seed=9):
     return xwi, xj, wf8, ws, bs
 
 
+def slot_messages(pre, live, ws, bs, bf16):
+    """Each live slot's message (the LN output of the tail on its
+    pre-activation, rounded to bf16 in bf16 mode), every other row NaN. A
+    message does not depend on the tile that computes it, so the walks'
+    emulations take them from here, computed once."""
+    out = torch.full(pre.shape, float("nan"))
+    e = fg.mlp_tail_plain(pre[live], ws, bs, bf16)
+    out[live] = round_bf16(e) if bf16 else e
+    return out
+
+
 def walk_forward(tl, xwi, xj, wf8, ws, bs, bf16):
     """The walk's function in its order: each live tile's live slots'
     messages (the LN output, rounded to bf16 in bf16 mode) into msg, every
@@ -139,10 +152,7 @@ def walk_forward(tl, xwi, xj, wf8, ws, bs, bf16):
     live = kernel4_live(tl)
     keep = live & ~dead_tiles(live).repeat_interleave(TR)
     assert torch.equal(keep, live)
-    msg = torch.full((tl.n_pad_edges, C), float("nan"))
-    e = fg.mlp_tail_plain(pre[keep], ws, bs, bf16)
-    msg[keep] = round_bf16(e) if bf16 else e
-    return list_order_gather(tl, msg)
+    return list_order_gather(tl, slot_messages(pre, keep, ws, bs, bf16))
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

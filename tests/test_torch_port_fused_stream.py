@@ -42,6 +42,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_hierarchy import scrambled_grid
 from test_torch_port_pallas import sparse_t0
 from test_torch_port_train import assert_close, leaf

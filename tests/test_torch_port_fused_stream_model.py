@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_fused_stream import (  # noqa: F401 (fixture)
     BF16_REL,
     DEPTH,

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from conftest import make_grid_mesh
 
 from bsms_gnn_tpu.data.synthetic import make_graded_airfoil_mesh as jax_airfoil

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from bsms_gnn_tpu.data.synthetic import make_graded_airfoil_mesh as jax_airfoil
 from bsms_gnn_tpu.graph.hierarchy import build_hierarchy as jax_build
 from bsms_gnn_tpu.graph.mesh import to_flat_edge as jax_flat_edge

@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_interleave_model import METHODS, case, jcfg  # noqa: F401
 from test_torch_port_train import GRAD_F32_TOL, jax_param_grads
 

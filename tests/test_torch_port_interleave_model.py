@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_interleave import DEPTH, airfoil
 from test_torch_port_slice import F32_TOL
 from test_torch_port_weights import jax_state_with_stats, port_simulator

@@ -31,14 +31,19 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_edge_bwd_tiles import dead_tiles, list_order_gather
-from test_torch_port_edge_fwd_tiles import kernel4_live, walked_tiles
+from test_torch_port_edge_fwd_tiles import (
+    kernel4_live,
+    slot_messages,
+    walked_tiles,
+)
 from test_torch_port_interleave import airfoil
 
 from bsms_gnn_tpu.ops.pallas.fused_gmp import fused_edge_phase_win_k as jax_v5
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_k as fgk
-from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import round_bf16
 
 C = 128
 TR = fg.TILE_ROWS
@@ -118,13 +123,13 @@ def walk_forward(tl, xwi, xj, wf8, ws, bs, bf16):
     every other row NaN (never written); then the list-order gather."""
     pre, _, _ = fg._edge_pre(tl, xwi, xj, wf8, bf16)
     live = kernel4_live(tl)
+    msgs = slot_messages(pre, live, ws, bs, bf16)
     msg = torch.full((tl.n_pad_edges, C), float("nan"))
     for t in walked_tiles((~dead_tiles(live)).tolist(),
                           tl.n_pad_edges // TR, 264):
         rows = torch.arange(t * TR, (t + 1) * TR)
         keep = rows[live[rows]]
-        e = fg.mlp_tail_plain(pre[keep], ws, bs, bf16)
-        msg[keep] = round_bf16(e) if bf16 else e
+        msg[keep] = msgs[keep]
     return list_order_gather(tl, msg)
 
 

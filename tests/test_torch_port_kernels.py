@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_slice import DEPTH
 from test_torch_port_weights import jax_state_with_stats, port_simulator, small_configs
 from test_torch_port_hierarchy import scrambled_grid

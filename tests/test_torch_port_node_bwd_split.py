@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from bsms_gnn_tpu.ops.dense import MLPParams
 from bsms_gnn_tpu.ops.pallas.node_mlp import fused_node_phase as jax_node
 from bsms_gnn_tpu_torch.ops.kernels import node_mlp

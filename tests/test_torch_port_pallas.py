@@ -3,7 +3,8 @@
 (interpret mode), the edge gathers' and the unwindowed transitions'
 backwards, the world-edge GMP, the inflating-surface simulator forward in
 f32 (with taps) and bf16, rollout, every f32 gradient against
-`jax.value_and_grad`, and `Trainer` against the JAX `Trainer`. The JAX
+`jax.value_and_grad`, and `Trainer` against the JAX `Trainer` (on JAX's
+plain `segment` aggregation). The JAX
 weights reach the port through `convert.params_from_numpy` unchanged: the
 world-edge layout needs nothing new there.
 
@@ -35,6 +36,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import torch_threads  # noqa: F401 (the worker's share of the cores)
 
 from test_torch_port_train import assert_close, both, jax_param_grads, leaf
 from test_torch_port_weights import (
@@ -449,14 +452,18 @@ def test_trainer_matches_jax_trainer(case, frames):
     """accumulation_steps=2 (the warmup gate), then 3 updates, both fed
     the same noise draw each step (the inflating-font noise, σ = 0.003 on
     the world positions): per-step losses, normalizer states after the
-    gate, and each tensor's update."""
+    gate, and each tensor's update. JAX's trainer runs its plain `segment`
+    aggregation (no Pallas kernel): kernels 8 and 10's plain versions are
+    held against JAX's interpret-mode kernels in the loss-and-gradient
+    test above."""
     hj, ht, jcfg = case["hj"], case["ht"], case["jcfg"]
     (node_in, target), mask = frames, case["mask"]
     opt_kw = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=6)
     tcfg = inflating_font_config(unet_depth=DEPTH, hidden_layer=HIDDEN,
                                  accumulation_steps=2)
     jtr = JaxTrainer(JaxConfig(
-        model=dataclasses.replace(jcfg, accumulation_steps=2),
+        model=dataclasses.replace(jcfg, accumulation_steps=2,
+                                  aggregation="segment"),
         datasets=JaxDatasetConfig(
             noise_level=list(tcfg.datasets.noise_level),
             noise_gamma=tcfg.datasets.noise_gamma),

@@ -37,6 +37,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_window_gather import (
     _assert_equal_to,
     _check_lists,

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from conftest import make_grid_mesh
 from test_torch_port_weights import (
     jax_state_with_stats,

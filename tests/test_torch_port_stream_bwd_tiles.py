@@ -46,7 +46,14 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_edge_bwd_tiles import dead_tiles, per_slot_terms, walk_sum
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
+from test_torch_port_edge_bwd_tiles import (
+    dead_tiles,
+    ordered_row_sums,
+    per_slot_terms,
+    walk_sum,
+)
 from test_torch_port_train import assert_close
 
 from bsms_gnn_tpu.data.synthetic import make_graded_airfoil_mesh as jax_airfoil
@@ -153,14 +160,7 @@ def live_slots(tl):
 def list_order_gather(tl, rows):
     """dxj[n] = Σ rows[e] over receiver row n's `row_slots`, in list
     order, f32."""
-    ptr, slots = tl.row_ptr.tolist(), tl.row_slots.long()
-    out = torch.zeros(tl.n_pad_nodes, C)
-    for r in range(tl.n_pad_nodes):
-        acc = torch.zeros(C)
-        for s in slots[ptr[r]:ptr[r + 1]].tolist():
-            acc = acc + rows[s].float()
-        out[r] = acc
-    return out
+    return ordered_row_sums(tl.row_ptr, tl.row_slots.long(), rows)
 
 
 # -- (a) ---------------------------------------------------------------------

@@ -49,9 +49,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_dyn_bwd_tiles import level as flag_level
 from test_torch_port_edge_bwd_tiles import dead_tiles
-from test_torch_port_edge_fwd_tiles import walked_tiles
+from test_torch_port_edge_fwd_tiles import slot_messages, walked_tiles
 from test_torch_port_stream_bwd_tiles import (
     RELU_MARGIN,
     list_order_gather,
@@ -66,7 +68,7 @@ from bsms_gnn_tpu.ops.pallas.fused_gmp import (
 from bsms_gnn_tpu.ops.pallas.fused_gmp import fused_edge_phase as jax_v2
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
 from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_stream as fgs
-from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import round_bf16, tile_ranges
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import tile_ranges
 
 C, LAYERS = 128, 3
 TR = fg.TILE_ROWS
@@ -231,13 +233,13 @@ def walk_forward(tl, src, xj, ws, bs, bf16, grid):
     live slots into msg, every other row NaN (never written); then the
     list-order gather over the receiver lists."""
     pre, _, inb = fgs._stream_pre(tl, src, xj)
+    msgs = slot_messages(pre, inb, ws, bs, bf16)
     msg = torch.full((tl.n_pad_edges, C), float("nan"))
     for t in walked_tiles(live_tiles(tl).tolist(), tl.n_pad_edges // TR,
                           grid):
         rows = torch.arange(t * TR, (t + 1) * TR)
         keep = rows[inb[rows]]
-        e = fg.mlp_tail_plain(pre[keep], ws, bs, bf16)
-        msg[keep] = round_bf16(e) if bf16 else e
+        msg[keep] = msgs[keep]
     return list_order_gather(tl, msg)
 
 

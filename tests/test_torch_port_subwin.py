@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_interleave import NODES, airfoil
 from test_torch_port_kernels import SELECT_TOL, assert_close, both
 

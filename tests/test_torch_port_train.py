@@ -7,7 +7,8 @@ optax.
 
 The case is `test_torch_port_slice.py`'s: a 24×24 grid with scrambled ids,
 depth 3, window 128, edge_block 512, latent 128, hidden 2. The JAX side
-runs its Pallas kernels in interpret mode.
+runs its Pallas kernels in interpret mode, but for the trainer, which
+runs JAX's plain `segment` aggregation.
 
 Tolerances, each relative to the scale of the reference value:
 - f32 kernels (`KERNEL_TOL`): both sides compute in true f32 and differ in
@@ -36,6 +37,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+
+import torch_threads  # noqa: F401 (the worker's share of the cores)
 
 from test_torch_port_slice import DEPTH, case  # noqa: F401 (fixture)
 from test_torch_port_weights import jax_to_nested, normalizer_to_dict
@@ -319,13 +322,17 @@ def test_trainer_matches_jax_trainer(case, frame):
     """accumulation_steps=2 (the warmup gate), then 3 updates at a
     warmup-cosine rate, both fed the same noise draw each step: the
     per-step losses, the normalizer states after the gate and the
-    parameters after the last update."""
+    parameters after the last update. JAX's trainer runs its plain
+    `segment` aggregation (no Pallas kernel, a compile of ~5 s against
+    ~25 s in interpret mode): the port's kernels' plain versions are held
+    against JAX's interpret-mode kernels in the loss-and-gradient test
+    above."""
     hj, ht, jcfg = case["hj"], case["ht"], case["jcfg"]
     (node_in, target), mask = frame, case["mask"]
     opt_kw = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=6)
     jtr = JaxTrainer(JaxConfig(model=dataclasses.replace(
-        jcfg, accumulation_steps=2), opt=JaxOptConfig(**opt_kw)),
-        init_key=jax.random.PRNGKey(3))
+        jcfg, accumulation_steps=2, aggregation="segment"),
+        opt=JaxOptConfig(**opt_kw)), init_key=jax.random.PRNGKey(3))
     tcfg = ModelConfig(latent_dim=128, hidden_layer=jcfg.hidden_layer,
                        unet_depth=DEPTH, accumulation_steps=2)
     ttr = Trainer(Config(model=tcfg), OptConfig(**opt_kw), device="cpu")

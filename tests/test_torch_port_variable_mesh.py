@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_buckets import WINDOW, group
 from test_torch_port_train import assert_close, leaf
 from test_torch_port_weights import (

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_buckets import WINDOW
 from test_torch_port_train import jax_param_grads
 from test_torch_port_variable_mesh import frames, model

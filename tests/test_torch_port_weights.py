@@ -8,6 +8,8 @@ import jax
 import numpy as np
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from bsms_gnn_tpu.config import ModelConfig as JaxModelConfig
 from bsms_gnn_tpu.models.normalizer import normalizer_accumulate
 from bsms_gnn_tpu.models.simulator import SimulatorState, init_simulator

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401 (the worker's share of the cores)
+
 from test_torch_port_buckets import WINDOW, _tail_chunks, group
 from test_torch_port_hierarchy import _one_hot_rows
 from test_torch_port_interleave import airfoil
