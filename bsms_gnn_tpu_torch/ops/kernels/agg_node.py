@@ -58,6 +58,18 @@ The backward (`agg_node.py:207-222`) launches no kernel of its own: it sums
 the aggregate again with kernel 8 (remat, as on the TPU), runs kernel 6
 (`node_mlp.py::fused_node_phase_bwd`) and gathers d_aggr by receivers for
 the edge rows' cotangent.
+
+The batch axis (a shared mesh: feat [B, E_pad, 128], x [B, N_pad, 128]),
+as JAX vmaps its kernel (`agg_node.py:225`): one launch whose tiles walk
+the batch's B·N_pad rows, tile t of sample ⌊t / tiles per sample⌋ (N_pad
+is a multiple of 128, so no tile straddles two samples), summing its rows'
+lists from its sample's edge rows. `tile_design` decides on the B·N_pad
+rows the launch runs, so at B = 16 a deep level of the 16k surface
+moves from the cluster to the one-block tile; both do kernel 3's
+arithmetic, so each sample's output is still the bits of kernel 3 on
+kernel 8's aggregate, and of a call on that sample alone. The backward
+runs kernel 8 and kernel 6 at B and gathers d_aggr on dim -2; the plain
+version works on the leading dims.
 """
 
 from __future__ import annotations
@@ -77,7 +89,7 @@ from bsms_gnn_tpu_torch.ops.kernels.segment_sum import (
     segment_sum_raw,
 )
 
-_SIG = [build.P] * 3 + [build.I] + [build.P] * 6 + [build.I] * 3 + [build.P]
+_SIG = [build.P] * 3 + [build.I] + [build.P] * 6 + [build.I] * 5 + [build.P]
 # The kernel's tiles, by name: the C entries' `tile` and the tile's rows.
 TILES = {"block 64": (0, 64), "block 16": (1, 16), "cluster 16": (2, 16)}
 # (x dtype, bf16 compute) → (C entry, the edge rows' dtype).
@@ -89,19 +101,18 @@ _FN = {(torch.float32, False): ("fused_aggregate_node_phase_f32", torch.float32)
 
 
 def _check(level, feat, x, mlp, compute_dtype):
-    if x.dim() != 2 or feat.dim() != 2:
-        raise NotImplementedError("batch axis")
-    if x.shape[0] != level.n_pad_nodes:
-        raise ValueError(f"x rows {x.shape[0]} != N_pad {level.n_pad_nodes}")
-    if feat.shape != (level.n_pad_edges, x.shape[1]):
-        raise ValueError(f"feat {tuple(feat.shape)} != "
-                         f"({level.n_pad_edges}, {x.shape[1]})")
+    build.check_batch(x, True)
+    if x.shape[-2] != level.n_pad_nodes:
+        raise ValueError(f"x rows {x.shape[-2]} != N_pad {level.n_pad_nodes}")
+    want = (*x.shape[:-2], level.n_pad_edges, x.shape[-1])
+    if feat.shape != want:
+        raise ValueError(f"feat {tuple(feat.shape)} != {want}")
     _check_node(x, None, mlp, compute_dtype)
 
 
 def tile_design(n_rows: int, sms: int) -> str:
-    """The tile (a key of TILES) of a level of n_rows rows on a card of
-    `sms` SMs: the cluster where its 16-row tiles give at most two CTAs per
+    """The tile (a key of TILES) of a launch over n_rows rows (a level's
+    N_pad, or a batch's B·N_pad) on a card of `sms` SMs: the cluster where its 16-row tiles give at most two CTAs per
     SM; else the one-block tile, 64 rows where those tiles cover at least
     three quarters of the SMs, else 16 (see the module note)."""
     if n_rows // 16 * CLUSTER <= 2 * sms:
@@ -121,9 +132,10 @@ fused_aggregate_node_phase_plain.calls = 0
 
 
 def fused_aggregate_node_phase_fwd(level, feat, x, mlp, compute_dtype=None):
-    """node_mlp([x, Σ_recv feat]) + x, no autograd. `mlp` is the GMP's node
-    MLP (weights stored [in, out]). CPU tensors take the plain version;
-    CUDA tensors launch kernel 10."""
+    """node_mlp([x, Σ_recv feat]) + x, no autograd, on one sample or a
+    batch [B, ...] (one launch). `mlp` is the GMP's node MLP (weights
+    stored [in, out]). CPU tensors take the plain version; CUDA tensors
+    launch kernel 10."""
     _check(level, feat, x, mlp, compute_dtype)
     if x.device.type == "cpu":
         return fused_aggregate_node_phase_plain(level, feat, x, mlp,
@@ -145,13 +157,14 @@ def fused_aggregate_node_phase_fwd(level, feat, x, mlp, compute_dtype=None):
     b_stack = build.stacked(bs[1:])
     feat, x = feat.contiguous(), x.contiguous()
     out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)
-    n = x.shape[0]
+    n_batch = x.shape[0] if x.dim() == 3 else 1
+    n = level.n_pad_nodes
     err = getattr(lib, fn)(
         feat.data_ptr(), level.row_ptr.data_ptr(), level.row_slots.data_ptr(),
         GATHER_PIECE, x.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(), len(ws) - 1,
-        n, TILES[tile_design(n, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)][0],
+        n, TILES[tile_design(n_batch * n, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)][0], n_batch, level.n_pad_edges,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_aggregate_node_phase")
@@ -181,7 +194,7 @@ class _AggNode(torch.autograd.Function):
         aggr = segment_sum_raw(level, feat)
         dx, daggr, dwa, dwb, db0, dw, db = fused_node_phase_bwd(
             x, aggr, ctx.mlp, g, ctx.compute_dtype)
-        d_feat = daggr.index_select(0, level.receivers).to(feat.dtype)
+        d_feat = daggr.index_select(-2, level.receivers).to(feat.dtype)
         grads = ([torch.cat([dwa, dwb])] + list(dw.unbind(0))
                  + [db0] + list(db.unbind(0)))
         return (None, None, None, d_feat, dx,
@@ -191,7 +204,7 @@ class _AggNode(torch.autograd.Function):
 def fused_aggregate_node_phase(level, feat, x, mlp, compute_dtype=None):
     """node_mlp([x, Σ_recv feat]) + x, differentiable in feat, x and the
     node MLP's weights and biases. feat: [E_pad, 128] edge rows (bf16 in
-    bf16 compute); x: [N_pad, 128]."""
+    bf16 compute); x: [N_pad, 128]; or a batch of both, [B, ...]."""
     _check(level, feat, x, mlp, compute_dtype)
     return _AggNode.apply(level, mlp, compute_dtype, feat, x, *mlp.weights,
                           *mlp.biases)

@@ -27,6 +27,13 @@
 //   walked by four times the warps: the deep levels, few rows with long
 //   lists (on the 16k surface, levels 4-7: 1,024 to 128 rows, up to 183
 //   slots), where one block per tile leaves most SMs idle.
+// A batch over the one layout (feat [n_batch][e_pad][C], x and out
+// [n_batch][n_rows][C]) is one launch over the batch's n_batch·n_rows rows:
+// tile t belongs to sample ⌊t / tiles per sample⌋ (n_rows is a multiple of
+// every tile's rows, so no tile straddles two samples), sums its rows'
+// lists (rows r − s·n_rows of the layout) from that sample's edge rows,
+// s·e_pad·C elements in, and reads x and writes out at its own rows: each
+// sample's output is the bits of a call on that sample alone.
 #include "node_cluster_fwd.cuh"
 #include "node_phase.cuh"
 #include "row_gather.cuh"
@@ -72,6 +79,18 @@ __device__ __forceinline__ void sum_rows(
   }
 }
 
+// The sample of the batch's row `row` (of n_rows rows a sample; the batch's
+// rows fit an int, as the launch checks): its edge rows (e_stride elements
+// a sample) and the row's index in the layout.
+template <typename TF>
+__device__ __forceinline__ const TF* sample_feat(const TF* feat, size_t row,
+                                                 int n_rows, size_t e_stride,
+                                                 size_t& first) {
+  const int s = (int)row / n_rows;
+  first = row - (size_t)s * n_rows;
+  return feat + s * e_stride;
+}
+
 // The one-block tile: 8·R rows, warp w summing rows w, w + 8, ...
 template <typename TF, typename TX, typename TO, bool BF16, int R>
 __global__ void __launch_bounds__(THREADS)
@@ -80,12 +99,14 @@ fused_aggregate_node_phase_block_kernel(
     const int* __restrict__ row_slots, int piece, const TX* __restrict__ x,
     const float* __restrict__ W0, const float* __restrict__ b0,
     const float* __restrict__ W, const float* __restrict__ B, int n_layers,
-    TO* __restrict__ out) {
+    TO* __restrict__ out, int n_rows, size_t e_stride) {
   extern __shared__ float4 smem4[];
   const size_t row0 = (size_t)blockIdx.x * 8 * R;
+  size_t first;
+  const TF* feat_s = sample_feat(feat, row0, n_rows, e_stride, first);
   auto fill_aggr = [&](float* tile) {
-    sum_rows<BF16, THREADS / 32>(feat, row_ptr, row_slots, row0, 8 * R, piece,
-                                 tile);
+    sum_rows<BF16, THREADS / 32>(feat_s, row_ptr, row_slots, first, 8 * R,
+                                 piece, tile);
   };
   node_phase_tile<TX, TO, BF16, R>(x, fill_aggr, W0, b0, W, B, n_layers, out,
                                    row0, reinterpret_cast<float*>(smem4));
@@ -93,18 +114,22 @@ fused_aggregate_node_phase_block_kernel(
 
 // The cluster's aggregate front (node_phase_fwd's `aggr`) on TR-row tiles:
 // CTA q sums rows [q·TR/CL, (q+1)·TR/CL) of its tile, warp w rows w, w +
-// 4, ... of those, into its quarter.
+// 4, ... of those, into its quarter, from the tile's sample's edge rows.
 template <typename TF>
 struct AggrSum {
   const TF* __restrict__ feat;
   const int* __restrict__ row_ptr;
   const int* __restrict__ slots;
   int piece;
+  int n_rows;       // rows a sample
+  size_t e_stride;  // edge-row elements a sample
 
   template <bool BF16, int TR>
   __device__ __forceinline__ void start(int q, size_t row0,
                                         float* quarter) const {
-    sum_rows<BF16, NT3 / 32>(feat, row_ptr, slots, row0 + q * (TR / CL),
+    size_t first;
+    const TF* feat_s = sample_feat(feat, row0, n_rows, e_stride, first);
+    sum_rows<BF16, NT3 / 32>(feat_s, row_ptr, slots, first + q * (TR / CL),
                              TR / CL, piece, quarter);
     cluster_arrive();  // the quarter is written
   }
@@ -125,11 +150,11 @@ fused_aggregate_node_phase_cluster_kernel(
     const int* __restrict__ row_slots, int piece, const TX* __restrict__ x,
     const float* __restrict__ W0, const float* __restrict__ b0,
     const float* __restrict__ W, const float* __restrict__ B, int n_layers,
-    TO* __restrict__ out) {
+    TO* __restrict__ out, int n_rows, size_t e_stride) {
   extern __shared__ float4 smem4[];
   node_phase_fwd<TX, TO, BF16, CLUSTER_RT>(
-      x, AggrSum<TF>{feat, row_ptr, row_slots, piece}, W0, b0, W, B,
-      n_layers, out, reinterpret_cast<float*>(smem4));
+      x, AggrSum<TF>{feat, row_ptr, row_slots, piece, n_rows, e_stride}, W0,
+      b0, W, B, n_layers, out, reinterpret_cast<float*>(smem4));
 }
 
 // Launches KERNEL on `blocks` blocks of `threads` with `smem` bytes of
@@ -138,46 +163,50 @@ template <typename TF, typename TX, typename TO, auto KERNEL>
 int launch_on(int blocks, int threads, size_t smem, const void* feat,
               const void* row_ptr, const void* row_slots, int piece,
               const void* x, const void* W0, const void* b0, const void* W,
-              const void* B, void* out, int n_layers, void* stream) {
+              const void* B, void* out, int n_layers, int n_rows,
+              size_t e_stride, void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   KERNEL<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const TF*)feat, (const int*)row_ptr, (const int*)row_slots, piece,
       (const TX*)x, (const float*)W0, (const float*)b0, (const float*)W,
-      (const float*)B, n_layers, (TO*)out);
+      (const float*)B, n_layers, (TO*)out, n_rows, e_stride);
   return (int)cudaGetLastError();
 }
 
 // tile: 0 / 1 the one-block 64- / 16-row tile, 2 the cluster on 16-row
-// tiles (agg_node.TILES).
+// tiles (agg_node.TILES). n_rows rows and e_pad edge rows a sample, n_batch
+// samples.
 template <typename TF, typename TX, typename TO, bool BF16>
 int launch(const void* feat, const void* row_ptr, const void* row_slots,
            int piece, const void* x, const void* W0, const void* b0,
            const void* W, const void* B, void* out, int n_layers, int n_rows,
-           int tile, void* stream) {
+           int tile, int n_batch, int e_pad, void* stream) {
   constexpr int ROWS[3] = {64, 16, RG * CLUSTER_RT};
   if (tile < 0 || tile > 2 || n_layers < 1 || piece < 1 || n_rows < 1 ||
-      n_rows % ROWS[tile])
+      n_rows % ROWS[tile] || n_batch < 1 || e_pad < 1 ||
+      (long long)n_batch * n_rows > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const int tiles = n_rows / ROWS[tile];
+  const int tiles = n_batch * (n_rows / ROWS[tile]);
+  const size_t e_stride = (size_t)e_pad * C;
   if (tile == 0)
     return launch_on<TF, TX, TO,
                      fused_aggregate_node_phase_block_kernel<TF, TX, TO,
                                                              BF16, 8>>(
         tiles, THREADS, node_phase_smem<8>(), feat, row_ptr, row_slots, piece,
-        x, W0, b0, W, B, out, n_layers, stream);
+        x, W0, b0, W, B, out, n_layers, n_rows, e_stride, stream);
   if (tile == 1)
     return launch_on<TF, TX, TO,
                      fused_aggregate_node_phase_block_kernel<TF, TX, TO,
                                                              BF16, 2>>(
         tiles, THREADS, node_phase_smem<2>(), feat, row_ptr, row_slots, piece,
-        x, W0, b0, W, B, out, n_layers, stream);
+        x, W0, b0, W, B, out, n_layers, n_rows, e_stride, stream);
   return launch_on<TF, TX, TO,
                    fused_aggregate_node_phase_cluster_kernel<TF, TX, TO,
                                                              BF16>>(
       tiles * CL, NT3, fwd_smem_bytes<CLUSTER_RT>(), feat, row_ptr, row_slots,
-      piece, x, W0, b0, W, B, out, n_layers, stream);
+      piece, x, W0, b0, W, B, out, n_layers, n_rows, e_stride, stream);
 }
 
 }  // namespace
@@ -187,10 +216,10 @@ int launch(const void* feat, const void* row_ptr, const void* row_slots,
                       const void* row_slots, int piece, const void* x,       \
                       const void* W0, const void* b0, const void* W,         \
                       const void* B, void* out, int n_layers, int n_rows,    \
-                      int tile, void* stream) {                              \
+                      int tile, int n_batch, int e_pad, void* stream) {      \
     return launch<TF, TX, TO, BF16>(feat, row_ptr, row_slots, piece, x, W0,  \
                                     b0, W, B, out, n_layers, n_rows, tile,   \
-                                    stream);                                 \
+                                    n_batch, e_pad, stream);                 \
   }
 
 // f32 compute; bf16 compute on bf16 x; bf16 compute on f32 x (the level-0

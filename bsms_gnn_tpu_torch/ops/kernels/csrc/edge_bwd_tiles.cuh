@@ -47,7 +47,9 @@
 //   t mod T of sample ⌊t / T⌋, in the same ranges [⌊b·BT/G⌋,
 //   ⌊(b+1)·BT/G⌋): still G partials, each block summing every sample's
 //   tiles of its range into its own, and a sample's dpre the bits of a call
-//   on that sample alone. The kStream entries pass B = 1.
+//   on that sample alone. Kernels 11's and 12's backwards (kStream) take
+//   it the same way, each sample's streamed rows src [E_pad][C] e_stride
+//   elements after the last's.
 // - The tail weights' 64-row slabs are double-buffered with cp.async: the
 //   next slab loads while the current one is used, one barrier per slab,
 //   and each GEMM's last slab step issues the next GEMM's first slab. In
@@ -408,8 +410,9 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 // pre-activation (kernel 11, xj null) or its sender half zi (kernel 12,
 // with the receiver transform xj). W and WT are the tail's stacks (bf16
 // values in BF16 mode), gpart G partials of grad_size floats. With n_batch
-// samples (kWin, kDyn), sample s's xwi, xj and g start s·x_stride elements
-// in, its dpre s·e_stride, its positions (kDyn) s·p_stride.
+// samples, sample s's xj, g and (kWin, kDyn) src start s·x_stride elements
+// in, its dpre and (kStream) src s·e_stride, its positions (kDyn)
+// s·p_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ src,
@@ -478,7 +481,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
 
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's
     // input, the LayerNorm output into d.
-    tile_front<T, BF16, F>(t0, src + smp * x_stride,
+    tile_front<T, BF16, F>(t0, src + smp * (WIN ? x_stride : e_stride),
                            xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
                            s_row, s_recv, hs, dyn);
     for (int l = 0; l < n_layers; ++l) {

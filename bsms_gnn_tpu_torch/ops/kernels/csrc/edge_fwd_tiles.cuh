@@ -52,9 +52,10 @@
 //   mesh: xwi, xj [B][n_pad][C], msg [B][E_pad][C]) walks B·T tiles in the
 //   same stride order, tile t being tile t mod T of sample ⌊t / T⌋: the
 //   grid stays the card's fill, and a sample's messages are the bits of a
-//   call on that sample alone. Kernels 4 and 14 (kWin) and 13 (kDyn, each
-//   sample's positions p_stride elements after the last's) take it; the
-//   kStream entries pass B = 1.
+//   call on that sample alone. Kernels 4 and 14 (kWin), 13 (kDyn, each
+//   sample's positions p_stride elements after the last's) and 11 and 12
+//   (kStream, each sample's streamed rows src [E_pad][C] e_stride
+//   elements after the last's, its xj x_stride) take it.
 // - One TR×C tile and two slabs take about 97 KB of shared memory (kWin 6
 //   KB more: the fiber weights and stream; kDyn 3.75 KB more again: wf_dyn,
 //   wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit on an SM: one block's
@@ -99,9 +100,9 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // streamed rows src [E_pad][C] (pre, or zi with the receiver transform xj;
 // xj null for kernel 11), no fiber, window or positions. W the tail's stack
 // (bf16 values in BF16 mode), B its biases; msg [E_pad][C] in the
-// activations' type, written on live slots only. With n_batch samples
-// (kWin, kDyn), sample s's xwi and xj start s·x_stride elements in, its msg
-// s·e_stride, its positions (kDyn) s·p_stride.
+// activations' type, written on live slots only. With n_batch samples,
+// sample s's xj and (kWin, kDyn) xwi start s·x_stride elements in, its msg
+// and (kStream) src s·e_stride, its positions (kDyn) s·p_stride.
 template <typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
@@ -150,7 +151,7 @@ __device__ __forceinline__ void edge_fwd_tiles(
                                 receivers, chunk_block, e_pad, window, s_row,
                                 s_recv, s_loc, fib, dyn))
       continue;  // a dead tile: no message of it is listed
-    tile_front<T, BF16, F>(t0, xwi + smp * x_stride,
+    tile_front<T, BF16, F>(t0, xwi + smp * (WIN ? x_stride : e_stride),
                            xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
                            s_row, s_recv, h, dyn);
     T* msg_s = msg + smp * e_stride;

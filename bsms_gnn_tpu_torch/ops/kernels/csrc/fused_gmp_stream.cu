@@ -13,7 +13,12 @@
 // lists (`row_ptr`, `row_slots`, `row_long`: exactly the live slots, in
 // slot order, the last block's pad slots on row n_pad − 1). No chunk part
 // and no block sum. Each has its own kernel name, so the profiler and the
-// launch counters tell them apart from kernel 4.
+// launch counters tell them apart from kernel 4. A batch over the one level
+// (src [B][E_pad][C], xj [B][n_pad][C]; msg [B][E_pad][C], out
+// [B][n_pad][C]) is one launch of each: the walk over B·T tiles, each
+// sample's streamed rows e_stride = E_pad·C elements after the last's and
+// its xj x_stride = n_pad·C, then the gather with the batch as its grid's y
+// extent (msg moving by e_stride, out by x_stride).
 #include "edge_fwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -30,10 +35,13 @@ fused_edge_phase_kernel(const T* __restrict__ zi, const T* __restrict__ xj,
                         const float* __restrict__ B, int n_layers,
                         const int* __restrict__ receivers,
                         const int* __restrict__ chunk_block, int n_tiles,
-                        int e_pad, int edge_block, T* __restrict__ msg) {
+                        int e_pad, int edge_block, T* __restrict__ msg,
+                        int n_batch, size_t x_stride, size_t e_stride) {
   tiles::edge_fwd_tiles<T, BF16, F>(nullptr, zi, xj, nullptr, W, B, n_layers,
                                     nullptr, nullptr, receivers, chunk_block,
-                                    n_tiles, e_pad, edge_block, 0, msg);
+                                    n_tiles, e_pad, edge_block, 0, msg,
+                                    nullptr, nullptr, nullptr, 0, n_batch,
+                                    x_stride, e_stride);
 }
 
 // xj is always null here: the signature is kernel 12's, so that one launcher
@@ -47,11 +55,13 @@ fused_edge_mlp_aggregate_kernel(const T* __restrict__ pre,
                                 const int* __restrict__ receivers,
                                 const int* __restrict__ chunk_block,
                                 int n_tiles, int e_pad, int edge_block,
-                                T* __restrict__ msg) {
+                                T* __restrict__ msg, int n_batch,
+                                size_t x_stride, size_t e_stride) {
   tiles::edge_fwd_tiles<T, BF16, F>(nullptr, pre, nullptr, nullptr, W, B,
                                     n_layers, nullptr, nullptr, receivers,
                                     chunk_block, n_tiles, e_pad, edge_block,
-                                    0, msg);
+                                    0, msg, nullptr, nullptr, nullptr, 0,
+                                    n_batch, x_stride, e_stride);
 }
 
 template <bool V2, typename T, bool BF16>
@@ -71,12 +81,15 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
            const void* receivers, const void* chunk_block,
            const void* row_ptr, const void* row_slots, const void* long_rows,
            int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
-           int n_rows, int n_long, int piece, void* msg, void* out,
-           void* stream) {
+           int n_rows, int n_long, int piece, int n_batch, void* msg,
+           void* out, void* stream) {
   if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
-      n_layers < 1 || grid < 1 || grid > n_tiles || (xj != nullptr) != V2 ||
-      n_rows < 1 || n_long < 0 || piece < 1)
+      n_layers < 1 || n_batch < 1 || n_batch > MAX_BATCH ||
+      (long long)n_tiles * n_batch > INT_MAX || grid < 1 ||
+      grid > n_tiles * n_batch || (xj != nullptr) != V2 || n_rows < 1 ||
+      n_long < 0 || piece < 1)
     return (int)cudaErrorInvalidValue;
+  const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C;
   auto kernel = kernel_of<V2, T, BF16>();
   constexpr size_t smem = tiles::fwd_smem_bytes(F);
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -86,13 +99,13 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
   kernel<<<grid, tiles::NT, smem, s>>>(
       (const T*)src, (const T*)xj, (const float*)W, (const float*)B,
       n_layers, (const int*)receivers, (const int*)chunk_block, n_tiles,
-      e_pad, edge_block, (T*)msg);
+      e_pad, edge_block, (T*)msg, n_batch, x_stride, e_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_blocks(n_rows, n_long), THREADS, 0,
-                                s>>>(
+  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
+                                THREADS, 0, s>>>(
       (const T*)msg, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out, 0, 0);  // B = 1
+      (const int*)long_rows, n_rows, piece, (float*)out, e_stride, x_stride);
   return (int)cudaGetLastError();
 }
 
@@ -109,11 +122,11 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
                       const void* row_slots, const void* long_rows,          \
                       int n_layers, int grid, int n_tiles, int e_pad,        \
                       int edge_block, int n_rows, int n_long, int piece,     \
-                      void* msg, void* out, void* stream) {                  \
+                      int n_batch, void* msg, void* out, void* stream) {     \
     return launch<true, T, BF16>(zi, xj, W, B, receivers, chunk_block,       \
                                  row_ptr, row_slots, long_rows, n_layers,    \
                                  grid, n_tiles, e_pad, edge_block, n_rows,   \
-                                 n_long, piece, msg, out, stream);           \
+                                 n_long, piece, n_batch, msg, out, stream);  \
   }
 
 #define FUSED_EDGE_MLP_AGGREGATE(NAME, T, BF16)                               \
@@ -126,13 +139,13 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
                       const void* row_ptr, const void* row_slots,            \
                       const void* long_rows, int n_layers, int grid,         \
                       int n_tiles, int e_pad, int edge_block, int n_rows,    \
-                      int n_long, int piece, void* msg, void* out,           \
-                      void* stream) {                                        \
+                      int n_long, int piece, int n_batch, void* msg,         \
+                      void* out, void* stream) {                             \
     return launch<false, T, BF16>(pre, nullptr, W, B, receivers,             \
                                   chunk_block, row_ptr, row_slots,           \
                                   long_rows, n_layers, grid, n_tiles, e_pad, \
-                                  edge_block, n_rows, n_long, piece, msg,    \
-                                  out, stream);                              \
+                                  edge_block, n_rows, n_long, piece,         \
+                                  n_batch, msg, out, stream);                \
   }
 
 FUSED_EDGE_PHASE(fused_edge_phase_f32, float, false)

@@ -29,8 +29,8 @@
 // strides (elements, 64-bit), so the grid's y extent is the batch and the
 // lists, their order and every sum are the same for each sample as in a
 // call on that sample alone. An entry point off the batched path (kernels
-// 8, 9 and 15, whose AddOnto reads acc unmoved) launches gridDim.y = 1
-// with zero strides.
+// 9, whose AddOnto reads acc unmoved, and 15) launches gridDim.y = 1 with
+// zero strides.
 //
 // Blocks of GATHER_WARPS warps. The first ceil(n_rows / (GATHER_WARPS ·
 // ROWS)) blocks give each warp ROWS consecutive lists (WARP_ROWS = 4; 1 for
@@ -315,9 +315,9 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
 // 5's dxj (fused_gmp_bwd.cu): out[n] = Σ rows[e] over receiver row n's
 // listed slots (`win_row_ptr`, `win_row_slots`, `win_long`), in list
 // order (a bf16 row widens exactly to f32); a row with no slot comes out
-// zero. Batched (kernels 4 and 5): sample blockIdx.y's rows and out
-// start rows_stride and out_stride elements after the previous sample's
-// (the other tile walks' entries launch one sample with zero strides).
+// zero. Batched (every tile walk's entry): sample blockIdx.y's rows and
+// out start rows_stride and out_stride elements after the previous
+// sample's.
 template <typename T, bool BF16>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 recv_gather_kernel(const T* __restrict__ rows,

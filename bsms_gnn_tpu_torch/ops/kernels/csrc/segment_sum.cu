@@ -7,7 +7,10 @@
 // the same long rows). One launch of the row-ordered gather
 // (`row_gather.cuh`): a warp walks four short lists as one range, each
 // list of more than `piece` slots gets a block of its own, in pieces over
-// its warps. A row with no slot comes out zero.
+// its warps. A row with no slot comes out zero. A batch over the one layout
+// (feat [n_batch][e_pad][C], out [n_batch][n_rows][C]) is the same launch
+// with the sample as the grid's y index: each sample's lists, order and
+// sums are those of a call on that sample alone.
 #include "row_gather.cuh"
 
 using namespace bsms;
@@ -19,20 +22,24 @@ __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 segment_sum_kernel(const T* __restrict__ feat, const int* __restrict__ row_ptr,
                    const int* __restrict__ idx,
                    const int* __restrict__ long_rows, int n_rows, int piece,
-                   float* __restrict__ out) {
+                   float* __restrict__ out, size_t feat_stride,
+                   size_t out_stride) {
   gather_rows<false>(feat, ListedSlots{idx}, StoreRows{}, row_ptr, long_rows,
-                     n_rows, piece, out);
+                     n_rows, piece, out, feat_stride, out_stride);
 }
 
 template <typename T>
 int launch(const void* feat, const void* row_ptr, const void* idx,
-           const void* long_rows, int n_rows, int n_long, int piece, void* out,
-           void* stream) {
-  if (n_rows < 1 || piece < 1) return (int)cudaErrorInvalidValue;
-  segment_sum_kernel<T><<<gather_blocks(n_rows, n_long), THREADS, 0,
+           const void* long_rows, int n_rows, int n_long, int piece,
+           int n_batch, int e_pad, void* out, void* stream) {
+  if (n_rows < 1 || n_long < 0 || piece < 1 || n_batch < 1 ||
+      n_batch > MAX_BATCH || e_pad < 1)
+    return (int)cudaErrorInvalidValue;
+  segment_sum_kernel<T><<<gather_grid(n_rows, n_long, n_batch), THREADS, 0,
                           (cudaStream_t)stream>>>(
       (const T*)feat, (const int*)row_ptr, (const int*)idx,
-      (const int*)long_rows, n_rows, piece, (float*)out);
+      (const int*)long_rows, n_rows, piece, (float*)out, (size_t)e_pad * C,
+      (size_t)n_rows * C);
   return (int)cudaGetLastError();
 }
 
@@ -41,9 +48,10 @@ int launch(const void* feat, const void* row_ptr, const void* idx,
 #define SEGMENT_SUM(NAME, T)                                                 \
   extern "C" int NAME(const void* feat, const void* row_ptr, const void* idx, \
                       const void* long_rows, int n_rows, int n_long,         \
-                      int piece, void* out, void* stream) {                  \
+                      int piece, int n_batch, int e_pad, void* out,          \
+                      void* stream) {                                        \
     return launch<T>(feat, row_ptr, idx, long_rows, n_rows, n_long, piece,   \
-                     out, stream);                                           \
+                     n_batch, e_pad, out, stream);                           \
   }
 
 SEGMENT_SUM(segment_sum_f32, float)

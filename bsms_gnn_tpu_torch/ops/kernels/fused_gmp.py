@@ -91,8 +91,8 @@ t is tile t mod T of sample ⌊t / T⌋, the grid still the card's fill), with
 every sample's tiles of its range into its own), dpre [B, E_pad, 128], dxj
 by the batched gather. Every per-row output of sample b is the bits of a
 call on sample b alone; the weight gradients sum over the batch. Kernels
-13 and 14, which share the walks, take the batch the same way; kernels 11
-and 12 take B = 1.
+11-14, which share the walks, take the batch the same way (11 and 12 with
+their streamed rows moving by E_pad·128 elements a sample).
 
 `fused_edge_phase_win` is the differentiable entry: an autograd Function
 whose forward launches kernel 4 and whose backward launches kernel 5 and

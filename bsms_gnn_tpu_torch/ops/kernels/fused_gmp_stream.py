@@ -57,6 +57,18 @@ the backward the edge cotangent g[recv], the running cotangent and, before
 the dxj sum, dpre) and accumulated in f32; the LN output is rounded to bf16
 before the f32 scatter sum; dzi / dpre are stored in bf16.
 
+The batch axis (a shared mesh: zi or pre [B, E_pad, 128], xj [B, n_pad,
+128]), as JAX vmaps its kernels (`fused_gmp.py:1179`, `:1255`): one launch
+of each walk over the B·T tiles of the batch (tile t is tile t mod T of
+sample ⌊t / T⌋), each sample's streamed rows E_pad·128 elements after the
+last's and its xj, g and output n_pad·128, then one gather whose grid's y
+index is the sample. Every per-row output of sample b (the aggregate, dzi
+or dpre, dxj; row n_pad − 1 with its block's pad slots included) is the
+bits of a call on sample b alone; the weight gradients sum over the batch.
+The plain versions work on the leading dims with `in_block`'s mask per
+slot of each sample and `index_add_` on dim -2, so no sample's pad slots
+reach another sample's rows.
+
 `fused_edge_phase` and `fused_edge_mlp_aggregate` are the differentiable
 entries: autograd Functions whose forwards launch kernels 12 and 11 and
 whose backwards launch their backward kernels.
@@ -71,6 +83,7 @@ from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
     MAX_BWD_LAYERS,
+    flat_rows,
     mlp_tail_bwd,
     mlp_tail_fwd_save,
     mlp_tail_plain,
@@ -90,10 +103,10 @@ _BWD_FN = {torch.float32: "fused_edge_phase_bwd_f32",
 _AGG_BWD_FN = {torch.float32: "fused_edge_mlp_aggregate_bwd_f32",
                torch.bfloat16: "fused_edge_mlp_aggregate_bwd_bf16"}
 _SIGS = {
-    _LIB: {**walk_sigs(_FN, 9, 8, 3), **walk_sigs(_AGG_FN, 8, 8, 3)},
-    _BWD_LIB: {**{f: [build.P] * 11 + [build.I] * 8 + [build.P] * 5
+    _LIB: {**walk_sigs(_FN, 9, 9, 3), **walk_sigs(_AGG_FN, 8, 9, 3)},
+    _BWD_LIB: {**{f: [build.P] * 11 + [build.I] * 9 + [build.P] * 5
                   for f in _BWD_FN.values()},
-               **{f: [build.P] * 7 + [build.I] * 5 + [build.P] * 4
+               **{f: [build.P] * 7 + [build.I] * 7 + [build.P] * 4
                   for f in _AGG_BWD_FN.values()},
                **{f + "_blocks_per_sm": [build.I, build.P]
                   for f in (*_BWD_FN.values(), *_AGG_BWD_FN.values())}},
@@ -102,19 +115,18 @@ _SIGS = {
 
 def _check(level, src, xj, weights, biases):
     """src: zi or pre [E_pad, 128]; xj: [n_pad, 128] in src's dtype, or
-    None (kernel 11)."""
-    if src.dim() != 2:
-        raise NotImplementedError("batch axis")
-    c = src.shape[-1]
+    None (kernel 11); or a batch of each, [B, ...]."""
+    build.check_batch(src, True)
+    c, lead = src.shape[-1], tuple(src.shape[:-2])
     if c != BN:
         raise NotImplementedError(f"latent width {c} (only 128)")
-    if src.shape != (level.n_pad_edges, c) or src.dtype not in _FN:
+    if src.shape[-2] != level.n_pad_edges or src.dtype not in _FN:
         raise ValueError(f"edge rows {tuple(src.shape)} {src.dtype} must be "
-                         f"({level.n_pad_edges}, {c}) in f32 or bf16")
-    if xj is not None and (xj.shape != (level.n_pad_nodes, c)
+                         f"(..., {level.n_pad_edges}, {c}) in f32 or bf16")
+    if xj is not None and (xj.shape != (*lead, level.n_pad_nodes, c)
                            or xj.dtype != src.dtype):
         raise ValueError(f"xj {tuple(xj.shape)} {xj.dtype} must be "
-                         f"({level.n_pad_nodes}, {c}) in {src.dtype}")
+                         f"{(*lead, level.n_pad_nodes, c)} in {src.dtype}")
     if any(w.shape != (c, c) for w in weights):
         raise ValueError("the tail weights must be [C, C]")
     if len(weights) != len(biases) or not weights:
@@ -129,14 +141,21 @@ def in_block(level):
     return recv, recv // BN == block
 
 
+def _check_g(level, src, g):
+    want = (*src.shape[:-2], level.n_pad_nodes, BN)
+    if g.shape != want:
+        raise ValueError(f"g {tuple(g.shape)} != {want}")
+
+
 def _stream_pre(level, src, xj):
     """Each slot's first-layer pre-activation src[e] (+ xj[recv_e] on the
-    slots in block) in f32, the receivers and the in-block mask."""
+    slots in block) in f32 on src's leading dims, the receivers and the
+    in-block mask (per slot, the same in every sample)."""
     recv, inb = in_block(level)
     pre = src.float()
     if xj is not None:
         pre = pre + torch.where(inb[:, None],
-                                xj.float().index_select(0, recv), 0.0)
+                                xj.float().index_select(-2, recv), 0.0)
     return pre, recv, inb
 
 
@@ -148,54 +167,63 @@ def _aggregate_plain(level, src, xj, weights, biases):
     if bf16:
         e = round_bf16(e)
     e = torch.where(inb[:, None], e, 0.0)
-    out = torch.zeros(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=src.device)
-    return out.index_add_(0, recv, e)
+    out = torch.zeros(*src.shape[:-2], level.n_pad_nodes, BN,
+                      dtype=torch.float32, device=src.device)
+    return out.index_add_(-2, recv, e)
 
 
 def _backward_plain(level, src, xj, weights, biases, g):
-    """(dpre f32, receivers, in-block mask, dW, db)."""
+    """(dpre f32 on src's leading dims, receivers, in-block mask, dW, db
+    summed over the batch)."""
     bf16 = src.dtype == torch.bfloat16
     pre, recv, inb = _stream_pre(level, src, xj)
     ws, bs = [w.float() for w in weights], [b.float() for b in biases]
     normed, inv, hs = mlp_tail_fwd_save(pre, ws, bs, bf16)
-    ge = torch.where(inb[:, None], g.float().index_select(0, recv), 0.0)
+    ge = torch.where(inb[:, None], g.float().index_select(-2, recv), 0.0)
     if bf16:
         ge = round_bf16(ge)
-    dpre, dw, db = mlp_tail_bwd(pre, hs, normed, inv, ge, ws, bf16)
-    return dpre, recv, inb, dw, db
+    dpre, dw, db = mlp_tail_bwd(flat_rows(pre), [flat_rows(h) for h in hs],
+                                flat_rows(normed), flat_rows(inv),
+                                flat_rows(ge), ws, bf16)
+    return dpre.reshape(pre.shape), recv, inb, dw, db
 
 
 def _launch_fwd(fn_table, level, src, xj, weights, biases, what):
-    """aggr [n_pad, 128] f32 by the forward tile walk with the streamed
-    front, then the receiver gather over `row_*`, on CUDA tensors."""
+    """aggr [..., n_pad, 128] f32 by the forward tile walk with the
+    streamed front, then the receiver gather over `row_*`, on CUDA
+    tensors, for the batch src's leading dim gives."""
     build.require(what, src.device, level.receivers, level.chunk_block,
                   level.row_ptr, level.row_slots, level.row_long)
     lib = build.library(_LIB, _SIGS[_LIB])
     fn, dev = fn_table[src.dtype], src.device
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level)
+    n_batch = src.shape[0] if src.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
     # The tile walk takes the weights already rounded in bf16 mode.
     bf16 = src.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
     rows = [src.contiguous()] + ([] if xj is None else [xj.contiguous()])
-    msg = torch.empty(level.n_pad_edges, BN, dtype=src.dtype, device=dev)
-    out = torch.empty(level.n_pad_nodes, BN, dtype=torch.float32, device=dev)
+    lead = src.shape[:-2]
+    msg = torch.empty(*lead, level.n_pad_edges, BN, dtype=src.dtype,
+                      device=dev)
+    out = torch.empty(*lead, level.n_pad_nodes, BN, dtype=torch.float32,
+                      device=dev)
     err = getattr(lib, fn)(
         *(t.data_ptr() for t in rows), w_stack.data_ptr(), b_stack.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
         level.row_ptr.data_ptr(), level.row_slots.data_ptr(),
         level.row_long.data_ptr(), len(weights), grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.n_pad_nodes,
-        level.row_long.numel(), GATHER_PIECE, msg.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        level.row_long.numel(), GATHER_PIECE, n_batch, msg.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, what)
     return out
 
 
 def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
-    """(dsrc in src's dtype, dxj f32 or None, dW, db)."""
+    """(dsrc in src's dtype, dxj f32 or None, dW, db), for the batch
+    src's leading dim gives (the weight gradients summed over it)."""
     if len(weights) > MAX_BWD_LAYERS:
         raise NotImplementedError(f"{len(weights)} tail layers (the backward "
                                   f"kernels take {MAX_BWD_LAYERS})")
@@ -205,7 +233,8 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     lib = build.library(_BWD_LIB, _SIGS[_BWD_LIB])
     fn = fn_table[src.dtype]
     dev, n_layers = src.device, len(weights)
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level)
+    n_batch = src.shape[0] if src.dim() == 3 else 1
+    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
     # The tile walk takes the weights already rounded in bf16 mode.
     bf16 = src.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
@@ -215,7 +244,9 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     g = g.detach().float().contiguous()
     sizes = [n_layers * BN * BN, n_layers * BN]
     f32 = dict(dtype=torch.float32, device=dev)
-    dsrc = torch.empty(level.n_pad_edges, BN, dtype=src.dtype, device=dev)
+    lead = src.shape[:-2]
+    dsrc = torch.empty(*lead, level.n_pad_edges, BN, dtype=src.dtype,
+                       device=dev)
     gpart = torch.empty(grid, sum(sizes), **f32)
     grads = torch.empty(sum(sizes), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -225,19 +256,19 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     dxj = None
     if xj is not None:
         xj = xj.contiguous()
-        dxj = torch.empty(level.n_pad_nodes, BN, **f32)
+        dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
         err = getattr(lib, fn)(
             src.data_ptr(), xj.data_ptr(), *common, level.row_ptr.data_ptr(),
             level.row_slots.data_ptr(), level.row_long.data_ptr(), n_layers,
             grid, n_tiles, level.n_pad_edges, level.edge_block,
             level.n_pad_nodes, level.row_long.numel(), GATHER_PIECE,
-            gpart.data_ptr(), dsrc.data_ptr(), dxj.data_ptr(),
+            n_batch, gpart.data_ptr(), dsrc.data_ptr(), dxj.data_ptr(),
             grads.data_ptr(), stream)
     else:
         err = getattr(lib, fn)(
             src.data_ptr(), *common, n_layers, grid, n_tiles,
-            level.n_pad_edges, level.edge_block, gpart.data_ptr(),
-            dsrc.data_ptr(), grads.data_ptr(), stream)
+            level.n_pad_edges, level.edge_block, level.n_pad_nodes, n_batch,
+            gpart.data_ptr(), dsrc.data_ptr(), grads.data_ptr(), stream)
     build.check(err, what)
     dw, db = grads.split(sizes)
     return dsrc, dxj, dw.view(n_layers, BN, BN), db.view(n_layers, BN)
@@ -257,7 +288,7 @@ fused_edge_phase_plain.calls = 0
 
 
 def fused_edge_phase_fwd(level, zi, xj, weights, biases):
-    """aggr [n_pad, 128] f32, no autograd. CPU tensors take the plain
+    """aggr [..., n_pad, 128] f32, no autograd. CPU tensors take the plain
     version; CUDA tensors launch kernel 12."""
     _check(level, zi, xj, weights, biases)
     if zi.device.type == "cpu":
@@ -278,9 +309,9 @@ def fused_edge_phase_bwd_plain(level, zi, xj, weights, biases, g):
     dpre, recv, inb, dw, db = _backward_plain(level, zi, xj, weights, biases,
                                               g)
     dpre_op = round_bf16(dpre) if zi.dtype == torch.bfloat16 else dpre
-    dxj = torch.zeros(level.n_pad_nodes, BN, dtype=torch.float32,
-                      device=zi.device).index_add_(
-        0, recv, torch.where(inb[:, None], dpre_op, 0.0))
+    dxj = torch.zeros(*zi.shape[:-2], level.n_pad_nodes, BN,
+                      dtype=torch.float32, device=zi.device).index_add_(
+        -2, recv, torch.where(inb[:, None], dpre_op, 0.0))
     return dpre.to(zi.dtype), dxj, dw, db
 
 
@@ -288,13 +319,12 @@ fused_edge_phase_bwd_plain.calls = 0
 
 
 def fused_edge_phase_bwd(level, zi, xj, weights, biases, g):
-    """(dzi [E_pad, 128] in zi's dtype, dxj [n_pad, 128] f32, dW [L, 128,
-    128], db [L, 128]) for the aggregate's cotangent g, no autograd. CPU
-    tensors take the plain version; CUDA tensors launch kernel 12's
-    backward."""
+    """(dzi [..., E_pad, 128] in zi's dtype, dxj [..., n_pad, 128] f32, dW
+    [L, 128, 128], db [L, 128], summed over a batch) for the aggregate's
+    cotangent g, no autograd. CPU tensors take the plain version; CUDA
+    tensors launch kernel 12's backward."""
     _check(level, zi, xj, weights, biases)
-    if g.shape != (level.n_pad_nodes, BN):
-        raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
+    _check_g(level, zi, g)
     if zi.device.type == "cpu":
         return fused_edge_phase_bwd_plain(level, zi, xj, weights, biases, g)
     if zi.device.type != "cuda":
@@ -332,11 +362,11 @@ class _EdgePhase(torch.autograd.Function):
 
 
 def fused_edge_phase(level, zi, xj, weights, biases):
-    """aggr [n_pad, 128] f32, differentiable in zi, xj and every tail
+    """aggr [..., n_pad, 128] f32, differentiable in zi, xj and every tail
     weight and bias. zi: [E_pad, 128] the sender side of each slot's
     first-layer pre-activation; xj: [n_pad, 128] the receiver transform, in
-    zi's dtype; `weights`/`biases` the tail layers ([C, C] stored [in,
-    out])."""
+    zi's dtype (or a batch of both, [B, ...]); `weights`/`biases` the tail
+    layers ([C, C] stored [in, out])."""
     _check(level, zi, xj, weights, biases)
     return _EdgePhase.apply(level, len(weights), zi, xj, *weights, *biases)
 
@@ -354,7 +384,7 @@ fused_edge_mlp_aggregate_plain.calls = 0
 
 
 def fused_edge_mlp_aggregate_fwd(level, pre, weights, biases):
-    """aggr [n_pad, 128] f32, no autograd. CPU tensors take the plain
+    """aggr [..., n_pad, 128] f32, no autograd. CPU tensors take the plain
     version; CUDA tensors launch kernel 11."""
     _check(level, pre, None, weights, biases)
     if pre.device.type == "cpu":
@@ -381,12 +411,12 @@ fused_edge_mlp_aggregate_bwd_plain.calls = 0
 
 
 def fused_edge_mlp_aggregate_bwd(level, pre, weights, biases, g):
-    """(dpre [E_pad, 128] in pre's dtype, dW [L, 128, 128], db [L, 128])
-    for the aggregate's cotangent g, no autograd. CPU tensors take the plain
-    version; CUDA tensors launch kernel 11's backward."""
+    """(dpre [..., E_pad, 128] in pre's dtype, dW [L, 128, 128], db [L,
+    128], summed over a batch) for the aggregate's cotangent g, no
+    autograd. CPU tensors take the plain version; CUDA tensors launch
+    kernel 11's backward."""
     _check(level, pre, None, weights, biases)
-    if g.shape != (level.n_pad_nodes, BN):
-        raise ValueError(f"g {tuple(g.shape)} != ({level.n_pad_nodes}, {BN})")
+    _check_g(level, pre, g)
     if pre.device.type == "cpu":
         return fused_edge_mlp_aggregate_bwd_plain(level, pre, weights, biases,
                                                   g)
@@ -425,9 +455,10 @@ class _EdgeMlpAggregate(torch.autograd.Function):
 
 
 def fused_edge_mlp_aggregate(level, pre, weights, biases):
-    """aggr [n_pad, 128] f32, differentiable in pre and every tail weight
-    and bias. pre: [E_pad, 128] each slot's first-layer pre-activation (f32,
-    or bf16 in bf16 compute); `weights`/`biases` the tail layers."""
+    """aggr [..., n_pad, 128] f32, differentiable in pre and every tail
+    weight and bias. pre: [E_pad, 128] each slot's first-layer
+    pre-activation (f32, or bf16 in bf16 compute), or a batch [B, E_pad,
+    128]; `weights`/`biases` the tail layers."""
     _check(level, pre, None, weights, biases)
     return _EdgeMlpAggregate.apply(level, len(weights), pre, *weights,
                                    *biases)

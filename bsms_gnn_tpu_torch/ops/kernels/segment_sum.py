@@ -47,6 +47,14 @@ multiples of 128 raise.
 Skip-empty layouts (the residual sub-levels) are refused, as `_supported`
 refuses them: a block that owns no chunk would get no row. Their sums go
 through kernel 9 (`segment_sum_accum.py`).
+
+The batch axis (a shared mesh: feat [B, E_pad, C] → [B, N_pad, C]), as
+JAX vmaps its kernel (`segment_sum.py:360,371,399`): one launch, the
+sample the gather's grid y index, each sample's feat and output moving by
+E_pad·C and N_pad·C elements (`csrc/row_gather.cuh`), so each sample's
+rows are the bits of a call on that sample alone. The plain version works
+on the leading dims (`index_select` / `index_add_` on dim -2), the 3-wide
+route included.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch
 from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
-_SIG = [build.P] * 4 + [build.I] * 3 + [build.P] * 2
+_SIG = [build.P] * 4 + [build.I] * 5 + [build.P] * 2
 _FN = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
 
 
@@ -69,10 +77,9 @@ def _check(level, feat, send: bool):
         raise ValueError("kernel 8 refuses a skip-empty layout (blocks "
                          "without a chunk): sum it with kernel 9, "
                          "segment_sum_accum")
-    if feat.dim() != 2:
-        raise NotImplementedError("batch axis")
-    if feat.shape[0] != level.n_pad_edges:
-        raise ValueError(f"feat rows {feat.shape[0]} != E_pad "
+    build.check_batch(feat, True)
+    if feat.shape[-2] != level.n_pad_edges:
+        raise ValueError(f"feat rows {feat.shape[-2]} != E_pad "
                          f"{level.n_pad_edges}")
     if level.row_ptr is None or (send and level.row_send is None):
         raise ValueError("the layout has no row tables (graph.hierarchy."
@@ -82,22 +89,24 @@ def _check(level, feat, send: bool):
 
 def segment_sum_plain(level, feat, send: bool = False):
     """Kernel 8's function in plain PyTorch: zeros plus `index_add_` of the
-    slots the row table keeps, each to its receiver."""
+    slots the row table keeps, each to its receiver, on feat's leading
+    dims."""
     segment_sum_plain.calls += 1
     slots = _slots(level, send)
     rows = level.receivers.index_select(0, level.row_slots).long()
-    out = torch.zeros(level.n_pad_nodes, feat.shape[-1], dtype=torch.float32,
-                      device=feat.device)
-    return out.index_add_(0, rows, feat.index_select(0, slots).float())
+    out = torch.zeros(*feat.shape[:-2], level.n_pad_nodes, feat.shape[-1],
+                      dtype=torch.float32, device=feat.device)
+    return out.index_add_(-2, rows, feat.index_select(-2, slots).float())
 
 
 segment_sum_plain.calls = 0
 
 
 def segment_sum_raw(level, feat, send: bool = False):
-    """f32 [N_pad, C] receiver sums (`send`: sender sums) of feat [E_pad,
-    C], no autograd. CPU tensors, and widths that are not a multiple of 128,
-    take the plain version; other CUDA tensors launch kernel 8."""
+    """f32 [..., N_pad, C] receiver sums (`send`: sender sums) of feat
+    [E_pad, C] or a batch [B, E_pad, C] (one launch), no autograd. CPU
+    tensors, and widths that are not a multiple of 128, take the plain
+    version; other CUDA tensors launch kernel 8."""
     _check(level, feat, send)
     if feat.device.type == "cpu":
         return segment_sum_plain(level, feat, send)
@@ -116,12 +125,13 @@ def segment_sum_raw(level, feat, send: bool = False):
                   level.row_long)
     lib = build.library("segment_sum", {f: _SIG for f in _FN.values()})
     feat = feat.contiguous()
-    out = torch.empty(level.n_pad_nodes, c, dtype=torch.float32,
-                      device=feat.device)
+    out = torch.empty(*feat.shape[:-2], level.n_pad_nodes, c,
+                      dtype=torch.float32, device=feat.device)
     err = getattr(lib, _FN[feat.dtype])(
         feat.data_ptr(), level.row_ptr.data_ptr(), slots.data_ptr(),
         level.row_long.data_ptr(), level.n_pad_nodes, level.row_long.numel(),
-        GATHER_PIECE, out.data_ptr(),
+        GATHER_PIECE, feat.shape[0] if feat.dim() == 3 else 1,
+        level.n_pad_edges, out.data_ptr(),
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     build.check(err, "segment_sum")
@@ -146,17 +156,18 @@ class _SegmentSum(torch.autograd.Function):
     def backward(ctx, g):
         lvl = ctx.level
         idx = lvl.senders if ctx.send else lvl.receivers
-        return None, None, g.index_select(0, idx).to(ctx.dtype)
+        return None, None, g.index_select(-2, idx).to(ctx.dtype)
 
 
 def segment_sum(level, feat):
-    """Differentiable receiver sums of feat: f32 [N_pad, C]."""
+    """Differentiable receiver sums of feat [..., E_pad, C]: f32 [...,
+    N_pad, C]."""
     _check(level, feat, False)
     return _SegmentSum.apply(level, False, feat)
 
 
 def segment_sum_send(level, feat):
-    """Differentiable sender sums of feat (symmetric level edge sets):
-    f32 [N_pad, C]."""
+    """Differentiable sender sums of feat [..., E_pad, C] (symmetric level
+    edge sets): f32 [..., N_pad, C]."""
     _check(level, feat, True)
     return _SegmentSum.apply(level, True, feat)

@@ -48,17 +48,23 @@ The gathers are `ops/scatter.py`'s, whose backwards sum by kernel 8. JAX's
 an ELL sum (`scatter.py:66-81`); the two compute the same function on
 every row that carries gradient, so the port builds no ELL tables.
 
-The batch axis (a shared mesh, x [B, N_pad, C]): the windowed `fused`
-routes, each batch one launch of each kernel: v3 (kernels 4, 2, 3 and,
-backward, 5, 7, 6), v4 with one world stream (kernel 13 and its backward
-in place of 4 and 5, pos [B, N_pad, wd]) and `"fusedK"` on a gated level
-(kernel 14 and its backward), the compact residual gathered on dim -2
-(with v4 its world term too, from each sample's positions) and the static
-fiber term broadcast over the batch, as JAX's `gmp_apply` runs vmapped
-kernels (`message.py:251-389`, `fused_gmp.py:870-876`, `:1545-1550`).
-Every other route raises NotImplementedError("batch axis") on a batch:
-v1 (kernel 11), v2 (kernel 12, also a skip-empty gated level's), the
-residual sub-level (kernel 9) and the `pallas` method (kernels 8, 10).
+The batch axis (a shared mesh, x [B, N_pad, C]), each batch one launch
+of each kernel, as JAX's `gmp_apply` runs vmapped kernels
+(`message.py:251-448`, `fused_gmp.py:870-876`, `:1179`, `:1255`,
+`:1545-1550`, `agg_node.py:225`): the windowed `fused` routes, v3
+(kernels 4, 2, 3 and, backward, 5, 7, 6), v4 with one world stream
+(kernel 13 and its backward in place of 4 and 5, pos [B, N_pad, wd]) and
+`"fusedK"` on a gated level (kernel 14 and its backward), the compact
+residual gathered on dim -2 (with v4 its world term too, from each
+sample's positions); the unwindowed `fused` routes, v2 (the sender gather,
+kernel 12, kernel 3; backward kernel 12's, kernel 8, kernel 6) and v1
+(the gathers, kernel 11, kernel 3); and the `pallas` method (the gathers,
+kernel 10; backward kernels 8 and 6). The static fiber term is broadcast
+over the batch; with world edges the direction is gather_send(pos) −
+gather_recv(pos) per sample. What raises NotImplementedError("batch
+axis") on a batch: the residual sub-level (kernel 9), so also v2 on a
+skip-empty gated level (its gathers' backward is kernel 9), and the
+explicit conv (`_gathered_conv`, `_level_conv`).
 
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
 level's own weights (`message.py:603-692`), each the other's adjoint.
@@ -127,9 +133,9 @@ class GMP(nn.Module):
 
     def forward(self, level, x, compute_dtype=None, pos=None,
                 method: str = "fused"):
-        """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] on the
-        windowed `fused` routes (see above); pos: [..., N_pad, Σ dyn_dims]
-        world positions (x's leading dims) when the GMP has world edges."""
+        """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] (see
+        above); pos: [..., N_pad, Σ dyn_dims] world positions (x's leading
+        dims) when the GMP has world edges."""
         method, k = split_interleave(method)
         if method not in METHODS:
             raise NotImplementedError(f"aggregation method {method!r}")
@@ -244,10 +250,11 @@ class GMP(nn.Module):
                 parts += [blk, torch.linalg.vector_norm(blk, dim=-1,
                                                         keepdim=True)]
             # As jnp.concatenate promotes: the static fiber rounded to the
-            # activations' dtype, then widened with the dynamic parts.
+            # activations' dtype, then widened with the dynamic parts (and
+            # broadcast over a batch's leading dims).
             dt = torch.promote_types(direction.dtype, static.dtype)
-            fiber = torch.cat([p.to(dt) for p in parts] + [static.to(dt)],
-                              dim=-1)
+            static = static.to(dt).expand(*direction.shape[:-1], -1)
+            fiber = torch.cat([p.to(dt) for p in parts] + [static], dim=-1)
         else:
             fiber = static
         return (dense(fiber, wf, self.mlp_edge.biases[0], compute_dtype)

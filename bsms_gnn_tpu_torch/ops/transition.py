@@ -21,10 +21,11 @@ routes as the forward: no scatter anywhere on 128-wide rows, as on the TPU.
 
 The batch axis (a shared mesh, x [B, N_in_pad, C]): the dense route on
 the leading dims, the windowed route with kernel 1's and kernel 2's
-batched launches (the compact residual's rows gathered on dim -2), and
+batched launches (the compact residual's rows gathered on dim -2),
 `narrow_apply` on the leading dims (gathered and summed on dim -2, as
-JAX's `_apply` sums on axis -2). The kernel-8 route takes B = 1 and
-raises NotImplementedError("batch axis") on a batch.
+JAX's `_apply` sums on axis -2), and the kernel-8 route with its rows
+gathered on dim -2 and kernel 8's batched launch (the 3-wide world
+positions through kernel 8's plain version on the leading dims).
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def _apply(op: TransOp, x):
     if op.window > 0 and x.shape[-1] % BN:
         return narrow_apply(op, x)
     if op.window <= 0:
-        check_batch(x, False)
-        msg = x.index_select(0, op.senders) * op.ew.to(x.dtype)[:, None]
+        check_batch(x, True)
+        msg = x.index_select(-2, op.senders) * op.ew.to(x.dtype)[:, None]
         return segment_sum_raw(op, msg).to(x.dtype)
     out = windowed_rect_conv(op, x)
     cr = op.cresid

@@ -119,7 +119,27 @@ Phases (any failure exits non-zero without the result line):
    the B = 1 counts, a `Trainer` run there; phase 16's times;
 18. the batch axis on the `fused4` airfoil of phase 14 (fused4_batch):
    kernel 14, forward and backward, at BATCH_CHECK samples at levels 3-5,
-   then phase 17's serving, train step, `Trainer` run and times.
+   then phase 17's serving, train step, `Trainer` run and times;
+19. the batch axis on the pallas surface of phase 9 (surface_batch: frames
+   of its trajectory's frame pair, each with its own seeded noise on the
+   world positions): kernel 8 (both forms at every level, and on T0-T2's
+   operators) and kernel 10 (every level, and bf16 on f32 x) at
+   BATCH_CHECK samples with phase 16's checks, and kernel 10 bit for bit
+   kernel 3 on kernel 8's aggregate at every level at BATCH_CHECK samples
+   (f32, bf16, bf16 on f32 x; the tile `agg_node.tile_design` picks on the
+   batch's rows printed at BATCH_CHECK, BATCH_SERVE and
+   BATCH_TRAIN_SURFACE); the forward at BATCH_SERVE with the B = 1 launch
+   and narrow-route counts, the train step and a `Trainer` run at
+   BATCH_TRAIN_SURFACE with the B = 1 counts; phase 16's times at B = 1,
+   BATCH_SERVE and BATCH_TRAIN_SURFACE;
+20. the batch axis on the unwindowed airfoil of phase 11 (plain_batch):
+   kernel 12 (forward and backward, every level) and kernel 8 (level 0 in
+   both forms, T0-T1's operators) at BATCH_CHECK samples, then phase 17's
+   serving, train step at BATCH_TRAIN, `Trainer` run and times;
+21. the batch axis on the fused surface of phase 12 (surface_fused_batch,
+   phase 19's frames): kernel 11 (forward at every level, backward at
+   levels 0 and 7) at BATCH_CHECK samples, then phase 17's serving, train
+   step at BATCH_TRAIN, `Trainer` run and times.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -433,6 +453,12 @@ TRAIN_GATE, TRAIN_UPDATES = 2, 4
 # training at BATCH_TRAIN (`bsms_gnn_tpu/configs/default.yaml`'s `batch`).
 # Every batch is B distinct seeded frames over the one hierarchy.
 BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
+# The pallas surface (surface_batch) trains at 16, not 48: its B = 1 step
+# holds 2,633 / 3,106 MiB at its peak (f32 / bf16, PERF.md §5), and the
+# batched peak is about that times B: ~126 / 149 GB at 48, more than the
+# card's 80 GB; ~42 / 50 GB at 16. (The fused surface, 669 / 533 MiB,
+# trains at 48: ~32 / 26 GB.)
+BATCH_TRAIN_SURFACE = 16
 # The arguments of each kernel of the batched path that carry the batch
 # (the rest are the layout, the weights and the compute dtype), and the
 # outputs of its backward that are per row (the others are weight
@@ -444,12 +470,18 @@ BATCHED_ARGS = {"windowed_rect_conv": (1,), "compact_accum": (1, 2),
                 "fused_edge_phase_win_dyn": (1, 2, 3),
                 "fused_edge_phase_win_dyn_bwd": (1, 2, 3, 9),
                 "fused_edge_phase_win_k": (1, 2),
-                "fused_edge_phase_win_k_bwd": (1, 2, 6)}
+                "fused_edge_phase_win_k_bwd": (1, 2, 6),
+                "segment_sum": (1,), "fused_aggregate_node_phase": (1, 2),
+                "fused_edge_phase": (1, 2), "fused_edge_phase_bwd": (1, 2, 5),
+                "fused_edge_mlp_aggregate": (1,),
+                "fused_edge_mlp_aggregate_bwd": (1, 4)}
 ROW_OUTPUTS = {"fused_edge_phase_win_bwd": ("dpre", "dxj"),
                "fused_node_phase_bwd": ("dx", "daggr"),
                "windowed_send_sum": ("out",),
                "fused_edge_phase_win_dyn_bwd": ("dpre", "dxj"),
-               "fused_edge_phase_win_k_bwd": ("dpre", "dxj")}
+               "fused_edge_phase_win_k_bwd": ("dpre", "dxj"),
+               "fused_edge_phase_bwd": ("dzi", "dxj"),
+               "fused_edge_mlp_aggregate_bwd": ("dpre",)}
 # Kernel 2's input with a long list: level 0's residual plus a star of this
 # many edges onto one receiver (`star_resid`), whose list of about 50 rows
 # then takes the gather's long path in two pieces. Its f32 sum, in another
@@ -1490,27 +1522,35 @@ def check_kernels(case, device):
     return errs
 
 
-def check_agg_identity(case):
+def check_agg_identity(case, n=1):
     """Kernel 10 against kernel 3 on kernel 8's aggregate, at every level
     of the pallas surface, in f32, in bf16 and in bf16 compute on f32 x:
-    bit for bit, on the tile `agg_node.tile_design` picks at each level.
-    Both sum the aggregate in the row-ordered gather's order, both round it
-    to bf16 where bf16 compute takes it as a dot operand, and both of
-    kernel 10's node phases (the one-block tile, kernel 3's cluster) do
-    kernel 3's arithmetic (one FMA chain per output over k in order, the
-    same LayerNorm), so any difference is a fault. None of these launches
-    is counted on the main path."""
+    bit for bit, on the tile `agg_node.tile_design` picks at each level
+    (for the batch's n·N_pad rows, where n > 1: a batch of n samples, each
+    drawn from its own generator). Both sum the aggregate in the
+    row-ordered gather's order, both round it to bf16 where bf16 compute
+    takes it as a dot operand, and both of kernel 10's node phases (the
+    one-block tile, kernel 3's cluster) do kernel 3's arithmetic (one FMA
+    chain per output over k in order, the same LayerNorm), so any
+    difference is a fault. None of these launches is counted on the main
+    path."""
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+
     fns = kernel_modules()
     agg, node, seg = (fns[k][0] for k in ("fused_aggregate_node_phase",
                                           "fused_node_phase", "segment_sum"))
     hd, sim = case["hd"], case["sim"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     bf = torch.bfloat16
     modes = (("f32", torch.float32, torch.float32, None),
              ("bf16", bf, bf, bf), ("bf16 on f32 x", torch.float32, bf, bf))
     for l, lvl in enumerate(hd.levels):
-        g = torch.Generator(device="cpu").manual_seed(1400 + l)
-        feat = torch.randn(lvl.n_pad_edges, 128, generator=g)
-        x = torch.randn(lvl.n_pad_nodes, 128, generator=g)
+        feats, xs = [], []
+        for s in range(n):
+            g = torch.Generator(device="cpu").manual_seed(1400 + l + 100 * s)
+            feats.append(torch.randn(lvl.n_pad_edges, 128, generator=g))
+            xs.append(torch.randn(lvl.n_pad_nodes, 128, generator=g))
+        feat, x = (torch.stack(t) if n > 1 else t[0] for t in (feats, xs))
         mlp = level_gmp(sim, hd, l).mlp_node
         same = []
         for mode, x_dt, f_dt, cd in modes:
@@ -1518,11 +1558,15 @@ def check_agg_identity(case):
             got = agg(lvl, f, xx, mlp, cd)
             want = node(xx, seg(lvl, f), mlp, cd)
             same.append(torch.equal(got, want))
-            require(same[-1], f"kernel 10 at level {l} ({mode}) differs from "
-                              f"kernel 3 on kernel 8's aggregate")
+            require(same[-1], f"kernel 10 at level {l} B={n} ({mode}) "
+                              f"differs from kernel 3 on kernel 8's "
+                              f"aggregate")
+        design = agg_node.tile_design(n * lvl.n_pad_nodes, sms)
         print(f"[{case['label']}] kernel 10 = kernel 3 on kernel 8's "
-              f"aggregate at level {l}, bit for bit in "
-              + ", ".join(m for (m, *_), ok in zip(modes, same) if ok))
+              f"aggregate at level {l}"
+              + (f" at B={n}" if n > 1 else "") + f" ({design}), bit for "
+              f"bit in " + ", ".join(m for (m, *_), ok in zip(modes, same)
+                                     if ok))
 
 
 def check_kernel(name, where, args, dtype, sparse=False):
@@ -2490,6 +2534,23 @@ def make_trainer(case, device, cd):
                    device=device, compute_dtype=cd)
 
 
+@contextlib.contextmanager
+def own_peak():
+    """Yields a one-element list that holds, after the block, the MiB the
+    block allocated on the card at its peak above what it started with (0
+    without a card)."""
+    out = [0.0]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    yield out
+    if cuda:
+        torch.cuda.synchronize()
+        out[0] = (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
 def check_train(case, device):
     """The train step through the kernels against the same step through
     the plain versions; the launch counts of one step; a short `Trainer`
@@ -2501,11 +2562,17 @@ def check_train(case, device):
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         reset_counts()
-        loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
+        with own_peak() as peak:
+            loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
         counts[dtype] = read_counts(expected)
         with plain_path():
-            loss_p, grads_p = step_grads(sim, hd, node_in, tar, mask, cd)
+            with own_peak() as peak_p:
+                loss_p, grads_p = step_grads(sim, hd, node_in, tar, mask, cd)
             _, grads_q = step_grads(sim, hd, node_in, tar, mask, cd)
+        if device.type == "cuda":
+            print(f"[{label}] train step {str(dtype)[6:]}: own peak "
+                  f"{peak[0]:.1f} MiB through the kernels, {peak_p[0]:.1f} "
+                  f"MiB through the plain versions")
         plain_grads[dtype] = grads_p
         tol_loss, tol_max, tol_rms = case.get("train_tol", TRAIN_TOL)[dtype]
         # The plain path against itself: its `index_add_` sums run in
@@ -2880,9 +2947,10 @@ def batch_work(name, bargs, dtype):
 
 
 def batch_library_call(name, bargs):
-    """One PyTorch call computing a batched gather (kernels 1, 2 and 7)
-    on the same inputs, or None: `index_add_` on dim -2 (kernels 2 and 7),
-    `torch.sparse.mm` of the operator on x viewed as [N, B·C] (kernel 1)."""
+    """One PyTorch call computing a batched gather (kernels 1, 2, 7 and 8)
+    on the same inputs, or None: `index_add_` on dim -2 (kernels 2, 7 and
+    8), `torch.sparse.mm` of the operator on x viewed as [N, B·C] (kernel
+    1)."""
     if name == "windowed_rect_conv":
         op, x = bargs
         n, rows, c = x.shape
@@ -2904,16 +2972,48 @@ def batch_library_call(name, bargs):
         a = torch.zeros(vals.shape[0], lvl.n_pad_nodes, vals.shape[-1],
                         device=vals.device)
         return lambda: a.index_add_(-2, idx, v)
+    if name == "segment_sum":
+        lvl, feat = bargs[:2]
+        slots = lvl.row_send if bargs[2:] and bargs[2] else lvl.row_slots
+        rows = lvl.receivers.index_select(0, lvl.row_slots).long()
+        v = feat.index_select(-2, slots).float()
+        a = torch.zeros(feat.shape[0], lvl.n_pad_nodes, feat.shape[-1],
+                        device=feat.device)
+        return lambda: a.index_add_(-2, rows, v)
     return None
+
+
+def segment_sum_shapes(case, dtype, device):
+    """Kernel 8's shapes on a fused path that runs it (the unwindowed
+    airfoil: the sender gathers' backwards and the sparse transitions):
+    level 0 in both forms and each sparse operator, drawn from a generator
+    seeded with 9."""
+    hd = case["hd"]
+    g = torch.Generator(device="cpu").manual_seed(9)
+
+    def feat(layout):
+        return torch.randn(layout.n_pad_edges, 128, generator=g).to(
+            dtype).to(device)
+
+    lvl = hd.levels[0]
+    return ([("level 0", (lvl, feat(lvl))),
+             ("level 0 send", (lvl, feat(lvl), True))]
+            + [(where, (op, feat(op))) for where, op in sparse_ops(hd)])
 
 
 def batch_inputs(case, dtype, device, names=None):
     """(name, [(where, arguments)]) of each kernel of the batched path at
     the case's path's shapes (`kernel_inputs`, `bwd_kernel_inputs`): the
     forward kernels, then the backward kernels (those of `names` only,
-    where given)."""
+    where given); kernel 8 at `segment_sum_shapes` where `names` asks for
+    it on a path that lists no shape of it."""
     fwd = kernel_inputs(case, dtype, device)
-    bwd = bwd_kernel_inputs(case, dtype, device)
+    if names is not None and "segment_sum" in names and (
+            "segment_sum" not in fwd):
+        fwd["segment_sum"] = segment_sum_shapes(case, dtype, device)
+    bwd = ({} if names is not None and not any(n in BWD_OUTPUTS
+                                               for n in names)
+           else bwd_kernel_inputs(case, dtype, device))
     return [(k, v) for k, v in (*fwd.items(), *bwd.items())
             if k in BATCHED_ARGS and (names is None or k in names)]
 
@@ -3038,6 +3138,23 @@ def batch_frames(case, n, seed):
     return frames, frames[..., :c] + step.to(node_in.device) * masks, masks
 
 
+def surface_frames(case, n, seed):
+    """n frames around the surface's trajectory frame pair
+    (`build_surface_case`'s train frames): sample s's world positions are
+    frame 0's plus 0.02·N(0, 1) on the real rows, from a generator seeded
+    with `seed`, and its target frame 1's plus the same offset; the case's
+    mask."""
+    node_in, tar = case["train_frames"]
+    real = case["n"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shift = torch.zeros(n, node_in.shape[0], 3)
+    shift[:, :real] = 0.02 * torch.randn(n, real, 3, generator=g)
+    shift = shift.to(node_in.device)
+    frames = node_in.expand(n, -1, -1).clone()
+    frames[..., :3] += shift
+    return frames, tar + shift, case["mask"].expand(n, -1, -1).contiguous()
+
+
 def flag_frames(case, n, seed):
     """n frames of the contact recipe on the flag's strip: sample s's world
     x, y the mesh position, z = 0.05·N(0, 1) from a generator seeded with
@@ -3056,7 +3173,8 @@ def flag_frames(case, n, seed):
 # The batched paths: (the function that builds the case, its label, the
 # kernels checked at BATCH_CHECK samples (None: every kernel of
 # BATCHED_ARGS the path runs), the seed of the first shape's other samples
-# (each later shape k adds 50·k)).
+# (each later shape k adds 50·k)). A case's `train_batch` replaces
+# BATCH_TRAIN, its `frames` `batch_frames`' draw.
 BATCH_PATHS = {
     "airfoil_batch": (lambda d: build_case(d), "airfoil 5k batch", None,
                       1700),
@@ -3067,6 +3185,19 @@ BATCH_PATHS = {
                      "airfoil 5k fused4 batch",
                      ("fused_edge_phase_win_k", "fused_edge_phase_win_k_bwd"),
                      2800),
+    "surface_batch": (lambda d: dict(build_surface_case(d),
+                                     frames=surface_frames,
+                                     train_batch=BATCH_TRAIN_SURFACE),
+                      "surface 16k batch",
+                      ("segment_sum", "fused_aggregate_node_phase"), 3200),
+    "plain_batch": (lambda d: build_case(d, plain=True),
+                    "airfoil 5k plain batch",
+                    ("fused_edge_phase", "fused_edge_phase_bwd",
+                     "segment_sum"), 4600),
+    "surface_fused_batch": (lambda d: dict(
+        build_surface_case(d, aggregation="fused"), frames=surface_frames),
+        "surface 16k fused batch",
+        ("fused_edge_mlp_aggregate", "fused_edge_mlp_aggregate_bwd"), 5400),
 }
 
 
@@ -3074,18 +3205,20 @@ def run_batch_case(device, path):
     """A batched path (BATCH_PATHS): its case with batches of distinct
     frames over its one hierarchy. Its kernels at BATCH_CHECK samples at
     every shape its B = 1 path checks them at (`check_batched`), f32 and
-    bf16 (on the airfoil also kernel 6 at BATCH_TRAIN on level 0); serving
-    at BATCH_SERVE (the forward against the plain path, the case's B = 1
-    launch and narrow-route counts); the train step at BATCH_TRAIN (its
-    gradients against the plain path, the case's B = 1 train-step counts)
-    and a `Trainer` run there; then the times. Returns (kernel errors, {},
-    forward launch counts, train-step launch counts, end-to-end times) as
-    `run_case` does."""
+    bf16 (on the airfoil also kernel 6 at BATCH_TRAIN on level 0; on the
+    pallas surface kernel 10 against kernel 3 on kernel 8's aggregate);
+    serving at BATCH_SERVE (the forward against the plain path, the case's
+    B = 1 launch and narrow-route counts); the train step at the case's
+    train batch (its gradients against the plain path, the case's B = 1
+    train-step counts) and a `Trainer` run there; then the times. Returns
+    (kernel errors, {}, forward launch counts, train-step launch counts,
+    end-to-end times) as `run_case` does."""
     build, label, names, seed = BATCH_PATHS[path]
     case = build(device)
     case["label"] = label
     sim, hd = case["sim"], case["hd"]
     expected, narrow = case["expected"], case["narrow"]
+    train_b = case.get("train_batch", BATCH_TRAIN)
     errs = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
@@ -3097,6 +3230,9 @@ def run_batch_case(device, path):
                     errs.setdefault((name, dtype), err)
             if path == "airfoil_batch":
                 check_partial_ranges(case, dtype, device)
+        if case["cfg"].aggregation == "pallas":
+            check_agg_identity(case, BATCH_CHECK)
+            print_agg_designs(case, (BATCH_SERVE, train_b))
         node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
         serve = {}
         for dtype in (torch.float32, torch.bfloat16):
@@ -3122,7 +3258,8 @@ def run_batch_case(device, path):
                         f"{label} B={BATCH_SERVE} forward launch counts "
                         f"{counts}, narrow-route calls {narrowed}")
             serve = serve or counts
-    node_in, tar, mask = batch_frames(case, BATCH_TRAIN, 22)
+        del got, want
+    node_in, tar, mask = batch_frames(case, train_b, 22)
     # check_train on the batch: the step's gradients against the plain
     # path (TRAIN_TOL), the launch counts of one step (the case's
     # expected_train), and the `Trainer` run on the batch (the gate, then
@@ -3136,23 +3273,41 @@ def run_batch_case(device, path):
     return errs, {}, serve, train, e2e
 
 
+def print_agg_designs(case, batches):
+    """The tile `agg_node.tile_design` picks for kernel 10 at each level of
+    the pallas surface at B = 1 and at each batch of `batches` (it decides
+    on the launch's B·N_pad rows)."""
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in sorted({1, *batches}):
+        print(f"[{case['label']}] kernel 10's tile at B={n}: " + ", ".join(
+            f"L{l} {agg_node.tile_design(n * lvl.n_pad_nodes, sms)}"
+            for l, lvl in enumerate(case["hd"].levels)))
+
+
 def measure_batch(case, device):
-    """Forward wall (median of five repeats of ten, CUDA events) and busy
-    ms at B = 1, BATCH_SERVE and BATCH_TRAIN; the train step at B = 1 and
-    BATCH_TRAIN: wall (median of five repeats of five), busy, idle share,
-    CUDA kernels and own peak MiB; busy ms per sample. f32 and bf16."""
+    """Forward wall (median of five repeats of ten calls, CUDA events; of
+    three above BATCH_SERVE, where a call takes tens of ms or more) and
+    busy ms at B = 1, BATCH_SERVE and the case's train batch (BATCH_TRAIN
+    unless it names one); the train step at B = 1 and the train batch:
+    wall (median of five repeats of five steps at B = 1, of two at the
+    batch, where a step takes hundreds of ms), busy, idle share, CUDA
+    kernels and own peak MiB; busy ms per sample. f32 and bf16."""
     sim, hd, label = case["sim"], case["hd"], case["label"]
+    train_b = case.get("train_batch", BATCH_TRAIN)
     e2e = {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         key = str(dtype)[6:].replace("float32", "f32").replace(
             "bfloat16", "bf16")
-        for n in (1, BATCH_SERVE, BATCH_TRAIN):
+        for n in sorted({1, BATCH_SERVE, train_b}):
             node_in, _, mask = (batch_frames(case, n, 21) if n > 1 else
                                 (case["node_in"], None, case["mask"]))
+            reps, warm = (10, 3) if n <= BATCH_SERVE else (3, 1)
             with torch.no_grad():
-                runs = [event_ms(lambda: sim(hd, node_in, mask, cd), reps=10)
-                        for _ in range(5)]
+                runs = [event_ms(lambda: sim(hd, node_in, mask, cd),
+                                 reps=reps, warmup=warm) for _ in range(5)]
                 prof = profile_call(lambda: sim(hd, node_in, mask, cd))
             wall, busy = float(np.median(runs)), prof[1]
             e2e[f"forward_ms_b{n}_{key}"] = wall
@@ -3161,7 +3316,7 @@ def measure_batch(case, device):
                   f"{[round(r, 4) for r in runs]}), busy {busy:.4f} ms "
                   f"({busy / n:.4f} per sample), idle share "
                   f"{1 - busy / wall:.3f}, {prof[2]} CUDA kernels")
-        for n in (1, BATCH_TRAIN):
+        for n in (1, train_b):
             if n == 1:
                 node_in, tar = case.get("train_frames") or (
                     case["node_in"], train_target(case))
@@ -3175,14 +3330,12 @@ def measure_batch(case, device):
 
             for _ in range(TRAIN_GATE + 1):
                 step()
-            runs = [event_ms(step, reps=5, warmup=1) for _ in range(5)]
+            runs = [event_ms(step, reps=5 if n == 1 else 2, warmup=1)
+                    for _ in range(5)]
             ms = float(np.median(runs))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            held = torch.cuda.memory_allocated() / 2**20
-            step()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() / 2**20 - held
+            with own_peak() as peak:
+                step()
+            peak = peak[0]
             prof = profile_call(step)
             print_profile(f"[{label}] train step B={n} {key}", *prof)
             if n > 1:
@@ -3278,7 +3431,10 @@ def main() -> int:
               "airfoil_fused4_"),
              ("airfoil_batch", None, "airfoil_b48_"),
              ("flag_batch", None, "flag_b48_"),
-             ("fused4_batch", None, "airfoil_fused4_b48_"))
+             ("fused4_batch", None, "airfoil_fused4_b48_"),
+             ("surface_batch", None, f"surface_b{BATCH_TRAIN_SURFACE}_"),
+             ("plain_batch", None, "airfoil_plain_b48_"),
+             ("surface_fused_batch", None, "surface_fused_b48_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")

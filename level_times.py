@@ -39,10 +39,15 @@ the step starts with, each read after the previous path's case is freed.
 With `--batch B` the airfoil path also times kernels 1-7 on a batch of B
 samples over its one hierarchy (chip_smoke.py's `batch_args`: sample 0
 the B = 1 inputs) at every shape chip_smoke.py checks them at, the flag
-path kernel 13 (forward and backward) at level 0 and the `fused4` path
-kernel 14 (forward and backward) at level 3, each beside the bound of B
-samples' work (`batch_work`) and, for kernels 1, 2 and 7, its library
-call at B (`batch_library_call`); with `--pmax`
+path kernel 13 (forward and backward) at level 0, the `fused4` path
+kernel 14 (forward and backward) at level 3, the pallas surface kernel 8
+(level 0 and T0 down) and kernel 10 (level 0, and the tile its rule
+picks at every level at B), the unwindowed airfoil kernel 12 (forward
+and backward) at level 0 and the fused surface kernel 11 (forward and
+backward) at level 0, each beside the bound of B samples' work
+(`batch_work`), the plain version at B and, for kernels 1, 2, 7 and 8,
+its library call at B (`batch_library_call`); the kernels timed at named
+shapes also beside their B = 1 call; with `--pmax`
 kernel 6 at B again at each of those caps on its weight-gradient
 partials (`node_mlp.p_max` replaced for the sweep) beside the card's
 own.
@@ -155,6 +160,19 @@ def device_ms(fn, reps=20, tries=5):
         print(f"  (a profile of {reps} calls held {launches} launches, not "
               f"{reps} x {per_call}: taken again)")
     raise RuntimeError("no profile held every launch of its calls")
+
+
+def timed_ms(cs, fn):
+    """`device_ms`, or where no profile held every launch of the call
+    (seen for kernel 10 at the surface's level 0 right after its B = 48
+    calls: each profile lost its first launch), the call's ms by CUDA
+    events (chip_smoke.py's `event_ms`, 20 calls), said so."""
+    try:
+        return device_ms(fn)
+    except RuntimeError:
+        print("  (timed by CUDA events instead: no profile held the "
+              "call's launches)")
+        return cs.event_ms(fn, reps=20)
 
 
 DIGESTS = {}
@@ -373,22 +391,31 @@ def node_bwd_digests(case, device):
 
 
 # The kernels `--batch` times on a path other than the airfoil's, at the
-# first shape chip_smoke.py checks them at (flag level 0, `fused4` level 3).
-BATCH_FIRST = {"flag": ("fused_edge_phase_win_dyn",
-                        "fused_edge_phase_win_dyn_bwd"),
-               "airfoil_fused4": ("fused_edge_phase_win_k",
-                                  "fused_edge_phase_win_k_bwd")}
+# shapes named (of those chip_smoke.py checks them at).
+BATCH_SHAPES = {
+    "flag": {"fused_edge_phase_win_dyn": ("level 0",),
+             "fused_edge_phase_win_dyn_bwd": ("level 0",)},
+    "airfoil_fused4": {"fused_edge_phase_win_k": ("level 3",),
+                       "fused_edge_phase_win_k_bwd": ("level 3",)},
+    "surface": {"segment_sum": ("level 0", "T0 down"),
+                "fused_aggregate_node_phase": ("level 0",)},
+    "airfoil_plain": {"fused_edge_phase": ("level 0",),
+                      "fused_edge_phase_bwd": ("level 0",)},
+    "surface_fused": {"fused_edge_mlp_aggregate": ("level 0",),
+                      "fused_edge_mlp_aggregate_bwd": ("level 0",)},
+}
 
 
-def time_batched(cs, case, device, n, pmax=(), names=None):
-    """Kernels 1-7 (or those of `names`, at their first shape only) on a
-    batch of n samples at every shape chip_smoke.py checks them at
+def time_batched(cs, case, device, n, pmax=(), wheres=None):
+    """Kernels 1-7 (or those of `wheres`, at the shapes it names for each)
+    on a batch of n samples at every shape chip_smoke.py checks them at
     ({label: {dtype: {"shapes": {where: ms}, "bounds": {where: ms},
-    "library": {where: ms}, "plain": {where: ms}, "step_ms": ms}}}; the
-    library call and the plain version by CUDA events, in f32; "step_ms"
-    sums the launches of one train step for the kernels timed at every
-    level); then kernel 6 at n again at each cap of `pmax` ({cap: {dtype:
-    {where: ms}}} under "kernel 6 pmax", each cap put in place of
+    "library": {where: ms}, "plain": {where: ms}, "one": {where: ms},
+    "step_ms": ms}}}; the library call and the plain version by CUDA
+    events, in f32; "one" the B = 1 call's device ms at the named shapes;
+    "step_ms" sums the launches of one train step for the kernels timed at
+    every level); then kernel 6 at n again at each cap of `pmax` ({cap:
+    {dtype: {where: ms}}} under "kernel 6 pmax", each cap put in place of
     `node_mlp.p_max` for its reading)."""
     from bsms_gnn_tpu_torch.ops.kernels import node_mlp
 
@@ -401,22 +428,33 @@ def time_batched(cs, case, device, n, pmax=(), names=None):
               "fused_edge_phase_win_dyn": "kernel 13",
               "fused_edge_phase_win_dyn_bwd": "kernel 13 bwd",
               "fused_edge_phase_win_k": "kernel 14",
-              "fused_edge_phase_win_k_bwd": "kernel 14 bwd"}
+              "fused_edge_phase_win_k_bwd": "kernel 14 bwd",
+              "segment_sum": "kernel 8",
+              "fused_aggregate_node_phase": "kernel 10",
+              "fused_edge_phase": "kernel 12",
+              "fused_edge_phase_bwd": "kernel 12 bwd",
+              "fused_edge_mlp_aggregate": "kernel 11",
+              "fused_edge_mlp_aggregate_bwd": "kernel 11 bwd"}
     depth = case["hd"].depth
     out, sweep = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         key = str(dtype)[6:]
-        for name, shapes in cs.batch_inputs(case, dtype, device, names):
+        for name, shapes in cs.batch_inputs(case, dtype, device,
+                                            None if wheres is None
+                                            else tuple(wheres)):
             fn, plain = cs.kernel_modules()[name]
             label = f"{labels[name]} B={n}"
-            per, bound, lib, pl = {}, {}, {}, {}
-            for k, (where, args) in enumerate(
-                    shapes if names is None else shapes[:1]):
+            per, bound, lib, pl, one = {}, {}, {}, {}, {}
+            for k, (where, args) in enumerate(shapes):
+                if wheres is not None and where not in wheres[name]:
+                    continue
                 bargs = cs.batch_args(name, args, n, 1700 + 50 * k)
                 call = functools.partial(fn, *bargs)
                 if name != "compact_accum":  # adds onto acc in place
                     digest(label, dtype, where, call())
-                per[where] = device_ms(call)
+                per[where] = timed_ms(cs, call)
+                if wheres is not None:
+                    one[where] = timed_ms(cs, functools.partial(fn, *args))
                 by, ops = cs.batch_work(name, bargs, dtype)
                 bound[where] = max(by / cs.PEAK_BYTES_S,
                                    ops / cs.PEAK_FLOPS_S[dtype]) * 1e3
@@ -459,11 +497,13 @@ def time_batched(cs, case, device, n, pmax=(), names=None):
                                 "fused_node_phase_bwd") else None)
             out.setdefault(label, {})[key] = {
                 "shapes": per, "bounds": bound, "library": lib, "plain": pl,
-                "step_ms": step}
+                "one": one, "step_ms": step}
             print(f"{label} ({name}) {key}: " + ", ".join(
                 f"{w} {per[w]:.5f} (bound {bound[w]:.5f}"
                 + ("" if lib[w] is None else f", library {lib[w]:.5f}")
-                + ("" if pl[w] is None else f", plain {pl[w]:.5f}") + ")"
+                + ("" if pl[w] is None else f", plain {pl[w]:.5f}")
+                + ("" if w not in one else f", B = 1 {one[w]:.5f} x {n} = "
+                   f"{one[w] * n:.5f}") + ")"
                 for w in per) + " ms"
                 + ("" if step is None else f"; the {2 * len(levels) - 1} "
                    f"launches of a step {step:.4f} ms"))
@@ -480,7 +520,9 @@ def main() -> int:
                     help="comma-separated paths to time (default: all)")
     ap.add_argument("--batch", type=int, default=0,
                     help="also time kernels 1-7 on the airfoil, 13 on the "
-                         "flag and 14 on the fused4 airfoil at this batch")
+                         "flag, 14 on the fused4 airfoil, 8 and 10 on the "
+                         "surface, 12 on the unwindowed airfoil and 11 on "
+                         "the fused surface at this batch")
     ap.add_argument("--pmax", default="",
                     help="comma-separated caps on kernel 6's partials to "
                          "time at the batch (wK: K waves of its clusters)")
@@ -543,9 +585,11 @@ def main() -> int:
                     cs, case, device, opts.batch,
                     [v if v.startswith("w") else int(v)
                      for v in opts.pmax.split(",") if v]))
-            if path in BATCH_FIRST and opts.batch:
+            if path in BATCH_SHAPES and opts.batch:
                 out.update(time_batched(cs, case, device, opts.batch,
-                                        names=BATCH_FIRST[path]))
+                                        wheres=BATCH_SHAPES[path]))
+            if path == "surface" and opts.batch:
+                cs.print_agg_designs(case, (opts.batch,))
         del case
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "card": cs.card_line(), **out,

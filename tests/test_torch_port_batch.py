@@ -16,8 +16,8 @@ vmapped over the batch as the JAX package runs them on a consistent mesh.
   calls'.
 - Every wrapper off the batched path still raises
   NotImplementedError("batch axis") on a batch; those that took the batch
-  in later slices (kernels 13 and 14, the narrow transition route) return
-  its shape.
+  in later slices (kernels 8 and 10-14, the kernel-8 and narrow transition
+  routes, the gathers on a block-aligned level) return its shape.
 
 The forward, the loss and the gradients at B = 2 are in
 `test_torch_port_batch_grads.py`, the `Trainer` in
@@ -359,11 +359,12 @@ def _plain_versions_per_sample(case, ht, sim, dt):
 
 def test_off_path_wrappers_refuse_a_batch(case):
     """Every wrapper off the batched path raises
-    NotImplementedError("batch axis") on a [B, ...] input: kernels 8-12
-    and 15, kernel 1's level form, the kernel-8 transition route, the
-    pallas gathers and the explicit conv. Kernels 13 and 14 (the autograd
-    entries and kernel 14's forward) and the narrow transition route take
-    the batch: each returns its [B, ...] shape."""
+    NotImplementedError("batch axis") on a [B, ...] input: kernels 9 and
+    15, kernel 1's level form, the explicit conv and the gathers on a
+    skip-empty layout (their backward is kernel 9). Kernels 8 (both forms),
+    10, 11, 12, 13 and 14 (the autograd entries and kernel 14's forward),
+    the kernel-8 and narrow transition routes and the gathers on a
+    block-aligned level take the batch: each returns its [B, ...] shape."""
     ht, sim = case["ht"], case["sim"]
     lvl = ht.levels[0]
     n, e = lvl.n_pad_nodes, lvl.n_pad_edges
@@ -375,32 +376,33 @@ def test_off_path_wrappers_refuse_a_batch(case):
     wf8 = torch.zeros(8, C)
     op = ht.transitions[0].down_op
     unwindowed = dataclasses.replace(op, window=0)
+    skip_empty = dataclasses.replace(lvl, skip_empty=True)
     calls = {
-        "kernel 8": lambda: segment_sum.segment_sum_raw(lvl, feat),
-        "kernel 8 send": lambda: segment_sum.segment_sum_send(lvl, feat),
         "kernel 9": lambda: segment_sum_accum.segment_sum_accum_raw(
             lvl, feat, acc),
         "kernel 9 autograd": lambda: segment_sum_accum.segment_sum_accum(
             lvl, feat, acc),
-        "kernel 10": lambda: agg_node.fused_aggregate_node_phase(
-            lvl, feat, x, gmp.mlp_node),
-        "kernel 11": lambda: fused_gmp_stream.fused_edge_mlp_aggregate(
-            lvl, feat, ws, bs),
-        "kernel 12": lambda: fused_gmp_stream.fused_edge_phase(
-            lvl, feat, x, ws, bs),
         "kernel 15": lambda: subwin_conv.subwin_conv(
             lvl, x, torch.zeros(e), None, None),
         "kernel 1 level form": lambda: windowed.windowed_conv(lvl, x, lvl.ew),
         "explicit conv": lambda: message.edge_conv_down(lvl, x),
-        "kernel-8 transition": lambda: transition._apply(
-            unwindowed, torch.zeros(B, op.n_in_pad, C)),
-        "gather_send": lambda: scatter.gather_send(lvl, x),
-        "gather_recv": lambda: scatter.gather_recv(lvl, x),
+        "gather_send skip-empty": lambda: scatter.gather_send(skip_empty, x),
+        "gather_recv skip-empty": lambda: scatter.gather_recv(skip_empty, x),
     }
     for what, call in calls.items():
         with pytest.raises(NotImplementedError, match="batch axis"):
             call()
     runs = {
+        "kernel 8": (lambda: segment_sum.segment_sum_raw(lvl, feat),
+                     (B, n, C)),
+        "kernel 8 send": (lambda: segment_sum.segment_sum_send(lvl, feat),
+                          (B, n, C)),
+        "kernel 10": (lambda: agg_node.fused_aggregate_node_phase(
+            lvl, feat, x, gmp.mlp_node), (B, n, C)),
+        "kernel 11": (lambda: fused_gmp_stream.fused_edge_mlp_aggregate(
+            lvl, feat, ws, bs), (B, n, C)),
+        "kernel 12": (lambda: fused_gmp_stream.fused_edge_phase(
+            lvl, feat, x, ws, bs), (B, n, C)),
         "kernel 13": (lambda: fused_gmp_dyn.fused_edge_phase_win_dyn(
             lvl, x, x, torch.zeros(B, n, 3), wf8, torch.zeros(3, C),
             torch.zeros(C), ws, bs), (B, n, C)),
@@ -408,8 +410,13 @@ def test_off_path_wrappers_refuse_a_batch(case):
             lvl, x, x, wf8, ws, bs, 2, min_density=0), (B, n, C)),
         "kernel 14 forward": (lambda: fused_gmp_k.fused_edge_phase_win_k_fwd(
             lvl, x, x, wf8, ws, bs, 2), (B, n, C)),
+        "kernel-8 transition": (lambda: transition._apply(
+            unwindowed, torch.zeros(B, op.n_in_pad, C)),
+            (B, op.n_pad_nodes, C)),
         "narrow transition": (lambda: transition.narrow_apply(
             op, torch.zeros(B, op.n_in_pad, 3)), (B, op.n_pad_nodes, 3)),
+        "gather_send": (lambda: scatter.gather_send(lvl, x), (B, e, C)),
+        "gather_recv": (lambda: scatter.gather_recv(lvl, x), (B, e, C)),
     }
     with torch.no_grad():
         for what, (call, shape) in runs.items():

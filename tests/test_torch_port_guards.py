@@ -472,15 +472,17 @@ def test_unsupported_layouts_raise(hier):
         with pytest.raises(NotImplementedError, match="aggregation method"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes,
                                               128), method="ell")
-        # A batch runs the windowed fused route (v3); the routes that take
-        # B = 1 refuse it: the pallas method, and fused on an unwindowed
-        # level (v2).
+        # A batch runs the windowed fused route (v3), the pallas method and
+        # fused on an unwindowed level (v2); the explicit conv, which takes
+        # B = 1, refuses it.
         assert gmp(hd.levels[0], torch.zeros(2, n, 128)).shape == (2, n, 128)
+        assert gmp(hd.levels[0], torch.zeros(2, n, 128),
+                   method="pallas").shape == (2, n, 128)
+        nf = h_flat.levels[0].n_pad_nodes
+        assert gmp(h_flat.levels[0], torch.zeros(2, nf, 128)).shape == (
+            2, nf, 128)
         with pytest.raises(NotImplementedError, match="batch axis"):
-            gmp(hd.levels[0], torch.zeros(2, n, 128), method="pallas")
-        with pytest.raises(NotImplementedError, match="batch axis"):
-            gmp(h_flat.levels[0],
-                torch.zeros(2, h_flat.levels[0].n_pad_nodes, 128))
+            edge_conv_down(hd.levels[0], torch.zeros(2, n, 128))
         with pytest.raises(NotImplementedError, match="latent width"):
             GMP(64, 1, 2)(hd.levels[0], torch.zeros(n, 64))
         with pytest.raises(NotImplementedError, match="windowed"):
