@@ -59,8 +59,11 @@ class ModelConfig:
     # normalized I/O boundary to full precision while the processor runs in
     # the compute dtype.
     io_dtype: str = ""
-    # Checkpoint each GMP block. Not ported: the trainer raises on True.
+    # Checkpoint each GMP block whose level has at least `remat_min_nodes`
+    # padded rows per sample: its forward is replayed in the backward
+    # instead of holding its activations.
     remat: bool = False
+    remat_min_nodes: int = 0
 
     def __post_init__(self):
         split_interleave(self.aggregation)
@@ -95,8 +98,8 @@ class OptConfig:
     decay_steps: int = 200000
     gnorm_clip: float = 1.0
     weight_decay: float = 1e-4
-    # optax.MultiSteps in the JAX package. Not ported: the trainer raises
-    # on > 1.
+    # optax.MultiSteps: the mean of this many steps' gradients is applied
+    # every this-many-th step.
     gradient_accumulation_steps: int = 1
 
 

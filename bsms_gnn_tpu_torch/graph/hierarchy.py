@@ -226,10 +226,19 @@ class Transition:
 class Hierarchy:
     levels: Tuple[LevelGraph, ...]
     transitions: Tuple[Transition, ...]
+    # A union of `samples` hierarchies of one size group (`union`): each
+    # level holds `samples` blocks of its per-sample N_pad rows, and
+    # `sample_nodes[l]` lists each sample's real node count at level l.
+    samples: int = 1
+    sample_nodes: Tuple[Tuple[int, ...], ...] = ()
 
     @property
     def depth(self) -> int:
         return len(self.transitions)
+
+    def sample_pad(self, l: int) -> int:
+        """Level l's padded rows per sample."""
+        return self.levels[l].n_pad_nodes // self.samples
 
 
 def _compact_resid(
@@ -876,7 +885,7 @@ def _to_device(obj, device):
             changes[f.name] = _tensor(v, device)
         elif dataclasses.is_dataclass(v):
             changes[f.name] = _to_device(v, device)
-        elif isinstance(v, tuple):
+        elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
             changes[f.name] = tuple(_to_device(x, device) for x in v)
     out = dataclasses.replace(obj, **changes)
     if isinstance(obj, (LevelGraph, TransOp)):
@@ -924,3 +933,147 @@ def to_device(h: Hierarchy, device=None) -> Hierarchy:
     `cr_long`). Each output block's edge segment starts on a chunk
     boundary by construction, so its chunks are one contiguous range."""
     return _to_device(h, resolve_device(device))
+
+
+# -- unions: B samples of one size group as one block-diagonal hierarchy ------
+
+# How an index field of a layout moves in a union (`union`): sample s's
+# entries add s times its node rows, edge slots, 128-row node blocks or
+# half-windows (`win_base` counts half-windows of window / 2 rows).
+_OFFSETS = {"senders": "rows", "receivers": "rows", "row_long": "rows",
+            "win_long": "rows", "send_long": "rows",
+            "reverse_perm": "slots", "row_slots": "slots",
+            "row_send": "slots", "win_row_slots": "slots",
+            "send_row_slots": "slots", "chunk_block": "blocks",
+            "win_base": "half_windows"}
+# The cumulative pointer arrays (one entry longer than their rows, the last
+# the total), each with the list it points into: sample s's entries add the
+# lengths of the earlier samples' lists, which differ from mesh to mesh.
+_POINTERS = {"recv_indptr": "senders", "chunk_ptr": "chunk_block",
+             "row_ptr": "row_slots", "win_row_ptr": "win_row_slots",
+             "send_row_ptr": "send_row_slots"}
+
+
+def _cat(parts, dim: int = 0):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim)
+    return np.concatenate(parts, axis=dim)
+
+
+def _one(like, value: int):
+    """[value] as a 1-element array of `like`'s kind, dtype and device."""
+    if isinstance(like, torch.Tensor):
+        return torch.tensor([value], dtype=like.dtype, device=like.device)
+    return np.asarray([value], like.dtype)
+
+
+def union_layout(ls: List[LevelGraph]) -> LevelGraph:
+    """The union of one level's layouts (and their residual sub-levels),
+    every field offset by its kind (`_OFFSETS`, `_POINTERS`) and
+    concatenated, `fiber_t` along its slot axis; the real counts summed."""
+    l0 = ls[0]
+    n, e, w = l0.n_pad_nodes, l0.n_pad_edges, l0.window
+    shape = (n, e, l0.edge_block, w, l0.skip_empty, l0.fiber.shape[-1],
+             l0.resid is None)
+    for lv in ls[1:]:
+        got = (lv.n_pad_nodes, lv.n_pad_edges, lv.edge_block, lv.window,
+               lv.skip_empty, lv.fiber.shape[-1], lv.resid is None)
+        if got != shape:
+            raise ValueError(f"the samples' layouts differ: (N_pad, E_pad, "
+                             f"edge_block, window, skip_empty, fiber, no "
+                             f"residual) {got} != {shape}")
+    if any(lv.cresid is not None for lv in ls):
+        raise ValueError("a union takes bucketed layouts, which carry no "
+                         "compact residual")
+    # Row and slot indices stay int32 (the kernels widen them to 64 bits
+    # before they scale them by the row width): the cylinder's level 0 at
+    # B = 48 holds 98,304 rows and 761,856 slots.
+    if len(ls) * max(n, e) >= 2**31:
+        raise ValueError(f"{len(ls)} samples of {n} rows and {e} slots "
+                         f"overflow int32 indices")
+    step = {"rows": n, "slots": e, "blocks": n // NODE_BLOCK}
+    if w:
+        wh = w // 2
+        step["half_windows"] = n // wh
+        # Every chunk's source window, rows [base·W/2, base·W/2 + W), lies
+        # inside its own sample (`_pad_level` shrinks a window wider than
+        # the level to it), so no kernel reads another sample's rows.
+        reach = max(int(lv.win_base.max()) for lv in ls) * wh + w
+        if n % wh or reach > n:
+            raise ValueError(f"a window of {w} rows reaches row {reach} of "
+                             f"a sample of {n}")
+    changes = {}
+    for f in dataclasses.fields(LevelGraph):
+        vals = [getattr(lv, f.name) for lv in ls]
+        v0 = vals[0]
+        if f.name == "resid":
+            changes[f.name] = None if v0 is None else union_layout(vals)
+        elif f.name in ("n_nodes", "n_edges"):
+            changes[f.name] = sum(vals)
+        elif v0 is None or not hasattr(v0, "shape"):
+            continue
+        elif f.name in _POINTERS:
+            totals = np.cumsum([0] + [getattr(lv, _POINTERS[f.name]).shape[0]
+                                      for lv in ls])
+            changes[f.name] = _cat(
+                [v[:-1] + int(o) for v, o in zip(vals, totals)]
+                + [_one(v0, int(totals[-1]))])
+        elif f.name in _OFFSETS:
+            s = step[_OFFSETS[f.name]]
+            changes[f.name] = _cat([v + i * s for i, v in enumerate(vals)])
+        else:
+            changes[f.name] = _cat(vals, -1 if f.name == "fiber_t" else 0)
+    return dataclasses.replace(l0, **changes)
+
+
+def _union_transition(ts: List[Transition], n_parent: int,
+                      n_child: int) -> Transition:
+    """The union of one transition's pool / unpool maps: sample s's parent
+    rows add s·N_pad_parent, its child rows s·M_pad; unpool's zero slot
+    (M_pad) becomes the union's, B·M_pad."""
+    if any(t.down_op is not None or t.up_op is not None for t in ts):
+        raise ValueError("a union takes bucketed transitions, which carry "
+                         "no fused operator")
+    b = len(ts)
+    xp = torch if isinstance(ts[0].pool_ids, torch.Tensor) else np
+    return Transition(
+        pool_ids=_cat([t.pool_ids + i * n_parent for i, t in enumerate(ts)]),
+        unpool_inv=_cat([xp.where(t.unpool_inv == n_child, b * n_child,
+                                  t.unpool_inv + i * n_child)
+                         for i, t in enumerate(ts)]))
+
+
+def union(hs) -> Hierarchy:
+    """One hierarchy holding the B hierarchies `hs` of one size group (the
+    same padded shapes; built by `pad_levels` with one bucket plan's
+    sizes) side by side: level l has B·N_pad_l rows, sample s's at s·N_pad_l
+    on, and every index is offset by its sample's rows, slots, chunks or
+    windows, so the graph is block-diagonal and a batch [B, N_pad, C]
+    viewed as [B·N_pad, C] runs every route and kernel as one sample does.
+    The arrays may be numpy (`pad_levels`) or tensors on one device
+    (`to_device`, derived tables included); the union is of the same
+    kind. Unbucketed hierarchies (fused transition operators, compact
+    residuals) raise ValueError: their batch runs on the batch axis."""
+    hs = list(hs)
+    h0 = hs[0]
+    if any(h.samples != 1 or len(h.levels) != len(h0.levels) for h in hs):
+        raise ValueError("a union takes single hierarchies of one depth")
+    levels = tuple(union_layout([h.levels[l] for h in hs])
+                   for l in range(len(h0.levels)))
+    transitions = tuple(
+        _union_transition([h.transitions[l] for h in hs],
+                          h0.levels[l].n_pad_nodes,
+                          h0.levels[l + 1].n_pad_nodes)
+        for l in range(h0.depth))
+    return Hierarchy(levels=levels, transitions=transitions, samples=len(hs),
+                     sample_nodes=tuple(tuple(h.levels[l].n_nodes for h in hs)
+                                        for l in range(len(h0.levels))))
+
+
+def needs_union(h: Hierarchy) -> bool:
+    """Whether a batch on `h` runs as a union: h is one already, or a
+    bucketed hierarchy, whose explicit conv + pool transitions and residual
+    sub-levels take one sample's rows (a batch of b frames on it runs on
+    `union([h] * b)`)."""
+    return h.samples > 1 or any(t.down_op is None for t in h.transitions) \
+        or any(lv.resid is not None for lv in h.levels)

@@ -2,9 +2,15 @@
 (counterpart of `bsms_gnn_tpu/models/simulator.py::simulator_forward`).
 
 Inputs are [N_pad, C + pos_dim + 1] = [output fields, mesh_pos, node_type],
-or a batch [B, N_pad, ...] of frames over one shared hierarchy (the
-consistent-mesh batch of JAX's `simulator_forward`, on the routes that take
-it: `ops/message.py`);
+or a batch [B, N_pad, ...]: of frames over one shared hierarchy (the
+consistent-mesh batch of JAX's `simulator_forward`, on the batch axis of
+`ops/message.py`), or of samples on the union of their hierarchies (a
+variable-mesh batch, `data.pipeline.stack_hierarchies`; JAX's
+`simulator_forward_auto` vmaps over the stacked hierarchies). A batch on a
+bucketed hierarchy or on a union runs as one frame of B·N_pad rows
+(`graph.hierarchy.union`; a shared bucketed hierarchy through the union
+of B references to it, which the simulator keeps for its last
+UNION_CACHE (hierarchy, B) pairs, `Simulator.batch_union`);
 the latent input strips mesh_pos and keeps node_type. normalize → encode
 MLP → BSGMP → decode MLP → denormalize the delta → zero masked nodes →
 prediction = state + delta. With `world_edges` the first `world_dim`
@@ -18,6 +24,7 @@ the normalizer statistics the trainer's warmup gate collects.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -25,6 +32,7 @@ from torch import nn
 
 from bsms_gnn_tpu_torch.config import ModelConfig
 from bsms_gnn_tpu_torch.device import resolve_device
+from bsms_gnn_tpu_torch.graph.hierarchy import Hierarchy, needs_union, union
 from bsms_gnn_tpu_torch.models.normalizer import (
     denormalize,
     init_normalizer,
@@ -42,6 +50,12 @@ def split_node_input(node_in, pos_dim: int):
     pos = node_in[..., -(1 + pos_dim):-1]
     node_type = node_in[..., -1:]
     return torch.cat([fields, node_type], dim=-1), pos, node_type
+
+
+# The unions of a shared bucketed hierarchy that a Simulator keeps, the
+# most recently used: a dataset's full batch and its short last batch on
+# each of two size groups.
+UNION_CACHE = 4
 
 
 def world_dim(cfg: ModelConfig) -> int:
@@ -77,13 +91,51 @@ class Simulator(nn.Module):
         self.to(device)
         self.norm_in = init_normalizer(cfg.out_dim + 1, device=device)
         self.norm_out = init_normalizer(cfg.out_dim, device=device)
+        # (id(h), b) → (h, the union of b references to h); the entry holds
+        # h, so its id names no other hierarchy while it is kept.
+        self.unions = OrderedDict()
+
+    def batch_union(self, h: Hierarchy, b: int) -> Hierarchy:
+        """The union of b references to h (a batch of b frames on one
+        bucketed mesh), built once and kept while it is among the last
+        UNION_CACHE used."""
+        key = (id(h), b)
+        if key in self.unions:
+            self.unions.move_to_end(key)
+        else:
+            self.unions[key] = (h, union([h] * b))
+            if len(self.unions) > UNION_CACHE:
+                self.unions.popitem(last=False)
+        return self.unions[key][1]
 
     def forward(self, hierarchy, node_in, node_mask, compute_dtype=None,
                 tap=None):
         """Next-step prediction [..., N_pad, C]. node_in: [..., N_pad,
-        C+pos_dim+1] (a batch [B, N_pad, ...] over the one hierarchy, or
-        one frame); node_mask: [..., N_pad, 1] (1 = loss-valid node).
-        `hierarchy` is on the model's device (`graph.hierarchy.to_device`)."""
+        C+pos_dim+1] (a batch [B, N_pad, ...] over the one hierarchy or its
+        union of B samples, or one frame); node_mask: [..., N_pad, 1] (1 =
+        loss-valid node). `hierarchy` is on the model's device
+        (`graph.hierarchy.to_device`). On a union the taps are [B,
+        N_pad_l, C], as on a batch."""
+        if node_in.dim() == 3 and needs_union(hierarchy):
+            b = node_in.shape[0]
+            if hierarchy.samples == 1:
+                hierarchy = self.batch_union(hierarchy, b)
+            elif hierarchy.samples != b:
+                raise ValueError(f"a batch of {b} on a union of "
+                                 f"{hierarchy.samples} samples")
+
+            def flat(t):
+                return t.reshape(-1, t.shape[-1])
+
+            per_sample = None if tap is None else (
+                lambda k, v: tap(k, v.reshape(b, -1, v.shape[-1])))
+            out = self._forward(hierarchy, flat(node_in), flat(node_mask),
+                                compute_dtype, per_sample)
+            return out.reshape(b, -1, out.shape[-1])
+        return self._forward(hierarchy, node_in, node_mask, compute_dtype,
+                             tap)
+
+    def _forward(self, hierarchy, node_in, node_mask, compute_dtype, tap):
         cfg = self.cfg
         latent_input, _, _ = split_node_input(node_in, cfg.pos_dim)
         io_cd = compute_dtype
@@ -94,7 +146,7 @@ class Simulator(nn.Module):
                       io_cd)
         dyn = node_in[..., :world_dim(cfg)] if cfg.world_edges else None
         x = self.process(hierarchy, x, compute_dtype, tap, dyn,
-                         cfg.aggregation)
+                         cfg.aggregation, cfg.remat, cfg.remat_min_nodes)
         if io_cd is None and x.dtype != torch.float32:
             x = x.float()
         norm_pred_delta = mlp_apply(self.decode, x, io_cd)

@@ -11,10 +11,18 @@ positions never appear online: the static per-level edge fibers and
 transition weights are precomputed on the hierarchy. With world edges the
 world positions are the one dynamic stream: they ride each down
 transition beside h, and each up GMP reads the positions its level had on
-the way down. A batch over one hierarchy (h [B, N_pad0, C], with world
-edges pos [B, N_pad0, world_dim]) runs every step on the leading dims,
-where the routes take it (`ops/message.py`, `ops/transition.py`); the
-explicit conv + pool path takes B = 1.
+the way down. A batch over one unbucketed hierarchy (h [B, N_pad0, C],
+with world edges pos [B, N_pad0, world_dim]) runs every step on the
+leading dims (`ops/message.py`, `ops/transition.py`). The explicit conv +
+pool path takes one block of rows: a batch on bucketed hierarchies
+reaches it as their union ([B·N_pad0, C], `graph.hierarchy.union`, built
+by `models/simulator.py`).
+
+`remat` (JAX's `jax.checkpoint` of each GMP, `bsgmp.py:107-121`):
+`torch.utils.checkpoint` around each GMP whose level has at least
+`remat_min_nodes` padded rows per sample (a union's level holds
+`samples` blocks of them); its forward kernels run again in the
+backward, before its backward kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bsms_gnn_tpu_torch.config import split_interleave
 from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down, edge_conv_up
@@ -61,21 +70,34 @@ class BSGMP(nn.Module):
         self.bottom_gmp = gmp()
 
     def forward(self, hierarchy, h, compute_dtype=None, tap=None, pos=None,
-                method: str = "fused"):
+                method: str = "fused", remat: bool = False,
+                remat_min_nodes: int = 0):
         """h: [N_pad0, C] or [B, N_pad0, C]; pos: [..., N_pad0, world_dim]
         world positions (h's leading dims) when the GMPs have world edges
         (else ignored). `tap(name, value)`, if
         given, observes each GMP output ("down{i}" / "bottom" / "up{i}",
-        before pool / skip add)."""
+        before pool / skip add). `remat` checkpoints the GMPs of the levels
+        of at least `remat_min_nodes` padded rows per sample."""
         depth = hierarchy.depth
         if len(self.down_gmps) != depth:
             raise ValueError(f"model depth {len(self.down_gmps)} != "
                              f"hierarchy depth {depth}")
         dyn = pos if self.bottom_gmp.dyn_dims else None
+
+        def gmp(module, l, h_, pos_):
+            level = hierarchy.levels[l]
+            if (remat and torch.is_grad_enabled()
+                    and hierarchy.sample_pad(l) >= remat_min_nodes):
+                # The GMP draws no random numbers: no RNG state to replay.
+                return checkpoint(module, level, h_, compute_dtype, pos_,
+                                  method, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return module(level, h_, compute_dtype, pos_, method)
+
         down_outs, down_ps = [], []
         for i in range(depth):
             level, trans = hierarchy.levels[i], hierarchy.transitions[i]
-            h = self.down_gmps[i](level, h, compute_dtype, dyn, method)
+            h = gmp(self.down_gmps[i], i, h, dyn)
             if tap is not None:
                 tap(f"down{i}", h)
             down_outs.append(h)
@@ -93,8 +115,7 @@ class BSGMP(nn.Module):
                         "transitions (ROADMAP Queue 1, items 3 and 5)")
                 h = pool_nodes(trans, edge_conv_down(level, h))
 
-        h = self.bottom_gmp(hierarchy.levels[depth], h, compute_dtype, dyn,
-                            method)
+        h = gmp(self.bottom_gmp, depth, h, dyn)
         if tap is not None:
             tap("bottom", h)
 
@@ -105,7 +126,7 @@ class BSGMP(nn.Module):
                 h = trans_up(trans, h)
             else:
                 h = edge_conv_up(level, unpool_nodes(trans, h))
-            h = self.up_gmps[i](level, h, compute_dtype, down_ps[d], method)
+            h = gmp(self.up_gmps[i], d, h, down_ps[d])
             if tap is not None:
                 tap(f"up{i}", h)
             h = h + down_outs[d]

@@ -35,7 +35,9 @@ starts at +0 never ends at −0, and x + 0 = x). In f32 with no atomics, so
 the result repeats from run to run. What bounds it on the card: bytes
 (each listed slot's row read once, acc read once, the output written
 once; C adds per slot). It takes rows of 128 (the latent width of every
-path); other widths raise.
+path); other widths raise. It takes one block of rows, no batch axis: a
+batch on bucketed hierarchies runs on their union
+(`graph.hierarchy.union`), one launch over every sample's rows.
 """
 
 from __future__ import annotations

@@ -199,8 +199,9 @@ def windowed_conv(level, x, ew):
     """f32 [n_pad, 128] in-window receiver sums of ew · x[sender] over a
     windowed level's own edges, x [n_pad, 128] f32 or bf16, ew [E_pad]
     (`level.ew` or `level.ew_rev`). CPU tensors take the plain version;
-    CUDA tensors launch kernel 1's level form. No batch axis (the
-    bucketed hierarchies' path takes B = 1)."""
+    CUDA tensors launch kernel 1's level form. No batch axis: a batch on
+    bucketed hierarchies runs on their union (`graph.hierarchy.union`),
+    one launch over every sample's rows."""
     _check(level, x, level.n_pad_nodes, ew, batched=False)
     if x.device.type == "cpu":
         return windowed_conv_plain(level, x, ew)

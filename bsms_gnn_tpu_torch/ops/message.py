@@ -64,7 +64,10 @@ over the batch; with world edges the direction is gather_send(pos) −
 gather_recv(pos) per sample. What raises NotImplementedError("batch
 axis") on a batch: the residual sub-level (kernel 9), so also v2 on a
 skip-empty gated level (its gathers' backward is kernel 9), and the
-explicit conv (`_gathered_conv`, `_level_conv`).
+explicit conv (`_gathered_conv`, `_level_conv`): the routes of bucketed
+hierarchies, which a batch reaches as the union of its samples'
+hierarchies ([B·N_pad, C], `graph.hierarchy.union`, built by
+`models/simulator.py`), each call one launch over every sample's rows.
 
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
 level's own weights (`message.py:603-692`), each the other's adjoint.

@@ -8,7 +8,10 @@ otherwise (`unpool_inv` points the others at a zero slot past the child's
 rows). Pool's backward is unpool's gather of the cotangent: the child pad
 rows all read the parent pad node, and their cotangents are dropped there,
 as JAX's custom VJP drops them (`pool.py:37-42`); autograd of
-`index_select` would sum them onto that pad row instead.
+`index_select` would sum them onto that pad row instead. Both select on
+dim 0: a batch on bucketed hierarchies runs on their union
+(`graph.hierarchy.union`), whose maps offset each sample's rows and point
+every sample's dropped parents at the union's one zero slot.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ Autograd of `index_select` would run an `index_add_` scatter.
 The batch axis (a shared mesh, x [B, N_pad, C]): the gathers select on
 dim -2 and their backwards run kernel 8 at B in one launch, as JAX's
 gathers take any leading dims (`scatter.py:17`). On a skip-empty layout
-kernel 9 takes B = 1, so a batch raises NotImplementedError("batch axis")
-there, before any work.
+(the residual sub-levels of bucketed hierarchies) kernel 9 takes one
+block of rows, so a [B, ...] input raises NotImplementedError("batch
+axis") there, before any work: a batch reaches these layouts as the union
+of its samples' hierarchies ([B·N_pad, C], `graph.hierarchy.union`).
 """
 
 from __future__ import annotations

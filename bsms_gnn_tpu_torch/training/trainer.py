@@ -8,21 +8,27 @@ normalizer-warmup gate and on-device noise injection (counterpart of
     parameter; their loss is that of the zero prediction;
   * Gaussian noise with per-channel σ on the output-field channels, zero on
     masked nodes, drawn on the device; the target absorbs (1−γ)·noise;
-  * the update is optax's `chain(clip_by_global_norm, adamw(schedule))`:
+  * the update is optax's `chain(clip_by_global_norm, adamw(schedule))`,
+    wrapped in `optax.MultiSteps` when `gradient_accumulation_steps` k > 1:
     `torch.optim.AdamW(betas=(0.9, 0.999), eps=1e-8)` computes optax's
-    adamw step when the k-th update (k = 0, 1, ...) runs at
-    `schedule(k)`, counted by updates only (the warmup-gate steps do not
+    adamw step when the n-th update (n = 0, 1, ...) runs at
+    `schedule(n)`, counted by updates only (the warmup-gate steps do not
     count, so the first update's rate is schedule(0) = 0), and when the
     gradients were clipped as optax clips them: scaled by
-    max_norm / norm only when norm ≥ max_norm.
+    max_norm / norm only when norm ≥ max_norm. With k > 1 each train step
+    folds its gradients into their running mean as MultiSteps does
+    (acc + (g − acc) / (i + 1) at mini-step i) and every k-th applies
+    clip + AdamW to the mean and resets it; the other steps leave the
+    parameters as they are. The schedule still counts applied updates,
+    and the warmup-gate steps are no mini-steps (JAX's gate never calls
+    the optimizer).
 
-A step takes one frame ([N_pad, ...]) or a batch of frames over one
-shared hierarchy ([B, N_pad, ...]): the noise is drawn in node_tar's shape,
-the warmup gate accumulates every sample's rows, and the loss is taken over
-the batch, as JAX's `Trainer.iter` does.
-
-Not ported (each raises NotImplementedError): `gradient_accumulation_steps
-> 1` (optax.MultiSteps), `remat`.
+A step takes one frame ([N_pad, ...]) or a batch ([B, N_pad, ...]) of
+frames over one shared hierarchy or of samples on the union of theirs
+(`data.pipeline.stack_hierarchies`): the noise is drawn in node_tar's
+shape, the warmup gate accumulates every sample's real rows, and the loss
+is taken over the batch, as JAX's `Trainer.iter` does. `remat`
+(`ModelConfig`) checkpoints the GMPs (`ops/bsgmp.py`).
 """
 
 from __future__ import annotations
@@ -67,11 +73,8 @@ class Trainer:
     def __init__(self, cfg: Config, opt: OptConfig,
                  generator: Optional[torch.Generator] = None, device=None,
                  compute_dtype=None):
-        if opt.gradient_accumulation_steps > 1:
-            raise NotImplementedError(
-                "gradient_accumulation_steps > 1 (optax.MultiSteps)")
-        if cfg.model.remat:
-            raise NotImplementedError("remat")
+        if opt.gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1")
         self.cfg, self.opt_cfg = cfg, opt
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
@@ -91,6 +94,10 @@ class Trainer:
         self.noise_gamma = float(cfg.datasets.noise_gamma)
         self._step = 0  # train steps taken, warmup included
         self.updates = 0  # optimizer updates taken
+        # MultiSteps' mini-step in [0, k) and running mean of the gradients
+        # (k > 1 only).
+        self.mini_step = 0
+        self.acc_grads = None
 
     # -- noise ------------------------------------------------------------
 
@@ -122,8 +129,13 @@ class Trainer:
         node_in, node_tar = self.inject_noise(node_in, node_tar, node_mask,
                                               noise)
         if self._step < self.cfg.model.accumulation_steps:
-            pad_mask = hierarchy.levels[0].node_mask.expand_as(node_mask)
-            simulator_warmup(self.sim, node_in, node_tar, pad_mask)
+            # Level 0's real rows: [N_pad, 1], or on a union [B·N_pad, 1],
+            # read as the batch's [B, N_pad, 1].
+            pad_mask = hierarchy.levels[0].node_mask
+            if hierarchy.samples > 1 and node_mask.dim() == 3:
+                pad_mask = pad_mask.reshape(hierarchy.samples, -1, 1)
+            simulator_warmup(self.sim, node_in, node_tar,
+                             pad_mask.expand_as(node_mask))
             loss = masked_rmse(torch.zeros_like(node_tar), node_tar,
                                node_mask)
         else:
@@ -134,14 +146,37 @@ class Trainer:
             for p in params:  # optax reads an unused parameter's as zero
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            clip_by_global_norm([p.grad for p in params],
-                                self.opt_cfg.gnorm_clip)
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.schedule(self.updates)
-            self.optimizer.step()
-            self.updates += 1
+            if self._accumulate(params):
+                clip_by_global_norm([p.grad for p in params],
+                                    self.opt_cfg.gnorm_clip)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = self.schedule(self.updates)
+                self.optimizer.step()
+                self.updates += 1
         self._step += 1
         return loss.detach()
+
+    def _accumulate(self, params) -> bool:
+        """optax.MultiSteps' bookkeeping: whether this step applies an
+        update. With k > 1 the step's gradients join the running mean
+        (Welford's update, as optax computes it); on the k-th mini-step the
+        mean becomes the parameters' gradients and the mean restarts."""
+        k = self.opt_cfg.gradient_accumulation_steps
+        if k == 1:
+            return True
+        grads = [p.grad for p in params]
+        if self.acc_grads is None:
+            self.acc_grads = [torch.zeros_like(g) for g in grads]
+        i = self.mini_step
+        for a, g in zip(self.acc_grads, grads):
+            a.add_((g - a) / (i + 1))
+        self.mini_step = (i + 1) % k
+        if self.mini_step:
+            return False
+        for p, a in zip(params, self.acc_grads):
+            p.grad = a.clone()
+            a.zero_()
+        return True
 
     # -- evaluation -------------------------------------------------------
 

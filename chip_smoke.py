@@ -131,7 +131,12 @@ Phases (any failure exits non-zero without the result line):
    BATCH_TRAIN_SURFACE); the forward at BATCH_SERVE with the B = 1 launch
    and narrow-route counts, the train step and a `Trainer` run at
    BATCH_TRAIN_SURFACE with the B = 1 counts; phase 16's times at B = 1,
-   BATCH_SERVE and BATCH_TRAIN_SURFACE;
+   BATCH_SERVE and BATCH_TRAIN_SURFACE; then the train step at BATCH_TRAIN
+   under remat (every GMP checkpointed, REMAT_MIN_NODES_SURFACE): its
+   gradients against the plain path's under remat, the remat counts
+   (EXPECTED_SURFACE_REMAT_TRAIN_LAUNCHES: kernel 10 replayed in each
+   GMP's backward), a `Trainer` run, and its wall and busy ms, idle share,
+   CUDA kernels and own peak MiB beside the card's memory;
 20. the batch axis on the unwindowed airfoil of phase 11 (plain_batch):
    kernel 12 (forward and backward, every level) and kernel 8 (level 0 in
    both forms, T0-T1's operators) at BATCH_CHECK samples, then phase 17's
@@ -139,7 +144,20 @@ Phases (any failure exits non-zero without the result line):
 21. the batch axis on the fused surface of phase 12 (surface_fused_batch,
    phase 19's frames): kernel 11 (forward at every level, backward at
    levels 0 and 7) at BATCH_CHECK samples, then phase 17's serving, train
-   step at BATCH_TRAIN, `Trainer` run and times.
+   step at BATCH_TRAIN, `Trainer` run and times;
+22. variable-mesh batches on the cylinder of phase 13 (cylinder_batch):
+   sample s on mesh s mod 3 with its own seeded frame pair, each batch on
+   the union of its samples' hierarchies (`stack_hierarchies`, its host
+   time printed): kernels 1 (level form), 3-7 and 9 at BATCH_CHECK
+   samples on the union of the three meshes, at every shape phase 13
+   checks them at, with phase 16's checks (sample s bit for bit the call
+   on mesh s alone); the forward at BATCH_SERVE against the plain path
+   with the B = 1 counts and, sample by sample, against its B = 1 forward
+   on its own mesh; the train step at BATCH_TRAIN against the plain path
+   with the B = 1 counts, a `Trainer` run there; BATCH_CHECK frames on the served mesh's one hierarchy
+   against the plain path; a `Trainer` with gradient_accumulation_steps =
+   2 whose parameters move on every second update step only; phase 16's
+   times.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -150,6 +168,7 @@ Exits non-zero where `torch.cuda.is_available()` is false.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -355,6 +374,12 @@ EXPECTED_CYLINDER_TRAIN_LAUNCHES = {
     "fused_node_phase": 11, "fused_node_phase_bwd": 11,
     "windowed_send_sum": 11, "windowed_conv": 20, "segment_sum_accum": 30,
     "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
+# The pallas surface's train step under remat with every GMP checkpointed
+# (REMAT_MIN_NODES_SURFACE): the step's counts plus kernel 10 once more in
+# each of the 15 GMPs' backwards, which replay their forward before they
+# run theirs (kernel 8 runs in no forward of a GMP: its gathers select).
+EXPECTED_SURFACE_REMAT_TRAIN_LAUNCHES = dict(
+    EXPECTED_SURFACE_TRAIN_LAUNCHES, fused_aggregate_node_phase=30)
 # The 5k airfoil on "fused4", per forward: levels 3, 4 and 5 hold 6.8, 10.0
 # and 12.0 edge chunks per 128-node block, at least the gate's 6, so kernel
 # 14 runs in their 6 GMPs (down and up) and kernel 4 in the other 9;
@@ -459,11 +484,18 @@ BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
 # card's 80 GB; ~42 / 50 GB at 16. (The fused surface, 669 / 533 MiB,
 # trains at 48: ~32 / 26 GB.)
 BATCH_TRAIN_SURFACE = 16
+# ... and at BATCH_TRAIN under remat (`ModelConfig.remat`): every GMP
+# checkpointed. The sphere's deep levels keep many edges (level 6: 256 rows
+# but 23,680 slots, level 0 97,920), so its GMPs' edge activations, most
+# of the step's memory, do not halve with the rows; a threshold on the rows
+# (`remat_min_nodes`) would keep most of them.
+REMAT_MIN_NODES_SURFACE = 0
 # The arguments of each kernel of the batched path that carry the batch
 # (the rest are the layout, the weights and the compute dtype), and the
 # outputs of its backward that are per row (the others are weight
 # gradients, summed over the batch).
 BATCHED_ARGS = {"windowed_rect_conv": (1,), "compact_accum": (1, 2),
+                "windowed_conv": (1,), "segment_sum_accum": (1, 2),
                 "fused_edge_phase_win": (1, 2), "fused_node_phase": (0, 1),
                 "fused_edge_phase_win_bwd": (1, 2, 6),
                 "fused_node_phase_bwd": (0, 1, 3), "windowed_send_sum": (1,),
@@ -1104,7 +1136,7 @@ def build_cylinder_case(device):
     fill_normalizers(sim, node_in, mask, np.random.default_rng(0))
     return dict(label="cylinder 1.9k", h=hs[1], hd=hd, cfg=cfg, sim=sim,
                 config=cylinder_flow_config, node_in=node_in, mask=mask,
-                n=len(meshes[1][0]), build_s=build_s,
+                n=len(meshes[1][0]), build_s=build_s, meshes=meshes,
                 expected=EXPECTED_CYLINDER_LAUNCHES,
                 expected_train=EXPECTED_CYLINDER_TRAIN_LAUNCHES,
                 narrow=(0, 0), train_frames=(node_in, target),
@@ -2925,6 +2957,8 @@ def batch_args(name, args, n, seed):
         return tuple(out)
     for i in BATCHED_ARGS[name]:
         a = args[i]
+        if a is None:  # kernel 9's store form: no acc
+            continue
         rms = a.float().square().mean().sqrt().item() or 1.0
         more = [(rms * torch.randn(*a.shape, generator=g)).to(a.dtype)
                 .to(a.device) for _ in range(n - 1)]
@@ -2932,10 +2966,41 @@ def batch_args(name, args, n, seed):
     return tuple(out)
 
 
-def sample_args(name, bargs, s):
-    """Sample s of a batch's arguments."""
-    return tuple(a[s] if i in BATCHED_ARGS[name] else a
-                 for i, a in enumerate(bargs))
+def sample_args(name, bargs, s, meshes=None):
+    """Sample s of a batch's arguments; with `meshes` (each sample's
+    layout, `union_args`) on sample s's own layout."""
+    out = [a[s] if i in BATCHED_ARGS[name] and a is not None else a
+           for i, a in enumerate(bargs)]
+    if meshes is not None and meshes[s] is not None:
+        out = on_layout(name, out, meshes[s])
+    return tuple(out)
+
+
+def on_layout(name, args, layout):
+    """The arguments with the layout (argument 0) replaced by `layout`,
+    and kernel 1's level form's weights by that layout's own (ew or
+    ew_rev, as the arguments had them)."""
+    out = list(args)
+    if name == "windowed_conv":
+        out[2] = layout.ew if args[2] is args[0].ew else layout.ew_rev
+    out[0] = layout
+    return out
+
+
+def union_args(name, bargs, meshes):
+    """A batch's arguments (`batch_args`) as one call on the union of the
+    samples' layouts (`graph.hierarchy.union_layout` of `meshes`, each
+    sample's; None entries for kernels that take no layout): every batched
+    argument's [n, rows, C] viewed as [n·rows, C], as the model's union
+    runs a variable-mesh batch."""
+    from bsms_gnn_tpu_torch.graph.hierarchy import union_layout
+
+    out = [a.reshape(-1, a.shape[-1])
+           if i in BATCHED_ARGS[name] and a is not None else a
+           for i, a in enumerate(bargs)]
+    if meshes[0] is not None:
+        out = on_layout(name, out, union_layout(list(meshes)))
+    return tuple(out)
 
 
 def batch_work(name, bargs, dtype):
@@ -3018,16 +3083,21 @@ def batch_inputs(case, dtype, device, names=None):
             if k in BATCHED_ARGS and (names is None or k in names)]
 
 
-def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
+def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
+                  meshes=None):
     """One kernel of the batched path on a batch of n samples (sample 0
     the B = 1 check's inputs): twice for bit-identical outputs;
     each output against the plain version on the batch (TOL / BWD_TOL, the
     rows of every sample together), in bf16 with its control, which must
     miss; every per-row output of sample s bit for bit the call on sample s
     alone; the weight gradients against the sum of the samples' calls
-    (BWD_TOL). Returns the largest max_abs_err against the plain version."""
+    (BWD_TOL). With `meshes` (sample s's layout, or None for every sample
+    of a kernel that takes none) the batch runs as one call on the union
+    of the samples' layouts (`union_args`) and sample s alone on its own.
+    Returns the largest max_abs_err against the plain version."""
     fn, plain = kernel_modules()[name]
     bargs = batch_args(name, args, n, seed)
+    cargs = bargs if meshes is None else union_args(name, bargs, meshes)
     bwd = name in BWD_OUTPUTS
     outs = BWD_OUTPUTS[name] if bwd else ("out",)
     tol_max, tol_rms = (BWD_TOL if bwd else TOL)[(name, dtype)]
@@ -3039,18 +3109,21 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
     def rows(t):
         return t.reshape(-1, t.shape[-1])
 
-    got, want = call(fn, bargs), call(plain, bargs)
-    same = all(torch.equal(a, b) for a, b in zip(got, call(fn, bargs)))
+    def samples(t):  # [n, rows, C], on the batch axis or the union's rows
+        return t.reshape(n, -1, t.shape[-1])
+
+    got, want = call(fn, cargs), call(plain, cargs)
+    same = all(torch.equal(a, b) for a, b in zip(got, call(fn, cargs)))
     require(same, f"batched {name} {where} {dtype}: two calls differ")
     ctrl = None
     if dtype == torch.bfloat16 and (not bwd or name in BWD_CONTROLS):
-        up = list(control_args(name, bargs) or ()) if not bwd else [
+        up = list(control_args(name, cargs) or ()) if not bwd else [
             a.float() if isinstance(a, torch.Tensor)
-            and a.dtype == torch.bfloat16 else a for a in bargs]
+            and a.dtype == torch.bfloat16 else a for a in cargs]
         if bwd and name == "fused_node_phase_bwd":
             up[4] = None
         ctrl = call(fn, tuple(up)) if up else None
-    ones = [call(fn, sample_args(name, bargs, s)) for s in range(n)]
+    ones = [call(fn, sample_args(name, bargs, s, meshes)) for s in range(n)]
     worst, notes = 0.0, []
     for i, out in enumerate(outs):
         err, err_rms, rms, zero_ok, live = filled_compare(
@@ -3070,7 +3143,7 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
                             f"tolerance does not tell an unrounded kernel "
                             f"apart")
         if not bwd or out in ROW_OUTPUTS[name]:
-            each = all(torch.equal(got[i][s], ones[s][i])
+            each = all(torch.equal(samples(got[i])[s], ones[s][i])
                        for s in range(n))
             note += (", each sample bit for bit its own call" if each
                      else ", a sample DIFFERS from its own call")
@@ -3089,11 +3162,12 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK):
                     if name in NODE_CLUSTERS else "receivers")
             for s in range(n):
                 print(f"  sample {s}: " + relu_margin(
-                    name, sample_args(name, bargs, s), got[i][s],
-                    want[i][s], tol_max * rms, kind).strip())
+                    name, sample_args(name, bargs, s, meshes),
+                    samples(got[i])[s], samples(want[i])[s], tol_max * rms,
+                    kind).strip())
         require(ok, f"batched {name} {where} {out} {dtype}: {notes[-1]}")
-    print(f"batch B={n} kernel {name} {where} {str(dtype)[6:]}: "
-          f"two calls bit-identical; " + "; ".join(notes))
+    print(f"{'union' if meshes else 'batch'} B={n} kernel {name} {where} "
+          f"{str(dtype)[6:]}: two calls bit-identical; " + "; ".join(notes))
     return worst
 
 
@@ -3170,11 +3244,236 @@ def flag_frames(case, n, seed):
     return frames, tar, mask.expand(n, -1, -1).contiguous()
 
 
+def cylinder_frames(case, n, seed):
+    """n samples of the cylinder batch: sample s on mesh s mod 3, its input
+    frame 0 and its target frame 1 of `generate_trajectory` on that mesh
+    drawn with `default_rng(1000 · seed + s)`, its mask the cylinder mask:
+    ([n, N_pad, 5], [n, N_pad, 2], [n, N_pad, 1])."""
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        cylinder_mask,
+        generate_trajectory,
+    )
+
+    meshes = case["meshes"]
+    n_pad = case["hd"].levels[0].n_pad_nodes
+    node_in = np.zeros((n, n_pad, 5), np.float32)
+    tar = np.zeros((n, n_pad, 2), np.float32)
+    mask = np.zeros((n, n_pad, 1), np.float32)
+    for s in range(n):
+        pos, cells, node_type = meshes[s % len(meshes)]
+        fields = generate_trajectory((pos, cells, node_type), 2,
+                                     np.random.default_rng(1000 * seed + s))
+        k = len(pos)
+        node_in[s, :k, :2] = fields["velocity"][0]
+        node_in[s, :k, 2:4] = pos
+        node_in[s, :k, 4] = node_type[:, 0]
+        tar[s, :k] = fields["velocity"][1]
+        mask[s, :k] = cylinder_mask(node_type)
+    device = case["node_in"].device
+    return tuple(torch.from_numpy(a).to(device) for a in (node_in, tar, mask))
+
+
+def cylinder_batch_case(device):
+    """The cylinder case (`build_cylinder_case`) batched across its three
+    meshes, as a variable-mesh dataset batches: sample s on mesh s mod 3
+    with its own frame pair (`cylinder_frames`), each batch on the union of
+    its samples' device hierarchies (`data.pipeline.stack_hierarchies`,
+    built once per batch size, its host time printed: JAX stacks in its
+    pipeline's worker threads, outside the step). `sample_layouts` gives a
+    kernel check's layout on each sample's own mesh."""
+    from bsms_gnn_tpu_torch.data.pipeline import stack_hierarchies
+
+    case = build_cylinder_case(device)
+    hds = [f[0] for f in case["trainer_frames"]]
+    unions = {}
+
+    def union(n):
+        if n not in unions:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unions[n] = stack_hierarchies([hds[s % len(hds)]
+                                           for s in range(n)])
+            torch.cuda.synchronize()
+            print(f"[cylinder batch] stack_hierarchies of B={n}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host, once "
+                  f"per batch size)")
+        return unions[n]
+
+    def sample_layouts(name, args, n=BATCH_CHECK):
+        lay = args[0]
+        if not hasattr(lay, "n_pad_edges"):  # the node phase takes none
+            return [None] * n
+        for l, lv in enumerate(case["hd"].levels):
+            for own, get in ((lv, lambda h: h.levels[l]),
+                             (lv.resid, lambda h: h.levels[l].resid)):
+                if lay is own:
+                    return [get(hds[s % len(hds)]) for s in range(n)]
+        return [lay] * n  # the forced empty residual: mesh 1's
+
+    return dict(case, frames=cylinder_frames, union=union,
+                sample_layouts=sample_layouts,
+                own=lambda s: hds[s % len(hds)])
+
+
+def check_union_samples(case, node_in, mask, got, delta, dtype):
+    """Each sample s of a union's forward `got` against its frame's forward
+    on its own mesh's hierarchy alone (`case["own"](s)`), the function a
+    stacked batch computes (JAX vmaps the B = 1 forward over the stack). A
+    wrong union table (pool_ids, unpool_inv, an offset) moves a sample by
+    the order of its delta here, while the comparison with the plain path
+    shares the table on both sides (FORWARD_TOL)."""
+    sim, label = case["sim"], case["label"]
+    cd = dtype if dtype == torch.bfloat16 else None
+    errs = [(got[s] - sim(case["own"](s), node_in[s], mask[s], cd)).abs()
+            .max().item() for s in range(got.shape[0])]
+    tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+    ok = max(errs) <= tol
+    print(f"[{label}] forward B={got.shape[0]} {str(dtype)[6:]}: each sample "
+          f"against its B = 1 forward on its own mesh: max_abs_err "
+          f"{max(errs):.3e} (tol {tol:.3e}), {errs.count(0.0)} of "
+          f"{len(errs)} samples bit for bit  {'ok' if ok else 'FAIL'}")
+    require(ok, f"{label} union forward disagrees with the samples' own "
+                f"forwards ({max(errs):.3e})")
+
+
+def check_shared_union(case):
+    """BATCH_CHECK frames [B, N_pad, ...] on the served mesh's one bucketed
+    hierarchy (the simulator runs them on the union of B references to it,
+    `Simulator.batch_union`, kept by the simulator) against the plain
+    path, f32 and bf16 (FORWARD_TOL), with the B = 1 launch counts."""
+    sim, hd, label = case["sim"], case["hd"], case["label"]
+    real = hd.levels[0].node_mask
+    g = torch.Generator(device="cpu").manual_seed(25)
+    node_in = case["node_in"].expand(BATCH_CHECK, -1, -1).clone()
+    node_in[..., :2] += 0.1 * torch.randn(*node_in.shape[:-1], 2,
+                                          generator=g).to(real.device) * real
+    mask = case["mask"].expand(BATCH_CHECK, -1, -1).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        reset_counts()
+        got = sim(hd, node_in, mask, cd)
+        counts = read_counts(case["expected"])
+        with plain_path():
+            want = sim(hd, node_in, mask, cd)
+        delta = (want - node_in[..., :2]).abs().max().item()
+        err = (got - want).abs().max().item()
+        tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"[{label}] B={BATCH_CHECK} frames on the one hierarchy of the "
+              f"served mesh {str(dtype)[6:]}: max_abs_err vs plain "
+              f"{err:.3e} (tol {tol:.3e}); launches {counts}  "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok and (counts == case["expected"]
+                        or got.device.type != "cuda"),
+                f"{label} shared-hierarchy batch: error {err:.3e}, launches "
+                f"{counts}")
+    require([k[1] for k, (h, _) in sim.unions.items() if h is hd]
+            == [BATCH_CHECK], "the union was not kept")
+
+
+def check_accumulation(case, device):
+    """A `Trainer` with gradient_accumulation_steps = 2 (optax.MultiSteps)
+    on the cylinder batch at BATCH_SERVE: after the gate, six train steps,
+    every second of which applies clip + AdamW to the mean of two steps'
+    gradients. The parameters stay bit for bit as they were after the other
+    steps, and move after the second and third updates (the first runs at
+    schedule(0) = 0)."""
+    from bsms_gnn_tpu_torch.config import OptConfig
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    cfg = case["config"](accumulation_steps=TRAIN_GATE)
+    opt = OptConfig(peak_lr=1e-4, warmup_steps=2, decay_steps=1000,
+                    gradient_accumulation_steps=2)
+    tr = Trainer(cfg, opt, generator=torch.Generator().manual_seed(1),
+                 device=device)
+    hd = case["union"](BATCH_SERVE)
+    node_in, tar, mask = batch_frames(case, BATCH_SERVE, 23)
+    for _ in range(TRAIN_GATE):
+        tr.iter(hd, node_in, tar, mask)
+    moved, losses = [], []
+    for _ in range(6):
+        before = [p.detach().clone() for p in tr.sim.parameters()]
+        losses.append(float(tr.iter(hd, node_in, tar, mask)))
+        moved.append(any(not torch.equal(p.detach(), b)
+                         for p, b in zip(tr.sim.parameters(), before)))
+    print(f"[{case['label']}] trainer with gradient_accumulation_steps=2 at "
+          f"B={BATCH_SERVE}: losses {losses}; parameters moved after train "
+          f"steps {[i + 1 for i, m in enumerate(moved) if m]} of 6; "
+          f"{tr.updates} updates")
+    require(all(np.isfinite(losses)) and tr.updates == 3
+            and moved == [False, False, False, True, False, True],
+            "gradient accumulation: the parameters moved off the update "
+            "steps, or not on them")
+
+
+def check_remat(case, device):
+    """The pallas surface's train step at BATCH_TRAIN under remat (every
+    GMP checkpointed: REMAT_MIN_NODES_SURFACE): its gradients against the
+    plain path's under remat (TRAIN_TOL), its launch counts
+    (EXPECTED_SURFACE_REMAT_TRAIN_LAUNCHES) and the `Trainer` run
+    (`check_train`); then, f32 and bf16, the step's wall ms (median of
+    three repeats of two steps), busy ms (a sample), idle share, CUDA
+    kernels and own peak MiB, beside the card's memory. Returns the
+    end-to-end keys (prefix `remat_b48_`)."""
+    sim, label = case["sim"], case["label"] + " remat"
+    cfg0 = sim.cfg
+    sim.cfg = dataclasses.replace(cfg0, remat=True,
+                                  remat_min_nodes=REMAT_MIN_NODES_SURFACE)
+
+    def config(**kw):
+        return case["config"](remat=True,
+                              remat_min_nodes=REMAT_MIN_NODES_SURFACE, **kw)
+
+    hd, n = case["hd"], BATCH_TRAIN
+    node_in, tar, mask = batch_frames(case, n, 24)
+    rcase = dict(case, label=label, config=config, train=(node_in, tar),
+                 mask=mask, train_frames=(node_in, tar), trainer_frames=None,
+                 expected_train=EXPECTED_SURFACE_REMAT_TRAIN_LAUNCHES)
+    card_mib = torch.cuda.get_device_properties(0).total_memory / 2**20
+    e2e = {}
+    try:
+        check_train(rcase, device)
+        for dtype in (torch.float32, torch.bfloat16):
+            cd = dtype if dtype == torch.bfloat16 else None
+            key = "f32" if cd is None else "bf16"
+            tr = make_trainer(rcase, device, cd)
+
+            def step():
+                tr.iter(hd, node_in, tar, mask)
+
+            for _ in range(TRAIN_GATE + 1):
+                step()
+            runs = [event_ms(step, reps=2, warmup=0) for _ in range(3)]
+            ms = float(np.median(runs))
+            with own_peak() as peak:
+                step()
+            peak = peak[0]
+            prof = profile_call(step)
+            print_profile(f"[{label}] train step B={n} {key}", *prof)
+            print_port_kernels(prof[4])
+            print(f"[{label}] train step B={n} {key}: {ms:.4f} ms (median "
+                  f"of {[round(r, 4) for r in runs]}), busy {prof[1]:.4f} ms "
+                  f"({prof[1] / n:.4f} per sample), idle share "
+                  f"{1 - prof[1] / ms:.3f}, {prof[2]} CUDA kernels, own peak "
+                  f"{peak:.1f} MiB of the card's {card_mib:.0f}")
+            e2e.update({f"remat_b{n}_train_step_ms_{key}": ms,
+                        f"remat_b{n}_train_step_busy_ms_{key}": prof[1],
+                        f"remat_b{n}_train_step_kernels_{key}": prof[2],
+                        f"remat_b{n}_train_step_peak_above_mib_{key}": peak})
+            del tr
+    finally:
+        sim.cfg = cfg0
+    return e2e
+
+
 # The batched paths: (the function that builds the case, its label, the
 # kernels checked at BATCH_CHECK samples (None: every kernel of
 # BATCHED_ARGS the path runs), the seed of the first shape's other samples
 # (each later shape k adds 50·k)). A case's `train_batch` replaces
-# BATCH_TRAIN, its `frames` `batch_frames`' draw.
+# BATCH_TRAIN, its `frames` `batch_frames`' draw, its `union` (a function
+# of the batch size) the one hierarchy (a variable-mesh batch: the union
+# of the samples' hierarchies, with `sample_layouts` for the kernel
+# checks), and `remat` adds the train step at BATCH_TRAIN under remat.
 BATCH_PATHS = {
     "airfoil_batch": (lambda d: build_case(d), "airfoil 5k batch", None,
                       1700),
@@ -3187,7 +3486,8 @@ BATCH_PATHS = {
                      2800),
     "surface_batch": (lambda d: dict(build_surface_case(d),
                                      frames=surface_frames,
-                                     train_batch=BATCH_TRAIN_SURFACE),
+                                     train_batch=BATCH_TRAIN_SURFACE,
+                                     remat=True),
                       "surface 16k batch",
                       ("segment_sum", "fused_aggregate_node_phase"), 3200),
     "plain_batch": (lambda d: build_case(d, plain=True),
@@ -3198,6 +3498,8 @@ BATCH_PATHS = {
         build_surface_case(d, aggregation="fused"), frames=surface_frames),
         "surface 16k fused batch",
         ("fused_edge_mlp_aggregate", "fused_edge_mlp_aggregate_bwd"), 5400),
+    "cylinder_batch": (cylinder_batch_case, "cylinder 1.9k batch", None,
+                       6000),
 }
 
 
@@ -3216,17 +3518,20 @@ def run_batch_case(device, path):
     build, label, names, seed = BATCH_PATHS[path]
     case = build(device)
     case["label"] = label
-    sim, hd = case["sim"], case["hd"]
+    sim = case["sim"]
     expected, narrow = case["expected"], case["narrow"]
     train_b = case.get("train_batch", BATCH_TRAIN)
+    batch_hd = case.get("union") or (lambda n: case["hd"])
     errs = {}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             for name, shapes in batch_inputs(case, dtype, device, names):
                 for k, (where, args) in enumerate(shapes):
                     sparse = name in TILE_WALKS and k > 0
+                    meshes = (case["sample_layouts"](name, args)
+                              if "union" in case else None)
                     err = check_batched(name, where, args, dtype, sparse,
-                                        seed + 50 * k)
+                                        seed + 50 * k, meshes=meshes)
                     errs.setdefault((name, dtype), err)
             if path == "airfoil_batch":
                 check_partial_ranges(case, dtype, device)
@@ -3234,6 +3539,7 @@ def run_batch_case(device, path):
             check_agg_identity(case, BATCH_CHECK)
             print_agg_designs(case, (BATCH_SERVE, train_b))
         node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
+        hd = batch_hd(BATCH_SERVE)
         serve = {}
         for dtype in (torch.float32, torch.bfloat16):
             cd = dtype if dtype == torch.bfloat16 else None
@@ -3253,21 +3559,30 @@ def run_batch_case(device, path):
                   f"{narrowed} (B = 1: {narrow})  {'ok' if ok else 'FAIL'}")
             require(ok, f"{label} B={BATCH_SERVE} {dtype} forward disagrees "
                         f"with the plain path")
+            if "own" in case:
+                check_union_samples(case, node_in, mask, got, delta, dtype)
             if device.type == "cuda":
                 require(counts == expected and narrowed == narrow,
                         f"{label} B={BATCH_SERVE} forward launch counts "
                         f"{counts}, narrow-route calls {narrowed}")
             serve = serve or counts
         del got, want
+        if "union" in case:
+            check_shared_union(case)
     node_in, tar, mask = batch_frames(case, train_b, 22)
     # check_train on the batch: the step's gradients against the plain
     # path (TRAIN_TOL), the launch counts of one step (the case's
     # expected_train), and the `Trainer` run on the batch (the gate, then
     # updates that move every parameter).
-    train = check_train(dict(case, train=(node_in, tar), mask=mask,
-                             train_frames=(node_in, tar)), device)
+    train = check_train(dict(case, hd=batch_hd(train_b), train=(node_in, tar),
+                             mask=mask, train_frames=(node_in, tar),
+                             trainer_frames=None), device)
     del node_in, tar, mask
+    if "union" in case:
+        check_accumulation(case, device)
     e2e = measure_batch(case, device)
+    if "remat" in case:
+        e2e.update(check_remat(case, device))
     del case
     torch.cuda.empty_cache()
     return errs, {}, serve, train, e2e
@@ -3294,14 +3609,16 @@ def measure_batch(case, device):
     wall (median of five repeats of five steps at B = 1, of two at the
     batch, where a step takes hundreds of ms), busy, idle share, CUDA
     kernels and own peak MiB; busy ms per sample. f32 and bf16."""
-    sim, hd, label = case["sim"], case["hd"], case["label"]
+    sim, label = case["sim"], case["label"]
     train_b = case.get("train_batch", BATCH_TRAIN)
+    batch_hd = case.get("union") or (lambda n: case["hd"])
     e2e = {}
     for dtype in (torch.float32, torch.bfloat16):
         cd = dtype if dtype == torch.bfloat16 else None
         key = str(dtype)[6:].replace("float32", "f32").replace(
             "bfloat16", "bf16")
         for n in sorted({1, BATCH_SERVE, train_b}):
+            hd = case["hd"] if n == 1 else batch_hd(n)
             node_in, _, mask = (batch_frames(case, n, 21) if n > 1 else
                                 (case["node_in"], None, case["mask"]))
             reps, warm = (10, 3) if n <= BATCH_SERVE else (3, 1)
@@ -3317,6 +3634,7 @@ def measure_batch(case, device):
                   f"({busy / n:.4f} per sample), idle share "
                   f"{1 - busy / wall:.3f}, {prof[2]} CUDA kernels")
         for n in (1, train_b):
+            hd = case["hd"] if n == 1 else batch_hd(n)
             if n == 1:
                 node_in, tar = case.get("train_frames") or (
                     case["node_in"], train_target(case))
@@ -3432,9 +3750,10 @@ def main() -> int:
              ("airfoil_batch", None, "airfoil_b48_"),
              ("flag_batch", None, "flag_b48_"),
              ("fused4_batch", None, "airfoil_fused4_b48_"),
-             ("surface_batch", None, f"surface_b{BATCH_TRAIN_SURFACE}_"),
+             ("surface_batch", None, "surface_batch_"),
              ("plain_batch", None, "airfoil_plain_b48_"),
-             ("surface_fused_batch", None, "surface_fused_b48_"))
+             ("surface_fused_batch", None, "surface_fused_b48_"),
+             ("cylinder_batch", None, "cylinder_b48_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")

@@ -43,8 +43,12 @@ path kernel 13 (forward and backward) at level 0, the `fused4` path
 kernel 14 (forward and backward) at level 3, the pallas surface kernel 8
 (level 0 and T0 down) and kernel 10 (level 0, and the tile its rule
 picks at every level at B), the unwindowed airfoil kernel 12 (forward
-and backward) at level 0 and the fused surface kernel 11 (forward and
-backward) at level 0, each beside the bound of B samples' work
+and backward) at level 0, the fused surface kernel 11 (forward and
+backward) at level 0 and the cylinder kernel 1's level form (level 0
+down), kernel 5 (level 0) and kernel 9 (level 0's residual sub-level, on
+acc) as one call on the union of B samples' layouts, sample s on mesh s
+mod 3 (chip_smoke.py's `cylinder_batch_case`, `union_args`), each beside
+the bound of B samples' work
 (`batch_work`), the plain version at B and, for kernels 1, 2, 7 and 8,
 its library call at B (`batch_library_call`); the kernels timed at named
 shapes also beside their B = 1 call; with `--pmax`
@@ -403,6 +407,9 @@ BATCH_SHAPES = {
                       "fused_edge_phase_bwd": ("level 0",)},
     "surface_fused": {"fused_edge_mlp_aggregate": ("level 0",),
                       "fused_edge_mlp_aggregate_bwd": ("level 0",)},
+    "cylinder": {"windowed_conv": ("level 0 down",),
+                 "fused_edge_phase_win_bwd": ("level 0",),
+                 "segment_sum_accum": ("level 0",)},
 }
 
 
@@ -412,7 +419,9 @@ def time_batched(cs, case, device, n, pmax=(), wheres=None):
     ({label: {dtype: {"shapes": {where: ms}, "bounds": {where: ms},
     "library": {where: ms}, "plain": {where: ms}, "one": {where: ms},
     "step_ms": ms}}}; the library call and the plain version by CUDA
-    events, in f32; "one" the B = 1 call's device ms at the named shapes;
+    events, in f32; "one" the B = 1 call's device ms at the named shapes
+    (on a union the mean of the samples' B = 1 calls, each on its own
+    mesh's layout);
     "step_ms" sums the launches of one train step for the kernels timed at
     every level); then kernel 6 at n again at each cap of `pmax` ({cap:
     {dtype: {where: ms}}} under "kernel 6 pmax", each cap put in place of
@@ -434,7 +443,14 @@ def time_batched(cs, case, device, n, pmax=(), wheres=None):
               "fused_edge_phase": "kernel 12",
               "fused_edge_phase_bwd": "kernel 12 bwd",
               "fused_edge_mlp_aggregate": "kernel 11",
-              "fused_edge_mlp_aggregate_bwd": "kernel 11 bwd"}
+              "fused_edge_mlp_aggregate_bwd": "kernel 11 bwd",
+              "windowed_conv": "kernel 1 level form",
+              "segment_sum_accum": "kernel 9"}
+    # A variable-mesh case (the cylinder) times its batch as one call on
+    # the union of the samples' layouts, sample s on mesh s mod 3; its
+    # bound and its B = 1 baseline sum the samples' own layouts' work and
+    # calls.
+    layouts = case.get("sample_layouts")
     depth = case["hd"].depth
     out, sweep = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -449,17 +465,34 @@ def time_batched(cs, case, device, n, pmax=(), wheres=None):
                 if wheres is not None and where not in wheres[name]:
                     continue
                 bargs = cs.batch_args(name, args, n, 1700 + 50 * k)
+                if layouts is not None:
+                    meshes = layouts(name, args, n)
+                    own = [cs.sample_args(name, bargs, s, meshes)
+                           for s in range(n)]
+                    bargs = cs.union_args(name, bargs, meshes)
                 call = functools.partial(fn, *bargs)
                 if name != "compact_accum":  # adds onto acc in place
                     digest(label, dtype, where, call())
                 per[where] = timed_ms(cs, call)
-                if wheres is not None:
+                if wheres is not None and layouts is None:
                     one[where] = timed_ms(cs, functools.partial(fn, *args))
-                by, ops = cs.batch_work(name, bargs, dtype)
+                elif wheres is not None:  # each mesh's call once, weighted
+                    first = {}
+                    for s in range(n):
+                        first.setdefault(id(meshes[s]), []).append(s)
+                    one[where] = sum(
+                        len(ss) * timed_ms(cs, functools.partial(
+                            fn, *own[ss[0]])) for ss in first.values()) / n
+                if layouts is None:
+                    by, ops = cs.batch_work(name, bargs, dtype)
+                else:  # the sum of the samples' work on their own layouts
+                    by, ops = (sum(w) for w in zip(
+                        *(cs.work(name, a, dtype) for a in own)))
                 bound[where] = max(by / cs.PEAK_BYTES_S,
                                    ops / cs.PEAK_FLOPS_S[dtype]) * 1e3
-                lc = (cs.batch_library_call(name, bargs)
-                      if dtype == torch.float32 else None)
+                lc = (None if dtype != torch.float32
+                      else cs.batch_library_call(name, bargs)
+                      if layouts is None else cs.library_call(name, bargs))
                 lib[where] = None if lc is None else cs.event_ms(lc, reps=20)
                 pl[where] = (cs.event_ms(lambda: cs.run(name, plain, bargs),
                                          reps=3, warmup=1)
@@ -488,6 +521,7 @@ def time_batched(cs, case, device, n, pmax=(), wheres=None):
                               f"({min(tiles, cap)} partials of {tiles} "
                               f"tiles): {ms:.5f} ms")
                 del bargs, call
+                own = None
             levels = {w: ms for w, ms in per.items()
                       if w.startswith("level ")}
             step = (sum(ms * (2 if int(w.split()[1]) < depth else 1)
@@ -521,8 +555,9 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=0,
                     help="also time kernels 1-7 on the airfoil, 13 on the "
                          "flag, 14 on the fused4 airfoil, 8 and 10 on the "
-                         "surface, 12 on the unwindowed airfoil and 11 on "
-                         "the fused surface at this batch")
+                         "surface, 12 on the unwindowed airfoil, 11 on "
+                         "the fused surface and 1 (level form), 5 and 9 on "
+                         "the cylinder's union at this batch")
     ap.add_argument("--pmax", default="",
                     help="comma-separated caps on kernel 6's partials to "
                          "time at the batch (wK: K waves of its clusters)")
@@ -549,7 +584,7 @@ def main() -> int:
                                                   aggregation="fused4"),
               "surface_fused": functools.partial(cs.build_surface_case,
                                                  aggregation="fused"),
-              "cylinder": cs.build_cylinder_case}
+              "cylinder": cs.cylinder_batch_case}
     if opts.paths:
         keep = opts.paths.split(",")
         unknown = set(keep) - set(builds)
