@@ -4,16 +4,17 @@ inflating-font presets as `inflating_font_config`, the flag presets as
 `flag_simple_config` and the cylinder-flow presets as
 `cylinder_flow_config`; no YAML loading yet).
 
-`ModelConfig.aggregation` picks one of the JAX package's two production
-methods: `"fused"` (the fused edge-phase kernels: the windowed ones on
-windowed layouts with at most one world-space stream, the streamed-input
-ones on unwindowed layouts and for other world-space streams) or
-`"pallas"` (any layout: gathers, the edge MLP as plain matmuls, then the
-fused aggregation + node-phase kernel). `"fusedK"` (2 ≤ K ≤ 8) is
-`"fused"` with K chunks per step on the densest windowed levels (the
-K-way interleaved kernel 14, `ops/kernels/fused_gmp_k.py`); `"fused1"` is
-`"fused"`. The parity-oracle methods `"ell"` and `"segment"` are not
-ported.
+`ModelConfig.aggregation` picks one of the JAX package's methods: `"ell"`
+(its default: ELL gathers and sums as plain PyTorch, no kernel, on any
+hierarchy), `"segment"` (its parity oracle: row selections and
+`index_add`), `"fused"` (the fused edge-phase kernels: the windowed ones
+on windowed layouts with at most one world-space stream, the
+streamed-input ones on unwindowed layouts and for other world-space
+streams) or `"pallas"` (any layout: gathers, the edge MLP as plain
+matmuls, then the fused aggregation + node-phase kernel). `"fusedK"` (2 ≤
+K ≤ 8) is `"fused"` with K chunks per step on the densest windowed levels
+(the K-way interleaved kernel 14, `ops/kernels/fused_gmp_k.py`);
+`"fused1"` is `"fused"`. The presets below pin the kernel methods.
 `DatasetConfig` keeps the fields the trainer reads (the noise) and those
 that shape a variable-mesh dataset's hierarchies (`graph/buckets.py`)."""
 
@@ -53,8 +54,9 @@ class ModelConfig:
     # `world_dim` output channels are world positions (0 = pos_dim).
     world_edges: bool = False
     world_dim: int = 0
-    # "fused", "fusedK" or "pallas" (see the module docstring).
-    aggregation: str = "fused"
+    # "ell", "segment", "fused", "fusedK" or "pallas" (see the module
+    # docstring).
+    aggregation: str = "ell"
     # Encode/decode MLP dtype: "" = the compute dtype; "float32" pins the
     # normalized I/O boundary to full precision while the processor runs in
     # the compute dtype.

@@ -7,10 +7,9 @@ The meshes split into `size_buckets` groups by their level-0 node count
 shapes to the group maxima, so every member pads to the same hierarchy
 shapes: node buckets (real nodes + 1, rounded up to max(pad_multiple,
 128, window / 2)), edge buckets (the members' block-aligned layouts at
-those node buckets) and, on windowed datasets, the residual sub-layouts
-(E_pad, ELL width) the window tables leave, (0, 0) where no member has
-one. The ELL widths (the largest in- or out-degree) are the JAX plan's;
-the port builds no ELL table and reads none of them.
+those node buckets), ELL widths (the largest in- or out-degree) and, on
+windowed datasets, the residual sub-layouts (E_pad, ELL width) the window
+tables leave, (0, 0) where no member has one.
 """
 
 from __future__ import annotations
@@ -40,14 +39,14 @@ class BucketPlan:
         g = self.groups[self.mesh_group[i]]
         return {"node_buckets": g["node_buckets"],
                 "edge_buckets": g["edge_buckets"],
+                "ell_buckets": g["ell_buckets"],
                 "resid_buckets": (None if g["resid_buckets"] is None
                                   else [tuple(r) for r in g["resid_buckets"]])}
 
 
-def _ell_width(*index_arrays) -> int:
-    """The widest row of the ELL tables over these index arrays (≥ 1)."""
-    return max([1] + [int(np.bincount(a).max()) for a in index_arrays
-                      if len(a)])
+def _ell_width(lg) -> int:
+    """The wider of a layout's two ELL tables."""
+    return max(lg.recv_ell.shape[1], lg.send_ell.shape[1])
 
 
 def plan_buckets(levels: Sequence[BistrideLevels],
@@ -87,18 +86,14 @@ def plan_buckets(levels: Sequence[BistrideLevels],
                         g, node_buckets[l], np.zeros(g.flat_edges.shape[1]),
                         edge_block=cfg.edge_block, window=cfg.window,
                         compact=False)
-                    real = lg.edge_mask > 0
                     edge_buckets[l] = max(edge_buckets[l], lg.n_pad_edges)
-                    ell_buckets[l] = max(ell_buckets[l], _ell_width(
-                        lg.receivers[real], lg.senders[real]))
+                    ell_buckets[l] = max(ell_buckets[l], _ell_width(lg))
                     r = lg.resid
                     if r is not None:
-                        rr = r.edge_mask > 0
                         resid_buckets[l][0] = max(resid_buckets[l][0],
                                                   r.n_pad_edges)
-                        resid_buckets[l][1] = max(
-                            resid_buckets[l][1],
-                            _ell_width(r.receivers[rr], r.senders[rr]))
+                        resid_buckets[l][1] = max(resid_buckets[l][1],
+                                                  _ell_width(r))
                 else:
                     counts = np.bincount(g.flat_edges[1],
                                          minlength=node_buckets[l])

@@ -7,12 +7,14 @@ tables (`_compact_resid`) or, on bucketed builds, the mini residual
 sub-layouts (`LevelGraph.resid`) of the out-of-window edges, the
 component-major fiber (`_fiber_t`), the pool / unpool maps, and the
 bucketed build of variable-mesh datasets (`node_buckets`, `edge_buckets`,
-`resid_buckets`: every mesh of a size group pads to the group's shapes;
-such builds carry no compact residual and no fused transition operator,
-as in the JAX package). The arrays equal the JAX package's array for
-array; the ELL tables, the dense transition matrices of bucketed builds,
-the mini residual sub-layouts of unbucketed builds (the model reads their
-compact tables) and the npz cache are not built here.
+`resid_buckets`, `ell_buckets`: every mesh of a size group pads to the
+group's shapes; such builds carry no compact residual and no fused
+transition operator, as in the JAX package), and the ELL tables of the
+`ell` and `segment` methods (`_build_ell`: each node's incident edge slots,
+padded with E_pad). The arrays equal the JAX package's array for array;
+the dense transition matrices of bucketed builds, the mini residual
+sub-layouts of unbucketed builds (the model reads their compact tables)
+and the npz cache are not built here.
 
 Padding convention: nodes pad to N_pad (always > N); pad edge slots connect
 pad node N_pad-1 to itself and carry weight 0, so garbage never reaches a
@@ -104,6 +106,8 @@ class LevelGraph:
     senders: np.ndarray  # [E_pad]
     receivers: np.ndarray  # [E_pad]
     recv_indptr: np.ndarray  # [N_pad+1] layout offset of each node's edges
+    recv_ell: np.ndarray  # [N_pad, K_in] edge slots per receiver (pad = E_pad)
+    send_ell: np.ndarray  # [N_pad, K_out] edge slots per sender (pad = E_pad)
     deg: np.ndarray  # [N_pad] f32 out-degree over real edges (>= 1)
     node_mask: np.ndarray  # [N_pad, 1] f32, 1.0 for real nodes
     edge_mask: np.ndarray  # [E_pad] f32, 1.0 for real edge slots
@@ -349,6 +353,25 @@ def _block_slots(r_sorted: np.ndarray, n_pad: int, edge_block: int,
     return slots, e_pad, recv_indptr.astype(np.int32)
 
 
+def _build_ell(index: np.ndarray, slots: np.ndarray, n_pad: int, e_pad: int,
+               k_min: int = 0) -> np.ndarray:
+    """ELL table: row n lists the layout slots (from `slots`) whose `index`
+    value equals n, in their order in `index`, padded with e_pad. K is the
+    largest multiplicity over the nodes, at least 1 and `k_min` (a bucket
+    plan's width, so every mesh of a group has the same shape)."""
+    idx = np.asarray(index, np.int64)
+    counts = np.bincount(idx, minlength=n_pad)
+    k = max(int(counts.max()) if counts.size else 0, 1, k_min)
+    ell = np.full((n_pad, k), e_pad, dtype=np.int32)
+    order = np.argsort(idx, kind="stable")
+    sorted_idx = idx[order]
+    starts = np.zeros(n_pad + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(len(idx)) - starts[sorted_idx]
+    ell[sorted_idx, pos] = np.asarray(slots)[order].astype(np.int32)
+    return ell
+
+
 def layout_edge_count(edge_counts_per_node: np.ndarray, n_pad: int,
                       edge_block: int = EDGE_BLOCK) -> int:
     """Slots of the block-aligned layout for these per-node real edge
@@ -364,13 +387,14 @@ def _pad_level(
     lvl_pos: Optional[np.ndarray] = None, edge_block: int = EDGE_BLOCK,
     window: int = 0, e_pad_min: int = 0, min_chunks: bool = True,
     resid_e_pad_min: int = 0, force_resid: bool = False,
-    compact: bool = True,
+    compact: bool = True, ell_k_min: int = 0, resid_ell_k_min: int = 0,
 ) -> LevelGraph:
     """One level's layout. `e_pad_min` (an edge bucket) appends pad chunks
-    to the last block; `min_chunks=False` builds a skip-empty layout.
-    Windowed levels also get the compact residual tables (`compact`) or
-    else the residual sub-level, padded to `resid_e_pad_min` slots, built
-    even with no out-of-window edge when `force_resid`."""
+    to the last block; `min_chunks=False` builds a skip-empty layout;
+    `ell_k_min` widens the ELL tables. Windowed levels also get the compact
+    residual tables (`compact`) or else the residual sub-level, padded to
+    `resid_e_pad_min` slots and ELL width `resid_ell_k_min`, built even
+    with no out-of-window edge when `force_resid`."""
     n, e = g.num_nodes, g.flat_edges.shape[1]
     if n_pad <= n or n_pad % NODE_BLOCK:
         raise ValueError(f"n_pad {n_pad} must exceed {n} and be "
@@ -440,11 +464,14 @@ def _pad_level(
         send_win, win_base, resid, cresid = _window_tables(
             senders, receivers, edge_mask, reverse_perm, ew, n_pad, window,
             edge_block, n, lvl_pos, resid_e_pad_min, force_resid, compact,
+            resid_ell_k_min,
         )
     return LevelGraph(
         senders=senders,
         receivers=receivers,
         recv_indptr=recv_indptr,
+        recv_ell=_build_ell(r_sorted, slots, n_pad, e_pad, ell_k_min),
+        send_ell=_build_ell(s_sorted, slots, n_pad, e_pad, ell_k_min),
         deg=deg,
         node_mask=node_mask,
         edge_mask=edge_mask,
@@ -636,6 +663,7 @@ def _window_tables(
     resid_e_pad_min: int = 0,
     force_resid: bool = False,
     compact: bool = True,
+    resid_ell_k_min: int = 0,
 ):
     """Per-chunk aligned source windows for the windowed kernels, plus the
     edges left outside (symmetrized) as compact residual tables (with
@@ -666,7 +694,7 @@ def _window_tables(
         resid = _pad_level(
             CsrGraph(np.stack([s64[m], r64[m]]), n), n_pad, ew[m], lvl_pos,
             edge_block=min(edge_block, EDGE_BLOCK), e_pad_min=resid_e_pad_min,
-            min_chunks=False,
+            min_chunks=False, ell_k_min=resid_ell_k_min,
         )
     return send_win, win_base, resid, cresid
 
@@ -682,6 +710,7 @@ def build_hierarchy(
     node_buckets: Optional[List[int]] = None,
     edge_buckets: Optional[List[int]] = None,
     resid_buckets: Optional[List[Tuple[int, int]]] = None,
+    ell_buckets: Optional[List[int]] = None,
 ) -> Hierarchy:
     """Build bi-stride levels and pad them to static shapes. `window` > 0
     builds the windowed tables (best with a Morton-ordered mesh,
@@ -690,7 +719,8 @@ def build_hierarchy(
     levels = build_bistride_levels(flat_edges, num_layers, num_nodes, pos)
     return pad_levels(levels, pad_multiple, pos=pos, edge_block=edge_block,
                       window=window, node_buckets=node_buckets,
-                      edge_buckets=edge_buckets, resid_buckets=resid_buckets)
+                      edge_buckets=edge_buckets, resid_buckets=resid_buckets,
+                      ell_buckets=ell_buckets)
 
 
 def pad_levels(
@@ -702,11 +732,12 @@ def pad_levels(
     node_buckets: Optional[List[int]] = None,
     edge_buckets: Optional[List[int]] = None,
     resid_buckets: Optional[List[Tuple[int, int]]] = None,
+    ell_buckets: Optional[List[int]] = None,
 ) -> Hierarchy:
-    """`node_buckets` / `edge_buckets` pin each level's N_pad / E_pad, and
-    `resid_buckets` each windowed level's residual sub-layout as (E_pad,
-    ELL width), (0, 0) meaning none (`graph/buckets.py` plans them; the
-    port builds no ELL table, so the width goes unread). A bucketed build
+    """`node_buckets` / `edge_buckets` pin each level's N_pad / E_pad,
+    `ell_buckets` its ELL width, and `resid_buckets` each windowed level's
+    residual sub-layout as (E_pad, ELL width), (0, 0) meaning none
+    (`graph/buckets.py` plans them). A bucketed build
     carries no compact residual and no fused transition operator: the
     model then takes the explicit conv + pool transitions and the
     residual sub-levels."""
@@ -745,6 +776,8 @@ def pad_levels(
             edge_block=edge_block, window=windows[l], e_pad_min=e_pads[l],
             resid_e_pad_min=resids[l][0], force_resid=resids[l][0] > 0,
             compact=not bucketed,
+            ell_k_min=0 if ell_buckets is None else ell_buckets[l],
+            resid_ell_k_min=resids[l][1],
         )
 
     def build_transition(l, kept):
@@ -967,10 +1000,31 @@ def _one(like, value: int):
     return np.asarray([value], like.dtype)
 
 
+def _union_ell(tables, e: int):
+    """The union of the samples' ELL tables ([N_pad, K_s], pad entry E_pad
+    = `e`): sample s's slots add s·E_pad, and its pad entries, which offset
+    would name sample s+1's first slot, become the union's pad B·E_pad;
+    every sample pads to the widest K with it."""
+    b = len(tables)
+    k = max(t.shape[-1] for t in tables)
+    parts = []
+    for i, t in enumerate(tables):
+        if isinstance(t, torch.Tensor):
+            moved = torch.where(t == e, b * e, t + i * e).to(t.dtype)
+            fill = torch.full((t.shape[0], k - t.shape[-1]), b * e,
+                              dtype=t.dtype, device=t.device)
+        else:
+            moved = np.where(t == e, b * e, t + i * e).astype(t.dtype)
+            fill = np.full((t.shape[0], k - t.shape[-1]), b * e, t.dtype)
+        parts.append(_cat([moved, fill], 1))
+    return _cat(parts)
+
+
 def union_layout(ls: List[LevelGraph]) -> LevelGraph:
     """The union of one level's layouts (and their residual sub-levels),
-    every field offset by its kind (`_OFFSETS`, `_POINTERS`) and
-    concatenated, `fiber_t` along its slot axis; the real counts summed."""
+    every field offset by its kind (`_OFFSETS`, `_POINTERS`, the ELL
+    tables by `_union_ell`) and concatenated, `fiber_t` along its slot
+    axis; the real counts summed."""
     l0 = ls[0]
     n, e, w = l0.n_pad_nodes, l0.n_pad_edges, l0.window
     shape = (n, e, l0.edge_block, w, l0.skip_empty, l0.fiber.shape[-1],
@@ -1012,6 +1066,8 @@ def union_layout(ls: List[LevelGraph]) -> LevelGraph:
             changes[f.name] = sum(vals)
         elif v0 is None or not hasattr(v0, "shape"):
             continue
+        elif f.name in ("recv_ell", "send_ell"):
+            changes[f.name] = _union_ell(vals, e)
         elif f.name in _POINTERS:
             totals = np.cumsum([0] + [getattr(lv, _POINTERS[f.name]).shape[0]
                                       for lv in ls])

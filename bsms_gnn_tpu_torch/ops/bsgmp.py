@@ -3,20 +3,23 @@
 
 Down pass per level: GMP, then the conv→pool transition. Bottom GMP. Up
 pass: unpool→reverse-conv, GMP, then the U-Net skip add. A transition is
-the fused operator pair where the hierarchy has one, and otherwise (the
-bucketed hierarchies of variable-mesh datasets) the explicit conv with the
-level's own weights (`message.edge_conv_down` / `edge_conv_up`) and the
-pool / unpool gathers (`ops/pool.py`). Mesh
+the fused operator pair where the hierarchy has one and the method is
+`fused` or `pallas`, and otherwise (the `ell` and `segment` methods, and
+the bucketed hierarchies of variable-mesh datasets) the explicit conv with
+the level's own weights (`message.edge_conv_down` / `edge_conv_up`, on
+the method) and the pool / unpool gathers (`ops/pool.py`). Mesh
 positions never appear online: the static per-level edge fibers and
 transition weights are precomputed on the hierarchy. With world edges the
 world positions are the one dynamic stream: they ride each down
-transition beside h, and each up GMP reads the positions its level had on
-the way down. A batch over one unbucketed hierarchy (h [B, N_pad0, C],
-with world edges pos [B, N_pad0, world_dim]) runs every step on the
-leading dims (`ops/message.py`, `ops/transition.py`). The explicit conv +
-pool path takes one block of rows: a batch on bucketed hierarchies
-reaches it as their union ([B·N_pad0, C], `graph.hierarchy.union`, built
-by `models/simulator.py`).
+transition beside h (on the explicit transitions the narrow stream takes
+the conv's generic form, `bsgmp.py:158-163`), and each up GMP reads the
+positions its level had on the way down. A batch over one unbucketed
+hierarchy (h [B, N_pad0, C], with world edges pos [B, N_pad0, world_dim])
+runs every step on the leading dims (`ops/message.py`,
+`ops/transition.py`, `ops/scatter.py`). The explicit conv's kernel route
+takes one block of rows: a batch on bucketed hierarchies reaches it as
+their union ([B·N_pad0, C], `graph.hierarchy.union`, built by
+`models/simulator.py`).
 
 `remat` (JAX's `jax.checkpoint` of each GMP, `bsgmp.py:107-121`):
 `torch.utils.checkpoint` around each GMP whose level has at least
@@ -44,7 +47,8 @@ def use_fused_trans(trans, level, method: str) -> bool:
     on the pallas and fused methods, to unwindowed levels and to windowed
     levels whose operators are windowed. The other transitions (bucketed
     hierarchies, which have no operator) take the explicit conv + pool
-    path. `"fusedK"` is `"fused"` here: JAX tests the unstripped method
+    path, as do the `ell` and `segment` methods on every hierarchy.
+    `"fusedK"` is `"fused"` here: JAX tests the unstripped method
     (`bsgmp.py:71`), so its `"fusedK"` takes the explicit conv + pool on
     every hierarchy, a departure the port does not copy (the same function
     either way, as conv then pool is the operator)."""
@@ -107,13 +111,10 @@ class BSGMP(nn.Module):
                 if dyn is not None:
                     dyn = trans_down(trans, dyn)
             else:
+                h = pool_nodes(trans, edge_conv_down(level, h, None, method))
                 if dyn is not None:
-                    # JAX sends the narrow world stream through its ELL
-                    # path (`message.py:720-721`), which is not ported.
-                    raise NotImplementedError(
-                        "world-edge streams through the explicit conv + pool "
-                        "transitions (ROADMAP Queue 1, items 3 and 5)")
-                h = pool_nodes(trans, edge_conv_down(level, h))
+                    dyn = pool_nodes(trans,
+                                     edge_conv_down(level, dyn, None, method))
 
         h = gmp(self.bottom_gmp, depth, h, dyn)
         if tap is not None:
@@ -125,7 +126,7 @@ class BSGMP(nn.Module):
             if use_fused_trans(trans, level, method):
                 h = trans_up(trans, h)
             else:
-                h = edge_conv_up(level, unpool_nodes(trans, h))
+                h = edge_conv_up(level, unpool_nodes(trans, h), None, method)
             h = gmp(self.up_gmps[i], d, h, down_ps[d])
             if tap is not None:
                 tap(f"up{i}", h)

@@ -10,7 +10,15 @@ before any gather. The fibers are the static mesh fiber [Δpos, ‖Δpos‖]
 precomputed on the level, preceded, with world edges, by the dynamic
 world-space fiber [Δworld, ‖Δworld‖] from the world positions.
 
-Two methods, as in the JAX package:
+Four methods, as in the JAX package:
+- `"ell"` (JAX's default) and `"segment"` (its parity oracle): the generic
+  path (`message.py:391-448`) on the scatter forms of those names
+  (`ops/scatter.py`): both gathers, the dynamic fibers [Δworld, ‖Δworld‖]
+  before the static one, the edge MLP's tail, the receiver aggregate,
+  then the node phase as plain matmuls (`_node_phase`'s XLA branch,
+  `message.py:508-514`). JAX keeps both on XLA with no Pallas kernel, and
+  these routes launch none of the port's kernels, on any device and at
+  any leading dims.
 - `"fused"`, routed as `gmp_apply` routes it; the node phase is one kernel
   (kernel 3) on every route. `"fusedK"` (2 ≤ K ≤ 8) is `"fused"` with
   K chunks per step on the windowed levels without world streams: kernel
@@ -43,10 +51,11 @@ Two methods, as in the JAX package:
   them to XLA, then the aggregation and node phase in one kernel (kernel
   10).
 
-The gathers are `ops/scatter.py`'s, whose backwards sum by kernel 8. JAX's
-`fused` method gathers through `_gather_edges` instead, whose backward is
-an ELL sum (`scatter.py:66-81`); the two compute the same function on
-every row that carries gradient, so the port builds no ELL tables.
+On the kernel methods the gathers are `ops/scatter.py`'s `pallas` form,
+whose backwards sum by kernel 8. JAX's `fused` method gathers through
+`_gather_edges` instead, whose backward is an ELL sum (`scatter.py:
+66-81`); the two compute the same function on every row that carries
+gradient.
 
 The batch axis (a shared mesh, x [B, N_pad, C]), each batch one launch
 of each kernel, as JAX's `gmp_apply` runs vmapped kernels
@@ -69,11 +78,20 @@ hierarchies, which a batch reaches as the union of its samples'
 hierarchies ([B·N_pad, C], `graph.hierarchy.union`, built by
 `models/simulator.py`), each call one launch over every sample's rows.
 
-`edge_conv_down` / `edge_conv_up`: the explicit transition conv with the
-level's own weights (`message.py:603-692`), each the other's adjoint.
-Windowed levels run kernel 1's level form, then the residual sub-level's
-messages accumulate through kernel 9; unwindowed levels gather and scale
-the rows and sum them with kernel 8.
+`edge_conv_down` / `edge_conv_up`: the explicit transition conv
+(`message.py:699-740`). On the `fused` and `pallas` methods, rows that
+pass JAX's `_conv_fast_ok` (a width that is a multiple of 128, one frame
+or a batch) take the kernel route, each direction the other's adjoint:
+with the level's own weights, windowed levels run kernel 1's level form,
+then the residual sub-level's messages accumulate through kernel 9, and
+unwindowed levels gather and scale the rows and sum them with kernel 8;
+with a runtime `ew`, the gather and kernel 8 on any level. The kernel
+route takes one frame (a batch raises "batch axis"). Every other call
+(the `ell` and `segment` methods, narrow rows such as a world-position
+stream, on any method) takes JAX's generic form: gather_send · ew, then
+aggregate_recv (down), or gather_recv · ew, then aggregate_send (up), on
+the scatter form of the method (`ell` for `fused` and `pallas`, as JAX's
+pallas aggregate falls back to its ELL form on such rows).
 """
 
 from __future__ import annotations
@@ -107,9 +125,16 @@ from bsms_gnn_tpu_torch.ops.kernels.segment_sum_accum import (
     segment_sum_accum_raw,
 )
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_conv
-from bsms_gnn_tpu_torch.ops.scatter import gather_recv, gather_send
+from bsms_gnn_tpu_torch.ops.scatter import (
+    aggregate_recv,
+    aggregate_send,
+    gather_recv,
+    gather_send,
+)
 
-METHODS = ("fused", "pallas")
+METHODS = ("fused", "pallas", "ell", "segment")
+# The methods that run no kernel (JAX keeps them on XLA).
+PLAIN_METHODS = ("ell", "segment")
 
 
 class GMP(nn.Module):
@@ -146,6 +171,8 @@ class GMP(nn.Module):
                               or pos.shape[-1] != sum(self.dyn_dims)):
             raise ValueError(f"world edges need pos of width "
                              f"{sum(self.dyn_dims)}")
+        if method in PLAIN_METHODS:
+            return self._generic(level, x, pos, compute_dtype, method)
         if method == "pallas":
             return self._pallas(level, x, pos, compute_dtype)
         dyn = self.dyn_dims
@@ -226,6 +253,15 @@ class GMP(nn.Module):
                                      compute_dtype, x.dtype)
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
+    def _generic(self, level, x, pos, compute_dtype, method):
+        """`gmp_apply`'s generic path on the `ell` / `segment` scatter
+        forms: the pre-activation, the edge MLP's tail, the receiver
+        aggregate, the plain node phase."""
+        pre = self._edge_pre(level, x, pos, compute_dtype, method)
+        edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
+        return node_phase(self.mlp_node, x,
+                          aggregate_recv(level, edge, method), compute_dtype)
+
     def _pallas(self, level, x, pos, compute_dtype):
         """`gmp_apply`'s generic path (`message.py:391-448`) on the pallas
         method: the edge MLP's tail as plain matmuls, then kernel 10."""
@@ -234,20 +270,22 @@ class GMP(nn.Module):
         return fused_aggregate_node_phase(level, edge, x, self.mlp_node,
                                           compute_dtype)
 
-    def _edge_pre(self, level, x, pos, compute_dtype):
+    def _edge_pre(self, level, x, pos, compute_dtype, form="pallas"):
         """The generic path's first-layer pre-activation (`message.py:
         391-419`): fiber·W_f + b0 + x_i·W_i + x_j·W_j per slot, the fiber
-        the world-space streams' [Δworld, ‖Δworld‖] then the static one."""
+        the world-space streams' [Δworld, ‖Δworld‖] then the static one;
+        the gathers on the scatter form `form`."""
         c = x.shape[-1]
         sfw = level.fiber.shape[-1]
         pd1 = sfw + sum(d + 1 for d in self.dyn_dims)
         w1 = self.mlp_edge.weights[0]
         wf, wi, wj = w1[:pd1], w1[pd1:pd1 + c], w1[pd1 + c:]
-        z_i = gather_send(level, dense(x, wi, 0.0, compute_dtype))
-        z_j = gather_recv(level, dense(x, wj, 0.0, compute_dtype))
+        z_i = gather_send(level, dense(x, wi, 0.0, compute_dtype), form)
+        z_j = gather_recv(level, dense(x, wj, 0.0, compute_dtype), form)
         static = level.fiber.to(z_i.dtype)
         if self.dyn_dims:
-            direction = gather_send(level, pos) - gather_recv(level, pos)
+            direction = (gather_send(level, pos, form)
+                         - gather_recv(level, pos, form))
             parts = []
             for blk in direction.split(list(self.dyn_dims), dim=-1):
                 parts += [blk, torch.linalg.vector_norm(blk, dim=-1,
@@ -262,6 +300,17 @@ class GMP(nn.Module):
             fiber = static
         return (dense(fiber, wf, self.mlp_edge.biases[0], compute_dtype)
                 + z_i + z_j)
+
+
+def node_phase(mlp, x, aggr, compute_dtype):
+    """`_node_phase`'s plain branch (`message.py:508-514`): the node MLP
+    over [x, aggr] with its first layer split by input block, plus the
+    residual."""
+    c = x.shape[-1]
+    wn = mlp.weights[0]
+    pre = (dense(x, wn[:c], mlp.biases[0], compute_dtype)
+           + dense(aggr, wn[c:], 0.0, compute_dtype))
+    return mlp_apply_tail(mlp, pre, compute_dtype) + x
 
 
 def _cresid_edge_phase(cr, gmp: GMP, xwi, xj, wf_sta, aggr, compute_dtype,
@@ -302,9 +351,45 @@ def _resid_edge_phase(r, gmp: GMP, xwi, xj, wf, aggr, compute_dtype, dtype):
     return segment_sum_accum(r, e_r, aggr)
 
 
+def cal_ew(level, w, method: str = "ell"):
+    """The transition weights from node weights (`message.py:517-533`, the
+    reference's no-grad `cal_ew`): w [..., N_pad, 1] → (ec [..., E_pad],
+    aggr_w [..., N_pad, 1]), both detached. The rows are one wide, so the
+    kernel methods take the `ell` form, as JAX's pallas aggregate does on
+    them."""
+    form = _form(method)
+    w = w.detach()
+    normed_w = w[..., 0] / level.deg
+    w_send = gather_send(level, normed_w[..., None], form)[..., 0]
+    aggr_w = aggregate_recv(level, w_send[..., None], form)[..., 0] + 1e-12
+    ec = w_send / gather_recv(level, aggr_w[..., None], form)[..., 0]
+    return ec.detach(), aggr_w[..., None].detach()
+
+
+def _form(method: str) -> str:
+    """The scatter form of the explicit conv's generic route: the method's
+    own on `ell` / `segment`, `ell` on the kernel methods; an unknown
+    method raises."""
+    method, _ = split_interleave(method)
+    if method not in METHODS:
+        raise NotImplementedError(f"aggregation method {method!r}")
+    return method if method in PLAIN_METHODS else "ell"
+
+
+def _conv_fast_ok(level, x, method: str) -> bool:
+    """JAX's `_conv_fast_ok` on the kernel methods: rows of a width that is
+    a multiple of 128 on a 128-aligned layout."""
+    return (split_interleave(method)[0] in ("pallas", "fused")
+            and x.dim() in (2, 3) and x.shape[-1] % 128 == 0
+            and level.n_pad_nodes % 128 == 0
+            and level.n_pad_edges % 128 == 0)
+
+
 def _gathered_conv(level, x, ew):
     """`message.py::_gathered_conv`: the sender rows scaled by the
     slot-aligned weights, summed at the receivers (kernel 8)."""
+    if x.dim() != 2:
+        raise NotImplementedError("batch axis")
     msg = x.index_select(0, level.senders) * ew.to(x.dtype)[:, None]
     return segment_sum_raw(level, msg).to(x.dtype)
 
@@ -317,11 +402,6 @@ def _level_conv(level, x, up: bool):
     messages (`r.ew` / `r.ew_rev`) accumulate through kernel 9."""
     if x.dim() != 2:
         raise NotImplementedError("batch axis")
-    if x.shape[-1] % 128:
-        # JAX takes narrow rows through its ELL path (`message.py:720-740`).
-        raise NotImplementedError(
-            f"the explicit conv on {x.shape[-1]}-wide rows (the ELL path): "
-            f"ROADMAP Queue 1, item 3")
     ew = level.ew_rev if up else level.ew
     if level.window <= 0:
         return _gathered_conv(level, x, ew)
@@ -349,13 +429,46 @@ class _LevelConv(torch.autograd.Function):
         return None, None, _level_conv(ctx.level, g, not ctx.up).to(ctx.dtype)
 
 
-def edge_conv_down(level, x):
-    """The aggregating conv with the level's own weights: Σ_{e: recv(e)=n}
-    ew_e · x[send_e], [N_pad, C] → [N_pad, C] in x's dtype."""
-    return _LevelConv.apply(level, False, x)
+class _Conv(torch.autograd.Function):
+    """The pair with a runtime `ew` (`_make_conv_pair`, `message.py:
+    622-659`): down sums ew · x[sender] at the receivers, up the same with
+    ew[reverse_perm] (the sender sums through the reverse edges), each the
+    other's backward; `ew` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, level, up, x, ew):
+        ctx.level, ctx.up, ctx.ew, ctx.dtype = level, up, ew, x.dtype
+        return _gathered_conv(level, x, ew[level.reverse_perm] if up else ew)
+
+    @staticmethod
+    def backward(ctx, g):
+        lvl, ew = ctx.level, ctx.ew
+        out = _gathered_conv(lvl, g, ew if ctx.up else ew[lvl.reverse_perm])
+        return None, None, out.to(ctx.dtype), None
 
 
-def edge_conv_up(level, x):
+def edge_conv_down(level, x, ew=None, method: str = "fused"):
+    """The aggregating conv: Σ_{e: recv(e)=n} ew_e · x[send_e], [..., N_pad,
+    C] → [..., N_pad, C] in x's dtype, with the level's own weights
+    (`ew=None`) or a runtime slot-aligned `ew` [E_pad]."""
+    if _conv_fast_ok(level, x, method):
+        if ew is None:
+            return _LevelConv.apply(level, False, x)
+        return _Conv.apply(level, False, x, ew.detach())
+    form = _form(method)
+    ew = level.ew.to(x.dtype) if ew is None else ew.detach()
+    return aggregate_recv(level, gather_send(level, x, form) * ew[..., None],
+                          form)
+
+
+def edge_conv_up(level, x, ew=None, method: str = "fused"):
     """The returning conv (the reference's aggragating=False): Σ_{e:
     send(e)=n} ew_e · x[recv_e]."""
-    return _LevelConv.apply(level, True, x)
+    if _conv_fast_ok(level, x, method):
+        if ew is None:
+            return _LevelConv.apply(level, True, x)
+        return _Conv.apply(level, True, x, ew.detach())
+    form = _form(method)
+    ew = level.ew.to(x.dtype) if ew is None else ew.detach()
+    return aggregate_send(level, gather_recv(level, x, form) * ew[..., None],
+                          form)

@@ -157,7 +157,23 @@ Phases (any failure exits non-zero without the result line):
    with the B = 1 counts, a `Trainer` run there; BATCH_CHECK frames on the served mesh's one hierarchy
    against the plain path; a `Trainer` with gradient_accumulation_steps =
    2 whose parameters move on every second update step only; phase 16's
-   times.
+   times;
+23. the `ell` method, the JAX default, on the JAX CLI's layouts
+   (unwindowed, edge_block 128, not reordered; ELL_PATHS): airfoil_ell
+   (the 5k airfoil, depth 7), flag_ell (flag_simple, depth 5, its 3-wide
+   world stream through the explicit conv + pool), cylinder_ell (the
+   three cylinder meshes, bucketed, each batch on their union) and
+   inflating_ell (inflating_font, depth 4, world edges, on three ~16k-node
+   sphere meshes of one size group, bucketed): each case's model against
+   twins of the same weights on `segment` (and, on the airfoil,
+   `pallas`), f32 and bf16, on the real rows: the B = 1 forward and the
+   forward at BATCH_SERVE (FORWARD_TOL), the train step at B = 1 and at
+   the largest batch up to BATCH_TRAIN that fits (ELL_TRAIN_MEM_SHARE:
+   48, inflating fewer) (the case's TRAIN_TOL; in bf16 at least twice the
+   segment twin's own noise); no port kernel launches on the `ell` and
+   `segment` routes (every counter 0); a `Trainer` there with its ms,
+   busy ms, idle share and own peak, the airfoil's beside the windowed
+   `fused` airfoil_batch's of the same run.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -478,6 +494,17 @@ TRAIN_GATE, TRAIN_UPDATES = 2, 4
 # training at BATCH_TRAIN (`bsms_gnn_tpu/configs/default.yaml`'s `batch`).
 # Every batch is B distinct seeded frames over the one hierarchy.
 BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
+# The `ell` paths (ELL_PATHS) run on the layouts the JAX CLI builds: window
+# 0, edge_block 128, no Morton reorder (its ingest reorders only when the
+# window is set). inflating_font's meshes: three Fibonacci spheres of one
+# size group around the ~16k nodes of the paper's InflatingFont timing
+# (BASELINE.md), (nodes, seed), the second served.
+ELL_EDGE_BLOCK = 128
+INFLATING_MESHES = ((15_500, 1), (16_000, 0), (16_500, 2))
+# An `ell` path trains at BATCH_TRAIN, or at the largest batch whose step
+# the B = 1 step's peak (the larger of ell's and segment's, f32 and bf16)
+# times B keeps within this share of the card's memory.
+ELL_TRAIN_MEM_SHARE = 0.7
 # The pallas surface (surface_batch) trains at 16, not 48: its B = 1 step
 # holds 2,633 / 3,106 MiB at its peak (f32 / bf16, PERF.md §5), and the
 # batched peak is about that times B: ~126 / 149 GB at 48, more than the
@@ -1012,15 +1039,16 @@ def build_surface_case(device, aggregation="pallas"):
     return case
 
 
-def build_flag_case(device):
+def build_flag_case(device, aggregation="fused"):
     """flag_simple at full width and depth, from the port's own copies: the
     cloth strip `make_grid_strip_mesh(1579, ny=32)` (1,568 nodes, the size
     of MeshGraphNets' FlagSimple meshes), Morton-reordered, the windowed
     hierarchy (depth 5, edge_block 512, window 256), `flag_simple_config()`
-    (the fused method, world edges). The contact recipe gives the frames:
-    world x, y = the mesh position, z = 0.05·N(0, 1) from a seed; the
-    target adds 0.1·sin(x) to z. The mask is the normal nodes; weights from
-    `torch.Generator().manual_seed(0)`."""
+    (the fused method, world edges); on the `ell` method the JAX CLI's
+    layout instead (not reordered, unwindowed, edge_block 128). The contact
+    recipe gives the frames: world x, y = the mesh position, z = 0.05·N(0,
+    1) from a seed; the target adds 0.1·sin(x) to z. The mask is the normal
+    nodes; weights from `torch.Generator().manual_seed(0)`."""
     from bsms_gnn_tpu_torch.config import flag_simple_config
     from bsms_gnn_tpu_torch.data.synthetic import (
         NT_NORMAL,
@@ -1033,16 +1061,19 @@ def build_flag_case(device):
 
     rng = np.random.default_rng(0)
     pos, cells, node_type = make_grid_strip_mesh(FLAG_NODES, ny=FLAG_NY)
-    pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
+    layout = dict(edge_block=ELL_EDGE_BLOCK)
+    if aggregation != "ell":
+        pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
+        layout = dict(edge_block=EDGE_BLOCK, window=WINDOW)
     edges = to_flat_edge(cells, "tri")
     t0 = time.perf_counter()
     h = build_hierarchy(edges, FLAG_DEPTH, pos.shape[0],
-                        pos.astype(np.float64), edge_block=EDGE_BLOCK,
-                        window=WINDOW)
+                        pos.astype(np.float64), **layout)
     build_s = time.perf_counter() - t0
     hd = to_device(h, device)
 
-    cfg = flag_simple_config().model
+    config = functools.partial(flag_simple_config, aggregation=aggregation)
+    cfg = config().model
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
     n, n_pad = pos.shape[0], h.levels[0].n_pad_nodes
     world = np.zeros((n_pad, 3), np.float32)
@@ -1060,7 +1091,7 @@ def build_flag_case(device):
     mask = torch.from_numpy(mask).to(device)
     fill_normalizers(sim, node_in, mask, rng)
     return dict(label="flag 1.6k", h=h, hd=hd, cfg=cfg, sim=sim,
-                config=flag_simple_config, node_in=node_in, mask=mask, n=n,
+                config=config, node_in=node_in, mask=mask, n=n,
                 build_s=build_s,
                 expected=EXPECTED_FLAG_LAUNCHES,
                 expected_train=EXPECTED_FLAG_TRAIN_LAUNCHES,
@@ -1070,7 +1101,7 @@ def build_flag_case(device):
                        "fused_edge_phase_win_dyn_bwd"))
 
 
-def build_cylinder_case(device):
+def build_cylinder_case(device, aggregation="fused"):
     """cylinder_flow on variable meshes, from the port's own copies: three
     meshes `make_delaunay_mesh(n, default_rng(s))` (CYLINDER_MESHES; about
     cylinder_flow's 1,885 nodes), Morton-reordered, planned into one size
@@ -1079,7 +1110,10 @@ def build_cylinder_case(device):
     depth 5, out 2, the fused method). Each mesh's frames are frames 0 and
     1 of `generate_trajectory` on it (the analytic flow, seeded); the mask
     is the cylinder mask. The second mesh is served; the `Trainer` steps
-    cycle over all three. Weights from `torch.Generator().manual_seed(0)`."""
+    cycle over all three. Weights from `torch.Generator().manual_seed(0)`.
+    On the `ell` method the layouts are the JAX CLI's instead (not
+    reordered, unwindowed, edge_block 128), with no forced empty residual
+    (an unwindowed level has none)."""
     from bsms_gnn_tpu_torch.config import DatasetConfig, cylinder_flow_config
     from bsms_gnn_tpu_torch.data.synthetic import (
         cylinder_mask,
@@ -1093,14 +1127,18 @@ def build_cylinder_case(device):
     from bsms_gnn_tpu_torch.graph.order import reorder_mesh
     from bsms_gnn_tpu_torch.models.simulator import Simulator
 
+    ell = aggregation == "ell"
     data = DatasetConfig(consist_mesh=False, pad_multiple=128,
-                         edge_block=EDGE_BLOCK, size_buckets=1, window=WINDOW)
+                         edge_block=ELL_EDGE_BLOCK if ell else EDGE_BLOCK,
+                         size_buckets=1, window=0 if ell else WINDOW)
     t0 = time.perf_counter()
     meshes, levels = [], []
     for n, seed in CYLINDER_MESHES:
         pos, cells, node_type = make_delaunay_mesh(
             n, np.random.default_rng(seed))
-        pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
+        if not ell:
+            pos, cells, (node_type,), _ = reorder_mesh(pos, cells,
+                                                       (node_type,))
         meshes.append((pos, cells, node_type))
         levels.append(build_bistride_levels(
             to_flat_edge(cells, "tri"), CYLINDER_DEPTH, len(pos),
@@ -1113,7 +1151,8 @@ def build_cylinder_case(device):
     build_s = time.perf_counter() - t0
     print(f"[cylinder] bucket plan: {plan.groups}")
 
-    cfg = cylinder_flow_config().model
+    config = functools.partial(cylinder_flow_config, aggregation=aggregation)
+    cfg = config().model
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
     frames = []
     for i, ((pos, cells, node_type), h) in enumerate(zip(meshes, hs)):
@@ -1134,15 +1173,18 @@ def build_cylinder_case(device):
                        torch.from_numpy(target).to(device), mask))
     hd, node_in, target, mask = frames[1]
     fill_normalizers(sim, node_in, mask, np.random.default_rng(0))
-    return dict(label="cylinder 1.9k", h=hs[1], hd=hd, cfg=cfg, sim=sim,
-                config=cylinder_flow_config, node_in=node_in, mask=mask,
+    case = dict(label="cylinder 1.9k", h=hs[1], hd=hd, cfg=cfg, sim=sim,
+                config=config, node_in=node_in, mask=mask,
                 n=len(meshes[1][0]), build_s=build_s, meshes=meshes,
                 expected=EXPECTED_CYLINDER_LAUNCHES,
                 expected_train=EXPECTED_CYLINDER_TRAIN_LAUNCHES,
                 narrow=(0, 0), train_frames=(node_in, target),
-                trainer_frames=frames, forced_empty=forced_empty_resid(
-                    levels[1], meshes[1][0], plan, data, device),
+                trainer_frames=frames,
                 timed=("windowed_conv", "segment_sum_accum"))
+    if not ell:
+        case["forced_empty"] = forced_empty_resid(levels[1], meshes[1][0],
+                                                  plan, data, device)
+    return case
 
 
 def forced_empty_resid(levels, pos, plan, data, device):
@@ -3277,27 +3319,11 @@ def cylinder_batch_case(device):
     """The cylinder case (`build_cylinder_case`) batched across its three
     meshes, as a variable-mesh dataset batches: sample s on mesh s mod 3
     with its own frame pair (`cylinder_frames`), each batch on the union of
-    its samples' device hierarchies (`data.pipeline.stack_hierarchies`,
-    built once per batch size, its host time printed: JAX stacks in its
-    pipeline's worker threads, outside the step). `sample_layouts` gives a
-    kernel check's layout on each sample's own mesh."""
-    from bsms_gnn_tpu_torch.data.pipeline import stack_hierarchies
-
+    its samples' device hierarchies (`stacked_unions`). `sample_layouts`
+    gives a kernel check's layout on each sample's own mesh."""
     case = build_cylinder_case(device)
     hds = [f[0] for f in case["trainer_frames"]]
-    unions = {}
-
-    def union(n):
-        if n not in unions:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            unions[n] = stack_hierarchies([hds[s % len(hds)]
-                                           for s in range(n)])
-            torch.cuda.synchronize()
-            print(f"[cylinder batch] stack_hierarchies of B={n}: "
-                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host, once "
-                  f"per batch size)")
-        return unions[n]
+    union = stacked_unions(hds, "cylinder batch")
 
     def sample_layouts(name, args, n=BATCH_CHECK):
         lay = args[0]
@@ -3313,6 +3339,30 @@ def cylinder_batch_case(device):
     return dict(case, frames=cylinder_frames, union=union,
                 sample_layouts=sample_layouts,
                 own=lambda s: hds[s % len(hds)])
+
+
+def stacked_unions(hds, label):
+    """n → the union of n samples' device hierarchies, sample s on
+    hds[s mod len(hds)] (`data.pipeline.stack_hierarchies`), built once
+    per batch size, its host time printed: JAX stacks in its pipeline's
+    worker threads, outside the step."""
+    from bsms_gnn_tpu_torch.data.pipeline import stack_hierarchies
+
+    unions = {}
+
+    def union(n):
+        if n not in unions:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unions[n] = stack_hierarchies([hds[s % len(hds)]
+                                           for s in range(n)])
+            torch.cuda.synchronize()
+            print(f"[{label}] stack_hierarchies of B={n}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host, once "
+                  f"per batch size)")
+        return unions[n]
+
+    return union
 
 
 def check_union_samples(case, node_in, mask, got, delta, dtype):
@@ -3671,6 +3721,375 @@ def measure_batch(case, device):
     return e2e
 
 
+# -- the `ell` method (JAX's default aggregation) -----------------------------
+
+
+def build_inflating_ell_case(device):
+    """inflating_font at full width and depth (`inflating_font_config`:
+    depth 4, pos_dim 3, world edges, latent 128, hidden 3) on the `ell`
+    method over variable meshes: the surfaces of
+    `generate_inflating_trajectory(n, 2, default_rng(seed))`
+    (INFLATING_MESHES), planned into one size group (unwindowed,
+    edge_block 128) and each padded to the group's buckets. A sample's
+    input is its mesh's world positions of frame 0, its target frame 1;
+    the mask is the normal nodes. Weights from
+    `torch.Generator().manual_seed(0)`."""
+    from bsms_gnn_tpu_torch.config import DatasetConfig, inflating_font_config
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        NT_NORMAL,
+        generate_inflating_trajectory,
+    )
+    from bsms_gnn_tpu_torch.graph.bistride import build_bistride_levels
+    from bsms_gnn_tpu_torch.graph.buckets import plan_buckets
+    from bsms_gnn_tpu_torch.graph.hierarchy import pad_levels, to_device
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    data = DatasetConfig(consist_mesh=False, pad_multiple=128,
+                         edge_block=ELL_EDGE_BLOCK, size_buckets=1, window=0)
+    config = functools.partial(inflating_font_config, aggregation="ell")
+    cfg = config().model
+    t0 = time.perf_counter()
+    trajs, levels = [], []
+    for n, seed in INFLATING_MESHES:
+        traj = generate_inflating_trajectory(n, 2, np.random.default_rng(seed))
+        pos = traj["mesh_pos"][0].astype(np.float64)
+        trajs.append(traj)
+        levels.append(build_bistride_levels(
+            to_flat_edge(traj["cells"][0], "tri"), cfg.unet_depth, len(pos),
+            pos))
+    plan = plan_buckets(levels, data)
+    hs = [pad_levels(lv, data.pad_multiple,
+                     pos=t["mesh_pos"][0].astype(np.float64),
+                     edge_block=data.edge_block, window=0,
+                     **plan.for_mesh(i))
+          for i, (lv, t) in enumerate(zip(levels, trajs))]
+    build_s = time.perf_counter() - t0
+    print(f"[inflating ell] bucket plan: {plan.groups}")
+    hds = [to_device(h, device) for h in hs]
+    sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
+    samples = []
+    for traj, h, hd in zip(trajs, hs, hds):
+        n, n_pad = traj["mesh_pos"].shape[1], h.levels[0].n_pad_nodes
+        node_in = np.zeros((n_pad, 7), np.float32)
+        node_in[:n, :3] = traj["world_pos"][0]
+        node_in[:n, 3:6] = traj["mesh_pos"][0]
+        node_in[:n, 6] = traj["node_type"][0, :, 0]
+        target = np.zeros((n_pad, 3), np.float32)
+        target[:n] = traj["world_pos"][1]
+        mask = np.zeros((n_pad, 1), np.float32)
+        mask[:n, 0] = traj["node_type"][0, :, 0] == NT_NORMAL
+        samples.append(tuple(torch.from_numpy(a).to(device)
+                             for a in (node_in, target, mask))
+                       + (hd.levels[0].node_mask,))
+    node_in, target, mask, _ = samples[1]
+    fill_normalizers(sim, node_in, mask, np.random.default_rng(0))
+    return dict(label="inflating 16k ell", h=hs[1], hd=hds[1], cfg=cfg,
+                sim=sim, config=config, node_in=node_in, mask=mask,
+                n=INFLATING_MESHES[1][0], build_s=build_s,
+                train_frames=(node_in, target), samples=samples,
+                frames=inflating_frames,
+                union=stacked_unions(hds, "inflating ell"))
+
+
+def inflating_frames(case, n, seed):
+    """n samples of the inflating batch: sample s on mesh s mod 3, its world
+    positions its mesh's frame 0 plus 0.02·N(0, 1) on the real rows (a
+    generator seeded with `seed`), its target frame 1 plus the same
+    offset, its mask its mesh's."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ins, tars, masks = [], [], []
+    for s in range(n):
+        node_in, tar, mask, real = case["samples"][s % len(case["samples"])]
+        shift = 0.02 * torch.randn(node_in.shape[0], 3, generator=g).to(
+            node_in.device) * real
+        ins.append(torch.cat([node_in[:, :3] + shift, node_in[:, 3:]], -1))
+        tars.append(tar + shift)
+        masks.append(mask)
+    return torch.stack(ins), torch.stack(tars), torch.stack(masks)
+
+
+def cylinder_ell_case(device):
+    """The cylinder's three meshes on the `ell` method and the JAX CLI's
+    layouts (`build_cylinder_case(aggregation="ell")`), batched as
+    cylinder_batch batches them: sample s on mesh s mod 3
+    (`cylinder_frames`), each batch on the union of its samples'
+    hierarchies."""
+    case = build_cylinder_case(device, aggregation="ell")
+    hds = [f[0] for f in case["trainer_frames"]]
+    return dict(case, label="cylinder 1.9k ell", frames=cylinder_frames,
+                union=stacked_unions(hds, "cylinder ell"))
+
+
+# path → (the function that builds its case on the `ell` method, the
+# methods of its twins: the same weights and normalizers on the same
+# hierarchy, held against it).
+ELL_PATHS = {
+    "airfoil_ell": (lambda d: dict(build_case(d, plain=True,
+                                              aggregation="ell"),
+                                   label="airfoil 5k ell"),
+                    ("segment", "pallas")),
+    "flag_ell": (lambda d: dict(build_flag_case(d, aggregation="ell"),
+                                label="flag 1.6k ell", frames=flag_frames),
+                 ("segment",)),
+    "cylinder_ell": (cylinder_ell_case, ("segment",)),
+    "inflating_ell": (build_inflating_ell_case, ("segment",)),
+}
+
+
+def launched():
+    """Every launch and narrow-route call the port's kernel wrappers
+    counted since `reset_counts`."""
+    return sum(read_counts(KERNEL_META).values()) + sum(narrow_calls())
+
+
+def real_rows(hd, like):
+    """Level 0's real-row mask, shaped to broadcast against `like` (a
+    union's rows read as [B, N_pad, 1])."""
+    real = hd.levels[0].node_mask
+    if like.dim() == 3 and hd.samples > 1:
+        real = real.reshape(hd.samples, -1, 1)
+    return real
+
+
+def twin_of(case, method):
+    """The case's model on another method, with the same weights and
+    normalizers."""
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    sim = case["sim"]
+    twin = Simulator(dataclasses.replace(sim.cfg, aggregation=method),
+                     device=case["node_in"].device)
+    twin.load_state_dict(sim.state_dict())
+    twin.norm_in, twin.norm_out = sim.norm_in, sim.norm_out
+    return twin
+
+
+def check_ell_forward(case, twins, hd, node_in, mask):
+    """The `ell` forward against each twin's (FORWARD_TOL, f32 and bf16) on
+    the real rows: row n_pad − 1 of each sample sums the pad slots'
+    messages under `segment` and `pallas`, and none under `ell`, by
+    construction (its difference is printed). In bf16 the `segment` twin's
+    `index_add` rounds every add to bf16, in another order each run, where
+    `ell` sums in f32 and rounds once: its limit is the larger of
+    FORWARD_TOL's and twice the twin's own noise (the larger of its
+    distance from itself and from its f32 forward), as `check_ell_step`
+    sets its limits. The launch gate: the `ell` and `segment` forwards
+    launch no port kernel."""
+    sim, label = case["sim"], case["label"]
+    b = "1" if node_in.dim() == 2 else str(node_in.shape[0])
+    c = case["cfg"].out_dim
+    f32 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        reset_counts()
+        got = sim(hd, node_in, mask, cd)
+        require(launched() == 0, f"{label}: the ell forward launched "
+                                 f"{read_counts(KERNEL_META)}")
+        real = real_rows(hd, got)
+        for method, twin in twins.items():
+            reset_counts()
+            want = twin(hd, node_in, mask, cd)
+            if method == "segment":
+                require(launched() == 0,
+                        f"{label}: the segment forward launched "
+                        f"{read_counts(KERNEL_META)}")
+            delta = ((want - node_in[..., :c]) * real).abs().max().item()
+            err = ((got - want) * real).abs().max().item()
+            pad = ((got - want) * (1 - real)).abs().max().item()
+            tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+            noise = ""
+            if dtype == torch.float32:
+                f32[method] = want
+            elif method == "segment":
+                again = twin(hd, node_in, mask, cd)
+                own = max(((want - again) * real).abs().max().item(),
+                          ((want - f32[method]) * real).abs().max().item())
+                tol = max(tol, 2 * own)
+                noise = f", segment's own noise {own:.3e}"
+                del again
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            print(f"[{label}] forward B={b} {str(dtype)[6:]:9s} shape "
+                  f"{tuple(got.shape)} against {method}: max_abs_err on the "
+                  f"real rows {err:.3e} (delta scale {delta:.3e}, tol "
+                  f"{tol:.3e}{noise}; the pad rows differ by {pad:.3e}); port "
+                  f"kernel launches on ell and segment: 0  "
+                  f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"{label} B={b} {dtype} forward disagrees with "
+                        f"{method}")
+        del got, want
+    del f32
+
+
+def check_ell_step(case, twin, hd, node_in, tar, mask):
+    """The `ell` train step's loss and every gradient against the `segment`
+    twin's (TRAIN_TOL, f32 and bf16), the twin also against itself (its
+    `index_add` sums run in another order each time); neither launches a
+    port kernel. The limits are the case's (`train_tol`: the unreordered
+    airfoil's, PLAIN_TRAIN_TOL, whose f32 step lands in one of a few states
+    from run to run of `segment` itself), else TRAIN_TOL. In bf16 the
+    twin's `index_add` rounds every add to bf16, in another order each run,
+    where `ell` sums K rows in f32 and rounds once: the bf16 twin carries
+    its own noise, measured as the larger of its distance from itself and
+    from its f32 step, and two such draws may lie twice that apart, so
+    each bf16 limit is the larger of the case's and twice that noise
+    (printed; the RMS limit stays far below the ~1.4 of RMS of a wrong
+    gradient). Returns the largest own peak MiB of the steps."""
+    sim, label = case["sim"], case["label"]
+    b = 1 if node_in.dim() == 2 else node_in.shape[0]
+    worst = 0.0
+    f32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        reset_counts()
+        with own_peak() as peak:
+            loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
+        with own_peak() as peak_s:
+            loss_s, grads_s = step_grads(twin, hd, node_in, tar, mask, cd)
+        loss_q, grads_q = step_grads(twin, hd, node_in, tar, mask, cd)
+        require(launched() == 0, f"{label}: a train step launched "
+                                 f"{read_counts(KERNEL_META)}")
+        worst = max(worst, peak[0], peak_s[0])
+        tol_loss, tol_max, tol_rms = case.get("train_tol", TRAIN_TOL)[dtype]
+        own = ""
+        self_rel, _ = grad_errors(grads_q, grads_s)
+        if f32 is None:
+            f32 = loss_s, grads_s
+        else:
+            own_rel, _ = grad_errors(grads_s, f32[1])
+            noise = (max(abs(loss_s - f32[0]) / abs(f32[0]),
+                         abs(loss_q - loss_s) / abs(loss_s)),
+                     max(max(own_rel)[0], max(self_rel)[0]),
+                     max(max(r[1] for r in own_rel),
+                         max(r[1] for r in self_rel)))
+            tol_loss, tol_max, tol_rms = (max(t, 2 * n) for t, n in zip(
+                (tol_loss, tol_max, tol_rms), noise))
+            own = (f"; segment's bf16 step against its f32 step: loss "
+                   f"{abs(loss_s - f32[0]) / abs(f32[0]):.2e}, worst max "
+                   f"{max(own_rel)[0]:.2e}, worst rms "
+                   f"{max(r[1] for r in own_rel):.2e}")
+        rel, zero = grad_errors(grads, grads_s)
+        worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
+        loss_err = abs(loss - loss_s) / abs(loss_s)
+        ok = (loss_err <= tol_loss and worst_max[0] <= tol_max
+              and worst_rms[1] <= tol_rms)
+        print(f"[{label}] train step B={b} {str(dtype)[6:]:9s} loss "
+              f"{loss:.6e} (segment {loss_s:.6e}, rel err {loss_err:.2e}, "
+              f"tol {tol_loss:.0e}); {len(rel)} gradients, worst max err "
+              f"{worst_max[0]:.2e} of rms ({worst_max[2]}, tol "
+              f"{tol_max:.1e}), worst rms err {worst_rms[1]:.2e} of rms "
+              f"({worst_rms[2]}, tol {tol_rms:.1e}), median rms err "
+              f"{float(np.median([r[1] for r in rel])):.2e}; {len(zero)} "
+              f"exactly zero on both; segment against itself: worst max "
+              f"{max(self_rel)[0]:.2e}, worst rms "
+              f"{max(r[1] for r in self_rel):.2e}{own}; own peak "
+              f"{peak[0]:.1f} MiB (segment {peak_s[0]:.1f}); port kernel "
+              f"launches 0  {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label} B={b} {dtype} train step disagrees with "
+                    f"segment")
+    return worst
+
+
+def measure_ell_train(case, device, hd, frames, b, e2e):
+    """A `Trainer` on the `ell` method at batch b, f32 and bf16: the gate,
+    then updates; ms per step (median of three repeats of two steps, CUDA
+    events), busy ms, idle share and CUDA kernels of one profiled step,
+    own peak MiB of one step; the losses finite and every parameter with a
+    gradient moved. On the airfoil the windowed `fused` airfoil_batch
+    figures of this run stand beside them. Returns the end-to-end keys."""
+    label = case["label"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        key = "f32" if cd is None else "bf16"
+        tr = make_trainer(case, device, cd)
+        before = [p.detach().clone() for p in tr.sim.parameters()]
+
+        def step():
+            return tr.iter(hd, *frames)
+
+        losses = [float(step()) for _ in range(TRAIN_GATE + 2)]
+        runs = [event_ms(step, reps=2, warmup=0) for _ in range(3)]
+        ms = float(np.median(runs))
+        with own_peak() as peak:
+            losses.append(float(step()))
+        prof = profile_call(step)
+        stuck = [k for (k, p), w in zip(tr.sim.named_parameters(), before)
+                 if not bool((p.detach() != w).any()) and bool(p.grad.any())]
+        require(all(np.isfinite(losses)) and not stuck,
+                f"{label} trainer B={b}: losses {losses}, stuck {stuck}")
+        busy = prof[1]
+        print_profile(f"[{label}] train step B={b} {key}", *prof)
+        line = (f"[{label}] train step B={b} {key}: {ms:.4f} ms (median of "
+                f"{[round(r, 4) for r in runs]}), busy {busy:.4f} ms "
+                f"({busy / b:.4f} per sample), idle share "
+                f"{1 - busy / ms:.3f}, {prof[2]} CUDA kernels, own peak "
+                f"{peak[0]:.1f} MiB; trainer losses {losses}")
+        fused = f"airfoil_b48_train_step_ms_b{b}_{key}"
+        if case["label"].startswith("airfoil") and fused in e2e:
+            f_ms = e2e[fused]
+            f_busy = e2e[f"airfoil_b48_train_step_busy_ms_b{b}_{key}"]
+            f_peak = e2e[f"airfoil_b48_train_step_peak_above_mib_b{b}_{key}"]
+            line += (f"; the windowed fused airfoil (airfoil_batch, this "
+                     f"run): {f_ms:.4f} ms, busy {f_busy:.4f} ms, idle "
+                     f"share {1 - f_busy / f_ms:.3f}, own peak "
+                     f"{f_peak:.1f} MiB: ell takes {ms / f_ms:.2f}x the "
+                     f"time and {peak[0] / f_peak:.2f}x the memory")
+        print(line)
+        out.update({f"train_step_ms_b{b}_{key}": ms,
+                    f"train_step_busy_ms_b{b}_{key}": busy,
+                    f"train_step_kernels_b{b}_{key}": prof[2],
+                    f"train_step_peak_above_mib_b{b}_{key}": peak[0]})
+        del tr
+    return out
+
+
+def run_ell_case(device, path, e2e):
+    """An `ell` path (ELL_PATHS): the B = 1 forward against its twins, the
+    forward at BATCH_SERVE against the `segment` twin, the B = 1 train
+    step against the `segment` step, then the train step at the largest
+    batch up to BATCH_TRAIN that fits (ELL_TRAIN_MEM_SHARE) against it and
+    the `Trainer` there with its times; no port kernel launches on the
+    `ell` and `segment` routes. Returns (kernel errors, kernel rows,
+    forward launches, train launches, end-to-end times) as `run_case`
+    does: the first four empty."""
+    build, methods = ELL_PATHS[path]
+    case = build(device)
+    label, sim = case["label"], case["sim"]
+    twins = {m: twin_of(case, m) for m in methods}
+    batch_hd = case.get("union") or (lambda n: case["hd"])
+    hd0 = case["hd"]
+    print(f"[{label}] mesh: {case['n']} nodes; level N_pad "
+          f"{[lv.n_pad_nodes for lv in hd0.levels]}, E_pad "
+          f"{[lv.n_pad_edges for lv in hd0.levels]}, ELL K (recv) "
+          f"{[lv.recv_ell.shape[1] for lv in hd0.levels]}; built in "
+          f"{case['build_s']:.2f} s")
+    with torch.no_grad():
+        check_ell_forward(case, twins, hd0, case["node_in"], case["mask"])
+        node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
+        check_ell_forward(case, {"segment": twins["segment"]},
+                          batch_hd(BATCH_SERVE), node_in, mask)
+        del node_in, mask
+    node_in, tar = case.get("train_frames") or (case["node_in"],
+                                                train_target(case))
+    peak1 = check_ell_step(case, twins["segment"], hd0, node_in, tar,
+                           case["mask"])
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    b = int(min(BATCH_TRAIN, ELL_TRAIN_MEM_SHARE * total // max(peak1, 1.0)))
+    print(f"[{label}] train batch {b}: the B = 1 step's peak {peak1:.1f} MiB "
+          f"times B within {ELL_TRAIN_MEM_SHARE} of the card's {total:.0f} "
+          f"MiB" + ("" if b == BATCH_TRAIN else
+                    f" (BATCH_TRAIN = {BATCH_TRAIN} would not fit)"))
+    frames = batch_frames(case, b, 22)
+    hd = batch_hd(b)
+    check_ell_step(case, twins["segment"], hd, *frames)
+    del twins
+    out = measure_ell_train(case, device, hd, frames, b, e2e)
+    del case, frames
+    torch.cuda.empty_cache()
+    return {}, {}, {}, {}, out
+
+
 def held_line() -> str:
     """What the kernels' weight-stack cache (`build.stacked`) holds on the
     card: it outlives the phase that filled it, so a later peak counts it."""
@@ -3734,7 +4153,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # (path, the function that builds its case (None: a batched path of
-    # BATCH_PATHS), the prefix of its end-to-end keys)
+    # BATCH_PATHS or an `ell` path of ELL_PATHS), the prefix of its
+    # end-to-end keys)
     paths = (("airfoil", build_case, ""),
              ("surface", build_surface_case, "surface_"),
              ("flag", build_flag_case, "flag_"),
@@ -3753,7 +4173,11 @@ def main() -> int:
              ("surface_batch", None, "surface_batch_"),
              ("plain_batch", None, "airfoil_plain_b48_"),
              ("surface_fused_batch", None, "surface_fused_b48_"),
-             ("cylinder_batch", None, "cylinder_b48_"))
+             ("cylinder_batch", None, "cylinder_b48_"),
+             ("airfoil_ell", None, "airfoil_ell_"),
+             ("flag_ell", None, "flag_ell_"),
+             ("cylinder_ell", None, "cylinder_ell_"),
+             ("inflating_ell", None, "inflating_ell_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -3768,9 +4192,13 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
         for phase, build_fn, prefix in paths:
-            (errs[phase], rows[phase], serve[phase], train[phase],
-             t) = (run_case(build_fn, device) if build_fn is not None
-                   else run_batch_case(device, phase))
+            if build_fn is not None:
+                got = run_case(build_fn, device)
+            elif phase in ELL_PATHS:
+                got = run_ell_case(device, phase, e2e)
+            else:
+                got = run_batch_case(device, phase)
+            errs[phase], rows[phase], serve[phase], train[phase], t = got
             e2e.update({prefix + k: v for k, v in t.items()})
             print(f"{phase} phases done at "
                   f"{time.perf_counter() - t_start:.1f} s")

@@ -87,7 +87,8 @@ def test_batched_trainer_matches_jax_trainer(mesh):
         opt=JaxOptConfig(**opt_kw)),
         init_key=jax.random.PRNGKey(3))
     tcfg = ModelConfig(latent_dim=128, hidden_layer=jcfg.hidden_layer,
-                       unet_depth=DEPTH, accumulation_steps=1)
+                       unet_depth=DEPTH, accumulation_steps=1,
+                       aggregation="fused")
     ttr = Trainer(Config(model=tcfg), OptConfig(**opt_kw), device="cpu")
     init = params_from_numpy(jax_to_nested(jtr.state.sim.params))
     ttr.sim.load_state_dict(init)

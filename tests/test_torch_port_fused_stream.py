@@ -107,7 +107,7 @@ def _case(name):
         jcfg = JaxModelConfig(latent_dim=C, hidden_layer=HIDDEN,
                               unet_depth=DEPTH, aggregation="fused")
         tcfg = Config(model=ModelConfig(latent_dim=C, hidden_layer=HIDDEN,
-                                        unet_depth=DEPTH))
+                                        unet_depth=DEPTH, aggregation="fused"))
     else:
         pos, cells, node_type = make_sphere_mesh(SPHERE_NODES,
                                                  np.random.default_rng(0))

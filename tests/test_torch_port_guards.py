@@ -48,7 +48,12 @@ from bsms_gnn_tpu_torch.ops.kernels import (
     subwin_conv,
     windowed,
 )
-from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down
+from bsms_gnn_tpu_torch.ops.message import (
+    GMP,
+    cal_ew,
+    edge_conv_down,
+    edge_conv_up,
+)
 from bsms_gnn_tpu_torch.training.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -281,13 +286,15 @@ def test_cpu_tensors_take_the_plain_versions(hier, flat, bucketed, counters):
         # then with world edges kernel 11's.
         for world in (False, True):
             cfg = ModelConfig(unet_depth=2, hidden_layer=1, pos_dim=2,
-                              world_edges=world, world_dim=3 if world else 0)
+                              world_edges=world, world_dim=3 if world else 0,
+                              aggregation="fused")
             sim = Simulator(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
             sim(flat, torch.randn(nf, 6, generator=g), torch.ones(nf, 1))
         # The explicit transitions and the residual sub-level of a bucketed
         # hierarchy: kernel 1's level form and kernel 9's routes.
-        sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1, out_dim=2),
+        sim = Simulator(ModelConfig(unet_depth=2, hidden_layer=1, out_dim=2,
+                                    aggregation="fused"),
                         torch.Generator().manual_seed(0), device="cpu")
         nb = blvl.n_pad_nodes
         sim(bucketed, torch.randn(nb, 5, generator=g), torch.ones(nb, 1))
@@ -425,9 +432,10 @@ def test_kernel8_refuses_a_skip_empty_layout(bucketed):
 
 def test_world_edges_on_bucketed_hierarchies_raise(bucketed):
     """World-edge streams on a bucketed hierarchy: the explicit conv + pool
-    transitions raise (JAX takes the narrow stream through its ELL path),
-    and so does v4's residual sub-level branch (a windowed level with a
-    residual sub-level and no compact tables)."""
+    transitions take the narrow stream through the conv's generic form
+    (the `ell` scatter ops, as JAX's ELL path does) on every method, while
+    v4's residual sub-level branch (a windowed level with a residual
+    sub-level and no compact tables) still raises."""
     lvl = bucketed.levels[0]
     assert lvl.resid is not None and lvl.cresid is None
     n = lvl.n_pad_nodes
@@ -435,15 +443,100 @@ def test_world_edges_on_bucketed_hierarchies_raise(bucketed):
                       world_edges=True, world_dim=3, aggregation="fused")
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
     gmp = GMP(128, 1, 2, torch.Generator().manual_seed(0), fiber_dims=(3, 2))
+    g = torch.Generator().manual_seed(3)
+    pos = torch.randn(n, 3, generator=g) * lvl.node_mask
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="explicit conv"):
-            sim.process(bucketed, torch.zeros(n, 128), pos=torch.zeros(n, 3),
-                        method="pallas")
+        out = sim.process(bucketed, torch.randn(n, 128, generator=g) * 0.1,
+                          pos=pos, method="pallas")
+        assert out.shape == (n, 128) and bool(torch.isfinite(out).all())
         with pytest.raises(NotImplementedError, match="residual sub-level"):
-            gmp(lvl, torch.zeros(n, 128), pos=torch.zeros(n, 3),
-                method="fused")
-        with pytest.raises(NotImplementedError, match="ELL"):
-            edge_conv_down(lvl, torch.zeros(n, 3))
+            gmp(lvl, torch.zeros(n, 128), pos=pos, method="fused")
+        for method in ("fused", "pallas"):
+            torch.testing.assert_close(
+                edge_conv_down(lvl, pos, method=method),
+                edge_conv_down(lvl, pos, method="ell"), rtol=0, atol=0)
+
+
+def _kernel_entry_points():
+    """(module, name) of every function of the kernel modules that the
+    ops modules call (the wrappers and helpers they import)."""
+    from bsms_gnn_tpu_torch.ops import bsgmp, message, pool, scatter
+    from bsms_gnn_tpu_torch.ops import transition
+
+    return [(mod, name) for mod in (bsgmp, message, pool, scatter, transition)
+            for name, f in vars(mod).items()
+            if callable(f) and getattr(f, "__module__", "").startswith(
+                "bsms_gnn_tpu_torch.ops.kernels")]
+
+
+@pytest.mark.parametrize("method", ["ell", "segment"])
+def test_ell_and_segment_call_no_kernel_wrapper(hier, bucketed, monkeypatch,
+                                                method):
+    """With every kernel entry point of the ops modules patched to raise,
+    the `ell` and `segment` methods still run the simulator forward and
+    backward on a windowed hierarchy (one frame and a batch of two), an
+    unwindowed one with world edges, a bucketed one with residual
+    sub-levels (a frame, and a batch on its union), and the explicit convs
+    and `cal_ew` on narrow rows: JAX keeps these methods on XLA."""
+    entries = _kernel_entry_points()
+    assert len(entries) >= 15
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel entry point ran")
+
+    for mod, name in entries:
+        monkeypatch.setattr(mod, name, refuse)
+    pos, cells = scrambled_grid()
+    flat = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2,
+                                     len(pos), pos), "cpu")
+    hd = to_device(hier, "cpu")
+    g = torch.Generator().manual_seed(0)
+    cases = [
+        (hd, ModelConfig(unet_depth=2, hidden_layer=1,
+                         aggregation=method), 6, (None, 2)),
+        (flat, ModelConfig(unet_depth=2, hidden_layer=1, world_edges=True,
+                           world_dim=3, aggregation=method), 6, (None,)),
+        (bucketed, ModelConfig(unet_depth=2, hidden_layer=1, out_dim=2,
+                               aggregation=method), 5, (None, 2)),
+    ]
+    for h, cfg, width, batches in cases:
+        sim = Simulator(cfg, torch.Generator().manual_seed(0), device="cpu")
+        n = h.levels[0].n_pad_nodes
+        for b in batches:
+            lead = () if b is None else (b,)
+            out = sim(h, torch.randn(*lead, n, width, generator=g),
+                      torch.ones(*lead, n, 1))
+            out.square().mean().backward()
+            assert all(p.grad is not None and bool(torch.isfinite(p.grad)
+                                                   .all())
+                       for p in sim.parameters())
+            sim.zero_grad(set_to_none=True)
+    lvl = bucketed.levels[0]
+    x = torch.randn(lvl.n_pad_nodes, 3, generator=g, requires_grad=True)
+    edge_conv_up(lvl, edge_conv_down(lvl, x, method=method),
+                 method=method).sum().backward()
+    cal_ew(lvl, torch.rand(lvl.n_pad_nodes, 1, generator=g), method)
+
+
+def test_model_config_defaults_equal_jax():
+    """Every field the port's `ModelConfig` shares with the JAX package's
+    has JAX's default (the aggregation `ell` among them); the fields the
+    port lacks are JAX's compute dtype, which the port takes per call, and
+    `consistent_mesh`, a mirror of the reference's YAML that no JAX code
+    reads (the port's `DatasetConfig.consist_mesh` is the dataset's)."""
+    import dataclasses
+
+    from bsms_gnn_tpu.config import ModelConfig as JaxModelConfig
+
+    port = {f.name: getattr(ModelConfig(), f.name)
+            for f in dataclasses.fields(ModelConfig)}
+    jax_ = {f.name: getattr(JaxModelConfig(), f.name)
+            for f in dataclasses.fields(JaxModelConfig)}
+    assert set(jax_) - set(port) == {"compute_dtype", "consistent_mesh"}
+    assert set(port) <= set(jax_)
+    for name, value in port.items():
+        assert value == jax_[name], name
+    assert port["aggregation"] == "ell"
 
 
 @pytest.mark.parametrize("name", ["windowed_conv", "segment_sum_accum_raw"])
@@ -471,10 +564,19 @@ def test_unsupported_layouts_raise(hier):
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="aggregation method"):
             gmp(h_flat.levels[0], torch.zeros(h_flat.levels[0].n_pad_nodes,
-                                              128), method="ell")
+                                              128), method="csr")
+        with pytest.raises(NotImplementedError, match="aggregation method"):
+            edge_conv_down(h_flat.levels[0],
+                           torch.zeros(h_flat.levels[0].n_pad_nodes, 3),
+                           method="csr")
+        for method in ("ell", "segment"):
+            assert gmp(h_flat.levels[0], torch.zeros(
+                2, h_flat.levels[0].n_pad_nodes, 128),
+                method=method).shape == (2, h_flat.levels[0].n_pad_nodes, 128)
         # A batch runs the windowed fused route (v3), the pallas method and
-        # fused on an unwindowed level (v2); the explicit conv, which takes
-        # B = 1, refuses it.
+        # fused on an unwindowed level (v2); the explicit conv's kernel
+        # route, which takes B = 1, refuses it; its ell and segment forms
+        # take it.
         assert gmp(hd.levels[0], torch.zeros(2, n, 128)).shape == (2, n, 128)
         assert gmp(hd.levels[0], torch.zeros(2, n, 128),
                    method="pallas").shape == (2, n, 128)
@@ -483,6 +585,9 @@ def test_unsupported_layouts_raise(hier):
             2, nf, 128)
         with pytest.raises(NotImplementedError, match="batch axis"):
             edge_conv_down(hd.levels[0], torch.zeros(2, n, 128))
+        for method in ("ell", "segment"):
+            assert edge_conv_down(hd.levels[0], torch.zeros(2, n, 128),
+                                  method=method).shape == (2, n, 128)
         with pytest.raises(NotImplementedError, match="latent width"):
             GMP(64, 1, 2)(hd.levels[0], torch.zeros(n, 64))
         with pytest.raises(NotImplementedError, match="windowed"):

@@ -103,13 +103,11 @@ def batch():
     node_in [B, N_pad, 5], target [B, N_pad, 2], mask [B, N_pad, 1], real
     node counts), numpy arrays."""
     meshes, plan, pairs = group(WINDOW)
-    ell = plan.groups[0]["ell_buckets"]
     jhs = []
     for i, (pos, cells, _) in enumerate(meshes):
         jl = jax_levels(jax_flat_edge(cells, "tri"), DEPTH, len(pos), pos)
         jhs.append(jax_pad_levels(jl, 128, pos=pos, edge_block=EDGE_BLOCK,
-                                  window=WINDOW, ell_buckets=ell,
-                                  **plan.for_mesh(i)))
+                                  window=WINDOW, **plan.for_mesh(i)))
 
     def resid(get):
         return lambda lv: 0 if lv.resid is None else get(lv.resid)

@@ -56,7 +56,8 @@ def normalizer_to_dict(state):
 def small_configs(depth=3, hidden=2):
     jcfg = JaxModelConfig(latent_dim=128, hidden_layer=hidden,
                           unet_depth=depth, aggregation="fused")
-    tcfg = ModelConfig(latent_dim=128, hidden_layer=hidden, unet_depth=depth)
+    tcfg = ModelConfig(latent_dim=128, hidden_layer=hidden, unet_depth=depth,
+                       aggregation="fused")
     return jcfg, tcfg
 
 
