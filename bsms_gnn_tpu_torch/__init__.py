@@ -10,5 +10,11 @@ hierarchies, world-space edges included), through seventeen hand-written
 CUDA kernels
 (`ops/kernels/`). Entry points default to the CUDA card and
 raise where there is none; pass `device="cpu"` for the plain PyTorch
-versions. The package imports nothing of JAX or of `bsms_gnn_tpu`.
+versions. The two CLIs, `python -m bsms_gnn_tpu_torch.train` and
+`python -m bsms_gnn_tpu_torch.rollout`, take the JAX CLIs' overrides
+(`config.load_config`) plus `device=cpu`, read HDF5 datasets
+(`data/`) and write checkpoints with the optimizer state
+(`training/checkpoint.py`). The package imports nothing of JAX or of
+`bsms_gnn_tpu`, needs no PyYAML, and imports h5py only where it writes
+or reads HDF5.
 """

@@ -1,30 +1,45 @@
-"""Synthetic meshes (counterparts of `bsms_gnn_tpu/data/synthetic.py`'s
-`make_delaunay_mesh`, `make_graded_airfoil_mesh`, `make_grid_strip_mesh`,
-`make_sphere_mesh`, `generate_trajectory` (velocity only, on a given mesh,
-without its HDF5 writer) and `generate_inflating_trajectory`), so the port
-builds the benchmark meshes without the dataset readers; and the node-type
-codes and the cylinder-flow loss mask of `bsms_gnn_tpu/data/datasets.py`."""
+"""Synthetic meshes and datasets (counterparts of
+`bsms_gnn_tpu/data/synthetic.py`'s `make_delaunay_mesh`,
+`make_graded_airfoil_mesh`, `make_grid_strip_mesh`, `make_sphere_mesh`,
+`generate_trajectory`, `generate_inflating_trajectory` and the dataset
+writers `generate_synthetic_dataset` and
+`generate_synthetic_inflating_dataset`), so the port builds the benchmark
+meshes and writes schema-identical HDF5 trajectories (one file per
+trajectory under `{root}/{name}/{split}/`, every field with a leading time
+axis) from the same seeds as the JAX package. The writers need h5py,
+imported when they run; the meshes and trajectories need only numpy and
+scipy. The tetra-mesh writer is not ported."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from scipy.spatial import ConvexHull, Delaunay
 
-# Node-type codes of the MeshGraphNets datasets.
-NT_NORMAL = 0
-NT_AIRFOIL = 2
-NT_HANDLE = 3
-NT_INFLOW = 4
-NT_OUTFLOW = 5
-NT_WALL = 6
+from bsms_gnn_tpu_torch.data.datasets import (  # noqa: F401 (re-exported)
+    NT_AIRFOIL,
+    NT_HANDLE,
+    NT_INFLOW,
+    NT_NORMAL,
+    NT_OUTFLOW,
+    NT_WALL,
+    get_mask,
+)
 
 
 def cylinder_mask(node_type: np.ndarray) -> np.ndarray:
     """cylinder_flow's loss mask: valid ⇔ type ∈ {0 interior, 5 outflow}
     (f32, the shape of `node_type`)."""
-    node_type = np.asarray(node_type)
-    return ((node_type == NT_NORMAL) | (node_type == NT_OUTFLOW)).astype(
-        np.float32)
+    return get_mask("cylinder_flow", node_type)
+
+
+def _write_h5(path: str, fields: dict) -> None:
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for k, v in fields.items():
+            f.create_dataset(k, data=v)
 
 
 def make_delaunay_mesh(n_nodes: int, rng: np.random.Generator):
@@ -55,34 +70,70 @@ def make_delaunay_mesh(n_nodes: int, rng: np.random.Generator):
     return pos.astype(np.float32), cells, node_type
 
 
-def _analytic_velocity(pos: np.ndarray, t: float, phase: float):
-    """The traveling vortex's velocity (vx, vy) at time t."""
+def _analytic_fields(pos: np.ndarray, t: float, phase: float):
+    """The traveling vortex's velocity (vx, vy) and advected density at
+    time t."""
     x, y = pos[:, 0], pos[:, 1]
     vx = np.sin(2 * np.pi * (x - 0.3 * t) + phase) * np.cos(2 * np.pi * y)
     vy = -np.cos(2 * np.pi * (x - 0.3 * t) + phase) * np.sin(2 * np.pi * y)
-    return vx.astype(np.float32), vy.astype(np.float32)
+    rho = 1.0 + 0.2 * np.sin(2 * np.pi * (x + y - 0.5 * t) + phase)
+    return vx.astype(np.float32), vy.astype(np.float32), rho.astype(np.float32)
 
 
 def generate_trajectory(mesh: tuple, n_frames: int,
-                        rng: np.random.Generator):
+                        rng: np.random.Generator, with_density: bool = False):
     """One trajectory of the analytic flow on `mesh` = (pos, cells,
     node_type), the fields per frame in the converted-dataset schema:
     mesh_pos [T, N, 2], node_type [T, N, 1], cells [T, M, 3], velocity
-    [T, N, 2]. The velocity equals `bsms_gnn_tpu/data/synthetic.py::
-    generate_trajectory(n, n_frames, rng, False, mesh)`'s."""
+    [T, N, 2] and, `with_density`, density [T, N, 1]. Equals
+    `bsms_gnn_tpu/data/synthetic.py::generate_trajectory(n, n_frames, rng,
+    with_density, mesh)`'s fields."""
     pos, cells, node_type = mesh
     n = pos.shape[0]
     phase = float(rng.uniform(0, 2 * np.pi))
     vel = np.zeros((n_frames, n, 2), np.float32)
+    rho = np.zeros((n_frames, n, 1), np.float32)
     for ti in range(n_frames):
-        vel[ti, :, 0], vel[ti, :, 1] = _analytic_velocity(pos, ti * 0.05,
-                                                          phase)
-    return {
+        vx, vy, r = _analytic_fields(pos, ti * 0.05, phase)
+        vel[ti, :, 0], vel[ti, :, 1] = vx, vy
+        rho[ti, :, 0] = r
+    fields = {
         "mesh_pos": np.broadcast_to(pos, (n_frames, n, 2)).copy(),
         "node_type": np.broadcast_to(node_type, (n_frames, n, 1)).copy(),
         "cells": np.broadcast_to(cells, (n_frames,) + cells.shape).copy(),
         "velocity": vel,
     }
+    if with_density:
+        fields["density"] = rho
+    return fields
+
+
+def generate_synthetic_dataset(
+    root: str,
+    name: str = "synthetic_airfoil",
+    n_train: int = 4,
+    n_test: int = 2,
+    n_nodes: int = 500,
+    n_frames: int = 20,
+    consistent_mesh: bool = True,
+    with_density: bool = True,
+    seed: int = 0,
+) -> str:
+    """Write a dataset of Delaunay meshes on the unit square (one shared
+    mesh, or each trajectory its own of n_nodes / 2 to n_nodes nodes) and
+    the analytic flow; returns its directory."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, name)
+    shared = make_delaunay_mesh(n_nodes, rng) if consistent_mesh else None
+    for split, count in (("train", n_train), ("test", n_test)):
+        split_dir = os.path.join(base, split)
+        os.makedirs(split_dir, exist_ok=True)
+        for i in range(count):
+            mesh = shared or make_delaunay_mesh(
+                int(rng.integers(n_nodes // 2, n_nodes)), rng)
+            fields = generate_trajectory(mesh, n_frames, rng, with_density)
+            _write_h5(os.path.join(split_dir, f"{i}.h5"), fields)
+    return base
 
 
 def make_graded_airfoil_mesh(n_nodes: int, rng: np.random.Generator):
@@ -206,3 +257,27 @@ def generate_inflating_trajectory(n_nodes: int, n_frames: int,
         "cells": np.broadcast_to(cells, (n_frames,) + cells.shape).copy(),
         "world_pos": world,
     }
+
+
+def generate_synthetic_inflating_dataset(
+    root: str,
+    name: str = "synthetic_inflating_font",
+    n_train: int = 2,
+    n_test: int = 1,
+    n_nodes: int = 400,
+    n_frames: int = 10,
+    seed: int = 0,
+) -> str:
+    """Closed-surface dataset in the inflating-font schema; returns its
+    directory."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, name)
+    for split, count in (("train", n_train), ("test", n_test)):
+        split_dir = os.path.join(base, split)
+        os.makedirs(split_dir, exist_ok=True)
+        for i in range(count):
+            fields = generate_inflating_trajectory(
+                int(rng.integers(max(n_nodes // 2, 32), n_nodes)), n_frames,
+                rng)
+            _write_h5(os.path.join(split_dir, f"{i}.h5"), fields)
+    return base

@@ -14,7 +14,11 @@ transition operator, as in the JAX package), and the ELL tables of the
 padded with E_pad). The arrays equal the JAX package's array for array;
 the dense transition matrices of bucketed builds, the mini residual
 sub-layouts of unbucketed builds (the model reads their compact tables)
-and the npz cache are not built here.
+are not built here. `load_or_build_hierarchy` / `load_or_build_levels`
+cache the padded hierarchy and the raw bi-stride levels as npz files of
+the port's own names (`*_torch_mmesh_*.npz`, `*_torch_levels_*.npz`):
+a dataset directory may also hold the JAX package's caches, and neither
+package reads the other's.
 
 Padding convention: nodes pad to N_pad (always > N); pad edge slots connect
 pad node N_pad-1 to itself and carry weight 0, so garbage never reaches a
@@ -32,7 +36,10 @@ CUDA kernels walk.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import threading
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -1133,3 +1140,166 @@ def needs_union(h: Hierarchy) -> bool:
     `union([h] * b)`)."""
     return h.samples > 1 or any(t.down_op is None for t in h.transitions) \
         or any(lv.resid is not None for lv in h.levels)
+
+
+# -- the npz caches -----------------------------------------------------------
+
+# Bumped whenever the padded layout or the file's form changes, so a stale
+# cache is rebuilt.
+CACHE_VERSION = 1
+LEVELS_CACHE_VERSION = 1
+# What reading a stale or corrupt cache file raises: it is rebuilt.
+_STALE = (OSError, EOFError, KeyError, ValueError, TypeError,
+          zipfile.BadZipFile)
+# The dataclasses nested in a cached hierarchy: (class, field) → class.
+_NESTED = {(LevelGraph, "resid"): LevelGraph,
+           (LevelGraph, "cresid"): CompactResid,
+           (TransOp, "cresid"): CompactResid,
+           (Transition, "down_op"): TransOp,
+           (Transition, "up_op"): TransOp}
+
+
+def _atomic_savez(path: str, arrays: dict) -> None:
+    """Write an npz under a temporary name unique to this writer (several
+    sampler threads may build one shared cache at once), then rename it:
+    the last writer wins and no reader sees half a file. Caches over 100 MB
+    are written uncompressed (deflate costs more than the build there)."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    raw_bytes = sum(a.nbytes for a in arrays.values())
+    save = np.savez if raw_bytes > 100_000_000 else np.savez_compressed
+    save(tmp, **arrays)
+    os.replace(tmp + ".npz", path)
+
+
+def _cache_key(num_layers: int, pad_multiple: int, node_buckets,
+               edge_buckets, edge_block: int = EDGE_BLOCK, window=0,
+               ell_buckets=None, resid_buckets=None) -> str:
+    blob = (f"v{CACHE_VERSION}|{num_layers}|{pad_multiple}|{node_buckets}"
+            f"|{edge_buckets}|eb{edge_block}|w{window}")
+    if ell_buckets is not None or resid_buckets is not None:
+        blob += f"|k{ell_buckets}|r{resid_buckets}"
+    return hashlib.sha1(blob.encode()).hexdigest()[:10]
+
+
+def _flatten(obj, prefix: str, arrays: dict) -> None:
+    """Every host array and scalar field of a layout dataclass (and of the
+    dataclasses in it) into `arrays`, keyed `prefix + field`; None fields
+    and the tensors of `to_device` are left out."""
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None or isinstance(v, torch.Tensor):
+            continue
+        if dataclasses.is_dataclass(v):
+            _flatten(v, f"{prefix}{f.name}/", arrays)
+        else:
+            arrays[prefix + f.name] = np.asarray(v)
+
+
+def _unflatten(cls, prefix: str, z, keys) -> object:
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        child = _NESTED.get((cls, f.name))
+        if child is not None:
+            if any(k.startswith(key + "/") for k in keys):
+                kw[f.name] = _unflatten(child, key + "/", z, keys)
+        elif key in keys:
+            a = z[key]
+            kw[f.name] = a.item() if a.ndim == 0 else a
+    return cls(**kw)
+
+
+def save_hierarchy(path: str, h: Hierarchy) -> None:
+    """A built (host) hierarchy as one npz, atomically."""
+    if h.samples != 1:
+        raise ValueError("a union is not cached; cache its samples")
+    arrays = {"depth": np.int64(h.depth)}
+    for l, g in enumerate(h.levels):
+        _flatten(g, f"l{l}/", arrays)
+    for l, t in enumerate(h.transitions):
+        _flatten(t, f"t{l}/", arrays)
+    _atomic_savez(path, arrays)
+
+
+def load_hierarchy(path: str) -> Hierarchy:
+    with np.load(path) as z:
+        keys = set(z.files)
+        depth = int(z["depth"])
+        levels = tuple(_unflatten(LevelGraph, f"l{l}/", z, keys)
+                       for l in range(depth + 1))
+        transitions = tuple(_unflatten(Transition, f"t{l}/", z, keys)
+                            for l in range(depth))
+    return Hierarchy(levels=levels, transitions=transitions)
+
+
+def load_or_build_levels(cache_dir: str, cache_name: str,
+                         flat_edges: np.ndarray, num_layers: int,
+                         num_nodes: int, pos: np.ndarray) -> BistrideLevels:
+    """Cache-through build of the raw (unpadded) bi-stride levels, the
+    costly part: padding is cheap and is done again per bucket spec."""
+    path = os.path.join(
+        cache_dir,
+        f"{cache_name}_torch_levels_v{LEVELS_CACHE_VERSION}_d{num_layers}"
+        ".npz")
+    if os.path.isfile(path):
+        try:
+            with np.load(path) as z:
+                graphs = [CsrGraph(z[f"edges{l}"], int(z[f"n{l}"]))
+                          for l in range(num_layers + 1)]
+                ids = [z[f"ids{l}"] for l in range(num_layers)]
+            return BistrideLevels(graphs=graphs, ids=ids)
+        except _STALE:
+            pass  # a stale or corrupt cache: rebuild it
+    levels = build_bistride_levels(flat_edges, num_layers, num_nodes, pos)
+    arrays = {}
+    for l, g in enumerate(levels.graphs):
+        arrays[f"edges{l}"] = g.flat_edges
+        arrays[f"n{l}"] = np.int64(g.num_nodes)
+    for l, kept in enumerate(levels.ids):
+        arrays[f"ids{l}"] = kept
+    os.makedirs(cache_dir, exist_ok=True)
+    _atomic_savez(path, arrays)
+    return levels
+
+
+def load_or_build_hierarchy(
+    cache_dir: str,
+    cache_name: str,
+    flat_edges: np.ndarray,
+    num_layers: int,
+    num_nodes: int,
+    pos: np.ndarray,
+    pad_multiple: int = 128,
+    node_buckets: Optional[List[int]] = None,
+    edge_buckets: Optional[List[int]] = None,
+    edge_block: int = EDGE_BLOCK,
+    window: "int | List[int]" = 0,
+    ell_buckets: Optional[List[int]] = None,
+    resid_buckets: Optional[List[Tuple[int, int]]] = None,
+) -> Hierarchy:
+    """Cache-through `pad_levels` of the cached raw levels. `cache_name`
+    is shared by the trajectories of a consistent-mesh dataset (one build
+    serves all) and is the trajectory's own otherwise. `window="auto"`
+    (the JAX package's per-level widths, `choose_windows`) is not ported
+    (ROADMAP Queue 1 item 5)."""
+    if isinstance(window, str):
+        raise NotImplementedError(
+            f"window={window!r} (per-level auto widths, choose_windows) is "
+            "not ported yet (ROADMAP Queue 1 item 5); give a window size")
+    key = _cache_key(num_layers, pad_multiple, node_buckets, edge_buckets,
+                     edge_block, window, ell_buckets, resid_buckets)
+    path = os.path.join(cache_dir, f"{cache_name}_torch_mmesh_{key}.npz")
+    if os.path.isfile(path):
+        try:
+            return load_hierarchy(path)
+        except _STALE:
+            pass  # a stale or corrupt cache: rebuild it
+    levels = load_or_build_levels(cache_dir, cache_name, flat_edges,
+                                  num_layers, num_nodes, pos)
+    h = pad_levels(levels, pad_multiple, pos=pos, edge_block=edge_block,
+                   window=window, node_buckets=node_buckets,
+                   edge_buckets=edge_buckets, resid_buckets=resid_buckets,
+                   ell_buckets=ell_buckets)
+    os.makedirs(cache_dir, exist_ok=True)
+    save_hierarchy(path, h)
+    return h

@@ -29,6 +29,12 @@ frames over one shared hierarchy or of samples on the union of theirs
 shape, the warmup gate accumulates every sample's real rows, and the loss
 is taken over the batch, as JAX's `Trainer.iter` does. `remat`
 (`ModelConfig`) checkpoints the GMPs (`ops/bsgmp.py`).
+
+`state_dict()` / `load_state_dict()` carry everything a resumed run needs
+(`training/checkpoint.py` saves them): the parameters, both normalizers,
+the AdamW moments and counts by parameter name, the step, update and
+mini-step counts, MultiSteps' running mean and the noise generator's
+state. `convert.py` turns them into JAX's `TrainState` and back.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 
 from bsms_gnn_tpu_torch.config import Config, OptConfig
 from bsms_gnn_tpu_torch.device import resolve_device
+from bsms_gnn_tpu_torch.models.normalizer import NormalizerState
 from bsms_gnn_tpu_torch.models.simulator import Simulator, simulator_warmup
 from bsms_gnn_tpu_torch.training.schedule import warmup_cosine_schedule
 
@@ -63,20 +70,25 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
 class Trainer:
     """Owns the simulator, its optimizer and the step counts.
 
-    `Trainer(cfg, opt, generator=None, device=None, compute_dtype=None)`:
-    weights are drawn from `generator` (default: seeded with
-    `cfg.base_seed`), and the noise generator on `device` is seeded from it.
-    `device=None` is the CUDA card and raises without one. `compute_dtype`
-    None is f32, `torch.bfloat16` the bf16 recipe.
+    `Trainer(cfg, opt=None, generator=None, device=None,
+    compute_dtype=None)`: `opt` None is `cfg.opt`; weights are drawn from
+    `generator` (default: seeded with `cfg.base_seed`), and the noise
+    generator on `device` is seeded from it. `device=None` is the CUDA card
+    and raises without one. `compute_dtype` None is
+    `cfg.model.compute_dtype` ("float32": f32, "bfloat16": the bf16
+    recipe); `torch.bfloat16` asks for bf16 whatever the config says.
     """
 
-    def __init__(self, cfg: Config, opt: OptConfig,
+    def __init__(self, cfg: Config, opt: Optional[OptConfig] = None,
                  generator: Optional[torch.Generator] = None, device=None,
                  compute_dtype=None):
+        opt = cfg.opt if opt is None else opt
         if opt.gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
         self.cfg, self.opt_cfg = cfg, opt
         self.device = resolve_device(device)
+        if compute_dtype is None and cfg.model.compute_dtype == "bfloat16":
+            compute_dtype = torch.bfloat16
         self.compute_dtype = compute_dtype
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.base_seed)
@@ -178,6 +190,71 @@ class Trainer:
             a.zero_()
         return True
 
+    # -- state ------------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs, as tensors, numbers and dicts
+        (what `torch.load(..., weights_only=True)` reads back): "params"
+        (the simulator's state_dict), "norm_in" / "norm_out" (the
+        normalizers' fields), "adam" ({name: {"step", "exp_avg",
+        "exp_avg_sq"}}, empty before the first update), "step", "updates",
+        "mini_step", "acc_grads" ({name: running mean} under MultiSteps
+        once a step has run, else None) and "noise_generator" (its device
+        type and state)."""
+        names = [k for k, _ in self.sim.named_parameters()]
+        opt_state = self.optimizer.state_dict()["state"]
+        return {
+            "params": {k: v.detach().clone()
+                       for k, v in self.sim.state_dict().items()},
+            "norm_in": _normalizer_dict(self.sim.norm_in),
+            "norm_out": _normalizer_dict(self.sim.norm_out),
+            "adam": {names[i]: {k: v.detach().clone() for k, v in st.items()}
+                     for i, st in opt_state.items()},
+            "step": self._step,
+            "updates": self.updates,
+            "mini_step": self.mini_step,
+            "acc_grads": (None if self.acc_grads is None else
+                          {k: a.detach().clone()
+                           for k, a in zip(names, self.acc_grads)}),
+            "noise_generator": {"device": self.noise_generator.device.type,
+                                "state": self.noise_generator.get_state()},
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict()`'s output (or `convert.
+        train_state_from_jax`'s, which has no generator state: the
+        trainer's own generator is kept then) onto this trainer's
+        device."""
+        names = [k for k, _ in self.sim.named_parameters()]
+        self.sim.load_state_dict(state["params"])
+        self.sim.norm_in = _normalizer_from_dict(state["norm_in"],
+                                                 self.device)
+        self.sim.norm_out = _normalizer_from_dict(state["norm_out"],
+                                                  self.device)
+        adam = state["adam"]
+        unknown = set(adam) - set(names)
+        if unknown:
+            raise KeyError(f"AdamW state for unknown parameters "
+                           f"{sorted(unknown)}")
+        opt_sd = self.optimizer.state_dict()
+        opt_sd["state"] = {i: {f: v.clone() for f, v in adam[k].items()}
+                           for i, k in enumerate(names) if k in adam}
+        self.optimizer.load_state_dict(opt_sd)
+        self._step = int(state["step"])
+        self.updates = int(state["updates"])
+        self.mini_step = int(state["mini_step"])
+        acc = state["acc_grads"]
+        self.acc_grads = None if acc is None else [
+            acc[k].to(self.device, torch.float32).clone() for k in names]
+        gen = state.get("noise_generator")
+        if gen is not None:
+            if gen["device"] != self.noise_generator.device.type:
+                raise ValueError(
+                    f"the noise generator's state is a {gen['device']} "
+                    f"generator's; this trainer's is on "
+                    f"{self.noise_generator.device.type}")
+            self.noise_generator.set_state(gen["state"].cpu())
+
     # -- evaluation -------------------------------------------------------
 
     @torch.no_grad()
@@ -225,3 +302,15 @@ class Trainer:
     @property
     def step(self) -> int:
         return self._step
+
+
+def _normalizer_dict(state: NormalizerState) -> dict:
+    return {f: (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for f, v in vars(state).items()}
+
+
+def _normalizer_from_dict(d: dict, device) -> NormalizerState:
+    return NormalizerState(**{
+        k: (v.to(device, torch.float32).clone()
+            if isinstance(v, torch.Tensor) else float(v))
+        for k, v in d.items()})

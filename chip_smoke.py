@@ -173,7 +173,25 @@ Phases (any failure exits non-zero without the result line):
    segment twin's own noise); no port kernel launches on the `ell` and
    `segment` routes (every counter 0); a `Trainer` there with its ms,
    busy ms, idle share and own peak, the airfoil's beside the windowed
-   `fused` airfoil_batch's of the same run.
+   `fused` airfoil_batch's of the same run;
+24. the CLIs (cli): `load_config` (the port's YAML reader) with
+   `datasets=synthetic_airfoil` set to the main path's layout and method
+   (the 5k airfoil of phase 2, depth 7, window 256, edge_block 512,
+   `fused`), batch BATCH_TRAIN, a warmup gate of CLI_GATE steps and
+   CLI_STEPS + 1 steps; two train trajectories of BATCH_TRAIN + 2 frames
+   and a test trajectory of ROLLOUT_STEPS + 1 on phase 2's mesh (the
+   analytic flow, seeded) through `TrajectoryReader.from_fields` (their
+   layout against phase 2's) and `TrajectorySampler.from_readers`; then
+   `run_train` (through `device_prefetch`): finite losses, the gate steps
+   leave the parameters as they are and every parameter with a gradient
+   moves after them, one step's launch counts EXPECTED_TRAIN_LAUNCHES, a
+   checkpoint at CLI_SAVE; a second `run_train` restored from that
+   checkpoint on the same batches ends at the same step with the
+   parameters, normalizers and AdamW moments bit for bit the first's;
+   `run_rollout` from the last checkpoint: finite RMSE summaries and
+   predictions bit for bit `rollout_trajectory` on the restored model;
+   the CLI's ms per step and one profiled step's busy ms, idle share and
+   CUDA kernels beside airfoil_batch's `Trainer` step.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -187,6 +205,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -494,6 +513,12 @@ TRAIN_GATE, TRAIN_UPDATES = 2, 4
 # training at BATCH_TRAIN (`bsms_gnn_tpu/configs/default.yaml`'s `batch`).
 # Every batch is B distinct seeded frames over the one hierarchy.
 BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
+# The CLI phase (run_cli_case): the warmup gate's steps, the run's steps
+# (it takes CLI_STEPS + 1), the checkpoint interval (the resumed run
+# starts there), the step whose launches are counted and the one
+# profiled, and the longest wait for a batch in seconds.
+CLI_GATE, CLI_STEPS, CLI_SAVE = 2, 8, 4
+CLI_COUNT_STEP, CLI_PROFILE_STEP, CLI_BATCH_TIMEOUT = 5, 7, 300
 # The `ell` paths (ELL_PATHS) run on the layouts the JAX CLI builds: window
 # 0, edge_block 128, no Morton reorder (its ingest reorders only when the
 # window is set). inflating_font's meshes: three Fibonacci spheres of one
@@ -1207,8 +1232,18 @@ def forced_empty_resid(levels, pos, plan, data, device):
     return to_device(h, device).levels[3].resid
 
 
+# Each described case's level layout, (n_nodes, n_pad, E_pad) per level,
+# by label: the CLI phase holds its reader's hierarchy against phase 2's.
+LAYOUTS = {}
+
+
+def layout_of(h):
+    return [(g.n_nodes, g.n_pad_nodes, g.n_pad_edges) for g in h.levels]
+
+
 def describe(case):
     h = case["h"]
+    LAYOUTS[case["label"]] = layout_of(h)
     print(f"[{case['label']}] mesh: {case['n']} nodes, hierarchy built in "
           f"{case['build_s']:.2f} s (host)")
     print("level  n_nodes  n_pad  E_pad      E  window  cresid_rows  "
@@ -4090,6 +4125,257 @@ def run_ell_case(device, path, e2e):
     return {}, {}, {}, {}, out
 
 
+# -- the CLIs (phase 24) ----------------------------------------------------------
+
+
+def cli_trajectories(cfg):
+    """Phase 2's mesh (`make_graded_airfoil_mesh(N_NODES, default_rng(0))`)
+    with the analytic flow (velocity and density, the synthetic airfoil's
+    fields): two train trajectories of BATCH_TRAIN + 2 frames, one test
+    trajectory of ROLLOUT_STEPS + 1, each its own seeded phase."""
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        generate_trajectory,
+        make_graded_airfoil_mesh,
+    )
+
+    mesh = make_graded_airfoil_mesh(N_NODES, np.random.default_rng(0))
+    rng = np.random.default_rng(24)
+    train = [generate_trajectory(mesh, BATCH_TRAIN + 2, rng, True)
+             for _ in range(2)]
+    test = generate_trajectory(mesh, ROLLOUT_STEPS + 1, rng, True)
+    keep = set(cfg.datasets.field_names)
+    return ([{k: v for k, v in f.items() if k in keep} for f in train],
+            {k: v for k, v in test.items() if k in keep})
+
+
+def cli_samplers(cfg, train_readers, test_reader, skip=0):
+    """The train sampler (one worker: a fixed order of batches) with its
+    first `skip` batches drawn, and the test sampler (BATCH_SERVE frames:
+    the test trajectory is shorter than a train batch)."""
+    from bsms_gnn_tpu_torch.data.pipeline import TrajectorySampler
+
+    train = TrajectorySampler.from_readers(
+        cfg.datasets, train_readers, cfg.batch, num_workers=1,
+        base_seed=cfg.base_seed, timeout=CLI_BATCH_TIMEOUT)
+    for _ in range(skip):
+        next(train)
+    test = TrajectorySampler.from_readers(
+        cfg.datasets, [test_reader], BATCH_SERVE, num_workers=1,
+        base_seed=cfg.base_seed, timeout=CLI_BATCH_TIMEOUT)
+    return train, test
+
+
+def trainer_state(trainer):
+    """(parameters, normalizer arrays, AdamW moments) of a trainer, on the
+    CPU, by name."""
+    sd = trainer.state_dict()
+    norms = {f"{n}.{k}": v for n in ("norm_in", "norm_out")
+             for k, v in sd[n].items() if isinstance(v, torch.Tensor)}
+    moments = {f"{n}.{k}": v for n, st in sd["adam"].items()
+               for k, v in st.items()}
+    return {k: v.cpu() for d in (sd["params"], norms, moments)
+            for k, v in d.items()}
+
+
+def run_cli_case(device, e2e):
+    """Phase 24: the CLIs' `run_train` and `run_rollout` on the main path
+    (module docstring). Returns (kernel errors, kernel rows, forward
+    launches, train launches, end-to-end times) as `run_case` does: the
+    first four empty (the CLI runs no kernel of its own)."""
+    import importlib.util
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bsms_gnn_tpu_torch.config import load_config
+    from bsms_gnn_tpu_torch.data.trajectory import TrajectoryReader
+    from bsms_gnn_tpu_torch.rollout import run_rollout
+    from bsms_gnn_tpu_torch.train import run_train
+    from bsms_gnn_tpu_torch.training.checkpoint import (
+        latest_step,
+        restore_checkpoint,
+    )
+    from bsms_gnn_tpu_torch.training.rollout import rollout_trajectory
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    label = "cli"
+    print(f"[{label}] importable here (information only): yaml "
+          f"{importlib.util.find_spec('yaml') is not None}, h5py "
+          f"{importlib.util.find_spec('h5py') is not None}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        overrides = [
+            "datasets=synthetic_airfoil", f"model.unet_depth={DEPTH}",
+            f"datasets.unet_depth={DEPTH}", "model.aggregation=fused",
+            f"datasets.window={WINDOW}", f"datasets.edge_block={EDGE_BLOCK}",
+            f"batch={BATCH_TRAIN}", f"model.accumulation_steps={CLI_GATE}",
+            "opt.warmup_steps=2", "opt.decay_steps=1000", "epochs=1",
+            f"steps_per_epoch={CLI_STEPS}", f"save_freq={CLI_SAVE}",
+            "loss_freq=1000", "time_freq=1000", "plot=false",
+            "dataset_workers=1", f"dump_dir={tmp}", f"datasets.root={tmp}"]
+        cfg = load_config(overrides)
+        require(cfg.model.aggregation == "fused" and cfg.device == ""
+                and cfg.datasets.window == WINDOW and cfg.batch == BATCH_TRAIN,
+                f"load_config gave {cfg}")
+        train_fields, test_fields = cli_trajectories(cfg)
+        t0 = time.perf_counter()
+        first = TrajectoryReader.from_fields(cfg.datasets, train_fields[0],
+                                             tmp, "shared", device=device)
+        readers = [first] + [
+            TrajectoryReader.from_fields(cfg.datasets, f, tmp, "shared",
+                                         device=device, shared=first)
+            for f in train_fields[1:]]
+        test_reader = TrajectoryReader.from_fields(
+            cfg.datasets, test_fields, tmp, "shared", device=device,
+            shared=first)
+        cached = TrajectoryReader.from_fields(
+            cfg.datasets, test_fields, tmp, "shared", device="cpu")
+        got, want = layout_of(first.hierarchy), LAYOUTS.get("airfoil 5k")
+        print(f"[{label}] readers in {time.perf_counter() - t0:.2f} s (the "
+              f"hierarchy built, cached and shared; one reader from the "
+              f"cache): (n_nodes, n_pad, E_pad) per level {got}; phase 2's "
+              f"{want}; frames {[len(r) for r in readers]} train, "
+              f"{len(test_reader)} test")
+        require(got == want and layout_of(cached.hierarchy) == got,
+                "the reader's hierarchy is not phase 2's")
+
+        snaps, iters, counts, prof = {}, {}, {}, {}
+
+        @contextlib.contextmanager
+        def observe(step, trainer):
+            if step in (0, CLI_GATE):
+                snaps[step] = {k: p.detach().clone()
+                               for k, p in trainer.sim.named_parameters()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if step == CLI_COUNT_STEP:
+                reset_counts()
+                yield
+                counts.update(read_counts(EXPECTED_TRAIN_LAUNCHES))
+            elif step == CLI_PROFILE_STEP:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    t_in = time.perf_counter()
+                    yield
+                    torch.cuda.synchronize()
+                    prof["wall"] = (time.perf_counter() - t_in) * 1e3
+                kernels = [e for e in p.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and _device_ms(e) > 0
+                           and not getattr(e, "is_user_annotation", False)]
+                prof.update(
+                    busy=sum(_device_ms(e) for e in kernels),
+                    launches=sum(e.count for e in kernels),
+                    top=sorted(((e.key[:60], e.count, _device_ms(e))
+                                for e in kernels), key=lambda r: -r[2])[:8],
+                    by_name=[(e.key, e.count, _device_ms(e))
+                             for e in kernels])
+            else:
+                yield
+            torch.cuda.synchronize()
+            iters[step] = (time.perf_counter() - t) * 1e3
+
+        train_s, test_s = cli_samplers(cfg, readers, test_reader)
+        t0 = time.perf_counter()
+        run = run_train(cfg, train_s, test_s, step_context=observe)
+        run_s = time.perf_counter() - t0
+        tr, losses, ckpt_dir = run["trainer"], run["losses"], run["ckpt_dir"]
+        print_profile(f"[{label}] CLI step {CLI_PROFILE_STEP} (B="
+                      f"{BATCH_TRAIN} f32: its batch, the step)",
+                      prof["wall"], prof["busy"], prof["launches"],
+                      prof["top"])
+        print_port_kernels(prof["by_name"])
+        gate_kept = all(torch.equal(snaps[0][k], v)
+                        for k, v in snaps[CLI_GATE].items())
+        stuck = [k for k, p in tr.sim.named_parameters()
+                 if torch.equal(p.detach(), snaps[CLI_GATE][k])
+                 and bool(p.grad.any())]
+        accs = float(tr.sim.norm_in.num_accumulations)
+        saved = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir))
+        print(f"[{label}] run_train: {len(losses)} steps in {run_s:.2f} s "
+              f"(trainer step {tr.step}, {tr.updates} updates), losses "
+              f"{[round(x, 6) for x in losses]}; the gate kept the "
+              f"parameters: {gate_kept}; normalizer accumulations "
+              f"{accs:g}; parameters with a gradient that did not move "
+              f"after the gate: {stuck}; checkpoints {saved}")
+        print(f"[{label}] launches in CLI step {CLI_COUNT_STEP}: {counts} "
+              f"(expected {EXPECTED_TRAIN_LAUNCHES})")
+        require(len(losses) == CLI_STEPS + 1 and all(np.isfinite(losses)),
+                "CLI losses missing or not finite")
+        require(gate_kept and accs == CLI_GATE and not stuck
+                and tr.updates == CLI_STEPS + 1 - CLI_GATE,
+                "the gate moved the parameters or an update did not")
+        require(counts == EXPECTED_TRAIN_LAUNCHES,
+                f"CLI step launches {counts} != {EXPECTED_TRAIN_LAUNCHES}")
+        require(saved == [CLI_SAVE, 2 * CLI_SAVE, CLI_STEPS + 1],
+                f"checkpoints {saved}")
+
+        # Resumed from the checkpoint at CLI_SAVE, on the same batches.
+        rcfg = load_config(overrides + [f"restore_dir={ckpt_dir}",
+                                        f"restore_step={CLI_SAVE}",
+                                        "project=cli_resume"])
+        train_s, test_s = cli_samplers(rcfg, readers, test_reader,
+                                       skip=CLI_SAVE)
+        resumed = run_train(rcfg, train_s, test_s)
+        a, b = trainer_state(tr), trainer_state(resumed["trainer"])
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        print(f"[{label}] resumed at step {CLI_SAVE}: ends at step "
+              f"{resumed['trainer'].step}, losses "
+              f"{[round(x, 6) for x in resumed['losses']]} (the first run's "
+              f"{[round(x, 6) for x in losses[CLI_SAVE:]]}); {len(a)} "
+              f"parameter, normalizer and AdamW tensors, "
+              f"{len(differ)} not bit for bit the uninterrupted run's: "
+              f"{differ[:6]}")
+        require(resumed["trainer"].step == tr.step and not differ
+                and resumed["losses"] == losses[CLI_SAVE:],
+                "the resumed run is not the uninterrupted one")
+
+        # Rollout from the newest checkpoint.
+        preds = []
+        summary = run_rollout(
+            load_config(overrides + [f"restore_dir={ckpt_dir}"]),
+            readers=[test_reader],
+            on_trajectory=lambda r, p: preds.append(p))
+        ref = Trainer(cfg, device=device)
+        restore_checkpoint(ckpt_dir, latest_step(ckpt_dir), ref)
+        inp, _, mask = test_reader.full()
+        direct = rollout_trajectory(
+            ref.sim, test_reader.hd, torch.from_numpy(inp[0]).to(device),
+            torch.from_numpy(mask[0]).to(device), inp.shape[0],
+            ref.compute_dtype)
+        finite = all(np.isfinite(v).all() for v in (
+            summary["overall_mean"], summary["overall_std"],
+            summary["per_channel_mean"], summary["per_time_mean"]))
+        same = len(preds) == 1 and torch.equal(preds[0], direct)
+        print(f"[{label}] run_rollout from step {latest_step(ckpt_dir)}: "
+              f"{inp.shape[0]} steps, shape {tuple(direct.shape)}, overall "
+              f"RMSE {summary['overall_mean']:.6f}, finite {finite}; "
+              f"predictions bit for bit rollout_trajectory's: {same}")
+        require(finite and same, "the rollout CLI disagrees or is not finite")
+
+    timed = [iters[s] for s in range(CLI_GATE, CLI_STEPS + 1)
+             if s not in (CLI_SAVE, 2 * CLI_SAVE, CLI_PROFILE_STEP)]
+    ms = float(np.median(timed))
+    base = {k: e2e.get(f"airfoil_b48_train_step_{k}_b48_f32")
+            for k in ("ms", "busy_ms")}
+    print(f"[{label}] CLI step B={BATCH_TRAIN} f32: {ms:.4f} ms (median of "
+          f"the steps {[round(x, 4) for x in timed]}, each its batch, "
+          f"logging and step, synchronized before and after; the steps "
+          f"with a checkpoint: {[round(iters[s], 4) for s in (CLI_SAVE, 2 * CLI_SAVE)]}); "
+          f"profiled step: busy {prof['busy']:.4f} ms, idle share "
+          f"{1 - prof['busy'] / prof['wall']:.3f}, {prof['launches']} CUDA "
+          f"kernels; airfoil_batch's Trainer step of this run: "
+          f"{base['ms']} ms, busy {base['busy_ms']} ms")
+    key = f"b{BATCH_TRAIN}_f32"
+    out.update({f"step_ms_{key}": ms, f"step_busy_ms_{key}": prof["busy"],
+                f"step_idle_share_{key}": 1 - prof["busy"] / prof["wall"],
+                f"step_kernels_{key}": prof["launches"]})
+    del tr, resumed, ref, readers, test_reader, first, cached, preds, direct
+    torch.cuda.empty_cache()
+    return {}, {}, {}, {}, out
+
+
 def held_line() -> str:
     """What the kernels' weight-stack cache (`build.stacked`) holds on the
     card: it outlives the phase that filled it, so a later peak counts it."""
@@ -4153,8 +4439,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # (path, the function that builds its case (None: a batched path of
-    # BATCH_PATHS or an `ell` path of ELL_PATHS), the prefix of its
-    # end-to-end keys)
+    # BATCH_PATHS, an `ell` path of ELL_PATHS or the CLI phase), the
+    # prefix of its end-to-end keys)
     paths = (("airfoil", build_case, ""),
              ("surface", build_surface_case, "surface_"),
              ("flag", build_flag_case, "flag_"),
@@ -4177,7 +4463,8 @@ def main() -> int:
              ("airfoil_ell", None, "airfoil_ell_"),
              ("flag_ell", None, "flag_ell_"),
              ("cylinder_ell", None, "cylinder_ell_"),
-             ("inflating_ell", None, "inflating_ell_"))
+             ("inflating_ell", None, "inflating_ell_"),
+             ("cli", None, "cli_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -4196,6 +4483,8 @@ def main() -> int:
                 got = run_case(build_fn, device)
             elif phase in ELL_PATHS:
                 got = run_ell_case(device, phase, e2e)
+            elif phase == "cli":
+                got = run_cli_case(device, e2e)
             else:
                 got = run_batch_case(device, phase)
             errs[phase], rows[phase], serve[phase], train[phase], t = got

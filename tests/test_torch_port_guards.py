@@ -1,5 +1,7 @@
-"""Guards of the PyTorch port: it imports nothing of JAX, flax or the JAX
-package; its entry points default to the CUDA card and raise without one;
+"""Guards of the PyTorch port: it imports nothing of JAX, flax, optax,
+orbax or the JAX package, and importing it (the CLIs and the data feed
+among it) loads neither PyYAML nor h5py, which the card machine lacks;
+its entry points default to the CUDA card and raise without one;
 a kernel wrapper given CPU tensors runs its plain version once and counts
 no launch, forward and backward, on the fused path (windowed and
 unwindowed, with and without world edges, and `"fused4"`), the pallas
@@ -58,7 +60,10 @@ from bsms_gnn_tpu_torch.training.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "bsms_gnn_tpu_torch"
-FORBIDDEN = re.compile(r"^(jax|flax)(\.|$)|^bsms_gnn_tpu(?!_torch)")
+FORBIDDEN = re.compile(r"^(jax|flax|optax|orbax)(\.|$)|^bsms_gnn_tpu(?!_torch)")
+# Imported only inside the functions that read or write HDF5 (and by the
+# tests): the card machine has neither.
+NOT_AT_IMPORT = re.compile(r"^(yaml|h5py)(\.|$)")
 
 
 def _sources():
@@ -96,6 +101,23 @@ def test_import_loads_no_jax():
     mods = out.stdout.split()
     assert "bsms_gnn_tpu_torch.ops.kernels.fused_gmp" in mods
     assert not [m for m in mods if FORBIDDEN.search(m)]
+    assert not [m for m in mods if NOT_AT_IMPORT.search(m)]
+
+
+@pytest.mark.parametrize("module", ["bsms_gnn_tpu_torch.train",
+                                    "bsms_gnn_tpu_torch.rollout",
+                                    "bsms_gnn_tpu_torch.data.pipeline"])
+def test_cli_imports_load_no_yaml_h5py_or_jax(module):
+    code = (f"import sys, {module}\n"
+            "print(' '.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    assert module in mods
+    bad = [m for m in mods if FORBIDDEN.search(m) or NOT_AT_IMPORT.search(m)]
+    assert not bad, bad
 
 
 @pytest.fixture(scope="module")
@@ -519,11 +541,8 @@ def test_ell_and_segment_call_no_kernel_wrapper(hier, bucketed, monkeypatch,
 
 
 def test_model_config_defaults_equal_jax():
-    """Every field the port's `ModelConfig` shares with the JAX package's
-    has JAX's default (the aggregation `ell` among them); the fields the
-    port lacks are JAX's compute dtype, which the port takes per call, and
-    `consistent_mesh`, a mirror of the reference's YAML that no JAX code
-    reads (the port's `DatasetConfig.consist_mesh` is the dataset's)."""
+    """The port's `ModelConfig` has the JAX package's fields, each with
+    JAX's default (the aggregation `ell` among them)."""
     import dataclasses
 
     from bsms_gnn_tpu.config import ModelConfig as JaxModelConfig
@@ -532,8 +551,7 @@ def test_model_config_defaults_equal_jax():
             for f in dataclasses.fields(ModelConfig)}
     jax_ = {f.name: getattr(JaxModelConfig(), f.name)
             for f in dataclasses.fields(JaxModelConfig)}
-    assert set(jax_) - set(port) == {"compute_dtype", "consistent_mesh"}
-    assert set(port) <= set(jax_)
+    assert set(jax_) == set(port)
     for name, value in port.items():
         assert value == jax_[name], name
     assert port["aggregation"] == "ell"
