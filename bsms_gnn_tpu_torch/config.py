@@ -511,6 +511,26 @@ def flag_simple_config(**model_overrides) -> Config:
                                          noise_gamma=0.1))
 
 
+def deforming_plate_config(**model_overrides) -> Config:
+    """The deforming plate: `configs/model/deforming_plate.yaml` and
+    `configs/datasets/deforming_plate.yaml` of the JAX package (a 3-D tetra
+    mesh whose world positions are the output fields, world-space edges,
+    one mesh per trajectory), on the `fused` method: kernel 13 on the
+    windowed levels, their out-of-window edges on the residual sub-levels
+    of the bucketed build. `model_overrides` replace ModelConfig fields."""
+    model = ModelConfig(latent_dim=128, hidden_layer=3, unet_depth=5,
+                        out_dim=3, pos_dim=3, accumulation_steps=300,
+                        world_edges=True, aggregation="fused")
+    return Config(model=replace(model, **model_overrides),
+                  datasets=DatasetConfig(
+                      name="deforming_plate", mesh_type="tetra",
+                      field_names=["node_type", "cells", "mesh_pos",
+                                   "world_pos"],
+                      output_field_names=["world_pos"], unet_depth=5,
+                      consist_mesh=False, space_dim=3,
+                      noise_level=[0.003] * 3, noise_gamma=1.0))
+
+
 def cylinder_flow_config(**model_overrides) -> Config:
     """Flow past a cylinder: `configs/model/cylinder_flow.yaml` and
     `configs/datasets/cylinder_flow.yaml` of the JAX package (velocity as

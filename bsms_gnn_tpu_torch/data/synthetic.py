@@ -1,14 +1,15 @@
 """Synthetic meshes and datasets (counterparts of
 `bsms_gnn_tpu/data/synthetic.py`'s `make_delaunay_mesh`,
 `make_graded_airfoil_mesh`, `make_grid_strip_mesh`, `make_sphere_mesh`,
-`generate_trajectory`, `generate_inflating_trajectory` and the dataset
-writers `generate_synthetic_dataset` and
-`generate_synthetic_inflating_dataset`), so the port builds the benchmark
+`make_tetra_mesh`, `generate_trajectory`, `generate_inflating_trajectory`,
+`generate_tetra_trajectory` and the dataset writers
+`generate_synthetic_dataset`, `generate_synthetic_inflating_dataset` and
+`generate_synthetic_tetra_dataset`), so the port builds the benchmark
 meshes and writes schema-identical HDF5 trajectories (one file per
 trajectory under `{root}/{name}/{split}/`, every field with a leading time
 axis) from the same seeds as the JAX package. The writers need h5py,
 imported when they run; the meshes and trajectories need only numpy and
-scipy. The tetra-mesh writer is not ported."""
+scipy."""
 
 from __future__ import annotations
 
@@ -279,5 +280,63 @@ def generate_synthetic_inflating_dataset(
             fields = generate_inflating_trajectory(
                 int(rng.integers(max(n_nodes // 2, 32), n_nodes)), n_frames,
                 rng)
+            _write_h5(os.path.join(split_dir, f"{i}.h5"), fields)
+    return base
+
+
+def make_tetra_mesh(n_nodes: int, rng: np.random.Generator):
+    """A Delaunay-tetrahedralized block in the unit cube (deforming_plate-
+    style cases): uniform points, the first n_nodes // 8 moved onto the
+    face z = 0, which holds the handles. Returns (pos [N,3], cells [M,4],
+    node_type [N,1])."""
+    pos = rng.uniform(0.0, 1.0, size=(max(n_nodes, 16), 3))
+    pos[: n_nodes // 8, 2] = 0.0  # the anchor face
+    cells = Delaunay(pos).simplices.astype(np.int64)
+    node_type = np.full((pos.shape[0], 1), NT_NORMAL, np.int32)
+    node_type[np.isclose(pos[:, 2], 0.0)] = NT_HANDLE
+    return pos.astype(np.float32), cells, node_type
+
+
+def generate_tetra_trajectory(n_nodes: int, n_frames: int,
+                              rng: np.random.Generator):
+    """world_pos dynamics on `make_tetra_mesh(n_nodes, rng)`: a smooth
+    squeeze of the block over time, stronger away from the anchor face.
+    Returns a dict of per-frame arrays: mesh_pos [T, N, 3], node_type [T, N,
+    1], cells [T, M, 4], world_pos [T, N, 3]."""
+    pos, cells, node_type = make_tetra_mesh(n_nodes, rng)
+    n = pos.shape[0]
+    phase = float(rng.uniform(0, 2 * np.pi))
+    world = np.zeros((n_frames, n, 3), np.float32)
+    for ti in range(n_frames):
+        s = 1.0 - 0.2 * np.sin(0.3 * ti + phase) * pos[:, 2]
+        world[ti] = pos * s[:, None]
+    return {
+        "mesh_pos": np.broadcast_to(pos, (n_frames, n, 3)).copy(),
+        "node_type": np.broadcast_to(node_type, (n_frames, n, 1)).copy(),
+        "cells": np.broadcast_to(cells, (n_frames,) + cells.shape).copy(),
+        "world_pos": world,
+    }
+
+
+def generate_synthetic_tetra_dataset(
+    root: str,
+    name: str = "synthetic_deforming_plate",
+    n_train: int = 2,
+    n_test: int = 1,
+    n_nodes: int = 300,
+    n_frames: int = 10,
+    seed: int = 0,
+) -> str:
+    """Tetra-mesh dataset in the deforming_plate schema (each trajectory
+    its own block of n_nodes / 2 to n_nodes nodes); returns its
+    directory."""
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, name)
+    for split, count in (("train", n_train), ("test", n_test)):
+        split_dir = os.path.join(base, split)
+        os.makedirs(split_dir, exist_ok=True)
+        for i in range(count):
+            fields = generate_tetra_trajectory(
+                int(rng.integers(n_nodes // 2, n_nodes)), n_frames, rng)
             _write_h5(os.path.join(split_dir, f"{i}.h5"), fields)
     return base

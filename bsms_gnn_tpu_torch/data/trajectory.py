@@ -3,7 +3,8 @@ per-frame model inputs (counterpart of `bsms_gnn_tpu/data/trajectory.py`).
 
 The reader takes the configured fields of one trajectory, Morton-reorders
 the mesh when the dataset is windowed (`node_perm` maps a new node id to
-the original one), builds or loads the cached hierarchy (one cache shared
+the original one; `window` < 0 is the JAX CLI's `window="auto"`, each
+level's width tuned), builds or loads the cached hierarchy (one cache shared
 by the trajectories of a consistent-mesh dataset, else one each; with the
 bucket plan's sizes on variable-mesh datasets), moves it to the device
 once and keeps it there, and assembles the inputs [output fields,
@@ -127,7 +128,9 @@ class TrajectoryReader:
                 cache_dir, cache_name, to_flat_edge(self.cells, cfg.mesh_type),
                 cfg.unet_depth, self.n_nodes, self.mesh_pos0,
                 pad_multiple=cfg.pad_multiple, edge_block=cfg.edge_block,
-                window=cfg.window, **buckets)
+                # A negative window: each level's width tuned (per mesh,
+                # so off the bucketed path).
+                window="auto" if cfg.window < 0 else cfg.window, **buckets)
             self.hd = to_device(self.hierarchy, device)
         self.n_pad = self.hierarchy.levels[0].n_pad_nodes
 

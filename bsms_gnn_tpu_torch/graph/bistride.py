@@ -4,19 +4,20 @@ Counterpart of `bsms_gnn_tpu/graph/bistride.py`. Per connected cluster,
 seed at the node nearest the cluster centroid, split nodes by BFS-ring
 parity and keep the smaller side (even wins ties or when odd is empty);
 square A+I to preserve connectivity among kept nodes; relabel kept nodes
-and drop dangling edges. The squaring is SciPy's sparse product (the JAX
-package's optional C++ SpGEMM computes the same pattern).
+and drop dangling edges. The squaring is the C++ SpGEMM of `graph/native`
+(SciPy's sparse product, the same pattern, where no compiler is found).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import scipy.sparse
 
 from bsms_gnn_tpu_torch.graph.csr import UNREACHABLE, CsrGraph
+from bsms_gnn_tpu_torch.graph.native import square_pattern
 
 
 def nearest_center_seeds(pos: np.ndarray, clusters: List[np.ndarray]) -> np.ndarray:
@@ -52,21 +53,9 @@ def bstride_select(g: CsrGraph, pos: np.ndarray) -> np.ndarray:
     return np.flatnonzero(keep).astype(np.int64)
 
 
-def square_pattern(adj: scipy.sparse.csr_matrix, drop_diag: bool = True
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-    """Sparsity pattern of adj @ adj as (indptr, indices) int64 CSR arrays,
-    computed in the boolean semiring (only the pattern matters)."""
-    adj = adj.tocsr()
-    out = (adj.astype(bool) @ adj.astype(bool)).tocsr()
-    if drop_diag:
-        out.setdiag(False)
-        out.eliminate_zeros()
-    out.sort_indices()
-    return out.indptr.astype(np.int64), out.indices.astype(np.int64)
-
-
 def squared_adjacency(g: CsrGraph) -> CsrGraph:
-    """Graph of (A + I)^2 with the diagonal removed (pattern only)."""
+    """Graph of (A + I)^2 with the diagonal removed (pattern only); the
+    native pattern is row-major CSR already, so CsrGraph skips its sort."""
     adj = g.to_adj() + scipy.sparse.eye(g.num_nodes, format="csr")
     indptr, indices = square_pattern(adj, drop_diag=True)
     return CsrGraph.from_csr(indptr, indices, g.num_nodes)

@@ -18,7 +18,9 @@ are not built here. `load_or_build_hierarchy` / `load_or_build_levels`
 cache the padded hierarchy and the raw bi-stride levels as npz files of
 the port's own names (`*_torch_mmesh_*.npz`, `*_torch_levels_*.npz`):
 a dataset directory may also hold the JAX package's caches, and neither
-package reads the other's.
+package reads the other's. `load_or_build_hierarchy(window="auto")` gives
+each level the width the JAX package's tuner picks (`choose_windows`,
+`window_coverage`).
 
 Padding convention: nodes pad to N_pad (always > N); pad edge slots connect
 pad node N_pad-1 to itself and carry weight 0, so garbage never reaches a
@@ -58,6 +60,12 @@ from bsms_gnn_tpu_torch.graph.csr import CsrGraph
 
 EDGE_BLOCK = 128
 NODE_BLOCK = 128
+# Candidate source-window widths for window="auto" (`choose_windows`).
+AUTO_WINDOW_CANDIDATES = (128, 256, 512, 1024)
+# The cost model's price, in selection rows per edge, of one edge on the
+# residual path; shared by `choose_windows`' default and the auto build's
+# cache key.
+AUTO_RESID_ROWS = 2048
 # Transitions whose input and output pads are at most this wide (and that
 # are not windowed) also carry a dense [N_out, N_in] operator matrix.
 DENSE_TRANS_MAX = 2048
@@ -706,6 +714,54 @@ def _window_tables(
     return send_win, win_base, resid, cresid
 
 
+def window_coverage(level: LevelGraph, window: int) -> float:
+    """The share of the real edges a built windowed level would cover at
+    source-window width `window` (the chunk layout does not depend on the
+    width: the blocks are sender-sorted once, `_pad_level`); NaN where the
+    width does not divide the level's N_pad."""
+    n_pad = level.n_pad_nodes
+    w = min(window, n_pad)
+    if n_pad % (w // 2):
+        return float("nan")
+    _, covered = _window_vote(
+        np.asarray(level.senders), np.asarray(level.edge_mask),
+        np.asarray(level.reverse_perm), n_pad, w, level.edge_block)
+    return float(covered.sum()) / max(level.n_edges, 1)
+
+
+def choose_windows(h: Hierarchy) -> List[int]:
+    """The JAX package's per-level window tuner, on a hierarchy built with
+    windowed layouts of any width: each level takes the candidate W that
+    minimizes
+
+        cost(W) = E_pad · W/2 + uncovered_edges · AUTO_RESID_ROWS,
+
+    the windowed kernels' selection work (W/2 source rows per edge) plus
+    each out-of-window edge's trip through the residual path, priced at
+    AUTO_RESID_ROWS selection rows, over AUTO_WINDOW_CANDIDATES (the
+    constants are the JAX package's, tuned for its TPU; the auto cache key
+    folds both in). Returns the widths for `pad_levels(window=[...])`."""
+    out = []
+    for g in h.levels:
+        n_pad = g.n_pad_nodes
+        best_w, best_cost = 0, None
+        for w in AUTO_WINDOW_CANDIDATES:
+            weff = min(w, n_pad)
+            if n_pad % (weff // 2):
+                continue
+            cov = window_coverage(g, weff)
+            n_resid = (1.0 - cov) * g.n_edges
+            cost = g.n_pad_edges * (weff // 2) + n_resid * AUTO_RESID_ROWS
+            if best_cost is None or cost < best_cost:
+                best_w, best_cost = w, cost
+        if best_cost is None:
+            raise ValueError(f"no window candidate of "
+                             f"{AUTO_WINDOW_CANDIDATES} divides "
+                             f"n_pad {n_pad}")
+        out.append(best_w)
+    return out
+
+
 def build_hierarchy(
     flat_edges: np.ndarray,
     num_layers: int,
@@ -728,6 +784,16 @@ def build_hierarchy(
                       window=window, node_buckets=node_buckets,
                       edge_buckets=edge_buckets, resid_buckets=resid_buckets,
                       ell_buckets=ell_buckets)
+
+
+def _check_widths(widths, window) -> None:
+    """A negative or string width is refused before any work: a negative
+    `datasets.window` means "auto", which the readers pass on as such."""
+    if any(isinstance(w, str) or w < 0 for w in widths):
+        raise ValueError(
+            f"window {window!r}: per-level widths are tuned by window='auto' "
+            "in load_or_build_hierarchy (the readers map datasets.window < 0 "
+            "to it); pad_levels takes 0 or widths of at least 128")
 
 
 def pad_levels(
@@ -757,6 +823,7 @@ def pad_levels(
     if len(windows) != len(graphs):
         raise ValueError(f"per-level window list has {len(windows)} entries "
                          f"for {len(graphs)} levels")
+    _check_widths(windows, window)
     lvl_pos = None if pos is None else smoothed_positions(levels, pos)
     node_multiple = _pad_to(pad_multiple, NODE_BLOCK)
     if any(windows):
@@ -1176,6 +1243,10 @@ def _cache_key(num_layers: int, pad_multiple: int, node_buckets,
                ell_buckets=None, resid_buckets=None) -> str:
     blob = (f"v{CACHE_VERSION}|{num_layers}|{pad_multiple}|{node_buckets}"
             f"|{edge_buckets}|eb{edge_block}|w{window}")
+    if window == "auto":
+        # The tuner's candidates and cost constant decide the widths "auto"
+        # resolves to: a change to either must not reuse an older build.
+        blob += f"|cand{AUTO_WINDOW_CANDIDATES}|rr{AUTO_RESID_ROWS}"
     if ell_buckets is not None or resid_buckets is not None:
         blob += f"|k{ell_buckets}|r{resid_buckets}"
     return hashlib.sha1(blob.encode()).hexdigest()[:10]
@@ -1273,19 +1344,29 @@ def load_or_build_hierarchy(
     node_buckets: Optional[List[int]] = None,
     edge_buckets: Optional[List[int]] = None,
     edge_block: int = EDGE_BLOCK,
-    window: "int | List[int]" = 0,
+    window: "int | List[int] | str" = 0,
     ell_buckets: Optional[List[int]] = None,
     resid_buckets: Optional[List[Tuple[int, int]]] = None,
 ) -> Hierarchy:
     """Cache-through `pad_levels` of the cached raw levels. `cache_name`
     is shared by the trajectories of a consistent-mesh dataset (one build
-    serves all) and is the trajectory's own otherwise. `window="auto"`
-    (the JAX package's per-level widths, `choose_windows`) is not ported
-    (ROADMAP Queue 1 item 5)."""
-    if isinstance(window, str):
-        raise NotImplementedError(
-            f"window={window!r} (per-level auto widths, choose_windows) is "
-            "not ported yet (ROADMAP Queue 1 item 5); give a window size")
+    serves all) and is the trajectory's own otherwise.
+
+    `window="auto"` builds the windowed layout once at the largest
+    candidate width, chooses each level's width with `choose_windows` and
+    pads again with those widths, all under one cache entry. The node
+    padding keeps the probe's alignment (the largest candidate / 2, 512
+    rows) whatever widths are chosen: the coverage the tuner measured
+    holds for that layout only. Per-mesh widths do not stack, so "auto"
+    takes no node or edge buckets."""
+    if window != "auto":
+        _check_widths(window if isinstance(window, (list, tuple))
+                      else [window], window)
+    if window == "auto" and (node_buckets is not None
+                             or edge_buckets is not None):
+        raise ValueError(
+            "window='auto' chooses each mesh's own widths, which bucketed "
+            "stacking cannot take; pin a window instead")
     key = _cache_key(num_layers, pad_multiple, node_buckets, edge_buckets,
                      edge_block, window, ell_buckets, resid_buckets)
     path = os.path.join(cache_dir, f"{cache_name}_torch_mmesh_{key}.npz")
@@ -1296,6 +1377,13 @@ def load_or_build_hierarchy(
             pass  # a stale or corrupt cache: rebuild it
     levels = load_or_build_levels(cache_dir, cache_name, flat_edges,
                                   num_layers, num_nodes, pos)
+    if window == "auto":
+        probe_w = AUTO_WINDOW_CANDIDATES[-1]
+        pad_multiple = _pad_to(_pad_to(pad_multiple, NODE_BLOCK),
+                               probe_w // 2)
+        probe = pad_levels(levels, pad_multiple, pos=pos,
+                           edge_block=edge_block, window=probe_w)
+        window = choose_windows(probe)
     h = pad_levels(levels, pad_multiple, pos=pos, edge_block=edge_block,
                    window=window, node_buckets=node_buckets,
                    edge_buckets=edge_buckets, resid_buckets=resid_buckets,

@@ -34,7 +34,8 @@ Four methods, as in the JAX package:
     positions). Out-of-window edges run the
     edge MLP on the compact residual rows and accumulate onto the aggregate
     (kernel 2); on bucketed hierarchies, which carry no compact tables, v3
-    runs them on the residual sub-level instead: its gathers, the edge MLP,
+    and v4 run them on the residual sub-level instead: its gathers (with
+    v4 the world-space term from the gathered positions), the edge MLP,
     then kernel 9 onto the aggregate.
   - Unwindowed level, no world stream (v2): zi = the sender gather of x@W_i
     plus the fiber term and the first bias, then kernel 12, which gathers
@@ -245,12 +246,8 @@ class GMP(nn.Module):
             aggr = _cresid_edge_phase(level.cresid, self, xwi, xj, wf_sta,
                                       aggr, compute_dtype, wpos, wf_dyn)
         elif level.resid is not None:
-            if wd:
-                raise NotImplementedError(
-                    "world edges on a residual sub-level (v4's mini-layout "
-                    "branch, `message.py:358-387`): ROADMAP Queue 1, item 5")
             aggr = _resid_edge_phase(level.resid, self, xwi, xj, wf_sta, aggr,
-                                     compute_dtype, x.dtype)
+                                     compute_dtype, x.dtype, wpos, wf_dyn)
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
     def _generic(self, level, x, pos, compute_dtype, method):
@@ -338,15 +335,27 @@ def _cresid_edge_phase(cr, gmp: GMP, xwi, xj, wf_sta, aggr, compute_dtype,
     return compact_accum(cr, e_r, aggr)
 
 
-def _resid_edge_phase(r, gmp: GMP, xwi, xj, wf, aggr, compute_dtype, dtype):
-    """v3's residual edge phase on the mini layout (`message.py:283-302`),
-    where the level has no compact tables (bucketed builds): the gathers
-    over the residual sub-level's slots (their backwards run kernel 9: the
-    layout is skip-empty), the fiber term in the GMP input's `dtype`, the
-    edge MLP, then kernel 9 accumulates onto `aggr`."""
-    pre_r = (gather_send(r, xwi) + gather_recv(r, xj)
-             + dense(r.fiber.to(dtype), wf, gmp.mlp_edge.biases[0],
-                     compute_dtype))
+def _resid_edge_phase(r, gmp: GMP, xwi, xj, wf, aggr, compute_dtype, dtype,
+                      wpos=None, wf_dyn=None):
+    """The residual edge phase on the mini layout, where the level has no
+    compact tables (bucketed builds): v3's (`message.py:283-302`) and, with
+    world edges, v4's (`message.py:357-387`). The gathers over the residual
+    sub-level's slots (their backwards run kernel 9: the layout is
+    skip-empty); with `wpos` / `wf_dyn` ([wd + 1, C], the Δworld and
+    ‖Δworld‖ rows) the world-space term [Δ, ‖Δ‖]·wf_dyn, Δ = the sender's
+    world position less the receiver's in the activations' dtype (the
+    positions carry no gradient); the static fiber term in the GMP input's
+    `dtype` with the first bias; the edge MLP's tail, then kernel 9
+    accumulates onto `aggr`. The terms add in the JAX package's order."""
+    pre_r = gather_send(r, xwi) + gather_recv(r, xj)
+    if wpos is not None:
+        dvec = gather_send(r, wpos) - gather_recv(r, wpos)
+        fib_dyn = torch.cat(
+            [dvec, torch.linalg.vector_norm(dvec, dim=-1, keepdim=True)],
+            dim=-1)
+        pre_r = pre_r + dense(fib_dyn, wf_dyn, 0.0, compute_dtype)
+    pre_r = pre_r + dense(r.fiber.to(dtype), wf, gmp.mlp_edge.biases[0],
+                          compute_dtype)
     e_r = mlp_apply_tail(gmp.mlp_edge, pre_r, compute_dtype)
     return segment_sum_accum(r, e_r, aggr)
 

@@ -191,7 +191,36 @@ Phases (any failure exits non-zero without the result line):
    `run_rollout` from the last checkpoint: finite RMSE summaries and
    predictions bit for bit `rollout_trajectory` on the restored model;
    the CLI's ms per step and one profiled step's busy ms, idle share and
-   CUDA kernels beside airfoil_batch's `Trainer` step.
+   CUDA kernels beside airfoil_batch's `Trainer` step;
+25. deforming_plate (`deforming_plate_config()`: latent 128, hidden 3,
+   depth 5, pos_dim 3, world edges, the `fused` method) on three tetra
+   blocks of one size group (TETRA_MESHES, window 256, edge_block 512,
+   Morton order), each a squeeze trajectory (`generate_tetra_trajectory`)
+   read by `TrajectoryReader.from_fields` with their bucket plan; the
+   native SpGEMM's availability printed and required; each level's layout
+   with its residual slots and in-window share; kernels 13 (forward and
+   backward, a static fiber 4 wide), 3 and 6 at every level, 7 at level 0,
+   the level of the longest sender lists and every level with a residual
+   sub-level, 1's level form at levels 0 and 4, and 9 at every residual
+   sub-level and a forced empty one, against their plain versions (f32,
+   bf16, controls); then at BATCH_CHECK samples on the union of the
+   blocks, at the levels with a residual sub-level, with phase 22's checks;
+   the forward and a 20-step rollout with EXPECTED_TETRA_LAUNCHES; kernels
+   13 and 9 timed; the forward at BATCH_SERVE on the union (each sample
+   against its own B = 1 forward); the train step at B = 1 (with
+   EXPECTED_TETRA_TRAIN_LAUNCHES and a `Trainer` over the three blocks)
+   and at the largest batch up to BATCH_TRAIN whose step, at the B = 1
+   step's largest own peak times B, stays within ELL_TRAIN_MEM_SHARE of
+   the card, with a `Trainer` there and its ms, busy ms, idle share and
+   own peak;
+26. the 5k airfoil of phase 2 built with `window="auto"` (airfoil_auto):
+   the native SpGEMM required, the chosen widths printed (at least one not
+   WINDOW); kernels 4, 3, 5 and 6 at every level, 1 (rect form) and 2 on
+   every operator and level whose width is not WINDOW beside phase 3's
+   shapes, and 7 at every such level, against their plain versions; the
+   forward and rollout with EXPECTED_AUTO_LAUNCHES, the train step at B = 1
+   with EXPECTED_AUTO_TRAIN_LAUNCHES and at BATCH_TRAIN, and a `Trainer`
+   at BATCH_TRAIN with its ms and busy ms beside airfoil_batch's.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -218,6 +247,12 @@ SURFACE_NODES, SURFACE_DEPTH = 16000, 7
 FLAG_NODES, FLAG_NY, FLAG_DEPTH = 1579, 32, 5
 # (nodes, seed) of the cylinder path's meshes; the second is served.
 CYLINDER_MESHES, CYLINDER_DEPTH = ((1600, 1), (1885, 0), (2000, 2)), 5
+# (nodes, seed) of deforming_plate's tetra blocks (`make_tetra_mesh`), one
+# size group, the second served: from about 5,000 nodes only the bottom
+# level of a depth-5 hierarchy is a single node. Each trajectory holds
+# TETRA_FRAMES frames of the squeeze (`generate_tetra_trajectory`).
+TETRA_MESHES, TETRA_DEPTH = ((6_000, 1), (6_500, 0), (7_000, 2)), 5
+TETRA_FRAMES = 18
 ROLLOUT_STEPS = 20
 # The v6 benchmark's mesh (the prototype's 1M-node level 0) and layout.
 V6_NODES, V6_WINDOW = 1_000_000, 512
@@ -409,6 +444,38 @@ EXPECTED_CYLINDER_TRAIN_LAUNCHES = {
     "fused_node_phase": 11, "fused_node_phase_bwd": 11,
     "windowed_send_sum": 11, "windowed_conv": 20, "segment_sum_accum": 30,
     "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
+# deforming_plate on bucketed windowed hierarchies with world edges (depth
+# 5; levels 0-2 of the group carry a residual sub-level, levels 3-5 none),
+# per forward: kernel 13 (not kernel 4) and kernel 3 in each of the 11
+# GMPs; kernel 1's level form in the 10 explicit convs of the latent rows;
+# kernel 9 four times per level with a residual sub-level (the down and up
+# GMPs' residual edge phases, v4's branch, and the down and up convs'
+# residual messages): 12. The 3-wide world positions take the convs'
+# generic `ell` form (narrow rows), no launch. Per train step: the
+# forward's; kernel 13's backward, kernel 7 (on dpre) and kernel 6 once in
+# each GMP's backward; kernel 1 in the 10 convs' adjoints; kernel 9 in the
+# 6 adjoint convs of levels 0-2 and in the backwards of the two residual
+# gathers of x (sender and receiver) of each of their 6 GMPs (the
+# positions' gathers carry no gradient): 12 + 6 + 12 = 30. The cylinder's
+# counts with kernel 13 for kernel 4.
+EXPECTED_TETRA_LAUNCHES = {
+    "fused_edge_phase_win_dyn": 11, "fused_edge_phase_win": 0,
+    "fused_node_phase": 11, "windowed_conv": 10, "segment_sum_accum": 12,
+    "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
+EXPECTED_TETRA_TRAIN_LAUNCHES = {
+    "fused_edge_phase_win_dyn": 11, "fused_edge_phase_win_dyn_bwd": 11,
+    "fused_node_phase": 11, "fused_node_phase_bwd": 11,
+    "windowed_send_sum": 11, "windowed_conv": 20, "segment_sum_accum": 30,
+    "fused_edge_phase_win": 0, "fused_edge_phase_win_bwd": 0,
+    "windowed_rect_conv": 0, "compact_accum": 0, "segment_sum": 0}
+# The 5k airfoil with window="auto" (widths 256, 128, 128, 256, 128, 128,
+# 128, 128 by level, nodes padded to 512 rows): the main path's kernels and
+# counts of kernels 4, 3 and 1, but compact residuals at levels 0-5 (12
+# GMPs) and on 10 transition operators (T0-T2 and T4 both ways, T3 and T5
+# down), so kernel 2 runs 22 times per forward; per train step also in the
+# 24 compact gathers' backwards and the 10 operators' adjoints: 56.
+EXPECTED_AUTO_LAUNCHES = dict(EXPECTED_LAUNCHES, compact_accum=22)
+EXPECTED_AUTO_TRAIN_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, compact_accum=56)
 # The pallas surface's train step under remat with every GMP checkpointed
 # (REMAT_MIN_NODES_SURFACE): the step's counts plus kernel 10 once more in
 # each of the 15 GMPs' backwards, which replay their forward before they
@@ -648,8 +715,11 @@ WALK_SEED = {"fused_edge_phase_win": 200, "fused_edge_phase_win_bwd": 100,
              "fused_edge_mlp_aggregate": 1100, "segment_sum": 1200,
              "fused_aggregate_node_phase": 1300}
 # The seed of the generator that draws kernel 9's inputs at residual
-# sub-level l > 0 (ACCUM_SEED + l).
+# sub-level l > 0 (ACCUM_SEED + l), kernel 7's at a case's extra level l
+# (SEND_SEED + l), and kernels 1's and 2's at the auto widths (AUTO_SEED).
 ACCUM_SEED = 1500
+SEND_SEED = 1600
+AUTO_SEED = 1700
 # The kernels whose card check, on a miss, prints the smallest |ReLU
 # input| over the rows that miss (`relu_margin`): a draw can put a ReLU
 # input within rounding of zero, where the kernel and the plain version,
@@ -658,6 +728,37 @@ RELU_DIAGNOSED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
                   "fused_edge_phase_win_dyn", "fused_edge_phase_win_dyn_bwd",
                   "fused_edge_phase_win_k", "fused_edge_phase_win_k_bwd",
                   "fused_node_phase", "fused_node_phase_bwd")
+# The plate's dense levels: a check of kernel 13 there computes up to 72M
+# ReLU inputs (190k slots, 128 units, 3 layers), so almost any draw puts one
+# within f32 rounding of its kink, where the kernel and the plain version,
+# summing in other orders, can take it on different sides (on an H100 a
+# unit at |z| = 7.5e-9 at level 2 moved one dpre row by 0.89 of the RMS,
+# its receiver's dxj row and dwf8 by 7.6e-4 of theirs). On a `dense` case
+# kernel 13's inputs are therefore drawn again where they feed such a unit
+# (`clear_kinks`): every xwi row that sends to a covered slot with a ReLU
+# input within KINK_MARGIN of its layer's RMS from zero is drawn anew,
+# until none is left; the kernel is then held at the full limits.
+KINK_MARGIN, KINK_ROUNDS, KINK_SEED = 1e-6, 20, 1800
+# bf16 moves ReLU inputs further: a hidden activation that the two sides'
+# f32 sums put on either side of a bf16 rounding step moves every unit it
+# feeds by that step times a weight, ~1e-4, too often for any draw to
+# avoid (on an H100 one dpre row of level 2 read 0.11 of the RMS, the limit
+# 0.1, fed by a unit at z = 1.2e-4). On a `dense` case each row of kernel
+# 13's backward's dpre that misses must be the plain version's row with
+# the ReLU decision of one of its units taken on the other side, within
+# the limits (`verify_flips`): a unit whose |z| is within one rounding
+# step of the dtype (2^-8 in bf16) of its own input scale, the sum of the
+# magnitudes of the terms that make z (`input_scales`); at most
+# FLIP_ROWS_MAX rows so, and the other rows pass both limits.
+FLIP_ROWS_MAX = 4
+# On a `dense` case (the plate) kernel 9's feature rows are zero on the
+# residual sub-levels' pad slots (the forced empty one keeps its draws).
+# Every pad slot adds onto row n_pad - 1, which no real node reads: the
+# plate's pad rows sum 2,300-8,800 slots a sample, against the cylinder's
+# hundreds for which TOL was set, and there the f32 order alone (the plain
+# version's atomics) read up to 2.13e-4 of the RMS against TOL's 2e-4 on
+# an H100 (the union's level 0; B = 1 up to 1.14e-4). The real rows, lists
+# of over 32 slots at levels 1 and 2 among them, keep their draws and TOL.
 # The rows of each backward output that `relu_margin` maps to the input
 # rows feeding them (an output not named: every input row).
 ROW_KIND = {"dpre": "inputs", "dx": "inputs", "daggr": "inputs",
@@ -925,19 +1026,27 @@ def fill_normalizers(sim, node_in, mask, rng):
         sim.norm_out = normalizer_accumulate(sim.norm_out, 0.1 * noise, mask)
 
 
-def build_case(device, plain=False, aggregation="fused"):
+def build_case(device, plain=False, aggregation="fused", auto=False):
     """The bench configuration: mesh, hierarchy on `device`, model with
     seeded weights and filled normalizers, one input frame and mask. With
     `plain`, method_sweep.py's fused-v2 airfoil instead: the mesh as built
     (not reordered) and the default unwindowed hierarchy (edge_block 128),
     so the fused method runs kernel 12. `aggregation="fused4"`: the same
     windowed case on the K-way interleaved method (kernel 14), with a twin
-    model on `fused` that holds the same weights and normalizers."""
+    model on `fused` that holds the same weights and normalizers. With
+    `auto`, the hierarchy comes from `load_or_build_hierarchy(window=
+    "auto")` (in a temporary directory): each level's width as the JAX
+    package's tuner picks it, the nodes padded to 512 rows."""
+    import tempfile
     from dataclasses import replace
 
     from bsms_gnn_tpu_torch.config import Config, ModelConfig
     from bsms_gnn_tpu_torch.data.synthetic import make_graded_airfoil_mesh
-    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
+    from bsms_gnn_tpu_torch.graph.hierarchy import (
+        build_hierarchy,
+        load_or_build_hierarchy,
+        to_device,
+    )
     from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
     from bsms_gnn_tpu_torch.graph.order import reorder_mesh
     from bsms_gnn_tpu_torch.models.simulator import Simulator
@@ -950,8 +1059,14 @@ def build_case(device, plain=False, aggregation="fused"):
         layout = dict(edge_block=EDGE_BLOCK, window=WINDOW)
     edges = to_flat_edge(cells, "tri")
     t0 = time.perf_counter()
-    h = build_hierarchy(edges, DEPTH, pos.shape[0], pos.astype(np.float64),
-                        **layout)
+    if auto:
+        with tempfile.TemporaryDirectory() as tmp:
+            h = load_or_build_hierarchy(
+                tmp, "airfoil", edges, DEPTH, pos.shape[0],
+                pos.astype(np.float64), edge_block=EDGE_BLOCK, window="auto")
+    else:
+        h = build_hierarchy(edges, DEPTH, pos.shape[0],
+                            pos.astype(np.float64), **layout)
     build_s = time.perf_counter() - t0
     hd = to_device(h, device)
 
@@ -979,6 +1094,19 @@ def build_case(device, plain=False, aggregation="fused"):
                     expected_train=EXPECTED_PLAIN_TRAIN_LAUNCHES,
                     narrow=(0, 0), train_tol=PLAIN_TRAIN_TOL,
                     timed=("fused_edge_phase", "fused_edge_phase_bwd"))
+    if auto:
+        widths = [g.window for g in h.levels]
+        print(f"[airfoil auto] window='auto' widths by level: {widths} "
+              f"(phase 2: {[WINDOW] * (DEPTH + 1)}); N_pad "
+              f"{[g.n_pad_nodes for g in h.levels]}")
+        require(any(w != WINDOW for w in widths),
+                "auto chose WINDOW at every level")
+        return dict(label="airfoil 5k auto", h=h, hd=hd, cfg=cfg, sim=sim,
+                    config=config, node_in=node_in, mask=mask, n=n,
+                    build_s=build_s, expected=EXPECTED_AUTO_LAUNCHES,
+                    expected_train=EXPECTED_AUTO_TRAIN_LAUNCHES, narrow=(0, 0),
+                    auto=True, send_levels=[l for l, w in enumerate(widths)
+                                            if w != WINDOW])
     if aggregation == "fused4":
         twin = Simulator(replace(cfg, aggregation="fused"), device=device)
         twin.load_state_dict(sim.state_dict())
@@ -1247,14 +1375,18 @@ def describe(case):
     print(f"[{case['label']}] mesh: {case['n']} nodes, hierarchy built in "
           f"{case['build_s']:.2f} s (host)")
     print("level  n_nodes  n_pad  E_pad      E  window  cresid_rows  "
-          "slots/128-row block  resid E / E_pad")
+          "slots/128-row block  resid E / E_pad  in-window share of E")
     for l, g in enumerate(h.levels):
         cr = "-" if g.cresid is None else g.cresid.n_real
         r = "-" if g.resid is None else (f"{g.resid.n_edges} / "
                                          f"{g.resid.n_pad_edges}")
+        out = (g.cresid.n_real if g.cresid is not None else
+               g.resid.n_edges if g.resid is not None else 0)
+        share = 1 - out / g.n_edges if g.window and g.n_edges else None
         print(f"{l:5d} {g.n_nodes:8d} {g.n_pad_nodes:6d} {g.n_pad_edges:6d} "
               f"{g.n_edges:6d} {g.window:7d}  {str(cr):>11}  "
-              f"{g.n_pad_edges / (g.n_pad_nodes // 128):19.0f}  {r}")
+              f"{g.n_pad_edges / (g.n_pad_nodes // 128):19.0f}  {r:>15}  "
+              + ("-" if share is None else f"{share:.4f}"))
     hd = case["hd"]
     ops = [(f"T{l} {w}", getattr(t, f"{w}_op")) for l, t in
            enumerate(hd.transitions) for w in ("down", "up")]
@@ -1285,7 +1417,9 @@ def describe(case):
             f"L{l} {row_list_summary(g.resid.row_ptr)}"
             for l, g in enumerate(hd.levels) if g.resid is not None)
             + f"; forced empty {row_list_summary(fe.row_ptr)}")
-        expect.update({"fused_edge_phase_win": gmps, "fused_node_phase": gmps,
+        edge = ("fused_edge_phase_win_dyn" if case["cfg"].world_edges
+                else "fused_edge_phase_win")
+        expect.update({edge: gmps, "fused_node_phase": gmps,
                        "windowed_conv": 2 * depth,
                        "segment_sum_accum": 4 * sum(resid[:depth])
                        + resid[depth]})
@@ -1462,9 +1596,10 @@ def kernel_inputs(case, dtype, device):
             n = d.n_pad_nodes
             pos = (case["node_in"][:, :3].to(dtype) if l == 0
                    else r(n, 3, dt=dtype))
-            return (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
+            args = (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
                     *first_layer(level_gmp(sim, hd, l)),
                     *level_tail(sim, hd, l))
+            return kink_free(case, "fused_edge_phase_win_dyn", args, l)
 
         edge = {"fused_edge_phase_win_dyn": level_shapes(
             hd, "fused_edge_phase_win_dyn", rand, g, dyn_args),
@@ -1513,6 +1648,9 @@ def kernel_inputs(case, dtype, device):
                 feat = rl(d.resid.n_pad_edges, c, dt=dtype)
                 accum += [(w, (d.resid, feat, rl(d.n_pad_nodes, c), *send)),
                           (f"{w} store", (d.resid, feat, None, *send))]
+        if case.get("dense"):
+            accum = [(w, (a[0], pad_zeroed(a[0], a[1]), *a[2:]))
+                     if a[0] is not fe else (w, a) for w, a in accum]
         return {
             **edge, **node,
             "windowed_conv": [
@@ -1523,18 +1661,42 @@ def kernel_inputs(case, dtype, device):
             "segment_sum_accum": accum,
         }
     star = star_resid(case, device)
+    rect, compact = [], []
+    if case.get("auto"):
+        # window="auto": kernels 1 and 2 also on every operator and level
+        # whose width is not WINDOW, from a generator of their own.
+        ra = functools.partial(rand, gen=torch.Generator(
+            device="cpu").manual_seed(AUTO_SEED))
+
+        def cr_args(where, cr):
+            return (where, (cr, ra(cr.n_rows, c, dt=dtype),
+                            ra(cr.n_pad_nodes, c)))
+
+        for l, t in enumerate(hd.transitions):
+            for w in ("down", "up"):
+                op = getattr(t, f"{w}_op")
+                if op.window in (0, WINDOW):
+                    continue
+                rect.append((f"T{l} {w}", (op, ra(op.n_in_pad, c, dt=dtype))))
+                if op.cresid is not None:
+                    compact.append(cr_args(f"T{l} {w}", op.cresid))
+        compact += [cr_args(f"level {l}", d.cresid)
+                    for l, d in enumerate(hd.levels)
+                    if d.window != WINDOW and d.cresid is not None]
     return {
         **edge, **node,
         "windowed_rect_conv": [
             ("T0 down", (t0.down_op, rand(t0.down_op.n_in_pad, c, dt=dtype))),
-            ("T0 up", (t0.up_op, rand(t0.up_op.n_in_pad, c, dt=dtype)))],
+            ("T0 up", (t0.up_op, rand(t0.up_op.n_in_pad, c, dt=dtype))),
+            *rect],
         "compact_accum": [
             ("level 0", (lvl.cresid, rand(lvl.cresid.n_rows, c, dt=dtype),
                          rand(n0, c))),
             ("T0 down", (t0.down_op.cresid,
                          rand(t0.down_op.cresid.n_rows, c, dt=dtype),
                          rand(t0.down_op.cresid.n_pad_nodes, c))),
-            ("star", (star, rand(star.n_rows, c, dt=dtype), rand(n0, c)))],
+            ("star", (star, rand(star.n_rows, c, dt=dtype), rand(n0, c))),
+            *compact],
     }
 
 
@@ -1576,13 +1738,15 @@ def gated_edge_args(case, rand, dtype, l=None):
 
 def first_layer(gmp):
     """The fused kernels' first-layer operands from a GMP's edge MLP: wf8
-    (the static fiber rows, then the bias); with world edges also wf_dyn
-    and wf_nrm (rows [Δworld, ‖Δworld‖, static, x_i, x_j])."""
+    (the static fiber rows, sfw = pos_dim + 1 of them, then the bias); with
+    world edges also wf_dyn and wf_nrm (rows [Δworld, ‖Δworld‖, static,
+    x_i, x_j])."""
     w1, b1 = gmp.mlp_edge.weights[0], gmp.mlp_edge.biases[0]
     wd = sum(gmp.dyn_dims)
     wd1 = wd + 1 if wd else 0
-    sta = w1[wd1:wd1 + 3]
-    wf8 = torch.cat([sta, b1[None], w1.new_zeros(4, w1.shape[1])])
+    sfw = gmp.fiber_dims[-1] + 1
+    sta = w1[wd1:wd1 + sfw]
+    wf8 = torch.cat([sta, b1[None], w1.new_zeros(7 - sfw, w1.shape[1])])
     return (wf8, w1[:wd], w1[wd]) if wd else (wf8,)
 
 
@@ -1624,6 +1788,8 @@ def check_kernels(case, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in kernel_inputs(case, dtype, device).items():
+            if name in case.get("skip", ()):
+                continue
             for where, args in shapes:
                 sparse = name in TILE_WALKS and where != shapes[0][0]
                 err = check_kernel(name, where, args, dtype, sparse)
@@ -1718,6 +1884,13 @@ def check_kernel(name, where, args, dtype, sparse=False):
     if not live:
         print("  no control: the plain output is all zero")
         return err
+    if name in ("windowed_rect_conv", "windowed_conv"):
+        # The control skips the rounding of ew, which changes nothing where
+        # every weight is exact in bf16 (the auto airfoil's T6: 2 nodes).
+        ew = args[0].ew if name == "windowed_rect_conv" else args[2]
+        if torch.equal(ew.to(torch.bfloat16).float(), ew.float()):
+            print("  no control: every weight is exact in bf16")
+            return err
     c_err, c_rms, _, c_zero, _ = filled_compare(run(name, fn, ctrl), want,
                                                 sparse)
     missed = c_err > tol_max * rms or c_rms > tol_rms * rms or not c_zero
@@ -1813,6 +1986,142 @@ def relu_margin(name, args, got, want, limit, rows_are="receivers"):
             f"|ReLU input| over the {len(idx)} input rows that feed them is "
             f"{best[0]:.3e} (input row {best[1]}, layer {best[2]}; 0: the "
             f"first layer's pre-activation)")
+
+
+def pad_zeroed(layout, feat):
+    """feat with the rows of the layout's pad slots zero (on a `dense`
+    case)."""
+    return feat * layout.edge_mask.to(feat.dtype)[:, None]
+
+
+def kink_free(case, name, args, l):
+    """Kernel 13's arguments at level l of the case, cleared of ReLU inputs
+    near their kinks on a `dense` case (`clear_kinks`, from a generator
+    seeded with KINK_SEED + l), else as they are."""
+    if not case.get("dense"):
+        return args
+    return clear_kinks(name, args,
+                       torch.Generator().manual_seed(KINK_SEED + l))
+
+
+def clear_kinks(name, args, gen):
+    """Kernel 13's (forward or backward) `args` with every row of xwi (args
+    1, [rows, C]) that sends to a covered slot with a ReLU input within
+    KINK_MARGIN of its layer's RMS from zero (`relu_inputs`, the plain
+    version's arithmetic) drawn anew from `gen` at xwi's RMS, until no such
+    slot is left."""
+    args = list(args)
+    level, xwi = args[0], args[1]
+    scale = xwi.float().square().mean().sqrt().item()
+    for _ in range(KINK_ROUNDS):
+        ins, counted, _ = relu_inputs(name, tuple(args))
+        near = torch.zeros_like(counted)
+        for z in ins:
+            rms = z[counted].square().mean().sqrt()
+            near |= (z.abs() < KINK_MARGIN * rms).any(-1)
+        near &= counted
+        if not bool(near.any()):
+            return tuple(args)
+        rows = level.senders[near].long().unique()
+        xwi = xwi.clone()
+        xwi[rows] = (scale * torch.randn(len(rows), xwi.shape[-1],
+                                         generator=gen)).to(xwi)
+        args[1] = xwi
+    raise SmokeFailure(f"{name}: ReLU inputs near their kinks remain after "
+                       f"{KINK_ROUNDS} draws")
+
+
+def input_scales(args, ins, rows):
+    """Kernel 13's backward's ReLU inputs' own scales at the slots `rows`
+    (`ins` from `relu_inputs` on `args`): for each layer [len(rows), 128]
+    the sum of the magnitudes of the terms that make each unit's input, in
+    the plain version's arithmetic (the first layer's gathered rows,
+    fiber, world and norm terms; a later layer's Σ_k |h_k W_ku| + |b_u|)."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_dyn as fgd
+
+    level, xwi, xj, pos, wf8, wfd, wfn, ws, bs = args[:9]
+    bf16 = xwi.dtype == torch.bfloat16
+    send, covered = fg.sender_rows(level)
+    send, covered = send[rows], covered[rows]
+    recv = level.receivers.long()[rows]
+    _, _, _, delta, nrm = fgd._edge_pre_dyn(level, xwi, xj, pos, wf8, wfd,
+                                            wfn, bf16)
+    first = (fg.dot(level.fiber_t.t()[rows].abs(), wf8.float().abs(), bf16)
+             + torch.where(covered[:, None],
+                           xwi.float().abs().index_select(0, send), 0.0)
+             + xj.float().abs().index_select(0, recv)
+             + fg.dot(delta[rows].abs(), wfd.float().abs(), bf16)
+             + nrm[rows][:, None] * wfn.float().abs())
+    return [first] + [
+        fg.dot(torch.relu(z[rows]), w.float().abs(), bf16) + b.float().abs()
+        for z, w, b in zip(ins[:-1], ws[:-1], bs[:-1])]
+
+
+def verify_flips(args, got, want, limits, sparse):
+    """(ok, line) of kernel 13's backward's dpre `got` against the plain
+    `want` on `args`, where at most FLIP_ROWS_MAX rows miss: each row that
+    misses must equal, within the limits, the plain version's row
+    recomputed with the ReLU decision of one of the row's units taken on
+    the other side, a unit whose |z| (`relu_inputs`, the plain version's
+    arithmetic) is within one rounding step of the dtype of its own input
+    scale (`input_scales`), tried nearest first; the rows so verified are
+    left out, the rest held at both `limits`."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
+
+    tol_max, tol_rms = limits
+    rms = filled_compare(got, want, sparse)[2]
+    by_row = (got.float() - want.float()).abs().amax(-1)
+    miss = (by_row > tol_max * rms).nonzero()[:, 0]
+    if len(miss) > FLIP_ROWS_MAX:
+        return False, f"  flips: {len(miss)} rows miss, over {FLIP_ROWS_MAX}"
+    level, xwi, xj, pos, wf8, wfd, wfn, ws, bs, g = args
+    bf16 = xwi.dtype == torch.bfloat16
+    step = 2.0 ** -8 if bf16 else 2.0 ** -24
+    ins, counted, recv = relu_inputs("fused_edge_phase_win_dyn_bwd", args)
+    scales = input_scales(args, ins, miss)
+    ws = [w.float() for w in ws]
+    bs = [b.float() for b in bs]
+    found = []
+    for k, e in enumerate(miss.tolist()):
+        pre = ins[0][e:e + 1]
+        normed, inv, hs = fg.mlp_tail_fwd_save(pre, ws, bs, bf16)
+        ge = g.float()[recv[e]][None] * counted[e]
+        if bf16:
+            ge = fg.round_bf16(ge)
+        near = sorted(
+            (float(z[e, u].abs() / (step * s[k, u])), l, u,
+             float(z[e, u].abs()))
+            for l, (z, s) in enumerate(zip(ins, scales))
+            for u in (z[e].abs() <= step * s[k]).nonzero()[:, 0].tolist())
+        hit = None
+        for ratio, l, u, z in near:
+            masks = [pre.clone()] + [h.clone() for h in hs[1:]]
+            masks[l][0, u] = 0.0 if masks[l][0, u] > 0 else 1.0
+            row = fg.mlp_tail_bwd(masks[0], [hs[0], *masks[1:]], normed,
+                                  inv, ge, ws, bf16)[0].to(got.dtype)
+            if ((got[e].float() - row[0].float()).abs().max()
+                    <= tol_max * rms):
+                hit = (l, u, z, ratio)
+                break
+        found.append((e, len(near), hit))
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[miss] = False
+    err, err_rms, rms_k, zero_ok, _ = filled_compare(got[keep], want[keep],
+                                                     sparse)
+    verified = sum(hit is not None for _, _, hit in found)
+    ok = (verified == len(miss) and err <= tol_max * rms_k
+          and err_rms <= tol_rms * rms_k and zero_ok)
+    rows = "; ".join(
+        f"row {e} ({n} units within the step): "
+        + (f"layer {hit[0]} unit {hit[1]} |z| {hit[2]:.2e}, "
+           f"{hit[3]:.2e} of the step" if hit else "NONE")
+        for e, n, hit in found)
+    return ok, (f"  flips: {verified} of {len(miss)} rows that miss "
+                f"verified, each the plain row with the named unit on its "
+                f"other side ({rows}); the other rows max "
+                f"{frac(err, rms_k):.2e}, rms {frac(err_rms, rms_k):.2e}: "
+                f"{'verified' if ok else 'FAIL'}")
 
 
 def check_slice(case, device):
@@ -2281,8 +2590,9 @@ def bwd_kernel_inputs(case, dtype, device):
             n = d.n_pad_nodes
             pos = (case["node_in"][:, :3].to(dtype) if l == 0
                    else r(n, 3, dt=dtype))
-            return (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
+            args = (d, r(n, c, dt=dtype), r(n, c, dt=dtype), pos,
                     *first_layer(level_gmp(sim, hd, l)), *tail(l), r(n, c))
+            return kink_free(case, "fused_edge_phase_win_dyn_bwd", args, l)
 
         edge = {"fused_edge_phase_win_dyn_bwd": walk_shapes(
             "fused_edge_phase_win_dyn_bwd", dyn_args),
@@ -2300,12 +2610,19 @@ def bwd_kernel_inputs(case, dtype, device):
         level_gmp(sim, hd, l).mlp_node, r(d.n_pad_nodes, c), cd))
     node[1:1] = ([("f32 x", (rand(n0, c), rand(n0, c, s=3.0), gmp.mlp_node,
                              rand(n0, c), cd))] if cd is not None else [])
-    # Kernel 7 at level 0 and at the level of the longest sender lists.
+    # Kernel 7 at level 0 and at the level of the longest sender lists; then
+    # at the case's `send_levels` (each from a generator of its own).
     send = [("level 0", (lvl, rand(e0, c, dt=dtype)))]
     deep = longest_send_level(hd)
     if deep:
         d = hd.levels[deep]
         send.append((f"level {deep}", (d, rand(d.n_pad_edges, c, dt=dtype))))
+    for l in case.get("send_levels", ()):
+        if l not in (0, deep):
+            d = hd.levels[l]
+            send.append((f"level {l}", (d, rand(
+                d.n_pad_edges, c, dt=dtype, gen=torch.Generator(
+                    device="cpu").manual_seed(SEND_SEED + l)))))
     return {**edge, "fused_node_phase_bwd": node, "windowed_send_sum": send}
 
 
@@ -2457,6 +2774,8 @@ def check_bwd_kernels(case, device):
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
+            if name in case.get("skip", ()):
+                continue
             fn, plain = kernel_modules()[name]
             for where, args in shapes:
                 got, want = fn(*args), plain(*args)
@@ -2520,6 +2839,12 @@ def check_bwd_kernels(case, device):
                         print(relu_margin(name, args, got[i], want[i],
                                           tol_max * rms, ROW_KIND.get(
                                               out, "all")))
+                        if (case.get("dense") and out == "dpre" and name
+                                == "fused_edge_phase_win_dyn_bwd"):
+                            ok, note = verify_flips(
+                                args, got[i], want[i], (tol_max, tol_rms),
+                                sparse)
+                            print(note)
                     if ctrl is not None and live:
                         require(missed, f"{name} {where} {out}: the bf16 "
                                         f"tolerance does not tell an "
@@ -2682,6 +3007,10 @@ def check_train(case, device):
             print(f"[{label}] train step {str(dtype)[6:]}: own peak "
                   f"{peak[0]:.1f} MiB through the kernels, {peak_p[0]:.1f} "
                   f"MiB through the plain versions")
+        # The largest own peak of the step's runs (a caller sizes its train
+        # batch by it).
+        case["train_peak"] = max(case.get("train_peak", 0.0), peak[0],
+                                 peak_p[0])
         plain_grads[dtype] = grads_p
         tol_loss, tol_max, tol_rms = case.get("train_tol", TRAIN_TOL)[dtype]
         # The plain path against itself: its `index_add_` sums run in
@@ -3161,7 +3490,7 @@ def batch_inputs(case, dtype, device, names=None):
 
 
 def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
-                  meshes=None):
+                  meshes=None, dense=False):
     """One kernel of the batched path on a batch of n samples (sample 0
     the B = 1 check's inputs): twice for bit-identical outputs;
     each output against the plain version on the batch (TOL / BWD_TOL, the
@@ -3171,10 +3500,26 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
     (BWD_TOL). With `meshes` (sample s's layout, or None for every sample
     of a kernel that takes none) the batch runs as one call on the union
     of the samples' layouts (`union_args`) and sample s alone on its own.
+    With `dense` (a union), kernel 13's drawn samples are cleared of ReLU
+    inputs near their kinks on the union (`clear_kinks`) and its
+    backward's dpre rows that miss are verified as flips (`verify_flips`),
+    and kernel 9's drawn samples are zero on their pad slots
+    (`pad_zeroed`, each on its own layout), as the B = 1 check's are.
     Returns the largest max_abs_err against the plain version."""
     fn, plain = kernel_modules()[name]
     bargs = batch_args(name, args, n, seed)
+    if (dense and name == "segment_sum_accum" and meshes is not None
+            and meshes[0].n_edges > 0):
+        bargs = list(bargs)
+        bargs[1] = torch.stack([pad_zeroed(m, f)
+                                for m, f in zip(meshes, bargs[1])])
+        bargs = tuple(bargs)
     cargs = bargs if meshes is None else union_args(name, bargs, meshes)
+    if dense and name.startswith("fused_edge_phase_win_dyn"):
+        cargs = clear_kinks(name, cargs, torch.Generator().manual_seed(seed))
+        bargs = list(bargs)
+        bargs[1] = cargs[1].reshape(n, -1, cargs[1].shape[-1])
+        bargs = tuple(bargs)
     bwd = name in BWD_OUTPUTS
     outs = BWD_OUTPUTS[name] if bwd else ("out",)
     tol_max, tol_rms = (BWD_TOL if bwd else TOL)[(name, dtype)]
@@ -3232,6 +3577,12 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
             note += (f", vs the sum of the samples' calls max "
                      f"{frac(s_err, s_ref):.2e} rms {frac(s_rms, s_ref):.2e}")
             ok = ok and summed
+        if (not ok and dense and out == "dpre"
+                and name == "fused_edge_phase_win_dyn_bwd"):
+            verified, line = verify_flips(cargs, rows(got[i]), rows(want[i]),
+                                          (tol_max, tol_rms), sparse)
+            print(line)
+            ok = verified and each
         notes.append(note + ("" if ok else " FAIL"))
         if not ok and name in RELU_DIAGNOSED and (
                 not bwd or out in ROW_OUTPUTS[name]):
@@ -3354,11 +3705,19 @@ def cylinder_batch_case(device):
     """The cylinder case (`build_cylinder_case`) batched across its three
     meshes, as a variable-mesh dataset batches: sample s on mesh s mod 3
     with its own frame pair (`cylinder_frames`), each batch on the union of
-    its samples' device hierarchies (`stacked_unions`). `sample_layouts`
-    gives a kernel check's layout on each sample's own mesh."""
+    its samples' device hierarchies (`union_case`)."""
     case = build_cylinder_case(device)
+    return union_case(dict(case, frames=cylinder_frames), "cylinder batch")
+
+
+def union_case(case, label):
+    """A variable-mesh case batched across its meshes (sample s on the
+    hierarchy of its `trainer_frames` entry s mod len): `union` gives the
+    union of n samples' device hierarchies (`stacked_unions`),
+    `sample_layouts` a kernel check's layout on each sample's own mesh,
+    `own` sample s's hierarchy."""
     hds = [f[0] for f in case["trainer_frames"]]
-    union = stacked_unions(hds, "cylinder batch")
+    union = stacked_unions(hds, label)
 
     def sample_layouts(name, args, n=BATCH_CHECK):
         lay = args[0]
@@ -3371,8 +3730,7 @@ def cylinder_batch_case(device):
                     return [get(hds[s % len(hds)]) for s in range(n)]
         return [lay] * n  # the forced empty residual: mesh 1's
 
-    return dict(case, frames=cylinder_frames, union=union,
-                sample_layouts=sample_layouts,
+    return dict(case, union=union, sample_layouts=sample_layouts,
                 own=lambda s: hds[s % len(hds)])
 
 
@@ -3603,8 +3961,6 @@ def run_batch_case(device, path):
     build, label, names, seed = BATCH_PATHS[path]
     case = build(device)
     case["label"] = label
-    sim = case["sim"]
-    expected, narrow = case["expected"], case["narrow"]
     train_b = case.get("train_batch", BATCH_TRAIN)
     batch_hd = case.get("union") or (lambda n: case["hd"])
     errs = {}
@@ -3623,35 +3979,7 @@ def run_batch_case(device, path):
         if case["cfg"].aggregation == "pallas":
             check_agg_identity(case, BATCH_CHECK)
             print_agg_designs(case, (BATCH_SERVE, train_b))
-        node_in, _, mask = batch_frames(case, BATCH_SERVE, 21)
-        hd = batch_hd(BATCH_SERVE)
-        serve = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            cd = dtype if dtype == torch.bfloat16 else None
-            reset_counts()
-            got = sim(hd, node_in, mask, cd)
-            counts, narrowed = read_counts(expected), narrow_calls()
-            with plain_path():
-                want = sim(hd, node_in, mask, cd)
-            delta = (want - node_in[..., :want.shape[-1]]).abs().max().item()
-            err = (got - want).abs().max().item()
-            tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
-            ok = err <= tol and bool(torch.isfinite(got).all())
-            print(f"[{label}] forward B={BATCH_SERVE} {str(dtype)[6:]:9s} "
-                  f"shape {tuple(got.shape)} max_abs_err vs plain {err:.3e} "
-                  f"(delta scale {delta:.3e}, tol {tol:.3e}); launches "
-                  f"{counts} (B = 1: {expected}); narrow-route calls "
-                  f"{narrowed} (B = 1: {narrow})  {'ok' if ok else 'FAIL'}")
-            require(ok, f"{label} B={BATCH_SERVE} {dtype} forward disagrees "
-                        f"with the plain path")
-            if "own" in case:
-                check_union_samples(case, node_in, mask, got, delta, dtype)
-            if device.type == "cuda":
-                require(counts == expected and narrowed == narrow,
-                        f"{label} B={BATCH_SERVE} forward launch counts "
-                        f"{counts}, narrow-route calls {narrowed}")
-            serve = serve or counts
-        del got, want
+        serve = check_served_batch(case, device)
         if "union" in case:
             check_shared_union(case)
     node_in, tar, mask = batch_frames(case, train_b, 22)
@@ -3671,6 +3999,45 @@ def run_batch_case(device, path):
     del case
     torch.cuda.empty_cache()
     return errs, {}, serve, train, e2e
+
+
+def check_served_batch(case, device, n=BATCH_SERVE):
+    """The forward at n frames (`batch_frames`, seed 21; a variable-mesh
+    case's on the union of its samples' hierarchies) against the plain
+    path (FORWARD_TOL), f32 and bf16, with the case's B = 1 launch and
+    narrow-route counts; on a union also each sample against its own B = 1
+    forward (`check_union_samples`). Returns the f32 forward's counts."""
+    sim, label = case["sim"], case["label"]
+    expected, narrow = case["expected"], case["narrow"]
+    node_in, _, mask = batch_frames(case, n, 21)
+    hd = (case.get("union") or (lambda b: case["hd"]))(n)
+    serve = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cd = dtype if dtype == torch.bfloat16 else None
+        reset_counts()
+        got = sim(hd, node_in, mask, cd)
+        counts, narrowed = read_counts(expected), narrow_calls()
+        with plain_path():
+            want = sim(hd, node_in, mask, cd)
+        delta = (want - node_in[..., :want.shape[-1]]).abs().max().item()
+        err = (got - want).abs().max().item()
+        tol = FORWARD_TOL[dtype] * max(delta, 1e-3)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        print(f"[{label}] forward B={n} {str(dtype)[6:]:9s} "
+              f"shape {tuple(got.shape)} max_abs_err vs plain {err:.3e} "
+              f"(delta scale {delta:.3e}, tol {tol:.3e}); launches "
+              f"{counts} (B = 1: {expected}); narrow-route calls "
+              f"{narrowed} (B = 1: {narrow})  {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label} B={n} {dtype} forward disagrees with the "
+                    f"plain path")
+        if "own" in case:
+            check_union_samples(case, node_in, mask, got, delta, dtype)
+        if device.type == "cuda":
+            require(counts == expected and narrowed == narrow,
+                    f"{label} B={n} forward launch counts {counts}, "
+                    f"narrow-route calls {narrowed}")
+        serve = serve or counts
+    return serve
 
 
 def print_agg_designs(case, batches):
@@ -4025,16 +4392,18 @@ def check_ell_step(case, twin, hd, node_in, tar, mask):
     return worst
 
 
-def measure_ell_train(case, device, hd, frames, b, e2e):
-    """A `Trainer` on the `ell` method at batch b, f32 and bf16: the gate,
-    then updates; ms per step (median of three repeats of two steps, CUDA
+def measure_batch_train(case, device, hd, frames, b, e2e,
+                        dtypes=(torch.float32, torch.bfloat16)):
+    """A `Trainer` of the case's model at batch b, in each of `dtypes`: the
+    gate, then updates; ms per step (median of three repeats of two steps, CUDA
     events), busy ms, idle share and CUDA kernels of one profiled step,
     own peak MiB of one step; the losses finite and every parameter with a
-    gradient moved. On the airfoil the windowed `fused` airfoil_batch
-    figures of this run stand beside them. Returns the end-to-end keys."""
+    gradient moved. On an airfoil (the `ell` one, the auto-width one) the
+    windowed `fused` airfoil_batch figures of this run stand beside them.
+    Returns the end-to-end keys."""
     label = case["label"]
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         cd = dtype if dtype == torch.bfloat16 else None
         key = "f32" if cd is None else "bf16"
         tr = make_trainer(case, device, cd)
@@ -4068,8 +4437,8 @@ def measure_ell_train(case, device, hd, frames, b, e2e):
             line += (f"; the windowed fused airfoil (airfoil_batch, this "
                      f"run): {f_ms:.4f} ms, busy {f_busy:.4f} ms, idle "
                      f"share {1 - f_busy / f_ms:.3f}, own peak "
-                     f"{f_peak:.1f} MiB: ell takes {ms / f_ms:.2f}x the "
-                     f"time and {peak[0] / f_peak:.2f}x the memory")
+                     f"{f_peak:.1f} MiB: {label} takes {ms / f_ms:.2f}x "
+                     f"the time and {peak[0] / f_peak:.2f}x the memory")
         print(line)
         out.update({f"train_step_ms_b{b}_{key}": ms,
                     f"train_step_busy_ms_b{b}_{key}": busy,
@@ -4119,7 +4488,7 @@ def run_ell_case(device, path, e2e):
     hd = batch_hd(b)
     check_ell_step(case, twins["segment"], hd, *frames)
     del twins
-    out = measure_ell_train(case, device, hd, frames, b, e2e)
+    out = measure_batch_train(case, device, hd, frames, b, e2e)
     del case, frames
     torch.cuda.empty_cache()
     return {}, {}, {}, {}, out
@@ -4376,6 +4745,220 @@ def run_cli_case(device, e2e):
     return {}, {}, {}, {}, out
 
 
+# -- deforming_plate (phase 25) and window="auto" (phase 26) ----------------
+
+
+def native_line(label):
+    """Prints whether the bi-stride build squared its adjacency natively
+    (`graph.native`, g++ at first use); fails where it did not."""
+    from bsms_gnn_tpu_torch.graph import native
+
+    ok = native.native_available()
+    print(f"[{label}] native SpGEMM (graph.native, built with g++): "
+          f"{ok}" + ("" if ok else f" ({native.error})"))
+    require(ok, f"{label}: the native SpGEMM is not available")
+
+
+def build_plate_case(device):
+    """deforming_plate at full width and depth (`deforming_plate_config()`:
+    latent 128, hidden 3, depth 5, pos_dim 3, world edges, the `fused`
+    method) on three tetra blocks (TETRA_MESHES): each a trajectory of
+    TETRA_FRAMES frames of `generate_tetra_trajectory(n, TETRA_FRAMES,
+    default_rng(seed))`, read by `TrajectoryReader.from_fields` (Morton
+    order, window 256, edge_block 512) with the bucket plan of their one
+    size group (`graph.buckets.plan_buckets` of the Morton-ordered blocks'
+    levels), its hierarchy on the card. The second block is served, its
+    frames 0 and 1 the input and the target; the `Trainer` steps cycle
+    over the three blocks. Weights from `torch.Generator().manual_seed(0)`.
+    Kernel 11, which phase 10 checks on a windowed level though no model
+    path runs it there, is not checked here."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bsms_gnn_tpu_torch.config import deforming_plate_config
+    from bsms_gnn_tpu_torch.data.synthetic import generate_tetra_trajectory
+    from bsms_gnn_tpu_torch.data.trajectory import TrajectoryReader
+    from bsms_gnn_tpu_torch.graph.buckets import plan_buckets
+    from bsms_gnn_tpu_torch.graph.hierarchy import load_or_build_levels
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+
+    native_line("plate")
+    cfg = deforming_plate_config()
+    data = dataclasses.replace(cfg.datasets, pad_multiple=128,
+                               edge_block=EDGE_BLOCK, window=WINDOW,
+                               size_buckets=1, unet_depth=TETRA_DEPTH)
+    def block(i):
+        n, seed = TETRA_MESHES[i]
+        f = generate_tetra_trajectory(n, TETRA_FRAMES,
+                                      np.random.default_rng(seed))
+        pos, cells, _, _ = reorder_mesh(f["mesh_pos"][0], f["cells"][0])
+        # Cached under the reader's name for the Morton-ordered mesh, so
+        # each reader loads these levels instead of building them.
+        levels = load_or_build_levels(
+            tmp, f"plate{i}_mrt", to_flat_edge(cells, "tetra"), TETRA_DEPTH,
+            len(pos), pos.astype(np.float64))
+        return f, levels, pos
+
+    def reader(i):
+        return TrajectoryReader.from_fields(data, trajs[i], tmp, f"plate{i}",
+                                            device=device, **plan.for_mesh(i))
+
+    t0 = time.perf_counter()
+    # The blocks, then the readers, build in threads (numpy, SciPy, zlib
+    # and the native SpGEMM release the GIL).
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(
+            len(TETRA_MESHES)) as pool:
+        trajs, levels, meshes = zip(*pool.map(block,
+                                              range(len(TETRA_MESHES))))
+        plan = plan_buckets(list(levels), data)
+        require(len(plan.groups) == 1, f"the blocks plan {plan.groups}")
+        print(f"[plate] bucket plan: {plan.groups}")
+        readers = list(pool.map(reader, range(len(TETRA_MESHES))))
+    build_s = time.perf_counter() - t0
+    sim = Simulator(cfg.model, torch.Generator().manual_seed(0),
+                    device=device)
+    frames = [(r.hd, *(torch.from_numpy(a).to(device) for a in r.sample(0)))
+              for r in readers]
+    hd, node_in, target, mask = frames[1]
+    fill_normalizers(sim, node_in, mask, np.random.default_rng(0))
+    h = readers[1].hierarchy
+    return dict(label="plate 6.5k", h=h, hd=hd, cfg=cfg.model, sim=sim,
+                config=deforming_plate_config, node_in=node_in, mask=mask,
+                n=readers[1].n_nodes, build_s=build_s, readers=readers,
+                expected=EXPECTED_TETRA_LAUNCHES,
+                expected_train=EXPECTED_TETRA_TRAIN_LAUNCHES, narrow=(0, 0),
+                train_frames=(node_in, target), trainer_frames=frames,
+                frames=plate_frames,
+                forced_empty=forced_empty_resid(levels[1], meshes[1], plan,
+                                                data, device),
+                skip=("fused_edge_mlp_aggregate",
+                      "fused_edge_mlp_aggregate_bwd"), dense=True,
+                send_levels=[l for l, g in enumerate(h.levels)
+                             if g.resid is not None])
+
+
+def plate_frames(case, n, seed):
+    """n samples of the plate batch: sample s on block s mod 3, its frame
+    t = (s // 3 + seed) mod (TETRA_FRAMES - 1) of that block's trajectory
+    and target frame t + 1, its mask the block's: ([n, N_pad, 7], [n,
+    N_pad, 3], [n, N_pad, 1]) on the card."""
+    readers = case["readers"]
+    picks = [readers[s % 3].sample((s // 3 + seed) % (TETRA_FRAMES - 1))
+             for s in range(n)]
+    device = case["node_in"].device
+    return tuple(torch.from_numpy(np.stack(a)).to(device)
+                 for a in zip(*picks))
+
+
+def resid_shape(case, where):
+    """Whether a kernel check's shape lies on a level with a residual
+    sub-level (or is the forced empty one)."""
+    if where.startswith("forced empty"):
+        return True
+    parts = where.split()
+    return (len(parts) > 1 and parts[0] == "level" and parts[1].isdigit()
+            and case["h"].levels[int(parts[1])].resid is not None)
+
+
+def time_plate_kernels(case):
+    """Kernel 13 (forward, f32 and bf16) and its backward (f32) at level 0
+    of the plate (a static fiber of 4), and kernel 9 (both forms, f32) at
+    each residual sub-level, beside their plain versions, `index_add_`
+    where it computes the same function, and the card's bound."""
+    device = case["node_in"].device
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd = kernel_inputs(case, dtype, device)
+        rows[("fused_edge_phase_win_dyn", dtype)] = time_kernel(
+            "fused_edge_phase_win_dyn", *fwd["fused_edge_phase_win_dyn"][0],
+            dtype)
+        if dtype == torch.float32:
+            bwd = bwd_kernel_inputs(case, dtype, device)
+            rows[("fused_edge_phase_win_dyn_bwd", dtype)] = time_kernel(
+                "fused_edge_phase_win_dyn_bwd",
+                *bwd["fused_edge_phase_win_dyn_bwd"][0], dtype)
+            for where, args in fwd["segment_sum_accum"]:
+                if where.startswith("level") and not where.endswith("store"):
+                    time_kernel("segment_sum_accum", where, args, dtype)
+    return rows
+
+
+def run_plate_case(device, e2e):
+    """Phase 25 (module docstring). Returns (kernel errors, kernel rows,
+    forward launch counts, train-step launch counts, end-to-end times) as
+    `run_case` does."""
+    label = "plate 6.5k"
+    with torch.no_grad():
+        case = union_case(build_plate_case(device), "plate batch")
+        describe(case)
+        errs = check_kernels(case, device)
+        serve = check_slice(case, device)
+        errs.update(check_bwd_kernels(case, device))
+        rows = time_plate_kernels(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shapes in batch_inputs(case, dtype, device):
+                if name in case["skip"]:
+                    continue
+                for k, (where, args) in enumerate(shapes):
+                    if not resid_shape(case, where):
+                        continue
+                    sparse = name in TILE_WALKS and k > 0
+                    check_batched(name, where, args, dtype, sparse,
+                                  6500 + 50 * k,
+                                  meshes=case["sample_layouts"](name, args),
+                                  dense=True)
+        check_served_batch(case, device)
+    case["train"] = case["train_frames"]
+    train = check_train(case, device)
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    peak1 = case["train_peak"]
+    b = int(min(BATCH_TRAIN, ELL_TRAIN_MEM_SHARE * total // max(peak1, 1.0)))
+    print(f"[{label}] train batch {b}: the B = 1 step's largest own peak "
+          f"{peak1:.1f} MiB times B within {ELL_TRAIN_MEM_SHARE} of the "
+          f"card's {total:.0f} MiB" + ("" if b == BATCH_TRAIN else
+                                       f" (BATCH_TRAIN = {BATCH_TRAIN} "
+                                       f"would not fit)"))
+    require(b >= BATCH_CHECK, f"{label}: a train batch of {b}")
+    frames = plate_frames(case, b, 22)
+    hd = case["union"](b)
+    check_train(dict(case, hd=hd, train=frames[:2], mask=frames[2],
+                     train_frames=frames[:2], trainer_frames=None,
+                     label=f"{label} B={b}"), device)
+    # f32 only: the phase's time (a step at 47 takes ~0.9 s).
+    out = measure_batch_train(case, device, hd, frames, b, e2e,
+                              (torch.float32,))
+    out["train_batch"] = b
+    del case, frames, hd
+    torch.cuda.empty_cache()
+    return errs, rows, serve, train, out
+
+
+def run_auto_case(device, e2e):
+    """Phase 26 (module docstring). Returns (kernel errors, kernel rows,
+    forward launch counts, train-step launch counts, end-to-end times) as
+    `run_case` does."""
+    native_line("airfoil auto")
+    with torch.no_grad():
+        case = build_case(device, auto=True)
+        describe(case)
+        errs = check_kernels(case, device)
+        errs.update(check_bwd_kernels(case, device))
+        serve = check_slice(case, device)
+    case["train"] = (case["node_in"], train_target(case))
+    train = check_train(case, device)
+    frames = batch_frames(case, BATCH_TRAIN, 22)
+    check_train(dict(case, train=frames[:2], mask=frames[2],
+                     train_frames=frames[:2],
+                     label=f"{case['label']} B={BATCH_TRAIN}"), device)
+    out = measure_batch_train(case, device, case["hd"], frames, BATCH_TRAIN,
+                              e2e)
+    del case, frames
+    torch.cuda.empty_cache()
+    return errs, {}, serve, train, out
+
+
 def held_line() -> str:
     """What the kernels' weight-stack cache (`build.stacked`) holds on the
     card: it outlives the phase that filled it, so a later peak counts it."""
@@ -4439,8 +5022,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # (path, the function that builds its case (None: a batched path of
-    # BATCH_PATHS, an `ell` path of ELL_PATHS or the CLI phase), the
-    # prefix of its end-to-end keys)
+    # BATCH_PATHS, an `ell` path of ELL_PATHS, the CLI phase or phases 25
+    # and 26), the prefix of its end-to-end keys)
     paths = (("airfoil", build_case, ""),
              ("surface", build_surface_case, "surface_"),
              ("flag", build_flag_case, "flag_"),
@@ -4464,7 +5047,9 @@ def main() -> int:
              ("flag_ell", None, "flag_ell_"),
              ("cylinder_ell", None, "cylinder_ell_"),
              ("inflating_ell", None, "inflating_ell_"),
-             ("cli", None, "cli_"))
+             ("cli", None, "cli_"),
+             ("deforming_plate", None, "plate_"),
+             ("airfoil_auto", None, "airfoil_auto_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -4485,6 +5070,10 @@ def main() -> int:
                 got = run_ell_case(device, phase, e2e)
             elif phase == "cli":
                 got = run_cli_case(device, e2e)
+            elif phase == "deforming_plate":
+                got = run_plate_case(device, e2e)
+            elif phase == "airfoil_auto":
+                got = run_auto_case(device, e2e)
             else:
                 got = run_batch_case(device, phase)
             errs[phase], rows[phase], serve[phase], train[phase], t = got

@@ -1,6 +1,8 @@
 """The port's CLIs by subprocess, as `tests/test_cli_subprocess.py` runs
 the JAX package's: `python -m bsms_gnn_tpu_torch.train` on a
-consistent-mesh and a variable-mesh synthetic dataset writes checkpoints,
+consistent-mesh and a variable-mesh synthetic dataset, and on
+`datasets=deforming_plate` over synthetic tetra blocks (the windowed
+`fused` method, world edges on residual sub-levels), writes checkpoints,
 a rerun with `restore_dir` resumes from the newest and ends where an
 uninterrupted run would, `python -m bsms_gnn_tpu_torch.rollout` restores
 one and prints the summaries (its overall mean equal to an in-process
@@ -22,11 +24,22 @@ import torch
 import torch_threads  # noqa: F401 (the worker's share of the cores)
 
 from bsms_gnn_tpu_torch.config import load_config
-from bsms_gnn_tpu_torch.data.synthetic import generate_synthetic_dataset
+from bsms_gnn_tpu_torch.data.synthetic import (
+    generate_synthetic_dataset,
+    generate_synthetic_tetra_dataset,
+)
 from bsms_gnn_tpu_torch.rollout import run_rollout
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATASETS = ("synthetic_airfoil", "synthetic_cylinder_flow")
+DATASETS = ("synthetic_airfoil", "synthetic_cylinder_flow", "deforming_plate")
+# deforming_plate on synthetic tetra blocks through the windowed `fused`
+# method (kernel 13, v4's residual sub-level branch, kernel 9), whose
+# kernels take a latent width of 128 only.
+EXTRA = {"deforming_plate": ["datasets.name=synthetic_deforming_plate",
+                             "model.latent_dim=128",
+                             "model.aggregation=fused",
+                             "datasets.window=256",
+                             "datasets.edge_block=512"]}
 # tests/test_cli_subprocess.py's overrides but the dataset.
 OVERRIDES = [
     "model.unet_depth=2", "datasets.unet_depth=2",
@@ -61,9 +74,9 @@ def _finish(procs, timeout=300):
 
 
 def overrides(dataset, root, dump, *extra, device="cpu"):
-    return [f"datasets={dataset}", *OVERRIDES, f"datasets.root={root}",
-            f"dump_dir={dump}", *([f"device={device}"] if device else []),
-            *extra]
+    return [f"datasets={dataset}", *OVERRIDES, *EXTRA.get(dataset, ()),
+            f"datasets.root={root}", f"dump_dir={dump}",
+            *([f"device={device}"] if device else []), *extra]
 
 
 def steps(ckpt_dir):
@@ -72,6 +85,7 @@ def steps(ckpt_dir):
 
 
 def one_dir(dump, name):
+    name = "synthetic_" + name if name == "deforming_plate" else name
     dirs = glob.glob(os.path.join(dump, "ckpts", "train", name, "*"))
     assert len(dirs) == 1, dirs
     return dirs[0]
@@ -88,6 +102,8 @@ def runs(tmp_path_factory):
     generate_synthetic_dataset(root, "synthetic_cylinder_flow", n_train=2,
                                n_test=1, n_nodes=160, n_frames=6,
                                consistent_mesh=False, seed=4)
+    generate_synthetic_tetra_dataset(root, n_train=2, n_test=1, n_nodes=200,
+                                     n_frames=6, seed=2)
     dumps = {(kind, name): str(tmp_path_factory.mktemp(f"dump_{kind}"))
              for kind in ("train", "resume") for name in DATASETS}
     first = _finish({name: _start(["bsms_gnn_tpu_torch.train",

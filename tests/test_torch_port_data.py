@@ -322,9 +322,17 @@ def test_caches_are_each_packages_own(root, monkeypatch):
 
 
 def test_auto_window_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_or_build_hierarchy(str(tmp_path), "x", np.zeros((2, 0), int), 1,
-                                4, np.zeros((4, 2)), window="auto")
+    """`window="auto"` is ported (`test_torch_port_auto_window.py` holds
+    it against JAX); what it still refuses, before any build: node
+    buckets (per-mesh widths do not stack), and a bare negative width,
+    which the readers alone map to "auto"."""
+    args = (str(tmp_path), "x", np.zeros((2, 0), int), 1, 4,
+            np.zeros((4, 2)))
+    with pytest.raises(ValueError, match="auto"):
+        load_or_build_hierarchy(*args, window="auto", node_buckets=[128, 128])
+    with pytest.raises(ValueError, match="auto"):
+        load_or_build_hierarchy(*args, window=-1)
+    assert not os.listdir(tmp_path)
 
 
 def test_tfrecord_equals_jax(tmp_path):

@@ -6,9 +6,11 @@ a kernel wrapper given CPU tensors runs its plain version once and counts
 no launch, forward and backward, on the fused path (windowed and
 unwindowed, with and without world edges, and `"fused4"`), the pallas
 path and the sub-window conv, and given tensors on another device raises; layouts and options the port does not
-support raise NotImplementedError (world-edge streams on the explicit
-transitions of bucketed hierarchies and on a residual sub-level among
-them); kernel 8 refuses a skip-empty layout; and chip_smoke.py fails
+support raise NotImplementedError; world-edge streams on bucketed
+hierarchies run (the explicit transitions' narrow route, v4's residual
+sub-level branch); kernel 8 refuses a skip-empty layout; the native graph
+module and the profiling helpers import nothing of JAX and build nothing
+at import; and chip_smoke.py fails
 without a card or without the package beside it, train_spread.py without
 a card."""
 
@@ -68,7 +70,8 @@ NOT_AT_IMPORT = re.compile(r"^(yaml|h5py)(\.|$)")
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                          REPO / "train_spread.py"]
+                                          REPO / "train_spread.py",
+                                          REPO / "build_times.py"]
 
 
 def _imported_modules(path):
@@ -118,6 +121,37 @@ def test_cli_imports_load_no_yaml_h5py_or_jax(module):
     assert module in mods
     bad = [m for m in mods if FORBIDDEN.search(m) or NOT_AT_IMPORT.search(m)]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["bsms_gnn_tpu_torch.graph.native",
+                                    "bsms_gnn_tpu_torch.utils.profiling"])
+def test_native_and_profiling_import_no_jax_and_build_nothing(module):
+    """Importing the native graph module or the profiling helpers (and the
+    graph package that uses the first) loads nothing of JAX or the JAX
+    package and starts no process: the C++ library builds at its first
+    use, not at import. Its build directory is git-ignored."""
+    # numpy, scipy and torch start processes of their own at import.
+    code = ("import subprocess, sys, numpy.testing, scipy.sparse, torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError('a process started at import')\n"
+            "subprocess.run = subprocess.Popen = refuse\n"
+            f"import {module}\n"
+            "import bsms_gnn_tpu_torch.graph.hierarchy\n"
+            "from bsms_gnn_tpu_torch.graph import native\n"
+            "assert native._lib is None and not native._tried\n"
+            "print(' '.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    assert module in mods
+    assert not [m for m in mods if FORBIDDEN.search(m)]
+    ignored = subprocess.run(
+        ["git", "check-ignore", "-q",
+         "bsms_gnn_tpu_torch/graph/native/build/libbsms_graph.so"],
+        cwd=REPO)
+    assert ignored.returncode == 0
 
 
 @pytest.fixture(scope="module")
@@ -455,9 +489,12 @@ def test_kernel8_refuses_a_skip_empty_layout(bucketed):
 def test_world_edges_on_bucketed_hierarchies_raise(bucketed):
     """World-edge streams on a bucketed hierarchy: the explicit conv + pool
     transitions take the narrow stream through the conv's generic form
-    (the `ell` scatter ops, as JAX's ELL path does) on every method, while
+    (the `ell` scatter ops, as JAX's ELL path does) on every method, and
     v4's residual sub-level branch (a windowed level with a residual
-    sub-level and no compact tables) still raises."""
+    sub-level and no compact tables), which raised before it was ported,
+    now runs: the fused GMP computes the generic `ell` route's function on
+    the real rows (`test_torch_port_contact_resid.py` holds it against
+    JAX)."""
     lvl = bucketed.levels[0]
     assert lvl.resid is not None and lvl.cresid is None
     n = lvl.n_pad_nodes
@@ -471,8 +508,12 @@ def test_world_edges_on_bucketed_hierarchies_raise(bucketed):
         out = sim.process(bucketed, torch.randn(n, 128, generator=g) * 0.1,
                           pos=pos, method="pallas")
         assert out.shape == (n, 128) and bool(torch.isfinite(out).all())
-        with pytest.raises(NotImplementedError, match="residual sub-level"):
-            gmp(lvl, torch.zeros(n, 128), pos=pos, method="fused")
+        x = torch.randn(n, 128, generator=g)
+        got = gmp(lvl, x, pos=pos, method="fused")
+        want = gmp(lvl, x, pos=pos, method="ell")
+        real = lvl.n_nodes
+        torch.testing.assert_close(got[:real], want[:real], rtol=1e-5,
+                                   atol=1e-5)
         for method in ("fused", "pallas"):
             torch.testing.assert_close(
                 edge_conv_down(lvl, pos, method=method),
