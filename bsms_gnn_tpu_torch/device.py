@@ -17,3 +17,16 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def same_device(a, b) -> bool:
+    """Whether two devices are one: a CUDA device named without an index
+    is the current card."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a.index == b.index or None in (a.index, b.index)
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (
+        cur if b.index is None else b.index)

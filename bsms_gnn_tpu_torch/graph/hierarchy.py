@@ -239,6 +239,10 @@ class Transition:
     unpool_inv: np.ndarray  # [N_pad_parent] child row, or M_pad (zero slot)
     down_op: Optional[TransOp] = None
     up_op: Optional[TransOp] = None
+    # [M_pad, 1] f32, on a shard's transition into the first replicated
+    # level of a partition plan (`parallel/partition.py`): 1.0 on the child
+    # rows whose parent this shard owns.
+    pool_mask: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -403,13 +407,16 @@ def _pad_level(
     window: int = 0, e_pad_min: int = 0, min_chunks: bool = True,
     resid_e_pad_min: int = 0, force_resid: bool = False,
     compact: bool = True, ell_k_min: int = 0, resid_ell_k_min: int = 0,
+    force_cresid: bool = False,
 ) -> LevelGraph:
     """One level's layout. `e_pad_min` (an edge bucket) appends pad chunks
     to the last block; `min_chunks=False` builds a skip-empty layout;
     `ell_k_min` widens the ELL tables. Windowed levels also get the compact
     residual tables (`compact`) or else the residual sub-level, padded to
     `resid_e_pad_min` slots and ELL width `resid_ell_k_min`, built even
-    with no out-of-window edge when `force_resid`."""
+    with no out-of-window edge when `force_resid`. `force_cresid` builds
+    both, the compact tables even when empty (a shard's ghost layout,
+    `parallel/partition.py`, whose shards must carry the same tables)."""
     n, e = g.num_nodes, g.flat_edges.shape[1]
     if n_pad <= n or n_pad % NODE_BLOCK:
         raise ValueError(f"n_pad {n_pad} must exceed {n} and be "
@@ -479,7 +486,7 @@ def _pad_level(
         send_win, win_base, resid, cresid = _window_tables(
             senders, receivers, edge_mask, reverse_perm, ew, n_pad, window,
             edge_block, n, lvl_pos, resid_e_pad_min, force_resid, compact,
-            resid_ell_k_min,
+            resid_ell_k_min, force_cresid,
         )
     return LevelGraph(
         senders=senders,
@@ -679,13 +686,16 @@ def _window_tables(
     force_resid: bool = False,
     compact: bool = True,
     resid_ell_k_min: int = 0,
+    force_cresid: bool = False,
 ):
     """Per-chunk aligned source windows for the windowed kernels, plus the
     edges left outside (symmetrized) as compact residual tables (with
     `compact`) or else as a skip-empty mini level (`resid`), the one the
     model reads. `force_resid` builds the mini level even when every edge
     is covered (a bucketed group whose bucket has a residual at this
-    level)."""
+    level); `force_cresid` builds the mini level and the compact tables,
+    each even when empty (`_window_tables`, `hierarchy.py:862-885` of the
+    JAX package, with both flags set)."""
     base, covered = _window_vote(
         senders, edge_mask, reverse_perm, n_pad, window, edge_block
     )
@@ -700,7 +710,17 @@ def _window_tables(
     resid = cresid = None
     m = real & ~covered
     r64 = receivers.astype(np.int64)
-    if compact and m.any():
+    if force_cresid:
+        resid = _pad_level(
+            CsrGraph(np.stack([s64[m], r64[m]]), n), n_pad, ew[m], lvl_pos,
+            edge_block=min(edge_block, EDGE_BLOCK), e_pad_min=resid_e_pad_min,
+            min_chunks=False, ell_k_min=resid_ell_k_min,
+        )
+        cresid = _compact_resid(
+            s64[m], r64[m], ew[m], ew[reverse_perm][m], n_pad, lvl_pos,
+            symmetric=True,
+        )
+    elif compact and m.any():
         cresid = _compact_resid(
             s64[m], r64[m], ew[m], ew[reverse_perm][m], n_pad, lvl_pos,
             symmetric=True,

@@ -46,6 +46,15 @@ def normalizer_accumulate(state: NormalizerState, batched_data, mask=None
                           ) -> NormalizerState:
     """One accumulation step over data reshaped to [-1, size]; rows with
     mask 0 contribute neither to the count nor the means."""
+    return normalizer_apply_sums(
+        state, *normalizer_row_sums(state, batched_data, mask))
+
+
+def normalizer_row_sums(state: NormalizerState, batched_data, mask=None):
+    """(rows, Σx [size], Σx² [size]) over data reshaped to [-1, size], the
+    rows with mask 0 left out: the reduction half of an accumulation step,
+    which a sharded caller sums over its ranks before
+    `normalizer_apply_sums` (JAX's `normalizer_row_sums`)."""
     dtype = state.e_x.dtype
     size = state.e_x.shape[0]
     data = batched_data.reshape(-1, size).to(dtype)
@@ -53,9 +62,15 @@ def normalizer_accumulate(state: NormalizerState, batched_data, mask=None
         m = torch.ones(data.shape[0], 1, dtype=dtype, device=data.device)
     else:
         m = mask.reshape(-1, 1).to(dtype).expand(data.shape[0], 1)
-    n_rows = torch.clamp(m.sum(), min=1.0)
-    mean = (data * m).sum(dim=0) / n_rows
-    mean_sq = (data.square() * m).sum(dim=0) / n_rows
+    return m.sum(), (data * m).sum(dim=0), (data.square() * m).sum(dim=0)
+
+
+def normalizer_apply_sums(state: NormalizerState, n_rows, sum_x, sum_x2
+                          ) -> NormalizerState:
+    """One accumulation step from the (maybe group-summed) row sums."""
+    n_rows = torch.clamp(n_rows, min=1.0)
+    mean = sum_x / n_rows
+    mean_sq = sum_x2 / n_rows
 
     delta_w = n_rows / state.unit
     new_w = state.acc_weight + delta_w
@@ -65,7 +80,7 @@ def normalizer_accumulate(state: NormalizerState, batched_data, mask=None
     return dataclasses.replace(
         state,
         acc_weight=torch.where(go, new_w, state.acc_weight),
-        num_accumulations=state.num_accumulations + go.to(dtype),
+        num_accumulations=state.num_accumulations + go.to(state.e_x.dtype),
         e_x=torch.where(go, new_ex, state.e_x),
         e_x2=torch.where(go, new_ex2, state.e_x2),
     )

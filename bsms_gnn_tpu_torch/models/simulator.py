@@ -37,7 +37,8 @@ from bsms_gnn_tpu_torch.models.normalizer import (
     denormalize,
     init_normalizer,
     normalize,
-    normalizer_accumulate,
+    normalizer_apply_sums,
+    normalizer_row_sums,
 )
 from bsms_gnn_tpu_torch.ops.bsgmp import BSGMP
 from bsms_gnn_tpu_torch.ops.dense import MLP, mlp_apply
@@ -109,13 +110,19 @@ class Simulator(nn.Module):
         return self.unions[key][1]
 
     def forward(self, hierarchy, node_in, node_mask, compute_dtype=None,
-                tap=None):
+                tap=None, method: Optional[str] = None):
         """Next-step prediction [..., N_pad, C]. node_in: [..., N_pad,
         C+pos_dim+1] (a batch [B, N_pad, ...] over the one hierarchy or its
         union of B samples, or one frame); node_mask: [..., N_pad, 1] (1 =
         loss-valid node). `hierarchy` is on the model's device
         (`graph.hierarchy.to_device`). On a union the taps are [B,
-        N_pad_l, C], as on a batch."""
+        N_pad_l, C], as on a batch. `method` (None: the config's
+        aggregation) names another, such as a rank's halo method on its
+        shard of a partition plan (`parallel/halo.py`), where N_pad is the
+        shard's local rows."""
+        if method is not None and method.startswith("halo:"):
+            return self._forward(hierarchy, node_in, node_mask,
+                                 compute_dtype, tap, method)
         if node_in.dim() == 3 and needs_union(hierarchy):
             b = node_in.shape[0]
             if hierarchy.samples == 1:
@@ -130,12 +137,13 @@ class Simulator(nn.Module):
             per_sample = None if tap is None else (
                 lambda k, v: tap(k, v.reshape(b, -1, v.shape[-1])))
             out = self._forward(hierarchy, flat(node_in), flat(node_mask),
-                                compute_dtype, per_sample)
+                                compute_dtype, per_sample, method)
             return out.reshape(b, -1, out.shape[-1])
         return self._forward(hierarchy, node_in, node_mask, compute_dtype,
-                             tap)
+                             tap, method)
 
-    def _forward(self, hierarchy, node_in, node_mask, compute_dtype, tap):
+    def _forward(self, hierarchy, node_in, node_mask, compute_dtype, tap,
+                 method=None):
         cfg = self.cfg
         latent_input, _, _ = split_node_input(node_in, cfg.pos_dim)
         io_cd = compute_dtype
@@ -146,7 +154,8 @@ class Simulator(nn.Module):
                       io_cd)
         dyn = node_in[..., :world_dim(cfg)] if cfg.world_edges else None
         x = self.process(hierarchy, x, compute_dtype, tap, dyn,
-                         cfg.aggregation, cfg.remat, cfg.remat_min_nodes)
+                         method or cfg.aggregation, cfg.remat,
+                         cfg.remat_min_nodes)
         if io_cd is None and x.dtype != torch.float32:
             x = x.float()
         norm_pred_delta = mlp_apply(self.decode, x, io_cd)
@@ -156,11 +165,19 @@ class Simulator(nn.Module):
 
 
 @torch.no_grad()
-def simulator_warmup(sim: Simulator, node_in, node_tar, node_mask=None):
+def simulator_warmup(sim: Simulator, node_in, node_tar, node_mask=None,
+                     reduce=None):
     """Accumulate the normalizer statistics of one batch into
     `sim.norm_in` / `sim.norm_out` (the reference's `_warmup`). Rows with
-    mask 0 stay out of the statistics (pass None to count every row)."""
+    mask 0 stay out of the statistics (pass None to count every row).
+    `reduce` (None: these rows are the whole batch) sums a list of tensors
+    in place over a group of ranks that each hold part of the batch, so
+    every rank accumulates the group's row sums."""
     latent_input, _, _ = split_node_input(node_in, sim.cfg.pos_dim)
     delta = node_tar - latent_input[..., :node_tar.shape[-1]]
-    sim.norm_in = normalizer_accumulate(sim.norm_in, latent_input, node_mask)
-    sim.norm_out = normalizer_accumulate(sim.norm_out, delta, node_mask)
+    sums_in = normalizer_row_sums(sim.norm_in, latent_input, node_mask)
+    sums_out = normalizer_row_sums(sim.norm_out, delta, node_mask)
+    if reduce is not None:
+        reduce([*sums_in, *sums_out])
+    sim.norm_in = normalizer_apply_sums(sim.norm_in, *sums_in)
+    sim.norm_out = normalizer_apply_sums(sim.norm_out, *sums_out)

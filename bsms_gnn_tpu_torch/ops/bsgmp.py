@@ -21,6 +21,12 @@ takes one block of rows: a batch on bucketed hierarchies reaches it as
 their union ([B·N_pad0, C], `graph.hierarchy.union`, built by
 `models/simulator.py`).
 
+On a halo method (`"halo:<group>:<local>"`, one rank's shard of a
+partition plan, `parallel/`) every level is the rank's part, and the
+transition into the first replicated level (`trans.pool_mask`) is the
+boundary pair of `ops/pool.py` (`bsgmp.py:149-156,175-177`), which sums
+the child over the group.
+
 `remat` (JAX's `jax.checkpoint` of each GMP, `bsgmp.py:107-121`):
 `torch.utils.checkpoint` around each GMP whose level has at least
 `remat_min_nodes` padded rows per sample (a union's level holds
@@ -38,7 +44,13 @@ from torch.utils.checkpoint import checkpoint
 
 from bsms_gnn_tpu_torch.config import split_interleave
 from bsms_gnn_tpu_torch.ops.message import GMP, edge_conv_down, edge_conv_up
-from bsms_gnn_tpu_torch.ops.pool import pool_nodes, unpool_nodes
+from bsms_gnn_tpu_torch.ops.pool import (
+    pool_nodes,
+    pool_nodes_boundary,
+    unpool_nodes,
+    unpool_nodes_boundary,
+)
+from bsms_gnn_tpu_torch.ops.scatter import halo_parts
 from bsms_gnn_tpu_torch.ops.transition import trans_down, trans_up
 
 
@@ -110,6 +122,16 @@ class BSGMP(nn.Module):
                 h = trans_down(trans, h)
                 if dyn is not None:
                     dyn = trans_down(trans, dyn)
+            elif trans.pool_mask is not None:
+                # The replication boundary of a halo plan: one group sum
+                # assembles the replicated child on every rank.
+                group = halo_parts(method)[0]
+                h = pool_nodes_boundary(
+                    trans, edge_conv_down(level, h, None, method), group)
+                if dyn is not None:
+                    dyn = pool_nodes_boundary(
+                        trans, edge_conv_down(level, dyn, None, method),
+                        group)
             else:
                 h = pool_nodes(trans, edge_conv_down(level, h, None, method))
                 if dyn is not None:
@@ -125,6 +147,9 @@ class BSGMP(nn.Module):
             level, trans = hierarchy.levels[d], hierarchy.transitions[d]
             if use_fused_trans(trans, level, method):
                 h = trans_up(trans, h)
+            elif trans.pool_mask is not None:
+                h = edge_conv_up(level, unpool_nodes_boundary(trans, h), None,
+                                 method)
             else:
                 h = edge_conv_up(level, unpool_nodes(trans, h), None, method)
             h = gmp(self.up_gmps[i], d, h, down_ps[d])

@@ -79,6 +79,21 @@ hierarchies, which a batch reaches as the union of its samples'
 hierarchies ([B·N_pad, C], `graph.hierarchy.union`, built by
 `models/simulator.py`), each call one launch over every sample's rows.
 
+The halo methods (`"halo:<group>:<local>"`, one rank's shard of a
+partition plan, `parallel/`; `message.py:101-250`, `:521-527`,
+`:706-732`): on a windowed ghost layout the `fused` local method runs v3
+or v4 on the rank's extended rows (`parallel/halo.py::ext_assemble`: one
+exchange of [x·W_i | x·W_j], with world edges [x·W_i | x·W_j | world_pos]),
+the compact residual's phase there, then kernel 3 on the owned rows;
+every other halo GMP (a plain halo layout, an unwindowed ghost one, another
+local method) takes the generic route on the halo primitives
+(`ops/scatter.py`), its node phase kernel 3 on the kernel local methods.
+The convs on a ghost layout are `_GhostConv`'s pair: one exchange onto the
+extended rows, the layout's own conv (kernel 1's level form and kernel 2,
+kernel 8 unwindowed; narrow rows and the kernel-free local methods the
+gather and `index_add`), the owned rows kept; on a plain halo layout the
+generic form on the halo primitives. `cal_ew` refuses a ghost layout.
+
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv
 (`message.py:699-740`). On the `fused` and `pallas` methods, rows that
 pass JAX's `_conv_fast_ok` (a width that is a multiple of 128, one frame
@@ -107,6 +122,7 @@ from bsms_gnn_tpu_torch.ops.dense import MLP, dense, mlp_apply_tail
 from bsms_gnn_tpu_torch.ops.kernels.agg_node import fused_aggregate_node_phase
 from bsms_gnn_tpu_torch.ops.kernels.compact_resid import (
     compact_accum,
+    compact_accum_raw,
     compact_gather,
 )
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import fused_edge_phase_win
@@ -127,10 +143,12 @@ from bsms_gnn_tpu_torch.ops.kernels.segment_sum_accum import (
 )
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_conv
 from bsms_gnn_tpu_torch.ops.scatter import (
+    KERNEL_LOCAL,
     aggregate_recv,
     aggregate_send,
     gather_recv,
     gather_send,
+    halo_parts,
 )
 
 METHODS = ("fused", "pallas", "ell", "segment")
@@ -165,13 +183,16 @@ class GMP(nn.Module):
         """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] (see
         above); pos: [..., N_pad, Σ dyn_dims] world positions (x's leading
         dims) when the GMP has world edges."""
+        halo = halo_parts(method)
         method, k = split_interleave(method)
-        if method not in METHODS:
+        if halo is None and method not in METHODS:
             raise NotImplementedError(f"aggregation method {method!r}")
         if self.dyn_dims and (pos is None
                               or pos.shape[-1] != sum(self.dyn_dims)):
             raise ValueError(f"world edges need pos of width "
                              f"{sum(self.dyn_dims)}")
+        if halo is not None:
+            return self._halo(level, x, pos, compute_dtype, method, *halo)
         if method in PLAIN_METHODS:
             return self._generic(level, x, pos, compute_dtype, method)
         if method == "pallas":
@@ -210,12 +231,38 @@ class GMP(nn.Module):
         aggr = fused_edge_phase(level, zi, xj, *self._tail())
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
-    def _windowed(self, level, x, pos, compute_dtype, k=1):
+    def _halo(self, level, x, pos, compute_dtype, method, group, local):
+        """A halo method on this rank's part of `level` (`gmp_apply`'s halo
+        branches, `message.py:101-250`): on a windowed ghost layout with
+        the `fused` local method and no world stream or one of width at
+        most MAX_WD, the windowed route on the extended tables (one
+        exchange of the node-side rows); otherwise the generic path on
+        the halo primitives (`ops/scatter.py`), the node phase kernel 3 on
+        the kernel local methods, plain on the others."""
+        dyn = self.dyn_dims
+        if (local == "fused" and level.local is not None
+                and level.local.window > 0
+                and (not dyn or (len(dyn) == 1 and dyn[0] <= MAX_WD))):
+            return self._windowed(level.local, x, pos, compute_dtype,
+                                  halo=(level, group))
+        pre = self._edge_pre(level, x, pos, compute_dtype, method)
+        edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
+        aggr = aggregate_recv(level, edge, method)
+        if local in KERNEL_LOCAL:
+            return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
+        return node_phase(self.mlp_node, x, aggr, compute_dtype)
+
+    def _windowed(self, level, x, pos, compute_dtype, k=1, halo=None):
         """`gmp_apply`'s windowed branches: v3 (`message.py:251-315`), with
         K > 1 v5 or v3 (kernel 14 or 4) by the density gate and v2 on a
         skip-empty gated level, and, with one world-space stream of width
         wd, v4 (`message.py:317-389`), whose first edge layer's rows are
-        [Δworld (wd), ‖Δworld‖, static (sfw), x_i (C), x_j (C)]."""
+        [Δworld (wd), ‖Δworld‖, static (sfw), x_i (C), x_j (C)].
+
+        `halo` = (the rank's HaloLevel, group): `level` is its ghost
+        layout; xwi and xj (with world edges also the positions) cross the
+        group in one exchange onto the extended rows, the edge phase runs
+        there and the node phase on the owned rows (`message.py:101-250`)."""
         c = x.shape[-1]
         wd = self.dyn_dims[0] if self.dyn_dims else 0
         sfw = level.fiber.shape[-1]
@@ -234,6 +281,15 @@ class GMP(nn.Module):
         if wd:
             # The positions carry no gradient (JAX's stop_gradient).
             wpos, wf_dyn = pos.detach().to(xwi.dtype), wf[:wd + 1]
+        if halo is not None:
+            from bsms_gnn_tpu_torch.parallel.halo import ext_assemble
+
+            parts = [xwi, xj] + ([wpos] if wd else [])
+            ext = ext_assemble(halo[0], torch.cat(parts, dim=-1), halo[1])
+            xwi, xj = ext[..., :c].contiguous(), ext[..., c:2 * c].contiguous()
+            if wd:
+                wpos = ext[..., 2 * c:].contiguous()
+        if wd:
             aggr = fused_edge_phase_win_dyn(level, xwi, xj, wpos, wf8,
                                             wf[:wd], wf[wd], *tail)
         elif k > 1:
@@ -248,6 +304,8 @@ class GMP(nn.Module):
         elif level.resid is not None:
             aggr = _resid_edge_phase(level.resid, self, xwi, xj, wf_sta, aggr,
                                      compute_dtype, x.dtype, wpos, wf_dyn)
+        if halo is not None:
+            aggr = aggr[..., :halo[0].n_pad_nodes, :]
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
     def _generic(self, level, x, pos, compute_dtype, method):
@@ -367,6 +425,10 @@ def cal_ew(level, w, method: str = "ell"):
     kernel methods take the `ell` form, as JAX's pallas aggregate does on
     them."""
     form = _form(method)
+    if halo_parts(method) is not None and level.local is not None:
+        raise NotImplementedError(
+            "cal_ew on a ghost halo layout: its transition weights are "
+            "built offline (level.local.ew)")
     w = w.detach()
     normed_w = w[..., 0] / level.deg
     w_send = gather_send(level, normed_w[..., None], form)[..., 0]
@@ -377,8 +439,10 @@ def cal_ew(level, w, method: str = "ell"):
 
 def _form(method: str) -> str:
     """The scatter form of the explicit conv's generic route: the method's
-    own on `ell` / `segment`, `ell` on the kernel methods; an unknown
-    method raises."""
+    own on `ell` / `segment` and the halo methods, `ell` on the kernel
+    methods; an unknown method raises."""
+    if halo_parts(method) is not None:
+        return method
     method, _ = split_interleave(method)
     if method not in METHODS:
         raise NotImplementedError(f"aggregation method {method!r}")
@@ -407,16 +471,24 @@ def _level_conv(level, x, up: bool):
     """`_lvl_down_raw` / `_lvl_up_raw` (`message.py:556-619`): the receiver
     sums of ew · x[sender] with the level's `ew` (down) or `ew_rev` (up, the
     sender sums through the reverse edges). A windowed level runs kernel
-    1's level form over its in-window slots, then its residual sub-level's
-    messages (`r.ew` / `r.ew_rev`) accumulate through kernel 9."""
+    1's level form over its in-window slots, then its out-of-window
+    messages accumulate: through kernel 2 on its compact residual where it
+    has one (a shard's ghost layout), else through kernel 9 on its
+    residual sub-level (`r.ew` / `r.ew_rev`)."""
     if x.dim() != 2:
         raise NotImplementedError("batch axis")
     ew = level.ew_rev if up else level.ew
     if level.window <= 0:
         return _gathered_conv(level, x, ew)
     out = windowed_conv(level, x, ew)
-    r = level.resid
-    if r is not None:
+    cr, r = level.cresid, level.resid
+    if cr is not None:
+        # The compact residual where the level has one (a shard's ghost
+        # layout; `_windowed_conv`, `message.py:594-604`).
+        ew_r = (cr.ew_rev if up else cr.ew).to(x.dtype)
+        msg = x.index_select(0, cr.senders) * ew_r[:, None]
+        out = compact_accum_raw(cr, msg, out)
+    elif r is not None:
         ew_r = (r.ew_rev if up else r.ew).to(x.dtype)
         msg = x.index_select(0, r.senders) * ew_r[:, None]
         out = segment_sum_accum_raw(r, msg, out)
@@ -456,10 +528,62 @@ class _Conv(torch.autograd.Function):
         return None, None, out.to(ctx.dtype), None
 
 
+def _ghost_conv(level, x, group, kernels: bool, up: bool):
+    """`_conv_ghost_raw` (`halo.py:244-291`): the rank's rows assembled on
+    the ghost layout's extended rows (one exchange), the layout's own
+    conv, the owned rows kept. With `kernels` (a kernel local method and
+    rows of a multiple of 128) `_level_conv` (kernel 1's level form and
+    kernel 2, or kernel 8 unwindowed), else the gather and `index_add`."""
+    from bsms_gnn_tpu_torch.parallel.halo import ext_assemble
+
+    lg = level.local
+    ext = ext_assemble(level, x, group)
+    if kernels and x.shape[-1] % 128 == 0:
+        out = _level_conv(lg, ext, up)
+    else:
+        ew = (lg.ew_rev if up else lg.ew).to(x.dtype)
+        out = aggregate_recv(
+            lg, ext.index_select(-2, lg.senders) * ew[..., None], "segment")
+    return out[..., :level.n_pad_nodes, :].to(x.dtype)
+
+
+class _GhostConv(torch.autograd.Function):
+    """The ghost down / up conv pair (`conv_down_ghost` / `conv_up_ghost`,
+    `halo.py:294-330`): the global up conv is the down conv's adjoint, so
+    each direction's backward is the other direction on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, level, group, kernels, up, x):
+        ctx.level, ctx.group, ctx.kernels, ctx.up, ctx.dtype = (
+            level, group, kernels, up, x.dtype)
+        return _ghost_conv(level, x, group, kernels, up)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _ghost_conv(ctx.level, g, ctx.group, ctx.kernels, not ctx.up)
+        return None, None, None, None, out.to(ctx.dtype)
+
+
+def _halo_conv(level, x, ew, method, up: bool):
+    """The conv on a halo method: the ghost pair on a ghost layout (whose
+    weights are built offline), else None (the generic route)."""
+    halo = halo_parts(method)
+    if halo is None or level.local is None:
+        return None
+    if ew is not None:
+        raise ValueError("a ghost halo layout's transition weights are "
+                         "built offline: ew must be None")
+    group, local = halo
+    return _GhostConv.apply(level, group, local in KERNEL_LOCAL, up, x)
+
+
 def edge_conv_down(level, x, ew=None, method: str = "fused"):
     """The aggregating conv: Σ_{e: recv(e)=n} ew_e · x[send_e], [..., N_pad,
     C] → [..., N_pad, C] in x's dtype, with the level's own weights
     (`ew=None`) or a runtime slot-aligned `ew` [E_pad]."""
+    out = _halo_conv(level, x, ew, method, up=False)
+    if out is not None:
+        return out
     if _conv_fast_ok(level, x, method):
         if ew is None:
             return _LevelConv.apply(level, False, x)
@@ -473,6 +597,9 @@ def edge_conv_down(level, x, ew=None, method: str = "fused"):
 def edge_conv_up(level, x, ew=None, method: str = "fused"):
     """The returning conv (the reference's aggragating=False): Σ_{e:
     send(e)=n} ew_e · x[recv_e]."""
+    out = _halo_conv(level, x, ew, method, up=True)
+    if out is not None:
+        return out
     if _conv_fast_ok(level, x, method):
         if ew is None:
             return _LevelConv.apply(level, True, x)

@@ -27,7 +27,10 @@ A step takes one frame ([N_pad, ...]) or a batch ([B, N_pad, ...]) of
 frames over one shared hierarchy or of samples on the union of theirs
 (`data.pipeline.stack_hierarchies`): the noise is drawn in node_tar's
 shape, the warmup gate accumulates every sample's real rows, and the loss
-is taken over the batch, as JAX's `Trainer.iter` does. `remat`
+is taken over the batch, as JAX's `Trainer.iter` does. Ranks that each
+hold part of a batch (`parallel/`: a shard of a partition plan, or a
+slice of a data-parallel batch) take the same step by passing their
+group's sum as `iter`'s `reduce`. `remat`
 (`ModelConfig`) checkpoints the GMPs (`ops/bsgmp.py`).
 
 `state_dict()` / `load_state_dict()` carry everything a resumed run needs
@@ -54,6 +57,16 @@ from bsms_gnn_tpu_torch.training.schedule import warmup_cosine_schedule
 def masked_rmse(pred, tar, mask):
     se = (pred - tar).square()
     return torch.sqrt((se * mask).sum() / mask.sum() / se.shape[-1])
+
+
+def _rmse_of_sums(num, node_mask, c, reduce=None):
+    """(√(Σ num / Σ mask / C), Σ mask) with both sums taken over the group
+    `reduce` sums over (None: this process's rows alone), in
+    `masked_rmse`'s order of operations."""
+    sums = torch.stack([num, node_mask.sum().to(num.dtype)])
+    if reduce is not None:
+        reduce([sums])
+    return torch.sqrt(sums[0] / sums[1] / c), sums[1]
 
 
 def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
@@ -130,16 +143,21 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
 
-    def loss(self, hierarchy, node_in, node_tar, node_mask):
-        """The differentiable masked RMSE of the prediction."""
-        pred = self.sim(hierarchy, node_in, node_mask, self.compute_dtype)
-        return masked_rmse(pred, node_tar, node_mask)
-
-    def iter(self, hierarchy, node_in, node_tar, node_mask, noise=None):
+    def iter(self, hierarchy, node_in, node_tar, node_mask, noise=None,
+             method=None, reduce=None):
         """One training iteration on a frame or a batch of frames; returns
-        the scalar loss (detached)."""
+        the scalar loss (detached).
+
+        `method` (None: the config's aggregation) names another, such as a
+        rank's halo method on its shard of a partition plan. `reduce`
+        (None: this process holds the whole batch) sums a list of tensors
+        in place over a group of ranks that each hold part of the batch
+        (`parallel/halo.py::group_reduce`): the warmup gate's row sums, the
+        loss's two sums and the gradients go through it, so every rank
+        takes the step of the whole batch."""
         node_in, node_tar = self.inject_noise(node_in, node_tar, node_mask,
                                               noise)
+        c = node_tar.shape[-1]
         if self._step < self.cfg.model.accumulation_steps:
             # Level 0's real rows: [N_pad, 1], or on a union [B·N_pad, 1],
             # read as the batch's [B, N_pad, 1].
@@ -147,17 +165,26 @@ class Trainer:
             if hierarchy.samples > 1 and node_mask.dim() == 3:
                 pad_mask = pad_mask.reshape(hierarchy.samples, -1, 1)
             simulator_warmup(self.sim, node_in, node_tar,
-                             pad_mask.expand_as(node_mask))
-            loss = masked_rmse(torch.zeros_like(node_tar), node_tar,
-                               node_mask)
+                             pad_mask.expand_as(node_mask), reduce)
+            num = (node_tar.square() * node_mask).sum()
+            loss, _ = _rmse_of_sums(num, node_mask, c, reduce)
         else:
             self.optimizer.zero_grad(set_to_none=True)
-            loss = self.loss(hierarchy, node_in, node_tar, node_mask)
-            loss.backward()
+            pred = self.sim(hierarchy, node_in, node_mask, self.compute_dtype,
+                            method=method)
+            num = ((pred - node_tar).square() * node_mask).sum()
+            loss, den = _rmse_of_sums(num.detach(), node_mask, c, reduce)
+            # No autograd through the group's sums: the backward starts at
+            # this rank's num with ∂L/∂num as `masked_rmse`'s backward
+            # computes it (sqrt's 1 / (2L), then ÷ C, then ÷ Σ mask), so
+            # one process alone takes the same gradients bit for bit.
+            (num * (torch.ones_like(loss) / (2 * loss) / c / den)).backward()
             params = list(self.sim.parameters())
             for p in params:  # optax reads an unused parameter's as zero
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if reduce is not None:
+                reduce([p.grad for p in params])
             if self._accumulate(params):
                 clip_by_global_norm([p.grad for p in params],
                                     self.opt_cfg.gnorm_clip)

@@ -220,7 +220,30 @@ Phases (any failure exits non-zero without the result line):
    shapes, and 7 at every such level, against their plain versions; the
    forward and rollout with EXPECTED_AUTO_LAUNCHES, the train step at B = 1
    with EXPECTED_AUTO_TRAIN_LAUNCHES and at BATCH_TRAIN, and a `Trainer`
-   at BATCH_TRAIN with its ms and busy ms beside airfoil_batch's.
+   at BATCH_TRAIN with its ms and busy ms beside airfoil_batch's;
+27. the halo path (airfoil_halo): the 5k airfoil of phase 2 partitioned
+   into HALO_RANKS = 2 shards (`parallel.partition.build_partition`, the
+   ghost layout at window 256 and edge_block 512, levels 0-2 partitioned,
+   3-7 replicated by HALO_REPLICATE_FLOOR), its layout printed; two ranks
+   spawned on this card over gloo (`halo_rank`; the parent built every
+   kernel first, and a rank that would compile one fails): the f32
+   forward and a HALO_ROLLOUT-step rollout, unpartitioned, against the
+   one-device model at HALO_TOL; the gate and HALO_UPDATES updates of a
+   `HaloTrainer`, each rank fed its part of a shared noise draw, against
+   a one-device `Trainer` (the losses at TRAIN_TOL, each update's
+   gradients at TRAIN_TOL against a one-device `Trainer` loaded with rank
+   0's state before that update, the parameters' updates in
+   `_param_close`'s measure), both ranks ending bit for bit
+   equal; each rank's launch counts of one forward and one train step
+   (the same on both; kernels 1's level form and 2-7 launched), its
+   collectives and their time, its step wall time (two ranks sharing one
+   card over gloo, not a multi-card figure); kernels 1 (level form), 2,
+   3, 4 and 5-7 on shard 0's extended tables (levels 0 and 3) against
+   their plain versions; then the data-parallel step on the same ranks
+   (HALO_RANKS × DP_BATCH frames against the one-process step on all:
+   the loss, the gradients at TRAIN_TOL, equal replicas) and one NCCL
+   rank in a group of one, its data-parallel step bit for bit the
+   one-process step.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -994,6 +1017,7 @@ def plain_path():
                (transition, "compact_accum_raw", "compact_accum"),
                (transition, "windowed_rect_conv", "windowed_rect_conv"),
                (message, "windowed_conv", "windowed_conv"),
+               (message, "compact_accum_raw", "compact_accum"),
                (message, "segment_sum_raw", "segment_sum"),
                (message, "segment_sum_accum_raw", "segment_sum_accum"),
                (scatter, "segment_sum_accum_raw", "segment_sum_accum"),
@@ -2765,15 +2789,19 @@ def longest_send_level(hd):
                key=longest)
 
 
-def check_bwd_kernels(case, device):
+def check_bwd_kernels(case, device, inputs=None):
     """Every backward kernel against its plain version on the same inputs,
     each output on its own, and in bf16 a control (the f32 kernel on the
     upcast inputs) that must miss the tolerance in every output the plain
-    version does not leave all zero. Returns {(name, dtype): largest
-    max_abs_err over the outputs} at the first shape listed."""
+    version does not leave all zero. `inputs(dtype)` gives the kernels'
+    arguments (default: `bwd_kernel_inputs` of the case). Returns
+    {(name, dtype): largest max_abs_err over the outputs} at the first
+    shape listed."""
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shapes in bwd_kernel_inputs(case, dtype, device).items():
+        by_name = (bwd_kernel_inputs(case, dtype, device) if inputs is None
+                   else inputs(dtype))
+        for name, shapes in by_name.items():
             if name in case.get("skip", ()):
                 continue
             fn, plain = kernel_modules()[name]
@@ -4959,6 +4987,593 @@ def run_auto_case(device, e2e):
     return errs, {}, serve, train, out
 
 
+# -- airfoil_halo: the edge-partitioned halo path and data parallelism ------
+
+# The halo path's plan of the 5k airfoil: two shards, the ghost layout at
+# the main path's window and edge_block, levels of at most
+# HALO_REPLICATE_FLOOR nodes (3-7: 616 nodes and fewer) replicated, 0-2
+# (5,233 / 2,604 / 1,279 nodes) partitioned.
+HALO_RANKS, HALO_REPLICATE_FLOOR = 2, 700
+HALO_ROLLOUT, HALO_UPDATES = 5, 3
+# The train steps and forwards each rank times after the checked ones.
+HALO_TIMED = 5
+# Against the port's one-device model: the CPU tests' tolerance
+# (tests/test_torch_port_halo.py, test_halo.py's), relative to each
+# value's scale and absolute.
+HALO_TOL = dict(rtol=2e-3, atol=2e-4)
+# The data-parallel step: DP_RANKS ranks of DP_BATCH frames each against
+# the one-process step on all of them.
+DP_BATCH = 4
+HALO_TIMEOUT_S = 300
+HALO_KERNELS = ("windowed_conv", "compact_accum", "fused_node_phase",
+                "fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                "fused_node_phase_bwd", "windowed_send_sum")
+
+
+def build_halo_case(device):
+    """The 5k airfoil of phase 2 (its one-device hierarchy, model, frame
+    and normalizers) and its HALO_RANKS-shard partition plan."""
+    from bsms_gnn_tpu_torch.data.synthetic import make_graded_airfoil_mesh
+    from bsms_gnn_tpu_torch.graph.bistride import build_bistride_levels
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.parallel.partition import build_partition
+
+    case = build_case(device)
+    # build_case's mesh, drawn again from its seed.
+    pos, cells, node_type = make_graded_airfoil_mesh(
+        N_NODES, np.random.default_rng(0))
+    pos, cells, _, _ = reorder_mesh(pos, cells, (node_type,))
+    pos = pos.astype(np.float64)
+    t0 = time.perf_counter()
+    levels = build_bistride_levels(to_flat_edge(cells, "tri"), DEPTH,
+                                   pos.shape[0], pos)
+    plan = build_partition(levels, HALO_RANKS, case["h"].levels[0].n_pad_nodes,
+                           pos, local_layouts=True, window=WINDOW,
+                           edge_block=EDGE_BLOCK,
+                           replicate_floor=HALO_REPLICATE_FLOOR)
+    plan_s = time.perf_counter() - t0
+    require([g.num_nodes for g in levels.graphs]
+            == [g.n_nodes for g in case["h"].levels],
+            "the plan's levels are not the one-device hierarchy's")
+    print(f"[airfoil halo] {HALO_RANKS}-shard plan built in {plan_s:.2f} s "
+          f"(host): level, nodes, replicated, local rows, extended rows, "
+          f"halo width, window, slots per shard, compact rows")
+    for l, lvl in enumerate(plan.hierarchy.levels):
+        lg = lvl.local
+        cr = "-" if lg.cresid is None else lg.cresid.n_real
+        print(f"  {l:2d} {lvl.n_nodes:6d} {str(lvl.replicated):5s} "
+              f"{lvl.n_pad_nodes:6d} {lg.n_pad_nodes:6d} {lvl.halo_width:5d} "
+              f"{lg.window:4d} {lg.n_pad_edges:7d} {cr}")
+    require([lvl.replicated for lvl in plan.hierarchy.levels]
+            == [l >= 3 for l in range(DEPTH + 1)],
+            "the plan does not partition levels 0-2 and replicate 3-7")
+    case.update(plan=plan, plan_s=plan_s)
+    return case
+
+
+def _digest(sd) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def halo_rank(rank, port, payload, queue):
+    """One rank of the halo phase (a process of its own, on cuda:0 over
+    gloo): the sharded forward, rollout and train steps, then the
+    data-parallel step. Puts (rank, results) on `queue`, every array a
+    numpy copy (a tensor would travel as a handle the exiting rank
+    closes); a failure puts its traceback and exits non-zero."""
+    import traceback
+
+    try:
+        queue.put((rank, _halo_rank(rank, port, payload)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _host_tree(x):
+    """A nest of dicts with tensors as one of numpy copies (what a rank
+    puts on the queue)."""
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return x
+
+
+def _torch_tree(x):
+    """`_host_tree`'s inverse, on the CPU."""
+    if isinstance(x, dict):
+        return {k: _torch_tree(v) for k, v in x.items()}
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    return x
+
+
+def _halo_rank(rank, port, p):
+    import datetime
+
+    from bsms_gnn_tpu_torch.graph.hierarchy import to_device
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+    from bsms_gnn_tpu_torch.ops.kernels import build
+    from bsms_gnn_tpu_torch.parallel import halo
+    from bsms_gnn_tpu_torch.parallel.data_parallel import data_parallel_step
+    from bsms_gnn_tpu_torch.parallel.mesh import make_groups
+    from bsms_gnn_tpu_torch.parallel.multihost import (
+        init_distributed,
+        shutdown,
+    )
+    from bsms_gnn_tpu_torch.parallel.partition import partition_nodes
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stale = [n for n in build.SOURCES if build._stale(n)]
+    require(not stale, f"rank {rank}: kernels {stale} would be compiled "
+                       f"here (the parent builds them)")
+    t0 = time.perf_counter()
+    device = init_distributed(
+        "gloo", rank, HALO_RANKS, init_method=f"tcp://localhost:{port}",
+        device="cuda:0", timeout=datetime.timedelta(seconds=120))
+    make_groups(1, HALO_RANKS)
+    plan, names = p["plan"], list(kernel_modules())
+    out = {"start_s": time.perf_counter() - t0}
+
+    def part(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            partition_nodes(plan, a)[rank])).to(device)
+
+    sim = Simulator(p["cfg"], device=device)
+    sim.load_state_dict(p["params"])
+    sim.norm_in, sim.norm_out = (
+        dataclasses.replace(st, **{f: getattr(st, f).to(device) for f in (
+            "acc_weight", "num_accumulations", "e_x", "e_x2")})
+        for st in p["norms"])
+    ni, nm, nt = part(p["node_in"]), part(p["mask"]), part(p["tar"])
+    t0 = time.perf_counter()
+    hier = halo.rank_hierarchy(plan, "graph", device)
+    out["hierarchy_s"] = time.perf_counter() - t0
+    out["n_loc"] = hier.levels[0].n_pad_nodes
+
+    # Serving: one forward counted, then the rollout.
+    reset_counts()
+    pred = halo.halo_forward(sim, hier, ni, nm, device=device)
+    torch.cuda.synchronize()
+    out["forward_counts"] = read_counts(names)
+    out["pred"] = pred.cpu().numpy()
+    out["rollout"] = halo.halo_rollout(sim, hier, ni, nm, HALO_ROLLOUT,
+                                       device=device).cpu().numpy()
+
+    # Training: the gate, then HALO_UPDATES updates, each rank its part of
+    # the shared draw; the first update's launches and collectives
+    # counted; rank 0 keeps its state before each update and the
+    # gradients the update applied.
+    tr = halo.HaloTrainer(p["train_cfg"], plan, opt=p["opt"],
+                          generator=torch.Generator().manual_seed(1),
+                          device=device)
+    before = {k: v.detach().clone() for k, v in tr.sim.state_dict().items()}
+    losses, grads, states = [], [], []
+    for i, z in enumerate(p["noise"]):
+        first = i == TRAIN_GATE
+        if i >= TRAIN_GATE and rank == 0:
+            st = tr.state_dict()
+            del st["noise_generator"]
+            states.append(_host_tree(st))
+        if first:
+            reset_counts()
+            halo.reset_stats()
+        losses.append(float(tr.iter(ni, nt, nm, part(z))))
+        if first:
+            torch.cuda.synchronize()
+            out["train_counts"] = read_counts(names)
+            out["train_collectives"] = dict(halo.STATS)
+        if i >= TRAIN_GATE and rank == 0:
+            grads.append({k: q.grad.detach().cpu().numpy()
+                          for k, q in tr.sim.named_parameters()})
+    after = tr.sim.state_dict()
+    out.update(losses=losses, digest=_digest(after))
+    if rank == 0:
+        out.update(grads=grads, states=states, updates={
+            k: (after[k] - before[k]).cpu().numpy() for k in after})
+    # Times, after the checked steps (the first update's wall includes
+    # the rank's warm-up): HALO_TIMED train steps and forwards, then one
+    # step with a synchronize around each collective.
+    walls, fwd = [], []
+    for _ in range(HALO_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.iter(ni, nt, nm, part(p["noise"][-1]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        halo.halo_forward(sim, hier, ni, nm, device=device)
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+    halo.reset_stats(timed=True)
+    tr.iter(ni, nt, nm, part(p["noise"][-1]))
+    out.update(step_s=walls, forward_s=fwd, timed_stats=dict(halo.STATS))
+    halo.reset_stats()
+
+    # The data-parallel step on the same ranks: each its DP_BATCH frames.
+    make_groups(HALO_RANKS, 1)
+    dp = Trainer(p["dp_cfg"], p["opt"], generator=torch.Generator().manual_seed(2),
+                 device=device)
+    dp.sim.load_state_dict(p["params"])
+    dp.sim.norm_in, dp.sim.norm_out = sim.norm_in, sim.norm_out
+    hd = to_device(p["h"], device)
+    sl = slice(rank * DP_BATCH, (rank + 1) * DP_BATCH)
+    fi, ft, fm, fz = (torch.from_numpy(a[sl]).to(device) for a in p["dp"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["dp_loss"] = float(data_parallel_step(dp, hd, fi, ft, fm, fz,
+                                              device=device))
+    torch.cuda.synchronize()
+    out["dp_step_s"] = time.perf_counter() - t0
+    out["dp_digest"] = _digest(dp.sim.state_dict())
+    if rank == 0:
+        out["dp_grads"] = {k: q.grad.detach().cpu().numpy()
+                           for k, q in dp.sim.named_parameters()}
+    shutdown()
+    return out
+
+
+HALO_BWD = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
+            "windowed_send_sum")
+
+
+def halo_kernel_args(hier, sim, dtype, device):
+    """Each kernel of the halo path's arguments on one rank's extended
+    tables: its ghost layouts of level 0 (partitioned) and level 3 (the
+    first replicated), from a seed; kernels 3 and 6 on the owned rows.
+    {name: [(where, args)]}, the forward kernels' and the backward
+    kernels' (HALO_BWD)."""
+    g = torch.Generator(device="cpu").manual_seed(2500)
+    c = 128
+    cd = dtype if dtype == torch.bfloat16 else None
+
+    def rand(*shape, dt=torch.float32, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(dt).to(device)
+
+    args = {k: [] for k in HALO_KERNELS}
+    for l in (0, 3):
+        lvl = hier.levels[l]
+        lg, n_loc = lvl.local, lvl.n_pad_nodes
+        n, e = lg.n_pad_nodes, lg.n_pad_edges
+        gmp = sim.process.down_gmps[l]
+        wf8 = first_layer(gmp)[0]
+        tail = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
+        w = f"L{l} ext"
+        xwi, xj = rand(n, c, dt=dtype), rand(n, c, dt=dtype)
+        args["fused_edge_phase_win"].append((w, (lg, xwi, xj, wf8, *tail)))
+        args["fused_edge_phase_win_bwd"].append(
+            (w, (lg, xwi, xj, wf8, *tail, rand(n, c))))
+        args["fused_node_phase"].append((f"L{l} own", (
+            rand(n_loc, c, dt=dtype), rand(n_loc, c, s=3.0), gmp.mlp_node,
+            cd)))
+        args["fused_node_phase_bwd"].append((f"L{l} own", (
+            rand(n_loc, c, dt=dtype), rand(n_loc, c, s=3.0), gmp.mlp_node,
+            rand(n_loc, c), cd)))
+        args["windowed_conv"] += [
+            (f"{w} down", (lg, rand(n, c, dt=dtype), lg.ew)),
+            (f"{w} up", (lg, rand(n, c, dt=dtype), lg.ew_rev))]
+        if lg.cresid is not None:
+            args["compact_accum"].append((w, (
+                lg.cresid, rand(lg.cresid.n_rows, c, dt=dtype), rand(n, c))))
+        args["windowed_send_sum"].append((w, (lg, rand(e, c, dt=dtype))))
+    return args
+
+
+def check_halo_kernels(case, device, launched):
+    """Every kernel the halo path launched against its plain version on
+    shard 0's extended tables, f32 and bf16 (with bf16 controls). Returns
+    {(name, dtype): max_abs_err} at its first shape."""
+    from bsms_gnn_tpu_torch.graph.hierarchy import to_device
+    from bsms_gnn_tpu_torch.parallel.partition import shard_hierarchy
+
+    hier = to_device(shard_hierarchy(case["plan"], 0), device)
+    require(all(launched.get(k) for k in HALO_KERNELS),
+            f"the halo path did not launch every kernel of {HALO_KERNELS}")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes in halo_kernel_args(hier, case["sim"], dtype,
+                                             device).items():
+            if name in HALO_BWD:
+                continue
+            for i, (where, args) in enumerate(shapes):
+                sparse = name in TILE_WALKS and i > 0
+                err = check_kernel(name, where, args, dtype, sparse)
+                errs.setdefault((name, dtype), err)
+
+    def bwd(dtype):
+        args = halo_kernel_args(hier, case["sim"], dtype, device)
+        return {k: v for k, v in args.items() if k in HALO_BWD}
+
+    errs.update(check_bwd_kernels(case, device, bwd))
+    return errs
+
+
+def _halo_close(got, want, what, tol=HALO_TOL):
+    """got against want (numpy, the real rows), in HALO_TOL's measures."""
+    err = np.abs(got - want)
+    bound = tol["atol"] + tol["rtol"] * np.abs(want)
+    worst = float((err / bound).max())
+    print(f"[airfoil halo] {what}: max abs err {err.max():.3e}, worst "
+          f"err / (atol + rtol·|want|) {worst:.3f} (rtol {tol['rtol']:.0e}, "
+          f"atol {tol['atol']:.0e})  {'ok' if worst <= 1 else 'FAIL'}")
+    require(worst <= 1, f"airfoil halo {what} disagrees with one device")
+
+
+def _param_close(upd, want, rates):
+    """The parameters' updates (after − before, numpy) against the
+    one-device run's (`tests/test_torch_port_train.py`'s measure: Adam
+    moves a weight by about the rate whatever its gradient's scale, so a
+    near-zero gradient whose sign the order of f32 sums decides moves it
+    by up to twice the rate either way): each tensor's RMS error within
+    1e-2 of its update's RMS, at most one weight in a thousand off by more
+    than a quarter of the summed rates, none by more than twice them."""
+    worst, flips, far = (0.0, ""), [], []
+    for k, w in want.items():
+        w = w.detach().cpu().numpy().astype(np.float64)
+        d = np.abs(upd[k] - w)
+        rms = np.sqrt(np.mean(w ** 2))
+        if rms == 0:
+            require(d.max() == 0, f"{k}: moved, the reference did not")
+            continue
+        worst = max(worst, (float(np.sqrt(np.mean(d ** 2)) / rms), k))
+        flips.append(float((d > 0.25 * rates).mean()))
+        far.append(float(d.max()) / rates)
+    ok = worst[0] <= 1e-2 and max(flips) <= 1e-3 and max(far) <= 2
+    print(f"[airfoil halo] parameters after {HALO_UPDATES} updates "
+          f"(after − before): worst rms err {worst[0]:.2e} of the update's "
+          f"rms ({worst[1]}, tol 1e-2), largest share of weights off by "
+          f"> rates/4 {max(flips):.2e} (tol 1e-3), largest err "
+          f"{max(far):.2e} of the summed rates {rates:.1e} (tol 2)  "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, "airfoil halo parameters disagree with one device")
+
+
+def _train_close(grads, want, what):
+    """Gradient dicts against the one-device step's, in TRAIN_TOL's f32
+    measures (each tensor's max and RMS error over its RMS)."""
+    _, tol_max, tol_rms = TRAIN_TOL[torch.float32]
+    rel, zero = grad_errors({k: torch.from_numpy(v).float()
+                             for k, v in grads.items()},
+                            {k: v.float().cpu() for k, v in want.items()})
+    worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
+    ok = worst_max[0] <= tol_max and worst_rms[1] <= tol_rms
+    print(f"[airfoil halo] {what}: {len(rel)} tensors, worst max err "
+          f"{worst_max[0]:.2e} of rms ({worst_max[2]}, tol {tol_max:.0e}), "
+          f"worst rms err {worst_rms[1]:.2e} of rms ({worst_rms[2]}, tol "
+          f"{tol_rms:.0e}); {len(zero)} exactly zero on both  "
+          f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"airfoil halo {what} disagrees with one device")
+
+
+def run_halo_case(device, e2e):
+    """The airfoil_halo phase: HALO_RANKS ranks on this card over gloo
+    (`halo_rank`) against the one-device model, then one NCCL rank of a
+    group of one. Returns (kernel errors, {}, forward launch counts, train
+    launch counts, end-to-end times) as `run_case` does."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from bsms_gnn_tpu_torch.config import OptConfig
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+    from bsms_gnn_tpu_torch.parallel import data_parallel_step, make_groups
+    from bsms_gnn_tpu_torch.parallel.multihost import (
+        init_distributed,
+        shutdown,
+    )
+    from bsms_gnn_tpu_torch.parallel.partition import unpartition_nodes
+    from bsms_gnn_tpu_torch.training.rollout import rollout_trajectory
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    case = build_halo_case(device)
+    sim, hd, node_in, mask, n = (case[k] for k in ("sim", "hd", "node_in",
+                                                   "mask", "n"))
+    plan = case["plan"]
+    tar = train_target(case)
+    train_cfg = case["config"](accumulation_steps=TRAIN_GATE)
+    opt = OptConfig(peak_lr=1e-4, warmup_steps=2, decay_steps=1000)
+    g = torch.Generator(device="cpu").manual_seed(2600)
+    noise = [torch.randn(tar.shape, generator=g)
+             for _ in range(TRAIN_GATE + HALO_UPDATES)]
+    dp_in, dp_tar, dp_mask = batch_frames(case, HALO_RANKS * DP_BATCH, 2700)
+    dp_noise = torch.randn(dp_tar.shape, generator=g)
+    dp_cfg = case["config"](accumulation_steps=0)
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    payload = dict(
+        plan=plan, cfg=case["cfg"], train_cfg=train_cfg, dp_cfg=dp_cfg,
+        opt=opt, params={k: v.cpu() for k, v in sim.state_dict().items()},
+        norms=[dataclasses.replace(st, **{f: getattr(st, f).cpu() for f in (
+            "acc_weight", "num_accumulations", "e_x", "e_x2")})
+            for st in (sim.norm_in, sim.norm_out)],
+        node_in=host(node_in), mask=host(mask), tar=host(tar),
+        noise=[z.numpy() for z in noise], h=case["h"],
+        dp=[host(dp_in), host(dp_tar), host(dp_mask), dp_noise.numpy()])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=halo_rank, args=(r, port, payload, queue))
+             for r in range(HALO_RANKS)]
+    for pr in procs:
+        pr.start()
+
+    # The one-device references while the ranks start.
+    with torch.no_grad():
+        pred_ref = sim(hd, node_in, mask)
+        roll_ref = rollout_trajectory(sim, hd, node_in, mask, HALO_ROLLOUT)
+    ref = Trainer(train_cfg, opt, generator=torch.Generator().manual_seed(1),
+                  device=device)
+    before = {k: v.detach().clone() for k, v in ref.sim.state_dict().items()}
+    ref_losses = [float(ref.iter(hd, node_in, tar, mask, z.to(device)))
+                  for z in noise]
+    after = ref.sim.state_dict()
+    ref_updates = {k: (after[k] - before[k]).float() for k in after}
+    dp_ref = Trainer(dp_cfg, opt, generator=torch.Generator().manual_seed(2),
+                     device=device)
+    dp_ref.sim.load_state_dict(sim.state_dict())
+    dp_ref.sim.norm_in, dp_ref.sim.norm_out = sim.norm_in, sim.norm_out
+    dp_args = (dp_in, dp_tar, dp_mask, dp_noise.to(device))
+    dp_loss_ref = float(dp_ref.iter(hd, *dp_args))
+    dp_grads_ref = {k: q.grad.detach().clone()
+                    for k, q in dp_ref.sim.named_parameters()}
+
+    results = {}
+    try:
+        while len(results) < HALO_RANKS:
+            r, res = queue.get(timeout=HALO_TIMEOUT_S)
+            require("error" not in res, f"halo rank {r} failed:\n"
+                                        f"{res.get('error')}")
+            results[r] = res
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join()
+    require(all(pr.exitcode == 0 for pr in procs),
+            f"halo ranks exited with {[pr.exitcode for pr in procs]}")
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = results[0], results[1]
+    print(f"[airfoil halo] {HALO_RANKS} ranks on one card over gloo: "
+          f"started in {[round(r['start_s'], 2) for r in (r0, r1)]} s, "
+          f"local hierarchies in "
+          f"{[round(r['hierarchy_s'], 2) for r in (r0, r1)]} s, "
+          f"{ranks_s:.1f} s in all (spawn included)")
+
+    # Serving.
+    def whole(key):
+        return unpartition_nodes(plan, np.stack([r0[key], r1[key]]))
+
+    _halo_close(whole("pred")[:n], host(pred_ref)[:n],
+                "f32 forward against the one-device forward")
+    _halo_close(whole("rollout")[:, :n],
+                host(roll_ref)[:, :n],
+                f"{HALO_ROLLOUT}-step rollout against the one-device rollout")
+
+    # Training.
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                      ref_losses))
+    print(f"[airfoil halo] train losses {r0['losses']} (one device "
+          f"{ref_losses}), worst rel err {loss_err:.2e} (tol "
+          f"{TRAIN_TOL[torch.float32][0]:.0e})")
+    require(r0["losses"] == r1["losses"], "the ranks report other losses")
+    require(loss_err <= TRAIN_TOL[torch.float32][0],
+            "airfoil halo train loss disagrees with one device")
+    # Each update's summed, clipped gradients in TRAIN_TOL's measures
+    # against a one-device `Trainer` loaded with rank 0's state before that
+    # update (its parameters, normalizers and AdamW moments) and fed the
+    # same draw: the updates move the two runs' weights apart by a share of
+    # the rate, so each update is held at the weights it was taken at.
+    anchor = Trainer(train_cfg, opt, generator=torch.Generator().manual_seed(1),
+                     device=device)
+    for i, (gh, st) in enumerate(zip(r0["grads"], r0["states"])):
+        anchor.load_state_dict(_torch_tree(st))
+        anchor.iter(hd, node_in, tar, mask, noise[TRAIN_GATE + i].to(device))
+        _train_close(gh, {k: q.grad for k, q in
+                          anchor.sim.named_parameters()},
+                     f"update {i}: the summed, clipped gradients (one "
+                     f"device at rank 0's state before it)")
+    _param_close(r0["updates"], ref_updates,
+                 sum(ref.schedule(k) for k in range(HALO_UPDATES)))
+    require(r0["digest"] == r1["digest"],
+            "the ranks' parameters differ after the train steps")
+
+    # Launch counts: the same on both ranks, kernels 1-7 launched.
+    for key in ("forward_counts", "train_counts"):
+        require(r0[key] == r1[key], f"the ranks' {key} differ")
+    fwd = {k: v for k, v in r0["forward_counts"].items() if v}
+    train = {k: v for k, v in r0["train_counts"].items() if v}
+    print(f"[airfoil halo] launches per rank in one forward: {fwd}; in one "
+          f"train step: {train}; CUDA kernels of the port per step: "
+          f"{port_kernels(train)}; collectives per train step "
+          f"{ {k: r0['train_collectives'][k] for k in ('exchanges', 'reductions')} }")
+    missing = [k for k in HALO_KERNELS if not train.get(k)]
+    require(not missing, f"the halo train step launched no {missing}")
+
+    # Times: 2 ranks sharing one card, not a multi-card figure.
+    card = card_line()
+    for r, res in sorted(results.items()):
+        st = res["timed_stats"]
+        print(f"[airfoil halo] rank {r} (2 ranks sharing one H100 over gloo, "
+              f"{card}): train step wall "
+              f"{1e3 * np.median(res['step_s']):.2f} ms (median of "
+              f"{[round(1e3 * x, 2) for x in res['step_s']]}), forward "
+              f"{1e3 * np.median(res['forward_s']):.2f} ms (median of "
+              f"{HALO_TIMED}); in a step with a synchronize around each "
+              f"collective, its {st['exchanges']} exchanges and "
+              f"{st['reductions']} reductions took "
+              f"{1e3 * st['seconds']:.2f} ms")
+
+    # Every launched kernel on shard 0's extended tables.
+    errs = check_halo_kernels(case, device, train)
+
+    # The data-parallel step: 2 ranks × DP_BATCH against one process.
+    dp_err = abs(r0["dp_loss"] - dp_loss_ref) / abs(dp_loss_ref)
+    print(f"[airfoil halo] data-parallel step, {HALO_RANKS} ranks x "
+          f"{DP_BATCH} frames: loss {r0['dp_loss']:.6e} (one process, "
+          f"{HALO_RANKS * DP_BATCH} frames: {dp_loss_ref:.6e}, rel err "
+          f"{dp_err:.2e}); step wall "
+          f"{[round(1e3 * r['dp_step_s'], 2) for r in (r0, r1)]} ms "
+          f"(2 ranks sharing one H100 over gloo, {card})")
+    require(dp_err <= TRAIN_TOL[torch.float32][0],
+            "the data-parallel loss disagrees with one process")
+    require(r0["dp_digest"] == r1["dp_digest"],
+            "the data-parallel ranks' parameters differ")
+    _train_close(r0["dp_grads"], dp_grads_ref,
+                 "data-parallel summed, clipped gradients")
+
+    # One NCCL rank, a group of one: the one-process step bit for bit.
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_distributed("nccl", 0, 1, init_method=f"tcp://localhost:{port}",
+                     device=device)
+    try:
+        make_groups(1, 1)
+        one = Trainer(dp_cfg, opt, generator=torch.Generator().manual_seed(2),
+                      device=device)
+        one.sim.load_state_dict(sim.state_dict())
+        one.sim.norm_in, one.sim.norm_out = sim.norm_in, sim.norm_out
+        loss = float(data_parallel_step(one, hd, *dp_args, device=device))
+    finally:
+        shutdown()
+    same = (loss == dp_loss_ref
+            and _digest(one.sim.state_dict()) == _digest(
+                dp_ref.sim.state_dict()))
+    print(f"[airfoil halo] one NCCL rank, world size 1: the data-parallel "
+          f"step's loss and parameters "
+          f"{'bit for bit' if same else 'DIFFER from'} the one-process "
+          f"step's")
+    require(same, "the NCCL rank of one differs from the one-process step")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[airfoil halo] phase took {phase_s:.1f} s")
+    times = {f"{k}_rank{r}": 1e3 * v for r, res in sorted(results.items())
+             for k, v in (("step_ms", float(np.median(res["step_s"]))),
+                          ("forward_ms", float(np.median(res["forward_s"]))),
+                          ("exchange_ms", res["timed_stats"]["seconds"]),
+                          ("dp_step_ms", res["dp_step_s"]))}
+    times["phase_s"] = phase_s
+    del case
+    torch.cuda.empty_cache()
+    return errs, {}, r0["forward_counts"], r0["train_counts"], times
+
+
 def held_line() -> str:
     """What the kernels' weight-stack cache (`build.stacked`) holds on the
     card: it outlives the phase that filled it, so a later peak counts it."""
@@ -5049,7 +5664,8 @@ def main() -> int:
              ("inflating_ell", None, "inflating_ell_"),
              ("cli", None, "cli_"),
              ("deforming_plate", None, "plate_"),
-             ("airfoil_auto", None, "airfoil_auto_"))
+             ("airfoil_auto", None, "airfoil_auto_"),
+             ("airfoil_halo", None, "airfoil_halo_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -5074,6 +5690,8 @@ def main() -> int:
                 got = run_plate_case(device, e2e)
             elif phase == "airfoil_auto":
                 got = run_auto_case(device, e2e)
+            elif phase == "airfoil_halo":
+                got = run_halo_case(device, e2e)
             else:
                 got = run_batch_case(device, phase)
             errs[phase], rows[phase], serve[phase], train[phase], t = got

@@ -58,6 +58,17 @@ from bsms_gnn_tpu_torch.ops.message import (
     edge_conv_down,
     edge_conv_up,
 )
+from bsms_gnn_tpu_torch.parallel import (
+    HaloTrainer,
+    build_partition,
+    data_parallel_step,
+    halo_forward,
+    halo_rollout,
+    halo_train_step,
+    init_distributed,
+    rank_hierarchy,
+    shard_hierarchy,
+)
 from bsms_gnn_tpu_torch.training.trainer import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -166,10 +177,37 @@ def _no_cuda():
         pytest.skip("a CUDA device is present: device=None is valid here")
 
 
+@pytest.fixture(scope="module")
+def parallel_args():
+    """A two-shard plan of the scrambled grid, a CPU trainer and one
+    shard's tensors: the arguments of the parallel entry points."""
+    from bsms_gnn_tpu_torch.graph.bistride import build_bistride_levels
+
+    pos, cells = scrambled_grid()
+    levels = build_bistride_levels(to_flat_edge(cells, "tri"), 2, len(pos),
+                                   pos)
+    plan = build_partition(levels, 2, 640, pos, local_layouts=True,
+                           window=128)
+    cfg = Config(model=ModelConfig(unet_depth=2))
+    tr = Trainer(cfg, OptConfig(), device="cpu")
+    n_loc = plan.hierarchy.levels[0].n_pad_nodes
+    x, t, m = torch.zeros(n_loc, 6), torch.zeros(n_loc, 3), torch.ones(n_loc, 1)
+    hd = to_device(build_hierarchy(to_flat_edge(cells, "tri"), 2, len(pos),
+                                   pos), "cpu")
+    return dict(plan=plan, shard=to_device(shard_hierarchy(plan, 0), "cpu"),
+                cfg=cfg, tr=tr, x=x, t=t, m=m, hd=hd)
+
+
 @pytest.mark.parametrize("entry", ["to_device", "Simulator", "init_normalizer",
-                                   "normalizer_from_numpy", "Trainer"])
-def test_default_device_is_cuda_and_raises_without_it(hier, entry):
+                                   "normalizer_from_numpy", "Trainer",
+                                   "halo_forward", "halo_rollout",
+                                   "halo_train_step", "HaloTrainer",
+                                   "rank_hierarchy", "data_parallel_step",
+                                   "init_distributed"])
+def test_default_device_is_cuda_and_raises_without_it(hier, parallel_args,
+                                                      entry):
     _no_cuda()
+    a = parallel_args
     calls = {
         "to_device": lambda: to_device(hier),
         "Simulator": lambda: Simulator(ModelConfig(unet_depth=2)),
@@ -180,9 +218,31 @@ def test_default_device_is_cuda_and_raises_without_it(hier, entry):
             std_epsilon=1e-8)),
         "Trainer": lambda: Trainer(Config(model=ModelConfig(unet_depth=2)),
                                    OptConfig()),
+        "halo_forward": lambda: halo_forward(a["tr"].sim, a["shard"], a["x"],
+                                             a["m"]),
+        "halo_rollout": lambda: halo_rollout(a["tr"].sim, a["shard"], a["x"],
+                                             a["m"], 2),
+        "halo_train_step": lambda: halo_train_step(
+            a["tr"], a["shard"], a["x"], a["t"], a["m"]),
+        "HaloTrainer": lambda: HaloTrainer(a["cfg"], a["plan"]),
+        "rank_hierarchy": lambda: rank_hierarchy(a["plan"]),
+        "data_parallel_step": lambda: data_parallel_step(
+            a["tr"], a["hd"], a["x"], a["t"], a["m"]),
+        "init_distributed": lambda: init_distributed(
+            "gloo", init_method="tcp://localhost:1"),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def test_nccl_needs_a_card_per_rank():
+    """NCCL takes one card per rank: fewer cards than ranks raises before
+    any process group starts (two ranks on one card run over gloo)."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="a card per rank"):
+        init_distributed("nccl", 0, n + 1, init_method="tcp://localhost:1")
+    with pytest.raises(ValueError, match="backend"):
+        init_distributed("mpi", init_method="tcp://localhost:1")
 
 
 KERNELS = (fused_gmp.fused_edge_phase_win_fwd, node_mlp.fused_node_phase_fwd,
