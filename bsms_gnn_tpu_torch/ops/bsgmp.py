@@ -27,6 +27,13 @@ transition into the first replicated level (`trans.pool_mask`) is the
 boundary pair of `ops/pool.py` (`bsgmp.py:149-156,175-177`), which sums
 the child over the group.
 
+On an edge-sharded method (`"eshard:<group>:<local>"`, one rank's range
+of every level's and operator's edge slots, `parallel/edge_shard.py`)
+the node rows are replicated: a fused transition applies the rank's part
+of its operator between `EdgeEnter` and `EdgeSum` (the group's sum), and
+the GMPs and explicit convs sum their slots the same way
+(`ops/message.py`).
+
 `remat` (JAX's `jax.checkpoint` of each GMP, `bsgmp.py:107-121`):
 `torch.utils.checkpoint` around each GMP whose level has at least
 `remat_min_nodes` padded rows per sample (a union's level holds
@@ -50,7 +57,7 @@ from bsms_gnn_tpu_torch.ops.pool import (
     unpool_nodes,
     unpool_nodes_boundary,
 )
-from bsms_gnn_tpu_torch.ops.scatter import halo_parts
+from bsms_gnn_tpu_torch.ops.scatter import eshard_parts, halo_parts
 from bsms_gnn_tpu_torch.ops.transition import trans_down, trans_up
 
 
@@ -99,6 +106,15 @@ class BSGMP(nn.Module):
             raise ValueError(f"model depth {len(self.down_gmps)} != "
                              f"hierarchy depth {depth}")
         dyn = pos if self.bottom_gmp.dyn_dims else None
+        eshard = eshard_parts(method)
+        trans_method = method if eshard is None else eshard[1]
+
+        def fused_trans(fn, trans, x):
+            if eshard is None:
+                return fn(trans, x)
+            from bsms_gnn_tpu_torch.parallel.edge_shard import edge_part
+
+            return edge_part(lambda x_: fn(trans, x_), x, eshard[0])
 
         def gmp(module, l, h_, pos_):
             level = hierarchy.levels[l]
@@ -118,10 +134,10 @@ class BSGMP(nn.Module):
                 tap(f"down{i}", h)
             down_outs.append(h)
             down_ps.append(dyn)
-            if use_fused_trans(trans, level, method):
-                h = trans_down(trans, h)
+            if use_fused_trans(trans, level, trans_method):
+                h = fused_trans(trans_down, trans, h)
                 if dyn is not None:
-                    dyn = trans_down(trans, dyn)
+                    dyn = fused_trans(trans_down, trans, dyn)
             elif trans.pool_mask is not None:
                 # The replication boundary of a halo plan: one group sum
                 # assembles the replicated child on every rank.
@@ -145,8 +161,8 @@ class BSGMP(nn.Module):
         for i in range(depth):
             d = depth - i - 1
             level, trans = hierarchy.levels[d], hierarchy.transitions[d]
-            if use_fused_trans(trans, level, method):
-                h = trans_up(trans, h)
+            if use_fused_trans(trans, level, trans_method):
+                h = fused_trans(trans_up, trans, h)
             elif trans.pool_mask is not None:
                 h = edge_conv_up(level, unpool_nodes_boundary(trans, h), None,
                                  method)

@@ -28,8 +28,8 @@ latency dominates.
 
 The batch axis (a shared mesh, x [B, n_in_pad, 128] → [B, n_pad_nodes,
 128]): one launch whose grid's y index is the sample, each sample summed
-over the same lists in the same order as a call on it alone (the rect form
-and kernel 7; the level form takes B = 1, as kernel 9 beside it does).
+over the same lists in the same order as a call on it alone (the rect form,
+the level form and kernel 7).
 
 Why the first design lost, 4.5x behind `torch.sparse.mm` on a
 1M-node level: one thread block per edge chunk kept two 64 KB
@@ -196,13 +196,15 @@ windowed_conv_plain.calls = 0
 
 
 def windowed_conv(level, x, ew):
-    """f32 [n_pad, 128] in-window receiver sums of ew · x[sender] over a
-    windowed level's own edges, x [n_pad, 128] f32 or bf16, ew [E_pad]
-    (`level.ew` or `level.ew_rev`). CPU tensors take the plain version;
-    CUDA tensors launch kernel 1's level form. No batch axis: a batch on
+    """f32 [..., n_pad, 128] in-window receiver sums of ew · x[sender] over
+    a windowed level's own edges, x [n_pad, 128] or a batch [B, n_pad,
+    128] (one launch; a shard's ghost conv on a batch of frames) f32 or
+    bf16, ew [E_pad] (`level.ew` or `level.ew_rev`). CPU tensors take the
+    plain version; CUDA tensors launch kernel 1's level form. A batch on
     bucketed hierarchies runs on their union (`graph.hierarchy.union`),
-    one launch over every sample's rows."""
-    _check(level, x, level.n_pad_nodes, ew, batched=False)
+    one launch over every sample's rows, since kernel 9 beside it takes
+    one frame."""
+    _check(level, x, level.n_pad_nodes, ew, batched=True)
     if x.device.type == "cpu":
         return windowed_conv_plain(level, x, ew)
     out = _launch("windowed_conv", level, x, ew)

@@ -74,10 +74,14 @@ over the batch; with world edges the direction is gather_send(pos) −
 gather_recv(pos) per sample. What raises NotImplementedError("batch
 axis") on a batch: the residual sub-level (kernel 9), so also v2 on a
 skip-empty gated level (its gathers' backward is kernel 9), and the
-explicit conv (`_gathered_conv`, `_level_conv`): the routes of bucketed
-hierarchies, which a batch reaches as the union of its samples'
-hierarchies ([B·N_pad, C], `graph.hierarchy.union`, built by
-`models/simulator.py`), each call one launch over every sample's rows.
+explicit conv on a level with a residual sub-level (`_level_conv`'s
+kernel 9): the routes of bucketed hierarchies, which a batch reaches as
+the union of its samples' hierarchies ([B·N_pad, C], `graph.hierarchy.
+union`, built by `models/simulator.py`), each call one launch over every
+sample's rows. The explicit conv takes a batch on a level with a compact
+residual or none (kernel 1's level form and kernel 2 batched, or kernel
+8's batched launch unwindowed: a shard's ghost conv on a batch of
+frames).
 
 The halo methods (`"halo:<group>:<local>"`, one rank's shard of a
 partition plan, `parallel/`; `message.py:101-250`, `:521-527`,
@@ -93,6 +97,16 @@ extended rows, the layout's own conv (kernel 1's level form and kernel 2,
 kernel 8 unwindowed; narrow rows and the kernel-free local methods the
 gather and `index_add`), the owned rows kept; on a plain halo layout the
 generic form on the halo primitives. `cal_ew` refuses a ghost layout.
+Every halo route takes a batch of frames ([B, N_loc, C]).
+
+The edge-sharded methods (`"eshard:<group>:<local>"`, one rank's range of
+edge slots of every level, `parallel/edge_shard.py`; JAX's GSPMD edge
+sharding, `parallel/edge_shard.py` there): the node rows are replicated;
+the GMP's edge part (`GMP.edge_aggregate`: the generic route on `ell` /
+`segment`, v3 or v4 on `fused`) sums the rank's slots, `EdgeSum` sums the
+ranks' parts and the node phase runs replicated; the convs likewise
+(`_eshard_conv`). A runtime `ew`, `cal_ew`, and the routes whose sender
+sums read reverse slots (v2, v1, `pallas`) raise.
 
 `edge_conv_down` / `edge_conv_up`: the explicit transition conv
 (`message.py:699-740`). On the `fused` and `pallas` methods, rows that
@@ -102,8 +116,8 @@ with the level's own weights, windowed levels run kernel 1's level form,
 then the residual sub-level's messages accumulate through kernel 9, and
 unwindowed levels gather and scale the rows and sum them with kernel 8;
 with a runtime `ew`, the gather and kernel 8 on any level. The kernel
-route takes one frame (a batch raises "batch axis"). Every other call
-(the `ell` and `segment` methods, narrow rows such as a world-position
+route takes a batch but where kernel 9 runs ("batch axis"). Every other
+call (the `ell` and `segment` methods, narrow rows such as a world-position
 stream, on any method) takes JAX's generic form: gather_send · ew, then
 aggregate_recv (down), or gather_recv · ew, then aggregate_send (up), on
 the scatter form of the method (`ell` for `fused` and `pallas`, as JAX's
@@ -146,6 +160,7 @@ from bsms_gnn_tpu_torch.ops.scatter import (
     KERNEL_LOCAL,
     aggregate_recv,
     aggregate_send,
+    eshard_parts,
     gather_recv,
     gather_send,
     halo_parts,
@@ -183,9 +198,9 @@ class GMP(nn.Module):
         """One GMP step. x: [N_pad, C], or a batch [B, N_pad, C] (see
         above); pos: [..., N_pad, Σ dyn_dims] world positions (x's leading
         dims) when the GMP has world edges."""
-        halo = halo_parts(method)
+        halo, eshard = halo_parts(method), eshard_parts(method)
         method, k = split_interleave(method)
-        if halo is None and method not in METHODS:
+        if halo is None and eshard is None and method not in METHODS:
             raise NotImplementedError(f"aggregation method {method!r}")
         if self.dyn_dims and (pos is None
                               or pos.shape[-1] != sum(self.dyn_dims)):
@@ -193,6 +208,8 @@ class GMP(nn.Module):
                              f"{sum(self.dyn_dims)}")
         if halo is not None:
             return self._halo(level, x, pos, compute_dtype, method, *halo)
+        if eshard is not None:
+            return self._eshard(level, x, pos, compute_dtype, *eshard)
         if method in PLAIN_METHODS:
             return self._generic(level, x, pos, compute_dtype, method)
         if method == "pallas":
@@ -252,7 +269,43 @@ class GMP(nn.Module):
             return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
         return node_phase(self.mlp_node, x, aggr, compute_dtype)
 
-    def _windowed(self, level, x, pos, compute_dtype, k=1, halo=None):
+    def _eshard(self, level, x, pos, compute_dtype, group, local):
+        """An edge-sharded method on this rank's slots of `level`
+        (`parallel/edge_shard.py`): x enters the edge part through
+        `EdgeEnter` (its cotangent summed over the group), the rank's
+        partial aggregate leaves through `EdgeSum` (the group's sum), and
+        the node phase runs replicated: kernel 3 on `fused`, plain on the
+        others."""
+        from bsms_gnn_tpu_torch.parallel.edge_shard import edge_part
+
+        aggr = edge_part(lambda x_: self.edge_aggregate(
+            level, x_, pos, compute_dtype, local), x, group)
+        if local in KERNEL_LOCAL:
+            return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
+        return node_phase(self.mlp_node, x, aggr, compute_dtype)
+
+    def edge_aggregate(self, level, x, pos, compute_dtype, local):
+        """The receiver sums of the edge MLP's outputs over `level`'s slots
+        alone (a rank's part on an edge shard), before any node phase: the
+        generic route on `ell` / `segment`, the windowed routes (v3, v4)
+        on `fused`. The unwindowed `fused` routes (v2, v1) raise: their
+        sender gathers' backwards read each slot's reverse slot, which an
+        edge shard may hold on another rank."""
+        if local in PLAIN_METHODS:
+            pre = self._edge_pre(level, x, pos, compute_dtype, local)
+            edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
+            return aggregate_recv(level, edge, local)
+        dyn = self.dyn_dims
+        if local == "fused" and level.window > 0 and (
+                not dyn or (len(dyn) == 1 and dyn[0] <= MAX_WD)):
+            return self._windowed(level, x, pos, compute_dtype, node=False)
+        raise NotImplementedError(
+            f"the edge-sharded {local!r} method runs the windowed fused "
+            f"routes (v3, v4); this level (window {level.window}, world "
+            f"streams {dyn}) takes v2 or v1")
+
+    def _windowed(self, level, x, pos, compute_dtype, k=1, halo=None,
+                  node=True):
         """`gmp_apply`'s windowed branches: v3 (`message.py:251-315`), with
         K > 1 v5 or v3 (kernel 14 or 4) by the density gate and v2 on a
         skip-empty gated level, and, with one world-space stream of width
@@ -262,7 +315,8 @@ class GMP(nn.Module):
         `halo` = (the rank's HaloLevel, group): `level` is its ghost
         layout; xwi and xj (with world edges also the positions) cross the
         group in one exchange onto the extended rows, the edge phase runs
-        there and the node phase on the owned rows (`message.py:101-250`)."""
+        there and the node phase on the owned rows (`message.py:101-250`).
+        `node=False` returns the f32 aggregate before the node phase."""
         c = x.shape[-1]
         wd = self.dyn_dims[0] if self.dyn_dims else 0
         sfw = level.fiber.shape[-1]
@@ -306,16 +360,16 @@ class GMP(nn.Module):
                                      compute_dtype, x.dtype, wpos, wf_dyn)
         if halo is not None:
             aggr = aggr[..., :halo[0].n_pad_nodes, :]
+        if not node:
+            return aggr
         return fused_node_phase(x, aggr, self.mlp_node, compute_dtype)
 
     def _generic(self, level, x, pos, compute_dtype, method):
         """`gmp_apply`'s generic path on the `ell` / `segment` scatter
         forms: the pre-activation, the edge MLP's tail, the receiver
         aggregate, the plain node phase."""
-        pre = self._edge_pre(level, x, pos, compute_dtype, method)
-        edge = mlp_apply_tail(self.mlp_edge, pre, compute_dtype)
-        return node_phase(self.mlp_node, x,
-                          aggregate_recv(level, edge, method), compute_dtype)
+        return node_phase(self.mlp_node, x, self.edge_aggregate(
+            level, x, pos, compute_dtype, method), compute_dtype)
 
     def _pallas(self, level, x, pos, compute_dtype):
         """`gmp_apply`'s generic path (`message.py:391-448`) on the pallas
@@ -460,10 +514,9 @@ def _conv_fast_ok(level, x, method: str) -> bool:
 
 def _gathered_conv(level, x, ew):
     """`message.py::_gathered_conv`: the sender rows scaled by the
-    slot-aligned weights, summed at the receivers (kernel 8)."""
-    if x.dim() != 2:
-        raise NotImplementedError("batch axis")
-    msg = x.index_select(0, level.senders) * ew.to(x.dtype)[:, None]
+    slot-aligned weights, summed at the receivers (kernel 8; a batch [B,
+    N_pad, C] in its one batched launch)."""
+    msg = x.index_select(-2, level.senders) * ew.to(x.dtype)[:, None]
     return segment_sum_raw(level, msg).to(x.dtype)
 
 
@@ -474,9 +527,9 @@ def _level_conv(level, x, up: bool):
     1's level form over its in-window slots, then its out-of-window
     messages accumulate: through kernel 2 on its compact residual where it
     has one (a shard's ghost layout), else through kernel 9 on its
-    residual sub-level (`r.ew` / `r.ew_rev`)."""
-    if x.dim() != 2:
-        raise NotImplementedError("batch axis")
+    residual sub-level (`r.ew` / `r.ew_rev`). A batch [B, N_pad, C] takes
+    kernel 1's and kernel 2's batched launches; kernel 9 takes one frame
+    and raises "batch axis" on it."""
     ew = level.ew_rev if up else level.ew
     if level.window <= 0:
         return _gathered_conv(level, x, ew)
@@ -486,11 +539,11 @@ def _level_conv(level, x, up: bool):
         # The compact residual where the level has one (a shard's ghost
         # layout; `_windowed_conv`, `message.py:594-604`).
         ew_r = (cr.ew_rev if up else cr.ew).to(x.dtype)
-        msg = x.index_select(0, cr.senders) * ew_r[:, None]
+        msg = x.index_select(-2, cr.senders) * ew_r[:, None]
         out = compact_accum_raw(cr, msg, out)
     elif r is not None:
         ew_r = (r.ew_rev if up else r.ew).to(x.dtype)
-        msg = x.index_select(0, r.senders) * ew_r[:, None]
+        msg = x.index_select(-2, r.senders) * ew_r[:, None]
         out = segment_sum_accum_raw(r, msg, out)
     return out.to(x.dtype)
 
@@ -577,10 +630,31 @@ def _halo_conv(level, x, ew, method, up: bool):
     return _GhostConv.apply(level, group, local in KERNEL_LOCAL, up, x)
 
 
+def _eshard_conv(level, x, ew, method, up: bool):
+    """The conv on an edge-sharded method: the rank's slots' partial sum on
+    its local method between `EdgeEnter` and `EdgeSum` (a linear map whose
+    adjoint the pair sums over the group too), else None. A runtime `ew`
+    raises: its reverse slots (the up conv's) may live on other ranks."""
+    es = eshard_parts(method)
+    if es is None:
+        return None
+    from bsms_gnn_tpu_torch.parallel.edge_shard import edge_part
+
+    if ew is not None:
+        raise NotImplementedError("an edge shard's transition weights are "
+                                  "the level's own: ew must be None")
+    group, local = es
+    conv = edge_conv_up if up else edge_conv_down
+    return edge_part(lambda x_: conv(level, x_, None, local), x, group)
+
+
 def edge_conv_down(level, x, ew=None, method: str = "fused"):
     """The aggregating conv: Σ_{e: recv(e)=n} ew_e · x[send_e], [..., N_pad,
     C] → [..., N_pad, C] in x's dtype, with the level's own weights
     (`ew=None`) or a runtime slot-aligned `ew` [E_pad]."""
+    out = _eshard_conv(level, x, ew, method, up=False)
+    if out is not None:
+        return out
     out = _halo_conv(level, x, ew, method, up=False)
     if out is not None:
         return out
@@ -597,6 +671,9 @@ def edge_conv_down(level, x, ew=None, method: str = "fused"):
 def edge_conv_up(level, x, ew=None, method: str = "fused"):
     """The returning conv (the reference's aggragating=False): Σ_{e:
     send(e)=n} ew_e · x[recv_e]."""
+    out = _eshard_conv(level, x, ew, method, up=True)
+    if out is not None:
+        return out
     out = _halo_conv(level, x, ew, method, up=True)
     if out is not None:
         return out

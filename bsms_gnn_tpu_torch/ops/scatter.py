@@ -65,6 +65,10 @@ edge's reversed twin too):
 A replicated level (every shard holds the whole level) exchanges nothing.
 Every primitive takes any leading dims, the exchange included.
 
+`"eshard:<group>:<local>"` (`parallel/edge_shard.py`) names no primitive
+here: the GMP and the convs sum the rank's slots with the `<local>` forms
+above, then over the group (`eshard_parts` parses it).
+
 Any other method raises NotImplementedError.
 """
 
@@ -169,6 +173,29 @@ def halo_parts(method: str):
     local = split_interleave(parts[2])[0] if len(parts) == 3 else "ell"
     if local not in HALO_LOCAL:
         raise _unknown(method)
+    return parts[1], local
+
+
+# The local methods an edge-sharded method may name
+# (`parallel/edge_shard.py`): the kernel-free ones and `fused`'s windowed
+# routes. `pallas` fuses its aggregate with the node phase (kernel 10), so
+# no group sum fits between them.
+ESHARD_LOCAL = ("ell", "segment", "fused")
+
+
+def eshard_parts(method: str):
+    """("<group>", "<local>") of an `"eshard:<group>:<local>"` method
+    ("fusedK" read as "fused"), None for any other method."""
+    if not method.startswith("eshard:"):
+        return None
+    parts = method.split(":")
+    if len(parts) != 3 or not parts[1]:
+        raise _unknown(method)
+    local = split_interleave(parts[2])[0]
+    if local not in ESHARD_LOCAL:
+        raise NotImplementedError(
+            f"{method!r}: an edge shard runs {ESHARD_LOCAL}; {local!r} "
+            f"has no group sum between its aggregate and its node phase")
     return parts[1], local
 
 

@@ -62,8 +62,10 @@ def setup_run(cfg: Config):
     device (`cfg.device`: "" the card, which raises without one)."""
     if cfg.parallel.data_axis > 1 or cfg.parallel.graph_axis > 1:
         raise NotImplementedError(
-            "parallel.data_axis / graph_axis > 1: the multi-device paths "
-            "are not ported yet (ROADMAP Queue 1 item 6)")
+            "parallel.data_axis / graph_axis > 1: the CLIs run one process "
+            "on one device; the multi-rank paths are library calls in "
+            "bsms_gnn_tpu_torch.parallel (data_parallel_step, "
+            "halo_train_step, edge_shard_train_step), one process per rank")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(to_yaml(cfg), flush=True)

@@ -144,7 +144,7 @@ class Trainer:
     # -- steps ------------------------------------------------------------
 
     def iter(self, hierarchy, node_in, node_tar, node_mask, noise=None,
-             method=None, reduce=None):
+             method=None, reduce=None, grad_reduce=None):
         """One training iteration on a frame or a batch of frames; returns
         the scalar loss (detached).
 
@@ -154,7 +154,10 @@ class Trainer:
         in place over a group of ranks that each hold part of the batch
         (`parallel/halo.py::group_reduce`): the warmup gate's row sums, the
         loss's two sums and the gradients go through it, so every rank
-        takes the step of the whole batch."""
+        takes the step of the whole batch. `grad_reduce` (None: `reduce`)
+        takes the gradients instead, in `self.sim.parameters()`' order,
+        where they sum over other ranks than the sums do (an edge shard's,
+        `parallel/edge_shard.py`)."""
         node_in, node_tar = self.inject_noise(node_in, node_tar, node_mask,
                                               noise)
         c = node_tar.shape[-1]
@@ -183,8 +186,9 @@ class Trainer:
             for p in params:  # optax reads an unused parameter's as zero
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            if reduce is not None:
-                reduce([p.grad for p in params])
+            grad_reduce = reduce if grad_reduce is None else grad_reduce
+            if grad_reduce is not None:
+                grad_reduce([p.grad for p in params])
             if self._accumulate(params):
                 clip_by_global_norm([p.grad for p in params],
                                     self.opt_cfg.gnorm_clip)

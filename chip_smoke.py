@@ -243,7 +243,26 @@ Phases (any failure exits non-zero without the result line):
    (HALO_RANKS × DP_BATCH frames against the one-process step on all:
    the loss, the gradients at TRAIN_TOL, equal replicas) and one NCCL
    rank in a group of one, its data-parallel step bit for bit the
-   one-process step.
+   one-process step; the batch axis: one forward and one train step of
+   HALO_BATCH = 4 frames on the ranks' shards against the one-device
+   forward and step (HALO_TOL, the loss and gradients at TRAIN_TOL, equal
+   replicas), their walls, and kernel 1's level form at BATCH_CHECK
+   frames on shard 0's ghost tables, each sample bit for bit its own call;
+28. the edge-sharded step (airfoil_eshard): the 5k airfoil of phase 2
+   edge-sharded over ESHARD_RANKS = 2 ranks (`parallel.edge_shard`: every
+   node row on both, each rank a range of every level's and operator's
+   slots), the ranges, live slots and compact rows printed, and per rank
+   and level the tiles kernels 4 and 5 walk, which must add to one
+   device's; two ranks spawned on this card over gloo (`eshard_rank`):
+   the forward (both ranks bit for bit the same prediction) against the
+   one-device forward at HALO_TOL; the gate and ESHARD_UPDATES updates of
+   `edge_shard_train_step` against a one-device `Trainer` (losses and
+   each update's gradients at TRAIN_TOL, the updates in `_param_close`'s
+   measure, equal replicas); each rank's launches (kernels 1's rect form
+   and 2-7 on both), collectives and walls (two ranks sharing one card,
+   not a multi-card figure); kernels 1-7 on rank 0's ranges of levels 0
+   and 3 against their plain versions; one NCCL rank in a group of one
+   (an edge shard of every slot) against the one-device trainer.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -569,17 +588,21 @@ BWD_CONTROLS = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
                 "fused_edge_mlp_aggregate_bwd", "fused_edge_phase_win_k_bwd")
 # The train step through the kernels against the plain path: the loss
 # (relative), and each parameter's gradient as (largest error, RMS error)
-# relative to its RMS. f32: sums in other orders through 15 GMPs'
-# backwards (the plain path's `index_add_` sums with atomics, in another
-# order each run), and a ReLU input within rounding of zero can flip one
-# slot's path: on an H100 the largest error read 3.5e-3 and 6.2e-3, the
-# worst RMS error 8.3e-5 and 2.0e-4 in two runs of the same code. bf16: rounding
+# relative to its RMS. The plain step is the one under deterministic
+# algorithms (`deterministic`): as the package runs it, its `index_add_`
+# sums with atomics, in another order each run, and on the auto airfoil
+# (phase 26) two such runs read 1.37e-3 RMS apart, past the f32 limit.
+# f32: sums in other orders through 15 GMPs' backwards, and a ReLU input
+# within rounding of zero can flip one slot's path: on an H100 the largest
+# error read 3.5e-3 and 6.2e-3, the worst RMS error 8.3e-5 and 2.0e-4 in
+# two runs of the same code. bf16: rounding
 # flips spread through the whole step, so the gradients differ by a few
 # percent in RMS (median 3.8e-2, worst 8.1e-2, one element 2.2x its
 # tensor's RMS), about as far as the f32 and bf16 plain paths differ: this
 # catches gross faults only (an unrelated gradient is off by ~1.4 in RMS);
 # the per-kernel checks and their controls hold the rounding. Each step
-# also runs the plain path twice and prints how far it differs from itself.
+# also runs the plain path with atomics and prints how far it lands from
+# the deterministic one.
 # The cylinder's f32 step (train_spread.py, 24 runs of the plain path on an
 # H100) lands in one of four states (the likely cause, a ReLU input within
 # rounding of zero, in PERF.md): the kernels read 4.2e-7 to 9.1e-4 RMS and
@@ -603,6 +626,10 @@ TRAIN_GATE, TRAIN_UPDATES = 2, 4
 # training at BATCH_TRAIN (`bsms_gnn_tpu/configs/default.yaml`'s `batch`).
 # Every batch is B distinct seeded frames over the one hierarchy.
 BATCH_CHECK, BATCH_SERVE, BATCH_TRAIN = 3, 16, 48
+# The timed repeats of each path's train steps and batched forwards,
+# whose median is printed: three keep the whole script within its time
+# limit.
+TIMED_REPEATS = 3
 # The CLI phase (run_cli_case): the warmup gate's steps, the run's steps
 # (it takes CLI_STEPS + 1), the checkpoint interval (the resumed run
 # starts there), the step whose launches are counted and the one
@@ -1031,6 +1058,28 @@ def plain_path():
     finally:
         for m, attr, f in saved:
             setattr(m, attr, f)
+
+
+@contextlib.contextmanager
+def deterministic(seen=None):
+    """PyTorch's deterministic algorithms: `index_add_` on a CUDA tensor
+    sums each row's slots in a fixed order (sorted by row, stably) instead
+    of with atomics, so a plain step gives the same gradients on every run.
+    An op with no deterministic form warns and runs as it would; each
+    warning's text is added to `seen` where it is given."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        if seen is not None:
+            seen.update(str(w.message).splitlines()[0] for w in caught)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
 
 
 def fill_normalizers(sim, node_in, mask, rng):
@@ -3027,10 +3076,20 @@ def check_train(case, device):
         with own_peak() as peak:
             loss, grads = step_grads(sim, hd, node_in, tar, mask, cd)
         counts[dtype] = read_counts(expected)
+        # The reference: the plain step under deterministic algorithms,
+        # twice (it must repeat bit for bit); beside it, the plain step as
+        # the package runs it (`index_add_` with atomics).
+        warned = set()
         with plain_path():
-            with own_peak() as peak_p:
+            with deterministic(warned):
                 loss_p, grads_p = step_grads(sim, hd, node_in, tar, mask, cd)
-            _, grads_q = step_grads(sim, hd, node_in, tar, mask, cd)
+                loss_r, grads_r = step_grads(sim, hd, node_in, tar, mask, cd)
+            with own_peak() as peak_p:
+                _, grads_q = step_grads(sim, hd, node_in, tar, mask, cd)
+        require(loss_r == loss_p
+                and all(torch.equal(grads_r[k], g) for k, g in grads_p.items()),
+                f"{label} {dtype}: the deterministic plain step did not "
+                f"repeat (ops that warned: {sorted(warned)})")
         if device.type == "cuda":
             print(f"[{label}] train step {str(dtype)[6:]}: own peak "
                   f"{peak[0]:.1f} MiB through the kernels, {peak_p[0]:.1f} "
@@ -3041,8 +3100,8 @@ def check_train(case, device):
                                  peak_p[0])
         plain_grads[dtype] = grads_p
         tol_loss, tol_max, tol_rms = case.get("train_tol", TRAIN_TOL)[dtype]
-        # The plain path against itself: its `index_add_` sums run in
-        # another order each time (printed beside the check).
+        # The plain path with atomics against the reference: its
+        # `index_add_` sums run in another order each time (printed).
         self_rel, _ = grad_errors(grads_q, grads_p)
         rel, zero = grad_errors(grads, grads_p)
         worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
@@ -3056,7 +3115,8 @@ def check_train(case, device):
               f"{worst_rms[1]:.2e} of rms ({worst_rms[2]}, tol "
               f"{tol_rms:.1e}), median rms err "
               f"{float(np.median([r[1] for r in rel])):.2e}; {len(zero)} "
-              f"exactly zero on both paths; the plain path against itself: "
+              f"exactly zero on both paths; the plain path with atomics "
+              f"against it: "
               f"worst max {max(self_rel)[0]:.2e}, worst rms "
               f"{max(r[1] for r in self_rel):.2e}, median rms "
               f"{float(np.median([r[1] for r in self_rel])):.2e}  "
@@ -3308,7 +3368,8 @@ def measure_train(case, device):
 
         for _ in range(TRAIN_GATE + 1):
             step()
-        runs = [event_ms(step, reps=5, warmup=1) for _ in range(5)]
+        runs = [event_ms(step, reps=5, warmup=1)
+                for _ in range(TIMED_REPEATS)]
         ms = e2e[f"train_step_ms_{'f32' if cd is None else 'bf16'}"] = float(
             np.median(runs))
         with plain_path():
@@ -3449,11 +3510,12 @@ def batch_library_call(name, bargs):
     """One PyTorch call computing a batched gather (kernels 1, 2, 7 and 8)
     on the same inputs, or None: `index_add_` on dim -2 (kernels 2, 7 and
     8), `torch.sparse.mm` of the operator on x viewed as [N, B·C] (kernel
-    1)."""
-    if name == "windowed_rect_conv":
-        op, x = bargs
+    1, either form)."""
+    if name in ("windowed_rect_conv", "windowed_conv"):
+        op, x = bargs[:2]
         n, rows, c = x.shape
-        m = window_matrix(op, op.ew, rows)
+        m = window_matrix(op, op.ew if name == "windowed_rect_conv"
+                          else bargs[2], rows)
         xf = x.float().permute(1, 0, 2).reshape(rows, n * c).contiguous()
         return lambda: torch.sparse.mm(m, xf)
     if name == "compact_accum":
@@ -4082,13 +4144,14 @@ def print_agg_designs(case, batches):
 
 
 def measure_batch(case, device):
-    """Forward wall (median of five repeats of ten calls, CUDA events; of
-    three above BATCH_SERVE, where a call takes tens of ms or more) and
-    busy ms at B = 1, BATCH_SERVE and the case's train batch (BATCH_TRAIN
-    unless it names one); the train step at B = 1 and the train batch:
-    wall (median of five repeats of five steps at B = 1, of two at the
-    batch, where a step takes hundreds of ms), busy, idle share, CUDA
-    kernels and own peak MiB; busy ms per sample. f32 and bf16."""
+    """Forward wall (median of TIMED_REPEATS repeats of ten calls, CUDA
+    events; of three above BATCH_SERVE, where a call takes tens of ms or
+    more) and busy ms at B = 1, BATCH_SERVE and the case's train batch
+    (BATCH_TRAIN unless it names one); the train step at B = 1 and the
+    train batch: wall (median of TIMED_REPEATS repeats of five steps at B
+    = 1, of two at the batch, where a step takes hundreds of ms), busy,
+    idle share, CUDA kernels and own peak MiB; busy ms per sample. f32
+    and bf16."""
     sim, label = case["sim"], case["label"]
     train_b = case.get("train_batch", BATCH_TRAIN)
     batch_hd = case.get("union") or (lambda n: case["hd"])
@@ -4104,7 +4167,8 @@ def measure_batch(case, device):
             reps, warm = (10, 3) if n <= BATCH_SERVE else (3, 1)
             with torch.no_grad():
                 runs = [event_ms(lambda: sim(hd, node_in, mask, cd),
-                                 reps=reps, warmup=warm) for _ in range(5)]
+                                 reps=reps, warmup=warm)
+                        for _ in range(TIMED_REPEATS)]
                 prof = profile_call(lambda: sim(hd, node_in, mask, cd))
             wall, busy = float(np.median(runs)), prof[1]
             e2e[f"forward_ms_b{n}_{key}"] = wall
@@ -4129,7 +4193,7 @@ def measure_batch(case, device):
             for _ in range(TRAIN_GATE + 1):
                 step()
             runs = [event_ms(step, reps=5 if n == 1 else 2, warmup=1)
-                    for _ in range(5)]
+                    for _ in range(TIMED_REPEATS)]
             ms = float(np.median(runs))
             with own_peak() as peak:
                 step()
@@ -5005,6 +5069,9 @@ HALO_TOL = dict(rtol=2e-3, atol=2e-4)
 # the one-process step on all of them.
 DP_BATCH = 4
 HALO_TIMEOUT_S = 300
+# The halo path's batch axis: one forward and one train step of HALO_BATCH
+# frames (the data-parallel phase's first ones).
+HALO_BATCH = 4
 HALO_KERNELS = ("windowed_conv", "compact_accum", "fused_node_phase",
                 "fused_edge_phase_win", "fused_edge_phase_win_bwd",
                 "fused_node_phase_bwd", "windowed_send_sum")
@@ -5200,6 +5267,36 @@ def _halo_rank(rank, port, p):
     out.update(step_s=walls, forward_s=fwd, timed_stats=dict(halo.STATS))
     halo.reset_stats()
 
+    # The batch axis: HALO_BATCH frames through one forward and one train
+    # step (no gate) from the given weights, each rank its shard of every
+    # frame; the forward's launches counted.
+    bi, bt, bm, bz = (part(a) for a in p["batch"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pred_b = halo.halo_forward(sim, hier, bi, bm, device=device)
+    torch.cuda.synchronize()
+    out.update(batch_forward_s=time.perf_counter() - t0,
+               batch_forward_counts=read_counts(names),
+               batch_pred=pred_b.cpu().numpy())
+    tb = halo.HaloTrainer(p["dp_cfg"], plan, opt=p["opt"],
+                          generator=torch.Generator().manual_seed(2),
+                          device=device)
+    tb.sim.load_state_dict(p["params"])
+    tb.sim.norm_in, tb.sim.norm_out = sim.norm_in, sim.norm_out
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["batch_loss"] = float(tb.iter(bi, bt, bm, bz))
+    torch.cuda.synchronize()
+    out.update(batch_step_s=time.perf_counter() - t0,
+               batch_train_counts=read_counts(names),
+               batch_digest=_digest(tb.sim.state_dict()))
+    if rank == 0:
+        out["batch_grads"] = {k: q.grad.detach().cpu().numpy()
+                              for k, q in tb.sim.named_parameters()}
+    del tb
+
     # The data-parallel step on the same ranks: each its DP_BATCH frames.
     make_groups(HALO_RANKS, 1)
     dp = Trainer(p["dp_cfg"], p["opt"], generator=torch.Generator().manual_seed(2),
@@ -5269,6 +5366,34 @@ def halo_kernel_args(hier, sim, dtype, device):
     return args
 
 
+def time_batched_level_form(where, args, dtype):
+    """Kernel 1's level form at B = HALO_BATCH (sample 0 `args`' x, the
+    others seeded): the profiler's device ms of one call, the plain
+    version's and `torch.sparse.mm`'s (f32) on x viewed as [N, B·C], the
+    card's bound for the batch's work, and HALO_BATCH calls at B = 1."""
+    name = "windowed_conv"
+    fn, plain = kernel_modules()[name]
+    bargs = batch_args(name, args, HALO_BATCH, 2810)
+    parts = kernel_device_ms(lambda: fn(*bargs), KERNEL_META[name][2])
+    ms = None if parts is None else sum(parts.values())
+    ev = event_ms(lambda: fn(*bargs), reps=50)
+    one = event_ms(lambda: [fn(*sample_args(name, bargs, s))
+                            for s in range(HALO_BATCH)], reps=20)
+    pms = event_ms(lambda: plain(*bargs), reps=20)
+    lib = batch_library_call(name, bargs) if dtype == torch.float32 else None
+    lms = event_ms(lib, reps=50) if lib is not None else None
+    by, ops = batch_work(name, bargs, dtype)
+    t_by, t_ops = by / PEAK_BYTES_S * 1e3, ops / PEAK_FLOPS_S[dtype] * 1e3
+    by_what = "bytes" if t_by >= t_ops else "operations"
+    print(f"time {name} {where} B={HALO_BATCH} {str(dtype)[6:]}: kernel "
+          f"{float('nan') if ms is None else ms:.5f} ms (profiler), "
+          f"{ev:.5f} ms (events, with the wrapper); {HALO_BATCH} calls at "
+          f"B = 1 {one:.5f} ms (events); plain {pms:.5f} ms; library "
+          f"{'null' if lms is None else f'{lms:.5f} ms'} (torch.sparse.mm "
+          f"on x as [N, B·C]); bound {max(t_by, t_ops):.5f} ms by "
+          f"{by_what} ({by} B, {ops} op)")
+
+
 def check_halo_kernels(case, device, launched):
     """Every kernel the halo path launched against its plain version on
     shard 0's extended tables, f32 and bf16 (with bf16 controls). Returns
@@ -5290,6 +5415,14 @@ def check_halo_kernels(case, device, launched):
                 err = check_kernel(name, where, args, dtype, sparse)
                 errs.setdefault((name, dtype), err)
 
+        # Kernel 1's level form on a batch of BATCH_CHECK frames (the
+        # ghost conv of the halo path's batch axis): each sample bit for
+        # bit its own call; then timed at HALO_BATCH.
+        for where, args in halo_kernel_args(hier, case["sim"], dtype,
+                                            device)["windowed_conv"][:2]:
+            check_batched("windowed_conv", where, args, dtype, False, 2800)
+            time_batched_level_form(where, args, dtype)
+
     def bwd(dtype):
         args = halo_kernel_args(hier, case["sim"], dtype, device)
         return {k: v for k, v in args.items() if k in HALO_BWD}
@@ -5298,18 +5431,19 @@ def check_halo_kernels(case, device, launched):
     return errs
 
 
-def _halo_close(got, want, what, tol=HALO_TOL):
+def _halo_close(got, want, what, tol=HALO_TOL, label="airfoil halo"):
     """got against want (numpy, the real rows), in HALO_TOL's measures."""
     err = np.abs(got - want)
     bound = tol["atol"] + tol["rtol"] * np.abs(want)
     worst = float((err / bound).max())
-    print(f"[airfoil halo] {what}: max abs err {err.max():.3e}, worst "
+    print(f"[{label}] {what}: max abs err {err.max():.3e}, worst "
           f"err / (atol + rtol·|want|) {worst:.3f} (rtol {tol['rtol']:.0e}, "
           f"atol {tol['atol']:.0e})  {'ok' if worst <= 1 else 'FAIL'}")
-    require(worst <= 1, f"airfoil halo {what} disagrees with one device")
+    require(worst <= 1, f"{label} {what} disagrees with one device")
 
 
-def _param_close(upd, want, rates):
+def _param_close(upd, want, rates, updates=HALO_UPDATES,
+                 label="airfoil halo"):
     """The parameters' updates (after − before, numpy) against the
     one-device run's (`tests/test_torch_port_train.py`'s measure: Adam
     moves a weight by about the rate whatever its gradient's scale, so a
@@ -5329,16 +5463,16 @@ def _param_close(upd, want, rates):
         flips.append(float((d > 0.25 * rates).mean()))
         far.append(float(d.max()) / rates)
     ok = worst[0] <= 1e-2 and max(flips) <= 1e-3 and max(far) <= 2
-    print(f"[airfoil halo] parameters after {HALO_UPDATES} updates "
+    print(f"[{label}] parameters after {updates} updates "
           f"(after − before): worst rms err {worst[0]:.2e} of the update's "
           f"rms ({worst[1]}, tol 1e-2), largest share of weights off by "
           f"> rates/4 {max(flips):.2e} (tol 1e-3), largest err "
           f"{max(far):.2e} of the summed rates {rates:.1e} (tol 2)  "
           f"{'ok' if ok else 'FAIL'}")
-    require(ok, "airfoil halo parameters disagree with one device")
+    require(ok, f"{label} parameters disagree with one device")
 
 
-def _train_close(grads, want, what):
+def _train_close(grads, want, what, label="airfoil halo"):
     """Gradient dicts against the one-device step's, in TRAIN_TOL's f32
     measures (each tensor's max and RMS error over its RMS)."""
     _, tol_max, tol_rms = TRAIN_TOL[torch.float32]
@@ -5347,12 +5481,12 @@ def _train_close(grads, want, what):
                             {k: v.float().cpu() for k, v in want.items()})
     worst_max, worst_rms = max(rel), max(rel, key=lambda r: r[1])
     ok = worst_max[0] <= tol_max and worst_rms[1] <= tol_rms
-    print(f"[airfoil halo] {what}: {len(rel)} tensors, worst max err "
+    print(f"[{label}] {what}: {len(rel)} tensors, worst max err "
           f"{worst_max[0]:.2e} of rms ({worst_max[2]}, tol {tol_max:.0e}), "
           f"worst rms err {worst_rms[1]:.2e} of rms ({worst_rms[2]}, tol "
           f"{tol_rms:.0e}); {len(zero)} exactly zero on both  "
           f"{'ok' if ok else 'FAIL'}")
-    require(ok, f"airfoil halo {what} disagrees with one device")
+    require(ok, f"{label} {what} disagrees with one device")
 
 
 def run_halo_case(device, e2e):
@@ -5401,7 +5535,9 @@ def run_halo_case(device, e2e):
             for st in (sim.norm_in, sim.norm_out)],
         node_in=host(node_in), mask=host(mask), tar=host(tar),
         noise=[z.numpy() for z in noise], h=case["h"],
-        dp=[host(dp_in), host(dp_tar), host(dp_mask), dp_noise.numpy()])
+        dp=[host(dp_in), host(dp_tar), host(dp_mask), dp_noise.numpy()],
+        batch=[host(t[:HALO_BATCH]) for t in (dp_in, dp_tar, dp_mask,
+                                              dp_noise)])
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5429,6 +5565,19 @@ def run_halo_case(device, e2e):
     dp_ref.sim.load_state_dict(sim.state_dict())
     dp_ref.sim.norm_in, dp_ref.sim.norm_out = sim.norm_in, sim.norm_out
     dp_args = (dp_in, dp_tar, dp_mask, dp_noise.to(device))
+    # The batch axis's references: the one-device forward and step on the
+    # first HALO_BATCH frames, from the given weights.
+    b_args = tuple(t[:HALO_BATCH].to(device) for t in dp_args)
+    with torch.no_grad():
+        b_pred_ref = sim(hd, b_args[0], b_args[2])
+    b_ref = Trainer(dp_cfg, opt, generator=torch.Generator().manual_seed(2),
+                    device=device)
+    b_ref.sim.load_state_dict(sim.state_dict())
+    b_ref.sim.norm_in, b_ref.sim.norm_out = sim.norm_in, sim.norm_out
+    b_loss_ref = float(b_ref.iter(hd, *b_args))
+    b_grads_ref = {k: q.grad.detach().clone()
+                   for k, q in b_ref.sim.named_parameters()}
+    del b_ref
     dp_loss_ref = float(dp_ref.iter(hd, *dp_args))
     dp_grads_ref = {k: q.grad.detach().clone()
                     for k, q in dp_ref.sim.named_parameters()}
@@ -5520,6 +5669,38 @@ def run_halo_case(device, e2e):
               f"{st['reductions']} reductions took "
               f"{1e3 * st['seconds']:.2f} ms")
 
+    # The batch axis: HALO_BATCH frames on each rank's shard.
+    b_pred = unpartition_nodes(plan, np.stack([r0["batch_pred"],
+                                               r1["batch_pred"]]))
+    _halo_close(b_pred[:, :n], host(b_pred_ref)[:, :n],
+                f"f32 forward at B={HALO_BATCH} against the one-device "
+                f"forward")
+    b_err = abs(r0["batch_loss"] - b_loss_ref) / abs(b_loss_ref)
+    print(f"[airfoil halo] train step at B={HALO_BATCH}: loss "
+          f"{r0['batch_loss']:.6e} (one device {b_loss_ref:.6e}, rel err "
+          f"{b_err:.2e}, tol {TRAIN_TOL[torch.float32][0]:.0e}); launches "
+          f"per rank in the forward "
+          f"{ {k: v for k, v in r0['batch_forward_counts'].items() if v} }, "
+          f"in the step "
+          f"{ {k: v for k, v in r0['batch_train_counts'].items() if v} }")
+    require(r0["batch_loss"] == r1["batch_loss"],
+            "the ranks report other batched losses")
+    require(b_err <= TRAIN_TOL[torch.float32][0],
+            f"airfoil halo train loss at B={HALO_BATCH} disagrees with one "
+            f"device")
+    _train_close(r0["batch_grads"], b_grads_ref,
+                 f"the summed, clipped gradients at B={HALO_BATCH}")
+    require(r0["batch_digest"] == r1["batch_digest"],
+            f"the ranks' parameters differ after the B={HALO_BATCH} step")
+    require(r0["batch_train_counts"].get("windowed_conv", 0) > 0,
+            f"the B={HALO_BATCH} halo step launched no kernel 1 level form")
+    for r, res in sorted(results.items()):
+        print(f"[airfoil halo] rank {r} at B={HALO_BATCH} (2 ranks sharing "
+              f"one H100 over gloo, {card}): forward "
+              f"{1e3 * res['batch_forward_s']:.2f} ms, train step "
+              f"{1e3 * res['batch_step_s']:.2f} ms (one call each, the "
+              f"first at B={HALO_BATCH})")
+
     # Every launched kernel on shard 0's extended tables.
     errs = check_halo_kernels(case, device, train)
 
@@ -5567,7 +5748,471 @@ def run_halo_case(device, e2e):
              for k, v in (("step_ms", float(np.median(res["step_s"]))),
                           ("forward_ms", float(np.median(res["forward_s"]))),
                           ("exchange_ms", res["timed_stats"]["seconds"]),
-                          ("dp_step_ms", res["dp_step_s"]))}
+                          ("dp_step_ms", res["dp_step_s"]),
+                          ("b4_forward_ms", res["batch_forward_s"]),
+                          ("b4_step_ms", res["batch_step_s"]))}
+    times["phase_s"] = phase_s
+    del case
+    torch.cuda.empty_cache()
+    return errs, {}, r0["forward_counts"], r0["train_counts"], times
+
+
+# -- airfoil_eshard: the edge-sharded step ------------------------------------
+
+# Two ranks, each every node row and its range of every level's and
+# operator's edge slots of the 5k airfoil of phase 2 (JAX's GSPMD edge
+# sharding, written out: `parallel/edge_shard.py`).
+ESHARD_RANKS, ESHARD_UPDATES = 2, 2
+# The gate's steps of the phase's trainer (one, then the updates).
+ESHARD_GATE = 1
+ESHARD_KERNELS = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                  "fused_node_phase", "fused_node_phase_bwd",
+                  "windowed_rect_conv", "compact_accum", "windowed_send_sum")
+ESHARD_BWD = ("fused_edge_phase_win_bwd", "fused_node_phase_bwd",
+              "windowed_send_sum")
+ESHARD_LEVELS = (0, 3)
+
+
+def eshard_rank(rank, port, payload, queue):
+    """One rank of the eshard phase (a process of its own, on cuda:0 over
+    gloo), as `halo_rank`."""
+    import traceback
+
+    try:
+        queue.put((rank, _eshard_rank(rank, port, payload)))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def _eshard_rank(rank, port, p):
+    import datetime
+
+    from bsms_gnn_tpu_torch.models.simulator import Simulator
+    from bsms_gnn_tpu_torch.ops.kernels import build
+    from bsms_gnn_tpu_torch.parallel import halo
+    from bsms_gnn_tpu_torch.parallel.edge_shard import (
+        edge_shard_forward,
+        edge_shard_hierarchy,
+        edge_shard_train_step,
+    )
+    from bsms_gnn_tpu_torch.parallel.mesh import make_groups
+    from bsms_gnn_tpu_torch.parallel.multihost import (
+        init_distributed,
+        shutdown,
+    )
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stale = [n for n in build.SOURCES if build._stale(n)]
+    require(not stale, f"rank {rank}: kernels {stale} would be compiled "
+                       f"here (the parent builds them)")
+    t0 = time.perf_counter()
+    device = init_distributed(
+        "gloo", rank, ESHARD_RANKS, init_method=f"tcp://localhost:{port}",
+        device="cuda:0", timeout=datetime.timedelta(seconds=120))
+    make_groups(1, ESHARD_RANKS)
+    names = list(kernel_modules())
+    out = {"start_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    hier = edge_shard_hierarchy(p["h"], "graph", device)
+    out["hierarchy_s"] = time.perf_counter() - t0
+    out["slots"] = [lv.n_pad_edges for lv in hier.levels]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    ni, nm, nt = dev(p["node_in"]), dev(p["mask"]), dev(p["tar"])
+    sim = Simulator(p["cfg"], device=device)
+    sim.load_state_dict(p["params"])
+    sim.norm_in, sim.norm_out = (
+        dataclasses.replace(st, **{f: getattr(st, f).to(device) for f in (
+            "acc_weight", "num_accumulations", "e_x", "e_x2")})
+        for st in p["norms"])
+
+    # Serving: one forward, its launches and collectives counted.
+    reset_counts()
+    halo.reset_stats()
+    pred = edge_shard_forward(sim, hier, ni, nm, device=device)
+    torch.cuda.synchronize()
+    out.update(forward_counts=read_counts(names), pred=pred.cpu().numpy(),
+               forward_collectives=halo.STATS["reductions"])
+
+    # Training: the gate, then ESHARD_UPDATES updates on the shared draw;
+    # the first update's launches and collectives counted; rank 0 keeps
+    # its state before each update and the gradients the update applied.
+    tr = Trainer(p["train_cfg"], p["opt"],
+                 generator=torch.Generator().manual_seed(1), device=device)
+    before = {k: v.detach().clone() for k, v in tr.sim.state_dict().items()}
+    losses, grads, states = [], [], []
+    for i, z in enumerate(p["noise"]):
+        first = i == ESHARD_GATE
+        if i >= ESHARD_GATE and rank == 0:
+            st = tr.state_dict()
+            del st["noise_generator"]
+            states.append(_host_tree(st))
+        if first:
+            reset_counts()
+            halo.reset_stats()
+        losses.append(float(edge_shard_train_step(tr, hier, ni, nt, nm,
+                                                  dev(z), device=device)))
+        if first:
+            torch.cuda.synchronize()
+            out["train_counts"] = read_counts(names)
+            out["train_collectives"] = halo.STATS["reductions"]
+        if i >= ESHARD_GATE and rank == 0:
+            grads.append({k: q.grad.detach().cpu().numpy()
+                          for k, q in tr.sim.named_parameters()})
+    after = tr.sim.state_dict()
+    out.update(losses=losses, digest=_digest(after),
+               pred_digest=_digest({"pred": pred}))
+    if rank == 0:
+        out.update(grads=grads, states=states, updates={
+            k: (after[k] - before[k]).cpu().numpy() for k in after})
+    # Times after the checked steps: TIMED_REPEATS train steps and
+    # forwards, then one step with a synchronize around each collective.
+    walls, fwd = [], []
+    for _ in range(TIMED_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        edge_shard_train_step(tr, hier, ni, nt, nm, dev(p["noise"][-1]),
+                              device=device)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        edge_shard_forward(sim, hier, ni, nm, device=device)
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+    halo.reset_stats(timed=True)
+    edge_shard_train_step(tr, hier, ni, nt, nm, dev(p["noise"][-1]),
+                          device=device)
+    out.update(step_s=walls, forward_s=fwd, timed_stats=dict(halo.STATS))
+    halo.reset_stats()
+    shutdown()
+    return out
+
+
+def eshard_kernel_args(hier, sim, dtype, device):
+    """Each kernel of the eshard path's arguments on one rank's tables:
+    its ranges of levels ESHARD_LEVELS and of their transitions' down
+    operators (kernel 1's rect form; kernel 2 on the level's part of the
+    compact residual, else the operator's), from a seed. {name: [(where,
+    args)]}."""
+    g = torch.Generator(device="cpu").manual_seed(2900)
+    c = 128
+    cd = dtype if dtype == torch.bfloat16 else None
+
+    def rand(*shape, dt=torch.float32, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(dt).to(device)
+
+    args = {k: [] for k in ESHARD_KERNELS}
+    for l in ESHARD_LEVELS:
+        lvl, op = hier.levels[l], hier.transitions[l].down_op
+        n, e = lvl.n_pad_nodes, lvl.n_pad_edges
+        gmp = sim.process.down_gmps[l]
+        wf8 = first_layer(gmp)[0]
+        tail = (list(gmp.mlp_edge.weights)[1:], list(gmp.mlp_edge.biases)[1:])
+        w = f"L{l} range"
+        xwi, xj = rand(n, c, dt=dtype), rand(n, c, dt=dtype)
+        args["fused_edge_phase_win"].append((w, (lvl, xwi, xj, wf8, *tail)))
+        args["fused_edge_phase_win_bwd"].append(
+            (w, (lvl, xwi, xj, wf8, *tail, rand(n, c))))
+        args["fused_node_phase"].append((f"L{l}", (
+            rand(n, c, dt=dtype), rand(n, c, s=3.0), gmp.mlp_node, cd)))
+        args["fused_node_phase_bwd"].append((f"L{l}", (
+            rand(n, c, dt=dtype), rand(n, c, s=3.0), gmp.mlp_node,
+            rand(n, c), cd)))
+        args["windowed_rect_conv"].append(
+            (f"T{l} down range", (op, rand(op.n_in_pad, c, dt=dtype))))
+        cr, where = ((lvl.cresid, w) if lvl.cresid is not None
+                     else (op.cresid, f"T{l} down range"))
+        if cr is not None:
+            args["compact_accum"].append((where, (
+                cr, rand(cr.n_rows, c, dt=dtype), rand(cr.n_pad_nodes, c))))
+        args["windowed_send_sum"].append((w, (lvl, rand(e, c, dt=dtype))))
+    return args
+
+
+def check_eshard_kernels(case, hier, device, launched):
+    """Every kernel the eshard path launched against its plain version on
+    rank 0's tables, f32 and bf16 (with bf16 controls). Returns {(name,
+    dtype): max_abs_err} at its first shape."""
+    require(all(launched.get(k) for k in ESHARD_KERNELS),
+            f"the eshard path did not launch every kernel of "
+            f"{ESHARD_KERNELS}")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shapes in eshard_kernel_args(hier, case["sim"], dtype,
+                                               device).items():
+            if name in ESHARD_BWD:
+                continue
+            for i, (where, args) in enumerate(shapes):
+                sparse = name in TILE_WALKS and i > 0
+                err = check_kernel(name, where, args, dtype, sparse)
+                errs.setdefault((name, dtype), err)
+
+    def bwd(dtype):
+        args = eshard_kernel_args(hier, case["sim"], dtype, device)
+        return {k: v for k, v in args.items() if k in ESHARD_BWD}
+
+    errs.update(check_bwd_kernels(case, device, bwd))
+    return errs
+
+
+def run_eshard_case(device, e2e):
+    """The airfoil_eshard phase: ESHARD_RANKS ranks on this card over gloo
+    (`eshard_rank`) against the one-device model, then one NCCL rank in a
+    group of one. Returns (kernel errors, {}, forward launch counts, train
+    launch counts, end-to-end times) as `run_case` does."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from bsms_gnn_tpu_torch.config import OptConfig
+    from bsms_gnn_tpu_torch.graph.hierarchy import to_device
+    from bsms_gnn_tpu_torch.parallel import make_groups
+    from bsms_gnn_tpu_torch.parallel.edge_shard import (
+        PIECE,
+        edge_partition,
+        edge_shard,
+        edge_shard_hierarchy,
+        edge_shard_train_step,
+        live_slots,
+    )
+    from bsms_gnn_tpu_torch.parallel.multihost import (
+        init_distributed,
+        shutdown,
+    )
+    from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import TILE_ROWS
+    from bsms_gnn_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    label = "airfoil eshard"
+    case = build_case(device)
+    h, sim, hd = case["h"], case["sim"], case["hd"]
+    node_in, mask, n = case["node_in"], case["mask"], case["n"]
+    t0 = time.perf_counter()
+    plan = edge_partition(h, ESHARD_RANKS)
+    parts = [edge_shard(h, plan, r) for r in range(ESHARD_RANKS)]
+    plan_s = time.perf_counter() - t0
+    print(f"[{label}] {ESHARD_RANKS}-rank edge plan and shards built in "
+          f"{plan_s:.2f} s (host): level, slots by rank [range], live "
+          f"slots by rank, tiles of kernels 4 and 5 by rank and their sum, "
+          f"one device's tiles, compact rows by rank (one device's)")
+    tiles = []
+    for l, lv in enumerate(h.levels):
+        live = live_slots(lv)
+        rt = [p.levels[l].n_pad_edges // TILE_ROWS for p in parts]
+        one = lv.n_pad_edges // TILE_ROWS
+        tiles.append((rt, one))
+        cr = [0 if p.levels[l].cresid is None else p.levels[l].cresid.n_real
+              for p in parts]
+        print(f"  {l:2d} {[b - a for a, b in plan.levels[l]]} "
+              f"{list(plan.levels[l])} "
+              f"{[int(live[a:b].sum()) for a, b in plan.levels[l]]} tiles "
+              f"{rt} = {sum(rt)} (one device {one}) compact {cr} "
+              f"({0 if lv.cresid is None else lv.cresid.n_real})")
+        require(sum(rt) == one, f"level {l}: the ranks walk {sum(rt)} tiles, "
+                                f"one device {one}")
+    for l, t in enumerate(h.transitions):
+        for kind in ("down", "up"):
+            op = getattr(t, f"{kind}_op")
+            rows = [getattr(p.transitions[l], f"{kind}_op").cresid
+                    for p in parts]
+            print(f"  T{l} {kind}: slots "
+                  f"{[b - a for a, b in getattr(plan, kind)[l]]} of "
+                  f"{op.n_pad_edges}, compact rows "
+                  f"{[0 if c is None else c.n_real for c in rows]} of "
+                  f"{0 if op.cresid is None else op.cresid.n_real}")
+    tar = train_target(case)
+    train_cfg = case["config"](accumulation_steps=ESHARD_GATE)
+    opt = OptConfig(peak_lr=1e-4, warmup_steps=2, decay_steps=1000)
+    g = torch.Generator(device="cpu").manual_seed(3000)
+    noise = [torch.randn(tar.shape, generator=g)
+             for _ in range(ESHARD_GATE + ESHARD_UPDATES)]
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    payload = dict(
+        h=h, cfg=case["cfg"], train_cfg=train_cfg, opt=opt,
+        params={k: v.cpu() for k, v in sim.state_dict().items()},
+        norms=[dataclasses.replace(st, **{f: getattr(st, f).cpu() for f in (
+            "acc_weight", "num_accumulations", "e_x", "e_x2")})
+            for st in (sim.norm_in, sim.norm_out)],
+        node_in=host(node_in), mask=host(mask), tar=host(tar),
+        noise=[z.numpy() for z in noise])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=eshard_rank, args=(r, port, payload, queue))
+             for r in range(ESHARD_RANKS)]
+    for pr in procs:
+        pr.start()
+
+    # The one-device references while the ranks start.
+    with torch.no_grad():
+        pred_ref = sim(hd, node_in, mask)
+    ref = Trainer(train_cfg, opt, generator=torch.Generator().manual_seed(1),
+                  device=device)
+    before = {k: v.detach().clone() for k, v in ref.sim.state_dict().items()}
+    ref_losses = [float(ref.iter(hd, node_in, tar, mask, z.to(device)))
+                  for z in noise]
+    after = ref.sim.state_dict()
+    ref_updates = {k: (after[k] - before[k]).float() for k in after}
+
+    results = {}
+    try:
+        while len(results) < ESHARD_RANKS:
+            r, res = queue.get(timeout=HALO_TIMEOUT_S)
+            require("error" not in res, f"eshard rank {r} failed:\n"
+                                        f"{res.get('error')}")
+            results[r] = res
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join()
+    require(all(pr.exitcode == 0 for pr in procs),
+            f"eshard ranks exited with {[pr.exitcode for pr in procs]}")
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = results[0], results[1]
+    print(f"[{label}] {ESHARD_RANKS} ranks on one card over gloo: started "
+          f"in {[round(r['start_s'], 2) for r in (r0, r1)]} s, edge shards "
+          f"on the card in {[round(r['hierarchy_s'], 2) for r in (r0, r1)]}"
+          f" s, {ranks_s:.1f} s in all (spawn included)")
+    require([sum(x) for x in zip(r0["slots"], r1["slots"])]
+            == [lv.n_pad_edges for lv in h.levels],
+            "the ranks' slots do not add up to the level's")
+
+    # Serving: every rank holds the whole prediction.
+    require(r0["pred_digest"] == r1["pred_digest"],
+            "the ranks' predictions differ")
+    _halo_close(r0["pred"][:n], host(pred_ref)[:n],
+                "f32 forward against the one-device forward", label=label)
+
+    # Training.
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                      ref_losses))
+    print(f"[{label}] train losses {r0['losses']} (one device "
+          f"{ref_losses}), worst rel err {loss_err:.2e} (tol "
+          f"{TRAIN_TOL[torch.float32][0]:.0e})")
+    require(r0["losses"] == r1["losses"], "the ranks report other losses")
+    require(loss_err <= TRAIN_TOL[torch.float32][0],
+            "airfoil eshard train loss disagrees with one device")
+    anchor = Trainer(train_cfg, opt, generator=torch.Generator().manual_seed(1),
+                     device=device)
+    rates = sum(ref.schedule(k) for k in range(ESHARD_UPDATES))
+
+    def held(grads, states, updates, who):
+        """Each update's gradients against the one-device step's at the
+        state before it (the anchor), and the updates against the
+        one-device trainer's."""
+        for i, (gh, st) in enumerate(zip(grads, states)):
+            anchor.load_state_dict(_torch_tree(st))
+            anchor.iter(hd, node_in, tar, mask,
+                        noise[ESHARD_GATE + i].to(device))
+            _train_close(gh, {k: q.grad for k, q in
+                              anchor.sim.named_parameters()},
+                         f"update {i}: {who}'s summed, clipped gradients "
+                         f"(one device at its state before it)", label=label)
+        _param_close(updates, ref_updates, rates, ESHARD_UPDATES, label)
+
+    held(r0["grads"], r0["states"], r0["updates"], "gloo rank 0")
+    require(r0["digest"] == r1["digest"],
+            "the ranks' parameters differ after the train steps")
+
+    # Launch counts, each rank's: every kernel of the path on each.
+    card = card_line()
+    for r, res in sorted(results.items()):
+        fwd = {k: v for k, v in res["forward_counts"].items() if v}
+        train = {k: v for k, v in res["train_counts"].items() if v}
+        print(f"[{label}] rank {r}: launches in one forward {fwd}; in one "
+              f"train step {train}; CUDA kernels of the port per step "
+              f"{port_kernels(train)}; collectives: forward "
+              f"{res['forward_collectives']}, train step "
+              f"{res['train_collectives']}")
+        missing = [k for k in ESHARD_KERNELS if not train.get(k)]
+        require(not missing, f"eshard rank {r}'s train step launched no "
+                             f"{missing}")
+    for l, (rt, one) in enumerate(tiles):
+        print(f"[{label}] level {l}: kernels 4 and 5 walked {rt[0]} tiles "
+              f"on rank 0 and {rt[1]} on rank 1 per launch, {sum(rt)} in "
+              f"all; one device {one}")
+
+    # Times: 2 ranks sharing one card, not a multi-card figure.
+    for r, res in sorted(results.items()):
+        st = res["timed_stats"]
+        print(f"[{label}] rank {r} (2 ranks sharing one H100 over gloo, "
+              f"{card}): train step wall "
+              f"{1e3 * np.median(res['step_s']):.2f} ms (median of "
+              f"{[round(1e3 * x, 2) for x in res['step_s']]}), forward "
+              f"{1e3 * np.median(res['forward_s']):.2f} ms (median of "
+              f"{TIMED_REPEATS}); in a step with a synchronize around each "
+              f"collective, its {st['reductions']} reductions took "
+              f"{1e3 * st['seconds']:.2f} ms")
+
+    # Every launched kernel on rank 0's tables.
+    errs = check_eshard_kernels(case, to_device(parts[0], device), device,
+                                r0["train_counts"])
+
+    # One NCCL rank, a group of one: its edge shard is every slot.
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_distributed("nccl", 0, 1, init_method=f"tcp://localhost:{port}",
+                     device=device)
+    try:
+        make_groups(1, 1)
+        one = Trainer(train_cfg, opt,
+                      generator=torch.Generator().manual_seed(1),
+                      device=device)
+        hier1 = edge_shard_hierarchy(h, "graph", device)
+        before1 = {k: v.detach().clone()
+                   for k, v in one.sim.state_dict().items()}
+        losses1, grads1, states1 = [], [], []
+        for i, z in enumerate(noise):
+            if i >= ESHARD_GATE:
+                st = one.state_dict()
+                del st["noise_generator"]
+                states1.append(_host_tree(st))
+            losses1.append(float(edge_shard_train_step(
+                one, hier1, node_in, tar, mask, z.to(device),
+                device=device)))
+            if i >= ESHARD_GATE:
+                grads1.append({k: host(q.grad)
+                               for k, q in one.sim.named_parameters()})
+    finally:
+        shutdown()
+    after1 = one.sim.state_dict()
+    err1 = max(abs(a - b) / abs(b) for a, b in zip(losses1, ref_losses))
+    same = losses1 == ref_losses and _digest(after1) == \
+        _digest(ref.sim.state_dict())
+    print(f"[{label}] one NCCL rank, world size 1: the gate and "
+          f"{ESHARD_UPDATES} updates on one rank's edge shard of every "
+          f"slot (its layouts cut in {PIECE}-slot chunks, so its sums "
+          f"run in another order): losses {losses1}, "
+          f"worst rel err {err1:.2e} against the one-device trainer's; "
+          f"parameters {'bit for bit' if same else 'not bit for bit'} "
+          f"the one-device trainer's")
+    require(err1 <= TRAIN_TOL[torch.float32][0],
+            "the NCCL rank of one disagrees with the one-device trainer")
+    # The first update runs at rate schedule(0) = 0, so every loss above is
+    # taken before the weights move: the gradients and the updates are
+    # what hold the NCCL step's reductions, clip and update.
+    held(grads1, states1, {k: host(after1[k] - before1[k]) for k in after1},
+         "the NCCL rank")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{label}] phase took {phase_s:.1f} s")
+    times = {f"{k}_rank{r}": 1e3 * v for r, res in sorted(results.items())
+             for k, v in (("step_ms", float(np.median(res["step_s"]))),
+                          ("forward_ms", float(np.median(res["forward_s"]))),
+                          ("reduce_ms", res["timed_stats"]["seconds"]))}
     times["phase_s"] = phase_s
     del case
     torch.cuda.empty_cache()
@@ -5665,7 +6310,8 @@ def main() -> int:
              ("cli", None, "cli_"),
              ("deforming_plate", None, "plate_"),
              ("airfoil_auto", None, "airfoil_auto_"),
-             ("airfoil_halo", None, "airfoil_halo_"))
+             ("airfoil_halo", None, "airfoil_halo_"),
+             ("airfoil_eshard", None, "airfoil_eshard_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -5692,6 +6338,8 @@ def main() -> int:
                 got = run_auto_case(device, e2e)
             elif phase == "airfoil_halo":
                 got = run_halo_case(device, e2e)
+            elif phase == "airfoil_eshard":
+                got = run_eshard_case(device, e2e)
             else:
                 got = run_batch_case(device, phase)
             errs[phase], rows[phase], serve[phase], train[phase], t = got

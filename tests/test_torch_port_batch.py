@@ -360,11 +360,13 @@ def _plain_versions_per_sample(case, ht, sim, dt):
 def test_off_path_wrappers_refuse_a_batch(case):
     """Every wrapper off the batched path raises
     NotImplementedError("batch axis") on a [B, ...] input: kernels 9 and
-    15, kernel 1's level form, the explicit conv and the gathers on a
-    skip-empty layout (their backward is kernel 9). Kernels 8 (both forms),
-    10, 11, 12, 13 and 14 (the autograd entries and kernel 14's forward),
-    the kernel-8 and narrow transition routes and the gathers on a
-    block-aligned level take the batch: each returns its [B, ...] shape."""
+    15 and the gathers on a skip-empty layout (their backward is kernel 9).
+    Kernels 8 (both forms), 10, 11, 12, 13 and 14 (the autograd entries
+    and kernel 14's forward), kernel 1's level form and the explicit conv
+    on a level with a compact residual (a shard's ghost conv on a batch of
+    frames), the kernel-8 and narrow transition routes and the gathers on
+    a block-aligned level take the batch: each returns its [B, ...]
+    shape."""
     ht, sim = case["ht"], case["sim"]
     lvl = ht.levels[0]
     n, e = lvl.n_pad_nodes, lvl.n_pad_edges
@@ -384,8 +386,6 @@ def test_off_path_wrappers_refuse_a_batch(case):
             lvl, feat, acc),
         "kernel 15": lambda: subwin_conv.subwin_conv(
             lvl, x, torch.zeros(e), None, None),
-        "kernel 1 level form": lambda: windowed.windowed_conv(lvl, x, lvl.ew),
-        "explicit conv": lambda: message.edge_conv_down(lvl, x),
         "gather_send skip-empty": lambda: scatter.gather_send(skip_empty, x),
         "gather_recv skip-empty": lambda: scatter.gather_recv(skip_empty, x),
     }
@@ -395,6 +395,9 @@ def test_off_path_wrappers_refuse_a_batch(case):
     runs = {
         "kernel 8": (lambda: segment_sum.segment_sum_raw(lvl, feat),
                      (B, n, C)),
+        "kernel 1 level form": (lambda: windowed.windowed_conv(lvl, x, lvl.ew),
+                                (B, n, C)),
+        "explicit conv": (lambda: message.edge_conv_down(lvl, x), (B, n, C)),
         "kernel 8 send": (lambda: segment_sum.segment_sum_send(lvl, feat),
                           (B, n, C)),
         "kernel 10": (lambda: agg_node.fused_aggregate_node_phase(

@@ -246,7 +246,7 @@ def test_logging_and_timing_utils(capsys, tmp_path):
 def test_multi_device_configs_are_not_ported(axis):
     from bsms_gnn_tpu_torch.train import run_train
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="library calls in"):
         run_train(load_config([f"parallel.{axis}=2", "device=cpu"]))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="library calls in"):
         run_rollout(load_config([f"parallel.{axis}=2", "device=cpu"]))

@@ -693,17 +693,17 @@ def test_unsupported_layouts_raise(hier):
                 2, h_flat.levels[0].n_pad_nodes, 128),
                 method=method).shape == (2, h_flat.levels[0].n_pad_nodes, 128)
         # A batch runs the windowed fused route (v3), the pallas method and
-        # fused on an unwindowed level (v2); the explicit conv's kernel
-        # route, which takes B = 1, refuses it; its ell and segment forms
-        # take it.
+        # fused on an unwindowed level (v2), and the explicit conv's kernel
+        # route (kernel 1's level form and kernel 2 batched) and its ell
+        # and segment forms.
         assert gmp(hd.levels[0], torch.zeros(2, n, 128)).shape == (2, n, 128)
         assert gmp(hd.levels[0], torch.zeros(2, n, 128),
                    method="pallas").shape == (2, n, 128)
         nf = h_flat.levels[0].n_pad_nodes
         assert gmp(h_flat.levels[0], torch.zeros(2, nf, 128)).shape == (
             2, nf, 128)
-        with pytest.raises(NotImplementedError, match="batch axis"):
-            edge_conv_down(hd.levels[0], torch.zeros(2, n, 128))
+        assert edge_conv_down(hd.levels[0], torch.zeros(2, n, 128)).shape == (
+            2, n, 128)
         for method in ("ell", "segment"):
             assert edge_conv_down(hd.levels[0], torch.zeros(2, n, 128),
                                   method=method).shape == (2, n, 128)

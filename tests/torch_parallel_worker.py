@@ -6,7 +6,9 @@ TASK is a `torch.save`d dict {"cases": {name: case}} written by a test
 module (`torch_parallel_group.py`); every rank runs every case in order
 and saves {name: result} to OUT. A case names its kind (`CASES`), its
 shard count S (the world splits into data·S ranks, `make_groups`; rank r
-holds shard r mod S) and its inputs as numpy arrays: a mesh (pos, cells),
+holds shard r mod S; an edge-sharded case names its (data, graph) `mesh`
+instead, which the world must equal) and its inputs as numpy arrays: a
+mesh (pos, cells),
 its partition (`build_partition`'s keywords), the global node arrays,
 model and optimizer configs and the weights. Imports only the port (and
 `torch_threads`, `torch_parallel_group`): no JAX.
@@ -53,6 +55,11 @@ from bsms_gnn_tpu_torch.ops.message import (  # noqa: E402
     edge_conv_up,
 )
 from bsms_gnn_tpu_torch.parallel import halo, mesh, multihost  # noqa: E402
+from bsms_gnn_tpu_torch.parallel.edge_shard import (  # noqa: E402
+    edge_shard_forward,
+    edge_shard_hierarchy,
+    edge_shard_train_step,
+)
 from bsms_gnn_tpu_torch.parallel.data_parallel import (  # noqa: E402
     data_parallel_step,
     replicate_state,
@@ -76,6 +83,7 @@ PLAIN = {
     "fused_node_phase_bwd": node_mlp.fused_node_phase_bwd_plain,
     "compact_accum": compact_resid.compact_accum_plain,
     "windowed_conv": windowed.windowed_conv_plain,
+    "windowed_rect_conv": windowed.windowed_rect_conv_plain,
     "windowed_send_sum": windowed.windowed_send_sum_plain,
     "segment_sum": segment_sum.segment_sum_plain,
     "fused_edge_phase_win_k": fused_gmp_k.fused_edge_phase_win_k_plain,
@@ -211,8 +219,55 @@ def run_dp_train(case, s):
     return train_result(tr, losses, grads)
 
 
+def eshard_hierarchy(case):
+    """This rank's edge shard of the case's one-device hierarchy (its
+    place in the `graph` group)."""
+    pos, cells = case["pos"], case["cells"]
+    h = build_hierarchy(to_flat_edge(cells, "tri"), case["depth"], len(pos),
+                        pos, **case.get("layout", {}))
+    return edge_shard_hierarchy(h, "graph", DEV)
+
+
+def run_eshard_forward(case, s):
+    """The edge-sharded forward of the whole input (replicated)."""
+    sim = simulator(case)
+    hier = eshard_hierarchy(case)
+    halo.reset_stats()
+    pred = edge_shard_forward(sim, hier, torch.from_numpy(case["node_in"]),
+                              torch.from_numpy(case["mask"]), device=DEV)
+    return {"pred": pred.numpy(), "reductions": halo.STATS["reductions"],
+            "slots": [lv.n_pad_edges for lv in hier.levels]}
+
+
+def run_eshard_train(case, s):
+    """Edge-sharded steps: this rank's data row's slice of the global batch
+    (`shard_batch` over `data`) on its graph rank's edge shard; noise:
+    each step's global draw."""
+    tr = Trainer(config(case), device=DEV)
+    tr.sim.load_state_dict(case["params"])
+    hier = eshard_hierarchy(case)
+
+    def part(a):
+        return shard_batch(torch.from_numpy(a))
+
+    ni, nt, nm = (part(case[k]) for k in ("node_in", "node_tar", "mask"))
+    losses, grads, reductions = [], [], []
+    for i in range(case["steps"]):
+        z = part(case["noise"][i]) if "noise" in case else None
+        halo.reset_stats()
+        losses.append(float(edge_shard_train_step(tr, hier, ni, nt, nm, z,
+                                                  device=DEV)))
+        reductions.append(halo.STATS["reductions"])
+        grads.append(step_grads(tr))
+    out = train_result(tr, losses, grads)
+    out.update(reductions=reductions, data_rank=mesh.group_rank("data"))
+    return out
+
+
 CASES = {"primitives": run_primitives, "forward": run_forward,
-         "train": run_train, "dp_train": run_dp_train}
+         "train": run_train, "dp_train": run_dp_train,
+         "eshard_forward": run_eshard_forward,
+         "eshard_train": run_eshard_train}
 
 
 def main(task, rank, world, port, out):
@@ -230,10 +285,14 @@ def main(task, rank, world, port, out):
             if case.get("data"):  # the data axis holds the whole world
                 mesh.make_groups(world, 1)
                 s = rank
+            elif "mesh" in case:  # (data, graph), every rank runs
+                mesh.make_groups(*case["mesh"])
+                s = mesh.group_rank("graph")
             else:
                 mesh.make_groups(world // case["S"], case["S"])
                 s = mesh.group_rank("graph")
-            if not case.get("data") and mesh.group_rank("data") > 0:
+            if ("mesh" not in case and not case.get("data")
+                    and mesh.group_rank("data") > 0):
                 continue  # a replica of the first graph group's shards
             for fn in PLAIN.values():
                 fn.calls = 0
