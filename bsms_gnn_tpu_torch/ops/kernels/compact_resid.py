@@ -63,9 +63,10 @@ import torch
 
 from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
+from bsms_gnn_tpu_torch.ops.kernels.windowed import check_gather_width
 
 BN = 128
-_SIG = [build.P] * 4 + [build.I] * 6 + [build.P] * 2
+_SIG = [build.P] * 4 + [build.I] * 7 + [build.P] * 2
 _FN = {torch.float32: "compact_accum_f32",
        torch.bfloat16: "compact_accum_bf16"}
 
@@ -73,13 +74,13 @@ _FN = {torch.float32: "compact_accum_f32",
 def _check(cr, vals, acc):
     build.check_batch(vals, True)
     build.check_batch(acc, True)
-    lead = vals.shape[:-2]
-    if vals.shape[-2:] != (cr.n_rows, BN):
+    lead, c = vals.shape[:-2], vals.shape[-1]
+    if vals.shape[-2] != cr.n_rows or not c or c % BN:
         raise ValueError(f"vals {tuple(vals.shape)} != (..., {cr.n_rows}, "
-                         f"{BN})")
-    if (acc.shape != (*lead, cr.n_pad_nodes, BN)
+                         f"C), C a multiple of {BN}")
+    if (acc.shape != (*lead, cr.n_pad_nodes, c)
             or acc.dtype != torch.float32):
-        raise ValueError(f"acc must be f32 {(*lead, cr.n_pad_nodes, BN)}")
+        raise ValueError(f"acc must be f32 {(*lead, cr.n_pad_nodes, c)}")
     if not acc.is_contiguous():
         raise ValueError("acc is updated in place and must be contiguous")
     if vals.dtype not in _FN:
@@ -99,15 +100,16 @@ compact_accum_plain.calls = 0
 
 
 def compact_accum_raw(cr, vals, acc):
-    """acc (f32 [..., n_pad, 128], updated in place and returned) plus the
-    receiver sums of vals [..., R_pad, 128] (a batch [B, ...] in one
-    launch), no autograd. CPU tensors take the plain version; CUDA tensors
+    """acc (f32 [..., n_pad, C], updated in place and returned) plus the
+    receiver sums of vals [..., R_pad, C] (a batch [B, ...] in one launch;
+    C a multiple of 128), no autograd. CPU tensors take the plain version; CUDA tensors
     launch kernel 2."""
     _check(cr, vals, acc)
     if vals.device.type == "cpu":
         return compact_accum_plain(cr, vals, acc)
     if vals.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {vals.device}")
+    check_gather_width("compact_accum", vals.shape[-1])
     build.require("compact_accum", vals.device, cr.cr_rows, cr.cr_row_ptr,
                   cr.cr_long)
     if acc.device != vals.device:
@@ -118,7 +120,7 @@ def compact_accum_raw(cr, vals, acc):
         vals.data_ptr(), cr.cr_rows.data_ptr(), cr.cr_row_ptr.data_ptr(),
         cr.cr_long.data_ptr(), cr.cr_rows.numel(), cr.cr_long.numel(),
         GATHER_PIECE, vals.shape[0] if vals.dim() == 3 else 1, cr.n_rows,
-        cr.n_pad_nodes, acc.data_ptr(),
+        cr.n_pad_nodes, vals.shape[-1], acc.data_ptr(),
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "compact_accum")

@@ -12,13 +12,28 @@
 
 namespace bsms {
 
-// One row of the LayerNorm backward in a warp (each lane holds 4 columns):
+// One row of the LayerNorm backward in a warp, V float4s a lane
+// (ln_center's layout: lane l holds columns 4l + C·v .. +3):
 // (g − mean(g) − normed·mean(g·normed)) · inv.
-__device__ __forceinline__ float4 ln_bwd(float4 g, float4 n, float inv) {
-  const float gm = warp_sum(g.x + g.y + g.z + g.w) / C;
-  const float gnm = warp_sum(g.x * n.x + g.y * n.y + g.z * n.z + g.w * n.w) / C;
-  return make_float4((g.x - gm - n.x * gnm) * inv, (g.y - gm - n.y * gnm) * inv,
-                     (g.z - gm - n.z * gnm) * inv, (g.w - gm - n.w * gnm) * inv);
+template <int V>
+__device__ __forceinline__ void ln_bwd_row(const float4 (&g)[V],
+                                           const float4 (&n)[V], float inv,
+                                           float4 (&out)[V]) {
+  float gs = g[0].x + g[0].y + g[0].z + g[0].w;
+  float gn = g[0].x * n[0].x + g[0].y * n[0].y + g[0].z * n[0].z + g[0].w * n[0].w;
+#pragma unroll
+  for (int i = 1; i < V; ++i) {
+    gs += g[i].x + g[i].y + g[i].z + g[i].w;
+    gn += g[i].x * n[i].x + g[i].y * n[i].y + g[i].z * n[i].z + g[i].w * n[i].w;
+  }
+  const float gm = warp_sum(gs) / (C * V);
+  const float gnm = warp_sum(gn) / (C * V);
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    out[i] = make_float4((g[i].x - gm - n[i].x * gnm) * inv,
+                         (g[i].y - gm - n[i].y * gnm) * inv,
+                         (g[i].z - gm - n[i].z * gnm) * inv,
+                         (g[i].w - gm - n[i].w * gnm) * inv);
 }
 
 // out[k] = Σ_{p < n_parts} part[p·size + k], in p order; one float4 per

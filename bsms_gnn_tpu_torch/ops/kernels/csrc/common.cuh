@@ -1,7 +1,9 @@
 // Shared device code of the port's kernels: the row-tile GEMM (64 rows by
 // default, 8·R rows in general), the non-affine LayerNorm and the MLP tail
-// that kernel 10 (node_phase.cuh) runs in shared memory. Widths are fixed at
-// the latent width C = 128.
+// that kernel 10 (node_phase.cuh) runs in shared memory. C = 128 is the
+// columns one warp covers in a row (4 a lane) and the latent width of
+// kernels 8-15; kernels 1-7 take rows of any multiple of it that their
+// wrappers name (a latent width of 256: V = 2 float4s a lane, `ln_center`).
 //
 // Precision: f32 mode is true f32 (FMA on the CUDA cores, no TF32). BF16
 // mode rounds every dot operand to bf16 (round to nearest even) and
@@ -13,6 +15,7 @@
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace bsms {
 
@@ -22,6 +25,16 @@ constexpr int THREADS = 256;  // threads of every block
 constexpr int TILE = 64;      // rows per MLP tile
 constexpr int KS = 32;        // weight rows staged per GEMM step
 constexpr float LN_EPS = 1e-5f;
+
+// Calls fn(std::integral_constant<int, W>{}) for a latent width W of 128 or
+// 256 (the widths kernels 1-7 are built for), or returns
+// cudaErrorInvalidValue.
+template <typename Fn>
+int with_width(int width, Fn&& fn) {
+  if (width == 128) return fn(std::integral_constant<int, 128>{});
+  if (width == 256) return fn(std::integral_constant<int, 256>{});
+  return (int)cudaErrorInvalidValue;
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -41,6 +54,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The LayerNorm statistics of one row held by a warp, V float4s a lane
+// (lane l holding columns 4l + C·v .. +3 of a row of C·V): centres the row
+// in place and returns 1/sqrt(var + eps), 1.0f / sqrtf (both IEEE-rounded
+// without fast math) rather than rsqrtf, as the TPU kernels do. At V = 1
+// these are the sums the kernels always took, term for term.
+template <int V>
+__device__ __forceinline__ float ln_center(float4 (&v)[V]) {
+  float s = v[0].x + v[0].y + v[0].z + v[0].w;
+#pragma unroll
+  for (int i = 1; i < V; ++i) s += v[i].x + v[i].y + v[i].z + v[i].w;
+  const float mean = warp_sum(s) / (C * V);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    v[i].x -= mean; v[i].y -= mean; v[i].z -= mean; v[i].w -= mean;
+  }
+  float q = v[0].x * v[0].x + v[0].y * v[0].y + v[0].z * v[0].z + v[0].w * v[0].w;
+#pragma unroll
+  for (int i = 1; i < V; ++i)
+    q += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
+  const float var = warp_sum(q) / (C * V);
+  return 1.0f / sqrtf(var + LN_EPS);
 }
 
 // acc[i][j] += Σ_k in[(R·ty + i)·C + k] · W[k·C + 4·tx + j] over k < C, for
@@ -116,20 +152,16 @@ __device__ __forceinline__ void tile_store(const float (&acc)[R][4],
 }
 
 // Non-affine LayerNorm of every row of a ROWS×C shared-memory tile, in
-// place, by a block of NT threads: mean, then the mean of squared
-// deviations, then (x − mean) · 1/sqrt(var + eps) — 1.0f / sqrtf (both
-// IEEE-rounded without fast math) rather than rsqrtf, as the TPU kernels do.
+// place, by a block of NT threads, a warp a row (`ln_center`, as kernels
+// 3 and 4 take it).
 template <int ROWS = TILE, int NT = THREADS>
 __device__ __forceinline__ void tile_layer_norm(float* t) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < ROWS; r += NT / 32) {
-    float4 v = reinterpret_cast<float4*>(t + r * C)[lane];
-    const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-    v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-    const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-    const float inv = 1.0f / sqrtf(var + LN_EPS);
-    v.x *= inv; v.y *= inv; v.z *= inv; v.w *= inv;
-    reinterpret_cast<float4*>(t + r * C)[lane] = v;
+    float4 v[1] = {reinterpret_cast<float4*>(t + r * C)[lane]};
+    const float inv = ln_center<1>(v);
+    v[0].x *= inv; v[0].y *= inv; v[0].z *= inv; v[0].w *= inv;
+    reinterpret_cast<float4*>(t + r * C)[lane] = v[0];
   }
   __syncthreads();
 }

@@ -34,7 +34,8 @@ using namespace bsms;
 
 namespace {
 
-template <typename T, bool BF16>
+// LD: the row width (the latent width, 128 or 256).
+template <typename T, bool BF16, int LD>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 compact_gather_kernel(const T* __restrict__ vals,
                       const int* __restrict__ rows,
@@ -42,25 +43,31 @@ compact_gather_kernel(const T* __restrict__ vals,
                       const int* __restrict__ long_rows, int n_rows,
                       int piece, float* __restrict__ acc, size_t vals_stride,
                       size_t acc_stride) {
-  gather_rows<BF16>(vals, RangeRows{}, AddToRows{rows}, row_ptr, long_rows,
-                    n_rows, piece, acc, vals_stride, acc_stride);
+  gather_rows<BF16, WARP_ROWS, LD>(vals, RangeRows{}, AddToRows{rows},
+                                   row_ptr, long_rows, n_rows, piece, acc,
+                                   vals_stride, acc_stride);
 }
 
-// vals [n_batch][vals_rows][C], acc [n_batch][acc_rows][C].
+// vals [n_batch][vals_rows][width], acc [n_batch][acc_rows][width]: rows of
+// the latent width (128 or 256), one column block of C a grid z index.
 template <typename T, bool BF16>
 int launch(const void* vals, const void* rows, const void* row_ptr,
            const void* long_rows, int n_rows, int n_long, int piece,
-           int n_batch, int vals_rows, int acc_rows, void* acc,
+           int n_batch, int vals_rows, int acc_rows, int width, void* acc,
            void* stream) {
   if (n_rows < 1 || n_long < 0 || piece < 1 || n_batch < 1 ||
       n_batch > MAX_BATCH || vals_rows < 1 || acc_rows < 1)
     return (int)cudaErrorInvalidValue;
-  compact_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
-                                   THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)vals, (const int*)rows, (const int*)row_ptr,
-      (const int*)long_rows, n_rows, piece, (float*)acc,
-      (size_t)vals_rows * C, (size_t)acc_rows * C);
-  return (int)cudaGetLastError();
+  return with_width(width, [&](auto w) {
+    constexpr int LD = decltype(w)::value;
+    compact_gather_kernel<T, BF16, LD>
+        <<<gather_grid(n_rows, n_long, n_batch, WARP_ROWS, LD / C), THREADS,
+           0, (cudaStream_t)stream>>>(
+            (const T*)vals, (const int*)rows, (const int*)row_ptr,
+            (const int*)long_rows, n_rows, piece, (float*)acc,
+            (size_t)vals_rows * LD, (size_t)acc_rows * LD);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -69,10 +76,10 @@ int launch(const void* vals, const void* rows, const void* row_ptr,
   extern "C" int NAME(const void* vals, const void* rows,                    \
                       const void* row_ptr, const void* long_rows,            \
                       int n_rows, int n_long, int piece, int n_batch,        \
-                      int vals_rows, int acc_rows, void* acc,                \
+                      int vals_rows, int acc_rows, int width, void* acc,     \
                       void* stream) {                                        \
     return launch<T, BF16>(vals, rows, row_ptr, long_rows, n_rows, n_long,   \
-                           piece, n_batch, vals_rows, acc_rows, acc,         \
+                           piece, n_batch, vals_rows, acc_rows, width, acc,  \
                            stream);                                          \
   }
 

@@ -66,6 +66,19 @@
 // already bound a tile with one block alone); 64-row slabs (two barriers
 // per GEMM) with the products' loops unrolled further (255 registers
 // allowed at one block per SM, 221 used, no spill) took another 8%.
+// - Width and depth (`Plan`): the walks are templates on a plan (the
+//   latent width C, TR slots a tile, KS weight rows a slab), picked at
+//   launch by the width and the tail layers as the first of the width's
+//   plans whose shared memory fits a block (`with_bwd_plan`; the wrappers'
+//   `fused_gmp.walk_plan` is its mirror): C = 128 takes `Base` (64, 64),
+//   the plan above, while its L + 1 tiles fit (L ≤ 3; kStream L ≤ 4), then
+//   `Deep` (32-slot tiles: L ≤ 8); C = 256 takes `Wide` (32-slot tiles,
+//   16-row slabs: L ≤ 4). A row of C = 256 is two 128-column halves, each
+//   lane 4 columns of each (V = 2 float4s), every output still one fmaf
+//   chain in k order from zero; a message, dpre and dW element do not
+//   depend on the plan but through the order in which a block's tiles add
+//   into its partial. Every kernel instantiates the plans of the widths it
+//   takes (kernels 11-14: C = 128).
 #pragma once
 
 #include "backward.cuh"
@@ -75,33 +88,79 @@
 namespace bsms {
 namespace tiles {
 
-constexpr int TR = 64;   // slots per tile (fused_gmp.TILE_ROWS)
 constexpr int NT = 256;  // threads per block
+constexpr int NW = NT / 32;  // warps per block
 constexpr int MIN_BLOCKS = 1;
-constexpr int KS = 64;   // weight rows per staged slab
-constexpr int NW = NT / 32;             // warps per block
-constexpr int RW = TR / NW;             // rows per warp
-constexpr int HB = RW < 4 ? RW : 4;     // rows whose loads go out together
-constexpr int MAX_LAYERS = 3;
-static_assert(NT % C == 0 && TR % NW == 0 && RW >= 1 && TR <= NT &&
-                  RW % HB == 0,
-              "tile shape");
-static_assert(TR == 64, "the wrappers size the tiles by fused_gmp.TILE_ROWS");
+// The shared memory one block may hold on an H100 (227 KB).
+constexpr size_t SMEM_MAX = 232448;
+
+// A tile plan: latent width C_ (V = C_ / C float4s a lane, lane l holding
+// columns 4l + C·v), TR_ slots a tile (RW rows a warp, HB of them with
+// their loads in flight together), KS_ weight rows a staged slab.
+template <int C_, int TR_, int KS_>
+struct Plan {
+  static constexpr int C = C_;
+  static constexpr int TR = TR_;
+  static constexpr int KS = KS_;
+  static constexpr int V = C_ / bsms::C;
+  static constexpr int RW = TR_ / NW;
+  static constexpr int HB = RW < 4 ? RW : 4;
+  static_assert(C_ % bsms::C == 0 && NT % TR_ == 0 && TR_ % NW == 0 &&
+                    RW >= 1 && RW % HB == 0 && (C_ / KS_) % 2 == 0 &&
+                    (C_ <= NT || C_ % NT == 0),
+                "tile plan");
+};
+using Base = Plan<128, 64, 64>;     // C = 128 (fused_gmp.TILE_ROWS slots)
+using Deep = Plan<128, 32, 64>;     // C = 128, tail layers past Base's
+using Wide = Plan<256, 32, 16>;     // C = 256, the backward
+using WideFwd = Plan<256, 32, 32>;  // C = 256, the forward
+static_assert(Base::TR == 64, "the wrappers size Base's tiles by "
+                              "fused_gmp.TILE_ROWS");
 
 // Shared memory of the walk at n_layers tail layers (floats, then the
 // three int tables of the tile's slots): kDyn adds wf_dyn, wf_nrm and the
-// tile's Δ and ‖Δ‖ (3.75 KB).
-inline size_t smem_bytes(int n_layers, Front f) {
-  return sizeof(float) * ((size_t)(n_layers + 1) * TR * C + 2 * KS * C +
-                          (f != Front::kStream ? 8 * C + 8 * TR : 0) +
-                          (f == Front::kDyn
-                               ? MAX_WD * C + C + MAX_WD * TR + TR : 0)) +
-         sizeof(int) * 3 * TR;
+// tile's Δ and ‖Δ‖.
+template <class P>
+constexpr size_t smem_bytes(int n_layers, Front f) {
+  return sizeof(float) * ((size_t)(n_layers + 1) * P::TR * P::C +
+                          2 * P::KS * P::C +
+                          (f != Front::kStream ? 8 * P::C + 8 * P::TR : 0) +
+                          (f == Front::kDyn ? MAX_WD * P::C + P::C +
+                                                  MAX_WD * P::TR + P::TR
+                                            : 0)) +
+         sizeof(int) * 3 * P::TR;
+}
+
+// The most tail layers plan P's walk holds with front f.
+template <class P>
+constexpr int max_layers(Front f) {
+  int l = 0;
+  while (smem_bytes<P>(l + 1, f) <= SMEM_MAX) ++l;
+  return l;
+}
+
+// Calls fn(P{}) with the backward walk's plan for a latent width and
+// n_layers tail layers (the first of the width's plans whose shared memory
+// fits), or returns cudaErrorInvalidValue where none does. WIDE: whether
+// the caller instantiates C = 256.
+template <bool WIDE, typename Fn>
+int with_bwd_plan(int width, int n_layers, Front f, Fn&& fn) {
+  if (n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (width == Base::C) {
+    if (smem_bytes<Base>(n_layers, f) <= SMEM_MAX) return fn(Base{});
+    if (smem_bytes<Deep>(n_layers, f) <= SMEM_MAX) return fn(Deep{});
+  }
+  if constexpr (WIDE)
+    if (width == Wide::C && smem_bytes<Wide>(n_layers, f) <= SMEM_MAX)
+      return fn(Wide{});
+  return (int)cudaErrorInvalidValue;
 }
 
 // Floats of one block's weight-gradient partial (wd: kDyn's world-stream
 // width).
+template <class P>
 __host__ __device__ inline int grad_size(int n_layers, Front f, int wd = 0) {
+  constexpr int C = P::C;
   return n_layers * C * C + n_layers * C +
          (f != Front::kStream ? 8 * C : 0) +
          (f == Front::kDyn ? wd * C + C : 0);
@@ -121,8 +180,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Issues the copy of W's slab s (KS rows) into buffer s mod 2 of `wslab`
 // (cp.async, one commit group).
+template <class P>
 __device__ __forceinline__ void copy_slab(const float* __restrict__ W, int s,
                                           float* wslab) {
+  constexpr int C = P::C, KS = P::KS;
   const float* src = W + (size_t)s * KS * C;
   float* dst = wslab + (s & 1) * KS * C;
   for (int i = threadIdx.x; i < KS * C / 4; i += NT)
@@ -130,28 +191,31 @@ __device__ __forceinline__ void copy_slab(const float* __restrict__ W, int s,
   cp_async_commit();
 }
 
-// acc[i][j] += Σ_k in[(RW·ty + i)·C + k] · W[k·C + 4·tx + j] over k < C: the
-// TR×C tile `in` (shared) times the C×C weight W (device, [in, out], bf16
-// values already in BF16 mode), W staged in KS-row slabs through the two
-// buffers of `wslab` by cp.async, slab s + 1 in flight while slab s is
-// used. W's first slab must be in flight already (copy_slab(W, 0)); during
-// the last slab this issues the first slab of `next`, the walk's next
-// GEMM, so no GEMM waits for its first load. Each warp reads and the caller
-// writes only the warp's own RW rows. The barrier of the first slab also
-// orders the caller's writes of `in`; there is none at the end.
-__device__ __forceinline__ void gemm_rows(float (&acc)[RW][4],
+// acc[i][4v + j] += Σ_k in[(RW·ty + i)·C + k] · W[k·C + 128v + 4·tx + j]
+// over k < C: the TR×C tile `in` (shared) times the C×C weight W (device,
+// [in, out], bf16 values already in BF16 mode), W staged in KS-row slabs
+// through the two buffers of `wslab` by cp.async, slab s + 1 in flight
+// while slab s is used. W's first slab must be in flight already
+// (copy_slab(W, 0)); during the last slab this issues the first slab of
+// `next`, the walk's next GEMM, so no GEMM waits for its first load. Each
+// warp reads and the caller writes only the warp's own RW rows. The
+// barrier of the first slab also orders the caller's writes of `in`; there
+// is none at the end.
+template <class P>
+__device__ __forceinline__ void gemm_rows(float (&acc)[P::RW][4 * P::V],
                                           const float* in,
                                           const float* __restrict__ W,
                                           const float* __restrict__ next,
                                           float* wslab) {
+  constexpr int C = P::C, KS = P::KS, RW = P::RW, V = P::V;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   constexpr int STEPS = C / KS;
   static_assert(STEPS % 2 == 0, "the next GEMM's first slab takes buffer 0");
   for (int s = 0; s < STEPS; ++s) {
     cp_async_wait_all();
     __syncthreads();
-    if (s + 1 < STEPS) copy_slab(W, s + 1, wslab);
-    else copy_slab(next, 0, wslab);
+    if (s + 1 < STEPS) copy_slab<P>(W, s + 1, wslab);
+    else copy_slab<P>(next, 0, wslab);
     const float* ws = wslab + (s & 1) * KS * C;
     const int k0 = s * KS;
 #pragma unroll 8
@@ -162,14 +226,20 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[RW][4],
         a[i] = *reinterpret_cast<const float4*>(in + (RW * ty + i) * C + k0 + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 w = reinterpret_cast<const float4*>(ws + (k + kk) * C)[tx];
+        float4 w[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          w[v] = reinterpret_cast<const float4*>(ws + (k + kk) * C)[tx + 32 * v];
 #pragma unroll
         for (int i = 0; i < RW; ++i) {
           const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-          acc[i][0] = fmaf(av, w.x, acc[i][0]);
-          acc[i][1] = fmaf(av, w.y, acc[i][1]);
-          acc[i][2] = fmaf(av, w.z, acc[i][2]);
-          acc[i][3] = fmaf(av, w.w, acc[i][3]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            acc[i][4 * v + 0] = fmaf(av, w[v].x, acc[i][4 * v + 0]);
+            acc[i][4 * v + 1] = fmaf(av, w[v].y, acc[i][4 * v + 1]);
+            acc[i][4 * v + 2] = fmaf(av, w[v].z, acc[i][4 * v + 2]);
+            acc[i][4 * v + 3] = fmaf(av, w[v].w, acc[i][4 * v + 3]);
+          }
         }
       }
     }
@@ -178,54 +248,66 @@ __device__ __forceinline__ void gemm_rows(float (&acc)[RW][4],
 
 // out rows = acc + bias in gemm_rows' layout, optionally ReLU'd and
 // rounded to bf16.
-__device__ __forceinline__ void store_rows(const float (&acc)[RW][4],
+template <class P>
+__device__ __forceinline__ void store_rows(const float (&acc)[P::RW][4 * P::V],
                                            const float* __restrict__ bias,
                                            float* out, bool relu, bool to_bf16) {
+  constexpr int C = P::C, RW = P::RW, V = P::V;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const float4 b = reinterpret_cast<const float4*>(bias)[tx];
-  const float bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    float v[4];
+  for (int v = 0; v < V; ++v) {
+    const float4 b = reinterpret_cast<const float4*>(bias)[tx + 32 * v];
+    const float bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = acc[i][j] + bb[j];
-      if (relu) v[j] = fmaxf(v[j], 0.f);
-      if (to_bf16) v[j] = round_bf16(v[j]);
+    for (int i = 0; i < RW; ++i) {
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[j] = acc[i][4 * v + j] + bb[j];
+        if (relu) o[j] = fmaxf(o[j], 0.f);
+        if (to_bf16) o[j] = round_bf16(o[j]);
+      }
+      *reinterpret_cast<float4*>(out + (RW * ty + i) * C + 4 * tx + 128 * v) =
+          make_float4(o[0], o[1], o[2], o[3]);
     }
-    *reinterpret_cast<float4*>(out + (RW * ty + i) * C + 4 * tx) =
-        make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
 // out = acc ⊙ (mask > 0) in gemm_rows' layout (the ReLU's backward; mask
 // is the layer's input). `out` may alias the GEMM's input.
-__device__ __forceinline__ void store_rows_masked(const float (&acc)[RW][4],
-                                                  const float* mask, float* out) {
+template <class P>
+__device__ __forceinline__ void store_rows_masked(
+    const float (&acc)[P::RW][4 * P::V], const float* mask, float* out) {
+  constexpr int C = P::C, RW = P::RW, V = P::V;
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int o = (RW * ty + i) * C + 4 * tx;
-    const float4 m = *reinterpret_cast<const float4*>(mask + o);
-    *reinterpret_cast<float4*>(out + o) = make_float4(
-        m.x > 0.f ? acc[i][0] : 0.f, m.y > 0.f ? acc[i][1] : 0.f,
-        m.z > 0.f ? acc[i][2] : 0.f, m.w > 0.f ? acc[i][3] : 0.f);
-  }
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int o = (RW * ty + i) * C + 4 * tx + 128 * v;
+      const float4 m = *reinterpret_cast<const float4*>(mask + o);
+      *reinterpret_cast<float4*>(out + o) = make_float4(
+          m.x > 0.f ? acc[i][4 * v + 0] : 0.f,
+          m.y > 0.f ? acc[i][4 * v + 1] : 0.f,
+          m.z > 0.f ? acc[i][4 * v + 2] : 0.f,
+          m.w > 0.f ? acc[i][4 * v + 3] : 0.f);
+    }
 }
 
 // dst (+)= AᵀB over the TR rows of two TR×C shared tiles: the [C, C]
-// product in 8×8 register blocks, block q (< 256) taken by thread q mod NT:
-// rows i0..i0+3 and 64+i0..64+i0+3, columns j0..j0+3 and 64+j0..64+j0+3,
-// with i0 = 4·(q / 16), j0 = 4·(q % 16), so that the 16 column groups of a
-// half-warp read 256 contiguous bytes of a B row (no bank conflict) and its
-// rows of A are one broadcast. Each thread touches only its own elements of
-// dst: a sum over the tile's rows in row order, added to (or, when !add,
-// stored as) the block's partial.
+// product in 8×8 register blocks, block q < (C/8)² taken by thread q mod
+// NT: rows i0..i0+3 and H+i0..H+i0+3, columns j0..j0+3 and H+j0..H+j0+3
+// (H = C/2), with i0 = 4·(q / (C/8)), j0 = 4·(q % (C/8)), so that the
+// column groups of a half-warp read 256 contiguous bytes of a B row (no
+// bank conflict) and its rows of A are one broadcast. Each thread touches
+// only its own elements of dst: a sum over the tile's rows in row order,
+// added to (or, when !add, stored as) the block's partial.
+template <class P>
 __device__ __forceinline__ void gemm_tn_store(const float* A, const float* B,
                                               float* dst, bool add) {
-  constexpr int H = C / 2;
-  for (int q = threadIdx.x; q < (C / 8) * (C / 8); q += NT) {
-    const int i0 = (q >> 4) * 4, j0 = (q & 15) * 4;
+  constexpr int C = P::C, TR = P::TR, H = C / 2, G = C / 8;
+  for (int q = threadIdx.x; q < G * G; q += NT) {
+    const int i0 = (q / G) * 4, j0 = (q % G) * 4;
     // The partial's old values load before the product, so that their
     // latency hides behind it.
     float4 old[8][2];
@@ -270,9 +352,10 @@ __device__ __forceinline__ void gemm_tn_store(const float* A, const float* B,
 }
 
 // Rounds the TR×C tile to bf16 in place, between two block barriers.
+template <class P>
 __device__ __forceinline__ void round_tile(float* t) {
   __syncthreads();
-  for (int i = threadIdx.x; i < TR * C; i += NT) t[i] = round_bf16(t[i]);
+  for (int i = threadIdx.x; i < P::TR * P::C; i += NT) t[i] = round_bf16(t[i]);
   __syncthreads();
 }
 
@@ -287,13 +370,14 @@ __device__ __forceinline__ void round_tile(float* t) {
 // chunk's block; kStream: the receiver alone), the same in every thread.
 // Starts with a block barrier (the previous tile is done with the tables)
 // and ends with one.
-template <bool BF16, Front F, typename T = float>
+template <class P, bool BF16, Front F, typename T = float>
 __device__ __forceinline__ bool tile_slots(
     int t0, int ch, const float* __restrict__ fiber_t,
     const int* __restrict__ send_win, const int* __restrict__ win_base,
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int e_pad, int window, int* s_row, int* s_recv, int* s_loc, float* fib,
     const DynFiber<T>& dyn = {}) {
+  constexpr int TR = P::TR;
   constexpr bool WIN = F != Front::kStream;
   const int tid = threadIdx.x;
   const int row0 = chunk_block[ch] * BN;
@@ -341,65 +425,74 @@ __device__ __forceinline__ bool tile_slots(
 // the weights in shared memory), added after the kWin sum; kStream:
 // pre = src[t0 + r], plus xj[s_row[r]] where xj is given (kernel 12) and
 // the slot's receiver lies in its chunk's block. A warp owns rows warp +
-// j·NW, each lane 4 columns; each group of HB rows' loads is issued before
-// their arithmetic.
-template <typename T, bool BF16, Front F>
+// j·NW, each lane 4 columns of each 128-column half; each group of HB
+// rows' loads is issued before their arithmetic.
+template <class P, typename T, bool BF16, Front F>
 __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
                                            const T* __restrict__ xj,
                                            const float* wf, const float* fib,
                                            const int* s_row, const int* s_recv,
                                            float* h,
                                            const DynFiber<T>& dyn = {}) {
+  constexpr int C = P::C, TR = P::TR, RW = P::RW, HB = P::HB, V = P::V;
   constexpr bool WIN = F != Front::kStream;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c4 = 4 * lane;
   for (int j0 = 0; j0 < RW; j0 += HB) {
-    float4 a[HB], z[HB];
+    float4 a[HB][V], z[HB][V];
 #pragma unroll
     for (int j = 0; j < HB; ++j) {
       const int r = warp + (j0 + j) * NW;
-      if constexpr (WIN) {
-        const int row = s_row[r];
-        a[j] = row >= 0 ? load4(src + (size_t)row * C + c4)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c4 = 4 * lane + 128 * v;
+        if constexpr (WIN) {
+          const int row = s_row[r];
+          a[j][v] = row >= 0 ? load4(src + (size_t)row * C + c4)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+          z[j][v] = load4(xj + (size_t)s_recv[r] * C + c4);
+        } else {
+          a[j][v] = load4(src + (size_t)(t0 + r) * C + c4);
+          z[j][v] = xj != nullptr && s_row[r] >= 0
+                        ? load4(xj + (size_t)s_row[r] * C + c4)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
-        z[j] = load4(xj + (size_t)s_recv[r] * C + c4);
-      } else {
-        a[j] = load4(src + (size_t)(t0 + r) * C + c4);
-        z[j] = xj != nullptr && s_row[r] >= 0
-                   ? load4(xj + (size_t)s_row[r] * C + c4)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < HB; ++j) {
       const int r = warp + (j0 + j) * NW;
-      float v[4] = {a[j].x, a[j].y, a[j].z, a[j].w};
-      if constexpr (WIN) {
-        const float zz[4] = {z[j].x, z[j].y, z[j].z, z[j].w};
+#pragma unroll
+      for (int vv = 0; vv < V; ++vv) {
+        const int c4 = 4 * lane + 128 * vv;
+        float v[4] = {a[j][vv].x, a[j][vv].y, a[j][vv].z, a[j][vv].w};
+        if constexpr (WIN) {
+          const float zz[4] = {z[j][vv].x, z[j][vv].y, z[j][vv].z, z[j][vv].w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float f = 0.f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              f = fmaf(fib[k * TR + r], wf[k * C + c4 + q], f);
+            v[q] = (f + v[q]) + zz[q];
+            if constexpr (F == Front::kDyn) {
+              float fd = 0.f;
+              for (int k = 0; k < dyn.wd; ++k)
+                fd = fmaf(dyn.delta[k * TR + r], dyn.wfd[k * C + c4 + q], fd);
+              v[q] = (v[q] + fd) + dyn.nrm[r] * dyn.wfn[c4 + q];
+            }
+          }
+        } else if (xj != nullptr) {
+          v[0] += z[j][vv].x; v[1] += z[j][vv].y;
+          v[2] += z[j][vv].z; v[3] += z[j][vv].w;
+        }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          float f = 0.f;
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-            f = fmaf(fib[k * TR + r], wf[k * C + c4 + q], f);
-          v[q] = (f + v[q]) + zz[q];
-          if constexpr (F == Front::kDyn) {
-            float fd = 0.f;
-            for (int k = 0; k < dyn.wd; ++k)
-              fd = fmaf(dyn.delta[k * TR + r], dyn.wfd[k * C + c4 + q], fd);
-            v[q] = (v[q] + fd) + dyn.nrm[r] * dyn.wfn[c4 + q];
-          }
+          v[q] = fmaxf(v[q], 0.f);
+          if (BF16) v[q] = round_bf16(v[q]);
         }
-      } else if (xj != nullptr) {
-        v[0] += z[j].x; v[1] += z[j].y; v[2] += z[j].z; v[3] += z[j].w;
+        *reinterpret_cast<float4*>(h + r * C + c4) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        v[q] = fmaxf(v[q], 0.f);
-        if (BF16) v[q] = round_bf16(v[q]);
-      }
-      *reinterpret_cast<float4*>(h + r * C + c4) =
-          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -413,7 +506,7 @@ __device__ __forceinline__ void tile_front(int t0, const T* __restrict__ src,
 // samples, sample s's xj, g and (kWin, kDyn) src start s·x_stride elements
 // in, its dpre and (kStream) src s·e_stride, its positions (kDyn)
 // s·p_stride.
-template <typename T, bool BF16, Front F>
+template <class P, typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ src,
     const T* __restrict__ xj, const float* __restrict__ wf8,
@@ -427,13 +520,14 @@ __device__ __forceinline__ void edge_bwd_tiles(
     const float* __restrict__ wfd_g = nullptr,
     const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
     size_t x_stride = 0, size_t e_stride = 0, size_t p_stride = 0) {
+  constexpr int C = P::C, TR = P::TR, RW = P::RW, HB = P::HB, V = P::V;
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);  // [n_layers][TR][C]
   float* d = hs + (size_t)n_layers * TR * C;     // [TR][C] LN out, cotangent
   float* wslab = d + TR * C;                     // [2][KS][C] weight slabs
-  float* wf = wslab + 2 * KS * C;                // WIN: [8][C] fiber weights
+  float* wf = wslab + 2 * P::KS * C;             // WIN: [8][C] fiber weights
   float* fib = wf + (WIN ? 8 * C : 0);           // WIN: [8][TR] fiber stream
   float* wfd = fib + (WIN ? 8 * TR : 0);         // DYN: [MAX_WD][C] wf_dyn
   float* wfn = wfd + (DYN ? MAX_WD * C : 0);     // DYN: [C] wf_nrm
@@ -448,7 +542,7 @@ __device__ __forceinline__ void edge_bwd_tiles(
   const int total = n_tiles * n_batch;
   const int t_begin = (int)((long long)b * total / G);
   const int t_end = (int)((long long)(b + 1) * total / G);
-  const int gsize = grad_size(n_layers, F, wd);
+  const int gsize = grad_size<P>(n_layers, F, wd);
   float* gp = gpart + (size_t)b * gsize;         // dW [n_layers][C][C]
   float* gp_b = gp + (size_t)n_layers * C * C;   // db [n_layers][C]
   float* gp_f = gp_b + (size_t)n_layers * C;     // WIN: dwf8 [8][C]
@@ -463,16 +557,16 @@ __device__ __forceinline__ void edge_bwd_tiles(
   }
   const DynFiber<T> dyn_all{pos, wd, wfd, wfn, delta, nrm, p_stride};
   bool first = true;  // no live tile yet: the next one stores its partial
-  copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
+  copy_slab<P>(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   for (int t = t_begin; t < t_end; ++t) {
     const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
     const int ch = t0 / edge_block;
     T* dpre_s = dpre + smp * e_stride;
     const DynFiber<T> dyn = dyn_all.sample(smp);
-    if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
-                                receivers, chunk_block, e_pad, window, s_row,
-                                s_recv, s_loc, fib, dyn)) {
+    if (!tile_slots<P, BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
+                                   receivers, chunk_block, e_pad, window,
+                                   s_row, s_recv, s_loc, fib, dyn)) {
       // A dead tile: every slot's cotangent is zero.
       for (int i = tid; i < TR * C; i += NT) store(&dpre_s[(size_t)t0 * C + i], 0.f);
       continue;
@@ -481,19 +575,19 @@ __device__ __forceinline__ void edge_bwd_tiles(
 
     // Recompute: relu(pre) into hs[0], the tail keeping each layer's
     // input, the LayerNorm output into d.
-    tile_front<T, BF16, F>(t0, src + smp * (WIN ? x_stride : e_stride),
-                           xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
-                           s_row, s_recv, hs, dyn);
+    tile_front<P, T, BF16, F>(t0, src + smp * (WIN ? x_stride : e_stride),
+                              xj == nullptr ? xj : xj + smp * x_stride, wf,
+                              fib, s_row, s_recv, hs, dyn);
     for (int l = 0; l < n_layers; ++l) {
-      float acc[RW][4] = {};
+      float acc[RW][4 * V] = {};
       const float* in = hs + (size_t)l * TR * C;
-      gemm_rows(acc, in, W + (size_t)l * C * C,
-                l + 1 < n_layers ? W + (size_t)(l + 1) * C * C
-                                 : WT + (size_t)(n_layers - 1) * C * C,
-                wslab);
+      gemm_rows<P>(acc, in, W + (size_t)l * C * C,
+                   l + 1 < n_layers ? W + (size_t)(l + 1) * C * C
+                                    : WT + (size_t)(n_layers - 1) * C * C,
+                   wslab);
       const bool last = l == n_layers - 1;
-      store_rows(acc, B + l * C, last ? d : hs + (size_t)(l + 1) * TR * C,
-                 !last, BF16 && !last);
+      store_rows<P>(acc, B + l * C, last ? d : hs + (size_t)(l + 1) * TR * C,
+                    !last, BF16 && !last);
     }
     __syncthreads();
     // The LayerNorm of each row, then its backward for the edge cotangent
@@ -501,29 +595,41 @@ __device__ __forceinline__ void edge_bwd_tiles(
     // mode; zero on masked slots), in the same warp and row; the g rows of
     // each group are loaded first.
     for (int j0 = 0; j0 < RW; j0 += HB) {
-      float4 gv[HB];
+      float4 gv[HB][V];
 #pragma unroll
       for (int j = 0; j < HB; ++j) {
         const int r = warp + (j0 + j) * NW;
-        gv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (s_loc[r] >= 0)
-          gv[j] = reinterpret_cast<const float4*>(g_s + (size_t)s_recv[r] * C)[lane];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          gv[j][v] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (s_loc[r] >= 0)
+            gv[j][v] = reinterpret_cast<const float4*>(
+                g_s + (size_t)s_recv[r] * C)[lane + 32 * v];
+        }
       }
 #pragma unroll
       for (int j = 0; j < HB; ++j) {
         const int r = warp + (j0 + j) * NW;
-        float4 v = reinterpret_cast<float4*>(d + r * C)[lane];
-        const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-        v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-        const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-        const float iv = 1.0f / sqrtf(var + LN_EPS);
-        v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
-        float4 gr = gv[j];
-        if (BF16) {
-          gr.x = round_bf16(gr.x); gr.y = round_bf16(gr.y);
-          gr.z = round_bf16(gr.z); gr.w = round_bf16(gr.w);
+        float4 v[V];
+#pragma unroll
+        for (int vv = 0; vv < V; ++vv)
+          v[vv] = reinterpret_cast<float4*>(d + r * C)[lane + 32 * vv];
+        const float iv = ln_center<V>(v);
+#pragma unroll
+        for (int vv = 0; vv < V; ++vv) {
+          v[vv].x *= iv; v[vv].y *= iv; v[vv].z *= iv; v[vv].w *= iv;
+          if (BF16) {
+            gv[j][vv].x = round_bf16(gv[j][vv].x);
+            gv[j][vv].y = round_bf16(gv[j][vv].y);
+            gv[j][vv].z = round_bf16(gv[j][vv].z);
+            gv[j][vv].w = round_bf16(gv[j][vv].w);
+          }
         }
-        reinterpret_cast<float4*>(d + r * C)[lane] = ln_bwd(gr, v, iv);
+        float4 out[V];
+        ln_bwd_row<V>(gv[j], v, iv, out);
+#pragma unroll
+        for (int vv = 0; vv < V; ++vv)
+          reinterpret_cast<float4*>(d + r * C)[lane + 32 * vv] = out[vv];
       }
     }
 
@@ -532,50 +638,52 @@ __device__ __forceinline__ void edge_bwd_tiles(
     for (int l = n_layers - 1; l >= 0; --l) {
       const float* h = hs + (size_t)l * TR * C;
       __syncthreads();
-      if (tid < C) {
+      for (int c = tid; c < C; c += NT) {
         float s = 0.f;
-        for (int r = 0; r < TR; ++r) s += d[r * C + tid];
-        gp_b[l * C + tid] = first ? s : gp_b[l * C + tid] + s;
+        for (int r = 0; r < TR; ++r) s += d[r * C + c];
+        gp_b[l * C + c] = first ? s : gp_b[l * C + c] + s;
       }
       // (In f32 nothing writes d before the barrier of dh's first slab.)
-      if (BF16) round_tile(d);
-      gemm_tn_store(h, d, gp + (size_t)l * C * C, !first);
-      float dh[RW][4] = {};
-      gemm_rows(dh, d, WT + (size_t)l * C * C,
-                l > 0 ? WT + (size_t)(l - 1) * C * C : W, wslab);
-      store_rows_masked(dh, h, d);
+      if (BF16) round_tile<P>(d);
+      gemm_tn_store<P>(h, d, gp + (size_t)l * C * C, !first);
+      float dh[RW][4 * V] = {};
+      gemm_rows<P>(dh, d, WT + (size_t)l * C * C,
+                   l > 0 ? WT + (size_t)(l - 1) * C * C : W, wslab);
+      store_rows_masked<P>(dh, h, d);
     }
     if constexpr (DYN) {
       // dwf_nrm from dpre before any rounding (the TPU kernel's f32 sum).
       __syncthreads();
-      if (tid < C) {
+      for (int c = tid; c < C; c += NT) {
         float s = 0.f;
-        for (int r = 0; r < TR; ++r) s = fmaf(nrm[r], d[r * C + tid], s);
-        gp_n[tid] = first ? s : gp_n[tid] + s;
+        for (int r = 0; r < TR; ++r) s = fmaf(nrm[r], d[r * C + c], s);
+        gp_n[c] = first ? s : gp_n[c] + s;
       }
     }
     // d is now dpre: stored (bf16 in BF16 mode, which is also the operand
     // of the dwf8 and dwf_dyn sums), then dwf8 = the fiber stream's rows
     // times dpre and, with kDyn, dwf_dyn = Δ's rows times dpre.
-    if (BF16) round_tile(d);
+    if (BF16) round_tile<P>(d);
     else __syncthreads();
     for (int i = tid; i < TR * C; i += NT) store(&dpre_s[(size_t)t0 * C + i], d[i]);
     if constexpr (WIN)
-      for (int k = warp; k < (DYN ? 8 + wd : 8); k += NW) {
-        const int j0 = lane * 4;
-        const float* fk = k < 8 ? fib + k * TR : delta + (k - 8) * TR;
-        float s[4] = {};
-        for (int r = 0; r < TR; ++r) {
-          const float f = fk[r];
-          const float4 v = *reinterpret_cast<const float4*>(d + r * C + j0);
-          s[0] = fmaf(f, v.x, s[0]); s[1] = fmaf(f, v.y, s[1]);
-          s[2] = fmaf(f, v.z, s[2]); s[3] = fmaf(f, v.w, s[3]);
+      for (int k = warp; k < (DYN ? 8 + wd : 8); k += NW)
+#pragma unroll
+        for (int vv = 0; vv < V; ++vv) {
+          const int j0 = lane * 4 + 128 * vv;
+          const float* fk = k < 8 ? fib + k * TR : delta + (k - 8) * TR;
+          float s[4] = {};
+          for (int r = 0; r < TR; ++r) {
+            const float f = fk[r];
+            const float4 v = *reinterpret_cast<const float4*>(d + r * C + j0);
+            s[0] = fmaf(f, v.x, s[0]); s[1] = fmaf(f, v.y, s[1]);
+            s[2] = fmaf(f, v.z, s[2]); s[3] = fmaf(f, v.w, s[3]);
+          }
+          float4* p = reinterpret_cast<float4*>(
+              (k < 8 ? gp_f + k * C : gp_d + (k - 8) * C) + j0);
+          const float4 o = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
+          *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
         }
-        float4* p = reinterpret_cast<float4*>(
-            (k < 8 ? gp_f + k * C : gp_d + (k - 8) * C) + j0);
-        const float4 o = first ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
-        *p = make_float4(o.x + s[0], o.y + s[1], o.z + s[2], o.w + s[3]);
-      }
     first = false;
   }
   if (first)  // no live tile in the range: a zero partial
@@ -583,19 +691,25 @@ __device__ __forceinline__ void edge_bwd_tiles(
   cp_async_wait_all();  // the next tile's first slab, never used
 }
 
-// Blocks of one SM the walk reaches for `kernel` at n_layers (the launch
-// bounds, registers and shared memory decide), after raising its
-// shared-memory limit to the most any layer count needs.
-template <typename K>
-cudaError_t walk_blocks_per_sm(K kernel, int n_layers, Front f, int* out) {
-  const cudaError_t attr = cudaFuncSetAttribute(
+// The shared-memory limit of a walk kernel of plan P with front f: what
+// its deepest walk holds (max_layers), so one setting serves every depth.
+template <class P, typename K>
+cudaError_t raise_smem_limit(K kernel, Front f) {
+  return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(MAX_LAYERS, f));
+      (int)smem_bytes<P>(max_layers<P>(f), f));
+}
+
+// Blocks of one SM the walk reaches for `kernel` (plan P) at n_layers (the
+// launch bounds, registers and shared memory decide), after raising its
+// shared-memory limit.
+template <class P, typename K>
+cudaError_t walk_blocks_per_sm(K kernel, int n_layers, Front f, int* out) {
+  const cudaError_t attr = raise_smem_limit<P>(kernel, f);
   if (attr != cudaSuccess) return attr;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kernel, NT, smem_bytes(n_layers, f));
+      out, kernel, NT, smem_bytes<P>(n_layers, f));
 }
 
 }  // namespace tiles
 }  // namespace bsms
-

@@ -60,6 +60,10 @@
 //   KB more: the fiber weights and stream; kDyn 3.75 KB more again: wf_dyn,
 //   wf_nrm, the tile's Δ and ‖Δ‖), so two blocks fit on an SM: one block's
 //   loads of the front overlap the other's products.
+// - Width (edge_bwd_tiles.cuh's `Plan`): C = 128 walks `Base` (64-slot
+//   tiles, 64-row slabs) at any depth (the forward keeps no layer inputs);
+//   C = 256 walks `WideFwd` (32-slot tiles, 32-row slabs: 105 KB, still two
+//   blocks an SM), each lane 4 columns of each 128-column half.
 #pragma once
 
 #include "edge_bwd_tiles.cuh"
@@ -72,12 +76,25 @@ constexpr int FWD_MIN_BLOCKS = 2;
 // Shared memory of the forward walk: the tile, two weight slabs, with kWin
 // and kDyn the fiber weights and stream, with kDyn also wf_dyn, wf_nrm and
 // the tile's Δ and ‖Δ‖, then the three int tables of the tile's slots.
+template <class P>
 constexpr size_t fwd_smem_bytes(Front f) {
-  return sizeof(float) * ((size_t)TR * C + 2 * KS * C +
-                          (f != Front::kStream ? 8 * C + 8 * TR : 0) +
-                          (f == Front::kDyn
-                               ? MAX_WD * C + C + MAX_WD * TR + TR : 0)) +
-         sizeof(int) * 3 * TR;
+  return sizeof(float) * ((size_t)P::TR * P::C + 2 * P::KS * P::C +
+                          (f != Front::kStream ? 8 * P::C + 8 * P::TR : 0) +
+                          (f == Front::kDyn ? MAX_WD * P::C + P::C +
+                                                  MAX_WD * P::TR + P::TR
+                                            : 0)) +
+         sizeof(int) * 3 * P::TR;
+}
+
+// Calls fn(P{}) with the forward walk's plan for a latent width, or
+// returns cudaErrorInvalidValue. WIDE: whether the caller instantiates
+// C = 256.
+template <bool WIDE, typename Fn>
+int with_fwd_plan(int width, Fn&& fn) {
+  if (width == Base::C) return fn(Base{});
+  if constexpr (WIDE)
+    if (width == WideFwd::C) return fn(WideFwd{});
+  return (int)cudaErrorInvalidValue;
 }
 
 // Stores 4 columns of a message row (bf16 in BF16 mode: the LN output
@@ -103,7 +120,7 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 // activations' type, written on live slots only. With n_batch samples,
 // sample s's xj and (kWin, kDyn) xwi start s·x_stride elements in, its msg
 // and (kStream) src s·e_stride, its positions (kDyn) s·p_stride.
-template <typename T, bool BF16, Front F>
+template <class P, typename T, bool BF16, Front F>
 __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
     const T* __restrict__ xj, const float* __restrict__ wf8,
@@ -115,12 +132,13 @@ __device__ __forceinline__ void edge_fwd_tiles(
     const float* __restrict__ wfd_g = nullptr,
     const float* __restrict__ wfn_g = nullptr, int wd = 0, int n_batch = 1,
     size_t x_stride = 0, size_t e_stride = 0, size_t p_stride = 0) {
+  constexpr int C = P::C, TR = P::TR, RW = P::RW, V = P::V;
   constexpr bool WIN = F != Front::kStream;
   constexpr bool DYN = F == Front::kDyn;
   extern __shared__ float4 smem4[];
   float* h = reinterpret_cast<float*>(smem4);  // [TR][C] the tile's rows
   float* wslab = h + TR * C;                    // [2][KS][C] weight slabs
-  float* wf = wslab + 2 * KS * C;               // WIN: [8][C] fiber weights
+  float* wf = wslab + 2 * P::KS * C;            // WIN: [8][C] fiber weights
   float* fib = wf + (WIN ? 8 * C : 0);          // WIN: [8][TR] fiber stream
   float* wfd = fib + (WIN ? 8 * TR : 0);        // DYN: [MAX_WD][C] wf_dyn
   float* wfn = wfd + (DYN ? MAX_WD * C : 0);    // DYN: [C] wf_nrm
@@ -140,56 +158,61 @@ __device__ __forceinline__ void edge_fwd_tiles(
     for (int i = tid; i < C; i += NT) wfn[i] = wfn_g[i];
   }
   const DynFiber<T> dyn_all{pos, wd, wfd, wfn, delta, nrm, p_stride};
-  copy_slab(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
+  copy_slab<P>(W, 0, wslab);  // the first GEMM's first slab (see gemm_rows)
 
   const int total = n_tiles * n_batch;
   for (int t = b; t < total; t += G) {  // see the header
     const int smp = t / n_tiles, t0 = (t - smp * n_tiles) * TR;
     const int ch = t0 / edge_block;
     const DynFiber<T> dyn = dyn_all.sample(smp);
-    if (!tile_slots<BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
-                                receivers, chunk_block, e_pad, window, s_row,
-                                s_recv, s_loc, fib, dyn))
+    if (!tile_slots<P, BF16, F, T>(t0, ch, fiber_t, send_win, win_base,
+                                   receivers, chunk_block, e_pad, window,
+                                   s_row, s_recv, s_loc, fib, dyn))
       continue;  // a dead tile: no message of it is listed
-    tile_front<T, BF16, F>(t0, xwi + smp * (WIN ? x_stride : e_stride),
-                           xj == nullptr ? xj : xj + smp * x_stride, wf, fib,
-                           s_row, s_recv, h, dyn);
+    tile_front<P, T, BF16, F>(t0, xwi + smp * (WIN ? x_stride : e_stride),
+                              xj == nullptr ? xj : xj + smp * x_stride, wf,
+                              fib, s_row, s_recv, h, dyn);
     T* msg_s = msg + smp * e_stride;
     for (int l = 0; l < n_layers; ++l) {
-      float acc[RW][4] = {};
-      gemm_rows(acc, h, W + (size_t)l * C * C,
-                W + (l + 1 < n_layers ? (size_t)(l + 1) * C * C : 0), wslab);
+      float acc[RW][4 * V] = {};
+      gemm_rows<P>(acc, h, W + (size_t)l * C * C,
+                   W + (l + 1 < n_layers ? (size_t)(l + 1) * C * C : 0),
+                   wslab);
       const bool last = l == n_layers - 1;
-      store_rows(acc, B + l * C, h, !last, BF16 && !last);
+      store_rows<P>(acc, B + l * C, h, !last, BF16 && !last);
     }
     // The LayerNorm of each of the warp's own rows (gemm_rows' layout, so
     // no barrier), then each live slot's message row.
 #pragma unroll
     for (int i = 0; i < RW; ++i) {
       const int r = RW * warp + i;
-      float4 v = reinterpret_cast<const float4*>(h + r * C)[lane];
-      const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-      v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-      const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-      const float iv = 1.0f / sqrtf(var + LN_EPS);
-      v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
-      if (s_loc[r] >= 0) store4(msg_s + (size_t)(t0 + r) * C + 4 * lane, v);
+      float4 v[V];
+#pragma unroll
+      for (int vv = 0; vv < V; ++vv)
+        v[vv] = reinterpret_cast<const float4*>(h + r * C)[lane + 32 * vv];
+      const float iv = ln_center<V>(v);
+#pragma unroll
+      for (int vv = 0; vv < V; ++vv) {
+        v[vv].x *= iv; v[vv].y *= iv; v[vv].z *= iv; v[vv].w *= iv;
+        if (s_loc[r] >= 0)
+          store4(msg_s + (size_t)(t0 + r) * C + 4 * lane + 128 * vv, v[vv]);
+      }
     }
   }
   cp_async_wait_all();  // the next tile's first slab, never used
 }
 
-// Blocks of one SM the forward walk with front f reaches for `kernel` (the
-// launch bounds, registers and shared memory decide), after raising its
-// shared-memory limit.
-template <typename K>
+// Blocks of one SM the forward walk (plan P) with front f reaches for
+// `kernel` (the launch bounds, registers and shared memory decide), after
+// raising its shared-memory limit.
+template <class P, typename K>
 cudaError_t fwd_blocks_per_sm(K kernel, Front f, int* out) {
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)fwd_smem_bytes(f));
+      (int)fwd_smem_bytes<P>(f));
   if (attr != cudaSuccess) return attr;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, NT,
-                                                       fwd_smem_bytes(f));
+                                                       fwd_smem_bytes<P>(f));
 }
 
 }  // namespace tiles

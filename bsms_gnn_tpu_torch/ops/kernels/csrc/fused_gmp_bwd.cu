@@ -9,7 +9,8 @@
 // partials (dW, db, dwf8) in block order. A batch over the one level
 // (xwi, xj, g [B][n_pad][C]; dpre [B][E_pad][C], dxj [B][n_pad][C]) is
 // one launch of each: the walk over B·T tiles, the gather with the batch
-// as its grid's y extent.
+// as its grid's y extent. The walk's plan follows the latent width (128 or
+// 256) and the tail layers (edge_bwd_tiles.cuh's `with_bwd_plan`).
 #include "edge_bwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -17,7 +18,7 @@ using namespace bsms;
 
 namespace {
 
-template <typename T, bool BF16>
+template <class P, typename T, bool BF16>
 __global__ void __launch_bounds__(tiles::NT, tiles::MIN_BLOCKS)
 fused_edge_phase_win_bwd_kernel(
     const float* __restrict__ fiber_t, const T* __restrict__ xwi,
@@ -29,19 +30,24 @@ fused_edge_phase_win_bwd_kernel(
     int n_tiles, int e_pad, int edge_block, int window,
     float* __restrict__ gpart, T* __restrict__ dpre, int n_batch,
     size_t x_stride, size_t e_stride) {
-  tiles::edge_bwd_tiles<T, BF16, Front::kWin>(
+  tiles::edge_bwd_tiles<P, T, BF16, Front::kWin>(
       fiber_t, xwi, xj, wf8, W, B, WT, g, n_layers, send_win, win_base,
       receivers, chunk_block, n_tiles, e_pad, edge_block, window, gpart,
       dpre, nullptr, nullptr, nullptr, 0, n_batch, x_stride, e_stride);
 }
 
 template <typename T, bool BF16>
-int blocks_per_sm(int n_layers, int* out) {
-  return (int)tiles::walk_blocks_per_sm(
-      fused_edge_phase_win_bwd_kernel<T, BF16>, n_layers, Front::kWin, out);
+int blocks_per_sm(int width, int n_layers, int* out) {
+  return tiles::with_bwd_plan<true>(width, n_layers, Front::kWin,
+                                    [&](auto p) {
+    using P = decltype(p);
+    return (int)tiles::walk_blocks_per_sm<P>(
+        fused_edge_phase_win_bwd_kernel<P, T, BF16>, n_layers, Front::kWin,
+        out);
+  });
 }
 
-template <typename T, bool BF16>
+template <class P, typename T, bool BF16>
 int launch(const void* fiber_t, const void* xwi, const void* xj,
            const void* wf8, const void* W, const void* B, const void* WT,
            const void* g, const void* send_win, const void* win_base,
@@ -50,20 +56,20 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
            int window, int n_rows, int n_long, int piece, int n_batch,
            void* gpart, void* dpre, void* dxj, void* grads, void* stream) {
-  if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
-      n_layers < 1 || n_layers > tiles::MAX_LAYERS || n_batch < 1 ||
-      n_batch > MAX_BATCH || (long long)n_tiles * n_batch > INT_MAX ||
-      grid < 1 || grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 ||
-      piece < 1)
+  constexpr int C = P::C;
+  if (edge_block % P::TR || n_tiles * P::TR != e_pad ||
+      n_layers < 1 || n_layers > tiles::max_layers<P>(Front::kWin) ||
+      n_batch < 1 || n_batch > MAX_BATCH ||
+      (long long)n_tiles * n_batch > INT_MAX || grid < 1 ||
+      grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 || piece < 1)
     return (int)cudaErrorInvalidValue;
   const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C;
-  auto kernel = fused_edge_phase_win_bwd_kernel<T, BF16>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles::smem_bytes(tiles::MAX_LAYERS, Front::kWin));
+  auto kernel = fused_edge_phase_win_bwd_kernel<P, T, BF16>;
+  static const cudaError_t attr =
+      tiles::raise_smem_limit<P>(kernel, Front::kWin);
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = tiles::smem_bytes(n_layers, Front::kWin);
+  const size_t smem = tiles::smem_bytes<P>(n_layers, Front::kWin);
   kernel<<<grid, tiles::NT, smem, s>>>(
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, (const float*)WT, (const float*)g,
@@ -73,37 +79,41 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       e_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
-                                THREADS, 0, s>>>(
-      (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)dxj, e_stride, x_stride);
+  recv_gather_kernel<T, BF16, C><<<
+      gather_grid(n_rows, n_long, n_batch, WARP_ROWS, P::V), THREADS, 0,
+      s>>>((const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
+           (const int*)long_rows, n_rows, piece, (float*)dxj, e_stride,
+           x_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
-                              tiles::grad_size(n_layers, Front::kWin),
+                              tiles::grad_size<P>(n_layers, Front::kWin),
                               (float*)grads, s);
 }
 
 }  // namespace
 
 #define FUSED_EDGE_PHASE_WIN_BWD(NAME, T, BF16)                               \
-  extern "C" int NAME##_blocks_per_sm(int n_layers, int* out) {              \
-    return blocks_per_sm<T, BF16>(n_layers, out);                             \
+  extern "C" int NAME##_blocks_per_sm(int width, int n_layers, int* out) {   \
+    return blocks_per_sm<T, BF16>(width, n_layers, out);                      \
   }                                                                           \
   extern "C" int NAME(                                                        \
       const void* fiber_t, const void* xwi, const void* xj, const void* wf8,  \
       const void* W, const void* B, const void* WT, const void* g,            \
       const void* send_win, const void* win_base, const void* receivers,      \
       const void* chunk_block, const void* row_ptr, const void* row_slots,    \
-      const void* long_rows, int n_layers, int grid, int n_tiles, int e_pad,  \
-      int edge_block, int window, int n_rows, int n_long, int piece,          \
-      int n_batch, void* gpart, void* dpre, void* dxj, void* grads,           \
-      void* stream) {                                                         \
-    return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, WT, g, send_win,      \
-                           win_base, receivers, chunk_block, row_ptr,         \
-                           row_slots, long_rows, n_layers, grid, n_tiles,     \
-                           e_pad, edge_block, window, n_rows, n_long, piece,  \
-                           n_batch, gpart, dpre, dxj, grads, stream);         \
+      const void* long_rows, int width, int n_layers, int grid, int n_tiles,  \
+      int e_pad, int edge_block, int window, int n_rows, int n_long,          \
+      int piece, int n_batch, void* gpart, void* dpre, void* dxj,             \
+      void* grads, void* stream) {                                            \
+    return tiles::with_bwd_plan<true>(                                        \
+        width, n_layers, Front::kWin, [&](auto p) {                           \
+          return launch<decltype(p), T, BF16>(                                \
+              fiber_t, xwi, xj, wf8, W, B, WT, g, send_win, win_base,         \
+              receivers, chunk_block, row_ptr, row_slots, long_rows,          \
+              n_layers, grid, n_tiles, e_pad, edge_block, window, n_rows,     \
+              n_long, piece, n_batch, gpart, dpre, dxj, grads, stream);       \
+        });                                                                   \
   }
 
 FUSED_EDGE_PHASE_WIN_BWD(fused_edge_phase_win_bwd_f32, float, false)

@@ -35,7 +35,7 @@ fused_edge_phase_win_k_kernel(
     const int* __restrict__ receivers, const int* __restrict__ chunk_block,
     int n_tiles, int e_pad, int edge_block, int window, T* __restrict__ msg,
     int n_batch, size_t x_stride, size_t e_stride) {
-  tiles::edge_fwd_tiles<T, BF16, Front::kWin>(
+  tiles::edge_fwd_tiles<tiles::Base, T, BF16, Front::kWin>(
       fiber_t, xwi, xj, wf8, W, B, n_layers, send_win, win_base, receivers,
       chunk_block, n_tiles, e_pad, edge_block, window, msg, nullptr, nullptr,
       nullptr, 0, n_batch, x_stride, e_stride);
@@ -43,7 +43,8 @@ fused_edge_phase_win_k_kernel(
 
 template <typename T, bool BF16>
 int blocks_per_sm(int* out) {
-  return (int)tiles::fwd_blocks_per_sm(fused_edge_phase_win_k_kernel<T, BF16>,
+  return (int)tiles::fwd_blocks_per_sm<tiles::Base>(
+      fused_edge_phase_win_k_kernel<T, BF16>,
                                        Front::kWin, out);
 }
 
@@ -56,7 +57,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            int grid, int n_tiles, int e_pad, int edge_block, int window,
            int n_rows, int n_long, int piece, int n_batch, void* msg,
            void* out, void* stream) {
-  if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
+  if (edge_block % tiles::Base::TR || n_tiles * tiles::Base::TR != e_pad ||
       n_layers < 1 || n_batch < 1 || n_batch > MAX_BATCH ||
       (long long)n_tiles * n_batch > INT_MAX || grid < 1 ||
       grid > n_tiles * n_batch || n_rows < 1 || n_long < 0 || piece < 1)
@@ -65,10 +66,10 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
   auto kernel = fused_edge_phase_win_k_kernel<T, BF16>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tiles::fwd_smem_bytes(Front::kWin));
+      (int)tiles::fwd_smem_bytes<tiles::Base>(Front::kWin));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = tiles::fwd_smem_bytes(Front::kWin);
+  const size_t smem = tiles::fwd_smem_bytes<tiles::Base>(Front::kWin);
   kernel<<<grid, tiles::NT, smem, s>>>(
       (const float*)fiber_t, (const T*)xwi, (const T*)xj, (const float*)wf8,
       (const float*)W, (const float*)B, n_layers, (const int*)send_win,
@@ -87,24 +88,27 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
 }  // namespace
 
 #define FUSED_EDGE_PHASE_WIN_K(NAME, T, BF16)                                 \
-  extern "C" int NAME##_blocks_per_sm(int n_layers, int* out) {              \
+  extern "C" int NAME##_blocks_per_sm(int width, int n_layers, int* out) {   \
     (void)n_layers; /* the walk's shared memory is the same at any depth */  \
-    return blocks_per_sm<T, BF16>(out);                                       \
+    return tiles::with_fwd_plan<false>(                                       \
+        width, [&](auto) { return blocks_per_sm<T, BF16>(out); });            \
   }                                                                           \
   extern "C" int NAME(const void* fiber_t, const void* xwi, const void* xj,  \
                       const void* wf8, const void* W, const void* B,         \
                       const void* send_win, const void* win_base,            \
                       const void* receivers, const void* chunk_block,        \
                       const void* row_ptr, const void* row_slots,            \
-                      const void* long_rows, int n_layers, int grid,         \
-                      int n_tiles, int e_pad, int edge_block, int window,    \
-                      int n_rows, int n_long, int piece, int n_batch,        \
-                      void* msg, void* out, void* stream) {                  \
-    return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, send_win, win_base,  \
-                           receivers, chunk_block, row_ptr, row_slots,       \
-                           long_rows, n_layers, grid, n_tiles, e_pad,        \
-                           edge_block, window, n_rows, n_long, piece,        \
-                           n_batch, msg, out, stream);                       \
+                      const void* long_rows, int width, int n_layers,        \
+                      int grid, int n_tiles, int e_pad, int edge_block,      \
+                      int window, int n_rows, int n_long, int piece,         \
+                      int n_batch, void* msg, void* out, void* stream) {     \
+    return tiles::with_fwd_plan<false>(width, [&](auto) {                     \
+      return launch<T, BF16>(fiber_t, xwi, xj, wf8, W, B, send_win,          \
+                             win_base, receivers, chunk_block, row_ptr,      \
+                             row_slots, long_rows, n_layers, grid, n_tiles,  \
+                             e_pad, edge_block, window, n_rows, n_long,      \
+                             piece, n_batch, msg, out, stream);              \
+    });                                                                       \
   }
 
 FUSED_EDGE_PHASE_WIN_K(fused_edge_phase_win_k_f32, float, false)

@@ -37,7 +37,8 @@ fused_edge_phase_kernel(const T* __restrict__ zi, const T* __restrict__ xj,
                         const int* __restrict__ chunk_block, int n_tiles,
                         int e_pad, int edge_block, T* __restrict__ msg,
                         int n_batch, size_t x_stride, size_t e_stride) {
-  tiles::edge_fwd_tiles<T, BF16, F>(nullptr, zi, xj, nullptr, W, B, n_layers,
+  tiles::edge_fwd_tiles<tiles::Base, T, BF16, F>(
+      nullptr, zi, xj, nullptr, W, B, n_layers,
                                     nullptr, nullptr, receivers, chunk_block,
                                     n_tiles, e_pad, edge_block, 0, msg,
                                     nullptr, nullptr, nullptr, 0, n_batch,
@@ -57,7 +58,8 @@ fused_edge_mlp_aggregate_kernel(const T* __restrict__ pre,
                                 int n_tiles, int e_pad, int edge_block,
                                 T* __restrict__ msg, int n_batch,
                                 size_t x_stride, size_t e_stride) {
-  tiles::edge_fwd_tiles<T, BF16, F>(nullptr, pre, nullptr, nullptr, W, B,
+  tiles::edge_fwd_tiles<tiles::Base, T, BF16, F>(
+      nullptr, pre, nullptr, nullptr, W, B,
                                     n_layers, nullptr, nullptr, receivers,
                                     chunk_block, n_tiles, e_pad, edge_block,
                                     0, msg, nullptr, nullptr, nullptr, 0,
@@ -72,7 +74,8 @@ auto kernel_of() {
 
 template <bool V2, typename T, bool BF16>
 int blocks_per_sm(int* out) {
-  return (int)tiles::fwd_blocks_per_sm(kernel_of<V2, T, BF16>(), F, out);
+  return (int)tiles::fwd_blocks_per_sm<tiles::Base>(kernel_of<V2, T, BF16>(),
+                                                    F, out);
 }
 
 // V2: kernel 12 (src = zi, with xj), else kernel 11 (src = pre, xj null).
@@ -83,7 +86,7 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
            int n_layers, int grid, int n_tiles, int e_pad, int edge_block,
            int n_rows, int n_long, int piece, int n_batch, void* msg,
            void* out, void* stream) {
-  if (edge_block % tiles::TR || n_tiles * tiles::TR != e_pad ||
+  if (edge_block % tiles::Base::TR || n_tiles * tiles::Base::TR != e_pad ||
       n_layers < 1 || n_batch < 1 || n_batch > MAX_BATCH ||
       (long long)n_tiles * n_batch > INT_MAX || grid < 1 ||
       grid > n_tiles * n_batch || (xj != nullptr) != V2 || n_rows < 1 ||
@@ -91,7 +94,7 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
     return (int)cudaErrorInvalidValue;
   const size_t x_stride = (size_t)n_rows * C, e_stride = (size_t)e_pad * C;
   auto kernel = kernel_of<V2, T, BF16>();
-  constexpr size_t smem = tiles::fwd_smem_bytes(F);
+  constexpr size_t smem = tiles::fwd_smem_bytes<tiles::Base>(F);
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -112,40 +115,48 @@ int launch(const void* src, const void* xj, const void* W, const void* B,
 }  // namespace
 
 #define FUSED_EDGE_PHASE(NAME, T, BF16)                                       \
-  extern "C" int NAME##_blocks_per_sm(int n_layers, int* out) {              \
+  extern "C" int NAME##_blocks_per_sm(int width, int n_layers, int* out) {   \
     (void)n_layers; /* the walk's shared memory is the same at any depth */  \
-    return blocks_per_sm<true, T, BF16>(out);                                 \
+    return tiles::with_fwd_plan<false>(                                       \
+        width, [&](auto) { return blocks_per_sm<true, T, BF16>(out); });      \
   }                                                                           \
   extern "C" int NAME(const void* zi, const void* xj, const void* W,         \
                       const void* B, const void* receivers,                  \
                       const void* chunk_block, const void* row_ptr,          \
                       const void* row_slots, const void* long_rows,          \
-                      int n_layers, int grid, int n_tiles, int e_pad,        \
-                      int edge_block, int n_rows, int n_long, int piece,     \
-                      int n_batch, void* msg, void* out, void* stream) {     \
-    return launch<true, T, BF16>(zi, xj, W, B, receivers, chunk_block,       \
-                                 row_ptr, row_slots, long_rows, n_layers,    \
-                                 grid, n_tiles, e_pad, edge_block, n_rows,   \
-                                 n_long, piece, n_batch, msg, out, stream);  \
+                      int width, int n_layers, int grid, int n_tiles,        \
+                      int e_pad, int edge_block, int n_rows, int n_long,     \
+                      int piece, int n_batch, void* msg, void* out,          \
+                      void* stream) {                                        \
+    return tiles::with_fwd_plan<false>(width, [&](auto) {                     \
+      return launch<true, T, BF16>(zi, xj, W, B, receivers, chunk_block,     \
+                                   row_ptr, row_slots, long_rows, n_layers,  \
+                                   grid, n_tiles, e_pad, edge_block, n_rows, \
+                                   n_long, piece, n_batch, msg, out,         \
+                                   stream);                                  \
+    });                                                                       \
   }
 
 #define FUSED_EDGE_MLP_AGGREGATE(NAME, T, BF16)                               \
-  extern "C" int NAME##_blocks_per_sm(int n_layers, int* out) {              \
+  extern "C" int NAME##_blocks_per_sm(int width, int n_layers, int* out) {   \
     (void)n_layers;                                                           \
-    return blocks_per_sm<false, T, BF16>(out);                                \
+    return tiles::with_fwd_plan<false>(                                       \
+        width, [&](auto) { return blocks_per_sm<false, T, BF16>(out); });     \
   }                                                                           \
   extern "C" int NAME(const void* pre, const void* W, const void* B,         \
                       const void* receivers, const void* chunk_block,        \
                       const void* row_ptr, const void* row_slots,            \
-                      const void* long_rows, int n_layers, int grid,         \
-                      int n_tiles, int e_pad, int edge_block, int n_rows,    \
-                      int n_long, int piece, int n_batch, void* msg,         \
-                      void* out, void* stream) {                             \
-    return launch<false, T, BF16>(pre, nullptr, W, B, receivers,             \
-                                  chunk_block, row_ptr, row_slots,           \
-                                  long_rows, n_layers, grid, n_tiles, e_pad, \
-                                  edge_block, n_rows, n_long, piece,         \
-                                  n_batch, msg, out, stream);                \
+                      const void* long_rows, int width, int n_layers,        \
+                      int grid, int n_tiles, int e_pad, int edge_block,      \
+                      int n_rows, int n_long, int piece, int n_batch,        \
+                      void* msg, void* out, void* stream) {                  \
+    return tiles::with_fwd_plan<false>(width, [&](auto) {                     \
+      return launch<false, T, BF16>(pre, nullptr, W, B, receivers,           \
+                                    chunk_block, row_ptr, row_slots,         \
+                                    long_rows, n_layers, grid, n_tiles,      \
+                                    e_pad, edge_block, n_rows, n_long,       \
+                                    piece, n_batch, msg, out, stream);       \
+    });                                                                       \
   }
 
 FUSED_EDGE_PHASE(fused_edge_phase_f32, float, false)

@@ -12,6 +12,12 @@
 // own threads (kernel 6: NT threads of 2 rows by 4 columns; kernels 3 and
 // 10: NT / 2 threads of RT rows by 4, `node_cluster_fwd.cuh`), so the
 // copies below take the CTA's thread count NTH (and the tile's rows).
+//
+// Width: kernels 3 and 6 take a latent width CW of 128 or 256 (a template
+// parameter, C = 128 by default, which kernel 10 keeps). Each CTA keeps SW
+// = 32 output columns, so a tile's cluster is CW / SW CTAs (4 at 128, 8 at
+// 256: the portable cluster limit) and the full tile's rows are padded to
+// CW + 4 floats (`cl_of`, `as_of`).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -30,6 +36,11 @@ constexpr int AS = C + 4;   // padded row stride of the full tile
 constexpr int NT = THREADS;  // threads per CTA of kernel 6
 static_assert(TILE == 64 && SW == 32 && NT == 256,
               "node_mlp.ROWS is TILE, node_mlp.CLUSTER is CL");
+
+// CTAs of a tile's cluster and the full tile's padded row stride at
+// latent width cw.
+__host__ __device__ constexpr int cl_of(int cw) { return cw / SW; }
+__host__ __device__ constexpr int as_of(int cw) { return cw + 4; }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -77,58 +88,71 @@ __device__ __forceinline__ void cluster_wait() {
 // together, before its stores. NTH: the CTA's threads; ROWS: the tile's.
 // BY_ROWS: each CTA's slice holds rows [p·ROWS/CL, (p+1)·ROWS/CL) of all C
 // columns instead (A[p·ROWS/CL + r][c] = slice(p)[r][c]; the same floats).
-template <int NTH = NT, int ROWS = TILE, bool BY_ROWS = false>
+// CW: the latent width (cl_of(CW) CTAs); each thread's loads of up to four
+// CTAs' slices go out together.
+template <int NTH = NT, int ROWS = TILE, bool BY_ROWS = false, int CW = C>
 __device__ __forceinline__ void exchange_wait(cg::cluster_group& cluster,
                                               float* slice, float* A) {
+  constexpr int CLW = cl_of(CW), ASW = as_of(CW);
+  constexpr int PG = CLW < 4 ? CLW : 4;     // CTAs whose loads go together
   constexpr int PER = ROWS * SW / 4 / NTH;  // float4s of a slice per thread
-  static_assert(PER * 4 * NTH == ROWS * SW, "slice shape");
-  constexpr int W4 = (BY_ROWS ? C : SW) / 4;  // float4s of a slice's row
+  static_assert(PER * 4 * NTH == ROWS * SW && CLW % PG == 0, "slice shape");
+  constexpr int W4 = (BY_ROWS ? CW : SW) / 4;  // float4s of a slice's row
   cluster_wait();
-  float4 v[CL][PER];
 #pragma unroll
-  for (int p = 0; p < CL; ++p) {
-    const float4* src =
-        reinterpret_cast<const float4*>(cluster.map_shared_rank(slice, p));
+  for (int p0 = 0; p0 < CLW; p0 += PG) {
+    float4 v[PG][PER];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) v[p][k] = src[threadIdx.x + k * NTH];
-  }
+    for (int p = 0; p < PG; ++p) {
+      const float4* src = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(slice, p0 + p));
 #pragma unroll
-  for (int p = 0; p < CL; ++p)
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int j = threadIdx.x + k * NTH;
-      const int r = j / W4, c4 = 4 * (j % W4);
-      float* dst = BY_ROWS ? A + (p * (ROWS / CL) + r) * AS + c4
-                           : A + r * AS + p * SW + c4;
-      *reinterpret_cast<float4*>(dst) = v[p][k];
+      for (int k = 0; k < PER; ++k) v[p][k] = src[threadIdx.x + k * NTH];
     }
+#pragma unroll
+    for (int p = 0; p < PG; ++p)
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = threadIdx.x + k * NTH;
+        const int r = j / W4, c4 = 4 * (j % W4);
+        float* dst = BY_ROWS ? A + ((p0 + p) * (ROWS / CLW) + r) * ASW + c4
+                             : A + r * ASW + (p0 + p) * SW + c4;
+        *reinterpret_cast<float4*>(dst) = v[p][k];
+      }
+  }
 }
 
 // The whole exchange, with nothing between arrive and wait.
-template <int NTH = NT, int ROWS = TILE>
+template <int NTH = NT, int ROWS = TILE, int CW = C>
 __device__ __forceinline__ void exchange(cg::cluster_group& cluster,
                                          float* slice, float* A) {
   cluster_arrive();
-  exchange_wait<NTH, ROWS>(cluster, slice, A);
+  exchange_wait<NTH, ROWS, false, CW>(cluster, slice, A);
 }
 
-// A ROWS×C tile of a row-major [n, C] array into A, rounded to bf16 in BF16
-// mode (as a dot operand), by the CTA's NTH threads; each thread's loads go
-// out together.
-template <typename T, bool BF16, int NTH = NT, int ROWS = TILE>
+// A ROWS×CW tile of a row-major [n, CW] array into A (rows padded to
+// as_of(CW)), rounded to bf16 in BF16 mode (as a dot operand), by the CTA's
+// NTH threads; each thread's loads go out together, up to 16 at a time.
+template <typename T, bool BF16, int NTH = NT, int ROWS = TILE, int CW = C>
 __device__ __forceinline__ void load_full(const T* __restrict__ src, float* A) {
-  constexpr int PER = ROWS * C / 4 / NTH;
-  float4 v[PER];
+  constexpr int PER = ROWS * CW / 4 / NTH, ASW = as_of(CW);
+  constexpr int PG = PER < 16 ? PER : 16;
+  static_assert(PER % PG == 0, "tile shape");
 #pragma unroll
-  for (int k = 0; k < PER; ++k) v[k] = load4(src + 4 * (threadIdx.x + k * NTH));
+  for (int k0 = 0; k0 < PER; k0 += PG) {
+    float4 v[PG];
 #pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    const int i = 4 * (threadIdx.x + k * NTH);
-    if (BF16) {
-      v[k].x = round_bf16(v[k].x); v[k].y = round_bf16(v[k].y);
-      v[k].z = round_bf16(v[k].z); v[k].w = round_bf16(v[k].w);
+    for (int k = 0; k < PG; ++k)
+      v[k] = load4(src + 4 * (threadIdx.x + (k0 + k) * NTH));
+#pragma unroll
+    for (int k = 0; k < PG; ++k) {
+      const int i = 4 * (threadIdx.x + (k0 + k) * NTH);
+      if (BF16) {
+        v[k].x = round_bf16(v[k].x); v[k].y = round_bf16(v[k].y);
+        v[k].z = round_bf16(v[k].z); v[k].w = round_bf16(v[k].w);
+      }
+      *reinterpret_cast<float4*>(A + (i / CW) * ASW + i % CW) = v[k];
     }
-    *reinterpret_cast<float4*>(A + (i / C) * AS + i % C) = v[k];
   }
 }
 

@@ -7,7 +7,8 @@
 // on a tile of TR = RG·RT rows per cluster of CL CTAs (kernel 3: RT = 4,
 // 64 rows; see node_mlp.cu for the design). Each output element is one FMA
 // chain over k in order, x's half then aggr's, whatever RT is: the same
-// arithmetic at every tile height.
+// arithmetic at every tile height. CW: the latent width (kernel 3: 128 or
+// 256, on cl_of(CW) CTAs; kernel 10: 128), each CTA SW columns at either.
 #pragma once
 
 #include "node_cluster.cuh"
@@ -18,29 +19,30 @@ namespace node_cluster {
 constexpr int RG = 16;       // row groups
 constexpr int NT3 = 8 * RG;  // threads per CTA (8 column groups of 4)
 constexpr int KH = 64;       // weight rows per staged slab
-static_assert(C % KH == 0 && (C / KH) % 2 == 0,
-              "a product's first slab takes buffer 0");
 
 // Bytes of shared memory of a tile of RT row groups: A, two exchange
 // slices, two weight slabs.
-template <int RT>
+template <int RT, int CW = C>
 constexpr size_t fwd_smem_bytes() {
   return sizeof(float) *
-         ((size_t)RG * RT * AS + 2 * RG * RT * SW + 2 * KH * SW);
+         ((size_t)RG * RT * as_of(CW) + 2 * RG * RT * SW + 2 * KH * SW);
 }
 
 // Issues the copy of slab s (KH rows of the CTA's SW columns) of the
 // products' weights in their fixed order (W0's x half, its aggr half, then
-// W[0 .. L-1], each C×C, C / KH slabs apiece) into buffer s mod 2.
+// W[0 .. L-1], each CW×CW, CW / KH slabs apiece) into buffer s mod 2.
+template <int CW = C>
 __device__ __forceinline__ void copy_slab(const float* __restrict__ W0,
                                           const float* __restrict__ W, int s,
                                           int q, float* wbuf) {
-  constexpr int PER = C / KH;  // slabs per product
+  static_assert(CW % KH == 0 && (CW / KH) % 2 == 0,
+                "a product's first slab takes buffer 0");
+  constexpr int PER = CW / KH;  // slabs per product
   const int p = s / PER;
-  const float* src = (p < 2 ? W0 + (size_t)p * C * C
-                            : W + (size_t)(p - 2) * C * C) +
-                     (size_t)(s % PER) * KH * C;
-  copy_cols<NT3>(src, C, KH, q, wbuf + (s & 1) * KH * SW);
+  const float* src = (p < 2 ? W0 + (size_t)p * CW * CW
+                            : W + (size_t)(p - 2) * CW * CW) +
+                     (size_t)(s % PER) * KH * CW;
+  copy_cols<NT3>(src, CW, KH, q, wbuf + (s & 1) * KH * SW);
 }
 
 // acc[i][j] += Σ_k A[(rg + RG·i)·AS + k0 + k] · ws[k·SW + 4·cg + j] over
@@ -48,10 +50,11 @@ __device__ __forceinline__ void copy_slab(const float* __restrict__ W0,
 // columns of the CTA's output slice. RT rows a thread (rather than kernel
 // 6's two on more threads) cut the shared-memory loads per FMA; the rows a
 // warp reads at once (rg .. rg + 3) fall on distinct banks.
-template <int RT>
+template <int RT, int CW = C>
 __device__ __forceinline__ void slab_product(float (&acc)[RT][4],
                                              const float* A, int k0,
                                              const float* ws) {
+  constexpr int AS = as_of(CW);
   const int rg = threadIdx.x >> 3, cg4 = 4 * (threadIdx.x & 7);
 #pragma unroll 2
   for (int k = 0; k < KH; k += 4) {
@@ -102,16 +105,16 @@ __device__ __forceinline__ void store_rows(const float (&acc)[RT][4],
 // slab, then issues the next (when there is one) into the other buffer.
 // The barrier between them also orders the caller's writes of A before the
 // reads and every read of the other buffer before it is overwritten.
-template <int RT>
+template <int RT, int CW = C>
 __device__ __forceinline__ void product(float (&acc)[RT][4], const float* A,
                                         const float* __restrict__ W0,
                                         const float* __restrict__ W, int& s,
                                         int n_slabs, int q, float* wbuf) {
-  for (int k0 = 0; k0 < C; k0 += KH, ++s) {
+  for (int k0 = 0; k0 < CW; k0 += KH, ++s) {
     cp_async_wait_all();
     __syncthreads();
-    if (s + 1 < n_slabs) copy_slab(W0, W, s + 1, q, wbuf);
-    slab_product<RT>(acc, A, k0, wbuf + (s & 1) * KH * SW);
+    if (s + 1 < n_slabs) copy_slab<CW>(W0, W, s + 1, q, wbuf);
+    slab_product<RT, CW>(acc, A, k0, wbuf + (s & 1) * KH * SW);
   }
 }
 
@@ -125,13 +128,14 @@ __device__ __forceinline__ void product(float (&acc)[RT][4], const float* A,
 // - aggr.fill<BF16, TR>(cluster, row0, slice, A): the tile's full
 //   aggregate rows into A (rounded to bf16 in BF16 mode, as dot operands)
 //   once every read of x in A is done.
-template <typename TX, typename TO, bool BF16, int RT, typename Aggr>
+template <typename TX, typename TO, bool BF16, int RT, int CW = C,
+          typename Aggr>
 __device__ __forceinline__ void node_phase_fwd(
     const TX* __restrict__ x, const Aggr& aggr, const float* __restrict__ W0,
     const float* __restrict__ b0, const float* __restrict__ W,
     const float* __restrict__ B, int n_layers, TO* __restrict__ out,
     float* smem) {
-  constexpr int TR = RG * RT;
+  constexpr int TR = RG * RT, CL = cl_of(CW), AS = as_of(CW), V = CW / C;
   float* A = smem;               // [TR][AS] full tile
   float* E = A + TR * AS;        // [2][TR][SW] slices
   float* wbuf = E + 2 * TR * SW;  // [2][KH][SW] weight slabs
@@ -139,9 +143,9 @@ __device__ __forceinline__ void node_phase_fwd(
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const size_t row0 = (size_t)(blockIdx.x / CL) * TR;
-  const int n_slabs = (2 + n_layers) * (C / KH);
+  const int n_slabs = (2 + n_layers) * (CW / KH);
   int s = 0;
-  copy_slab(W0, W, 0, q, wbuf);
+  copy_slab<CW>(W0, W, 0, q, wbuf);
   // The aggregate's slice is E's second: the first layer's output takes
   // the first, and the second is written again (by the first tail layer)
   // only after the exchange that follows every peer's read of it.
@@ -150,22 +154,22 @@ __device__ __forceinline__ void node_phase_fwd(
   // relu(x·Wa + aggr·Wb + b0): one accumulator over both halves.
   {
     float acc[RT][4] = {};
-    load_full<TX, BF16, NT3, TR>(x + row0 * C, A);
-    product<RT>(acc, A, W0, W, s, n_slabs, q, wbuf);
+    load_full<TX, BF16, NT3, TR, CW>(x + row0 * CW, A);
+    product<RT, CW>(acc, A, W0, W, s, n_slabs, q, wbuf);
     __syncthreads();  // every read of x in A done
     aggr.template fill<BF16, TR>(cluster, row0, E + TR * SW, A);
-    product<RT>(acc, A, W0, W, s, n_slabs, q, wbuf);
+    product<RT, CW>(acc, A, W0, W, s, n_slabs, q, wbuf);
     store_rows<RT>(acc, b0, q, E, true, BF16);
   }
-  exchange<NT3, TR>(cluster, E, A);
+  exchange<NT3, TR, CW>(cluster, E, A);
   // The tail: the last layer's output (unrounded) assembled in A.
   for (int l = 0; l < n_layers; ++l) {
     float acc[RT][4] = {};
-    product<RT>(acc, A, W0, W, s, n_slabs, q, wbuf);
+    product<RT, CW>(acc, A, W0, W, s, n_slabs, q, wbuf);
     const bool last = l == n_layers - 1;
     float* slice = E + ((l + 1) & 1) * TR * SW;
-    store_rows<RT>(acc, B + l * C, q, slice, !last, BF16 && !last);
-    exchange<NT3, TR>(cluster, slice, A);
+    store_rows<RT>(acc, B + l * CW, q, slice, !last, BF16 && !last);
+    exchange<NT3, TR, CW>(cluster, slice, A);
   }
   cluster_arrive();  // this CTA's reads of its peers' slices are done
   __syncthreads();
@@ -176,21 +180,23 @@ __device__ __forceinline__ void node_phase_fwd(
   // rsqrtf, as the TPU kernels do. The lanes that hold this CTA's columns
   // write LN + x.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool own = (lane >> 3) == q;  // lane holds columns 4·lane .. +3
   for (int r = warp; r < TR; r += NT3 / 32) {
-    float4 v = *reinterpret_cast<const float4*>(A + r * AS + 4 * lane);
-    const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-    v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-    const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-    const float inv = 1.0f / sqrtf(var + LN_EPS);
-    if (own) {  // (v · inv) + x, rounded twice as the plain version is
-      const size_t o = (row0 + r) * C + 4 * lane;
-      const float4 xv = load4(x + o);
-      store(&out[o], __fadd_rn(__fmul_rn(v.x, inv), xv.x));
-      store(&out[o + 1], __fadd_rn(__fmul_rn(v.y, inv), xv.y));
-      store(&out[o + 2], __fadd_rn(__fmul_rn(v.z, inv), xv.z));
-      store(&out[o + 3], __fadd_rn(__fmul_rn(v.w, inv), xv.w));
-    }
+    float4 v[V];  // lane holds columns 4·lane + C·vv .. +3
+#pragma unroll
+    for (int vv = 0; vv < V; ++vv)
+      v[vv] = *reinterpret_cast<const float4*>(A + r * AS + 4 * lane + C * vv);
+    const float inv = ln_center<V>(v);
+#pragma unroll
+    for (int vv = 0; vv < V; ++vv)
+      if ((lane >> 3) + (C / SW) * vv == q) {
+        // (v · inv) + x, rounded twice as the plain version is
+        const size_t o = (row0 + r) * CW + 4 * lane + C * vv;
+        const float4 xv = load4(x + o);
+        store(&out[o], __fadd_rn(__fmul_rn(v[vv].x, inv), xv.x));
+        store(&out[o + 1], __fadd_rn(__fmul_rn(v[vv].y, inv), xv.y));
+        store(&out[o + 2], __fadd_rn(__fmul_rn(v[vv].z, inv), xv.z));
+        store(&out[o + 3], __fadd_rn(__fmul_rn(v[vv].w, inv), xv.w));
+      }
   }
   // No CTA leaves while a peer may still read its shared memory.
   cluster_wait();

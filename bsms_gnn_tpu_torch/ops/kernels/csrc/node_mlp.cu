@@ -41,10 +41,18 @@
 //   slabs (8 KB each): 65 KB, so three CTAs fit on an SM and the airfoil's
 //   level 0 (82 clusters) runs in one wave (92 clusters at once on an
 //   H100, `occupancy`).
+// - Width: the latent width CW is 128 or 256 (a template parameter, chosen
+//   at launch): cl_of(CW) CTAs a tile (4, or 8 at 256: the portable
+//   cluster limit), each still SW = 32 columns of every product; at 256, A
+//   is 65 KB and the CTA holds 97 KB, so two fit on an SM. The cluster's
+//   size is a launch attribute (cudaLaunchKernelEx), not a compile-time
+//   one, so one template serves both widths.
 // Each output element is one FMA chain over k in order (x's half, then
 // aggr's), with no atomics: the same result from run to run. The device
 // code is node_cluster_fwd.cuh's, shared with kernel 10 (agg_node.cu),
 // which feeds it an aggregate summed on chip.
+#include <type_traits>
+
 #include "node_cluster_fwd.cuh"
 
 using namespace bsms;
@@ -55,10 +63,10 @@ namespace {
 constexpr int RT = 4;  // output rows per thread: TILE = RG·RT rows
 constexpr int MIN_BLOCKS = 3;
 static_assert(RG * RT == TILE, "kernel 3's tile is node_mlp.ROWS");
-constexpr size_t SMEM_BYTES = fwd_smem_bytes<RT>();
 
 // The aggregate read from device memory: each CTA loads the tile's full
 // rows into A (L2-hot after the first CTA).
+template <int CW>
 struct AggrIn {
   const float* __restrict__ aggr;
   template <bool BF16, int TR>
@@ -66,64 +74,96 @@ struct AggrIn {
   template <bool BF16, int TR>
   __device__ __forceinline__ void fill(cg::cluster_group&, size_t row0,
                                        float*, float* A) const {
-    load_full<float, BF16, NT3, TR>(aggr + row0 * C, A);
+    load_full<float, BF16, NT3, TR, CW>(aggr + row0 * CW, A);
   }
 };
 
-// TX: x's type; TO: the output's (bf16 in BF16 mode, else TX).
-template <typename TX, typename TO, bool BF16>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT3, MIN_BLOCKS)
+// TX: x's type; TO: the output's (bf16 in BF16 mode, else TX); CW: the
+// latent width. Launched in clusters of cl_of(CW) CTAs.
+template <typename TX, typename TO, bool BF16, int CW>
+__global__ void __launch_bounds__(NT3, MIN_BLOCKS)
 fused_node_phase_kernel(const TX* __restrict__ x, const float* __restrict__ aggr,
                         const float* __restrict__ W0, const float* __restrict__ b0,
                         const float* __restrict__ W, const float* __restrict__ B,
                         int n_layers, TO* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  node_phase_fwd<TX, TO, BF16, RT>(x, AggrIn{aggr}, W0, b0, W, B, n_layers,
-                                   out, reinterpret_cast<float*>(smem4));
+  node_phase_fwd<TX, TO, BF16, RT, CW>(x, AggrIn<CW>{aggr}, W0, b0, W, B,
+                                       n_layers, out,
+                                       reinterpret_cast<float*>(smem4));
 }
 
-template <typename TX, typename TO, bool BF16>
+// The launch configuration of n_tiles tiles at width CW: cl_of(CW) CTAs a
+// cluster (`attr` holds the cluster's size).
+template <int CW>
+cudaLaunchConfig_t config(int n_tiles, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * cl_of(CW));
+  cfg.blockDim = dim3(NT3);
+  cfg.dynamicSmemBytes = fwd_smem_bytes<RT, CW>();
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl_of(CW);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename TX, typename TO, bool BF16, int CW>
 int occupancy(int* blocks_per_sm, int* clusters) {
-  auto kernel = fused_node_phase_kernel<TX, TO, BF16>;
+  auto kernel = fused_node_phase_kernel<TX, TO, BF16, CW>;
+  constexpr size_t smem = fwd_smem_bytes<RT, CW>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                      NT3, SMEM_BYTES);
+                                                      NT3, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(NT3);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config<CW>(1, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
-template <typename TX, typename TO, bool BF16>
+template <typename TX, typename TO, bool BF16, int CW>
 int launch(const void* x, const void* aggr, const void* W0, const void* b0,
            const void* W, const void* B, void* out, int n_layers, int n_tiles,
            void* stream) {
   if (n_layers < 1 || n_tiles < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_node_phase_kernel<TX, TO, BF16>;
+  auto kernel = fused_node_phase_kernel<TX, TO, BF16, CW>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwd_smem_bytes<RT, CW>());
   if (attr != cudaSuccess) return (int)attr;
-  kernel<<<n_tiles * CL, NT3, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const TX*)x, (const float*)aggr, (const float*)W0, (const float*)b0,
-      (const float*)W, (const float*)B, n_layers, (TO*)out);
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg =
+      config<CW>(n_tiles, (cudaStream_t)stream, &cluster);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, (const TX*)x, (const float*)aggr, (const float*)W0,
+      (const float*)b0, (const float*)W, (const float*)B, n_layers, (TO*)out);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 #define FUSED_NODE_PHASE(NAME, TX, TO, BF16)                                  \
-  extern "C" int NAME##_occupancy(int* blocks_per_sm, int* clusters) {       \
-    return occupancy<TX, TO, BF16>(blocks_per_sm, clusters);                 \
+  extern "C" int NAME##_occupancy(int width, int* blocks_per_sm,             \
+                                  int* clusters) {                            \
+    return with_width(width, [&](auto cw) {                                   \
+      return occupancy<TX, TO, BF16, decltype(cw)::value>(blocks_per_sm,      \
+                                                          clusters);          \
+    });                                                                       \
   }                                                                           \
   extern "C" int NAME(const void* x, const void* aggr, const void* W0,       \
                       const void* b0, const void* W, const void* B,          \
-                      void* out, int n_layers, int n_tiles, void* stream) {  \
-    return launch<TX, TO, BF16>(x, aggr, W0, b0, W, B, out, n_layers,        \
-                                n_tiles, stream);                            \
+                      void* out, int width, int n_layers, int n_tiles,       \
+                      void* stream) {                                        \
+    return with_width(width, [&](auto cw) {                                   \
+      return launch<TX, TO, BF16, decltype(cw)::value>(                       \
+          x, aggr, W0, b0, W, B, out, n_layers, n_tiles, stream);             \
+    });                                                                       \
   }
 
 // f32 compute; bf16 compute on bf16 x; bf16 compute on f32 x (the level-0

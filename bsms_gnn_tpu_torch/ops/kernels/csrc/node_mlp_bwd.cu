@@ -57,8 +57,16 @@
 // - Shared memory: A (33 KB), the tail inputs' slices (8 KB each), two
 //   exchange slices and two weight slices, about 105 KB at L = 3, so two
 //   CTAs fit on an SM.
+// - Width and depth: the latent width CW is 128 or 256 (a template
+//   parameter chosen at launch; cl_of(CW) CTAs a tile, 8 at 256, each
+//   still SW = 32 columns), any number of tail layers whose kept slices fit
+//   a block (`max_layers`: 18 at 128, 10 at 256). At 256 and L = 4 a CTA
+//   holds 181 KB (one an SM), its partial 1.58 MB; node_mlp.p_max caps the
+//   partials by bytes too. The cluster's size is a launch attribute.
 // The cluster's constants, weight copy, exchange and tile load are
 // node_cluster.cuh's, which kernel 3 shares.
+#include <type_traits>
+
 #include "backward.cuh"
 #include "node_cluster.cuh"
 
@@ -67,8 +75,11 @@ using namespace bsms::node_cluster;
 
 namespace {
 
-constexpr int MIN_BLOCKS = 2;
-constexpr int MAX_LAYERS = 3;
+// Blocks an SM the launch bounds ask registers for: two CTAs fit at 128.
+template <int CW>
+__host__ __device__ constexpr int min_blocks() { return CW == C ? 2 : 1; }
+// The shared memory one block may hold on an H100 (227 KB).
+constexpr size_t SMEM_MAX = 232448;
 
 // Slices of the tail inputs kept: the L inputs, and at least two (x's and
 // aggr's slices at the end).
@@ -76,19 +87,32 @@ __host__ __device__ constexpr int n_slices(int n_layers) {
   return n_layers > 2 ? n_layers : 2;
 }
 
-// Floats of shared memory: A, the kept slices, two exchange slices, two
-// weight slices.
+// Floats of shared memory at width CW: A, the kept slices, two exchange
+// slices, two weight slices.
+template <int CW>
 __host__ __device__ constexpr size_t smem_floats(int n_layers) {
-  return (size_t)TILE * AS + (size_t)(n_slices(n_layers) + 2) * TILE * SW +
-         2 * C * SW;
+  return (size_t)TILE * as_of(CW) +
+         (size_t)(n_slices(n_layers) + 2) * TILE * SW + 2 * CW * SW;
 }
 
-size_t smem_bytes(int n_layers) { return sizeof(float) * smem_floats(n_layers); }
+template <int CW>
+constexpr size_t smem_bytes(int n_layers) {
+  return sizeof(float) * smem_floats<CW>(n_layers);
+}
+
+// The most tail layers a CTA holds at width CW.
+template <int CW>
+constexpr int max_layers() {
+  int l = 0;
+  while (smem_bytes<CW>(l + 1) <= SMEM_MAX) ++l;
+  return l;
+}
 
 // The weight slice of product i in its fixed order (0, 1: W0's x and aggr
 // halves; 2 .. L+1: W[0 .. L-1]; L+2 .. 2L+1: WT[L-1 .. 0]; 2L+2, 2L+3:
 // W0ᵀ's x and aggr halves, for dx and daggr): its first element's address
 // and its row stride.
+template <int CW>
 struct Weights {
   const float* W0;   // [2C][C]
   const float* W;    // [L][C][C]
@@ -96,23 +120,24 @@ struct Weights {
   const float* W0T;  // [C][2C]
   int n_layers;
   __device__ __forceinline__ const float* src(int i, int& ld) const {
-    const size_t cc = (size_t)C * C;
-    ld = C;
+    const size_t cc = (size_t)CW * CW;
+    ld = CW;
     if (i < 2) return W0 + i * cc;
     if (i < 2 + n_layers) return W + (i - 2) * cc;
     if (i < 2 + 2 * n_layers) return WT + (2 * n_layers + 1 - i) * cc;
-    ld = 2 * C;
-    return W0T + (i - 2 - 2 * n_layers) * C;
+    ld = 2 * CW;
+    return W0T + (i - 2 - 2 * n_layers) * CW;
   }
 };
 
 // Issues the copy of product i's slice (C rows by the CTA's SW columns)
 // into buffer i mod 2 of `wbuf` (cp.async, one commit group).
-__device__ __forceinline__ void copy_slice(const Weights& w, int i, int q,
+template <int CW>
+__device__ __forceinline__ void copy_slice(const Weights<CW>& w, int i, int q,
                                            float* wbuf) {
   int ld;
   const float* src = w.src(i, ld);
-  copy_cols(src, ld, C, q, wbuf + (i & 1) * C * SW);
+  copy_cols(src, ld, CW, q, wbuf + (i & 1) * CW * SW);
 }
 
 // acc[i][j] += Σ_k A[(2·rg + i)·AS + k] · Wslice[k][4·cg + j] over k < C, in
@@ -121,17 +146,19 @@ __device__ __forceinline__ void copy_slice(const Weights& w, int i, int q,
 // into the other buffer: the barrier between them also orders the callers'
 // writes of A before the reads and every read of the other buffer (the
 // previous product) before it is overwritten.
+template <int CW>
 __device__ __forceinline__ void row_product(float (&acc)[2][4], const float* A,
-                                            const Weights& w, int i,
+                                            const Weights<CW>& w, int i,
                                             int n_products, int q,
                                             float* wbuf) {
+  constexpr int AS = as_of(CW);
   const int rg = threadIdx.x >> 3, cg4 = 4 * (threadIdx.x & 7);
   cp_async_wait_all();
   __syncthreads();
   if (i + 1 < n_products) copy_slice(w, i + 1, q, wbuf);
-  const float* ws = wbuf + (i & 1) * C * SW;
+  const float* ws = wbuf + (i & 1) * CW * SW;
 #pragma unroll 4
-  for (int k = 0; k < C; k += 4) {
+  for (int k = 0; k < CW; k += 4) {
     const float4 a0 = *reinterpret_cast<const float4*>(A + (2 * rg) * AS + k);
     const float4 a1 = *reinterpret_cast<const float4*>(A + (2 * rg + 1) * AS + k);
     const float a[2][4] = {{a0.x, a0.y, a0.z, a0.w}, {a1.x, a1.y, a1.z, a1.w}};
@@ -188,56 +215,65 @@ __device__ __forceinline__ void store_slice_masked(const float (&acc)[2][4],
   }
 }
 
-// Columns [q·SW, (q+1)·SW) of a TILE×C tile of a row-major [n, C] array
+// Columns [q·SW, (q+1)·SW) of a TILE×CW tile of a row-major [n, CW] array
 // into a TILE×SW slice, rounded to bf16 in BF16 mode.
-template <typename T, bool BF16>
+template <typename T, bool BF16, int CW>
 __device__ __forceinline__ void load_slice(const T* __restrict__ src, int q,
                                            float* out) {
   for (int i = threadIdx.x; i < TILE * SW; i += NT) {
-    const float v = to_f(src[(size_t)(i / SW) * C + q * SW + i % SW]);
+    const float v = to_f(src[(size_t)(i / SW) * CW + q * SW + i % SW]);
     out[i] = BF16 ? round_bf16(v) : v;
   }
 }
 
-// dst[(q·SW + i)·C + j] (+)= Σ_r h[r·SW + i] · A[r·AS + j] over the TILE rows
-// in row order: rows [q·SW, (q+1)·SW) of the [C, C] product hᵀ·A, h the
-// CTA's TILE×SW slice, A the full tile; stored, or with `add` added onto
-// dst (loaded before the product, so that their latency hides behind it).
-// Thread t takes rows 8·(t / 64) .. +7 and columns 2·(t % 64), +1: a warp's
-// h reads are one broadcast, its A reads 256 contiguous bytes.
+// dst[(q·SW + i)·CW + j] (+)= Σ_r h[r·SW + i] · A[r·AS + j] over the TILE
+// rows in row order: rows [q·SW, (q+1)·SW) of the [CW, CW] product hᵀ·A, h
+// the CTA's TILE×SW slice, A the full tile; stored, or with `add` added
+// onto dst (loaded before the product, so that their latency hides behind
+// it). Thread t takes rows 8·(t / 64) .. +7 and columns 2·(t % 64), +1 of
+// each 128-column half in turn: a warp's h reads are one broadcast, its A
+// reads 256 contiguous bytes.
+template <int CW>
 __device__ __forceinline__ void weight_grad(const float* h, const float* A,
                                             int q, float* dst, bool add) {
-  const int i0 = 8 * (threadIdx.x >> 6), j0 = 2 * (threadIdx.x & 63);
-  float2 old[8];
+  constexpr int AS = as_of(CW);
+  const int i0 = 8 * (threadIdx.x >> 6);
+#pragma unroll 1
+  for (int half = 0; half < CW / C; ++half) {
+    const int j0 = 2 * (threadIdx.x & 63) + C * half;
+    float2 old[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    old[i] = add ? *reinterpret_cast<const float2*>(
-                       dst + (size_t)(q * SW + i0 + i) * C + j0)
-                 : make_float2(0.f, 0.f);
-  float acc[8][2] = {};
+    for (int i = 0; i < 8; ++i)
+      old[i] = add ? *reinterpret_cast<const float2*>(
+                         dst + (size_t)(q * SW + i0 + i) * CW + j0)
+                   : make_float2(0.f, 0.f);
+    float acc[8][2] = {};
 #pragma unroll 4
-  for (int r = 0; r < TILE; ++r) {
-    const float4 h0 = *reinterpret_cast<const float4*>(h + r * SW + i0);
-    const float4 h1 = *reinterpret_cast<const float4*>(h + r * SW + i0 + 4);
-    const float2 b = *reinterpret_cast<const float2*>(A + r * AS + j0);
-    const float a[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+    for (int r = 0; r < TILE; ++r) {
+      const float4 h0 = *reinterpret_cast<const float4*>(h + r * SW + i0);
+      const float4 h1 = *reinterpret_cast<const float4*>(h + r * SW + i0 + 4);
+      const float2 b = *reinterpret_cast<const float2*>(A + r * AS + j0);
+      const float a[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
-      acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
+      for (int i = 0; i < 8; ++i) {
+        acc[i][0] = fmaf(a[i], b.x, acc[i][0]);
+        acc[i][1] = fmaf(a[i], b.y, acc[i][1]);
+      }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    *reinterpret_cast<float2*>(dst + (size_t)(q * SW + i0 + i) * C + j0) =
-        add ? make_float2(old[i].x + acc[i][0], old[i].y + acc[i][1])
-            : make_float2(acc[i][0], acc[i][1]);
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float2*>(dst + (size_t)(q * SW + i0 + i) * CW + j0) =
+          add ? make_float2(old[i].x + acc[i][0], old[i].y + acc[i][1])
+              : make_float2(acc[i][0], acc[i][1]);
+  }
 }
 
 // out[q·SW + c] (+)= Σ_r A[r·AS + q·SW + c] over the TILE rows in row order,
 // by the first SW threads.
+template <int CW>
 __device__ __forceinline__ void col_sums(const float* A, int q, float* out,
                                          bool add) {
+  constexpr int AS = as_of(CW);
   if (threadIdx.x < SW) {
     float s = 0.f;
     for (int r = 0; r < TILE; ++r) s += A[r * AS + q * SW + threadIdx.x];
@@ -246,18 +282,21 @@ __device__ __forceinline__ void col_sums(const float* A, int q, float* out,
 }
 
 // Rounds the full tile to bf16 in place, between two block barriers.
+template <int CW>
 __device__ __forceinline__ void round_full(float* A) {
+  constexpr int AS = as_of(CW);
   __syncthreads();
-  for (int i = threadIdx.x; i < TILE * C; i += NT) {
-    float* p = A + (i / C) * AS + i % C;
+  for (int i = threadIdx.x; i < TILE * CW; i += NT) {
+    float* p = A + (i / CW) * AS + i % CW;
     *p = round_bf16(*p);
   }
   __syncthreads();
 }
 
-// TX: x's type (dx is stored in it).
-template <typename TX, bool BF16>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, MIN_BLOCKS)
+// TX: x's type (dx is stored in it); CW: the latent width. Launched in
+// clusters of cl_of(CW) CTAs.
+template <typename TX, bool BF16, int CW>
+__global__ void __launch_bounds__(NT, min_blocks<CW>())
 fused_node_phase_bwd_kernel(const TX* __restrict__ x,
                             const float* __restrict__ aggr,
                             const float* __restrict__ W0,
@@ -270,29 +309,30 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
                             int n_tiles, TX* __restrict__ dx,
                             float* __restrict__ daggr,
                             float* __restrict__ gpart) {
+  constexpr int CL = cl_of(CW), AS = as_of(CW), V = CW / C;
   extern __shared__ float4 smem4[];
   float* A = reinterpret_cast<float*>(smem4);  // [TILE][AS] full tile
   float* hq = A + TILE * AS;                    // [n_slices][TILE][SW]
   float* E = hq + (size_t)n_slices(n_layers) * TILE * SW;  // [2][TILE][SW]
-  float* wbuf = E + 2 * TILE * SW;              // [2][C][SW] weight slices
+  float* wbuf = E + 2 * TILE * SW;              // [2][CW][SW] weight slices
 
   cg::cluster_group cluster = cg::this_cluster();
   const int q = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int part = blockIdx.x / CL, n_parts = gridDim.x / CL;
-  const size_t cc = (size_t)C * C;
+  const size_t cc = (size_t)CW * CW;
   // Partial layout: dWa, dWb, dW[n_layers], db0, db[n_layers].
-  float* gp = gpart + part * ((2 + n_layers) * cc + (1 + n_layers) * C);
+  float* gp = gpart + part * ((2 + n_layers) * cc + (1 + n_layers) * CW);
   float* gp_b0 = gp + (2 + n_layers) * cc;
-  const Weights w{W0, W, WT, W0T, n_layers};
+  const Weights<CW> w{W0, W, WT, W0T, n_layers};
   const int n_products = 4 + 2 * n_layers;
   const int t_begin = (int)((long long)part * n_tiles / n_parts);
   const int t_end = (int)((long long)(part + 1) * n_tiles / n_parts);
   for (int tile = t_begin; tile < t_end; ++tile) {
     const bool add = tile > t_begin;  // the first tile stores the partial
     const size_t row0 = (size_t)tile * TILE;
-    const TX* xt = x + row0 * C;
-    const float* at = aggr + row0 * C;
+    const TX* xt = x + row0 * CW;
+    const float* at = aggr + row0 * CW;
     int prod = 0;
     copy_slice(w, 0, q, wbuf);
 
@@ -300,14 +340,14 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
     // over both halves; this CTA's columns into hq[0], then the full h_0.
     {
       float acc[2][4] = {};
-      load_full<TX, BF16>(xt, A);
+      load_full<TX, BF16, NT, TILE, CW>(xt, A);
       row_product(acc, A, w, prod++, n_products, q, wbuf);
       __syncthreads();
-      load_full<float, BF16>(at, A);
+      load_full<float, BF16, NT, TILE, CW>(at, A);
       row_product(acc, A, w, prod++, n_products, q, wbuf);
       store_slice(acc, b0, q, hq, true, BF16);
     }
-    exchange(cluster, hq, A);
+    exchange<NT, TILE, CW>(cluster, hq, A);
     // The tail: each layer's input slice kept; the last layer's output
     // (unrounded) through E[0].
     for (int l = 0; l < n_layers; ++l) {
@@ -315,31 +355,40 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
       row_product(acc, A, w, prod++, n_products, q, wbuf);
       const bool last = l == n_layers - 1;
       float* out = last ? E : hq + (size_t)(l + 1) * TILE * SW;
-      store_slice(acc, B + l * C, q, out, !last, BF16 && !last);
-      exchange(cluster, out, A);
+      store_slice(acc, B + l * CW, q, out, !last, BF16 && !last);
+      exchange<NT, TILE, CW>(cluster, out, A);
     }
     int eb = 1;  // the exchange slice the next cotangent takes
     __syncthreads();
 
     // The LayerNorm of each row, then its backward for g (f32, as on the
     // TPU), in place in A: warp w takes rows w, w + 8, ..., its g rows
-    // loaded first.
+    // loaded first; lane l holds columns 4l + C·v of each.
     constexpr int RPW = TILE / (NT / 32);  // rows per warp
-    float4 gv[RPW];
+    float4 gv[RPW][V];
   #pragma unroll
     for (int i = 0; i < RPW; ++i)
-      gv[i] = reinterpret_cast<const float4*>(
-          g + (row0 + warp + i * (NT / 32)) * C)[lane];
+  #pragma unroll
+      for (int v = 0; v < V; ++v)
+        gv[i][v] = reinterpret_cast<const float4*>(
+            g + (row0 + warp + i * (NT / 32)) * CW)[lane + 32 * v];
   #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int r = warp + i * (NT / 32);
-      float4 v = *reinterpret_cast<float4*>(A + r * AS + 4 * lane);
-      const float mean = warp_sum(v.x + v.y + v.z + v.w) / C;
-      v.x -= mean; v.y -= mean; v.z -= mean; v.w -= mean;
-      const float var = warp_sum(v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w) / C;
-      const float iv = 1.0f / sqrtf(var + LN_EPS);
-      v.x *= iv; v.y *= iv; v.z *= iv; v.w *= iv;
-      *reinterpret_cast<float4*>(A + r * AS + 4 * lane) = ln_bwd(gv[i], v, iv);
+      float4 v[V];
+  #pragma unroll
+      for (int vv = 0; vv < V; ++vv)
+        v[vv] = *reinterpret_cast<float4*>(A + r * AS + 4 * lane + C * vv);
+      const float iv = ln_center<V>(v);
+  #pragma unroll
+      for (int vv = 0; vv < V; ++vv) {
+        v[vv].x *= iv; v[vv].y *= iv; v[vv].z *= iv; v[vv].w *= iv;
+      }
+      float4 o[V];
+      ln_bwd_row<V>(gv[i], v, iv, o);
+  #pragma unroll
+      for (int vv = 0; vv < V; ++vv)
+        *reinterpret_cast<float4*>(A + r * AS + 4 * lane + C * vv) = o[vv];
     }
 
     // Tail layers in reverse: db from the unrounded cotangent, dW and the
@@ -349,30 +398,30 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
     for (int l = n_layers - 1; l >= 0; --l) {
       const float* h = hq + (size_t)l * TILE * SW;
       __syncthreads();
-      col_sums(A, q, gp_b0 + C + l * C, add);
-      if (BF16) round_full(A);
+      col_sums<CW>(A, q, gp_b0 + CW + l * CW, add);
+      if (BF16) round_full<CW>(A);
       float dh[2][4] = {};
       row_product(dh, A, w, prod++, n_products, q, wbuf);
       float* out = E + eb * TILE * SW;
       store_slice_masked(dh, h, out);
       cluster_arrive();
-      weight_grad(h, A, q, gp + (2 + l) * cc, add);
+      weight_grad<CW>(h, A, q, gp + (2 + l) * cc, add);
       __syncthreads();  // every read of A done before the exchange's writes
-      exchange_wait(cluster, out, A);
+      exchange_wait<NT, TILE, false, CW>(cluster, out, A);
       eb ^= 1;
     }
 
     // A is dpre: db0 from it unrounded, then the rounded operand of the rest.
     __syncthreads();
-    col_sums(A, q, gp_b0, add);
-    if (BF16) round_full(A);
+    col_sums<CW>(A, q, gp_b0, add);
+    if (BF16) round_full<CW>(A);
     const int rg = tid >> 3, cg4 = 4 * (tid & 7);
     {
       float acc[2][4] = {};
       row_product(acc, A, w, prod++, n_products, q, wbuf);
   #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
+        const size_t o = (row0 + 2 * rg + r) * CW + q * SW + cg4;
         const float4 gv = *reinterpret_cast<const float4*>(g + o);
         store(&dx[o], acc[r][0] + gv.x);
         store(&dx[o + 1], acc[r][1] + gv.y);
@@ -385,67 +434,88 @@ fused_node_phase_bwd_kernel(const TX* __restrict__ x,
       row_product(acc, A, w, prod++, n_products, q, wbuf);
   #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const size_t o = (row0 + 2 * rg + r) * C + q * SW + cg4;
+        const size_t o = (row0 + 2 * rg + r) * CW + q * SW + cg4;
         *reinterpret_cast<float4*>(daggr + o) =
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
     }
     // dWa and dWb: this CTA's columns of x and of aggr as the left operands,
     // in the kept slices (free now: no peer reads them any more).
-    load_slice<TX, BF16>(xt, q, hq);
-    load_slice<float, BF16>(at, q, hq + TILE * SW);
+    load_slice<TX, BF16, CW>(xt, q, hq);
+    load_slice<float, BF16, CW>(at, q, hq + TILE * SW);
     __syncthreads();
-    weight_grad(hq, A, q, gp, add);
-    weight_grad(hq + TILE * SW, A, q, gp + cc, add);
+    weight_grad<CW>(hq, A, q, gp, add);
+    weight_grad<CW>(hq + TILE * SW, A, q, gp + cc, add);
     // No CTA leaves, or starts its next tile, while a peer may still read
     // its shared memory.
     cluster.sync();
   }
 }
 
+// The launch configuration of n_parts clusters of cl_of(CW) CTAs at
+// n_layers (`attr` holds the cluster's size).
+template <int CW>
+cudaLaunchConfig_t config(int n_parts, int n_layers, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_parts * cl_of(CW));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_bytes<CW>(n_layers);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl_of(CW);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // (CTAs per SM, clusters on the card at once) of the kernel at n_layers,
 // as the card's occupancy calculator reports them: the host sizes the cap
 // on the partials in whole waves of clusters (node_mlp.p_max).
-template <typename TX, bool BF16>
+template <typename TX, bool BF16, int CW>
 int occupancy(int n_layers, int* blocks_per_sm, int* clusters) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  auto kernel = fused_node_phase_bwd_kernel<TX, BF16>;
+  if (n_layers < 1 || n_layers > max_layers<CW>())
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_node_phase_bwd_kernel<TX, BF16, CW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(MAX_LAYERS));
+      (int)smem_bytes<CW>(max_layers<CW>()));
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, NT, smem_bytes(n_layers));
+      blocks_per_sm, kernel, NT, smem_bytes<CW>(n_layers));
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes(n_layers);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config<CW>(1, n_layers, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
-template <typename TX, bool BF16>
+template <typename TX, bool BF16, int CW>
 int launch(const void* x, const void* aggr, const void* W0, const void* b0,
            const void* W, const void* B, const void* W0T, const void* WT,
            const void* g, void* gpart, int n_layers, int n_tiles, int n_parts,
            void* dx, void* daggr, void* grads, void* stream) {
-  if (n_layers < 1 || n_layers > MAX_LAYERS || n_tiles < 1 || n_parts < 1 ||
-      n_parts > n_tiles)
+  if (n_layers < 1 || n_layers > max_layers<CW>() || n_tiles < 1 ||
+      n_parts < 1 || n_parts > n_tiles)
     return (int)cudaErrorInvalidValue;
-  auto kernel = fused_node_phase_bwd_kernel<TX, BF16>;
+  auto kernel = fused_node_phase_bwd_kernel<TX, BF16, CW>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(MAX_LAYERS));
+      (int)smem_bytes<CW>(max_layers<CW>()));
   if (attr != cudaSuccess) return (int)attr;
   cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<n_parts * CL, NT, smem_bytes(n_layers), s>>>(
-      (const TX*)x, (const float*)aggr, (const float*)W0, (const float*)b0,
-      (const float*)W, (const float*)B, (const float*)W0T, (const float*)WT,
-      (const float*)g, n_layers, n_tiles, (TX*)dx, (float*)daggr,
-      (float*)gpart);
-  cudaError_t err = cudaGetLastError();
+  cudaLaunchAttribute cluster;
+  const cudaLaunchConfig_t cfg = config<CW>(n_parts, n_layers, s, &cluster);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, (const TX*)x, (const float*)aggr, (const float*)W0,
+      (const float*)b0, (const float*)W, (const float*)B, (const float*)W0T,
+      (const float*)WT, (const float*)g, n_layers, n_tiles, (TX*)dx,
+      (float*)daggr, (float*)gpart);
   if (err != cudaSuccess) return (int)err;
-  const int size = (2 + n_layers) * C * C + (1 + n_layers) * C;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int size = (2 + n_layers) * CW * CW + (1 + n_layers) * CW;
   return (int)launch_grad_sum((const float*)gpart, n_parts, size,
                               (float*)grads, s);
 }
@@ -453,18 +523,25 @@ int launch(const void* x, const void* aggr, const void* W0, const void* b0,
 }  // namespace
 
 #define FUSED_NODE_PHASE_BWD(NAME, TX, BF16)                                   \
-  extern "C" int NAME##_occupancy(int n_layers, int* blocks_per_sm,           \
-                                  int* clusters) {                            \
-    return occupancy<TX, BF16>(n_layers, blocks_per_sm, clusters);            \
+  extern "C" int NAME##_occupancy(int width, int n_layers,                    \
+                                  int* blocks_per_sm, int* clusters) {        \
+    return with_width(width, [&](auto cw) {                                   \
+      return occupancy<TX, BF16, decltype(cw)::value>(n_layers,               \
+                                                      blocks_per_sm,          \
+                                                      clusters);              \
+    });                                                                       \
   }                                                                           \
   extern "C" int NAME(const void* x, const void* aggr, const void* W0,        \
                       const void* b0, const void* W, const void* B,           \
                       const void* W0T, const void* WT, const void* g,         \
-                      void* gpart, int n_layers, int n_tiles, int n_parts,    \
-                      void* dx, void* daggr, void* grads, void* stream) {     \
-    return launch<TX, BF16>(x, aggr, W0, b0, W, B, W0T, WT, g, gpart,         \
-                            n_layers, n_tiles, n_parts, dx, daggr, grads,     \
-                            stream);                                          \
+                      void* gpart, int width, int n_layers, int n_tiles,      \
+                      int n_parts, void* dx, void* daggr, void* grads,        \
+                      void* stream) {                                         \
+    return with_width(width, [&](auto cw) {                                   \
+      return launch<TX, BF16, decltype(cw)::value>(                           \
+          x, aggr, W0, b0, W, B, W0T, WT, g, gpart, n_layers, n_tiles,        \
+          n_parts, dx, daggr, grads, stream);                                 \
+    });                                                                       \
   }
 
 // f32 compute; bf16 compute on bf16 x; bf16 compute on f32 x (as kernel 3).

@@ -23,6 +23,12 @@
 //   is (kernel 9); rows no list names are not touched.
 // The sum is in f32.
 //
+// Rows of LD floats, a compile-time multiple of C (the latent width of
+// kernels 1, 2, 4, 5 and 7, built at 128 and 256 through `with_width`; C
+// elsewhere): each list's sum is taken C columns at a time, column block
+// blockIdx.z (the grid's z extent is LD / C), every block of a row over
+// the same list in the same order, so each column sums as at width C.
+//
 // A batch of samples over one layout (the batch axis of a shared mesh):
 // blockIdx.y is the sample b, and x and the output (with kernel 2's
 // accumulator, which is the output) move by b times their per-sample
@@ -138,7 +144,8 @@ struct AddToRows {
   }
 };
 // List k's sum added onto row k of acc, written to row k of the output
-// (kernel 9: acc stays as it is).
+// (kernel 9: acc stays as it is; rows of C, so acc needs no column
+// offset).
 struct AddOnto {
   static constexpr bool ADD = true;
   const float* acc;
@@ -157,7 +164,8 @@ template <bool BF16, typename T, typename Src, typename SlotAt,
 __device__ __forceinline__ void gather_walk(const T* __restrict__ x,
                                             const Src& src, int n_total,
                                             int n_rows, const SlotAt& slot_at,
-                                            const Flush& flush, int lane) {
+                                            const Flush& flush, int lane,
+                                            int ld) {
   using L = Lane4<T>;
   constexpr int U = L::UNROLL;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -183,7 +191,7 @@ __device__ __forceinline__ void gather_walk(const T* __restrict__ x,
         const int r = __shfl_sync(FULL_MASK, row, (j + u) & 31);
         if (j + u < n)
           v[u] = *reinterpret_cast<const typename L::raw*>(
-              x + (size_t)r * C + 4 * lane);
+              x + (size_t)r * ld + 4 * lane);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -211,10 +219,12 @@ __device__ __forceinline__ void gather_walk(const T* __restrict__ x,
 }
 
 // The body of a gather kernel (see the note above) over n_rows lists, ROWS
-// short lists a warp: out is f32 with rows of C; sample blockIdx.y's x and
-// out start x_stride and out_stride elements after the previous sample's.
-template <bool BF16, int ROWS = WARP_ROWS, typename T, typename Src,
-          typename Dst>
+// short lists a warp: x and out (f32) have rows of LD floats (a multiple of
+// C), this block summing columns [blockIdx.z·C, (blockIdx.z + 1)·C);
+// sample blockIdx.y's x and out start x_stride and out_stride elements
+// after the previous sample's.
+template <bool BF16, int ROWS = WARP_ROWS, int LD = C, typename T,
+          typename Src, typename Dst>
 __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
                                             const Src& src, const Dst& dst_of,
                                             const int* __restrict__ row_ptr,
@@ -223,9 +233,12 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
                                             float* __restrict__ out,
                                             size_t x_stride = 0,
                                             size_t out_stride = 0) {
+  static_assert(LD % C == 0, "rows of a multiple of C");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  x += blockIdx.y * x_stride;
-  out += blockIdx.y * out_stride;
+  const int col = LD == C ? 0 : (int)blockIdx.z * C;
+  constexpr int ld4 = LD / 4;
+  x += blockIdx.y * x_stride + col;
+  out += blockIdx.y * out_stride + col;
   float4* dst = reinterpret_cast<float4*>(out);
   const int n_short = (n_rows + GATHER_WARPS * ROWS - 1) /
                       (GATHER_WARPS * ROWS);
@@ -257,7 +270,7 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
       for (int k = 0; k < ROWS; ++k) {
         orow[k] = __shfl_sync(FULL_MASK, o, k);
         if (short_rows >> k & 1u)
-          base[k] = from[(size_t)orow[k] * (C / 4) + lane];
+          base[k] = from[(size_t)orow[k] * ld4 + lane];
       }
     }
     const auto slot_at = [&](int i, int& pos, int& k) {
@@ -277,13 +290,13 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
         for (int kk = 0; kk < ROWS; ++kk)
           if (kk == k) {
             add4(s, base[kk]);
-            dst[(size_t)orow[kk] * (C / 4) + lane] = s;
+            dst[(size_t)orow[kk] * ld4 + lane] = s;
           }
       } else {
-        dst[(size_t)(r0 + k) * (C / 4) + lane] = s;
+        dst[(size_t)(r0 + k) * ld4 + lane] = s;
       }
     };
-    gather_walk<BF16>(x, src, at[ROWS], ROWS, slot_at, flush, lane);
+    gather_walk<BF16>(x, src, at[ROWS], ROWS, slot_at, flush, lane, LD);
     return;
   }
   // One long list, in pieces of `piece` positions over the block's warps.
@@ -299,15 +312,16 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
       k = 0;
     };
     const auto flush = [&](int, const float4 t) { add4(s, t); };
-    gather_walk<BF16>(x, src, min(piece, b - p), 1, slot_at, flush, lane);
+    gather_walk<BF16>(x, src, min(piece, b - p), 1, slot_at, flush, lane,
+                      LD);
   }
   part[warp][lane] = s;
   __syncthreads();
   if (warp == 0) {
     for (int w = 1; w < GATHER_WARPS; ++w) add4(s, part[w][lane]);
     if constexpr (Dst::ADD)
-      add4(s, dst_of.base(dst)[(size_t)o * (C / 4) + lane]);
-    dst[(size_t)o * (C / 4) + lane] = s;
+      add4(s, dst_of.base(dst)[(size_t)o * ld4 + lane]);
+    dst[(size_t)o * ld4 + lane] = s;
   }
 }
 
@@ -317,8 +331,10 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
 // order (a bf16 row widens exactly to f32); a row with no slot comes out
 // zero. Batched (every tile walk's entry): sample blockIdx.y's rows and
 // out start rows_stride and out_stride elements after the previous
-// sample's.
-template <typename T, bool BF16>
+// sample's. Rows of LD floats (kernels 4 and 5: their plan's latent
+// width; C for kernels 11-14), in LD / C column blocks (gather_grid's
+// n_cols).
+template <typename T, bool BF16, int LD = C>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 recv_gather_kernel(const T* __restrict__ rows,
                    const int* __restrict__ row_ptr,
@@ -326,8 +342,9 @@ recv_gather_kernel(const T* __restrict__ rows,
                    const int* __restrict__ long_rows, int n_rows, int piece,
                    float* __restrict__ out, size_t rows_stride,
                    size_t out_stride) {
-  gather_rows<BF16>(rows, ListedSlots{row_slots}, StoreRows{}, row_ptr,
-                    long_rows, n_rows, piece, out, rows_stride, out_stride);
+  gather_rows<BF16, WARP_ROWS, LD>(rows, ListedSlots{row_slots}, StoreRows{},
+                                   row_ptr, long_rows, n_rows, piece, out,
+                                   rows_stride, out_stride);
 }
 
 // Blocks of a gather launch over n_rows lists, n_long of them long, `rows`
@@ -337,10 +354,10 @@ inline int gather_blocks(int n_rows, int n_long, int rows = WARP_ROWS) {
 }
 
 // The grid of a gather launch over n_batch samples (blockIdx.y the
-// sample).
+// sample) of rows of n_cols·C floats (blockIdx.z the column block).
 inline dim3 gather_grid(int n_rows, int n_long, int n_batch = 1,
-                        int rows = WARP_ROWS) {
-  return dim3(gather_blocks(n_rows, n_long, rows), n_batch);
+                        int rows = WARP_ROWS, int n_cols = 1) {
+  return dim3(gather_blocks(n_rows, n_long, rows), n_batch, n_cols);
 }
 
 // The largest batch a gather launch takes (the grid's y extent).

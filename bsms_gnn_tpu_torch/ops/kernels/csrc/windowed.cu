@@ -44,7 +44,8 @@ struct WindowRow {
   }
 };
 
-template <typename T, bool BF16>
+// LD: the row width (the latent width, 128 or 256).
+template <typename T, bool BF16, int LD>
 __global__ void __launch_bounds__(THREADS, GATHER_MIN_BLOCKS)
 windowed_gather_kernel(const T* __restrict__ x, const float* __restrict__ ew,
                        WindowRow row_of, const int* __restrict__ row_ptr,
@@ -52,29 +53,34 @@ windowed_gather_kernel(const T* __restrict__ x, const float* __restrict__ ew,
                        const int* __restrict__ long_rows, int n_rows,
                        int piece, float* __restrict__ out, size_t x_stride,
                        size_t out_stride) {
-  gather_rows<BF16>(x, WeightedSlots<WindowRow>{row_slots, ew, row_of},
-                    StoreRows{}, row_ptr, long_rows, n_rows, piece, out,
-                    x_stride, out_stride);
+  gather_rows<BF16, WARP_ROWS, LD>(
+      x, WeightedSlots<WindowRow>{row_slots, ew, row_of}, StoreRows{},
+      row_ptr, long_rows, n_rows, piece, out, x_stride, out_stride);
 }
 
-// x [n_batch][x_rows][C], out [n_batch][n_rows][C].
+// x [n_batch][x_rows][width], out [n_batch][n_rows][width]: rows of the
+// latent width (128 or 256), one column block of C a grid z index.
 template <typename T, bool BF16>
 int launch(const void* x, const void* ew, const void* send_win,
            const void* win_base, const void* row_ptr, const void* row_slots,
            const void* long_rows, int n_rows, int n_long, int edge_block,
-           int window, int piece, int n_batch, int x_rows, void* out,
-           void* stream) {
+           int window, int piece, int n_batch, int x_rows, int width,
+           void* out, void* stream) {
   if (n_rows < 1 || n_long < 0 || piece < 1 || edge_block < 1 ||
       window < 2 || n_batch < 1 || n_batch > MAX_BATCH || x_rows < 1)
     return (int)cudaErrorInvalidValue;
   const WindowRow row_of{(const int*)send_win, (const int*)win_base,
                          edge_block, window / 2};
-  windowed_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
-                                    THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)ew, row_of, (const int*)row_ptr,
-      (const int*)row_slots, (const int*)long_rows, n_rows, piece,
-      (float*)out, (size_t)x_rows * C, (size_t)n_rows * C);
-  return (int)cudaGetLastError();
+  return with_width(width, [&](auto w) {
+    constexpr int LD = decltype(w)::value;
+    windowed_gather_kernel<T, BF16, LD>
+        <<<gather_grid(n_rows, n_long, n_batch, WARP_ROWS, LD / C), THREADS,
+           0, (cudaStream_t)stream>>>(
+            (const T*)x, (const float*)ew, row_of, (const int*)row_ptr,
+            (const int*)row_slots, (const int*)long_rows, n_rows, piece,
+            (float*)out, (size_t)x_rows * LD, (size_t)n_rows * LD);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -84,11 +90,11 @@ int launch(const void* x, const void* ew, const void* send_win,
                       const void* win_base, const void* row_ptr,             \
                       const void* row_slots, const void* long_rows,          \
                       int n_rows, int n_long, int edge_block, int window,    \
-                      int piece, int n_batch, int x_rows, void* out,         \
-                      void* stream) {                                        \
+                      int piece, int n_batch, int x_rows, int width,         \
+                      void* out, void* stream) {                             \
     return launch<T, BF16>(x, ew, send_win, win_base, row_ptr, row_slots,    \
                            long_rows, n_rows, n_long, edge_block, window,    \
-                           piece, n_batch, x_rows, out, stream);             \
+                           piece, n_batch, x_rows, width, out, stream);      \
   }
 
 WINDOWED_CONV(windowed_conv_f32, float, false)

@@ -30,7 +30,8 @@ using namespace bsms;
 
 namespace {
 
-template <typename T, bool BF16>
+// LD: the row width (the latent width, 128 or 256).
+template <typename T, bool BF16, int LD>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 send_gather_kernel(const T* __restrict__ vals,
                    const int* __restrict__ row_ptr,
@@ -38,24 +39,30 @@ send_gather_kernel(const T* __restrict__ vals,
                    const int* __restrict__ long_rows, int n_rows, int piece,
                    float* __restrict__ out, size_t vals_stride,
                    size_t out_stride) {
-  gather_rows<BF16>(vals, ListedSlots{row_slots}, StoreRows{}, row_ptr,
-                    long_rows, n_rows, piece, out, vals_stride, out_stride);
+  gather_rows<BF16, WARP_ROWS, LD>(vals, ListedSlots{row_slots}, StoreRows{},
+                                   row_ptr, long_rows, n_rows, piece, out,
+                                   vals_stride, out_stride);
 }
 
-// vals [n_batch][e_rows][C], out [n_batch][n_rows][C].
+// vals [n_batch][e_rows][width], out [n_batch][n_rows][width]: rows of the
+// latent width (128 or 256), one column block of C a grid z index.
 template <typename T, bool BF16>
 int launch(const void* vals, const void* row_ptr, const void* row_slots,
            const void* long_rows, int n_rows, int n_long, int piece,
-           int n_batch, int e_rows, void* out, void* stream) {
+           int n_batch, int e_rows, int width, void* out, void* stream) {
   if (n_rows < 1 || n_long < 0 || piece < 1 || n_batch < 1 ||
       n_batch > MAX_BATCH || e_rows < 1)
     return (int)cudaErrorInvalidValue;
-  send_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
-                                THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)vals, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)out,
-      (size_t)e_rows * C, (size_t)n_rows * C);
-  return (int)cudaGetLastError();
+  return with_width(width, [&](auto w) {
+    constexpr int LD = decltype(w)::value;
+    send_gather_kernel<T, BF16, LD>
+        <<<gather_grid(n_rows, n_long, n_batch, WARP_ROWS, LD / C), THREADS,
+           0, (cudaStream_t)stream>>>(
+            (const T*)vals, (const int*)row_ptr, (const int*)row_slots,
+            (const int*)long_rows, n_rows, piece, (float*)out,
+            (size_t)e_rows * LD, (size_t)n_rows * LD);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -64,9 +71,10 @@ int launch(const void* vals, const void* row_ptr, const void* row_slots,
   extern "C" int NAME(const void* vals, const void* row_ptr,                 \
                       const void* row_slots, const void* long_rows,          \
                       int n_rows, int n_long, int piece, int n_batch,        \
-                      int e_rows, void* out, void* stream) {                 \
+                      int e_rows, int width, void* out, void* stream) {      \
     return launch<T, BF16>(vals, row_ptr, row_slots, long_rows, n_rows,      \
-                           n_long, piece, n_batch, e_rows, out, stream);     \
+                           n_long, piece, n_batch, e_rows, width, out,       \
+                           stream);                                          \
   }
 
 WINDOWED_SEND_SUM(windowed_send_sum_f32, float, false)

@@ -82,6 +82,20 @@ and in the backward the edge cotangent g[recv], the running cotangent and
 dpre) and accumulated in f32; the LN output is rounded to bf16 before the
 f32 scatter sum, and dpre is stored in bf16.
 
+Width and depth: kernels 4 and 5 take a latent width C of 128 or 256 and
+any number of tail layers L whose tiles fit a block; every walk (kernels
+4, 5 and 11-14) runs on a tile plan (`walk_plan`, the mirror of
+`csrc/edge_bwd_tiles.cuh`'s `with_bwd_plan` / `with_fwd_plan`): at C = 128
+the backward keeps L + 1 64-slot tiles of layer inputs while they fit a
+block's 227 KB (L ≤ 3, the streamed front L ≤ 4), then 32-slot tiles (L ≤
+8); at C = 256, 32-slot tiles with 16-row slabs (L ≤ 4), each row two
+128-column halves; the forwards keep one tile (64 slots at 128, 32 at 256)
+at any L. What no plan holds raises NotImplementedError naming C and L
+before any launch, on the card only: the plain versions take any C and L.
+A width that is not a multiple of 128 raises everywhere, as JAX leaves it
+to XLA (`bsms_gnn_tpu/ops/message.py:502-514`): the `ell` or `segment`
+method runs it.
+
 The batch axis (a shared mesh: xwi, xj [B, n_pad, 128]): one launch of
 kernel 4 walks the B·T tiles of the batch in the same stride order (tile
 t is tile t mod T of sample ⌊t / T⌋, the grid still the card's fill), with
@@ -114,15 +128,73 @@ from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum
 
 BN = 128
 LN_EPS = 1e-5
-# Kernel 5 keeps one activation tile per tail layer in shared memory.
-MAX_BWD_LAYERS = 3
 _FN = {torch.float32: "fused_edge_phase_win_f32",
        torch.bfloat16: "fused_edge_phase_win_bf16"}
 _BWD_FN = {torch.float32: "fused_edge_phase_win_bwd_f32",
            torch.bfloat16: "fused_edge_phase_win_bwd_bf16"}
-# Slots per tile of the tile walk (`csrc/edge_bwd_tiles.cuh`'s TR, held to
-# this value by a static_assert there).
+# Slots per tile of the tile walks at C = 128 and up to 3 tail layers
+# (`csrc/edge_bwd_tiles.cuh`'s plan `Base`, held to this value by a
+# static_assert there).
 TILE_ROWS = 64
+# The tile plans of `csrc/edge_bwd_tiles.cuh` as (C, TR, KS), each width's
+# in the order the walks try them: the backward's first plan whose shared
+# memory fits a block, the forward's first.
+BWD_PLANS = {128: ((128, 64, 64), (128, 32, 64)), 256: ((256, 32, 16),)}
+FWD_PLANS = {128: ((128, 64, 64),), 256: ((256, 32, 32),)}
+# The shared memory one block may hold on an H100 (227 KB) and the widest
+# dynamic stream kernel 13 takes (`csrc/edge_tile.cuh`'s MAX_WD).
+SMEM_MAX = 232448
+_MAX_WD = 4
+FRONTS = ("win", "dyn", "stream")
+
+
+def walk_smem(c, tr, ks, n_layers, front, backward=True) -> int:
+    """Bytes of shared memory of a tile walk (`csrc/edge_bwd_tiles.cuh`'s
+    `smem_bytes`, `csrc/edge_fwd_tiles.cuh`'s `fwd_smem_bytes`) at plan
+    (C, TR, KS) with front `front`: the backward keeps n_layers + 1 tiles,
+    the forward one."""
+    tiles = n_layers + 1 if backward else 1
+    floats = tiles * tr * c + 2 * ks * c
+    if front != "stream":
+        floats += 8 * c + 8 * tr
+    if front == "dyn":
+        floats += _MAX_WD * c + c + _MAX_WD * tr + tr
+    return 4 * floats + 4 * 3 * tr
+
+
+def check_width(c: int) -> None:
+    """Raise on a latent width the kernel methods take nowhere: one that
+    is not a multiple of 128, which JAX runs on XLA."""
+    if c < BN or c % BN:
+        raise NotImplementedError(
+            f"latent width {c}: the kernels take multiples of {BN}; the "
+            f"`ell` or `segment` aggregation method runs any width")
+
+
+def walk_plan(c: int, n_layers: int, front: str, dtype,
+              backward: bool = True) -> Tuple[int, int, int]:
+    """(C, TR, KS): the tile plan a walk (kernels 4, 5 and 11-14) runs at
+    latent width c with n_layers tail layers, front `front` ("win": kernels
+    4, 5, 14; "dyn": 13; "stream": 11, 12) and activations of `dtype`, as
+    the kernels choose it. Raises NotImplementedError naming C and L where
+    no plan's shared memory fits a block, or the width is not one the walks
+    take. A pure function of its arguments."""
+    check_width(c)
+    if front not in FRONTS:
+        raise ValueError(f"front {front!r} not in {FRONTS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"activations of dtype {dtype}")
+    if n_layers < 1:
+        raise ValueError(f"{n_layers} tail layers")
+    plans = (BWD_PLANS if backward else FWD_PLANS).get(c, ())
+    for plan in plans:
+        if walk_smem(*plan, n_layers, front, backward) <= SMEM_MAX:
+            return plan
+    raise NotImplementedError(
+        f"latent width {c} with {n_layers} tail layers: no tile plan of the "
+        f"{'backward' if backward else 'forward'} edge walk ({front} front) "
+        f"fits a block's {SMEM_MAX} bytes (widths 128 and 256 run; see "
+        f"fused_gmp.walk_plan)")
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -178,13 +250,14 @@ def mlp_tail_bwd(pre, hs, normed, inv, g, weights, bf16: bool):
 
 def _check(level, xwi, xj, wf8, weights, biases):
     """Raise on what the windowed edge kernels (4, 5, 13 and 14) do not
-    take: each takes one sample [n_pad, 128] or a batch [B, n_pad, 128]."""
+    take: each takes one sample [n_pad, C] or a batch [B, n_pad, C], C a
+    multiple of 128 (which C and how many tail layers the card's kernels
+    take, `walk_plan` says at launch)."""
     if level.window <= 0:
         raise NotImplementedError("fused edge phase needs a windowed level")
     build.check_batch(xwi, True)
     n_pad, c = level.n_pad_nodes, xwi.shape[-1]
-    if c != BN:
-        raise NotImplementedError(f"latent width {c} (only 128)")
+    check_width(c)
     if xwi.shape[-2:] != (n_pad, c) or xj.shape != xwi.shape:
         raise ValueError(f"xwi/xj {tuple(xwi.shape)}/{tuple(xj.shape)} "
                          f"!= (..., {n_pad}, {c})")
@@ -194,6 +267,15 @@ def _check(level, xwi, xj, wf8, weights, biases):
         raise ValueError("wf8 must be [8, C] and the tail weights [C, C]")
     if len(weights) != len(biases) or not weights:
         raise ValueError("tail weights and biases differ in count")
+
+
+def check_narrow(what, level, xwi, xj, wf8, weights, biases):
+    """`_check`, for a windowed kernel that takes a latent width of 128
+    only (kernels 13 and 14), on every device."""
+    _check(level, xwi, xj, wf8, weights, biases)
+    if xwi.shape[-1] != BN:
+        raise NotImplementedError(
+            f"latent width {xwi.shape[-1]}: {what} takes {BN}")
 
 
 def sender_rows(level):
@@ -244,9 +326,9 @@ def win_fwd_plain(level, xwi, xj, wf8, weights, biases):
 
 
 def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
-    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
-    128] or a batch [B, n_pad, 128], one launch), no autograd. CPU tensors
-    take the plain version; CUDA tensors launch kernel 4."""
+    """aggr [..., n_pad, C] f32 of the in-window edges (xwi, xj [n_pad,
+    C] or a batch [B, n_pad, C], one launch), no autograd. CPU tensors
+    take the plain version; CUDA tensors launch kernel 4 (C 128 or 256)."""
     _check(level, xwi, xj, wf8, weights, biases)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_plain(level, xwi, xj, wf8, weights,
@@ -262,36 +344,39 @@ def fused_edge_phase_win_fwd(level, xwi, xj, wf8, weights, biases):
 def walk_sigs(fns: Dict[torch.dtype, str], n_in: int, n_int: int,
               n_out: int) -> Dict[str, list]:
     """The C signatures of a tile walk's library: each function of `fns`
-    takes n_in pointers, n_int ints and n_out pointers (the stream last);
-    its `_blocks_per_sm` (n_layers, int*)."""
+    takes n_in pointers, n_int ints (the latent width and the tail layers
+    first) and n_out pointers (the stream last); its `_blocks_per_sm`
+    (width, n_layers, int*)."""
     return {**{f: [build.P] * n_in + [build.I] * n_int + [build.P] * n_out
                for f in fns.values()},
-            **{f + "_blocks_per_sm": [build.I, build.P]
+            **{f + "_blocks_per_sm": [build.I, build.I, build.P]
                for f in fns.values()}}
 
 
 def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
                    biases):
-    """aggr [..., n_pad, 128] f32 by the windowed forward tile walk of
+    """aggr [..., n_pad, C] f32 by the windowed forward tile walk of
     `csrc/<lib_name>.cu` (kernel 4's, or kernel 14's under its own names;
     `fns`: dtype → C function) on CUDA tensors, for the batch xwi's
     leading dim gives."""
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
-    lib = build.library(lib_name, walk_sigs(fns, 13, 10, 3))
+    c = xwi.shape[-1]
+    tr = walk_plan(c, len(weights), "win", xwi.dtype, backward=False)[1]
+    lib = build.library(lib_name, walk_sigs(fns, 13, 11, 3))
     fn, dev = fns[xwi.dtype], xwi.device
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, c, len(weights), level, n_batch, tr)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
     lead = xwi.shape[:-2]
-    msg = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+    msg = torch.empty(*lead, level.n_pad_edges, c, dtype=xwi.dtype,
                       device=dev)
-    out = torch.empty(*lead, level.n_pad_nodes, BN, dtype=torch.float32,
+    out = torch.empty(*lead, level.n_pad_nodes, c, dtype=torch.float32,
                       device=dev)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -299,7 +384,7 @@ def win_fwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
         level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
         level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
-        level.win_long.data_ptr(), len(weights), grid, n_tiles,
+        level.win_long.data_ptr(), c, len(weights), grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
         level.win_long.numel(), GATHER_PIECE, n_batch, msg.data_ptr(),
         out.data_ptr(),
@@ -325,17 +410,18 @@ def tile_ranges(n_tiles: int, grid: int) -> Tuple[int, ...]:
 _walks: Dict[tuple, int] = {}
 
 
-def walk_fill(lib, fn: str, n_layers: int, device) -> int:
+def walk_fill(lib, fn: str, width: int, n_layers: int, device) -> int:
     """The blocks that fill the card (blocks per SM × SMs) with the tile
-    walk of `fn` in `lib` at n_layers tail layers, asked of the card once
-    per device. Depends only on the card and the kernel."""
-    key = (fn, n_layers, device)
+    walk of `fn` in `lib` at latent width `width` and n_layers tail layers,
+    asked of the card once per device. Depends only on the card and the
+    kernel."""
+    key = (fn, width, n_layers, device)
     hit = _walks.get(key)
     if hit is None:
         per_sm = ctypes.c_int()
         with torch.cuda.device(device):
             build.check(getattr(lib, fn + "_blocks_per_sm")(
-                n_layers, ctypes.addressof(per_sm)), fn)
+                width, n_layers, ctypes.addressof(per_sm)), fn)
         if per_sm.value < 1:
             raise RuntimeError(f"{fn}: the tile walk fits no block on an SM")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -343,16 +429,19 @@ def walk_fill(lib, fn: str, n_layers: int, device) -> int:
     return hit
 
 
-def walk_grid(lib, fn: str, n_layers: int, level,
-              n_batch: int = 1) -> Tuple[int, int]:
+def walk_grid(lib, fn: str, width: int, n_layers: int, level,
+              n_batch: int = 1,
+              tile_rows: int = TILE_ROWS) -> Tuple[int, int]:
     """(tiles of one sample, blocks) of one launch of the tile walk over
-    `level` for a batch of n_batch samples (B·T tiles in all)."""
-    fill = walk_fill(lib, fn, n_layers, level.receivers.device)
-    if level.edge_block % TILE_ROWS:
+    `level` at latent width `width` for a batch of n_batch samples (B·T
+    tiles in all), on tiles of `tile_rows` slots (the plan's TR,
+    `walk_plan`)."""
+    fill = walk_fill(lib, fn, width, n_layers, level.receivers.device)
+    if level.edge_block % tile_rows:
         raise NotImplementedError(
             f"edge_block {level.edge_block} is not a multiple of the walk's "
-            f"{TILE_ROWS}-slot tiles")
-    n_tiles = level.n_pad_edges // TILE_ROWS
+            f"{tile_rows}-slot tiles")
+    n_tiles = level.n_pad_edges // tile_rows
     return n_tiles, len(tile_ranges(n_tiles * n_batch, fill)) - 1
 
 
@@ -396,11 +485,11 @@ def win_bwd_plain(level, xwi, xj, wf8, weights, biases, g):
 
 
 def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
-    """(dpre [..., E_pad, 128] in xwi's dtype, dxj [..., n_pad, 128] f32,
-    dwf8 [8, 128], dW [L, 128, 128], db [L, 128]) for the aggregate's
-    cotangent g [..., n_pad, 128] (a batch [B, ...] in one launch, the
-    weight gradients summed over it), no autograd. CPU tensors take the
-    plain version; CUDA tensors launch kernel 5."""
+    """(dpre [..., E_pad, C] in xwi's dtype, dxj [..., n_pad, C] f32,
+    dwf8 [8, C], dW [L, C, C], db [L, C]) for the aggregate's cotangent g
+    [..., n_pad, C] (a batch [B, ...] in one launch, the weight gradients
+    summed over it), no autograd. CPU tensors take the plain version; CUDA
+    tensors launch kernel 5 (C 128 or 256, L as `walk_plan` allows)."""
     _check(level, xwi, xj, wf8, weights, biases)
     if g.shape != xwi.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
@@ -409,9 +498,6 @@ def fused_edge_phase_win_bwd(level, xwi, xj, wf8, weights, biases, g):
                                               biases, g)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    if len(weights) > MAX_BWD_LAYERS:
-        raise NotImplementedError(
-            f"{len(weights)} tail layers (kernel 5 takes {MAX_BWD_LAYERS})")
     out = win_bwd_launch("fused_edge_phase_win_bwd", "fused_gmp_bwd",
                          _BWD_FN, level, xwi, xj, wf8, weights, biases, g)
     fused_edge_phase_win_bwd.launches += 1
@@ -427,11 +513,12 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
     build.require(what, xwi.device, level.send_win, level.win_base,
                   level.receivers, level.chunk_block, level.win_row_ptr,
                   level.win_row_slots, level.win_long)
-    lib = build.library(lib_name, walk_sigs(fns, 15, 10, 5))
+    dev, n_layers, c = xwi.device, len(weights), xwi.shape[-1]
+    tr = walk_plan(c, n_layers, "win", xwi.dtype)[1]
+    lib = build.library(lib_name, walk_sigs(fns, 15, 11, 5))
     fn = fns[xwi.dtype]
-    dev, n_layers = xwi.device, len(weights)
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, c, n_layers, level, n_batch, tr)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
@@ -439,13 +526,13 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
     xwi, xj = xwi.contiguous(), xj.contiguous()
     wf8 = wf8.detach().float().contiguous()
     g = g.detach().float().contiguous()
-    grad_size = n_layers * BN * BN + n_layers * BN + 8 * BN
+    grad_size = n_layers * c * c + n_layers * c + 8 * c
     f32 = dict(dtype=torch.float32, device=dev)
     gpart = torch.empty(grid, grad_size, **f32)
     lead = xwi.shape[:-2]
-    dpre = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+    dpre = torch.empty(*lead, level.n_pad_edges, c, dtype=xwi.dtype,
                        device=dev)
-    dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
+    dxj = torch.empty(*lead, level.n_pad_nodes, c, **f32)
     grads = torch.empty(grad_size, **f32)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -453,18 +540,18 @@ def win_bwd_launch(what, lib_name, fns, level, xwi, xj, wf8, weights,
         wt_stack.data_ptr(), g.data_ptr(), level.send_win.data_ptr(),
         level.win_base.data_ptr(), level.receivers.data_ptr(),
         level.chunk_block.data_ptr(), level.win_row_ptr.data_ptr(),
-        level.win_row_slots.data_ptr(), level.win_long.data_ptr(), n_layers,
-        grid, n_tiles, level.n_pad_edges, level.edge_block, level.window,
-        level.n_pad_nodes, level.win_long.numel(), GATHER_PIECE,
+        level.win_row_slots.data_ptr(), level.win_long.data_ptr(),
+        c, n_layers, grid, n_tiles, level.n_pad_edges, level.edge_block,
+        level.window, level.n_pad_nodes, level.win_long.numel(), GATHER_PIECE,
         n_batch, gpart.data_ptr(), dpre.data_ptr(), dxj.data_ptr(),
         grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, what)
-    dw, rest = grads.split([n_layers * BN * BN, grad_size - n_layers * BN * BN])
-    db, dwf8 = rest.split([n_layers * BN, 8 * BN])
-    return (dpre, dxj, dwf8.view(8, BN), dw.view(n_layers, BN, BN),
-            db.view(n_layers, BN))
+    dw, rest = grads.split([n_layers * c * c, grad_size - n_layers * c * c])
+    db, dwf8 = rest.split([n_layers * c, 8 * c])
+    return (dpre, dxj, dwf8.view(8, c), dw.view(n_layers, c, c),
+            db.view(n_layers, c))
 
 
 fused_edge_phase_win_bwd.launches = 0
@@ -504,9 +591,9 @@ _V3 = (lambda *a: fused_edge_phase_win_fwd(*a),
 
 
 def fused_edge_phase_win(level, xwi, xj, wf8, weights, biases):
-    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
-    128] or a batch [B, n_pad, 128]), differentiable in xwi, xj, wf8 and
-    every tail weight and bias. `wf8` rows [0, pd1) are the static-fiber
+    """aggr [..., n_pad, C] f32 of the in-window edges (xwi, xj [n_pad, C]
+    or a batch [B, n_pad, C]), differentiable in xwi, xj, wf8 and every
+    tail weight and bias. `wf8` rows [0, pd1) are the static-fiber
     rows of the first edge layer, row pd1 its bias; `weights`/`biases` are
     the tail layers ([C, C] stored [in, out])."""
     _check(level, xwi, xj, wf8, weights, biases)

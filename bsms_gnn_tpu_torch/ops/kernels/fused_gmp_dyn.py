@@ -82,9 +82,8 @@ from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
-    MAX_BWD_LAYERS,
-    _check,
     _edge_pre,
+    check_narrow,
     dot,
     flat_rows,
     mlp_tail_bwd,
@@ -93,6 +92,7 @@ from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     round_bf16,
     sender_rows,
     walk_grid,
+    walk_plan,
     walk_sigs,
 )
 from bsms_gnn_tpu_torch.ops.kernels.windowed import windowed_send_sum
@@ -106,7 +106,7 @@ _BWD_FN = {torch.float32: "fused_edge_phase_win_dyn_bwd_f32",
 
 
 def _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases):
-    _check(level, xwi, xj, wf8, weights, biases)
+    check_narrow("kernel 13", level, xwi, xj, wf8, weights, biases)
     wd = wfd.shape[0] if wfd.dim() == 2 else -1
     if not 0 < wd <= BN or wfd.shape != (wd, BN) or wfn.shape != (BN,):
         raise ValueError(f"wf_dyn {tuple(wfd.shape)} must be [wd, {BN}] with "
@@ -176,10 +176,10 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
     build.require("fused_edge_phase_win_dyn", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
                   level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 11, 3))
+    lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 12, 3))
     fn, dev = _FN[xwi.dtype], xwi.device
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, BN, len(weights), level, n_batch)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
@@ -197,8 +197,9 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
         level.win_base.data_ptr(), level.receivers.data_ptr(),
         level.chunk_block.data_ptr(), level.win_row_ptr.data_ptr(),
         level.win_row_slots.data_ptr(), level.win_long.data_ptr(),
-        len(weights), wd, grid, n_tiles, level.n_pad_edges, level.edge_block,
-        level.window, level.n_pad_nodes, level.win_long.numel(),
+        BN, len(weights), wd, grid, n_tiles, level.n_pad_edges,
+        level.edge_block, level.window, level.n_pad_nodes,
+        level.win_long.numel(),
         GATHER_PIECE, n_batch, msg.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -258,18 +259,16 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                                                   wfd, wfn, weights, biases, g)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    if len(weights) > MAX_BWD_LAYERS:
-        raise NotImplementedError(f"{len(weights)} tail layers (kernel 13's "
-                                  f"backward takes {MAX_BWD_LAYERS})")
+    tr = walk_plan(BN, len(weights), "dyn", xwi.dtype)[1]
     wd = _kernel_wd(wfd)
     build.require("fused_edge_phase_win_dyn_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
                   level.win_row_ptr, level.win_row_slots, level.win_long)
-    lib = build.library("fused_gmp_dyn_bwd", walk_sigs(_BWD_FN, 18, 11, 5))
+    lib = build.library("fused_gmp_dyn_bwd", walk_sigs(_BWD_FN, 18, 12, 5))
     fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, BN, n_layers, level, n_batch, tr)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
@@ -292,7 +291,7 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
         g.data_ptr(), level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
         level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
-        level.win_long.data_ptr(), n_layers, wd, grid, n_tiles,
+        level.win_long.data_ptr(), BN, n_layers, wd, grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
         level.win_long.numel(), GATHER_PIECE, n_batch, gpart.data_ptr(),
         dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),

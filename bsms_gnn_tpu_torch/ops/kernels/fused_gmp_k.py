@@ -68,9 +68,8 @@ import torch
 
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
-    MAX_BWD_LAYERS,
     EdgePhase,
-    _check,
+    check_narrow,
     fused_edge_phase_win,
     win_bwd_launch,
     win_bwd_plain,
@@ -113,7 +112,7 @@ def fused_edge_phase_win_k_fwd(level, xwi, xj, wf8, weights, biases, k):
     """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
     128] or a batch [B, n_pad, 128], one launch), no autograd. CPU tensors
     take the plain version; CUDA tensors launch kernel 14."""
-    _check(level, xwi, xj, wf8, weights, biases)
+    check_narrow("kernel 14", level, xwi, xj, wf8, weights, biases)
     _check_k(k)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_k_plain(level, xwi, xj, wf8, weights,
@@ -145,7 +144,7 @@ def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
     cotangent g [..., n_pad, 128] (a batch [B, ...] in one launch, the
     weight gradients summed over it), no autograd. CPU tensors take the
     plain version; CUDA tensors launch kernel 14's backward."""
-    _check(level, xwi, xj, wf8, weights, biases)
+    check_narrow("kernel 14", level, xwi, xj, wf8, weights, biases)
     _check_k(k)
     if g.shape != xwi.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
@@ -154,10 +153,6 @@ def fused_edge_phase_win_k_bwd(level, xwi, xj, wf8, weights, biases, g, k):
                                                 biases, g, k)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    if len(weights) > MAX_BWD_LAYERS:
-        raise NotImplementedError(
-            f"{len(weights)} tail layers (kernel 14's backward takes "
-            f"{MAX_BWD_LAYERS})")
     out = win_bwd_launch("fused_edge_phase_win_k_bwd", "fused_gmp_k_bwd",
                          _BWD_FN, level, xwi, xj, wf8, weights, biases, g)
     fused_edge_phase_win_k_bwd.launches += 1
@@ -180,7 +175,7 @@ def fused_edge_phase_win_k(level, xwi, xj, wf8, weights, biases, k,
         return fused_edge_phase_win(level, xwi, xj, wf8, weights, biases)
     if level.skip_empty:
         return None
-    _check(level, xwi, xj, wf8, weights, biases)
+    check_narrow("kernel 14", level, xwi, xj, wf8, weights, biases)
     # Kernel 14 and its backward, looked up at each call (so that a caller
     # may swap in the plain versions).
     kernels = (lambda *a: fused_edge_phase_win_k_fwd(*a, k),

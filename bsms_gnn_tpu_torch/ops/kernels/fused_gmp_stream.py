@@ -82,13 +82,13 @@ from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
-    MAX_BWD_LAYERS,
     flat_rows,
     mlp_tail_bwd,
     mlp_tail_fwd_save,
     mlp_tail_plain,
     round_bf16,
     walk_grid,
+    walk_plan,
     walk_sigs,
 )
 
@@ -103,13 +103,9 @@ _BWD_FN = {torch.float32: "fused_edge_phase_bwd_f32",
 _AGG_BWD_FN = {torch.float32: "fused_edge_mlp_aggregate_bwd_f32",
                torch.bfloat16: "fused_edge_mlp_aggregate_bwd_bf16"}
 _SIGS = {
-    _LIB: {**walk_sigs(_FN, 9, 9, 3), **walk_sigs(_AGG_FN, 8, 9, 3)},
-    _BWD_LIB: {**{f: [build.P] * 11 + [build.I] * 9 + [build.P] * 5
-                  for f in _BWD_FN.values()},
-               **{f: [build.P] * 7 + [build.I] * 7 + [build.P] * 4
-                  for f in _AGG_BWD_FN.values()},
-               **{f + "_blocks_per_sm": [build.I, build.P]
-                  for f in (*_BWD_FN.values(), *_AGG_BWD_FN.values())}},
+    _LIB: {**walk_sigs(_FN, 9, 10, 3), **walk_sigs(_AGG_FN, 8, 10, 3)},
+    _BWD_LIB: {**walk_sigs(_BWD_FN, 11, 10, 5),
+               **walk_sigs(_AGG_BWD_FN, 7, 8, 4)},
 }
 
 
@@ -197,7 +193,7 @@ def _launch_fwd(fn_table, level, src, xj, weights, biases, what):
     lib = build.library(_LIB, _SIGS[_LIB])
     fn, dev = fn_table[src.dtype], src.device
     n_batch = src.shape[0] if src.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, len(weights), level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, BN, len(weights), level, n_batch)
     # The tile walk takes the weights already rounded in bf16 mode.
     bf16 = src.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
@@ -212,7 +208,7 @@ def _launch_fwd(fn_table, level, src, xj, weights, biases, what):
         *(t.data_ptr() for t in rows), w_stack.data_ptr(), b_stack.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
         level.row_ptr.data_ptr(), level.row_slots.data_ptr(),
-        level.row_long.data_ptr(), len(weights), grid, n_tiles,
+        level.row_long.data_ptr(), BN, len(weights), grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.n_pad_nodes,
         level.row_long.numel(), GATHER_PIECE, n_batch, msg.data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -224,9 +220,7 @@ def _launch_fwd(fn_table, level, src, xj, weights, biases, what):
 def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     """(dsrc in src's dtype, dxj f32 or None, dW, db), for the batch
     src's leading dim gives (the weight gradients summed over it)."""
-    if len(weights) > MAX_BWD_LAYERS:
-        raise NotImplementedError(f"{len(weights)} tail layers (the backward "
-                                  f"kernels take {MAX_BWD_LAYERS})")
+    tr = walk_plan(BN, len(weights), "stream", src.dtype)[1]
     build.require(what, src.device, level.receivers, level.chunk_block,
                   *(() if xj is None else (level.row_ptr, level.row_slots,
                                            level.row_long)))
@@ -234,7 +228,7 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
     fn = fn_table[src.dtype]
     dev, n_layers = src.device, len(weights)
     n_batch = src.shape[0] if src.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, n_layers, level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, BN, n_layers, level, n_batch, tr)
     # The tile walk takes the weights already rounded in bf16 mode.
     bf16 = src.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
@@ -259,14 +253,14 @@ def _launch_bwd(fn_table, level, src, xj, weights, biases, g, what):
         dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
         err = getattr(lib, fn)(
             src.data_ptr(), xj.data_ptr(), *common, level.row_ptr.data_ptr(),
-            level.row_slots.data_ptr(), level.row_long.data_ptr(), n_layers,
-            grid, n_tiles, level.n_pad_edges, level.edge_block,
+            level.row_slots.data_ptr(), level.row_long.data_ptr(), BN,
+            n_layers, grid, n_tiles, level.n_pad_edges, level.edge_block,
             level.n_pad_nodes, level.row_long.numel(), GATHER_PIECE,
             n_batch, gpart.data_ptr(), dsrc.data_ptr(), dxj.data_ptr(),
             grads.data_ptr(), stream)
     else:
         err = getattr(lib, fn)(
-            src.data_ptr(), *common, n_layers, grid, n_tiles,
+            src.data_ptr(), *common, BN, n_layers, grid, n_tiles,
             level.n_pad_edges, level.edge_block, level.n_pad_nodes, n_batch,
             gpart.data_ptr(), dsrc.data_ptr(), grads.data_ptr(), stream)
     build.check(err, what)

@@ -54,6 +54,16 @@ host: `build.stacked(..., to_bf16=True)`), and in the backward the running
 cotangent and dpre too; g itself enters the LayerNorm backward in f32, as
 on the TPU.
 
+Width and depth: kernels 3 and 6 take a latent width C of 128 or 256
+(`node_plan`): CTA q of a tile's cluster keeps SW = 32 output columns, so
+a cluster is C / 32 CTAs (4, or 8 at 256: the portable cluster limit), and
+kernel 6 keeps one 64×32 slice per tail layer, any L whose slices fit a
+block (L ≤ 18 at 128, ≤ 10 at 256). Its partials grow with C²·L (1.58 MB
+at (256, 4)), so `p_max` caps them by bytes (PART_BYTES) as well as by
+waves. A (C, L) no kernel holds raises NotImplementedError naming C and L
+before any launch, on the card only (the plain versions take any C and
+L); a width that is not a multiple of 128 raises everywhere.
+
 The batch axis (a shared mesh): the node phase is row-wise, so x, aggr
 [B, n_pad, 128] are one launch over their B·n_pad rows as [B·n_pad, 128]
 (kernels 3 and 6 unchanged per tile). Kernel 6 caps its weight-gradient
@@ -82,49 +92,88 @@ import torch
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
     BN,
-    MAX_BWD_LAYERS,
+    SMEM_MAX,
+    check_width,
     dot,
     mlp_tail_bwd,
     mlp_tail_fwd_save,
     mlp_tail_plain,
 )
+from bsms_gnn_tpu_torch.ops.kernels.windowed import WIDTHS
 
 # (x dtype, bf16 compute) → C entry.
 _FN = {(torch.float32, False): "fused_node_phase_f32",
        (torch.bfloat16, True): "fused_node_phase_bf16",
        (torch.float32, True): "fused_node_phase_f32_bf16"}
-_SIGS = {**{f: [build.P] * 7 + [build.I] * 2 + [build.P]
+_SIGS = {**{f: [build.P] * 7 + [build.I] * 3 + [build.P]
             for f in _FN.values()},
-         **{f + "_occupancy": [build.P] * 2 for f in _FN.values()}}
+         **{f + "_occupancy": [build.I] + [build.P] * 2
+            for f in _FN.values()}}
 _BWD_FN = {(torch.float32, False): "fused_node_phase_bwd_f32",
            (torch.bfloat16, True): "fused_node_phase_bwd_bf16",
            (torch.float32, True): "fused_node_phase_bwd_f32_bf16"}
-_BWD_SIGS = {**{f: [build.P] * 10 + [build.I] * 3 + [build.P] * 4
+_BWD_SIGS = {**{f: [build.P] * 10 + [build.I] * 4 + [build.P] * 4
                 for f in _BWD_FN.values()},
-             **{f + "_occupancy": [build.I, build.P, build.P]
+             **{f + "_occupancy": [build.I, build.I, build.P, build.P]
                 for f in _BWD_FN.values()}}
-# Rows of a tile (`csrc/node_cluster.cuh`'s TILE) and CTAs of kernels 3's
-# and 6's cluster per tile (its CL), each owning BN / CLUSTER output columns
-# of every product; held to these values by a static_assert there.
+# Rows of a tile (`csrc/node_cluster.cuh`'s TILE), output columns of one
+# CTA of kernels 3's and 6's cluster (its SW) and CTAs per tile at C = 128
+# (its CL; C / SW at width C: `cluster_of`); held to these values by a
+# static_assert there.
 ROWS = 64
-CLUSTER = 4
+SW = 32
+CLUSTER = BN // SW
 # The fewest partials kernel 6's cap holds: the most 64-row tiles of any
 # level the port runs at B = 1 (the 16k surface's level 0, 16,128 rows).
 P_MIN = 252
+# The most bytes kernel 6's partials take (1.58 MB each at (256, 4)).
+PART_BYTES = 256 << 20
 _clusters = {}
 
 
-def bwd_clusters(x_dtype, compute_dtype, n_layers, device) -> int:
+def cluster_of(c: int) -> int:
+    """CTAs of kernels 3's and 6's cluster at latent width c."""
+    return c // SW
+
+
+def bwd_smem(c: int, n_layers: int) -> int:
+    """Bytes of shared memory of a kernel 6 CTA (`csrc/node_mlp_bwd.cu`'s
+    `smem_bytes`): the full tile, the kept slices, two exchange slices,
+    two weight slices."""
+    return 4 * (ROWS * (c + 4) + (max(n_layers, 2) + 2) * ROWS * SW
+                + 2 * c * SW)
+
+
+def node_plan(c: int, n_layers: int, backward: bool = True) -> int:
+    """The cluster size (CTAs a tile) kernels 3 and 6 run at latent width
+    c with n_layers tail layers; raises NotImplementedError naming C and L
+    where the kernels take neither, as the card's entries refuse them. A
+    pure function of its arguments."""
+    check_width(c)
+    if n_layers < 1:
+        raise ValueError(f"{n_layers} tail layers")
+    if c not in WIDTHS or (backward and bwd_smem(c, n_layers) > SMEM_MAX):
+        raise NotImplementedError(
+            f"latent width {c} with {n_layers} tail layers: the node phase "
+            f"kernels take widths {WIDTHS} and, in the backward, the tail "
+            f"layers whose slices fit a block's {SMEM_MAX} bytes (see "
+            f"node_mlp.node_plan)")
+    return cluster_of(c)
+
+
+def bwd_clusters(x_dtype, compute_dtype, n_layers, device,
+                 width: int = BN) -> int:
     """The clusters of kernel 6's entry for x_dtype and compute_dtype at
-    n_layers that the card holds at once (its occupancy calculator, asked
-    once per device and entry)."""
+    n_layers and the latent width that the card holds at once (its
+    occupancy calculator, asked once per device and entry)."""
     fn = _BWD_FN[(x_dtype, compute_dtype == torch.bfloat16)] + "_occupancy"
-    key = (fn, n_layers, device)
+    key = (fn, n_layers, device, width)
     if key not in _clusters:
         lib = build.library("node_mlp_bwd", _BWD_SIGS)
         per_sm, clusters = ctypes.c_int(), ctypes.c_int()
         with torch.cuda.device(device):
-            build.check(getattr(lib, fn)(n_layers, ctypes.addressof(per_sm),
+            build.check(getattr(lib, fn)(width, n_layers,
+                                         ctypes.addressof(per_sm),
                                          ctypes.addressof(clusters)), fn)
         if clusters.value < 1:
             raise RuntimeError(f"{fn}: no cluster fits on the card")
@@ -132,19 +181,21 @@ def bwd_clusters(x_dtype, compute_dtype, n_layers, device) -> int:
     return _clusters[key]
 
 
-def p_max(x_dtype, compute_dtype, n_layers, device) -> int:
+def p_max(x_dtype, compute_dtype, n_layers, device, width: int = BN) -> int:
     """The cap on kernel 6's partials: the fewest whole waves of the
-    clusters the card holds at once (`bwd_clusters`) that hold P_MIN."""
-    c = bwd_clusters(x_dtype, compute_dtype, n_layers, device)
-    return c * -(-P_MIN // c)
+    clusters the card holds at once (`bwd_clusters`) that hold P_MIN, or
+    the whole waves whose partials take at most PART_BYTES where that is
+    fewer (never less than one wave)."""
+    c = bwd_clusters(x_dtype, compute_dtype, n_layers, device, width)
+    part = 4 * ((2 + n_layers) * width * width + (1 + n_layers) * width)
+    return min(c * -(-P_MIN // c), max(c, PART_BYTES // part // c * c))
 
 
 def _check(x, aggr, mlp, compute_dtype):
     """Raise on what the kernels do not take (aggr None: x and mlp only)."""
     build.check_batch(x, True)
     n_pad, c = x.shape[-2:]
-    if c != BN:
-        raise NotImplementedError(f"latent width {c} (only 128)")
+    check_width(c)
     if aggr is not None and (aggr.shape != x.shape
                              or aggr.dtype != torch.float32):
         raise ValueError(f"aggr must be f32 {tuple(x.shape)}")
@@ -193,14 +244,16 @@ fused_node_phase_plain.calls = 0
 
 def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
     """LN(MLP_node([x, aggr])) + x, no autograd. `mlp` is the GMP's node
-    MLP (weights stored [in, out]); x, aggr [n_pad, 128] or a batch [B,
-    n_pad, 128] (one launch over its rows). CPU tensors take the plain
-    version; CUDA tensors launch kernel 3."""
+    MLP (weights stored [in, out]); x, aggr [n_pad, C] or a batch [B,
+    n_pad, C] (one launch over its rows). CPU tensors take the plain
+    version; CUDA tensors launch kernel 3 (C 128 or 256)."""
     _check(x, aggr, mlp, compute_dtype)
     if x.device.type == "cpu":
         return fused_node_phase_plain(x, aggr, mlp, compute_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
+    c = x.shape[-1]
+    node_plan(c, len(mlp.weights) - 1, backward=False)
     lib = build.library("node_mlp", _SIGS)
     ws, bs = list(mlp.weights), list(mlp.biases)
     bf16 = compute_dtype == torch.bfloat16
@@ -212,8 +265,8 @@ def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
     out = torch.empty_like(x, dtype=torch.bfloat16 if bf16 else x.dtype)
     err = getattr(lib, _FN[(x.dtype, bf16)])(
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-        w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(),
-        len(mlp.weights) - 1, x.numel() // (BN * ROWS),
+        w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(), c,
+        len(mlp.weights) - 1, x.numel() // (c * ROWS),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_node_phase")
@@ -224,14 +277,14 @@ def fused_node_phase_fwd(x, aggr, mlp, compute_dtype=None):
 fused_node_phase_fwd.launches = 0
 
 
-def occupancy(x_dtype=torch.float32, compute_dtype=None):
+def occupancy(x_dtype=torch.float32, compute_dtype=None, width: int = BN):
     """(CTAs per SM, clusters on the card at once) of kernel 3's entry for
-    x_dtype and compute_dtype, as the card's occupancy calculator reports
-    them on the current device."""
+    x_dtype and compute_dtype at the latent width, as the card's occupancy
+    calculator reports them on the current device."""
     lib = build.library("node_mlp", _SIGS)
     fn = _FN[(x_dtype, compute_dtype == torch.bfloat16)] + "_occupancy"
     per_sm, clusters = ctypes.c_int(), ctypes.c_int()
-    build.check(getattr(lib, fn)(ctypes.addressof(per_sm),
+    build.check(getattr(lib, fn)(width, ctypes.addressof(per_sm),
                                  ctypes.addressof(clusters)), fn)
     return per_sm.value, clusters.value
 
@@ -256,11 +309,11 @@ fused_node_phase_bwd_plain.calls = 0
 
 
 def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
-    """(dx in x's dtype, daggr f32, dWa, dWb [128, 128], db0 [128], dW [L,
-    128, 128], db [L, 128]) for the output's cotangent g, no autograd; a
-    batch is one launch over its rows, the weight gradients summed over
-    it. CPU tensors take the plain version; CUDA tensors launch kernel
-    6."""
+    """(dx in x's dtype, daggr f32, dWa, dWb [C, C], db0 [C], dW [L, C,
+    C], db [L, C]) for the output's cotangent g, no autograd; a batch is
+    one launch over its rows, the weight gradients summed over it. CPU
+    tensors take the plain version; CUDA tensors launch kernel 6 (C 128 or
+    256, L as `node_plan` allows)."""
     _check(x, aggr, mlp, compute_dtype)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(x.shape)}")
@@ -269,9 +322,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     n_layers = len(mlp.weights) - 1
-    if n_layers > MAX_BWD_LAYERS:
-        raise NotImplementedError(
-            f"{n_layers} tail layers (kernel 6 takes {MAX_BWD_LAYERS})")
+    node_plan(x.shape[-1], n_layers)
     lib = build.library("node_mlp_bwd", _BWD_SIGS)
     ws, bs = list(mlp.weights), list(mlp.biases)
     c, dev = x.shape[-1], x.device
@@ -285,7 +336,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     x, aggr = x.contiguous(), aggr.contiguous()
     g = g.detach().float().contiguous()
     n_tiles = x.numel() // (c * ROWS)
-    parts = min(n_tiles, p_max(x.dtype, compute_dtype, n_layers, dev))
+    parts = min(n_tiles, p_max(x.dtype, compute_dtype, n_layers, dev, c))
     grad_size = (2 + n_layers) * c * c + (1 + n_layers) * c
     gpart = torch.empty(parts, grad_size, dtype=torch.float32, device=dev)
     grads = torch.empty(grad_size, dtype=torch.float32, device=dev)
@@ -294,7 +345,7 @@ def fused_node_phase_bwd(x, aggr, mlp, g, compute_dtype=None):
     err = getattr(lib, _BWD_FN[(x.dtype, bf16)])(
         x.data_ptr(), aggr.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         w_stack.data_ptr(), b_stack.data_ptr(), w0_t.data_ptr(),
-        wt_stack.data_ptr(), g.data_ptr(), gpart.data_ptr(), n_layers,
+        wt_stack.data_ptr(), g.data_ptr(), gpart.data_ptr(), c, n_layers,
         n_tiles, parts, dx.data_ptr(), daggr.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

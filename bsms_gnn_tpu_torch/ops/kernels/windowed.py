@@ -95,10 +95,13 @@ from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 
 BN = 128
-_SIG = [build.P] * 7 + [build.I] * 7 + [build.P] * 2
+# The latent widths kernels 1-7 are built for (`csrc/common.cuh`'s
+# `with_width`); a gather takes a row of one in width / BN column blocks.
+WIDTHS = (128, 256)
+_SIG = [build.P] * 7 + [build.I] * 8 + [build.P] * 2
 _FN = {torch.float32: "windowed_conv_f32",
        torch.bfloat16: "windowed_conv_bf16"}
-_SEND_SIG = [build.P] * 4 + [build.I] * 5 + [build.P] * 2
+_SEND_SIG = [build.P] * 4 + [build.I] * 6 + [build.P] * 2
 _SEND_FN = {torch.float32: "windowed_send_sum_f32",
             torch.bfloat16: "windowed_send_sum_bf16"}
 def _check(t, x, n_rows, ew, batched):
@@ -108,8 +111,9 @@ def _check(t, x, n_rows, ew, batched):
         raise NotImplementedError("windowed conv needs a windowed operator "
                                   "or level")
     build.check_batch(x, batched)
-    if x.shape[-2:] != (n_rows, BN):
-        raise ValueError(f"x {tuple(x.shape)} != (..., {n_rows}, {BN})")
+    if x.shape[-2] != n_rows or not x.shape[-1] or x.shape[-1] % BN:
+        raise ValueError(f"x {tuple(x.shape)} != (..., {n_rows}, C), C a "
+                         f"multiple of {BN}")
     if x.dtype not in _FN:
         raise ValueError(f"x dtype {x.dtype}")
     if ew.shape != (t.n_pad_edges,):
@@ -135,11 +139,20 @@ def _plain(t, x, ew):
     return out.index_add_(-2, t.receivers.long(), msg)
 
 
+def check_gather_width(what, c):
+    """Raise on rows of a width the gathers are not built for (on the
+    card)."""
+    if c not in WIDTHS:
+        raise NotImplementedError(f"{what}: rows of {c} (the gathers are "
+                                  f"built for latent widths {WIDTHS})")
+
+
 def _launch(what, t, x, ew):
     """One launch of the kernel over `t`'s live-slot rows, every sample of
-    a batch in it: f32 [..., t.n_pad_nodes, 128]."""
+    a batch in it: f32 [..., t.n_pad_nodes, C]."""
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
+    check_gather_width(what, x.shape[-1])
     build.require(what, x.device, t.send_win, t.win_base, t.win_row_ptr,
                   t.win_row_slots, t.win_long)
     if ew.dtype != torch.float32 or not ew.is_contiguous():
@@ -147,14 +160,14 @@ def _launch(what, t, x, ew):
     lib = build.library("windowed", {f: _SIG for f in _FN.values()})
     x = x.contiguous()
     n_batch = x.shape[0] if x.dim() == 3 else 1
-    out = torch.empty(*x.shape[:-2], t.n_pad_nodes, BN, dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty(*x.shape[:-2], t.n_pad_nodes, x.shape[-1],
+                      dtype=torch.float32, device=x.device)
     err = getattr(lib, _FN[x.dtype])(
         x.data_ptr(), ew.data_ptr(), t.send_win.data_ptr(),
         t.win_base.data_ptr(), t.win_row_ptr.data_ptr(),
         t.win_row_slots.data_ptr(), t.win_long.data_ptr(), t.n_pad_nodes,
         t.win_long.numel(), t.edge_block, t.window, GATHER_PIECE, n_batch,
-        x.shape[-2], out.data_ptr(),
+        x.shape[-2], x.shape[-1], out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, what)
@@ -171,10 +184,10 @@ windowed_rect_conv_plain.calls = 0
 
 
 def windowed_rect_conv(op, x):
-    """Out-space f32 [..., n_pad_nodes, 128] of the in-window entries of a
-    windowed TransOp applied to x [n_in_pad, 128] or a batch [B, n_in_pad,
-    128] (one launch). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    """Out-space f32 [..., n_pad_nodes, C] of the in-window entries of a
+    windowed TransOp applied to x [n_in_pad, C] or a batch [B, n_in_pad,
+    C] (one launch; C a multiple of 128). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     _check(op, x, op.n_in_pad, op.ew, batched=True)
     if x.device.type == "cpu":
         return windowed_rect_conv_plain(op, x)
@@ -219,9 +232,11 @@ def _check_send(level, vals):
     if level.window <= 0:
         raise NotImplementedError("windowed send sum needs a windowed level")
     build.check_batch(vals, True)
-    if vals.shape[-2:] != (level.n_pad_edges, BN):
+    if (vals.shape[-2] != level.n_pad_edges or not vals.shape[-1]
+            or vals.shape[-1] % BN):
         raise ValueError(f"vals {tuple(vals.shape)} != "
-                         f"(..., {level.n_pad_edges}, {BN})")
+                         f"(..., {level.n_pad_edges}, C), C a multiple of "
+                         f"{BN}")
     if vals.dtype not in _SEND_FN:
         raise ValueError(f"vals dtype {vals.dtype}")
 
@@ -245,27 +260,29 @@ windowed_send_sum_plain.calls = 0
 
 
 def windowed_send_sum(level, vals):
-    """f32 [..., n_pad, 128] sender sums of the in-window slots' rows of
-    vals [E_pad, 128] or a batch [B, E_pad, 128] (one launch). CPU tensors
-    take the plain version; CUDA tensors launch kernel 7."""
+    """f32 [..., n_pad, C] sender sums of the in-window slots' rows of
+    vals [E_pad, C] or a batch [B, E_pad, C] (one launch; C a multiple of
+    128). CPU tensors take the plain version; CUDA tensors launch kernel
+    7."""
     _check_send(level, vals)
     if vals.device.type == "cpu":
         return windowed_send_sum_plain(level, vals)
     if vals.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {vals.device}")
+    check_gather_width("windowed_send_sum", vals.shape[-1])
     build.require("windowed_send_sum", vals.device, level.send_row_ptr,
                   level.send_row_slots, level.send_long)
     lib = build.library("windowed_send",
                         {f: _SEND_SIG for f in _SEND_FN.values()})
     vals = vals.contiguous()
     n_batch = vals.shape[0] if vals.dim() == 3 else 1
-    out = torch.empty(*vals.shape[:-2], level.n_pad_nodes, BN,
+    out = torch.empty(*vals.shape[:-2], level.n_pad_nodes, vals.shape[-1],
                       dtype=torch.float32, device=vals.device)
     err = getattr(lib, _SEND_FN[vals.dtype])(
         vals.data_ptr(), level.send_row_ptr.data_ptr(),
         level.send_row_slots.data_ptr(), level.send_long.data_ptr(),
         level.n_pad_nodes, level.send_long.numel(), GATHER_PIECE, n_batch,
-        level.n_pad_edges, out.data_ptr(),
+        level.n_pad_edges, vals.shape[-1], out.data_ptr(),
         torch.cuda.current_stream(vals.device).cuda_stream,
     )
     build.check(err, "windowed_send_sum")

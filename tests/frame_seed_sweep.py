@@ -6,10 +6,13 @@ puts the port back on JAX's.
 
     JAX_PLATFORMS=cpu python tests/frame_seed_sweep.py [FIRST LAST [NUDGES]]
     JAX_PLATFORMS=cpu python tests/frame_seed_sweep.py contact [FIRST ...]
+    JAX_PLATFORMS=cpu python tests/frame_seed_sweep.py wide [FIRST ...]
 
 The first form sweeps the slice case's frames (`test_torch_port_batch_
 grads.py`), the second the flag case's (`test_torch_port_batch_contact.py`:
-the contact recipe's world z drawn from the seed).
+the contact recipe's world z drawn from the seed), `wide` and `wide128`
+`test_torch_port_wide.py`'s train frame at latent 256 and 128 with four
+tail layers.
 
 The gradients are piecewise smooth: a ReLU input within f32 rounding of
 zero lands on the side its order of sums picks, and the two sides' weight
@@ -35,6 +38,7 @@ import test_torch_port_batch_contact as contact_batch  # noqa: E402
 import test_torch_port_batch_grads as grads_test  # noqa: E402
 import test_torch_port_contact as contact_test  # noqa: E402
 import test_torch_port_slice as slice_test  # noqa: E402
+import test_torch_port_wide as wide_test  # noqa: E402
 from test_torch_port_train import GRAD_F32_TOL, jax_param_grads  # noqa: E402
 
 from bsms_gnn_tpu.config import Config as JaxConfig  # noqa: E402
@@ -59,14 +63,29 @@ def contact_frames(case, seed):
                                       axis=0)
 
 
-# case name → (its module-scoped fixture, its frames for a seed)
+def wide_case(c, layers):
+    """`test_torch_port_wide.py`'s mesh and model at (c, layers)."""
+    mesh = wide_test.mesh._get_wrapped_function()()
+    jcfg, state, sim = wide_test.model(c, layers)
+    return dict(mesh, jcfg=jcfg, state=state, sim=sim)
+
+
+def wide_frames(case, seed):
+    return (*wide_test.train_frame(case, seed), case["mask"])
+
+
+# case name → (its module-scoped fixture or case builder, its frames for a
+# seed)
 CASES = {"slice": (slice_test.case, slice_frames),
-         "contact": (contact_test.case, contact_frames)}
+         "contact": (contact_test.case, contact_frames),
+         "wide": (lambda: wide_case(256, 4), wide_frames),
+         "wide128": (lambda: wide_case(128, 4), wide_frames)}
 
 
 def main(name="slice", first=0, last=45, nudges=200):
     fixture, make_frames = CASES[name]
-    case = fixture._get_wrapped_function()()
+    wrapped = getattr(fixture, "_get_wrapped_function", None)
+    case = wrapped()() if wrapped else fixture()
     hj, ht, jcfg, state, sim = (case[k] for k in
                                 ("hj", "ht", "jcfg", "state", "sim"))
     jtr = JaxTrainer(JaxConfig(model=jcfg), init_key=jax.random.PRNGKey(0))

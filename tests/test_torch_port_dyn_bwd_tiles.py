@@ -83,6 +83,18 @@ PLAIN_TOL = (2e-5, 2e-6)
 NRM_TOL = {"plain": 1e-5, "jax": 2e-4}
 RELU_MARGIN = 3e-6
 GRIDS = (1, 25, 132)
+# A case name's suffix for four tail layers: the backward walk's `Deep`
+# plan at C = 128, 32-slot tiles (`fused_gmp.walk_plan`).
+DEEP = " deep"
+
+
+def layers_of(name):
+    return 4 if name.endswith(DEEP) else LAYERS
+
+
+def tr_of(name):
+    """The tile rows of kernel 13's backward walk at the case's depth."""
+    return fg.walk_plan(C, layers_of(name), "dyn", torch.float32)[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +116,7 @@ def level(name):
     """(JAX level, the port's) by name ("flag L3"); "... cut one" and
     "... cut none" keep the first two live slots, or none, and move every
     other slot out of window."""
-    base, _, cut = name.partition(" cut ")
+    base, _, cut = name.removesuffix(DEEP).partition(" cut ")
     mesh, lv = base.split(" L")
     hj, ht = hierarchies(mesh)
     jl, tl = hj.levels[int(lv)], ht.levels[int(lv)]
@@ -121,7 +133,8 @@ def level(name):
 def inputs(name, seed=0):
     """Kernel 13's backward inputs on a level (f32 numpy): xwi, xj (3·N(0,
     1)), the world positions (N(0, 1) on real nodes), wf8, wf_dyn, wf_nrm
-    (0.3), three tail layers at 0.2 (biases 0.05), g (N(0, 1))."""
+    (0.3), three tail layers at 0.2 (biases 0.05; four on a deep case), g
+    (N(0, 1))."""
     _, tl = level(name)
     rng = np.random.default_rng(seed)
     n = tl.n_pad_nodes
@@ -133,9 +146,9 @@ def inputs(name, seed=0):
                 for s in ((8, C), (WD, C)))
     wfn = (0.3 * rng.standard_normal(C)).astype(np.float32)
     ws = tuple((0.2 * rng.standard_normal((C, C))).astype(np.float32)
-               for _ in range(LAYERS))
+               for _ in range(layers_of(name)))
     bs = tuple((0.05 * rng.standard_normal(C)).astype(np.float32)
-               for _ in range(LAYERS))
+               for _ in range(layers_of(name)))
     return 3 * xwi, 3 * xj, wpos, wf8, wfd, wfn, ws, bs, g
 
 
@@ -170,8 +183,8 @@ def jax_bwd4(name, dt="float32"):
     wfn8[0] = wfn
     cb, first, recv = jfg._chunk_tables(lj)
     sw = _pack_rows(lj.send_win.astype(jnp.int32), be, e // be, lj.window)
-    call = jfg._get_bwd4(e, n, C, LAYERS, True, dt, dt, be, lj.window // 2,
-                         WD)
+    call = jfg._get_bwd4(e, n, C, layers_of(name), True, dt, dt, be,
+                         lj.window // 2, WD)
     out = call(cb, first, lj.win_base.astype(jnp.int32),
                lj.fiber_t.astype(jd), ext(xwi), ext(xwi), ext(xj), wf8,
                wfd_ext, wfn8, jnp.stack(ws), jnp.stack(bs), sw, recv, g)
@@ -213,11 +226,13 @@ def test_receiver_lists_hold_the_v4_backwards_slots(name):
 
 
 @pytest.mark.parametrize("name", ["flag L0", "flag L2", "flag L5",
-                                  "flag L5 cut one", "flag L5 cut none"])
+                                  "flag L5 cut one", "flag L5 cut none",
+                                  "flag L2" + DEEP])
 def test_dead_tiles_have_zero_dpre(name):
     _, tl = level(name)
+    tr = tr_of(name)
     live = win_live(tl)
-    dead = dead_tiles(live)
+    dead = dead_tiles(live, tr)
     n_live_tiles = int((~dead).sum())
     if name.endswith("cut one"):
         assert n_live_tiles == 1
@@ -227,9 +242,9 @@ def test_dead_tiles_have_zero_dpre(name):
         assert 0 < n_live_tiles
     with torch.no_grad():
         dpre = fgd.fused_edge_phase_win_dyn_bwd_plain(*torch_args(name))[0]
-    assert (dpre.view(-1, TR, C)[dead] == 0).all()
+    assert (dpre.view(-1, tr, C)[dead] == 0).all()
     assert (dpre[~live] == 0).all()  # and every masked slot, live tiles too
-    jd = jax_bwd4(name)[0].reshape(-1, TR, C)
+    jd = jax_bwd4(name)[0].reshape(-1, tr, C)
     assert (jd[dead.numpy()] == 0).all()
 
 
@@ -269,9 +284,10 @@ def assert_plain_close(got, want, what):
     assert err.square().mean().sqrt() <= PLAIN_TOL[1] * rms, what
 
 
-def walk_partials(tl, delta, nrm, hs, ds, dpre, grid):
+def walk_partials(tl, delta, nrm, hs, ds, dpre, grid, tr=TR):
     """The G blocks' partials [dW | db | dwf8 | dwf_dyn | dwf_nrm] summed as
-    the walk sums them, split into (dW, db, dwf8, dwf_dyn, dwf_nrm)."""
+    the walk sums them (tiles of tr slots), split into (dW, db, dwf8,
+    dwf_dyn, dwf_nrm)."""
     n = len(hs)
 
     def term(s):
@@ -281,14 +297,14 @@ def walk_partials(tl, delta, nrm, hs, ds, dpre, grid):
             + [(tl.fiber_t[:, s] @ dpre[s]).reshape(-1),
                (delta[s].t() @ dpre[s]).reshape(-1), nrm[s] @ dpre[s]])
 
-    total = walk_sum(tl.n_pad_edges, win_live(tl), grid, term)
+    total = walk_sum(tl.n_pad_edges, win_live(tl), grid, term, tr)
     dw, db, dwf8, dwfd, dwfn = total.split(
         [n * C * C, n * C, 8 * C, WD * C, C])
     return (dw.view(n, C, C), db.view(n, C), dwf8.view(8, C),
             dwfd.view(WD, C), dwfn)
 
 
-@pytest.mark.parametrize("name", ["flag L0", "strip L0"])
+@pytest.mark.parametrize("name", ["flag L0", "strip L0", "strip L0" + DEEP])
 def test_walk_order_of_sums(name):
     """dxj by the receiver lists, the weight gradients by block partials,
     against the plain outputs and JAX's v4 backward."""
@@ -305,13 +321,15 @@ def test_walk_order_of_sums(name):
     assert_close(dxj, dxj_j, F32_TOL, "dxj vs JAX")
     for grid in GRIDS:
         dw, db, dwf8, dwfd, dwfn = walk_partials(tl, delta, nrm, hs, ds,
-                                                 dpre, grid)
+                                                 dpre, grid, tr_of(name))
         for got, plain, want, what in (
                 (dwf8, dwf8_p, dwf8_j, "dwf8"),
                 (dwfd, dwfd_p, dwfd_j, "dwf_dyn"),
                 (dwfn, dwfn_p, dwfn_j, "dwf_nrm"),
-                *((dw[l], dw_p[l], dw_j[l], f"dW{l}") for l in range(LAYERS)),
-                *((db[l], db_p[l], db_j[l], f"db{l}") for l in range(LAYERS))):
+                *((dw[l], dw_p[l], dw_j[l], f"dW{l}")
+                  for l in range(layers_of(name))),
+                *((db[l], db_p[l], db_j[l], f"db{l}")
+                  for l in range(layers_of(name)))):
             assert_plain_close(got, plain, f"{what} grid {grid}")
             assert_close(got, want, F32_TOL, f"{what} grid {grid} vs JAX")
 

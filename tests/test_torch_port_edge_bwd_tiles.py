@@ -18,9 +18,11 @@ versions and the JAX package.
   the weights rounded at staging.
 
 Layouts: the depth-4 Morton airfoil of `test_torch_port_window_gather.py`
-(window 256, edge_block 512), kernel 5 with three tail layers; the
-600-node sphere of `test_torch_port_fused_stream.py` (edge_block 128),
-kernel 11 with one.
+(window 256, edge_block 512), kernel 5 with three tail layers on the
+walk's 64-slot tiles, and on the tiles of its other plans (`fused_gmp.
+walk_plan`: 32 slots) with four at latent 128 ("deep") and at latent 256
+("wide"); the 600-node sphere of `test_torch_port_fused_stream.py`
+(edge_block 128), kernel 11 with one.
 
 Tolerances:
 - dxj: exact, on rows drawn on a 2^-6 grid (`grid_normal`), as
@@ -65,6 +67,19 @@ PLAIN_TOL = (2e-5, 2e-6)
 JAX_TOL = 1e-4
 LEVELS = [f"airfoil L{l}" for l in range(5)]
 TR = fg.TILE_ROWS
+# A case name's suffix → (latent width, tail layers) of kernel 5's inputs.
+SHAPES = {"": (C, 3), "deep": (C, 4), "wide": (256, 4)}
+
+
+def shape(name):
+    """(layout name, latent width, tail layers, the tile rows of the
+    backward walk's plan) of a case name ("airfoil L0", "airfoil L0 wide",
+    ...)."""
+    base, _, suffix = name.rpartition(" ")
+    if suffix not in SHAPES:
+        base, suffix = name, ""
+    c, layers = SHAPES[suffix]
+    return base, c, layers, fg.walk_plan(c, layers, "win", torch.float32)[1]
 
 
 # -- (a) ---------------------------------------------------------------------
@@ -103,16 +118,16 @@ def win_live(level):
         level.receivers.long() // BN == blk)
 
 
-def dead_tiles(live):
-    return ~live.view(-1, TR).any(1)
+def dead_tiles(live, tr=TR):
+    return ~live.view(-1, tr).any(1)
 
 
 @functools.lru_cache(maxsize=None)
 def level(name):
     """(JAX level, the port's) by name; "... one" and "... none" are level
     4 with every slot but the first two live ones, or every slot, given the
-    out-of-window sentinel."""
-    base, _, cut = name.partition(" cut ")
+    out-of-window sentinel; a shape suffix names the same layout."""
+    base, _, cut = shape(name)[0].partition(" cut ")
     jl, tl = layouts()[base]
     if not cut:
         return jl, tl
@@ -128,17 +143,21 @@ def level(name):
 @functools.lru_cache(maxsize=None)
 def win_inputs(name, seed=5):
     """Kernel 5's inputs on a level: xwi, xj, g unit normal (zero on pad
-    rows), wf8, three tail layers at 0.05 (f32 numpy)."""
+    rows), wf8, three tail layers at 0.05 (f32 numpy); at the name's shape
+    (`shape`) its width and tail layers, the layers at 0.05·√(128 / C)."""
     _, tl = level(name)
-    rng = np.random.default_rng(seed)
+    _, C, layers, _ = shape(name)  # noqa: N806 (the case's width)
+    rng = np.random.default_rng(seed + (0 if (C, layers) == SHAPES[""]
+                                        else C + layers))
     mask = np.asarray(tl.node_mask, np.float32).reshape(-1, 1)
     xwi, xj, g = ((rng.standard_normal((tl.n_pad_nodes, C)) * mask)
                   .astype(np.float32) for _ in range(3))
     wf8 = (0.3 * rng.standard_normal((8, C))).astype(np.float32)
-    ws = tuple((0.05 * rng.standard_normal((C, C))).astype(np.float32)
-               for _ in range(3))
+    s = 0.05 * np.sqrt(128 / C)
+    ws = tuple((s * rng.standard_normal((C, C))).astype(np.float32)
+               for _ in range(layers))
     bs = tuple((0.05 * rng.standard_normal(C)).astype(np.float32)
-               for _ in range(3))
+               for _ in range(layers))
     return xwi, xj, wf8, ws, bs, g
 
 
@@ -159,8 +178,8 @@ def jax_bwd3(name):
     e, n, be = lj.n_pad_edges, lj.n_pad_nodes, lj.edge_block
     cb, first, recv = jfg._chunk_tables(lj)
     sw = _pack_rows(lj.send_win.astype(jnp.int32), be, e // be, lj.window)
-    call = jfg._get_bwd3(e, n, C, len(ws), True, "float32", "float32", be,
-                         lj.window // 2)
+    call = jfg._get_bwd3(e, n, xwi.shape[-1], len(ws), True, "float32",
+                         "float32", be, lj.window // 2)
     out = call(cb, first, lj.win_base.astype(jnp.int32),
                lj.fiber_t.astype(jnp.float32), xwi, xwi, xj, wf8,
                jnp.stack(ws), jnp.stack(bs), sw, recv, g)
@@ -200,11 +219,13 @@ def jax_v1_vjp(l):
 
 
 @pytest.mark.parametrize("name", LEVELS + ["airfoil L4 cut one",
-                                           "airfoil L4 cut none"])
+                                           "airfoil L4 cut none",
+                                           "airfoil L3 deep"])
 def test_dead_tiles_have_zero_dpre_kernel5(name):
     _, tl = level(name)
+    _, C, _, tr = shape(name)  # noqa: N806 (the case's width)
     live = win_live(tl)
-    dead = dead_tiles(live)
+    dead = dead_tiles(live, tr)
     n_live_tiles = int((~dead).sum())
     if name.endswith("cut one"):
         assert n_live_tiles == 1
@@ -213,10 +234,10 @@ def test_dead_tiles_have_zero_dpre_kernel5(name):
     else:
         assert 0 < int(dead.sum()) < len(dead)  # the rule has tiles to skip
     dpre = fg.fused_edge_phase_win_bwd_plain(*torch_args(name))[0]
-    rows = dpre.view(-1, TR, C)
+    rows = dpre.view(-1, tr, C)
     assert (rows[dead] == 0).all()
     assert (dpre[~live] == 0).all()  # and every masked slot, live tiles too
-    jd = jax_bwd3(name)[0].reshape(-1, TR, C)
+    jd = jax_bwd3(name)[0].reshape(-1, tr, C)
     assert (jd[dead.numpy()] == 0).all()
 
 
@@ -254,19 +275,19 @@ def per_slot_terms(pre, hs, normed, inv, ge, ws):
     return ds, dh * (pre > 0)
 
 
-def walk_sum(n_slots, live, grid, tile_term):
-    """Σ over slots as the walk adds: each live tile's own sum, the tiles of
-    a block's range in order, then the blocks in order; dead tiles add
-    nothing."""
-    dead = dead_tiles(live)
-    bounds = tile_ranges(n_slots // TR, grid)
+def walk_sum(n_slots, live, grid, tile_term, tr=TR):
+    """Σ over slots as the walk adds: each live tile's own sum (tiles of
+    tr slots), the tiles of a block's range in order, then the blocks in
+    order; dead tiles add nothing."""
+    dead = dead_tiles(live, tr)
+    bounds = tile_ranges(n_slots // tr, grid)
     total = None
     for b in range(len(bounds) - 1):
         part = None
         for t in range(bounds[b], bounds[b + 1]):
             if dead[t]:
                 continue
-            s = tile_term(slice(t * TR, (t + 1) * TR))
+            s = tile_term(slice(t * tr, (t + 1) * tr))
             part = s if part is None else part + s
         if part is not None:
             total = part if total is None else total + part
@@ -305,13 +326,16 @@ def assert_plain_close(got, want, what):
     assert err.square().mean().sqrt() <= PLAIN_TOL[1] * rms, what
 
 
-@pytest.mark.parametrize("name", ["airfoil L0", "airfoil L4"])
+@pytest.mark.parametrize("name", ["airfoil L0", "airfoil L4",
+                                  "airfoil L0 deep", "airfoil L4 wide"])
 def test_kernel5_order_of_sums(name):
-    """dxj by the receiver lists, dW, db and dwf8 by block partials,
-    against the plain outputs and jax.vjp of the JAX fused_edge_phase_win
-    (interpret mode)."""
+    """dxj by the receiver lists, dW, db and dwf8 by block partials on
+    the tiles of the walk's plan at the case's shape, against the plain
+    outputs and jax.vjp of the JAX fused_edge_phase_win (interpret
+    mode)."""
     args = torch_args(name)
     tl, xwi, xj, wf8, ws, bs, g = args
+    _, C, _, tr = shape(name)  # noqa: N806 (the case's width)
     _, dxj_p, dwf8_p, dw_p, db_p = fg.fused_edge_phase_win_bwd_plain(*args)
 
     # dxj: the gather of a grid-valued dpre (zero off the live slots, as
@@ -341,12 +365,14 @@ def test_kernel5_order_of_sums(name):
 
     e = tl.n_pad_edges
     for grid in (7, 132):
-        dwf8 = walk_sum(e, live, grid, lambda s: tl.fiber_t[:, s] @ dpre[s])
+        dwf8 = walk_sum(e, live, grid, lambda s: tl.fiber_t[:, s] @ dpre[s],
+                        tr)
         assert_plain_close(dwf8, dwf8_p, f"dwf8 grid {grid}")
         assert_close(dwf8, dwf8_j, JAX_TOL, "dwf8 vs JAX")
         for l in range(len(ws)):
-            dw = walk_sum(e, live, grid, lambda s: hs[l][s].t() @ ds[l][s])
-            db = walk_sum(e, live, grid, lambda s: ds[l][s].sum(0))
+            dw = walk_sum(e, live, grid, lambda s: hs[l][s].t() @ ds[l][s],
+                          tr)
+            db = walk_sum(e, live, grid, lambda s: ds[l][s].sum(0), tr)
             assert_plain_close(dw, dw_p[l], f"dW{l} grid {grid}")
             assert_plain_close(db, db_p[l], f"db{l} grid {grid}")
             assert_close(dw, dws_j[l], JAX_TOL, f"dW{l} vs JAX")

@@ -25,7 +25,9 @@ the plain version and the JAX package.
 Layouts: the depth-4 Morton airfoil of `test_torch_port_window_gather.py`
 (window 256, edge_block 512: the `fused` and `fused4` paths' layout) and
 the bucketed 450-node mesh of `test_torch_port_buckets.py` (the cylinder
-path's layout: a bucketed level 0 ending in tail chunks of pad slots).
+path's layout: a bucketed level 0 ending in tail chunks of pad slots);
+"... wide": the airfoil at latent 256 with four tail layers, on the
+32-slot tiles of the forward walk's plan there (`fused_gmp.walk_plan`).
 """
 
 import functools
@@ -53,9 +55,19 @@ MLP_TOL = {"f32": 1e-4, "bf16": 2e-2}  # test_torch_port_kernels.py's
 PLAIN_TOL = (2e-5, 1e-6)  # chip_smoke.py's f32 TOL for kernel 4
 LAYOUTS = ["airfoil L0", "airfoil L2", "airfoil L4", "bucketed L0",
            "bucketed L1"]
-# The 5k airfoil's tiles per level (chip_smoke.py's main path) and the
-# grids the card gives the walk (132 SMs at one or two blocks each).
-AIRFOIL_TILES = (656, 488, 360, 272, 240, 192, 8)
+# The 5k airfoil's tiles per level (chip_smoke.py's main path; at latent
+# 256 its level 0 in 32-slot tiles) and the grids the card gives the walk
+# (132 SMs at one or two blocks each).
+AIRFOIL_TILES = (656, 488, 360, 272, 240, 192, 8, 1312)
+WIDE = " wide"
+
+
+def shape(name):
+    """(layout name, latent width, tail layers, the forward walk's tile
+    rows) of a case name."""
+    c, layers = (256, 4) if name.endswith(WIDE) else (C, 3)
+    return (name.removesuffix(WIDE), c, layers,
+            fg.walk_plan(c, layers, "win", torch.float32, backward=False)[1])
 
 
 def kernel4_live(level):
@@ -119,17 +131,19 @@ def test_list_gather_is_index_add_of_the_covered_slots(name, dt):
 @functools.lru_cache(maxsize=None)
 def inputs(name, seed=9):
     """xwi, xj unit normal (zero on pad rows), wf8 at 0.3, three tail layers
-    at 0.05 (f32 numpy)."""
-    _, tl = layouts()[name]
-    rng = np.random.default_rng(seed)
+    at 0.05 (f32 numpy); a wide case four at latent 256, at 0.05·√½."""
+    base, C, layers, _ = shape(name)  # noqa: N806 (the case's width)
+    _, tl = layouts()[base]
+    rng = np.random.default_rng(seed + (0 if base == name else C))
     mask = np.asarray(tl.node_mask, np.float32).reshape(-1, 1)
     xwi, xj = ((rng.standard_normal((tl.n_pad_nodes, C)) * mask)
                .astype(np.float32) for _ in range(2))
     wf8 = (0.3 * rng.standard_normal((8, C))).astype(np.float32)
-    ws = tuple((0.05 * rng.standard_normal((C, C))).astype(np.float32)
-               for _ in range(3))
+    s = 0.05 * np.sqrt(128 / C)
+    ws = tuple((s * rng.standard_normal((C, C))).astype(np.float32)
+               for _ in range(layers))
     bs = tuple((0.05 * rng.standard_normal(C)).astype(np.float32)
-               for _ in range(3))
+               for _ in range(layers))
     return xwi, xj, wf8, ws, bs
 
 
@@ -144,28 +158,30 @@ def slot_messages(pre, live, ws, bs, bf16):
     return out
 
 
-def walk_forward(tl, xwi, xj, wf8, ws, bs, bf16):
-    """The walk's function in its order: each live tile's live slots'
-    messages (the LN output, rounded to bf16 in bf16 mode) into msg, every
-    other row NaN (never written); then the list-order gather."""
+def walk_forward(tl, xwi, xj, wf8, ws, bs, bf16, tr=TR):
+    """The walk's function in its order: each live tile's (tr slots) live
+    slots' messages (the LN output, rounded to bf16 in bf16 mode) into msg,
+    every other row NaN (never written); then the list-order gather."""
     pre, _, _ = fg._edge_pre(tl, xwi, xj, wf8, bf16)
     live = kernel4_live(tl)
-    keep = live & ~dead_tiles(live).repeat_interleave(TR)
+    keep = live & ~dead_tiles(live, tr).repeat_interleave(tr)
     assert torch.equal(keep, live)
     return list_order_gather(tl, slot_messages(pre, keep, ws, bs, bf16))
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("name", ["airfoil L0", "airfoil L4", "bucketed L0"])
+@pytest.mark.parametrize("name", ["airfoil L0", "airfoil L4", "bucketed L0",
+                                  "airfoil L0" + WIDE])
 def test_walk_order_matches_jax_and_plain(name, dt):
-    jl, tl = layouts()[name]
+    base, _, _, tr = shape(name)
+    jl, tl = layouts()[base]
     xwi, xj, wf8, ws, bs = inputs(name)
     tdt, jdt = ((torch.float32, jnp.float32) if dt == "f32"
                 else (torch.bfloat16, jnp.bfloat16))
     t = torch.from_numpy
     args = (t(xwi).to(tdt), t(xj).to(tdt), t(wf8), [t(w) for w in ws],
             [t(b) for b in bs])
-    got = walk_forward(tl, *args, dt == "bf16")
+    got = walk_forward(tl, *args, dt == "bf16", tr)
     assert torch.isfinite(got).all()
     want = np.asarray(jax_v3(jl, jnp.asarray(xwi).astype(jdt),
                              jnp.asarray(xj).astype(jdt), jnp.asarray(wf8),
@@ -202,11 +218,12 @@ def test_forward_tile_ranges_cover_every_tile_once(n_tiles, grid):
     assert len(tile_ranges(n_tiles, g)) - 1 == min(g, n_tiles)
 
 
-@pytest.mark.parametrize("name", LAYOUTS)
+@pytest.mark.parametrize("name", LAYOUTS + ["airfoil L0" + WIDE])
 def test_every_listed_slot_lies_in_a_live_tile(name):
-    _, tl = layouts()[name]
+    base, _, _, tr = shape(name)
+    _, tl = layouts()[base]
     live = kernel4_live(tl)
-    dead = dead_tiles(live)
+    dead = dead_tiles(live, tr)
     slots = tl.win_row_slots.long()
-    assert not dead[slots // TR].any()
-    assert tl.edge_block % TR == 0  # no tile straddles two chunks
+    assert not dead[slots // tr].any()
+    assert tl.edge_block % tr == 0  # no tile straddles two chunks

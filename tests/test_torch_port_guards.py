@@ -82,7 +82,10 @@ NOT_AT_IMPORT = re.compile(r"^(yaml|h5py)(\.|$)")
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                           REPO / "train_spread.py",
-                                          REPO / "build_times.py"]
+                                          REPO / "build_times.py",
+                                          REPO / "level_times.py",
+                                          REPO / "bwd_plan_sweep.py",
+                                          REPO / "bits_probe.py"]
 
 
 def _imported_modules(path):

@@ -71,11 +71,24 @@ GRIDS = (1, 132)
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 OUTPUTS = ("dxj", "dwf8", "dW", "db")
+# A case "L deep": level L with four tail layers, on the backward walk's
+# `Deep` plan at C = 128 (32-slot tiles, `fused_gmp.walk_plan`).
+DEEP = " deep"
+
+
+def shape(l):
+    """(level, tail layers, the backward walk's tile rows) of a case."""
+    if isinstance(l, str):
+        lv, layers = int(l.removesuffix(DEEP)), 4
+    else:
+        lv, layers = l, LAYERS
+    return lv, layers, fg.walk_plan(C, layers, "win", torch.float32)[1]
 
 
 def level(l):
     hj, ht, _, _ = airfoil()
-    return hj.levels[l], ht.levels[l]
+    lv = shape(l)[0]
+    return hj.levels[lv], ht.levels[lv]
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +96,7 @@ def inputs(l, seed=4):
     """Kernel 14's backward inputs on level l (f32 numpy): xwi, xj, wf8,
     the tail's weights and biases, g."""
     _, tl = level(l)
+    LAYERS = shape(l)[1]  # noqa: N806 (the case's depth)
     rng = np.random.default_rng(seed)
     mask = np.asarray(tl.node_mask, np.float32).reshape(-1, 1)
     xwi, xj = ((3 * rng.standard_normal((tl.n_pad_nodes, C)) * mask)
@@ -114,7 +128,7 @@ def jax_bwd5(l, k):
     e, n, be = lj.n_pad_edges, lj.n_pad_nodes, lj.edge_block
     tabs, _, recv = jfg._chunk_tables5(lj, k)
     sw = _pack_rows(lj.send_win.astype(jnp.int32), be, e // be, lj.window)
-    call = jfg._get_bwd5(e, n, C, LAYERS, True, "float32", "float32", be,
+    call = jfg._get_bwd5(e, n, C, len(ws), True, "float32", "float32", be,
                          lj.window // 2, k)
     stream = [lj.fiber_t.astype(jnp.float32), jnp.asarray(xwi),
               jnp.asarray(xwi), jnp.asarray(xj), sw, recv, jnp.asarray(g)]
@@ -185,17 +199,18 @@ def test_receiver_lists_hold_the_v5_backwards_slots(l):
 # -- (b) ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("l", GATED)
+@pytest.mark.parametrize("l", GATED + ("3" + DEEP,))
 def test_dead_tiles_have_zero_dpre(l):
     _, tl = level(l)
+    tr = shape(l)[2]
     live = win_live(tl)
-    dead = dead_tiles(live)
+    dead = dead_tiles(live, tr)
     assert 0 < int(dead.sum()) < len(dead)  # the rule has tiles to skip
     dpre = fgk.fused_edge_phase_win_k_bwd_plain(*torch_args(l), 2)[0]
-    assert (dpre.view(-1, TR, C)[dead] == 0).all()
+    assert (dpre.view(-1, tr, C)[dead] == 0).all()
     assert (dpre[~live] == 0).all()  # and every masked slot, live tiles too
     for k in (2, 4):
-        assert (jax_bwd5(l, k).reshape(-1, TR, C)[dead.numpy()] == 0).all()
+        assert (jax_bwd5(l, k).reshape(-1, tr, C)[dead.numpy()] == 0).all()
 
 
 # -- (c) ---------------------------------------------------------------------
@@ -208,6 +223,7 @@ def walk_backward(l, dt, grid):
     tile order into its partial, the partials in block order; dxj by the
     list-order gather of dpre as stored."""
     tl, xwi, xj, wf8, ws, bs, g = torch_args(l, dt)
+    _, LAYERS, tr = shape(l)  # noqa: N806 (the case's depth)
     bf16 = dt == "bf16"
     pre, covered, recv = fg._edge_pre(tl, xwi, xj, wf8, bf16)
     normed, inv, hs = fg.mlp_tail_fwd_save(pre, ws, bs, bf16)
@@ -231,7 +247,7 @@ def walk_backward(l, dt, grid):
             + [ds[i][s].sum(0) for i in range(LAYERS)]
             + [fg.dot(tl.fiber_t[:, s], dpre[s], bf16).reshape(-1)])
 
-    total = walk_sum(tl.n_pad_edges, covered, grid, term)
+    total = walk_sum(tl.n_pad_edges, covered, grid, term, tr)
     dw, db, dwf8 = total.split([LAYERS * C * C, LAYERS * C, 8 * C])
     stored = round_bf16(dpre) if bf16 else dpre
     return (list_order_gather(tl, stored), dwf8.view(8, C),
@@ -240,7 +256,7 @@ def walk_backward(l, dt, grid):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("k", [2, 4])
-@pytest.mark.parametrize("l", GATED)
+@pytest.mark.parametrize("l", GATED + ("4" + DEEP,))
 def test_walk_order_matches_jax_v5_and_plain(l, k, dt):
     assert relu_margin(l) >= RELU_MARGIN
     _, dxj_p, dwf8_p, dw_p, db_p = fgk.fused_edge_phase_win_k_bwd_plain(

@@ -15,9 +15,10 @@ CPU, where the CUDA kernel cannot run.
   of the JAX `fused_node_phase` (`F32_TOL` of the largest |value|).
 
 Shapes: the partition at 64, 256 and 5,248 rows (the 5k airfoil's level
-0) and one to three tail layers; the sums on 256 rows (4 tiles) of random
-x, aggr and g through node MLPs of one and three tail layers at 0.08
-(latent 128).
+0) and one to four tail layers, and at latent 256 (clusters of 8 CTAs)
+with four; the sums on 256 rows (4 tiles) of random x, aggr and g through
+node MLPs of one, three and four tail layers at 0.08 (latent 128), and of
+four at latent 256.
 """
 
 import types
@@ -36,6 +37,8 @@ from bsms_gnn_tpu_torch.ops.kernels import node_mlp
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import mlp_tail_fwd_save
 
 C, ROWS = 128, node_mlp.ROWS
+# The case at the wide kernels' cluster (latent 256: 8 CTAs a tile).
+WIDE = "256x4"
 F32_TOL = 5e-4  # test_torch_port_slice.py's, of the largest |value|
 PLAIN_TOL = (2e-5, 2e-6)  # chip_smoke.py's f32 BWD_TOL for kernel 6
 N_ROWS = 256
@@ -44,35 +47,43 @@ N_ROWS = 256
 # -- (d1) --------------------------------------------------------------------
 
 
-def bwd_partition(n_rows, n_layers):
+def shape_of(n_layers):
+    """(latent width, tail layers) of a case: WIDE, or n_layers at C."""
+    return (256, 4) if n_layers == WIDE else (C, n_layers)
+
+
+def bwd_partition(n_rows, n_layers, c=C):
     """What each CTA of kernel 6 writes, as (tile, rank, {name: (rows,
-    cols)}) with each entry a pair of ranges: of dx and daggr ([n_rows, C],
+    cols)}) with each entry a pair of ranges: of dx and daggr ([n_rows, c],
     rows and columns), and of its tile's partial, whose weight gradients
-    dWa, dWb, dW[l] ([C, C]) CTA q owns by rows and biases db0, db[l] ([C])
-    by columns (rows None): its own SW = C / CLUSTER columns
+    dWa, dWb, dW[l] ([c, c]) CTA q owns by rows and biases db0, db[l] ([c])
+    by columns (rows None): its own SW = c / cluster_of(c) columns
     [q·SW, (q+1)·SW) of every product's output."""
-    sw = C // node_mlp.CLUSTER
+    cl = node_mlp.cluster_of(c)
+    sw = c // cl
     for t in range(n_rows // ROWS):
         rows = range(t * ROWS, (t + 1) * ROWS)
-        for q in range(node_mlp.CLUSTER):
+        for q in range(cl):
             own = range(q * sw, (q + 1) * sw)
             parts = {"dx": (rows, own), "daggr": (rows, own),
-                     "dWa": (own, range(C)), "dWb": (own, range(C)),
+                     "dWa": (own, range(c)), "dWb": (own, range(c)),
                      "db0": (None, own)}
             for l in range(n_layers):
-                parts[f"dW[{l}]"] = (own, range(C))
+                parts[f"dW[{l}]"] = (own, range(c))
                 parts[f"db[{l}]"] = (None, own)
             yield t, q, parts
 
 
 @pytest.mark.parametrize("n_rows", [64, 256, 5248])
-@pytest.mark.parametrize("n_layers", [1, 2, 3])
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 4, WIDE])
 def test_partition_covers_every_output_once(n_rows, n_layers):
-    assert C % node_mlp.CLUSTER == 0
+    C, n_layers = shape_of(n_layers)  # noqa: N806 (the case's width)
+    cl = node_mlp.node_plan(C, n_layers)
+    assert cl == node_mlp.cluster_of(C) and C % cl == 0
     rows_x = np.zeros((n_rows, C), int)
     parts = {}
     n_ctas = 0
-    for t, q, writes in bwd_partition(n_rows, n_layers):
+    for t, q, writes in bwd_partition(n_rows, n_layers, C):
         n_ctas += 1
         for name, (rows, cols) in writes.items():
             if name in ("dx", "daggr"):
@@ -86,7 +97,7 @@ def test_partition_covers_every_output_once(n_rows, n_layers):
                 p[cols.start:cols.stop] += 1
             else:
                 p[rows.start:rows.stop, cols.start:cols.stop] += 1
-    assert n_ctas == n_rows // ROWS * node_mlp.CLUSTER
+    assert n_ctas == n_rows // ROWS * cl
     assert (rows_x == 1).all()
     names = {"dWa", "dWb", "db0", *(f"dW[{l}]" for l in range(n_layers)),
              *(f"db[{l}]" for l in range(n_layers))}
@@ -98,8 +109,8 @@ def test_partition_covers_every_output_once(n_rows, n_layers):
 # -- (d2) --------------------------------------------------------------------
 
 
-def make_inputs(n_layers, seed=21):
-    rng = np.random.default_rng(seed + n_layers)
+def make_inputs(n_layers, seed=21, C=C):  # noqa: N803 (the latent width)
+    rng = np.random.default_rng(seed + n_layers + (0 if C == 128 else C))
     x = rng.standard_normal((N_ROWS, C)).astype(np.float32)
     aggr = (3 * rng.standard_normal((N_ROWS, C))).astype(np.float32)
     g = rng.standard_normal((N_ROWS, C)).astype(np.float32)
@@ -116,8 +127,10 @@ def emulate(x, aggr, g, ws, bs):
     of every row product (full input, its own columns), the weight
     gradients' row blocks from the CTA's slice of the layer input and the
     full cotangent, summed over the tile's rows in row order; the tiles'
-    partials added in tile order."""
-    sw = C // node_mlp.CLUSTER
+    partials added in tile order. The latent width is x's."""
+    C = x.shape[-1]  # noqa: N806 (the latent width)
+    cl = node_mlp.cluster_of(C)
+    sw = C // cl
     n = len(ws) - 1
     w0, tail_w, tail_b = ws[0], ws[1:], bs[1:]
     dx, daggr = torch.empty_like(x), torch.empty_like(aggr)
@@ -125,11 +138,11 @@ def emulate(x, aggr, g, ws, bs):
 
     def sliced(a, w):  # each CTA's output columns, assembled
         return torch.cat([a @ w[:, q * sw:(q + 1) * sw]
-                          for q in range(node_mlp.CLUSTER)], dim=1)
+                          for q in range(cl)], dim=1)
 
     def tn(h, d):  # the CTAs' row blocks of hᵀ·d, rows summed in order
         out = torch.zeros(C, C)
-        for q in range(node_mlp.CLUSTER):
+        for q in range(cl):
             blk = torch.zeros(sw, C)
             for r in range(h.shape[0]):
                 blk = blk + torch.outer(h[r, q * sw:(q + 1) * sw], d[r])
@@ -178,9 +191,10 @@ def assert_jax_close(got, want, what):
         what
 
 
-@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("n_layers", [1, 3, 4, WIDE])
 def test_kernel6_order_of_sums(n_layers):
-    x, aggr, g, ws, bs = make_inputs(n_layers)
+    c, n_layers = shape_of(n_layers)
+    x, aggr, g, ws, bs = make_inputs(n_layers, C=c)
     t = torch.from_numpy
     tws, tbs = [t(w) for w in ws], [t(b) for b in bs]
     got = emulate(t(x), t(aggr), t(g), tws, tbs)

@@ -20,7 +20,9 @@ Shapes: 64 rows (one tile), 192 rows (3 tiles: not a multiple of the 4 CTAs
 a cluster takes, nor of JAX's 128-row blocks, so JAX runs on 256 rows and
 the first 192 are compared: rows are independent) and 5,248 rows (82 tiles:
 the 5k airfoil's level 0), through node MLPs of one and three tail layers
-at 0.08 (latent 128), x unit normal, aggr 3·N(0, 1).
+at 0.08 (latent 128), x unit normal, aggr 3·N(0, 1); and the wide kernels'
+cluster (latent 256: 8 CTAs a tile, each lane two 4-column groups of the
+LayerNorm's row) with four tail layers.
 """
 
 import types
@@ -44,14 +46,19 @@ F32_TOL = 5e-4  # test_torch_port_slice.py's, of the largest |value|
 BF16_TOL = 2e-2  # test_torch_port_kernels.py's MLP_TOL["bf16"]
 PLAIN_TOL = (2e-5, 1e-6)  # chip_smoke.py's f32 TOL for kernel 3
 JAX_BLOCK = 128  # the JAX kernel's smallest row block
+# The case at the wide kernels' cluster: latent 256, four tail layers.
+WIDE = "256x4"
 
 
 # -- (a) ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n_rows", [64, 192, 5248])
+@pytest.mark.parametrize("n_rows", [64, 192, 5248, f"5248 at {WIDE}"])
 def test_partition_covers_every_output_once(n_rows):
-    assert C % CL == 0 and ROWS % RT == 0
+    C, n_rows = (256, 5248) if n_rows == f"5248 at {WIDE}" else (  # noqa: N806
+        globals()["C"], n_rows)
+    CL = node_mlp.node_plan(C, 4)  # noqa: N806 (the cluster at C)
+    assert C % CL == 0 and ROWS % RT == 0 and C // CL == SW
     rg_count = ROWS // RT
     assert NT3 == 8 * rg_count and SW == 4 * 8  # 8 column groups of 4
     count = np.zeros((n_rows, C), int)
@@ -65,21 +72,25 @@ def test_partition_covers_every_output_once(n_rows):
                 for i in range(RT):
                     slice_count[rg + rg_count * i, 4 * cg:4 * cg + 4] += 1
             assert (slice_count == 1).all()
-            # The output: lane l of each row's warp holds columns 4l ..
-            # 4l + 3; the lanes 8q .. 8q + 7 write CTA q's columns.
+            # The output: lane l of each row's warp holds columns 4l + 128v
+            # .. 4l + 128v + 3 of each 128-column half v; the lanes 8q' ..
+            # 8q' + 7 of half v write CTA 4v + q''s columns.
             for lane in range(32):
-                cols = range(4 * lane, 4 * lane + 4)
-                if lane // 8 == q:
-                    assert all(q * SW <= c < (q + 1) * SW for c in cols)
-                    count[t * ROWS:(t + 1) * ROWS, cols.start:cols.stop] += 1
+                for v in range(C // 128):
+                    cols = range(4 * lane + 128 * v, 4 * lane + 128 * v + 4)
+                    if lane // 8 + 4 * v == q:
+                        assert all(q * SW <= c < (q + 1) * SW for c in cols)
+                        count[t * ROWS:(t + 1) * ROWS,
+                              cols.start:cols.stop] += 1
     assert (count == 1).all()
 
 
 # -- (b) ---------------------------------------------------------------------
 
 
-def make_inputs(n_rows, n_layers, seed=11):
-    rng = np.random.default_rng(seed + n_layers + n_rows)
+def make_inputs(n_rows, n_layers, seed=11, C=C):  # noqa: N803 (the width)
+    rng = np.random.default_rng(seed + n_layers + n_rows
+                                + (0 if C == 128 else C))
     x = rng.standard_normal((n_rows, C)).astype(np.float32)
     aggr = (3 * rng.standard_normal((n_rows, C))).astype(np.float32)
     ws = [(0.08 * rng.standard_normal((2 * C, C))).astype(np.float32)]
@@ -95,7 +106,10 @@ def emulate(x, aggr, ws, bs, bf16):
     of every row product from the full input rows, the quarters assembled
     into the next layer's input, the LayerNorm over the assembled rows
     (1/sqrt, f32), and each quarter's columns of LN + x written by its
-    CTA. bf16: every dot operand rounded, the output stored in bf16."""
+    CTA. bf16: every dot operand rounded, the output stored in bf16. The
+    latent width is x's, on cl_of(width) CTAs."""
+    C = x.shape[-1]  # noqa: N806 (the latent width)
+    CL = node_mlp.cluster_of(C)  # noqa: N806
     w0, tail_w, tail_b = ws[0], ws[1:], bs[1:]
     x32 = x.float()
     out = torch.empty(x.shape, dtype=torch.bfloat16 if bf16 else x.dtype)
@@ -127,7 +141,7 @@ def emulate(x, aggr, ws, bs, bf16):
 def jax_reference(x, aggr, ws, bs, x_dt, bf16):
     """JAX's fused_node_phase on the rows padded to its row block (rows
     are independent), the first rows returned (f32 numpy)."""
-    n = x.shape[0]
+    n, C = x.shape  # noqa: N806 (the latent width)
     pad = -n % JAX_BLOCK
     rng = np.random.default_rng(0)
     xp = np.concatenate([x, rng.standard_normal((pad, C)).astype(np.float32)])
@@ -143,13 +157,14 @@ def jax_reference(x, aggr, ws, bs, x_dt, bf16):
 
 
 @pytest.mark.parametrize("n_rows", [64, 192, 5248])
-@pytest.mark.parametrize("n_layers", [1, 3])
+@pytest.mark.parametrize("n_layers", [1, 3, WIDE])
 @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16 on f32 x"])
 def test_kernel3_order_of_sums(n_rows, n_layers, mode):
     bf16 = mode != "f32"
     x_dt = (torch.bfloat16, jnp.bfloat16) if mode == "bf16" else (
         torch.float32, jnp.float32)
-    x, aggr, ws, bs = make_inputs(n_rows, n_layers)
+    c, n_layers = (256, 4) if n_layers == WIDE else (C, n_layers)
+    x, aggr, ws, bs = make_inputs(n_rows, n_layers, C=c)
     if mode == "bf16":  # the values bf16 x holds
         x = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
     t = torch.from_numpy
