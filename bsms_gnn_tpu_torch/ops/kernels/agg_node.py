@@ -59,7 +59,21 @@ the aggregate again with kernel 8 (remat, as on the TPU), runs kernel 6
 (`node_mlp.py::fused_node_phase_bwd`) and gathers d_aggr by receivers for
 the edge rows' cotangent.
 
-The batch axis (a shared mesh: feat [B, E_pad, 128], x [B, N_pad, 128]),
+Width and depth: JAX's getter is keyed on C (`agg_node.py:74`) and its
+guard tests only C % 128 (`agg_node.py:153`); the CUDA kernel takes a
+latent width of 128 or 256 (`csrc/agg_node.cu`'s `with_width`) on both
+designs and any number of tail layers (the forward keeps no layer's
+activations). `agg_plan` is the pure function that says so: the wrapper
+calls it before every launch, so any other width raises
+NotImplementedError naming C and L (kernel 3's width rule, which `_check`
+applies, takes any multiple of 128). At 256 the one-block tile holds 160
+KB on 64 rows (one block an SM), 64 KB on 16; the cluster is 8 CTAs a
+16-row tile, each summing two rows. `tile_design`'s rule holds at both
+widths: a sweep of the three tiles at every surface level at 256
+(`level_times.py --paths surface_wide`, PERF.md §6) picked the tiles it
+picks. The plain version takes any multiple of 128 and any L.
+
+The batch axis (a shared mesh: feat [B, E_pad, C], x [B, N_pad, C]),
 as JAX vmaps its kernel (`agg_node.py:225`): one launch whose tiles walk
 the batch's B·N_pad rows, tile t of sample ⌊t / tiles per sample⌋ (N_pad
 is a multiple of 128, so no tile straddles two samples), summing its rows'
@@ -78,6 +92,7 @@ import torch
 
 from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
+from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import check_width
 from bsms_gnn_tpu_torch.ops.kernels.node_mlp import (
     CLUSTER,
     _check as _check_node,
@@ -88,9 +103,11 @@ from bsms_gnn_tpu_torch.ops.kernels.segment_sum import (
     segment_sum_plain,
     segment_sum_raw,
 )
+from bsms_gnn_tpu_torch.ops.kernels.windowed import WIDTHS
 
-_SIG = [build.P] * 3 + [build.I] + [build.P] * 6 + [build.I] * 5 + [build.P]
-# The kernel's tiles, by name: the C entries' `tile` and the tile's rows.
+_SIG = [build.P] * 3 + [build.I] + [build.P] * 6 + [build.I] * 6 + [build.P]
+# The kernel's tiles, by name: the C entries' `tile` and the tile's rows
+# (`csrc/agg_node.cu`'s ROWS), at every width of WIDTHS.
 TILES = {"block 64": (0, 64), "block 16": (1, 16), "cluster 16": (2, 16)}
 # (x dtype, bf16 compute) → (C entry, the edge rows' dtype).
 _FN = {(torch.float32, False): ("fused_aggregate_node_phase_f32", torch.float32),
@@ -110,12 +127,31 @@ def _check(level, feat, x, mlp, compute_dtype):
     _check_node(x, None, mlp, compute_dtype)
 
 
+def agg_plan(c: int, n_layers: int) -> tuple:
+    """The tiles (keys of TILES) kernel 10 runs at latent width c with
+    n_layers tail layers; raises NotImplementedError naming C and L where
+    the kernel takes neither, as the card's entries refuse them. A pure
+    function of its arguments."""
+    check_width(c)
+    if n_layers < 1:
+        raise ValueError(f"{n_layers} tail layers")
+    if c not in WIDTHS:
+        raise NotImplementedError(
+            f"latent width {c} with {n_layers} tail layers: kernel 10 takes "
+            f"widths {WIDTHS} at any depth (see agg_node.agg_plan)")
+    return tuple(TILES)
+
+
 def tile_design(n_rows: int, sms: int) -> str:
     """The tile (a key of TILES) of a launch over n_rows rows (a level's
-    N_pad, or a batch's B·N_pad) on a card of `sms` SMs: the cluster where its 16-row tiles give at most two CTAs per
-    SM; else the one-block tile, 64 rows where those tiles cover at least
-    three quarters of the SMs, else 16 (see the module note)."""
-    if n_rows // 16 * CLUSTER <= 2 * sms:
+    N_pad, or a batch's B·N_pad) on a card of `sms` SMs, at either width:
+    the cluster where its 16-row tiles are at most half the SMs (two CTAs
+    an SM at 128, four at 256); else the one-block tile, 64 rows where
+    those tiles cover at least three quarters of the SMs, else 16 (see the
+    module note). A sweep of the three tiles at every level of the 16k
+    surface at latent 256 put the edges at the rows they hold at 128
+    (PERF.md §6)."""
+    if 2 * (n_rows // 16) <= sms:
         return "cluster 16"
     return "block 64" if 4 * (n_rows // 64) >= 3 * sms else "block 16"
 
@@ -135,13 +171,15 @@ def fused_aggregate_node_phase_fwd(level, feat, x, mlp, compute_dtype=None):
     """node_mlp([x, Σ_recv feat]) + x, no autograd, on one sample or a
     batch [B, ...] (one launch). `mlp` is the GMP's node MLP (weights
     stored [in, out]). CPU tensors take the plain version; CUDA tensors
-    launch kernel 10."""
+    launch kernel 10 (C 128 or 256, `agg_plan`)."""
     _check(level, feat, x, mlp, compute_dtype)
     if x.device.type == "cpu":
         return fused_aggregate_node_phase_plain(level, feat, x, mlp,
                                                 compute_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
+    c = x.shape[-1]
+    agg_plan(c, len(mlp.weights) - 1)
     bf16 = compute_dtype == torch.bfloat16
     fn, feat_dtype = _FN[(x.dtype, bf16)]
     if feat.dtype != feat_dtype:
@@ -165,7 +203,7 @@ def fused_aggregate_node_phase_fwd(level, feat, x, mlp, compute_dtype=None):
         w_stack.data_ptr(), b_stack.data_ptr(), out.data_ptr(), len(ws) - 1,
         n, TILES[tile_design(n_batch * n, torch.cuda.get_device_properties(
             x.device).multi_processor_count)][0], n_batch, level.n_pad_edges,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        c, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(err, "fused_aggregate_node_phase")
     fused_aggregate_node_phase_fwd.launches += 1
@@ -203,8 +241,8 @@ class _AggNode(torch.autograd.Function):
 
 def fused_aggregate_node_phase(level, feat, x, mlp, compute_dtype=None):
     """node_mlp([x, Σ_recv feat]) + x, differentiable in feat, x and the
-    node MLP's weights and biases. feat: [E_pad, 128] edge rows (bf16 in
-    bf16 compute); x: [N_pad, 128]; or a batch of both, [B, ...]."""
+    node MLP's weights and biases. feat: [E_pad, C] edge rows (bf16 in
+    bf16 compute); x: [N_pad, C]; or a batch of both, [B, ...]."""
     _check(level, feat, x, mlp, compute_dtype)
     return _AggNode.apply(level, mlp, compute_dtype, feat, x, *mlp.weights,
                           *mlp.biases)

@@ -2,8 +2,9 @@
 // default, 8·R rows in general), the non-affine LayerNorm and the MLP tail
 // that kernel 10 (node_phase.cuh) runs in shared memory. C = 128 is the
 // columns one warp covers in a row (4 a lane) and the latent width of
-// kernels 8-15; kernels 1-7 take rows of any multiple of it that their
-// wrappers name (a latent width of 256: V = 2 float4s a lane, `ln_center`).
+// kernels 9, 11, 12, 14 and 15; kernels 1-8, 10 and 13 take rows of any
+// multiple of it that their wrappers name (a latent width of 256: V = 2
+// float4s a lane, `ln_center`).
 //
 // Precision: f32 mode is true f32 (FMA on the CUDA cores, no TF32). BF16
 // mode rounds every dot operand to bf16 (round to nearest even) and
@@ -79,24 +80,27 @@ __device__ __forceinline__ float ln_center(float4 (&v)[V]) {
   return 1.0f / sqrtf(var + LN_EPS);
 }
 
-// acc[i][j] += Σ_k in[(R·ty + i)·C + k] · W[k·C + 4·tx + j] over k < C, for
-// an (8·R)×C tile `in` in shared memory (R = 8: a TILE×C tile) and a C×C
-// weight W ([in, out]) in device memory, staged KS rows at a time through
-// `wslab` (rounded to bf16 in BF16 mode). Thread (tx = lane, ty = warp)
-// owns rows R·ty..R·ty+R-1 and columns 4·tx..4·tx+3. Starts and ends with
-// a block barrier, so the caller may overwrite `in` right after (each warp
-// reads only its own rows).
-template <bool BF16, int R = 8>
-__device__ __forceinline__ void tile_gemm(float (&acc)[R][4],
+// acc[i][4v + j] += Σ_k in[(R·ty + i)·CW + k] · W[k·CW + 128v + 4·tx + j]
+// over k < CW, for an (8·R)×CW tile `in` in shared memory (R = 8: a
+// TILE×CW tile) and a CW×CW weight W ([in, out]) in device memory, staged
+// KS rows at a time through `wslab` (rounded to bf16 in BF16 mode). Thread
+// (tx = lane, ty = warp) owns rows R·ty..R·ty+R-1 and columns 4·tx + 128v
+// .. +3 of each 128-column block v < CW / C. Each output is one FMA chain
+// over k in order, whatever CW. Starts and ends with a block barrier, so
+// the caller may overwrite `in` right after (each warp reads only its own
+// rows).
+template <bool BF16, int R = 8, int CW = C>
+__device__ __forceinline__ void tile_gemm(float (&acc)[R][4 * (CW / C)],
                                           const float* in,
                                           const float* __restrict__ W,
                                           float* __restrict__ wslab) {
+  constexpr int V = CW / C;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  for (int k0 = 0; k0 < C; k0 += KS) {
+  for (int k0 = 0; k0 < CW; k0 += KS) {
     __syncthreads();
-    const float4* src = reinterpret_cast<const float4*>(W + k0 * C);
+    const float4* src = reinterpret_cast<const float4*>(W + k0 * CW);
     float4* dst = reinterpret_cast<float4*>(wslab);
-    for (int i = tid; i < KS * C / 4; i += THREADS) {
+    for (int i = tid; i < KS * CW / 4; i += THREADS) {
       float4 w = src[i];
       if (BF16) {
         w.x = round_bf16(w.x); w.y = round_bf16(w.y);
@@ -110,17 +114,23 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[R][4],
       float4 a[R];
 #pragma unroll
       for (int i = 0; i < R; ++i)
-        a[i] = *reinterpret_cast<const float4*>(in + (R * ty + i) * C + k0 + k);
+        a[i] = *reinterpret_cast<const float4*>(in + (R * ty + i) * CW + k0 + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 w = reinterpret_cast<const float4*>(wslab + (k + kk) * C)[tx];
+        float4 w[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          w[v] = reinterpret_cast<const float4*>(wslab + (k + kk) * CW)[tx + 32 * v];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-          acc[i][0] = fmaf(av, w.x, acc[i][0]);
-          acc[i][1] = fmaf(av, w.y, acc[i][1]);
-          acc[i][2] = fmaf(av, w.z, acc[i][2]);
-          acc[i][3] = fmaf(av, w.w, acc[i][3]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            acc[i][4 * v + 0] = fmaf(av, w[v].x, acc[i][4 * v + 0]);
+            acc[i][4 * v + 1] = fmaf(av, w[v].y, acc[i][4 * v + 1]);
+            acc[i][4 * v + 2] = fmaf(av, w[v].z, acc[i][4 * v + 2]);
+            acc[i][4 * v + 3] = fmaf(av, w[v].w, acc[i][4 * v + 3]);
+          }
         }
       }
     }
@@ -129,59 +139,71 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[R][4],
 }
 
 // out rows = acc + bias, optionally ReLU'd and rounded to bf16 (when the
-// result is only ever a dot operand). `out` may alias the GEMM's input.
-template <int R>
-__device__ __forceinline__ void tile_store(const float (&acc)[R][4],
+// result is only ever a dot operand), in tile_gemm's layout. `out` may
+// alias the GEMM's input.
+template <int R, int CW = C>
+__device__ __forceinline__ void tile_store(const float (&acc)[R][4 * (CW / C)],
                                           const float* __restrict__ bias,
                                           float* out, bool relu, bool to_bf16) {
+  constexpr int V = CW / C;
   const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
-  const float4 b = reinterpret_cast<const float4*>(bias)[tx];
-  const float bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float v[4];
+  for (int vv = 0; vv < V; ++vv) {
+    const float4 b = reinterpret_cast<const float4*>(bias)[tx + 32 * vv];
+    const float bb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = acc[i][j] + bb[j];
-      if (relu) v[j] = fmaxf(v[j], 0.f);
-      if (to_bf16) v[j] = round_bf16(v[j]);
+    for (int i = 0; i < R; ++i) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[i][4 * vv + j] + bb[j];
+        if (relu) v[j] = fmaxf(v[j], 0.f);
+        if (to_bf16) v[j] = round_bf16(v[j]);
+      }
+      *reinterpret_cast<float4*>(out + (R * ty + i) * CW + 4 * tx + C * vv) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
-    *reinterpret_cast<float4*>(out + (R * ty + i) * C + 4 * tx) =
-        make_float4(v[0], v[1], v[2], v[3]);
   }
 }
 
-// Non-affine LayerNorm of every row of a ROWS×C shared-memory tile, in
+// Non-affine LayerNorm of every row of a ROWS×CW shared-memory tile, in
 // place, by a block of NT threads, a warp a row (`ln_center`, as kernels
-// 3 and 4 take it).
-template <int ROWS = TILE, int NT = THREADS>
+// 3 and 4 take it: lane l holds columns 4l + 128v).
+template <int ROWS = TILE, int NT = THREADS, int CW = C>
 __device__ __forceinline__ void tile_layer_norm(float* t) {
+  constexpr int V = CW / C;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < ROWS; r += NT / 32) {
-    float4 v[1] = {reinterpret_cast<float4*>(t + r * C)[lane]};
-    const float inv = ln_center<1>(v);
-    v[0].x *= inv; v[0].y *= inv; v[0].z *= inv; v[0].w *= inv;
-    reinterpret_cast<float4*>(t + r * C)[lane] = v[0];
+    float4 v[V];
+#pragma unroll
+    for (int vv = 0; vv < V; ++vv)
+      v[vv] = reinterpret_cast<float4*>(t + r * CW)[lane + 32 * vv];
+    const float inv = ln_center<V>(v);
+#pragma unroll
+    for (int vv = 0; vv < V; ++vv) {
+      v[vv].x *= inv; v[vv].y *= inv; v[vv].z *= inv; v[vv].w *= inv;
+      reinterpret_cast<float4*>(t + r * CW)[lane + 32 * vv] = v[vv];
+    }
   }
   __syncthreads();
 }
 
-// The MLP tail on an (8·R)-row tile that holds relu(pre) (already rounded
-// in BF16 mode): n_layers Linear layers (ReLU between them), then
-// LayerNorm, all in place. W: [n_layers, C, C] ([in, out]); B: [n_layers,
-// C].
-template <bool BF16, int R = 8>
+// The MLP tail on an (8·R)-row tile of CW columns that holds relu(pre)
+// (already rounded in BF16 mode): n_layers Linear layers (ReLU between
+// them), then LayerNorm, all in place. W: [n_layers, CW, CW] ([in, out]);
+// B: [n_layers, CW].
+template <bool BF16, int R = 8, int CW = C>
 __device__ __forceinline__ void tile_mlp_tail(float* t, const float* __restrict__ W,
                                               const float* __restrict__ B,
                                               int n_layers, float* wslab) {
   for (int l = 0; l < n_layers; ++l) {
-    float acc[R][4] = {};
-    tile_gemm<BF16, R>(acc, t, W + (size_t)l * C * C, wslab);
+    float acc[R][4 * (CW / C)] = {};
+    tile_gemm<BF16, R, CW>(acc, t, W + (size_t)l * CW * CW, wslab);
     const bool last = l == n_layers - 1;
-    tile_store(acc, B + l * C, t, !last, BF16 && !last);
+    tile_store<R, CW>(acc, B + l * CW, t, !last, BF16 && !last);
   }
   __syncthreads();
-  tile_layer_norm<8 * R>(t);
+  tile_layer_norm<8 * R, THREADS, CW>(t);
 }
 
 }  // namespace bsms

@@ -78,7 +78,7 @@
 //   chain in k order from zero; a message, dpre and dW element do not
 //   depend on the plan but through the order in which a block's tiles add
 //   into its partial. Every kernel instantiates the plans of the widths it
-//   takes (kernels 11-14: C = 128).
+//   takes (kernels 5 and 13: 128 and 256; 11, 12 and 14: C = 128).
 #pragma once
 
 #include "backward.cuh"

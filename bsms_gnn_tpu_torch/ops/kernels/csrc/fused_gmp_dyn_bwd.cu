@@ -13,7 +13,11 @@
 // [B][n_pad][wd]; dpre [B][E_pad][C], dxj [B][n_pad][C]) is one launch of
 // each: the walk over B·T tiles in its G ranges (still G partials, the
 // weight gradients summed over the batch), the gather with the batch as
-// its grid's y extent.
+// its grid's y extent. The walk's plan follows the latent width (128 or
+// 256) and the tail layers (edge_bwd_tiles.cuh's `with_bwd_plan`: `Base`,
+// then `Deep` at 128; `Wide` at 256, L ≤ 4 with the kDyn front's Δ,
+// ‖Δ‖, wf_dyn and wf_nrm), dwf_dyn and dwf_nrm covering both 128-column
+// halves as dwf8 does.
 #include "edge_bwd_tiles.cuh"
 #include "row_gather.cuh"
 
@@ -43,7 +47,7 @@ fused_edge_phase_win_dyn_bwd_kernel(
 
 template <typename T, bool BF16>
 int blocks_per_sm(int width, int n_layers, int* out) {
-  return tiles::with_bwd_plan<false>(width, n_layers, Front::kDyn, [&](auto p) {
+  return tiles::with_bwd_plan<true>(width, n_layers, Front::kDyn, [&](auto p) {
     using P = decltype(p);
     return (int)tiles::walk_blocks_per_sm<P>(
         fused_edge_phase_win_dyn_bwd_kernel<P, T, BF16>, n_layers,
@@ -61,6 +65,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
            int grid, int n_tiles, int e_pad, int edge_block, int window,
            int n_rows, int n_long, int piece, int n_batch, void* gpart,
            void* dpre, void* dxj, void* grads, void* stream) {
+  constexpr int C = P::C;
   if (edge_block % P::TR || n_tiles * P::TR != e_pad ||
       n_layers < 1 ||
       n_layers > tiles::max_layers<P>(Front::kDyn) || wd < 1 || wd > MAX_WD ||
@@ -85,10 +90,11 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       e_stride, p_stride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  recv_gather_kernel<T, BF16><<<gather_grid(n_rows, n_long, n_batch),
-                                THREADS, 0, s>>>(
-      (const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
-      (const int*)long_rows, n_rows, piece, (float*)dxj, e_stride, x_stride);
+  recv_gather_kernel<T, BF16, C><<<
+      gather_grid(n_rows, n_long, n_batch, WARP_ROWS, P::V), THREADS, 0,
+      s>>>((const T*)dpre, (const int*)row_ptr, (const int*)row_slots,
+           (const int*)long_rows, n_rows, piece, (float*)dxj, e_stride,
+           x_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_grad_sum((const float*)gpart, grid,
@@ -112,7 +118,7 @@ int launch(const void* fiber_t, const void* xwi, const void* xj,
       int edge_block, int window, int n_rows, int n_long, int piece,          \
       int n_batch, void* gpart, void* dpre, void* dxj, void* grads,           \
       void* stream) {                                                         \
-    return tiles::with_bwd_plan<false>(                                       \
+    return tiles::with_bwd_plan<true>(                                        \
         width, n_layers, Front::kDyn, [&](auto p) {                           \
           return launch<decltype(p), T, BF16>(                                \
               fiber_t, xwi, xj, pos, wf8, wfd, wfn, W, B, WT, g, send_win,    \

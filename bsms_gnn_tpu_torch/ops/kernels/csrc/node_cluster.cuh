@@ -13,8 +13,8 @@
 // 10: NT / 2 threads of RT rows by 4, `node_cluster_fwd.cuh`), so the
 // copies below take the CTA's thread count NTH (and the tile's rows).
 //
-// Width: kernels 3 and 6 take a latent width CW of 128 or 256 (a template
-// parameter, C = 128 by default, which kernel 10 keeps). Each CTA keeps SW
+// Width: kernels 3, 6 and 10 take a latent width CW of 128 or 256 (a
+// template parameter, C = 128 by default). Each CTA keeps SW
 // = 32 output columns, so a tile's cluster is CW / SW CTAs (4 at 128, 8 at
 // 256: the portable cluster limit) and the full tile's rows are padded to
 // CW + 4 floats (`cl_of`, `as_of`).

@@ -7,8 +7,8 @@
 // on a tile of TR = RG·RT rows per cluster of CL CTAs (kernel 3: RT = 4,
 // 64 rows; see node_mlp.cu for the design). Each output element is one FMA
 // chain over k in order, x's half then aggr's, whatever RT is: the same
-// arithmetic at every tile height. CW: the latent width (kernel 3: 128 or
-// 256, on cl_of(CW) CTAs; kernel 10: 128), each CTA SW columns at either.
+// arithmetic at every tile height. CW: the latent width (kernels 3 and
+// 10: 128 or 256, on cl_of(CW) CTAs), each CTA SW columns at either.
 #pragma once
 
 #include "node_cluster.cuh"

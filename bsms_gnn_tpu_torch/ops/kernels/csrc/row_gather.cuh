@@ -24,8 +24,8 @@
 // The sum is in f32.
 //
 // Rows of LD floats, a compile-time multiple of C (the latent width of
-// kernels 1, 2, 4, 5 and 7, built at 128 and 256 through `with_width`; C
-// elsewhere): each list's sum is taken C columns at a time, column block
+// kernels 1, 2, 4, 5, 7, 8 and 13, built at 128 and 256 through
+// `with_width` or their plans; C elsewhere): each list's sum is taken C columns at a time, column block
 // blockIdx.z (the grid's z extent is LD / C), every block of a row over
 // the same list in the same order, so each column sums as at width C.
 //
@@ -331,9 +331,9 @@ __device__ __forceinline__ void gather_rows(const T* __restrict__ x,
 // order (a bf16 row widens exactly to f32); a row with no slot comes out
 // zero. Batched (every tile walk's entry): sample blockIdx.y's rows and
 // out start rows_stride and out_stride elements after the previous
-// sample's. Rows of LD floats (kernels 4 and 5: their plan's latent
-// width; C for kernels 11-14), in LD / C column blocks (gather_grid's
-// n_cols).
+// sample's. Rows of LD floats (kernels 4, 5 and 13: their plan's latent
+// width; C for kernels 11, 12 and 14), in LD / C column blocks
+// (gather_grid's n_cols).
 template <typename T, bool BF16, int LD = C>
 __global__ void __launch_bounds__(THREADS, GATHER_SUM_MIN_BLOCKS)
 recv_gather_kernel(const T* __restrict__ rows,

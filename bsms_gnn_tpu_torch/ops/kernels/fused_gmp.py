@@ -271,7 +271,7 @@ def _check(level, xwi, xj, wf8, weights, biases):
 
 def check_narrow(what, level, xwi, xj, wf8, weights, biases):
     """`_check`, for a windowed kernel that takes a latent width of 128
-    only (kernels 13 and 14), on every device."""
+    only (kernel 14), on every device."""
     _check(level, xwi, xj, wf8, weights, biases)
     if xwi.shape[-1] != BN:
         raise NotImplementedError(

@@ -35,7 +35,7 @@ wf_dyn and wf_nrm join wf8 in shared memory once per block.
 - Forward (`csrc/fused_gmp_dyn.cu` over `csrc/edge_fwd_tiles.cuh`, two
   blocks per SM at about 107 KB of shared memory each): dead tiles
   skipped, each live slot's message stored into a transient `msg [E_pad,
-  128]` in the activations' dtype, then `recv_gather_kernel` sums the
+  C]` in the activations' dtype, then `recv_gather_kernel` sums the
   aggregate over the receiver lists `win_row_*` in list order: no
   shared-memory output block, no per-chunk part, no block sum.
 - Backward (`csrc/fused_gmp_dyn_bwd.cu` over `csrc/edge_bwd_tiles.cuh`,
@@ -53,7 +53,19 @@ to_bf16=True)`). What bounds it on the card: operations, as kernel 4 (and
 kernel 5 for the backward), plus 2·(wd+1)·C per slot; the positions add a
 few bytes per slot.
 
-The batch axis (a shared mesh: xwi, xj [B, n_pad, 128], pos [B, n_pad,
+Width and depth: the TPU getters are keyed on C (`fused_gmp.py:664`,
+`:706`) and the guards test only C % 128 (`fused_gmp.py:1186-1197`). The
+CUDA kernels take a latent width of 128 or 256 on the walks' plans
+(`fused_gmp.walk_plan(c, L, "dyn", ...)`, checked at launch as kernels 4
+and 5 check theirs): the forward on `Base` (64-slot tiles) at 128 and
+`WideFwd` (32-slot tiles) at 256, any L; the backward on `Base` (L ≤ 3),
+`Deep` (L ≤ 8) at 128 and `Wide` (32-slot tiles, 16-row slabs, L ≤ 4:
+211,968 bytes of shared memory at four) at 256. wf_dyn is [wd, C] and
+wf_nrm [C]. A (C, L) no plan holds raises NotImplementedError naming C
+and L before a launch, on the card only; the plain versions take any C
+that is a multiple of 128 and any L.
+
+The batch axis (a shared mesh: xwi, xj [B, n_pad, C], pos [B, n_pad,
 wd]), as kernels 4 and 5 take it: one launch of the forward walks the B·T
 tiles in the same stride order (tile t is tile t mod T of sample ⌊t / T⌋,
 which reads sample ⌊t / T⌋'s positions), one launch of the backward the
@@ -81,9 +93,8 @@ import torch
 from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
 from bsms_gnn_tpu_torch.ops.kernels.fused_gmp import (
-    BN,
+    _check,
     _edge_pre,
-    check_narrow,
     dot,
     flat_rows,
     mlp_tail_bwd,
@@ -106,11 +117,14 @@ _BWD_FN = {torch.float32: "fused_edge_phase_win_dyn_bwd_f32",
 
 
 def _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases):
-    check_narrow("kernel 13", level, xwi, xj, wf8, weights, biases)
+    """Raise on what kernel 13 takes nowhere (which C and L the card's
+    kernels take, `walk_plan` says at launch)."""
+    _check(level, xwi, xj, wf8, weights, biases)
+    c = xwi.shape[-1]
     wd = wfd.shape[0] if wfd.dim() == 2 else -1
-    if not 0 < wd <= BN or wfd.shape != (wd, BN) or wfn.shape != (BN,):
-        raise ValueError(f"wf_dyn {tuple(wfd.shape)} must be [wd, {BN}] with "
-                         f"0 < wd <= {BN}, wf_nrm {tuple(wfn.shape)} [{BN}]")
+    if not 0 < wd <= c or wfd.shape != (wd, c) or wfn.shape != (c,):
+        raise ValueError(f"wf_dyn {tuple(wfd.shape)} must be [wd, {c}] with "
+                         f"0 < wd <= {c}, wf_nrm {tuple(wfn.shape)} [{c}]")
     want = (*xwi.shape[:-2], level.n_pad_nodes, wd)
     if pos.shape != want or pos.dtype != xwi.dtype:
         raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype} must be "
@@ -144,7 +158,7 @@ def fused_edge_phase_win_dyn_plain(level, xwi, xj, pos, wf8, wfd, wfn,
     if bf16:
         e = round_bf16(e)
     e = torch.where(covered[:, None], e, 0.0)
-    out = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, BN,
+    out = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, xwi.shape[-1],
                       dtype=torch.float32, device=xwi.device)
     return out.index_add_(-2, recv, e)
 
@@ -162,16 +176,18 @@ def _kernel_wd(wfd):
 
 def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
                                  weights, biases):
-    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
-    128] and pos [n_pad, wd], or a batch [B, ...] in one launch), no
-    autograd. CPU tensors take the plain version; CUDA tensors launch
-    kernel 13."""
+    """aggr [..., n_pad, C] f32 of the in-window edges (xwi, xj [n_pad, C]
+    and pos [n_pad, wd], or a batch [B, ...] in one launch), no autograd.
+    CPU tensors take the plain version; CUDA tensors launch kernel 13 (C
+    128 or 256, `walk_plan`)."""
     _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases)
     if xwi.device.type == "cpu":
         return fused_edge_phase_win_dyn_plain(level, xwi, xj, pos, wf8, wfd,
                                               wfn, weights, biases)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
+    c = xwi.shape[-1]
+    tr = walk_plan(c, len(weights), "dyn", xwi.dtype, backward=False)[1]
     wd = _kernel_wd(wfd)
     build.require("fused_edge_phase_win_dyn", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
@@ -179,16 +195,16 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
     lib = build.library("fused_gmp_dyn", walk_sigs(_FN, 16, 12, 3))
     fn, dev = _FN[xwi.dtype], xwi.device
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, BN, len(weights), level, n_batch)
+    n_tiles, grid = walk_grid(lib, fn, c, len(weights), level, n_batch, tr)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     b_stack = build.stacked(biases)
     xwi, xj, pos = xwi.contiguous(), xj.contiguous(), pos.contiguous()
     wf8, wfd, wfn = (t.detach().float().contiguous() for t in (wf8, wfd, wfn))
     lead = xwi.shape[:-2]
-    msg = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+    msg = torch.empty(*lead, level.n_pad_edges, c, dtype=xwi.dtype,
                       device=dev)
-    out = torch.empty(*lead, level.n_pad_nodes, BN, dtype=torch.float32,
+    out = torch.empty(*lead, level.n_pad_nodes, c, dtype=torch.float32,
                       device=dev)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -197,7 +213,7 @@ def fused_edge_phase_win_dyn_fwd(level, xwi, xj, pos, wf8, wfd, wfn,
         level.win_base.data_ptr(), level.receivers.data_ptr(),
         level.chunk_block.data_ptr(), level.win_row_ptr.data_ptr(),
         level.win_row_slots.data_ptr(), level.win_long.data_ptr(),
-        BN, len(weights), wd, grid, n_tiles, level.n_pad_edges,
+        c, len(weights), wd, grid, n_tiles, level.n_pad_edges,
         level.edge_block, level.window, level.n_pad_nodes,
         level.win_long.numel(),
         GATHER_PIECE, n_batch, msg.data_ptr(), out.data_ptr(),
@@ -229,7 +245,7 @@ def fused_edge_phase_win_dyn_bwd_plain(level, xwi, xj, pos, wf8, wfd, wfn,
                                 flat_rows(ge), ws, bf16)
     dpre = dpre.reshape(pre.shape)
     dpre_op = round_bf16(dpre) if bf16 else dpre
-    dxj = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, BN,
+    dxj = torch.zeros(*xwi.shape[:-2], level.n_pad_nodes, xwi.shape[-1],
                       dtype=torch.float32,
                       device=xwi.device).index_add_(-2, recv, dpre_op)
     dwf8 = dot(level.fiber_t, dpre, bf16)
@@ -245,12 +261,12 @@ fused_edge_phase_win_dyn_bwd_plain.calls = 0
 
 def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                                  biases, g):
-    """(dpre [..., E_pad, 128] in xwi's dtype, dxj [..., n_pad, 128] f32,
-    dwf8 [8, 128], dwf_dyn [wd, 128], dwf_nrm [128], dW [L, 128, 128], db
-    [L, 128]) for the aggregate's cotangent g [..., n_pad, 128] (a batch
-    [B, ...] in one launch, the weight gradients summed over it), no
-    autograd. CPU tensors take the plain version; CUDA tensors launch
-    kernel 13's backward."""
+    """(dpre [..., E_pad, C] in xwi's dtype, dxj [..., n_pad, C] f32, dwf8
+    [8, C], dwf_dyn [wd, C], dwf_nrm [C], dW [L, C, C], db [L, C]) for the
+    aggregate's cotangent g [..., n_pad, C] (a batch [B, ...] in one
+    launch, the weight gradients summed over it), no autograd. CPU tensors
+    take the plain version; CUDA tensors launch kernel 13's backward (C 128
+    or 256, L as `walk_plan` allows)."""
     _check_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases)
     if g.shape != xwi.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(xwi.shape)}")
@@ -259,7 +275,8 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                                                   wfd, wfn, weights, biases, g)
     if xwi.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {xwi.device}")
-    tr = walk_plan(BN, len(weights), "dyn", xwi.dtype)[1]
+    c = xwi.shape[-1]
+    tr = walk_plan(c, len(weights), "dyn", xwi.dtype)[1]
     wd = _kernel_wd(wfd)
     build.require("fused_edge_phase_win_dyn_bwd", xwi.device, level.send_win,
                   level.win_base, level.receivers, level.chunk_block,
@@ -268,7 +285,7 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     fn = _BWD_FN[xwi.dtype]
     dev, n_layers = xwi.device, len(weights)
     n_batch = xwi.shape[0] if xwi.dim() == 3 else 1
-    n_tiles, grid = walk_grid(lib, fn, BN, n_layers, level, n_batch, tr)
+    n_tiles, grid = walk_grid(lib, fn, c, n_layers, level, n_batch, tr)
     bf16 = xwi.dtype == torch.bfloat16
     w_stack = build.stacked(weights, to_bf16=bf16)
     wt_stack = build.stacked(weights, transpose=True, to_bf16=bf16)
@@ -276,13 +293,13 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     xwi, xj, pos = xwi.contiguous(), xj.contiguous(), pos.contiguous()
     wf8, wfd, wfn = (t.detach().float().contiguous() for t in (wf8, wfd, wfn))
     g = g.detach().float().contiguous()
-    sizes = [n_layers * BN * BN, n_layers * BN, 8 * BN, wd * BN, BN]
+    sizes = [n_layers * c * c, n_layers * c, 8 * c, wd * c, c]
     f32 = dict(dtype=torch.float32, device=dev)
     gpart = torch.empty(grid, sum(sizes), **f32)
     lead = xwi.shape[:-2]
-    dpre = torch.empty(*lead, level.n_pad_edges, BN, dtype=xwi.dtype,
+    dpre = torch.empty(*lead, level.n_pad_edges, c, dtype=xwi.dtype,
                        device=dev)
-    dxj = torch.empty(*lead, level.n_pad_nodes, BN, **f32)
+    dxj = torch.empty(*lead, level.n_pad_nodes, c, **f32)
     grads = torch.empty(sum(sizes), **f32)
     err = getattr(lib, fn)(
         level.fiber_t.data_ptr(), xwi.data_ptr(), xj.data_ptr(),
@@ -291,7 +308,7 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
         g.data_ptr(), level.send_win.data_ptr(), level.win_base.data_ptr(),
         level.receivers.data_ptr(), level.chunk_block.data_ptr(),
         level.win_row_ptr.data_ptr(), level.win_row_slots.data_ptr(),
-        level.win_long.data_ptr(), BN, n_layers, wd, grid, n_tiles,
+        level.win_long.data_ptr(), c, n_layers, wd, grid, n_tiles,
         level.n_pad_edges, level.edge_block, level.window, level.n_pad_nodes,
         level.win_long.numel(), GATHER_PIECE, n_batch, gpart.data_ptr(),
         dpre.data_ptr(), dxj.data_ptr(), grads.data_ptr(),
@@ -300,8 +317,8 @@ def fused_edge_phase_win_dyn_bwd(level, xwi, xj, pos, wf8, wfd, wfn, weights,
     build.check(err, "fused_edge_phase_win_dyn_bwd")
     fused_edge_phase_win_dyn_bwd.launches += 1
     dw, db, dwf8, dwfd, dwfn = grads.split(sizes)
-    return (dpre, dxj, dwf8.view(8, BN), dwfd.view(wd, BN), dwfn,
-            dw.view(n_layers, BN, BN), db.view(n_layers, BN))
+    return (dpre, dxj, dwf8.view(8, c), dwfd.view(wd, c), dwfn,
+            dw.view(n_layers, c, c), db.view(n_layers, c))
 
 
 fused_edge_phase_win_dyn_bwd.launches = 0
@@ -335,8 +352,8 @@ class _DynEdgePhase(torch.autograd.Function):
 
 def fused_edge_phase_win_dyn(level, xwi, xj, pos, wf8, wfd, wfn, weights,
                              biases):
-    """aggr [..., n_pad, 128] f32 of the in-window edges (xwi, xj [n_pad,
-    128] or a batch [B, n_pad, 128]), differentiable in xwi, xj, wf8,
+    """aggr [..., n_pad, C] f32 of the in-window edges (xwi, xj [n_pad, C]
+    or a batch [B, n_pad, C]), differentiable in xwi, xj, wf8,
     wf_dyn, wf_nrm and every tail weight and bias. `pos` [..., n_pad, wd]
     are the world positions in xwi's dtype (no gradient reaches them);
     `wf8` rows [0, sfw) are the static-fiber rows of the first edge layer,

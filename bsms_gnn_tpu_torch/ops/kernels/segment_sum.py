@@ -42,8 +42,11 @@ Widths that are not a multiple of 128 take the plain version on purpose,
 as JAX's `_supported` (`segment_sum.py:118-131`) sends them to XLA: the
 3-wide world-position stream of the world-edge models. Those calls count
 in `segment_sum_raw.narrow_calls`, apart from the kernel's launches. The
-kernel takes rows of 128 (the latent width of every path); other
-multiples of 128 raise.
+kernel takes rows of a latent width of `windowed.WIDTHS` (128 or 256), as
+JAX's getter is keyed on C (`segment_sum.py:84`): the gather sums them 128
+columns at a time, one column block a grid z index, each over the same
+lists in the same order, so at 256 each 128-column half is the bits of a
+128-wide call on that half. Other multiples of 128 raise on the card.
 Skip-empty layouts (the residual sub-levels) are refused, as `_supported`
 refuses them: a block that owns no chunk would get no row. Their sums go
 through kernel 9 (`segment_sum_accum.py`).
@@ -63,8 +66,9 @@ import torch
 
 from bsms_gnn_tpu_torch.graph.hierarchy import GATHER_PIECE
 from bsms_gnn_tpu_torch.ops.kernels import build
+from bsms_gnn_tpu_torch.ops.kernels.windowed import check_gather_width
 
-_SIG = [build.P] * 4 + [build.I] * 5 + [build.P] * 2
+_SIG = [build.P] * 4 + [build.I] * 6 + [build.P] * 2
 _FN = {torch.float32: "segment_sum_f32", torch.bfloat16: "segment_sum_bf16"}
 
 
@@ -106,7 +110,7 @@ def segment_sum_raw(level, feat, send: bool = False):
     """f32 [..., N_pad, C] receiver sums (`send`: sender sums) of feat
     [E_pad, C] or a batch [B, E_pad, C] (one launch), no autograd. CPU
     tensors, and widths that are not a multiple of 128, take the plain
-    version; other CUDA tensors launch kernel 8."""
+    version; other CUDA tensors launch kernel 8 (C 128 or 256)."""
     _check(level, feat, send)
     if feat.device.type == "cpu":
         return segment_sum_plain(level, feat, send)
@@ -116,8 +120,7 @@ def segment_sum_raw(level, feat, send: bool = False):
     if c % 128:
         segment_sum_raw.narrow_calls += 1
         return segment_sum_plain(level, feat, send)
-    if c != 128:
-        raise NotImplementedError(f"kernel 8 takes rows of 128, not {c}")
+    check_gather_width("kernel 8", c)
     if feat.dtype not in _FN:
         raise ValueError(f"feat dtype {feat.dtype}")
     slots = _slots(level, send)
@@ -131,7 +134,7 @@ def segment_sum_raw(level, feat, send: bool = False):
         feat.data_ptr(), level.row_ptr.data_ptr(), slots.data_ptr(),
         level.row_long.data_ptr(), level.n_pad_nodes, level.row_long.numel(),
         GATHER_PIECE, feat.shape[0] if feat.dim() == 3 else 1,
-        level.n_pad_edges, out.data_ptr(),
+        level.n_pad_edges, c, out.data_ptr(),
         torch.cuda.current_stream(feat.device).cuda_stream,
     )
     build.check(err, "segment_sum")

@@ -281,7 +281,38 @@ Phases (any failure exits non-zero without the result line):
    and BATCH_TRAIN timed (ms, busy, idle share, CUDA kernels, own peak).
    Every unbucketed path with a backward tile walk (phases 6, 10, 11, 12
    and 14) also holds that walk and kernel 6 at DEEP_TAIL tail layers at
-   C = 128 on level 0 (`check_deep_tails`).
+   C = 128 on level 0 (`check_deep_tails`);
+30. the wide surface (surface_wide): phase 9's case with its model at
+   WIDE_MODEL (`inflating_font_config(latent_dim=256, hidden_layer=4)`,
+   phase 9's model in every other field, required), the host hierarchy
+   shared with it: kernels 8 (both forms at every level, T0-T2's
+   operators) and 10 (every level, and bf16 on f32 x) at C = 256 against
+   their plain versions (f32, bf16, kernel 10's bf16 control missing);
+   kernel 10 bit for bit kernel 3 on kernel 8's aggregate at every level
+   (f32, bf16, bf16 on f32 x; at B = 1 and BATCH_CHECK); each 128-column
+   half of kernel 8's 256-wide output bit for bit the 128-wide call on it
+   (`check_halves`); the forward at FORWARD_TOL with phase 9's launch
+   counts, a 20-step rollout, kernels 8 and 10 timed at every shape;
+   kernels 8 and 10 at BATCH_CHECK samples, each sample bit for bit its
+   B = 1 call; the f32 and bf16 train step against the deterministic
+   plain step at TRAIN_TOL with phase 9's train-step counts, a `Trainer`
+   run; the train step at B = 1 and at the largest batch up to
+   BATCH_TRAIN_SURFACE within ELL_TRAIN_MEM_SHARE of the card (`fitting_batch`)
+   timed (ms, busy, idle share, CUDA kernels, own peak);
+31. the wide flag (flag_wide): phase 10's case with its model at WIDE_MODEL
+   (`flag_simple_config(latent_dim=256, hidden_layer=4)`, required), the
+   host hierarchy shared with it; kernels 13 (forward and backward at every
+   level), 1, 2, 3, 6 and 7 at C = 256 against their plain versions (f32,
+   bf16, the bf16 controls missing; kernel 13's f32 inputs cleared of ReLU
+   inputs near their kinks, and its backward's bf16 dpre rows that miss
+   verified as flips and carried into dxj's reference, as the plate's);
+   kernel 11, which a world stream wider than kernel 13 takes, stays at
+   128, so `check_wide_stream` is left out; the forward with phase 10's
+   counts, a 20-step rollout, kernel 13 timed; kernel 13 at BATCH_CHECK
+   samples; the f32 and bf16 train step at TRAIN_TOL with phase 10's
+   counts, the f32 step with kernel 13's backward in its bf16 mode failing
+   that gate (`launches_flag_wide` in the kernels line), a `Trainer` run;
+   the train step at B = 1 and BATCH_TRAIN timed.
 
 Prints a JSON line of end-to-end times, one `{"kernels": [...]}` line, then
 as its last line
@@ -816,6 +847,11 @@ AUTO_SEED = 1700
 WIDE_OVERRIDES = ("datasets=synthetic_airfoil", "model.aggregation=fused",
                   "model.latent_dim=256", "model.hidden_layer=4")
 WIDE_SEED = 1800
+# The wide surface and flag (phases 30 and 31): the 128-wide phase's model
+# with these two fields changed, its case otherwise as it is. Their
+# batched checks draw from SURFACE_WIDE_SEED and FLAG_WIDE_SEED.
+WIDE_MODEL = dict(latent_dim=256, hidden_layer=4)
+SURFACE_WIDE_SEED, FLAG_WIDE_SEED = 3600, 2600
 # The tail layers of `check_deep_tails` at C = 128 (past the three of every
 # shipped model group) and the seed of its weights.
 DEEP_TAIL = 4
@@ -839,24 +875,27 @@ RELU_DIAGNOSED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
 # input within KINK_MARGIN of its layer's RMS from zero is drawn anew,
 # until none is left; the kernel is then held at the full limits.
 KINK_MARGIN, KINK_ROUNDS, KINK_SEED = 1e-6, 20, 1800
-# The wide airfoil (phase 29) and the deep-tail checks hold kernels 3-6 at
-# four tail layers, at C = 256 on 2.5× the ReLU inputs a unit of width
-# brings: on an H100 a kernel 6 check at the wide airfoil's level 0 missed
-# on one row fed by a unit at |z| = 7.0e-9. Their f32 inputs are cleared
-# the same way (`kink_free` on a case with `clear_kinks`; kernels 3 and 6
-# draw the node rows anew, kernels 4 and 5 the sender rows), as are the
-# drawn samples of their batched checks.
+# The wide airfoil and flag (phases 29, 31) and the deep-tail checks hold
+# kernels 3-6 and 13 at four tail layers, at C = 256 on 2.5× the ReLU
+# inputs a unit of width brings: on an H100 a kernel 6 check at the wide
+# airfoil's level 0 missed on one row fed by a unit at |z| = 7.0e-9. Their
+# f32 inputs are cleared the same way (`kink_free` on a case with
+# `clear_kinks`; kernels 3 and 6 draw the node rows anew, kernels 4, 5 and
+# 13 the sender rows), as are the drawn samples of their batched checks.
 # bf16 moves ReLU inputs further: a hidden activation that the two sides'
 # f32 sums put on either side of a bf16 rounding step moves every unit it
 # feeds by that step times a weight, ~1e-4, too often for any draw to
 # avoid (on an H100 one dpre row of level 2 read 0.11 of the RMS, the limit
-# 0.1, fed by a unit at z = 1.2e-4). On a `dense` case each row of kernel
-# 13's backward's dpre that misses must be the plain version's row with
-# the ReLU decision of one of its units taken on the other side, within
-# the limits (`verify_flips`): a unit whose |z| is within one rounding
-# step of the dtype (2^-8 in bf16) of its own input scale, the sum of the
-# magnitudes of the terms that make z (`input_scales`); at most
-# FLIP_ROWS_MAX rows so, and the other rows pass both limits.
+# 0.1, fed by a unit at z = 1.2e-4). On a `dense` case, and on the wide
+# flag (`flips`: four tail layers at 256 put such flips at its levels 1 and
+# 3), each row of kernel 13's backward's dpre that misses must be the
+# plain version's row with the ReLU decision of one of its units taken on
+# the other side, within the limits (`verify_flips`): a unit whose |z| is
+# within one rounding step of the dtype (2^-8 in bf16) of its own input
+# scale, the sum of the magnitudes of the terms that make z
+# (`input_scales`); at most FLIP_ROWS_MAX rows so, and the other rows pass
+# both limits; dxj is then held against the plain dxj with those rows'
+# flips carried to their receivers (`flipped_dxj`).
 FLIP_ROWS_MAX = 4
 # On a `dense` case (the plate) kernel 9's feature rows are zero on the
 # residual sub-levels' pad slots (the forced empty one keeps its draws).
@@ -1275,7 +1314,55 @@ def build_case(device, plain=False, aggregation="fused", auto=False,
                 expected_train=EXPECTED_TRAIN_LAUNCHES, narrow=(0, 0))
 
 
-def build_surface_case(device, aggregation="pallas"):
+# The host side of the surface and flag cases (mesh, hierarchy, the
+# surface's trajectory), built once and shared by every phase that runs on
+# them: the latent width and the method do not change the hierarchy.
+_HOST = {}
+
+
+def surface_host():
+    """(pos, cells, node_type, hierarchy, its build seconds, the
+    trajectory's two frames, the state of the mesh's generator after the
+    mesh) of the 16k surface, built on first use."""
+    from bsms_gnn_tpu_torch.data.synthetic import (
+        generate_inflating_trajectory,
+        make_sphere_mesh,
+    )
+    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+
+    if "surface" not in _HOST:
+        rng = np.random.default_rng(0)
+        pos, cells, node_type = make_sphere_mesh(SURFACE_NODES, rng)
+        t0 = time.perf_counter()
+        h = build_hierarchy(to_flat_edge(cells, "tri"), SURFACE_DEPTH,
+                            pos.shape[0], pos.astype(np.float64))
+        build_s = time.perf_counter() - t0
+        traj = generate_inflating_trajectory(SURFACE_NODES, 2,
+                                             np.random.default_rng(0))
+        require(np.array_equal(traj["mesh_pos"][0], pos),
+                "the trajectory's mesh is not the case's")
+        _HOST["surface"] = (pos, cells, node_type, h, build_s, traj,
+                            rng.bit_generator.state)
+    return _HOST["surface"]
+
+
+def wide_config(config, label):
+    """`config` (a case's config function) with WIDE_MODEL's fields, after
+    requiring that its model is the 128-wide one's in every other field."""
+    from dataclasses import replace
+
+    wide = functools.partial(config, **WIDE_MODEL)
+    base, cfg = config().model, wide().model
+    require(replace(cfg, latent_dim=base.latent_dim,
+                    hidden_layer=base.hidden_layer) == base,
+            f"{label}: the wide model is not the 128-wide phase's but for "
+            f"its width and depth: {cfg}")
+    print(f"[{label}] the 128-wide phase's model with {WIDE_MODEL}: {cfg}")
+    return wide
+
+
+def build_surface_case(device, aggregation="pallas", wide=False):
     """bench.py's second point, `_build("surface", 16000, 7)`, from the
     port's own copies: `make_sphere_mesh(16000, default_rng(0))`, the
     default unwindowed hierarchy of depth 7, the inflating-font model on
@@ -1283,30 +1370,24 @@ def build_surface_case(device, aggregation="pallas"):
     fused-v2 row, kernel 11); world positions 1.05 · the mesh positions,
     the mask the normal nodes. Weights from
     `torch.Generator().manual_seed(0)`. The train frames are frames 0 and 1
-    of `generate_inflating_trajectory` on the same mesh."""
+    of `generate_inflating_trajectory` on the same mesh. With `wide`, the
+    model at WIDE_MODEL (phase 30)."""
     from bsms_gnn_tpu_torch.config import inflating_font_config
-    from bsms_gnn_tpu_torch.data.synthetic import (
-        NT_NORMAL,
-        generate_inflating_trajectory,
-        make_sphere_mesh,
-    )
-    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
-    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.data.synthetic import NT_NORMAL
+    from bsms_gnn_tpu_torch.graph.hierarchy import to_device
     from bsms_gnn_tpu_torch.models.simulator import Simulator
 
-    rng = np.random.default_rng(0)
-    pos, cells, node_type = make_sphere_mesh(SURFACE_NODES, rng)
-    edges = to_flat_edge(cells, "tri")
-    t0 = time.perf_counter()
-    h = build_hierarchy(edges, SURFACE_DEPTH, pos.shape[0],
-                        pos.astype(np.float64))
-    build_s = time.perf_counter() - t0
+    pos, cells, node_type, h, build_s, traj, state = surface_host()
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state  # as the mesh left it
     hd = to_device(h, device)
 
     def config(**kw):
         return inflating_font_config(unet_depth=SURFACE_DEPTH,
                                      aggregation=aggregation, **kw)
 
+    if wide:
+        config = wide_config(config, "surface 16k wide")
     cfg = config().model
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
     n, n_pad = pos.shape[0], h.levels[0].n_pad_nodes
@@ -1324,10 +1405,6 @@ def build_surface_case(device, aggregation="pallas"):
     node_in = frame(1.05 * pos)
     fill_normalizers(sim, node_in, mask, rng)
 
-    traj = generate_inflating_trajectory(SURFACE_NODES, 2,
-                                         np.random.default_rng(0))
-    require(np.array_equal(traj["mesh_pos"][0], pos),
-            "the trajectory's mesh is not the case's")
     target = torch.zeros(n_pad, 3, device=device)
     target[:n] = torch.from_numpy(traj["world_pos"][1]).to(device)
     case = dict(label="surface 16k", h=h, hd=hd, cfg=cfg, sim=sim,
@@ -1342,10 +1419,35 @@ def build_surface_case(device, aggregation="pallas"):
                     expected_train=EXPECTED_SURFACE_FUSED_TRAIN_LAUNCHES,
                     timed=("fused_edge_mlp_aggregate",
                            "fused_edge_mlp_aggregate_bwd"))
+    if wide:
+        case["label"] = "surface 16k wide"
     return case
 
 
-def build_flag_case(device, aggregation="fused"):
+def flag_host(aggregation):
+    """(pos, cells, node_type, hierarchy, its build seconds) of the flag's
+    strip on the method's layout, built on first use."""
+    from bsms_gnn_tpu_torch.data.synthetic import make_grid_strip_mesh
+    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy
+    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
+    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+
+    key = ("flag", aggregation == "ell")
+    if key not in _HOST:
+        pos, cells, node_type = make_grid_strip_mesh(FLAG_NODES, ny=FLAG_NY)
+        layout = dict(edge_block=ELL_EDGE_BLOCK)
+        if aggregation != "ell":
+            pos, cells, (node_type,), _ = reorder_mesh(pos, cells,
+                                                       (node_type,))
+            layout = dict(edge_block=EDGE_BLOCK, window=WINDOW)
+        t0 = time.perf_counter()
+        h = build_hierarchy(to_flat_edge(cells, "tri"), FLAG_DEPTH,
+                            pos.shape[0], pos.astype(np.float64), **layout)
+        _HOST[key] = (pos, cells, node_type, h, time.perf_counter() - t0)
+    return _HOST[key]
+
+
+def build_flag_case(device, aggregation="fused", wide=False):
     """flag_simple at full width and depth, from the port's own copies: the
     cloth strip `make_grid_strip_mesh(1579, ny=32)` (1,568 nodes, the size
     of MeshGraphNets' FlagSimple meshes), Morton-reordered, the windowed
@@ -1354,31 +1456,25 @@ def build_flag_case(device, aggregation="fused"):
     layout instead (not reordered, unwindowed, edge_block 128). The contact
     recipe gives the frames: world x, y = the mesh position, z = 0.05·N(0,
     1) from a seed; the target adds 0.1·sin(x) to z. The mask is the normal
-    nodes; weights from `torch.Generator().manual_seed(0)`."""
+    nodes; weights from `torch.Generator().manual_seed(0)`. With `wide`,
+    the model at WIDE_MODEL (phase 31): kernel 11, which a wider world
+    stream takes (`check_wide_stream`), stays at 128, so its checks are
+    left out; kernel 13's f32 inputs are cleared of ReLU inputs near their
+    kinks (`clear_kinks`), as the wide airfoil's kernels 3-6 are, and its
+    backward's bf16 dpre rows that miss must be verified flips
+    (`verify_flips`), as the plate's are."""
     from bsms_gnn_tpu_torch.config import flag_simple_config
-    from bsms_gnn_tpu_torch.data.synthetic import (
-        NT_NORMAL,
-        make_grid_strip_mesh,
-    )
-    from bsms_gnn_tpu_torch.graph.hierarchy import build_hierarchy, to_device
-    from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
-    from bsms_gnn_tpu_torch.graph.order import reorder_mesh
+    from bsms_gnn_tpu_torch.data.synthetic import NT_NORMAL
+    from bsms_gnn_tpu_torch.graph.hierarchy import to_device
     from bsms_gnn_tpu_torch.models.simulator import Simulator
 
     rng = np.random.default_rng(0)
-    pos, cells, node_type = make_grid_strip_mesh(FLAG_NODES, ny=FLAG_NY)
-    layout = dict(edge_block=ELL_EDGE_BLOCK)
-    if aggregation != "ell":
-        pos, cells, (node_type,), _ = reorder_mesh(pos, cells, (node_type,))
-        layout = dict(edge_block=EDGE_BLOCK, window=WINDOW)
-    edges = to_flat_edge(cells, "tri")
-    t0 = time.perf_counter()
-    h = build_hierarchy(edges, FLAG_DEPTH, pos.shape[0],
-                        pos.astype(np.float64), **layout)
-    build_s = time.perf_counter() - t0
+    pos, cells, node_type, h, build_s = flag_host(aggregation)
     hd = to_device(h, device)
 
     config = functools.partial(flag_simple_config, aggregation=aggregation)
+    if wide:
+        config = wide_config(config, "flag 1.6k wide")
     cfg = config().model
     sim = Simulator(cfg, torch.Generator().manual_seed(0), device=device)
     n, n_pad = pos.shape[0], h.levels[0].n_pad_nodes
@@ -1396,7 +1492,7 @@ def build_flag_case(device, aggregation="fused"):
     mask[:n, 0] = node_type[:, 0] == NT_NORMAL
     mask = torch.from_numpy(mask).to(device)
     fill_normalizers(sim, node_in, mask, rng)
-    return dict(label="flag 1.6k", h=h, hd=hd, cfg=cfg, sim=sim,
+    case = dict(label="flag 1.6k", h=h, hd=hd, cfg=cfg, sim=sim,
                 config=config, node_in=node_in, mask=mask, n=n,
                 build_s=build_s,
                 expected=EXPECTED_FLAG_LAUNCHES,
@@ -1405,6 +1501,11 @@ def build_flag_case(device, aggregation="fused"):
                 train_frames=(node_in, torch.from_numpy(target).to(device)),
                 timed=("fused_edge_phase_win_dyn",
                        "fused_edge_phase_win_dyn_bwd"))
+    if wide:
+        case.update(label="flag 1.6k wide", clear_kinks=True, flips=True,
+                    skip=("fused_edge_mlp_aggregate",
+                          "fused_edge_mlp_aggregate_bwd"))
+    return case
 
 
 def build_cylinder_case(device, aggregation="fused"):
@@ -1968,14 +2069,15 @@ def check_agg_identity(case, n=1):
     takes it as a dot operand, and both of kernel 10's node phases (the
     one-block tile, kernel 3's cluster) do kernel 3's arithmetic (one FMA
     chain per output over k in order, the same LayerNorm), so any
-    difference is a fault. None of these launches is counted on the main
-    path."""
+    difference is a fault; at the case's latent width. None of these
+    launches is counted on the main path."""
     from bsms_gnn_tpu_torch.ops.kernels import agg_node
 
     fns = kernel_modules()
     agg, node, seg = (fns[k][0] for k in ("fused_aggregate_node_phase",
                                           "fused_node_phase", "segment_sum"))
     hd, sim = case["hd"], case["sim"]
+    c = case["cfg"].latent_dim
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bf = torch.bfloat16
     modes = (("f32", torch.float32, torch.float32, None),
@@ -1984,8 +2086,8 @@ def check_agg_identity(case, n=1):
         feats, xs = [], []
         for s in range(n):
             g = torch.Generator(device="cpu").manual_seed(1400 + l + 100 * s)
-            feats.append(torch.randn(lvl.n_pad_edges, 128, generator=g))
-            xs.append(torch.randn(lvl.n_pad_nodes, 128, generator=g))
+            feats.append(torch.randn(lvl.n_pad_edges, c, generator=g))
+            xs.append(torch.randn(lvl.n_pad_nodes, c, generator=g))
         feat, x = (torch.stack(t) if n > 1 else t[0] for t in (feats, xs))
         mlp = level_gmp(sim, hd, l).mlp_node
         same = []
@@ -2003,6 +2105,35 @@ def check_agg_identity(case, n=1):
               + (f" at B={n}" if n > 1 else "") + f" ({design}), bit for "
               f"bit in " + ", ".join(m for (m, *_), ok in zip(modes, same)
                                      if ok))
+
+
+def check_halves(case):
+    """Kernel 8 at latent 256 on every level (both forms) and sparse
+    operator of the case, f32 and bf16: each 128-column half of its output
+    bit for bit the 128-wide call on that half of its input (each column
+    block walks the same lists in the same order). None of these launches
+    is counted on the main path."""
+    seg = kernel_modules()["segment_sum"][0]
+    hd = case["hd"]
+    shapes = ([(f"level {l}{' send' if send else ''}", lvl, send)
+               for l, lvl in enumerate(hd.levels) for send in (False, True)]
+              + [(where, op, False) for where, op in sparse_ops(hd)])
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, (where, layout, send) in enumerate(shapes):
+            g = torch.Generator(device="cpu").manual_seed(3500 + k)
+            feat = torch.randn(layout.n_pad_edges, 256, generator=g).to(
+                dtype).cuda()
+            got = seg(layout, feat, send)
+            same = all(torch.equal(
+                got[:, h:h + 128],
+                seg(layout, feat[:, h:h + 128].contiguous(), send))
+                for h in (0, 128))
+            require(same, f"kernel 8 {where} {dtype}: a 128-column half of "
+                          f"the 256-wide call differs from the 128-wide call")
+        print(f"[{case['label']}] kernel 8 at 256, {str(dtype)[6:]}: each "
+              f"128-column half bit for bit the 128-wide call on it, at "
+              f"{len(shapes)} shapes (every level in both forms, "
+              f"{len(shapes) - 2 * len(hd.levels)} operators)")
 
 
 def check_kernel(name, where, args, dtype, sparse=False):
@@ -2033,7 +2164,7 @@ def check_kernel(name, where, args, dtype, sparse=False):
           f"max_abs_err {err:.3e} ({frac(err, rms):.2e} of rms "
           f"{rms:.3e}{' over the filled rows' if sparse else ''}, tol "
           f"{tol_max:.0e}, row {worst_row(got, want)})  rms_err "
-          f"{frac(err_rms, rms):.2e} of rms (tol {tol_rms:.0e})  "
+          f"{frac(err_rms, rms):.3e} of rms (tol {tol_rms:.0e})  "
           f"{'ok' if ok else 'FAIL'}")
     if not ok and name in RELU_DIAGNOSED:
         print(relu_margin(name, args, got, want, tol_max * rms,
@@ -2170,12 +2301,12 @@ KINK_CLEARED = ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
 
 def kink_free(case, name, args, l):
     """Kernel 13's arguments at level l of the case, cleared of ReLU inputs
-    near their kinks on a `dense` case, and kernels 3-6's on a case with
-    `clear_kinks` in f32 (`clear_kinks`, from a generator seeded with
-    KINK_SEED + l), else as they are."""
+    near their kinks on a `dense` case, and kernels 3-6's and 13's on a
+    case with `clear_kinks` in f32 (`clear_kinks`, from a generator seeded
+    with KINK_SEED + l), else as they are."""
     dyn = name.startswith("fused_edge_phase_win_dyn")
     if not ((case.get("dense") and dyn)
-            or (case.get("clear_kinks") and not dyn
+            or (case.get("clear_kinks")
                 and kink_dtype(name, args) == torch.float32)):
         return args
     return clear_kinks(name, args,
@@ -2255,23 +2386,15 @@ def input_scales(args, ins, rows):
         for z, w, b in zip(ins[:-1], ws[:-1], bs[:-1])]
 
 
-def verify_flips(args, got, want, limits, sparse):
-    """(ok, line) of kernel 13's backward's dpre `got` against the plain
-    `want` on `args`, where at most FLIP_ROWS_MAX rows miss: each row that
-    misses must equal, within the limits, the plain version's row
-    recomputed with the ReLU decision of one of the row's units taken on
-    the other side, a unit whose |z| (`relu_inputs`, the plain version's
-    arithmetic) is within one rounding step of the dtype of its own input
-    scale (`input_scales`), tried nearest first; the rows so verified are
-    left out, the rest held at both `limits`."""
+def flip_rows(args, got, want, miss, rms, tol_max):
+    """For each dpre row e of `miss` (one frame's kernel 13 backward
+    `args`; got and want its [E_pad, C] rows): (e, the units within one
+    rounding step of the dtype of their own input scale, the first of them,
+    nearest first, whose ReLU decision taken on the other side gives the
+    plain version's row within tol_max·rms of got's, as (layer, unit, |z|,
+    |z| over the step) or None, that row or None)."""
     from bsms_gnn_tpu_torch.ops.kernels import fused_gmp as fg
 
-    tol_max, tol_rms = limits
-    rms = filled_compare(got, want, sparse)[2]
-    by_row = (got.float() - want.float()).abs().amax(-1)
-    miss = (by_row > tol_max * rms).nonzero()[:, 0]
-    if len(miss) > FLIP_ROWS_MAX:
-        return False, f"  flips: {len(miss)} rows miss, over {FLIP_ROWS_MAX}"
     level, xwi, xj, pos, wf8, wfd, wfn, ws, bs, g = args
     bf16 = xwi.dtype == torch.bfloat16
     step = 2.0 ** -8 if bf16 else 2.0 ** -24
@@ -2291,7 +2414,7 @@ def verify_flips(args, got, want, limits, sparse):
              float(z[e, u].abs()))
             for l, (z, s) in enumerate(zip(ins, scales))
             for u in (z[e].abs() <= step * s[k]).nonzero()[:, 0].tolist())
-        hit = None
+        hit, fix = None, None
         for ratio, l, u, z in near:
             masks = [pre.clone()] + [h.clone() for h in hs[1:]]
             masks[l][0, u] = 0.0 if masks[l][0, u] > 0 else 1.0
@@ -2299,26 +2422,80 @@ def verify_flips(args, got, want, limits, sparse):
                                   inv, ge, ws, bf16)[0].to(got.dtype)
             if ((got[e].float() - row[0].float()).abs().max()
                     <= tol_max * rms):
-                hit = (l, u, z, ratio)
+                hit, fix = (l, u, z, ratio), row[0]
                 break
-        found.append((e, len(near), hit))
+        found.append((e, len(near), hit, fix))
+    return found
+
+
+def verify_flips(args, got, want, limits, sparse):
+    """(ok, line, fixes) of kernel 13's backward's dpre `got` against the
+    plain `want` on `args` (one frame, or a batch over one level whose
+    rows got and want hold sample by sample), where at most FLIP_ROWS_MAX
+    rows miss: each row that misses must equal, within the limits, the
+    plain version's row recomputed with the ReLU decision of one of the
+    row's units taken on the other side, a unit whose |z| (`relu_inputs`,
+    the plain version's arithmetic) is within one rounding step of the
+    dtype of its own input scale (`input_scales`), tried nearest first
+    (`flip_rows`); the rows so verified are left out, the rest held at both
+    `limits`. `fixes`: each verified row's index and the plain row with
+    its flip, which `flipped_dxj` carries into dxj."""
+    tol_max, tol_rms = limits
+    rms = filled_compare(got, want, sparse)[2]
+    by_row = (got.float() - want.float()).abs().amax(-1)
+    miss = (by_row > tol_max * rms).nonzero()[:, 0]
+    if len(miss) > FLIP_ROWS_MAX:
+        return (False, f"  flips: {len(miss)} rows miss, over "
+                       f"{FLIP_ROWS_MAX}", {})
+    if args[1].dim() == 3:  # a batch: sample s's rows at s·E_pad
+        e_pad = args[0].n_pad_edges
+        found = []
+        for smp in sorted(set((miss // e_pad).tolist())):
+            frame = tuple(a[smp] if torch.is_tensor(a) and a.dim() == 3
+                          else a for a in args)
+            at = miss[miss // e_pad == smp] - smp * e_pad
+            rows = slice(smp * e_pad, (smp + 1) * e_pad)
+            found += [(smp * e_pad + e, n, hit, fix) for e, n, hit, fix
+                      in flip_rows(frame, got[rows], want[rows], at, rms,
+                                   tol_max)]
+    else:
+        found = flip_rows(args, got, want, miss, rms, tol_max)
     keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
     keep[miss] = False
     err, err_rms, rms_k, zero_ok, _ = filled_compare(got[keep], want[keep],
                                                      sparse)
-    verified = sum(hit is not None for _, _, hit in found)
+    verified = sum(hit is not None for _, _, hit, _ in found)
     ok = (verified == len(miss) and err <= tol_max * rms_k
           and err_rms <= tol_rms * rms_k and zero_ok)
     rows = "; ".join(
         f"row {e} ({n} units within the step): "
         + (f"layer {hit[0]} unit {hit[1]} |z| {hit[2]:.2e}, "
            f"{hit[3]:.2e} of the step" if hit else "NONE")
-        for e, n, hit in found)
+        for e, n, hit, _ in found)
     return ok, (f"  flips: {verified} of {len(miss)} rows that miss "
                 f"verified, each the plain row with the named unit on its "
                 f"other side ({rows}); the other rows max "
                 f"{frac(err, rms_k):.2e}, rms {frac(err_rms, rms_k):.2e}: "
-                f"{'verified' if ok else 'FAIL'}")
+                f"{'verified' if ok else 'FAIL'}"), {
+                    e: fix for e, _, hit, fix in found if hit is not None}
+
+
+def flipped_dxj(args, want_dxj, want_dpre, fixes):
+    """The plain dxj rows `want_dxj` with each verified dpre flip (`fixes`:
+    dpre row → the plain row with its flip, `verify_flips`) carried to its
+    receiver's row: the reference a kernel whose dpre takes those flips
+    must meet. Rows of a batch sample by sample, as `verify_flips` takes
+    them."""
+    if not fixes:
+        return want_dxj
+    level = args[0]
+    e_pad, n_pad = level.n_pad_edges, level.n_pad_nodes
+    recv = level.receivers.long()
+    out = want_dxj.clone()
+    for e, fix in fixes.items():
+        smp, el = divmod(e, e_pad)
+        out[smp * n_pad + recv[el]] += fix.float() - want_dpre[e].float()
+    return out
 
 
 def check_slice(case, device):
@@ -2937,7 +3114,7 @@ def row_walk_line(name, where, dtype, args):
     """Kernel 8's, 9's or 10's launch shape for one call: kernel 8's and
     9's lists (the longest, the rows cut into pieces) and grid; kernel 10's
     tile (`agg_node.tile_design`) and grid."""
-    from bsms_gnn_tpu_torch.ops.kernels import agg_node
+    from bsms_gnn_tpu_torch.ops.kernels import agg_node, node_mlp
 
     lvl = args[0]
     line = (f"walk {name} {where} {str(dtype)[6:]}: lists "
@@ -2945,13 +3122,12 @@ def row_walk_line(name, where, dtype, args):
     if name in ("segment_sum", "segment_sum_accum"):
         n, n_long = lvl.n_pad_nodes, lvl.row_long.numel()
         return line + f", grid {-(-n // 32) + n_long} blocks of 8 warps"
-    n = args[2].shape[0]
+    n, c = args[2].shape[0], args[2].shape[-1]
     tile = agg_node.tile_design(n, torch.cuda.get_device_properties(
         args[2].device).multi_processor_count)
-    rows = agg_node.TILES[tile][1]
-    grid = (f"{n // rows * agg_node.CLUSTER} CTAs in clusters of "
-            f"{agg_node.CLUSTER}" if tile.startswith("cluster")
-            else f"{n // rows} blocks")
+    rows, cl = agg_node.TILES[tile][1], node_mlp.cluster_of(c)
+    grid = (f"{n // rows * cl} CTAs in clusters of {cl}"
+            if tile.startswith("cluster") else f"{n // rows} blocks")
     return line + f"; {tile}: {n // rows} tiles of {rows} rows, grid {grid}"
 
 
@@ -3030,10 +3206,13 @@ def check_bwd_kernels(case, device, inputs=None):
                 # exactly zero (over all rows the RMS would shrink by
                 # sqrt(rows / filled), 16x for dpre at airfoil level 6).
                 sparse = name in TILE_WALKS and where != shapes[0][0]
+                fixes = {}  # dpre's verified flips (`verify_flips`)
                 for i, out in enumerate(BWD_OUTPUTS[name]):
                     tol_max, tol_rms = BWD_TOL[(name, dtype)]
+                    ref = (flipped_dxj(args, want[i], want[0], fixes)
+                           if out == "dxj" else want[i])
                     err, err_rms, rms, zero_ok, live = filled_compare(
-                        got[i], want[i], sparse)
+                        got[i], ref, sparse)
                     rows = int(((got[i].float() - want[i].float()).abs()
                                 .amax(-1) > 1e-2 * rms).sum())
                     ok = (err <= tol_max * rms and err_rms <= tol_rms * rms
@@ -3041,7 +3220,10 @@ def check_bwd_kernels(case, device, inputs=None):
                           and bool(torch.isfinite(got[i]).all())
                           and got[i].dtype == want[i].dtype)
                     line = (f"kernel {name:24s} {where:8s} {out:5s} "
-                            f"{str(dtype)[6:]:9s} max_abs_err {err:.3e} "
+                            + (f"(the plain dxj with dpre's {len(fixes)} "
+                               f"verified flips) " if ref is not want[i]
+                               else "")
+                            + f"{str(dtype)[6:]:9s} max_abs_err {err:.3e} "
                             f"({frac(err, rms):.2e} of rms {rms:.3e}"
                             f"{' over the filled rows' if sparse else ''}, tol "
                             f"{tol_max:.0e}, row {worst_row(got[i], want[i])})"
@@ -3052,7 +3234,7 @@ def check_bwd_kernels(case, device, inputs=None):
                         line += "; no control: the plain output is all zero"
                     elif ctrl is not None:
                         c_err, c_rms, _, c_zero, _ = filled_compare(
-                            ctrl[i], want[i], sparse)
+                            ctrl[i], ref, sparse)
                         missed = (c_err > tol_max * rms
                                   or c_rms > tol_rms * rms or not c_zero)
                         line += (f"; control max {frac(c_err, rms):.2e}, rms "
@@ -3063,9 +3245,10 @@ def check_bwd_kernels(case, device, inputs=None):
                         print(relu_margin(name, args, got[i], want[i],
                                           tol_max * rms, ROW_KIND.get(
                                               out, "all")))
-                        if (case.get("dense") and out == "dpre" and name
+                        if ((case.get("dense") or case.get("flips"))
+                                and out == "dpre" and name
                                 == "fused_edge_phase_win_dyn_bwd"):
-                            ok, note = verify_flips(
+                            ok, note, fixes = verify_flips(
                                 args, got[i], want[i], (tol_max, tol_rms),
                                 sparse)
                             print(note)
@@ -3183,6 +3366,43 @@ def kernel5_fault(kind):
 
     fault.launches = 0
     return fused_gmp, "fused_edge_phase_win_bwd", fault
+
+
+def kernel13_fault():
+    """(module, attribute, stand-in) of a faulty kernel 13 backward for the
+    wide flag's control: the whole backward in its bf16 mode (every dot
+    operand rounded to bf16) on the f32 step's inputs, positions included,
+    as a wrapper that picked the wrong entry would run it."""
+    from bsms_gnn_tpu_torch.ops.kernels import fused_gmp_dyn
+
+    bwd = fused_gmp_dyn.fused_edge_phase_win_dyn_bwd
+
+    def fault(level, xwi, xj, pos, wf8, wfd, wfn, weights, biases, g):
+        bf = torch.bfloat16
+        dpre, *rest = bwd(level, xwi.to(bf), xj.to(bf), pos.to(bf), wf8,
+                          wfd, wfn, weights, biases, g)
+        return (dpre.to(xwi.dtype), *rest)
+
+    fault.launches = 0
+    return fused_gmp_dyn, "fused_edge_phase_win_dyn_bwd", fault
+
+
+def failing_control(case, fault, what):
+    """Require that the case's f32 step with a faulty kernel (`fault`:
+    module, attribute, stand-in) fails the step's gate against the plain
+    step `check_train` took."""
+    mod, attr, stand_in = fault
+    saved = getattr(mod, attr)
+    setattr(mod, attr, stand_in)
+    try:
+        loss_c, grads_c = step_grads(case["sim"], case["hd"], *case["train"],
+                                     case["mask"], None)
+    finally:
+        setattr(mod, attr, saved)
+    require(not train_verdict(case, torch.float32, loss_c, grads_c,
+                              what=f" (control: {what})"),
+            f"{case['label']}: the f32 step with {what} passed the step's "
+            f"gate")
 
 
 def grad_errors(grads, want):
@@ -3784,8 +4004,8 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
     backward's dpre rows that miss are verified as flips (`verify_flips`),
     and kernel 9's drawn samples are zero on their pad slots
     (`pad_zeroed`, each on its own layout), as the B = 1 check's are. With
-    `clear` (the wide airfoil), kernels 4's and 5's drawn f32 samples are
-    cleared of ReLU inputs near their kinks the same way.
+    `clear` (the wide airfoil and flag), kernels 4's, 5's and 13's drawn
+    f32 samples are cleared of ReLU inputs near their kinks the same way.
     Returns the largest max_abs_err against the plain version."""
     fn, plain = kernel_modules()[name]
     bargs = batch_args(name, args, n, seed)
@@ -3798,7 +4018,9 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
     cargs = bargs if meshes is None else union_args(name, bargs, meshes)
     if (dense and name.startswith("fused_edge_phase_win_dyn")) or (
             clear and dtype == torch.float32
-            and name in ("fused_edge_phase_win", "fused_edge_phase_win_bwd")):
+            and name in ("fused_edge_phase_win", "fused_edge_phase_win_bwd",
+                         "fused_edge_phase_win_dyn",
+                         "fused_edge_phase_win_dyn_bwd")):
         cargs = clear_kinks(name, cargs, torch.Generator().manual_seed(seed))
         bargs = list(bargs)
         bargs[1] = cargs[1].reshape(n, -1, cargs[1].shape[-1])
@@ -3831,17 +4053,23 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
         ctrl = call(fn, tuple(up)) if up else None
     ones = [call(fn, sample_args(name, bargs, s, meshes)) for s in range(n)]
     worst, notes = 0.0, []
+    fixes = {}  # dpre's verified flips (`verify_flips`)
     for i, out in enumerate(outs):
+        ref = (flipped_dxj(cargs, rows(want[i]), rows(want[0]), fixes)
+               if out == "dxj" else rows(want[i]))
         err, err_rms, rms, zero_ok, live = filled_compare(
-            rows(got[i]), rows(want[i]), sparse)
+            rows(got[i]), ref, sparse)
         ok = (err <= tol_max * rms and err_rms <= tol_rms * rms and zero_ok
               and bool(torch.isfinite(got[i]).all()))
         worst = max(worst, err)
-        note = (f"{out} vs plain max {frac(err, rms):.2e} rms "
-                f"{frac(err_rms, rms):.2e} of rms")
+        note = (f"{out} vs plain"
+                + (f" (with dpre's {len(fixes)} verified flips)"
+                   if out == "dxj" and fixes else "")
+                + f" max {frac(err, rms):.2e} rms {frac(err_rms, rms):.2e} "
+                  f"of rms")
         if ctrl is not None and live:
             c_err, c_rms, _, c_zero, _ = filled_compare(
-                rows(ctrl[i]), rows(want[i]), sparse)
+                rows(ctrl[i]), ref, sparse)
             missed = (c_err > tol_max * rms or c_rms > tol_rms * rms
                       or not c_zero)
             note += f", control {'misses' if missed else 'PASSES'}"
@@ -3861,10 +4089,11 @@ def check_batched(name, where, args, dtype, sparse, seed, n=BATCH_CHECK,
             note += (f", vs the sum of the samples' calls max "
                      f"{frac(s_err, s_ref):.2e} rms {frac(s_rms, s_ref):.2e}")
             ok = ok and summed
-        if (not ok and dense and out == "dpre"
+        if (not ok and (dense or clear) and out == "dpre"
                 and name == "fused_edge_phase_win_dyn_bwd"):
-            verified, line = verify_flips(cargs, rows(got[i]), rows(want[i]),
-                                          (tol_max, tol_rms), sparse)
+            verified, line, fixes = verify_flips(
+                cargs, rows(got[i]), rows(want[i]), (tol_max, tol_rms),
+                sparse)
             print(line)
             ok = verified and each
         notes.append(note + ("" if ok else " FAIL"))
@@ -4769,12 +4998,7 @@ def run_ell_case(device, path, e2e):
                                                 train_target(case))
     peak1 = check_ell_step(case, twins["segment"], hd0, node_in, tar,
                            case["mask"])
-    total = torch.cuda.get_device_properties(0).total_memory / 2**20
-    b = int(min(BATCH_TRAIN, ELL_TRAIN_MEM_SHARE * total // max(peak1, 1.0)))
-    print(f"[{label}] train batch {b}: the B = 1 step's peak {peak1:.1f} MiB "
-          f"times B within {ELL_TRAIN_MEM_SHARE} of the card's {total:.0f} "
-          f"MiB" + ("" if b == BATCH_TRAIN else
-                    f" (BATCH_TRAIN = {BATCH_TRAIN} would not fit)"))
+    b = fitting_batch(peak1, label, BATCH_TRAIN)
     frames = batch_frames(case, b, 22)
     hd = batch_hd(b)
     check_ell_step(case, twins["segment"], hd, *frames)
@@ -5203,15 +5427,7 @@ def run_plate_case(device, e2e):
         check_served_batch(case, device)
     case["train"] = case["train_frames"]
     train = check_train(case, device)
-    total = torch.cuda.get_device_properties(0).total_memory / 2**20
-    peak1 = case["train_peak"]
-    b = int(min(BATCH_TRAIN, ELL_TRAIN_MEM_SHARE * total // max(peak1, 1.0)))
-    print(f"[{label}] train batch {b}: the B = 1 step's largest own peak "
-          f"{peak1:.1f} MiB times B within {ELL_TRAIN_MEM_SHARE} of the "
-          f"card's {total:.0f} MiB" + ("" if b == BATCH_TRAIN else
-                                       f" (BATCH_TRAIN = {BATCH_TRAIN} "
-                                       f"would not fit)"))
-    require(b >= BATCH_CHECK, f"{label}: a train batch of {b}")
+    b = fitting_batch(case["train_peak"], label, BATCH_TRAIN)
     frames = plate_frames(case, b, 22)
     hd = case["union"](b)
     check_train(dict(case, hd=hd, train=frames[:2], mask=frames[2],
@@ -5286,22 +5502,93 @@ def run_wide_case(device, e2e):
     train = check_train(case, device)
     # The control: kernel 5 in its bf16 mode in the f32 step must fail the
     # step's gate.
-    mod, attr, fault = kernel5_fault("bf16")
-    saved = getattr(mod, attr)
-    setattr(mod, attr, fault)
-    try:
-        loss_c, grads_c = step_grads(case["sim"], case["hd"], *case["train"],
-                                     case["mask"], None)
-    finally:
-        setattr(mod, attr, saved)
-    require(not train_verdict(case, torch.float32, loss_c, grads_c,
-                              what=" (control: kernel 5 in bf16 mode)"),
-            f"{case['label']}: the f32 step with kernel 5 in its bf16 mode "
-            f"passed the step's gate")
+    failing_control(case, kernel5_fault("bf16"), "kernel 5 in bf16 mode")
     train_rows, train_out = measure_train(case, device)
     rows.update(train_rows)
     out.update(train_out)
     frames = batch_frames(case, BATCH_TRAIN, 22)
+    out.update(measure_batch_train(case, device, case["hd"], frames,
+                                   BATCH_TRAIN, e2e))
+    del case, frames
+    torch.cuda.empty_cache()
+    return errs, rows, serve, train, out
+
+
+def fitting_batch(peak1, label, cap):
+    """The largest batch up to `cap` whose step, at the B = 1 step's
+    largest own peak `peak1` (MiB) times B, stays within
+    ELL_TRAIN_MEM_SHARE of the card."""
+    total = torch.cuda.get_device_properties(0).total_memory / 2**20
+    b = int(min(cap, ELL_TRAIN_MEM_SHARE * total // max(peak1, 1.0)))
+    print(f"[{label}] train batch {b}: the B = 1 step's largest own peak "
+          f"{peak1:.1f} MiB times B within {ELL_TRAIN_MEM_SHARE} of the "
+          f"card's {total:.0f} MiB" + ("" if b == cap else
+                                       f" ({cap} would not fit)"))
+    require(b >= BATCH_CHECK, f"{label}: a train batch of {b}")
+    return b
+
+
+def run_surface_wide_case(device, e2e):
+    """Phase 30 (module docstring). Returns (kernel errors, kernel rows,
+    forward launch counts, train-step launch counts, end-to-end times) as
+    `run_case` does."""
+    names = ("segment_sum", "fused_aggregate_node_phase")
+    with torch.no_grad():
+        case = dict(build_surface_case(device, wide=True),
+                    frames=surface_frames)
+        describe(case)
+        errs = check_kernels(case, device)
+        check_agg_identity(case)
+        check_halves(case)
+        serve = check_slice(case, device)
+        rows, out = measure(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shapes in batch_inputs(case, dtype, device, names):
+                for k, (where, args) in enumerate(shapes):
+                    check_batched(name, where, args, dtype, False,
+                                  SURFACE_WIDE_SEED + 50 * k)
+        check_agg_identity(case, BATCH_CHECK)
+    case["train"] = case["train_frames"]
+    train = check_train(case, device)
+    train_rows, train_out = measure_train(case, device)
+    rows.update(train_rows)
+    out.update(train_out)
+    b = fitting_batch(case["train_peak"], case["label"], BATCH_TRAIN_SURFACE)
+    frames = surface_frames(case, b, 22)
+    out.update(measure_batch_train(case, device, case["hd"], frames, b, e2e))
+    out["train_batch"] = b
+    del case, frames
+    torch.cuda.empty_cache()
+    return errs, rows, serve, train, out
+
+
+def run_flag_wide_case(device, e2e):
+    """Phase 31 (module docstring). Returns (kernel errors, kernel rows,
+    forward launch counts, train-step launch counts, end-to-end times) as
+    `run_case` does."""
+    names = ("fused_edge_phase_win_dyn", "fused_edge_phase_win_dyn_bwd")
+    with torch.no_grad():
+        case = dict(build_flag_case(device, wide=True), frames=flag_frames)
+        describe(case)
+        errs = check_kernels(case, device)
+        errs.update(check_bwd_kernels(case, device))
+        serve = check_slice(case, device)
+        rows, out = measure(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shapes in batch_inputs(case, dtype, device, names):
+                for k, (where, args) in enumerate(shapes):
+                    check_batched(name, where, args, dtype, k > 0,
+                                  FLAG_WIDE_SEED + 50 * k, clear=True)
+    case["train"] = case["train_frames"]
+    train = check_train(case, device)
+    # The control: kernel 13's backward in its bf16 mode in the f32 step
+    # must fail the step's gate.
+    failing_control(case, kernel13_fault(), "kernel 13's backward in bf16 "
+                                            "mode")
+    train_rows, train_out = measure_train(case, device)
+    rows.update(train_rows)
+    out.update(train_out)
+    frames = flag_frames(case, BATCH_TRAIN, 22)
     out.update(measure_batch_train(case, device, case["hd"], frames,
                                    BATCH_TRAIN, e2e))
     del case, frames
@@ -6596,7 +6883,9 @@ def main() -> int:
              ("airfoil_auto", None, "airfoil_auto_"),
              ("airfoil_halo", None, "airfoil_halo_"),
              ("airfoil_eshard", None, "airfoil_eshard_"),
-             ("airfoil_wide", None, "airfoil_wide_"))
+             ("airfoil_wide", None, "airfoil_wide_"),
+             ("surface_wide", None, "surface_wide_"),
+             ("flag_wide", None, "flag_wide_"))
     errs, rows, serve, train, e2e = {}, {}, {}, {}, {}
     try:
         print(f"card: {card_line()}")
@@ -6611,6 +6900,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
         for phase, build_fn, prefix in paths:
+            t_phase = time.perf_counter()
             if build_fn is not None:
                 got = run_case(build_fn, device)
             elif phase in ELL_PATHS:
@@ -6627,12 +6917,17 @@ def main() -> int:
                 got = run_eshard_case(device, e2e)
             elif phase == "airfoil_wide":
                 got = run_wide_case(device, e2e)
+            elif phase == "surface_wide":
+                got = run_surface_wide_case(device, e2e)
+            elif phase == "flag_wide":
+                got = run_flag_wide_case(device, e2e)
             else:
                 got = run_batch_case(device, phase)
             errs[phase], rows[phase], serve[phase], train[phase], t = got
             e2e.update({prefix + k: v for k, v in t.items()})
             print(f"{phase} phases done at "
-                  f"{time.perf_counter() - t_start:.1f} s")
+                  f"{time.perf_counter() - t_start:.1f} s (this path "
+                  f"{time.perf_counter() - t_phase:.1f} s)")
         with torch.no_grad():
             v6_errs, v6_rows, v6_launches, v6_e2e = v6_bench(device)
         e2e.update(v6_e2e)

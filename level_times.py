@@ -12,8 +12,13 @@ fused method), 12's forward (every level of the unwindowed 5k airfoil),
 level of the unwindowed airfoil, kernels 3, 6, 5 and 4 at every level of
 the 5k airfoil (chip_smoke.py's main path), and 11's backward at its
 first shape (the flag's level 0, edge_block 512). Kernels 1, 2, 7, 8 and
-9 are timed beside their library call (`index_add_`, `torch.sparse.mm`;
-CUDA events). A kernel on a tile walk also prints the blocks per SM it
+9 are timed beside their plain version and their library call
+(`index_add_`, `torch.sparse.mm`; CUDA events), with the sums of both over
+a train step's launches where the kernel is timed at every shape. At
+latent 256 with four tail layers (chip_smoke.py's phases 30 and 31):
+kernels 8 and 10 on `surface_wide` (kernel 10 also on each of its tiles:
+the sweep its rule was picked by) and 13 (forward and backward) on
+`flag_wide`. A kernel on a tile walk also prints the blocks per SM it
 reaches.
 
 Each figure is the device ms of one call (the profiler's, summed over the
@@ -34,6 +39,7 @@ the step starts with, each read after the previous path's case is freed.
     python3 level_times.py              # the port beside this script
     python3 level_times.py --root DIR   # the port of another checkout
     python3 level_times.py --paths cylinder,airfoil   # only these paths
+    python3 level_times.py --paths surface_wide,flag_wide   # latent 256
     python3 level_times.py --batch 48 --pmax 82,264,w2   # and a batch
 
 With `--batch B` the airfoil path also times kernels 1-7 on a batch of B
@@ -93,6 +99,12 @@ KERNELS = {
     "kernel 13 bwd": ("flag", "fused_edge_phase_win_dyn_bwd", True, True),
     "kernel 10": ("surface", "fused_aggregate_node_phase", False, True),
     "kernel 11 bwd": ("flag", "fused_edge_mlp_aggregate_bwd", True, False),
+    # Latent 256, four tail layers (chip_smoke.py's phases 30 and 31).
+    "kernel 10 wide": ("surface_wide", "fused_aggregate_node_phase", False,
+                       True),
+    "kernel 13 wide": ("flag_wide", "fused_edge_phase_win_dyn", False, True),
+    "kernel 13 bwd wide": ("flag_wide", "fused_edge_phase_win_dyn_bwd", True,
+                           True),
 }
 def segment_sum_step(where, depth):
     """Kernel 8's launches at a surface shape in one train step: three in
@@ -123,6 +135,8 @@ def accum_step(where, depth):
 SHAPES = {
     "kernel 9": ("cylinder", "segment_sum_accum", False, accum_step),
     "kernel 8": ("surface", "segment_sum", False, segment_sum_step),
+    "kernel 8 wide": ("surface_wide", "segment_sum", False,
+                      segment_sum_step),
     "kernel 1 level form": ("cylinder", "windowed_conv", False, None),
     "kernel 2": ("airfoil", "compact_accum", False, None),
     "kernel 7": ("airfoil", "windowed_send_sum", True, None),
@@ -280,18 +294,20 @@ def store_call(fn, args):
 
 
 def time_shapes(cs, case, device, label, name, bwd, step_launches):
-    """{dtype: {"shapes": {where: ms}, "bounds": {where: ms}, "library":
-    {where: ms}}} at every shape chip_smoke.py lists for the kernel (the
-    library call's time by CUDA events, None where there is none); with
-    `step_launches` also {"step_ms", "step_bound_ms"}: the sums over one
-    train step's launches."""
-    fn = cs.kernel_modules()[name][0]
+    """{dtype: {"shapes": {where: ms}, "bounds": {where: ms}, "plain":
+    {where: ms}, "library": {where: ms}}} at every shape chip_smoke.py
+    lists for the kernel (the plain version's and the library call's times
+    by CUDA events, the library None where there is none); with
+    `step_launches` also {"step_ms", "step_bound_ms", "step_plain_ms",
+    "step_library_ms"}: the sums over one train step's launches (the
+    library's None where a shape has none)."""
+    fn, plain = cs.kernel_modules()[name]
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         shapes = (cs.bwd_kernel_inputs if bwd else cs.kernel_inputs)(
             case, dtype, device)[name]
         key = str(dtype)[6:]
-        per, bound, lib = {}, {}, {}
+        per, bound, pl, lib = {}, {}, {}, {}
         for where, args in shapes:
             call = (store_call(fn, args) if where.endswith("store")
                     else functools.partial(fn, *args))
@@ -299,11 +315,13 @@ def time_shapes(cs, case, device, label, name, bwd, step_launches):
                 digest(label, dtype, where, call())
             per[where] = device_ms(call)
             bound[where] = bound_ms(cs, name, args, dtype)
+            pl[where] = cs.event_ms(lambda: cs.run(name, plain, args), reps=20)
             lc = cs.library_call(name, args)
             lib[where] = None if lc is None else cs.event_ms(lc, reps=50)
-        out[key] = {"shapes": per, "bounds": bound, "library": lib}
+        out[key] = {"shapes": per, "bounds": bound, "plain": pl,
+                    "library": lib}
         line = f"{label} ({name}) {key}: " + ", ".join(
-            f"{w} {per[w]:.5f} (bound {bound[w]:.5f}"
+            f"{w} {per[w]:.5f} (bound {bound[w]:.5f}, plain {pl[w]:.5f}"
             + ("" if lib[w] is None else f", library {lib[w]:.5f}") + ")"
             for w in per) + " ms"
         if step_launches is not None:
@@ -311,8 +329,14 @@ def time_shapes(cs, case, device, label, name, bwd, step_launches):
             step = out[key]["step_ms"] = sum(per[w] * k for w, k in n.items())
             sb = out[key]["step_bound_ms"] = sum(bound[w] * k
                                                  for w, k in n.items())
+            sp = out[key]["step_plain_ms"] = sum(pl[w] * k
+                                                 for w, k in n.items())
+            sl = out[key]["step_library_ms"] = (
+                None if any(lib[w] is None for w, k in n.items() if k)
+                else sum(lib[w] * k for w, k in n.items() if k))
             line += (f"; the {sum(n.values())} launches of a step {step:.4f} "
-                     f"ms against {sb:.4f} ms of bound")
+                     f"ms against {sb:.4f} ms of bound, plain {sp:.4f} ms, "
+                     f"library " + ("none" if sl is None else f"{sl:.4f} ms"))
         print(line)
     return out
 
@@ -344,7 +368,8 @@ def sweep_tiles(cs, case, device):
                     ms[tile] = device_ms(lambda: fn(*args))
                 agg_node.tile_design = rule
                 out[key][where] = ms
-                print(f"kernel 10 {key} {where} by tile: " + ", ".join(
+                print(f"kernel 10 C={args[2].shape[-1]} {key} {where} by tile: "
+                      + ", ".join(
                     f"{t} {v:.5f}" for t, v in ms.items())
                     + f" ms; the rule picks {rule(args[2].shape[0], sms)}")
     finally:
@@ -584,7 +609,10 @@ def main() -> int:
                                                   aggregation="fused4"),
               "surface_fused": functools.partial(cs.build_surface_case,
                                                  aggregation="fused"),
-              "cylinder": cs.cylinder_batch_case}
+              "cylinder": cs.cylinder_batch_case,
+              "surface_wide": functools.partial(cs.build_surface_case,
+                                                wide=True),
+              "flag_wide": functools.partial(cs.build_flag_case, wide=True)}
     if opts.paths:
         keep = opts.paths.split(",")
         unknown = set(keep) - set(builds)
@@ -613,6 +641,8 @@ def main() -> int:
             if path == "surface":
                 out["kernel 10 tiles"] = sweep_tiles(cs, case, device)
                 node_bwd_digests(case, device)
+            if path == "surface_wide":
+                out["kernel 10 wide tiles"] = sweep_tiles(cs, case, device)
             if path == "airfoil":
                 subwin_digests(case, device)
             if path == "airfoil" and opts.batch:

@@ -68,6 +68,7 @@ from bsms_gnn_tpu_torch.graph.hierarchy import (
 )
 from bsms_gnn_tpu_torch.graph.mesh import to_flat_edge
 from bsms_gnn_tpu_torch.ops.kernels import agg_node
+from bsms_gnn_tpu_torch.ops.kernels import node_mlp as node_mlp_k
 from bsms_gnn_tpu_torch.ops.kernels.segment_sum import segment_sum_plain
 
 C = 128
@@ -239,16 +240,18 @@ def test_gather_order_is_not_list_order(spheres):
 # -- (b) ---------------------------------------------------------------------
 
 
-def tile_split(ptr, tile):
-    """Kernel 10's walk of a level on one of its tiles as (row, cta, warp,
-    share, [start, end)) work items: each tile's rows cut into its CTAs'
-    runs (a block of 8 warps per tile, or CLUSTER CTAs of 4 warps), warp w
-    of a CTA summing rows w, w + warps, ... of its run, one at a time; a
-    short row whole (share 0), a long row as its eight shares in turn,
-    share v walking pieces v, v + 8, ... of GATHER_PIECE positions."""
+def tile_split(ptr, tile, c=C):
+    """Kernel 10's walk of a level on one of its tiles at latent width c
+    as (row, cta, warp, share, [start, end)) work items: each tile's rows
+    cut into its CTAs' runs (a block of 8 warps per tile, or cluster_of(c)
+    CTAs of 4 warps: 4 at 128, 8 at 256), warp w of a CTA summing rows w,
+    w + warps, ... of its run, one at a time (each 128-column block of the
+    row in turn); a short row whole (share 0), a long row as its eight
+    shares in turn, share v walking pieces v, v + 8, ... of GATHER_PIECE
+    positions."""
     _, rows = agg_node.TILES[tile]
-    ctas, warps = ((agg_node.CLUSTER, CTA_WARPS) if tile.startswith("cluster")
-                   else (1, BLOCK_WARPS))
+    ctas, warps = ((node_mlp_k.cluster_of(c), CTA_WARPS)
+                   if tile.startswith("cluster") else (1, BLOCK_WARPS))
     run = rows // ctas
     items = []
     for t in range((len(ptr) - 1) // rows):
@@ -267,22 +270,17 @@ def tile_split(ptr, tile):
     return items
 
 
-@pytest.mark.parametrize("tile", list(agg_node.TILES))
-@pytest.mark.parametrize("sphere", list(SPHERES))
-def test_tile_split_covers_every_row_once(spheres, sphere, tile):
-    """Every row summed by one warp of one CTA (an empty row to zero), a
-    cluster's CTA q taking rows [q·R/4, (q+1)·R/4) of its R-row tile, and
-    every position of a long list once, in its share, in the gather's
-    order."""
-    _, ht = spheres[sphere]
+def check_tile_split(ht, tile, c):
+    """`test_tile_split_covers_every_row_once` at latent width c."""
     _, rows = agg_node.TILES[tile]
-    ctas = agg_node.CLUSTER if tile.startswith("cluster") else 1
+    ctas = node_mlp_k.cluster_of(c) if tile.startswith("cluster") else 1
+    assert rows % ctas == 0
     n_long = 0
     for lt in ht.levels:
         ptr = lt.row_ptr.numpy()
         n = len(ptr) - 1
         assert n % rows == 0
-        items = tile_split(ptr, tile)
+        items = tile_split(ptr, tile, c)
         owner = {}
         covered = np.zeros(ptr[-1], int)
         for r, cta, w, v, a, b in items:
@@ -302,6 +300,26 @@ def test_tile_split_covers_every_row_once(spheres, sphere, tile):
                        and b - a <= GATHER_PIECE for v, a, b in mine)
         n_long += lt.row_long.numel()
     assert n_long > 0
+
+
+@pytest.mark.parametrize("tile", list(agg_node.TILES))
+@pytest.mark.parametrize("sphere", list(SPHERES))
+def test_tile_split_covers_every_row_once(spheres, sphere, tile):
+    """Every row summed by one warp of one CTA (an empty row to zero), a
+    cluster's CTA q taking rows [q·R/4, (q+1)·R/4) of its R-row tile, and
+    every position of a long list once, in its share, in the gather's
+    order."""
+    check_tile_split(spheres[sphere][1], tile, C)
+
+
+@pytest.mark.parametrize("tile", list(agg_node.TILES))
+@pytest.mark.parametrize("sphere", list(SPHERES))
+def test_tile_split_covers_every_row_once_at_256(spheres, sphere, tile):
+    """The same at latent 256 (`agg_node.agg_plan`'s other width): the
+    cluster is 8 CTAs a 16-row tile, CTA q summing rows [2q, 2q + 2); the
+    one-block tiles split their rows as at 128 (a warp walks a row's list
+    once per 128-column block, in the same order)."""
+    check_tile_split(spheres[sphere][1], tile, 256)
 
 
 # -- (c) ---------------------------------------------------------------------
@@ -382,3 +400,4 @@ def test_tile_design_picks_a_kernel_tile(sms):
     if sms == 132:
         assert [agg_node.tile_design(n, sms) for n in surface] == (
             ["block 64"] * 2 + ["block 16"] * 2 + ["cluster 16"] * 4)
+

@@ -22,6 +22,9 @@ version and JAX's v4 backward (`fused_gmp.py::_get_bwd4`, interpret mode).
   the plain version and JAX, and a control that rounds dpre to bf16 first
   misses both.
 
+The "... wide" cases run (b) and (c) at latent 256 with four tail layers,
+on the `Wide` plan (32-slot tiles, 16-row slabs).
+
 Layouts: the flag's hierarchy (chip_smoke.py's: `make_grid_strip_mesh(1579,
 ny=32)`, Morton order, depth 5, edge_block 512, window 256; its levels
 hold 200, 152, 104, 80, 48 and 8 tiles) and `test_torch_port_contact.py`'s
@@ -84,17 +87,25 @@ NRM_TOL = {"plain": 1e-5, "jax": 2e-4}
 RELU_MARGIN = 3e-6
 GRIDS = (1, 25, 132)
 # A case name's suffix for four tail layers: the backward walk's `Deep`
-# plan at C = 128, 32-slot tiles (`fused_gmp.walk_plan`).
+# plan at C = 128, 32-slot tiles (`fused_gmp.walk_plan`); and for latent
+# 256 with four tail layers: its `Wide` plan, 32-slot tiles.
 DEEP = " deep"
+WIDE = " wide"
 
 
 def layers_of(name):
-    return 4 if name.endswith(DEEP) else LAYERS
+    return 4 if name.endswith((DEEP, WIDE)) else LAYERS
+
+
+def width_of(name):
+    """The case's latent width."""
+    return 256 if name.endswith(WIDE) else C
 
 
 def tr_of(name):
-    """The tile rows of kernel 13's backward walk at the case's depth."""
-    return fg.walk_plan(C, layers_of(name), "dyn", torch.float32)[1]
+    """The tile rows of kernel 13's backward walk at the case's shape."""
+    return fg.walk_plan(width_of(name), layers_of(name), "dyn",
+                        torch.float32)[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,7 +127,8 @@ def level(name):
     """(JAX level, the port's) by name ("flag L3"); "... cut one" and
     "... cut none" keep the first two live slots, or none, and move every
     other slot out of window."""
-    base, _, cut = name.removesuffix(DEEP).partition(" cut ")
+    base, _, cut = name.removesuffix(DEEP).removesuffix(WIDE).partition(
+        " cut ")
     mesh, lv = base.split(" L")
     hj, ht = hierarchies(mesh)
     jl, tl = hj.levels[int(lv)], ht.levels[int(lv)]
@@ -133,9 +145,10 @@ def level(name):
 def inputs(name, seed=0):
     """Kernel 13's backward inputs on a level (f32 numpy): xwi, xj (3·N(0,
     1)), the world positions (N(0, 1) on real nodes), wf8, wf_dyn, wf_nrm
-    (0.3), three tail layers at 0.2 (biases 0.05; four on a deep case), g
-    (N(0, 1))."""
+    (0.3), three tail layers at 0.2 (biases 0.05; four on a deep case; on a
+    wide case four at latent 256, at 0.2·√½), g (N(0, 1))."""
     _, tl = level(name)
+    C = width_of(name)  # noqa: N806 (the case's width)
     rng = np.random.default_rng(seed)
     n = tl.n_pad_nodes
     xwi, xj, g = (rng.standard_normal((n, C)).astype(np.float32)
@@ -145,8 +158,8 @@ def inputs(name, seed=0):
     wf8, wfd = ((0.3 * rng.standard_normal(s)).astype(np.float32)
                 for s in ((8, C), (WD, C)))
     wfn = (0.3 * rng.standard_normal(C)).astype(np.float32)
-    ws = tuple((0.2 * rng.standard_normal((C, C))).astype(np.float32)
-               for _ in range(layers_of(name)))
+    ws = tuple((0.2 * np.sqrt(128 / C) * rng.standard_normal((C, C)))
+               .astype(np.float32) for _ in range(layers_of(name)))
     bs = tuple((0.05 * rng.standard_normal(C)).astype(np.float32)
                for _ in range(layers_of(name)))
     return 3 * xwi, 3 * xj, wpos, wf8, wfd, wfn, ws, bs, g
@@ -171,6 +184,7 @@ def jax_bwd4(name, dt="float32"):
     lj, tl = level(name)
     xwi, xj, wpos, wf8, wfd, wfn, ws, bs, g = inputs(name)
     e, n, be = tl.n_pad_edges, tl.n_pad_nodes, tl.edge_block
+    C = width_of(name)  # noqa: N806 (the case's width)
     jd = jnp.dtype(dt)
 
     def ext(a):
@@ -227,10 +241,10 @@ def test_receiver_lists_hold_the_v4_backwards_slots(name):
 
 @pytest.mark.parametrize("name", ["flag L0", "flag L2", "flag L5",
                                   "flag L5 cut one", "flag L5 cut none",
-                                  "flag L2" + DEEP])
+                                  "flag L2" + DEEP, "flag L2" + WIDE])
 def test_dead_tiles_have_zero_dpre(name):
     _, tl = level(name)
-    tr = tr_of(name)
+    tr, C = tr_of(name), width_of(name)  # noqa: N806 (the case's width)
     live = win_live(tl)
     dead = dead_tiles(live, tr)
     n_live_tiles = int((~dead).sum())
@@ -288,7 +302,7 @@ def walk_partials(tl, delta, nrm, hs, ds, dpre, grid, tr=TR):
     """The G blocks' partials [dW | db | dwf8 | dwf_dyn | dwf_nrm] summed as
     the walk sums them (tiles of tr slots), split into (dW, db, dwf8,
     dwf_dyn, dwf_nrm)."""
-    n = len(hs)
+    n, C = len(hs), hs[0].shape[-1]  # noqa: N806 (the case's width)
 
     def term(s):
         return torch.cat(
@@ -304,7 +318,8 @@ def walk_partials(tl, delta, nrm, hs, ds, dpre, grid, tr=TR):
             dwfd.view(WD, C), dwfn)
 
 
-@pytest.mark.parametrize("name", ["flag L0", "strip L0", "strip L0" + DEEP])
+@pytest.mark.parametrize("name", ["flag L0", "strip L0", "strip L0" + DEEP,
+                                  "strip L0" + WIDE])
 def test_walk_order_of_sums(name):
     """dxj by the receiver lists, the weight gradients by block partials,
     against the plain outputs and JAX's v4 backward."""

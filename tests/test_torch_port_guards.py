@@ -85,7 +85,8 @@ def _sources():
                                           REPO / "build_times.py",
                                           REPO / "level_times.py",
                                           REPO / "bwd_plan_sweep.py",
-                                          REPO / "bits_probe.py"]
+                                          REPO / "bits_probe.py",
+                                          REPO / "bf16_order.py"]
 
 
 def _imported_modules(path):
